@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (`dolomite_engine_tpu_torch`) on one NVIDIA GPU.
+
+Run from the repository root on a machine with a CUDA device:
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure raises and exits non-zero; nothing is caught):
+
+1. build the CUDA kernel library from `dolomite_engine_tpu_torch/csrc/` (set-up time);
+2. each kernel of the serving path against its plain PyTorch version on the card, at the
+   serving slice's shapes, in bf16 and fp32, with kernel, plain and library timings;
+3. the serving slice: granite-3b-code at full width and depth (32 layers, bf16, random
+   weights from the seed) behind `ServingEngine`, serving 8 requests of 300-1500 prompt
+   tokens and 64 greedy new tokens, two of them sharing a 512-token prefix. Launch
+   counts are zeroed just before and read just after; the model's logits on the kernel
+   path (chunked prefill into the paged pool, then decode steps) are held against a
+   plain full-sequence forward of the same model.
+
+4. the same requests once more under `torch.profiler`: device time by kernel and the
+   device's busy share.
+
+Prints the card's name and power limit, a ``kernel_cases`` line (every case of phase 2),
+a ``serving`` line, a ``profile`` line, the ``kernels`` line, and last
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+# granite-3b-code (configs/pretraining-examples/pretrain-v5e-256-granite-3b.yml)
+GRANITE_3B_CODE = dict(
+    vocab_size=49152, n_positions=4096, n_embd=2560, n_layer=32, n_head=32,
+    attention_head_type="mha", n_inner=10240, activation_function="swiglu",
+    normalization_function="rmsnorm", position_embedding_type="rope", rope_theta=10000,
+    add_bias=False, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0,
+    tie_word_embeddings=True, bos_token_id=0, eos_token_id=0, pad_token_id=0,
+)
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # fp32 outside the tensor cores
+
+NUM_SLOTS, MAX_LEN, PAGE, CHUNK = 8, 2048, 16, 512
+MAX_NEW = 64
+
+
+def _time_ms(fn, iters=20, warmup=3):
+    """Mean device time of one call, by CUDA events around `iters` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bf16_ulp(x):
+    import torch
+
+    _, exponent = torch.frexp(x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
+
+
+def _bound(nbytes, flops, dtype_name):
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _paged_case(gen, lengths, width, heads, head_dim, max_pages, dtype):
+    """Pages, a shuffled page table covering each slot's frontier (length 0 = idle slot
+    on the all-trash row) and the lengths, on the card."""
+    import numpy as np
+    import torch
+
+    num_pages = 1 + len(lengths) * max_pages
+    k = torch.randn((num_pages, PAGE, heads, head_dim), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((num_pages, PAGE, heads, head_dim), generator=gen, device="cuda").to(dtype)
+    order = list(np.random.RandomState(0).permutation(np.arange(1, num_pages)))
+    table = np.zeros((len(lengths), max_pages), np.int32)
+    for row, length in enumerate(lengths):
+        if length > 0:
+            used = min(-(-(length + width) // PAGE), max_pages)
+            table[row, :used] = [order.pop() for _ in range(used)]
+    return k, v, torch.as_tensor(table, device="cuda"), torch.as_tensor(
+        np.asarray(lengths, np.int32), device="cuda"
+    )
+
+
+def kernel_cases(seed):
+    """Phase 2: every kernel against its plain version at the slice's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from dolomite_engine_tpu_torch.ops.attention import paged_gather_kv
+    from dolomite_engine_tpu_torch.ops.kernels import (
+        paged_attention,
+        prefill_attention,
+        rmsnorm,
+        rope_qkv,
+    )
+
+    d, heads, head_dim = 2560, 32, 80
+    cases = []
+
+    def record(kernel, shape, dtype, got, want, tol_ok, tol, run, plain, library, nbytes, flops):
+        dtype_name = str(dtype).replace("torch.", "")
+        err = (got.float() - want.float()).abs().max().item()
+        bound_ms, bound_by = _bound(nbytes, flops, dtype_name)
+        case = {
+            "kernel": kernel, "shape": shape, "dtype": dtype_name,
+            "max_abs_err": err, "tolerance": tol, "within_tolerance": bool(tol_ok),
+            "kernel_ms": _time_ms(run), "plain_ms": _time_ms(plain),
+            "library_ms": None if library is None else _time_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        cases.append(case)
+        if not tol_ok:
+            raise AssertionError(f"{kernel} {shape} {dtype_name} disagrees with its plain version: {case}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        es = torch.tensor([], dtype=dtype).element_size()
+        fp32 = dtype == torch.float32
+
+        # rmsnorm: the ln_1 / ln_f form (no residual) and the ln_2 form (residual)
+        rows = 8 * 512
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+        r = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+        w = torch.randn((d,), generator=gen, device="cuda") * 0.1 + 1.0
+        for residual in (None, r):
+            got = rmsnorm.fused_rmsnorm(x, w, 1e-5, residual=residual)
+            want = rmsnorm.fused_rmsnorm_plain(x, w, 1e-5, residual=residual)
+            if residual is not None:
+                assert torch.equal(got[1], want[1]), "rmsnorm residual stream differs"
+                got, want = got[0], want[0]
+            diff = (got.float() - want.float()).abs()
+            ok = bool((diff <= 1e-5 + 1e-5 * want.float().abs()).all()) if fp32 else bool(
+                (diff <= 2 * _bf16_ulp(want)).all()
+            )
+            n_io = 2 if residual is None else 4
+            record(
+                "rmsnorm", f"[{rows},{d}]" + ("+residual" if residual is not None else ""),
+                dtype, got, want, ok, "1e-5" if fp32 else "2 bf16 ulp",
+                lambda res=residual: rmsnorm.fused_rmsnorm(x, w, 1e-5, residual=res),
+                lambda res=residual: rmsnorm.fused_rmsnorm_plain(x, w, 1e-5, residual=res),
+                (lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-5)) if residual is None else None,
+                n_io * rows * d * es + d * 4, 4 * rows * d,
+            )
+
+        # rope over the fused [Q | K | V] projection: a prefill chunk and a decode step
+        for batch, seq in ((1, 512), (8, 1)):
+            width = 3 * heads * head_dim
+            qkv = torch.randn((batch, seq, width), generator=gen, device="cuda").to(dtype)
+            angles = torch.rand((batch, seq, head_dim), generator=gen, device="cuda") * 6.0
+            cos, sin = angles.cos().to(dtype), angles.sin().to(dtype)
+            got = rope_qkv.fused_rope_qkv(qkv, cos, sin, heads, heads, head_dim)
+            want = rope_qkv.fused_rope_qkv_plain(qkv, cos, sin, heads, heads, head_dim)
+            v_cols = 2 * heads * head_dim
+            assert torch.equal(got[..., v_cols:], qkv[..., v_cols:]), "rope changed V"
+            diff = (got.float() - want.float()).abs()
+            if fp32:
+                ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+            else:
+                xs = qkv.float().reshape(batch, seq, -1, head_dim)
+                scale = (xs.abs() + xs.roll(head_dim // 2, -1).abs()).reshape(qkv.shape)
+                ok = bool((diff <= 2 * _bf16_ulp(scale)).all())
+            record(
+                "rope_qkv", f"[{batch},{seq},{width}]", dtype, got, want, ok,
+                "1e-5" if fp32 else "2 bf16 ulp of the larger term",
+                lambda: rope_qkv.fused_rope_qkv(qkv, cos, sin, heads, heads, head_dim),
+                lambda: rope_qkv.fused_rope_qkv_plain(qkv, cos, sin, heads, heads, head_dim),
+                None,
+                2 * batch * seq * width * es + 2 * batch * seq * head_dim * es,
+                6 * batch * seq * 2 * heads * head_dim,
+            )
+
+        # paged decode: 8 slots, ragged frontiers up to 2048, one idle slot
+        lengths = [2047, 1900, 1536, 1024, 777, 300, 64, 0]
+        max_pages = MAX_LEN // PAGE
+        k, v, table, lens = _paged_case(gen, lengths, 1, heads, head_dim, max_pages, dtype)
+        q = torch.randn((8, 1, heads, head_dim), generator=gen, device="cuda").to(dtype)
+        scale = head_dim**-0.5
+        got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale)
+        want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale)
+        tol = 1e-5 if fp32 else 2e-2
+        ok = bool(((got.float() - want.float()).abs() <= tol + (1e-5 if fp32 else 0) * want.float().abs()).all())
+        k_view = paged_gather_kv(k, table).transpose(1, 2)
+        v_view = paged_gather_kv(v, table).transpose(1, 2)
+        positions = torch.arange(max_pages * PAGE, device="cuda")
+        mask = (positions[None, :] <= lens[:, None])[:, None, None, :]
+        keys = sum(length + 1 for length in lengths)
+        record(
+            "paged_decode_attention", "q[8,1,32,80] pages[1025,16,32,80] max_len 2048",
+            dtype, got, want, ok, "1e-5" if fp32 else "2e-2 abs",
+            lambda: paged_attention.paged_decode_attention(q, k, v, table, lens, scale),
+            lambda: paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_view, v_view, attn_mask=mask, scale=scale),
+            2 * q.numel() * es + 2 * keys * heads * head_dim * es + table.numel() * 4 + 8 * 4,
+            4 * keys * heads * head_dim,
+        )
+
+        # paged prefill: one 512-token chunk at start 0 and over a 1024-token prefix
+        for start in (0, 1024):
+            k, v, table, _ = _paged_case(gen, [start + CHUNK - 1], 1, heads, head_dim, max_pages, dtype)
+            q = torch.randn((1, CHUNK, heads, head_dim), generator=gen, device="cuda").to(dtype)
+            starts = torch.tensor([start], dtype=torch.int32, device="cuda")
+            got = prefill_attention.paged_prefill_attention(q, k, v, table, starts, scale)
+            want = prefill_attention.paged_prefill_attention_plain(q, k, v, table, starts, scale)
+            ok = bool(((got.float() - want.float()).abs() <= tol + (1e-5 if fp32 else 0) * want.float().abs()).all())
+            k_view = paged_gather_kv(k, table).transpose(1, 2)
+            v_view = paged_gather_kv(v, table).transpose(1, 2)
+            q_pos = start + torch.arange(CHUNK, device="cuda")
+            mask = (positions[None, :] <= q_pos[:, None])[None, None]
+            pairs = sum(start + i + 1 for i in range(CHUNK))
+            record(
+                "paged_prefill_attention", f"q[1,{CHUNK},32,80] start {start} max_len 2048",
+                dtype, got, want, ok, "1e-5" if fp32 else "2e-2 abs",
+                lambda: prefill_attention.paged_prefill_attention(q, k, v, table, starts, scale),
+                lambda: prefill_attention.paged_prefill_attention_plain(q, k, v, table, starts, scale),
+                lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_view, v_view, attn_mask=mask, scale=scale),
+                2 * q.numel() * es + 2 * (start + CHUNK) * heads * head_dim * es + table.numel() * 4 + 4,
+                4 * pairs * heads * head_dim,
+            )
+    torch.cuda.synchronize()
+    return cases
+
+
+def plain_forward(model, ids):
+    """The model's full-sequence forward with every kernel's plain version called
+    explicitly (no cache): the reference for the kernel path's logits."""
+    import torch
+
+    from dolomite_engine_tpu_torch.models.modeling_utils import get_softmax_scale
+    from dolomite_engine_tpu_torch.ops.attention import attention
+    from dolomite_engine_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm_plain
+    from dolomite_engine_tpu_torch.ops.kernels.rope_qkv import fused_rope_qkv_plain
+    from dolomite_engine_tpu_torch.ops.rope import get_cos_sin
+
+    config, t = model.config, model.transformer
+    assert config.normalization_function == "rmsnorm" and config.m_residual is None
+    hq, hkv, hd = config.n_head, config.num_key_value_heads, config.head_dim
+    eps = config.layer_norm_epsilon
+    seq = ids.shape[1]
+    h = t.wte(ids)
+    cos, sin = get_cos_sin(t.rope_params, torch.arange(seq, device=ids.device)[None], h.dtype)
+    for block in t.h:
+        residual = h
+        x = fused_rmsnorm_plain(h, block.ln_1.weight, eps)
+        qkv = fused_rope_qkv_plain(block.attn.c_attn(x), cos, sin, hq, hkv, hd)
+        q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
+        a = attention(
+            q.reshape(1, seq, hq, hd), k.reshape(1, seq, hkv, hd), v.reshape(1, seq, hkv, hd),
+            causal=True, softmax_scale=get_softmax_scale(config, hd),
+        )
+        x, h = fused_rmsnorm_plain(block.attn.c_proj(a.reshape(1, seq, -1)), block.ln_2.weight, eps, residual=residual)
+        h = h + block.mlp(x)
+    return model.compute_logits(fused_rmsnorm_plain(h, t.ln_f.weight, eps))
+
+
+def kernel_path_logits(model, tokens, prompt_len):
+    """Logits at every position of `tokens` through the kernel path: the prompt in
+    512-token chunks into a fresh paged pool, then one decode step per further token."""
+    import torch
+
+    device = model.device
+    num_pages = -(-MAX_LEN // PAGE)
+    caches = model.init_kv_caches(1 + num_pages, PAGE)
+    table = torch.arange(1, num_pages + 1, dtype=torch.int32, device=device)[None]
+    kv = [{**c, "page_table": table} for c in caches]
+    logits = []
+    for start in range(0, prompt_len, CHUNK):
+        take = min(CHUNK, prompt_len - start)
+        width = -(-take // 64) * 64
+        ids = torch.zeros((1, width), dtype=torch.long, device=device)
+        ids[0, :take] = torch.as_tensor(tokens[start : start + take], device=device)
+        mask = torch.zeros((1, MAX_LEN), dtype=torch.int32, device=device)
+        mask[0, : start + take] = 1
+        out = model(
+            ids, position_ids=torch.arange(start, start + width, device=device)[None],
+            attention_mask=mask, kv_caches=kv,
+            cache_index=torch.tensor(start, dtype=torch.int32, device=device),
+        )
+        logits.append(out.logits[0, :take])
+    for pos in range(prompt_len, len(tokens)):
+        index = torch.tensor([pos], dtype=torch.int32, device=device)
+        out = model(
+            torch.tensor([[tokens[pos]]], device=device), position_ids=index[:, None],
+            kv_caches=kv, cache_index=index,
+        )
+        logits.append(out.logits[0])
+    return torch.cat(logits)
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
+    """Phase 3: granite-3b-code behind the serving engine (another config and the CPU
+    only to rehearse this script's control flow at a tiny size)."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.serving import RequestStatus, ServingEngine, serve_batch
+
+    config = CommonConfig(**config_kwargs)
+    t0 = time.perf_counter()
+    model = GPTDolomiteForCausalLM(config, dtype=torch.bfloat16, device=device, seed=seed)
+    device = model.device
+    _sync(device)
+    build_s = time.perf_counter() - t0
+
+    rs = np.random.RandomState(seed)
+    vocab = config.vocab_size
+    shared = rs.randint(1, vocab, 512).tolist()
+    lengths = rs.randint(300, 1501, 8).tolist()
+    prompts = [rs.randint(1, vocab, n).tolist() for n in lengths]
+    for i in (0, 7):  # same length range, first 512 tokens shared
+        prompts[i] = shared + prompts[i][: max(lengths[i] - 512, 16)]
+    specs = [dict(prompt_ids=p, max_new_tokens=MAX_NEW) for p in prompts]
+
+    # warm-up on a small engine (cuBLAS handles, allocator), launches not counted
+    warm = ServingEngine(model, None, num_slots=1, max_len=256, eos_token_id=None, device=device)
+    serve_batch(warm, [dict(prompt_ids=prompts[1][:100], max_new_tokens=2)])
+    del warm
+
+    engine = ServingEngine(
+        model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=config.pad_token_id,
+        device=device,
+    )
+    _sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # the request that shares request 0's prefix arrives after the first seven finished,
+    # so the prefix index holds request 0's pages when it is admitted
+    states = serve_batch(engine, specs[:7]) + serve_batch(engine, specs[7:])
+    _sync(device)
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+
+    stats = engine.stats
+    for state in states:
+        assert state.status == RequestStatus.completed, state.status
+        assert len(state.tokens) == MAX_NEW and all(0 <= t < vocab for t in state.tokens)
+    assert stats.prefix_hit_tokens > 0, "the shared prefix did not hit"
+    assert engine.pool.num_free == NUM_SLOTS
+    forwards = stats.decode_steps + stats.prefill_chunks
+    layers = config.n_layer
+    expected = {
+        "rmsnorm": (2 * layers + 1) * forwards,
+        "rope_qkv": layers * forwards,
+        "paged_decode_attention": layers * stats.decode_steps,
+        "paged_prefill_attention": layers * stats.prefill_chunks,
+    }
+    if device.type == "cuda":  # on the CPU (a rehearsal) the plain versions run
+        assert launches == expected, (launches, expected)
+
+    # the kernel path's logits against a plain full-sequence forward, request 2
+    probe = states[2]
+    tokens = probe.request.prompt_ids + probe.tokens[:4]
+    prompt_len = len(probe.request.prompt_ids)
+    ids = torch.tensor([tokens], device=device)
+    with torch.no_grad():
+        got = kernel_path_logits(model, tokens, prompt_len).float()
+        want = plain_forward(model, ids)[0].float()
+        # the same (bf16-rounded) weights in fp32: how far each bf16 path is from exact
+        exact_model = GPTDolomiteForCausalLM(config, dtype=torch.float32, device=device, seed=seed)
+        exact_model.load_state_dict(model.state_dict())
+        exact = plain_forward(exact_model, ids)[0].float()
+        del exact_model
+    assert bool(torch.isfinite(got).all())
+    diff = (got - want).abs()
+    kernel_err = (got - exact).abs().mean().item()
+    plain_err = (want - exact).abs().mean().item()
+    logit_std = want.std().item()
+    logits_check = {
+        "positions": len(tokens), "max_abs_err": diff.max().item(),
+        "mean_abs_err": diff.mean().item(), "logit_std": logit_std,
+        "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+        "kernel_path_mean_abs_err_vs_fp32": kernel_err,
+        "plain_bf16_mean_abs_err_vs_fp32": plain_err,
+        "tolerance": (
+            "kernel path vs plain bf16: mean abs err <= 0.1 logit std; and against the "
+            "fp32 forward the kernel path errs at most 1.25x the plain bf16 forward"
+        ),
+    }
+    # bf16 rounding differs between the two paths at every op of 32 layers (the plain
+    # attention rounds scores and probabilities to bf16, the kernels keep fp32), so the
+    # paths differ by bf16 noise; a wrong kernel would put the error at the logits' scale
+    assert diff.mean().item() <= 0.1 * logit_std, logits_check
+    assert kernel_err <= 1.25 * plain_err, logits_check
+
+    serving = {
+        "model": {
+            "n_layer": config.n_layer, "n_embd": config.n_embd, "n_head": config.n_head,
+            "vocab_size": config.vocab_size, "dtype": "bfloat16", "weights": "random",
+        },
+        "seed": seed, "requests": len(states), "prompt_tokens": [len(p) for p in prompts],
+        "max_new_tokens": MAX_NEW, "wall_s": wall_s, "model_init_s": build_s,
+        "ttft_mean_s": stats.mean_ttft_s(), "prefill_tok_s": stats.prefill_tok_s(),
+        "decode_tok_s": stats.decode_tok_s(), "prefill_tokens": stats.prefill_tokens,
+        "prefix_hit_tokens": stats.prefix_hit_tokens, "decode_steps": stats.decode_steps,
+        "prefill_chunks": stats.prefill_chunks, "launches": launches,
+        "logits_check": logits_check,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None,
+    }
+    return serving, launches, model, specs
+
+
+def profile_serving(model, specs):
+    """Phase 4: where the device time goes. The slice's requests are served again on a
+    fresh engine under torch.profiler; reports device kernel time by kernel name and the
+    device's busy share of the window (the profiler's own host cost lowers that share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
+
+    engine = ServingEngine(
+        model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=model.config.pad_token_id,
+    )
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only: less host cost
+        t0 = time.perf_counter()
+        serve_batch(engine, specs[:7])
+        serve_batch(engine, specs[7:])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [
+        (e.key, e.count, e.self_device_time_total / 1e3)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(ms for _, _, ms in kernels)
+    assert busy_ms > 0, "the profiler saw no device time"
+    return {
+        "wall_s": wall_s, "device_busy_s": busy_ms / 1e3, "device_busy_share": busy_ms / 1e3 / wall_s,
+        "decode_steps": engine.stats.decode_steps, "prefill_chunks": engine.stats.prefill_chunks,
+        "top_kernels": [
+            {"name": name[:96], "launches": count, "ms": ms, "share": ms / busy_ms}
+            for name, count, ms in sorted(kernels, key=lambda k: -k[2])[:15]
+        ],
+    }
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+    from dolomite_engine_tpu_torch.ops.kernels._build import load_library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    load_library()
+    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
+
+    cases = kernel_cases(args.seed)
+    print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
+
+    serving, launches, model, specs = serve(args.seed)
+    print(json.dumps({"serving": serving, "card": card}), flush=True)
+    print(json.dumps({"profile": profile_serving(model, specs), "card": card}), flush=True)
+
+    kernels = []
+    for spec in KERNELS:
+        main_case = next(c for c in cases if c["kernel"] == spec.name and c["dtype"] == "bfloat16")
+        worst = max(c["max_abs_err"] for c in cases if c["kernel"] == spec.name and c["dtype"] == "bfloat16")
+        assert launches[spec.name] > 0, f"{spec.name} was never launched on the main path"
+        kernels.append({
+            "name": spec.name, "route": "cuda", "source": spec.source, "replaces": spec.replaces,
+            "launches": launches[spec.name], "max_abs_err": worst,
+            "ms": main_case["kernel_ms"], "kernel_ms": main_case["kernel_ms"],
+            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            "shape": main_case["shape"], "tolerance": main_case["tolerance"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,236 @@
+"""GPTDolomite, the dense decoder, for inference with a paged KV pool.
+
+Counterpart of `dolomite_engine_tpu/models/gpt_dolomite.py`: `GPTDolomiteModel` and
+`GPTDolomiteForCausalLM` with learned-absolute, rope (+ YaRN) and nope positions, µP
+multipliers and a tied or untied LM head. Module names follow the flax parameter tree
+(``transformer.wte``, ``transformer.h.<i>.attn.c_attn``, ...), so `load_jax_params` maps
+the JAX package's unrolled params one to one. No loss, no remat, no scan: training is a
+later slice.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.rope import RoPEParams
+from .config import CommonConfig
+from .enums import PositionEmbeddingType
+from .modeling_utils import (
+    Block,
+    KVCache,
+    ParameterizedEmbedding,
+    ParameterizedLinear,
+    compute_position_stuff,
+    get_norm,
+)
+
+
+@dataclass
+class CausalLMOutput:
+    logits: torch.Tensor | None = None
+    kv_caches: list[KVCache] | None = None
+
+
+class GPTDolomiteModel(nn.Module):
+    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device) -> None:
+        super().__init__()
+        self.config = config
+        self.pe_type = PositionEmbeddingType(config.position_embedding_type)
+        if self.pe_type == PositionEmbeddingType.alibi:
+            raise NotImplementedError(
+                "alibi positions are not ported yet: ROADMAP.md Queue A, 'Training slice'"
+            )
+        self.wte = ParameterizedEmbedding(
+            config.vocab_size, config.n_embd, config.initializer_range, dtype, device
+        )
+        self.wpe = (
+            ParameterizedEmbedding(
+                config.n_positions, config.n_embd, config.initializer_range, dtype, device
+            )
+            if self.pe_type == PositionEmbeddingType.learned_absolute
+            else None
+        )
+        self.h = nn.ModuleList(Block(config, dtype, device) for _ in range(config.n_layer))
+        self.ln_f = get_norm(config, device)
+        self.rope_params = (
+            RoPEParams.from_config(
+                config.head_dim,
+                base=config.rope_theta,
+                rope_scaling=config.rope_scaling,
+                max_position_embeddings=config.n_positions,
+            )
+            if self.pe_type == PositionEmbeddingType.rope
+            else None
+        )
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        position_ids: torch.Tensor | None = None,
+        attention_mask: torch.Tensor | None = None,
+        kv_caches: list[KVCache] | None = None,
+        cache_index: torch.Tensor | int | None = None,
+    ) -> tuple[torch.Tensor, list[KVCache] | None]:
+        config = self.config
+        seq = input_ids.shape[1]
+        hidden_states = self.wte(input_ids)
+        if position_ids is None:
+            position_ids = torch.arange(seq, device=input_ids.device)[None, :]
+            if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+                position_ids = position_ids + cache_index[:, None]
+            elif cache_index is not None:
+                position_ids = position_ids + cache_index
+        if self.wpe is not None:
+            hidden_states = hidden_states + self.wpe(position_ids)
+        if config.m_emb is not None:
+            hidden_states = hidden_states * config.m_emb
+
+        rope_cos_sin = compute_position_stuff(
+            config, position_ids, self.rope_params, hidden_states.dtype
+        )
+        new_caches = [] if kv_caches is not None else None
+        for i, block in enumerate(self.h):
+            hidden_states, cache = block(
+                hidden_states,
+                attention_mask,
+                rope_cos_sin,
+                None if kv_caches is None else kv_caches[i],
+                cache_index,
+            )
+            if new_caches is not None:
+                new_caches.append(cache)
+        return self.ln_f(hidden_states), new_caches
+
+
+class GPTDolomiteForCausalLM(nn.Module):
+    """The causal LM. Built on `device` (default the GPU; raises without one unless
+    ``device="cpu"``) with random weights from `seed`, following the JAX init rules:
+    std ``initializer_range`` for embeddings and input projections, depth-scaled
+    ``c_proj``, µP's division by ``sqrt(m_width)``, norms at 1 and biases at 0."""
+
+    def __init__(
+        self,
+        config: CommonConfig,
+        dtype: torch.dtype = torch.float32,
+        device: str | torch.device = "cuda",
+        seed: int = 0,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.dtype = dtype
+        self.transformer = GPTDolomiteModel(config, dtype, device)
+        self.lm_head = (
+            None
+            if config.tie_word_embeddings
+            else ParameterizedLinear(
+                config.n_embd, config.vocab_size, False, config.initializer_range, dtype, device
+            )
+        )
+        self.init_weights(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.transformer.wte.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, seed: int) -> None:
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        for module in self.modules():
+            if isinstance(module, (ParameterizedLinear, ParameterizedEmbedding)):
+                module.reset_parameters(generator)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        position_ids: torch.Tensor | None = None,
+        attention_mask: torch.Tensor | None = None,
+        kv_caches: list[KVCache] | None = None,
+        cache_index: torch.Tensor | int | None = None,
+    ) -> CausalLMOutput:
+        hidden_states, new_caches = self.transformer(
+            input_ids,
+            position_ids=position_ids,
+            attention_mask=attention_mask,
+            kv_caches=kv_caches,
+            cache_index=cache_index,
+        )
+        return CausalLMOutput(logits=self.compute_logits(hidden_states), kv_caches=new_caches)
+
+    def compute_logits(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        if self.lm_head is None:
+            logits = self.transformer.wte.attend(hidden_states)
+        else:
+            logits = self.lm_head(hidden_states)
+        if self.config.m_width is not None:
+            logits = logits / self.config.m_width
+        return logits
+
+    def init_kv_caches(
+        self, batch_size: int, max_length: int, dtype: torch.dtype | None = None
+    ) -> list[KVCache]:
+        config = self.config
+        shape = (batch_size, max_length, config.num_key_value_heads, config.head_dim)
+        dtype = dtype or self.dtype
+        return [
+            {
+                "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device),
+            }
+            for _ in range(config.n_layer)
+        ]
+
+
+def _jax_module_params(params: Mapping, model: GPTDolomiteForCausalLM):
+    """(flax subtree, torch module) pairs of the unrolled JAX params tree."""
+    t = params["transformer"]
+    yield t["wte"], model.transformer.wte
+    if model.transformer.wpe is not None:
+        yield t["wpe"], model.transformer.wpe
+    for i, block in enumerate(model.transformer.h):
+        h = t[f"h_{i}"]
+        yield h["ln_1"], block.ln_1
+        yield h["attn"]["c_attn"], block.attn.c_attn
+        yield h["attn"]["c_proj"], block.attn.c_proj
+        yield h["ln_2"], block.ln_2
+        yield h["mlp"]["c_fc"], block.mlp.c_fc
+        yield h["mlp"]["c_proj"], block.mlp.c_proj
+    yield t["ln_f"], model.transformer.ln_f
+    if model.lm_head is not None:
+        yield params["lm_head"], model.lm_head
+
+
+@torch.no_grad()
+def load_jax_params(
+    model: GPTDolomiteForCausalLM, params_np: Mapping, device: str | torch.device = "cuda"
+) -> GPTDolomiteForCausalLM:
+    """Move `model` to `device` and fill it from the JAX package's unrolled GPTDolomite
+    params (nested dicts of numpy arrays under the flax names: ``transformer.wte``,
+    ``h_<i>.attn.c_attn``, ..., with or without a top-level ``params`` key). Flax
+    ``[in, out]`` kernels become torch ``[out, in]`` weights in the parameter's dtype.
+    The caller converts JAX arrays with ``np.asarray``; this imports no JAX."""
+    model.to(resolve_device(device))
+    if "params" in params_np:
+        params_np = params_np["params"]
+    for tree, module in _jax_module_params(params_np, model):
+        names = {"kernel": "weight", "embedding": "weight", "weight": "weight", "bias": "bias"}
+        for flax_name, value in tree.items():
+            target = getattr(module, names.get(flax_name, flax_name), None)
+            if target is None:
+                raise KeyError(f"unexpected parameter {flax_name!r} for {type(module).__name__}")
+            array = np.asarray(value)
+            if flax_name == "kernel":
+                array = array.T
+            if tuple(array.shape) != tuple(target.shape):
+                raise ValueError(
+                    f"{flax_name} of {type(module).__name__}: shape {array.shape} does not "
+                    f"match {tuple(target.shape)}"
+                )
+            target.copy_(torch.from_numpy(np.array(array)))  # a writable copy
+    return model

@@ -1,0 +1,412 @@
+"""Shared modules: parameterized linear/embedding, norms, attention, MLP, block.
+
+Counterpart of `dolomite_engine_tpu/models/modeling_utils.py` for inference. The layouts
+are the JAX package's, so weights carry across unchanged apart from the transpose of
+each linear kernel (flax ``[in, out]``, torch ``[out, in]``):
+
+- the fused QKV projection is flat ``[Q (Hq*D) | K (Hkv*D) | V (Hkv*D)]`` for every head
+  type;
+- the GLU MLP's ``c_fc`` emits ``[up | gate]``;
+- paged KV pools are ``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page.
+
+Linear and embedding weights are stored in the model dtype (the JAX package stores fp32
+and casts at every use, which rounds identically); norm weights stay fp32 parameters.
+
+Attention dispatch keeps the JAX conditions exactly. The decode kernel runs for a paged
+pool with a per-row ``[B]`` cache index and no incoming mask; the chunked-prefill kernel
+for a paged pool with a scalar cache index, a 2-D key mask and more than one query; both
+only under ``attention_softmax_in_fp32``. The scatter into the pool runs before either
+kernel with the same position clamping and write validity as the gather path, so the
+pool state is the same whichever path ran. Every other call gathers the page view and
+runs eager attention.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.activations import get_activation_function, is_glu
+from ..ops.attention import attention, paged_gather_kv, paged_scatter_kv
+from ..ops.kernels.paged_attention import paged_decode_attention
+from ..ops.kernels.prefill_attention import paged_prefill_attention
+from ..ops.kernels.rmsnorm import fused_rmsnorm
+from ..ops.normalization import check_normalization_function, layernorm
+from ..ops.rope import RoPEParams, get_cos_sin, split_qkv_apply_rope
+from .config import CommonConfig
+from .enums import InitMethod, PositionEmbeddingType
+
+KVCache = dict[str, torch.Tensor]  # {"k": pages, "v": pages, "page_table": [B, max_pages]}
+
+
+class ParameterizedLinear(nn.Module):
+    """``y = x @ W.T + b`` with the weight stored ``[out, in]`` and its init std kept."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool,
+        std: float,
+        dtype: torch.dtype,
+        device: torch.device,
+    ) -> None:
+        super().__init__()
+        self.std = std
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features, dtype=dtype, device=device), requires_grad=False
+        )
+        self.bias = (
+            nn.Parameter(torch.zeros(out_features, dtype=dtype, device=device), requires_grad=False)
+            if bias
+            else None
+        )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weight.normal_(0.0, self.std, generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class ParameterizedEmbedding(nn.Module):
+    def __init__(
+        self,
+        num_embeddings: int,
+        features: int,
+        std: float,
+        dtype: torch.dtype,
+        device: torch.device,
+    ) -> None:
+        super().__init__()
+        self.std = std
+        self.weight = nn.Parameter(
+            torch.empty(num_embeddings, features, dtype=dtype, device=device), requires_grad=False
+        )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weight.normal_(0.0, self.std, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied LM head: ``x @ embedding.T``."""
+        return x.to(self.weight.dtype) @ self.weight.T
+
+
+class Norm(nn.Module):
+    """layernorm / rmsnorm with fp32 statistics and fp32 parameters.
+
+    Called with `residual`, computes ``norm(x + residual)`` and returns ``(normed, x +
+    residual)``, the pre-norm block's new residual stream. rmsnorm goes through the fused
+    RMSNorm(+residual) kernel (`ops/kernels/rmsnorm.py`) whenever the residual matches
+    ``x`` in shape and dtype — the JAX package's condition for its Pallas kernel."""
+
+    def __init__(self, normalization_function: str, dim: int, eps: float, device: torch.device):
+        super().__init__()
+        check_normalization_function(normalization_function)
+        self.normalization_function = normalization_function
+        self.eps = eps
+        self.weight = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device), requires_grad=False
+        )
+        self.bias = (
+            nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device), requires_grad=False)
+            if normalization_function == "layernorm"
+            else None
+        )
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None):
+        if self.normalization_function == "rmsnorm":
+            if residual is None or (residual.shape == x.shape and residual.dtype == x.dtype):
+                return fused_rmsnorm(x, self.weight, self.eps, residual=residual)
+            x = x + residual
+            return fused_rmsnorm(x, self.weight, self.eps), x
+        if residual is not None:
+            x = x + residual
+            return layernorm(x, self.weight, self.bias, self.eps), x
+        return layernorm(x, self.weight, self.bias, self.eps)
+
+
+def get_norm(config: CommonConfig, device: torch.device) -> Norm:
+    return Norm(config.normalization_function, config.n_embd, config.layer_norm_epsilon, device)
+
+
+def depth_scaled_init_std(config: CommonConfig) -> float:
+    """Residual-projection init std: initializer_range / sqrt(2 * n_layer)."""
+    branches = getattr(config, "init_residual_branches", None) or 2 * config.n_layer
+    return config.initializer_range / math.sqrt(branches)
+
+
+def _init_std(config: CommonConfig, depth_scaled: bool) -> float:
+    """c_attn / c_fc: initializer_range; c_proj: depth-scaled; mup divides both by
+    sqrt(m_width)."""
+    std = depth_scaled_init_std(config) if depth_scaled else config.initializer_range
+    if InitMethod(config.init_method) == InitMethod.mup:
+        std /= math.sqrt(config.m_width)
+    return std
+
+
+def get_softmax_scale(config: CommonConfig, head_dim: int) -> float:
+    """attention_multiplier if set, else 1/sqrt(head_dim) when scale_attn_weights, else 1."""
+    if config.attention_multiplier is not None:
+        return config.attention_multiplier
+    if config.scale_attn_weights:
+        return head_dim**-0.5
+    return 1.0
+
+
+def _is_scalar_index(cache_index) -> bool:
+    return isinstance(cache_index, int) or (
+        isinstance(cache_index, torch.Tensor) and cache_index.ndim == 0
+    )
+
+
+def _paged_kernel_eligible(kv_cache, cache_index, attention_mask, causal: bool) -> bool:
+    """The serving decode/verify step: paged pool, per-row [B] frontier vector, plain
+    causal attention with no incoming mask (the port carries no segments, alibi or
+    dropout, the JAX condition's other terms)."""
+    return (
+        kv_cache is not None
+        and "page_table" in kv_cache
+        and isinstance(cache_index, torch.Tensor)
+        and cache_index.ndim == 1
+        and attention_mask is None
+        and causal
+    )
+
+
+def _paged_prefill_eligible(kv_cache, cache_index, attention_mask, causal: bool, seq: int) -> bool:
+    """The engine's chunked-prefill shape: paged pool, multi-token window, one scalar
+    write offset, and the chunk's 2-D key-side prefix mask over the page view."""
+    return (
+        kv_cache is not None
+        and "page_table" in kv_cache
+        and seq > 1
+        and cache_index is not None
+        and _is_scalar_index(cache_index)
+        and attention_mask is not None
+        and attention_mask.ndim == 2
+        and causal
+    )
+
+
+def _write_positions(cache_index, batch: int, seq: int, device: torch.device) -> torch.Tensor:
+    """[B, S] absolute write positions: each row's own frontier for a [B] index, the
+    shared chunk offset for a scalar one."""
+    steps = torch.arange(seq, dtype=torch.int32, device=device)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        return cache_index.to(device=device, dtype=torch.int32)[:, None] + steps[None, :]
+    start = torch.as_tensor(cache_index, dtype=torch.int32, device=device)
+    return (start + steps)[None, :].expand(batch, seq)
+
+
+def _scatter_chunk(key, value, kv_cache, cache_index, attention_mask):
+    """Write the new K/V into their pages: positions past the view are clamped to 0 and
+    redirected to trash, as are positions the key mask marks invalid (a chunk's pad
+    tail). Returns the positions' validity frontier for the gather path."""
+    table = kv_cache["page_table"]
+    page_size = kv_cache["k"].shape[1]
+    batch, seq = key.shape[:2]
+    view_len = table.shape[1] * page_size
+    positions = _write_positions(cache_index, batch, seq, key.device)
+    in_range = positions < view_len
+    positions = torch.where(in_range, positions, torch.zeros_like(positions))
+    write_valid = in_range
+    if attention_mask is not None:
+        write_valid = write_valid & torch.gather(attention_mask.bool(), 1, positions.long())
+    paged_scatter_kv(kv_cache["k"], key, table, positions, write_valid)
+    paged_scatter_kv(kv_cache["v"], value, table, positions, write_valid)
+
+
+def _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask):
+    """Gather path: scatter the new tokens, gather each row's pages into a contiguous view
+    for attention, and extend the key mask with the per-row validity frontier."""
+    table = kv_cache["page_table"]
+    page_size = kv_cache["k"].shape[1]
+    seq = key.shape[1]
+    view_len = table.shape[1] * page_size
+    _scatter_chunk(key, value, kv_cache, cache_index, attention_mask)
+    k_view = paged_gather_kv(kv_cache["k"], table).to(key.dtype)
+    v_view = paged_gather_kv(kv_cache["v"], table).to(value.dtype)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        frontier = cache_index.to(key.device)[:, None] + seq
+    else:
+        frontier = torch.as_tensor(cache_index, device=key.device) + seq
+    valid = torch.arange(view_len, device=key.device)[None, :] < frontier
+    attention_mask = valid.int() if attention_mask is None else attention_mask * valid.int()
+    return k_view, v_view, attention_mask
+
+
+class Attention(nn.Module):
+    """Self-attention with the fused QKV projection, RoPE and a paged KV pool."""
+
+    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device, causal=True):
+        super().__init__()
+        self.config = config
+        self.causal = causal
+        self.num_heads = config.n_head
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        self.c_attn = ParameterizedLinear(
+            config.n_embd,
+            (self.num_heads + 2 * self.num_kv_heads) * self.head_dim,
+            config.add_bias,
+            _init_std(config, depth_scaled=False),
+            dtype,
+            device,
+        )
+        self.c_proj = ParameterizedLinear(
+            self.num_heads * self.head_dim,
+            config.n_embd,
+            config.add_bias,
+            _init_std(config, depth_scaled=True),
+            dtype,
+            device,
+        )
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        attention_mask: torch.Tensor | None = None,
+        rope_cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
+        kv_cache: KVCache | None = None,
+        cache_index: torch.Tensor | int | None = None,
+    ) -> tuple[torch.Tensor, KVCache | None]:
+        config = self.config
+        batch, seq = hidden_states.shape[:2]
+        qkv = self.c_attn(hidden_states)
+        query, key, value = split_qkv_apply_rope(
+            qkv, self.num_heads, self.num_kv_heads, self.head_dim, rope_cos_sin
+        )
+        softmax_scale = get_softmax_scale(config, self.head_dim)
+
+        query_offset = 0
+        if kv_cache is not None:
+            if cache_index is None:
+                raise ValueError("a KV cache needs a cache_index")
+            if "page_table" not in kv_cache:
+                raise NotImplementedError(
+                    "dense (non-paged) KV caches are not ported yet: ROADMAP.md Queue A, "
+                    "'Dense slot pool and generate_tokens'"
+                )
+            table = kv_cache["page_table"]
+            if config.attention_softmax_in_fp32 and _paged_kernel_eligible(
+                kv_cache, cache_index, attention_mask, self.causal
+            ):
+                _scatter_chunk(key, value, kv_cache, cache_index, None)
+                out = paged_decode_attention(
+                    query.contiguous(), kv_cache["k"], kv_cache["v"], table,
+                    cache_index.to(torch.int32), softmax_scale,
+                )
+                return self.c_proj(out.reshape(batch, seq, -1)), kv_cache
+            if config.attention_softmax_in_fp32 and _paged_prefill_eligible(
+                kv_cache, cache_index, attention_mask, self.causal, seq
+            ):
+                _scatter_chunk(key, value, kv_cache, cache_index, attention_mask)
+                start = torch.as_tensor(cache_index, dtype=torch.int32, device=query.device)
+                out = paged_prefill_attention(
+                    query.contiguous(), kv_cache["k"], kv_cache["v"], table,
+                    start.reshape(1).expand(batch).contiguous(), softmax_scale,
+                )
+                return self.c_proj(out.reshape(batch, seq, -1)), kv_cache
+            key, value, attention_mask = _update_paged_kv_cache(
+                key, value, kv_cache, cache_index, attention_mask
+            )
+            query_offset = cache_index
+
+        out = attention(
+            query,
+            key,
+            value,
+            causal=self.causal,
+            softmax_scale=softmax_scale,
+            attention_mask=attention_mask,
+            softmax_in_fp32=config.attention_softmax_in_fp32,
+            query_offset=query_offset,
+        )
+        return self.c_proj(out.reshape(batch, seq, -1)), kv_cache
+
+
+class MLP(nn.Module):
+    """Fused up+gate MLP: c_fc emits ``2 * n_inner`` laid out ``[up | gate]`` for GLU
+    activations and the activation computes ``up * act(gate)``."""
+
+    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        glu = is_glu(config.activation_function)
+        self.c_fc = ParameterizedLinear(
+            config.n_embd,
+            2 * config.n_inner if glu else config.n_inner,
+            config.add_bias,
+            _init_std(config, depth_scaled=False),
+            dtype,
+            device,
+        )
+        self.c_proj = ParameterizedLinear(
+            config.n_inner,
+            config.n_embd,
+            config.add_bias,
+            _init_std(config, depth_scaled=True),
+            dtype,
+            device,
+        )
+        self.act = get_activation_function(config.activation_function)
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(self.act(self.c_fc(hidden_states)))
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block with the µP residual multiplier."""
+
+    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.m_residual = config.m_residual
+        self.ln_1 = get_norm(config, device)
+        self.attn = Attention(config, dtype, device)
+        self.ln_2 = get_norm(config, device)
+        self.mlp = MLP(config, dtype, device)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        attention_mask: torch.Tensor | None = None,
+        rope_cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
+        kv_cache: KVCache | None = None,
+        cache_index: torch.Tensor | int | None = None,
+    ) -> tuple[torch.Tensor, KVCache | None]:
+        residual = hidden_states
+        h = self.ln_1(hidden_states)
+        attn_out, kv_cache = self.attn(
+            h,
+            attention_mask=attention_mask,
+            rope_cos_sin=rope_cos_sin,
+            kv_cache=kv_cache,
+            cache_index=cache_index,
+        )
+        if self.m_residual is not None:
+            attn_out = attn_out * self.m_residual
+        h, hidden_states = self.ln_2(attn_out, residual=residual)
+        mlp_out = self.mlp(h)
+        if self.m_residual is not None:
+            mlp_out = mlp_out * self.m_residual
+        return hidden_states + mlp_out, kv_cache
+
+
+def compute_position_stuff(
+    config: CommonConfig,
+    position_ids: torch.Tensor,
+    rope_params: RoPEParams | None,
+    dtype: torch.dtype,
+):
+    """Rope cos/sin shared by all layers, or None for position types without rope."""
+    if PositionEmbeddingType(config.position_embedding_type) == PositionEmbeddingType.rope:
+        return get_cos_sin(rope_params, position_ids, dtype=dtype)
+    return None

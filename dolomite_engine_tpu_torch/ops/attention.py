@@ -1,0 +1,146 @@
+"""Attention ops of the paged serving path: masks, eager attention, paged scatter/gather.
+
+Counterpart of the subset of `dolomite_engine_tpu/ops/attention.py` the paged path uses.
+All shapes are batch-first: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]. Paged pools are
+``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def make_attention_mask(
+    batch_size: int,
+    query_length: int,
+    key_length: int,
+    causal: bool = True,
+    attention_mask: torch.Tensor | None = None,
+    query_offset: torch.Tensor | int = 0,
+    device: torch.device | None = None,
+) -> torch.Tensor | None:
+    """Boolean [B, 1, Sq, Skv] mask (True = attend), or None when fully visible.
+
+    ``query_offset`` may be a per-row [B] tensor: every row continues at its own cache
+    position, so query i of row b sees keys up to ``query_offset[b] + i``."""
+    if attention_mask is not None:
+        device = attention_mask.device
+    elif isinstance(query_offset, torch.Tensor):
+        device = query_offset.device
+    mask = None
+    if causal:
+        q_idx = torch.arange(query_length, device=device)
+        k_pos = torch.arange(key_length, device=device)
+        if isinstance(query_offset, torch.Tensor) and query_offset.ndim == 1:
+            q_pos = q_idx[None, :, None] + query_offset.to(device)[:, None, None]
+            mask = (k_pos[None, None, :] <= q_pos)[:, None]  # [B, 1, Sq, Skv]
+        else:
+            q_pos = q_idx[:, None] + query_offset
+            mask = (k_pos[None, :] <= q_pos)[None, None]
+    if attention_mask is not None:
+        pad = attention_mask.bool()[:, None, None, :]  # [B, 1, 1, Skv]
+        mask = pad if mask is None else mask & pad
+    return mask
+
+
+def _repeat_kv(k: torch.Tensor, num_query_heads: int) -> torch.Tensor:
+    num_kv = k.shape[2]
+    if num_kv == num_query_heads:
+        return k
+    return k.repeat_interleave(num_query_heads // num_kv, dim=2)
+
+
+def eager_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None,
+    softmax_scale: float,
+    softmax_in_fp32: bool = True,
+) -> torch.Tensor:
+    """Explicit QK^T -> softmax -> V: scores scaled by `softmax_scale`, masked with the
+    float32-min constant, softmax upcast to fp32, probabilities cast back to the input
+    dtype before the PV product. Returns [B, Sq, Hq, D]."""
+    input_dtype = q.dtype
+    k = _repeat_kv(k, q.shape[2])
+    v = _repeat_kv(v, q.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * softmax_scale
+    if mask is not None:
+        # a cast, not a checked fill: in bf16 the float32 minimum rounds to -inf, exactly
+        # as the JAX package's weakly typed constant does
+        scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device).to(scores.dtype))
+    if softmax_in_fp32:
+        scores = scores.float()
+    probs = torch.softmax(scores, dim=-1).to(input_dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+    attention_mask: torch.Tensor | None = None,
+    softmax_in_fp32: bool = True,
+    query_offset: torch.Tensor | int = 0,
+) -> torch.Tensor:
+    """Masked eager attention (the plain path for every call no kernel covers)."""
+    if softmax_scale is None:
+        softmax_scale = q.shape[-1] ** -0.5
+    mask = make_attention_mask(
+        q.shape[0],
+        q.shape[1],
+        k.shape[1],
+        causal=causal,
+        attention_mask=attention_mask,
+        query_offset=query_offset,
+        device=q.device,
+    )
+    return eager_attention(q, k, v, mask, softmax_scale, softmax_in_fp32=softmax_in_fp32)
+
+
+def paged_scatter_kv(
+    pages: torch.Tensor,
+    new: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+    write_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Scatter new K (or V) tokens ``[B, S, H, D]`` into the pool IN PLACE and return it.
+
+    ``page_table`` [B, max_pages] maps each row's logical pages to physical ones;
+    ``positions`` [B, S] are the absolute token positions being written. Writes through
+    a 0 table entry (an idle row) or with ``write_valid == False`` (a chunk's right-pad
+    tail) land at flat index 0 of the trash page, whose content is never attended; which
+    of several colliding writes wins there does not matter. The JAX package returns a
+    new pool; updating in place keeps one copy of the pool on the device."""
+    num_pages, page_size = pages.shape[:2]
+    batch, seq = positions.shape
+    positions = positions.long()
+    page_ids = torch.gather(page_table.long(), 1, positions // page_size)  # [B, S]
+    flat_index = page_ids * page_size + positions % page_size
+    if write_valid is not None:
+        flat_index = torch.where(write_valid, flat_index, torch.zeros_like(flat_index))
+    flat_pages = pages.view((num_pages * page_size,) + tuple(pages.shape[2:]))
+    flat_pages[flat_index.reshape(-1)] = new.reshape((batch * seq,) + tuple(new.shape[2:])).to(
+        pages.dtype
+    )
+    return pages
+
+
+def paged_gather_kv(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Gather each row's pages into a contiguous ``[B, max_pages * page_size, H, D]`` view.
+
+    Positions past a row's frontier read whatever the mapped page holds (stale K/V,
+    trash) — finite values the attention mask turns into exactly-zero probability."""
+    num_pages, page_size = pages.shape[:2]
+    batch, max_pages = page_table.shape
+    flat_pages = pages.reshape((num_pages * page_size,) + tuple(pages.shape[2:]))
+    index = (
+        page_table.long()[:, :, None] * page_size
+        + torch.arange(page_size, device=page_table.device)
+    ).reshape(batch, max_pages * page_size)
+    return flat_pages[index]

@@ -1,0 +1,123 @@
+"""Ragged paged-attention decode: the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``paged_decode_attention``
+(`dolomite_engine_tpu/ops/pallas/paged_attention.py`). Bound on the H100 by
+device-memory bytes: each slot's resident K/V is read once per step. The kernel walks
+each slot's page-table row only up to its frontier, so traffic follows resident tokens,
+keeps GQA native and holds the fp32 score row in shared memory for an exact softmax (see
+``dolomite_engine_tpu_torch/csrc/paged_attention.cu``).
+
+`paged_decode_attention` launches the kernel for CUDA tensors (or raises) and takes the
+plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..attention import eager_attention, make_attention_mask, paged_gather_kv
+from ._build import (
+    DTYPE_CODES,
+    MAX_SHARED_BYTES,
+    KernelSpec,
+    check_cuda_tensor,
+    check_launch,
+    current_stream,
+    load_library,
+    ptr,
+)
+
+KERNEL = KernelSpec(
+    name="paged_decode_attention",
+    source="dolomite_engine_tpu_torch/csrc/paged_attention.cu",
+    replaces="dolomite_engine_tpu/ops/pallas/paged_attention.py:135",
+)
+
+
+def _check_shapes(q, k_pages, v_pages, page_table, lengths):
+    if q.ndim != 4 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("q must be [S, W, Hq, D] and k/v pages [P, page_size, Hkv, D]")
+    num_slots, _, num_q_heads, head_dim = q.shape
+    num_kv_heads = k_pages.shape[2]
+    if k_pages.shape[3] != head_dim or num_q_heads % num_kv_heads:
+        raise ValueError(f"q {tuple(q.shape)} does not match pages {tuple(k_pages.shape)}")
+    if page_table.shape[0] != num_slots or lengths.shape != (num_slots,):
+        raise ValueError("page_table must be [S, max_pages] and lengths [S]")
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    softmax_scale: float,
+) -> torch.Tensor:
+    """Gather each slot's page view, mask the per-row frontier (query j of slot b sees
+    positions <= lengths[b] + j) and run eager fp32-softmax attention."""
+    _check_shapes(q, k_pages, v_pages, page_table, lengths)
+    num_slots, width = q.shape[:2]
+    view_len = page_table.shape[1] * k_pages.shape[1]
+    positions = torch.arange(view_len, device=q.device)
+    valid = positions[None, :] < (lengths.to(q.device)[:, None] + width)
+    mask = make_attention_mask(
+        num_slots, width, view_len, causal=True, attention_mask=valid, query_offset=lengths
+    )
+    return eager_attention(
+        q, paged_gather_kv(k_pages, page_table), paged_gather_kv(v_pages, page_table),
+        mask, softmax_scale,
+    )
+
+
+_WARPS = 8  # warps per block in csrc/paged_attention.cu
+MAX_HEAD_DIM = 256  # 8 features per lane of a warp
+
+
+def decode_shared_bytes(width: int, head_dim: int, page_size: int, max_pages: int) -> int:
+    """Shared memory of one decode block: score rows, queries, the warps' PV partials,
+    reduction slots and the table row."""
+    return (width * (max_pages * page_size + (1 + _WARPS) * head_dim) + 32) * 4 + max_pages * 4
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    softmax_scale: float,
+) -> torch.Tensor:
+    """Attention for the paged decode/verify step straight off the page table.
+
+    q ``[S, W, Hq, D]``; pages ``[P, page_size, Hkv, D]``; page_table ``[S, max_pages]``
+    int32; lengths ``[S]`` int32 (the pre-write frontier). Returns ``[S, W, Hq, D]``."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on CUDA or CPU tensors, got {q.device}")
+    _check_shapes(q, k_pages, v_pages, page_table, lengths)
+    device = q.device
+    check_cuda_tensor(q, "q", device)
+    for name, tensor in (("k_pages", k_pages), ("v_pages", v_pages)):
+        check_cuda_tensor(tensor, name, device, dtypes=(q.dtype,))
+    check_cuda_tensor(page_table, "page_table", device, dtypes=(torch.int32,))
+    check_cuda_tensor(lengths, "lengths", device, dtypes=(torch.int32,))
+    num_slots, width, num_q_heads, head_dim = q.shape
+    num_pages, page_size, num_kv_heads, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {head_dim} exceeds the decode kernel's {MAX_HEAD_DIM}")
+    if decode_shared_bytes(width, head_dim, page_size, max_pages) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"a {width}-query window over {max_pages} pages of {page_size} exceeds the "
+            "decode kernel's shared-memory score row"
+        )
+    out = torch.empty_like(q)
+    code = load_library().dolo_paged_decode(
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(lengths), ptr(out),
+        num_slots, width, num_q_heads, num_kv_heads, head_dim, page_size, max_pages,
+        float(softmax_scale), DTYPE_CODES[q.dtype], current_stream(device),
+    )
+    check_launch(code, KERNEL.name)
+    KERNEL.launches += 1
+    return out

@@ -1,0 +1,107 @@
+"""Chunked-prefill flash attention through the page table: the CUDA kernel and its plain
+version.
+
+Replaces the TPU kernel ``paged_prefill_attention``
+(`dolomite_engine_tpu/ops/pallas/prefill_attention.py`). Bound on the H100 by operations
+for wide chunks and by bytes for narrow ones. The kernel tiles queries and keys in
+shared memory, runs the online-softmax recurrence in fp32 and walks only the pages under
+each query block's causal frontier (see
+``dolomite_engine_tpu_torch/csrc/prefill_attention.cu``).
+
+`paged_prefill_attention` launches the kernel for CUDA tensors (or raises) and takes the
+plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..attention import eager_attention, make_attention_mask, paged_gather_kv
+from ._build import (
+    DTYPE_CODES,
+    MAX_SHARED_BYTES,
+    KernelSpec,
+    check_cuda_tensor,
+    check_launch,
+    current_stream,
+    load_library,
+    ptr,
+)
+
+KERNEL = KernelSpec(
+    name="paged_prefill_attention",
+    source="dolomite_engine_tpu_torch/csrc/prefill_attention.cu",
+    replaces="dolomite_engine_tpu/ops/pallas/prefill_attention.py:140",
+)
+
+
+def _check_shapes(q, k_pages, v_pages, page_table, starts):
+    if q.ndim != 4 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("q must be [B, chunk, Hq, D] and k/v pages [P, page_size, Hkv, D]")
+    num_rows, _, num_q_heads, head_dim = q.shape
+    num_kv_heads = k_pages.shape[2]
+    if k_pages.shape[3] != head_dim or num_q_heads % num_kv_heads:
+        raise ValueError(f"q {tuple(q.shape)} does not match pages {tuple(k_pages.shape)}")
+    if page_table.shape[0] != num_rows or starts.shape != (num_rows,):
+        raise ValueError("page_table must be [B, max_pages] and start [B]")
+
+
+def paged_prefill_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    start: torch.Tensor,
+    softmax_scale: float,
+) -> torch.Tensor:
+    """Gather each row's page view and run eager fp32-softmax attention under the per-row
+    causal frontier (query i of row b sees positions <= start[b] + i)."""
+    _check_shapes(q, k_pages, v_pages, page_table, start)
+    view_len = page_table.shape[1] * k_pages.shape[1]
+    mask = make_attention_mask(
+        q.shape[0], q.shape[1], view_len, causal=True, query_offset=start
+    )
+    return eager_attention(
+        q, paged_gather_kv(k_pages, page_table), paged_gather_kv(v_pages, page_table),
+        mask, softmax_scale,
+    )
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    start: torch.Tensor,
+    softmax_scale: float,
+) -> torch.Tensor:
+    """Chunked-prefill attention straight off the page table.
+
+    q ``[B, chunk, Hq, D]``; start ``[B]`` int32, each row's chunk write offset;
+    page_table ``[B, max_pages]`` int32. Returns ``[B, chunk, Hq, D]``; rows of the chunk's
+    right-pad tail hold finite garbage the caller never reads."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(q, k_pages, v_pages, page_table, start, softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention runs on CUDA or CPU tensors, got {q.device}")
+    _check_shapes(q, k_pages, v_pages, page_table, start)
+    device = q.device
+    check_cuda_tensor(q, "q", device)
+    for name, tensor in (("k_pages", k_pages), ("v_pages", v_pages)):
+        check_cuda_tensor(tensor, name, device, dtypes=(q.dtype,))
+    check_cuda_tensor(page_table, "page_table", device, dtypes=(torch.int32,))
+    check_cuda_tensor(start, "start", device, dtypes=(torch.int32,))
+    num_rows, chunk, num_q_heads, head_dim = q.shape
+    _, page_size, num_kv_heads, _ = k_pages.shape
+    lib = load_library()
+    if lib.dolo_paged_prefill_smem_bytes(head_dim) > MAX_SHARED_BYTES:
+        raise ValueError(f"head_dim {head_dim} exceeds the prefill kernel's shared-memory tiles")
+    out = torch.empty_like(q)
+    code = lib.dolo_paged_prefill(
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(start), ptr(out),
+        num_rows, chunk, num_q_heads, num_kv_heads, head_dim, page_size, page_table.shape[1],
+        float(softmax_scale), DTYPE_CODES[q.dtype], current_stream(device),
+    )
+    check_launch(code, KERNEL.name)
+    KERNEL.launches += 1
+    return out

@@ -1,0 +1,170 @@
+"""The paged KV pool for continuous batching.
+
+Counterpart of `dolomite_engine_tpu/serving/kv_cache.PagedKVCachePool`: a fixed set of
+fixed-size pages (``[num_pages, page_size, kv_heads, head_dim]`` per layer, on the
+model's device) shared across slots, per-slot page tables (``[num_slots, max_pages]``
+int32, host-side), refcounts for prefix sharing and worst-case page reservations at
+admission. **Page 0 is the trash page** — never allocated, the write target of idle
+decode rows and prefill pad tails, so garbage writes never touch live data. The device
+pages are updated in place by the model's scatter (the JAX pool is rebuilt functionally
+each step); the allocation state lives on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+KVCacheList = list[dict[str, torch.Tensor]]  # per-layer {"k": pages, "v": pages}
+
+TRASH_PAGE = 0  # page-table sentinel: unmapped logical page / garbage-write target
+
+
+class PagedKVCachePool:
+    """Shared page pool + per-slot page tables, with refcounts and admission reservations.
+
+    Host-side invariants the engine and prefix cache rely on:
+
+    - page 0 (:data:`TRASH_PAGE`) is never allocated; a page-table entry of 0 means "not
+      mapped" and any device write through it lands in trash;
+    - a page is writable by a slot only while that slot holds its sole reference; shared
+      pages are read-only and the engine copies a partial tail page before writing (COW);
+    - ``len(free pages) >= total reserved`` at all times: admission reserves the
+      worst-case page count up front (`reserve`), every later `alloc_page` for that slot
+      consumes the reservation, so a mid-decode allocation can never fail.
+    """
+
+    def __init__(
+        self,
+        model: Any,
+        num_slots: int,
+        max_len: int,
+        page_size: int,
+        num_pages: int | None = None,
+        dtype: torch.dtype | None = None,
+    ) -> None:
+        if num_slots <= 0 or max_len <= 0:
+            raise ValueError(f"num_slots and max_len must be positive, got {num_slots}, {max_len}")
+        if page_size <= 0 or page_size % 8 != 0:
+            raise ValueError(f"page_size must be a positive multiple of 8, got {page_size}")
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.max_pages_per_slot = -(-max_len // page_size)
+        if num_pages is None:
+            # dense-parity capacity by default (plus the trash page)
+            num_pages = 1 + num_slots * self.max_pages_per_slot
+        if num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is the trash page), got {num_pages}")
+        self.num_pages = num_pages
+
+        # pages, not slot rows: init_kv_caches with "batch" = pages, "length" = page_size
+        self.caches: KVCacheList = model.init_kv_caches(num_pages, page_size, dtype)
+        self.page_table = np.zeros((num_slots, self.max_pages_per_slot), np.int32)
+        self.lengths = np.zeros(num_slots, np.int32)
+        self.refcounts = np.zeros(num_pages, np.int32)
+
+        self._free_slots: list[int] = list(reversed(range(num_slots)))
+        self._slots_in_use: set[int] = set()
+        self._free_pages: list[int] = list(reversed(range(1, num_pages)))  # page 0 = trash
+        self._slot_reserved = np.zeros(num_slots, np.int32)
+        self._total_reserved = 0
+
+    # ------------------------------------------------------------------ slot API (engine)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free_slots)
+
+    @property
+    def num_active(self) -> int:
+        return len(self._slots_in_use)
+
+    def allocate(self) -> int | None:
+        """Claim a free slot row (lowest index first), or None when all rows are taken."""
+        if not self._free_slots:
+            return None
+        slot = self._free_slots.pop()
+        self._slots_in_use.add(slot)
+        return slot
+
+    def free(self, slot: int) -> None:
+        """Release a slot: decref every mapped page, clear the table row, return the
+        unused reservation. Freed pages keep their stale K/V, masked by the frontier."""
+        if slot not in self._slots_in_use:
+            raise ValueError(f"slot {slot} is not allocated")
+        for i in range(self.max_pages_per_slot):
+            page = int(self.page_table[slot, i])
+            if page != TRASH_PAGE:
+                self.decref(page)
+            self.page_table[slot, i] = TRASH_PAGE
+        self._slots_in_use.remove(slot)
+        self._free_slots.append(slot)
+        self.lengths[slot] = 0
+        self._total_reserved -= int(self._slot_reserved[slot])
+        self._slot_reserved[slot] = 0
+
+    # ------------------------------------------------------------------ page accounting
+
+    @property
+    def pages_in_use(self) -> int:
+        """Physical pages currently referenced (by slots and/or the prefix index)."""
+        return (self.num_pages - 1) - len(self._free_pages)
+
+    @property
+    def available_pages(self) -> int:
+        """Pages admission may still promise: allocatable pages minus pages referenced and
+        outstanding reservations."""
+        return (self.num_pages - 1) - self.pages_in_use - self._total_reserved
+
+    def reserve(self, slot: int, pages: int) -> None:
+        """Promise `pages` future allocations to `slot`."""
+        if pages < 0 or pages > self.available_pages:
+            raise ValueError(
+                f"cannot reserve {pages} page(s): only {self.available_pages} available"
+            )
+        self._slot_reserved[slot] += pages
+        self._total_reserved += pages
+
+    def alloc_page(self, slot: int, index: int) -> int:
+        """Map a fresh private page (refcount 1) at logical page `index` of `slot`,
+        consuming one unit of the slot's reservation."""
+        assert self.page_table[slot, index] == TRASH_PAGE, (slot, index)
+        assert self._slot_reserved[slot] > 0, f"slot {slot} has no reserved pages left"
+        page = self._free_pages.pop()
+        self.refcounts[page] = 1
+        self.page_table[slot, index] = page
+        self._slot_reserved[slot] -= 1
+        self._total_reserved -= 1
+        return page
+
+    def attach_shared(self, slot: int, index: int, page: int) -> None:
+        """Map an existing page (a prefix-cache hit) read-only into `slot` at `index`."""
+        assert self.page_table[slot, index] == TRASH_PAGE, (slot, index)
+        assert page != TRASH_PAGE and self.refcounts[page] > 0, page
+        self.refcounts[page] += 1
+        self.page_table[slot, index] = page
+
+    def incref(self, page: int) -> None:
+        assert page != TRASH_PAGE and self.refcounts[page] > 0, page
+        self.refcounts[page] += 1
+
+    def decref(self, page: int) -> None:
+        assert page != TRASH_PAGE, "decref on the trash page"
+        if self.refcounts[page] <= 0:
+            raise ValueError(f"page {page} double-freed (refcount {self.refcounts[page]})")
+        self.refcounts[page] -= 1
+        if self.refcounts[page] == 0:
+            self._free_pages.append(page)
+
+    # ------------------------------------------------------------------ device ops
+
+    @torch.no_grad()
+    def copy_page(self, src: int, dst: int) -> None:
+        """Device-copy page `src` onto page `dst` in every layer (the COW step for a
+        partially shared tail page)."""
+        for cache in self.caches:
+            for array in cache.values():
+                array[dst].copy_(array[src])
