@@ -8,20 +8,28 @@ Run from the repository root on a machine with a CUDA device:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. build the CUDA kernel library from `dolomite_engine_tpu_torch/csrc/` (set-up time);
-2. each kernel of the serving path against its plain PyTorch version on the card, at the
-   serving slice's shapes, in bf16 and fp32, with kernel, plain and library timings;
+2. each kernel of the serving and training paths against its plain PyTorch version on
+   the card, at the slices' shapes, in bf16 and fp32 (forward and backward for the
+   training kernels), with kernel, plain and library timings;
 3. the serving slice: granite-3b-code at full width and depth (32 layers, bf16, random
    weights from the seed) behind `ServingEngine`, serving 8 requests of 300-1500 prompt
    tokens and 64 greedy new tokens, two of them sharing a 512-token prefix. Launch
    counts are zeroed just before and read just after; the model's logits on the kernel
    path (chunked prefill into the paged pool, then decode steps) are held against a
-   plain full-sequence forward of the same model.
-
+   plain full-sequence forward of the same model;
 4. the same requests once more under `torch.profiler`: device time by kernel and the
-   device's busy share.
+   device's busy share;
+5. the training kernel path against the plain path at full width and 2 layers: loss
+   and every parameter's gradient, bf16, with an fp32 plain reference;
+6. the training slice: the dense GPTDolomite train step on granite-3b-code (32 layers,
+   fp32 master weights, bf16 compute, flash attention over packed documents, the fused
+   LM-head loss with z-loss, AdamW with a bf16 first moment, cosine schedule, clipping,
+   remat of every block) for 1 warm-up and 4 timed steps of accumulation 2 x [1, 4096];
+   launch counts zeroed before and read after; then one step under `torch.profiler`.
 
 Prints the card's name and power limit, a ``kernel_cases`` line (every case of phase 2),
-a ``serving`` line, a ``profile`` line, the ``kernels`` line, and last
+``serving``, ``profile``, ``training_check``, ``training`` and ``training_profile``
+lines, the ``kernels`` line, the card again, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -49,6 +57,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # fp32 outside the tensor c
 
 NUM_SLOTS, MAX_LEN, PAGE, CHUNK = 8, 2048, 16, 512
 MAX_NEW = 64
+
+# the training slice (configs/pretraining-examples/pretrain-v5e-256-granite-3b.yml), cut to
+# micro batch 1 x accumulation 2 on one card, remat of every block under the full policy
+TRAIN_CONFIG = dict(GRANITE_3B_CODE, fused_lm_head_loss=True, loss_chunk_size=256, z_loss_coef=1e-4)
+TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4096, 2, 5
+TRAIN_OPTIMIZER = dict(betas=(0.9, 0.95), eps=1e-10, weight_decay=0.1, mu_dtype="bf16")
+TRAIN_LR = 3e-4
+TRAIN_REMAT = {"checkpoint_every": 1, "policy": "full"}
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -79,6 +95,23 @@ def _bound(nbytes, flops, dtype_name):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _record(cases, kernel, shape, dtype, err, ok, tol, run, plain, library, nbytes, flops, plain_iters=20):
+    """Time one kernel case (kernel, plain version, library call), append it to `cases`
+    with its bound, and raise if the kernel disagreed with its plain version."""
+    dtype_name = str(dtype).replace("torch.", "")
+    bound_ms, bound_by = _bound(nbytes, flops, dtype_name)
+    case = {
+        "kernel": kernel, "shape": shape, "dtype": dtype_name,
+        "max_abs_err": err, "tolerance": tol, "within_tolerance": bool(ok),
+        "kernel_ms": _time_ms(run), "plain_ms": _time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
+        "library_ms": None if library is None else _time_ms(library),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    cases.append(case)
+    if not ok:
+        raise AssertionError(f"{kernel} {shape} {dtype_name} disagrees with its plain version: {case}")
 
 
 def _paged_case(gen, lengths, width, heads, head_dim, max_pages, dtype):
@@ -117,20 +150,8 @@ def kernel_cases(seed):
     d, heads, head_dim = 2560, 32, 80
     cases = []
 
-    def record(kernel, shape, dtype, got, want, tol_ok, tol, run, plain, library, nbytes, flops):
-        dtype_name = str(dtype).replace("torch.", "")
-        err = (got.float() - want.float()).abs().max().item()
-        bound_ms, bound_by = _bound(nbytes, flops, dtype_name)
-        case = {
-            "kernel": kernel, "shape": shape, "dtype": dtype_name,
-            "max_abs_err": err, "tolerance": tol, "within_tolerance": bool(tol_ok),
-            "kernel_ms": _time_ms(run), "plain_ms": _time_ms(plain),
-            "library_ms": None if library is None else _time_ms(library),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        }
-        cases.append(case)
-        if not tol_ok:
-            raise AssertionError(f"{kernel} {shape} {dtype_name} disagrees with its plain version: {case}")
+    def record(kernel, shape, dtype, got, want, tol_ok, *rest):
+        _record(cases, kernel, shape, dtype, (got.float() - want.float()).abs().max().item(), tol_ok, *rest)
 
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -372,6 +393,9 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
         "rope_qkv": layers * forwards,
         "paged_decode_attention": layers * stats.decode_steps,
         "paged_prefill_attention": layers * stats.prefill_chunks,
+        "flash_attn_fwd": 0,
+        "flash_attn_bwd": 0,
+        "fused_ce": 0,
     }
     if device.type == "cuda":  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
@@ -428,42 +452,404 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
     return serving, launches, model, specs
 
 
-def profile_serving(model, specs):
-    """Phase 4: where the device time goes. The slice's requests are served again on a
-    fresh engine under torch.profiler; reports device kernel time by kernel name and the
-    device's busy share of the window (the profiler's own host cost lowers that share)."""
+def _profiled(fn, host=False):
+    """(torch.profiler events, wall seconds) of `fn()` run to completion on the card;
+    kernel activity only unless `host` (less profiler cost on the host)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
-
-    engine = ServingEngine(
-        model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
-        prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=model.config.pad_token_id,
-    )
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only: less host cost
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        serve_batch(engine, specs[:7])
-        serve_batch(engine, specs[7:])
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    return prof.key_averages(), wall_s
+
+
+def _device_time(events, wall_s, top):
+    """Device time by kernel name and the device's busy share of the window (the
+    profiler's own host cost lowers that share)."""
+    from torch.autograd import DeviceType
+
     kernels = [
         (e.key, e.count, e.self_device_time_total / 1e3)
-        for e in prof.key_averages()
+        for e in events
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     busy_ms = sum(ms for _, _, ms in kernels)
     assert busy_ms > 0, "the profiler saw no device time"
     return {
         "wall_s": wall_s, "device_busy_s": busy_ms / 1e3, "device_busy_share": busy_ms / 1e3 / wall_s,
-        "decode_steps": engine.stats.decode_steps, "prefill_chunks": engine.stats.prefill_chunks,
+        "launches": sum(count for _, count, _ in kernels),
         "top_kernels": [
             {"name": name[:96], "launches": count, "ms": ms, "share": ms / busy_ms}
-            for name, count, ms in sorted(kernels, key=lambda k: -k[2])[:15]
+            for name, count, ms in sorted(kernels, key=lambda k: -k[2])[:top]
         ],
     }
+
+
+def profile_serving(model, specs):
+    """Phase 4: where the device time goes. The slice's requests are served again on a
+    fresh engine under torch.profiler."""
+    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
+
+    engine = ServingEngine(
+        model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=model.config.pad_token_id,
+    )
+    profile = _device_time(*_profiled(lambda: (serve_batch(engine, specs[:7]), serve_batch(engine, specs[7:]))), top=15)
+    return dict(profile, decode_steps=engine.stats.decode_steps, prefill_chunks=engine.stats.prefill_chunks)
+
+
+def _doc_ids(rs, seq, num_docs):
+    """[seq] int32 segment ids (1..num_docs) of documents cut at random points."""
+    import numpy as np
+
+    ids = np.ones(seq, np.int32)
+    for cut in np.sort(rs.choice(np.arange(1, seq), num_docs - 1, replace=False)):
+        ids[cut:] += 1
+    return ids
+
+
+def _visible_pairs(seg):
+    """(query, key) pairs the causal segment mask lets through: sum of L (L + 1) / 2 over
+    the documents (runs of one segment id) of each row."""
+    import torch
+
+    lengths = [torch.unique_consecutive(row, return_counts=True)[1] for row in seg]
+    return int(sum((n * (n + 1) // 2).sum().item() for n in lengths))
+
+
+def _close(got, want, fp32):
+    """(within tolerance, max abs error): fp32 within 1e-5 abs + 1e-5 rel; bf16 within
+    2e-2 abs plus one bf16 ulp of the value (both sides round their fp32 results)."""
+    diff = (got.float() - want.float()).abs()
+    bound = 1e-5 + 1e-5 * want.float().abs() if fp32 else 2e-2 + _bf16_ulp(want)
+    return bool((diff <= bound).all()), diff.max().item()
+
+
+def training_kernel_cases(seed):
+    """Phase 2, training kernels: flash attention forward and backward and fused_ce
+    against their plain versions, with kernel, plain and library timings."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
+
+    cases = []
+
+    def record(*args):
+        _record(cases, *args, plain_iters=5)  # the plain attention is slow at S = 4096
+
+    rs = np.random.RandomState(seed)
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        es = torch.tensor([], dtype=dtype).element_size()
+        fp32 = dtype == torch.float32
+        tol = "1e-5 abs + 1e-5 rel" if fp32 else "2e-2 abs + 1 bf16 ulp"
+        # the slice's layer (packed documents) and a GQA case at head_dim 128
+        for batch, seq, hq, hkv, hd, docs in ((1, TRAIN_SEQ, 32, 32, 80, 6), (2, 1024, 8, 2, 128, 3)):
+            qkv = torch.randn((batch, seq, (hq + 2 * hkv) * hd), generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
+            q, k, v = q.reshape(batch, seq, hq, hd), k.reshape(batch, seq, hkv, hd), v.reshape(batch, seq, hkv, hd)
+            seg = torch.as_tensor(np.stack([_doc_ids(rs, seq, docs) for _ in range(batch)]), device="cuda")
+            pairs = _visible_pairs(seg)
+            scale = hd**-0.5
+            shape = f"[{batch},{seq},{hq}/{hkv},{hd}] {docs} docs"
+            out, lse = fa.flash_attention_fwd(q, k, v, seg, scale)
+            want, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale)
+            ok, err = _close(out, want, fp32)
+            ok = ok and bool(torch.allclose(lse, want_lse, atol=1e-5, rtol=1e-5))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            gqa = dict(enable_gqa=True) if hq != hkv else {}
+            io = (2 * q.numel() + 2 * k.numel()) * es
+            record(
+                "flash_attn_fwd", shape, dtype, err, ok, tol,
+                lambda: fa.flash_attention_fwd(q, k, v, seg, scale),
+                lambda: fa.flash_attention_fwd_plain(q, k, v, seg, scale),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale, **gqa),
+                io + q.numel() // hd * 4 + seg.numel() * 4, 4 * pairs * hd * hq,
+            )
+            dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+            want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
+            checks = [_close(g, w, fp32) for g, w in zip(grads, want_grads)]
+            ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale, **gqa)
+            lib_dout = dout.transpose(1, 2).contiguous()
+            record(
+                "flash_attn_bwd", shape, dtype, max(e for _, e in checks), all(c for c, _ in checks), tol,
+                lambda: fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale),
+                lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_dout, retain_graph=True),
+                (4 * q.numel() + 4 * k.numel()) * es + q.numel() // hd * 4 + seg.numel() * 4,
+                10 * pairs * hd * hq,
+            )
+            del qkv, q, k, v, out, want, grads, want_grads, ql, kl, vl, lib_out
+
+        # one loss chunk of the slice (256 rows against the whole table), and a vocabulary
+        # that is not a multiple of the kernel's 128-column tile
+        rows, hidden = 256, GRANITE_3B_CODE["n_embd"]
+        for vocab in (GRANITE_3B_CODE["vocab_size"], GRANITE_3B_CODE["vocab_size"] - 83):
+            # logits of std ~0.5, the scale of an LM head's at init (the embedding std 0.02)
+            h = (torch.randn((rows, hidden), generator=gen, device="cuda") * 4 / hidden**0.5).to(dtype)
+            table = (torch.randn((vocab, hidden), generator=gen, device="cuda") / 8).to(dtype)
+            labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
+            labels[::7] = fused_ce.IGNORE_INDEX
+            got = fused_ce.fused_ce_rowwise(h, table, labels)
+            want = fused_ce.fused_ce_rowwise_plain(h, table, labels)
+            if fp32:
+                ok = all(bool(torch.allclose(a, b, rtol=1e-5, atol=0)) for a, b in zip(got, want))
+            else:
+                ok = all(bool(((a - b).abs() <= 2e-2).all()) for a, b in zip(got, want))
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            record(
+                "fused_ce", f"[{rows},{hidden}]x[{vocab},{hidden}]", dtype, err, ok,
+                "1e-5 rel" if fp32 else "2e-2 abs",
+                lambda: fused_ce.fused_ce_rowwise(h, table, labels),
+                lambda: fused_ce.fused_ce_rowwise_plain(h, table, labels),
+                None,
+                (rows + vocab) * hidden * es + rows * 4 + 2 * rows * 4, 2 * rows * vocab * hidden,
+            )
+            del h, table
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _packed_text(rs, rows, seq, vocab, eos):
+    """[rows, seq + 1] tokens: documents of 200-2000 tokens, each closed by EOS."""
+    import numpy as np
+
+    text = np.empty((rows, seq + 1), np.int64)
+    for row in text:
+        filled = 0
+        while filled < seq + 1:
+            doc = rs.randint(1, vocab, rs.randint(200, 2001))
+            doc[-1] = eos
+            take = min(len(doc), seq + 1 - filled)
+            row[filled : filled + take] = doc[:take]
+            filled += take
+    return text
+
+
+def plain_train_loss(model, inputs, compute_dtype):
+    """The training loss of `model` with every kernel's plain version called explicitly
+    and the plain (unfused) LM-head loss, in `compute_dtype`: the reference of the
+    kernel path's loss and gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from dolomite_engine_tpu_torch.models.modeling_utils import get_softmax_scale
+    from dolomite_engine_tpu_torch.ops.attention import attention
+    from dolomite_engine_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm_plain
+    from dolomite_engine_tpu_torch.ops.kernels.rope_qkv import fused_rope_qkv_plain
+    from dolomite_engine_tpu_torch.ops.loss import causal_lm_loss
+    from dolomite_engine_tpu_torch.ops.rope import get_cos_sin
+
+    config, t = model.config, model.transformer
+    hq, hkv, hd = config.n_head, config.num_key_value_heads, config.head_dim
+    eps = config.layer_norm_epsilon
+    ids, seg = inputs["input_ids"], inputs["segment_ids"]
+    batch, seq = ids.shape
+
+    def linear(x, module):
+        return F.linear(x, module.weight.to(compute_dtype))
+
+    h = F.embedding(ids, t.wte.weight).to(compute_dtype)
+    cos, sin = get_cos_sin(t.rope_params, inputs["position_ids"], compute_dtype)
+    for block in t.h:
+        residual = h
+        x = fused_rmsnorm_plain(h, block.ln_1.weight, eps)
+        qkv = fused_rope_qkv_plain(linear(x, block.attn.c_attn), cos, sin, hq, hkv, hd)
+        q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
+        a = attention(
+            q.reshape(batch, seq, hq, hd), k.reshape(batch, seq, hkv, hd), v.reshape(batch, seq, hkv, hd),
+            causal=True, softmax_scale=get_softmax_scale(config, hd), implementation="eager",
+            segment_ids=seg,
+        )
+        x, h = fused_rmsnorm_plain(linear(a.reshape(batch, seq, -1), block.attn.c_proj), block.ln_2.weight, eps, residual=residual)
+        h = h + linear(block.mlp.act(linear(x, block.mlp.c_fc)), block.mlp.c_proj)
+    h = fused_rmsnorm_plain(h, t.ln_f.weight, eps)
+    logits = h @ t.wte.weight.to(compute_dtype).T
+    return causal_lm_loss(
+        logits, ids, upcast=config.upcast_logits_for_loss, labels=inputs["labels"],
+        z_loss_coef=config.z_loss_coef,
+    )
+
+
+def training_paths_check(seed, n_layer=2):
+    """Phase 5: the kernel path against the plain path at full width, `n_layer` layers,
+    the same fp32 master weights and batch, bf16 compute; and both against an fp32 plain
+    reference of the same weights."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
+
+    config = dict(TRAIN_CONFIG, n_layer=n_layer)
+    wrapper = ModelWrapperForPretraining(
+        config, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
+        gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
+        device="cuda", seed=seed,
+    )
+    model = wrapper.model
+    rs = np.random.RandomState(seed + 1)
+    text = torch.as_tensor(
+        _packed_text(rs, 1, TRAIN_SEQ, config["vocab_size"], config["eos_token_id"]), device="cuda"
+    )
+    inputs = wrapper.prepare_inputs_and_labels(text)
+    names, params = zip(*model.named_parameters())
+
+    def grads(loss):
+        return [g.float() for g in torch.autograd.grad(loss, params)]
+
+    kernel_loss = wrapper.loss(text)
+    kernel_grads = grads(kernel_loss)
+    plain_loss = plain_train_loss(model, inputs, torch.bfloat16)
+    plain_grads = grads(plain_loss)
+    exact_loss = plain_train_loss(model, inputs, torch.float32)
+    exact_grads = grads(exact_loss)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    def total_rel(gs):
+        num = sum(((g - e) ** 2).sum() for g, e in zip(gs, exact_grads))
+        return (num / sum((e**2).sum() for e in exact_grads)).sqrt().item()
+
+    per_param = {n: rel(g, p) for n, g, p in zip(names, kernel_grads, plain_grads)}
+    worst = max(per_param, key=per_param.get)
+    check = {
+        "n_layer": n_layer, "seq": TRAIN_SEQ, "documents": int(inputs["segment_ids"].max()),
+        "kernel_loss": kernel_loss.item(), "plain_bf16_loss": plain_loss.item(), "fp32_loss": exact_loss.item(),
+        "max_param_grad_rel_l2_err": per_param[worst], "worst_param": worst,
+        "kernel_grad_rel_l2_err_vs_fp32": total_rel(kernel_grads),
+        "plain_bf16_grad_rel_l2_err_vs_fp32": total_rel(plain_grads),
+        "tolerance": (
+            "loss within 2e-2 abs of the plain bf16 path; each parameter's gradient within "
+            "3e-2 relative L2 error; against the fp32 plain reference the kernel path's "
+            "gradients err at most 1.5x the plain bf16 path's"
+        ),
+    }
+    assert all(np.isfinite(v) for v in (check["kernel_loss"], check["plain_bf16_loss"])), check
+    assert abs(check["kernel_loss"] - check["plain_bf16_loss"]) <= 2e-2, check
+    assert check["max_param_grad_rel_l2_err"] <= 3e-2, check
+    assert check["kernel_grad_rel_l2_err_vs_fp32"] <= 1.5 * check["plain_bf16_grad_rel_l2_err_vs_fp32"], check
+    del wrapper, model, params, kernel_grads, plain_grads, exact_grads
+    torch.cuda.empty_cache()
+    return check
+
+
+def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ):
+    """Phase 6: the dense GPTDolomite train step on granite-3b-code (another config and
+    the CPU only to rehearse this script's control flow at a tiny size)."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.optimization import get_optimizer, get_scheduler
+    from dolomite_engine_tpu_torch.train_utils import TrainState, get_model_tflops, make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapper = ModelWrapperForPretraining(
+        config_kwargs, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
+        gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
+        device=device, seed=seed,
+    )
+    config = wrapper.config
+    schedule = get_scheduler(2, 0, None, 10, "cosine", 0.1, base_lr=TRAIN_LR)
+    optimizer = get_optimizer("TorchAdamW", TRAIN_OPTIMIZER, schedule, wrapper.model.named_parameters())
+    state = TrainState(wrapper.model, optimizer)
+    train_step = make_train_step(
+        lambda micro: wrapper.loss(micro["text"]), optimizer, gradient_accumulation_steps=TRAIN_ACCUM,
+        gradient_clipping=1.0, skip_nonfinite=True,
+    )
+    rs = np.random.RandomState(seed + 2)
+    text = _packed_text(rs, TRAIN_ACCUM, seq, config.vocab_size, config.eos_token_id)
+    batch = {"text": torch.as_tensor(text, device=wrapper.model.device)[:, None]}  # [accum, 1, S + 1]
+    _sync(wrapper.model.device)
+    build_s = time.perf_counter() - t0
+
+    reset_launch_counts()
+    metrics, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(train_step(state, batch))
+        _sync(wrapper.model.device)
+        times.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in KERNELS}
+
+    losses = [m["loss"] for m in metrics]
+    assert all(np.isfinite(losses)) and not any(m["skipped"] for m in metrics), metrics
+    assert losses[4] < losses[1], f"the loss did not fall over the repeated batch: {losses}"
+    layers, micro_batches = config.n_layer, TRAIN_ACCUM * TRAIN_STEPS
+    # per micro-batch, every block rerun in the backward (checkpoint_every 1): rmsnorm
+    # 2L + 1 forward + 2L recompute (its backward is plain PyTorch); rope L forward + L
+    # recompute + L backward; flash forward L + L recompute, backward L; fused_ce one per
+    # 256-token loss chunk (its backward recomputes through cuBLAS)
+    expected = {
+        "rmsnorm": (4 * layers + 1) * micro_batches,
+        "rope_qkv": 3 * layers * micro_batches,
+        "paged_decode_attention": 0,
+        "paged_prefill_attention": 0,
+        "flash_attn_fwd": 2 * layers * micro_batches,
+        "flash_attn_bwd": layers * micro_batches,
+        "fused_ce": -(-seq // config.loss_chunk_size) * micro_batches,
+    }
+    if on_card:  # on the CPU (a rehearsal) the plain versions run
+        assert launches == expected, (launches, expected)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    if on_card:
+        assert peak_gb < 70, f"peak device memory {peak_gb:.1f} GB"
+    step_s = sum(times[1:]) / len(times[1:])  # the first step is the warm-up
+    tflops = get_model_tflops(config, TRAIN_ACCUM, seq, None, TRAIN_REMAT)
+    training = {
+        "model": {
+            "n_layer": config.n_layer, "n_embd": config.n_embd, "n_head": config.n_head,
+            "vocab_size": config.vocab_size, "params": sum(p.numel() for p in wrapper.model.parameters()),
+            "param_dtype": "float32", "compute_dtype": "bfloat16", "weights": "random",
+        },
+        "seed": seed, "micro_batch": 1, "accumulation": TRAIN_ACCUM, "seq": seq,
+        "documents_per_row": [int((row[:-1] == config.eos_token_id).sum()) + 1 for row in text],
+        "steps": TRAIN_STEPS, "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics],
+        "step_s": times, "mean_step_s_after_warmup": step_s, "tokens_per_s": TRAIN_ACCUM * seq / step_s,
+        "model_tflops_per_step": tflops, "mfu": tflops / step_s / (PEAK_FLOPS["bfloat16"] / 1e12),
+        "peak_memory_gb": peak_gb, "model_init_s": build_s, "launches": launches,
+    }
+    return training, launches, (state, train_step, batch)
+
+
+def profile_training(state, train_step, batch):
+    """Phase 6, profiled: one more train step with kernel activity only (device time by
+    kernel, the device's busy share), then one with host activity too (host time by
+    PyTorch op; the rest of the step's host time is Python)."""
+    from torch.autograd import DeviceType
+
+    profile = _device_time(*_profiled(lambda: train_step(state, batch)), top=20)
+    events, host_wall_s = _profiled(lambda: train_step(state, batch), host=True)
+    host_ops = [
+        (e.key, e.count, e.self_cpu_time_total / 1e3)
+        for e in events
+        if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0
+    ]
+    return dict(
+        profile,
+        host_profiled_wall_s=host_wall_s,
+        host_op_self_s=sum(ms for _, _, ms in host_ops) / 1e3,
+        top_host_ops=[
+            {"name": name[:64], "calls": count, "ms": ms}
+            for name, count, ms in sorted(host_ops, key=lambda k: -k[2])[:15]
+        ],
+    )
 
 
 def main() -> int:
@@ -492,21 +878,31 @@ def main() -> int:
     load_library()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
 
-    cases = kernel_cases(args.seed)
+    cases = kernel_cases(args.seed) + training_kernel_cases(args.seed)
     print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
 
-    serving, launches, model, specs = serve(args.seed)
+    serving, serving_launches, model, specs = serve(args.seed)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"profile": profile_serving(model, specs), "card": card}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"training_check": training_paths_check(args.seed), "card": card}), flush=True)
+    training, training_launches, (state, train_step, batch) = train_slice(args.seed)
+    print(json.dumps({"training": training, "card": card}), flush=True)
+    print(json.dumps({"training_profile": profile_training(state, train_step, batch), "card": card}), flush=True)
 
     kernels = []
     for spec in KERNELS:
-        main_case = next(c for c in cases if c["kernel"] == spec.name and c["dtype"] == "bfloat16")
-        worst = max(c["max_abs_err"] for c in cases if c["kernel"] == spec.name and c["dtype"] == "bfloat16")
-        assert launches[spec.name] > 0, f"{spec.name} was never launched on the main path"
+        bf16 = [c for c in cases if c["kernel"] == spec.name and c["dtype"] == "bfloat16"]
+        main_case = bf16[0]
+        by_path = {"serving": serving_launches[spec.name], "training": training_launches[spec.name]}
+        launches = sum(by_path.values())
+        assert launches > 0, f"{spec.name} was never launched on the main path"
         kernels.append({
             "name": spec.name, "route": "cuda", "source": spec.source, "replaces": spec.replaces,
-            "launches": launches[spec.name], "max_abs_err": worst,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in bf16),
             "ms": main_case["kernel_ms"], "kernel_ms": main_case["kernel_ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -1,11 +1,13 @@
-"""GPTDolomite, the dense decoder, for inference with a paged KV pool.
+"""GPTDolomite, the dense decoder: serving with a paged KV pool, and training.
 
 Counterpart of `dolomite_engine_tpu/models/gpt_dolomite.py`: `GPTDolomiteModel` and
 `GPTDolomiteForCausalLM` with learned-absolute, rope (+ YaRN) and nope positions, µP
-multipliers and a tied or untied LM head. Module names follow the flax parameter tree
-(``transformer.wte``, ``transformer.h.<i>.attn.c_attn``, ...), so `load_jax_params` maps
-the JAX package's unrolled params one to one. No loss, no remat, no scan: training is a
-later slice.
+multipliers, a tied or untied LM head, packed documents through segment ids, the loss
+path (the chunked fused LM-head loss or plain logits + CE) and every-k-th-block
+activation checkpointing. Module names follow the flax parameter tree
+(``transformer.wte``, ``transformer.h.<i>.attn.c_attn``, ...), so `load_jax_params`
+maps the JAX package's unrolled params one to one. No scan: torch runs the blocks in a
+Python loop.
 """
 
 from __future__ import annotations
@@ -15,9 +17,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..enums import AttentionImplementation
+from ..ops.loss import causal_lm_loss, derive_causal_labels, fused_linear_cross_entropy
 from ..ops.rope import RoPEParams
 from .config import CommonConfig
 from .enums import PositionEmbeddingType
@@ -30,33 +36,64 @@ from .modeling_utils import (
     get_norm,
 )
 
+REMAT_POLICY_NAMES = ("full", "save_dots", "save_attention_out", "offload_dots")
+
+
+def resolve_named_remat_policy(policy: str | None) -> None:
+    """The ``full`` policy (save nothing inside a checkpointed block, the default) is
+    `torch.utils.checkpoint` as it is; the policies that save a block's matmul or
+    attention outputs are not ported yet."""
+    if policy is None or policy == "full":
+        return None
+    if policy in REMAT_POLICY_NAMES:
+        raise NotImplementedError(
+            f"remat policy '{policy}' is not ported yet: ROADMAP.md Queue A, 'Remat policies'"
+        )
+    raise ValueError(f"unknown remat policy '{policy}' (expected one of {REMAT_POLICY_NAMES})")
+
 
 @dataclass
 class CausalLMOutput:
     logits: torch.Tensor | None = None
     kv_caches: list[KVCache] | None = None
+    loss: torch.Tensor | None = None
 
 
 class GPTDolomiteModel(nn.Module):
-    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device) -> None:
+    def __init__(
+        self,
+        config: CommonConfig,
+        dtype: torch.dtype,
+        device: torch.device,
+        param_dtype: torch.dtype | None = None,
+        attention_implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
+        checkpoint_every: int = 0,
+        checkpoint_policy: str | None = None,
+    ) -> None:
         super().__init__()
         self.config = config
         self.pe_type = PositionEmbeddingType(config.position_embedding_type)
         if self.pe_type == PositionEmbeddingType.alibi:
             raise NotImplementedError(
-                "alibi positions are not ported yet: ROADMAP.md Queue A, 'Training slice'"
+                "alibi positions are not ported yet: ROADMAP.md Queue A, 'Alibi positions'"
             )
+        resolve_named_remat_policy(checkpoint_policy)
+        self.checkpoint_every = checkpoint_every  # 0 = no remat; k = remat every k-th block
         self.wte = ParameterizedEmbedding(
-            config.vocab_size, config.n_embd, config.initializer_range, dtype, device
+            config.vocab_size, config.n_embd, config.initializer_range, dtype, device, param_dtype
         )
         self.wpe = (
             ParameterizedEmbedding(
-                config.n_positions, config.n_embd, config.initializer_range, dtype, device
+                config.n_positions, config.n_embd, config.initializer_range, dtype, device,
+                param_dtype,
             )
             if self.pe_type == PositionEmbeddingType.learned_absolute
             else None
         )
-        self.h = nn.ModuleList(Block(config, dtype, device) for _ in range(config.n_layer))
+        self.h = nn.ModuleList(
+            Block(config, dtype, device, param_dtype, attention_implementation)
+            for _ in range(config.n_layer)
+        )
         self.ln_f = get_norm(config, device)
         self.rope_params = (
             RoPEParams.from_config(
@@ -76,6 +113,8 @@ class GPTDolomiteModel(nn.Module):
         attention_mask: torch.Tensor | None = None,
         kv_caches: list[KVCache] | None = None,
         cache_index: torch.Tensor | int | None = None,
+        segment_ids: torch.Tensor | None = None,
+        deterministic: bool = True,
     ) -> tuple[torch.Tensor, list[KVCache] | None]:
         config = self.config
         seq = input_ids.shape[1]
@@ -90,19 +129,27 @@ class GPTDolomiteModel(nn.Module):
             hidden_states = hidden_states + self.wpe(position_ids)
         if config.m_emb is not None:
             hidden_states = hidden_states * config.m_emb
+        if not deterministic and config.embd_pdrop > 0.0:
+            hidden_states = F.dropout(hidden_states, config.embd_pdrop)
 
         rope_cos_sin = compute_position_stuff(
             config, position_ids, self.rope_params, hidden_states.dtype
         )
         new_caches = [] if kv_caches is not None else None
         for i, block in enumerate(self.h):
-            hidden_states, cache = block(
-                hidden_states,
-                attention_mask,
-                rope_cos_sin,
-                None if kv_caches is None else kv_caches[i],
-                cache_index,
-            )
+            cache = None if kv_caches is None else kv_caches[i]
+            if self.checkpoint_every and i % self.checkpoint_every == 0 and cache is None:
+                # the `full` policy: only the block's input survives the forward; the
+                # backward reruns the block (kernels included) to rebuild its activations
+                hidden_states, cache = checkpoint(
+                    block, hidden_states, attention_mask, rope_cos_sin, None, cache_index,
+                    segment_ids, deterministic, use_reentrant=False,
+                )
+            else:
+                hidden_states, cache = block(
+                    hidden_states, attention_mask, rope_cos_sin, cache, cache_index,
+                    segment_ids, deterministic,
+                )
             if new_caches is not None:
                 new_caches.append(cache)
         return self.ln_f(hidden_states), new_caches
@@ -112,7 +159,12 @@ class GPTDolomiteForCausalLM(nn.Module):
     """The causal LM. Built on `device` (default the GPU; raises without one unless
     ``device="cpu"``) with random weights from `seed`, following the JAX init rules:
     std ``initializer_range`` for embeddings and input projections, depth-scaled
-    ``c_proj``, µP's division by ``sqrt(m_width)``, norms at 1 and biases at 0."""
+    ``c_proj``, µP's division by ``sqrt(m_width)``, norms at 1 and biases at 0.
+
+    `dtype` is the compute dtype; `param_dtype` (default `dtype`) the storage of the
+    linear and embedding weights — fp32 master weights for training, as the JAX
+    package's modules keep them. `checkpoint_every` k reruns every k-th block in the
+    backward (the ``full`` remat policy)."""
 
     def __init__(
         self,
@@ -120,17 +172,25 @@ class GPTDolomiteForCausalLM(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cuda",
         seed: int = 0,
+        param_dtype: torch.dtype | None = None,
+        attention_implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
+        checkpoint_every: int = 0,
+        checkpoint_policy: str | None = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
         self.config = config
         self.dtype = dtype
-        self.transformer = GPTDolomiteModel(config, dtype, device)
+        self.transformer = GPTDolomiteModel(
+            config, dtype, device, param_dtype, attention_implementation, checkpoint_every,
+            checkpoint_policy,
+        )
         self.lm_head = (
             None
             if config.tie_word_embeddings
             else ParameterizedLinear(
-                config.n_embd, config.vocab_size, False, config.initializer_range, dtype, device
+                config.n_embd, config.vocab_size, False, config.initializer_range, dtype, device,
+                param_dtype,
             )
         )
         self.init_weights(seed)
@@ -153,15 +213,53 @@ class GPTDolomiteForCausalLM(nn.Module):
         attention_mask: torch.Tensor | None = None,
         kv_caches: list[KVCache] | None = None,
         cache_index: torch.Tensor | int | None = None,
+        segment_ids: torch.Tensor | None = None,
+        labels: torch.Tensor | None = None,
+        deterministic: bool = True,
+        compute_loss: bool = False,
     ) -> CausalLMOutput:
+        """Logits, or with `labels` / `compute_loss` the mean next-token loss: through the
+        chunked fused LM-head loss (no logits) when the config asks for it, else plain
+        logits + CE (labels derived from `input_ids` when not given)."""
+        config = self.config
         hidden_states, new_caches = self.transformer(
             input_ids,
             position_ids=position_ids,
             attention_mask=attention_mask,
             kv_caches=kv_caches,
             cache_index=cache_index,
+            segment_ids=segment_ids,
+            deterministic=deterministic,
         )
-        return CausalLMOutput(logits=self.compute_logits(hidden_states), kv_caches=new_caches)
+        want_loss = compute_loss or labels is not None
+        # CommonConfig only allows the fused loss with tied embeddings
+        if want_loss and config.fused_lm_head_loss and kv_caches is None:
+            if labels is None:
+                labels = derive_causal_labels(input_ids, attention_mask, segment_ids)
+            loss = fused_linear_cross_entropy(
+                hidden_states.to(self.dtype),
+                self.transformer.wte.table(),
+                labels,
+                chunk_size=config.loss_chunk_size,
+                upcast=config.upcast_logits_for_loss,
+                logit_scale=None if config.m_width is None else 1.0 / config.m_width,
+                compute_dtype=self.dtype,
+                z_loss_coef=config.z_loss_coef,
+            )
+            return CausalLMOutput(kv_caches=new_caches, loss=loss)
+        logits = self.compute_logits(hidden_states)
+        loss = None
+        if want_loss:
+            loss = causal_lm_loss(
+                logits,
+                input_ids,
+                upcast=config.upcast_logits_for_loss,
+                attention_mask=attention_mask,
+                segment_ids=segment_ids,
+                labels=labels,
+                z_loss_coef=config.z_loss_coef,
+            )
+        return CausalLMOutput(logits=logits, kv_caches=new_caches, loss=loss)
 
     def compute_logits(self, hidden_states: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
@@ -213,8 +311,9 @@ def load_jax_params(
     """Move `model` to `device` and fill it from the JAX package's unrolled GPTDolomite
     params (nested dicts of numpy arrays under the flax names: ``transformer.wte``,
     ``h_<i>.attn.c_attn``, ..., with or without a top-level ``params`` key). Flax
-    ``[in, out]`` kernels become torch ``[out, in]`` weights in the parameter's dtype.
-    The caller converts JAX arrays with ``np.asarray``; this imports no JAX."""
+    ``[in, out]`` kernels become torch ``[out, in]`` weights in the parameter's dtype:
+    a training model's fp32 master weights take the JAX fp32 params exactly. The caller
+    converts JAX arrays with ``np.asarray``; this imports no JAX."""
     model.to(resolve_device(device))
     if "params" in params_np:
         params_np = params_np["params"]

@@ -1,16 +1,18 @@
 """Shared modules: parameterized linear/embedding, norms, attention, MLP, block.
 
-Counterpart of `dolomite_engine_tpu/models/modeling_utils.py` for inference. The layouts
-are the JAX package's, so weights carry across unchanged apart from the transpose of
-each linear kernel (flax ``[in, out]``, torch ``[out, in]``):
+Counterpart of `dolomite_engine_tpu/models/modeling_utils.py` for serving and training.
+The layouts are the JAX package's, so weights carry across unchanged apart from the
+transpose of each linear kernel (flax ``[in, out]``, torch ``[out, in]``):
 
 - the fused QKV projection is flat ``[Q (Hq*D) | K (Hkv*D) | V (Hkv*D)]`` for every head
   type;
 - the GLU MLP's ``c_fc`` emits ``[up | gate]``;
 - paged KV pools are ``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page.
 
-Linear and embedding weights are stored in the model dtype (the JAX package stores fp32
-and casts at every use, which rounds identically); norm weights stay fp32 parameters.
+Linear and embedding weights are stored in ``param_dtype`` and cast to the compute
+``dtype`` at every use, as the JAX package's flax modules do (it always stores fp32).
+Serving builds them directly in the compute dtype (the cast is then a no-op and rounds
+identically); training keeps fp32 master weights. Norm weights are always fp32.
 
 Attention dispatch keeps the JAX conditions exactly. The decode kernel runs for a paged
 pool with a per-row ``[B]`` cache index and no incoming mask; the chunked-prefill kernel
@@ -18,7 +20,8 @@ for a paged pool with a scalar cache index, a 2-D key mask and more than one que
 only under ``attention_softmax_in_fp32``. The scatter into the pool runs before either
 kernel with the same position clamping and write validity as the gather path, so the
 pool state is the same whichever path ran. Every other call gathers the page view and
-runs eager attention.
+runs eager attention. Without a cache (training), `ops/attention.attention` dispatches:
+``flash_attention_2`` on a CUDA device runs the causal / segment-id flash kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..enums import AttentionImplementation
 from ..ops.activations import get_activation_function, is_glu
 from ..ops.attention import attention, paged_gather_kv, paged_scatter_kv
 from ..ops.kernels.paged_attention import paged_decode_attention
@@ -42,8 +46,14 @@ from .enums import InitMethod, PositionEmbeddingType
 KVCache = dict[str, torch.Tensor]  # {"k": pages, "v": pages, "page_table": [B, max_pages]}
 
 
+def _as(tensor: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    """`tensor` in the compute dtype (itself when it already is)."""
+    return tensor if tensor is None or tensor.dtype == dtype else tensor.to(dtype)
+
+
 class ParameterizedLinear(nn.Module):
-    """``y = x @ W.T + b`` with the weight stored ``[out, in]`` and its init std kept."""
+    """``y = x @ W.T + b`` with the weight stored ``[out, in]`` in `param_dtype` (default
+    `dtype`), computed in `dtype`, and its init std kept."""
 
     def __init__(
         self,
@@ -53,14 +63,17 @@ class ParameterizedLinear(nn.Module):
         std: float,
         dtype: torch.dtype,
         device: torch.device,
+        param_dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.std = std
+        self.dtype = dtype
+        param_dtype = param_dtype or dtype
         self.weight = nn.Parameter(
-            torch.empty(out_features, in_features, dtype=dtype, device=device), requires_grad=False
+            torch.empty(out_features, in_features, dtype=param_dtype, device=device)
         )
         self.bias = (
-            nn.Parameter(torch.zeros(out_features, dtype=dtype, device=device), requires_grad=False)
+            nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device))
             if bias
             else None
         )
@@ -71,7 +84,7 @@ class ParameterizedLinear(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), _as(self.weight, self.dtype), _as(self.bias, self.dtype))
 
 
 class ParameterizedEmbedding(nn.Module):
@@ -82,22 +95,30 @@ class ParameterizedEmbedding(nn.Module):
         std: float,
         dtype: torch.dtype,
         device: torch.device,
+        param_dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.std = std
+        self.dtype = dtype
         self.weight = nn.Parameter(
-            torch.empty(num_embeddings, features, dtype=dtype, device=device), requires_grad=False
+            torch.empty(num_embeddings, features, dtype=param_dtype or dtype, device=device)
         )
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.weight.normal_(0.0, self.std, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        # the lookup then the cast: the same values as casting the table first, without
+        # a compute-dtype copy of the whole table
+        return _as(F.embedding(ids, self.weight), self.dtype)
+
+    def table(self) -> torch.Tensor:
+        """The ``[V, H]`` table in the compute dtype (the tied LM head's operand)."""
+        return _as(self.weight, self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied LM head: ``x @ embedding.T``."""
-        return x.to(self.weight.dtype) @ self.weight.T
+        return x.to(self.dtype) @ self.table().T
 
 
 class Norm(nn.Module):
@@ -113,11 +134,9 @@ class Norm(nn.Module):
         check_normalization_function(normalization_function)
         self.normalization_function = normalization_function
         self.eps = eps
-        self.weight = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=device), requires_grad=False
-        )
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
         self.bias = (
-            nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device), requires_grad=False)
+            nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
             if normalization_function == "layernorm"
             else None
         )
@@ -247,10 +266,19 @@ def _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask):
 class Attention(nn.Module):
     """Self-attention with the fused QKV projection, RoPE and a paged KV pool."""
 
-    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device, causal=True):
+    def __init__(
+        self,
+        config: CommonConfig,
+        dtype: torch.dtype,
+        device: torch.device,
+        causal=True,
+        param_dtype: torch.dtype | None = None,
+        attention_implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
+    ):
         super().__init__()
         self.config = config
         self.causal = causal
+        self.attention_implementation = AttentionImplementation(attention_implementation)
         self.num_heads = config.n_head
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.head_dim
@@ -261,6 +289,7 @@ class Attention(nn.Module):
             _init_std(config, depth_scaled=False),
             dtype,
             device,
+            param_dtype,
         )
         self.c_proj = ParameterizedLinear(
             self.num_heads * self.head_dim,
@@ -269,7 +298,15 @@ class Attention(nn.Module):
             _init_std(config, depth_scaled=True),
             dtype,
             device,
+            param_dtype,
         )
+
+    def _project_out(self, out: torch.Tensor, deterministic: bool) -> torch.Tensor:
+        batch, seq = out.shape[:2]
+        out = self.c_proj(out.reshape(batch, seq, -1))
+        if not deterministic and self.config.resid_pdrop > 0.0:
+            out = F.dropout(out, self.config.resid_pdrop)
+        return out
 
     def forward(
         self,
@@ -278,6 +315,8 @@ class Attention(nn.Module):
         rope_cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
         kv_cache: KVCache | None = None,
         cache_index: torch.Tensor | int | None = None,
+        segment_ids: torch.Tensor | None = None,
+        deterministic: bool = True,
     ) -> tuple[torch.Tensor, KVCache | None]:
         config = self.config
         batch, seq = hidden_states.shape[:2]
@@ -305,7 +344,7 @@ class Attention(nn.Module):
                     query.contiguous(), kv_cache["k"], kv_cache["v"], table,
                     cache_index.to(torch.int32), softmax_scale,
                 )
-                return self.c_proj(out.reshape(batch, seq, -1)), kv_cache
+                return self._project_out(out, deterministic), kv_cache
             if config.attention_softmax_in_fp32 and _paged_prefill_eligible(
                 kv_cache, cache_index, attention_mask, self.causal, seq
             ):
@@ -315,7 +354,7 @@ class Attention(nn.Module):
                     query.contiguous(), kv_cache["k"], kv_cache["v"], table,
                     start.reshape(1).expand(batch).contiguous(), softmax_scale,
                 )
-                return self.c_proj(out.reshape(batch, seq, -1)), kv_cache
+                return self._project_out(out, deterministic), kv_cache
             key, value, attention_mask = _update_paged_kv_cache(
                 key, value, kv_cache, cache_index, attention_mask
             )
@@ -330,17 +369,27 @@ class Attention(nn.Module):
             attention_mask=attention_mask,
             softmax_in_fp32=config.attention_softmax_in_fp32,
             query_offset=query_offset,
+            implementation=self.attention_implementation,
+            segment_ids=segment_ids,
+            dropout=0.0 if deterministic else config.attn_pdrop,
         )
-        return self.c_proj(out.reshape(batch, seq, -1)), kv_cache
+        return self._project_out(out, deterministic), kv_cache
 
 
 class MLP(nn.Module):
     """Fused up+gate MLP: c_fc emits ``2 * n_inner`` laid out ``[up | gate]`` for GLU
     activations and the activation computes ``up * act(gate)``."""
 
-    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device):
+    def __init__(
+        self,
+        config: CommonConfig,
+        dtype: torch.dtype,
+        device: torch.device,
+        param_dtype: torch.dtype | None = None,
+    ):
         super().__init__()
         glu = is_glu(config.activation_function)
+        self.resid_pdrop = config.resid_pdrop
         self.c_fc = ParameterizedLinear(
             config.n_embd,
             2 * config.n_inner if glu else config.n_inner,
@@ -348,6 +397,7 @@ class MLP(nn.Module):
             _init_std(config, depth_scaled=False),
             dtype,
             device,
+            param_dtype,
         )
         self.c_proj = ParameterizedLinear(
             config.n_inner,
@@ -356,23 +406,37 @@ class MLP(nn.Module):
             _init_std(config, depth_scaled=True),
             dtype,
             device,
+            param_dtype,
         )
         self.act = get_activation_function(config.activation_function)
 
-    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(self.act(self.c_fc(hidden_states)))
+    def forward(self, hidden_states: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        out = self.c_proj(self.act(self.c_fc(hidden_states)))
+        if not deterministic and self.resid_pdrop > 0.0:
+            out = F.dropout(out, self.resid_pdrop)
+        return out
 
 
 class Block(nn.Module):
     """Pre-norm transformer block with the µP residual multiplier."""
 
-    def __init__(self, config: CommonConfig, dtype: torch.dtype, device: torch.device):
+    def __init__(
+        self,
+        config: CommonConfig,
+        dtype: torch.dtype,
+        device: torch.device,
+        param_dtype: torch.dtype | None = None,
+        attention_implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
+    ):
         super().__init__()
         self.m_residual = config.m_residual
         self.ln_1 = get_norm(config, device)
-        self.attn = Attention(config, dtype, device)
+        self.attn = Attention(
+            config, dtype, device, param_dtype=param_dtype,
+            attention_implementation=attention_implementation,
+        )
         self.ln_2 = get_norm(config, device)
-        self.mlp = MLP(config, dtype, device)
+        self.mlp = MLP(config, dtype, device, param_dtype)
 
     def forward(
         self,
@@ -381,6 +445,8 @@ class Block(nn.Module):
         rope_cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
         kv_cache: KVCache | None = None,
         cache_index: torch.Tensor | int | None = None,
+        segment_ids: torch.Tensor | None = None,
+        deterministic: bool = True,
     ) -> tuple[torch.Tensor, KVCache | None]:
         residual = hidden_states
         h = self.ln_1(hidden_states)
@@ -390,11 +456,13 @@ class Block(nn.Module):
             rope_cos_sin=rope_cos_sin,
             kv_cache=kv_cache,
             cache_index=cache_index,
+            segment_ids=segment_ids,
+            deterministic=deterministic,
         )
         if self.m_residual is not None:
             attn_out = attn_out * self.m_residual
         h, hidden_states = self.ln_2(attn_out, residual=residual)
-        mlp_out = self.mlp(h)
+        mlp_out = self.mlp(h, deterministic=deterministic)
         if self.m_residual is not None:
             mlp_out = mlp_out * self.m_residual
         return hidden_states + mlp_out, kv_cache

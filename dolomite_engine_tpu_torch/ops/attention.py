@@ -1,13 +1,17 @@
-"""Attention ops of the paged serving path: masks, eager attention, paged scatter/gather.
+"""Attention ops: masks, eager attention, the training dispatch, paged scatter/gather.
 
-Counterpart of the subset of `dolomite_engine_tpu/ops/attention.py` the paged path uses.
-All shapes are batch-first: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]. Paged pools are
-``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page.
+Counterpart of `dolomite_engine_tpu/ops/attention.py` for the paged serving path and the
+dense training path. All shapes are batch-first: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D].
+Packed (padding-free) batches carry segment ids [B, S] (0 = padding, 1.. = documents).
+Paged pools are ``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from ..enums import AttentionImplementation
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -20,15 +24,21 @@ def make_attention_mask(
     attention_mask: torch.Tensor | None = None,
     query_offset: torch.Tensor | int = 0,
     device: torch.device | None = None,
+    segment_ids_q: torch.Tensor | None = None,
+    segment_ids_kv: torch.Tensor | None = None,
 ) -> torch.Tensor | None:
     """Boolean [B, 1, Sq, Skv] mask (True = attend), or None when fully visible.
 
     ``query_offset`` may be a per-row [B] tensor: every row continues at its own cache
-    position, so query i of row b sees keys up to ``query_offset[b] + i``."""
+    position, so query i of row b sees keys up to ``query_offset[b] + i``. Segment ids
+    keep each query inside its own document, and keys of segment 0 (padding) are never
+    visible."""
     if attention_mask is not None:
         device = attention_mask.device
     elif isinstance(query_offset, torch.Tensor):
         device = query_offset.device
+    elif segment_ids_q is not None or segment_ids_kv is not None:
+        device = (segment_ids_q if segment_ids_q is not None else segment_ids_kv).device
     mask = None
     if causal:
         q_idx = torch.arange(query_length, device=device)
@@ -42,6 +52,14 @@ def make_attention_mask(
     if attention_mask is not None:
         pad = attention_mask.bool()[:, None, None, :]  # [B, 1, 1, Skv]
         mask = pad if mask is None else mask & pad
+    if segment_ids_q is not None or segment_ids_kv is not None:
+        if segment_ids_kv is None:
+            segment_ids_kv = segment_ids_q
+        if segment_ids_q is None:
+            segment_ids_q = segment_ids_kv
+        seg = segment_ids_q[:, None, :, None] == segment_ids_kv[:, None, None, :]
+        seg = seg & (segment_ids_kv != 0)[:, None, None, :]
+        mask = seg if mask is None else mask & seg
     return mask
 
 
@@ -59,10 +77,12 @@ def eager_attention(
     mask: torch.Tensor | None,
     softmax_scale: float,
     softmax_in_fp32: bool = True,
+    dropout: float = 0.0,
 ) -> torch.Tensor:
     """Explicit QK^T -> softmax -> V: scores scaled by `softmax_scale`, masked with the
     float32-min constant, softmax upcast to fp32, probabilities cast back to the input
-    dtype before the PV product. Returns [B, Sq, Hq, D]."""
+    dtype (and dropped out at rate `dropout`) before the PV product. Returns
+    [B, Sq, Hq, D]."""
     input_dtype = q.dtype
     k = _repeat_kv(k, q.shape[2])
     v = _repeat_kv(v, q.shape[2])
@@ -74,6 +94,8 @@ def eager_attention(
     if softmax_in_fp32:
         scores = scores.float()
     probs = torch.softmax(scores, dim=-1).to(input_dtype)
+    if dropout > 0.0:
+        probs = F.dropout(probs, dropout)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -86,10 +108,54 @@ def attention(
     attention_mask: torch.Tensor | None = None,
     softmax_in_fp32: bool = True,
     query_offset: torch.Tensor | int = 0,
+    implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
+    segment_ids: torch.Tensor | None = None,
+    dropout: float = 0.0,
 ) -> torch.Tensor:
-    """Masked eager attention (the plain path for every call no kernel covers)."""
+    """Dispatch one attention call; returns [B, Sq, Hq, D].
+
+    The JAX package's conditions, with "the tensors are on a CUDA device" in place of
+    "the backend is a TPU": ``flash_attention_2`` without dropout or a mask, with
+    q_len == kv_len and the length a multiple of 128, runs the causal / segment-id flash
+    kernel; a causal key-padding mask is first rewritten to segment ids (pad = 0, real =
+    1). Every other call runs masked eager attention."""
+    from .kernels.flash_attention import flash_attention
+
+    implementation = AttentionImplementation(implementation)
     if softmax_scale is None:
         softmax_scale = q.shape[-1] ** -0.5
+    if (
+        implementation == AttentionImplementation.flash_attention_2
+        and attention_mask is not None
+        and attention_mask.ndim == 2  # key-side [B, S] padding mask
+        and segment_ids is None
+        and causal
+        and q.shape[1] == k.shape[1]
+        and isinstance(query_offset, int)
+        and query_offset == 0
+    ):
+        # pad queries attend only among themselves (segment 0); their outputs are never read
+        segment_ids = attention_mask.to(torch.int32)
+        attention_mask = None
+
+    use_flash = (
+        implementation == AttentionImplementation.flash_attention_2
+        and q.device.type == "cuda"
+        and dropout == 0.0
+        and attention_mask is None
+        and q.shape[1] == k.shape[1]
+        and q.shape[1] % 128 == 0
+    )
+    if use_flash:
+        if not causal:
+            raise NotImplementedError(
+                "non-causal flash attention is not ported yet: ROADMAP.md Queue B 9, "
+                "'alibi / non-causal flash attention'"
+            )
+        return flash_attention(q, k, v, segment_ids, softmax_scale)
+
+    if segment_ids is not None and q.shape[1] != k.shape[1]:
+        raise NotImplementedError("packed segment attention with KV cache is not supported")
     mask = make_attention_mask(
         q.shape[0],
         q.shape[1],
@@ -98,8 +164,11 @@ def attention(
         attention_mask=attention_mask,
         query_offset=query_offset,
         device=q.device,
+        segment_ids_q=segment_ids,
     )
-    return eager_attention(q, k, v, mask, softmax_scale, softmax_in_fp32=softmax_in_fp32)
+    return eager_attention(
+        q, k, v, mask, softmax_scale, softmax_in_fp32=softmax_in_fp32, dropout=dropout
+    )
 
 
 def paged_scatter_kv(

@@ -5,10 +5,18 @@ raises), the kernel's plain PyTorch version (taken only for a CPU tensor) and a
 `KernelSpec` whose ``launches`` counts the wrapper's kernel launches.
 """
 
-from . import paged_attention, prefill_attention, rmsnorm, rope_qkv
+from . import flash_attention, fused_ce, paged_attention, prefill_attention, rmsnorm, rope_qkv
 
-# every kernel on the serving path, in the order the forward reaches them
-KERNELS = (rmsnorm.KERNEL, rope_qkv.KERNEL, paged_attention.KERNEL, prefill_attention.KERNEL)
+# every kernel entry point: the serving path's, then the training path's
+KERNELS = (
+    rmsnorm.KERNEL,
+    rope_qkv.KERNEL,
+    paged_attention.KERNEL,
+    prefill_attention.KERNEL,
+    flash_attention.FWD_KERNEL,
+    flash_attention.BWD_KERNEL,
+    fused_ce.KERNEL,
+)
 
 
 def reset_launch_counts() -> None:

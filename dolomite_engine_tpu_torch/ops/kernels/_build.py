@@ -42,6 +42,10 @@ _SIGNATURES = {
     "dolo_paged_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dolo_paged_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dolo_paged_prefill_smem_bytes": (_I,),
+    "dolo_flash_fwd": (_P,) * 6 + (_I,) * 8 + (_F, _I, _P),
+    "dolo_flash_bwd": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
+    "dolo_fused_ce": (_P,) * 6 + (_I,) * 3 + (_F, _I, _I, _P),
+    "dolo_fused_ce_scratch_floats": (_I, _I),
 }
 
 # element-type codes of csrc/common.cuh

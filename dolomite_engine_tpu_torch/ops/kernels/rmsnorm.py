@@ -7,7 +7,9 @@ bytes, and one block per row keeps the summed row in shared memory so each byte 
 once.
 
 `fused_rmsnorm` launches the kernel for a CUDA tensor (or raises) and takes the plain
-version for a CPU tensor.
+version for a CPU tensor. It is differentiable: the backward is the plain PyTorch
+transcription of the JAX package's `_rmsnorm_grads` (the TPU side has no backward kernel
+either), plus the residual-stream rule of its residual form.
 """
 
 from __future__ import annotations
@@ -44,14 +46,11 @@ def fused_rmsnorm_plain(
     return rmsnorm(stream, weight, eps), stream
 
 
-def fused_rmsnorm(
+def _rmsnorm_forward(
     x: torch.Tensor, weight: torch.Tensor, eps: float, residual: torch.Tensor | None = None
 ):
-    """``rmsnorm(x + residual) * weight`` in one kernel.
-
-    Without `residual`: the normalized activations. With it: ``(normed, x + residual)``
-    — the block threads the second output on as its new residual stream. `weight` is the
-    fp32 norm parameter ``[d]``; x (and residual) are ``[..., d]`` fp32 or bf16."""
+    """The forward pass alone: the kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
     if weight.shape != x.shape[-1:]:
         raise ValueError(f"weight {tuple(weight.shape)} must match hidden dim {x.shape[-1]}")
     if residual is not None and (residual.shape != x.shape or residual.dtype != x.dtype):
@@ -79,3 +78,59 @@ def fused_rmsnorm(
     check_launch(code, KERNEL.name)
     KERNEL.launches += 1
     return out if residual is None else (out, stream_out)
+
+
+def rmsnorm_grads(s: torch.Tensor, weight: torch.Tensor, eps: float, dy: torch.Tensor):
+    """(ds, dweight) of ``cast(s32 * rsqrt(mean(s32^2) + eps)) * weight`` for the
+    cotangent `dy`, in fp32 (the cast passes gradients through as identity)."""
+    s32 = s.float()
+    inv = torch.rsqrt(s32.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = s32 * inv
+    dy32 = dy.float()
+    dxhat = dy32 * weight.float()
+    dweight = (dy32 * xhat).sum(dim=tuple(range(s.ndim - 1))).to(weight.dtype)
+    ds = inv * (dxhat - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return ds.to(s.dtype), dweight
+
+
+class _FusedRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rmsnorm_forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dweight = rmsnorm_grads(x, weight, ctx.eps, dy)
+        return dx, dweight, None
+
+
+class _FusedRMSNormResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, weight, eps):
+        out, stream = _rmsnorm_forward(x, weight, eps, residual)
+        ctx.save_for_backward(stream, weight)
+        ctx.eps = eps
+        return out, stream
+
+    @staticmethod
+    def backward(ctx, dy, dstream):
+        stream, weight = ctx.saved_tensors
+        ds, dweight = rmsnorm_grads(stream, weight, ctx.eps, dy)
+        ds = ds + dstream.to(ds.dtype)  # the returned stream feeds the next residual add
+        return ds, ds, dweight, None
+
+
+def fused_rmsnorm(
+    x: torch.Tensor, weight: torch.Tensor, eps: float, residual: torch.Tensor | None = None
+):
+    """``rmsnorm(x + residual) * weight`` in one kernel, differentiable.
+
+    Without `residual`: the normalized activations. With it: ``(normed, x + residual)``
+    — the block threads the second output on as its new residual stream. `weight` is the
+    fp32 norm parameter ``[d]``; x (and residual) are ``[..., d]`` fp32 or bf16."""
+    if residual is None:
+        return _FusedRMSNorm.apply(x, weight, eps)
+    return _FusedRMSNormResidual.apply(x, residual, weight, eps)

@@ -6,7 +6,9 @@ projection once, rotates the Q and K heads, copies V bit for bit and writes once
 ``dolomite_engine_tpu_torch/csrc/rope_qkv.cu``).
 
 `fused_rope_qkv` launches the kernel for a CUDA tensor (or raises) and takes the plain
-version for a CPU tensor.
+version for a CPU tensor. It is differentiable: the rotation's transpose is the same
+rotation with ``-sin``, so the backward launches the same kernel (the plain version on
+the CPU) with the sine negated, as the JAX package's custom vjp does.
 """
 
 from __future__ import annotations
@@ -62,18 +64,8 @@ def fused_rope_qkv_plain(
     return torch.cat([roped, heads[:, :, rope_heads:]], dim=2).reshape(batch, seq, -1)
 
 
-def fused_rope_qkv(
-    qkv: torch.Tensor,
-    cos: torch.Tensor,
-    sin: torch.Tensor,
-    num_heads: int,
-    num_kv_heads: int,
-    head_dim: int,
-) -> torch.Tensor:
-    """Rotate the Q and K head blocks of ``qkv [B, S, (Hq + 2 Hkv) * D]`` in one kernel.
-
-    cos/sin broadcast to ``[B, S, D]`` (the `get_cos_sin` output, batch 1 or B). Returns
-    a new tensor of the same shape and dtype."""
+def _rope_forward(qkv, cos, sin, num_heads, num_kv_heads, head_dim):
+    """One rotation: the kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if qkv.device.type == "cpu":
         return fused_rope_qkv_plain(qkv, cos, sin, num_heads, num_kv_heads, head_dim)
     if qkv.device.type != "cuda":
@@ -96,3 +88,34 @@ def fused_rope_qkv(
     check_launch(code, KERNEL.name)
     KERNEL.launches += 1
     return out
+
+
+class _FusedRopeQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, num_heads, num_kv_heads, head_dim):
+        ctx.save_for_backward(cos, sin)
+        ctx.heads = (num_heads, num_kv_heads, head_dim)
+        return _rope_forward(qkv, cos, sin, num_heads, num_kv_heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # R(x) = x cos + rot(x) sin with rot^T = -rot, so R^T(g) = g cos + rot(g) (-sin)
+        cos, sin = ctx.saved_tensors
+        dqkv = _rope_forward(grad.contiguous(), cos, -sin, *ctx.heads)
+        return dqkv, None, None, None, None, None
+
+
+def fused_rope_qkv(
+    qkv: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """Rotate the Q and K head blocks of ``qkv [B, S, (Hq + 2 Hkv) * D]`` in one kernel,
+    differentiably in `qkv`.
+
+    cos/sin broadcast to ``[B, S, D]`` (the `get_cos_sin` output, batch 1 or B). Returns
+    a new tensor of the same shape and dtype."""
+    return _FusedRopeQKV.apply(qkv, cos, sin, num_heads, num_kv_heads, head_dim)

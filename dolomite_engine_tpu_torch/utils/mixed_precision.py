@@ -1,0 +1,25 @@
+"""dtype names <-> torch dtypes (counterpart of `dolomite_engine_tpu/utils/mixed_precision.py`)."""
+
+from __future__ import annotations
+
+import torch
+
+_STR_TO_DTYPE = {
+    "fp32": torch.float32,
+    "float32": torch.float32,
+    "fp16": torch.float16,
+    "float16": torch.float16,
+    "bf16": torch.bfloat16,
+    "bfloat16": torch.bfloat16,
+}
+
+
+def string_to_dtype(dtype: str | torch.dtype | None) -> torch.dtype | None:
+    """A repo dtype name ("fp32", "bf16", ...) or a torch dtype as a torch dtype."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    if dtype == "fp8":
+        raise NotImplementedError("fp8 training is not ported yet: ROADMAP.md Queue A, 'fp8 training'")
+    if dtype not in _STR_TO_DTYPE:
+        raise ValueError(f"unexpected dtype '{dtype}'")
+    return _STR_TO_DTYPE[dtype]

@@ -6,12 +6,16 @@ without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Shapes cover small odd cases and the serving slice's own shapes (granite-3b-code: 32
-heads of 80, d=2560, 16-token pages). Tolerances: fp32 within 1e-5 (the JAX package's
-own kernel-parity tolerance; only summation order differs); bf16 attention within 2e-2
-absolute (the plain version rounds scores and probabilities to bf16, the kernels keep
-fp32 scores); bf16 rmsnorm and rope within 2 bf16 ulp of the largest term (the plain
-version rounds after every bf16 op, the kernel rounds once).
+Shapes cover small odd cases and the slices' own shapes (granite-3b-code: 32 heads of
+80, d=2560, 16-token pages, 4096-token packed training rows, a 49152-word vocabulary).
+Tolerances: fp32 within 1e-5 (the JAX package's own kernel-parity tolerance; only
+summation order differs); bf16 attention within 2e-2 absolute (the plain version rounds
+scores and probabilities to bf16, the kernels keep fp32 scores), plus one bf16 ulp of the
+value for the training flash kernels, whose plain version computes in fp32 and rounds
+its outputs once (the two sides may round a value one ulp apart); bf16 rmsnorm and rope
+within 2 bf16 ulp of the largest term (the plain version rounds after every bf16 op, the
+kernel rounds once); bf16 fused_ce within 2e-2 absolute (the kernel and cuBLAS may round
+a logit to bf16 one ulp apart).
 """
 
 import numpy as np
@@ -180,3 +184,130 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
             torch.zeros((1, 4096), device="cuda", dtype=torch.int32),
             torch.zeros((1,), device="cuda", dtype=torch.int32), 0.25,
         )
+
+
+def _segment_ids(batch, seq, num_segments, seed, pad_tail=0):
+    """[B, S] int32 ids of `num_segments` packed documents of random lengths per row,
+    the last `pad_tail` tokens padding (segment 0)."""
+    rs = np.random.RandomState(seed)
+    rows = []
+    for _ in range(batch):
+        real = seq - pad_tail
+        cuts = np.sort(rs.choice(np.arange(1, real), num_segments - 1, replace=False)) if num_segments > 1 else []
+        ids = np.zeros(seq, np.int32)
+        for boundary in cuts:
+            ids[boundary:real] += 1
+        ids[:real] += 1
+        rows.append(ids)
+    return torch.as_tensor(np.stack(rows), device="cuda")
+
+
+def _close_bf16(got, want, atol=2e-2):
+    """2e-2 absolute plus one bf16 ulp of the value: both sides round their fp32 results
+    to bf16 on their own, so a value near a rounding boundary may land one ulp apart."""
+    bound = atol + _bf16_ulp(want)
+    return bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize(
+    "batch,seq,hq,hkv,head_dim,num_segments,pad_tail",
+    [
+        (1, 128, 2, 2, 64, 1, 0),  # one causal document
+        (2, 256, 4, 1, 80, 3, 0),  # mqa, three documents per row
+        (1, 512, 8, 2, 128, 8, 40),  # gqa, eight documents and a padded tail
+        (2, 1024, 8, 2, 128, 5, 0),  # the smoke's GQA case
+        (1, 4096, 32, 32, 80, 6, 0),  # the training slice: granite-3b-code, packed documents
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain(batch, seq, hq, hkv, head_dim, num_segments, pad_tail, dtype):
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    # q/k/v as token-strided views of one fused [B, S, (Hq + 2 Hkv) * D] projection, as
+    # the model hands them over
+    qkv = _rand(g, (batch, seq, (hq + 2 * hkv) * head_dim), dtype)
+    q, k, v = qkv.split([hq * head_dim, hkv * head_dim, hkv * head_dim], dim=-1)
+    q = q.reshape(batch, seq, hq, head_dim)
+    k = k.reshape(batch, seq, hkv, head_dim)
+    v = v.reshape(batch, seq, hkv, head_dim)
+    seg = _segment_ids(batch, seq, num_segments, seed=seq + num_segments, pad_tail=pad_tail)
+    scale = head_dim**-0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, scale)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale)
+    dout = _rand(g, out.shape, dtype)
+    grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (want_out, *want_grads)):
+        assert torch.isfinite(got.float()).all(), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, msg=name)
+        else:
+            assert _close_bf16(got, want), (name, (got.float() - want.float()).abs().max().item())
+
+
+def test_flash_attention_autograd_matches_plain_autograd():
+    """gradcheck-style: the autograd function's grads equal autograd through the plain
+    forward in fp32."""
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = _rand(g, (2, 192, 4, 64), torch.float32).requires_grad_()
+    k = _rand(g, (2, 192, 2, 64), torch.float32).requires_grad_()
+    v = _rand(g, (2, 192, 2, 64), torch.float32).requires_grad_()
+    seg = _segment_ids(2, 192, 4, seed=1)
+    dout = _rand(g, (2, 192, 4, 64), torch.float32)
+    fa.flash_attention(q, k, v, seg, 0.125).backward(dout)
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    fa.flash_attention_fwd_plain(q, k, v, seg, 0.125)[0].backward(dout)
+    for got_grad, t in zip(got, (q, k, v)):
+        torch.testing.assert_close(got_grad, t.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "rows,hidden,vocab,logit_scale",
+    [
+        (256, 2560, 49152, None),  # one loss chunk of the training slice
+        (37, 64, 1000, 0.5),  # a ragged row tile, V not a multiple of the 128-column tile
+        (300, 128, 513, None),  # three row tiles, a one-column last vocab tile
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_kernel_matches_plain(rows, hidden, vocab, logit_scale, dtype):
+    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    # logits of std ~0.5, the scale of a trained LM head's
+    h = _rand(g, (rows, hidden), dtype, 4.0 / hidden**0.5)
+    table = _rand(g, (vocab, hidden), dtype, 1.0 / 8)
+    labels = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
+    labels[::5] = fused_ce.IGNORE_INDEX  # ignored rows hit no column
+    got = fused_ce.fused_ce_rowwise(h, table, labels, logit_scale)
+    want = fused_ce.fused_ce_rowwise_plain(h, table, labels, logit_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1][::5], torch.zeros_like(got[1][::5]))
+    for a, b in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        else:
+            torch.testing.assert_close(a, b, atol=2e-2, rtol=0)
+
+
+def test_fused_ce_all_ignored_rows_and_chunk_sums():
+    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = _rand(g, (2, 64, 96), torch.float32, 0.3)
+    table = _rand(g, (700, 96), torch.float32, 0.3)
+    y = torch.full((2, 64), fused_ce.IGNORE_INDEX, device="cuda")
+    y[1, :10] = torch.arange(10, device="cuda")
+    loss_sum, z_sum, num = fused_ce.fused_ce_chunk(h, table, y)
+    lse, lab = fused_ce.fused_ce_rowwise_plain(h.reshape(128, 96), table, y.reshape(128))
+    mask = y.reshape(128) != fused_ce.IGNORE_INDEX
+    torch.testing.assert_close(loss_sum, (lse - lab)[mask].sum(), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(z_sum, lse[mask].square().sum(), atol=1e-5, rtol=1e-5)
+    assert num.item() == 10.0

@@ -72,6 +72,7 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_default_to_the_gpu():
     import torch
 
+    from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
     from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM, load_jax_params
     from dolomite_engine_tpu_torch.serving import ServingEngine
 
@@ -85,3 +86,5 @@ def test_entry_points_default_to_the_gpu():
         ServingEngine(model, None, num_slots=1, max_len=32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_jax_params(model, {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelWrapperForPretraining(config)
