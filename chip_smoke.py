@@ -25,17 +25,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fp32 master weights, bf16 compute, flash attention over packed documents, the fused
    LM-head loss with z-loss, AdamW with a bf16 first moment, cosine schedule, clipping,
    remat of every block) for 1 warm-up and 4 timed steps of accumulation 2 x [1, 4096];
-   launch counts zeroed before and read after; then one step under `torch.profiler`.
+   launch counts zeroed before and read after; then one step under `torch.profiler`;
+7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (24 layers, 32
+   experts, top-4, bf16, random weights) behind `ServingEngine` with the requests of
+   phase 3, its logits check against a plain forward (router + every-expert
+   `experts_eager`), and the requests once more under `torch.profiler` with the host
+   syncs counted by call site;
+8. the MoE training kernel path against the plain path at full width and 2 layers
+   (loss with the router's auxiliary loss, every gradient, the share of routings that
+   differ), then the MoE train step at 8 of the 24 layers, accumulation 2 x [2, 2048],
+   and one profiled step.
+
+The grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
+transposed-bank dX form, tgmm, and a case with most experts empty) run in phase 2.
 
 Prints the card's name and power limit, a ``kernel_cases`` line (every case of phase 2),
-``serving``, ``profile``, ``training_check``, ``training`` and ``training_profile``
-lines, the ``kernels`` line, the card again, and last
+``serving``, ``profile``, ``training_check``, ``training``, ``training_profile``,
+``moe_serving``, ``moe_profile``, ``moe_training_check``, ``moe_training`` and
+``moe_training_profile`` lines, the ``kernels`` line, the card again, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -65,6 +79,20 @@ TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4096, 2, 5
 TRAIN_OPTIMIZER = dict(betas=(0.9, 0.95), eps=1e-10, weight_decay=0.1, mu_dtype="bf16")
 TRAIN_LR = 3e-4
 TRAIN_REMAT = {"checkpoint_every": 1, "policy": "full"}
+
+# the MoE model of configs/pretraining-examples/pretrain-moe-ep.yml (model_args) at full
+# width; token ids 0 as in the dense phases (the yml's tokenizer is not part of it)
+MOE_EP = dict(
+    model_type="moe_dolomite", vocab_size=49152, n_positions=2048, n_embd=1024, n_layer=24,
+    n_head=16, num_key_value_heads=8, attention_head_type="gqa", activation_function="swiglu",
+    normalization_function="rmsnorm", position_embedding_type="rope", add_bias=False,
+    num_experts=32, num_experts_per_tok=4, router_aux_loss_coef=0.01, resid_pdrop=0.0,
+    embd_pdrop=0.0, attn_pdrop=0.0, fused_lm_head_loss=True, bos_token_id=0, eos_token_id=0,
+    pad_token_id=0,
+)
+# MoE training: 8 of the 24 layers (fp32 master weights, gradients and AdamW state of all
+# 24 need ~137 GB), sequence 2048 as in the yml, micro batch 2 x accumulation 2
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 8, 2048, 2
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -261,9 +289,42 @@ def kernel_cases(seed):
     return cases
 
 
-def plain_forward(model, ids):
+def _linear(x, module, dtype):
+    """A linear layer of the model with its weight cast to `dtype` at use."""
+    import torch.nn.functional as F
+
+    return F.linear(x, module.weight.to(dtype), None if module.bias is None else module.bias.to(dtype))
+
+
+def _plain_ffn(block, x, dtype, router_logits=None):
+    """A block's MLP in plain PyTorch in `dtype`: the dense MLP or, for an MoE block, the
+    router, `route` and `experts_eager` (every expert on every token, the reference the
+    grouped path is pinned against). An MoE block appends its router logits to
+    `router_logits`."""
+    from dolomite_engine_tpu_torch.ops.moe import combine_weights, experts_eager, route
+
+    if not hasattr(block, "moe"):
+        return _linear(block.mlp.act(_linear(x, block.mlp.c_fc, dtype)), block.mlp.c_proj, dtype)
+    moe, config = block.moe, block.moe.config
+    flat = x.reshape(-1, x.shape[-1])
+    logits = _linear(flat, moe.gate, dtype)
+    weights, selected = route(logits, config.num_experts_per_tok)
+    out = experts_eager(
+        flat, combine_weights(weights, selected, config.num_experts),
+        moe.c_fc.weight.to(dtype), None if moe.c_fc.bias is None else moe.c_fc.bias.to(dtype),
+        moe.c_proj.weight.to(dtype), None if moe.c_proj.bias is None else moe.c_proj.bias.to(dtype),
+        moe.act,
+    )
+    if router_logits is not None:
+        router_logits.append(logits)
+    return out.reshape(x.shape)
+
+
+def plain_forward(model, ids, dtype=None, router_logits=None):
     """The model's full-sequence forward with every kernel's plain version called
-    explicitly (no cache): the reference for the kernel path's logits."""
+    explicitly (no cache), the weights cast to `dtype` (default the model's compute
+    dtype) at use: the reference for the kernel path's logits. An MoE block appends its
+    router logits to `router_logits`."""
     import torch
 
     from dolomite_engine_tpu_torch.models.modeling_utils import get_softmax_scale
@@ -274,23 +335,27 @@ def plain_forward(model, ids):
 
     config, t = model.config, model.transformer
     assert config.normalization_function == "rmsnorm" and config.m_residual is None
+    assert config.m_width is None and model.lm_head is None
+    dtype = dtype or model.dtype
     hq, hkv, hd = config.n_head, config.num_key_value_heads, config.head_dim
     eps = config.layer_norm_epsilon
     seq = ids.shape[1]
-    h = t.wte(ids)
-    cos, sin = get_cos_sin(t.rope_params, torch.arange(seq, device=ids.device)[None], h.dtype)
+    h = torch.nn.functional.embedding(ids, t.wte.weight).to(dtype)
+    cos, sin = get_cos_sin(t.rope_params, torch.arange(seq, device=ids.device)[None], dtype)
     for block in t.h:
         residual = h
         x = fused_rmsnorm_plain(h, block.ln_1.weight, eps)
-        qkv = fused_rope_qkv_plain(block.attn.c_attn(x), cos, sin, hq, hkv, hd)
+        qkv = fused_rope_qkv_plain(_linear(x, block.attn.c_attn, dtype), cos, sin, hq, hkv, hd)
         q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
         a = attention(
             q.reshape(1, seq, hq, hd), k.reshape(1, seq, hkv, hd), v.reshape(1, seq, hkv, hd),
             causal=True, softmax_scale=get_softmax_scale(config, hd),
         )
-        x, h = fused_rmsnorm_plain(block.attn.c_proj(a.reshape(1, seq, -1)), block.ln_2.weight, eps, residual=residual)
-        h = h + block.mlp(x)
-    return model.compute_logits(fused_rmsnorm_plain(h, t.ln_f.weight, eps))
+        x, h = fused_rmsnorm_plain(
+            _linear(a.reshape(1, seq, -1), block.attn.c_proj, dtype), block.ln_2.weight, eps, residual=residual
+        )
+        h = h + _plain_ffn(block, x, dtype, router_logits)
+    return fused_rmsnorm_plain(h, t.ln_f.weight, eps) @ t.wte.weight.to(dtype).T
 
 
 def kernel_path_logits(model, tokens, prompt_len):
@@ -335,18 +400,23 @@ def _sync(device):
 
 
 def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
-    """Phase 3: granite-3b-code behind the serving engine (another config and the CPU
-    only to rehearse this script's control flow at a tiny size)."""
+    """Phase 3 (granite-3b-code) and phase 7 (the MoE model of `pretrain-moe-ep.yml`)
+    behind the serving engine; another config and the CPU only to rehearse this script's
+    control flow at a tiny size."""
     import numpy as np
     import torch
 
-    from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM
+    from dolomite_engine_tpu_torch.models import config_from_dict, get_model_class
     from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.ops.moe import route
     from dolomite_engine_tpu_torch.serving import RequestStatus, ServingEngine, serve_batch
 
-    config = CommonConfig(**config_kwargs)
+    config = config_from_dict(config_kwargs)
+    moe = config.model_type == "moe_dolomite"
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = GPTDolomiteForCausalLM(config, dtype=torch.bfloat16, device=device, seed=seed)
+    model = get_model_class(config.model_type)(config, dtype=torch.bfloat16, device=device, seed=seed)
     device = model.device
     _sync(device)
     build_s = time.perf_counter() - t0
@@ -396,6 +466,8 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
         "flash_attn_fwd": 0,
         "flash_attn_bwd": 0,
         "fused_ce": 0,
+        "grouped_gemm": 2 * layers * forwards if moe else 0,  # c_fc and c_proj of every layer
+        "grouped_gemm_tgmm": 0,
     }
     if device.type == "cuda":  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
@@ -405,40 +477,76 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
     tokens = probe.request.prompt_ids + probe.tokens[:4]
     prompt_len = len(probe.request.prompt_ids)
     ids = torch.tensor([tokens], device=device)
+    # an MoE layer's router logits on each path: forward-major, layer-minor on the kernel path
+    kernel_routing, plain_routing, exact_routing = [], [], []
+    hooks = [
+        block.moe.register_forward_hook(lambda module, args, out: kernel_routing.append(out[1]))
+        for block in model.transformer.h
+        if moe
+    ]
     with torch.no_grad():
         got = kernel_path_logits(model, tokens, prompt_len).float()
-        want = plain_forward(model, ids)[0].float()
+        want = plain_forward(model, ids, router_logits=plain_routing)[0].float()
         # the same (bf16-rounded) weights in fp32: how far each bf16 path is from exact
-        exact_model = GPTDolomiteForCausalLM(config, dtype=torch.float32, device=device, seed=seed)
-        exact_model.load_state_dict(model.state_dict())
-        exact = plain_forward(exact_model, ids)[0].float()
-        del exact_model
+        exact = plain_forward(model, ids, torch.float32, exact_routing)[0].float()
+    for hook in hooks:
+        hook.remove()
     assert bool(torch.isfinite(got).all())
     diff = (got - want).abs()
     kernel_err = (got - exact).abs().mean().item()
     plain_err = (want - exact).abs().mean().item()
     logit_std = want.std().item()
+    # an MoE token whose bf16 router logits tie or cross picks other experts on the two
+    # paths (spiky per-token errors): the ratio criterion of the training checks
+    ratio = 1.5 if moe else 1.25
+    routing = {}
+    if moe:
+        # the kernel path's rows per forward: each prefill chunk's real tokens, then one per decode
+        rows = [min(CHUNK, prompt_len - start) for start in range(0, prompt_len, CHUNK)]
+        rows += [1] * (len(tokens) - prompt_len)
+        layers = config.n_layer
+        top_k = config.num_experts_per_tok
+
+        def experts(logits):
+            return route(logits, top_k)[1].sort(-1).values
+
+        differ, plain_differ = [], []
+        for layer in range(layers):
+            kernel = torch.cat([kernel_routing[f * layers + layer][:n] for f, n in enumerate(rows)])
+            plain = experts(plain_routing[layer])
+            differ.append((experts(kernel) != plain).any(-1).float().mean().item())
+            plain_differ.append((plain != experts(exact_routing[layer])).any(-1).float().mean().item())
+        routing = {
+            "routing_differs_share": sum(differ) / layers, "routing_differs_share_by_layer": differ,
+            "plain_bf16_vs_fp32_routing_differs_share": sum(plain_differ) / layers,
+        }
     logits_check = {
         "positions": len(tokens), "max_abs_err": diff.max().item(),
         "mean_abs_err": diff.mean().item(), "logit_std": logit_std,
         "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
         "kernel_path_mean_abs_err_vs_fp32": kernel_err,
         "plain_bf16_mean_abs_err_vs_fp32": plain_err,
+        **routing,
         "tolerance": (
-            "kernel path vs plain bf16: mean abs err <= 0.1 logit std; and against the "
-            "fp32 forward the kernel path errs at most 1.25x the plain bf16 forward"
+            ("" if moe else "kernel path vs plain bf16: mean abs err <= 0.1 logit std; and ")
+            + f"against the fp32 forward the kernel path errs at most {ratio}x the plain bf16 forward"
         ),
     }
-    # bf16 rounding differs between the two paths at every op of 32 layers (the plain
+    # bf16 rounding differs between the two paths at every op of every layer (the plain
     # attention rounds scores and probabilities to bf16, the kernels keep fp32), so the
-    # paths differ by bf16 noise; a wrong kernel would put the error at the logits' scale
-    assert diff.mean().item() <= 0.1 * logit_std, logits_check
-    assert kernel_err <= 1.25 * plain_err, logits_check
+    # paths differ by bf16 noise; a wrong kernel would put the error at the logits' scale.
+    # Routing flips put the MoE paths apart by more than the dense bound: the ratio judges it
+    if not moe:
+        assert diff.mean().item() <= 0.1 * logit_std, logits_check
+    assert kernel_err <= ratio * plain_err, logits_check
 
     serving = {
         "model": {
-            "n_layer": config.n_layer, "n_embd": config.n_embd, "n_head": config.n_head,
+            "model_type": config.model_type, "n_layer": config.n_layer, "n_embd": config.n_embd,
+            "n_head": config.n_head, "num_key_value_heads": config.num_key_value_heads,
             "vocab_size": config.vocab_size, "dtype": "bfloat16", "weights": "random",
+            "params": sum(p.numel() for p in model.parameters()),
+            **({"num_experts": config.num_experts, "top_k": config.num_experts_per_tok} if moe else {}),
         },
         "seed": seed, "requests": len(states), "prompt_tokens": [len(p) for p in prompts],
         "max_new_tokens": MAX_NEW, "wall_s": wall_s, "model_init_s": build_s,
@@ -480,9 +588,19 @@ def _device_time(events, wall_s, top):
     ]
     busy_ms = sum(ms for _, _, ms in kernels)
     assert busy_ms > 0, "the profiler saw no device time"
+    families = {}
+    for name, count, ms in kernels:
+        family = _kernel_family(name)
+        total = families.setdefault(family, {"launches": 0, "ms": 0.0})
+        total["launches"] += count
+        total["ms"] += ms
     return {
         "wall_s": wall_s, "device_busy_s": busy_ms / 1e3, "device_busy_share": busy_ms / 1e3 / wall_s,
         "launches": sum(count for _, count, _ in kernels),
+        "families": {
+            family: dict(total, share=total["ms"] / busy_ms)
+            for family, total in sorted(families.items(), key=lambda item: -item[1]["ms"])
+        },
         "top_kernels": [
             {"name": name[:96], "launches": count, "ms": ms, "share": ms / busy_ms}
             for name, count, ms in sorted(kernels, key=lambda k: -k[2])[:top]
@@ -490,17 +608,84 @@ def _device_time(events, wall_s, top):
     }
 
 
+# device-kernel name fragments -> family (the port's kernels, then PyTorch's and cuBLAS's)
+_FAMILIES = (
+    ("tgmm_kernel", "grouped_gemm_tgmm"),
+    ("gmm_kernel", "grouped_gemm"),
+    ("flash", "flash_attention"),
+    ("paged_decode", "paged_decode_attention"),
+    ("paged_prefill", "paged_prefill_attention"),
+    ("rmsnorm", "rmsnorm"),
+    ("rope", "rope_qkv"),
+    ("fused_ce", "fused_ce"),
+    ("multi_tensor_apply", "optimizer_foreach"),
+    ("gemm", "cublas_gemm"),
+    ("nvjet", "cublas_gemm"),
+    ("cutlass", "cublas_gemm"),
+    ("sort", "sort"),
+    ("radix", "sort"),
+    ("index", "index_gather_scatter"),
+    ("scatter", "index_gather_scatter"),
+    ("gather", "index_gather_scatter"),
+    ("reduce", "reduction"),
+    ("memcpy", "memcpy"),
+    ("memset", "memset"),
+    ("copy", "casts_and_copies"),
+    ("elementwise", "elementwise"),
+)
+
+
+def _kernel_family(name):
+    lower = name.lower()
+    return next((family for fragment, family in _FAMILIES if fragment in lower), "other")
+
+
+def _count_host_syncs(fn):
+    """Run `fn()` with PyTorch's sync debug mode on and count the synchronising calls
+    it reports (tensor-to-host copies, ``.item()``, ...) by Python call site."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn()
+    torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for warning in caught:
+        if "synchroniz" in str(warning.message):
+            site = f"{os.path.relpath(warning.filename)}:{warning.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
 def profile_serving(model, specs):
-    """Phase 4: where the device time goes. The slice's requests are served again on a
-    fresh engine under torch.profiler."""
+    """Phase 4 (and 7): where the device time goes. The slice's requests are served
+    again on a fresh engine under torch.profiler, with the host syncs counted by call
+    site (an explicit ``torch.cuda.synchronize`` is not counted)."""
     from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
 
     engine = ServingEngine(
         model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
         prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=model.config.pad_token_id,
     )
-    profile = _device_time(*_profiled(lambda: (serve_batch(engine, specs[:7]), serve_batch(engine, specs[7:]))), top=15)
-    return dict(profile, decode_steps=engine.stats.decode_steps, prefill_chunks=engine.stats.prefill_chunks)
+    result = {}
+
+    def replay():
+        result["profile"] = _device_time(
+            *_profiled(lambda: (serve_batch(engine, specs[:7]), serve_batch(engine, specs[7:]))), top=15
+        )
+
+    syncs = _count_host_syncs(replay)
+    forwards = engine.stats.decode_steps + engine.stats.prefill_chunks
+    # the MoE dispatch keeps its layout on the device: no sync of its own
+    in_moe = {site: n for site, n in syncs.items() if "moe" in site}
+    assert not in_moe, f"the MoE layers synchronise with the host: {in_moe}"
+    return dict(
+        result["profile"], decode_steps=engine.stats.decode_steps, prefill_chunks=engine.stats.prefill_chunks,
+        host_syncs=syncs, host_syncs_per_forward=sum(syncs.values()) / forwards,
+    )
 
 
 def _doc_ids(rs, seq, num_docs):
@@ -621,6 +806,115 @@ def training_kernel_cases(seed):
     return cases
 
 
+def moe_kernel_cases(seed):
+    """Phase 2, MoE: the grouped GEMMs against their plain versions at the MoE slice's
+    shapes (32 experts, d 1024, swiglu c_fc banks [32, 1024, 8192], c_proj [32, 4096,
+    1024]), with kernel, plain and library timings. Rows are spread over the experts as
+    a router at init spreads them (uniformly at random); the bound counts the real rows
+    in and out and each bank with a routed row once."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
+
+    experts, d, k = MOE_EP["num_experts"], MOE_EP["n_embd"], MOE_EP["num_experts_per_tok"]
+    f = 4 * d
+    rs = np.random.RandomState(seed)
+    # (label, rows A, K, N, experts with rows, forms)
+    shapes = [
+        ("decode: 8 slots x top-4, c_fc", NUM_SLOTS * k, d, 2 * f, experts, ("gmm",)),
+        ("prefill chunk: 512 tokens x top-4, c_fc", CHUNK * k, d, 2 * f, experts, ("gmm",)),
+        (
+            "training micro-batch: 2 x 2048 tokens x top-4, c_fc",
+            MOE_TRAIN_MICRO * MOE_TRAIN_SEQ * k, d, 2 * f, experts, ("gmm", "dx", "tgmm"),
+        ),
+        ("most experts empty: 96 rows on 3 of 32, c_proj", 96, f, d, 3, ("gmm", "dx", "tgmm")),
+    ]
+    sizes = []
+    for _, rows, *_rest, used, _forms in shapes:
+        group = np.zeros(experts, np.int64)
+        group[rs.permutation(experts)[:used]] = rs.multinomial(rows, np.full(used, 1.0 / used))
+        sizes.append(group)
+    # the library yardstick: one PyTorch grouped GEMM over the unpadded rows (bf16 only)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        es = torch.tensor([], dtype=dtype).element_size()
+        fp32 = dtype == torch.float32
+        # fp32 sums of K terms taken in two orders drift apart by ~2^-24 sqrt(K) of the
+        # output's scale; a bf16 output may also round one ulp apart
+        tol = ("1e-5 rel" if fp32 else "1 bf16 ulp") + " + 8 * 2^-24 * sqrt(K) * rms(output)"
+        for (label, rows, k_dim, n_dim, _, forms), group in zip(shapes, sizes):
+            plan, _ = kmoe.block_plan(torch.as_tensor(group, device="cuda"), rows)
+            mask = kmoe._row_mask(plan.block_valid, plan.block_rows)
+            starts = plan.group_block_start.cpu().numpy()
+            real = torch.as_tensor(
+                np.concatenate([s + np.arange(n) for s, n in zip(starts, group)]), device="cuda"
+            )
+            offs = torch.as_tensor(np.cumsum(group), dtype=torch.int32, device="cuda")
+            banks = int((group > 0).sum())
+            xp = (torch.randn((plan.padded_rows, k_dim), generator=gen, device="cuda") * mask).to(dtype)
+            dy = (torch.randn((plan.padded_rows, n_dim), generator=gen, device="cuda") * mask).to(dtype)
+            w = (torch.randn((experts, k_dim, n_dim), generator=gen, device="cuda") / k_dim**0.5).to(dtype)
+            xs, dys = xp[real], dy[real]
+            shape = f"{label}: A {rows}, [{k_dim}]x[{experts},{k_dim},{n_dim}], bm {plan.block_rows}, {plan.num_blocks} blocks"
+            library = grouped_mm if grouped_mm is not None and not fp32 else None
+            io = rows * (k_dim + n_dim) * es
+            flops = 2 * rows * k_dim * n_dim
+
+            def check(got, want, depth):
+                want = want.float()
+                diff = (got.float() - want).abs()
+                bound = (1e-5 * want.abs() if fp32 else _bf16_ulp(want)) + 8 * 2**-24 * depth**0.5 * want.square().mean().sqrt()
+                return diff.max().item(), bool((diff <= bound).all())
+
+            if "gmm" in forms:
+                got = kmoe.gmm(xp, w, plan)
+                want = kmoe.gmm_plain(xp, w, plan.block_expert, plan.block_rows, plan.block_valid)
+                _record(
+                    cases, "grouped_gemm", shape, dtype, *check(got, want, k_dim), tol,
+                    lambda: kmoe.gmm(xp, w, plan),
+                    lambda: kmoe.gmm_plain(xp, w, plan.block_expert, plan.block_rows, plan.block_valid),
+                    None if library is None else (lambda: library(xs, w, offs=offs)),
+                    io + banks * k_dim * n_dim * es, flops,
+                )
+            if "dx" in forms:  # the backward's dX: dy against the banks read transposed
+                got = kmoe.gmm(dy, w, plan, transpose_w=True)
+                want = kmoe.gmm_plain(dy, w, plan.block_expert, plan.block_rows, plan.block_valid, True)
+                _record(
+                    cases, "grouped_gemm", "dX, banks read transposed, " + shape, dtype,
+                    *check(got, want, n_dim), tol,
+                    lambda: kmoe.gmm(dy, w, plan, transpose_w=True),
+                    lambda: kmoe.gmm_plain(dy, w, plan.block_expert, plan.block_rows, plan.block_valid, True),
+                    None if library is None else (lambda: library(dys, w.transpose(1, 2), offs=offs)),
+                    io + banks * k_dim * n_dim * es, flops,
+                )
+            if "tgmm" in forms:  # dW of the same rows, fp32 [E, K, N]
+                dy_w = (dy.float() / float(group.max()) ** 0.5).to(dtype)
+                dys_w = dy_w[real]
+                got = kmoe.tgmm(xp, dy_w, plan, experts)
+                want = kmoe.tgmm_plain(xp, dy_w, plan.block_expert, plan.block_rows, experts, plan.block_valid)
+                # fp32 products of bf16 inputs are exact: both dtypes differ only by sum order
+                diff = (got - want).abs()
+                empty = torch.as_tensor(group == 0, device="cuda")
+                bound = 1e-5 * want.abs() + 8 * 2**-24 * float(group.max()) ** 0.5 * want.square().mean().sqrt()
+                ok = bool((diff <= bound).all()) and not got[empty].any()
+                _record(
+                    cases, "grouped_gemm_tgmm", "dW, " + shape, dtype, diff.max().item(), ok,
+                    "1e-5 rel + 8 * 2^-24 * sqrt(rows) * rms(output); empty experts exactly 0",
+                    lambda: kmoe.tgmm(xp, dy_w, plan, experts),
+                    lambda: kmoe.tgmm_plain(xp, dy_w, plan.block_expert, plan.block_rows, experts, plan.block_valid),
+                    None if library is None else (lambda: library(xs.t(), dys_w, offs=offs)),
+                    rows * (k_dim + n_dim) * es + experts * k_dim * n_dim * 4, flops,
+                )
+                del got, want, dy_w, dys_w
+            del xp, dy, w, xs, dys
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cases
+
+
 def _packed_text(rs, rows, seq, vocab, eos):
     """[rows, seq + 1] tokens: documents of 200-2000 tokens, each closed by EOS."""
     import numpy as np
@@ -637,11 +931,11 @@ def _packed_text(rs, rows, seq, vocab, eos):
     return text
 
 
-def plain_train_loss(model, inputs, compute_dtype):
+def plain_train_loss(model, inputs, compute_dtype, router_logits=None):
     """The training loss of `model` with every kernel's plain version called explicitly
-    and the plain (unfused) LM-head loss, in `compute_dtype`: the reference of the
-    kernel path's loss and gradients."""
-    import torch
+    and the plain (unfused) LM-head loss, in `compute_dtype`, plus an MoE model's
+    auxiliary loss: the reference of the kernel path's loss and gradients. An MoE block
+    appends its router logits to `router_logits`."""
     import torch.nn.functional as F
 
     from dolomite_engine_tpu_torch.models.modeling_utils import get_softmax_scale
@@ -656,51 +950,61 @@ def plain_train_loss(model, inputs, compute_dtype):
     eps = config.layer_norm_epsilon
     ids, seg = inputs["input_ids"], inputs["segment_ids"]
     batch, seq = ids.shape
-
-    def linear(x, module):
-        return F.linear(x, module.weight.to(compute_dtype))
+    routing = [] if router_logits is None else router_logits
 
     h = F.embedding(ids, t.wte.weight).to(compute_dtype)
     cos, sin = get_cos_sin(t.rope_params, inputs["position_ids"], compute_dtype)
     for block in t.h:
         residual = h
         x = fused_rmsnorm_plain(h, block.ln_1.weight, eps)
-        qkv = fused_rope_qkv_plain(linear(x, block.attn.c_attn), cos, sin, hq, hkv, hd)
+        qkv = fused_rope_qkv_plain(_linear(x, block.attn.c_attn, compute_dtype), cos, sin, hq, hkv, hd)
         q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
         a = attention(
             q.reshape(batch, seq, hq, hd), k.reshape(batch, seq, hkv, hd), v.reshape(batch, seq, hkv, hd),
             causal=True, softmax_scale=get_softmax_scale(config, hd), implementation="eager",
             segment_ids=seg,
         )
-        x, h = fused_rmsnorm_plain(linear(a.reshape(batch, seq, -1), block.attn.c_proj), block.ln_2.weight, eps, residual=residual)
-        h = h + linear(block.mlp.act(linear(x, block.mlp.c_fc)), block.mlp.c_proj)
+        x, h = fused_rmsnorm_plain(
+            _linear(a.reshape(batch, seq, -1), block.attn.c_proj, compute_dtype), block.ln_2.weight, eps,
+            residual=residual,
+        )
+        h = h + _plain_ffn(block, x, compute_dtype, routing)
     h = fused_rmsnorm_plain(h, t.ln_f.weight, eps)
     logits = h @ t.wte.weight.to(compute_dtype).T
-    return causal_lm_loss(
+    loss = causal_lm_loss(
         logits, ids, upcast=config.upcast_logits_for_loss, labels=inputs["labels"],
         z_loss_coef=config.z_loss_coef,
     )
+    aux = model.compute_aux_loss(routing, None, seg)  # the port's plain load-balancing loss
+    return loss if aux is None else loss + aux
 
 
-def training_paths_check(seed, n_layer=2):
-    """Phase 5: the kernel path against the plain path at full width, `n_layer` layers,
-    the same fp32 master weights and batch, bf16 compute; and both against an fp32 plain
-    reference of the same weights."""
+def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, TRAIN_SEQ), device="cuda"):
+    """Phase 5 (granite-3b-code) and phase 8 (the MoE model): the kernel path against the
+    plain path at full width, `n_layer` layers, the same fp32 master weights and packed
+    batch of `shape`, bf16 compute; and both against an fp32 plain reference of the same
+    weights. For MoE, also the share of (token, layer) routings the kernel path and the
+    plain bf16 path pick differently. (The CPU only to rehearse the control flow.)"""
     import numpy as np
     import torch
 
     from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
+    from dolomite_engine_tpu_torch.ops.moe import route
 
-    config = dict(TRAIN_CONFIG, n_layer=n_layer)
+    config = dict(config_kwargs, n_layer=n_layer)
+    moe = config.get("model_type") == "moe_dolomite"
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     wrapper = ModelWrapperForPretraining(
         config, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
         gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
-        device="cuda", seed=seed,
+        device=device, seed=seed,
     )
     model = wrapper.model
     rs = np.random.RandomState(seed + 1)
     text = torch.as_tensor(
-        _packed_text(rs, 1, TRAIN_SEQ, config["vocab_size"], config["eos_token_id"]), device="cuda"
+        _packed_text(rs, shape[0], shape[1], config["vocab_size"], config["eos_token_id"]), device=model.device
     )
     inputs = wrapper.prepare_inputs_and_labels(text)
     names, params = zip(*model.named_parameters())
@@ -708,9 +1012,20 @@ def training_paths_check(seed, n_layer=2):
     def grads(loss):
         return [g.float() for g in torch.autograd.grad(loss, params)]
 
+    # the kernel path's router logits, from the forward (the remat rerun fires the hooks again)
+    kernel_routing = []
+    hooks = [
+        block.moe.register_forward_hook(lambda module, args, out: kernel_routing.append(out[1].detach()))
+        for block in model.transformer.h
+        if moe
+    ]
     kernel_loss = wrapper.loss(text)
+    kernel_routing = kernel_routing[:n_layer]
     kernel_grads = grads(kernel_loss)
-    plain_loss = plain_train_loss(model, inputs, torch.bfloat16)
+    for hook in hooks:
+        hook.remove()
+    plain_routing = []
+    plain_loss = plain_train_loss(model, inputs, torch.bfloat16, plain_routing)
     plain_grads = grads(plain_loss)
     exact_loss = plain_train_loss(model, inputs, torch.float32)
     exact_grads = grads(exact_loss)
@@ -725,29 +1040,45 @@ def training_paths_check(seed, n_layer=2):
     per_param = {n: rel(g, p) for n, g, p in zip(names, kernel_grads, plain_grads)}
     worst = max(per_param, key=per_param.get)
     check = {
-        "n_layer": n_layer, "seq": TRAIN_SEQ, "documents": int(inputs["segment_ids"].max()),
+        "n_layer": n_layer, "batch": shape[0], "seq": shape[1],
+        "documents": int(inputs["segment_ids"].max(-1).values.sum()),
         "kernel_loss": kernel_loss.item(), "plain_bf16_loss": plain_loss.item(), "fp32_loss": exact_loss.item(),
         "max_param_grad_rel_l2_err": per_param[worst], "worst_param": worst,
         "kernel_grad_rel_l2_err_vs_fp32": total_rel(kernel_grads),
         "plain_bf16_grad_rel_l2_err_vs_fp32": total_rel(plain_grads),
         "tolerance": (
-            "loss within 2e-2 abs of the plain bf16 path; each parameter's gradient within "
-            "3e-2 relative L2 error; against the fp32 plain reference the kernel path's "
-            "gradients err at most 1.5x the plain bf16 path's"
+            "loss within 2e-2 abs of the plain bf16 path; "
+            + ("" if moe else "each parameter's gradient within 3e-2 relative L2 error; ")
+            + "against the fp32 plain reference the kernel path's gradients err at most "
+            "1.5x the plain bf16 path's"
         ),
     }
+    if moe:
+        top_k = config["num_experts_per_tok"]
+        differ = [
+            (route(a, top_k)[1].sort(-1).values != route(b, top_k)[1].sort(-1).values).any(-1).float().mean().item()
+            for a, b in zip(kernel_routing, plain_routing)
+        ]
+        check["routing_differs_share_by_layer"] = differ
+        check["param_grad_rel_l2_err"] = per_param
+        check["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     assert all(np.isfinite(v) for v in (check["kernel_loss"], check["plain_bf16_loss"])), check
     assert abs(check["kernel_loss"] - check["plain_bf16_loss"]) <= 2e-2, check
-    assert check["max_param_grad_rel_l2_err"] <= 3e-2, check
+    if not moe:
+        # an MoE token whose bf16 router logits cross picks other experts on the two paths,
+        # which moves whole rows of an expert's gradient: the ratio below judges MoE
+        assert check["max_param_grad_rel_l2_err"] <= 3e-2, check
     assert check["kernel_grad_rel_l2_err_vs_fp32"] <= 1.5 * check["plain_bf16_grad_rel_l2_err_vs_fp32"], check
-    del wrapper, model, params, kernel_grads, plain_grads, exact_grads
-    torch.cuda.empty_cache()
+    del wrapper, model, params, kernel_grads, plain_grads, exact_grads, kernel_routing, plain_routing
+    if on_card:
+        torch.cuda.empty_cache()
     return check
 
 
-def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ):
-    """Phase 6: the dense GPTDolomite train step on granite-3b-code (another config and
-    the CPU only to rehearse this script's control flow at a tiny size)."""
+def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, micro_batch=1):
+    """Phase 6: the dense GPTDolomite train step on granite-3b-code, and phase 8: the MoE
+    train step (another config and the CPU only to rehearse this script's control flow at
+    a tiny size). Each step takes accumulation 2 x [micro_batch, seq]."""
     import numpy as np
     import torch
 
@@ -774,8 +1105,8 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ):
         gradient_clipping=1.0, skip_nonfinite=True,
     )
     rs = np.random.RandomState(seed + 2)
-    text = _packed_text(rs, TRAIN_ACCUM, seq, config.vocab_size, config.eos_token_id)
-    batch = {"text": torch.as_tensor(text, device=wrapper.model.device)[:, None]}  # [accum, 1, S + 1]
+    text = _packed_text(rs, TRAIN_ACCUM * micro_batch, seq, config.vocab_size, config.eos_token_id)
+    batch = {"text": torch.as_tensor(text, device=wrapper.model.device).reshape(TRAIN_ACCUM, micro_batch, seq + 1)}
     _sync(wrapper.model.device)
     build_s = time.perf_counter() - t0
 
@@ -795,7 +1126,10 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ):
     # per micro-batch, every block rerun in the backward (checkpoint_every 1): rmsnorm
     # 2L + 1 forward + 2L recompute (its backward is plain PyTorch); rope L forward + L
     # recompute + L backward; flash forward L + L recompute, backward L; fused_ce one per
-    # 256-token loss chunk (its backward recomputes through cuBLAS)
+    # 256-token loss chunk (its backward recomputes through cuBLAS); an MoE layer's grouped
+    # GEMMs c_fc and c_proj run in the forward, again in the rerun, and once more each as
+    # dX in the backward (6 gmm), and its 2 dW are tgmm
+    moe = config.model_type == "moe_dolomite"
     expected = {
         "rmsnorm": (4 * layers + 1) * micro_batches,
         "rope_qkv": 3 * layers * micro_batches,
@@ -804,6 +1138,8 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ):
         "flash_attn_fwd": 2 * layers * micro_batches,
         "flash_attn_bwd": layers * micro_batches,
         "fused_ce": -(-seq // config.loss_chunk_size) * micro_batches,
+        "grouped_gemm": 6 * layers * micro_batches if moe else 0,
+        "grouped_gemm_tgmm": 2 * layers * micro_batches if moe else 0,
     }
     if on_card:  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
@@ -811,17 +1147,20 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ):
     if on_card:
         assert peak_gb < 70, f"peak device memory {peak_gb:.1f} GB"
     step_s = sum(times[1:]) / len(times[1:])  # the first step is the warm-up
-    tflops = get_model_tflops(config, TRAIN_ACCUM, seq, None, TRAIN_REMAT)
+    tflops = get_model_tflops(config, TRAIN_ACCUM * micro_batch, seq, None, TRAIN_REMAT)
     training = {
         "model": {
-            "n_layer": config.n_layer, "n_embd": config.n_embd, "n_head": config.n_head,
+            "model_type": config.model_type, "n_layer": config.n_layer, "n_embd": config.n_embd,
+            "n_head": config.n_head, "num_key_value_heads": config.num_key_value_heads,
             "vocab_size": config.vocab_size, "params": sum(p.numel() for p in wrapper.model.parameters()),
             "param_dtype": "float32", "compute_dtype": "bfloat16", "weights": "random",
+            **({"num_experts": config.num_experts, "top_k": config.num_experts_per_tok} if moe else {}),
         },
-        "seed": seed, "micro_batch": 1, "accumulation": TRAIN_ACCUM, "seq": seq,
+        "seed": seed, "micro_batch": micro_batch, "accumulation": TRAIN_ACCUM, "seq": seq,
         "documents_per_row": [int((row[:-1] == config.eos_token_id).sum()) + 1 for row in text],
         "steps": TRAIN_STEPS, "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics],
-        "step_s": times, "mean_step_s_after_warmup": step_s, "tokens_per_s": TRAIN_ACCUM * seq / step_s,
+        "step_s": times, "mean_step_s_after_warmup": step_s,
+        "tokens_per_s": TRAIN_ACCUM * micro_batch * seq / step_s,
         "model_tflops_per_step": tflops, "mfu": tflops / step_s / (PEAK_FLOPS["bfloat16"] / 1e12),
         "peak_memory_gb": peak_gb, "model_init_s": build_s, "launches": launches,
     }
@@ -878,7 +1217,7 @@ def main() -> int:
     load_library()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
 
-    cases = kernel_cases(args.seed) + training_kernel_cases(args.seed)
+    cases = kernel_cases(args.seed) + training_kernel_cases(args.seed) + moe_kernel_cases(args.seed)
     print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
 
     serving, serving_launches, model, specs = serve(args.seed)
@@ -891,12 +1230,35 @@ def main() -> int:
     training, training_launches, (state, train_step, batch) = train_slice(args.seed)
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"training_profile": profile_training(state, train_step, batch), "card": card}), flush=True)
+    del state, train_step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_serving, moe_serving_launches, model, specs = serve(args.seed, MOE_EP)
+    print(json.dumps({"moe_serving": moe_serving, "card": card}), flush=True)
+    print(json.dumps({"moe_profile": profile_serving(model, specs), "card": card}), flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_check = training_paths_check(args.seed, 2, MOE_EP, (1, MOE_TRAIN_SEQ))
+    print(json.dumps({"moe_training_check": moe_check, "card": card}), flush=True)
+    moe_training, moe_training_launches, (state, train_step, batch) = train_slice(
+        args.seed, dict(MOE_EP, n_layer=MOE_TRAIN_LAYERS), seq=MOE_TRAIN_SEQ, micro_batch=MOE_TRAIN_MICRO
+    )
+    print(json.dumps({"moe_training": moe_training, "card": card}), flush=True)
+    moe_profile = profile_training(state, train_step, batch)
+    print(json.dumps({"moe_training_profile": moe_profile, "card": card}), flush=True)
+    del state, train_step, batch
 
     kernels = []
     for spec in KERNELS:
         bf16 = [c for c in cases if c["kernel"] == spec.name and c["dtype"] == "bfloat16"]
         main_case = bf16[0]
-        by_path = {"serving": serving_launches[spec.name], "training": training_launches[spec.name]}
+        by_path = {
+            "serving": serving_launches[spec.name], "training": training_launches[spec.name],
+            "moe_serving": moe_serving_launches[spec.name], "moe_training": moe_training_launches[spec.name],
+        }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"
         kernels.append({

@@ -17,6 +17,11 @@ class AttentionImplementation(Enum):
     ulysses = "ulysses"
 
 
+def normalize_moe_implementation(value: str) -> str:
+    """Reference name "scattermoe" -> "scatter"."""
+    return {"scattermoe": "scatter"}.get(value, value)
+
+
 class ParamsGroupMethod(Enum):
     mup = "mup"
 

@@ -5,7 +5,10 @@ Counterpart of `dolomite_engine_tpu/model_wrapper/pretraining.py`: a batch is ``
 `reset_attention_mask` the documents packed into a row (separated by EOS) get their own
 segment ids, a label that crosses a document boundary is ignored, and with
 `reset_position_ids` positions restart at each document. The wrapper owns the port's
-model directly (no flax variables, no apply scope).
+model directly (no flax variables, no apply scope). The config's ``model_type`` picks the
+model class through `models.config_from_dict` / `get_model_class`, as in the JAX
+package; the model's loss already includes a family's auxiliary loss (MoE router
+load balancing), so the wrapper adds nothing to it.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..enums import AttentionImplementation
-from ..models import CommonConfig, GPTDolomiteForCausalLM
+from ..models import CommonConfig, config_from_dict, get_model_class
 from ..ops.loss import IGNORE_INDEX
 from ..ops.packing import segment_ids_from_eos
 from ..train_utils import resolve_checkpointing_args
@@ -36,7 +39,7 @@ class ModelWrapperForPretraining:
         self.config = (
             pretrained_config
             if isinstance(pretrained_config, CommonConfig)
-            else CommonConfig.from_dict(pretrained_config)
+            else config_from_dict(pretrained_config)
         )
         self.dtype = string_to_dtype(dtype)
         self.reset_attention_mask = reset_attention_mask
@@ -44,7 +47,7 @@ class ModelWrapperForPretraining:
         self.checkpoint_every, self.checkpoint_policy = resolve_checkpointing_args(
             None, gradient_checkpointing_args
         )
-        self.model = GPTDolomiteForCausalLM(
+        self.model = get_model_class(self.config.model_type)(
             self.config,
             dtype=self.dtype,
             device=device,

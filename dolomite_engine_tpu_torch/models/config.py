@@ -2,8 +2,8 @@
 
 Framework-neutral: the same field names, defaults and validation — including
 `head_dim`, `num_key_value_heads` and the mha/mqa/gqa head-type rules — so a config
-built for the JAX package builds the same model here. The other families' configs are
-ported with their models.
+built for the JAX package builds the same model here. `MoEConfig` adds the MoE knobs;
+the other families' configs are ported with their models.
 """
 
 from __future__ import annotations
@@ -165,3 +165,13 @@ class CommonConfig:
     def from_pretrained(cls, path: str) -> "CommonConfig":
         with open(os.path.join(path, "config.json")) as f:
             return cls.from_dict(json.load(f))
+
+
+@dataclass
+class MoEConfig(CommonConfig):
+    """The MoE knobs of `dolomite_engine_tpu/models/config.py`'s `MoEConfig`."""
+
+    model_type: str = "moe_dolomite"
+    num_experts: int = 8
+    num_experts_per_tok: int = 2
+    router_aux_loss_coef: float = 0.01

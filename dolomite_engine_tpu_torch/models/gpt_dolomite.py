@@ -8,6 +8,11 @@ activation checkpointing. Module names follow the flax parameter tree
 (``transformer.wte``, ``transformer.h.<i>.attn.c_attn``, ...), so `load_jax_params`
 maps the JAX package's unrolled params one to one. No scan: torch runs the blocks in a
 Python loop.
+
+The hooks the JAX base class gives other families are kept: `GPTDolomiteModel.block_cls`
+/ `_make_block` choose the block, the loop collects each block's extra outputs (MoE
+router logits) with and without remat, and `compute_aux_loss` turns them into a loss
+added once on either loss path (`models/moe_dolomite.py`).
 """
 
 from __future__ import annotations
@@ -57,9 +62,12 @@ class CausalLMOutput:
     logits: torch.Tensor | None = None
     kv_caches: list[KVCache] | None = None
     loss: torch.Tensor | None = None
+    aux_loss: torch.Tensor | None = None
 
 
 class GPTDolomiteModel(nn.Module):
+    block_cls: type = Block
+
     def __init__(
         self,
         config: CommonConfig,
@@ -69,6 +77,7 @@ class GPTDolomiteModel(nn.Module):
         attention_implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
         checkpoint_every: int = 0,
         checkpoint_policy: str | None = None,
+        **block_kwargs,
     ) -> None:
         super().__init__()
         self.config = config
@@ -91,7 +100,7 @@ class GPTDolomiteModel(nn.Module):
             else None
         )
         self.h = nn.ModuleList(
-            Block(config, dtype, device, param_dtype, attention_implementation)
+            self.block_cls(config, dtype, device, param_dtype, attention_implementation, **block_kwargs)
             for _ in range(config.n_layer)
         )
         self.ln_f = get_norm(config, device)
@@ -115,7 +124,8 @@ class GPTDolomiteModel(nn.Module):
         cache_index: torch.Tensor | int | None = None,
         segment_ids: torch.Tensor | None = None,
         deterministic: bool = True,
-    ) -> tuple[torch.Tensor, list[KVCache] | None]:
+    ) -> tuple[torch.Tensor, list[KVCache] | None, list[torch.Tensor]]:
+        """(final hidden states, new caches, the blocks' extra outputs in layer order)."""
         config = self.config
         seq = input_ids.shape[1]
         hidden_states = self.wte(input_ids)
@@ -136,23 +146,26 @@ class GPTDolomiteModel(nn.Module):
             config, position_ids, self.rope_params, hidden_states.dtype
         )
         new_caches = [] if kv_caches is not None else None
+        extras = []  # per-block extra outputs (MoE router logits)
         for i, block in enumerate(self.h):
             cache = None if kv_caches is None else kv_caches[i]
             if self.checkpoint_every and i % self.checkpoint_every == 0 and cache is None:
                 # the `full` policy: only the block's input survives the forward; the
                 # backward reruns the block (kernels included) to rebuild its activations
-                hidden_states, cache = checkpoint(
+                out = checkpoint(
                     block, hidden_states, attention_mask, rope_cos_sin, None, cache_index,
                     segment_ids, deterministic, use_reentrant=False,
                 )
             else:
-                hidden_states, cache = block(
+                out = block(
                     hidden_states, attention_mask, rope_cos_sin, cache, cache_index,
                     segment_ids, deterministic,
                 )
+            hidden_states, cache = out[0], out[1]
+            extras.extend(out[2:])
             if new_caches is not None:
                 new_caches.append(cache)
-        return self.ln_f(hidden_states), new_caches
+        return self.ln_f(hidden_states), new_caches, extras
 
 
 class GPTDolomiteForCausalLM(nn.Module):
@@ -164,7 +177,14 @@ class GPTDolomiteForCausalLM(nn.Module):
     `dtype` is the compute dtype; `param_dtype` (default `dtype`) the storage of the
     linear and embedding weights — fp32 master weights for training, as the JAX
     package's modules keep them. `checkpoint_every` k reruns every k-th block in the
-    backward (the ``full`` remat policy)."""
+    backward (the ``full`` remat policy). Further keyword arguments go to every block
+    (a family's block options, e.g. MoE's ``moe_implementation``).
+
+    The config's ``model_type`` must be this class's: a config of another family raises
+    instead of building a dense model (`models.get_model_class` picks the class)."""
+
+    model_type: str = "gpt_dolomite"
+    base_model_cls: type = GPTDolomiteModel
 
     def __init__(
         self,
@@ -176,14 +196,20 @@ class GPTDolomiteForCausalLM(nn.Module):
         attention_implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
         checkpoint_every: int = 0,
         checkpoint_policy: str | None = None,
+        **block_kwargs,
     ) -> None:
         super().__init__()
+        if config.model_type != self.model_type:
+            raise ValueError(
+                f"{type(self).__name__} builds model_type '{self.model_type}', not "
+                f"'{config.model_type}': build it with models.get_model_class(config.model_type)"
+            )
         device = resolve_device(device)
         self.config = config
         self.dtype = dtype
-        self.transformer = GPTDolomiteModel(
+        self.transformer = self.base_model_cls(
             config, dtype, device, param_dtype, attention_implementation, checkpoint_every,
-            checkpoint_policy,
+            checkpoint_policy, **block_kwargs,
         )
         self.lm_head = (
             None
@@ -203,7 +229,7 @@ class GPTDolomiteForCausalLM(nn.Module):
     def init_weights(self, seed: int) -> None:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         for module in self.modules():
-            if isinstance(module, (ParameterizedLinear, ParameterizedEmbedding)):
+            if hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
     def forward(
@@ -220,9 +246,10 @@ class GPTDolomiteForCausalLM(nn.Module):
     ) -> CausalLMOutput:
         """Logits, or with `labels` / `compute_loss` the mean next-token loss: through the
         chunked fused LM-head loss (no logits) when the config asks for it, else plain
-        logits + CE (labels derived from `input_ids` when not given)."""
+        logits + CE (labels derived from `input_ids` when not given). The family's
+        auxiliary loss (`compute_aux_loss`) is added once to either."""
         config = self.config
-        hidden_states, new_caches = self.transformer(
+        hidden_states, new_caches, extras = self.transformer(
             input_ids,
             position_ids=position_ids,
             attention_mask=attention_mask,
@@ -246,20 +273,35 @@ class GPTDolomiteForCausalLM(nn.Module):
                 compute_dtype=self.dtype,
                 z_loss_coef=config.z_loss_coef,
             )
-            return CausalLMOutput(kv_caches=new_caches, loss=loss)
-        logits = self.compute_logits(hidden_states)
-        loss = None
+            logits = None
+        else:
+            logits = self.compute_logits(hidden_states)
+            loss = None
+            if want_loss:
+                loss = causal_lm_loss(
+                    logits,
+                    input_ids,
+                    upcast=config.upcast_logits_for_loss,
+                    attention_mask=attention_mask,
+                    segment_ids=segment_ids,
+                    labels=labels,
+                    z_loss_coef=config.z_loss_coef,
+                )
+        aux_loss = None
         if want_loss:
-            loss = causal_lm_loss(
-                logits,
-                input_ids,
-                upcast=config.upcast_logits_for_loss,
-                attention_mask=attention_mask,
-                segment_ids=segment_ids,
-                labels=labels,
-                z_loss_coef=config.z_loss_coef,
-            )
-        return CausalLMOutput(logits=logits, kv_caches=new_caches, loss=loss)
+            aux_loss = self.compute_aux_loss(extras, attention_mask, segment_ids)
+            if aux_loss is not None:
+                loss = loss + aux_loss
+        return CausalLMOutput(logits=logits, kv_caches=new_caches, loss=loss, aux_loss=aux_loss)
+
+    def compute_aux_loss(
+        self,
+        extras: list[torch.Tensor],
+        attention_mask: torch.Tensor | None,
+        segment_ids: torch.Tensor | None,
+    ) -> torch.Tensor | None:
+        """Hook for MoE families: an auxiliary loss from the blocks' extra outputs."""
+        return None
 
     def compute_logits(self, hidden_states: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
@@ -292,13 +334,7 @@ def _jax_module_params(params: Mapping, model: GPTDolomiteForCausalLM):
     if model.transformer.wpe is not None:
         yield t["wpe"], model.transformer.wpe
     for i, block in enumerate(model.transformer.h):
-        h = t[f"h_{i}"]
-        yield h["ln_1"], block.ln_1
-        yield h["attn"]["c_attn"], block.attn.c_attn
-        yield h["attn"]["c_proj"], block.attn.c_proj
-        yield h["ln_2"], block.ln_2
-        yield h["mlp"]["c_fc"], block.mlp.c_fc
-        yield h["mlp"]["c_proj"], block.mlp.c_proj
+        yield from block.jax_module_params(t[f"h_{i}"])
     yield t["ln_f"], model.transformer.ln_f
     if model.lm_head is not None:
         yield params["lm_head"], model.lm_head
@@ -311,9 +347,11 @@ def load_jax_params(
     """Move `model` to `device` and fill it from the JAX package's unrolled GPTDolomite
     params (nested dicts of numpy arrays under the flax names: ``transformer.wte``,
     ``h_<i>.attn.c_attn``, ..., with or without a top-level ``params`` key). Flax
-    ``[in, out]`` kernels become torch ``[out, in]`` weights in the parameter's dtype:
-    a training model's fp32 master weights take the JAX fp32 params exactly. The caller
-    converts JAX arrays with ``np.asarray``; this imports no JAX."""
+    ``[in, out]`` linear kernels become torch ``[out, in]`` weights in the parameter's
+    dtype: a training model's fp32 master weights take the JAX fp32 params exactly.
+    Expert banks (3-D ``[E, in, out]`` kernels, the grouped GEMM's layout) and their
+    ``[E, out]`` biases are copied as they are; a bank in another layout fails the shape
+    check. The caller converts JAX arrays with ``np.asarray``; this imports no JAX."""
     model.to(resolve_device(device))
     if "params" in params_np:
         params_np = params_np["params"]
@@ -324,7 +362,7 @@ def load_jax_params(
             if target is None:
                 raise KeyError(f"unexpected parameter {flax_name!r} for {type(module).__name__}")
             array = np.asarray(value)
-            if flax_name == "kernel":
+            if flax_name == "kernel" and array.ndim == 2:
                 array = array.T
             if tuple(array.shape) != tuple(target.shape):
                 raise ValueError(

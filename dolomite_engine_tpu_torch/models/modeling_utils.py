@@ -467,6 +467,15 @@ class Block(nn.Module):
             mlp_out = mlp_out * self.m_residual
         return hidden_states + mlp_out, kv_cache
 
+    def jax_module_params(self, tree):
+        """(flax subtree, module) pairs of this block's ``h_<i>`` params."""
+        yield tree["ln_1"], self.ln_1
+        yield tree["attn"]["c_attn"], self.attn.c_attn
+        yield tree["attn"]["c_proj"], self.attn.c_proj
+        yield tree["ln_2"], self.ln_2
+        yield tree["mlp"]["c_fc"], self.mlp.c_fc
+        yield tree["mlp"]["c_proj"], self.mlp.c_proj
+
 
 def compute_position_stuff(
     config: CommonConfig,

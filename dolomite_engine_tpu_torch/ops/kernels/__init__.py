@@ -5,9 +5,9 @@ raises), the kernel's plain PyTorch version (taken only for a CPU tensor) and a
 `KernelSpec` whose ``launches`` counts the wrapper's kernel launches.
 """
 
-from . import flash_attention, fused_ce, paged_attention, prefill_attention, rmsnorm, rope_qkv
+from . import flash_attention, fused_ce, moe, paged_attention, prefill_attention, rmsnorm, rope_qkv
 
-# every kernel entry point: the serving path's, then the training path's
+# every kernel entry point: the serving path's, then the training path's, then MoE's
 KERNELS = (
     rmsnorm.KERNEL,
     rope_qkv.KERNEL,
@@ -16,6 +16,8 @@ KERNELS = (
     flash_attention.FWD_KERNEL,
     flash_attention.BWD_KERNEL,
     fused_ce.KERNEL,
+    moe.KERNEL,
+    moe.TGMM_KERNEL,
 )
 
 

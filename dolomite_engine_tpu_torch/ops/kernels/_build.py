@@ -46,6 +46,8 @@ _SIGNATURES = {
     "dolo_flash_bwd": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
     "dolo_fused_ce": (_P,) * 6 + (_I,) * 3 + (_F, _I, _I, _P),
     "dolo_fused_ce_scratch_floats": (_I, _I),
+    "dolo_gmm": (_P,) * 5 + (_I,) * 6 + (_P,),
+    "dolo_tgmm": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 # element-type codes of csrc/common.cuh

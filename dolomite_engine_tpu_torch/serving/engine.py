@@ -137,11 +137,12 @@ class _PrefillTask:
 
 
 class ServingEngine:
-    """Drive a GPTDolomite model (`models/gpt_dolomite.py`) as a continuously batched
-    token service on the paged KV pool.
+    """Drive a causal LM of the port (`models/`) as a continuously batched token service
+    on the paged KV pool.
 
     Args:
-        model: the port's `GPTDolomiteForCausalLM`.
+        model: any of the port's causal LMs (`GPTDolomiteForCausalLM`,
+            `MoEDolomiteForCausalLM`, ...: `models.get_model_class`).
         params: None when the model already holds its weights, or the JAX package's
             unrolled params tree as numpy arrays (loaded with `load_jax_params`).
         num_slots: decode batch width == max concurrent requests.

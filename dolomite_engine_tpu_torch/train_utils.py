@@ -138,15 +138,19 @@ def get_model_tflops(
     gradient_checkpointing_args: dict | None = None,
 ) -> float:
     """Analytic model TFLOPs per step (the JAX package's formula): attention
-    ``4bsh(h(1 + k/n) + s)``, MLP ``4bshf`` (+ ``2bshf`` for GLU), LM head ``6bshv``,
+    ``4bsh(h(1 + k/n) + s)``, MLP ``4bshf`` (+ ``2bshf`` for GLU) times the
+    ``num_experts_per_tok`` experts each token runs in an MoE model, LM head ``6bshv``,
     backward twice the forward, plus one forward per block the ``full`` remat policy
-    reruns. The port's remat has only that policy."""
+    reruns. The port's remat has only that policy; router FLOPs are left out, as there."""
     b, s, h = batch_size, sequence_length, config.n_embd
     f, n, k = config.n_inner, config.n_head, config.num_key_value_heads
     attention_flops = 4 * b * s * h * (h * (1 + k / n) + s)
     mlp_flops = 4 * b * s * h * f
     if is_glu(config.activation_function):
         mlp_flops += 2 * b * s * h * f
+    active_experts = getattr(config, "num_experts_per_tok", None)
+    if active_experts:
+        mlp_flops *= active_experts
     forward = config.n_layer * (attention_flops + mlp_flops)
     every, policy = resolve_checkpointing_args(gradient_checkpointing_method, gradient_checkpointing_args)
     recompute = 0.0

@@ -7,7 +7,8 @@ without JAX:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Shapes cover small odd cases and the slices' own shapes (granite-3b-code: 32 heads of
-80, d=2560, 16-token pages, 4096-token packed training rows, a 49152-word vocabulary).
+80, d=2560, 16-token pages, 4096-token packed training rows, a 49152-word vocabulary;
+the MoE slice's grouped GEMMs: 32 experts, d 1024, swiglu c_fc banks 8192 wide).
 Tolerances: fp32 within 1e-5 (the JAX package's own kernel-parity tolerance; only
 summation order differs); bf16 attention within 2e-2 absolute (the plain version rounds
 scores and probabilities to bf16, the kernels keep fp32 scores), plus one bf16 ulp of the
@@ -15,7 +16,9 @@ value for the training flash kernels, whose plain version computes in fp32 and r
 its outputs once (the two sides may round a value one ulp apart); bf16 rmsnorm and rope
 within 2 bf16 ulp of the largest term (the plain version rounds after every bf16 op, the
 kernel rounds once); bf16 fused_ce within 2e-2 absolute (the kernel and cuBLAS may round
-a logit to bf16 one ulp apart).
+a logit to bf16 one ulp apart); bf16 grouped GEMMs within one bf16 ulp plus 1e-4 (both
+sides sum in fp32 and round once), and tgmm, whose output is fp32, within 1e-5 in both
+types (products of bf16 inputs are exact in fp32).
 """
 
 import numpy as np
@@ -311,3 +314,143 @@ def test_fused_ce_all_ignored_rows_and_chunk_sums():
     torch.testing.assert_close(loss_sum, (lse - lab)[mask].sum(), atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(z_sum, lse[mask].square().sum(), atol=1e-5, rtol=1e-5)
     assert num.item() == 10.0
+
+
+def _moe_plan(seed, group_sizes, block_rows=None):
+    from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
+
+    sizes = torch.as_tensor(np.asarray(group_sizes, np.int64), device="cuda")
+    plan, _ = kmoe.block_plan(sizes, int(sum(group_sizes)), block_rows)
+    return plan
+
+
+def _group_sizes(seed, assignments, num_experts, empty=0):
+    """Random expert group sizes summing to `assignments`, `empty` experts with none."""
+    rs = np.random.RandomState(seed)
+    share = rs.dirichlet(np.ones(num_experts - empty))
+    sizes = np.floor(share * assignments).astype(np.int64)
+    sizes[: assignments - sizes.sum()] += 1
+    return [0] * empty + sizes.tolist()
+
+
+def _padded_rows(gen, plan, cols, dtype, scale):
+    """Padded-layout rows: random where real, zero where padding (as the dispatch builds them)."""
+    from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
+
+    mask = kmoe._row_mask(plan.block_valid, plan.block_rows)
+    return (torch.randn((plan.padded_rows, cols), generator=gen, device="cuda") * scale * mask).to(dtype)
+
+
+def _close_gmm(got, want, fp32):
+    """fp32: 1e-5 abs + 1e-5 rel (only the summation order differs). bf16: one bf16 ulp
+    of the value plus 1e-4 abs (both sides sum in fp32 and round the sum once, so a sum
+    near a rounding boundary may land one ulp apart)."""
+    diff = (got.float() - want.float()).abs()
+    bound = 1e-5 + 1e-5 * want.float().abs() if fp32 else 1e-4 + _bf16_ulp(want)
+    return bool((diff <= bound).all()), diff.max().item()
+
+
+@pytest.mark.parametrize(
+    "group_sizes,k_dim,n_dim,block_rows",
+    [
+        ([5, 0, 12, 3], 16, 24, 8),  # empty expert, K and N not multiples of the tiles
+        ([0, 0, 7, 0], 40, 136, None),  # A < 8: one block of 7 rows
+        ([9, 30, 0, 1, 24], 72, 200, 16),
+        ("decode", 1024, 8192, None),  # 8 slots x top-4 over 32 experts: bm 32, 33 blocks
+        ("prefill", 1024, 8192, None),  # one 512-token chunk x top-4: bm 128
+        ("sparse", 4096, 1024, None),  # the proj GEMM with most experts empty
+    ],
+)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_kernel_matches_plain(group_sizes, k_dim, n_dim, block_rows, transpose, dtype):
+    from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
+
+    if isinstance(group_sizes, str):
+        assignments, empty = {"decode": (32, 0), "prefill": (2048, 0), "sparse": (96, 28)}[group_sizes]
+        group_sizes = _group_sizes(3, assignments, 32, empty)
+    plan = _moe_plan(0, group_sizes, block_rows)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    num_experts = len(group_sizes)
+    xp = _padded_rows(gen, plan, k_dim, dtype, 1.0)
+    shape = (num_experts, n_dim, k_dim) if transpose else (num_experts, k_dim, n_dim)
+    w = (torch.randn(shape, generator=gen, device="cuda") / k_dim**0.5).to(dtype)
+    got = kmoe.gmm(xp, w, plan, transpose_w=transpose)
+    want = kmoe.gmm_plain(xp, w, plan.block_expert, plan.block_rows, plan.block_valid, transpose)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    ok, err = _close_gmm(got, want, dtype == torch.float32)
+    assert ok, err
+    padding = ~kmoe._row_mask(plan.block_valid, plan.block_rows)[:, 0]
+    assert not got[padding].any()  # padding rows are written as zeros
+
+
+@pytest.mark.parametrize(
+    "group_sizes,k_dim,n_dim",
+    [
+        ([9, 0, 4, 20, 0], 16, 24),  # empty experts write zeros
+        ([33, 0, 0, 33], 136, 72),
+        ("train", 1024, 4096),  # the training micro-batch's c_proj input x dy shape, 4 of 32 experts
+        ("sparse", 256, 384),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_tgmm_kernel_matches_plain(group_sizes, k_dim, n_dim, dtype):
+    from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
+
+    if isinstance(group_sizes, str):
+        assignments, experts, empty = {"train": (2048, 4, 0), "sparse": (300, 32, 29)}[group_sizes]
+        group_sizes = _group_sizes(5, assignments, experts, empty)
+    plan = _moe_plan(0, group_sizes)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = max(group_sizes)
+    xp = _padded_rows(gen, plan, k_dim, dtype, 1.0)
+    dy = _padded_rows(gen, plan, n_dim, dtype, 1.0 / rows**0.5)
+    got = kmoe.tgmm(xp, dy, plan, len(group_sizes))
+    want = kmoe.tgmm_plain(xp, dy, plan.block_expert, plan.block_rows, len(group_sizes), plan.block_valid)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    # fp32 products of bf16 inputs are exact, so both dtypes differ only by the sum order
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    for e, size in enumerate(group_sizes):
+        if size == 0:
+            assert not got[e].any()
+
+
+def test_grouped_gemm_autograd_matches_plain_autograd():
+    """fp32: the autograd function's dX (gmm over the banks read transposed in place) and
+    dW (tgmm) equal autograd through the plain forward."""
+    from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
+
+    plan = _moe_plan(0, [40, 0, 17, 71])
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    xp = _padded_rows(gen, plan, 96, torch.float32, 1.0).requires_grad_()
+    w = (torch.randn((4, 96, 160), generator=gen, device="cuda") * 0.1).requires_grad_()
+    dy = torch.randn((plan.padded_rows, 160), generator=gen, device="cuda")
+    kmoe.grouped_gemm(xp, w, plan).backward(dy)
+    got = (xp.grad.clone(), w.grad.clone())
+    xp.grad = w.grad = None
+    mask = kmoe._row_mask(plan.block_valid, plan.block_rows)
+    kmoe.gmm_plain(xp, w, plan.block_expert, plan.block_rows, plan.block_valid).backward(dy)
+    torch.testing.assert_close(got[0], xp.grad * mask, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[1], w.grad, atol=1e-5, rtol=1e-5)
+
+
+def test_experts_grouped_on_the_card_matches_the_cpu_plain_path():
+    """The whole dispatch (layout, gather, two kernels, combine) on the card against the
+    same function on CPU tensors (plain versions), fp32 with swiglu banks."""
+    from dolomite_engine_tpu_torch.ops.activations import get_activation_function
+    from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
+    from dolomite_engine_tpu_torch.ops.moe import route
+
+    gen = torch.Generator().manual_seed(23)
+    tokens, d, f, experts, k = 200, 64, 96, 8, 4
+    x = torch.randn((tokens, d), generator=gen)
+    weights, selected = route(torch.randn((tokens, experts), generator=gen), k)
+    w_fc = torch.randn((experts, d, 2 * f), generator=gen) * 0.1
+    w_proj = torch.randn((experts, f, d), generator=gen) * 0.1
+    act = get_activation_function("swiglu")
+    args = (x, weights, selected, w_fc, None, w_proj, None, act, experts)
+    want = kmoe.experts_grouped(*args)
+    got = kmoe.experts_grouped(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
