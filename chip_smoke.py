@@ -29,11 +29,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (24 layers, 32
    experts, top-4, bf16, random weights) behind `ServingEngine` with the requests of
    phase 3, its logits check against a plain forward (router + every-expert
-   `experts_eager`), and the requests once more under `torch.profiler` with the host
-   syncs counted by call site;
+   `experts_eager`), the requests once more under `torch.profiler`, and once more
+   unprofiled with the host syncs counted by call site;
 8. the MoE training kernel path against the plain path at full width and 2 layers
-   (loss with the router's auxiliary loss, every gradient, the share of routings that
-   differ), then the MoE train step at 8 of the 24 layers, accumulation 2 x [2, 2048],
+   (loss with the router's auxiliary loss, every gradient and every expert's slice of a
+   bank against an fp32 reference, the share of routings that differ), then the MoE train step at 8 of the 24 layers, accumulation 2 x [2, 2048],
    and one profiled step.
 
 The grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
@@ -662,28 +662,31 @@ def _count_host_syncs(fn):
 
 def profile_serving(model, specs):
     """Phase 4 (and 7): where the device time goes. The slice's requests are served
-    again on a fresh engine under torch.profiler, with the host syncs counted by call
-    site (an explicit ``torch.cuda.synchronize`` is not counted)."""
+    again on a fresh engine under torch.profiler; then once more on another fresh engine,
+    unprofiled, with the host syncs counted by call site (an explicit
+    ``torch.cuda.synchronize`` is not counted)."""
     from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
 
-    engine = ServingEngine(
-        model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
-        prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=model.config.pad_token_id,
-    )
-    result = {}
-
-    def replay():
-        result["profile"] = _device_time(
-            *_profiled(lambda: (serve_batch(engine, specs[:7]), serve_batch(engine, specs[7:]))), top=15
+    def fresh_engine():
+        return ServingEngine(
+            model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
+            prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=model.config.pad_token_id,
         )
 
-    syncs = _count_host_syncs(replay)
-    forwards = engine.stats.decode_steps + engine.stats.prefill_chunks
+    def replay(engine):
+        serve_batch(engine, specs[:7])
+        serve_batch(engine, specs[7:])
+
+    engine = fresh_engine()
+    profile = _device_time(*_profiled(lambda: replay(engine)), top=15)
+    counted = fresh_engine()
+    syncs = _count_host_syncs(lambda: replay(counted))
+    forwards = counted.stats.decode_steps + counted.stats.prefill_chunks
     # the MoE dispatch keeps its layout on the device: no sync of its own
     in_moe = {site: n for site, n in syncs.items() if "moe" in site}
     assert not in_moe, f"the MoE layers synchronise with the host: {in_moe}"
     return dict(
-        result["profile"], decode_steps=engine.stats.decode_steps, prefill_chunks=engine.stats.prefill_chunks,
+        profile, decode_steps=engine.stats.decode_steps, prefill_chunks=engine.stats.prefill_chunks,
         host_syncs=syncs, host_syncs_per_forward=sum(syncs.values()) / forwards,
     )
 
@@ -809,9 +812,10 @@ def training_kernel_cases(seed):
 def moe_kernel_cases(seed):
     """Phase 2, MoE: the grouped GEMMs against their plain versions at the MoE slice's
     shapes (32 experts, d 1024, swiglu c_fc banks [32, 1024, 8192], c_proj [32, 4096,
-    1024]), with kernel, plain and library timings. Rows are spread over the experts as
-    a router at init spreads them (uniformly at random); the bound counts the real rows
-    in and out and each bank with a routed row once."""
+    1024]; each bank at the decode, prefill-chunk and training row counts, the training
+    one also as dX and dW), with kernel, plain and library timings. Rows are spread over
+    the experts as a router at init spreads them (uniformly at random); the bound counts
+    the real rows in and out and each bank with a routed row once."""
     import numpy as np
     import torch
 
@@ -829,6 +833,12 @@ def moe_kernel_cases(seed):
             MOE_TRAIN_MICRO * MOE_TRAIN_SEQ * k, d, 2 * f, experts, ("gmm", "dx", "tgmm"),
         ),
         ("most experts empty: 96 rows on 3 of 32, c_proj", 96, f, d, 3, ("gmm", "dx", "tgmm")),
+        ("decode: 8 slots x top-4, c_proj", NUM_SLOTS * k, f, d, experts, ("gmm",)),
+        ("prefill chunk: 512 tokens x top-4, c_proj", CHUNK * k, f, d, experts, ("gmm",)),
+        (
+            "training micro-batch: 2 x 2048 tokens x top-4, c_proj",
+            MOE_TRAIN_MICRO * MOE_TRAIN_SEQ * k, f, d, experts, ("gmm", "dx", "tgmm"),
+        ),
     ]
     sizes = []
     for _, rows, *_rest, used, _forms in shapes:
@@ -979,12 +989,13 @@ def plain_train_loss(model, inputs, compute_dtype, router_logits=None):
     return loss if aux is None else loss + aux
 
 
-def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, TRAIN_SEQ), device="cuda"):
+def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, TRAIN_SEQ)):
     """Phase 5 (granite-3b-code) and phase 8 (the MoE model): the kernel path against the
     plain path at full width, `n_layer` layers, the same fp32 master weights and packed
     batch of `shape`, bf16 compute; and both against an fp32 plain reference of the same
-    weights. For MoE, also the share of (token, layer) routings the kernel path and the
-    plain bf16 path pick differently. (The CPU only to rehearse the control flow.)"""
+    weights. For MoE, the reference also judges each parameter's gradient and each
+    expert's slice of a bank on its own, and the check reports the share of (token,
+    layer) routings the kernel path and the plain bf16 path pick differently."""
     import numpy as np
     import torch
 
@@ -993,13 +1004,11 @@ def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, 
 
     config = dict(config_kwargs, n_layer=n_layer)
     moe = config.get("model_type") == "moe_dolomite"
-    on_card = torch.device(device).type == "cuda"
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     wrapper = ModelWrapperForPretraining(
         config, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
         gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
-        device=device, seed=seed,
+        device="cuda", seed=seed,
     )
     model = wrapper.model
     rs = np.random.RandomState(seed + 1)
@@ -1039,6 +1048,15 @@ def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, 
 
     per_param = {n: rel(g, p) for n, g, p in zip(names, kernel_grads, plain_grads)}
     worst = max(per_param, key=per_param.get)
+    # for MoE, each parameter's gradient and each expert's slice of a bank against the fp32
+    # reference on both paths: the pooled norm is dominated by the largest leaves and would
+    # not see one wrong leaf or expert
+    vs_fp32 = {}
+    if moe:
+        for n, g, p, e in zip(names, kernel_grads, plain_grads, exact_grads):
+            experts = range(e.shape[0]) if e.ndim == 3 else ()
+            for part, index in [(n, slice(None))] + [(f"{n}[{x}]", x) for x in experts]:
+                vs_fp32[part] = {"kernel": rel(g[index], e[index]), "plain_bf16": rel(p[index], e[index])}
     check = {
         "n_layer": n_layer, "batch": shape[0], "seq": shape[1],
         "documents": int(inputs["segment_ids"].max(-1).values.sum()),
@@ -1051,6 +1069,7 @@ def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, 
             + ("" if moe else "each parameter's gradient within 3e-2 relative L2 error; ")
             + "against the fp32 plain reference the kernel path's gradients err at most "
             "1.5x the plain bf16 path's"
+            + (", pooled, for each parameter and for each expert of a bank" if moe else "")
         ),
     }
     if moe:
@@ -1061,17 +1080,20 @@ def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, 
         ]
         check["routing_differs_share_by_layer"] = differ
         check["param_grad_rel_l2_err"] = per_param
-        check["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        check["param_grad_rel_l2_err_vs_fp32"] = {n: e for n, e in vs_fp32.items() if "[" not in n}
+        check["max_grad_err_ratio_vs_fp32"] = max(e["kernel"] / max(e["plain_bf16"], 1e-30) for e in vs_fp32.values())
+        check["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     assert all(np.isfinite(v) for v in (check["kernel_loss"], check["plain_bf16_loss"])), check
     assert abs(check["kernel_loss"] - check["plain_bf16_loss"]) <= 2e-2, check
     if not moe:
         # an MoE token whose bf16 router logits cross picks other experts on the two paths,
-        # which moves whole rows of an expert's gradient: the ratio below judges MoE
+        # which moves whole rows of an expert's gradient: the ratios below judge MoE
         assert check["max_param_grad_rel_l2_err"] <= 3e-2, check
+    off = {n: e for n, e in vs_fp32.items() if e["kernel"] > 1.5 * e["plain_bf16"]}
+    assert not off, f"gradients off against the fp32 reference: {off}; {check}"
     assert check["kernel_grad_rel_l2_err_vs_fp32"] <= 1.5 * check["plain_bf16_grad_rel_l2_err_vs_fp32"], check
     del wrapper, model, params, kernel_grads, plain_grads, exact_grads, kernel_routing, plain_routing
-    if on_card:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return check
 
 
