@@ -34,21 +34,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 8. the MoE training kernel path against the plain path at full width and 2 layers
    (loss with the router's auxiliary loss, every gradient and every expert's slice of a
    bank against an fp32 reference, the share of routings that differ), then the MoE train step at 8 of the 24 layers, accumulation 2 x [2, 2048],
-   and one profiled step.
+   and one profiled step;
+9. the quantized KV pool (``quantized_serving``): phase 3's model and requests behind
+   `ServingEngine(kv_dtype="int8")` and again with ``"fp8"`` (right after phase 4), and
+   phase 7's MoE model with ``"int8"`` (right after its profile), each with launch counts
+   zeroed just before and read just after, the bytes per cached token, launches per
+   forward against the bf16 pool, and the greedy tokens' agreement with the bf16 pool's;
+10. ``quantized_check`` (after the dense quantized runs): phase 3's model chunk-prefills
+   request 2's prompt and decodes 4 tokens into a fresh int8 pool once through the kernel
+   path and once through the plain versions of its three kernels (kv_quant, paged decode
+   and prefill, patched in here on the same CUDA tensors): layer 0's pool bytes must be
+   identical, layer 0's attention and the last position's logits must agree, and a page
+   whose quotients fall on halves must encode to the plain version's bytes.
 
 The grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
-transposed-bank dX form, tgmm, and a case with most experts empty) run in phase 2.
+transposed-bank dX form, tgmm, and a case with most experts empty) and the quantized
+pool's cases (kv_quant at both models' decode and prefill windows, the decode and prefill
+kernels over int8 / fp8 pages, an fp32 query over a bf16 pool) run in phase 2.
 
 Prints the card's name and power limit, a ``kernel_cases`` line (every case of phase 2),
-``serving``, ``profile``, ``training_check``, ``training``, ``training_profile``,
-``moe_serving``, ``moe_profile``, ``moe_training_check``, ``moe_training`` and
-``moe_training_profile`` lines, the ``kernels`` line, the card again, and last
+``serving``, ``profile``, ``quantized_check``, ``training_check``, ``training``,
+``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
+``moe_training_check``, ``moe_training`` and ``moe_training_profile`` lines, the
+``kernels`` line, the card again, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -125,11 +140,15 @@ def _bound(nbytes, flops, dtype_name):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
-def _record(cases, kernel, shape, dtype, err, ok, tol, run, plain, library, nbytes, flops, plain_iters=20):
+def _record(
+    cases, kernel, shape, dtype, err, ok, tol, run, plain, library, nbytes, flops, plain_iters=20,
+    op_dtype=None,
+):
     """Time one kernel case (kernel, plain version, library call), append it to `cases`
-    with its bound, and raise if the kernel disagreed with its plain version."""
+    with its bound, and raise if the kernel disagreed with its plain version. The
+    operations bound is taken at the peak rate of `op_dtype` (default `dtype`)."""
     dtype_name = str(dtype).replace("torch.", "")
-    bound_ms, bound_by = _bound(nbytes, flops, dtype_name)
+    bound_ms, bound_by = _bound(nbytes, flops, str(op_dtype or dtype).replace("torch.", ""))
     case = {
         "kernel": kernel, "shape": shape, "dtype": dtype_name,
         "max_abs_err": err, "tolerance": tol, "within_tolerance": bool(ok),
@@ -289,6 +308,145 @@ def kernel_cases(seed):
     return cases
 
 
+# (query heads, kv heads, head_dim) of the two served models
+ATTENTION_SHAPES = {"granite-3b-code": (32, 32, 80), "moe": (16, 8, 64)}
+
+
+def tie_page(heads, head_dim, qmax, gen):
+    """One fp32 page [1, PAGE, heads, head_dim] whose every head has amax qmax (scale
+    exactly 1.0) and whose other values are halves (k + 0.5): each quotient is a rounding
+    tie, which half-to-even and half-away-from-zero rounding encode differently."""
+    import torch
+
+    shape = (1, PAGE, heads, head_dim)
+    values = torch.randint(-int(qmax), int(qmax) - 1, shape, generator=gen, device=gen.device) + 0.5
+    values[0, 0, :, 0] = qmax
+    return values.float()
+
+
+def quant_kernel_cases(seed):
+    """Phase 2, the quantized pool: kv_quant at the decode (8 slots x 2 pages) and
+    prefill-chunk (33 pages) windows of both models, int8 and fp8, whose codes and scales
+    must be byte-identical to the plain version's; the decode and prefill kernels over
+    int8 and fp8 pages with a bf16 query at both models' shapes (frontiers up to 2047,
+    within 2e-2 of the plain version); an fp32 query over a bf16 pool (within 1e-5)."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import paged_attention, prefill_attention
+    from dolomite_engine_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES, as_bytes, quantize_pages, quantize_pages_plain
+
+    cases = []
+    max_pages = MAX_LEN // PAGE
+    lengths = [2047, 1900, 1536, 1024, 777, 300, 64, 0]
+    decode_keys = sum(length + 1 for length in lengths)
+    decode_pages = sum(-(-(length + 1) // PAGE) for length in lengths)
+    start = MAX_LEN - CHUNK  # the chunk's last query sees 2047 earlier positions
+    pairs = sum(start + i + 1 for i in range(CHUNK))
+    for model_name, (hq, hkv, hd) in ATTENTION_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        scale = hd**-0.5
+        for kv_dtype, (storage, qmax) in KV_QUANT_DTYPES.items():
+            # the encode at the scatter's window shapes: stale rows past random frontiers
+            # (10x the live values), an all-invalid page, and a page of rounding ties
+            for label, num_pages in (
+                ("decode: 8 slots x 2 pages", 2 * NUM_SLOTS), ("prefill chunk: 33 pages", (CHUNK - 1) // PAGE + 2)
+            ):
+                values = torch.randn((num_pages, PAGE, hkv, hd), generator=gen, device="cuda") * 2.0
+                frontier = torch.randint(0, PAGE + 1, (num_pages, 1), generator=gen, device="cuda")
+                valid = torch.arange(PAGE, device="cuda")[None, :] < frontier
+                values = torch.where(valid[:, :, None, None], values, values * 10.0)
+                valid[0] = True
+                values[:1] = tie_page(hkv, hd, qmax, gen)
+                valid[1] = False
+                got, want = quantize_pages(values, valid, qmax, storage), quantize_pages_plain(values, valid, qmax, storage)
+                same = torch.equal(as_bytes(got[0]), as_bytes(want[0])) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32)
+                )
+                err = max((got[0].float() - want[0].float()).abs().max().item(), (got[1] - want[1]).abs().max().item())
+                _record(
+                    cases, "kv_quant", f"{model_name} {label} [{num_pages},{PAGE},{hkv},{hd}] fp32 -> {kv_dtype}",
+                    storage, err, same, "byte-identical codes and scales",
+                    lambda v=values, m=valid: quantize_pages(v, m, qmax, storage),
+                    lambda v=values, m=valid: quantize_pages_plain(v, m, qmax, storage),
+                    None, values.numel() * (4 + 1) + valid.numel() + num_pages * hkv * 4,
+                    3 * values.numel(), op_dtype=torch.float32,  # |x| and max, divide, round / clip
+                )
+
+            # the attention kernels over a quantized pool (bf16 query), scales from an
+            # encode of random K / V pages (all rows valid)
+            k, v, table, lens = _paged_case(gen, lengths, 1, hkv, hd, max_pages, torch.float32)
+            all_valid = torch.ones(k.shape[:2], dtype=torch.bool, device="cuda")
+            (kq, ks), (vq, vs) = (quantize_pages_plain(x, all_valid, qmax, storage) for x in (k, v))
+            del k, v
+            q = torch.randn((NUM_SLOTS, 1, hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            got = paged_attention.paged_decode_attention(q, kq, vq, table, lens, scale, ks, vs)
+            want = paged_attention.paged_decode_attention_plain(q, kq, vq, table, lens, scale, ks, vs)
+            _record(
+                cases, "paged_decode_attention",
+                f"{model_name} q[8,1,{hq},{hd}] {kv_dtype} pages[1025,16,{hkv},{hd}] + scales, max_len 2048",
+                torch.bfloat16, (got.float() - want.float()).abs().max().item(),
+                bool(((got.float() - want.float()).abs() <= 2e-2).all()), "2e-2 abs",
+                lambda: paged_attention.paged_decode_attention(q, kq, vq, table, lens, scale, ks, vs),
+                lambda: paged_attention.paged_decode_attention_plain(q, kq, vq, table, lens, scale, ks, vs),
+                None,  # no single PyTorch call reads quantized pages
+                2 * q.numel() * 2 + 2 * decode_keys * hkv * hd + 2 * decode_pages * hkv * 4 + table.numel() * 4 + 8 * 4,
+                4 * decode_keys * hq * hd,
+            )
+            q = torch.randn((1, CHUNK, hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            prefill_table = table[:1].contiguous()  # row 0 maps 2048 positions
+            starts = torch.tensor([start], dtype=torch.int32, device="cuda")
+            got = prefill_attention.paged_prefill_attention(q, kq, vq, prefill_table, starts, scale, ks, vs)
+            want = prefill_attention.paged_prefill_attention_plain(q, kq, vq, prefill_table, starts, scale, ks, vs)
+            _record(
+                cases, "paged_prefill_attention",
+                f"{model_name} q[1,{CHUNK},{hq},{hd}] start {start} {kv_dtype} pages + scales, max_len 2048",
+                torch.bfloat16, (got.float() - want.float()).abs().max().item(),
+                bool(((got.float() - want.float()).abs() <= 2e-2).all()), "2e-2 abs",
+                lambda: prefill_attention.paged_prefill_attention(q, kq, vq, prefill_table, starts, scale, ks, vs),
+                lambda: prefill_attention.paged_prefill_attention_plain(q, kq, vq, prefill_table, starts, scale, ks, vs),
+                None,
+                2 * q.numel() * 2 + 2 * MAX_LEN * hkv * hd + 2 * max_pages * hkv * 4 + max_pages * 4 + 4,
+                4 * pairs * hq * hd,
+            )
+            del kq, vq, ks, vs
+
+    # an fp32 query over a bf16 pool (kv_dtype="bf16" under an fp32 model), granite's shape
+    hq, hkv, hd = ATTENTION_SHAPES["granite-3b-code"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    k, v, table, lens = _paged_case(gen, lengths, 1, hkv, hd, max_pages, torch.bfloat16)
+    q = torch.randn((NUM_SLOTS, 1, hq, hd), generator=gen, device="cuda")
+    scale = hd**-0.5
+    got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale)
+    want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale)
+    diff = (got - want).abs()
+    _record(
+        cases, "paged_decode_attention", "q[8,1,32,80] fp32 over bf16 pages[1025,16,32,80], max_len 2048",
+        torch.float32, diff.max().item(), bool((diff <= 1e-5 + 1e-5 * want.abs()).all()), "1e-5",
+        lambda: paged_attention.paged_decode_attention(q, k, v, table, lens, scale),
+        lambda: paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale),
+        None, 2 * q.numel() * 4 + 2 * decode_keys * hkv * hd * 2 + table.numel() * 4 + 8 * 4,
+        4 * decode_keys * hq * hd,
+    )
+    q = torch.randn((1, CHUNK, hq, hd), generator=gen, device="cuda")
+    prefill_table = table[:1].contiguous()
+    starts = torch.tensor([start], dtype=torch.int32, device="cuda")
+    got = prefill_attention.paged_prefill_attention(q, k, v, prefill_table, starts, scale)
+    want = prefill_attention.paged_prefill_attention_plain(q, k, v, prefill_table, starts, scale)
+    diff = (got - want).abs()
+    _record(
+        cases, "paged_prefill_attention", f"q[1,{CHUNK},32,80] fp32 start {start} over bf16 pages, max_len 2048",
+        torch.float32, diff.max().item(), bool((diff <= 1e-5 + 1e-5 * want.abs()).all()), "1e-5",
+        lambda: prefill_attention.paged_prefill_attention(q, k, v, prefill_table, starts, scale),
+        lambda: prefill_attention.paged_prefill_attention_plain(q, k, v, prefill_table, starts, scale),
+        None, 2 * q.numel() * 4 + 2 * MAX_LEN * hkv * hd * 2 + max_pages * 4 + 4, 4 * pairs * hq * hd,
+        plain_iters=5,
+    )
+    del k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cases
+
+
 def _linear(x, module, dtype):
     """A linear layer of the model with its weight cast to `dtype` at use."""
     import torch.nn.functional as F
@@ -358,14 +516,16 @@ def plain_forward(model, ids, dtype=None, router_logits=None):
     return fused_rmsnorm_plain(h, t.ln_f.weight, eps) @ t.wte.weight.to(dtype).T
 
 
-def kernel_path_logits(model, tokens, prompt_len):
+def kernel_path_logits(model, tokens, prompt_len, caches=None):
     """Logits at every position of `tokens` through the kernel path: the prompt in
-    512-token chunks into a fresh paged pool, then one decode step per further token."""
+    512-token chunks into a fresh paged pool (`caches`: the model's dtype by default),
+    then one decode step per further token."""
     import torch
 
     device = model.device
     num_pages = -(-MAX_LEN // PAGE)
-    caches = model.init_kv_caches(1 + num_pages, PAGE)
+    if caches is None:
+        caches = model.init_kv_caches(1 + num_pages, PAGE)
     table = torch.arange(1, num_pages + 1, dtype=torch.int32, device=device)[None]
     kv = [{**c, "page_table": table} for c in caches]
     logits = []
@@ -399,10 +559,13 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
+def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, model=None):
     """Phase 3 (granite-3b-code) and phase 7 (the MoE model of `pretrain-moe-ep.yml`)
-    behind the serving engine; another config and the CPU only to rehearse this script's
-    control flow at a tiny size."""
+    behind the serving engine, and phase 9 with a quantized pool (`kv_dtype`, over the
+    `model` an earlier phase built; its logits are held by `quantized_check` instead);
+    another config and the CPU only to rehearse this script's control flow at a tiny size.
+    Returns the serving record, the launch counts, the model, the request specs and each
+    request's greedy tokens."""
     import numpy as np
     import torch
 
@@ -411,12 +574,13 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
     from dolomite_engine_tpu_torch.ops.moe import route
     from dolomite_engine_tpu_torch.serving import RequestStatus, ServingEngine, serve_batch
 
-    config = config_from_dict(config_kwargs)
+    config = config_from_dict(config_kwargs) if model is None else model.config
     moe = config.model_type == "moe_dolomite"
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = get_model_class(config.model_type)(config, dtype=torch.bfloat16, device=device, seed=seed)
+    if model is None:
+        model = get_model_class(config.model_type)(config, dtype=torch.bfloat16, device=device, seed=seed)
     device = model.device
     _sync(device)
     build_s = time.perf_counter() - t0
@@ -431,14 +595,14 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
     specs = [dict(prompt_ids=p, max_new_tokens=MAX_NEW) for p in prompts]
 
     # warm-up on a small engine (cuBLAS handles, allocator), launches not counted
-    warm = ServingEngine(model, None, num_slots=1, max_len=256, eos_token_id=None, device=device)
+    warm = ServingEngine(model, None, num_slots=1, max_len=256, eos_token_id=None, device=device, kv_dtype=kv_dtype)
     serve_batch(warm, [dict(prompt_ids=prompts[1][:100], max_new_tokens=2)])
     del warm
 
     engine = ServingEngine(
         model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE,
         prefill_chunk_tokens=CHUNK, eos_token_id=None, pad_token_id=config.pad_token_id,
-        device=device,
+        device=device, kv_dtype=kv_dtype,
     )
     _sync(device)
     reset_launch_counts()
@@ -468,9 +632,23 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
         "fused_ce": 0,
         "grouped_gemm": 2 * layers * forwards if moe else 0,  # c_fc and c_proj of every layer
         "grouped_gemm_tgmm": 0,
+        "kv_quant": 2 * layers * forwards if engine.pool.quantized else 0,  # K and V of every layer
     }
     if device.type == "cuda":  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
+    greedy = [state.tokens for state in states]
+    if kv_dtype is not None:
+        serving = {
+            "model": {"model_type": config.model_type, "n_layer": config.n_layer, "n_embd": config.n_embd},
+            "kv_dtype": kv_dtype, "kv_bytes_per_token": engine.pool.kv_bytes_per_token,
+            "requests": len(states), "wall_s": wall_s,
+            "ttft_mean_s": stats.mean_ttft_s(), "prefill_tok_s": stats.prefill_tok_s(),
+            "decode_tok_s": stats.decode_tok_s(), "prefill_tokens": stats.prefill_tokens,
+            "prefix_hit_tokens": stats.prefix_hit_tokens, "decode_steps": stats.decode_steps,
+            "prefill_chunks": stats.prefill_chunks, "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None,
+        }
+        return serving, launches, model, specs, greedy
 
     # the kernel path's logits against a plain full-sequence forward, request 2
     probe = states[2]
@@ -557,7 +735,7 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda"):
         "logits_check": logits_check,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None,
     }
-    return serving, launches, model, specs
+    return serving, launches, model, specs, greedy
 
 
 def _profiled(fn, host=False):
@@ -689,6 +867,147 @@ def profile_serving(model, specs):
         profile, decode_steps=engine.stats.decode_steps, prefill_chunks=engine.stats.prefill_chunks,
         host_syncs=syncs, host_syncs_per_forward=sum(syncs.values()) / forwards,
     )
+
+
+def bf16_kv_bytes(config):
+    """K/V bytes per cached token of a bf16 pool: 2 bytes for K and V of every layer."""
+    return 2 * 2 * config.n_layer * config.num_key_value_heads * config.head_dim
+
+
+def launches_per_forward(model, kv_dtype=None):
+    """Device launches (kernels and copies, by torch.profiler) of one prefill chunk and
+    of one decode step of the phase-3 engine over a pool of `kv_dtype`: a 300-token
+    request's first step (its one chunk and a decode step), then four decode steps. Also
+    a decode step's device busy time and, for a quantized pool, kv_quant's device time
+    per launch there (8 slots' windows of 2 pages; the idle slots' land in the trash page)."""
+    from torch.autograd import DeviceType
+
+    from dolomite_engine_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(
+        model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE, prefill_chunk_tokens=CHUNK,
+        eos_token_id=None, pad_token_id=model.config.pad_token_id, kv_dtype=kv_dtype,
+    )
+    engine.submit(list(range(1, 301)), max_new_tokens=8)
+
+    def kernels(fn):
+        events, _ = _profiled(fn)
+        return [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+    first = sum(e.count for e in kernels(engine.step))
+    decode = kernels(lambda: [engine.step() for _ in range(4)])
+    engine.drain()
+    per_step = sum(e.count for e in decode) / 4
+    quant = [e for e in decode if "kv_quant" in e.key]
+    return {
+        "prefill_chunk": first - per_step, "decode_step": per_step,
+        "decode_step_device_ms": sum(e.self_device_time_total for e in decode) / 4 / 1e3,
+        "kv_quant_device_us": (
+            sum(e.self_device_time_total for e in quant) / sum(e.count for e in quant) if quant else None
+        ),
+    }
+
+
+@contextlib.contextmanager
+def _plain_quantized_path():
+    """The quantized path with the plain versions of its three kernels on the same CUDA
+    tensors: the encode the scatter calls and the two attention functions the model calls
+    are swapped here, and put back as they were afterwards."""
+    from dolomite_engine_tpu_torch.models import modeling_utils
+    from dolomite_engine_tpu_torch.ops import attention
+    from dolomite_engine_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_plain
+    from dolomite_engine_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_plain
+    from dolomite_engine_tpu_torch.ops.kv_quant import quantize_pages_plain
+
+    swaps = [
+        (modeling_utils, "paged_decode_attention", paged_decode_attention_plain),
+        (modeling_utils, "paged_prefill_attention", paged_prefill_attention_plain),
+        (attention, "quantize_pages", quantize_pages_plain),
+    ]
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    try:
+        for module, name, plain in swaps:
+            setattr(module, name, plain)
+        yield
+    finally:
+        for (module, name, _), value in zip(swaps, saved):
+            setattr(module, name, value)
+
+
+def quantized_check(model, tokens, prompt_len, kv_dtype="int8"):
+    """Phase 10: `tokens` (a prompt of `prompt_len` and the tokens after it) chunk-prefilled
+    and decoded into a fresh `kv_dtype` pool through the kernel path, and again through the
+    plain versions of kv_quant and the paged decode / prefill attention. Layer 0's K / V
+    come from the embeddings alone, so its pool must hold the same bytes on both paths,
+    and its attention must agree as the kernels' own cases do; the last position's logits
+    are held to the serving check's bound. A page of rounding ties must encode to the
+    plain bytes. Reports both paths' logit error against an fp32 plain forward, beside the
+    bf16 pool's."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES, as_bytes, quantize_pages, quantize_pages_plain
+    from dolomite_engine_tpu_torch.serving import PagedKVCachePool
+
+    storage, qmax = KV_QUANT_DTYPES[kv_dtype]
+    config = model.config
+    rows = [min(CHUNK, prompt_len - start) for start in range(0, prompt_len, CHUNK)]
+    rows += [1] * (len(tokens) - prompt_len)
+    layer0 = []
+    hook = model.transformer.h[0].attn.register_forward_hook(lambda module, args, out: layer0.append(out[0]))
+
+    def run(caches):
+        layer0.clear()
+        logits = kernel_path_logits(model, tokens, prompt_len, caches).float()
+        attn = torch.cat([out[0, :n].float() for out, n in zip(layer0, rows)])
+        return logits, attn
+
+    def fresh_pool():
+        return PagedKVCachePool(model, 1, MAX_LEN, PAGE, kv_dtype=kv_dtype).caches
+
+    with torch.no_grad():
+        kernel_caches, plain_caches = fresh_pool(), fresh_pool()
+        got, got_attn = run(kernel_caches)
+        with _plain_quantized_path():
+            want, want_attn = run(plain_caches)
+        bf16_pool, _ = run(None)
+        exact = plain_forward(model, torch.tensor([tokens], device=model.device), torch.float32)[0].float()
+        gen = torch.Generator(device=model.device).manual_seed(0)
+        ties = tie_page(config.num_key_value_heads, config.head_dim, qmax, gen)
+        all_valid = torch.ones(ties.shape[:2], dtype=torch.bool, device=model.device)
+        tie_codes, tie_want = quantize_pages(ties, all_valid, qmax, storage)[0], quantize_pages_plain(ties, all_valid, qmax, storage)[0]
+    hook.remove()
+
+    def same_bytes(a, b):
+        return torch.equal(as_bytes(a)[1:], as_bytes(b)[1:]) if a.element_size() == 1 else torch.equal(
+            a[1:].view(torch.int32), b[1:].view(torch.int32)
+        )
+
+    pool_identical = {name: same_bytes(kernel_caches[0][name], plain_caches[0][name]) for name in ("k", "v", "k_scale", "v_scale")}
+    attn_err = ((got_attn - want_attn).norm() / want_attn.norm()).item()
+    last = (got[-1] - want[-1]).abs()
+    check = {
+        "kv_dtype": kv_dtype, "n_layer": config.n_layer, "positions": len(tokens), "prompt_tokens": prompt_len,
+        "layer0_pool_bytes_identical": pool_identical,
+        "layer0_attention_rel_l2_err": attn_err,
+        "tie_page_codes_identical": torch.equal(as_bytes(tie_codes), as_bytes(tie_want)),
+        "last_position": {"mean_abs_err": last.mean().item(), "max_abs_err": last.max().item(), "logit_std": want[-1].std().item()},
+        "mean_abs_err_all_positions": (got - want).abs().mean().item(),
+        "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+        "kernel_path_mean_abs_err_vs_fp32": (got - exact).abs().mean().item(),
+        "plain_path_mean_abs_err_vs_fp32": (want - exact).abs().mean().item(),
+        "bf16_pool_kernel_path_mean_abs_err_vs_fp32": (bf16_pool - exact).abs().mean().item(),
+        "tolerance": (
+            "layer 0's pool codes and scales byte-identical (trash page 0 aside); layer 0's attention "
+            "output within 2e-2 relative L2 error (bf16 rounding of scores and outputs); last "
+            "position's logits: mean abs err <= 0.1 logit std (the serving check's bound); the tie "
+            "page's codes byte-identical"
+        ),
+    }
+    assert check["tie_page_codes_identical"], f"kv_quant rounds a tie otherwise than the plain version: {check}"
+    assert all(pool_identical.values()), f"layer 0's pool bytes differ between the paths: {check}"
+    assert attn_err <= 2e-2, f"layer 0's attention differs between the paths: {check}"
+    assert check["last_position"]["mean_abs_err"] <= 0.1 * check["last_position"]["logit_std"], check
+    return check
 
 
 def _doc_ids(rs, seq, num_docs):
@@ -1162,6 +1481,7 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         "fused_ce": -(-seq // config.loss_chunk_size) * micro_batches,
         "grouped_gemm": 6 * layers * micro_batches if moe else 0,
         "grouped_gemm_tgmm": 2 * layers * micro_batches if moe else 0,
+        "kv_quant": 0,
     }
     if on_card:  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
@@ -1239,12 +1559,44 @@ def main() -> int:
     load_library()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
 
-    cases = kernel_cases(args.seed) + training_kernel_cases(args.seed) + moe_kernel_cases(args.seed)
+    cases = (
+        kernel_cases(args.seed) + quant_kernel_cases(args.seed) + training_kernel_cases(args.seed)
+        + moe_kernel_cases(args.seed)
+    )
     print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
 
-    serving, serving_launches, model, specs = serve(args.seed)
+    serving, serving_launches, model, specs, tokens = serve(args.seed)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"profile": profile_serving(model, specs), "card": card}), flush=True)
+
+    # phase 9: the quantized pool on phase 3's model and requests; launches summed over its runs
+    quantized, quantized_launches = {}, {spec.name: 0 for spec in KERNELS}
+
+    def serve_quantized(name, kv_dtype, bf16_tokens, bf16_serving):
+        record, launches, model_, _, got = serve(args.seed, kv_dtype=kv_dtype, model=model)
+        for kernel, n in launches.items():
+            quantized_launches[kernel] += n
+        pairs = [(a, b) for want, have in zip(bf16_tokens, got) for a, b in zip(want, have)]
+        record["greedy_token_agreement_with_bf16_pool"] = sum(a == b for a, b in pairs) / len(pairs)
+        record["requests_identical_to_bf16_pool"] = sum(want == have for want, have in zip(bf16_tokens, got))
+        record["bf16_pool"] = {
+            key: bf16_serving[key] for key in ("ttft_mean_s", "prefill_tok_s", "decode_tok_s", "peak_memory_gb")
+        }
+        record["bf16_pool"]["kv_bytes_per_token"] = bf16_kv_bytes(model_.config)
+        # the pools' own bytes (1025 pages): the peaks differ in scope, as the bf16 phase's
+        # also covers its logits check
+        pool_tokens = (1 + NUM_SLOTS * (MAX_LEN // PAGE)) * PAGE
+        record["pool_gb"] = record["kv_bytes_per_token"] * pool_tokens / 1e9
+        record["bf16_pool"]["pool_gb"] = bf16_kv_bytes(model_.config) * pool_tokens / 1e9
+        record["launches_per_forward"] = launches_per_forward(model_, kv_dtype)
+        record["bf16_pool"]["launches_per_forward"] = launches_per_forward(model_)
+        quantized[name] = record
+
+    for kv_dtype in ("int8", "fp8"):
+        serve_quantized(f"granite-3b-code {kv_dtype}", kv_dtype, tokens, serving)
+    probe = specs[2]["prompt_ids"]
+    check = quantized_check(model, probe + tokens[2][:4], len(probe))
+    print(json.dumps({"quantized_check": check, "card": card}), flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1256,9 +1608,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    moe_serving, moe_serving_launches, model, specs = serve(args.seed, MOE_EP)
+    moe_serving, moe_serving_launches, model, specs, tokens = serve(args.seed, MOE_EP)
     print(json.dumps({"moe_serving": moe_serving, "card": card}), flush=True)
     print(json.dumps({"moe_profile": profile_serving(model, specs), "card": card}), flush=True)
+    serve_quantized("moe int8", "int8", tokens, moe_serving)
+    print(json.dumps({"quantized_serving": quantized, "card": card}), flush=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1275,11 +1629,14 @@ def main() -> int:
 
     kernels = []
     for spec in KERNELS:
-        bf16 = [c for c in cases if c["kernel"] == spec.name and c["dtype"] == "bfloat16"]
+        # the case type the main path runs: bf16, or kv_quant's int8 codes
+        main_dtype = "int8" if spec.name == "kv_quant" else "bfloat16"
+        bf16 = [c for c in cases if c["kernel"] == spec.name and c["dtype"] == main_dtype]
         main_case = bf16[0]
         by_path = {
             "serving": serving_launches[spec.name], "training": training_launches[spec.name],
             "moe_serving": moe_serving_launches[spec.name], "moe_training": moe_training_launches[spec.name],
+            "quantized_serving": quantized_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

@@ -4,24 +4,38 @@
 // (kFloat32 or kBFloat16) and is instantiated for both. Arithmetic is in fp32; a value
 // is rounded to the element type exactly where the plain PyTorch version (and the TPU
 // kernel it replaces) rounds it, so fp32 results agree to ulp level and bf16 results to
-// the rounding of the element type.
+// the rounding of the element type. The paged attention kernels also read KV pages of a
+// page type (kInt8, kFloat8E4M3: quantized codes with a per-(page, kv head) fp32 scale).
 #pragma once
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace dolo {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2, kFloat8E4M3 = 3 };
 
 // finfo(float32).min: the mask constant of the reference attention (`ops/attention.py`)
 constexpr float kNegInf = -FLT_MAX;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+// exact: every e4m3 value is a half, and every half a float
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+
+// page types that hold quantized codes (decoded as code * scale of the page's kv head)
+template <typename P>
+struct is_quantized : std::false_type {};
+template <>
+struct is_quantized<int8_t> : std::true_type {};
+template <>
+struct is_quantized<__nv_fp8_e4m3> : std::true_type {};
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);

@@ -15,6 +15,12 @@
 // (lanes over the features, coalesced reads of a value row) and sums the warps' fp32
 // partials at the end. An idle slot (all-zero table row, length 0) walks the trash page 0
 // and yields finite garbage that is never read.
+//
+// Pages may be of another type P than the query's T: the model dtype, bf16 under an fp32
+// model, or int8 / fp8 e4m3 codes with [P, Hkv] fp32 scale pools (a quantized pool). A
+// code is dequantized as the Pallas kernel does it (`paged_attention.py`, the `quantized`
+// branch): float(code) * scale[page, kv head], rounded to T before the dot or the PV sum.
+// A 16-byte load then carries 16 codes; head_dim 64 and 80 still divide.
 #include "common.cuh"
 
 namespace {
@@ -25,30 +31,56 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxFeaturesPerLane = 8;  // head_dim <= 256
 
-// q (fp32, shared memory) . key (element type, device memory) over head_dim features
-template <typename T>
-__device__ __forceinline__ float dot_key(const float* q, const T* key, int head_dim, bool vector) {
+// one stored K/V element as the T the attention computes in: a quantized code times its
+// page's scale (an fp32 product, never contracted into an FMA) rounded to T, as the
+// reference's dequantizing gather casts it; any other page type exactly as it is
+template <typename T, typename P>
+__device__ __forceinline__ float load_kv(P x, float scale) {
+  if constexpr (is_quantized<P>::value) {
+    return round_to<T>(__fmul_rn(to_float(x), scale));
+  } else {
+    return to_float(x);
+  }
+}
+
+// q (fp32, shared memory) . key (page type, device memory) over head_dim features
+template <typename T, typename P>
+__device__ __forceinline__ float dot_key(const float* q, const P* key, int head_dim, bool vector,
+                                         float scale) {
   float acc = 0.f;
   if (vector) {
-    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kVec = 16 / sizeof(P);
     const uint4* chunks = reinterpret_cast<const uint4*>(key);
     for (int c = 0; c < head_dim / kVec; ++c) {
       const uint4 raw = chunks[c];
-      const T* values = reinterpret_cast<const T*>(&raw);
+      const P* values = reinterpret_cast<const P*>(&raw);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc += q[c * kVec + e] * to_float(values[e]);
+      for (int e = 0; e < kVec; ++e) acc += q[c * kVec + e] * load_kv<T>(values[e], scale);
     }
   } else {
-    for (int d = 0; d < head_dim; ++d) acc += q[d] * to_float(key[d]);
+    for (int d = 0; d < head_dim; ++d) acc += q[d] * load_kv<T>(key[d], scale);
   }
   return acc;
 }
 
-template <typename T>
+// the per-(page, kv head) scale of a quantized pool; 1 (unused) for other page types
+template <typename P>
+__device__ __forceinline__ float page_scale(const float* scales, int page, int num_kv_heads,
+                                            int kv_head) {
+  if constexpr (is_quantized<P>::value) {
+    return scales[static_cast<int64_t>(page) * num_kv_heads + kv_head];
+  } else {
+    return 1.f;
+  }
+}
+
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q,           // [S, W, Hq, D]
-    const T* __restrict__ k_pages,     // [P, page_size, Hkv, D]
-    const T* __restrict__ v_pages,     // [P, page_size, Hkv, D]
+    const P* __restrict__ k_pages,     // [P, page_size, Hkv, D]
+    const P* __restrict__ v_pages,     // [P, page_size, Hkv, D]
+    const float* __restrict__ k_scales,  // [P, Hkv] for a quantized pool, else unused
+    const float* __restrict__ v_scales,  // [P, Hkv] for a quantized pool, else unused
     const int* __restrict__ table,     // [S, max_pages]
     const int* __restrict__ lengths,   // [S]
     T* __restrict__ out,               // [S, W, Hq, D]
@@ -71,7 +103,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int64_t token_stride = static_cast<int64_t>(num_kv_heads) * head_dim;
   const int64_t head_offset = static_cast<int64_t>(kv_head) * head_dim;
   const bool vector =
-      (head_dim * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(k_pages) % 16 == 0;
+      (head_dim * sizeof(P)) % 16 == 0 && reinterpret_cast<uintptr_t>(k_pages) % 16 == 0;
 
   for (int i = threadIdx.x; i < pages_needed; i += blockDim.x)
     pages[i] = table[static_cast<int64_t>(slot) * max_pages + i];
@@ -84,10 +116,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
   // scores: each thread takes whole keys of the walked pages
   for (int t = threadIdx.x; t < num_keys; t += blockDim.x) {
-    const T* key = k_pages + (static_cast<int64_t>(pages[t / page_size]) * page_size + t % page_size) *
-                                 token_stride + head_offset;
+    const int page = pages[t / page_size];
+    const P* key = k_pages + (static_cast<int64_t>(page) * page_size + t % page_size) * token_stride +
+                   head_offset;
+    const float k_scale = page_scale<P>(k_scales, page, num_kv_heads, kv_head);
     for (int j = 0; j < width; ++j) {
-      const float dot = dot_key(qs + j * head_dim, key, head_dim, vector);
+      const float dot = dot_key<T>(qs + j * head_dim, key, head_dim, vector, k_scale);
       // the per-row causal frontier: query j of the slot sees positions <= length + j
       scores[j * view_len + t] = t <= length + j ? dot * scale : kNegInf;
     }
@@ -121,12 +155,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll 4
     for (int t = warp; t < visible; t += kWarps) {
       const float p = row[t];
-      const T* value = v_pages + (static_cast<int64_t>(pages[t / page_size]) * page_size + t % page_size) *
-                                     token_stride + head_offset;
+      const int page = pages[t / page_size];
+      const P* value = v_pages + (static_cast<int64_t>(page) * page_size + t % page_size) * token_stride +
+                       head_offset;
+      const float v_scale = page_scale<P>(v_scales, page, num_kv_heads, kv_head);
 #pragma unroll
       for (int f = 0; f < kMaxFeaturesPerLane; ++f) {
         const int d = lane + 32 * f;
-        if (d < head_dim) acc[f] += p * to_float(value[d]);
+        if (d < head_dim) acc[f] += p * load_kv<T>(value[d], v_scale);
       }
     }
 #pragma unroll
@@ -146,45 +182,78 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, const int* table,
-                   const int* lengths, void* out, int num_slots, int width, int num_q_heads,
-                   int num_kv_heads, int head_dim, int page_size, int max_pages, float scale,
-                   cudaStream_t stream) {
+template <typename T, typename P>
+cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, const float* k_scales,
+                   const float* v_scales, const int* table, const int* lengths, void* out,
+                   int num_slots, int width, int num_q_heads, int num_kv_heads, int head_dim,
+                   int page_size, int max_pages, float scale, cudaStream_t stream) {
+  if (is_quantized<P>::value && (k_scales == nullptr || v_scales == nullptr))
+    return cudaErrorInvalidValue;
   const size_t smem =
       (static_cast<size_t>(width) * (max_pages * page_size + (1 + kWarps) * head_dim) + 32) *
           sizeof(float) +
       static_cast<size_t>(max_pages) * sizeof(int);
-  auto kernel = paged_decode_kernel<T>;
+  auto kernel = paged_decode_kernel<T, P>;
   cudaError_t err = allow_shared_memory(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(num_q_heads, num_slots);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      table, lengths, static_cast<T*>(out), width, num_q_heads, num_kv_heads, head_dim, page_size,
-      max_pages, scale);
+      static_cast<const T*>(q), static_cast<const P*>(k_pages), static_cast<const P*>(v_pages),
+      k_scales, v_scales, table, lengths, static_cast<T*>(out), width, num_q_heads, num_kv_heads,
+      head_dim, page_size, max_pages, scale);
   return cudaGetLastError();
+}
+
+// the page types a T query reads: its own, bf16, int8 or fp8 e4m3 codes
+template <typename T>
+cudaError_t launch_pages(int page_dtype, const void* q, const void* k_pages, const void* v_pages,
+                         const float* k_scales, const float* v_scales, const int* table,
+                         const int* lengths, void* out, int num_slots, int width, int num_q_heads,
+                         int num_kv_heads, int head_dim, int page_size, int max_pages, float scale,
+                         cudaStream_t stream) {
+#define DOLO_DECODE(P)                                                                          \
+  launch<T, P>(q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, num_slots, width, \
+               num_q_heads, num_kv_heads, head_dim, page_size, max_pages, scale, stream)
+  switch (page_dtype) {
+    case dolo::kFloat32:
+      if constexpr (std::is_same<T, float>::value) return DOLO_DECODE(float);
+      return cudaErrorInvalidValue;  // fp32 pages under a bf16 query
+    case dolo::kBFloat16:
+      return DOLO_DECODE(__nv_bfloat16);
+    case dolo::kInt8:
+      return DOLO_DECODE(int8_t);
+    case dolo::kFloat8E4M3:
+      return DOLO_DECODE(__nv_fp8_e4m3);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DOLO_DECODE
 }
 
 }  // namespace
 
 extern "C" int dolo_paged_decode(const void* q, const void* k_pages, const void* v_pages,
-                                 const void* table, const void* lengths, void* out, int num_slots,
-                                 int width, int num_q_heads, int num_kv_heads, int head_dim,
-                                 int page_size, int max_pages, float scale, int dtype,
+                                 const void* k_scales, const void* v_scales, const void* table,
+                                 const void* lengths, void* out, int num_slots, int width,
+                                 int num_q_heads, int num_kv_heads, int head_dim, int page_size,
+                                 int max_pages, float scale, int dtype, int page_dtype,
                                  void* stream) {
   if (num_slots <= 0) return cudaSuccess;
   if (head_dim > 32 * kMaxFeaturesPerLane) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   const int* t = static_cast<const int*>(table);
   const int* l = static_cast<const int*>(lengths);
   switch (dtype) {
     case dolo::kFloat32:
-      return launch<float>(q, k_pages, v_pages, t, l, out, num_slots, width, num_q_heads,
-                           num_kv_heads, head_dim, page_size, max_pages, scale, s);
+      return launch_pages<float>(page_dtype, q, k_pages, v_pages, ks, vs, t, l, out, num_slots,
+                                 width, num_q_heads, num_kv_heads, head_dim, page_size, max_pages,
+                                 scale, s);
     case dolo::kBFloat16:
-      return launch<__nv_bfloat16>(q, k_pages, v_pages, t, l, out, num_slots, width, num_q_heads,
-                                   num_kv_heads, head_dim, page_size, max_pages, scale, s);
+      return launch_pages<__nv_bfloat16>(page_dtype, q, k_pages, v_pages, ks, vs, t, l, out,
+                                         num_slots, width, num_q_heads, num_kv_heads, head_dim,
+                                         page_size, max_pages, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -13,6 +13,11 @@
 // <= start + i. Position 0 is always visible, so the running max is finite after the
 // first tile. This first version computes on the CUDA cores in fp32; tensor-core tiles
 // are later work.
+//
+// Pages may be of another type P than the query's T: the model dtype, bf16 under an fp32
+// model, or int8 / fp8 e4m3 codes with [P, Hkv] fp32 scale pools (a quantized pool). The
+// staging load dequantizes: float(code) * scale[page, kv head] in fp32, not rounded to T,
+// as the Pallas prefill kernel does (`prefill_attention.py`, the `quantized` branch).
 #include "common.cuh"
 
 namespace {
@@ -30,11 +35,25 @@ __host__ __device__ constexpr size_t prefill_smem_floats(int head_dim) {
          + kBlockQ * kBlockK + 3 * kBlockQ;          // scores, running max / sum / rescale
 }
 
-template <typename T>
+// one stored K/V element in fp32: a quantized code times its page's scale (never
+// contracted into an FMA), any other page type exactly as it is
+template <typename P>
+__device__ __forceinline__ float stage_kv(P x, const float* scales, int page, int num_kv_heads,
+                                          int kv_head) {
+  if constexpr (is_quantized<P>::value) {
+    return __fmul_rn(to_float(x), scales[static_cast<int64_t>(page) * num_kv_heads + kv_head]);
+  } else {
+    return to_float(x);
+  }
+}
+
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const T* __restrict__ q,          // [B, C, Hq, D]
-    const T* __restrict__ k_pages,    // [P, page_size, Hkv, D]
-    const T* __restrict__ v_pages,    // [P, page_size, Hkv, D]
+    const P* __restrict__ k_pages,    // [P, page_size, Hkv, D]
+    const P* __restrict__ v_pages,    // [P, page_size, Hkv, D]
+    const float* __restrict__ k_scales,  // [P, Hkv] for a quantized pool, else unused
+    const float* __restrict__ v_scales,  // [P, Hkv] for a quantized pool, else unused
     const int* __restrict__ table,    // [B, max_pages]
     const int* __restrict__ starts,   // [B]
     T* __restrict__ out,              // [B, C, Hq, D]
@@ -91,8 +110,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         const int page = table_row[pos / page_size];
         const int64_t off = (static_cast<int64_t>(page) * page_size + pos % page_size) * token_stride +
                             head_offset + d;
-        kv = to_float(k_pages[off]);
-        vv = to_float(v_pages[off]);
+        kv = stage_kv(k_pages[off], k_scales, page, num_kv_heads, kv_head);
+        vv = stage_kv(v_pages[off], v_scales, page, num_kv_heads, kv_head);
       }
       ks[t * ldk + d] = kv;
       vs[t * head_dim + d] = vv;
@@ -148,41 +167,74 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, const int* table,
-                   const int* starts, void* out, int num_rows, int chunk, int num_q_heads,
-                   int num_kv_heads, int head_dim, int page_size, int max_pages, float scale,
-                   cudaStream_t stream) {
+template <typename T, typename P>
+cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, const float* k_scales,
+                   const float* v_scales, const int* table, const int* starts, void* out,
+                   int num_rows, int chunk, int num_q_heads, int num_kv_heads, int head_dim,
+                   int page_size, int max_pages, float scale, cudaStream_t stream) {
+  if (is_quantized<P>::value && (k_scales == nullptr || v_scales == nullptr))
+    return cudaErrorInvalidValue;
   const size_t smem = prefill_smem_floats(head_dim) * sizeof(float);
-  auto kernel = paged_prefill_kernel<T>;
+  auto kernel = paged_prefill_kernel<T, P>;
   cudaError_t err = allow_shared_memory(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((chunk + kBlockQ - 1) / kBlockQ, num_q_heads, num_rows);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      table, starts, static_cast<T*>(out), chunk, num_q_heads, num_kv_heads, head_dim, page_size,
-      max_pages, scale);
+      static_cast<const T*>(q), static_cast<const P*>(k_pages), static_cast<const P*>(v_pages),
+      k_scales, v_scales, table, starts, static_cast<T*>(out), chunk, num_q_heads, num_kv_heads,
+      head_dim, page_size, max_pages, scale);
   return cudaGetLastError();
+}
+
+// the page types a T query reads: its own, bf16, int8 or fp8 e4m3 codes
+template <typename T>
+cudaError_t launch_pages(int page_dtype, const void* q, const void* k_pages, const void* v_pages,
+                         const float* k_scales, const float* v_scales, const int* table,
+                         const int* starts, void* out, int num_rows, int chunk, int num_q_heads,
+                         int num_kv_heads, int head_dim, int page_size, int max_pages, float scale,
+                         cudaStream_t stream) {
+#define DOLO_PREFILL(P)                                                                       \
+  launch<T, P>(q, k_pages, v_pages, k_scales, v_scales, table, starts, out, num_rows, chunk, \
+               num_q_heads, num_kv_heads, head_dim, page_size, max_pages, scale, stream)
+  switch (page_dtype) {
+    case dolo::kFloat32:
+      if constexpr (std::is_same<T, float>::value) return DOLO_PREFILL(float);
+      return cudaErrorInvalidValue;  // fp32 pages under a bf16 query
+    case dolo::kBFloat16:
+      return DOLO_PREFILL(__nv_bfloat16);
+    case dolo::kInt8:
+      return DOLO_PREFILL(int8_t);
+    case dolo::kFloat8E4M3:
+      return DOLO_PREFILL(__nv_fp8_e4m3);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DOLO_PREFILL
 }
 
 }  // namespace
 
 extern "C" int dolo_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
-                                  const void* table, const void* starts, void* out, int num_rows,
-                                  int chunk, int num_q_heads, int num_kv_heads, int head_dim,
-                                  int page_size, int max_pages, float scale, int dtype,
+                                  const void* k_scales, const void* v_scales, const void* table,
+                                  const void* starts, void* out, int num_rows, int chunk,
+                                  int num_q_heads, int num_kv_heads, int head_dim, int page_size,
+                                  int max_pages, float scale, int dtype, int page_dtype,
                                   void* stream) {
   if (num_rows <= 0 || chunk <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   const int* t = static_cast<const int*>(table);
   const int* st = static_cast<const int*>(starts);
   switch (dtype) {
     case dolo::kFloat32:
-      return launch<float>(q, k_pages, v_pages, t, st, out, num_rows, chunk, num_q_heads,
-                           num_kv_heads, head_dim, page_size, max_pages, scale, s);
+      return launch_pages<float>(page_dtype, q, k_pages, v_pages, ks, vs, t, st, out, num_rows,
+                                 chunk, num_q_heads, num_kv_heads, head_dim, page_size, max_pages,
+                                 scale, s);
     case dolo::kBFloat16:
-      return launch<__nv_bfloat16>(q, k_pages, v_pages, t, st, out, num_rows, chunk, num_q_heads,
-                                   num_kv_heads, head_dim, page_size, max_pages, scale, s);
+      return launch_pages<__nv_bfloat16>(page_dtype, q, k_pages, v_pages, ks, vs, t, st, out,
+                                         num_rows, chunk, num_q_heads, num_kv_heads, head_dim,
+                                         page_size, max_pages, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

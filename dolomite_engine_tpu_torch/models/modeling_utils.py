@@ -20,7 +20,10 @@ for a paged pool with a scalar cache index, a 2-D key mask and more than one que
 only under ``attention_softmax_in_fp32``. The scatter into the pool runs before either
 kernel with the same position clamping and write validity as the gather path, so the
 pool state is the same whichever path ran. Every other call gathers the page view and
-runs eager attention. Without a cache (training), `ops/attention.attention` dispatches:
+runs eager attention. A quantized pool (``k_scale`` / ``v_scale`` in the cache) is
+written by the quantizing scatter and read by the kernels' dequantizing page walk or by
+the dequantizing gather; a low-bit unquantized pool (bf16 under an fp32 model) is cast
+to the activation dtype. Without a cache (training), `ops/attention.attention` dispatches:
 ``flash_attention_2`` on a CUDA device runs the causal / segment-id flash kernel.
 """
 
@@ -34,7 +37,13 @@ from torch import nn
 
 from ..enums import AttentionImplementation
 from ..ops.activations import get_activation_function, is_glu
-from ..ops.attention import attention, paged_gather_kv, paged_scatter_kv
+from ..ops.attention import (
+    attention,
+    paged_gather_kv,
+    paged_gather_kv_dequant,
+    paged_scatter_kv,
+    paged_scatter_kv_quantized,
+)
 from ..ops.kernels.paged_attention import paged_decode_attention
 from ..ops.kernels.prefill_attention import paged_prefill_attention
 from ..ops.kernels.rmsnorm import fused_rmsnorm
@@ -43,7 +52,8 @@ from ..ops.rope import RoPEParams, get_cos_sin, split_qkv_apply_rope
 from .config import CommonConfig
 from .enums import InitMethod, PositionEmbeddingType
 
-KVCache = dict[str, torch.Tensor]  # {"k": pages, "v": pages, "page_table": [B, max_pages]}
+# {"k": pages, "v": pages, "page_table": [B, max_pages]} (+ "k_scale", "v_scale": [P, Hkv])
+KVCache = dict[str, torch.Tensor]
 
 
 def _as(tensor: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
@@ -240,6 +250,12 @@ def _scatter_chunk(key, value, kv_cache, cache_index, attention_mask):
     write_valid = in_range
     if attention_mask is not None:
         write_valid = write_valid & torch.gather(attention_mask.bool(), 1, positions.long())
+    if "k_scale" in kv_cache:  # quantize on scatter
+        for name, new in (("k", key), ("v", value)):
+            paged_scatter_kv_quantized(
+                kv_cache[name], kv_cache[f"{name}_scale"], new, table, positions, write_valid
+            )
+        return
     paged_scatter_kv(kv_cache["k"], key, table, positions, write_valid)
     paged_scatter_kv(kv_cache["v"], value, table, positions, write_valid)
 
@@ -252,8 +268,13 @@ def _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask):
     seq = key.shape[1]
     view_len = table.shape[1] * page_size
     _scatter_chunk(key, value, kv_cache, cache_index, attention_mask)
-    k_view = paged_gather_kv(kv_cache["k"], table).to(key.dtype)
-    v_view = paged_gather_kv(kv_cache["v"], table).to(value.dtype)
+    if "k_scale" in kv_cache:
+        k_view = paged_gather_kv_dequant(kv_cache["k"], kv_cache["k_scale"], table, key.dtype)
+        v_view = paged_gather_kv_dequant(kv_cache["v"], kv_cache["v_scale"], table, value.dtype)
+    else:
+        # a low-bit pool (bf16 under an fp32 model) attends in the activation dtype
+        k_view = paged_gather_kv(kv_cache["k"], table).to(key.dtype)
+        v_view = paged_gather_kv(kv_cache["v"], table).to(value.dtype)
     if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
         frontier = cache_index.to(key.device)[:, None] + seq
     else:
@@ -343,6 +364,7 @@ class Attention(nn.Module):
                 out = paged_decode_attention(
                     query.contiguous(), kv_cache["k"], kv_cache["v"], table,
                     cache_index.to(torch.int32), softmax_scale,
+                    kv_cache.get("k_scale"), kv_cache.get("v_scale"),
                 )
                 return self._project_out(out, deterministic), kv_cache
             if config.attention_softmax_in_fp32 and _paged_prefill_eligible(
@@ -353,6 +375,7 @@ class Attention(nn.Module):
                 out = paged_prefill_attention(
                     query.contiguous(), kv_cache["k"], kv_cache["v"], table,
                     start.reshape(1).expand(batch).contiguous(), softmax_scale,
+                    kv_cache.get("k_scale"), kv_cache.get("v_scale"),
                 )
                 return self._project_out(out, deterministic), kv_cache
             key, value, attention_mask = _update_paged_kv_cache(

@@ -3,7 +3,8 @@
 Counterpart of `dolomite_engine_tpu/ops/attention.py` for the paged serving path and the
 dense training path. All shapes are batch-first: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D].
 Packed (padding-free) batches carry segment ids [B, S] (0 = padding, 1.. = documents).
-Paged pools are ``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page.
+Paged pools are ``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page; a
+quantized pool holds int8 / fp8 codes with ``[num_pages, Hkv]`` fp32 scale pools.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..enums import AttentionImplementation
+from .kv_quant import as_bytes, dequantize_values, kv_qmax, quantize_pages
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -213,3 +215,82 @@ def paged_gather_kv(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tens
         + torch.arange(page_size, device=page_table.device)
     ).reshape(batch, max_pages * page_size)
     return flat_pages[index]
+
+
+def paged_scatter_kv_quantized(
+    pages: torch.Tensor,
+    scales: torch.Tensor,
+    new: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+    write_valid: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize-on-scatter into a quantized pool, IN PLACE; returns ``(pages, scales)``.
+
+    ``pages`` holds codes ``[num_pages, page_size, H, D]`` with per-(page, head) fp32
+    ``scales`` ``[num_pages, H]``. Each row's write window ``positions`` (contiguous:
+    ``cache_index + arange(S)``) touches at most ``span = (S - 1) // page_size + 2``
+    logical pages; those are gathered, dequantized, the valid new tokens inserted, and
+    every page re-encoded (`ops/kv_quant.quantize_pages`) with a fresh absmax over its
+    valid rows: the committed prefix plus this call's writes, never stale rows past the
+    frontier. Only pages that received a write go back; the window's other pages (the
+    look-ahead pad of the bound, unmapped pages) are redirected to the trash page 0, so a
+    mapped page is only rewritten by the row that owns it. The steps and the bytes are
+    those of the JAX package's function, which returns new arrays instead."""
+    num_pages, page_size, heads, head_dim = pages.shape
+    batch, seq = positions.shape
+    max_pages = page_table.shape[1]
+    device = pages.device
+    span = (seq - 1) // page_size + 2
+    window_len = span * page_size
+    positions = positions.long()
+    base = positions[:, 0] // page_size  # [B]: positions[:, 0] is the row's frontier
+    logical = base[:, None] + torch.arange(span, device=device)[None, :]
+    in_table = logical < max_pages
+    phys = torch.where(
+        in_table, torch.gather(page_table.long(), 1, logical.clamp(0, max_pages - 1)), 0
+    )  # [B, span]
+
+    # dequantize the touched window into rows [0, window_len); the extra last row takes
+    # the invalid writes (dropped below)
+    window = torch.empty((batch, window_len + 1, heads, head_dim), dtype=torch.float32, device=device)
+    codes = as_bytes(pages)[phys].view(pages.dtype)  # [B, span, page_size, H, D]
+    window[:, :window_len] = dequantize_values(
+        codes, scales[phys][:, :, None, :, None], torch.float32
+    ).reshape(batch, window_len, heads, head_dim)
+    local = torch.where(write_valid, positions - base[:, None] * page_size, window_len)
+    rows = torch.arange(batch, device=device)[:, None].expand(batch, seq)
+    window[rows, local] = new.float()
+    written = torch.zeros((batch, window_len + 1), dtype=torch.bool, device=device)
+    written[rows, local] = True
+    window, written = window[:, :window_len], written[:, :window_len]
+    grid = base[:, None] * page_size + torch.arange(window_len, device=device)[None, :]
+    valid = (grid < positions[:, :1]) | written  # committed prefix + this call's writes
+
+    new_codes, new_scales = quantize_pages(
+        window.reshape(batch * span, page_size, heads, head_dim),
+        valid.reshape(batch * span, page_size),
+        kv_qmax(pages.dtype),
+        pages.dtype,
+    )
+    page_written = written.reshape(batch, span, page_size).any(-1)
+    dst = torch.where(page_written & in_table, phys, 0).reshape(-1)
+    as_bytes(pages)[dst] = as_bytes(new_codes)
+    scales[dst] = new_scales
+    return pages, scales
+
+
+def paged_gather_kv_dequant(
+    pages: torch.Tensor, scales: torch.Tensor, page_table: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """Dequantizing `paged_gather_kv`: each row's quantized pages as a contiguous ``[B,
+    max_pages * page_size, H, D]`` view in ``dtype``, each page times its per-head scale.
+    Positions past a row's frontier decode stale but finite values the mask zeroes."""
+    page_size = pages.shape[1]
+    batch, max_pages = page_table.shape
+    codes = paged_gather_kv(as_bytes(pages), page_table).view(pages.dtype)
+    codes = codes.reshape((batch, max_pages, page_size) + tuple(pages.shape[2:]))
+    page_scales = scales[page_table.long()][:, :, None, :, None]  # [B, max_pages, 1, H, 1]
+    return dequantize_values(codes, page_scales, dtype).reshape(
+        (batch, max_pages * page_size) + tuple(pages.shape[2:])
+    )

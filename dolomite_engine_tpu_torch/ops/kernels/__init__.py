@@ -5,14 +5,25 @@ raises), the kernel's plain PyTorch version (taken only for a CPU tensor) and a
 `KernelSpec` whose ``launches`` counts the wrapper's kernel launches.
 """
 
-from . import flash_attention, fused_ce, moe, paged_attention, prefill_attention, rmsnorm, rope_qkv
+from . import (
+    flash_attention,
+    fused_ce,
+    kv_quant,
+    moe,
+    paged_attention,
+    prefill_attention,
+    rmsnorm,
+    rope_qkv,
+)
 
-# every kernel entry point: the serving path's, then the training path's, then MoE's
+# every kernel entry point: the serving path's (the quantized pool's kv_quant last), then
+# the training path's, then MoE's
 KERNELS = (
     rmsnorm.KERNEL,
     rope_qkv.KERNEL,
     paged_attention.KERNEL,
     prefill_attention.KERNEL,
+    kv_quant.KERNEL,
     flash_attention.FWD_KERNEL,
     flash_attention.BWD_KERNEL,
     fused_ce.KERNEL,

@@ -39,8 +39,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dolo_rmsnorm": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     "dolo_rope_qkv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "dolo_paged_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "dolo_paged_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dolo_paged_decode": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
+    "dolo_paged_prefill": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
     "dolo_paged_prefill_smem_bytes": (_I,),
     "dolo_flash_fwd": (_P,) * 6 + (_I,) * 8 + (_F, _I, _P),
     "dolo_flash_bwd": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
@@ -48,10 +48,12 @@ _SIGNATURES = {
     "dolo_fused_ce_scratch_floats": (_I, _I),
     "dolo_gmm": (_P,) * 5 + (_I,) * 6 + (_P,),
     "dolo_tgmm": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "dolo_kv_quant": (_P,) * 4 + (_I,) * 4 + (_F, _F, _I, _P),
 }
 
-# element-type codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# type codes of csrc/common.cuh: the element types, then the quantized KV page types
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
+ELEMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 # shared memory one block may use on Hopper (227 KB)
 MAX_SHARED_BYTES = 232448
@@ -164,7 +166,7 @@ def ptr(tensor: torch.Tensor | None) -> ctypes.c_void_p:
 
 
 def check_cuda_tensor(
-    tensor: torch.Tensor, name: str, device: torch.device, dtypes=tuple(DTYPE_CODES)
+    tensor: torch.Tensor, name: str, device: torch.device, dtypes=ELEMENT_DTYPES
 ) -> None:
     """Raise on what a kernel does not take: another device, dtype, or a strided view."""
     if tensor.device != device:

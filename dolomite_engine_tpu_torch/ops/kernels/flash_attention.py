@@ -20,7 +20,16 @@ from __future__ import annotations
 
 import torch
 
-from ._build import DTYPE_CODES, KernelSpec, check_cuda_tensor, check_launch, current_stream, load_library, ptr
+from ._build import (
+    DTYPE_CODES,
+    ELEMENT_DTYPES,
+    KernelSpec,
+    check_cuda_tensor,
+    check_launch,
+    current_stream,
+    load_library,
+    ptr,
+)
 
 FWD_KERNEL = KernelSpec(
     name="flash_attn_fwd",
@@ -133,8 +142,8 @@ def flash_attention_fwd(q, k, v, segment_ids, softmax_scale):
     _check_shapes(q, k, v, segment_ids)
     _check_kernel_shapes(q)
     device, dtype = q.device, q.dtype
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"q has dtype {dtype}, expected one of {tuple(DTYPE_CODES)}")
+    if dtype not in ELEMENT_DTYPES:
+        raise ValueError(f"q has dtype {dtype}, expected one of {ELEMENT_DTYPES}")
     strides = [_token_stride(t, n, device, dtype) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     seg = _segments(segment_ids, q)
     batch, seq, num_q_heads, head_dim = q.shape
@@ -159,8 +168,8 @@ def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale):
     _check_shapes(q, k, v, segment_ids)
     _check_kernel_shapes(q)
     device, dtype = q.device, q.dtype
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"q has dtype {dtype}, expected one of {tuple(DTYPE_CODES)}")
+    if dtype not in ELEMENT_DTYPES:
+        raise ValueError(f"q has dtype {dtype}, expected one of {ELEMENT_DTYPES}")
     strides = [_token_stride(t, n, device, dtype) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     seg = _segments(segment_ids, q)
     dout = dout.contiguous()

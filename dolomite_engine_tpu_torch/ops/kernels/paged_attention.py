@@ -5,7 +5,9 @@ Replaces the TPU kernel ``paged_decode_attention``
 device-memory bytes: each slot's resident K/V is read once per step. The kernel walks
 each slot's page-table row only up to its frontier, so traffic follows resident tokens,
 keeps GQA native and holds the fp32 score row in shared memory for an exact softmax (see
-``dolomite_engine_tpu_torch/csrc/paged_attention.cu``).
+``dolomite_engine_tpu_torch/csrc/paged_attention.cu``). Pages may be in the query's
+dtype, in bf16 under an fp32 query, or int8 / fp8 codes with their ``[P, Hkv]`` fp32
+scale pools, dequantized in the page walk (a quantized pool, `serving/kv_cache`).
 
 `paged_decode_attention` launches the kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.
@@ -15,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ..attention import eager_attention, make_attention_mask, paged_gather_kv
+from ..attention import eager_attention, make_attention_mask, paged_gather_kv, paged_gather_kv_dequant
+from ..kv_quant import is_quantized
 from ._build import (
     DTYPE_CODES,
     MAX_SHARED_BYTES,
@@ -34,7 +37,7 @@ KERNEL = KernelSpec(
 )
 
 
-def _check_shapes(q, k_pages, v_pages, page_table, lengths):
+def _check_shapes(q, k_pages, v_pages, page_table, lengths, k_scales, v_scales):
     if q.ndim != 4 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError("q must be [S, W, Hq, D] and k/v pages [P, page_size, Hkv, D]")
     num_slots, _, num_q_heads, head_dim = q.shape
@@ -43,6 +46,29 @@ def _check_shapes(q, k_pages, v_pages, page_table, lengths):
         raise ValueError(f"q {tuple(q.shape)} does not match pages {tuple(k_pages.shape)}")
     if page_table.shape[0] != num_slots or lengths.shape != (num_slots,):
         raise ValueError("page_table must be [S, max_pages] and lengths [S]")
+    check_page_types(k_pages, v_pages, k_scales, v_scales)
+
+
+def check_page_types(k_pages, v_pages, k_scales, v_scales) -> None:
+    """Quantized pages come with both ``[P, Hkv]`` scale pools, other pages with none."""
+    if k_pages.dtype != v_pages.dtype:
+        raise ValueError(f"k pages are {k_pages.dtype} and v pages {v_pages.dtype}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come as a pair")
+    if is_quantized(k_pages.dtype) != (k_scales is not None):
+        raise ValueError(f"{k_pages.dtype} pages need scale pools exactly when they hold quantized codes")
+    if k_scales is not None:
+        shape = tuple(k_pages.shape[:1]) + tuple(k_pages.shape[2:3])
+        if tuple(k_scales.shape) != shape or tuple(v_scales.shape) != shape:
+            raise ValueError(f"scale pools must be {shape}")
+
+
+def gather_pages(pages, scales, page_table, dtype) -> torch.Tensor:
+    """Each row's ``[B, max_pages * page_size, H, D]`` page view in ``dtype``: dequantized
+    with the scale pool for quantized pages, cast for others."""
+    if scales is not None:
+        return paged_gather_kv_dequant(pages, scales, page_table, dtype)
+    return paged_gather_kv(pages, page_table).to(dtype)
 
 
 def paged_decode_attention_plain(
@@ -52,10 +78,13 @@ def paged_decode_attention_plain(
     page_table: torch.Tensor,
     lengths: torch.Tensor,
     softmax_scale: float,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Gather each slot's page view, mask the per-row frontier (query j of slot b sees
-    positions <= lengths[b] + j) and run eager fp32-softmax attention."""
-    _check_shapes(q, k_pages, v_pages, page_table, lengths)
+    """Gather each slot's page view (dequantized to the query's dtype for a quantized
+    pool, as the Pallas kernel rounds it), mask the per-row frontier (query j of slot b
+    sees positions <= lengths[b] + j) and run eager fp32-softmax attention."""
+    _check_shapes(q, k_pages, v_pages, page_table, lengths, k_scales, v_scales)
     num_slots, width = q.shape[:2]
     view_len = page_table.shape[1] * k_pages.shape[1]
     positions = torch.arange(view_len, device=q.device)
@@ -64,9 +93,21 @@ def paged_decode_attention_plain(
         num_slots, width, view_len, causal=True, attention_mask=valid, query_offset=lengths
     )
     return eager_attention(
-        q, paged_gather_kv(k_pages, page_table), paged_gather_kv(v_pages, page_table),
-        mask, softmax_scale,
+        q, gather_pages(k_pages, k_scales, page_table, q.dtype),
+        gather_pages(v_pages, v_scales, page_table, q.dtype), mask, softmax_scale,
     )
+
+
+def check_cuda_pages(q, k_pages, v_pages, k_scales, v_scales) -> None:
+    """The page types the attention kernels read under a query of q's dtype: its own,
+    bf16, or int8 / fp8 codes together with both fp32 scale pools."""
+    device = q.device
+    page_dtypes = (q.dtype, torch.bfloat16, torch.int8, torch.float8_e4m3fn)
+    for name, tensor in (("k_pages", k_pages), ("v_pages", v_pages)):
+        check_cuda_tensor(tensor, name, device, dtypes=page_dtypes)
+    for name, tensor in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tensor is not None:
+            check_cuda_tensor(tensor, name, device, dtypes=(torch.float32,))
 
 
 _WARPS = 8  # warps per block in csrc/paged_attention.cu
@@ -86,20 +127,25 @@ def paged_decode_attention(
     page_table: torch.Tensor,
     lengths: torch.Tensor,
     softmax_scale: float,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attention for the paged decode/verify step straight off the page table.
 
-    q ``[S, W, Hq, D]``; pages ``[P, page_size, Hkv, D]``; page_table ``[S, max_pages]``
-    int32; lengths ``[S]`` int32 (the pre-write frontier). Returns ``[S, W, Hq, D]``."""
+    q ``[S, W, Hq, D]``; pages ``[P, page_size, Hkv, D]`` in q's dtype or bf16, or int8 /
+    fp8 codes with ``k_scales`` / ``v_scales`` ``[P, Hkv]`` fp32; page_table ``[S,
+    max_pages]`` int32; lengths ``[S]`` int32 (the pre-write frontier). Returns ``[S, W,
+    Hq, D]``."""
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, softmax_scale)
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, page_table, lengths, softmax_scale, k_scales, v_scales
+        )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on CUDA or CPU tensors, got {q.device}")
-    _check_shapes(q, k_pages, v_pages, page_table, lengths)
+    _check_shapes(q, k_pages, v_pages, page_table, lengths, k_scales, v_scales)
     device = q.device
     check_cuda_tensor(q, "q", device)
-    for name, tensor in (("k_pages", k_pages), ("v_pages", v_pages)):
-        check_cuda_tensor(tensor, name, device, dtypes=(q.dtype,))
+    check_cuda_pages(q, k_pages, v_pages, k_scales, v_scales)
     check_cuda_tensor(page_table, "page_table", device, dtypes=(torch.int32,))
     check_cuda_tensor(lengths, "lengths", device, dtypes=(torch.int32,))
     num_slots, width, num_q_heads, head_dim = q.shape
@@ -114,9 +160,10 @@ def paged_decode_attention(
         )
     out = torch.empty_like(q)
     code = load_library().dolo_paged_decode(
-        ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(lengths), ptr(out),
-        num_slots, width, num_q_heads, num_kv_heads, head_dim, page_size, max_pages,
-        float(softmax_scale), DTYPE_CODES[q.dtype], current_stream(device),
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales), ptr(page_table),
+        ptr(lengths), ptr(out), num_slots, width, num_q_heads, num_kv_heads, head_dim, page_size,
+        max_pages, float(softmax_scale), DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
+        current_stream(device),
     )
     check_launch(code, KERNEL.name)
     KERNEL.launches += 1

@@ -13,6 +13,8 @@ Counterpart of the paged path of `dolomite_engine_tpu/serving/engine.py`:
 - **decode** is one forward over the whole ``[num_slots]`` batch with per-slot frontiers,
   page-table rows and sampling params; idle and mid-prefill rows get a zeroed table row
   and length 0, so their writes land in the trash page.
+- a **quantized pool** (``kv_dtype="int8"|"fp8"``) rides the same per-layer dicts: each
+  step's dict carries the layer's ``k_scale`` / ``v_scale`` pools beside its pages.
 
 Attention, RMSNorm and rope inside the forward run the port's CUDA kernels on the GPU
 (`ops/kernels/`). PyTorch runs eagerly, so there is no compiled program to count; greedy
@@ -49,8 +51,6 @@ from .scheduler import (
 )
 
 _DEFAULT = object()  # "use the engine default" sentinel for per-request eos overrides
-
-_KV_DTYPES = {"bf16": torch.bfloat16}
 
 # constructor options of the JAX engine not ported yet -> (inert value, ROADMAP.md item)
 _NOT_PORTED = {
@@ -156,7 +156,9 @@ class ServingEngine:
         page_size: tokens per KV page (positive multiple of 8).
         num_pages: physical pages in the pool (page 0 is the trash page); the default
             matches a dense pool's capacity.
-        kv_dtype: None (the model dtype) or ``"bf16"`` under a bf16 model.
+        kv_dtype: page storage (`kv_cache.KV_DTYPES`): None (``cache_dtype``, else the
+            model dtype), ``"bf16"``, or the quantized ``"int8"`` / ``"fp8"`` (codes with
+            per-(page, kv head) fp32 scale pools).
         prefill_chunk_tokens: per-step prefill token budget (positive multiple of 8).
         prefix_caching: share resident page-aligned prefixes across requests.
         session_ttl_s / tier_slos: multi-turn pinning and per-tier TTFT ordering, as in
@@ -200,6 +202,8 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet: ROADMAP.md Queue A, '{item}'"
                 )
+        if kv_dtype is not None and not paged:
+            raise ValueError("kv_dtype (quantized / low-bit KV) requires the paged KV pool")
         if not paged:
             raise NotImplementedError(
                 "paged=False is not ported yet: ROADMAP.md Queue A, "
@@ -209,18 +213,6 @@ class ServingEngine:
             raise NotImplementedError(
                 "preemption and oversubscription are not ported yet: ROADMAP.md Queue A, "
                 "'Preemption and oversubscription'"
-            )
-        if kv_dtype in ("int8", "fp8"):
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} is not ported yet: ROADMAP.md Queue A, "
-                "'Quantized KV pool'"
-            )
-        if kv_dtype is not None and kv_dtype not in _KV_DTYPES:
-            raise ValueError(f"kv_dtype must be one of bf16, int8, fp8 or None, got {kv_dtype!r}")
-        if kv_dtype is not None and model.dtype != _KV_DTYPES[kv_dtype]:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} under a {model.dtype} model (a pool in another dtype "
-                "than the model) is not ported yet: ROADMAP.md Queue A, 'Quantized KV pool'"
             )
         if session_ttl_s <= 0:
             raise ValueError(f"session_ttl_s must be positive, got {session_ttl_s}")
@@ -243,7 +235,7 @@ class ServingEngine:
         self.prefill_bucket_multiple = prefill_bucket_multiple
         self.session_ttl_s = session_ttl_s
         self.pool = PagedKVCachePool(
-            model, num_slots, max_len, page_size, num_pages, cache_dtype or _KV_DTYPES.get(kv_dtype)
+            model, num_slots, max_len, page_size, num_pages, cache_dtype, kv_dtype=kv_dtype
         )
         self.prefix = PrefixCache(page_size) if prefix_caching else None
         self.scheduler = Scheduler(

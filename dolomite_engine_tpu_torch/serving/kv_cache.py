@@ -8,6 +8,10 @@ admission. **Page 0 is the trash page** — never allocated, the write target of
 decode rows and prefill pad tails, so garbage writes never touch live data. The device
 pages are updated in place by the model's scatter (the JAX pool is rebuilt functionally
 each step); the allocation state lives on the host.
+
+``kv_dtype`` picks the pages' storage: ``"bf16"``, or the quantized ``"int8"`` /
+``"fp8"`` (codes plus per-(page, kv head) fp32 scale pools, ``k_scale`` / ``v_scale`` in
+each layer's dict; encode and decode in `ops/kv_quant.py`).
 """
 
 from __future__ import annotations
@@ -17,9 +21,20 @@ from typing import Any
 import numpy as np
 import torch
 
-KVCacheList = list[dict[str, torch.Tensor]]  # per-layer {"k": pages, "v": pages}
+from ..ops.kv_quant import KV_QUANT_DTYPES, as_bytes
+
+# per-layer {"k": pages, "v": pages} (+ {"k_scale", "v_scale"} for a quantized pool)
+KVCacheList = list[dict[str, torch.Tensor]]
 
 TRASH_PAGE = 0  # page-table sentinel: unmapped logical page / garbage-write target
+
+# `kv_dtype` spellings: a plain storage dtype, or a quantized format (codes + scale pools).
+# bf16 halves page bytes against fp32; int8 / fp8 halve them again
+KV_DTYPES: dict[str, torch.dtype] = {
+    "bf16": torch.bfloat16,
+    **{name: storage for name, (storage, _) in KV_QUANT_DTYPES.items()},
+}
+QUANTIZED_KV_DTYPES = tuple(KV_QUANT_DTYPES)
 
 
 class PagedKVCachePool:
@@ -44,11 +59,19 @@ class PagedKVCachePool:
         page_size: int,
         num_pages: int | None = None,
         dtype: torch.dtype | None = None,
+        kv_dtype: str | None = None,
     ) -> None:
         if num_slots <= 0 or max_len <= 0:
             raise ValueError(f"num_slots and max_len must be positive, got {num_slots}, {max_len}")
         if page_size <= 0 or page_size % 8 != 0:
             raise ValueError(f"page_size must be a positive multiple of 8, got {page_size}")
+        if kv_dtype is not None and kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {sorted(KV_DTYPES)} (or None for the model / cache "
+                f"dtype), got {kv_dtype!r}"
+            )
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype in QUANTIZED_KV_DTYPES
         self.num_slots = num_slots
         self.max_len = max_len
         self.page_size = page_size
@@ -60,8 +83,16 @@ class PagedKVCachePool:
             raise ValueError(f"num_pages must be >= 2 (page 0 is the trash page), got {num_pages}")
         self.num_pages = num_pages
 
-        # pages, not slot rows: init_kv_caches with "batch" = pages, "length" = page_size
-        self.caches: KVCacheList = model.init_kv_caches(num_pages, page_size, dtype)
+        # pages, not slot rows: init_kv_caches with "batch" = pages, "length" = page_size.
+        # A quantized pool's scale pools start at 1.0: the zeroed codes decode to 0
+        self.caches: KVCacheList = model.init_kv_caches(
+            num_pages, page_size, KV_DTYPES[kv_dtype] if kv_dtype else dtype
+        )
+        if self.quantized:
+            for cache in self.caches:
+                heads = cache["k"].shape[2]
+                for name in ("k_scale", "v_scale"):
+                    cache[name] = torch.ones((num_pages, heads), dtype=torch.float32, device=cache["k"].device)
         self.page_table = np.zeros((num_slots, self.max_pages_per_slot), np.int32)
         self.lengths = np.zeros(num_slots, np.int32)
         self.refcounts = np.zeros(num_pages, np.int32)
@@ -107,6 +138,25 @@ class PagedKVCachePool:
         self._slot_reserved[slot] = 0
 
     # ------------------------------------------------------------------ page accounting
+
+    @property
+    def kv_bytes_per_token(self) -> float:
+        """Resident K/V bytes per cached token (all layers), with a quantized pool's scale
+        rows amortised over the page: what device-memory sizing budgets by."""
+        total = 0.0
+        for cache in self.caches:
+            heads, head_dim = cache["k"].shape[2:]
+            for name in ("k", "v"):
+                total += heads * head_dim * cache[name].element_size()
+                scale = cache.get(f"{name}_scale")
+                if scale is not None:
+                    total += heads * scale.element_size() / self.page_size
+        return total
+
+    @property
+    def page_bytes(self) -> float:
+        """Resident bytes of one page across all layers, scale rows included."""
+        return self.kv_bytes_per_token * self.page_size
 
     @property
     def pages_in_use(self) -> int:
@@ -164,7 +214,9 @@ class PagedKVCachePool:
     @torch.no_grad()
     def copy_page(self, src: int, dst: int) -> None:
         """Device-copy page `src` onto page `dst` in every layer (the COW step for a
-        partially shared tail page)."""
+        partially shared tail page). Every per-layer array is page-major, so a quantized
+        pool's scale rows move with their codes."""
         for cache in self.caches:
             for array in cache.values():
-                array[dst].copy_(array[src])
+                raw = as_bytes(array)
+                raw[dst].copy_(raw[src])

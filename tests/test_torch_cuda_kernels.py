@@ -18,18 +18,29 @@ within 2 bf16 ulp of the largest term (the plain version rounds after every bf16
 kernel rounds once); bf16 fused_ce within 2e-2 absolute (the kernel and cuBLAS may round
 a logit to bf16 one ulp apart); bf16 grouped GEMMs within one bf16 ulp plus 1e-4 (both
 sides sum in fp32 and round once), and tgmm, whose output is fp32, within 1e-5 in both
-types (products of bf16 inputs are exact in fp32).
+types (products of bf16 inputs are exact in fp32). kv_quant's codes and scales must be
+byte-identical to its plain version's, and the attention kernels over int8 / fp8 pages
+agree with their plain versions as over unquantized pages (the plain version dequantizes
+with the same fp32 product and rounding).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tie_page
 from dolomite_engine_tpu_torch.ops.kernels import (
+    kv_quant,
     paged_attention,
     prefill_attention,
     rmsnorm,
     rope_qkv,
+)
+from dolomite_engine_tpu_torch.ops.kv_quant import (
+    KV_QUANT_DTYPES,
+    as_bytes,
+    quantize_pages,
+    quantize_pages_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -167,6 +178,130 @@ def test_paged_prefill_kernel_matches_plain(
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, atol=tol, rtol=1e-5 if tol == 1e-5 else 0)
+
+
+@pytest.mark.parametrize(
+    "num_pages,heads,head_dim",
+    [(5, 2, 16), (16, 32, 80), (33, 32, 80), (16, 8, 64), (33, 8, 64)],  # odd, then the slices' windows
+)
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_kv_quant_kernel_is_byte_identical_to_plain(num_pages, heads, head_dim, kv_dtype):
+    storage, qmax = KV_QUANT_DTYPES[kv_dtype]
+    g = torch.Generator(device="cuda").manual_seed(num_pages)
+    values = _rand(g, (num_pages, 16, heads, head_dim), torch.float32, 2.0)
+    frontier = torch.randint(0, 17, (num_pages, 1), generator=g, device="cuda")
+    valid = torch.arange(16, device="cuda")[None, :] < frontier
+    values = torch.where(valid[:, :, None, None], values, values * 100.0)  # stale rows
+    values[1] = 0.0  # amax 0: scale 1
+    valid[1] = True
+    values[2:3] = tie_page(heads, head_dim, qmax, g)  # every quotient a rounding tie
+    valid[2] = True
+    values[3, :, :, :4] = 1e-6  # fp8 subnormals, int8 zeros
+    before = kv_quant.KERNEL.launches
+    codes, scales = quantize_pages(values, valid, qmax, storage)
+    assert kv_quant.KERNEL.launches == before + 1
+    want_codes, want_scales = quantize_pages_plain(values, valid, qmax, storage)
+    torch.cuda.synchronize()
+    assert codes.dtype == storage and torch.equal(as_bytes(codes), as_bytes(want_codes))
+    assert torch.equal(scales.view(torch.int32), want_scales.view(torch.int32))
+    assert bool((scales[1] == 1.0).all()) and bool((scales[2] == 1.0).all())
+
+
+def _quantized_pool(g, num_pages, page_size, hkv, head_dim, kv_dtype):
+    """Codes and scales of unit-normal K and V pages: the scale of the unquantized cases'
+    pages, whose scores the 2e-2 bf16 tolerance is stated for (the plain version rounds
+    scores to bf16, so larger scores err more)."""
+    storage, qmax = KV_QUANT_DTYPES[kv_dtype]
+    valid = torch.ones((num_pages, page_size), dtype=torch.bool, device="cuda")
+    pages = []
+    for _ in range(2):  # K, V
+        values = _rand(g, (num_pages, page_size, hkv, head_dim), torch.float32)
+        pages.append(quantize_pages_plain(values, valid, qmax, storage))
+    (k, ks), (v, vs) = pages
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize(
+    "num_slots,width,hq,hkv,head_dim,max_pages,lengths",
+    [
+        (4, 1, 8, 2, 16, 4, [10, 0, 3 * 16 + 7, 3]),
+        (4, 4, 8, 1, 16, 4, [10, 0, 3 * 16 + 7, 3]),  # the W=4 verify window
+        (8, 1, 32, 32, 80, 128, [2047, 1, 300, 1024, 0, 1500, 17, 640]),  # granite-3b-code
+        (8, 1, 16, 8, 64, 128, [2047, 1, 300, 1024, 0, 1500, 17, 640]),  # the MoE model
+    ],
+)
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_over_quantized_pages_matches_plain(
+    num_slots, width, hq, hkv, head_dim, max_pages, lengths, kv_dtype, dtype
+):
+    q, _, _, table, lens = _decode_case(6, num_slots, width, hq, hkv, head_dim, 16, max_pages, lengths, dtype)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    k, v, ks, vs = _quantized_pool(g, 1 + num_slots * max_pages, 16, hkv, head_dim, kv_dtype)
+    scale = head_dim**-0.5
+    got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale, ks, vs)
+    want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-5 if tol == 1e-5 else 0)
+
+
+@pytest.mark.parametrize(
+    "chunk,hq,hkv,head_dim,max_pages,starts",
+    [
+        (24, 8, 2, 16, 4, [10, 0]),
+        (512, 32, 32, 80, 128, [1535]),  # granite-3b-code: frontier 2046
+        (512, 16, 8, 64, 128, [1024]),  # the MoE model
+    ],
+)
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_over_quantized_pages_matches_plain(
+    chunk, hq, hkv, head_dim, max_pages, starts, kv_dtype, dtype
+):
+    lengths = [s + chunk - 1 for s in starts]
+    _, _, _, table, _ = _decode_case(8, len(starts), 1, hq, hkv, head_dim, 16, max_pages, lengths, dtype)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    k, v, ks, vs = _quantized_pool(g, 1 + len(starts) * max_pages, 16, hkv, head_dim, kv_dtype)
+    q = _rand(g, (len(starts), chunk, hq, head_dim), dtype)
+    start = torch.as_tensor(np.asarray(starts, np.int32), device="cuda")
+    scale = head_dim**-0.5
+    got = prefill_attention.paged_prefill_attention(q, k, v, table, start, scale, ks, vs)
+    want = prefill_attention.paged_prefill_attention_plain(q, k, v, table, start, scale, ks, vs)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-5 if tol == 1e-5 else 0)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_fp32_query_over_a_bf16_pool_matches_plain(kernel):
+    q, k, v, table, lens = _decode_case(10, 2, 1, 8, 2, 80, 16, 16, [200, 37], torch.bfloat16)
+    scale = 80**-0.5
+    if kernel == "decode":
+        q = q.float()
+        got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale)
+        want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale)
+    else:
+        q = _rand(torch.Generator(device="cuda").manual_seed(11), (2, 40, 8, 80), torch.float32)
+        got = prefill_attention.paged_prefill_attention(q, k, v, table, lens, scale)
+        want = prefill_attention.paged_prefill_attention_plain(q, k, v, table, lens, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take():
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, _, _, table, lens = _decode_case(12, 2, 1, 4, 2, 16, 16, 2, [5, 9], torch.bfloat16)
+    k, v, ks, vs = _quantized_pool(g, 5, 16, 2, 16, "int8")
+    with pytest.raises(ValueError, match="scale pools"):  # codes without their scales
+        paged_attention.paged_decode_attention(q, k, v, table, lens, 0.25)
+    with pytest.raises(ValueError, match="pair"):
+        prefill_attention.paged_prefill_attention(q, k, v, table, lens, 0.25, ks, None)
+    with pytest.raises(ValueError):  # fp32 pages under a bf16 query
+        paged_attention.paged_decode_attention(q, k.float(), v.float(), table, lens, 0.25)
+    with pytest.raises(ValueError):  # kv_quant encodes fp32 pages only
+        kv_quant.quantize_pages_kernel(k.float().to(torch.bfloat16), torch.ones(5, 16, dtype=torch.bool, device="cuda"), 127.0, torch.int8)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

@@ -113,8 +113,11 @@ def test_bf16_model_with_a_bf16_pool(models):
     assert engine.pool.caches[0]["k"].dtype == torch.bfloat16
     states = serve_batch(engine, [dict(prompt_ids=p, max_new_tokens=8) for p in _prompts(config.vocab_size)])
     assert all(s.status == RequestStatus.completed and len(s.tokens) == 8 for s in states)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):  # a pool in another dtype
-        ServingEngine(models[2], None, device="cpu", kv_dtype="bf16", **ENGINE_ARGS)
+    # a pool in another dtype than the model: the fp32 model over bf16 pages
+    fp32_engine = ServingEngine(models[2], None, device="cpu", kv_dtype="bf16", **ENGINE_ARGS)
+    assert fp32_engine.pool.caches[0]["k"].dtype == torch.bfloat16
+    states = serve_batch(fp32_engine, [dict(prompt_ids=p, max_new_tokens=8) for p in _prompts(config.vocab_size)])
+    assert all(s.status == RequestStatus.completed and len(s.tokens) == 8 for s in states)
 
 
 def test_eos_and_queue_bound(models):
@@ -138,8 +141,6 @@ def test_eos_and_queue_bound(models):
         dict(draft_model=object()),
         dict(preemption="swap"),
         dict(oversubscribe_ratio=1.5),
-        dict(kv_dtype="int8"),
-        dict(kv_dtype="fp8"),
         dict(mesh=object()),
         dict(prefill_only=True),
         dict(paged=False),
@@ -170,9 +171,33 @@ def test_chip_smoke_serving_phase_runs_at_a_tiny_size_on_the_cpu():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        serving, launches, _, _ = chip_smoke.serve(0, tiny, device="cpu")
+        serving, launches, _, _, tokens = chip_smoke.serve(0, tiny, device="cpu")
     finally:
         torch.set_num_threads(threads)
     assert serving["requests"] == 8 and serving["prefix_hit_tokens"] >= 512
     assert serving["logits_check"]["positions"] == serving["prompt_tokens"][2] + 4
     assert set(launches.values()) == {0}
+    assert [len(t) for t in tokens] == [chip_smoke.MAX_NEW] * 8
+
+
+def test_chip_smoke_quantized_phases_run_at_a_tiny_size_on_the_cpu():
+    """`chip_smoke.serve` over an int8 pool (the model an earlier phase built) and
+    `chip_smoke.quantized_check` on one of its requests, at a tiny width on the CPU."""
+    import chip_smoke
+
+    tiny = dict(chip_smoke.GRANITE_3B_CODE, vocab_size=256, n_embd=32, n_layer=1, n_head=2, n_inner=64)
+    model = GPTDolomiteForCausalLM(CommonConfig(**tiny), dtype=torch.bfloat16, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        serving, launches, _, specs, tokens = chip_smoke.serve(0, device="cpu", kv_dtype="int8", model=model)
+        prompt = specs[2]["prompt_ids"]
+        check = chip_smoke.quantized_check(model, prompt + tokens[2][:4], len(prompt))
+    finally:
+        torch.set_num_threads(threads)
+    assert serving["kv_dtype"] == "int8" and serving["requests"] == 8
+    # 1 layer x K and V x 2 heads x (16 one-byte codes + a 4-byte scale over 16 tokens)
+    assert serving["kv_bytes_per_token"] == 2 * 2 * (16 + 4 / 16) == chip_smoke.bf16_kv_bytes(model.config) / 2 + 1
+    assert set(launches.values()) == {0}
+    assert check["positions"] == len(prompt) + 4 and all(check["layer0_pool_bytes_identical"].values())
+    assert check["layer0_attention_rel_l2_err"] == 0.0 and check["tie_page_codes_identical"]
