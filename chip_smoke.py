@@ -45,17 +45,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    path and once through the plain versions of its three kernels (kv_quant, paged decode
    and prefill, patched in here on the same CUDA tensors): layer 0's pool bytes must be
    identical, layer 0's attention and the last position's logits must agree, and a page
-   whose quotients fall on halves must encode to the plain version's bytes.
+   whose quotients fall on halves must encode to the plain version's bytes;
+11. the alibi slice (MPT-7B, ``position_embedding_type: alibi``): ``alibi_training_check``,
+   the training kernel path against the plain path at full width and 2 layers as in
+   phase 5 (every attention call through the additive-bias flash form); then
+   ``alibi_training``, the train step at 16 of MPT-7B's 32 layers over packed documents
+   at its sequence 2048, micro batch 2 x accumulation 2, with launch counts zeroed just
+   before and read just after; then ``alibi_training_profile``, one profiled step.
 
 The grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
 transposed-bank dX form, tgmm, and a case with most experts empty) and the quantized
 pool's cases (kv_quant at both models' decode and prefill windows, the decode and prefill
-kernels over int8 / fp8 pages, an fp32 query over a bf16 pool) run in phase 2.
+kernels over int8 / fp8 pages, an fp32 query over a bf16 pool) and the additive-bias /
+non-causal flash form's cases (causal alibi over packed documents at the alibi slice's
+layer shape, the causal form without a bias on the same inputs, non-causal with and
+without the bias, alibi over a left-padded batch) run in phase 2.
 
 Prints the card's name and power limit, a ``kernel_cases`` line (every case of phase 2),
 ``serving``, ``profile``, ``quantized_check``, ``training_check``, ``training``,
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
-``moe_training_check``, ``moe_training`` and ``moe_training_profile`` lines, the
+``moe_training_check``, ``moe_training``, ``moe_training_profile``,
+``alibi_training_check``, ``alibi_training`` and ``alibi_training_profile`` lines, the
 ``kernels`` line, the card again, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -66,6 +76,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -108,6 +119,25 @@ MOE_EP = dict(
 # MoE training: 8 of the 24 layers (fp32 master weights, gradients and AdamW state of all
 # 24 need ~137 GB), sequence 2048 as in the yml, micro batch 2 x accumulation 2
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 8, 2048, 2
+
+# MPT-7B (mosaicml/mpt-7b config.json): d_model 4096, 32 heads of 128 (MHA), 32 layers,
+# expansion ratio 4, exact gelu, layernorm, no_bias, tied embeddings, vocab 50432,
+# max_seq_len 2048, alibi with alibi_bias_max 8 (slopes 2^(-8h/32) = get_alibi_slopes(32)).
+# Cuts: dropout 0 and token ids 0 as in the dense phases (the tokenizer's ids are not part
+# of the model); GPTDolomite's layernorm keeps a bias (zero at init), MPT's has none
+MPT_7B = dict(
+    vocab_size=50432, n_positions=2048, n_embd=4096, n_layer=32, n_head=32,
+    attention_head_type="mha", n_inner=16384, activation_function="gelu",
+    normalization_function="layernorm", position_embedding_type="alibi", add_bias=False,
+    resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0, tie_word_embeddings=True,
+    bos_token_id=0, eos_token_id=0, pad_token_id=0,
+)
+# alibi training: 16 of the 32 layers (fp32 master weights, fp32 gradients and AdamW state
+# of all 32 need ~93 GB; 16 layers are 3.43 B parameters), MPT's max_seq_len 2048, micro
+# batch 2 x accumulation 2, the fused LM-head loss; the dense cell's AdamW, schedule and
+# clipping (MPT trained with LionW: ROADMAP.md Queue A, 'Other optimizers')
+ALIBI_TRAIN_CONFIG = dict(MPT_7B, fused_lm_head_loss=True, loss_chunk_size=256)
+ALIBI_TRAIN_LAYERS, ALIBI_TRAIN_SEQ, ALIBI_TRAIN_MICRO = 16, 2048, 2
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -478,6 +508,53 @@ def _plain_ffn(block, x, dtype, router_logits=None):
     return out.reshape(x.shape)
 
 
+def _plain_norm(norm, x, residual=None):
+    """A block's norm in plain PyTorch: rmsnorm's plain version or layernorm; with
+    `residual`, ``(norm(x + residual), x + residual)``."""
+    from dolomite_engine_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm_plain
+    from dolomite_engine_tpu_torch.ops.normalization import layernorm
+
+    if norm.normalization_function == "rmsnorm":
+        return fused_rmsnorm_plain(x, norm.weight, norm.eps, residual=residual)
+    if residual is None:
+        return layernorm(x, norm.weight, norm.bias, norm.eps)
+    x = x + residual
+    return layernorm(x, norm.weight, norm.bias, norm.eps), x
+
+
+def _plain_layers(model, h, position_ids, dtype, segment_ids=None, router_logits=None):
+    """The blocks and the final norm with every kernel's plain version called explicitly,
+    the weights cast to `dtype` at use, the positions the model computes (rope cos/sin or
+    the alibi bias). Attention is masked eager attention; with an alibi bias it is the
+    flash form's plain version, which computes its scores in fp32 (in bf16 the eager
+    scores would round an alibi bias of ~1700 to 8)."""
+    from dolomite_engine_tpu_torch.models.modeling_utils import compute_position_stuff, get_softmax_scale
+    from dolomite_engine_tpu_torch.ops.attention import attention
+    from dolomite_engine_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd_plain
+    from dolomite_engine_tpu_torch.ops.kernels.rope_qkv import fused_rope_qkv_plain
+
+    config, t = model.config, model.transformer
+    assert config.m_residual is None and config.m_width is None and model.lm_head is None
+    hq, hkv, hd = config.n_head, config.num_key_value_heads, config.head_dim
+    batch, seq = h.shape[:2]
+    scale = get_softmax_scale(config, hd)
+    rope, alibi_bias = compute_position_stuff(config, position_ids, t.rope_params, hq, None, batch, seq, dtype)
+    for block in t.h:
+        residual = h
+        qkv = _linear(_plain_norm(block.ln_1, h), block.attn.c_attn, dtype)
+        if rope is not None:
+            qkv = fused_rope_qkv_plain(qkv, *rope, hq, hkv, hd)
+        q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
+        q, k, v = q.reshape(batch, seq, hq, hd), k.reshape(batch, seq, hkv, hd), v.reshape(batch, seq, hkv, hd)
+        if alibi_bias is None:
+            a = attention(q, k, v, causal=True, softmax_scale=scale, implementation="eager", segment_ids=segment_ids)
+        else:
+            a = flash_attention_fwd_plain(q, k, v, segment_ids, scale, alibi_bias[:, :, 0])[0]
+        x, h = _plain_norm(block.ln_2, _linear(a.reshape(batch, seq, -1), block.attn.c_proj, dtype), residual)
+        h = h + _plain_ffn(block, x, dtype, router_logits)
+    return _plain_norm(t.ln_f, h)
+
+
 def plain_forward(model, ids, dtype=None, router_logits=None):
     """The model's full-sequence forward with every kernel's plain version called
     explicitly (no cache), the weights cast to `dtype` (default the model's compute
@@ -485,35 +562,11 @@ def plain_forward(model, ids, dtype=None, router_logits=None):
     router logits to `router_logits`."""
     import torch
 
-    from dolomite_engine_tpu_torch.models.modeling_utils import get_softmax_scale
-    from dolomite_engine_tpu_torch.ops.attention import attention
-    from dolomite_engine_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm_plain
-    from dolomite_engine_tpu_torch.ops.kernels.rope_qkv import fused_rope_qkv_plain
-    from dolomite_engine_tpu_torch.ops.rope import get_cos_sin
-
-    config, t = model.config, model.transformer
-    assert config.normalization_function == "rmsnorm" and config.m_residual is None
-    assert config.m_width is None and model.lm_head is None
+    t = model.transformer
     dtype = dtype or model.dtype
-    hq, hkv, hd = config.n_head, config.num_key_value_heads, config.head_dim
-    eps = config.layer_norm_epsilon
-    seq = ids.shape[1]
     h = torch.nn.functional.embedding(ids, t.wte.weight).to(dtype)
-    cos, sin = get_cos_sin(t.rope_params, torch.arange(seq, device=ids.device)[None], dtype)
-    for block in t.h:
-        residual = h
-        x = fused_rmsnorm_plain(h, block.ln_1.weight, eps)
-        qkv = fused_rope_qkv_plain(_linear(x, block.attn.c_attn, dtype), cos, sin, hq, hkv, hd)
-        q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
-        a = attention(
-            q.reshape(1, seq, hq, hd), k.reshape(1, seq, hkv, hd), v.reshape(1, seq, hkv, hd),
-            causal=True, softmax_scale=get_softmax_scale(config, hd),
-        )
-        x, h = fused_rmsnorm_plain(
-            _linear(a.reshape(1, seq, -1), block.attn.c_proj, dtype), block.ln_2.weight, eps, residual=residual
-        )
-        h = h + _plain_ffn(block, x, dtype, router_logits)
-    return fused_rmsnorm_plain(h, t.ln_f.weight, eps) @ t.wte.weight.to(dtype).T
+    positions = torch.arange(ids.shape[1], device=ids.device)[None]
+    return _plain_layers(model, h, positions, dtype, router_logits=router_logits) @ t.wte.weight.to(dtype).T
 
 
 def kernel_path_logits(model, tokens, prompt_len, caches=None):
@@ -633,6 +686,8 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, mod
         "grouped_gemm": 2 * layers * forwards if moe else 0,  # c_fc and c_proj of every layer
         "grouped_gemm_tgmm": 0,
         "kv_quant": 2 * layers * forwards if engine.pool.quantized else 0,  # K and V of every layer
+        "flash_attn_bias_fwd": 0,
+        "flash_attn_bias_bwd": 0,
     }
     if device.type == "cuda":  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
@@ -1029,12 +1084,33 @@ def _visible_pairs(seg):
     return int(sum((n * (n + 1) // 2).sum().item() for n in lengths))
 
 
-def _close(got, want, fp32):
-    """(within tolerance, max abs error): fp32 within 1e-5 abs + 1e-5 rel; bf16 within
-    2e-2 abs plus one bf16 ulp of the value (both sides round their fp32 results)."""
+def bias_slack(bias, causal, dtype):
+    """The flash form's tolerance beyond the usual one, relative to the largest value: 0,
+    and with a bias but no causal mask, in fp32 16 fp32 ulps of the largest bias, in bf16
+    2^-8. Each row's scores are shifted by the row's own-position bias, so causal scores
+    that carry probability stay small; without the causal mask the scores past the
+    diagonal reach the largest bias (alibi: ~1720 at 2048 tokens, ulp 1.2e-4), where the
+    kernel (log2 units) and the plain version (natural units) round them apart. And
+    there each row puts nearly all its probability on its document's last keys, so a
+    key's dK / dV sums hundreds of P values the bf16 kernel rounded to bf16 (2^-9 each)."""
+    import torch
+
+    if bias is None or causal:
+        return 0.0
+    if dtype != torch.float32:
+        return 2.0**-8
+    largest = bias.abs().max().item()
+    return 16 * 2.0 ** (math.floor(math.log2(largest)) - 23) if largest > 0 else 0.0
+
+
+def _close(got, want, fp32, slack=0.0):
+    """(within tolerance, max abs error): fp32 within 1e-5 abs + 1e-5 rel, bf16 within
+    2e-2 abs plus one bf16 ulp of the value (both sides round their fp32 results); each
+    plus `slack` times the largest |value|."""
     diff = (got.float() - want.float()).abs()
-    bound = 1e-5 + 1e-5 * want.float().abs() if fp32 else 2e-2 + _bf16_ulp(want)
-    return bool((diff <= bound).all()), diff.max().item()
+    want = want.float()
+    bound = 1e-5 + 1e-5 * want.abs() if fp32 else 2e-2 + _bf16_ulp(want)
+    return bool((diff <= bound + slack * want.abs().max()).all()), diff.max().item()
 
 
 def training_kernel_cases(seed):
@@ -1125,6 +1201,104 @@ def training_kernel_cases(seed):
             del h, table
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return cases
+
+
+def _segment_pairs(seg, causal):
+    """(query, key) pairs the segment (and causal) mask lets through: over the runs of one
+    segment id of each row, L (L + 1) / 2 causal or L^2 not."""
+    import torch
+
+    if causal:
+        return _visible_pairs(seg)
+    lengths = [torch.unique_consecutive(row, return_counts=True)[1] for row in seg]
+    return int(sum((n * n).sum().item() for n in lengths))
+
+
+def alibi_kernel_cases(seed):
+    """Phase 2, the additive-bias / non-causal flash form at the alibi slice's layer
+    ([2, 2048] rows, 32 heads of 128): causal alibi over 4 packed documents per row (the
+    path's case, first), the causal form without a bias on the same inputs (the
+    splash-form kernel, for comparison), non-causal without and with the bias, and
+    causal alibi over a left-padded batch (segment ids and the bias from the mask's
+    cumsum), forward and backward against the plain version, with kernel, plain and
+    library timings. The
+    library call is `F.scaled_dot_product_attention` with the additive float mask
+    materialised, ``bias[k] - bias[i]`` and -inf where masked ([B, H, S, S] in the
+    inputs' dtype); the bound counts the bias rows' bytes once."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dolomite_engine_tpu_torch.ops.alibi import get_alibi_bias
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    batch, seq, heads, hd = ALIBI_TRAIN_MICRO, ALIBI_TRAIN_SEQ, MPT_7B["n_head"], MPT_7B["n_embd"] // MPT_7B["n_head"]
+    scale = hd**-0.5
+    rs = np.random.RandomState(seed)
+    packed = torch.as_tensor(np.stack([_doc_ids(rs, seq, 4) for _ in range(batch)]), device="cuda")
+    padded = torch.ones((batch, seq), dtype=torch.int32, device="cuda")
+    padded[1, :300] = 0  # row 1 left-padded by 300 tokens
+    alibi = get_alibi_bias(heads, None, batch, seq, device="cuda")[:, :, 0].contiguous()
+    forms = [  # (label, segment ids, bias, causal)
+        ("causal alibi, 4 docs", packed, alibi, True),
+        ("causal, 4 docs, no bias", packed, None, True),
+        ("non-causal, 4 docs", packed, None, False),
+        ("non-causal alibi, 4 docs", packed, alibi, False),
+        ("causal alibi, left-padded 300", padded, get_alibi_bias(heads, padded, batch, seq)[:, :, 0].contiguous(), True),
+    ]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        es = torch.tensor([], dtype=dtype).element_size()
+        fp32 = dtype == torch.float32
+        for label, seg, bias, causal in forms:
+            qkv = torch.randn((batch, seq, 3 * heads * hd), generator=gen, device="cuda").to(dtype)
+            q, k, v = (t.reshape(batch, seq, heads, hd) for t in qkv.split(heads * hd, dim=-1))
+            pairs = _segment_pairs(seg, causal)
+            slack = bias_slack(bias, causal, dtype)
+            tol = ("1e-5 abs + 1e-5 rel" if fp32 else "2e-2 abs + 1 bf16 ulp") + (
+                f" + {slack:.3g} x max |value|" if slack else ""
+            )
+            shape = f"[{batch},{seq},{heads},{hd}] {label}"
+            out, lse = fa.flash_attention_fwd(q, k, v, seg, scale, bias, causal)
+            want, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias, causal)
+            ok, err = _close(out, want, fp32, slack)
+            ok = ok and bool(torch.allclose(lse, want_lse, atol=1e-5, rtol=1e-5))
+            # the library's mask: the same function as an additive float mask
+            visible = seg[:, None, :, None] == seg[:, None, None, :]
+            if causal:
+                visible = visible & torch.ones((seq, seq), dtype=torch.bool, device="cuda").tril()
+            shift = 0.0 if bias is None else bias[:, :, None, :] - bias[:, :, :, None]
+            mask = torch.where(visible, shift, float("-inf")).to(dtype)
+            del visible
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            side = q.numel() // hd * 4 + seg.numel() * 4 + (0 if bias is None else bias.numel() * 4)
+            fwd_spec, bwd_spec = fa.kernel_specs(bias, causal)
+            _record(
+                cases, fwd_spec.name, shape, dtype, err, ok, tol,
+                lambda: fa.flash_attention_fwd(q, k, v, seg, scale, bias, causal),
+                lambda: fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias, causal),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale),
+                (2 * q.numel() + 2 * k.numel()) * es + side, 4 * pairs * hd * heads, plain_iters=5,
+            )
+            dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal)
+            want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, causal)
+            checks = [_close(g, w, fp32, slack) for g, w in zip(grads, want_grads)]
+            ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
+            lib_dout = dout.transpose(1, 2).contiguous()
+            _record(
+                cases, bwd_spec.name, shape, dtype, max(e for _, e in checks), all(c for c, _ in checks), tol,
+                lambda: fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, causal),
+                lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_dout, retain_graph=True),
+                (4 * q.numel() + 4 * k.numel()) * es + side, 10 * pairs * hd * heads, plain_iters=5,
+            )
+            del qkv, q, k, v, out, want, grads, want_grads, ql, kl, vl, lib_out, lib_dout, mask, shift, qt, kt, vt
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
     return cases
 
 
@@ -1267,38 +1441,13 @@ def plain_train_loss(model, inputs, compute_dtype, router_logits=None):
     appends its router logits to `router_logits`."""
     import torch.nn.functional as F
 
-    from dolomite_engine_tpu_torch.models.modeling_utils import get_softmax_scale
-    from dolomite_engine_tpu_torch.ops.attention import attention
-    from dolomite_engine_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm_plain
-    from dolomite_engine_tpu_torch.ops.kernels.rope_qkv import fused_rope_qkv_plain
     from dolomite_engine_tpu_torch.ops.loss import causal_lm_loss
-    from dolomite_engine_tpu_torch.ops.rope import get_cos_sin
 
     config, t = model.config, model.transformer
-    hq, hkv, hd = config.n_head, config.num_key_value_heads, config.head_dim
-    eps = config.layer_norm_epsilon
     ids, seg = inputs["input_ids"], inputs["segment_ids"]
-    batch, seq = ids.shape
     routing = [] if router_logits is None else router_logits
-
     h = F.embedding(ids, t.wte.weight).to(compute_dtype)
-    cos, sin = get_cos_sin(t.rope_params, inputs["position_ids"], compute_dtype)
-    for block in t.h:
-        residual = h
-        x = fused_rmsnorm_plain(h, block.ln_1.weight, eps)
-        qkv = fused_rope_qkv_plain(_linear(x, block.attn.c_attn, compute_dtype), cos, sin, hq, hkv, hd)
-        q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
-        a = attention(
-            q.reshape(batch, seq, hq, hd), k.reshape(batch, seq, hkv, hd), v.reshape(batch, seq, hkv, hd),
-            causal=True, softmax_scale=get_softmax_scale(config, hd), implementation="eager",
-            segment_ids=seg,
-        )
-        x, h = fused_rmsnorm_plain(
-            _linear(a.reshape(batch, seq, -1), block.attn.c_proj, compute_dtype), block.ln_2.weight, eps,
-            residual=residual,
-        )
-        h = h + _plain_ffn(block, x, compute_dtype, routing)
-    h = fused_rmsnorm_plain(h, t.ln_f.weight, eps)
+    h = _plain_layers(model, h, inputs["position_ids"], compute_dtype, seg, routing)
     logits = h @ t.wte.weight.to(compute_dtype).T
     loss = causal_lm_loss(
         logits, ids, upcast=config.upcast_logits_for_loss, labels=inputs["labels"],
@@ -1417,9 +1566,10 @@ def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, 
 
 
 def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, micro_batch=1):
-    """Phase 6: the dense GPTDolomite train step on granite-3b-code, and phase 8: the MoE
-    train step (another config and the CPU only to rehearse this script's control flow at
-    a tiny size). Each step takes accumulation 2 x [micro_batch, seq]."""
+    """Phase 6: the dense GPTDolomite train step on granite-3b-code, phase 8: the MoE
+    train step, and phase 11: the alibi train step on MPT-7B (another config and the CPU
+    only to rehearse this script's control flow at a tiny size). Each step takes
+    accumulation 2 x [micro_batch, seq]."""
     import numpy as np
     import torch
 
@@ -1465,23 +1615,29 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
     assert losses[4] < losses[1], f"the loss did not fall over the repeated batch: {losses}"
     layers, micro_batches = config.n_layer, TRAIN_ACCUM * TRAIN_STEPS
     # per micro-batch, every block rerun in the backward (checkpoint_every 1): rmsnorm
-    # 2L + 1 forward + 2L recompute (its backward is plain PyTorch); rope L forward + L
-    # recompute + L backward; flash forward L + L recompute, backward L; fused_ce one per
+    # 2L + 1 forward + 2L recompute (its backward is plain PyTorch; layernorm is plain
+    # PyTorch); rope L forward + L recompute + L backward (none with alibi); flash forward
+    # L + L recompute, backward L, in the additive-bias form with alibi; fused_ce one per
     # 256-token loss chunk (its backward recomputes through cuBLAS); an MoE layer's grouped
     # GEMMs c_fc and c_proj run in the forward, again in the rerun, and once more each as
     # dX in the backward (6 gmm), and its 2 dW are tgmm
     moe = config.model_type == "moe_dolomite"
+    rms = config.normalization_function == "rmsnorm"
+    rope = config.position_embedding_type == "rope"
+    alibi = config.position_embedding_type == "alibi"
     expected = {
-        "rmsnorm": (4 * layers + 1) * micro_batches,
-        "rope_qkv": 3 * layers * micro_batches,
+        "rmsnorm": (4 * layers + 1) * micro_batches if rms else 0,
+        "rope_qkv": 3 * layers * micro_batches if rope else 0,
         "paged_decode_attention": 0,
         "paged_prefill_attention": 0,
-        "flash_attn_fwd": 2 * layers * micro_batches,
-        "flash_attn_bwd": layers * micro_batches,
+        "flash_attn_fwd": 0 if alibi else 2 * layers * micro_batches,
+        "flash_attn_bwd": 0 if alibi else layers * micro_batches,
         "fused_ce": -(-seq // config.loss_chunk_size) * micro_batches,
         "grouped_gemm": 6 * layers * micro_batches if moe else 0,
         "grouped_gemm_tgmm": 2 * layers * micro_batches if moe else 0,
         "kv_quant": 0,
+        "flash_attn_bias_fwd": 2 * layers * micro_batches if alibi else 0,
+        "flash_attn_bias_bwd": layers * micro_batches if alibi else 0,
     }
     if on_card:  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
@@ -1494,6 +1650,7 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         "model": {
             "model_type": config.model_type, "n_layer": config.n_layer, "n_embd": config.n_embd,
             "n_head": config.n_head, "num_key_value_heads": config.num_key_value_heads,
+            "position_embedding_type": config.position_embedding_type,
             "vocab_size": config.vocab_size, "params": sum(p.numel() for p in wrapper.model.parameters()),
             "param_dtype": "float32", "compute_dtype": "bfloat16", "weights": "random",
             **({"num_experts": config.num_experts, "top_k": config.num_experts_per_tok} if moe else {}),
@@ -1561,7 +1718,7 @@ def main() -> int:
 
     cases = (
         kernel_cases(args.seed) + quant_kernel_cases(args.seed) + training_kernel_cases(args.seed)
-        + moe_kernel_cases(args.seed)
+        + moe_kernel_cases(args.seed) + alibi_kernel_cases(args.seed)
     )
     print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
 
@@ -1626,6 +1783,19 @@ def main() -> int:
     moe_profile = profile_training(state, train_step, batch)
     print(json.dumps({"moe_training_profile": moe_profile, "card": card}), flush=True)
     del state, train_step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    alibi_check = training_paths_check(args.seed, 2, ALIBI_TRAIN_CONFIG, (ALIBI_TRAIN_MICRO, ALIBI_TRAIN_SEQ))
+    print(json.dumps({"alibi_training_check": alibi_check, "card": card}), flush=True)
+    alibi_training, alibi_training_launches, (state, train_step, batch) = train_slice(
+        args.seed, dict(ALIBI_TRAIN_CONFIG, n_layer=ALIBI_TRAIN_LAYERS), seq=ALIBI_TRAIN_SEQ,
+        micro_batch=ALIBI_TRAIN_MICRO,
+    )
+    print(json.dumps({"alibi_training": alibi_training, "card": card}), flush=True)
+    alibi_profile = profile_training(state, train_step, batch)
+    print(json.dumps({"alibi_training_profile": alibi_profile, "card": card}), flush=True)
+    del state, train_step, batch
 
     kernels = []
     for spec in KERNELS:
@@ -1636,7 +1806,7 @@ def main() -> int:
         by_path = {
             "serving": serving_launches[spec.name], "training": training_launches[spec.name],
             "moe_serving": moe_serving_launches[spec.name], "moe_training": moe_training_launches[spec.name],
-            "quantized_serving": quantized_launches[spec.name],
+            "quantized_serving": quantized_launches[spec.name], "alibi_training": alibi_training_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

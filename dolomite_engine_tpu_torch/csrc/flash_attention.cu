@@ -1,10 +1,22 @@
-// Causal flash attention with packed-document segment ids, forward and backward.
+// Flash attention with packed-document segment ids, forward and backward, in two forms.
 //
-// Replaces the attention kernel the JAX training path takes from jax's Pallas library:
+// Replaces the attention kernels the JAX training path takes from jax's Pallas library:
 // splash attention (`_tpu_splash_attention`, dolomite_engine_tpu/ops/attention.py:330)
-// with a causal mask and `SegmentIds(q=s, kv=s)`. Query i attends key j when j <= i and
-// seg[i] == seg[j]; pad tokens (segment 0) attend among themselves, so no row is empty.
-// GQA: query head h reads kv head h / (Hq / Hkv).
+// with a causal mask and `SegmentIds(q=s, kv=s)`, and jax's flash kernel
+// (`_tpu_flash_attention`, :379) in the forms splash does not take: an additive bias
+// (kBias: alibi) and no causal mask (kCausal false). Query i attends key j when
+// seg[i] == seg[j] and, if causal, j <= i; pad tokens (segment 0) attend among
+// themselves, so no row is empty. GQA: query head h reads kv head h / (Hq / Hkv).
+//
+// The bias is one fp32 row per (batch, query head) over the keys ([B, Hq, S], 256 B per
+// key tile), never jax's [B, H, Sq, Sk] `ab` (1.07 GB per call at [2, 2048, 32 heads]).
+// The score is q.k * scale + bias[k] (the JAX package's XLA function; jax's kernel adds
+// `ab` before the scale), less the row's own-position bias bias[i]: softmax is
+// invariant to a per-row constant, and the shift keeps the scores near the diagonal
+// small, so fp32 keeps the digits of q.k beside alibi biases of ~1700 at 2048 tokens.
+// Scores run in log2 units (exp2f): the bias enters times log2(e), in the forward and in
+// both backward recomputes of P, which must match the logsumexp the forward stored (of
+// the shifted scores, natural log).
 //
 // Bound on the H100: operations for long documents — at [1, 4096, 32, 80] one causal
 // document is 4 * S^2/2 * D * H ~ 86 GFLOP against ~84 MB of q/k/v/o — but packed
@@ -12,10 +24,11 @@
 // 4096 tokens the bytes bound it (0.025 ms of bytes against 0.015 ms of operations).
 // Design (FlashAttention-2 on mma.sync): one block of 4 warps per (64-query tile, q
 // head, batch row), each warp owning 16 query rows. The block first reduces every
-// 64-token tile's segment ids to a (min, max) range, then walks only the key tiles at or
-// below the causal diagonal whose range meets the query tile's (a packed batch touches
-// only the tiles near each document's diagonal). K/V tiles stream through a two-stage
-// cp.async ring, so the next tile loads while this one computes. Q K^T and P V run on
+// 64-token tile's segment ids to a (min, max) range, then walks only the key tiles (at
+// or below the diagonal when causal) whose range meets the query tile's (a packed batch
+// touches only the tiles near each document's diagonal). K/V tiles, with their segment
+// ids and bias rows, stream through a two-stage cp.async ring, so the next tile loads
+// while this one computes. Q K^T and P V run on
 // the tensor cores (bf16 in, fp32 accumulate, `mma.sync.m16n8k16` via mma.cuh) with Q
 // and P held in registers as mma fragments; the softmax recurrence (running max,
 // denominator, rescaled fp32 output) stays in registers. fp32 inputs take the same
@@ -25,8 +38,8 @@
 // backward is three launches and no atomics, so dQ/dK/dV are deterministic:
 //   1. delta = rowsum(dO * O) per (row, q head);
 //   2. dK/dV: one block per (64-key tile, kv head, batch row) walks the (q head of its
-//      GQA group, query tile at or below its diagonal) pairs whose segments meet its
-//      keys, recomputing P from the saved logsumexp: dV += P^T dO,
+//      GQA group, query tile: at or below its diagonal when causal) pairs whose segments
+//      meet its keys, recomputing P from the saved logsumexp: dV += P^T dO,
 //      dS = P (dO V^T - delta), dK += dS^T Q;
 //   3. dQ: one block per (query tile, q head, batch row) walks the key tiles as the
 //      forward does: dQ += dS K.
@@ -54,6 +67,7 @@ struct FlashArgs {
   const void* k;     // [B, S, Hkv, D], tokens k_stride apart
   const void* v;     // [B, S, Hkv, D], tokens v_stride apart
   const int* seg;    // [B, S]
+  const float* bias;  // [B, Hq, S] additive key bias (kBias), or null
   const void* out;   // [B, S, Hq, D] contiguous (backward: the forward's output)
   const void* dout;  // [B, S, Hq, D] contiguous
   float* lse;        // [B, Hq, S] natural-log row logsumexp of the scaled scores
@@ -83,28 +97,41 @@ __device__ __forceinline__ void tile_ranges(int2* ranges, const int* seg_row, in
 // whether two tiles can hold a pair of equal segment ids
 __device__ __forceinline__ bool meets(int2 a, int2 b) { return a.y >= b.x && a.x <= b.y; }
 
+// one past the last key tile query tile qt may attend: its diagonal tile when causal
+template <bool kCausal>
+__device__ __forceinline__ int key_tile_end(int qt, int num_tiles) {
+  return kCausal ? qt + 1 : num_tiles;
+}
+
+// the score term of the additive bias in log2 units: key k's bias less the query row's
+// own-position bias
+__device__ __forceinline__ float bias_log2(float key_bias, float row_bias) {
+  return (key_bias - row_bias) * kLog2e;
+}
+
 template <typename T, int D>
 constexpr size_t fwd_smem_bytes(int num_tiles) {
-  // Q, the K/V ring, P (scalar path), the key segment ids of each stage, tile ranges
+  // Q, the K/V ring, P (scalar path), the key segment ids and bias of each stage, tile
+  // ranges
   return (kBlock * (D + 8) + kStages<T> * 2 * kBlock * (D + 8) + (kMma<T> ? 0 : kBlock * kLdP)) *
              sizeof(T) +
-         kStages<T> * kBlock * sizeof(int) + num_tiles * sizeof(int2);
+         kStages<T> * 2 * kBlock * sizeof(int) + num_tiles * sizeof(int2);
 }
 
 template <typename T, int D>
 constexpr size_t dq_smem_bytes(int num_tiles) {
   return (2 * kBlock * (D + 8) + kStages<T> * 2 * kBlock * (D + 8) + (kMma<T> ? 0 : kBlock * kLdP)) *
              sizeof(T) +
-         kStages<T> * kBlock * sizeof(int) + num_tiles * sizeof(int2);
+         kStages<T> * 2 * kBlock * sizeof(int) + num_tiles * sizeof(int2);
 }
 
 template <typename T, int D>
 constexpr size_t dkdv_smem_bytes(int num_tiles) {
-  // K, V, the Q/dO ring, P^T and dS^T (scalar path), each stage's segment ids, logsumexp
-  // and delta, tile ranges
+  // K, V, the Q/dO ring, P^T and dS^T (scalar path), each stage's segment ids, logsumexp,
+  // delta and query bias, tile ranges
   return (2 * kBlock * (D + 8) + kStages<T> * 2 * kBlock * (D + 8) + (kMma<T> ? 0 : 2 * kBlock * kLdP)) *
              sizeof(T) +
-         kStages<T> * 3 * kBlock * sizeof(int) + num_tiles * sizeof(int2);
+         kStages<T> * 4 * kBlock * sizeof(int) + num_tiles * sizeof(int2);
 }
 
 // Walk the work items in `next(first)` order through a ring of kStages<T> buffers:
@@ -134,7 +161,7 @@ __device__ __forceinline__ void pipeline(int item, int end, Next next, Fetch fet
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs args) {
   constexpr int LD = D + 8;
   constexpr int NTD = D / 8;
@@ -144,10 +171,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs args) {
   T* kvs = qs + kBlock * LD;                 // [stage][K, V][kBlock][LD]
   T* ps = kvs + kStages<T> * 2 * kBlock * LD;  // [kBlock][kLdP], scalar path only
   int* segk = reinterpret_cast<int*>(ps + (kMma<T> ? 0 : kBlock * kLdP));  // [stage][kBlock]
-  int2* ranges = reinterpret_cast<int2*>(segk + kStages<T> * kBlock);
+  float* biask = reinterpret_cast<float*>(segk + kStages<T> * kBlock);     // [stage][kBlock]
+  int2* ranges = reinterpret_cast<int2*>(biask + kStages<T> * kBlock);
 
   const int seq = args.seq;
-  const int qt = seq / kBlock - 1 - blockIdx.x;  // the longest rows first
+  const int num_tiles = seq / kBlock;
+  const int qt = num_tiles - 1 - blockIdx.x;  // the longest rows first
+  const int end = key_tile_end<kCausal>(qt, num_tiles);
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int kv_head = head / (args.num_q_heads / args.num_kv_heads);
@@ -160,15 +190,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs args) {
   const int* seg_row = args.seg + tok0;
   const T* k_base = static_cast<const T*>(args.k) + tok0 * args.k_stride + static_cast<int64_t>(kv_head) * D;
   const T* v_base = static_cast<const T*>(args.v) + tok0 * args.v_stride + static_cast<int64_t>(kv_head) * D;
+  const float* bias_row = kBias ? args.bias + (static_cast<int64_t>(b) * args.num_q_heads + head) * seq : nullptr;
 
   cp_async_tile(qs, LD, static_cast<const T*>(args.q) + (tok0 + q0) * args.q_stride + static_cast<int64_t>(head) * D,
                 args.q_stride, kBlock, D);
   cp_async_commit();
-  tile_ranges(ranges, seg_row, 0, qt + 1);
+  tile_ranges(ranges, seg_row, 0, kCausal ? qt + 1 : num_tiles);
   __syncthreads();
   const int2 q_range = ranges[qt];
   auto next = [&](int t) {
-    while (t <= qt && !meets(ranges[t], q_range)) ++t;
+    while (t < end && !meets(ranges[t], q_range)) ++t;
     return t;
   };
   auto fetch = [&](int t, int stage) {
@@ -177,11 +208,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs args) {
     cp_async_tile(dst + kBlock * LD, LD, v_base + static_cast<int64_t>(t) * kBlock * args.v_stride, args.v_stride,
                   kBlock, D);
     cp_async_tile(segk + stage * kBlock, kBlock, seg_row + t * kBlock, 0, 1, kBlock);
+    if constexpr (kBias) cp_async_tile(biask + stage * kBlock, kBlock, bias_row + t * kBlock, 0, 1, kBlock);
     cp_async_commit();
   };
 
   const int rows[2] = {warp * 16 + g, warp * 16 + g + 8};
   const int row_seg[2] = {seg_row[q0 + rows[0]], seg_row[q0 + rows[1]]};
+  float row_bias[2] = {0.f, 0.f};
+  if constexpr (kBias) {
+    row_bias[0] = bias_row[q0 + rows[0]];
+    row_bias[1] = bias_row[q0 + rows[1]];
+  }
   const float scale_log2 = args.scale * kLog2e;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores (log2 units)
   float l[2] = {0.f, 0.f};              // this lane's share of the denominator
@@ -190,10 +227,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs args) {
   uint32_t qf[KTD][4];  // Q as mma A fragments (tensor-core path)
   bool q_ready = false;
 
-  pipeline<T>(next(0), qt + 1, next, fetch, [&](int kt, int stage) {
+  pipeline<T>(next(0), end, next, fetch, [&](int kt, int stage) {
     const T* ks = kvs + stage * 2 * kBlock * LD;
     const T* vs = ks + kBlock * LD;
     const int* sk = segk + stage * kBlock;
+    const float* bk = biask + stage * kBlock;
     const int k0 = kt * kBlock;
     float s[1][8][4];
     zero_acc(s);
@@ -214,8 +252,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs args) {
       for (int i = 0; i < 4; ++i) {
         const int h = i >> 1;
         const int col = nt * 8 + 2 * c + (i & 1);
-        const bool ok = k0 + col <= q0 + rows[h] && sk[col] == row_seg[h];
-        s[0][nt][i] = ok ? s[0][nt][i] * scale_log2 : -INFINITY;
+        const bool ok = (!kCausal || k0 + col <= q0 + rows[h]) && sk[col] == row_seg[h];
+        float score = s[0][nt][i] * scale_log2;
+        if constexpr (kBias) score += bias_log2(bk[col], row_bias[h]);
+        s[0][nt][i] = ok ? score : -INFINITY;
         tile_max[h] = fmaxf(tile_max[h], s[0][nt][i]);
       }
     float m_use[2];
@@ -290,7 +330,7 @@ __global__ void __launch_bounds__(256) flash_delta_kernel(FlashArgs args, int he
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashArgs args) {
   constexpr int LD = D + 8;
   constexpr int NTD = D / 8;
@@ -300,8 +340,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashArgs args
   T* qdo = vs + kBlock * LD;                   // [stage][Q, dO][kBlock][LD]
   T* ps = qdo + kStages<T> * 2 * kBlock * LD;  // P^T, dS^T [kBlock][kLdP] each, scalar path only
   T* dss = ps + kBlock * kLdP;
-  int* stats = reinterpret_cast<int*>(ps + (kMma<T> ? 0 : 2 * kBlock * kLdP));  // [stage][seg, lse, delta][kBlock]
-  int2* ranges = reinterpret_cast<int2*>(stats + kStages<T> * 3 * kBlock);
+  // [stage][seg, lse, delta, query bias][kBlock]
+  int* stats = reinterpret_cast<int*>(ps + (kMma<T> ? 0 : 2 * kBlock * kLdP));
+  int2* ranges = reinterpret_cast<int2*>(stats + kStages<T> * 4 * kBlock);
 
   const int seq = args.seq;
   const int num_tiles = seq / kBlock;
@@ -325,15 +366,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashArgs args
   cp_async_tile(vs, LD, static_cast<const T*>(args.v) + (tok0 + k0) * args.v_stride + static_cast<int64_t>(kv_head) * D,
                 args.v_stride, kBlock, D);
   cp_async_commit();
-  tile_ranges(ranges, seg_row, kt, num_tiles);
+  tile_ranges(ranges, seg_row, kCausal ? kt : 0, num_tiles);
   __syncthreads();
   const int2 k_range = ranges[kt];
-  // work item p = (q head of the group) * num_tiles + query tile, query tiles from kt up
+  // work item p = (q head of the group) * num_tiles + query tile; causal: query tiles
+  // from kt up (at or below this key tile's diagonal)
   const int end = group * num_tiles;
   auto next = [&](int p) {
     while (p < end) {
       const int qt = p % num_tiles;
-      if (qt < kt) {
+      if (kCausal && qt < kt) {
         p += kt - qt;
       } else if (!meets(ranges[qt], k_range)) {
         ++p;
@@ -350,10 +392,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashArgs args
     T* dst = qdo + stage * 2 * kBlock * LD;
     cp_async_tile(dst, LD, q + (tok0 + q0) * args.q_stride + static_cast<int64_t>(head) * D, args.q_stride, kBlock, D);
     cp_async_tile(dst + kBlock * LD, LD, dout + ((tok0 + q0) * hq + head) * D, static_cast<int64_t>(hq) * D, kBlock, D);
-    int* st = stats + stage * 3 * kBlock;
+    int* st = stats + stage * 4 * kBlock;
     cp_async_tile(st, kBlock, seg_row + q0, 0, 1, kBlock);
     cp_async_tile(st + kBlock, kBlock, reinterpret_cast<const int*>(args.lse + stat0), 0, 1, kBlock);
     cp_async_tile(st + 2 * kBlock, kBlock, reinterpret_cast<const int*>(args.delta + stat0), 0, 1, kBlock);
+    if constexpr (kBias)
+      cp_async_tile(st + 3 * kBlock, kBlock, reinterpret_cast<const int*>(args.bias + stat0), 0, 1, kBlock);
     cp_async_commit();
   };
 
@@ -364,13 +408,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashArgs args
   zero_acc(dk);
   zero_acc(dv);
 
-  pipeline<T>(next(kt), end, next, fetch, [&](int p, int stage) {
+  pipeline<T>(next(kCausal ? kt : 0), end, next, fetch, [&](int p, int stage) {
     const T* qs = qdo + stage * 2 * kBlock * LD;
     const T* dos = qs + kBlock * LD;
-    const int* segq = stats + stage * 3 * kBlock;
+    const int* segq = stats + stage * 4 * kBlock;
     const float* lse = reinterpret_cast<const float*>(segq + kBlock);
     const float* delta = lse + kBlock;
+    const float* qbias = delta + kBlock;
     const int q0 = (p % num_tiles) * kBlock;
+    float key_bias[2] = {0.f, 0.f};  // this lane's key rows' bias under the item's q head
+    if constexpr (kBias) {
+      const float* bias_row = args.bias + (static_cast<int64_t>(b) * hq + kv_head * group + p / num_tiles) * seq;
+      key_bias[0] = bias_row[k0 + rows[0]];
+      key_bias[1] = bias_row[k0 + rows[1]];
+    }
     float st[1][8][4];  // S^T: rows = keys, cols = queries
     zero_acc(st);
     warp_gemm<1, 8, true>(st, ks + warp * 16 * LD, LD, qs, LD, D);
@@ -382,8 +433,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashArgs args
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = nt * 8 + 2 * c + (i & 1);
-        const bool ok = k0 + rows[i >> 1] <= q0 + col && segq[col] == row_seg[i >> 1];
-        const float pt = ok ? exp2f(st[0][nt][i] * scale_log2 - lse[col] * kLog2e) : 0.f;
+        const bool ok = (!kCausal || k0 + rows[i >> 1] <= q0 + col) && segq[col] == row_seg[i >> 1];
+        float pt_score = st[0][nt][i] * scale_log2;
+        if constexpr (kBias) pt_score += bias_log2(key_bias[i >> 1], qbias[col]);
+        const float pt = ok ? exp2f(pt_score - lse[col] * kLog2e) : 0.f;
         st[0][nt][i] = pt;
         dpt[0][nt][i] = pt * (dpt[0][nt][i] - delta[col]);  // dS^T
       }
@@ -421,7 +474,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashArgs args
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs args) {
   constexpr int LD = D + 8;
   constexpr int NTD = D / 8;
@@ -432,10 +485,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs args) 
   T* kvs = dos + kBlock * LD;                   // [stage][K, V][kBlock][LD]
   T* dss = kvs + kStages<T> * 2 * kBlock * LD;  // dS [kBlock][kLdP], scalar path only
   int* segk = reinterpret_cast<int*>(dss + (kMma<T> ? 0 : kBlock * kLdP));  // [stage][kBlock]
-  int2* ranges = reinterpret_cast<int2*>(segk + kStages<T> * kBlock);
+  float* biask = reinterpret_cast<float*>(segk + kStages<T> * kBlock);      // [stage][kBlock]
+  int2* ranges = reinterpret_cast<int2*>(biask + kStages<T> * kBlock);
 
   const int seq = args.seq;
-  const int qt = seq / kBlock - 1 - blockIdx.x;
+  const int num_tiles = seq / kBlock;
+  const int qt = num_tiles - 1 - blockIdx.x;
+  const int end = key_tile_end<kCausal>(qt, num_tiles);
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int hq = args.num_q_heads;
@@ -450,17 +506,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs args) 
   const int* seg_row = args.seg + tok0;
   const T* k_base = static_cast<const T*>(args.k) + tok0 * args.k_stride + static_cast<int64_t>(kv_head) * D;
   const T* v_base = static_cast<const T*>(args.v) + tok0 * args.v_stride + static_cast<int64_t>(kv_head) * D;
+  const float* bias_row = kBias ? args.bias + (static_cast<int64_t>(b) * hq + head) * seq : nullptr;
 
   cp_async_tile(qs, LD, static_cast<const T*>(args.q) + (tok0 + q0) * args.q_stride + static_cast<int64_t>(head) * D,
                 args.q_stride, kBlock, D);
   cp_async_tile(dos, LD, static_cast<const T*>(args.dout) + ((tok0 + q0) * hq + head) * D,
                 static_cast<int64_t>(hq) * D, kBlock, D);
   cp_async_commit();
-  tile_ranges(ranges, seg_row, 0, qt + 1);
+  tile_ranges(ranges, seg_row, 0, kCausal ? qt + 1 : num_tiles);
   __syncthreads();
   const int2 q_range = ranges[qt];
   auto next = [&](int t) {
-    while (t <= qt && !meets(ranges[t], q_range)) ++t;
+    while (t < end && !meets(ranges[t], q_range)) ++t;
     return t;
   };
   auto fetch = [&](int t, int stage) {
@@ -469,11 +526,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs args) 
     cp_async_tile(dst + kBlock * LD, LD, v_base + static_cast<int64_t>(t) * kBlock * args.v_stride, args.v_stride,
                   kBlock, D);
     cp_async_tile(segk + stage * kBlock, kBlock, seg_row + t * kBlock, 0, 1, kBlock);
+    if constexpr (kBias) cp_async_tile(biask + stage * kBlock, kBlock, bias_row + t * kBlock, 0, 1, kBlock);
     cp_async_commit();
   };
 
   const int rows[2] = {warp * 16 + g, warp * 16 + g + 8};
   const int row_seg[2] = {seg_row[q0 + rows[0]], seg_row[q0 + rows[1]]};
+  float row_bias[2] = {0.f, 0.f};
+  if constexpr (kBias) {
+    row_bias[0] = bias_row[q0 + rows[0]];
+    row_bias[1] = bias_row[q0 + rows[1]];
+  }
   const float row_lse[2] = {args.lse[stat0 + rows[0]] * kLog2e, args.lse[stat0 + rows[1]] * kLog2e};
   const float row_delta[2] = {args.delta[stat0 + rows[0]], args.delta[stat0 + rows[1]]};
   const float scale_log2 = args.scale * kLog2e;
@@ -482,10 +545,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs args) 
   uint32_t qf[KTD][4];  // Q as mma A fragments (tensor-core path)
   bool q_ready = false;
 
-  pipeline<T>(next(0), qt + 1, next, fetch, [&](int kt, int stage) {
+  pipeline<T>(next(0), end, next, fetch, [&](int kt, int stage) {
     const T* ks = kvs + stage * 2 * kBlock * LD;
     const T* vs = ks + kBlock * LD;
     const int* sk = segk + stage * kBlock;
+    const float* bk = biask + stage * kBlock;
     const int k0 = kt * kBlock;
     float s[1][8][4];
     zero_acc(s);
@@ -507,8 +571,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs args) 
       for (int i = 0; i < 4; ++i) {
         const int h = i >> 1;
         const int col = nt * 8 + 2 * c + (i & 1);
-        const bool ok = k0 + col <= q0 + rows[h] && sk[col] == row_seg[h];
-        const float p = ok ? exp2f(s[0][nt][i] * scale_log2 - row_lse[h]) : 0.f;
+        const bool ok = (!kCausal || k0 + col <= q0 + rows[h]) && sk[col] == row_seg[h];
+        float dq_score = s[0][nt][i] * scale_log2;
+        if constexpr (kBias) dq_score += bias_log2(bk[col], row_bias[h]);
+        const float p = ok ? exp2f(dq_score - row_lse[h]) : 0.f;
         s[0][nt][i] = p * (dp[0][nt][i] - row_delta[h]);  // dS
       }
     if constexpr (kMma<T>) {
@@ -544,51 +610,63 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias, bool kCausal>
 cudaError_t launch_fwd(const FlashArgs& args, int batch, cudaStream_t stream) {
   const int tiles = args.seq / kBlock;
-  return launch_kernel(flash_fwd_kernel<T, D>, dim3(tiles, args.num_q_heads, batch),
+  return launch_kernel(flash_fwd_kernel<T, D, kBias, kCausal>, dim3(tiles, args.num_q_heads, batch),
                        fwd_smem_bytes<T, D>(tiles), stream, args);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias, bool kCausal>
 cudaError_t launch_bwd(const FlashArgs& args, int batch, cudaStream_t stream) {
   const int tiles = args.seq / kBlock;
   const int64_t rows = static_cast<int64_t>(batch) * args.seq * args.num_q_heads;
   flash_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(args, D, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_kernel(flash_bwd_dkdv_kernel<T, D>, dim3(tiles, args.num_kv_heads, batch),
+  err = launch_kernel(flash_bwd_dkdv_kernel<T, D, kBias, kCausal>, dim3(tiles, args.num_kv_heads, batch),
                       dkdv_smem_bytes<T, D>(tiles), stream, args);
   if (err != cudaSuccess) return err;
-  return launch_kernel(flash_bwd_dq_kernel<T, D>, dim3(tiles, args.num_q_heads, batch),
+  return launch_kernel(flash_bwd_dq_kernel<T, D, kBias, kCausal>, dim3(tiles, args.num_q_heads, batch),
                        dq_smem_bytes<T, D>(tiles), stream, args);
 }
 
+template <typename T, int D, bool kBackward>
+cudaError_t dispatch_form(const FlashArgs& args, int batch, bool causal, cudaStream_t stream) {
+  const bool bias = args.bias != nullptr;
+  if (bias && causal)
+    return kBackward ? launch_bwd<T, D, true, true>(args, batch, stream) : launch_fwd<T, D, true, true>(args, batch, stream);
+  if (bias)
+    return kBackward ? launch_bwd<T, D, true, false>(args, batch, stream) : launch_fwd<T, D, true, false>(args, batch, stream);
+  if (causal)
+    return kBackward ? launch_bwd<T, D, false, true>(args, batch, stream) : launch_fwd<T, D, false, true>(args, batch, stream);
+  return kBackward ? launch_bwd<T, D, false, false>(args, batch, stream) : launch_fwd<T, D, false, false>(args, batch, stream);
+}
+
 template <typename T, bool kBackward>
-cudaError_t dispatch_dim(const FlashArgs& args, int batch, int head_dim, cudaStream_t stream) {
+cudaError_t dispatch_dim(const FlashArgs& args, int batch, int head_dim, bool causal, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return kBackward ? launch_bwd<T, 64>(args, batch, stream) : launch_fwd<T, 64>(args, batch, stream);
+      return dispatch_form<T, 64, kBackward>(args, batch, causal, stream);
     case 80:
-      return kBackward ? launch_bwd<T, 80>(args, batch, stream) : launch_fwd<T, 80>(args, batch, stream);
+      return dispatch_form<T, 80, kBackward>(args, batch, causal, stream);
     case 128:
-      return kBackward ? launch_bwd<T, 128>(args, batch, stream) : launch_fwd<T, 128>(args, batch, stream);
+      return dispatch_form<T, 128, kBackward>(args, batch, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <bool kBackward>
-int dispatch(const FlashArgs& args, int batch, int head_dim, int dtype, void* stream) {
+int dispatch(const FlashArgs& args, int batch, int head_dim, bool causal, int dtype, void* stream) {
   if (batch <= 0 || args.seq <= 0) return cudaSuccess;
   if (args.seq % kBlock || args.num_q_heads % args.num_kv_heads) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case dolo::kFloat32:
-      return dispatch_dim<float, kBackward>(args, batch, head_dim, s);
+      return dispatch_dim<float, kBackward>(args, batch, head_dim, causal, s);
     case dolo::kBFloat16:
-      return dispatch_dim<__nv_bfloat16, kBackward>(args, batch, head_dim, s);
+      return dispatch_dim<__nv_bfloat16, kBackward>(args, batch, head_dim, causal, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -596,15 +674,18 @@ int dispatch(const FlashArgs& args, int batch, int head_dim, int dtype, void* st
 
 }  // namespace
 
+// bias: [B, Hq, S] fp32 or null; causal: 0 or 1
 extern "C" int dolo_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
-                              void* out, void* lse, int batch, int seq, int num_q_heads,
-                              int num_kv_heads, int head_dim, int q_stride, int k_stride,
-                              int v_stride, float scale, int dtype, void* stream) {
+                              const void* bias, void* out, void* lse, int batch, int seq,
+                              int num_q_heads, int num_kv_heads, int head_dim, int q_stride,
+                              int k_stride, int v_stride, int causal, float scale, int dtype,
+                              void* stream) {
   FlashArgs args{};
   args.q = q;
   args.k = k;
   args.v = v;
   args.seg = static_cast<const int*>(seg);
+  args.bias = static_cast<const float*>(bias);
   args.o_write = out;
   args.lse = static_cast<float*>(lse);
   args.seq = seq;
@@ -614,19 +695,21 @@ extern "C" int dolo_flash_fwd(const void* q, const void* k, const void* v, const
   args.k_stride = k_stride;
   args.v_stride = v_stride;
   args.scale = scale;
-  return dispatch<false>(args, batch, head_dim, dtype, stream);
+  return dispatch<false>(args, batch, head_dim, causal != 0, dtype, stream);
 }
 
 extern "C" int dolo_flash_bwd(const void* q, const void* k, const void* v, const void* seg,
-                              const void* out, const void* dout, const void* lse, void* delta,
-                              void* dq, void* dk, void* dv, int batch, int seq, int num_q_heads,
-                              int num_kv_heads, int head_dim, int q_stride, int k_stride,
-                              int v_stride, float scale, int dtype, void* stream) {
+                              const void* bias, const void* out, const void* dout, const void* lse,
+                              void* delta, void* dq, void* dk, void* dv, int batch, int seq,
+                              int num_q_heads, int num_kv_heads, int head_dim, int q_stride,
+                              int k_stride, int v_stride, int causal, float scale, int dtype,
+                              void* stream) {
   FlashArgs args{};
   args.q = q;
   args.k = k;
   args.v = v;
   args.seg = static_cast<const int*>(seg);
+  args.bias = static_cast<const float*>(bias);
   args.out = out;
   args.dout = dout;
   args.lse = const_cast<float*>(static_cast<const float*>(lse));
@@ -641,5 +724,5 @@ extern "C" int dolo_flash_bwd(const void* q, const void* k, const void* v, const
   args.k_stride = k_stride;
   args.v_stride = v_stride;
   args.scale = scale;
-  return dispatch<true>(args, batch, head_dim, dtype, stream);
+  return dispatch<true>(args, batch, head_dim, causal != 0, dtype, stream);
 }

@@ -1,7 +1,7 @@
 """GPTDolomite, the dense decoder: serving with a paged KV pool, and training.
 
 Counterpart of `dolomite_engine_tpu/models/gpt_dolomite.py`: `GPTDolomiteModel` and
-`GPTDolomiteForCausalLM` with learned-absolute, rope (+ YaRN) and nope positions, µP
+`GPTDolomiteForCausalLM` with learned-absolute, rope (+ YaRN), alibi and nope positions, µP
 multipliers, a tied or untied LM head, packed documents through segment ids, the loss
 path (the chunked fused LM-head loss or plain logits + CE) and every-k-th-block
 activation checkpointing. Module names follow the flax parameter tree
@@ -82,10 +82,6 @@ class GPTDolomiteModel(nn.Module):
         super().__init__()
         self.config = config
         self.pe_type = PositionEmbeddingType(config.position_embedding_type)
-        if self.pe_type == PositionEmbeddingType.alibi:
-            raise NotImplementedError(
-                "alibi positions are not ported yet: ROADMAP.md Queue A, 'Alibi positions'"
-            )
         resolve_named_remat_policy(checkpoint_policy)
         self.checkpoint_every = checkpoint_every  # 0 = no remat; k = remat every k-th block
         self.wte = ParameterizedEmbedding(
@@ -127,7 +123,7 @@ class GPTDolomiteModel(nn.Module):
     ) -> tuple[torch.Tensor, list[KVCache] | None, list[torch.Tensor]]:
         """(final hidden states, new caches, the blocks' extra outputs in layer order)."""
         config = self.config
-        seq = input_ids.shape[1]
+        batch, seq = input_ids.shape
         hidden_states = self.wte(input_ids)
         if position_ids is None:
             position_ids = torch.arange(seq, device=input_ids.device)[None, :]
@@ -142,8 +138,18 @@ class GPTDolomiteModel(nn.Module):
         if not deterministic and config.embd_pdrop > 0.0:
             hidden_states = F.dropout(hidden_states, config.embd_pdrop)
 
-        rope_cos_sin = compute_position_stuff(
-            config, position_ids, self.rope_params, hidden_states.dtype
+        # a paged cache gathers to max_pages * page_size keys
+        key_length = seq
+        if kv_caches:
+            cache = kv_caches[0]
+            key_length = (
+                cache["page_table"].shape[1] * cache["k"].shape[1]
+                if "page_table" in cache
+                else cache["k"].shape[1]
+            )
+        rope_cos_sin, alibi_bias = compute_position_stuff(
+            config, position_ids, self.rope_params, config.n_head, attention_mask, batch,
+            key_length, hidden_states.dtype,
         )
         new_caches = [] if kv_caches is not None else None
         extras = []  # per-block extra outputs (MoE router logits)
@@ -153,13 +159,13 @@ class GPTDolomiteModel(nn.Module):
                 # the `full` policy: only the block's input survives the forward; the
                 # backward reruns the block (kernels included) to rebuild its activations
                 out = checkpoint(
-                    block, hidden_states, attention_mask, rope_cos_sin, None, cache_index,
-                    segment_ids, deterministic, use_reentrant=False,
+                    block, hidden_states, attention_mask, rope_cos_sin, alibi_bias, None,
+                    cache_index, segment_ids, deterministic, use_reentrant=False,
                 )
             else:
                 out = block(
-                    hidden_states, attention_mask, rope_cos_sin, cache, cache_index,
-                    segment_ids, deterministic,
+                    hidden_states, attention_mask, rope_cos_sin, alibi_bias, cache,
+                    cache_index, segment_ids, deterministic,
                 )
             hidden_states, cache = out[0], out[1]
             extras.extend(out[2:])

@@ -37,6 +37,7 @@ from torch import nn
 
 from ..enums import AttentionImplementation
 from ..ops.activations import get_activation_function, is_glu
+from ..ops.alibi import get_alibi_bias
 from ..ops.attention import (
     attention,
     paged_gather_kv,
@@ -285,7 +286,8 @@ def _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask):
 
 
 class Attention(nn.Module):
-    """Self-attention with the fused QKV projection, RoPE and a paged KV pool."""
+    """Self-attention with the fused QKV projection, RoPE or an alibi bias, and a paged
+    KV pool (not with alibi)."""
 
     def __init__(
         self,
@@ -334,6 +336,7 @@ class Attention(nn.Module):
         hidden_states: torch.Tensor,
         attention_mask: torch.Tensor | None = None,
         rope_cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
+        alibi_bias: torch.Tensor | None = None,
         kv_cache: KVCache | None = None,
         cache_index: torch.Tensor | int | None = None,
         segment_ids: torch.Tensor | None = None,
@@ -355,6 +358,12 @@ class Attention(nn.Module):
                 raise NotImplementedError(
                     "dense (non-paged) KV caches are not ported yet: ROADMAP.md Queue A, "
                     "'Dense slot pool and generate_tokens'"
+                )
+            if alibi_bias is not None:
+                # the paged kernels carry no bias: without this the bias would be dropped
+                raise NotImplementedError(
+                    "alibi positions over a paged KV cache are not ported yet: ROADMAP.md "
+                    "Queue A, 'Alibi serving'"
                 )
             table = kv_cache["page_table"]
             if config.attention_softmax_in_fp32 and _paged_kernel_eligible(
@@ -395,6 +404,7 @@ class Attention(nn.Module):
             implementation=self.attention_implementation,
             segment_ids=segment_ids,
             dropout=0.0 if deterministic else config.attn_pdrop,
+            alibi_bias=alibi_bias,
         )
         return self._project_out(out, deterministic), kv_cache
 
@@ -466,6 +476,7 @@ class Block(nn.Module):
         hidden_states: torch.Tensor,
         attention_mask: torch.Tensor | None = None,
         rope_cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
+        alibi_bias: torch.Tensor | None = None,
         kv_cache: KVCache | None = None,
         cache_index: torch.Tensor | int | None = None,
         segment_ids: torch.Tensor | None = None,
@@ -477,6 +488,7 @@ class Block(nn.Module):
             h,
             attention_mask=attention_mask,
             rope_cos_sin=rope_cos_sin,
+            alibi_bias=alibi_bias,
             kv_cache=kv_cache,
             cache_index=cache_index,
             segment_ids=segment_ids,
@@ -504,9 +516,21 @@ def compute_position_stuff(
     config: CommonConfig,
     position_ids: torch.Tensor,
     rope_params: RoPEParams | None,
+    num_heads: int,
+    attention_mask: torch.Tensor | None,
+    batch: int,
+    key_length: int,
     dtype: torch.dtype,
 ):
-    """Rope cos/sin shared by all layers, or None for position types without rope."""
-    if PositionEmbeddingType(config.position_embedding_type) == PositionEmbeddingType.rope:
-        return get_cos_sin(rope_params, position_ids, dtype=dtype)
-    return None
+    """(rope cos/sin, alibi bias ``[B, H, 1, key_length]`` fp32) shared by all layers; each
+    None for the position types without it."""
+    pe_type = PositionEmbeddingType(config.position_embedding_type)
+    rope_cos_sin = None
+    alibi_bias = None
+    if pe_type == PositionEmbeddingType.rope:
+        rope_cos_sin = get_cos_sin(rope_params, position_ids, dtype=dtype)
+    elif pe_type == PositionEmbeddingType.alibi:
+        alibi_bias = get_alibi_bias(
+            num_heads, attention_mask, batch, key_length, device=position_ids.device
+        )
+    return rope_cos_sin, alibi_bias

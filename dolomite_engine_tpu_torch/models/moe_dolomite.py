@@ -174,6 +174,7 @@ class SparseMoEBlock(nn.Module):
         hidden_states: torch.Tensor,
         attention_mask: torch.Tensor | None = None,
         rope_cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
+        alibi_bias: torch.Tensor | None = None,
         kv_cache: KVCache | None = None,
         cache_index: torch.Tensor | int | None = None,
         segment_ids: torch.Tensor | None = None,
@@ -185,6 +186,7 @@ class SparseMoEBlock(nn.Module):
             h,
             attention_mask=attention_mask,
             rope_cos_sin=rope_cos_sin,
+            alibi_bias=alibi_bias,
             kv_cache=kv_cache,
             cache_index=cache_index,
             segment_ids=segment_ids,

@@ -80,15 +80,18 @@ def eager_attention(
     softmax_scale: float,
     softmax_in_fp32: bool = True,
     dropout: float = 0.0,
+    bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Explicit QK^T -> softmax -> V: scores scaled by `softmax_scale`, masked with the
-    float32-min constant, softmax upcast to fp32, probabilities cast back to the input
-    dtype (and dropped out at rate `dropout`) before the PV product. Returns
-    [B, Sq, Hq, D]."""
+    """Explicit QK^T -> softmax -> V: scores scaled by `softmax_scale`, plus the additive
+    `bias` (alibi: ``[B, H, 1, Skv]``) in the scores' dtype, masked with the float32-min
+    constant, softmax upcast to fp32, probabilities cast back to the input dtype (and
+    dropped out at rate `dropout`) before the PV product. Returns [B, Sq, Hq, D]."""
     input_dtype = q.dtype
     k = _repeat_kv(k, q.shape[2])
     v = _repeat_kv(v, q.shape[2])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * softmax_scale
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
     if mask is not None:
         # a cast, not a checked fill: in bf16 the float32 minimum rounds to -inf, exactly
         # as the JAX package's weakly typed constant does
@@ -113,14 +116,18 @@ def attention(
     implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
     segment_ids: torch.Tensor | None = None,
     dropout: float = 0.0,
+    alibi_bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Dispatch one attention call; returns [B, Sq, Hq, D].
 
     The JAX package's conditions, with "the tensors are on a CUDA device" in place of
     "the backend is a TPU": ``flash_attention_2`` without dropout or a mask, with
-    q_len == kv_len and the length a multiple of 128, runs the causal / segment-id flash
-    kernel; a causal key-padding mask is first rewritten to segment ids (pad = 0, real =
-    1). Every other call runs masked eager attention."""
+    q_len == kv_len and the length a multiple of 128, runs a flash kernel; a causal
+    key-padding mask is first rewritten to segment ids (pad = 0, real = 1). A causal call
+    without a bias takes the causal / segment-id form (where JAX takes splash); an
+    `alibi_bias` (``[B, Hq, 1, Skv]``, added to the scaled scores) or ``causal=False``
+    takes the additive-bias / non-causal form (where JAX takes jax's flash kernel).
+    Every other call runs masked eager attention with the bias."""
     from .kernels.flash_attention import flash_attention
 
     implementation = AttentionImplementation(implementation)
@@ -149,12 +156,16 @@ def attention(
         and q.shape[1] % 128 == 0
     )
     if use_flash:
-        if not causal:
-            raise NotImplementedError(
-                "non-causal flash attention is not ported yet: ROADMAP.md Queue B 9, "
-                "'alibi / non-causal flash attention'"
-            )
-        return flash_attention(q, k, v, segment_ids, softmax_scale)
+        bias = None
+        if alibi_bias is not None:
+            if alibi_bias.shape[2] != 1:
+                raise NotImplementedError(
+                    "a flash attention bias that varies along the queries (T5 relative "
+                    "bias) is not ported yet: ROADMAP.md Queue A 11, 'Other families and "
+                    "parallel ops'"
+                )
+            bias = alibi_bias[:, :, 0, :].expand(q.shape[0], q.shape[2], k.shape[1])
+        return flash_attention(q, k, v, segment_ids, softmax_scale, bias, causal)
 
     if segment_ids is not None and q.shape[1] != k.shape[1]:
         raise NotImplementedError("packed segment attention with KV cache is not supported")
@@ -169,7 +180,8 @@ def attention(
         segment_ids_q=segment_ids,
     )
     return eager_attention(
-        q, k, v, mask, softmax_scale, softmax_in_fp32=softmax_in_fp32, dropout=dropout
+        q, k, v, mask, softmax_scale, softmax_in_fp32=softmax_in_fp32, dropout=dropout,
+        bias=alibi_bias,
     )
 
 

@@ -17,7 +17,7 @@ from . import (
 )
 
 # every kernel entry point: the serving path's (the quantized pool's kv_quant last), then
-# the training path's, then MoE's
+# the training path's, then MoE's, then the additive-bias / non-causal flash form
 KERNELS = (
     rmsnorm.KERNEL,
     rope_qkv.KERNEL,
@@ -29,6 +29,8 @@ KERNELS = (
     fused_ce.KERNEL,
     moe.KERNEL,
     moe.TGMM_KERNEL,
+    flash_attention.BIAS_FWD_KERNEL,
+    flash_attention.BIAS_BWD_KERNEL,
 )
 
 

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "dolo_paged_decode": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
     "dolo_paged_prefill": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
     "dolo_paged_prefill_smem_bytes": (_I,),
-    "dolo_flash_fwd": (_P,) * 6 + (_I,) * 8 + (_F, _I, _P),
-    "dolo_flash_bwd": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
+    "dolo_flash_fwd": (_P,) * 7 + (_I,) * 9 + (_F, _I, _P),
+    "dolo_flash_bwd": (_P,) * 12 + (_I,) * 9 + (_F, _I, _P),
     "dolo_fused_ce": (_P,) * 6 + (_I,) * 3 + (_F, _I, _I, _P),
     "dolo_fused_ce_scratch_floats": (_I, _I),
     "dolo_gmm": (_P,) * 5 + (_I,) * 6 + (_P,),

@@ -8,9 +8,12 @@ without JAX:
 
 Shapes cover small odd cases and the slices' own shapes (granite-3b-code: 32 heads of
 80, d=2560, 16-token pages, 4096-token packed training rows, a 49152-word vocabulary;
-the MoE slice's grouped GEMMs: 32 experts, d 1024, swiglu c_fc banks 8192 wide).
+the MoE slice's grouped GEMMs: 32 experts, d 1024, swiglu c_fc banks 8192 wide; the
+alibi slice's flash form: MPT-7B's 32 heads of 128 over [2, 2048] packed rows).
 Tolerances: fp32 within 1e-5 (the JAX package's own kernel-parity tolerance; only
-summation order differs); bf16 attention within 2e-2 absolute (the plain version rounds
+summation order differs; the non-causal flash form with a bias adds 16 fp32 ulps of the
+largest bias relative to the largest value, the rounding of scores that size, and in
+bf16 2^-8 of the largest value, as dK / dV sum hundreds of bf16-rounded probabilities); bf16 attention within 2e-2 absolute (the plain version rounds
 scores and probabilities to bf16, the kernels keep fp32 scores), plus one bf16 ulp of the
 value for the training flash kernels, whose plain version computes in fp32 and rounds
 its outputs once (the two sides may round a value one ulp apart); bf16 rmsnorm and rope
@@ -404,6 +407,78 @@ def test_flash_attention_autograd_matches_plain_autograd():
     fa.flash_attention_fwd_plain(q, k, v, seg, 0.125)[0].backward(dout)
     for got_grad, t in zip(got, (q, k, v)):
         torch.testing.assert_close(got_grad, t.grad, atol=1e-5, rtol=1e-5)
+
+
+# (batch, seq, q heads, kv heads, head_dim, documents, pad tail, causal, bias)
+BIAS_FORMS = [
+    (1, 128, 2, 2, 64, 1, 0, True, "alibi"),  # one causal document
+    (2, 256, 4, 1, 80, 3, 0, False, None),  # mqa, non-causal, no bias
+    (1, 512, 8, 2, 128, 8, 40, False, "alibi"),  # gqa, non-causal, eight documents and a padded tail
+    (2, 512, 4, 4, 64, 0, 0, True, "left_padded"),  # the padded form: segments and bias from the mask
+    (2, 2048, 32, 32, 128, 4, 0, True, "alibi"),  # the alibi slice: MPT-7B's layer, packed documents
+]
+
+
+@pytest.mark.parametrize("batch,seq,hq,hkv,head_dim,num_segments,pad_tail,causal,bias_kind", BIAS_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_flash_attention_kernels_match_plain(
+    batch, seq, hq, hkv, head_dim, num_segments, pad_tail, causal, bias_kind, dtype
+):
+    """The additive-bias / non-causal form, within the training flash cases' tolerance;
+    with a non-causal bias also `chip_smoke.bias_slack` relative to the largest value
+    (fp32: 16 ulps of the largest bias, where the scores that carry the probability sit;
+    bf16: 2^-8, as a key's dK / dV sums hundreds of P values rounded to bf16)."""
+    from chip_smoke import _close, bias_slack
+    from dolomite_engine_tpu_torch.ops.alibi import get_alibi_bias
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    qkv = _rand(g, (batch, seq, (hq + 2 * hkv) * head_dim), dtype)
+    q, k, v = qkv.split([hq * head_dim, hkv * head_dim, hkv * head_dim], dim=-1)
+    q = q.reshape(batch, seq, hq, head_dim)
+    k = k.reshape(batch, seq, hkv, head_dim)
+    v = v.reshape(batch, seq, hkv, head_dim)
+    if bias_kind == "left_padded":
+        mask = torch.ones((batch, seq), dtype=torch.int32, device="cuda")
+        mask[1, :77] = 0
+        seg = mask
+        bias = get_alibi_bias(hq, mask, batch, seq)[:, :, 0].contiguous()
+    else:
+        seg = _segment_ids(batch, seq, num_segments, seed=seq + num_segments, pad_tail=pad_tail)
+        bias = get_alibi_bias(hq, None, batch, seq, device="cuda")[:, :, 0].contiguous() if bias_kind else None
+    scale = head_dim**-0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, scale, bias, causal)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias, causal)
+    dout = _rand(g, out.shape, dtype)
+    grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    slack = bias_slack(bias, causal, dtype)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (want_out, *want_grads)):
+        assert torch.isfinite(got.float()).all(), name
+        within, err = _close(got, want, dtype == torch.float32, slack)
+        assert within, (name, err, slack)
+
+
+def test_bias_flash_launches_count_on_their_own_spec():
+    from dolomite_engine_tpu_torch.ops.attention import attention
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+    from dolomite_engine_tpu_torch.ops.kernels import reset_launch_counts
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (_rand(g, (1, 128, 2, 64), torch.bfloat16).requires_grad_() for _ in range(3))
+    bias = torch.arange(128, device="cuda", dtype=torch.float32).expand(1, 2, 128).contiguous()
+    reset_launch_counts()
+    fa.flash_attention(q, k, v, None, 0.125).sum().backward()
+    fa.flash_attention(q, k, v, None, 0.125, bias).sum().backward()
+    fa.flash_attention(q, k, v, None, 0.125, causal=False).sum().backward()
+    assert (fa.FWD_KERNEL.launches, fa.BWD_KERNEL.launches) == (1, 1)
+    assert (fa.BIAS_FWD_KERNEL.launches, fa.BIAS_BWD_KERNEL.launches) == (2, 2)
+    with pytest.raises(ValueError):  # a bf16 bias
+        fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(), None, 0.125, bias.bfloat16())
+    with pytest.raises(NotImplementedError):  # a bias that varies along the queries
+        attention(q, k, v, implementation="flash_attention_2", alibi_bias=torch.zeros(1, 2, 128, 128, device="cuda"))
 
 
 @pytest.mark.parametrize(

@@ -153,8 +153,18 @@ def test_seeded_init_follows_the_jax_rules():
 
 
 def test_unported_position_type_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GPTDolomiteForCausalLM(CommonConfig(**dict(ROPE_GQA, position_embedding_type="alibi")), device="cpu")
+    """Alibi trains, but the paged kernels carry no bias: an alibi model over a paged KV
+    cache raises instead of dropping the bias."""
+    model = GPTDolomiteForCausalLM(CommonConfig(**dict(ROPE_GQA, position_embedding_type="alibi")), device="cpu")
+    caches = [
+        {"k": torch.zeros(4, PAGE, 2, 8), "v": torch.zeros(4, PAGE, 2, 8), "page_table": torch.tensor([[1, 2]], dtype=torch.int32)}
+        for _ in range(2)
+    ]
+    mask = torch.ones((1, 2 * PAGE), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, 'Alibi serving'"):
+        model(torch.ones((1, 8), dtype=torch.long), attention_mask=mask, kv_caches=caches, cache_index=torch.tensor(0))
+    with pytest.raises(NotImplementedError, match="'Alibi serving'"):  # a decode step
+        model(torch.ones((1, 1), dtype=torch.long), kv_caches=caches, cache_index=torch.tensor([8], dtype=torch.int32))
 
 
 def test_load_jax_params_rejects_a_mismatched_tree():
