@@ -216,13 +216,7 @@ def kernel_cases(seed):
     import torch
     import torch.nn.functional as F
 
-    from dolomite_engine_tpu_torch.ops.attention import paged_gather_kv
-    from dolomite_engine_tpu_torch.ops.kernels import (
-        paged_attention,
-        prefill_attention,
-        rmsnorm,
-        rope_qkv,
-    )
+    from dolomite_engine_tpu_torch.ops.kernels import rmsnorm, rope_qkv
 
     d, heads, head_dim = 2560, 32, 80
     cases = []
@@ -287,6 +281,31 @@ def kernel_cases(seed):
                 6 * batch * seq * 2 * heads * head_dim,
             )
 
+    torch.cuda.synchronize()
+    return cases + paged_kernel_cases(seed)
+
+
+def paged_kernel_cases(seed):
+    """Phase 2, the serving path's attention: the paged decode kernel (8 slots, ragged
+    frontiers up to 2048, one idle slot) and the prefill kernel (a 512-token chunk at
+    start 0 and over a 1024-token prefix) against their plain versions at granite's
+    shape, bf16 and fp32, with SDPA over the gathered page view as the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from dolomite_engine_tpu_torch.ops.attention import paged_gather_kv
+    from dolomite_engine_tpu_torch.ops.kernels import paged_attention, prefill_attention
+
+    heads, head_dim = 32, 80
+    cases = []
+
+    def record(kernel, shape, dtype, got, want, tol_ok, *rest):
+        _record(cases, kernel, shape, dtype, (got.float() - want.float()).abs().max().item(), tol_ok, *rest)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        es = torch.tensor([], dtype=dtype).element_size()
+        fp32 = dtype == torch.float32
         # paged decode: 8 slots, ragged frontiers up to 2048, one idle slot
         lengths = [2047, 1900, 1536, 1024, 777, 300, 64, 0]
         max_pages = MAX_LEN // PAGE
@@ -359,9 +378,13 @@ def quant_kernel_cases(seed):
     prefill-chunk (33 pages) windows of both models, int8 and fp8, whose codes and scales
     must be byte-identical to the plain version's; the decode and prefill kernels over
     int8 and fp8 pages with a bf16 query at both models' shapes (frontiers up to 2047,
-    within 2e-2 of the plain version); an fp32 query over a bf16 pool (within 1e-5)."""
+    within 2e-2 of the plain version), beside the same cases over bf16 pages (the
+    MoE shape's decode, both shapes' prefill at start 1536); an fp32 query over a bf16
+    pool (within 1e-5)."""
     import torch
+    import torch.nn.functional as F
 
+    from dolomite_engine_tpu_torch.ops.attention import paged_gather_kv
     from dolomite_engine_tpu_torch.ops.kernels import paged_attention, prefill_attention
     from dolomite_engine_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES, as_bytes, quantize_pages, quantize_pages_plain
 
@@ -375,6 +398,47 @@ def quant_kernel_cases(seed):
     for model_name, (hq, hkv, hd) in ATTENTION_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(seed)
         scale = hd**-0.5
+        # the same cases over a bf16 pool, beside the quantized ones: decode at the MoE
+        # shape (granite's is `paged_kernel_cases`') and prefill at start 1536 for both,
+        # with SDPA over the gathered page view (GQA heads grouped) as the library call
+        k, v, table, lens = _paged_case(gen, lengths, 1, hkv, hd, max_pages, torch.bfloat16)
+        k_view, v_view = (paged_gather_kv(x, table).transpose(1, 2) for x in (k, v))
+        positions = torch.arange(MAX_LEN, device="cuda")
+        if model_name == "moe":
+            q = torch.randn((NUM_SLOTS, 1, hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale)
+            want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale)
+            mask = (positions[None, :] <= lens[:, None])[:, None, None, :]
+            _record(
+                cases, "paged_decode_attention", f"{model_name} q[8,1,{hq},{hd}] pages[1025,16,{hkv},{hd}] max_len 2048",
+                torch.bfloat16, (got.float() - want.float()).abs().max().item(),
+                bool(((got.float() - want.float()).abs() <= 2e-2).all()), "2e-2 abs",
+                lambda: paged_attention.paged_decode_attention(q, k, v, table, lens, scale),
+                lambda: paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale),
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k_view, v_view, attn_mask=mask, scale=scale, enable_gqa=True
+                ),
+                2 * q.numel() * 2 + 2 * decode_keys * hkv * hd * 2 + table.numel() * 4 + 8 * 4,
+                4 * decode_keys * hq * hd,
+            )
+        q = torch.randn((1, CHUNK, hq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        prefill_table = table[:1].contiguous()  # row 0 maps 2048 positions
+        starts = torch.tensor([start], dtype=torch.int32, device="cuda")
+        got = prefill_attention.paged_prefill_attention(q, k, v, prefill_table, starts, scale)
+        want = prefill_attention.paged_prefill_attention_plain(q, k, v, prefill_table, starts, scale)
+        mask = (positions[None, :] <= (start + torch.arange(CHUNK, device="cuda"))[:, None])[None, None]
+        _record(
+            cases, "paged_prefill_attention", f"{model_name} q[1,{CHUNK},{hq},{hd}] start {start} bf16 pages, max_len 2048",
+            torch.bfloat16, (got.float() - want.float()).abs().max().item(),
+            bool(((got.float() - want.float()).abs() <= 2e-2).all()), "2e-2 abs",
+            lambda: prefill_attention.paged_prefill_attention(q, k, v, prefill_table, starts, scale),
+            lambda: prefill_attention.paged_prefill_attention_plain(q, k, v, prefill_table, starts, scale),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k_view[:1], v_view[:1], attn_mask=mask, scale=scale, enable_gqa=True
+            ),
+            2 * q.numel() * 2 + 2 * MAX_LEN * hkv * hd * 2 + max_pages * 4 + 4, 4 * pairs * hq * hd,
+        )
+        del k, v, k_view, v_view
         for kv_dtype, (storage, qmax) in KV_QUANT_DTYPES.items():
             # the encode at the scatter's window shapes: stale rows past random frontiers
             # (10x the live values), an all-invalid page, and a page of rounding ties

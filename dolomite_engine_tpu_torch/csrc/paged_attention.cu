@@ -2,258 +2,409 @@
 //
 // Replaces the Pallas kernel `_paged_decode_kernel`
 // (dolomite_engine_tpu/ops/pallas/paged_attention.py, `paged_decode_attention`).
-// Bound on the H100: device-memory bytes. At decode each query row meets every resident
-// K/V byte of its slot once, about one multiply-add per byte, far below the card's
-// operations-per-byte balance; the kernel has to keep many loads in flight. Design: one
-// block per (slot, query head), so GQA stays native (query head h reads kv head
-// h / (Hq / Hkv), never a repeated copy). The block loads its own page-table row and walks
-// only min(cdiv(length + W, page_size), max_pages) pages: traffic follows the slot's
-// resident tokens, not the worst-case view. QK gives each thread whole keys, read with
-// 16-byte loads where the row allows; the fp32 score row stays in shared memory for an
-// exact softmax, as the TPU kernel keeps it in VMEM; probabilities are rounded to the
-// element type before the PV sum. PV splits the visible keys across the block's warps
-// (lanes over the features, coalesced reads of a value row) and sums the warps' fp32
-// partials at the end. An idle slot (all-zero table row, length 0) walks the trash page 0
-// and yields finite garbage that is never read.
+// Query j of slot s sees positions <= length[s] + j; an idle slot (all-zero table row,
+// length 0) walks the trash page 0 and yields finite garbage that is never read.
 //
-// Pages may be of another type P than the query's T: the model dtype, bf16 under an fp32
-// model, or int8 / fp8 e4m3 codes with [P, Hkv] fp32 scale pools (a quantized pool). A
-// code is dequantized as the Pallas kernel does it (`paged_attention.py`, the `quantized`
-// branch): float(code) * scale[page, kv head], rounded to T before the dot or the PV sum.
-// A 16-byte load then carries 16 codes; head_dim 64 and 80 still divide.
-#include "common.cuh"
+// Bound on the H100: device-memory bytes. Each query row meets every resident K/V byte
+// of its slot once, about one multiply-add per byte, far below the card's
+// operations-per-byte balance; the kernel has to keep many loads in flight across the
+// whole card. Design:
+// - Split keys over blocks. One block of 4 warps per (key split of kSpan = 256
+//   positions, kv head, slot), for the group's query rows (all Hq / Hkv query heads of
+//   the kv head times the W rows, up to kQueries = 4 a block; a wider group takes more
+//   blocks): GQA reads each K/V byte once, and a ragged batch spreads over the card (a
+//   2047-token slot is 8 splits, a 64-token one 1) instead of the longest slot setting
+//   the time. Blocks past a slot's last split exit at once.
+// - Loads. The split's positions stream through a two-stage cp.async ring of 64-key tiles
+//   (paged.cuh: 16-byte copies, the source of each row found once per row); head_dim is
+//   a template parameter, so every loop unrolls. Q K: two threads per key, each over
+//   half the features in 8-element vectors (one 16-byte load for bf16). P V: lanes over
+//   8-feature vectors of a value row (16 bytes a lane for bf16), several keys per warp.
+// - Partials. Each split keeps an online-softmax partial per query row in fp32: its max
+//   (log2 units), its denominator and its unnormalised output.
+// - Merge, one launch. A slot with one split writes its rows directly. Otherwise each
+//   split stores its partial, and the block that arrives last at the (slot, kv head,
+//   query group)'s counter (a per-device int the wrapper allocates once, zeroed, and the
+//   merging block resets) merges all partials in split order 0, 1, ..., each rescaled
+//   by exp(m_split - m): the result does not depend on which block finishes last.
+// - Shared memory holds a few tiles, whatever max_len is: no score row.
+//
+// Rounding. The plain version (and the Pallas kernel) rounds the normalised
+// probabilities to T before P V. A split cannot normalise; here each probability
+// exp(s - m_running) of a split is rounded to T before P V, and the denominator sums the
+// unrounded fp32 values. With T = fp32 nothing is rounded (1e-5 against the plain
+// version); bf16 stays within its 2e-2 tolerance.
+//
+// Page types: the query's own type, bf16 under an fp32 query, or int8 / fp8 e4m3 codes
+// with [P, Hkv] fp32 scale pools: a code is dequantized as the Pallas kernel does it,
+// float(code) * scale[page, kv head] rounded to T, before the dot or the P V sum.
+// Head dims 16, 64, 80 and 128 are instantiated; the wrapper raises for others.
+#include <type_traits>
+
+#include "paged.cuh"
 
 namespace {
 
 using namespace dolo;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxFeaturesPerLane = 8;  // head_dim <= 256
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 64;   // positions per staged tile
+constexpr int kSpan = 256;  // positions per key split
+constexpr int kStages = 2;  // depth of the cp.async page ring
+constexpr int kQueries = kWarps;  // query rows per block: one warp runs each row's softmax
+constexpr float kLog2e = 1.4426950408889634f;
 
-// one stored K/V element as the T the attention computes in: a quantized code times its
-// page's scale (an fp32 product, never contracted into an FMA) rounded to T, as the
-// reference's dequantizing gather casts it; any other page type exactly as it is
-template <typename T, typename P>
-__device__ __forceinline__ float load_kv(P x, float scale) {
-  if constexpr (is_quantized<P>::value) {
-    return round_to<T>(__fmul_rn(to_float(x), scale));
-  } else {
-    return to_float(x);
-  }
+struct DecodeArgs {
+  const void* q;          // [S, W, Hq, D]
+  const void* k_pages;    // [P, page_size, Hkv, D]
+  const void* v_pages;
+  const float* k_scales;  // [P, Hkv] for a quantized pool, else null
+  const float* v_scales;
+  const int* table;    // [S, max_pages]
+  const int* lengths;  // [S]
+  void* out;           // [S, W, Hq, D]
+  float* partial_o;    // [groups, max_splits, kQueries, D] unnormalised split outputs
+  float* partial_ml;   // [groups, max_splits, kQueries, 2] split max (log2 units), denominator
+  int* counters;       // [groups] splits finished, zero between launches
+  int width, num_q_heads, num_kv_heads, page_size, max_pages, max_splits, query_groups;
+  float scale;
+};
+
+// the query rows of a block
+__device__ __forceinline__ int num_group_rows(const DecodeArgs& a) {
+  return a.num_q_heads / a.num_kv_heads * a.width;
 }
 
-// q (fp32, shared memory) . key (page type, device memory) over head_dim features
+template <typename T, typename P, int D>
+struct Layout {
+  static constexpr int kLdPage = kPageRowStride<P, D>;
+  static constexpr int kVectors = D / 8;            // 8-feature vectors of a row
+  static constexpr int kKeysPerPass = 32 / kVectors;  // value rows a warp reads at once
+  static constexpr int kKeyLanes = kWarps * kKeysPerPass;
+  static constexpr size_t ring_bytes = kStages * 2 * kTile * kLdPage * sizeof(P);
+  static constexpr size_t reduce_bytes = kKeyLanes * kQueries * D * sizeof(float);  // aliases the ring
+  static constexpr size_t stage_bytes = ring_bytes > reduce_bytes ? ring_bytes : reduce_bytes;
+  static constexpr size_t scale_bytes = is_quantized<P>::value ? kStages * 2 * kTile * sizeof(float) : 0;
+  // then q [kQueries][D], the two half-dot rows [2][kQueries][kTile], probabilities
+  // [kQueries][kTile], the rescales, maxima and denominators [3][kQueries], the ticket
+  static constexpr size_t bytes = stage_bytes + scale_bytes +
+                                  (kQueries * D + 3 * kQueries * kTile + 3 * kQueries + 4) * sizeof(float);
+};
+
+// dequantize a staged code as the reference does, round_to<T>(code * scale); other page
+// types are used as they are
 template <typename T, typename P>
-__device__ __forceinline__ float dot_key(const float* q, const P* key, int head_dim, bool vector,
-                                         float scale) {
-  float acc = 0.f;
-  if (vector) {
-    constexpr int kVec = 16 / sizeof(P);
-    const uint4* chunks = reinterpret_cast<const uint4*>(key);
-    for (int c = 0; c < head_dim / kVec; ++c) {
-      const uint4 raw = chunks[c];
-      const P* values = reinterpret_cast<const P*>(&raw);
+__device__ __forceinline__ void dequant8(float (&x)[8], const float* scale) {
+  if constexpr (is_quantized<P>::value) {
+    const float s = *scale;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc += q[c * kVec + e] * load_kv<T>(values[e], scale);
-    }
-  } else {
-    for (int d = 0; d < head_dim; ++d) acc += q[d] * load_kv<T>(key[d], scale);
-  }
-  return acc;
-}
-
-// the per-(page, kv head) scale of a quantized pool; 1 (unused) for other page types
-template <typename P>
-__device__ __forceinline__ float page_scale(const float* scales, int page, int num_kv_heads,
-                                            int kv_head) {
-  if constexpr (is_quantized<P>::value) {
-    return scales[static_cast<int64_t>(page) * num_kv_heads + kv_head];
-  } else {
-    return 1.f;
+    for (int e = 0; e < 8; ++e) x[e] = round_to<T>(__fmul_rn(x[e], s));
   }
 }
 
-template <typename T, typename P>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const T* __restrict__ q,           // [S, W, Hq, D]
-    const P* __restrict__ k_pages,     // [P, page_size, Hkv, D]
-    const P* __restrict__ v_pages,     // [P, page_size, Hkv, D]
-    const float* __restrict__ k_scales,  // [P, Hkv] for a quantized pool, else unused
-    const float* __restrict__ v_scales,  // [P, Hkv] for a quantized pool, else unused
-    const int* __restrict__ table,     // [S, max_pages]
-    const int* __restrict__ lengths,   // [S]
-    T* __restrict__ out,               // [S, W, Hq, D]
-    int width, int num_q_heads, int num_kv_heads, int head_dim, int page_size, int max_pages,
-    float scale) {
-  extern __shared__ float smem[];
-  const int head = blockIdx.x;
-  const int slot = blockIdx.y;
-  const int kv_head = head / (num_q_heads / num_kv_heads);
-  const int view_len = max_pages * page_size;
-  float* scores = smem;                                  // [W, view_len]
-  float* qs = scores + width * view_len;                 // [W, D]
-  float* partial = qs + width * head_dim;                // [kWarps, W, D]
-  float* scratch = partial + kWarps * width * head_dim;  // [32]
-  int* pages = reinterpret_cast<int*>(scratch + 32);     // [max_pages]
+template <typename T, typename P, int D>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(DecodeArgs args) {
+  using L = Layout<T, P, D>;
+  constexpr int kLdPage = L::kLdPage;
+  constexpr int kHalf = D / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  P* ring = reinterpret_cast<P*>(smem_raw);
+  float* reduce = reinterpret_cast<float*>(smem_raw);  // after the walk
+  float* scales = reinterpret_cast<float*>(smem_raw + L::stage_bytes);
+  float* qs = scales + (L::scale_bytes / sizeof(float));  // [kQueries][D]
+  float* half_dots = qs + kQueries * D;                   // [2][kQueries][kTile]
+  float* probs = half_dots + 2 * kQueries * kTile;        // [kQueries][kTile]
+  float* rescale = probs + kQueries * kTile;              // [kQueries]
+  float* row_max = rescale + kQueries;
+  float* row_sum = row_max + kQueries;
+  int* ticket = reinterpret_cast<int*>(row_sum + kQueries);
 
-  const int length = lengths[slot];
-  const int pages_needed = min((length + width + page_size - 1) / page_size, max_pages);
-  const int num_keys = pages_needed * page_size;
-  const int64_t token_stride = static_cast<int64_t>(num_kv_heads) * head_dim;
-  const int64_t head_offset = static_cast<int64_t>(kv_head) * head_dim;
-  const bool vector =
-      (head_dim * sizeof(P)) % 16 == 0 && reinterpret_cast<uintptr_t>(k_pages) % 16 == 0;
-
-  for (int i = threadIdx.x; i < pages_needed; i += blockDim.x)
-    pages[i] = table[static_cast<int64_t>(slot) * max_pages + i];
-  for (int i = threadIdx.x; i < width * head_dim; i += blockDim.x) {
-    const int j = i / head_dim;
-    const int d = i - j * head_dim;
-    qs[i] = to_float(q[((static_cast<int64_t>(slot) * width + j) * num_q_heads + head) * head_dim + d]);
-  }
-  __syncthreads();
-
-  // scores: each thread takes whole keys of the walked pages
-  for (int t = threadIdx.x; t < num_keys; t += blockDim.x) {
-    const int page = pages[t / page_size];
-    const P* key = k_pages + (static_cast<int64_t>(page) * page_size + t % page_size) * token_stride +
-                   head_offset;
-    const float k_scale = page_scale<P>(k_scales, page, num_kv_heads, kv_head);
-    for (int j = 0; j < width; ++j) {
-      const float dot = dot_key<T>(qs + j * head_dim, key, head_dim, vector, k_scale);
-      // the per-row causal frontier: query j of the slot sees positions <= length + j
-      scores[j * view_len + t] = t <= length + j ? dot * scale : kNegInf;
-    }
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
+  const int split = blockIdx.x;
+  const int kv_head = blockIdx.y / args.query_groups;
+  const int query_group = blockIdx.y - kv_head * args.query_groups;
+  const int slot = blockIdx.z;
+  const int length = args.lengths[slot];
+  const int view_len = args.max_pages * args.page_size;
+  const int num_keys = min(length + args.width, view_len);  // positions the last row may see
+  const int num_splits = (num_keys + kSpan - 1) / kSpan;
+  if (split >= num_splits) return;
+  const int rows = num_group_rows(args);
+  const int group_size = args.num_q_heads / args.num_kv_heads;
+  const int u0 = query_group * kQueries;  // the block's first query row
+  const int key0 = split * kSpan;
+  const int key_end = min(key0 + kSpan, num_keys);
+  const int num_tiles = (key_end - key0 + kTile - 1) / kTile;
   const int warp = threadIdx.x >> 5;
-  for (int j = 0; j < width; ++j) {
-    // exact fp32 softmax over the visible keys (a masked or unwalked key would be kNegInf
-    // and add exactly 0), probabilities rounded to the element type
-    float* row = scores + j * view_len;
-    const int visible = min(num_keys, length + j + 1);
-    float m = kNegInf;
-    for (int t = threadIdx.x; t < visible; t += blockDim.x) m = fmaxf(m, row[t]);
-    m = block_reduce<true>(m, scratch);
-    float sum = 0.f;
-    for (int t = threadIdx.x; t < visible; t += blockDim.x) {
-      const float e = expf(row[t] - m);
-      row[t] = e;
-      sum += e;
+  const int lane = threadIdx.x & 31;
+
+  // query row u of the group is (query head kv_head * group_size + u / W, window row u % W)
+  auto q_offset = [&](int u) {
+    const int head = kv_head * group_size + u / args.width;
+    return ((static_cast<int64_t>(slot) * args.width + u % args.width) * args.num_q_heads + head) * D;
+  };
+  for (int i = threadIdx.x; i < kQueries * D; i += kThreads) {
+    const int qi = i / D;
+    const int u = u0 + qi;
+    qs[i] = u < rows ? to_float(static_cast<const T*>(args.q)[q_offset(u) + (i - qi * D)]) : 0.f;
+  }
+
+  const PagePool<P> pool{static_cast<const P*>(args.k_pages) + static_cast<int64_t>(kv_head) * D,
+                         static_cast<const P*>(args.v_pages) + static_cast<int64_t>(kv_head) * D,
+                         args.k_scales, args.v_scales, static_cast<int64_t>(args.num_kv_heads) * D,
+                         args.page_size, args.num_kv_heads, kv_head};
+  const int* table_row = args.table + static_cast<int64_t>(slot) * args.max_pages;
+  auto fetch = [&](int t, int stage) {
+    P* k_dst = ring + stage * 2 * kTile * kLdPage;
+    float* sc = scales + stage * 2 * kTile;
+    fetch_page_tile<kTile, D, kThreads>(k_dst, k_dst + kTile * kLdPage, sc, sc + kTile, pool, table_row,
+                                        key0 + t * kTile, key_end);
+    cp_async_commit();
+  };
+
+  // the softmax of query row `warp`: this warp's running max and denominator
+  const int my_u = u0 + warp;
+  const int my_frontier = my_u < rows ? length + my_u % args.width : -1;
+  const float scale_log2 = args.scale * kLog2e;
+  float m = -INFINITY;
+  float l = 0.f;
+  // P V: lane -> (key lane, 8-feature vector); fp32 partial outputs of every query row
+  const int key_lane = warp * L::kKeysPerPass + lane / L::kVectors;
+  const int vec = lane % L::kVectors;
+  const bool pv_lane = lane < L::kKeysPerPass * L::kVectors;
+  float acc[kQueries][8];
+#pragma unroll
+  for (int qi = 0; qi < kQueries; ++qi)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[qi][e] = 0.f;
+  // Q K: thread -> (key of the tile, half of the features)
+  const int qk_key = threadIdx.x % kTile;
+  const int qk_half = threadIdx.x / kTile;
+
+  int stage = 0;
+  fetch(0, 0);
+  for (int t = 0; t < num_tiles; ++t) {
+    if (t + 1 < num_tiles) {
+      fetch(t + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    sum = block_reduce<false>(sum, scratch);
-    for (int t = threadIdx.x; t < visible; t += blockDim.x) row[t] = round_to<T>(row[t] / sum);
+    __syncthreads();
+    const P* ks = ring + stage * 2 * kTile * kLdPage;
+    const P* vs = ks + kTile * kLdPage;
+    const float* sc = scales + stage * 2 * kTile;  // K scales, then V scales
+    const int k0 = key0 + t * kTile;
+
+    {  // half dot products q . k over this thread's half of the features
+      float dot[kQueries];
+#pragma unroll
+      for (int qi = 0; qi < kQueries; ++qi) dot[qi] = 0.f;
+      const P* key = ks + qk_key * kLdPage + qk_half * kHalf;
+#pragma unroll
+      for (int v = 0; v < kHalf / 8; ++v) {
+        float x[8];
+        load8(key + v * 8, x);
+        dequant8<T, P>(x, sc + qk_key);
+#pragma unroll
+        for (int qi = 0; qi < kQueries; ++qi) {
+          if (u0 + qi >= rows) break;
+          const float* qv = qs + qi * D + qk_half * kHalf + v * 8;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dot[qi] = fmaf(qv[e], x[e], dot[qi]);
+        }
+      }
+#pragma unroll
+      for (int qi = 0; qi < kQueries; ++qi) half_dots[(qk_half * kQueries + qi) * kTile + qk_key] = dot[qi];
+    }
     __syncthreads();
 
-    // PV: warps split the visible keys, lanes the features; fp32 partial sums per warp
-    float acc[kMaxFeaturesPerLane];
+    {  // online softmax of row `warp` over the tile's 64 keys, two a lane
+      float s[2];
 #pragma unroll
-    for (int f = 0; f < kMaxFeaturesPerLane; ++f) acc[f] = 0.f;
-#pragma unroll 4
-    for (int t = warp; t < visible; t += kWarps) {
-      const float p = row[t];
-      const int page = pages[t / page_size];
-      const P* value = v_pages + (static_cast<int64_t>(page) * page_size + t % page_size) * token_stride +
-                       head_offset;
-      const float v_scale = page_scale<P>(v_scales, page, num_kv_heads, kv_head);
+      for (int i = 0; i < 2; ++i) {
+        const int kk = lane + 32 * i;
+        const int pos = k0 + kk;
+        const float dot = half_dots[warp * kTile + kk] + half_dots[(kQueries + warp) * kTile + kk];
+        s[i] = pos <= my_frontier && pos < key_end ? dot * scale_log2 : -INFINITY;
+      }
+      const float m_new = fmaxf(m, warp_max(fmaxf(s[0], s[1])));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // nothing visible yet
+      const float alpha = exp2f(m - m_use);
+      const float p0 = exp2f(s[0] - m_use);
+      const float p1 = exp2f(s[1] - m_use);
+      l = l * alpha + warp_sum(p0 + p1);
+      m = m_new;
+      probs[warp * kTile + lane] = round_to<T>(p0);
+      probs[warp * kTile + lane + 32] = round_to<T>(p1);
+      if (lane == 0) rescale[warp] = alpha;
+    }
+    __syncthreads();
+
 #pragma unroll
-      for (int f = 0; f < kMaxFeaturesPerLane; ++f) {
-        const int d = lane + 32 * f;
-        if (d < head_dim) acc[f] += p * load_kv<T>(value[d], v_scale);
+    for (int qi = 0; qi < kQueries; ++qi) {
+      const float alpha = rescale[qi];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[qi][e] *= alpha;
+    }
+    if (pv_lane) {
+      for (int kk = key_lane; kk < kTile; kk += L::kKeyLanes) {
+        float x[8];
+        load8(vs + kk * kLdPage + vec * 8, x);
+        dequant8<T, P>(x, sc + kTile + kk);
+#pragma unroll
+        for (int qi = 0; qi < kQueries; ++qi) {
+          if (u0 + qi >= rows) break;
+          const float p = probs[qi * kTile + kk];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[qi][e] = fmaf(p, x[e], acc[qi][e]);
+        }
       }
     }
+    __syncthreads();  // the stage is refilled next
+    stage ^= 1;
+  }
+
+  // sum the key lanes' partial outputs (the ring is free now), in a fixed order
+  if (pv_lane) {
 #pragma unroll
-    for (int f = 0; f < kMaxFeaturesPerLane; ++f) {
-      const int d = lane + 32 * f;
-      if (d < head_dim) partial[(warp * width + j) * head_dim + d] = acc[f];
-    }
+    for (int qi = 0; qi < kQueries; ++qi)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) reduce[(key_lane * kQueries + qi) * D + vec * 8 + e] = acc[qi][e];
+  }
+  if (lane == 0) {
+    row_max[warp] = m;
+    row_sum[warp] = l;
   }
   __syncthreads();
-
-  for (int i = threadIdx.x; i < width * head_dim; i += blockDim.x) {
-    float total = 0.f;
-    for (int w = 0; w < kWarps; ++w) total += partial[w * width * head_dim + i];
-    const int j = i / head_dim;
-    const int d = i - j * head_dim;
-    out[((static_cast<int64_t>(slot) * width + j) * num_q_heads + head) * head_dim + d] = from_float<T>(total);
+  const int group = (slot * args.num_kv_heads + kv_head) * args.query_groups + query_group;
+  const int64_t part = static_cast<int64_t>(group) * args.max_splits + split;
+  T* out = static_cast<T*>(args.out);
+  for (int i = threadIdx.x; i < kQueries * D; i += kThreads) {
+    const int qi = i / D;
+    const int d = i - qi * D;
+    if (u0 + qi >= rows) continue;
+    float o = 0.f;
+    for (int k = 0; k < L::kKeyLanes; ++k) o += reduce[(k * kQueries + qi) * D + d];
+    if (num_splits == 1) {
+      out[q_offset(u0 + qi) + d] = from_float<T>(o / row_sum[qi]);
+    } else {
+      args.partial_o[part * kQueries * D + i] = o;
+    }
   }
+  if (num_splits == 1) return;
+  if (threadIdx.x < kQueries) {
+    args.partial_ml[(part * kQueries + threadIdx.x) * 2] = row_max[threadIdx.x];
+    args.partial_ml[(part * kQueries + threadIdx.x) * 2 + 1] = row_sum[threadIdx.x];
+  }
+
+  // the last split of the group to finish merges them all
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *ticket = atomicAdd(args.counters + group, 1);
+  __syncthreads();
+  if (*ticket != num_splits - 1) return;
+  __threadfence();
+  const int64_t first = static_cast<int64_t>(group) * args.max_splits;
+  for (int i = threadIdx.x; i < kQueries * D; i += kThreads) {
+    const int qi = i / D;
+    if (u0 + qi >= rows) continue;
+    float m_max = -INFINITY;
+    for (int s = 0; s < num_splits; ++s) m_max = fmaxf(m_max, __ldcg(args.partial_ml + ((first + s) * kQueries + qi) * 2));
+    float total = 0.f;
+    float o = 0.f;
+    for (int s = 0; s < num_splits; ++s) {
+      const float m_split = __ldcg(args.partial_ml + ((first + s) * kQueries + qi) * 2);
+      const float w = exp2f(m_split - m_max);
+      total += w * __ldcg(args.partial_ml + ((first + s) * kQueries + qi) * 2 + 1);
+      o += w * __ldcg(args.partial_o + (first + s) * kQueries * D + i);
+    }
+    out[q_offset(u0 + qi) + (i - qi * D)] = from_float<T>(o / total);
+  }
+  if (threadIdx.x == 0) args.counters[group] = 0;  // ready for the next launch
+}
+
+template <typename T, typename P, int D>
+cudaError_t launch(const DecodeArgs& args, int num_slots, cudaStream_t stream) {
+  if (is_quantized<P>::value && (args.k_scales == nullptr || args.v_scales == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = Layout<T, P, D>::bytes;
+  auto kernel = paged_decode_kernel<T, P, D>;
+  cudaError_t err = allow_shared_memory(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(args.max_splits, args.num_kv_heads * args.query_groups, num_slots);
+  kernel<<<grid, kThreads, smem, stream>>>(args);
+  return cudaGetLastError();
 }
 
 template <typename T, typename P>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, const float* k_scales,
-                   const float* v_scales, const int* table, const int* lengths, void* out,
-                   int num_slots, int width, int num_q_heads, int num_kv_heads, int head_dim,
-                   int page_size, int max_pages, float scale, cudaStream_t stream) {
-  if (is_quantized<P>::value && (k_scales == nullptr || v_scales == nullptr))
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      (static_cast<size_t>(width) * (max_pages * page_size + (1 + kWarps) * head_dim) + 32) *
-          sizeof(float) +
-      static_cast<size_t>(max_pages) * sizeof(int);
-  auto kernel = paged_decode_kernel<T, P>;
-  cudaError_t err = allow_shared_memory(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(num_q_heads, num_slots);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(k_pages), static_cast<const P*>(v_pages),
-      k_scales, v_scales, table, lengths, static_cast<T*>(out), width, num_q_heads, num_kv_heads,
-      head_dim, page_size, max_pages, scale);
-  return cudaGetLastError();
+cudaError_t dispatch_dim(const DecodeArgs& args, int num_slots, int head_dim, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16:
+      return launch<T, P, 16>(args, num_slots, stream);
+    case 64:
+      return launch<T, P, 64>(args, num_slots, stream);
+    case 80:
+      return launch<T, P, 80>(args, num_slots, stream);
+    case 128:
+      return launch<T, P, 128>(args, num_slots, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // the page types a T query reads: its own, bf16, int8 or fp8 e4m3 codes
 template <typename T>
-cudaError_t launch_pages(int page_dtype, const void* q, const void* k_pages, const void* v_pages,
-                         const float* k_scales, const float* v_scales, const int* table,
-                         const int* lengths, void* out, int num_slots, int width, int num_q_heads,
-                         int num_kv_heads, int head_dim, int page_size, int max_pages, float scale,
-                         cudaStream_t stream) {
-#define DOLO_DECODE(P)                                                                          \
-  launch<T, P>(q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, num_slots, width, \
-               num_q_heads, num_kv_heads, head_dim, page_size, max_pages, scale, stream)
+cudaError_t dispatch_pages(const DecodeArgs& args, int num_slots, int head_dim, int page_dtype,
+                           cudaStream_t stream) {
   switch (page_dtype) {
     case dolo::kFloat32:
-      if constexpr (std::is_same<T, float>::value) return DOLO_DECODE(float);
+      if constexpr (std::is_same<T, float>::value) return dispatch_dim<T, float>(args, num_slots, head_dim, stream);
       return cudaErrorInvalidValue;  // fp32 pages under a bf16 query
     case dolo::kBFloat16:
-      return DOLO_DECODE(__nv_bfloat16);
+      return dispatch_dim<T, __nv_bfloat16>(args, num_slots, head_dim, stream);
     case dolo::kInt8:
-      return DOLO_DECODE(int8_t);
+      return dispatch_dim<T, int8_t>(args, num_slots, head_dim, stream);
     case dolo::kFloat8E4M3:
-      return DOLO_DECODE(__nv_fp8_e4m3);
+      return dispatch_dim<T, __nv_fp8_e4m3>(args, num_slots, head_dim, stream);
     default:
       return cudaErrorInvalidValue;
   }
-#undef DOLO_DECODE
 }
 
 }  // namespace
 
+// Scratch the wrapper allocates for one launch: query groups per kv head, the most key
+// splits of a slot, and the floats a split's partial takes per group (outputs, then
+// max / denominator pairs). kSpan and kQueries live here only.
+extern "C" int dolo_paged_decode_plan(int num_q_heads, int num_kv_heads, int width, int view_len,
+                                      int* plan) {
+  plan[0] = (num_q_heads / num_kv_heads * width + kQueries - 1) / kQueries;
+  plan[1] = (view_len + kSpan - 1) / kSpan;
+  plan[2] = kQueries;
+  return 0;
+}
+
 extern "C" int dolo_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                  const void* k_scales, const void* v_scales, const void* table,
-                                 const void* lengths, void* out, int num_slots, int width,
-                                 int num_q_heads, int num_kv_heads, int head_dim, int page_size,
-                                 int max_pages, float scale, int dtype, int page_dtype,
-                                 void* stream) {
+                                 const void* lengths, void* out, void* partial_o, void* partial_ml,
+                                 void* counters, int num_slots, int width, int num_q_heads,
+                                 int num_kv_heads, int head_dim, int page_size, int max_pages,
+                                 float scale, int dtype, int page_dtype, void* stream) {
   if (num_slots <= 0) return cudaSuccess;
-  if (head_dim > 32 * kMaxFeaturesPerLane) return cudaErrorInvalidValue;
+  int plan[3];
+  dolo_paged_decode_plan(num_q_heads, num_kv_heads, width, max_pages * page_size, plan);
+  const DecodeArgs args{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+                        static_cast<const float*>(v_scales), static_cast<const int*>(table),
+                        static_cast<const int*>(lengths), out, static_cast<float*>(partial_o),
+                        static_cast<float*>(partial_ml), static_cast<int*>(counters), width,
+                        num_q_heads, num_kv_heads, page_size, max_pages, plan[1], plan[0], scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
-  const int* t = static_cast<const int*>(table);
-  const int* l = static_cast<const int*>(lengths);
   switch (dtype) {
     case dolo::kFloat32:
-      return launch_pages<float>(page_dtype, q, k_pages, v_pages, ks, vs, t, l, out, num_slots,
-                                 width, num_q_heads, num_kv_heads, head_dim, page_size, max_pages,
-                                 scale, s);
+      return dispatch_pages<float>(args, num_slots, head_dim, page_dtype, s);
     case dolo::kBFloat16:
-      return launch_pages<__nv_bfloat16>(page_dtype, q, k_pages, v_pages, ks, vs, t, l, out,
-                                         num_slots, width, num_q_heads, num_kv_heads, head_dim,
-                                         page_size, max_pages, scale, s);
+      return dispatch_pages<__nv_bfloat16>(args, num_slots, head_dim, page_dtype, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -198,23 +198,30 @@ def _is_scalar_index(cache_index) -> bool:
     )
 
 
-def _paged_kernel_eligible(kv_cache, cache_index, attention_mask, causal: bool) -> bool:
+def _paged_kernel_eligible(
+    kv_cache, cache_index, attention_mask, segment_ids, causal: bool, dropout: float
+) -> bool:
     """The serving decode/verify step: paged pool, per-row [B] frontier vector, plain
-    causal attention with no incoming mask (the port carries no segments, alibi or
-    dropout, the JAX condition's other terms)."""
+    causal attention with no incoming mask, segments or dropout (the JAX condition; an
+    alibi bias over a paged cache raises before this)."""
     return (
         kv_cache is not None
         and "page_table" in kv_cache
         and isinstance(cache_index, torch.Tensor)
         and cache_index.ndim == 1
         and attention_mask is None
+        and segment_ids is None
         and causal
+        and dropout == 0.0
     )
 
 
-def _paged_prefill_eligible(kv_cache, cache_index, attention_mask, causal: bool, seq: int) -> bool:
+def _paged_prefill_eligible(
+    kv_cache, cache_index, attention_mask, segment_ids, causal: bool, dropout: float, seq: int
+) -> bool:
     """The engine's chunked-prefill shape: paged pool, multi-token window, one scalar
-    write offset, and the chunk's 2-D key-side prefix mask over the page view."""
+    write offset, the chunk's 2-D key-side prefix mask over the page view, no segments
+    and no dropout (the JAX condition)."""
     return (
         kv_cache is not None
         and "page_table" in kv_cache
@@ -223,7 +230,9 @@ def _paged_prefill_eligible(kv_cache, cache_index, attention_mask, causal: bool,
         and _is_scalar_index(cache_index)
         and attention_mask is not None
         and attention_mask.ndim == 2
+        and segment_ids is None
         and causal
+        and dropout == 0.0
     )
 
 
@@ -349,6 +358,7 @@ class Attention(nn.Module):
             qkv, self.num_heads, self.num_kv_heads, self.head_dim, rope_cos_sin
         )
         softmax_scale = get_softmax_scale(config, self.head_dim)
+        dropout = 0.0 if deterministic else config.attn_pdrop
 
         query_offset = 0
         if kv_cache is not None:
@@ -367,7 +377,7 @@ class Attention(nn.Module):
                 )
             table = kv_cache["page_table"]
             if config.attention_softmax_in_fp32 and _paged_kernel_eligible(
-                kv_cache, cache_index, attention_mask, self.causal
+                kv_cache, cache_index, attention_mask, segment_ids, self.causal, dropout
             ):
                 _scatter_chunk(key, value, kv_cache, cache_index, None)
                 out = paged_decode_attention(
@@ -377,7 +387,7 @@ class Attention(nn.Module):
                 )
                 return self._project_out(out, deterministic), kv_cache
             if config.attention_softmax_in_fp32 and _paged_prefill_eligible(
-                kv_cache, cache_index, attention_mask, self.causal, seq
+                kv_cache, cache_index, attention_mask, segment_ids, self.causal, dropout, seq
             ):
                 _scatter_chunk(key, value, kv_cache, cache_index, attention_mask)
                 start = torch.as_tensor(cache_index, dtype=torch.int32, device=query.device)
@@ -403,7 +413,7 @@ class Attention(nn.Module):
             query_offset=query_offset,
             implementation=self.attention_implementation,
             segment_ids=segment_ids,
-            dropout=0.0 if deterministic else config.attn_pdrop,
+            dropout=dropout,
             alibi_bias=alibi_bias,
         )
         return self._project_out(out, deterministic), kv_cache

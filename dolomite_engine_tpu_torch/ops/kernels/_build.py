@@ -39,9 +39,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dolo_rmsnorm": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     "dolo_rope_qkv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "dolo_paged_decode": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
+    "dolo_paged_decode": (_P,) * 11 + (_I,) * 7 + (_F, _I, _I, _P),
+    "dolo_paged_decode_plan": (_I,) * 4 + (_P,),
     "dolo_paged_prefill": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
-    "dolo_paged_prefill_smem_bytes": (_I,),
+    "dolo_paged_prefill_smem_bytes": (_I,) * 4,
     "dolo_flash_fwd": (_P,) * 7 + (_I,) * 9 + (_F, _I, _P),
     "dolo_flash_bwd": (_P,) * 12 + (_I,) * 9 + (_F, _I, _P),
     "dolo_fused_ce": (_P,) * 6 + (_I,) * 3 + (_F, _I, _I, _P),

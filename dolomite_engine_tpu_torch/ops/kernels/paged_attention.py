@@ -2,12 +2,16 @@
 
 Replaces the TPU kernel ``paged_decode_attention``
 (`dolomite_engine_tpu/ops/pallas/paged_attention.py`). Bound on the H100 by
-device-memory bytes: each slot's resident K/V is read once per step. The kernel walks
-each slot's page-table row only up to its frontier, so traffic follows resident tokens,
-keeps GQA native and holds the fp32 score row in shared memory for an exact softmax (see
-``dolomite_engine_tpu_torch/csrc/paged_attention.cu``). Pages may be in the query's
-dtype, in bf16 under an fp32 query, or int8 / fp8 codes with their ``[P, Hkv]`` fp32
-scale pools, dequantized in the page walk (a quantized pool, `serving/kv_cache`).
+device-memory bytes: each slot's resident K/V is read once per step. The kernel splits
+each slot's keys into spans of 256 positions, one block per (span, kv head, slot) for
+all query rows of the kv head's GQA group (so K/V is read once per group), stages the
+pages through a cp.async ring with 16-byte loads, keeps an online-softmax partial per
+split and merges the splits in a fixed order in the same launch (the last split of a
+group to finish merges; see ``dolomite_engine_tpu_torch/csrc/paged_attention.cu``).
+Probabilities are rounded to the query's dtype per split, before they are normalised.
+Pages may be in the query's dtype, in bf16 under an fp32 query, or int8 / fp8 codes with
+their ``[P, Hkv]`` fp32 scale pools, dequantized in the page walk (a quantized pool,
+`serving/kv_cache`).
 
 `paged_decode_attention` launches the kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.
@@ -15,13 +19,15 @@ plain version for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..attention import eager_attention, make_attention_mask, paged_gather_kv, paged_gather_kv_dequant
 from ..kv_quant import is_quantized
 from ._build import (
     DTYPE_CODES,
-    MAX_SHARED_BYTES,
     KernelSpec,
     check_cuda_tensor,
     check_launch,
@@ -110,14 +116,37 @@ def check_cuda_pages(q, k_pages, v_pages, k_scales, v_scales) -> None:
             check_cuda_tensor(tensor, name, device, dtypes=(torch.float32,))
 
 
-_WARPS = 8  # warps per block in csrc/paged_attention.cu
-MAX_HEAD_DIM = 256  # 8 features per lane of a warp
+# head dims the CUDA kernels (decode and prefill) are built for
+HEAD_DIMS = (16, 64, 80, 128)
 
 
-def decode_shared_bytes(width: int, head_dim: int, page_size: int, max_pages: int) -> int:
-    """Shared memory of one decode block: score rows, queries, the warps' PV partials,
-    reduction slots and the table row."""
-    return (width * (max_pages * page_size + (1 + _WARPS) * head_dim) + 32) * 4 + max_pages * 4
+@functools.lru_cache(maxsize=64)
+def _plan(num_q_heads: int, num_kv_heads: int, width: int, view_len: int) -> tuple[int, int, int]:
+    """(query groups per kv head, most key splits of a slot, query rows per group) of one
+    decode launch, as ``csrc/paged_attention.cu`` cuts it."""
+    plan = (ctypes.c_int * 3)()
+    load_library().dolo_paged_decode_plan(num_q_heads, num_kv_heads, width, view_len, plan)
+    return tuple(plan)
+
+
+# per device: the split-merge counters (zero between launches: the merging block resets
+# its own) and the split partials' scratch, grown on demand
+_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, groups: int, floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    counters, partials = _SCRATCH.get(device, (None, None))
+    if counters is None or counters.numel() < groups:
+        counters = torch.zeros(groups, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < floats:
+        partials = torch.empty(floats, dtype=torch.float32, device=device)
+    _SCRATCH[device] = (counters, partials)
+    return counters, partials
+
+
+def check_head_dim(head_dim: int, kernel: str) -> None:
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not one of the {kernel} kernel's {HEAD_DIMS}")
 
 
 def paged_decode_attention(
@@ -135,7 +164,8 @@ def paged_decode_attention(
     q ``[S, W, Hq, D]``; pages ``[P, page_size, Hkv, D]`` in q's dtype or bf16, or int8 /
     fp8 codes with ``k_scales`` / ``v_scales`` ``[P, Hkv]`` fp32; page_table ``[S,
     max_pages]`` int32; lengths ``[S]`` int32 (the pre-write frontier). Returns ``[S, W,
-    Hq, D]``."""
+    Hq, D]``. On the card, launches on one device run on one stream at a time: they share
+    that device's split counters and scratch."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, lengths, softmax_scale, k_scales, v_scales
@@ -149,19 +179,18 @@ def paged_decode_attention(
     check_cuda_tensor(page_table, "page_table", device, dtypes=(torch.int32,))
     check_cuda_tensor(lengths, "lengths", device, dtypes=(torch.int32,))
     num_slots, width, num_q_heads, head_dim = q.shape
-    num_pages, page_size, num_kv_heads, _ = k_pages.shape
+    _, page_size, num_kv_heads, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    if head_dim > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {head_dim} exceeds the decode kernel's {MAX_HEAD_DIM}")
-    if decode_shared_bytes(width, head_dim, page_size, max_pages) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"a {width}-query window over {max_pages} pages of {page_size} exceeds the "
-            "decode kernel's shared-memory score row"
-        )
+    check_head_dim(head_dim, "decode")
+    query_groups, max_splits, rows = _plan(num_q_heads, num_kv_heads, width, max_pages * page_size)
+    groups = num_slots * num_kv_heads * query_groups
+    outputs = groups * max_splits * rows * head_dim
+    counters, partials = _scratch(device, groups, outputs + groups * max_splits * rows * 2)
     out = torch.empty_like(q)
     code = load_library().dolo_paged_decode(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales), ptr(page_table),
-        ptr(lengths), ptr(out), num_slots, width, num_q_heads, num_kv_heads, head_dim, page_size,
+        ptr(lengths), ptr(out), ptr(partials), ctypes.c_void_p(partials.data_ptr() + 4 * outputs),
+        ptr(counters), num_slots, width, num_q_heads, num_kv_heads, head_dim, page_size,
         max_pages, float(softmax_scale), DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
         current_stream(device),
     )

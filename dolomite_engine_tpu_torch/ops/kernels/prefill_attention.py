@@ -3,12 +3,16 @@ version.
 
 Replaces the TPU kernel ``paged_prefill_attention``
 (`dolomite_engine_tpu/ops/pallas/prefill_attention.py`). Bound on the H100 by operations
-for wide chunks and by bytes for narrow ones. The kernel tiles queries and keys in
-shared memory, runs the online-softmax recurrence in fp32 and walks only the pages under
-each query block's causal frontier (see
-``dolomite_engine_tpu_torch/csrc/prefill_attention.cu``). Pages may be in the query's
-dtype, in bf16 under an fp32 query, or int8 / fp8 codes with their ``[P, Hkv]`` fp32
-scale pools, dequantized in fp32 as the tiles are staged.
+for wide chunks and by bytes for narrow ones. The kernel is FlashAttention-2 on the
+tensor cores (bf16 ``mma.sync``, fp32 accumulate; an fp32 query takes the same tiles by
+scalar fp32 FMA): one block per (64-query tile, query head, chunk row), Q and the
+online-softmax state in registers, 64-key tiles streamed through a cp.async ring
+straight off the page-table row, masked per element only where a tile crosses the
+query tile's frontier (see ``dolomite_engine_tpu_torch/csrc/prefill_attention.cu``).
+Pages may be in the query's dtype, in bf16 under an fp32 query, or int8 / fp8 codes with
+their ``[P, Hkv]`` fp32 scale pools: under a bf16 query the codes enter the products as
+bf16 (exactly) and the K scale multiplies the scores, the V scale the probabilities
+before they are rounded to bf16; under an fp32 query they are dequantized in fp32.
 
 `paged_prefill_attention` launches the kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.
@@ -29,7 +33,7 @@ from ._build import (
     load_library,
     ptr,
 )
-from .paged_attention import check_cuda_pages, check_page_types, gather_pages
+from .paged_attention import check_cuda_pages, check_head_dim, check_page_types, gather_pages
 
 KERNEL = KernelSpec(
     name="paged_prefill_attention",
@@ -107,15 +111,17 @@ def paged_prefill_attention(
     check_cuda_tensor(start, "start", device, dtypes=(torch.int32,))
     num_rows, chunk, num_q_heads, head_dim = q.shape
     _, page_size, num_kv_heads, _ = k_pages.shape
+    check_head_dim(head_dim, "prefill")
     lib = load_library()
-    if lib.dolo_paged_prefill_smem_bytes(head_dim) > MAX_SHARED_BYTES:
-        raise ValueError(f"head_dim {head_dim} exceeds the prefill kernel's shared-memory tiles")
+    max_pages = page_table.shape[1]
+    dtypes = (DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype])
+    if lib.dolo_paged_prefill_smem_bytes(head_dim, *dtypes, max_pages) > MAX_SHARED_BYTES:
+        raise ValueError(f"a {max_pages}-page table row exceeds the prefill kernel's shared memory")
     out = torch.empty_like(q)
     code = lib.dolo_paged_prefill(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales), ptr(page_table),
         ptr(start), ptr(out), num_rows, chunk, num_q_heads, num_kv_heads, head_dim, page_size,
-        page_table.shape[1], float(softmax_scale), DTYPE_CODES[q.dtype],
-        DTYPE_CODES[k_pages.dtype], current_stream(device),
+        max_pages, float(softmax_scale), *dtypes, current_stream(device),
     )
     check_launch(code, KERNEL.name)
     KERNEL.launches += 1

@@ -183,6 +183,95 @@ def test_paged_prefill_kernel_matches_plain(
     torch.testing.assert_close(got, want, atol=tol, rtol=1e-5 if tol == 1e-5 else 0)
 
 
+# The split decode kernel cuts a slot's keys into spans of 256 positions (SPAN) and
+# merges the spans' partials; the prefill kernel walks 64-key tiles and masks the ones
+# that cross a 64-query tile's frontier.
+SPAN = 256
+
+
+@pytest.mark.parametrize(
+    "num_slots,width,hq,hkv,head_dim,max_pages,lengths",
+    [
+        # the last row's frontier exactly on a split boundary (256 keys: one split), one
+        # past it (257: a second split of one key), and the same at 512 / 513
+        (4, 1, 8, 2, 80, 64, [SPAN - 1, SPAN, 2 * SPAN - 1, 2 * SPAN]),
+        # the W=4 window: row 0 sees 256 keys and row 3 259, so row 0 sees nothing of
+        # the second split; a slot shorter than one split; an idle slot
+        (4, 4, 8, 2, 80, 64, [SPAN - 4, SPAN - 3, 10, 0]),
+        # the MoE model: 16 query heads over 8 kv heads of 64
+        (8, 1, 16, 8, 64, 128, [2047, 1, 300, 1024, 0, 1500, 17, 640]),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_split_boundaries_match_plain(
+    num_slots, width, hq, hkv, head_dim, max_pages, lengths, dtype
+):
+    q, k, v, table, lens = _decode_case(
+        13, num_slots, width, hq, hkv, head_dim, 16, max_pages, lengths, dtype
+    )
+    scale = head_dim**-0.5
+    got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale)
+    again = paged_attention.paged_decode_attention(q, k, v, table, lens, scale)
+    want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)  # the merge order is fixed: bitwise reproducible
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-5 if tol == 1e-5 else 0)
+
+
+@pytest.mark.parametrize(
+    "chunk,hq,hkv,head_dim,page_size,max_pages,starts",
+    [
+        (24, 8, 2, 80, 16, 16, [50, 37]),  # a 24-token tail crossing a 64-key tile
+        (40, 8, 2, 80, 16, 16, [30, 100]),
+        (512, 32, 32, 80, 16, 128, [33]),  # granite: a start that is not a multiple of 64
+        (512, 32, 32, 80, 16, 128, [1000]),
+        (512, 16, 8, 64, 16, 128, [0]),  # the MoE model
+        (512, 16, 8, 64, 16, 128, [1100]),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_tile_crossings_match_plain(
+    chunk, hq, hkv, head_dim, page_size, max_pages, starts, dtype
+):
+    lengths = [s + chunk - 1 for s in starts]
+    q, k, v, table, _ = _decode_case(
+        14, len(starts), 1, hq, hkv, head_dim, page_size, max_pages, lengths, dtype
+    )
+    q = _rand(torch.Generator(device="cuda").manual_seed(15), (len(starts), chunk, hq, head_dim), dtype)
+    start = torch.as_tensor(np.asarray(starts, np.int32), device="cuda")
+    scale = head_dim**-0.5
+    got = prefill_attention.paged_prefill_attention(q, k, v, table, start, scale)
+    want = prefill_attention.paged_prefill_attention_plain(q, k, v, table, start, scale)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-5 if tol == 1e-5 else 0)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_moe_shape_over_quantized_pages_matches_plain(kernel, kv_dtype):
+    """The MoE model's attention (16 query heads over 8 kv heads of 64), bf16 query over
+    a quantized pool, at split and tile boundaries."""
+    lengths = [SPAN - 1, SPAN, 2047, 0] if kernel == "decode" else [1100 + 511]
+    q, _, _, table, lens = _decode_case(16, len(lengths), 1, 16, 8, 64, 16, 128, lengths, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    k, v, ks, vs = _quantized_pool(g, 1 + len(lengths) * 128, 16, 8, 64, kv_dtype)
+    scale = 64**-0.5
+    if kernel == "decode":
+        got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale, ks, vs)
+        want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale, ks, vs)
+    else:
+        q = _rand(g, (1, 512, 16, 64), torch.bfloat16)
+        start = torch.tensor([1100], dtype=torch.int32, device="cuda")
+        got = prefill_attention.paged_prefill_attention(q, k, v, table, start, scale, ks, vs)
+        want = prefill_attention.paged_prefill_attention_plain(q, k, v, table, start, scale, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=0)
+
+
 @pytest.mark.parametrize(
     "num_pages,heads,head_dim",
     [(5, 2, 16), (16, 32, 80), (33, 32, 80), (16, 8, 64), (33, 8, 64)],  # odd, then the slices' windows
@@ -317,13 +406,19 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     x = torch.zeros((4, 64), device="cuda").t()  # strided view
     with pytest.raises(ValueError):
         rmsnorm.fused_rmsnorm(x, torch.ones(4, device="cuda"), 1e-5)
-    huge = torch.zeros((1, 8, 4, 16), device="cuda")
-    with pytest.raises(ValueError):  # a score row that cannot fit shared memory
-        paged_attention.paged_decode_attention(
-            huge, torch.zeros((2, 16, 4, 16), device="cuda"),
-            torch.zeros((2, 16, 4, 16), device="cuda"),
-            torch.zeros((1, 4096), device="cuda", dtype=torch.int32),
-            torch.zeros((1,), device="cuda", dtype=torch.int32), 0.25,
+    odd = torch.zeros((1, 8, 4, 32), device="cuda")  # head_dim 32: no kernel is built for it
+    odd_pages = torch.zeros((2, 16, 4, 32), device="cuda")
+    one_row = torch.zeros((1, 2), device="cuda", dtype=torch.int32)
+    zero = torch.zeros((1,), device="cuda", dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention.paged_decode_attention(odd, odd_pages, odd_pages, one_row, zero, 0.25)
+    with pytest.raises(ValueError, match="head_dim"):
+        prefill_attention.paged_prefill_attention(odd, odd_pages, odd_pages, one_row, zero, 0.25)
+    q16 = torch.zeros((1, 8, 4, 16), device="cuda")
+    pages16 = torch.zeros((2, 16, 4, 16), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):  # a table row that cannot fit
+        prefill_attention.paged_prefill_attention(
+            q16, pages16, pages16, torch.zeros((1, 60000), device="cuda", dtype=torch.int32), zero, 0.25
         )
 
 

@@ -167,6 +167,100 @@ def test_unported_position_type_raises():
         model(torch.ones((1, 1), dtype=torch.long), kv_caches=caches, cache_index=torch.tensor([8], dtype=torch.int32))
 
 
+# the paged gates' JAX terms: a paged step with segment ids, or with attention dropout,
+# leaves the kernels for the gather path (chunked prefill: scalar index and a 2-D prefix
+# mask; decode: a [B] frontier vector)
+GATE_STEPS = {
+    "decode": ("paged_decode_attention", 1),
+    "chunked_prefill": ("paged_prefill_attention", 8),
+}
+
+
+def _paged_step_inputs(step, seed=3):
+    """Inputs of one paged step on fresh pools: ids, position ids, mask, caches and the
+    cache index, as numpy arrays (cache_index [8] for decode, 8 for a chunk)."""
+    rs = np.random.RandomState(seed)
+    width = GATE_STEPS[step][1]
+    pools = [[rs.randn(12, PAGE, 2, 8).astype(np.float32) for _ in range(2)] for _ in range(2)]
+    table = np.array([[3, 5, 0, 0]], np.int32)
+    ids = rs.randint(3, 96, (1, width))
+    positions = (8 + np.arange(width))[None]
+    if step == "decode":
+        return ids, positions, None, pools, table, np.array([8], np.int32)
+    mask = np.zeros((1, 4 * PAGE), np.int32)
+    mask[0, : 8 + width] = 1
+    return ids, positions, mask, pools, table, np.int32(8)
+
+
+def _port_paged_step(model, step, **kwargs):
+    ids, positions, mask, pools, table, index = _paged_step_inputs(step)
+    caches = [
+        {"k": torch.from_numpy(k), "v": torch.from_numpy(v), "page_table": torch.from_numpy(table)}
+        for k, v in pools
+    ]
+    with torch.no_grad():
+        return model(
+            torch.from_numpy(ids), position_ids=torch.from_numpy(positions),
+            attention_mask=None if mask is None else torch.from_numpy(mask), kv_caches=caches,
+            cache_index=torch.as_tensor(index), **kwargs,
+        ).logits
+
+
+def _count_calls(monkeypatch, step):
+    """Count the calls of the step's kernel wrapper as the model's attention calls it."""
+    from dolomite_engine_tpu_torch.models import modeling_utils
+
+    name = GATE_STEPS[step][0]
+    wrapper = getattr(modeling_utils, name)
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(name)
+        return wrapper(*args, **kwargs)
+
+    monkeypatch.setattr(modeling_utils, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("step", list(GATE_STEPS))
+def test_paged_step_with_segment_ids_raises_as_jax_does(step):
+    jax_model, params, model = make_models()
+    ids, positions, mask, pools, table, index = _paged_step_inputs(step)
+    segments = np.ones(ids.shape, np.int32)
+    match = "packed segment attention with KV cache is not supported"
+    with kernel_overrides(**ALL_KERNELS), pytest.raises(NotImplementedError, match=match):
+        jax_model.apply(
+            {"params": params}, jnp.asarray(ids), position_ids=jnp.asarray(positions),
+            attention_mask=None if mask is None else jnp.asarray(mask),
+            kv_caches=[{"k": jnp.asarray(k), "v": jnp.asarray(v), "page_table": jnp.asarray(table)} for k, v in pools],
+            cache_index=jnp.asarray(index), segment_ids=jnp.asarray(segments),
+        )
+    with pytest.raises(NotImplementedError, match=match):
+        _port_paged_step(model, step, segment_ids=torch.from_numpy(segments))
+
+
+@pytest.mark.parametrize("step", list(GATE_STEPS))
+def test_paged_step_with_attention_dropout_takes_the_gather_path(step, monkeypatch):
+    _, _, model = make_models(dict(ROPE_GQA, attn_pdrop=0.9))
+    calls = _count_calls(monkeypatch, step)
+    torch.manual_seed(0)
+    dropped = _port_paged_step(model, step, deterministic=False)
+    assert calls == []
+    kept = _port_paged_step(model, step)
+    assert len(calls) == model.config.n_layer  # deterministic: the kernel's wrapper
+    assert torch.isfinite(dropped).all()
+    assert not torch.equal(dropped, kept)
+
+
+@pytest.mark.parametrize("step", list(GATE_STEPS))
+def test_paged_step_without_attention_dropout_is_deterministic(step, monkeypatch):
+    _, _, model = make_models(dict(ROPE_GQA, attn_pdrop=0.0))
+    calls = _count_calls(monkeypatch, step)
+    stochastic = _port_paged_step(model, step, deterministic=False)
+    assert len(calls) == model.config.n_layer  # a 0.0 rate keeps the kernel
+    assert torch.equal(stochastic, _port_paged_step(model, step))
+
+
 def test_load_jax_params_rejects_a_mismatched_tree():
     _, params, model = make_models()
     params_np = jax.tree.map(np.asarray, nn.unbox(params))
