@@ -56,10 +56,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 The grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
 transposed-bank dX form, tgmm, and a case with most experts empty) and the quantized
 pool's cases (kv_quant at both models' decode and prefill windows, the decode and prefill
-kernels over int8 / fp8 pages, an fp32 query over a bf16 pool) and the additive-bias /
-non-causal flash form's cases (causal alibi over packed documents at the alibi slice's
-layer shape, the causal form without a bias on the same inputs, non-causal with and
-without the bias, alibi over a left-padded batch) run in phase 2.
+kernels over int8 / fp8 pages beside the same cases over bf16 pages at the MoE shape and
+at start 1536, an fp32 query over a bf16 pool) and the additive-bias / non-causal flash
+form's cases (causal alibi over packed documents at the alibi slice's layer shape, the
+causal form without a bias on the same inputs, non-causal with and without the bias,
+alibi over a left-padded batch) run in phase 2. Each case reports ``kernel_ms`` (CUDA
+events around back-to-back calls, host enqueue included) and ``device_ms`` (the same
+calls queued behind a sleep kernel, so the card runs them without waiting for the host).
 
 Prints the card's name and power limit, a ``kernel_cases`` line (every case of phase 2),
 ``serving``, ``profile``, ``quantized_check``, ``training_check``, ``training``,
@@ -157,6 +160,27 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters=20, warmup=3, sleep_cycles=20_000_000):
+    """Mean device time of one call with the host out of the way: the `iters` calls are
+    queued behind a sleep kernel (~10 ms), so the card runs them back to back however
+    long the host takes to enqueue them. `_time_ms` of a call whose enqueue outlasts its
+    kernel measures the host."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _bf16_ulp(x):
     import torch
 
@@ -182,7 +206,8 @@ def _record(
     case = {
         "kernel": kernel, "shape": shape, "dtype": dtype_name,
         "max_abs_err": err, "tolerance": tol, "within_tolerance": bool(ok),
-        "kernel_ms": _time_ms(run), "plain_ms": _time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
+        "kernel_ms": _time_ms(run), "device_ms": _device_ms(run),
+        "plain_ms": _time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
         "library_ms": None if library is None else _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -1878,7 +1903,7 @@ def main() -> int:
             "name": spec.name, "route": "cuda", "source": spec.source, "replaces": spec.replaces,
             "launches": launches, "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in bf16),
-            "ms": main_case["kernel_ms"], "kernel_ms": main_case["kernel_ms"],
+            "ms": main_case["kernel_ms"], "kernel_ms": main_case["kernel_ms"], "device_ms": main_case["device_ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
             "shape": main_case["shape"], "tolerance": main_case["tolerance"],

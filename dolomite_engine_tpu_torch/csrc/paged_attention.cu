@@ -15,8 +15,9 @@
 //   blocks): GQA reads each K/V byte once, and a ragged batch spreads over the card (a
 //   2047-token slot is 8 splits, a 64-token one 1) instead of the longest slot setting
 //   the time. Blocks past a slot's last split exit at once.
-// - Loads. The split's positions stream through a two-stage cp.async ring of 64-key tiles
-//   (paged.cuh: 16-byte copies, the source of each row found once per row); head_dim is
+// - Loads. The split's positions stream through a cp.async ring of 64-key tiles
+//   (paged.cuh: 16-byte copies, the source of each row found once per row, the span's
+//   page-table entries read into shared memory once); head_dim is
 //   a template parameter, so every loop unrolls. Q K: two threads per key, each over
 //   half the features in 8-element vectors (one 16-byte load for bf16). P V: lanes over
 //   8-feature vectors of a value row (16 bytes a lane for bf16), several keys per warp.
@@ -28,6 +29,11 @@
 //   merging block resets) merges all partials in split order 0, 1, ..., each rescaled
 //   by exp(m_split - m): the result does not depend on which block finishes last.
 // - Shared memory holds a few tiles, whatever max_len is: no score row.
+// Measured on an H100 (PERF.md §6, PR 6): ~2.2x the bytes bound at granite's decode
+// shape, and int8 pages (half the bytes) take nearly as long as bf16 ones, so what is
+// left is the latency of the scattered 80-160-byte row fetches per block, not the HBM
+// rate; the span (128-512) and the ring depth (1-3) barely move it
+// (scripts/paged_kernel_ab.py --constant).
 //
 // Rounding. The plain version (and the Pallas kernel) rounds the normalised
 // probabilities to T before P V. A split cannot normalise; here each probability
@@ -87,9 +93,14 @@ struct Layout {
   static constexpr size_t stage_bytes = ring_bytes > reduce_bytes ? ring_bytes : reduce_bytes;
   static constexpr size_t scale_bytes = is_quantized<P>::value ? kStages * 2 * kTile * sizeof(float) : 0;
   // then q [kQueries][D], the two half-dot rows [2][kQueries][kTile], probabilities
-  // [kQueries][kTile], the rescales, maxima and denominators [3][kQueries], the ticket
+  // [kQueries][kTile], the rescales, maxima and denominators [3][kQueries], the ticket,
+  // and the page-table entries of the span's positions (one more than kSpan / page_size
+  // when a span starts mid-page)
   static constexpr size_t bytes = stage_bytes + scale_bytes +
                                   (kQueries * D + 3 * kQueries * kTile + 3 * kQueries + 4) * sizeof(float);
+  static size_t with_table(int page_size) {
+    return bytes + static_cast<size_t>((kSpan - 1) / page_size + 2) * sizeof(int);
+  }
 };
 
 // dequantize a staged code as the reference does, round_to<T>(code * scale); other page
@@ -119,45 +130,67 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(DecodeArgs args)
   float* row_max = rescale + kQueries;
   float* row_sum = row_max + kQueries;
   int* ticket = reinterpret_cast<int*>(row_sum + kQueries);
+  int* span_pages = ticket + 4;  // the page-table entries of the span's positions
 
   const int split = blockIdx.x;
   const int kv_head = blockIdx.y / args.query_groups;
   const int query_group = blockIdx.y - kv_head * args.query_groups;
   const int slot = blockIdx.z;
-  const int length = args.lengths[slot];
-  const int view_len = args.max_pages * args.page_size;
-  const int num_keys = min(length + args.width, view_len);  // positions the last row may see
-  const int num_splits = (num_keys + kSpan - 1) / kSpan;
-  if (split >= num_splits) return;
   const int rows = num_group_rows(args);
   const int group_size = args.num_q_heads / args.num_kv_heads;
   const int u0 = query_group * kQueries;  // the block's first query row
   const int key0 = split * kSpan;
-  const int key_end = min(key0 + kSpan, num_keys);
-  const int num_tiles = (key_end - key0 + kTile - 1) / kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
+  const int first_page = key0 / args.page_size;
+  // the span's page-table entries within the row (those past the slot's frontier are
+  // read but never used) and the query rows do not depend on the slot's length: their
+  // loads go out together with the length's, so the block waits on one load latency
+  // before its first tile, not three; a tile's fetch then finds its pages in shared
+  // memory
+  const int* table_row = args.table + static_cast<int64_t>(slot) * args.max_pages;
+  const int row_pages = min((key0 + kSpan - 1) / args.page_size + 1, args.max_pages) - first_page;
+  const int entry = threadIdx.x < row_pages ? table_row[first_page + threadIdx.x] : 0;
   // query row u of the group is (query head kv_head * group_size + u / W, window row u % W)
   auto q_offset = [&](int u) {
     const int head = kv_head * group_size + u / args.width;
     return ((static_cast<int64_t>(slot) * args.width + u % args.width) * args.num_q_heads + head) * D;
   };
-  for (int i = threadIdx.x; i < kQueries * D; i += kThreads) {
+  constexpr int kQLoads = (kQueries * D + kThreads - 1) / kThreads;
+  float q_values[kQLoads];
+#pragma unroll
+  for (int k = 0; k < kQLoads; ++k) {
+    const int i = threadIdx.x + k * kThreads;
     const int qi = i / D;
-    const int u = u0 + qi;
-    qs[i] = u < rows ? to_float(static_cast<const T*>(args.q)[q_offset(u) + (i - qi * D)]) : 0.f;
+    q_values[k] = i < kQueries * D && u0 + qi < rows
+                      ? to_float(static_cast<const T*>(args.q)[q_offset(u0 + qi) + (i - qi * D)])
+                      : 0.f;
   }
+  const int length = args.lengths[slot];
+  const int view_len = args.max_pages * args.page_size;
+  const int num_keys = min(length + args.width, view_len);  // positions the last row may see
+  const int num_splits = (num_keys + kSpan - 1) / kSpan;
+  if (split >= num_splits) return;
+  const int key_end = min(key0 + kSpan, num_keys);
+  const int num_tiles = (key_end - key0 + kTile - 1) / kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < row_pages) span_pages[threadIdx.x] = entry;
+  for (int i = threadIdx.x + kThreads; i < row_pages; i += kThreads) span_pages[i] = table_row[first_page + i];
+#pragma unroll
+  for (int k = 0; k < kQLoads; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < kQueries * D) qs[i] = q_values[k];
+  }
+  __syncthreads();
 
   const PagePool<P> pool{static_cast<const P*>(args.k_pages) + static_cast<int64_t>(kv_head) * D,
                          static_cast<const P*>(args.v_pages) + static_cast<int64_t>(kv_head) * D,
                          args.k_scales, args.v_scales, static_cast<int64_t>(args.num_kv_heads) * D,
                          args.page_size, args.num_kv_heads, kv_head};
-  const int* table_row = args.table + static_cast<int64_t>(slot) * args.max_pages;
+  const int* span_table = span_pages - first_page;  // indexed by the row's page number
   auto fetch = [&](int t, int stage) {
     P* k_dst = ring + stage * 2 * kTile * kLdPage;
     float* sc = scales + stage * 2 * kTile;
-    fetch_page_tile<kTile, D, kThreads>(k_dst, k_dst + kTile * kLdPage, sc, sc + kTile, pool, table_row,
+    fetch_page_tile<kTile, D, kThreads>(k_dst, k_dst + kTile * kLdPage, sc, sc + kTile, pool, span_table,
                                         key0 + t * kTile, key_end);
     cp_async_commit();
   };
@@ -181,16 +214,20 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(DecodeArgs args)
   const int qk_key = threadIdx.x % kTile;
   const int qk_half = threadIdx.x / kTile;
 
-  int stage = 0;
-  fetch(0, 0);
+  // the ring: tile t lives in stage t % kStages and its cp.async group is the t-th;
+  // kStages - 1 tiles are in flight while one computes (groups past the last tile are
+  // empty, so the count of pending groups stays the same)
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < num_tiles) fetch(t, t);
+    else cp_async_commit();
+  }
   for (int t = 0; t < num_tiles; ++t) {
-    if (t + 1 < num_tiles) {
-      fetch(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int ahead = t + kStages - 1;
+    if (ahead < num_tiles) fetch(ahead, ahead % kStages);
+    else cp_async_commit();
+    cp_async_wait<kStages - 1>();
     __syncthreads();
+    const int stage = t % kStages;
     const P* ks = ring + stage * 2 * kTile * kLdPage;
     const P* vs = ks + kTile * kLdPage;
     const float* sc = scales + stage * 2 * kTile;  // K scales, then V scales
@@ -262,7 +299,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(DecodeArgs args)
       }
     }
     __syncthreads();  // the stage is refilled next
-    stage ^= 1;
   }
 
   // sum the key lanes' partial outputs (the ring is free now), in a fixed order
@@ -328,7 +364,7 @@ template <typename T, typename P, int D>
 cudaError_t launch(const DecodeArgs& args, int num_slots, cudaStream_t stream) {
   if (is_quantized<P>::value && (args.k_scales == nullptr || args.v_scales == nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = Layout<T, P, D>::bytes;
+  const size_t smem = Layout<T, P, D>::with_table(args.page_size);
   auto kernel = paged_decode_kernel<T, P, D>;
   cudaError_t err = allow_shared_memory(kernel, smem);
   if (err != cudaSuccess) return err;
