@@ -77,11 +77,6 @@ struct DecodeArgs {
   float scale;
 };
 
-// the query rows of a block
-__device__ __forceinline__ int num_group_rows(const DecodeArgs& a) {
-  return a.num_q_heads / a.num_kv_heads * a.width;
-}
-
 template <typename T, typename P, int D>
 struct Layout {
   static constexpr int kLdPage = kPageRowStride<P, D>;
@@ -136,8 +131,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(DecodeArgs args)
   const int kv_head = blockIdx.y / args.query_groups;
   const int query_group = blockIdx.y - kv_head * args.query_groups;
   const int slot = blockIdx.z;
-  const int rows = num_group_rows(args);
   const int group_size = args.num_q_heads / args.num_kv_heads;
+  const int rows = group_size * args.width;  // query rows of the kv head's group
   const int u0 = query_group * kQueries;  // the block's first query row
   const int key0 = split * kSpan;
   const int first_page = key0 / args.page_size;
