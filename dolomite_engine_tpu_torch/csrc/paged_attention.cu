@@ -29,8 +29,8 @@
 //   merging block resets) merges all partials in split order 0, 1, ..., each rescaled
 //   by exp(m_split - m): the result does not depend on which block finishes last.
 // - Shared memory holds a few tiles, whatever max_len is: no score row.
-// Measured on an H100 (PERF.md §6, PR 6): ~2.2x the bytes bound at granite's decode
-// shape, and int8 pages (half the bytes) take nearly as long as bf16 ones, so what is
+// Measured on an H100 (PERF.md §6, paged decode row): ~2.2x the bytes bound at granite's
+// decode shape, and int8 pages (half the bytes) take nearly as long as bf16 ones, so what is
 // left is the latency of the scattered 80-160-byte row fetches per block, not the HBM
 // rate; the span (128-512) and the ring depth (1-3) barely move it
 // (scripts/paged_kernel_ab.py --constant).

@@ -19,10 +19,11 @@
 // real query. Key tiles wholly at or below the first query's frontier take no mask; only
 // the one or two tiles that cross start + q0 ... start + q0 + 63 are masked per element.
 // Scores run in log2 units (exp2f). One launch per call.
-// Measured on an H100 (PERF.md §6, PR 6): below SDPA over the gathered page view at every
-// served shape, and ~9x its operations bound at granite's start-1024 chunk: the grid is
-// 256 blocks for 132 SMs and the last query tile walks 24 key tiles in order, so the
-// longest block sets the time (splitting its keys over warps is later work).
+// Measured on an H100 (PERF.md §6, paged prefill row): faster than SDPA over the
+// gathered page view at start 0 and 1024 and at the MoE shape, slower at granite's start
+// 1536, and ~9x its operations bound at start 1024: the grid is 256 blocks for 132 SMs
+// and the last query tile walks 24 key tiles in order, so the longest block sets the
+// time (splitting its keys over warps is later work).
 //
 // Page types: the query's own type, bf16 under an fp32 query, or int8 / fp8 e4m3 codes
 // with [P, Hkv] fp32 scale pools (a quantized pool). The plain version (and the Pallas
