@@ -54,7 +54,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    before and read just after; then ``alibi_training_profile``, one profiled step.
 
 The grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
-transposed-bank dX form, tgmm, and a case with most experts empty) and the quantized
+transposed-bank dX form, tgmm with fp32 and with the bank's bf16 output, and a case with
+most experts empty; padding rows nonzero; each case names its kernel path) and the quantized
 pool's cases (kv_quant at both models' decode and prefill windows, the decode and prefill
 kernels over int8 / fp8 pages beside the same cases over bf16 pages at the MoE shape and
 at start 1536, an fp32 query over a bf16 pool) and the additive-bias / non-causal flash
@@ -68,7 +69,8 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``serving``, ``profile``, ``quantized_check``, ``training_check``, ``training``,
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
-``alibi_training_check``, ``alibi_training`` and ``alibi_training_profile`` lines, the
+``alibi_training_check``, ``alibi_training`` and ``alibi_training_profile`` lines
+(``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line, the card again, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -196,11 +198,12 @@ def _bound(nbytes, flops, dtype_name):
 
 def _record(
     cases, kernel, shape, dtype, err, ok, tol, run, plain, library, nbytes, flops, plain_iters=20,
-    op_dtype=None,
+    op_dtype=None, path=None,
 ):
     """Time one kernel case (kernel, plain version, library call), append it to `cases`
-    with its bound, and raise if the kernel disagreed with its plain version. The
-    operations bound is taken at the peak rate of `op_dtype` (default `dtype`)."""
+    with its bound (and the kernel `path` it took, where a kernel has several), and raise
+    if the kernel disagreed with its plain version. The operations bound is taken at the
+    peak rate of `op_dtype` (default `dtype`)."""
     dtype_name = str(dtype).replace("torch.", "")
     bound_ms, bound_by = _bound(nbytes, flops, str(op_dtype or dtype).replace("torch.", ""))
     case = {
@@ -210,6 +213,7 @@ def _record(
         "plain_ms": _time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
         "library_ms": None if library is None else _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
+        **({} if path is None else {"path": path}),
     }
     cases.append(case)
     if not ok:
@@ -1396,8 +1400,13 @@ def moe_kernel_cases(seed):
     shapes (32 experts, d 1024, swiglu c_fc banks [32, 1024, 8192], c_proj [32, 4096,
     1024]; each bank at the decode, prefill-chunk and training row counts, the training
     one also as dX and dW), with kernel, plain and library timings. Rows are spread over
-    the experts as a router at init spreads them (uniformly at random); the bound counts
-    the real rows in and out and each bank with a routed row once."""
+    the experts as a router at init spreads them (uniformly at random). Padding rows hold
+    nonzero values (with expert biases c_proj's are act(b_fc)), which kernel and plain
+    version must treat as zero. The bound counts the real rows in and out and each bank
+    with a routed row once. Each case names its kernel path (`wgmma`, `mma.sync`, `fma`);
+    tgmm runs with the fp32 output of `_tgmm_call` and with the bank's bf16 output of the
+    backward (the main path's form), which must be bit-identical to the fp32 output
+    rounded to bf16."""
     import numpy as np
     import torch
 
@@ -1446,8 +1455,10 @@ def moe_kernel_cases(seed):
             )
             offs = torch.as_tensor(np.cumsum(group), dtype=torch.int32, device="cuda")
             banks = int((group > 0).sum())
-            xp = (torch.randn((plan.padded_rows, k_dim), generator=gen, device="cuda") * mask).to(dtype)
-            dy = (torch.randn((plan.padded_rows, n_dim), generator=gen, device="cuda") * mask).to(dtype)
+            xp = torch.randn((plan.padded_rows, k_dim), generator=gen, device="cuda")
+            dy = torch.randn((plan.padded_rows, n_dim), generator=gen, device="cuda")
+            xp = torch.where(mask, xp, 4 * xp + 1).to(dtype)
+            dy = torch.where(mask, dy, 4 * dy + 1).to(dtype)
             w = (torch.randn((experts, k_dim, n_dim), generator=gen, device="cuda") / k_dim**0.5).to(dtype)
             xs, dys = xp[real], dy[real]
             shape = f"{label}: A {rows}, [{k_dim}]x[{experts},{k_dim},{n_dim}], bm {plan.block_rows}, {plan.num_blocks} blocks"
@@ -1469,7 +1480,7 @@ def moe_kernel_cases(seed):
                     lambda: kmoe.gmm(xp, w, plan),
                     lambda: kmoe.gmm_plain(xp, w, plan.block_expert, plan.block_rows, plan.block_valid),
                     None if library is None else (lambda: library(xs, w, offs=offs)),
-                    io + banks * k_dim * n_dim * es, flops,
+                    io + banks * k_dim * n_dim * es, flops, path=kmoe.gmm_path(xp, w),
                 )
             if "dx" in forms:  # the backward's dX: dy against the banks read transposed
                 got = kmoe.gmm(dy, w, plan, transpose_w=True)
@@ -1480,9 +1491,10 @@ def moe_kernel_cases(seed):
                     lambda: kmoe.gmm(dy, w, plan, transpose_w=True),
                     lambda: kmoe.gmm_plain(dy, w, plan.block_expert, plan.block_rows, plan.block_valid, True),
                     None if library is None else (lambda: library(dys, w.transpose(1, 2), offs=offs)),
-                    io + banks * k_dim * n_dim * es, flops,
+                    io + banks * k_dim * n_dim * es, flops, path=kmoe.gmm_path(dy, w, True),
                 )
-            if "tgmm" in forms:  # dW of the same rows, fp32 [E, K, N]
+            if "tgmm" in forms:  # dW of the same rows [E, K, N]: the bank's dtype (the
+                # backward's form, first), then fp32 (`_tgmm_call`'s own output)
                 dy_w = (dy.float() / float(group.max()) ** 0.5).to(dtype)
                 dys_w = dy_w[real]
                 got = kmoe.tgmm(xp, dy_w, plan, experts)
@@ -1492,14 +1504,28 @@ def moe_kernel_cases(seed):
                 empty = torch.as_tensor(group == 0, device="cuda")
                 bound = 1e-5 * want.abs() + 8 * 2**-24 * float(group.max()) ** 0.5 * want.square().mean().sqrt()
                 ok = bool((diff <= bound).all()) and not got[empty].any()
-                _record(
-                    cases, "grouped_gemm_tgmm", "dW, " + shape, dtype, diff.max().item(), ok,
-                    "1e-5 rel + 8 * 2^-24 * sqrt(rows) * rms(output); empty experts exactly 0",
-                    lambda: kmoe.tgmm(xp, dy_w, plan, experts),
-                    lambda: kmoe.tgmm_plain(xp, dy_w, plan.block_expert, plan.block_rows, experts, plan.block_valid),
-                    None if library is None else (lambda: library(xs.t(), dys_w, offs=offs)),
-                    rows * (k_dim + n_dim) * es + experts * k_dim * n_dim * 4, flops,
-                )
+                out_forms = [(torch.float32, diff.max().item(), ok)]
+                if not fp32:
+                    got_w = kmoe.tgmm(xp, dy_w, plan, experts, out_dtype=dtype)
+                    # one rounding of the same fp32 sum: bit-identical to the cast fp32 output
+                    same = torch.equal(got_w, got.to(dtype))
+                    err = (got_w.float() - want).abs().max().item()
+                    out_forms.insert(0, (dtype, err, ok and same))
+                    del got_w
+                for out_dtype, err, case_ok in out_forms:
+                    out_name = "bf16 out" if out_dtype == torch.bfloat16 else "fp32 out"
+                    _record(
+                        cases, "grouped_gemm_tgmm", f"dW, {out_name}, " + shape, dtype, err, case_ok,
+                        "1e-5 rel + 8 * 2^-24 * sqrt(rows) * rms(output) of the fp32 sum; empty experts"
+                        " exactly 0; bf16 out bit-identical to the fp32 output rounded to bf16",
+                        lambda: kmoe.tgmm(xp, dy_w, plan, experts, out_dtype=out_dtype),
+                        lambda: kmoe.tgmm_plain(
+                            xp, dy_w, plan.block_expert, plan.block_rows, experts, plan.block_valid, out_dtype
+                        ),
+                        None if library is None else (lambda: library(xs.t(), dys_w, offs=offs)),
+                        rows * (k_dim + n_dim) * es + experts * k_dim * n_dim * out_dtype.itemsize, flops,
+                        path=kmoe.tgmm_path(xp, dy_w),
+                    )
                 del got, want, dy_w, dys_w
             del xp, dy, w, xs, dys
     torch.cuda.synchronize()
@@ -1870,6 +1896,11 @@ def main() -> int:
     )
     print(json.dumps({"moe_training": moe_training, "card": card}), flush=True)
     moe_profile = profile_training(state, train_step, batch)
+    # the grouped GEMMs' and the casts' shares of the step's device time
+    moe_profile["shares"] = {
+        family: moe_profile["families"].get(family, {}).get("share", 0.0)
+        for family in ("grouped_gemm", "grouped_gemm_tgmm", "casts_and_copies")
+    }
     print(json.dumps({"moe_training_profile": moe_profile, "card": card}), flush=True)
     del state, train_step, batch
     gc.collect()

@@ -7,26 +7,51 @@
 //
 // - `gmm`: out[b*bm : (b+1)*bm] = xp[b*bm : (b+1)*bm] @ B_e with B_e = w[e] ([E, K, N])
 //   or, for dX in the backward, B_e = w[e]^T read in place from w ([E, N, K]): no
-//   transposed copy of the banks. One CTA per (row block, 128-column tile) reads its
-//   block's expert from device memory (the counterpart of the scalar prefetch). Rows at
-//   or past `block_valid[b]` are padding: they read as zero and are written as zero, and
-//   a block with no real row writes its zeros without reading its bank, so a decode step
+//   transposed copy of the banks. One CTA per (row block, column tile) reads its block's
+//   expert from device memory (the counterpart of the scalar prefetch). Rows at or past
+//   `block_valid[b]` are padding: whatever they hold, they are written as zero, and a
+//   block with no real row writes its zeros without reading its bank, so a decode step
 //   reads only the banks that tokens were routed to.
-// - `tgmm`: dW[e] = sum over expert e's real rows of xp_r^T dy_r, in fp32. The Pallas
-//   kernel carries the sum across its sequential grid (consecutive blocks of one expert
-//   revisit one output block); Hopper blocks run in no order, so one CTA per (expert,
-//   128 x 128 output tile) walks the expert's rows itself (start = the padded-layout
-//   offset, count = the group size) and writes its tile once: no atomics, deterministic.
-//   An expert with no rows writes zeros, as the Pallas kernel's zero-row block does.
+// - `tgmm`: dW[e] = sum over expert e's real rows of xp_r^T dy_r, summed in fp32 and
+//   written in fp32 or, for the backward, rounded once to the bank's dtype (the JAX
+//   VJP's `.astype(w.dtype)` fused: the same sum, the same rounding). The Pallas kernel
+//   carries the sum across its sequential grid; Hopper blocks run in no order, so one CTA
+//   per (expert, output tile) walks the expert's rows itself (start = the padded-layout
+//   offset, count = the group size) and writes its tile once: no atomics, a fixed sum
+//   order. An expert with no rows writes zeros, as the Pallas kernel's zero-row block does.
 //
 // Bound on an H100: decode (32 rows) reads whole expert banks for a few rows each, so it
 // is bound by the banks' bytes; prefill and training (2048-16384 rows over 32 experts)
-// are bound by the tensor cores. Tiles are 128 columns wide and 32 deep, double-buffered
-// through cp.async, with bf16 mma.sync m16n8k16 and fp32 accumulation; fp32 inputs (the
-// tolerance cases) take the same tiles through scalar FMA, never TF32. K and N need not
-// be multiples of the tile: edges are zero-filled on load and masked on store.
+// are bound by the tensor cores, and tgmm's fp32 output ([E, K, N], 1 GB at c_fc) weighs
+// on its bytes.
+//
+// Two paths, by a fixed shape rule (`route`, also exported to the wrapper):
+// - wgmma (bf16 inputs whose rows are 16-byte multiples, 16-byte aligned bases: every
+//   shape of the slice). Warp-specialised: one producer thread keeps TMA loads of
+//   64-deep stages (128 bytes of bf16, 128-byte swizzle) in flight through a ring of 3-6
+//   stages with full / empty mbarriers; two consumer warpgroups issue `wgmma.mma_async`
+//   m64nNk16 with fp32 accumulators in registers and keep one stage's products in flight
+//   while the next stage's are issued; at one CTA an SM, setmaxnreg moves registers from
+//   the producer warpgroup to them. The epilogue stages each warpgroup's accumulator
+//   through shared memory and stores 16-byte vectors along the rows.
+//   gmm tiles (one CTA per tile): 128 x 256 for bm-128 blocks (one CTA an SM), 64 x 128
+//   for blocks of 64 rows or fewer, two CTAs an SM (decode: bound by the banks' bytes,
+//   so a second CTA's loads cover the first one's start and epilogue); a 64-row TMA box at a smaller block also reads the next block's
+//   rows, which are not stored. xp is a 2-D map, the banks a 3-D one, so the copy engine
+//   zero-fills a K or N edge per expert and never reads the next expert's bank; dX reads
+//   w[e]^T as a K-major operand, the forward w[e] as an MN-major one.
+//   tgmm is persistent (one CTA an SM walking 128 x kTgmmTileN tiles of the bank's [K, N]):
+//   an expert has only ~8 stages of rows a tile at the slice's training shape, so the
+//   producer runs on into the next tile's stages while the consumers store this one. A =
+//   xp^T and B = dy are both MN-major; in the last stage the rows past the expert's count
+//   (padding, or the next expert's rows) are zeroed in shared memory before the product.
+// - the old tiles (fp32 inputs, the tolerance cases, through scalar FMA, never TF32; bf16
+//   widths TMA cannot address through mma.sync m16n8k16): 128 columns by 32 deep,
+//   double-buffered through cp.async, K and N edges zero-filled on load and masked on
+//   store.
 #include "common.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace dolo {
 namespace {
@@ -246,10 +271,10 @@ struct TgmmShape {
   static constexpr size_t kSmemBytes = 2 * kStageElems * sizeof(T);
 };
 
-template <typename T>
+template <typename T, typename TOut>
 __global__ void __launch_bounds__(kThreads)
     tgmm_kernel(const T* __restrict__ xp, const T* __restrict__ dy, const int* __restrict__ row_start,
-                const int* __restrict__ group_rows, float* __restrict__ out, int K, int N) {
+                const int* __restrict__ group_rows, TOut* __restrict__ out, int K, int N) {
   using S = TgmmShape<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -296,9 +321,370 @@ __global__ void __launch_bounds__(kThreads)
     warp_gemm_at<S::kMT, S::kNT>(acc, sx + wm * (kTileM / 2), S::kLd, sd + wn * (kTileN / 2), S::kLd, kTileK);
     __syncthreads();
   }
-  float* out_e = out + static_cast<int64_t>(e) * K * N + static_cast<int64_t>(m0) * N;
-  store_acc<float>(out_e, N, acc, wm * (kTileM / 2), n0 + wn * (kTileN / 2), K - m0, N);
+  TOut* out_e = out + static_cast<int64_t>(e) * K * N + static_cast<int64_t>(m0) * N;
+  store_acc<TOut>(out_e, N, acc, wm * (kTileM / 2), n0 + wn * (kTileN / 2), K - m0, N);
 }
+
+// ------------------------------------------------------------------ the wgmma path (bf16)
+
+constexpr int kDepth = 64;                   // reduction depth of a stage: 64 bf16 = one 128-byte row
+constexpr int kRowBytes = kDepth * 2;        // bytes of one staged row
+constexpr int kPanelBytes = 64 * kRowBytes;  // a 64 x 64 bf16 box (8 KB)
+constexpr int kConsumerThreads = 256;        // two consumer warpgroups (and a producer, below)
+constexpr int kMaxStages = 6;
+// tile choices (the A/B script's --constant sweeps them)
+constexpr int kGmmSmallCtas = 2;        // CTAs an SM holds of the 64 x 128 gmm tiles (bm <= 64)
+constexpr int kTgmmTileN = 256;         // tgmm output tile: 128 x kTgmmTileN of the bank's [K, N]
+constexpr int kTgmmSmemBudget = 220 * 1024;  // tgmm's ring and staging (one persistent CTA an SM)
+
+// What `kCtas` CTAs per SM leave each: the ring's shared memory, the threads and their
+// registers. One CTA: a producer warpgroup, launched at 168 registers a thread, and
+// setmaxnreg moves them to the consumers (2 x 128 x 232 + 128 x 40 <= 65536). Two CTAs: a
+// producer warp, 288 threads at 112 registers each, no setmaxnreg (ptxas budgets a wgmma
+// by the launch bound, whatever setmaxnreg grants: 2 x 384 threads would leave it 80).
+template <int kCtas>
+struct Occupancy {
+  static_assert(kCtas == 1 || kCtas == 2, "one or two CTAs per SM");
+  static constexpr int kStageBudget = kCtas == 1 ? 200 * 1024 : 100 * 1024;
+  static constexpr int kThreads = kConsumerThreads + (kCtas == 1 ? 128 : 32);
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kProducerRegs = 40;
+};
+
+enum Route : int { kRouteFma = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
+
+// The fixed shape rule: bf16 whose row strides (K, N elements) and bases TMA can address.
+int route(int dtype, int K, int N, const void* a, const void* b, const void* out) {
+  if (dtype != kBFloat16) return kRouteFma;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                          reinterpret_cast<uintptr_t>(out);
+  return (K % 8 == 0 && N % 8 == 0 && bases % 16 == 0) ? kRouteWgmma : kRouteMmaSync;
+}
+
+// The ring of a CTA: stages of `kStageBytes` (A then B), 1024-byte aligned for the swizzle
+// atom, then the full / empty barriers. After the main loop the consumers stage their
+// accumulators through it (`kStagingBytes`).
+template <int kStageBytes, int kCtas, int kStagingBytes>
+struct Ring {
+  static constexpr int kStages =
+      Occupancy<kCtas>::kStageBudget / kStageBytes < kMaxStages ? Occupancy<kCtas>::kStageBudget / kStageBytes
+                                                                 : kMaxStages;
+  static_assert(kStages >= 2, "a ring of one stage cannot overlap loads and products");
+  static_assert(kStagingBytes <= kStages * kStageBytes, "the epilogue stages through the ring");
+  static constexpr size_t kSmemBytes = 1024 + static_cast<size_t>(kStages) * kStageBytes + 2 * kStages * 8;
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+template <int kStages>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerThreads);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// acc += A B over one 64-deep stage: four m64 x kN x 16 products
+template <int kN, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_stage(float (&acc)[kN / 2], const unsigned char* a, uint32_t a_step,
+                                            uint32_t a_lbo, const unsigned char* b, uint32_t b_step, uint32_t b_lbo) {
+  static_assert(kN == 64 || kN == 256, "the tiles use m64n64 and m64n256 products");
+#pragma unroll
+  for (int kk = 0; kk < kDepth / 16; ++kk) {
+    const uint64_t da = sm90::smem_desc(a + kk * a_step, a_lbo, 1024);
+    const uint64_t db = sm90::smem_desc(b + kk * b_step, b_lbo, 1024);
+    if constexpr (kN == 256) sm90::wgmma_m64n256k16<kTransA, kTransB>(acc, da, db);
+    else sm90::wgmma_m64n64k16<kTransA, kTransB>(acc, da, db);
+  }
+}
+
+// Shared-memory bytes one warpgroup stages its 64 x kN accumulator through: rows padded by
+// 8 elements, so a warp's fragment writes (bf16 pairs, or fp32 pairs by half-warp) hit
+// distinct banks.
+template <int kN, typename TOut>
+__host__ __device__ constexpr int staging_bytes() {
+  return 64 * (kN + 8) * static_cast<int>(sizeof(TOut));
+}
+
+// Store a warpgroup's 64 x kN accumulator at (row0, col0) of a row-major output with row
+// stride `ld` (a multiple of 16 bytes): rows at or past `rows_stored` are skipped, rows at
+// or past `rows_real` are written as zeros, columns at or past `cols` (a multiple of 8) are
+// skipped. The accumulator goes through `staging` (staging_bytes<kN / kPasses>) in
+// kPasses column slices and leaves in 16-byte vectors along the rows.
+template <int kN, int kPasses, typename TOut>
+__device__ __forceinline__ void store_wg_acc(TOut* out, int64_t ld, const float (&acc)[kN / 2],
+                                             unsigned char* staging, int row0, int col0, int rows_stored,
+                                             int rows_real, int cols) {
+  constexpr int kW = kN / kPasses;  // columns staged in one pass
+  constexpr int kVecElems = 16 / sizeof(TOut);
+  constexpr int kLd = kW + 8;  // padded row pitch, in elements
+  constexpr int kVecs = kW / kVecElems;
+  TOut* st = reinterpret_cast<TOut*>(staging);
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + (t % 32) / 4;
+  const int c = 2 * (t % 4);
+#pragma unroll
+  for (int pass = 0; pass < kPasses; ++pass) {
+    sm90::named_barrier_sync(2 + threadIdx.x / 128, 128);  // the warpgroup's last reads of `staging` are done
+#pragma unroll
+    for (int j = 0; j < kW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * (pass * kW / 8 + j) + 2 * h;
+        store_pair(st + (r + 8 * h) * kLd + c + 8 * j, acc[i], acc[i + 1]);
+      }
+    sm90::named_barrier_sync(2 + threadIdx.x / 128, 128);
+#pragma unroll 4
+    for (int i = t; i < 64 * kVecs; i += 128) {
+      const int rr = i / kVecs;
+      const int v = i % kVecs;
+      const int row = row0 + rr;
+      const int col = col0 + pass * kW + v * kVecElems;
+      if (row >= rows_stored || col >= cols) continue;
+      const uint4 value = row < rows_real ? *reinterpret_cast<const uint4*>(st + rr * kLd + v * kVecElems)
+                                          : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(out + row * ld + col) = value;
+    }
+  }
+}
+
+// Zeros over a [rows, tile_cols] tile at column col0 of a row-major output (16-byte
+// vectors; ld, col0 and cols multiples of 8 elements of T), by threads tid of nthreads.
+template <typename T>
+__device__ __forceinline__ void store_zero_tile(T* out, int64_t ld, int rows, int col0, int tile_cols, int cols,
+                                                int tid, int nthreads) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int vecs = tile_cols / kVec;
+  for (int i = tid; i < rows * vecs; i += nthreads) {
+    const int c = col0 + (i % vecs) * kVec;
+    if (c < cols) *reinterpret_cast<uint4*>(out + (i / vecs) * ld + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <int BM, int BN, int kCtas>
+struct GmmWgTile {
+  static constexpr int kWgM = BM / 64;   // warpgroups along the rows: 1 or 2
+  static constexpr int kWgN = 2 / kWgM;  // and along the columns
+  static constexpr int kWN = BN / kWgN;  // columns of one warpgroup's product
+  static constexpr int kABytes = BM * kRowBytes;
+  using R = Ring<kABytes + BN * kRowBytes, kCtas, 2 * staging_bytes<kWN, __nv_bfloat16>()>;
+};
+
+// x_map: xp [rows, K], box {64, BM}. w_map: w [E, K, N] with box {64 (N), 64 (K), 1}, or
+// for kTransB w [E, N, K] with box {64 (K), BN (N), 1}.
+template <int BM, int BN, bool kTransB, int kCtas>
+__global__ void __launch_bounds__(Occupancy<kCtas>::kThreads, kCtas)
+    gmm_kernel_wgmma(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+                     const int* __restrict__ block_expert, const int* __restrict__ block_valid,
+                     __nv_bfloat16* __restrict__ out, int bm, int K, int N) {
+  using S = GmmWgTile<BM, BN, kCtas>;
+  using R = typename S::R;
+  using O = Occupancy<kCtas>;
+  constexpr int kStageBytes = S::kABytes + BN * kRowBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::kStages * kStageBytes);
+  uint64_t* empty = full + R::kStages;
+
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * BN;
+  const int valid = min(block_valid[b], bm);
+  __nv_bfloat16* out_block = out + static_cast<int64_t>(b) * bm * N;
+  if (valid <= 0) {  // all padding: zeros, and the bank is not read
+    store_zero_tile(out_block, N, bm, n0, BN, N, threadIdx.x, blockDim.x);
+    return;
+  }
+  const int num_k = (K + kDepth - 1) / kDepth;
+  init_ring<R::kStages>(full, empty);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    if constexpr (kCtas == 1) sm90::warpgroup_reg_dealloc<O::kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      sm90::prefetch_tensor_map(&x_map);
+      sm90::prefetch_tensor_map(&w_map);
+      const int e = block_expert[b];
+      const int row0 = b * bm;
+      for (int kt = 0; kt < num_k; ++kt) {
+        const int s = kt % R::kStages;
+        if (kt >= R::kStages) sm90::mbar_wait(&empty[s], (kt / R::kStages - 1) & 1);
+        unsigned char* sa = ring + s * kStageBytes;
+        unsigned char* sb = sa + S::kABytes;
+        sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        sm90::tma_load_2d(sa, &x_map, &full[s], kt * kDepth, row0);
+        if constexpr (kTransB) {
+          sm90::tma_load_3d(sb, &w_map, &full[s], kt * kDepth, n0, e);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            sm90::tma_load_3d(sb + j * kPanelBytes, &w_map, &full[s], n0 + 64 * j, kt * kDepth, e);
+        }
+      }
+    }
+  } else {  // consumers
+    if constexpr (kCtas == 1) sm90::warpgroup_reg_alloc<O::kConsumerRegs>();
+    const int wm = S::kWgM == 2 ? wg : 0;
+    const int wn = S::kWgM == 2 ? 0 : wg;
+    float acc[S::kWN / 2];
+#pragma unroll
+    for (int i = 0; i < S::kWN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < num_k; ++kt) {
+      const int s = kt % R::kStages;
+      sm90::mbar_wait(&full[s], (kt / R::kStages) & 1);
+      const unsigned char* sa = ring + s * kStageBytes + wm * 64 * kRowBytes;
+      const unsigned char* sb = ring + s * kStageBytes + S::kABytes;
+      sm90::fence_operands(acc);
+      sm90::wgmma_fence();
+      if constexpr (kTransB)  // B = w[e]^T, [n rows][64 k]: K-major like A
+        wgmma_stage<S::kWN, 0, 0>(acc, sa, 32, 16, sb + wn * S::kWN * kRowBytes, 32, 16);
+      else  // B = w[e], 64-column panels of [64 k][64 n]: MN-major
+        wgmma_stage<S::kWN, 0, 1>(acc, sa, 32, 16, sb + (wn * S::kWN / 64) * kPanelBytes, 16 * kRowBytes,
+                                  kPanelBytes);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous stage's products are done: release it
+      sm90::fence_operands(acc);
+      if (kt > 0) sm90::mbar_arrive(&empty[(kt - 1) % R::kStages]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+    sm90::named_barrier_sync(1, kConsumerThreads);  // both warpgroups are done with the ring
+    store_wg_acc<S::kWN, 1>(out_block, N, acc, ring + wg * staging_bytes<S::kWN, __nv_bfloat16>(), wm * 64,
+                         n0 + wn * S::kWN, bm, valid, N);
+  }
+}
+
+template <int BN, typename TOut>
+struct TgmmWgTile {
+  static constexpr int kABytes = 2 * kPanelBytes;  // xp rows: two 64-wide panels of the bank's K
+  static constexpr int kStageBytes = kABytes + (BN / 64) * kPanelBytes;
+  // the output leaves through a staging buffer per warpgroup (the ring is already filling
+  // with the next tile's stages), fp32 in two column slices
+  static constexpr int kPasses = sizeof(TOut) == 4 ? 2 : 1;
+  static constexpr int kStagingBytes = 2 * staging_bytes<BN / kPasses, TOut>();
+  static constexpr int kStages = (kTgmmSmemBudget - kStagingBytes) / kStageBytes < kMaxStages
+                                     ? (kTgmmSmemBudget - kStagingBytes) / kStageBytes
+                                     : kMaxStages;
+  static_assert(kStages >= 2, "a ring of one stage cannot overlap loads and products");
+  static constexpr size_t kSmemBytes =
+      1024 + static_cast<size_t>(kStages) * kStageBytes + kStagingBytes + 2 * kStages * 8;
+};
+
+// Persistent: each CTA (one per SM) walks output tiles t = blockIdx.x, + gridDim.x, ...
+// (the bank's row tiles fastest, so the CTAs running together share each dy tile through
+// L2; then column tiles, then experts). The producer runs on into the next tile's stages
+// while the consumers store this one. x_map: xp [rows, K],
+// dy_map: dy [rows, N], both with box {64, 64}. Warpgroup w computes rows
+// [m0 + 64 w, + 64) of the expert's [K, N] tile at (m0, n0).
+template <int BN, typename TOut>
+__global__ void __launch_bounds__(Occupancy<1>::kThreads, 1)
+    tgmm_kernel_wgmma(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap dy_map,
+                      const int* __restrict__ row_start, const int* __restrict__ group_rows,
+                      TOut* __restrict__ out, int num_experts, int K, int N) {
+  using S = TgmmWgTile<BN, TOut>;
+  using O = Occupancy<1>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);
+  unsigned char* staging = ring + S::kStages * S::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + S::kStagingBytes);
+  uint64_t* empty = full + S::kStages;
+
+  const int n_tiles = (N + BN - 1) / BN;
+  const int m_tiles = (K + 127) / 128;
+  const int tiles = n_tiles * m_tiles * num_experts;
+  init_ring<S::kStages>(full, empty);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    sm90::warpgroup_reg_dealloc<O::kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      sm90::prefetch_tensor_map(&x_map);
+      sm90::prefetch_tensor_map(&dy_map);
+      int g = 0;  // stages issued so far, over all this CTA's tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t % m_tiles * 128;
+        const int n0 = t / m_tiles % n_tiles * BN;
+        const int e = t / n_tiles / m_tiles;
+        const int rows = group_rows[e];
+        const int start = row_start[e];
+        for (int r0 = start; r0 < start + rows; r0 += kDepth, ++g) {
+          const int s = g % S::kStages;
+          if (g >= S::kStages) sm90::mbar_wait(&empty[s], (g / S::kStages - 1) & 1);
+          unsigned char* sa = ring + s * S::kStageBytes;
+          unsigned char* sb = sa + S::kABytes;
+          sm90::mbar_arrive_expect_tx(&full[s], S::kStageBytes);
+          sm90::tma_load_2d(sa, &x_map, &full[s], m0, r0);
+          sm90::tma_load_2d(sa + kPanelBytes, &x_map, &full[s], m0 + 64, r0);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            sm90::tma_load_2d(sb + j * kPanelBytes, &dy_map, &full[s], n0 + 64 * j, r0);
+        }
+      }
+    }
+  } else {  // consumers
+    sm90::warpgroup_reg_alloc<O::kConsumerRegs>();
+    int g = 0;  // stages consumed so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t % m_tiles * 128;
+      const int n0 = t / m_tiles % n_tiles * BN;
+      const int e = t / n_tiles / m_tiles;
+      const int rows = group_rows[e];
+      const int m_rows = min(128, K - m0);
+      TOut* out_e = out + static_cast<int64_t>(e) * K * N + static_cast<int64_t>(m0) * N;
+      if (rows <= 0) {  // an expert with no rows: exact zeros
+        store_zero_tile(out_e, N, m_rows, n0, BN, N, threadIdx.x, kConsumerThreads);
+        continue;
+      }
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      const int num_s = (rows + kDepth - 1) / kDepth;
+      const int tail = rows - (num_s - 1) * kDepth;  // real rows of the last stage, 1..64
+      for (int st = 0; st < num_s; ++st, ++g) {
+        const int s = g % S::kStages;
+        sm90::mbar_wait(&full[s], (g / S::kStages) & 1);
+        unsigned char* stage = ring + s * S::kStageBytes;
+        if (st == num_s - 1 && tail < kDepth) {
+          // rows past the expert's count are padding or the next expert's rows: zero them
+          // in every panel (a row keeps its 128 bytes under the swizzle), then hand the
+          // writes to the async proxy before either warpgroup's wgmma reads them
+          constexpr int kPanels = S::kStageBytes / kPanelBytes;
+          const int chunks = (kDepth - tail) * (kRowBytes / 16);
+          for (int i = threadIdx.x; i < kPanels * chunks; i += kConsumerThreads) {
+            const int panel = i / chunks;
+            const int c = i % chunks;
+            *reinterpret_cast<uint4*>(stage + panel * kPanelBytes + tail * kRowBytes + c * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          sm90::fence_proxy_async();
+          sm90::named_barrier_sync(1, kConsumerThreads);
+        }
+        sm90::fence_operands(acc);
+        sm90::wgmma_fence();
+        // A = xp^T: this warpgroup's 64-wide panel of [64 rows][64 m], MN-major; B = dy,
+        // BN / 64 panels of [64 rows][64 n], MN-major; a 16-row step is 2048 bytes
+        wgmma_stage<BN, 1, 1>(acc, stage + wg * kPanelBytes, 16 * kRowBytes, kPanelBytes, stage + S::kABytes,
+                              16 * kRowBytes, kPanelBytes);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        sm90::fence_operands(acc);
+        if (st > 0) sm90::mbar_arrive(&empty[(g - 1) % S::kStages]);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc);
+      sm90::mbar_arrive(&empty[(g - 1) % S::kStages]);
+      store_wg_acc<BN, S::kPasses>(out_e, N, acc, staging + wg * staging_bytes<BN / S::kPasses, TOut>(), wg * 64,
+                                   n0, m_rows, m_rows, N);
+    }
+  }
+}
+
+// ----------------------------------------------------------------------------- launchers
 
 template <typename T, int BM, bool kTransB>
 cudaError_t launch_gmm(const void* xp, const void* w, const int* block_expert, const int* block_valid,
@@ -323,46 +709,134 @@ cudaError_t dispatch_gmm(const void* xp, const void* w, const int* block_expert,
   return launch_gmm<T, 128, kTransB>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream);
 }
 
-template <typename T>
+template <int BM, int BN, bool kTransB, int kCtas>
+cudaError_t launch_gmm_wgmma(const void* xp, const void* w, const int* block_expert, const int* block_valid,
+                             void* out, int num_blocks, int bm, int K, int N, int num_experts,
+                             cudaStream_t stream) {
+  using R = typename GmmWgTile<BM, BN, kCtas>::R;
+  CUtensorMap x_map, w_map;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(num_blocks) * bm};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t x_box[2] = {kDepth, BM};
+  cudaError_t err = sm90::bf16_tensor_map(&x_map, xp, 2, x_dims, x_strides, x_box);
+  if (err != cudaSuccess) return err;
+  const uint64_t inner = kTransB ? K : N, outer = kTransB ? N : K;
+  const uint64_t w_dims[3] = {inner, outer, static_cast<uint64_t>(num_experts)};
+  const uint64_t w_strides[2] = {inner * 2, inner * outer * 2};
+  const uint32_t w_box[3] = {64, kTransB ? static_cast<uint32_t>(BN) : 64u, 1};
+  err = sm90::bf16_tensor_map(&w_map, w, 3, w_dims, w_strides, w_box);
+  if (err != cudaSuccess) return err;
+  auto kernel = gmm_kernel_wgmma<BM, BN, kTransB, kCtas>;
+  err = allow_shared_memory(kernel, R::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, num_blocks);
+  kernel<<<grid, Occupancy<kCtas>::kThreads, R::kSmemBytes, stream>>>(x_map, w_map, block_expert, block_valid,
+                                                      static_cast<__nv_bfloat16*>(out), bm, K, N);
+  return cudaGetLastError();
+}
+
+// The gmm tile of a call: 64 x 128 for blocks of 64 rows or fewer, else 128 x 256.
+template <bool kTransB>
+cudaError_t dispatch_gmm_wgmma(const void* xp, const void* w, const int* block_expert, const int* block_valid,
+                               void* out, int num_blocks, int bm, int K, int N, int num_experts,
+                               cudaStream_t stream) {
+  if (bm <= 64)
+    return launch_gmm_wgmma<64, 128, kTransB, kGmmSmallCtas>(xp, w, block_expert, block_valid, out, num_blocks,
+                                                              bm, K, N, num_experts, stream);
+  return launch_gmm_wgmma<128, 256, kTransB, 1>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N,
+                                                num_experts, stream);
+}
+
+template <typename T, typename TOut>
 cudaError_t launch_tgmm(const void* xp, const void* dy, const int* row_start, const int* group_rows,
-                        float* out, int num_experts, int K, int N, cudaStream_t stream) {
+                        void* out, int num_experts, int K, int N, cudaStream_t stream) {
   using S = TgmmShape<T>;
-  auto kernel = tgmm_kernel<T>;
+  auto kernel = tgmm_kernel<T, TOut>;
   cudaError_t err = allow_shared_memory(kernel, S::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kTileN - 1) / kTileN, (K + kTileM - 1) / kTileM, num_experts);
   kernel<<<grid, kThreads, S::kSmemBytes, stream>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(dy), row_start, group_rows, out, K, N);
+      static_cast<const T*>(xp), static_cast<const T*>(dy), row_start, group_rows, static_cast<TOut*>(out), K, N);
+  return cudaGetLastError();
+}
+
+template <typename TOut>
+cudaError_t launch_tgmm_wgmma(const void* xp, const void* dy, const int* row_start, const int* group_rows,
+                              void* out, int rows, int num_experts, int K, int N, cudaStream_t stream) {
+  using S = TgmmWgTile<kTgmmTileN, TOut>;
+  CUtensorMap x_map, dy_map;
+  const uint32_t box[2] = {64, kDepth};
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(rows)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
+  cudaError_t err = sm90::bf16_tensor_map(&x_map, xp, 2, x_dims, x_strides, box);
+  if (err != cudaSuccess) return err;
+  const uint64_t dy_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(rows)};
+  const uint64_t dy_strides[1] = {static_cast<uint64_t>(N) * 2};
+  err = sm90::bf16_tensor_map(&dy_map, dy, 2, dy_dims, dy_strides, box);
+  if (err != cudaSuccess) return err;
+  auto kernel = tgmm_kernel_wgmma<kTgmmTileN, TOut>;
+  err = allow_shared_memory(kernel, S::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = sm90::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = static_cast<int64_t>((N + kTgmmTileN - 1) / kTgmmTileN) * ((K + 127) / 128) * num_experts;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kernel<<<grid, Occupancy<1>::kThreads, S::kSmemBytes, stream>>>(x_map, dy_map, row_start, group_rows,
+                                                                  static_cast<TOut*>(out), num_experts, K, N);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace dolo
 
+// The path a grouped GEMM of these inputs takes (0 scalar FMA, 1 mma.sync, 2 wgmma + TMA):
+// `a` / `b` are xp and w (gmm) or xp and dy (tgmm), K / N the widths their rows hold.
+extern "C" int dolo_grouped_gemm_route(int dtype, int K, int N, const void* a, const void* b, const void* out) {
+  return dolo::route(dtype, K, N, a, b, out);
+}
+
 // out [num_blocks * bm, N] = per block xp_b [bm, K] @ w[block_expert[b]]: w is [E, K, N],
 // or [E, N, K] read transposed when transpose_w. Returns the launch's cudaError_t.
 extern "C" int dolo_gmm(const void* xp, const void* w, const int* block_expert, const int* block_valid,
-                        void* out, int num_blocks, int bm, int K, int N, int transpose_w, int dtype,
-                        cudaStream_t stream) {
+                        void* out, int num_blocks, int bm, int K, int N, int num_experts, int transpose_w,
+                        int dtype, cudaStream_t stream) {
   using namespace dolo;
-  if (bm < 1 || bm > 128 || num_blocks > 65535) return cudaErrorInvalidValue;
-  if (dtype == kBFloat16)
-    return transpose_w ? dispatch_gmm<__nv_bfloat16, true>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream)
-                       : dispatch_gmm<__nv_bfloat16, false>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream);
-  if (dtype == kFloat32)
-    return transpose_w ? dispatch_gmm<float, true>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream)
-                       : dispatch_gmm<float, false>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream);
-  return cudaErrorInvalidValue;
+  if (bm < 1 || bm > 128 || num_blocks > 65535 || num_experts < 1) return cudaErrorInvalidValue;
+  switch (route(dtype, K, N, xp, w, out)) {
+    case kRouteWgmma:
+      return transpose_w ? dispatch_gmm_wgmma<true>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, num_experts, stream)
+                         : dispatch_gmm_wgmma<false>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, num_experts, stream);
+    case kRouteMmaSync:
+      return transpose_w ? dispatch_gmm<__nv_bfloat16, true>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream)
+                         : dispatch_gmm<__nv_bfloat16, false>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream);
+    default:
+      if (dtype != kFloat32) return cudaErrorInvalidValue;
+      return transpose_w ? dispatch_gmm<float, true>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream)
+                         : dispatch_gmm<float, false>(xp, w, block_expert, block_valid, out, num_blocks, bm, K, N, stream);
+  }
 }
 
-// out [E, K, N] fp32 = per expert e, xp[rows]^T @ dy[rows] over its real rows
-// [row_start[e], row_start[e] + group_rows[e]). Returns the launch's cudaError_t.
-extern "C" int dolo_tgmm(const void* xp, const void* dy, const int* row_start, const int* group_rows,
-                         float* out, int num_experts, int K, int N, int dtype, cudaStream_t stream) {
+// out [E, K, N] = per expert e, xp[rows]^T @ dy[rows] over its real rows
+// [row_start[e], row_start[e] + group_rows[e]) of the `rows` padded rows, summed in fp32
+// and written as out_dtype (fp32, or bf16: one rounding of the same sum). Returns the
+// launch's cudaError_t.
+extern "C" int dolo_tgmm(const void* xp, const void* dy, const int* row_start, const int* group_rows, void* out,
+                         int rows, int num_experts, int K, int N, int dtype, int out_dtype, cudaStream_t stream) {
   using namespace dolo;
   if (num_experts > 65535 || (K + kTileM - 1) / kTileM > 65535) return cudaErrorInvalidValue;
-  if (dtype == kBFloat16)
-    return launch_tgmm<__nv_bfloat16>(xp, dy, row_start, group_rows, out, num_experts, K, N, stream);
-  if (dtype == kFloat32) return launch_tgmm<float>(xp, dy, row_start, group_rows, out, num_experts, K, N, stream);
-  return cudaErrorInvalidValue;
+  if (out_dtype != kFloat32 && out_dtype != kBFloat16) return cudaErrorInvalidValue;
+  const bool bf16_out = out_dtype == kBFloat16;
+  switch (route(dtype, K, N, xp, dy, out)) {
+    case kRouteWgmma:
+      return bf16_out ? launch_tgmm_wgmma<__nv_bfloat16>(xp, dy, row_start, group_rows, out, rows, num_experts, K, N, stream)
+                      : launch_tgmm_wgmma<float>(xp, dy, row_start, group_rows, out, rows, num_experts, K, N, stream);
+    case kRouteMmaSync:
+      return bf16_out ? launch_tgmm<__nv_bfloat16, __nv_bfloat16>(xp, dy, row_start, group_rows, out, num_experts, K, N, stream)
+                      : launch_tgmm<__nv_bfloat16, float>(xp, dy, row_start, group_rows, out, num_experts, K, N, stream);
+    default:
+      if (dtype != kFloat32) return cudaErrorInvalidValue;
+      return bf16_out ? launch_tgmm<float, __nv_bfloat16>(xp, dy, row_start, group_rows, out, num_experts, K, N, stream)
+                      : launch_tgmm<float, float>(xp, dy, row_start, group_rows, out, num_experts, K, N, stream);
+  }
 }

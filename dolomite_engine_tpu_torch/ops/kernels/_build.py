@@ -47,8 +47,9 @@ _SIGNATURES = {
     "dolo_flash_bwd": (_P,) * 12 + (_I,) * 9 + (_F, _I, _P),
     "dolo_fused_ce": (_P,) * 6 + (_I,) * 3 + (_F, _I, _I, _P),
     "dolo_fused_ce_scratch_floats": (_I, _I),
-    "dolo_gmm": (_P,) * 5 + (_I,) * 6 + (_P,),
-    "dolo_tgmm": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "dolo_gmm": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "dolo_tgmm": (_P,) * 5 + (_I,) * 6 + (_P,),
+    "dolo_grouped_gemm_route": (_I, _I, _I, _P, _P, _P),
     "dolo_kv_quant": (_P,) * 4 + (_I,) * 4 + (_F, _F, _I, _P),
 }
 

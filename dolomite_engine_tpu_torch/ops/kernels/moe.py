@@ -4,15 +4,17 @@ Replaces the TPU kernels ``_gmm_call`` and ``_tgmm_call``
 (`dolomite_engine_tpu/ops/pallas/moe.py:78`, `:100`) and ports the code around them:
 `_pick_block_rows`, `_padded_layout` (the same static ``NB = cdiv(A, bm) + E`` blocks,
 every expert owning at least one), `grouped_gemm` (forward = gmm; backward = gmm over
-the banks read transposed for dX, cast to ``xp``'s dtype, and tgmm in fp32 for dW,
-cast to the bank's dtype, as the JAX package's custom VJP does), `grouped_mlp` and
-`experts_grouped`. Both kernels live in ``dolomite_engine_tpu_torch/csrc/grouped_gemm.cu``
-(bound and design noted there).
+the banks read transposed for dX, cast to ``xp``'s dtype, and tgmm for dW, summed in
+fp32 and written in the bank's dtype: the JAX package's VJP casts the fp32 sum with
+``.astype(w.dtype)``, and the kernel rounds the same sum once in its epilogue),
+`grouped_mlp` and `experts_grouped`. Both kernels live in
+``dolomite_engine_tpu_torch/csrc/grouped_gemm.cu`` (bound, design and the fixed shape rule
+that picks each call's path noted there; `gmm_path` / `tgmm_path` name it).
 
 `gmm` / `tgmm` launch the kernels for CUDA tensors (or raise) and take `gmm_plain` /
 `tgmm_plain` for CPU tensors. Rows of a block at or past its real row count
-(``block_valid``) are padding: both versions read them as zero and write zeros. The
-padded rows are never gathered back, so the result is the JAX package's.
+(``block_valid``) are padding: whatever they hold, both versions treat them as zero and
+write zeros. The padded rows are never gathered back, so the result is the JAX package's.
 
 Nothing here synchronises with the host on the main path: the group sizes are a
 scatter-add, the block map a `repeat_interleave` with a static ``output_size``, the
@@ -137,15 +139,16 @@ def gmm_plain(xp, w, block_expert, block_rows, block_valid=None, transpose_w=Fal
     return out.to(xp.dtype)
 
 
-def tgmm_plain(xp, dy, block_expert, block_rows, num_experts, block_valid=None):
-    """``dW[e] = sum over e's blocks of xp_b^T @ dy_b`` in fp32 ``[E, K, N]``; rows at or
-    past `block_valid` count as zero."""
+def tgmm_plain(xp, dy, block_expert, block_rows, num_experts, block_valid=None, out_dtype=torch.float32):
+    """``dW[e] = sum over e's blocks of xp_b^T @ dy_b``, summed in fp32 ``[E, K, N]`` and
+    returned as `out_dtype` (one rounding of the fp32 sum); rows at or past `block_valid`
+    count as zero."""
     if block_valid is not None:
         dy = torch.where(_row_mask(block_valid, block_rows), dy, torch.zeros_like(dy))
     out = torch.zeros((num_experts, xp.shape[1], dy.shape[1]), dtype=torch.float32, device=xp.device)
     for expert, rows in _expert_runs(block_expert, block_rows):
         out[expert] += xp[rows].float().T @ dy[rows].float()
-    return out
+    return out.to(out_dtype)
 
 
 def _check_plan(plan: BlockPlan, rows: int, device: torch.device) -> None:
@@ -173,7 +176,7 @@ def gmm(xp: torch.Tensor, w: torch.Tensor, plan: BlockPlan, transpose_w: bool = 
     out = torch.empty((xp.shape[0], n_dim), dtype=xp.dtype, device=device)
     code = load_library().dolo_gmm(
         ptr(xp), ptr(w), ptr(plan.block_expert), ptr(plan.block_valid), ptr(out),
-        plan.num_blocks, plan.block_rows, k_dim, n_dim, int(transpose_w), DTYPE_CODES[xp.dtype],
+        plan.num_blocks, plan.block_rows, k_dim, n_dim, w.shape[0], int(transpose_w), DTYPE_CODES[xp.dtype],
         current_stream(device),
     )
     check_launch(code, KERNEL.name)
@@ -181,10 +184,13 @@ def gmm(xp: torch.Tensor, w: torch.Tensor, plan: BlockPlan, transpose_w: bool = 
     return out
 
 
-def tgmm(xp: torch.Tensor, dy: torch.Tensor, plan: BlockPlan, num_experts: int) -> torch.Tensor:
-    """Per-expert ``xp^T dy`` over each expert's real rows: fp32 ``[E, K, N]``."""
+def tgmm(
+    xp: torch.Tensor, dy: torch.Tensor, plan: BlockPlan, num_experts: int, out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Per-expert ``xp^T dy`` over each expert's real rows, summed in fp32: ``[E, K, N]``
+    in `out_dtype` (fp32 or bf16)."""
     if xp.device.type == "cpu":
-        return tgmm_plain(xp, dy, plan.block_expert, plan.block_rows, num_experts, plan.block_valid)
+        return tgmm_plain(xp, dy, plan.block_expert, plan.block_rows, num_experts, plan.block_valid, out_dtype)
     if xp.device.type != "cuda":
         raise ValueError(f"tgmm runs on CUDA or CPU tensors, got {xp.device}")
     device = xp.device
@@ -193,15 +199,36 @@ def tgmm(xp: torch.Tensor, dy: torch.Tensor, plan: BlockPlan, num_experts: int) 
     _check_plan(plan, xp.shape[0], device)
     if dy.shape[0] != xp.shape[0] or plan.group_sizes.shape[0] != num_experts:
         raise ValueError(f"xp {tuple(xp.shape)}, dy {tuple(dy.shape)} and {num_experts} experts disagree")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tgmm writes fp32 or bf16, not {out_dtype}")
     k_dim, n_dim = xp.shape[1], dy.shape[1]
-    out = torch.empty((num_experts, k_dim, n_dim), dtype=torch.float32, device=device)
+    out = torch.empty((num_experts, k_dim, n_dim), dtype=out_dtype, device=device)
     code = load_library().dolo_tgmm(
         ptr(xp), ptr(dy), ptr(plan.group_block_start), ptr(plan.group_sizes), ptr(out),
-        num_experts, k_dim, n_dim, DTYPE_CODES[xp.dtype], current_stream(device),
+        xp.shape[0], num_experts, k_dim, n_dim, DTYPE_CODES[xp.dtype], DTYPE_CODES[out_dtype],
+        current_stream(device),
     )
     check_launch(code, TGMM_KERNEL.name)
     TGMM_KERNEL.launches += 1
     return out
+
+
+PATHS = ("fma", "mma.sync", "wgmma")  # csrc/grouped_gemm.cu `route`: 0, 1, 2
+
+
+def _path(dtype: torch.dtype, k_dim: int, n_dim: int, a: torch.Tensor, b: torch.Tensor) -> str:
+    return PATHS[load_library().dolo_grouped_gemm_route(DTYPE_CODES[dtype], k_dim, n_dim, ptr(a), ptr(b), ptr(None))]
+
+
+def gmm_path(xp: torch.Tensor, w: torch.Tensor, transpose_w: bool = False) -> str:
+    """The kernel path `gmm` takes for these CUDA tensors: "wgmma" (TMA + warpgroup MMA),
+    "mma.sync" (bf16 widths TMA cannot address) or "fma" (fp32)."""
+    return _path(xp.dtype, xp.shape[1], w.shape[1] if transpose_w else w.shape[2], xp, w)
+
+
+def tgmm_path(xp: torch.Tensor, dy: torch.Tensor) -> str:
+    """The kernel path `tgmm` takes for these CUDA tensors (as `gmm_path`)."""
+    return _path(xp.dtype, xp.shape[1], dy.shape[1], xp, dy)
 
 
 class _GroupedGemm(torch.autograd.Function):
@@ -220,9 +247,10 @@ class _GroupedGemm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = gmm(dy, w, plan, transpose_w=True).to(xp.dtype)
         if ctx.needs_input_grad[1]:
-            # rounded to the bank's dtype (bf16 under mixed precision) before autograd adds
-            # it into the fp32 master gradient, as the JAX package's VJP casts
-            dw = tgmm(xp, dy, plan, w.shape[0]).to(w.dtype)
+            # written in the bank's dtype (bf16 under mixed precision: one rounding of the
+            # fp32 sum) before autograd adds it into the fp32 master gradient, as the JAX
+            # package's VJP casts
+            dw = tgmm(xp, dy, plan, w.shape[0], out_dtype=w.dtype)
         return dx, dw, None
 
 

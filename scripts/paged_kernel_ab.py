@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time the paged decode / prefill attention cases of `chip_smoke.py` for one checkout.
+"""Time the paged attention (or grouped-GEMM) kernel cases of `chip_smoke.py` for one checkout.
 
     python scripts/paged_kernel_ab.py [--root DIR] [--seed N] [--label NAME]
-        [--constant FILE:NAME=VALUE ...]
+        [--family paged|grouped_gemm] [--constant FILE:NAME=VALUE ...]
 
 Imports `chip_smoke` and `dolomite_engine_tpu_torch` from DIR (default: this checkout),
 builds that checkout's kernels there, runs its phase-2 kernel cases and quantized-pool
-cases on the card, and prints one JSON line with the paged attention cases (kernel and
-device times, plain-version and library times, bound, error) and the card's name and
-power limit. To compare two commits on one card, unpack the other into a directory that
+cases (``--family grouped_gemm``: its MoE grouped-GEMM cases) on the card, and prints one
+JSON line with the family's cases (kernel and device times, plain-version and library
+times, bound, error, and the kernel path where the case names one) and the card's name
+and power limit. To compare two commits on one card, unpack the other into a directory that
 `.gitignore` lists and run both in one machine call, in turns (A, B, B, A).
 ``--constant paged_attention.cu:kSpan=128`` builds from a copy of the sources in which
 that file's ``constexpr int kSpan`` is 128 (a tuning sweep; the checkout is not
@@ -53,6 +54,7 @@ def main() -> int:
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--label", default=None)
+    parser.add_argument("--family", choices=("paged", "grouped_gemm"), default="paged")
     parser.add_argument("--constant", action="append", default=[])
     parser.add_argument("--build-only", action="store_true", help="build the kernels and exit")
     args = parser.parse_args()
@@ -79,14 +81,20 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    cases = chip_smoke.kernel_cases(args.seed) + chip_smoke.quant_kernel_cases(args.seed)
+    if args.family == "paged":
+        cases = chip_smoke.kernel_cases(args.seed) + chip_smoke.quant_kernel_cases(args.seed)
+    else:
+        cases = chip_smoke.moe_kernel_cases(args.seed)
     keep = (
-        "kernel", "shape", "dtype", "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "max_abs_err",
+        "kernel", "shape", "dtype", "path", "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "max_abs_err",
     )
-    paged = [{key: c[key] for key in keep} for c in cases if c["kernel"].startswith("paged_")]
+    picked = [
+        {key: c[key] for key in keep if key in c} for c in cases if c["kernel"].startswith(args.family + "_")
+        or c["kernel"] == args.family
+    ]
     label = args.label or " ".join([root] + args.constant)
-    print(json.dumps({"label": label, "paged_cases": paged, "card": card}), flush=True)
+    print(json.dumps({"label": label, f"{args.family}_cases": picked, "card": card}), flush=True)
     return 0
 
 

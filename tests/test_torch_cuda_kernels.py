@@ -21,7 +21,10 @@ within 2 bf16 ulp of the largest term (the plain version rounds after every bf16
 kernel rounds once); bf16 fused_ce within 2e-2 absolute (the kernel and cuBLAS may round
 a logit to bf16 one ulp apart); bf16 grouped GEMMs within one bf16 ulp plus 1e-4 (both
 sides sum in fp32 and round once), and tgmm, whose output is fp32, within 1e-5 in both
-types (products of bf16 inputs are exact in fp32). kv_quant's codes and scales must be
+types (products of bf16 inputs are exact in fp32), its bf16 output bit-identical to its
+fp32 output rounded to bf16 (one rounding of the same sum); their padding rows hold
+nonzero values, which both versions must treat as zero, and each grouped-GEMM case waits
+at most 120 s for its kernels. kv_quant's codes and scales must be
 byte-identical to its plain version's, and the attention kernels over int8 / fp8 pages
 agree with their plain versions as over unquantized pages (the plain version dequantizes
 with the same fp32 product and rounding).
@@ -639,11 +642,29 @@ def _group_sizes(seed, assignments, num_experts, empty=0):
 
 
 def _padded_rows(gen, plan, cols, dtype, scale):
-    """Padded-layout rows: random where real, zero where padding (as the dispatch builds them)."""
+    """Padded-layout rows: random where real and larger random values where padding. With
+    expert biases the dispatch's padding rows are not zero (c_proj's are act(b_fc)), and
+    the kernels' contract treats padding as zero whatever it holds, so a kernel that drops
+    a row mask fails these cases."""
     from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
 
     mask = kmoe._row_mask(plan.block_valid, plan.block_rows)
-    return (torch.randn((plan.padded_rows, cols), generator=gen, device="cuda") * scale * mask).to(dtype)
+    rows = torch.randn((plan.padded_rows, cols), generator=gen, device="cuda") * scale
+    return torch.where(mask, rows, 4 * rows + scale).to(dtype)
+
+
+def _synchronize(seconds=120.0):
+    """torch.cuda.synchronize with a time limit: a kernel that hangs (a lost mbarrier
+    arrival) fails its own case here instead of stalling the suite."""
+    import time
+
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > deadline:
+            pytest.fail(f"the kernel did not finish within {seconds} s")
+        time.sleep(1e-3)
 
 
 def _close_gmm(got, want, fp32):
@@ -661,6 +682,11 @@ def _close_gmm(got, want, fp32):
         ([5, 0, 12, 3], 16, 24, 8),  # empty expert, K and N not multiples of the tiles
         ([0, 0, 7, 0], 40, 136, None),  # A < 8: one block of 7 rows
         ([9, 30, 0, 1, 24], 72, 200, 16),
+        ([70, 1, 0, 129, 64], 136, 200, 64),  # blocks of 64: the 64 x 128 wgmma tiles
+        ([70, 1, 0, 129, 64], 136, 200, 128),  # 128-row blocks, K and N edges per expert
+        ([70, 1, 0, 129, 64], 136, 4104, 128),  # 128 x 256 tiles, an N edge inside a tile
+        ([300, 5, 0, 260], 136, 520, 128),  # experts of three 128-row blocks, the last partly filled
+        ([6, 11, 0, 3], 20, 36, 8),  # bf16 rows of 40 bytes: TMA cannot address them (mma.sync)
         ("decode", 1024, 8192, None),  # 8 slots x top-4 over 32 experts: bm 32, 33 blocks
         ("prefill", 1024, 8192, None),  # one 512-token chunk x top-4: bm 128
         ("sparse", 4096, 1024, None),  # the proj GEMM with most experts empty
@@ -681,8 +707,12 @@ def test_grouped_gemm_kernel_matches_plain(group_sizes, k_dim, n_dim, block_rows
     shape = (num_experts, n_dim, k_dim) if transpose else (num_experts, k_dim, n_dim)
     w = (torch.randn(shape, generator=gen, device="cuda") / k_dim**0.5).to(dtype)
     got = kmoe.gmm(xp, w, plan, transpose_w=transpose)
+    _synchronize()
     want = kmoe.gmm_plain(xp, w, plan.block_expert, plan.block_rows, plan.block_valid, transpose)
     torch.cuda.synchronize()
+    # the fixed shape rule: fp32 by scalar FMA, bf16 by wgmma where TMA can address the rows
+    aligned = k_dim % 8 == 0 and n_dim % 8 == 0
+    assert kmoe.gmm_path(xp, w, transpose) == ("fma" if dtype == torch.float32 else "wgmma" if aligned else "mma.sync")
     assert got.dtype == dtype and got.shape == want.shape
     ok, err = _close_gmm(got, want, dtype == torch.float32)
     assert ok, err
@@ -695,31 +725,54 @@ def test_grouped_gemm_kernel_matches_plain(group_sizes, k_dim, n_dim, block_rows
     [
         ([9, 0, 4, 20, 0], 16, 24),  # empty experts write zeros
         ([33, 0, 0, 33], 136, 72),
+        ([65, 130, 63, 1, 200, 0], 136, 200),  # 64-row stages crossed, a 1-row expert
+        ([0, 300, 0, 0], 200, 136),  # every row on one expert
+        ([6, 11, 0, 3], 20, 36),  # bf16 rows of 40 bytes: TMA cannot address them (mma.sync)
         ("train", 1024, 4096),  # the training micro-batch's c_proj input x dy shape, 4 of 32 experts
         ("sparse", 256, 384),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_gemm_tgmm_kernel_matches_plain(group_sizes, k_dim, n_dim, dtype):
+    _check_tgmm(group_sizes, k_dim, n_dim, dtype, None)
+
+
+@pytest.mark.parametrize("block_rows", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_tgmm_block_rows_match_plain(block_rows, dtype):
+    """Every block size: at bm < 64 a 64-row stage of one expert reaches into the next
+    expert's rows, which the kernel must zero; 1-row and empty experts, K and N edges."""
+    _check_tgmm([70, 1, 0, 129, 64, 5], 136, 200, dtype, block_rows)
+
+
+def _check_tgmm(group_sizes, k_dim, n_dim, dtype, block_rows):
+    """tgmm against its plain version (fp32 out), empty experts exactly zero, and the
+    bf16-out form bit-identical to the same kernel's fp32 output rounded to bf16."""
     from dolomite_engine_tpu_torch.ops.kernels import moe as kmoe
 
     if isinstance(group_sizes, str):
         assignments, experts, empty = {"train": (2048, 4, 0), "sparse": (300, 32, 29)}[group_sizes]
         group_sizes = _group_sizes(5, assignments, experts, empty)
-    plan = _moe_plan(0, group_sizes)
+    plan = _moe_plan(0, group_sizes, block_rows)
     gen = torch.Generator(device="cuda").manual_seed(17)
     rows = max(group_sizes)
     xp = _padded_rows(gen, plan, k_dim, dtype, 1.0)
     dy = _padded_rows(gen, plan, n_dim, dtype, 1.0 / rows**0.5)
     got = kmoe.tgmm(xp, dy, plan, len(group_sizes))
+    got_bf16 = kmoe.tgmm(xp, dy, plan, len(group_sizes), out_dtype=torch.bfloat16)
+    _synchronize()
     want = kmoe.tgmm_plain(xp, dy, plan.block_expert, plan.block_rows, len(group_sizes), plan.block_valid)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32
+    aligned = k_dim % 8 == 0 and n_dim % 8 == 0
+    assert kmoe.tgmm_path(xp, dy) == ("fma" if dtype == torch.float32 else "wgmma" if aligned else "mma.sync")
+    assert got.dtype == torch.float32 and got_bf16.dtype == torch.bfloat16
     # fp32 products of bf16 inputs are exact, so both dtypes differ only by the sum order
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    # one rounding of the same fp32 sum: the fused cast changes no bit
+    assert torch.equal(got_bf16, got.to(torch.bfloat16))
     for e, size in enumerate(group_sizes):
         if size == 0:
-            assert not got[e].any()
+            assert not got[e].any() and not got_bf16[e].any()
 
 
 def test_grouped_gemm_autograd_matches_plain_autograd():

@@ -199,6 +199,39 @@ def test_plain_tgmm_matches_the_pallas_tgmm():
     assert not got[1].any() and not got[4].any()  # empty experts: zeros
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_tgmm_in_the_bank_dtype_is_the_pallas_tgmm_cast(dtype):
+    """`tgmm_plain(..., out_dtype=bf16)` (what the backward now asks of tgmm) equals the
+    JAX VJP's ``_tgmm_call(...).astype(bf16)`` bit for bit, with nonzero padding rows in
+    xp (dy's are zero, as the backward's cotangent of masked outputs is). The inputs are
+    multiples of 1/8 and 1/16 small enough that every fp32 sum is exact in either order,
+    so the bits compare the one rounding to bf16, not the summation order."""
+    rs = np.random.RandomState(13)
+    group_sizes, bm, k_dim, n_dim = [9, 0, 70, 1, 29], 8, 24, 40
+    plan, _ = kmoe.block_plan(torch.tensor(group_sizes), sum(group_sizes), bm)
+    mask = kmoe._row_mask(plan.block_valid, bm).numpy()
+    xp = rs.randint(-8, 9, (plan.padded_rows, k_dim)).astype(np.float32) / 8
+    xp = np.where(mask, xp, 3.0 + xp)  # padding rows: nonzero
+    dy = rs.randint(-8, 9, (plan.padded_rows, n_dim)).astype(np.float32) / 16 * mask
+    block_expert = _jax_layout(group_sizes, bm)[0]
+    jd = JAX_DTYPES[dtype]
+    want = jax_pallas_moe._tgmm_call(
+        _j(xp, jd), _j(dy, jd), (5, k_dim, n_dim), block_expert, bm, interpret=True
+    ).astype(jnp.bfloat16)
+    got = kmoe.tgmm_plain(
+        _t(xp, dtype), _t(dy, dtype), plan.block_expert, bm, 5, plan.block_valid, out_dtype=torch.bfloat16
+    )
+    assert got.dtype == torch.bfloat16
+    assert np.abs(np.asarray(want, np.float32)).sum() > 0
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    # the wrapper on CPU tensors takes the same plain version
+    wrapped = kmoe.tgmm(_t(xp, dtype), _t(dy, dtype), plan, 5, out_dtype=torch.bfloat16)
+    assert torch.equal(wrapped, got)
+    # and the rounding happened: the fp32 sums are not all representable in bf16
+    fp32 = kmoe.tgmm_plain(_t(xp, dtype), _t(dy, dtype), plan.block_expert, bm, 5, plan.block_valid)
+    assert not torch.equal(fp32, got.float())
+
+
 def _run_both(fx, dtype, selected=None, weights=None, act="gelu"):
     """(port experts_grouped, JAX experts_grouped, JAX experts_eager) on the same inputs."""
     jd = JAX_DTYPES[dtype]

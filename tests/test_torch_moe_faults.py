@@ -32,8 +32,8 @@ def _faulty_tgmm(tgmm, k_dim, expert):
     """dW of the banks whose input width is `k_dim` (D: c_fc, 4 D: c_proj), zeroed for
     `expert` or, if None, for every expert."""
 
-    def run(xp, dy, plan, num_experts):
-        out = tgmm(xp, dy, plan, num_experts)
+    def run(xp, dy, plan, num_experts, **kwargs):
+        out = tgmm(xp, dy, plan, num_experts, **kwargs)
         if xp.shape[1] == k_dim:
             out[slice(None) if expert is None else expert] = 0
         return out
