@@ -198,12 +198,12 @@ def _bound(nbytes, flops, dtype_name):
 
 def _record(
     cases, kernel, shape, dtype, err, ok, tol, run, plain, library, nbytes, flops, plain_iters=20,
-    op_dtype=None, path=None,
+    op_dtype=None, path=None, extra=None,
 ):
     """Time one kernel case (kernel, plain version, library call), append it to `cases`
-    with its bound (and the kernel `path` it took, where a kernel has several), and raise
-    if the kernel disagreed with its plain version. The operations bound is taken at the
-    peak rate of `op_dtype` (default `dtype`)."""
+    with its bound (and the kernel `path` it took, where a kernel has several, and any
+    `extra` figures), and raise if the kernel disagreed with its plain version. The
+    operations bound is taken at the peak rate of `op_dtype` (default `dtype`)."""
     dtype_name = str(dtype).replace("torch.", "")
     bound_ms, bound_by = _bound(nbytes, flops, str(op_dtype or dtype).replace("torch.", ""))
     case = {
@@ -212,8 +212,10 @@ def _record(
         "kernel_ms": _time_ms(run), "device_ms": _device_ms(run),
         "plain_ms": _time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
         "library_ms": None if library is None else _time_ms(library),
+        "library_device_ms": None if library is None else _device_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
         **({} if path is None else {"path": path}),
+        **(extra or {}),
     }
     cases.append(case)
     if not ok:
@@ -240,15 +242,56 @@ def _paged_case(gen, lengths, width, heads, head_dim, max_pages, dtype):
     )
 
 
-def kernel_cases(seed):
-    """Phase 2: every kernel against its plain version at the slice's shapes."""
+def rmsnorm_kernel_cases(seed):
+    """Phase 2, rmsnorm: the ln_1 / ln_f form (no residual) and the ln_2 form (residual)
+    at granite's rows [4096, 2560] and the MoE slice's width [4096, 1024], bf16 and fp32,
+    against its plain version, with `F.rms_norm` as the library call of the plain form."""
     import torch
     import torch.nn.functional as F
 
-    from dolomite_engine_tpu_torch.ops.kernels import rmsnorm, rope_qkv
+    from dolomite_engine_tpu_torch.ops.kernels import rmsnorm
 
-    d, heads, head_dim = 2560, 32, 80
     cases = []
+    rows = 8 * 512
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        es = torch.tensor([], dtype=dtype).element_size()
+        fp32 = dtype == torch.float32
+        for d in (GRANITE_3B_CODE["n_embd"], MOE_EP["n_embd"]):
+            x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+            r = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+            w = torch.randn((d,), generator=gen, device="cuda") * 0.1 + 1.0
+            for residual in (None, r):
+                got = rmsnorm.fused_rmsnorm(x, w, 1e-5, residual=residual)
+                want = rmsnorm.fused_rmsnorm_plain(x, w, 1e-5, residual=residual)
+                if residual is not None:
+                    assert torch.equal(got[1], want[1]), "rmsnorm residual stream differs"
+                    got, want = got[0], want[0]
+                diff = (got.float() - want.float()).abs()
+                ok = bool((diff <= 1e-5 + 1e-5 * want.float().abs()).all()) if fp32 else bool(
+                    (diff <= 2 * _bf16_ulp(want)).all()
+                )
+                n_io = 2 if residual is None else 4
+                _record(
+                    cases, "rmsnorm", f"[{rows},{d}]" + ("+residual" if residual is not None else ""), dtype,
+                    diff.max().item(), ok, "1e-5" if fp32 else "2 bf16 ulp",
+                    lambda res=residual: rmsnorm.fused_rmsnorm(x, w, 1e-5, residual=res),
+                    lambda res=residual: rmsnorm.fused_rmsnorm_plain(x, w, 1e-5, residual=res),
+                    (lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-5)) if residual is None else None,
+                    n_io * rows * d * es + d * 4, 4 * rows * d,
+                )
+            del x, r
+    return cases
+
+
+def kernel_cases(seed):
+    """Phase 2: every kernel against its plain version at the slice's shapes."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import rope_qkv
+
+    heads, head_dim = 32, 80
+    cases = rmsnorm_kernel_cases(seed)
 
     def record(kernel, shape, dtype, got, want, tol_ok, *rest):
         _record(cases, kernel, shape, dtype, (got.float() - want.float()).abs().max().item(), tol_ok, *rest)
@@ -257,31 +300,6 @@ def kernel_cases(seed):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         es = torch.tensor([], dtype=dtype).element_size()
         fp32 = dtype == torch.float32
-
-        # rmsnorm: the ln_1 / ln_f form (no residual) and the ln_2 form (residual)
-        rows = 8 * 512
-        x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
-        r = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
-        w = torch.randn((d,), generator=gen, device="cuda") * 0.1 + 1.0
-        for residual in (None, r):
-            got = rmsnorm.fused_rmsnorm(x, w, 1e-5, residual=residual)
-            want = rmsnorm.fused_rmsnorm_plain(x, w, 1e-5, residual=residual)
-            if residual is not None:
-                assert torch.equal(got[1], want[1]), "rmsnorm residual stream differs"
-                got, want = got[0], want[0]
-            diff = (got.float() - want.float()).abs()
-            ok = bool((diff <= 1e-5 + 1e-5 * want.float().abs()).all()) if fp32 else bool(
-                (diff <= 2 * _bf16_ulp(want)).all()
-            )
-            n_io = 2 if residual is None else 4
-            record(
-                "rmsnorm", f"[{rows},{d}]" + ("+residual" if residual is not None else ""),
-                dtype, got, want, ok, "1e-5" if fp32 else "2 bf16 ulp",
-                lambda res=residual: rmsnorm.fused_rmsnorm(x, w, 1e-5, residual=res),
-                lambda res=residual: rmsnorm.fused_rmsnorm_plain(x, w, 1e-5, residual=res),
-                (lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-5)) if residual is None else None,
-                n_io * rows * d * es + d * 4, 4 * rows * d,
-            )
 
         # rope over the fused [Q | K | V] projection: a prefill chunk and a decode step
         for batch, seq in ((1, 512), (8, 1)):
@@ -1206,9 +1224,70 @@ def _close(got, want, fp32, slack=0.0):
     return bool((diff <= bound + slack * want.abs().max()).all()), diff.max().item()
 
 
+def _computed_pairs(seg, causal=True):
+    """(query, key) pairs the flash kernels compute: 64 x 64 for every pair of a 64-row
+    query block (one consumer warpgroup's) and a 64-key tile (at or below its diagonal
+    when causal) whose segment ranges meet; the rest are skipped."""
+    import torch
+
+    tiles = seg.reshape(seg.shape[0], -1, 64)
+    lo, hi = tiles.min(-1).values, tiles.max(-1).values  # [B, S / 64]
+    meets = (hi[:, :, None] >= lo[:, None, :]) & (lo[:, :, None] <= hi[:, None, :])  # [B, query, key]
+    if causal:
+        meets = meets & torch.ones(meets.shape[1:], dtype=torch.bool, device=seg.device).tril()
+    return int(meets.sum().item()) * 64 * 64
+
+
+def _varlen_library(q, k, v, seg, scale):
+    """`torch.nn.attention.varlen.varlen_attn` over the packed rows, each run of one
+    segment id (padding included) one causal sequence: the kernel's function. Returns
+    (forward call, inputs that take gradients, note); the call is None, with the reason in
+    the note, where the card's torch lacks it or it does not take these inputs."""
+    import inspect
+
+    import torch
+
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError as e:
+        return None, None, f"torch {torch.__version__} has no varlen_attn ({e})"
+    params = inspect.signature(varlen_attn).parameters
+    batch, seq, hq, hd = q.shape
+    hkv = k.shape[2]
+    lengths = torch.cat([torch.unique_consecutive(row, return_counts=True)[1] for row in seg])
+    cu = torch.zeros(len(lengths) + 1, dtype=torch.int32, device=q.device)
+    cu[1:] = lengths.cumsum(0)
+    longest = int(lengths.max().item())
+    kwargs = {"scale": scale}
+    if "window_size" in params:
+        kwargs["window_size"] = (-1, 0)
+    elif "is_causal" in params:
+        kwargs["is_causal"] = True
+    else:
+        return None, None, "varlen_attn takes no causal mask"
+    flat = [t.reshape(batch * seq, t.shape[2], hd).detach().clone().requires_grad_() for t in (q, k, v)]
+    note = "varlen_attn, one causal sequence per document"
+    if hq != hkv:
+        if "enable_gqa" not in params:
+            return None, None, "varlen_attn takes no GQA (enable_gqa) in this torch"
+        kwargs["enable_gqa"] = True
+
+    def call(tensors=flat):
+        return varlen_attn(*tensors, cu, cu, longest, longest, **kwargs)
+
+    try:
+        call()
+    except Exception as e:  # the library yardstick only: a refusal is recorded, not fatal
+        return None, None, f"varlen_attn refused these inputs: {type(e).__name__}: {str(e)[:200]}"
+    return call, flat, note
+
+
 def training_kernel_cases(seed):
     """Phase 2, training kernels: flash attention forward and backward and fused_ce
-    against their plain versions, with kernel, plain and library timings."""
+    against their plain versions, with kernel, plain and library timings. The flash
+    library call is `varlen_attn` over the documents (the same function); SDPA, causal
+    over whole rows without segments (a different function, ~3-6x the pairs), is kept as
+    `sdpa_ms`."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1218,17 +1297,23 @@ def training_kernel_cases(seed):
 
     cases = []
 
-    def record(*args):
-        _record(cases, *args, plain_iters=5)  # the plain attention is slow at S = 4096
+    def record(*args, **kwargs):
+        _record(cases, *args, plain_iters=5, **kwargs)  # the plain attention is slow at S = 4096
 
     rs = np.random.RandomState(seed)
+    moe_heads, moe_kv = MOE_EP["n_head"], MOE_EP["num_key_value_heads"]
+    moe_hd = MOE_EP["n_embd"] // moe_heads
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         es = torch.tensor([], dtype=dtype).element_size()
         fp32 = dtype == torch.float32
         tol = "1e-5 abs + 1e-5 rel" if fp32 else "2e-2 abs + 1 bf16 ulp"
-        # the slice's layer (packed documents) and a GQA case at head_dim 128
-        for batch, seq, hq, hkv, hd, docs in ((1, TRAIN_SEQ, 32, 32, 80, 6), (2, 1024, 8, 2, 128, 3)):
+        # the slice's layer (packed documents), a GQA case at head_dim 128, and the MoE
+        # training slice's layer
+        for batch, seq, hq, hkv, hd, docs in (
+            (1, TRAIN_SEQ, 32, 32, 80, 6), (2, 1024, 8, 2, 128, 3),
+            (MOE_TRAIN_MICRO, MOE_TRAIN_SEQ, moe_heads, moe_kv, moe_hd, 3),
+        ):
             qkv = torch.randn((batch, seq, (hq + 2 * hkv) * hd), generator=gen, device="cuda").to(dtype)
             q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
             q, k, v = q.reshape(batch, seq, hq, hd), k.reshape(batch, seq, hkv, hd), v.reshape(batch, seq, hkv, hd)
@@ -1243,12 +1328,26 @@ def training_kernel_cases(seed):
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             gqa = dict(enable_gqa=True) if hq != hkv else {}
             io = (2 * q.numel() + 2 * k.numel()) * es
+            varlen, flat, note = _varlen_library(q, k, v, seg, scale) if not fp32 else (None, None, "bf16 only")
+            figures = {"visible_pairs": pairs, "computed_pairs": _computed_pairs(seg), "library": note}
+            varlen_fwd = None
+            if varlen is not None:  # the yardstick computes the same function
+
+                def varlen_fwd(call=varlen):
+                    with torch.no_grad():
+                        return call()
+
+                figures["library_max_abs_err"] = (
+                    (varlen_fwd().float() - want.reshape(batch * seq, hq, hd).float()).abs().max().item()
+                )
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale, **gqa)
             record(
                 "flash_attn_fwd", shape, dtype, err, ok, tol,
                 lambda: fa.flash_attention_fwd(q, k, v, seg, scale),
                 lambda: fa.flash_attention_fwd_plain(q, k, v, seg, scale),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale, **gqa),
+                varlen_fwd,
                 io + q.numel() // hd * 4 + seg.numel() * 4, 4 * pairs * hd * hq,
+                extra=dict(figures, sdpa_ms=_time_ms(sdpa), sdpa="SDPA causal over whole rows, no segments"),
             )
             dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
             grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
@@ -1257,15 +1356,23 @@ def training_kernel_cases(seed):
             ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
             lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale, **gqa)
             lib_dout = dout.transpose(1, 2).contiguous()
+            varlen_bwd = None
+            if varlen is not None:
+                varlen_out = varlen()
+                flat_dout = dout.reshape(batch * seq, hq, hd)
+                varlen_bwd = lambda: torch.autograd.grad(varlen_out, flat, flat_dout, retain_graph=True)
+            sdpa_bwd = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_dout, retain_graph=True)
             record(
                 "flash_attn_bwd", shape, dtype, max(e for _, e in checks), all(c for c, _ in checks), tol,
                 lambda: fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale),
                 lambda: fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale),
-                lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_dout, retain_graph=True),
+                varlen_bwd,
                 (4 * q.numel() + 4 * k.numel()) * es + q.numel() // hd * 4 + seg.numel() * 4,
                 10 * pairs * hd * hq,
+                extra=dict(figures, sdpa_ms=_time_ms(sdpa_bwd), sdpa="SDPA causal over whole rows, no segments"),
             )
-            del qkv, q, k, v, out, want, grads, want_grads, ql, kl, vl, lib_out
+            del qkv, q, k, v, out, want, grads, want_grads, ql, kl, vl, lib_out, varlen, varlen_fwd, flat, varlen_bwd
+            torch.cuda.empty_cache()
 
         # one loss chunk of the slice (256 rows against the whole table), and a vocabulary
         # that is not a multiple of the kernel's 128-column tile

@@ -19,9 +19,11 @@ divergence of the reference.) Kernels and plain versions shift each query row by
 own position's bias, ``bias[k] - bias[i]``: softmax does not change, and fp32 keeps the
 digits of ``q.k`` beside biases that reach ~1700 at 2048 tokens. The logsumexp they
 return is of those shifted scores. Bound on the H100 by operations for long documents
-and by bytes for a packed batch of short ones; the kernels run both products on the
-tensor cores and skip key tiles whose segments cannot meet the query tile's (see
-``dolomite_engine_tpu_torch/csrc/flash_attention.cu``).
+and by bytes for a packed batch of short ones. bf16 runs warp-specialised `wgmma`
+kernels fed by TMA through an mbarrier ring (128 query rows a CTA in the forward and
+the dQ pass, 64 keys in the dK/dV pass), fp32 scalar-FMA tiles; both skip the 64-token
+tiles whose segments cannot meet their own, from ranges a pre-pass computes once per
+call (see ``dolomite_engine_tpu_torch/csrc/flash_attention.cu``).
 
 `flash_attention_fwd` / `flash_attention_bwd` launch the kernels for CUDA tensors (or
 raise) and take the plain versions for CPU tensors. `flash_attention` is the
@@ -68,7 +70,7 @@ BIAS_BWD_KERNEL = KernelSpec(
 )
 
 HEAD_DIMS = (64, 80, 128)  # the kernels' compiled head widths
-SEQ_MULTIPLE = 64  # query and key tile
+SEQ_MULTIPLE = 64  # key tile, and the tiles of the segment ranges
 
 
 def _check_shapes(q, k, v, segment_ids, bias=None):
@@ -89,7 +91,8 @@ def _segments(segment_ids: torch.Tensor | None, q: torch.Tensor) -> torch.Tensor
     """int32 [B, S] segment ids; None means one document per row."""
     if segment_ids is None:
         return torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
-    return segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    seg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    return seg.clone() if seg.data_ptr() % 16 else seg  # the kernels copy 64-id rows in bulk
 
 
 def _probabilities(q, k, segment_ids, softmax_scale, lse=None, bias=None, causal=True):
@@ -175,6 +178,17 @@ def kernel_specs(bias, causal) -> tuple[KernelSpec, KernelSpec]:
     return BIAS_FWD_KERNEL, BIAS_BWD_KERNEL
 
 
+def _check_aligned(tensor, name):
+    if tensor.data_ptr() % 16:
+        raise ValueError(f"{name} must start 16-byte aligned")
+
+
+def _ranges(q):
+    """Scratch for each 64-token tile's (min, max) segment id and the first and last tile
+    it meets, [B, S / 64, 4] int32."""
+    return torch.empty((q.shape[0], q.shape[1] // SEQ_MULTIPLE, 4), dtype=torch.int32, device=q.device)
+
+
 def _kernel_inputs(q, k, v, segment_ids, bias):
     """Check what the kernels take; returns (token strides of q, k, v, int32 segment
     ids)."""
@@ -186,6 +200,7 @@ def _kernel_inputs(q, k, v, segment_ids, bias):
     strides = [_token_stride(t, n, device, dtype) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     if bias is not None:
         check_cuda_tensor(bias, "bias", device, dtypes=(torch.float32,))
+        _check_aligned(bias, "bias")
     return strides, _segments(segment_ids, q)
 
 
@@ -201,7 +216,7 @@ def flash_attention_fwd(q, k, v, segment_ids, softmax_scale, bias=None, causal=T
     lse = torch.empty((batch, num_q_heads, seq), dtype=torch.float32, device=q.device)
     spec = kernel_specs(bias, causal)[0]
     code = load_library().dolo_flash_fwd(
-        ptr(q), ptr(k), ptr(v), ptr(seg), ptr(bias), ptr(out), ptr(lse),
+        ptr(q), ptr(k), ptr(v), ptr(seg), ptr(bias), ptr(out), ptr(lse), ptr(_ranges(q)),
         batch, seq, num_q_heads, k.shape[2], head_dim, *strides, int(causal),
         float(softmax_scale), DTYPE_CODES[q.dtype], current_stream(q.device),
     )
@@ -219,10 +234,14 @@ def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale, bia
     strides, seg = _kernel_inputs(q, k, v, segment_ids, bias)
     device, dtype = q.device, q.dtype
     dout = dout.contiguous()
+    if dout.data_ptr() % 16:  # the kernels read dO through tensor maps
+        dout = dout.clone()
     for name, tensor, dtypes in (("out", out, (dtype,)), ("dout", dout, (dtype,)), ("lse", lse, (torch.float32,))):
         check_cuda_tensor(tensor, name, device, dtypes=dtypes)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("out and dout must be shaped like q")
+    _check_aligned(lse, "lse")
+    _check_aligned(out, "out")
     batch, seq, num_q_heads, head_dim = q.shape
     delta = torch.empty((batch, num_q_heads, seq), dtype=torch.float32, device=device)
     dq = torch.empty(q.shape, dtype=dtype, device=device)
@@ -231,7 +250,7 @@ def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale, bia
     spec = kernel_specs(bias, causal)[1]
     code = load_library().dolo_flash_bwd(
         ptr(q), ptr(k), ptr(v), ptr(seg), ptr(bias), ptr(out), ptr(dout), ptr(lse), ptr(delta),
-        ptr(dq), ptr(dk), ptr(dv), batch, seq, num_q_heads, k.shape[2], head_dim, *strides,
+        ptr(_ranges(q)), ptr(dq), ptr(dk), ptr(dv), batch, seq, num_q_heads, k.shape[2], head_dim, *strides,
         int(causal), float(softmax_scale), DTYPE_CODES[dtype], current_stream(device),
     )
     check_launch(code, spec.name)

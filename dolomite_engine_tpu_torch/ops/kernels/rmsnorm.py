@@ -3,8 +3,8 @@
 Replaces the TPU kernel ``_rmsnorm_fwd_call`` (`dolomite_engine_tpu/ops/pallas/rmsnorm.py`).
 What bounds it on the H100 and how the kernel is laid out: see
 ``dolomite_engine_tpu_torch/csrc/rmsnorm.cu``. In short it is bound by device-memory
-bytes, and one block per row keeps the summed row in shared memory so each byte moves
-once.
+bytes, and one warp per row keeps the (summed) row in registers, read and written in
+16-byte accesses where the row allows, so each byte moves once.
 
 `fused_rmsnorm` launches the kernel for a CUDA tensor (or raises) and takes the plain
 version for a CPU tensor. It is differentiable: the backward is the plain PyTorch
@@ -19,7 +19,6 @@ import torch
 from ..normalization import rmsnorm
 from ._build import (
     DTYPE_CODES,
-    MAX_SHARED_BYTES,
     KernelSpec,
     check_cuda_tensor,
     check_launch,
@@ -33,6 +32,12 @@ KERNEL = KernelSpec(
     source="dolomite_engine_tpu_torch/csrc/rmsnorm.cu",
     replaces="dolomite_engine_tpu/ops/pallas/rmsnorm.py:66",
 )
+
+# the kernel holds a row in registers: at most this many accesses a lane, of 16 bytes
+# where the row's bytes and the bases allow (bf16 rows up to 6144, fp32 up to 3072;
+# narrower accesses hold proportionally fewer)
+MAX_CHUNKS_PER_LANE = 24
+_ROW_TOO_LONG = 1  # cudaErrorInvalidValue: the one refusal left once the wrapper's checks pass
 
 
 def fused_rmsnorm_plain(
@@ -66,15 +71,18 @@ def _rmsnorm_forward(
     if residual is not None:
         check_cuda_tensor(residual, "residual", device)
     dim = x.shape[-1]
-    if (dim + 32) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"hidden dim {dim} exceeds the kernel's shared-memory row buffer")
-    rows = x.numel() // dim
     out = torch.empty_like(x)
     stream_out = torch.empty_like(x) if residual is not None else None
+    rows = x.numel() // dim
     code = load_library().dolo_rmsnorm(
         ptr(x), ptr(residual), ptr(weight), ptr(out), ptr(stream_out),
         rows, dim, float(eps), DTYPE_CODES[x.dtype], current_stream(device),
     )
+    if code == _ROW_TOO_LONG:
+        raise ValueError(
+            f"hidden dim {dim} exceeds the kernel's registers: {32 * MAX_CHUNKS_PER_LANE} accesses a row "
+            "(16 bytes each where the row and its bases are 16-byte aligned)"
+        )
     check_launch(code, KERNEL.name)
     KERNEL.launches += 1
     return out if residual is None else (out, stream_out)

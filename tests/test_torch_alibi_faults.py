@@ -7,8 +7,8 @@ planted, and the cases must fail each broken build:
 
 - the bias not multiplied by log2(e): the scores run in log2 units, so the bias enters
   at ln 2 of its weight (forward and backward alike);
-- the bias left out of the dQ kernel's recompute of P: the forward and dK/dV stay right,
-  and P no longer matches the saved logsumexp in dQ;
+- the bias left out of the bf16 dQ pass's recompute of P: the forward and dK/dV stay
+  right, and P no longer matches the saved logsumexp in dQ;
 - the non-causal walk stopping at the diagonal: the forward and the dQ kernel skip the
   key tiles past the query tile's.
 
@@ -31,7 +31,7 @@ FAULTS = {
         "  return (key_bias - row_bias);",
     ),
     "bias left out of the dQ recompute": (
-        "        if constexpr (kBias) dq_score += bias_log2(bk[col], row_bias[h]);\n",
+        "            if constexpr (kBias) ds_exp += bias_log2(bk[col], row_bias[h]);  // the bias in dQ's P\n",
         "",
     ),
     "non-causal walk stops at the diagonal": (

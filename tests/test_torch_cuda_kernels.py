@@ -69,7 +69,18 @@ def _rand(generator, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=generator, device="cuda") * scale).to(dtype)
 
 
-@pytest.mark.parametrize("rows,dim", [(21, 32), (8 * 512, 2560)])
+@pytest.mark.parametrize(
+    "rows,dim",
+    [
+        (21, 32),  # one 16-byte access a row: lanes 4-31 idle (the tail)
+        (8 * 512, 2560),  # granite's rows
+        (1, 2560),
+        (8, 2560),  # a decode step
+        (8 * 512, 1024),  # the MoE slice's width
+        (8, 1004),  # not a multiple of 8: 8-byte (bf16) / 16-byte (fp32) accesses, a partial last round
+        (7, 601),  # odd: one-element accesses
+    ],
+)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(rows, dim, dtype, with_residual):
@@ -409,6 +420,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     x = torch.zeros((4, 64), device="cuda").t()  # strided view
     with pytest.raises(ValueError):
         rmsnorm.fused_rmsnorm(x, torch.ones(4, device="cuda"), 1e-5)
+    wide = torch.zeros((2, 8192), device="cuda")  # an fp32 row past the kernel's registers
+    with pytest.raises(ValueError, match="registers"):
+        rmsnorm.fused_rmsnorm(wide, torch.ones(8192, device="cuda"), 1e-5)
     odd = torch.zeros((1, 8, 4, 32), device="cuda")  # head_dim 32: no kernel is built for it
     odd_pages = torch.zeros((2, 16, 4, 32), device="cuda")
     one_row = torch.zeros((1, 2), device="cuda", dtype=torch.int32)
@@ -456,6 +470,12 @@ def _close_bf16(got, want, atol=2e-2):
         (1, 512, 8, 2, 128, 8, 40),  # gqa, eight documents and a padded tail
         (2, 1024, 8, 2, 128, 5, 0),  # the smoke's GQA case
         (1, 4096, 32, 32, 80, 6, 0),  # the training slice: granite-3b-code, packed documents
+        (1, 64, 2, 2, 64, 1, 0),  # one 64-token tile: half of the first 128-row block
+        (2, 192, 4, 2, 80, 3, 0),  # a half-full last 128-row block, head_dim 80
+        (1, 192, 8, 2, 128, 2, 0),  # the same at head_dim 128, gqa 4
+        (1, 128, 2, 1, 128, 100, 0),  # one-token documents, boundaries inside every tile
+        (1, 256, 4, 4, 64, 2, 100),  # an all-pad tail: the last tile is padding only
+        (2, 2048, 16, 8, 64, 5, 0),  # the MoE training slice's layer: gqa 2 at head_dim 64
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -487,6 +507,28 @@ def test_flash_attention_kernels_match_plain(batch, seq, hq, hkv, head_dim, num_
             assert _close_bf16(got, want), (name, (got.float() - want.float()).abs().max().item())
 
 
+@pytest.mark.parametrize("head_dim,causal,with_bias", [(80, True, False), (128, False, True), (64, True, True)])
+def test_flash_backward_is_bit_identical_run_to_run(head_dim, causal, with_bias):
+    """No atomics: two backward passes over the same inputs give the same bits."""
+    from dolomite_engine_tpu_torch.ops.alibi import get_alibi_bias
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    batch, seq, hq, hkv = 2, 1024, 8, 2
+    q, k, v = (_rand(g, (batch, seq, h, head_dim), torch.bfloat16) for h in (hq, hkv, hkv))
+    seg = _segment_ids(batch, seq, 4, seed=2)
+    bias = get_alibi_bias(hq, None, batch, seq, device="cuda")[:, :, 0].contiguous() if with_bias else None
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, head_dim**-0.5, bias, causal)
+    dout = _rand(g, out.shape, torch.bfloat16)
+    first = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, head_dim**-0.5, bias, causal)
+    again_out, again_lse = fa.flash_attention_fwd(q, k, v, seg, head_dim**-0.5, bias, causal)
+    second = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, head_dim**-0.5, bias, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again_out) and torch.equal(lse, again_lse)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_flash_attention_autograd_matches_plain_autograd():
     """gradcheck-style: the autograd function's grads equal autograd through the plain
     forward in fp32."""
@@ -514,6 +556,8 @@ BIAS_FORMS = [
     (1, 512, 8, 2, 128, 8, 40, False, "alibi"),  # gqa, non-causal, eight documents and a padded tail
     (2, 512, 4, 4, 64, 0, 0, True, "left_padded"),  # the padded form: segments and bias from the mask
     (2, 2048, 32, 32, 128, 4, 0, True, "alibi"),  # the alibi slice: MPT-7B's layer, packed documents
+    (2, 192, 4, 2, 80, 3, 0, True, "alibi"),  # a half-full last 128-row block, causal alibi
+    (1, 192, 4, 1, 64, 2, 60, False, "alibi"),  # the same, non-causal, padded tail
 ]
 
 
