@@ -39,13 +39,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    `ServingEngine(kv_dtype="int8")` and again with ``"fp8"`` (right after phase 4), and
    phase 7's MoE model with ``"int8"`` (right after its profile), each with launch counts
    zeroed just before and read just after, the bytes per cached token, launches per
-   forward against the bf16 pool, and the greedy tokens' agreement with the bf16 pool's;
+   forward against the bf16 pool (device launches, device and host time of a prefill
+   chunk and a decode step, as for the bf16 pools of phases 3 and 7), and the greedy
+   tokens' agreement with the bf16 pool's;
 10. ``quantized_check`` (after the dense quantized runs): phase 3's model chunk-prefills
    request 2's prompt and decodes 4 tokens into a fresh int8 pool once through the kernel
-   path and once through the plain versions of its three kernels (kv_quant, paged decode
-   and prefill, patched in here on the same CUDA tensors): layer 0's pool bytes must be
-   identical, layer 0's attention and the last position's logits must agree, and a page
-   whose quotients fall on halves must encode to the plain version's bytes;
+   path and once through the plain versions of its three kernels (kv_quant's fused
+   scatter-quantize, paged decode and prefill, patched in here on the same CUDA tensors):
+   layer 0's pool bytes must be identical, layer 0's attention and the last position's
+   logits must agree, and a page whose quotients fall on halves must encode to the plain
+   version's bytes; then ``paged_write_check``: the same over a bf16 pool, with rope_qkv's
+   paged form swapped for the flat rope kernel and the plain scatter (layer 0's pool
+   bytes identical);
 11. the alibi slice (MPT-7B, ``position_embedding_type: alibi``): ``alibi_training_check``,
    the training kernel path against the plain path at full width and 2 layers as in
    phase 5 (every attention call through the additive-bias flash form); then
@@ -53,7 +58,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at its sequence 2048, micro batch 2 x accumulation 2, with launch counts zeroed just
    before and read just after; then ``alibi_training_profile``, one profiled step.
 
-The grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
+The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
+at both models' decode and prefill windows over bf16, int8 and fp8 pools, one launch a
+call, pages byte-identical to the flat rope kernel and the plain scatter) and the
+grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
 transposed-bank dX form, tgmm with fp32 and with the bank's bf16 output, and a case with
 most experts empty; padding rows nonzero; each case names its kernel path) and the quantized
 pool's cases (kv_quant at both models' decode and prefill windows, the decode and prefill
@@ -66,12 +74,13 @@ events around back-to-back calls, host enqueue included) and ``device_ms`` (the 
 calls queued behind a sleep kernel, so the card runs them without waiting for the host).
 
 Prints the card's name and power limit, a ``kernel_cases`` line (every case of phase 2),
-``serving``, ``profile``, ``quantized_check``, ``training_check``, ``training``,
+``serving``, ``profile``, ``quantized_check``, ``paged_write_check``, ``training_check``, ``training``,
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training`` and ``alibi_training_profile`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
-``kernels`` line, the card again, and last
+``kernels`` line (a kernel with several entry points lists each form's launches and
+times under ``forms``), the card again, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -293,16 +302,17 @@ def kernel_cases(seed):
     heads, head_dim = 32, 80
     cases = rmsnorm_kernel_cases(seed)
 
-    def record(kernel, shape, dtype, got, want, tol_ok, *rest):
-        _record(cases, kernel, shape, dtype, (got.float() - want.float()).abs().max().item(), tol_ok, *rest)
+    def record(kernel, shape, dtype, got, want, tol_ok, *rest, **options):
+        _record(cases, kernel, shape, dtype, (got.float() - want.float()).abs().max().item(), tol_ok, *rest, **options)
 
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         es = torch.tensor([], dtype=dtype).element_size()
         fp32 = dtype == torch.float32
 
-        # rope over the fused [Q | K | V] projection: a prefill chunk and a decode step
-        for batch, seq in ((1, 512), (8, 1)):
+        # rope over the fused [Q | K | V] projection (the flat form): a prefill chunk, a
+        # decode step and a training row
+        for batch, seq in ((1, 512), (8, 1), (1, 4096)):
             width = 3 * heads * head_dim
             qkv = torch.randn((batch, seq, width), generator=gen, device="cuda").to(dtype)
             angles = torch.rand((batch, seq, head_dim), generator=gen, device="cuda") * 6.0
@@ -326,7 +336,9 @@ def kernel_cases(seed):
                 None,
                 2 * batch * seq * width * es + 2 * batch * seq * head_dim * es,
                 6 * batch * seq * 2 * heads * head_dim,
+                extra={"form": "flat"},
             )
+            del qkv, angles, cos, sin, got, want, diff
 
     torch.cuda.synchronize()
     return cases + paged_kernel_cases(seed)
@@ -346,8 +358,8 @@ def paged_kernel_cases(seed):
     heads, head_dim = 32, 80
     cases = []
 
-    def record(kernel, shape, dtype, got, want, tol_ok, *rest):
-        _record(cases, kernel, shape, dtype, (got.float() - want.float()).abs().max().item(), tol_ok, *rest)
+    def record(kernel, shape, dtype, got, want, tol_ok, *rest, **options):
+        _record(cases, kernel, shape, dtype, (got.float() - want.float()).abs().max().item(), tol_ok, *rest, **options)
 
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -511,6 +523,7 @@ def quant_kernel_cases(seed):
                     lambda v=values, m=valid: quantize_pages_plain(v, m, qmax, storage),
                     None, values.numel() * (4 + 1) + valid.numel() + num_pages * hkv * 4,
                     3 * values.numel(), op_dtype=torch.float32,  # |x| and max, divide, round / clip
+                    extra={"form": "encode"},
                 )
 
             # the attention kernels over a quantized pool (bf16 query), scales from an
@@ -583,6 +596,185 @@ def quant_kernel_cases(seed):
         plain_iters=5,
     )
     del k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _stale_pool(gen, num_pages, heads, head_dim, kv_dtype):
+    """A pool of `kv_dtype` pages (bf16, or int8 / fp8 codes with fp32 scales): random rows
+    whose second half of every page is 10x the first, so stale rows past a frontier hold
+    the largest values of their page (an absmax over them would set another scale)."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES, quantize_pages_plain
+
+    shape = (num_pages, PAGE, heads, head_dim)
+    pools = []
+    for _ in range(2):  # K, V
+        values = torch.randn(shape, generator=gen, device="cuda")
+        values[:, PAGE // 2 :] *= 10.0
+        if kv_dtype == "bf16":
+            pools.append((values.to(torch.bfloat16), None))
+        else:
+            storage, qmax = KV_QUANT_DTYPES[kv_dtype]
+            valid = torch.ones(shape[:2], dtype=torch.bool, device="cuda")
+            pools.append(quantize_pages_plain(values, valid, qmax, storage))
+    (k, ks), (v, vs) = pools
+    return k, v, ks, vs
+
+
+def _paged_write_windows(gen, hq, hkv, hd):
+    """The serving writes of one model at its widths: (label, qkv, cos, sin, table, index,
+    mask) of a decode step over 8 slots at frontiers up to 2047 (two on page boundaries;
+    the last slot idle on the all-trash row), a 512-token prefill chunk at start 1536 whose
+    last 12 rows are a masked pad tail, and one at start 1600 that runs 64 positions past
+    the view (the 2048-token table of the serving cells)."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.rope import RoPEParams, get_cos_sin
+
+    rope = RoPEParams.from_config(hd)
+    width = (hq + 2 * hkv) * hd
+    max_pages = MAX_LEN // PAGE
+    lengths = [2047, 1900, 1536, 1024, 777, 300, 64, 0]
+    _, _, table, lens = _paged_case(gen, lengths, 1, 1, 16, max_pages, torch.bfloat16)
+    qkv = torch.randn((NUM_SLOTS, 1, width), generator=gen, device="cuda").to(torch.bfloat16)
+    cos, sin = get_cos_sin(rope, lens[:, None].long(), torch.bfloat16)
+    windows = [("decode: 8 slots", qkv, cos, sin, table, lens, None)]
+    full = torch.randperm(1 + NUM_SLOTS * max_pages - 1, generator=gen, device="cuda")[:max_pages]
+    prefill_table = (1 + full).to(torch.int32)[None].contiguous()
+    for start, real in ((MAX_LEN - CHUNK, CHUNK - 12), (MAX_LEN - CHUNK + 64, CHUNK - 64)):
+        qkv = torch.randn((1, CHUNK, width), generator=gen, device="cuda").to(torch.bfloat16)
+        positions = torch.arange(start, start + CHUNK, device="cuda")[None]
+        cos, sin = get_cos_sin(rope, positions, torch.bfloat16)
+        mask = torch.zeros((1, MAX_LEN), dtype=torch.int32, device="cuda")
+        mask[0, : min(start + real, MAX_LEN)] = 1
+        label = f"prefill chunk at {start}" + (", 12 pad rows" if start + CHUNK <= MAX_LEN else ", 64 rows past the view")
+        windows.append((label, qkv, cos, sin, prefill_table, torch.tensor(start, dtype=torch.int32, device="cuda"), mask))
+    return windows
+
+
+def paged_write_kernel_cases(seed):
+    """Phase 2, the serving K/V write: rope_qkv's paged form and kv_quant's fused
+    scatter-quantize at both served models' decode and prefill windows
+    (`_paged_write_windows`), over bf16, int8 and fp8 pools whose stale rows are their
+    pages' largest (`_stale_pool`). Each call must launch exactly once. Over a bf16 pool
+    the paged form's pages 1.. and query must be byte-identical to the flat rope kernel
+    followed by the plain scatter, and within rope's 2 bf16 ulp of the plain version; over
+    a quantized pool its query, K and V must be those of the flat rope kernel, and the
+    fused scatter's pages 1.. and scales byte-identical to its plain version's."""
+    import functools
+
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.attention import paged_write_kv_quantized_plain, write_positions
+    from dolomite_engine_tpu_torch.ops.kernels import kv_quant, rope_qkv
+    from dolomite_engine_tpu_torch.ops.kv_quant import as_bytes
+
+    def same(a, b):  # byte identity of pages 1.. (page 0 is the trash page)
+        return torch.equal(as_bytes(a)[1:], as_bytes(b)[1:]) if a.element_size() == 1 else torch.equal(
+            a[1:].view(torch.int16 if a.element_size() == 2 else torch.int32),
+            b[1:].view(torch.int16 if b.element_size() == 2 else torch.int32),
+        )
+
+    def one_launch(spec, fn):
+        before = spec.launches
+        out = fn()
+        return out, spec.launches == before + 1
+
+    cases = []
+    num_pages = 1 + NUM_SLOTS * (MAX_LEN // PAGE)
+    with_flat_rope = functools.partial(rope_qkv.rope_qkv_paged_plain, rope=rope_qkv.fused_rope_qkv)
+    for model_name, (hq, hkv, hd) in ATTENTION_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        width = (hq + 2 * hkv) * hd
+        for label, qkv, cos, sin, table, index, mask in _paged_write_windows(gen, hq, hkv, hd):
+            batch, seq = qkv.shape[:2]
+            positions, valid = write_positions(index, mask, MAX_LEN, batch, seq, qkv.device)
+            page_ids = torch.gather(table.long(), 1, positions.long() // PAGE)
+            writes = valid & (page_ids != 0)  # the rows this call writes (the rest: trash page)
+            n_rows = int(writes.sum())
+            n_pages = torch.unique(page_ids[writes]).numel()  # a written page belongs to one row
+            args = (hq, hkv, hd)
+            rotated = batch * seq * (hq + hkv) * hd
+            cs_bytes = 2 * cos.shape[0] * seq * hd * 2
+            flat = rope_qkv.fused_rope_qkv(qkv, cos, sin, *args)
+            flat_q, flat_k, flat_v = (
+                part.reshape(batch, seq, -1, hd) for part in torch.split(flat, [hq * hd, hkv * hd, hkv * hd], -1)
+            )
+            for kv_dtype in ("bf16", "int8", "fp8"):
+                k, v, ks, vs = _stale_pool(gen, num_pages, hkv, hd, kv_dtype)
+                shape = f"{model_name} {label} qkv[{batch},{seq},{width}] over {kv_dtype} pages[{num_pages},{PAGE},{hkv},{hd}]"
+                if kv_dtype == "bf16":
+                    got_k, got_v, ref_k, ref_v = k.clone(), v.clone(), k.clone(), v.clone()
+                    plain_k, plain_v = k.clone(), v.clone()
+                    (query, _, _), launched = one_launch(
+                        rope_qkv.KERNEL,
+                        lambda: rope_qkv.rope_qkv_paged(qkv, cos, sin, *args, got_k, got_v, table, index, mask),
+                    )
+                    ref_q, _, _ = with_flat_rope(qkv, cos, sin, *args, ref_k, ref_v, table, index, mask)
+                    plain_q, _, _ = rope_qkv.rope_qkv_paged_plain(
+                        qkv, cos, sin, *args, plain_k, plain_v, table, index, mask
+                    )
+                    identical = same(got_k, ref_k) and same(got_v, ref_v) and torch.equal(query, ref_q)
+                    v_copied = same(got_v, plain_v)  # V is copied: no arithmetic
+                    nbytes = 2 * n_rows * hkv * hd * 2  # K and V rows into the pool
+                    del plain_k, plain_v
+                else:
+                    (query, key, value), launched = one_launch(
+                        rope_qkv.KERNEL,
+                        lambda: rope_qkv.rope_qkv_paged(qkv, cos, sin, *args, None, None, table, index, mask),
+                    )
+                    plain_q, _, plain_v = rope_qkv.rope_qkv_paged_plain(
+                        qkv, cos, sin, *args, None, None, table, index, mask
+                    )
+                    identical = torch.equal(query, flat_q) and torch.equal(key, flat_k) and torch.equal(value, flat_v)
+                    v_copied = torch.equal(value, plain_v)
+                    nbytes = 2 * batch * seq * hkv * hd * 2  # K and V out, contiguous
+                x = qkv.float().reshape(batch, seq, -1, hd)[:, :, :hq]
+                scale = x.abs() + x.roll(hd // 2, -1).abs()
+                diff = (query.float() - plain_q.float()).abs()
+                ok = identical and v_copied and launched and bool((diff <= 2 * _bf16_ulp(scale)).all())
+                _record(
+                    cases, "rope_qkv", shape, torch.bfloat16, diff.max().item(), ok,
+                    "1 launch; pages 1.. and query byte-identical to the flat kernel + plain scatter "
+                    "(quantized pool: query, K and V to the flat kernel's); V byte-identical and the "
+                    "query within 2 bf16 ulp of the larger term of the plain version",
+                    (lambda: rope_qkv.rope_qkv_paged(qkv, cos, sin, *args, got_k, got_v, table, index, mask))
+                    if kv_dtype == "bf16" else
+                    (lambda: rope_qkv.rope_qkv_paged(qkv, cos, sin, *args, None, None, table, index, mask)),
+                    (lambda: rope_qkv.rope_qkv_paged_plain(qkv, cos, sin, *args, ref_k, ref_v, table, index, mask))
+                    if kv_dtype == "bf16" else
+                    (lambda: rope_qkv.rope_qkv_paged_plain(qkv, cos, sin, *args, None, None, table, index, mask)),
+                    None,
+                    batch * seq * (width + hq * hd) * 2 + cs_bytes + nbytes + table.numel() * 4,
+                    6 * rotated, extra={"form": "paged"},
+                )
+                if kv_dtype == "bf16":
+                    del got_k, got_v, ref_k, ref_v
+                    continue
+                got = [t.clone() for t in (k, v, ks, vs)]
+                want = [t.clone() for t in (k, v, ks, vs)]
+                _, launched = one_launch(
+                    kv_quant.KERNEL,
+                    lambda: kv_quant.paged_scatter_kv_quantized_kernel(*got, key, value, table, index, mask),
+                )
+                paged_write_kv_quantized_plain(*want, key, value, table, index, mask)
+                ok = launched and all(same(a, b) for a, b in zip(got, want))
+                err = max((a[1:].float() - b[1:].float()).abs().max().item() for a, b in zip(got, want))
+                _record(
+                    cases, "kv_quant", f"{model_name} {label} K+V[{batch},{seq},{hkv},{hd}] into {kv_dtype} pages",
+                    k.dtype, err, ok, "1 launch; pages 1.. and scales byte-identical",
+                    lambda: kv_quant.paged_scatter_kv_quantized_kernel(*got, key, value, table, index, mask),
+                    lambda: paged_write_kv_quantized_plain(*want, key, value, table, index, mask),
+                    None,
+                    # the written rows in, each written (page, head) slice's codes and scale in and out
+                    2 * n_rows * hkv * hd * 2 + 2 * n_pages * hkv * (2 * PAGE * hd + 8) + table.numel() * 4,
+                    2 * n_pages * hkv * PAGE * hd * 4, op_dtype=torch.float32,  # dequantize, |x| and max, divide, round / clip
+                    plain_iters=5, extra={"form": "scatter"},
+                )
+                del got, want, k, v, ks, vs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return cases
@@ -716,6 +908,13 @@ def kernel_path_logits(model, tokens, prompt_len, caches=None):
     return torch.cat(logits)
 
 
+def form_counts():
+    """``{"kernel:form": launches}`` of the kernels with several entry points."""
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+
+    return {f"{spec.name}:{form}": n for spec in KERNELS for form, n in spec.forms.items() if n}
+
+
 def _sync(device):
     import torch
 
@@ -786,9 +985,10 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, mod
     assert engine.pool.num_free == NUM_SLOTS
     forwards = stats.decode_steps + stats.prefill_chunks
     layers = config.n_layer
+    quantized = engine.pool.quantized
     expected = {
         "rmsnorm": (2 * layers + 1) * forwards,
-        "rope_qkv": layers * forwards,
+        "rope_qkv": layers * forwards,  # the paged form: the query out, K / V into the pool
         "paged_decode_attention": layers * stats.decode_steps,
         "paged_prefill_attention": layers * stats.prefill_chunks,
         "flash_attn_fwd": 0,
@@ -796,12 +996,15 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, mod
         "fused_ce": 0,
         "grouped_gemm": 2 * layers * forwards if moe else 0,  # c_fc and c_proj of every layer
         "grouped_gemm_tgmm": 0,
-        "kv_quant": 2 * layers * forwards if engine.pool.quantized else 0,  # K and V of every layer
+        "kv_quant": layers * forwards if quantized else 0,  # the fused scatter: K and V of a layer
         "flash_attn_bias_fwd": 0,
         "flash_attn_bias_bwd": 0,
     }
+    forms = form_counts()
+    expected_forms = {"rope_qkv:paged": layers * forwards, **({"kv_quant:scatter": layers * forwards} if quantized else {})}
     if device.type == "cuda":  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
+        assert forms == expected_forms, (forms, expected_forms)
     greedy = [state.tokens for state in states]
     if kv_dtype is not None:
         serving = {
@@ -811,7 +1014,7 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, mod
             "ttft_mean_s": stats.mean_ttft_s(), "prefill_tok_s": stats.prefill_tok_s(),
             "decode_tok_s": stats.decode_tok_s(), "prefill_tokens": stats.prefill_tokens,
             "prefix_hit_tokens": stats.prefix_hit_tokens, "decode_steps": stats.decode_steps,
-            "prefill_chunks": stats.prefill_chunks, "launches": launches,
+            "prefill_chunks": stats.prefill_chunks, "launches": launches, "launch_forms": forms,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None,
         }
         return serving, launches, model, specs, greedy
@@ -897,7 +1100,7 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, mod
         "ttft_mean_s": stats.mean_ttft_s(), "prefill_tok_s": stats.prefill_tok_s(),
         "decode_tok_s": stats.decode_tok_s(), "prefill_tokens": stats.prefill_tokens,
         "prefix_hit_tokens": stats.prefix_hit_tokens, "decode_steps": stats.decode_steps,
-        "prefill_chunks": stats.prefill_chunks, "launches": launches,
+        "prefill_chunks": stats.prefill_chunks, "launches": launches, "launch_forms": forms,
         "logits_check": logits_check,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None,
     }
@@ -961,6 +1164,7 @@ _FAMILIES = (
     ("paged_prefill", "paged_prefill_attention"),
     ("rmsnorm", "rmsnorm"),
     ("rope", "rope_qkv"),
+    ("kv_quant", "kv_quant"),
     ("fused_ce", "fused_ce"),
     ("multi_tensor_apply", "optimizer_foreach"),
     ("gemm", "cublas_gemm"),
@@ -1044,8 +1248,11 @@ def launches_per_forward(model, kv_dtype=None):
     """Device launches (kernels and copies, by torch.profiler) of one prefill chunk and
     of one decode step of the phase-3 engine over a pool of `kv_dtype`: a 300-token
     request's first step (its one chunk and a decode step), then four decode steps. Also
-    a decode step's device busy time and, for a quantized pool, kv_quant's device time
-    per launch there (8 slots' windows of 2 pages; the idle slots' land in the trash page)."""
+    a decode step's device busy time, rope_qkv's and (for a quantized pool) kv_quant's
+    device time per launch there (8 slots' windows of 2 pages; the idle slots' land in the
+    trash page), and the host time of a decode step, unprofiled (mean of 8, each ending in
+    the host fetch of its tokens)."""
+    import torch
     from torch.autograd import DeviceType
 
     from dolomite_engine_tpu_torch.serving import ServingEngine
@@ -1054,50 +1261,102 @@ def launches_per_forward(model, kv_dtype=None):
         model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE, prefill_chunk_tokens=CHUNK,
         eos_token_id=None, pad_token_id=model.config.pad_token_id, kv_dtype=kv_dtype,
     )
-    engine.submit(list(range(1, 301)), max_new_tokens=8)
+    engine.submit(list(range(1, 301)), max_new_tokens=16)
 
     def kernels(fn):
         events, _ = _profiled(fn)
         return [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
+    def device_us(name):
+        found = [e for e in decode if name in e.key]
+        return sum(e.self_device_time_total for e in found) / sum(e.count for e in found) if found else None
+
     first = sum(e.count for e in kernels(engine.step))
     decode = kernels(lambda: [engine.step() for _ in range(4)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        engine.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 8 * 1e3
     engine.drain()
     per_step = sum(e.count for e in decode) / 4
-    quant = [e for e in decode if "kv_quant" in e.key]
     return {
         "prefill_chunk": first - per_step, "decode_step": per_step,
         "decode_step_device_ms": sum(e.self_device_time_total for e in decode) / 4 / 1e3,
-        "kv_quant_device_us": (
-            sum(e.self_device_time_total for e in quant) / sum(e.count for e in quant) if quant else None
-        ),
+        "decode_step_host_ms": host_ms,
+        "rope_qkv_device_us": device_us("rope_qkv"), "kv_quant_device_us": device_us("kv_quant"),
     }
 
 
 @contextlib.contextmanager
-def _plain_quantized_path():
-    """The quantized path with the plain versions of its three kernels on the same CUDA
-    tensors: the encode the scatter calls and the two attention functions the model calls
-    are swapped here, and put back as they were afterwards."""
-    from dolomite_engine_tpu_torch.models import modeling_utils
-    from dolomite_engine_tpu_torch.ops import attention
-    from dolomite_engine_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_plain
-    from dolomite_engine_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_plain
-    from dolomite_engine_tpu_torch.ops.kv_quant import quantize_pages_plain
-
-    swaps = [
-        (modeling_utils, "paged_decode_attention", paged_decode_attention_plain),
-        (modeling_utils, "paged_prefill_attention", paged_prefill_attention_plain),
-        (attention, "quantize_pages", quantize_pages_plain),
-    ]
+def _swapped(swaps):
+    """`(module, name, value)` attributes set for the duration, then put back."""
     saved = [getattr(module, name) for module, name, _ in swaps]
     try:
-        for module, name, plain in swaps:
-            setattr(module, name, plain)
+        for module, name, value in swaps:
+            setattr(module, name, value)
         yield
     finally:
         for (module, name, _), value in zip(swaps, saved):
             setattr(module, name, value)
+
+
+def _plain_quantized_path():
+    """The quantized path with the plain versions of its three kernels on the same CUDA
+    tensors: the fused scatter-quantize (kv_quant) the model's K/V write calls and the two
+    attention functions the model calls are swapped here, and put back afterwards."""
+    from dolomite_engine_tpu_torch.models import modeling_utils
+    from dolomite_engine_tpu_torch.ops.attention import paged_write_kv_quantized_plain
+    from dolomite_engine_tpu_torch.ops.kernels.paged_attention import paged_decode_attention_plain
+    from dolomite_engine_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention_plain
+
+    return _swapped([
+        (modeling_utils, "paged_decode_attention", paged_decode_attention_plain),
+        (modeling_utils, "paged_prefill_attention", paged_prefill_attention_plain),
+        (modeling_utils, "paged_scatter_kv_quantized", paged_write_kv_quantized_plain),
+    ])
+
+
+def paged_write_check(model, tokens, prompt_len):
+    """Over a bf16 pool: `tokens` chunk-prefilled and decoded into a fresh pool through the
+    kernel path (rope_qkv's paged form writes K/V into the pages), and again with the paged
+    form swapped for the flat rope kernel followed by the plain scatter. The rotation's
+    arithmetic is the same, so layer 0's pool must hold the same bytes on both paths;
+    every layer's pool and the logits are reported (equal where the rest of the path is
+    deterministic)."""
+    import functools
+
+    import torch
+
+    from dolomite_engine_tpu_torch.models import modeling_utils
+    from dolomite_engine_tpu_torch.ops.kernels.rope_qkv import fused_rope_qkv, rope_qkv_paged_plain
+    from dolomite_engine_tpu_torch.serving import PagedKVCachePool
+
+    def fresh_pool():
+        return PagedKVCachePool(model, 1, MAX_LEN, PAGE).caches
+
+    with torch.no_grad():
+        kernel_caches, flat_caches = fresh_pool(), fresh_pool()
+        got = kernel_path_logits(model, tokens, prompt_len, kernel_caches).float()
+        flat = functools.partial(rope_qkv_paged_plain, rope=fused_rope_qkv)
+        with _swapped([(modeling_utils, "rope_qkv_paged", flat)]):
+            want = kernel_path_logits(model, tokens, prompt_len, flat_caches).float()
+
+    def same(a, b):
+        return torch.equal(a[1:].view(torch.int16), b[1:].view(torch.int16))
+
+    identical = [same(g["k"], w["k"]) and same(g["v"], w["v"]) for g, w in zip(kernel_caches, flat_caches)]
+    check = {
+        "n_layer": model.config.n_layer, "positions": len(tokens), "prompt_tokens": prompt_len,
+        "pool_dtype": str(kernel_caches[0]["k"].dtype).replace("torch.", ""),
+        "layer0_pool_bytes_identical": identical[0],
+        "layers_with_identical_pool_bytes": sum(identical),
+        "logits_max_abs_diff": (got - want).abs().max().item(),
+        "tolerance": "layer 0's K and V pages byte-identical (trash page 0 aside)",
+    }
+    assert check["layer0_pool_bytes_identical"], f"the paged form writes other bytes than the flat kernel + plain scatter: {check}"
+    return check
 
 
 def quantized_check(model, tokens, prompt_len, kv_dtype="int8"):
@@ -1831,6 +2090,7 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         _sync(wrapper.model.device)
         times.append(time.perf_counter() - t0)
     launches = {k.name: k.launches for k in KERNELS}
+    forms = form_counts()
 
     losses = [m["loss"] for m in metrics]
     assert all(np.isfinite(losses)) and not any(m["skipped"] for m in metrics), metrics
@@ -1861,8 +2121,10 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         "flash_attn_bias_fwd": 2 * layers * micro_batches if alibi else 0,
         "flash_attn_bias_bwd": layers * micro_batches if alibi else 0,
     }
+    expected_forms = {"rope_qkv:flat": expected["rope_qkv"]} if rope else {}
     if on_card:  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
+        assert forms == expected_forms, (forms, expected_forms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     if on_card:
         assert peak_gb < 70, f"peak device memory {peak_gb:.1f} GB"
@@ -1883,7 +2145,7 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         "step_s": times, "mean_step_s_after_warmup": step_s,
         "tokens_per_s": TRAIN_ACCUM * micro_batch * seq / step_s,
         "model_tflops_per_step": tflops, "mfu": tflops / step_s / (PEAK_FLOPS["bfloat16"] / 1e12),
-        "peak_memory_gb": peak_gb, "model_init_s": build_s, "launches": launches,
+        "peak_memory_gb": peak_gb, "model_init_s": build_s, "launches": launches, "launch_forms": forms,
     }
     return training, launches, (state, train_step, batch)
 
@@ -1939,22 +2201,25 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
 
     cases = (
-        kernel_cases(args.seed) + quant_kernel_cases(args.seed) + training_kernel_cases(args.seed)
-        + moe_kernel_cases(args.seed) + alibi_kernel_cases(args.seed)
+        kernel_cases(args.seed) + quant_kernel_cases(args.seed) + paged_write_kernel_cases(args.seed)
+        + training_kernel_cases(args.seed) + moe_kernel_cases(args.seed) + alibi_kernel_cases(args.seed)
     )
     print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
 
     serving, serving_launches, model, specs, tokens = serve(args.seed)
+    serving["launches_per_forward"] = launches_per_forward(model)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"profile": profile_serving(model, specs), "card": card}), flush=True)
 
     # phase 9: the quantized pool on phase 3's model and requests; launches summed over its runs
-    quantized, quantized_launches = {}, {spec.name: 0 for spec in KERNELS}
+    quantized, quantized_launches, quantized_forms = {}, {spec.name: 0 for spec in KERNELS}, {}
 
     def serve_quantized(name, kv_dtype, bf16_tokens, bf16_serving):
         record, launches, model_, _, got = serve(args.seed, kv_dtype=kv_dtype, model=model)
         for kernel, n in launches.items():
             quantized_launches[kernel] += n
+        for form, n in record["launch_forms"].items():
+            quantized_forms[form] = quantized_forms.get(form, 0) + n
         pairs = [(a, b) for want, have in zip(bf16_tokens, got) for a, b in zip(want, have)]
         record["greedy_token_agreement_with_bf16_pool"] = sum(a == b for a, b in pairs) / len(pairs)
         record["requests_identical_to_bf16_pool"] = sum(want == have for want, have in zip(bf16_tokens, got))
@@ -1968,7 +2233,7 @@ def main() -> int:
         record["pool_gb"] = record["kv_bytes_per_token"] * pool_tokens / 1e9
         record["bf16_pool"]["pool_gb"] = bf16_kv_bytes(model_.config) * pool_tokens / 1e9
         record["launches_per_forward"] = launches_per_forward(model_, kv_dtype)
-        record["bf16_pool"]["launches_per_forward"] = launches_per_forward(model_)
+        record["bf16_pool"]["launches_per_forward"] = bf16_serving["launches_per_forward"]
         quantized[name] = record
 
     for kv_dtype in ("int8", "fp8"):
@@ -1976,6 +2241,8 @@ def main() -> int:
     probe = specs[2]["prompt_ids"]
     check = quantized_check(model, probe + tokens[2][:4], len(probe))
     print(json.dumps({"quantized_check": check, "card": card}), flush=True)
+    check = paged_write_check(model, probe + tokens[2][:4], len(probe))
+    print(json.dumps({"paged_write_check": check, "card": card}), flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1988,6 +2255,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     moe_serving, moe_serving_launches, model, specs, tokens = serve(args.seed, MOE_EP)
+    moe_serving["launches_per_forward"] = launches_per_forward(model)
     print(json.dumps({"moe_serving": moe_serving, "card": card}), flush=True)
     print(json.dumps({"moe_profile": profile_serving(model, specs), "card": card}), flush=True)
     serve_quantized("moe int8", "int8", tokens, moe_serving)
@@ -2024,12 +2292,26 @@ def main() -> int:
     print(json.dumps({"alibi_training_profile": alibi_profile, "card": card}), flush=True)
     del state, train_step, batch
 
+    records = {
+        "serving": serving, "training": training, "moe_serving": moe_serving, "moe_training": moe_training,
+        "quantized_serving": {"launch_forms": quantized_forms}, "alibi_training": alibi_training,
+    }
+
+    def summary(case_list):
+        # the first case of the type the main path runs: bf16, or kv_quant's int8 codes
+        main_case = case_list[0]
+        return {
+            "max_abs_err": max(c["max_abs_err"] for c in case_list),
+            "ms": main_case["kernel_ms"], "kernel_ms": main_case["kernel_ms"], "device_ms": main_case["device_ms"],
+            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            "shape": main_case["shape"], "tolerance": main_case["tolerance"],
+        }
+
     kernels = []
     for spec in KERNELS:
-        # the case type the main path runs: bf16, or kv_quant's int8 codes
         main_dtype = "int8" if spec.name == "kv_quant" else "bfloat16"
-        bf16 = [c for c in cases if c["kernel"] == spec.name and c["dtype"] == main_dtype]
-        main_case = bf16[0]
+        main_cases = [c for c in cases if c["kernel"] == spec.name and c["dtype"] == main_dtype]
         by_path = {
             "serving": serving_launches[spec.name], "training": training_launches[spec.name],
             "moe_serving": moe_serving_launches[spec.name], "moe_training": moe_training_launches[spec.name],
@@ -2037,14 +2319,20 @@ def main() -> int:
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"
+        # a kernel with several entry points: each form's launches and its cases' numbers;
+        # the kernel's own numbers are those of the form the main path launched most
+        forms = []
+        for form in dict.fromkeys(c["form"] for c in main_cases if "form" in c):
+            form_by_path = {path: r["launch_forms"].get(f"{spec.name}:{form}", 0) for path, r in records.items()}
+            form_cases = [c for c in main_cases if c.get("form") == form]
+            forms.append({"form": form, "launches": sum(form_by_path.values()), "launches_by_path": form_by_path, **summary(form_cases)})
+        if forms:
+            top = max(forms, key=lambda f: f["launches"])["form"]
+            main_cases = [c for c in main_cases if c.get("form") == top]
         kernels.append({
             "name": spec.name, "route": "cuda", "source": spec.source, "replaces": spec.replaces,
-            "launches": launches, "launches_by_path": by_path,
-            "max_abs_err": max(c["max_abs_err"] for c in bf16),
-            "ms": main_case["kernel_ms"], "kernel_ms": main_case["kernel_ms"], "device_ms": main_case["device_ms"],
-            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-            "shape": main_case["shape"], "tolerance": main_case["tolerance"],
+            "launches": launches, "launches_by_path": by_path, **summary(main_cases),
+            **({"forms": forms} if forms else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

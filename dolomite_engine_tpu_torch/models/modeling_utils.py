@@ -17,10 +17,12 @@ identically); training keeps fp32 master weights. Norm weights are always fp32.
 Attention dispatch keeps the JAX conditions exactly. The decode kernel runs for a paged
 pool with a per-row ``[B]`` cache index and no incoming mask; the chunked-prefill kernel
 for a paged pool with a scalar cache index, a 2-D key mask and more than one query; both
-only under ``attention_softmax_in_fp32``. The scatter into the pool runs before either
-kernel with the same position clamping and write validity as the gather path, so the
-pool state is the same whichever path ran. Every other call gathers the page view and
-runs eager attention. A quantized pool (``k_scale`` / ``v_scale`` in the cache) is
+only under ``attention_softmax_in_fp32``. On those two branches one launch rotates the
+projection and writes K/V into the pool (`_paged_write`: rope_qkv's paged form, then over
+a quantized pool the fused scatter-quantize), with the same position clamping and write
+validity as the gather path, so the pool state is the same whichever path ran. Every
+other call rotates and splits first, scatters, gathers the page view and runs eager
+attention. A quantized pool (``k_scale`` / ``v_scale`` in the cache) is
 written by the quantizing scatter and read by the kernels' dequantizing page walk or by
 the dequantizing gather; a low-bit unquantized pool (bf16 under an fp32 model) is cast
 to the activation dtype. Without a cache (training), `ops/attention.attention` dispatches:
@@ -44,10 +46,12 @@ from ..ops.attention import (
     paged_gather_kv_dequant,
     paged_scatter_kv,
     paged_scatter_kv_quantized,
+    write_positions,
 )
 from ..ops.kernels.paged_attention import paged_decode_attention
 from ..ops.kernels.prefill_attention import paged_prefill_attention
 from ..ops.kernels.rmsnorm import fused_rmsnorm
+from ..ops.kernels.rope_qkv import rope_qkv_paged
 from ..ops.normalization import check_normalization_function, layernorm
 from ..ops.rope import RoPEParams, get_cos_sin, split_qkv_apply_rope
 from .config import CommonConfig
@@ -236,38 +240,46 @@ def _paged_prefill_eligible(
     )
 
 
-def _write_positions(cache_index, batch: int, seq: int, device: torch.device) -> torch.Tensor:
-    """[B, S] absolute write positions: each row's own frontier for a [B] index, the
-    shared chunk offset for a scalar one."""
-    steps = torch.arange(seq, dtype=torch.int32, device=device)
-    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
-        return cache_index.to(device=device, dtype=torch.int32)[:, None] + steps[None, :]
-    start = torch.as_tensor(cache_index, dtype=torch.int32, device=device)
-    return (start + steps)[None, :].expand(batch, seq)
-
-
 def _scatter_chunk(key, value, kv_cache, cache_index, attention_mask):
-    """Write the new K/V into their pages: positions past the view are clamped to 0 and
-    redirected to trash, as are positions the key mask marks invalid (a chunk's pad
-    tail). Returns the positions' validity frontier for the gather path."""
+    """Write the new K/V into their pages at the write window (`write_positions`: positions
+    past the view, and those the key mask marks invalid, go to the trash page). A
+    quantized pool quantizes on scatter (`paged_scatter_kv_quantized`: the fused kernel
+    for CUDA tensors)."""
     table = kv_cache["page_table"]
-    page_size = kv_cache["k"].shape[1]
-    batch, seq = key.shape[:2]
-    view_len = table.shape[1] * page_size
-    positions = _write_positions(cache_index, batch, seq, key.device)
-    in_range = positions < view_len
-    positions = torch.where(in_range, positions, torch.zeros_like(positions))
-    write_valid = in_range
-    if attention_mask is not None:
-        write_valid = write_valid & torch.gather(attention_mask.bool(), 1, positions.long())
     if "k_scale" in kv_cache:  # quantize on scatter
-        for name, new in (("k", key), ("v", value)):
-            paged_scatter_kv_quantized(
-                kv_cache[name], kv_cache[f"{name}_scale"], new, table, positions, write_valid
-            )
+        paged_scatter_kv_quantized(
+            kv_cache["k"], kv_cache["v"], kv_cache["k_scale"], kv_cache["v_scale"], key, value,
+            table, cache_index, attention_mask,
+        )
         return
+    batch, seq = key.shape[:2]
+    view_len = table.shape[1] * kv_cache["k"].shape[1]
+    positions, write_valid = write_positions(cache_index, attention_mask, view_len, batch, seq, key.device)
     paged_scatter_kv(kv_cache["k"], key, table, positions, write_valid)
     paged_scatter_kv(kv_cache["v"], value, table, positions, write_valid)
+
+
+def _paged_write(qkv, rope_cos_sin, num_heads, num_kv_heads, head_dim, kv_cache, cache_index, key_mask):
+    """The paged kernel branches' rope and K/V write: `rope_qkv_paged` rotates the fused
+    projection and writes K and V into a bf16 / fp32 pool in one launch; over a quantized
+    pool it hands K and V to the fused scatter-quantize (a second launch). Returns the
+    rotated query ``[B, S, Hq, D]``, contiguous."""
+    cos, sin = rope_cos_sin if rope_cos_sin is not None else (None, None)
+    table = kv_cache["page_table"]
+    if "k_scale" not in kv_cache:
+        query, _, _ = rope_qkv_paged(
+            qkv, cos, sin, num_heads, num_kv_heads, head_dim, kv_cache["k"], kv_cache["v"], table,
+            cache_index, key_mask,
+        )
+        return query
+    query, key, value = rope_qkv_paged(
+        qkv, cos, sin, num_heads, num_kv_heads, head_dim, None, None, table, cache_index, key_mask
+    )
+    paged_scatter_kv_quantized(
+        kv_cache["k"], kv_cache["v"], kv_cache["k_scale"], kv_cache["v_scale"], key, value, table,
+        cache_index, key_mask,
+    )
+    return query
 
 
 def _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask):
@@ -354,9 +366,7 @@ class Attention(nn.Module):
         config = self.config
         batch, seq = hidden_states.shape[:2]
         qkv = self.c_attn(hidden_states)
-        query, key, value = split_qkv_apply_rope(
-            qkv, self.num_heads, self.num_kv_heads, self.head_dim, rope_cos_sin
-        )
+        heads = (self.num_heads, self.num_kv_heads, self.head_dim)
         softmax_scale = get_softmax_scale(config, self.head_dim)
         dropout = 0.0 if deterministic else config.attn_pdrop
 
@@ -375,13 +385,15 @@ class Attention(nn.Module):
                     "alibi positions over a paged KV cache are not ported yet: ROADMAP.md "
                     "Queue A, 'Alibi serving'"
                 )
+            # the branch is chosen before the rotation: the two paged-kernel branches rotate
+            # and write K/V in one launch (`_paged_write`), the rest split and rotate first
             table = kv_cache["page_table"]
             if config.attention_softmax_in_fp32 and _paged_kernel_eligible(
                 kv_cache, cache_index, attention_mask, segment_ids, self.causal, dropout
             ):
-                _scatter_chunk(key, value, kv_cache, cache_index, None)
+                query = _paged_write(qkv, rope_cos_sin, *heads, kv_cache, cache_index, None)
                 out = paged_decode_attention(
-                    query.contiguous(), kv_cache["k"], kv_cache["v"], table,
+                    query, kv_cache["k"], kv_cache["v"], table,
                     cache_index.to(torch.int32), softmax_scale,
                     kv_cache.get("k_scale"), kv_cache.get("v_scale"),
                 )
@@ -389,18 +401,21 @@ class Attention(nn.Module):
             if config.attention_softmax_in_fp32 and _paged_prefill_eligible(
                 kv_cache, cache_index, attention_mask, segment_ids, self.causal, dropout, seq
             ):
-                _scatter_chunk(key, value, kv_cache, cache_index, attention_mask)
+                query = _paged_write(qkv, rope_cos_sin, *heads, kv_cache, cache_index, attention_mask)
                 start = torch.as_tensor(cache_index, dtype=torch.int32, device=query.device)
                 out = paged_prefill_attention(
-                    query.contiguous(), kv_cache["k"], kv_cache["v"], table,
+                    query, kv_cache["k"], kv_cache["v"], table,
                     start.reshape(1).expand(batch).contiguous(), softmax_scale,
                     kv_cache.get("k_scale"), kv_cache.get("v_scale"),
                 )
                 return self._project_out(out, deterministic), kv_cache
+            query, key, value = split_qkv_apply_rope(qkv, *heads, rope_cos_sin)
             key, value, attention_mask = _update_paged_kv_cache(
                 key, value, kv_cache, cache_index, attention_mask
             )
             query_offset = cache_index
+        else:
+            query, key, value = split_qkv_apply_rope(qkv, *heads, rope_cos_sin)
 
         out = attention(
             query,

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..enums import AttentionImplementation
-from .kv_quant import as_bytes, dequantize_values, kv_qmax, quantize_pages
+from .kv_quant import as_bytes, dequantize_values, kv_qmax, quantize_pages_plain
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -185,6 +185,34 @@ def attention(
     )
 
 
+def write_positions(
+    cache_index: torch.Tensor | int,
+    key_mask: torch.Tensor | None,
+    view_len: int,
+    batch: int,
+    seq: int,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(positions, write_valid)`` ``[B, S]`` of a paged write window: row b writes at
+    ``cache_index[b] + s`` for a [B] index (a decode or verify step, each row at its own
+    frontier) or at ``start + s`` for a scalar one (a prefill chunk). Positions past the
+    view (`view_len`) are clamped to 0 and invalid, as are those the key-side mask
+    ``[B, view_len]`` marks 0 (a chunk's pad tail): the JAX package's
+    `_update_paged_kv_cache` rules, which `csrc/paged_write.cuh` repeats."""
+    steps = torch.arange(seq, dtype=torch.int32, device=device)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        positions = cache_index.to(device=device, dtype=torch.int32)[:, None] + steps[None, :]
+    else:
+        start = torch.as_tensor(cache_index, dtype=torch.int32, device=device)
+        positions = (start + steps)[None, :].expand(batch, seq)
+    in_range = positions < view_len
+    positions = torch.where(in_range, positions, torch.zeros_like(positions))
+    write_valid = in_range
+    if key_mask is not None:
+        write_valid = write_valid & torch.gather(key_mask.bool(), 1, positions.long())
+    return positions, write_valid
+
+
 def paged_scatter_kv(
     pages: torch.Tensor,
     new: torch.Tensor,
@@ -230,6 +258,57 @@ def paged_gather_kv(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tens
 
 
 def paged_scatter_kv_quantized(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    page_table: torch.Tensor,
+    cache_index: torch.Tensor | int,
+    key_mask: torch.Tensor | None = None,
+) -> None:
+    """Quantize a layer's new K and V ``[B, S, Hkv, D]`` into their quantized pools, IN
+    PLACE, at the write window of `cache_index` and `key_mask` (`write_positions`).
+
+    For CUDA tensors one launch of the fused scatter-quantize kernel
+    (`ops/kernels/kv_quant.paged_scatter_kv_quantized_kernel`) does both; for CPU tensors
+    `paged_write_kv_quantized_plain` computes the positions and runs
+    `paged_scatter_kv_quantized_plain` for K and then V. Pages 1.. and their scales end
+    byte-identical either way."""
+    if key.device.type == "cpu":
+        paged_write_kv_quantized_plain(
+            k_pages, v_pages, k_scales, v_scales, key, value, page_table, cache_index, key_mask
+        )
+        return
+    from .kernels.kv_quant import paged_scatter_kv_quantized_kernel
+
+    paged_scatter_kv_quantized_kernel(
+        k_pages, v_pages, k_scales, v_scales, key, value, page_table, cache_index, key_mask
+    )
+
+
+def paged_write_kv_quantized_plain(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    page_table: torch.Tensor,
+    cache_index: torch.Tensor | int,
+    key_mask: torch.Tensor | None = None,
+) -> None:
+    """The plain version of `paged_scatter_kv_quantized`, on any device: the window's
+    positions, then the plain quantizing scatter of K and of V."""
+    batch, seq = key.shape[:2]
+    view_len = page_table.shape[1] * k_pages.shape[1]
+    positions, write_valid = write_positions(cache_index, key_mask, view_len, batch, seq, key.device)
+    for pages, scales, new in ((k_pages, k_scales, key), (v_pages, v_scales, value)):
+        paged_scatter_kv_quantized_plain(pages, scales, new, page_table, positions, write_valid)
+
+
+def paged_scatter_kv_quantized_plain(
     pages: torch.Tensor,
     scales: torch.Tensor,
     new: torch.Tensor,
@@ -243,7 +322,7 @@ def paged_scatter_kv_quantized(
     ``scales`` ``[num_pages, H]``. Each row's write window ``positions`` (contiguous:
     ``cache_index + arange(S)``) touches at most ``span = (S - 1) // page_size + 2``
     logical pages; those are gathered, dequantized, the valid new tokens inserted, and
-    every page re-encoded (`ops/kv_quant.quantize_pages`) with a fresh absmax over its
+    every page re-encoded (`ops/kv_quant.quantize_pages_plain`) with a fresh absmax over its
     valid rows: the committed prefix plus this call's writes, never stale rows past the
     frontier. Only pages that received a write go back; the window's other pages (the
     look-ahead pad of the bound, unmapped pages) are redirected to the trash page 0, so a
@@ -279,7 +358,7 @@ def paged_scatter_kv_quantized(
     grid = base[:, None] * page_size + torch.arange(window_len, device=device)[None, :]
     valid = (grid < positions[:, :1]) | written  # committed prefix + this call's writes
 
-    new_codes, new_scales = quantize_pages(
+    new_codes, new_scales = quantize_pages_plain(
         window.reshape(batch * span, page_size, heads, head_dim),
         valid.reshape(batch * span, page_size),
         kv_qmax(pages.dtype),

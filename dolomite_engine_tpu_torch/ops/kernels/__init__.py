@@ -2,7 +2,9 @@
 
 Each module holds the CUDA kernel's wrapper (it launches the kernel for a CUDA tensor or
 raises), the kernel's plain PyTorch version (taken only for a CPU tensor) and a
-`KernelSpec` whose ``launches`` counts the wrapper's kernel launches.
+`KernelSpec` whose ``launches`` counts the wrapper's kernel launches (and ``forms`` each
+form's, where a kernel has several: rope_qkv's flat and paged forms, kv_quant's encode and
+fused scatter).
 """
 
 from . import (
@@ -36,4 +38,4 @@ KERNELS = (
 
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
-        kernel.launches = 0
+        kernel.reset()

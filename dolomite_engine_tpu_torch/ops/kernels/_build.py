@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -38,7 +38,8 @@ _F = ctypes.c_float
 # C entry point -> argtypes; every function returns its launch's cudaError_t as an int
 _SIGNATURES = {
     "dolo_rmsnorm": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
-    "dolo_rope_qkv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dolo_rope_qkv": (_P,) * 4 + (_I,) * 11 + (_P,),
+    "dolo_rope_qkv_paged": (_P,) * 9 + (_I,) * 19 + (_P,),
     "dolo_paged_decode": (_P,) * 11 + (_I,) * 7 + (_F, _I, _I, _P),
     "dolo_paged_decode_plan": (_I,) * 4 + (_P,),
     "dolo_paged_prefill": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "dolo_tgmm": (_P,) * 5 + (_I,) * 6 + (_P,),
     "dolo_grouped_gemm_route": (_I, _I, _I, _P, _P, _P),
     "dolo_kv_quant": (_P,) * 4 + (_I,) * 4 + (_F, _F, _I, _P),
+    "dolo_kv_quant_scatter": (_P,) * 9 + (_I,) * 13 + (_F, _F, _I, _I, _P),
 }
 
 # type codes of csrc/common.cuh: the element types, then the quantized KV page types
@@ -63,12 +65,23 @@ MAX_SHARED_BYTES = 232448
 
 @dataclass
 class KernelSpec:
-    """What `chip_smoke.py` reports for one kernel; `launches` counts wrapper launches."""
+    """What `chip_smoke.py` reports for one kernel; `launches` counts wrapper launches,
+    and `forms` the launches of each form where one kernel has several entry points."""
 
     name: str
     source: str  # path in the repository
     replaces: str  # file:line of the TPU (Pallas) kernel call it replaces
     launches: int = 0
+    forms: dict[str, int] = field(default_factory=dict)
+
+    def launched(self, form: str) -> None:
+        """Count one launch of the kernel's `form`."""
+        self.launches += 1
+        self.forms[form] = self.forms.get(form, 0) + 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.forms.clear()
 
 
 def _sources() -> list[Path]:
@@ -177,3 +190,44 @@ def check_cuda_tensor(
         raise ValueError(f"{name} has dtype {tensor.dtype}, expected one of {dtypes}")
     if not tensor.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+INDEX_DTYPES = {torch.int32: 1, torch.int64: 2}  # csrc/paged_write.cuh index kinds
+MASK_DTYPES = {torch.int32: 1, torch.bool: 2, torch.uint8: 2, torch.int64: 3}  # and mask kinds
+
+
+def window_args(cache_index, key_mask, batch: int, view_len: int, device: torch.device) -> tuple:
+    """The C arguments of a paged write window (``csrc/paged_write.cuh``): the start's
+    kind, tensor and stride, the scalar start, the mask's kind, tensor and row stride.
+    `cache_index` is a [B] or 0-d int32 / int64 tensor on `device`, or an int; `key_mask`
+    None or a [>= B, >= view_len] key-side mask of ints or bools (nonzero = valid)."""
+    if isinstance(cache_index, int):
+        kind, index, stride, start = 0, None, 0, cache_index
+    else:
+        if cache_index.device != device or cache_index.dtype not in INDEX_DTYPES:
+            raise ValueError(
+                f"the cache index must be an int32 / int64 tensor on {device}, got "
+                f"{cache_index.dtype} on {cache_index.device}"
+            )
+        if cache_index.ndim == 1 and cache_index.shape[0] == batch:
+            stride = cache_index.stride(0)
+        elif cache_index.ndim == 0:
+            stride = 0
+        else:
+            raise ValueError(f"the cache index must be [{batch}] or 0-d, got {tuple(cache_index.shape)}")
+        kind, index, start = INDEX_DTYPES[cache_index.dtype], cache_index, 0
+    if key_mask is None:
+        return kind, index, stride, start, 0, None, 0
+    if (
+        key_mask.device != device
+        or key_mask.dtype not in MASK_DTYPES
+        or key_mask.ndim != 2
+        or key_mask.shape[0] < batch
+        or key_mask.shape[1] < view_len
+        or key_mask.stride(1) != 1
+    ):
+        raise ValueError(
+            f"the key mask must be an integer / bool [>= {batch}, >= {view_len}] tensor on {device} "
+            f"with unit column stride, got {key_mask.dtype} {tuple(key_mask.shape)} on {key_mask.device}"
+        )
+    return kind, index, stride, start, MASK_DTYPES[key_mask.dtype], key_mask, key_mask.stride(0)

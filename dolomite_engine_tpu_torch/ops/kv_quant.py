@@ -3,14 +3,16 @@
 Counterpart of `dolomite_engine_tpu/ops/kv_quant.py`. A quantized paged pool
 (`serving/kv_cache.PagedKVCachePool(kv_dtype="int8"|"fp8")`) stores its pages as codes
 with a ``[num_pages, Hkv]`` fp32 scale pool per K and V. Every scatter re-encodes the
-pages it writes (`ops/attention.paged_scatter_kv_quantized`): dequantize the window,
-insert the new tokens, take a fresh absmax over the page's valid rows per kv head, encode.
+pages it writes (`ops/attention.paged_scatter_kv_quantized`, one fused kernel launch for a
+layer's K and V on the card): dequantize the window, insert the new tokens, take a fresh
+absmax over the page's valid rows per kv head, encode.
 While a page's scale stays the same the round trip ``(code * s) / s`` gives the stored
 code back, so committed tokens do not drift under repeated decode writes.
 
-:func:`quantize_pages` is the one encode primitive: the hand-written kernel
+:func:`quantize_pages` is the encode on its own: the hand-written kernel
 (`ops/kernels/kv_quant.py`) for CUDA tensors, :func:`quantize_pages_plain` for CPU
-tensors. The two write the same bytes, so the pool's state never depends on which ran.
+tensors. The two write the same bytes, so the pool's state never depends on which ran;
+the fused scatter-quantize kernel encodes with the same device function.
 """
 
 from __future__ import annotations

@@ -93,9 +93,11 @@ def split_qkv_apply_rope(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Split the flat fused ``[Q | K | V]`` projection and rotate Q and K.
 
-    The one rope + QKV call site of the port, as in the JAX package: the rotation runs
-    through `ops/kernels/rope_qkv.fused_rope_qkv` (the CUDA kernel for a CUDA tensor,
-    its plain version for a CPU tensor), then the split is a view.
+    The rope + QKV call site of every attention call but serving's two paged-kernel
+    branches (which rotate and write K/V in one launch, `ops/kernels/rope_qkv.
+    rope_qkv_paged`): the rotation runs through `ops/kernels/rope_qkv.fused_rope_qkv` (the
+    CUDA kernel for a CUDA tensor, its plain version for a CPU tensor), then the split is
+    a view.
 
     qkv: [B, S, (num_heads + 2 * num_kv_heads) * head_dim]; rope_cos_sin from
     `get_cos_sin` or None (split only). Returns (query [B, S, Hq, D], key [B, S, Hkv, D],

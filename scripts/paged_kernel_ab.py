@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the paged attention (grouped-GEMM, flash, rmsnorm) kernel cases of `chip_smoke.py` for one checkout.
+"""Time the paged attention (grouped-GEMM, flash, rmsnorm, paged K/V write) kernel cases of `chip_smoke.py` for one checkout.
 
     python scripts/paged_kernel_ab.py [--root DIR] [--seed N] [--label NAME]
-        [--family paged|grouped_gemm|flash|rmsnorm] [--constant FILE:NAME=VALUE ...]
+        [--family paged|grouped_gemm|flash|rmsnorm|paged_write] [--constant FILE:NAME=VALUE ...]
 
 Imports `chip_smoke` and `dolomite_engine_tpu_torch` from DIR (default: this checkout),
 builds that checkout's kernels there, runs its phase-2 kernel cases and quantized-pool
@@ -10,7 +10,16 @@ cases (``--family grouped_gemm``: its MoE grouped-GEMM cases; ``flash``: its tra
 and alibi flash cases; ``rmsnorm``: its rmsnorm cases) on the card, and prints one
 JSON line with the family's cases (kernel and device times, plain-version and library
 times, bound, error, and the kernel path where the case names one) and the card's name
-and power limit. To compare two commits on one card, unpack the other into a directory that
+and power limit. ``--family paged_write`` times what the serving K/V write moves instead:
+the flat rope kernel at fixed shapes through the checkout's wrapper, then on
+granite-3b-code (32 layers, bf16, random weights from the seed) the device launches and
+device time of a prefill chunk and a decode step (`chip_smoke.launches_per_forward`)
+and the host time of a decode step over 8 busy slots, over bf16, int8 and fp8 pools,
+the same for the MoE model of `pretrain-moe-ep.yml` over bf16 and int8 pools, the
+greedy tokens of `chip_smoke.serve` on both models' bf16 cells (a digest on the line;
+``--tokens-out FILE`` writes the tokens themselves), and the losses and step
+times of `chip_smoke.train_slice` on the dense and MoE training cells (the flat rope
+kernel's forward and backward). To compare two commits on one card, unpack the other into a directory that
 `.gitignore` lists and run both in one machine call, in turns (A, B, B, A).
 ``--constant paged_attention.cu:kSpan=128`` builds from a copy of the sources in which
 that file's ``constexpr int kSpan`` is 128 (a tuning sweep; the checkout is not
@@ -86,14 +95,112 @@ def _rmsnorm_cases(chip_smoke, seed):
     return cases
 
 
+# rope shapes timed the same way in every checkout: a prefill chunk, a decode step and a
+# training row of granite-3b-code's fused projection (32 + 2 x 32 heads of 80)
+ROPE_SHAPES = ((1, 512), (8, 1), (1, 4096))
+
+
+def _decode_host_ms(model, kv_dtype, steps=16):
+    """Mean host time of a decode step over 8 busy slots (300-token prompts prefilled
+    first), each step ending in the host fetch of its tokens; steps that ran a prefill
+    chunk are not timed."""
+    import time
+
+    import torch
+
+    from dolomite_engine_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(
+        model, None, num_slots=8, max_len=2048, page_size=16, prefill_chunk_tokens=512,
+        eos_token_id=None, pad_token_id=model.config.pad_token_id, kv_dtype=kv_dtype,
+    )
+    for i in range(8):
+        engine.submit(list(range(1 + i, 301 + i)), max_new_tokens=steps + 16)
+    times = []
+    while len(times) < steps:
+        chunks = engine.stats.prefill_chunks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        if engine.stats.prefill_chunks == chunks:
+            times.append((time.perf_counter() - t0) * 1e3)
+    engine.drain()
+    return sum(times) / len(times)
+
+
+def _paged_write_ab(chip_smoke, seed, label, tokens_out=None):
+    """The ``paged_write`` family (see the module's docstring)."""
+    import gc
+    import hashlib
+
+    import torch
+
+    from dolomite_engine_tpu_torch.models import config_from_dict, get_model_class
+    from dolomite_engine_tpu_torch.ops.kernels import rope_qkv
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    heads, head_dim = 32, 80
+    width = 3 * heads * head_dim
+    rope = []
+    for batch, seq in ROPE_SHAPES:
+        qkv = torch.randn((batch, seq, width), generator=gen, device="cuda").bfloat16()
+        angles = torch.rand((1, seq, head_dim), generator=gen, device="cuda") * 6.0
+        cos, sin = angles.cos().bfloat16(), angles.sin().bfloat16()  # the model's dtype, shared over the batch
+        run = lambda: rope_qkv.fused_rope_qkv(qkv, cos, sin, heads, heads, head_dim)  # noqa: E731
+        nbytes = 2 * batch * seq * width * 2 + 2 * seq * head_dim * 2
+        rope.append({
+            "shape": f"[{batch},{seq},{width}]", "kernel_ms": chip_smoke._time_ms(run),
+            "device_ms": chip_smoke._device_ms(run, iters=100),
+            "bound_ms": chip_smoke._bound(nbytes, 6 * batch * seq * 2 * heads * head_dim, "bfloat16")[0],
+        })
+        del qkv
+    out = {"rope": rope, "decode": {}, "greedy_sha256": {}}
+    tokens = {}
+    for name, config, pools in (
+        ("granite-3b-code", chip_smoke.GRANITE_3B_CODE, (None, "int8", "fp8")),
+        ("moe", chip_smoke.MOE_EP, (None, "int8")),
+    ):
+        config = config_from_dict(config)
+        model = get_model_class(config.model_type)(config, dtype=torch.bfloat16, device="cuda", seed=seed)
+        for kv_dtype in pools:
+            record = chip_smoke.launches_per_forward(model, kv_dtype)
+            record["decode_step_host_ms_8_slots"] = _decode_host_ms(model, kv_dtype)
+            out["decode"][f"{name} {kv_dtype or 'bf16'}"] = record
+        _, _, _, _, greedy = chip_smoke.serve(seed, model=model)
+        tokens[name] = greedy
+        out["greedy_sha256"][name] = hashlib.sha256(json.dumps(greedy).encode()).hexdigest()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["training"] = {}
+    for name, args in (
+        ("granite-3b-code", ()),
+        ("moe", (dict(chip_smoke.MOE_EP, n_layer=chip_smoke.MOE_TRAIN_LAYERS),)),
+    ):
+        options = {} if not args else {"seq": chip_smoke.MOE_TRAIN_SEQ, "micro_batch": chip_smoke.MOE_TRAIN_MICRO}
+        training, _, held = chip_smoke.train_slice(seed, *args, **options)
+        out["training"][name] = {"losses": training["losses"], "step_s": training["step_s"]}
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+    if tokens_out is not None:
+        with open(tokens_out, "w") as f:
+            json.dump({"label": label, "greedy_tokens": tokens}, f)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--label", default=None)
-    parser.add_argument("--family", choices=("paged", "grouped_gemm", "flash", "rmsnorm"), default="paged")
+    parser.add_argument(
+        "--family", choices=("paged", "grouped_gemm", "flash", "rmsnorm", "paged_write"), default="paged"
+    )
     parser.add_argument("--constant", action="append", default=[])
     parser.add_argument("--build-only", action="store_true", help="build the kernels and exit")
+    parser.add_argument("--tokens-out", default=None, help="paged_write: write the greedy tokens to this JSON file")
     args = parser.parse_args()
 
     import torch
@@ -118,6 +225,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    label = args.label or " ".join([root] + args.constant)
+    if args.family == "paged_write":
+        results = _paged_write_ab(chip_smoke, args.seed, label, args.tokens_out)
+        print(json.dumps({"label": label, "paged_write": results, "card": card}), flush=True)
+        return 0
     if args.family == "paged":
         cases = chip_smoke.kernel_cases(args.seed) + chip_smoke.quant_kernel_cases(args.seed)
     elif args.family == "grouped_gemm":
@@ -134,7 +246,6 @@ def main() -> int:
         {key: c[key] for key in keep if key in c} for c in cases if c["kernel"].startswith(args.family + "_")
         or c["kernel"] == args.family
     ]
-    label = args.label or " ".join([root] + args.constant)
     print(json.dumps({"label": label, f"{args.family}_cases": picked, "card": card}), flush=True)
     return 0
 

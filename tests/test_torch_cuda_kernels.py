@@ -10,6 +10,9 @@ Shapes cover small odd cases and the slices' own shapes (granite-3b-code: 32 hea
 80, d=2560, 16-token pages, 4096-token packed training rows, a 49152-word vocabulary;
 the MoE slice's grouped GEMMs: 32 experts, d 1024, swiglu c_fc banks 8192 wide; the
 alibi slice's flash form: MPT-7B's 32 heads of 128 over [2, 2048] packed rows).
+The paged K/V write (rope_qkv's paged form, kv_quant's fused scatter-quantize) is held to
+the flat rope kernel followed by the plain scatter: one launch a call, pages 1.. and
+scales byte-identical (page 0 is the trash page), the query bit-identical.
 Tolerances: fp32 within 1e-5 (the JAX package's own kernel-parity tolerance; only
 summation order differs; the non-causal flash form with a bias adds 16 fp32 ulps of the
 largest bias relative to the largest value, the rounding of scores that size, and in
@@ -856,3 +859,176 @@ def test_experts_grouped_on_the_card_matches_the_cpu_plain_path():
     want = kmoe.experts_grouped(*args)
     got = kmoe.experts_grouped(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args))
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------------------- the paged K/V write
+
+
+def _paged_write_case(g, batch, seq, hq, hkv, head_dim, dtype, index, real=None, max_pages=4, page=16):
+    """qkv, cos / sin (one shared table: batch stride 0), a shuffled table (row 1 idle
+    when batch > 1), the index and a key mask (`real` rows of a chunk) on the card."""
+    qkv = _rand(g, (batch, seq, (hq + 2 * hkv) * head_dim), dtype)
+    angles = torch.rand((1, seq, head_dim), generator=g, device="cuda") * 6.0
+    pages = 1 + batch * max_pages
+    table = (1 + torch.randperm(pages - 1, generator=g, device="cuda")).reshape(batch, max_pages).to(torch.int32)
+    if batch > 1:
+        table[1] = 0
+    mask = None
+    if real is not None:
+        mask = torch.zeros((batch, max_pages * page), dtype=torch.int32, device="cuda")
+        mask[:, : int(index) + real] = 1
+    return qkv, angles.cos(), angles.sin(), table.contiguous(), index, mask, pages
+
+
+def _pools(g, pages, page, hkv, head_dim, kv_dtype):
+    """K and V pools of `kv_dtype` (bf16 / fp32 values, or int8 / fp8 codes with scales)
+    whose pages' second halves hold their largest values."""
+    values = [_rand(g, (pages, page, hkv, head_dim), torch.float32) for _ in range(2)]
+    for v in values:
+        v[:, page // 2 :] *= 10.0
+    if kv_dtype in ("bf16", "fp32"):
+        dtype = torch.bfloat16 if kv_dtype == "bf16" else torch.float32
+        return [v.to(dtype) for v in values] + [None, None]
+    storage, qmax = KV_QUANT_DTYPES[kv_dtype]
+    valid = torch.ones((pages, page), dtype=torch.bool, device="cuda")
+    (k, ks), (v, vs) = (quantize_pages_plain(x, valid, qmax, storage) for x in values)
+    return [k, v, ks, vs]
+
+
+def _same_pages(a, b):
+    """Pages 1.. byte for byte (page 0 is the trash page)."""
+    return torch.equal(as_bytes(a)[1:], as_bytes(b)[1:]) if a.element_size() == 1 else torch.equal(
+        a[1:].view(torch.int16 if a.element_size() == 2 else torch.int32),
+        b[1:].view(torch.int16 if b.element_size() == 2 else torch.int32),
+    )
+
+
+# (batch, seq, hq, hkv, head_dim, index, real rows of the chunk): decode rows at their own
+# frontiers (one mid-page, one idle, one on a page boundary), a verify window past the
+# view, prefill chunks at a scalar start (a pad tail; one running past the view), and a
+# head dim (24) whose halves take the scalar path
+PAGED_WRITE_SHAPES = [
+    (4, 1, 4, 2, 16, [21, 0, 32, 63], None),
+    (2, 5, 4, 4, 80, [14, 61], None),
+    (1, 24, 4, 2, 64, 10, 20),
+    (1, 24, 2, 2, 80, 48, 16),
+    (3, 3, 6, 2, 24, [7, 0, 40], None),
+]
+
+
+@pytest.mark.parametrize("batch,seq,hq,hkv,head_dim,index,real", PAGED_WRITE_SHAPES)
+@pytest.mark.parametrize("pool", ["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_qkv_paged_writes_what_the_flat_kernel_and_plain_scatter_write(
+    batch, seq, hq, hkv, head_dim, index, real, pool, dtype
+):
+    """The paged form over a bf16 / fp32 pool (an fp32 model casts on store): exactly one
+    launch, pages 1.. and the query byte-identical to the flat kernel followed by the plain
+    scatter, the query within rope's tolerance of the plain version."""
+    from functools import partial
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    qkv, cos, sin, table, index, mask, pages = _paged_write_case(g, batch, seq, hq, hkv, head_dim, dtype, index, real)
+    index_t = torch.tensor(index, dtype=torch.int32, device="cuda")
+    k, v, _, _ = _pools(g, pages, 16, hkv, head_dim, pool)
+    got_k, got_v, ref_k, ref_v, plain_k, plain_v = (t.clone() for t in (k, v) * 3)
+    before = rope_qkv.KERNEL.launches
+    query, none_k, none_v = rope_qkv.rope_qkv_paged(qkv, cos, sin, hq, hkv, head_dim, got_k, got_v, table, index_t, mask)
+    assert rope_qkv.KERNEL.launches == before + 1 and none_k is None and none_v is None
+    flat = partial(rope_qkv.rope_qkv_paged_plain, rope=rope_qkv.fused_rope_qkv)
+    ref_q, _, _ = flat(qkv, cos, sin, hq, hkv, head_dim, ref_k, ref_v, table, index_t, mask)
+    plain_q, _, _ = rope_qkv.rope_qkv_paged_plain(qkv, cos, sin, hq, hkv, head_dim, plain_k, plain_v, table, index_t, mask)
+    torch.cuda.synchronize()
+    assert query.shape == (batch, seq, hq, head_dim) and query.is_contiguous()
+    assert torch.equal(query, ref_q) and _same_pages(got_k, ref_k) and _same_pages(got_v, ref_v)
+    assert _same_pages(got_v, plain_v)  # V is copied (cast on store): no arithmetic
+    assert not _same_pages(got_k, k)  # the window wrote something
+    x = qkv.float().reshape(batch, seq, -1, head_dim)[:, :, :hq]
+    scale = x.abs() + x.roll(head_dim // 2, -1).abs()
+    diff = (query.float() - plain_q.float()).abs()
+    tol = 2 * scale * 2**-23 if dtype == torch.float32 else 2 * _bf16_ulp(scale)
+    assert bool((diff <= tol).all())
+
+
+@pytest.mark.parametrize("batch,seq,hq,hkv,head_dim,index,real", PAGED_WRITE_SHAPES)
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_paged_write_is_byte_identical_to_plain(batch, seq, hq, hkv, head_dim, index, real, kv_dtype, dtype):
+    """Over a quantized pool: the paged form's query, K and V are the flat kernel's, one
+    launch; the fused scatter-quantize writes pages 1.. and scales byte-identical to its
+    plain version, one launch, from contiguous rows and from the split's strided views,
+    with the start as a tensor or an int."""
+    from dolomite_engine_tpu_torch.ops.attention import paged_write_kv_quantized_plain
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+    qkv, cos, sin, table, index, mask, pages = _paged_write_case(g, batch, seq, hq, hkv, head_dim, dtype, index, real)
+    index_t = torch.tensor(index, dtype=torch.int32, device="cuda")
+    before = rope_qkv.KERNEL.launches
+    query, key, value = rope_qkv.rope_qkv_paged(qkv, cos, sin, hq, hkv, head_dim, None, None, table, index_t, mask)
+    assert rope_qkv.KERNEL.launches == before + 1
+    flat = rope_qkv.fused_rope_qkv(qkv, cos, sin, hq, hkv, head_dim)
+    fq, fk, fv = (p.reshape(batch, seq, -1, head_dim) for p in torch.split(flat, [hq * head_dim, hkv * head_dim, hkv * head_dim], -1))
+    torch.cuda.synchronize()
+    assert torch.equal(query, fq) and torch.equal(key, fk) and torch.equal(value, fv)
+    pools = _pools(g, pages, 16, hkv, head_dim, kv_dtype)
+    for rows, start in ((key, value), index_t), ((fk, fv), index if isinstance(index, int) else index_t):
+        got, want = [t.clone() for t in pools], [t.clone() for t in pools]
+        before = kv_quant.KERNEL.launches
+        kv_quant.paged_scatter_kv_quantized_kernel(*got, *rows, table, start, mask)
+        assert kv_quant.KERNEL.launches == before + 1
+        paged_write_kv_quantized_plain(*want, *rows, table, start, mask)
+        torch.cuda.synchronize()
+        assert all(_same_pages(a, b) for a, b in zip(got, want))
+        assert not _same_pages(got[0], pools[0])
+
+
+def test_paged_write_wrappers_raise_on_what_the_kernels_do_not_take():
+    g = torch.Generator(device="cuda").manual_seed(33)
+    qkv, cos, sin, table, index, _, pages = _paged_write_case(g, 2, 1, 4, 2, 16, torch.bfloat16, [3, 0])
+    index_t = torch.tensor(index, dtype=torch.int32, device="cuda")
+    k, v, ks, vs = _pools(g, pages, 16, 2, 16, "int8")
+    key = torch.zeros((2, 1, 2, 16), device="cuda")
+    with pytest.raises(ValueError):  # quantized pools take the split form
+        rope_qkv.rope_qkv_paged(qkv, cos, sin, 4, 2, 16, k, v, table, index_t)
+    with pytest.raises(ValueError, match="page_table"):
+        rope_qkv.rope_qkv_paged(qkv, cos, sin, 4, 2, 16, None, None, table.long(), index_t)
+    with pytest.raises(ValueError, match="cache index"):
+        kv_quant.paged_scatter_kv_quantized_kernel(k, v, ks, vs, key, key, table, index_t.float())
+    with pytest.raises(ValueError, match="key mask"):
+        kv_quant.paged_scatter_kv_quantized_kernel(k, v, ks, vs, key, key, table, index_t, torch.ones((2, 8), device="cuda", dtype=torch.int32))
+    with pytest.raises(ValueError):  # a bf16 pool is not a quantized one
+        kv_quant.paged_scatter_kv_quantized_kernel(k.bfloat16(), v.bfloat16(), ks, vs, key, key, table, index_t)
+    with pytest.raises(ValueError, match="strides"):  # each row's heads not contiguous
+        strided = key.transpose(2, 3).contiguous().transpose(2, 3)
+        kv_quant.paged_scatter_kv_quantized_kernel(k, v, ks, vs, key, strided, table, index_t)
+
+
+@pytest.mark.parametrize("cos_batch", [1, 3])
+@pytest.mark.parametrize("cos_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [80, 24])
+def test_rope_qkv_reads_cos_sin_in_place(cos_batch, cos_dtype, dtype, head_dim):
+    """The flat form reads cos / sin of either dtype, shared over the batch or per row, in
+    place (no cast or copy on the host): bit-identical to the same call on tables already
+    cast and expanded, and its backward (the -sin flag) to the forward with -sin."""
+    g = torch.Generator(device="cuda").manual_seed(34)
+    qkv = _rand(g, (3, 7, 8 * head_dim), dtype)
+    angles = torch.rand((cos_batch, 7, head_dim), generator=g, device="cuda") * 6.0
+    cos, sin = angles.cos().to(cos_dtype), angles.sin().to(cos_dtype)
+    got = rope_qkv.fused_rope_qkv(qkv, cos, sin, 4, 2, head_dim)
+    full_cos, full_sin = (t.to(dtype).expand(3, 7, head_dim).contiguous() for t in (cos, sin))
+    torch.cuda.synchronize()
+    assert torch.equal(got, rope_qkv.fused_rope_qkv(qkv, full_cos, full_sin, 4, 2, head_dim))
+    grad = _rand(g, qkv.shape, dtype)
+    x = qkv.clone().requires_grad_(True)
+    rope_qkv.fused_rope_qkv(x, cos, sin, 4, 2, head_dim).backward(grad)
+    assert torch.equal(x.grad, rope_qkv.fused_rope_qkv(grad, full_cos, -full_sin, 4, 2, head_dim))
+
+
+def test_paged_write_kernel_cases_of_the_smoke():
+    """chip_smoke's cases at both served models' decode and prefill windows over bf16,
+    int8 and fp8 pools (each raises if a form disagrees with its plain version)."""
+    import chip_smoke
+
+    cases = chip_smoke.paged_write_kernel_cases(0)
+    assert {c["form"] for c in cases} == {"paged", "scatter"} and all(c["within_tolerance"] for c in cases)

@@ -3,9 +3,10 @@
 - `quantize_pages` (the plain version, which the kernel must match byte for byte on the
   card) against `quantize_pages_xla` and the Pallas kernel in interpret mode: the codes'
   bytes and the scales must be identical, for int8 and fp8;
-- `paged_scatter_kv_quantized` after a decode window (S=1), a K+1 window (S=5) and a
-  prefill chunk that straddles pages, with invalid writes and trash redirects: pool codes
-  and scales bit-identical to the JAX function's outside the trash page 0;
+- `paged_scatter_kv_quantized_plain` (the JAX function's counterpart, one pool a call)
+  after a decode window (S=1), a K+1 window (S=5) and a prefill chunk that straddles
+  pages, with invalid writes and trash redirects: pool codes and scales bit-identical to
+  the JAX function's outside the trash page 0;
 - `paged_gather_kv_dequant`, bit-identical;
 - the plain decode and prefill attention over quantized pages, and over a bf16 pool under
   an fp32 query, against the JAX Pallas kernels (interpret mode): atol = rtol = 1e-5 in
@@ -28,7 +29,7 @@ from dolomite_engine_tpu.ops.pallas.paged_attention import paged_decode_attentio
 from dolomite_engine_tpu.ops.pallas.prefill_attention import paged_prefill_attention as jax_prefill
 from dolomite_engine_tpu_torch.ops.attention import (
     paged_gather_kv_dequant,
-    paged_scatter_kv_quantized,
+    paged_scatter_kv_quantized_plain,
 )
 from dolomite_engine_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
 from dolomite_engine_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
@@ -186,7 +187,7 @@ def test_quantized_scatter_matches_jax(kv_dtype, window, backend):
         )
     pages = _torch_codes(codes, kv_dtype)
     pool_scales = torch.from_numpy(scales.copy())
-    out_pages, out_scales = paged_scatter_kv_quantized(
+    out_pages, out_scales = paged_scatter_kv_quantized_plain(
         pages, pool_scales, torch.from_numpy(new), torch.from_numpy(table),
         torch.from_numpy(positions), torch.from_numpy(write_valid),
     )
