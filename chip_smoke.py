@@ -199,6 +199,14 @@ def _bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
 
 
+def same_pages(a, b):
+    """Pages 1.. of two pools (or of their scales) byte for byte: page 0 is the trash page,
+    which the plain path writes and the kernels do not."""
+    import torch
+
+    return torch.equal(a[1:].view(torch.uint8), b[1:].view(torch.uint8))
+
+
 def _bound(nbytes, flops, dtype_name):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -670,13 +678,6 @@ def paged_write_kernel_cases(seed):
 
     from dolomite_engine_tpu_torch.ops.attention import paged_write_kv_quantized_plain, write_positions
     from dolomite_engine_tpu_torch.ops.kernels import kv_quant, rope_qkv
-    from dolomite_engine_tpu_torch.ops.kv_quant import as_bytes
-
-    def same(a, b):  # byte identity of pages 1.. (page 0 is the trash page)
-        return torch.equal(as_bytes(a)[1:], as_bytes(b)[1:]) if a.element_size() == 1 else torch.equal(
-            a[1:].view(torch.int16 if a.element_size() == 2 else torch.int32),
-            b[1:].view(torch.int16 if b.element_size() == 2 else torch.int32),
-        )
 
     def one_launch(spec, fn):
         before = spec.launches
@@ -696,6 +697,16 @@ def paged_write_kernel_cases(seed):
             writes = valid & (page_ids != 0)  # the rows this call writes (the rest: trash page)
             n_rows = int(writes.sum())
             n_pages = torch.unique(page_ids[writes]).numel()  # a written page belongs to one row
+            # what a paged write reads of its window, each once: the start, the key mask at
+            # the positions inside the view, and the table entry of each (row, page) that a
+            # valid position falls in (the form that writes contiguous rows reads none)
+            in_view = write_positions(index, None, MAX_LEN, batch, seq, qkv.device)[1]
+            entries = torch.arange(batch, device=qkv.device)[:, None] * table.shape[1] + positions.long() // PAGE
+            window_bytes = (
+                index.numel() * index.element_size()
+                + (0 if mask is None else int(in_view.sum()) * mask.element_size())
+                + torch.unique(entries[valid]).numel() * table.element_size()
+            )
             args = (hq, hkv, hd)
             rotated = batch * seq * (hq + hkv) * hd
             cs_bytes = 2 * cos.shape[0] * seq * hd * 2
@@ -717,9 +728,9 @@ def paged_write_kernel_cases(seed):
                     plain_q, _, _ = rope_qkv.rope_qkv_paged_plain(
                         qkv, cos, sin, *args, plain_k, plain_v, table, index, mask
                     )
-                    identical = same(got_k, ref_k) and same(got_v, ref_v) and torch.equal(query, ref_q)
-                    v_copied = same(got_v, plain_v)  # V is copied: no arithmetic
-                    nbytes = 2 * n_rows * hkv * hd * 2  # K and V rows into the pool
+                    identical = same_pages(got_k, ref_k) and same_pages(got_v, ref_v) and torch.equal(query, ref_q)
+                    v_copied = same_pages(got_v, plain_v)  # V is copied: no arithmetic
+                    nbytes = 2 * n_rows * hkv * hd * 2 + window_bytes  # K and V rows into the pool
                     del plain_k, plain_v
                 else:
                     (query, key, value), launched = one_launch(
@@ -748,7 +759,7 @@ def paged_write_kernel_cases(seed):
                     if kv_dtype == "bf16" else
                     (lambda: rope_qkv.rope_qkv_paged_plain(qkv, cos, sin, *args, None, None, table, index, mask)),
                     None,
-                    batch * seq * (width + hq * hd) * 2 + cs_bytes + nbytes + table.numel() * 4,
+                    batch * seq * (width + hq * hd) * 2 + cs_bytes + nbytes,
                     6 * rotated, extra={"form": "paged"},
                 )
                 if kv_dtype == "bf16":
@@ -761,7 +772,7 @@ def paged_write_kernel_cases(seed):
                     lambda: kv_quant.paged_scatter_kv_quantized_kernel(*got, key, value, table, index, mask),
                 )
                 paged_write_kv_quantized_plain(*want, key, value, table, index, mask)
-                ok = launched and all(same(a, b) for a, b in zip(got, want))
+                ok = launched and all(same_pages(a, b) for a, b in zip(got, want))
                 err = max((a[1:].float() - b[1:].float()).abs().max().item() for a, b in zip(got, want))
                 _record(
                     cases, "kv_quant", f"{model_name} {label} K+V[{batch},{seq},{hkv},{hd}] into {kv_dtype} pages",
@@ -770,7 +781,7 @@ def paged_write_kernel_cases(seed):
                     lambda: paged_write_kv_quantized_plain(*want, key, value, table, index, mask),
                     None,
                     # the written rows in, each written (page, head) slice's codes and scale in and out
-                    2 * n_rows * hkv * hd * 2 + 2 * n_pages * hkv * (2 * PAGE * hd + 8) + table.numel() * 4,
+                    2 * n_rows * hkv * hd * 2 + 2 * n_pages * hkv * (2 * PAGE * hd + 8) + window_bytes,
                     2 * n_pages * hkv * PAGE * hd * 4, op_dtype=torch.float32,  # dequantize, |x| and max, divide, round / clip
                     plain_iters=5, extra={"form": "scatter"},
                 )
@@ -1343,10 +1354,7 @@ def paged_write_check(model, tokens, prompt_len):
         with _swapped([(modeling_utils, "rope_qkv_paged", flat)]):
             want = kernel_path_logits(model, tokens, prompt_len, flat_caches).float()
 
-    def same(a, b):
-        return torch.equal(a[1:].view(torch.int16), b[1:].view(torch.int16))
-
-    identical = [same(g["k"], w["k"]) and same(g["v"], w["v"]) for g, w in zip(kernel_caches, flat_caches)]
+    identical = [same_pages(g["k"], w["k"]) and same_pages(g["v"], w["v"]) for g, w in zip(kernel_caches, flat_caches)]
     check = {
         "n_layer": model.config.n_layer, "positions": len(tokens), "prompt_tokens": prompt_len,
         "pool_dtype": str(kernel_caches[0]["k"].dtype).replace("torch.", ""),
@@ -1402,12 +1410,7 @@ def quantized_check(model, tokens, prompt_len, kv_dtype="int8"):
         tie_codes, tie_want = quantize_pages(ties, all_valid, qmax, storage)[0], quantize_pages_plain(ties, all_valid, qmax, storage)[0]
     hook.remove()
 
-    def same_bytes(a, b):
-        return torch.equal(as_bytes(a)[1:], as_bytes(b)[1:]) if a.element_size() == 1 else torch.equal(
-            a[1:].view(torch.int32), b[1:].view(torch.int32)
-        )
-
-    pool_identical = {name: same_bytes(kernel_caches[0][name], plain_caches[0][name]) for name in ("k", "v", "k_scale", "v_scale")}
+    pool_identical = {name: same_pages(kernel_caches[0][name], plain_caches[0][name]) for name in ("k", "v", "k_scale", "v_scale")}
     attn_err = ((got_attn - want_attn).norm() / want_attn.norm()).item()
     last = (got[-1] - want[-1]).abs()
     check = {

@@ -16,9 +16,8 @@ granite-3b-code (32 layers, bf16, random weights from the seed) the device launc
 device time of a prefill chunk and a decode step (`chip_smoke.launches_per_forward`)
 and the host time of a decode step over 8 busy slots, over bf16, int8 and fp8 pools,
 the same for the MoE model of `pretrain-moe-ep.yml` over bf16 and int8 pools, the
-greedy tokens of `chip_smoke.serve` on both models' bf16 cells (a digest on the line;
-``--tokens-out FILE`` writes the tokens themselves), and the losses and step
-times of `chip_smoke.train_slice` on the dense and MoE training cells (the flat rope
+greedy tokens of `chip_smoke.serve` on both models' bf16 cells (a digest), and the
+losses and step times of `chip_smoke.train_slice` on the dense and MoE training cells (the flat rope
 kernel's forward and backward). To compare two commits on one card, unpack the other into a directory that
 `.gitignore` lists and run both in one machine call, in turns (A, B, B, A).
 ``--constant paged_attention.cu:kSpan=128`` builds from a copy of the sources in which
@@ -129,7 +128,7 @@ def _decode_host_ms(model, kv_dtype, steps=16):
     return sum(times) / len(times)
 
 
-def _paged_write_ab(chip_smoke, seed, label, tokens_out=None):
+def _paged_write_ab(chip_smoke, seed):
     """The ``paged_write`` family (see the module's docstring)."""
     import gc
     import hashlib
@@ -156,7 +155,6 @@ def _paged_write_ab(chip_smoke, seed, label, tokens_out=None):
         })
         del qkv
     out = {"rope": rope, "decode": {}, "greedy_sha256": {}}
-    tokens = {}
     for name, config, pools in (
         ("granite-3b-code", chip_smoke.GRANITE_3B_CODE, (None, "int8", "fp8")),
         ("moe", chip_smoke.MOE_EP, (None, "int8")),
@@ -168,7 +166,6 @@ def _paged_write_ab(chip_smoke, seed, label, tokens_out=None):
             record["decode_step_host_ms_8_slots"] = _decode_host_ms(model, kv_dtype)
             out["decode"][f"{name} {kv_dtype or 'bf16'}"] = record
         _, _, _, _, greedy = chip_smoke.serve(seed, model=model)
-        tokens[name] = greedy
         out["greedy_sha256"][name] = hashlib.sha256(json.dumps(greedy).encode()).hexdigest()
         del model
         gc.collect()
@@ -184,9 +181,6 @@ def _paged_write_ab(chip_smoke, seed, label, tokens_out=None):
         del held
         gc.collect()
         torch.cuda.empty_cache()
-    if tokens_out is not None:
-        with open(tokens_out, "w") as f:
-            json.dump({"label": label, "greedy_tokens": tokens}, f)
     return out
 
 
@@ -200,7 +194,6 @@ def main() -> int:
     )
     parser.add_argument("--constant", action="append", default=[])
     parser.add_argument("--build-only", action="store_true", help="build the kernels and exit")
-    parser.add_argument("--tokens-out", default=None, help="paged_write: write the greedy tokens to this JSON file")
     args = parser.parse_args()
 
     import torch
@@ -227,7 +220,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     label = args.label or " ".join([root] + args.constant)
     if args.family == "paged_write":
-        results = _paged_write_ab(chip_smoke, args.seed, label, args.tokens_out)
+        results = _paged_write_ab(chip_smoke, args.seed)
         print(json.dumps({"label": label, "paged_write": results, "card": card}), flush=True)
         return 0
     if args.family == "paged":

@@ -37,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import tie_page
+from chip_smoke import same_pages, tie_page
 from dolomite_engine_tpu_torch.ops.kernels import (
     kv_quant,
     paged_attention,
@@ -895,14 +895,6 @@ def _pools(g, pages, page, hkv, head_dim, kv_dtype):
     return [k, v, ks, vs]
 
 
-def _same_pages(a, b):
-    """Pages 1.. byte for byte (page 0 is the trash page)."""
-    return torch.equal(as_bytes(a)[1:], as_bytes(b)[1:]) if a.element_size() == 1 else torch.equal(
-        a[1:].view(torch.int16 if a.element_size() == 2 else torch.int32),
-        b[1:].view(torch.int16 if b.element_size() == 2 else torch.int32),
-    )
-
-
 # (batch, seq, hq, hkv, head_dim, index, real rows of the chunk): decode rows at their own
 # frontiers (one mid-page, one idle, one on a page boundary), a verify window past the
 # view, prefill chunks at a scalar start (a pad tail; one running past the view), and a
@@ -940,9 +932,9 @@ def test_rope_qkv_paged_writes_what_the_flat_kernel_and_plain_scatter_write(
     plain_q, _, _ = rope_qkv.rope_qkv_paged_plain(qkv, cos, sin, hq, hkv, head_dim, plain_k, plain_v, table, index_t, mask)
     torch.cuda.synchronize()
     assert query.shape == (batch, seq, hq, head_dim) and query.is_contiguous()
-    assert torch.equal(query, ref_q) and _same_pages(got_k, ref_k) and _same_pages(got_v, ref_v)
-    assert _same_pages(got_v, plain_v)  # V is copied (cast on store): no arithmetic
-    assert not _same_pages(got_k, k)  # the window wrote something
+    assert torch.equal(query, ref_q) and same_pages(got_k, ref_k) and same_pages(got_v, ref_v)
+    assert same_pages(got_v, plain_v)  # V is copied (cast on store): no arithmetic
+    assert not same_pages(got_k, k)  # the window wrote something
     x = qkv.float().reshape(batch, seq, -1, head_dim)[:, :, :hq]
     scale = x.abs() + x.roll(head_dim // 2, -1).abs()
     diff = (query.float() - plain_q.float()).abs()
@@ -978,8 +970,8 @@ def test_quantized_paged_write_is_byte_identical_to_plain(batch, seq, hq, hkv, h
         assert kv_quant.KERNEL.launches == before + 1
         paged_write_kv_quantized_plain(*want, *rows, table, start, mask)
         torch.cuda.synchronize()
-        assert all(_same_pages(a, b) for a, b in zip(got, want))
-        assert not _same_pages(got[0], pools[0])
+        assert all(same_pages(a, b) for a, b in zip(got, want))
+        assert not same_pages(got[0], pools[0])
 
 
 def test_paged_write_wrappers_raise_on_what_the_kernels_do_not_take():
