@@ -25,7 +25,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fp32 master weights, bf16 compute, flash attention over packed documents, the fused
    LM-head loss with z-loss, AdamW with a bf16 first moment, cosine schedule, clipping,
    remat of every block) for 1 warm-up and 4 timed steps of accumulation 2 x [1, 4096];
-   launch counts zeroed before and read after; then one step under `torch.profiler`;
+   launch counts zeroed before and read after; then one step under `torch.profiler`
+   (with the fused loss's backward: its device time in that step, and alone at the
+   cell's shape by kernel family, ``loss_backward_alone``);
 7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (24 layers, 32
    experts, top-4, bf16, random weights) behind `ServingEngine` with the requests of
    phase 3, its logits check against a plain forward (router + every-expert
@@ -69,7 +71,9 @@ kernels over int8 / fp8 pages beside the same cases over bf16 pages at the MoE s
 at start 1536, an fp32 query over a bf16 pool) and the additive-bias / non-causal flash
 form's cases (causal alibi over packed documents at the alibi slice's layer shape, the
 causal form without a bias on the same inputs, non-causal with and without the bias,
-alibi over a left-padded batch) run in phase 2. Each case reports ``kernel_ms`` (CUDA
+alibi over a left-padded batch) and the fused_ce cases (a loss chunk of each training path,
+a ragged vocabulary and small edge shapes; cuBLAS's bare product as ``gemm_ms``; two
+launches must give the same bits) run in phase 2. Each case reports ``kernel_ms`` (CUDA
 events around back-to-back calls, host enqueue included) and ``device_ms`` (the same
 calls queued behind a sleep kernel, so the card runs them without waiting for the host).
 
@@ -1546,7 +1550,8 @@ def _varlen_library(q, k, v, seg, scale):
 
 def training_kernel_cases(seed):
     """Phase 2, training kernels: flash attention forward and backward and fused_ce
-    against their plain versions, with kernel, plain and library timings. The flash
+    (`fused_ce_kernel_cases`) against their plain versions, with kernel, plain and library
+    timings. The flash
     library call is `varlen_attn` over the documents (the same function); SDPA, causal
     over whole rows without segments (a different function, ~3-6x the pairs), is kept as
     `sdpa_ms`."""
@@ -1555,7 +1560,6 @@ def training_kernel_cases(seed):
     import torch.nn.functional as F
 
     from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
-    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
 
     cases = []
 
@@ -1636,31 +1640,72 @@ def training_kernel_cases(seed):
             del qkv, q, k, v, out, want, grads, want_grads, ql, kl, vl, lib_out, varlen, varlen_fwd, flat, varlen_bwd
             torch.cuda.empty_cache()
 
-        # one loss chunk of the slice (256 rows against the whole table), and a vocabulary
-        # that is not a multiple of the kernel's 128-column tile
-        rows, hidden = 256, GRANITE_3B_CODE["n_embd"]
-        for vocab in (GRANITE_3B_CODE["vocab_size"], GRANITE_3B_CODE["vocab_size"] - 83):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cases + fused_ce_kernel_cases(seed)
+
+
+# fused_ce cases: (rows, H, V, logit_scale, dtypes). One loss chunk of each training path
+# (256-token chunks; the MoE and alibi cells run micro batch 2, so 512 rows) against the
+# whole table, the dense chunk with a vocabulary that is not a multiple of a vocab tile,
+# and small shapes: one row, three row blocks with H not a multiple of 64 and a scale,
+# and a one-column last vocab tile
+FUSED_CE_CASES = (
+    (256, GRANITE_3B_CODE["n_embd"], GRANITE_3B_CODE["vocab_size"], None, ("bfloat16", "float32")),
+    (256, GRANITE_3B_CODE["n_embd"], GRANITE_3B_CODE["vocab_size"] - 83, None, ("bfloat16", "float32")),
+    (MOE_TRAIN_MICRO * 256, MOE_EP["n_embd"], MOE_EP["vocab_size"], None, ("bfloat16",)),
+    (ALIBI_TRAIN_MICRO * 256, MPT_7B["n_embd"], MPT_7B["vocab_size"], None, ("bfloat16",)),
+    (1, 64, 300, None, ("bfloat16",)),
+    (700, 96, 1000, 0.5, ("bfloat16",)),
+    (256, 160, 513, None, ("bfloat16",)),
+)
+
+
+def fused_ce_kernel_cases(seed):
+    """fused_ce against its plain version at FUSED_CE_CASES: bf16 within 2e-2 absolute
+    (the kernel and cuBLAS may round a logit to bf16 one ulp apart), fp32 within 1e-5
+    relative; two launches must give the same bits. Beside the kernel's times, `gemm_ms`
+    is cuBLAS's ``h @ table.T`` alone with the logits written in the input dtype (the
+    product's yardstick; it reduces nothing). No single PyTorch call computes the
+    function, so `library_ms` is null."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
+
+    cases = []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for rows, hidden, vocab, scale, dtypes in FUSED_CE_CASES:
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
+            es = torch.tensor([], dtype=dtype).element_size()
+            fp32 = dtype == torch.float32
             # logits of std ~0.5, the scale of an LM head's at init (the embedding std 0.02)
             h = (torch.randn((rows, hidden), generator=gen, device="cuda") * 4 / hidden**0.5).to(dtype)
             table = (torch.randn((vocab, hidden), generator=gen, device="cuda") / 8).to(dtype)
             labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
             labels[::7] = fused_ce.IGNORE_INDEX
-            got = fused_ce.fused_ce_rowwise(h, table, labels)
-            want = fused_ce.fused_ce_rowwise_plain(h, table, labels)
+            run = lambda: fused_ce.fused_ce_rowwise(h, table, labels, scale)  # noqa: E731
+            got, again = run(), run()
+            want = fused_ce.fused_ce_rowwise_plain(h, table, labels, scale)
             if fp32:
                 ok = all(bool(torch.allclose(a, b, rtol=1e-5, atol=0)) for a, b in zip(got, want))
             else:
                 ok = all(bool(((a - b).abs() <= 2e-2).all()) for a, b in zip(got, want))
             err = max((a - b).abs().max().item() for a, b in zip(got, want))
-            record(
-                "fused_ce", f"[{rows},{hidden}]x[{vocab},{hidden}]", dtype, err, ok,
-                "1e-5 rel" if fp32 else "2e-2 abs",
-                lambda: fused_ce.fused_ce_rowwise(h, table, labels),
-                lambda: fused_ce.fused_ce_rowwise_plain(h, table, labels),
-                None,
+            identical = all(torch.equal(a, b) for a, b in zip(got, again))
+            shape = f"[{rows},{hidden}]x[{vocab},{hidden}]" + ("" if scale is None else f" scale {scale}")
+            _record(
+                cases, "fused_ce", shape, dtype, err, ok, "1e-5 rel" if fp32 else "2e-2 abs", run,
+                lambda: fused_ce.fused_ce_rowwise_plain(h, table, labels, scale), None,
                 (rows + vocab) * hidden * es + rows * 4 + 2 * rows * 4, 2 * rows * vocab * hidden,
+                extra={
+                    "gemm_ms": _device_ms(lambda: h @ table.T), "bit_identical_run_to_run": identical,
+                    "library": "null: no single PyTorch call gives per-row logsumexp and label logit without the logits",
+                },
             )
-            del h, table
+            if not identical:
+                raise AssertionError(f"fused_ce {shape} {dtype_name}: two launches gave different bits")
+            del h, table, got, again, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return cases
@@ -2166,14 +2211,69 @@ def profile_training(state, train_step, batch):
         for e in events
         if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0
     ]
+    # the fused loss's backward (`_ChunkedCETerms.backward`, once a micro-batch): the device
+    # time of the kernels it launches, itself and through its children
+    busy_ms = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    loss_backward_ms = max(
+        (e.device_time_total / 1e3 for e in events if e.device_type == DeviceType.CPU and "_ChunkedCETermsBackward" in e.key),
+        default=0.0,
+    )
     return dict(
         profile,
+        loss_backward={
+            "device_ms": loss_backward_ms, "step_device_ms": busy_ms, "share_of_step_device_time": loss_backward_ms / busy_ms,
+            "source": "the host-profiled step: device time under autograd's _ChunkedCETermsBackward",
+        },
         host_profiled_wall_s=host_wall_s,
         host_op_self_s=sum(ms for _, _, ms in host_ops) / 1e3,
         top_host_ops=[
             {"name": name[:64], "calls": count, "ms": ms}
             for name, count, ms in sorted(host_ops, key=lambda k: -k[2])[:15]
         ],
+    )
+
+
+def loss_backward_profile(seed, config_kwargs=TRAIN_CONFIG, seq=TRAIN_SEQ, micro_batch=1):
+    """The fused LM-head loss's backward alone at a training cell's shape: one micro-batch's
+    hidden states [B, S, H] in bf16 and the tied fp32 table, as the model hands them over.
+    Per chunk `_ChunkedCETerms.backward` recomputes the logits (cuBLAS), runs the softmax
+    passes, takes dh and dtable (cuBLAS) and adds dtable into an fp32 [V, H] buffer. Device
+    time by family and kernel under the profiler, and its host time by CUDA events."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.loss import fused_linear_cross_entropy
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    width, vocab = config_kwargs["n_embd"], config_kwargs["vocab_size"]
+    h = (torch.randn((micro_batch, seq, width), generator=gen, device="cuda") * 4 / width**0.5).bfloat16()
+    table = (torch.randn((vocab, width), generator=gen, device="cuda") / 8).requires_grad_()
+    h.requires_grad_()
+    labels = torch.randint(0, vocab, (micro_batch, seq), generator=gen, device="cuda")
+
+    def forward():
+        return fused_linear_cross_entropy(
+            h, table, labels, chunk_size=config_kwargs["loss_chunk_size"], compute_dtype=torch.bfloat16,
+            z_loss_coef=config_kwargs.get("z_loss_coef", 0.0),
+        )
+
+    forward().backward()  # warm-up
+    loss = forward()
+    profile = _device_time(*_profiled(loss.backward), top=8)
+    times = []
+    for _ in range(3):
+        loss = forward()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss.backward()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del h, table, loss
+    torch.cuda.empty_cache()
+    return dict(
+        profile, shape=f"[{micro_batch},{seq},{width}] x [{vocab},{width}]", chunks=-(-seq // config_kwargs["loss_chunk_size"]),
+        backward_ms_by_events=times,
     )
 
 
@@ -2252,7 +2352,9 @@ def main() -> int:
     print(json.dumps({"training_check": training_paths_check(args.seed), "card": card}), flush=True)
     training, training_launches, (state, train_step, batch) = train_slice(args.seed)
     print(json.dumps({"training": training, "card": card}), flush=True)
-    print(json.dumps({"training_profile": profile_training(state, train_step, batch), "card": card}), flush=True)
+    training_profile = profile_training(state, train_step, batch)
+    training_profile["loss_backward_alone"] = loss_backward_profile(args.seed)
+    print(json.dumps({"training_profile": training_profile, "card": card}), flush=True)
     del state, train_step, batch
     gc.collect()
     torch.cuda.empty_cache()

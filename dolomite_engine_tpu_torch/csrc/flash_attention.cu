@@ -642,18 +642,8 @@ struct Head {
   static constexpr int kTileBytes = kPanels * kPanelBytes;  // a 64-token tile
 };
 
-// the first 1024-byte boundary at or after p, as an offset from p so that the compiler
-// keeps the pointer in the shared space (shared loads, not generic ones)
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024u - (sm90::smem_u32(p) & 1023u)) & 1023u);
-}
-
-// a value the compiler must treat as uniform across the warp (wgmma issued under a
-// condition it cannot prove uniform is serialized); each warpgroup computes it alike
-template <typename V>
-__device__ __forceinline__ V uniform(V value) {
-  return __shfl_sync(0xffffffffu, value, 0);
-}
+using sm90::align_1024;
+using sm90::uniform;
 
 // Descriptor of k16 step kk over the head dim of the 64 rows from row0 of a K-major tile
 // (`rows` tokens a panel): the panel of the step, then 32 bytes a step inside the row.

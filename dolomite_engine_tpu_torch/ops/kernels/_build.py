@@ -47,7 +47,7 @@ _SIGNATURES = {
     "dolo_flash_fwd": (_P,) * 8 + (_I,) * 9 + (_F, _I, _P),
     "dolo_flash_bwd": (_P,) * 13 + (_I,) * 9 + (_F, _I, _P),
     "dolo_fused_ce": (_P,) * 6 + (_I,) * 3 + (_F, _I, _I, _P),
-    "dolo_fused_ce_scratch_floats": (_I, _I),
+    "dolo_fused_ce_scratch_floats": (_I, _I, _I),
     "dolo_gmm": (_P,) * 5 + (_I,) * 7 + (_P,),
     "dolo_tgmm": (_P,) * 5 + (_I,) * 6 + (_P,),
     "dolo_grouped_gemm_route": (_I, _I, _I, _P, _P, _P),

@@ -3,8 +3,10 @@
 Replaces the TPU kernel ``fused_ce_rowwise`` (`dolomite_engine_tpu/ops/pallas/fused_ce.py`):
 per token row, ``logsumexp(h @ T^T * scale)`` and the label's logit, without writing the
 ``[rows, V]`` logits to device memory. Bound on the H100 by the bytes of the table each
-call reads; the kernel tiles rows and vocabulary, runs the product on the tensor cores
-and combines per-tile partial sums (see ``dolomite_engine_tpu_torch/csrc/fused_ce.cu``).
+call reads (the dense chunk) or by its operations (the MoE and alibi chunks). For bf16 a
+persistent grid of `wgmma` CTAs, fed by TMA, walks vocab ranges so that each launch reads
+the table from device memory once, and folds each row's logits into per-range partials
+that a second launch combines (see ``dolomite_engine_tpu_torch/csrc/fused_ce.cu``).
 
 `fused_ce_rowwise` launches the kernel for CUDA tensors (or raises) and takes the plain
 version for CPU tensors. `fused_ce_chunk` reduces one loss chunk to
@@ -24,7 +26,7 @@ KERNEL = KernelSpec(
 )
 
 IGNORE_INDEX = -100  # ops/loss.IGNORE_INDEX (kept here so the kernel module stands alone)
-HIDDEN_MULTIPLE = 32  # the kernel streams the hidden dim in 32-wide slices
+HIDDEN_MULTIPLE = 32  # fp32 streams H in 32-wide slices; bf16 in 64-wide TMA boxes, zero-filled past H
 
 
 def _check_shapes(hidden, table, labels):
@@ -75,13 +77,16 @@ def fused_ce_rowwise(
         raise ValueError(f"hidden dim {hidden_dim} is not a multiple of {HIDDEN_MULTIPLE}")
     labels = labels.to(device=device, dtype=torch.int32).contiguous()
     lib = load_library()
-    partial = torch.empty(lib.dolo_fused_ce_scratch_floats(rows, vocab), dtype=torch.float32, device=device)
+    dtype_code = DTYPE_CODES[hidden.dtype]
+    floats = lib.dolo_fused_ce_scratch_floats(rows, vocab, dtype_code)
+    check_launch(max(-floats, 0), KERNEL.name)
+    partial = torch.empty(floats, dtype=torch.float32, device=device)
     lse = torch.empty(rows, dtype=torch.float32, device=device)
     label_logit = torch.empty(rows, dtype=torch.float32, device=device)
     code = lib.dolo_fused_ce(
         ptr(hidden), ptr(table), ptr(labels), ptr(partial), ptr(lse), ptr(label_logit),
         rows, hidden_dim, vocab, float(1.0 if logit_scale is None else logit_scale),
-        int(logit_scale is not None), DTYPE_CODES[hidden.dtype], current_stream(device),
+        int(logit_scale is not None), dtype_code, current_stream(device),
     )
     check_launch(code, KERNEL.name)
     KERNEL.launches += 1

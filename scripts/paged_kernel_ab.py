@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the paged attention (grouped-GEMM, flash, rmsnorm, paged K/V write) kernel cases of `chip_smoke.py` for one checkout.
+"""Time the paged attention (grouped-GEMM, flash, rmsnorm, paged K/V write, fused_ce) kernel cases of `chip_smoke.py` for one checkout.
 
     python scripts/paged_kernel_ab.py [--root DIR] [--seed N] [--label NAME]
-        [--family paged|grouped_gemm|flash|rmsnorm|paged_write] [--constant FILE:NAME=VALUE ...]
+        [--family paged|grouped_gemm|flash|rmsnorm|paged_write|fused_ce] [--constant FILE:NAME=VALUE ...]
 
 Imports `chip_smoke` and `dolomite_engine_tpu_torch` from DIR (default: this checkout),
 builds that checkout's kernels there, runs its phase-2 kernel cases and quantized-pool
@@ -18,7 +18,11 @@ and the host time of a decode step over 8 busy slots, over bf16, int8 and fp8 po
 the same for the MoE model of `pretrain-moe-ep.yml` over bf16 and int8 pools, the
 greedy tokens of `chip_smoke.serve` on both models' bf16 cells (a digest), and the
 losses and step times of `chip_smoke.train_slice` on the dense and MoE training cells (the flat rope
-kernel's forward and backward). To compare two commits on one card, unpack the other into a directory that
+kernel's forward and backward). ``--family fused_ce`` prints `chip_smoke.fused_ce_kernel_cases`
+and then the losses, grad norms and step times of `chip_smoke.train_slice` on the dense, MoE
+and alibi training cells (``--cases-only``: the cases alone; ``--unchecked``: only their
+bf16 device times, for a ``--constant`` such as ``fused_ce.cu:kFold=0`` that breaks the
+results on purpose). To compare two commits on one card, unpack the other into a directory that
 `.gitignore` lists and run both in one machine call, in turns (A, B, B, A).
 ``--constant paged_attention.cu:kSpan=128`` builds from a copy of the sources in which
 that file's ``constexpr int kSpan`` is 128 (a tuning sweep; the checkout is not
@@ -27,6 +31,7 @@ first. Needs a CUDA device.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import re
@@ -184,13 +189,74 @@ def _paged_write_ab(chip_smoke, seed):
     return out
 
 
+def _fused_ce_cases(chip_smoke, seed, unchecked=False):
+    """`chip_smoke.fused_ce_kernel_cases` of the checkout; one from before those cases
+    existed is timed through this script's own copy of them (its wrapper takes the same
+    arguments). `unchecked`: only the device times of the bf16 cases, not held to the
+    plain version (for a ``--constant`` that breaks the results on purpose)."""
+    if not hasattr(chip_smoke, "fused_ce_kernel_cases"):
+        spec = importlib.util.spec_from_file_location("chip_smoke_cases", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+        chip_smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_smoke)
+    if not unchecked:
+        return chip_smoke.fused_ce_kernel_cases(seed)
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = []
+    for rows, hidden, vocab, scale, _ in chip_smoke.FUSED_CE_CASES:
+        h = (torch.randn((rows, hidden), generator=gen, device="cuda") * 4 / hidden**0.5).bfloat16()
+        table = (torch.randn((vocab, hidden), generator=gen, device="cuda") / 8).bfloat16()
+        labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
+        cases.append({
+            "kernel": "fused_ce", "shape": f"[{rows},{hidden}]x[{vocab},{hidden}]", "dtype": "bfloat16",
+            "device_ms": chip_smoke._device_ms(lambda: fused_ce.fused_ce_rowwise(h, table, labels, scale)),
+        })
+    return cases
+
+
+def _training_cells(chip_smoke, seed):
+    """Losses, grad norms and step times of the dense, MoE and alibi training cells."""
+    import gc
+
+    import torch
+
+    cells = {}
+    for name, args, options in (
+        ("granite-3b-code", (), {}),
+        (
+            "moe", (dict(chip_smoke.MOE_EP, n_layer=chip_smoke.MOE_TRAIN_LAYERS),),
+            {"seq": chip_smoke.MOE_TRAIN_SEQ, "micro_batch": chip_smoke.MOE_TRAIN_MICRO},
+        ),
+        (
+            "alibi", (dict(chip_smoke.ALIBI_TRAIN_CONFIG, n_layer=chip_smoke.ALIBI_TRAIN_LAYERS),),
+            {"seq": chip_smoke.ALIBI_TRAIN_SEQ, "micro_batch": chip_smoke.ALIBI_TRAIN_MICRO},
+        ),
+    ):
+        training, launches, held = chip_smoke.train_slice(seed, *args, **options)
+        cells[name] = {
+            "losses": training["losses"], "grad_norms": training["grad_norms"], "step_s": training["step_s"],
+            "fused_ce_launches": launches["fused_ce"],
+        }
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cells
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--label", default=None)
     parser.add_argument(
-        "--family", choices=("paged", "grouped_gemm", "flash", "rmsnorm", "paged_write"), default="paged"
+        "--family", choices=("paged", "grouped_gemm", "flash", "rmsnorm", "paged_write", "fused_ce"), default="paged"
+    )
+    parser.add_argument("--cases-only", action="store_true", help="fused_ce: the kernel cases without the training cells")
+    parser.add_argument(
+        "--unchecked", action="store_true", help="fused_ce, with --cases-only: device times alone, results not checked"
     )
     parser.add_argument("--constant", action="append", default=[])
     parser.add_argument("--build-only", action="store_true", help="build the kernels and exit")
@@ -227,19 +293,24 @@ def main() -> int:
         cases = chip_smoke.kernel_cases(args.seed) + chip_smoke.quant_kernel_cases(args.seed)
     elif args.family == "grouped_gemm":
         cases = chip_smoke.moe_kernel_cases(args.seed)
+    elif args.family == "fused_ce":
+        cases = _fused_ce_cases(chip_smoke, args.seed, args.unchecked)
     elif args.family == "flash":
         cases = chip_smoke.training_kernel_cases(args.seed) + chip_smoke.alibi_kernel_cases(args.seed)
     else:
         cases = _rmsnorm_cases(chip_smoke, args.seed)
     keep = (
         "kernel", "shape", "dtype", "path", "kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by", "max_abs_err", "sdpa_ms", "library", "visible_pairs", "computed_pairs",
+        "bound_by", "max_abs_err", "sdpa_ms", "library", "visible_pairs", "computed_pairs", "gemm_ms",
+        "bit_identical_run_to_run",
     )
     picked = [
         {key: c[key] for key in keep if key in c} for c in cases if c["kernel"].startswith(args.family + "_")
         or c["kernel"] == args.family
     ]
     print(json.dumps({"label": label, f"{args.family}_cases": picked, "card": card}), flush=True)
+    if args.family == "fused_ce" and not args.cases_only:
+        print(json.dumps({"label": label, "training": _training_cells(chip_smoke, args.seed), "card": card}), flush=True)
     return 0
 
 

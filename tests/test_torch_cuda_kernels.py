@@ -22,7 +22,7 @@ value for the training flash kernels, whose plain version computes in fp32 and r
 its outputs once (the two sides may round a value one ulp apart); bf16 rmsnorm and rope
 within 2 bf16 ulp of the largest term (the plain version rounds after every bf16 op, the
 kernel rounds once); bf16 fused_ce within 2e-2 absolute (the kernel and cuBLAS may round
-a logit to bf16 one ulp apart); bf16 grouped GEMMs within one bf16 ulp plus 1e-4 (both
+a logit to bf16 one ulp apart), and bit-identical from launch to launch; bf16 grouped GEMMs within one bf16 ulp plus 1e-4 (both
 sides sum in fp32 and round once), and tgmm, whose output is fp32, within 1e-5 in both
 types (products of bf16 inputs are exact in fp32), its bf16 output bit-identical to its
 fp32 output rounded to bf16 (one rounding of the same sum); their padding rows hold
@@ -626,15 +626,24 @@ def test_bias_flash_launches_count_on_their_own_spec():
         attention(q, k, v, implementation="flash_attention_2", alibi_bias=torch.zeros(1, 2, 128, 128, device="cuda"))
 
 
+_FUSED_CE_SHAPES = [
+    (256, 2560, 49152, None),  # one loss chunk of the training slice
+    (37, 64, 1000, 0.5),  # a ragged row tile, V not a multiple of a vocab tile
+    (300, 128, 513, None),  # three 128-row tiles, a one-column last vocab tile
+]
+
+
 @pytest.mark.parametrize(
-    "rows,hidden,vocab,logit_scale",
-    [
-        (256, 2560, 49152, None),  # one loss chunk of the training slice
-        (37, 64, 1000, 0.5),  # a ragged row tile, V not a multiple of the 128-column tile
-        (300, 128, 513, None),  # three row tiles, a one-column last vocab tile
+    "rows,hidden,vocab,logit_scale,dtype",
+    [shape + (dtype,) for dtype in (torch.float32, torch.bfloat16) for shape in _FUSED_CE_SHAPES]
+    + [
+        (512, 1024, 49152, None, torch.bfloat16),  # a loss chunk of the MoE training path (micro batch 2)
+        (512, 4096, 50432, None, torch.bfloat16),  # and of the alibi path (MPT-7B widths)
+        (1, 64, 300, None, torch.bfloat16),  # a single row
+        (700, 96, 1000, 0.5, torch.bfloat16),  # six 128-row blocks (the last ragged), H not a multiple of 64
+        (256, 160, 513, None, torch.bfloat16),  # H not a multiple of 64, a one-column last vocab tile
     ],
 )
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_kernel_matches_plain(rows, hidden, vocab, logit_scale, dtype):
     from dolomite_engine_tpu_torch.ops.kernels import fused_ce
 
@@ -653,6 +662,21 @@ def test_fused_ce_kernel_matches_plain(rows, hidden, vocab, logit_scale, dtype):
             torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
         else:
             torch.testing.assert_close(a, b, atol=2e-2, rtol=0)
+
+
+def test_fused_ce_kernel_is_deterministic():
+    """Two launches at the dense loss chunk give the same bits: the partials are combined
+    in a fixed order, with no atomics."""
+    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    h = _rand(g, (256, 2560), torch.bfloat16, 4.0 / 2560**0.5)
+    table = _rand(g, (49152, 2560), torch.bfloat16, 1.0 / 8)
+    labels = torch.randint(0, 49152, (256,), generator=g, device="cuda")
+    first = fused_ce.fused_ce_rowwise(h, table, labels)
+    second = fused_ce.fused_ce_rowwise(h, table, labels)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_fused_ce_all_ignored_rows_and_chunk_sums():

@@ -30,7 +30,14 @@ def _fixtures(seed, batch, seq, hidden, vocab, ignore_rows=5):
     return h, table, labels
 
 
-@pytest.mark.parametrize("rows,hidden,vocab,logit_scale", [(37, 32, 211, None), (64, 64, 1000, 0.5), (8, 32, 513, 0.125)])
+@pytest.mark.parametrize(
+    "rows,hidden,vocab,logit_scale",
+    [
+        (37, 32, 211, None), (64, 64, 1000, 0.5), (8, 32, 513, 0.125),
+        # two of the JAX kernel's 256-row blocks, H not a multiple of 64, V not of its 512-column tile
+        (512, 96, 1000, None), (512, 96, 1300, 0.5),
+    ],
+)
 def test_fused_ce_rowwise_plain_matches_pallas_interpret(rows, hidden, vocab, logit_scale):
     h, table, labels = _fixtures(rows, 1, rows, hidden, vocab)
     h, labels = h[0], labels[0]
@@ -100,6 +107,30 @@ def test_fused_loss_never_builds_full_logits():
     finally:
         fused_ce.fused_ce_rowwise = original
     assert seen == [2 * 8] * 3  # 20 tokens padded to 24: three chunks of [B=2, 8] rows
+
+
+@pytest.mark.parametrize("seq", [512, 300])
+def test_fused_loss_calls_the_kernel_once_per_chunk_of_batch_rows(seq):
+    """The training paths' launch structure: one `fused_ce_rowwise` call per 256-token
+    chunk, each over the chunk's tokens of every row of the micro batch (B 2, as the MoE
+    and alibi cells run), a ragged sequence padded to whole chunks."""
+    h, table, labels = _fixtures(4, 2, seq, 32, 97)
+    seen = []
+    original = fused_ce.fused_ce_rowwise
+    try:
+        def spy(hidden, *args, **kwargs):
+            seen.append(tuple(hidden.shape))
+            return original(hidden, *args, **kwargs)
+
+        fused_ce.fused_ce_rowwise = spy
+        loss = torch_loss.fused_linear_cross_entropy(
+            torch.from_numpy(h), torch.from_numpy(table), torch.from_numpy(labels).long(),
+            chunk_size=256, compute_dtype=torch.float32,
+        )
+    finally:
+        fused_ce.fused_ce_rowwise = original
+    assert seen == [(2 * 256, 32)] * 2  # ceil(seq / 256) chunks of [B x 256] rows
+    assert torch.isfinite(loss)
 
 
 @pytest.mark.parametrize("z_coef", [0.0, 1e-4])
