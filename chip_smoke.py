@@ -1551,10 +1551,9 @@ def _varlen_library(q, k, v, seg, scale):
 def training_kernel_cases(seed):
     """Phase 2, training kernels: flash attention forward and backward and fused_ce
     (`fused_ce_kernel_cases`) against their plain versions, with kernel, plain and library
-    timings. The flash
-    library call is `varlen_attn` over the documents (the same function); SDPA, causal
-    over whole rows without segments (a different function, ~3-6x the pairs), is kept as
-    `sdpa_ms`."""
+    timings. The flash library call is `varlen_attn` over the documents (the same
+    function); SDPA, causal over whole rows without segments (a different function, ~3-6x
+    the pairs), is kept as `sdpa_ms`."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2238,7 +2237,7 @@ def loss_backward_profile(seed, config_kwargs=TRAIN_CONFIG, seq=TRAIN_SEQ, micro
     hidden states [B, S, H] in bf16 and the tied fp32 table, as the model hands them over.
     Per chunk `_ChunkedCETerms.backward` recomputes the logits (cuBLAS), runs the softmax
     passes, takes dh and dtable (cuBLAS) and adds dtable into an fp32 [V, H] buffer. Device
-    time by family and kernel under the profiler, and its host time by CUDA events."""
+    time by family and kernel under the profiler."""
     import torch
 
     from dolomite_engine_tpu_torch.ops.loss import fused_linear_cross_entropy
@@ -2259,21 +2258,10 @@ def loss_backward_profile(seed, config_kwargs=TRAIN_CONFIG, seq=TRAIN_SEQ, micro
     forward().backward()  # warm-up
     loss = forward()
     profile = _device_time(*_profiled(loss.backward), top=8)
-    times = []
-    for _ in range(3):
-        loss = forward()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss.backward()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
     del h, table, loss
     torch.cuda.empty_cache()
     return dict(
         profile, shape=f"[{micro_batch},{seq},{width}] x [{vocab},{width}]", chunks=-(-seq // config_kwargs["loss_chunk_size"]),
-        backward_ms_by_events=times,
     )
 
 

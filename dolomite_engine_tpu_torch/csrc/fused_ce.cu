@@ -28,11 +28,11 @@
 // The row blocks of one vocab range are neighbouring CTAs that walk the same tiles
 // together, so a table tile comes from device memory once and its second reader finds it
 // in L2; a 128 x 256 tile keeps the hidden rows' L2 reads at half the table's for each
-// row block (at 256 rows, equal to the table's bytes). kCluster 2 shares each table tile
-// between the two row blocks of a cluster by TMA multicast instead; it ran 1-2 % slower
-// than kCluster 1 at the three shapes (PERF.md). Each CTA writes one (max, sum, label
-// logit) partial per row and vocab range ([3, splits, rows]), and a small second launch
-// combines them in a fixed order: no atomics, the same bits every run.
+// row block (at 256 rows, equal to the table's bytes). (A 256 x 256 tile's fp32
+// accumulators would fill the register file; sharing each table tile between two row
+// blocks by TMA multicast in a 2-CTA cluster ran slower on an H100, PERF.md.) Each CTA writes
+// one (max, sum, label logit) partial per row and vocab range ([3, splits, rows]), and a
+// small second launch combines them in a fixed order: no atomics, the same bits every run.
 //
 // fp32 inputs (off the training paths) keep the first design: one block per (128-row,
 // 128-column) tile, the product by scalar FMA through a two-stage cp.async ring, a
@@ -219,13 +219,9 @@ cudaError_t launch_fp32(const void* hidden, const void* table, const int* labels
 
 namespace wg {
 
-constexpr int kCluster = 1;  // CTAs of a cluster that share each table tile by TMA multicast (1 or 2)
-// 0 times the products and loads alone: each tile's epilogue keeps one accumulator's max
-// and nothing else (the results are wrong; `scripts/paged_kernel_ab.py --constant`)
-constexpr int kFold = 1;
-constexpr int kRows = 128;   // hidden rows of a CTA: 64 per consumer warpgroup
-constexpr int kCols = 256;   // vocab columns of a tile
-constexpr int kDepth = 64;   // H of a stage: 64 bf16, one 128-byte row
+constexpr int kRows = 128;  // hidden rows of a CTA: 64 per consumer warpgroup
+constexpr int kCols = 256;  // vocab columns of a tile
+constexpr int kDepth = 64;  // H of a stage: 64 bf16, one 128-byte row
 constexpr int kRowBytes = 128;
 constexpr int kHiddenBytes = kRows * kRowBytes;  // 16 KB
 constexpr int kTableBytes = kCols * kRowBytes;   // 32 KB
@@ -239,11 +235,10 @@ constexpr int kConsumerRegs = 232;
 constexpr int kProducerRegs = 40;
 constexpr size_t kSmemBytes = 1024 + static_cast<size_t>(kStages) * kStageBytes + 2 * kStages * 8;
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kCluster == 1 || kCluster == 2, "one CTA, or a pair sharing each table tile");
 
-// grid: row_blocks (a multiple of kCluster) x splits CTAs, the row blocks of a vocab
-// range neighbours in launch order. h_map: hidden [rows, H], box {64, 128}; t_map: table
-// [V, H], box {64, 256 / kCluster}. partial: [3, splits, rows].
+// grid: row_blocks x splits CTAs, the row blocks of a vocab range neighbours in launch
+// order. h_map: hidden [rows, H], box {64, 128}; t_map: table [V, H], box {64, 256}.
+// partial: [3, splits, rows].
 template <bool kScale>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap h_map, const __grid_constant__ CUtensorMap t_map,
@@ -264,12 +259,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 2 * kCluster);  // each consumer warpgroup of each CTA
+      sm90::mbar_init(&empty[s], 2);  // each consumer warpgroup
     }
     sm90::fence_barrier_init();
   }
-  if constexpr (kCluster > 1) sm90::cluster_sync();  // the peer's barriers exist before any multicast
-  else __syncthreads();
+  __syncthreads();
 
   if (threadIdx.x >= kConsumers) {  // producer
     sm90::warpgroup_reg_dealloc<kProducerRegs>();
@@ -285,14 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int k0 = kt * kDepth;
           sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
           sm90::tma_load_2d(stage, &h_map, &full[s], k0, row0);
-          if constexpr (kCluster > 1) {
-            constexpr int kHalf = kCols / kCluster;
-            const int rank = static_cast<int>(sm90::cluster_ctarank());
-            sm90::tma_load_2d_multicast(stage + kHiddenBytes + rank * kHalf * kRowBytes, &t_map, &full[s], k0,
-                                        tile * kCols + rank * kHalf, (1u << kCluster) - 1);
-          } else {
-            sm90::tma_load_2d(stage + kHiddenBytes, &t_map, &full[s], k0, tile * kCols);
-          }
+          sm90::tma_load_2d(stage + kHiddenBytes, &t_map, &full[s], k0, tile * kCols);
         }
       }
     }
@@ -359,16 +346,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     };
 
-    // stage i % kStages is free again: one arrival a warpgroup, at every CTA of the cluster
-    auto release = [&](int i) {
-      if constexpr (kCluster > 1) {
-#pragma unroll
-        for (int r = 0; r < kCluster; ++r) sm90::mbar_arrive_cluster_if(&empty[i % kStages], r, t == 0);
-      } else {
-        sm90::mbar_arrive_if(&empty[i % kStages], t == 0);
-      }
-    };
-
     int g = 0;  // stages consumed so far
     for (int tile = tile_begin; tile < tile_end; ++tile) {
 #pragma unroll
@@ -386,16 +363,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();  // the previous stage's products are done: release it
         sm90::fence_operands(acc);
-        if (kt > 0) release(g - 1);
+        if (kt > 0) sm90::mbar_arrive_if(&empty[(g - 1) % kStages], t == 0);
       }
       sm90::wgmma_wait<0>();
       sm90::fence_operands(acc);
-      release(g - 1);
+      sm90::mbar_arrive_if(&empty[(g - 1) % kStages], t == 0);
       const int col0 = tile * kCols;
       const bool tail = sm90::uniform(col0 + kCols > vocab);  // only the last tile has columns past V
-      if constexpr (kFold == 0) {
-        m[0] = fmaxf(m[0], acc[0]);
-      } else if (tail) {
+      if (tail) {
         fold(col0, std::true_type{});
       } else {
         fold(col0, std::false_type{});
@@ -418,89 +393,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-  if constexpr (kCluster > 1) sm90::cluster_sync();  // no CTA leaves while its peer may still write to it
 }
 
 struct Plan {
-  int row_blocks;  // CTAs along the rows (a multiple of kCluster)
+  int row_blocks;  // CTAs along the rows
   int splits;      // vocab ranges
 };
 
-// How many CTAs run at once (one an SM; with clusters, as many pairs as the GPCs hold),
-// cached per device.
-cudaError_t resident_ctas(int* ctas) {
-  static int cached[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < 64 && cached[device] > 0) {
-    *ctas = cached[device];
-    return cudaSuccess;
-  }
-  err = sm90::sm_count(ctas);
-  if (err != cudaSuccess) return err;
-  if constexpr (kCluster > 1) {
-    auto kernel = fused_ce_wgmma_kernel<false>;
-    err = allow_shared_memory(kernel, kSmemBytes);
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t config = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.gridDim = dim3(static_cast<unsigned>(*ctas / kCluster * kCluster));
-    config.blockDim = dim3(kThreads);
-    config.dynamicSmemBytes = kSmemBytes;
-    config.attrs = attr;
-    config.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-    *ctas = std::min(*ctas, clusters * kCluster);
-  }
-  if (device < 64) cached[device] = *ctas;
-  return cudaSuccess;
-}
-
+// One CTA an SM: the row blocks of a vocab range side by side, as many ranges as fit.
 cudaError_t plan(int rows, int vocab, Plan* p) {
-  int ctas = 0;
-  const cudaError_t err = resident_ctas(&ctas);
+  int sms = 0;
+  const cudaError_t err = sm90::sm_count(&sms);
   if (err != cudaSuccess) return err;
-  p->row_blocks = ((rows + kRows - 1) / kRows + kCluster - 1) / kCluster * kCluster;
+  p->row_blocks = (rows + kRows - 1) / kRows;
   const int tiles = (vocab + kCols - 1) / kCols;
-  p->splits = std::max(1, std::min(tiles, ctas / p->row_blocks));
-  return static_cast<int64_t>(p->row_blocks) * p->splits > INT32_MAX ? cudaErrorInvalidValue : cudaSuccess;
+  p->splits = std::max(1, std::min(tiles, sms / p->row_blocks));
+  return cudaSuccess;
 }
 
 template <bool kScale>
 cudaError_t launch_kernel(const CUtensorMap& h_map, const CUtensorMap& t_map, const int* labels, float* partial,
                           int rows, int hidden_dim, int vocab, const Plan& p, float scale, cudaStream_t stream) {
   auto kernel = fused_ce_wgmma_kernel<kScale>;
-  cudaError_t err = allow_shared_memory(kernel, kSmemBytes);
+  const cudaError_t err = allow_shared_memory(kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(p.row_blocks * p.splits));
-  if constexpr (kCluster > 1) {
-    cudaLaunchConfig_t config = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.gridDim = grid;
-    config.blockDim = dim3(kThreads);
-    config.dynamicSmemBytes = kSmemBytes;
-    config.stream = stream;
-    config.attrs = attr;
-    config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, kernel, h_map, t_map, labels, partial, rows, hidden_dim, vocab,
-                             p.row_blocks, p.splits, scale);
-    if (err != cudaSuccess) return err;
-  } else {
-    kernel<<<grid, kThreads, kSmemBytes, stream>>>(h_map, t_map, labels, partial, rows, hidden_dim, vocab,
-                                                   p.row_blocks, p.splits, scale);
-  }
+  kernel<<<p.row_blocks * p.splits, kThreads, kSmemBytes, stream>>>(h_map, t_map, labels, partial, rows, hidden_dim,
+                                                                     vocab, p.row_blocks, p.splits, scale);
   return cudaGetLastError();
 }
 
@@ -517,7 +435,7 @@ cudaError_t launch_bf16(const void* hidden, const void* table, const int* labels
   err = sm90::bf16_tensor_map(&h_map, hidden, 2, h_dims, strides, h_box);
   if (err != cudaSuccess) return err;
   const uint64_t t_dims[2] = {static_cast<uint64_t>(hidden_dim), static_cast<uint64_t>(vocab)};
-  const uint32_t t_box[2] = {kDepth, kCols / kCluster};
+  const uint32_t t_box[2] = {kDepth, kCols};
   err = sm90::bf16_tensor_map(&t_map, table, 2, t_dims, strides, t_box);
   if (err != cudaSuccess) return err;
   err = has_scale ? launch_kernel<true>(h_map, t_map, labels, partial, rows, hidden_dim, vocab, p, scale, stream)

@@ -10,8 +10,6 @@
 // - `mbar_wait` spins on a phase parity (`mbar_wait_warp`: a whole warp, exiting on a
 //   vote); a lost arrival traps after ~2^34 cycles (about ten seconds) instead of hanging
 //   the card.
-// - `tma_load_2d_multicast`, `cluster_ctarank`, `cluster_sync` and `mbar_arrive_cluster_if`
-//   serve a cluster of CTAs that share a tile by TMA multicast.
 // - `wgmma_m64nNk16<kTransA, kTransB>` (N 64, 256) issue one asynchronous 64 x N x 16
 //   bf16 product with fp32 accumulators in registers, both operands from shared memory through
 //   `smem_desc`; `wgmma_m64nNk16_rs<kTransB>` (N 64, 80, 128) take A from registers: four
@@ -132,43 +130,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
         "r"(c3)
-      : "memory");
-}
-
-// tma_load_2d into the same shared-memory offset of every CTA of the cluster in `cta_mask`,
-// counted against the barrier at `bar`'s offset in each of them
-__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                                      int c1, uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-      " [%0], [%1, {%3, %4}], [%2], %5;\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-        "h"(cta_mask)
-      : "memory");
-}
-
-// this CTA's rank in its cluster
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-  return rank;
-}
-
-// every thread of every CTA of the cluster arrives, then waits for the others (shared
-// memory writes before it are visible to the cluster after it)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// mbar_arrive_if on the barrier at `bar`'s offset in the shared memory of cluster CTA `cta`
-// (the arrival's default semantics: with .release.cluster, fused_ce's multicast ring ran
-// far slower)
-__device__ __forceinline__ void mbar_arrive_cluster_if(uint64_t* bar, uint32_t cta, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 remote;\nsetp.ne.b32 p, %2, 0;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
-      "r"(cta), "r"(static_cast<int>(pred))
       : "memory");
 }
 

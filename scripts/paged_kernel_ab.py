@@ -20,9 +20,7 @@ greedy tokens of `chip_smoke.serve` on both models' bf16 cells (a digest), and t
 losses and step times of `chip_smoke.train_slice` on the dense and MoE training cells (the flat rope
 kernel's forward and backward). ``--family fused_ce`` prints `chip_smoke.fused_ce_kernel_cases`
 and then the losses, grad norms and step times of `chip_smoke.train_slice` on the dense, MoE
-and alibi training cells (``--cases-only``: the cases alone; ``--unchecked``: only their
-bf16 device times, for a ``--constant`` such as ``fused_ce.cu:kFold=0`` that breaks the
-results on purpose). To compare two commits on one card, unpack the other into a directory that
+and alibi training cells (``--cases-only``: the cases alone). To compare two commits on one card, unpack the other into a directory that
 `.gitignore` lists and run both in one machine call, in turns (A, B, B, A).
 ``--constant paged_attention.cu:kSpan=128`` builds from a copy of the sources in which
 that file's ``constexpr int kSpan`` is 128 (a tuning sweep; the checkout is not
@@ -175,50 +173,23 @@ def _paged_write_ab(chip_smoke, seed):
         del model
         gc.collect()
         torch.cuda.empty_cache()
-    out["training"] = {}
-    for name, args in (
-        ("granite-3b-code", ()),
-        ("moe", (dict(chip_smoke.MOE_EP, n_layer=chip_smoke.MOE_TRAIN_LAYERS),)),
-    ):
-        options = {} if not args else {"seq": chip_smoke.MOE_TRAIN_SEQ, "micro_batch": chip_smoke.MOE_TRAIN_MICRO}
-        training, _, held = chip_smoke.train_slice(seed, *args, **options)
-        out["training"][name] = {"losses": training["losses"], "step_s": training["step_s"]}
-        del held
-        gc.collect()
-        torch.cuda.empty_cache()
+    out["training"] = _training_cells(chip_smoke, seed, ("granite-3b-code", "moe"))
     return out
 
 
-def _fused_ce_cases(chip_smoke, seed, unchecked=False):
+def _fused_ce_cases(chip_smoke, seed):
     """`chip_smoke.fused_ce_kernel_cases` of the checkout; one from before those cases
     existed is timed through this script's own copy of them (its wrapper takes the same
-    arguments). `unchecked`: only the device times of the bf16 cases, not held to the
-    plain version (for a ``--constant`` that breaks the results on purpose)."""
+    arguments)."""
     if not hasattr(chip_smoke, "fused_ce_kernel_cases"):
         spec = importlib.util.spec_from_file_location("chip_smoke_cases", Path(__file__).resolve().parents[1] / "chip_smoke.py")
         chip_smoke = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(chip_smoke)
-    if not unchecked:
-        return chip_smoke.fused_ce_kernel_cases(seed)
-    import torch
-
-    from dolomite_engine_tpu_torch.ops.kernels import fused_ce
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    cases = []
-    for rows, hidden, vocab, scale, _ in chip_smoke.FUSED_CE_CASES:
-        h = (torch.randn((rows, hidden), generator=gen, device="cuda") * 4 / hidden**0.5).bfloat16()
-        table = (torch.randn((vocab, hidden), generator=gen, device="cuda") / 8).bfloat16()
-        labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
-        cases.append({
-            "kernel": "fused_ce", "shape": f"[{rows},{hidden}]x[{vocab},{hidden}]", "dtype": "bfloat16",
-            "device_ms": chip_smoke._device_ms(lambda: fused_ce.fused_ce_rowwise(h, table, labels, scale)),
-        })
-    return cases
+    return chip_smoke.fused_ce_kernel_cases(seed)
 
 
-def _training_cells(chip_smoke, seed):
-    """Losses, grad norms and step times of the dense, MoE and alibi training cells."""
+def _training_cells(chip_smoke, seed, names=("granite-3b-code", "moe", "alibi")):
+    """Losses, grad norms and step times of the training cells `names` (dense, MoE, alibi)."""
     import gc
 
     import torch
@@ -235,6 +206,8 @@ def _training_cells(chip_smoke, seed):
             {"seq": chip_smoke.ALIBI_TRAIN_SEQ, "micro_batch": chip_smoke.ALIBI_TRAIN_MICRO},
         ),
     ):
+        if name not in names:
+            continue
         training, launches, held = chip_smoke.train_slice(seed, *args, **options)
         cells[name] = {
             "losses": training["losses"], "grad_norms": training["grad_norms"], "step_s": training["step_s"],
@@ -255,9 +228,6 @@ def main() -> int:
         "--family", choices=("paged", "grouped_gemm", "flash", "rmsnorm", "paged_write", "fused_ce"), default="paged"
     )
     parser.add_argument("--cases-only", action="store_true", help="fused_ce: the kernel cases without the training cells")
-    parser.add_argument(
-        "--unchecked", action="store_true", help="fused_ce, with --cases-only: device times alone, results not checked"
-    )
     parser.add_argument("--constant", action="append", default=[])
     parser.add_argument("--build-only", action="store_true", help="build the kernels and exit")
     args = parser.parse_args()
@@ -294,7 +264,7 @@ def main() -> int:
     elif args.family == "grouped_gemm":
         cases = chip_smoke.moe_kernel_cases(args.seed)
     elif args.family == "fused_ce":
-        cases = _fused_ce_cases(chip_smoke, args.seed, args.unchecked)
+        cases = _fused_ce_cases(chip_smoke, args.seed)
     elif args.family == "flash":
         cases = chip_smoke.training_kernel_cases(args.seed) + chip_smoke.alibi_kernel_cases(args.seed)
     else:
