@@ -58,7 +58,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    phase 5 (every attention call through the additive-bias flash form); then
    ``alibi_training``, the train step at 16 of MPT-7B's 32 layers over packed documents
    at its sequence 2048, micro batch 2 x accumulation 2, with launch counts zeroed just
-   before and read just after; then ``alibi_training_profile``, one profiled step.
+   before and read just after; then ``alibi_training_profile``, one profiled step;
+12. ``pretrain`` (run right after phase 6): the pretraining entry point,
+   `dolomite_engine_tpu_torch.pretrain.main`, on
+   `configs/pretraining-examples/pretrain-v5e-256-granite-3b.yml` loaded through the
+   port's `load_yaml` with one-card cuts (`pretrain_args`), over a seeded megatron corpus
+   built in a temporary directory: granite-3b-code at all 32 layers for 8 steps of
+   accumulation 2 x [1, 4096], eval at steps 0, 4 and 8 and on the test split, the
+   telemetry sink, one async save of the fp32 weights at step 8 (the disk's free space
+   checked first). Launch counts zeroed just before `main` and read just after, asserted
+   against the training micro-batches plus the forward-only eval batches; the losses must
+   be finite and fall. Then the resume check at 2 layers with the optimizer saved: 6 steps
+   unbroken against 3 steps, a save and a resumed `main` to step 6; the batches of steps
+   4-6 (hashed), `consumed_samples` and the losses and grad norms must be identical.
 
 The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
 at both models' decode and prefill windows over bf16, int8 and fp8 pools, one launch a
@@ -81,7 +93,7 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``serving``, ``profile``, ``quantized_check``, ``paged_write_check``, ``training_check``, ``training``,
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
-``alibi_training_check``, ``alibi_training`` and ``alibi_training_profile`` lines
+``alibi_training_check``, ``alibi_training``, ``alibi_training_profile`` and ``pretrain`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
 times under ``forms``), the card again, and last
@@ -2265,6 +2277,274 @@ def loss_backward_profile(seed, config_kwargs=TRAIN_CONFIG, seq=TRAIN_SEQ, micro
     )
 
 
+# the pretraining entry point (phase 12): the granite YAML through `pretrain.main`, cut to one
+# card (PERF.md §4): micro batch 1 x accumulation 2 at sequence 4096, remat of every block,
+# 8 steps with 2 of warm-up and eval every 4, one save of the fp32 weights at step 8
+PRETRAIN_YAML = os.path.join("configs", "pretraining-examples", "pretrain-v5e-256-granite-3b.yml")
+PRETRAIN_STEPS, PRETRAIN_WARMUP, PRETRAIN_EVAL_INTERVAL = 8, 2, 4
+PRETRAIN_DOCUMENTS = 6000
+# the resume check: 2 of the 32 layers at full width, the optimizer saved; 6 steps unbroken
+# against 3 steps, a save, and a resumed run to step 6. The schedule decays over steps 3-6
+# in both (num_decay_steps 4), so it does not depend on num_training_steps
+RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 2, 6, 3
+
+
+def pretrain_corpus(directory, seed, vocab, eos, documents=PRETRAIN_DOCUMENTS):
+    """A seeded megatron corpus (uint16) of `documents` documents of 200-2000 tokens, each
+    closed by EOS; the other ids are drawn from a Zipf law over the vocabulary (p ∝ 1/id),
+    so the loss can fall within a few steps (a uniform corpus sits at ln V). Returns the
+    prefix, the documents and the tokens."""
+    import numpy as np
+
+    from dolomite_engine_tpu_torch.data.megatron import MMapIndexedDatasetBuilder
+
+    rs = np.random.RandomState(seed)
+    ids = np.arange(1, vocab)
+    ids = ids[ids != eos]
+    p = 1.0 / ids
+    p /= p.sum()
+    lengths = rs.randint(200, 2001, documents)
+    stream = rs.choice(ids, size=int(lengths.sum()), p=p).astype(np.uint16)
+    prefix = os.path.join(directory, "corpus")
+    builder = MMapIndexedDatasetBuilder(prefix + ".bin", dtype=np.uint16)
+    start = 0
+    for length in lengths:
+        doc = stream[start : start + length]
+        doc[-1] = eos
+        builder.add_item(doc)
+        builder.end_document()
+        start += length
+    builder.finalize(prefix + ".idx")
+    return prefix, documents, int(lengths.sum())
+
+
+def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, load_path=None, decay_steps=None, rehearsal=None):
+    """The granite YAML (`PRETRAIN_YAML`) through the port's `load_yaml`, with the one-card
+    cuts: the corpus and a cache next to it, no tokenizer, one device at stage 0, remat of
+    every block under the full policy, micro batch 1 x accumulation 2, `steps` steps with 2
+    of warm-up and eval every 4, a save at the last step (the optimizer only if
+    `save_optimizer`), and `n_layer` layers when given. `rehearsal` (the CPU's run of this
+    script's control flow) overrides model widths and the sequence."""
+    from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
+    from dolomite_engine_tpu_torch.utils import load_yaml
+
+    config = load_yaml(PRETRAIN_YAML)
+    class_args = config["datasets"][0]["class_args"]
+    class_args.update(data_path=[corpus], data_cache_path=os.path.join(os.path.dirname(corpus), "cache"))
+    config["tokenizer_args"] = {}
+    config["distributed_args"] = {
+        "stage": 0, "gradient_checkpointing_method": "block", "gradient_checkpointing_args": TRAIN_REMAT,
+    }
+    config["training_parameters"].update(
+        micro_batch_size=1, gradient_accumulation_steps=2, num_training_steps=steps, eval_interval=PRETRAIN_EVAL_INTERVAL,
+    )
+    config["lr_scheduler_args"]["num_warmup_steps"] = PRETRAIN_WARMUP
+    if decay_steps is not None:
+        config["lr_scheduler_args"]["num_decay_steps"] = decay_steps
+    config["save_args"].update(save_path=save_path, save_interval=steps, save_optimizer=save_optimizer)
+    model = config["model_args"]["pretrained_config"]
+    if n_layer is not None:
+        model["n_layer"] = n_layer
+    if rehearsal is not None:
+        model.update(rehearsal["model"])
+        class_args["sequence_length"] = rehearsal["sequence_length"]
+    if load_path is not None:
+        config["load_args"] = {"load_path": load_path}
+    return args_from_dict(config, Mode.training)
+
+
+def _hashing_loaders(digests):
+    """`get_megatron_gpt_dataloaders` whose train loader appends each micro-batch's sha256 to
+    `digests` (in the prefetch worker, as the loop draws them)."""
+    import hashlib
+
+    from dolomite_engine_tpu_torch.data.megatron import get_megatron_gpt_dataloaders
+
+    def build(*args, **kwargs):
+        train, val, test = get_megatron_gpt_dataloaders(*args, **kwargs)
+
+        def hashed():
+            for micro in train:
+                digests.append(hashlib.sha256(micro["text"].numpy().tobytes()).hexdigest())
+                yield micro
+
+        return hashed(), val, test
+
+    return build
+
+
+def _run_pretrain(args, device, digests=None):
+    from dolomite_engine_tpu_torch import pretrain
+
+    build = pretrain.get_megatron_gpt_dataloaders
+    if digests is not None:
+        pretrain.get_megatron_gpt_dataloaders = _hashing_loaders(digests)
+    summary = pretrain.main(args, device=device)
+    pretrain.get_megatron_gpt_dataloaders = build
+    return summary
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path) for f in files)
+
+
+def pretrain_phase(seed, device="cuda", rehearsal=None):
+    """Phase 12: `pretrain.main` on granite-3b-code at all 32 layers over a seeded corpus,
+    the launch counts zeroed just before and read just after, then the resume check at 2
+    layers. `rehearsal` (the CPU only) cuts the widths to rehearse the control flow."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.train_utils import get_model_tflops
+
+    on_card = torch.device(device).type == "cuda"
+    record = {"yaml": PRETRAIN_YAML}
+    with tempfile.TemporaryDirectory(prefix="dolomite-pretrain-") as work:
+        t0 = time.perf_counter()
+        probe = pretrain_args(os.path.join(work, "corpus"), "unused", PRETRAIN_STEPS, rehearsal=rehearsal)
+        model_config = probe.model_args.pretrained_config
+        corpus, documents, tokens = pretrain_corpus(work, seed, model_config["vocab_size"], model_config["eos_token_id"])
+        record["corpus"] = {"documents": documents, "tokens": tokens, "dtype": "uint16", "build_s": time.perf_counter() - t0}
+
+        # the 32-layer run: one save of the fp32 weights at step 8
+        save_path = os.path.join(work, "run")
+        args = pretrain_args(corpus, save_path, PRETRAIN_STEPS, rehearsal=rehearsal)
+        from dolomite_engine_tpu_torch.models import CommonConfig
+
+        config = CommonConfig.from_dict(args.model_args.pretrained_config)
+        # the fp32 weights: embedding, and a layer's fused QKV, projections, GLU MLP and norms
+        kv_width = config.num_key_value_heads * config.n_embd // config.n_head
+        layer = config.n_embd * (config.n_embd + 2 * kv_width) + config.n_embd**2 + 3 * config.n_embd * config.n_inner
+        need = 4 * (config.vocab_size * config.n_embd + config.n_layer * (layer + 2 * config.n_embd)) * 1.1
+        free = shutil.disk_usage(work).free
+        if free < need:
+            raise RuntimeError(
+                f"{work} has {free / 1e9:.1f} GB free; the step-{PRETRAIN_STEPS} checkpoint of the fp32 "
+                f"weights needs about {need / 1e9:.1f} GB: point TMPDIR at a larger disk"
+            )
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        summary = _run_pretrain(args, device)
+        launches = {k.name: k.launches for k in KERNELS}
+        forms = form_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+        steps = summary["steps"]
+        losses = [s["loss"] for s in steps]
+        assert [s["step"] for s in steps] == list(range(1, PRETRAIN_STEPS + 1)), steps
+        assert all(np.isfinite(losses)) and not any(s["skipped"] for s in steps), steps
+        assert losses[-1] < losses[0], f"the loss did not fall over the corpus: {losses}"
+        # per training micro-batch as in phase 6 (remat of every block); per eval batch, one
+        # forward: rmsnorm 2L + 1, rope L, flash forward L, fused_ce a 256-token chunk. Eval
+        # runs eval_steps batches at step 0 and every eval_interval steps, and on the test
+        # split at the end
+        layers, micro_batches = config.n_layer, 2 * PRETRAIN_STEPS
+        eval_steps = args.datasets[0].class_args["eval_steps"]
+        eval_batches = eval_steps * (1 + PRETRAIN_STEPS // PRETRAIN_EVAL_INTERVAL) + eval_steps
+        seq = args.datasets[0].class_args["sequence_length"]
+        chunks = -(-seq // config.loss_chunk_size)
+        expected = {spec.name: 0 for spec in KERNELS}
+        expected.update(
+            rmsnorm=(4 * layers + 1) * micro_batches + (2 * layers + 1) * eval_batches,
+            rope_qkv=3 * layers * micro_batches + layers * eval_batches,
+            flash_attn_fwd=2 * layers * micro_batches + layers * eval_batches,
+            flash_attn_bwd=layers * micro_batches,
+            fused_ce=chunks * (micro_batches + eval_batches),
+        )
+        if on_card:  # on the CPU (a rehearsal) the plain versions run
+            assert launches == expected, (launches, expected)
+            assert forms == {"rope_qkv:flat": expected["rope_qkv"]}, forms
+
+        sink = [json.loads(line) for line in open(os.path.join(save_path, "telemetry", "rank-00000.jsonl"))]
+        windows = [r for r in sink if r["kind"] == "window"]
+        assert [w["step"] for w in windows] == list(range(1, PRETRAIN_STEPS + 1)), [w["step"] for w in windows]
+        steady = windows[1:]  # the first step is the warm-up's compile bucket
+        wall = sum(w["window_seconds"] for w in steady)
+        checkpoint_dir = os.path.join(save_path, f"global_step{PRETRAIN_STEPS}")
+        with open(os.path.join(save_path, "latest_checkpointed_iteration.json")) as f:
+            assert json.load(f)["latest_checkpointed_iteration"] == PRETRAIN_STEPS
+        with open(os.path.join(checkpoint_dir, "metadata.json")) as f:
+            consumed = json.load(f)["consumed_samples"]
+        assert consumed == 2 * PRETRAIN_STEPS, consumed
+        checkpoint_bytes = _dir_bytes(checkpoint_dir)
+        save_s = windows[-1]["goodput"]["checkpoint"]
+        mean_step = sum(s["step_seconds"] for s in steps[1:]) / (len(steps) - 1)
+        tflops = get_model_tflops(config, 2, seq, "block", TRAIN_REMAT)
+        record.update(
+            model={
+                "model_type": config.model_type, "n_layer": config.n_layer, "n_embd": config.n_embd,
+                "n_head": config.n_head, "vocab_size": config.vocab_size, "weights": "random",
+                "param_dtype": "float32", "compute_dtype": "bfloat16",
+            },
+            seed=seed, micro_batch=1, accumulation=2, seq=seq, steps=PRETRAIN_STEPS,
+            losses=losses, grad_norms=[s["grad_norm"] for s in steps], lrs=[s["lr"] for s in steps],
+            step_s=[s["step_seconds"] for s in steps], data_wait_s=[s["data_seconds"] for s in steps],
+            mean_step_s_after_warmup=mean_step, tokens_per_s=2 * seq / mean_step,
+            model_tflops_per_step=tflops, mfu=tflops / mean_step / (PEAK_FLOPS["bfloat16"] / 1e12),
+            telemetry_mfu_pct=[w["mfu_pct"] for w in windows],
+            goodput_windows=[{"at_step": w["step"], "window_s": w["window_seconds"], **w["goodput"]} for w in windows],
+            steady_shares={
+                bucket: sum(w["goodput"][bucket] for w in steady) / wall
+                for bucket in ("data", "step", "eval", "checkpoint", "other")
+            },
+            val_losses=summary["val_losses"], test_loss=summary["test_loss"],
+            checkpoint={
+                "step": PRETRAIN_STEPS, "bytes": checkpoint_bytes, "save_s": save_s,
+                "save_gb_per_s": checkpoint_bytes / 1e9 / save_s,
+                "async_commit_s": summary["checkpoint_commit_seconds"],
+                "write_gb_per_s": checkpoint_bytes / 1e9 / (save_s + summary["checkpoint_commit_seconds"]),
+                "consumed_samples": consumed, "optimizer": False,
+            },
+            peak_memory_gb=peak_gb, launches=launches, expected_launches=expected, launch_forms=forms,
+        )
+        shutil.rmtree(save_path)  # the 32-layer checkpoint's disk, before the resume check's
+
+        # the resume check at 2 layers, the optimizer saved
+        def resume_args(save_dir, steps, load_path=None):
+            return pretrain_args(
+                corpus, os.path.join(work, save_dir), steps, n_layer=RESUME_LAYERS, save_optimizer=True,
+                load_path=load_path, decay_steps=RESUME_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
+            )
+
+        unbroken_digests, first_digests, resumed_digests = [], [], []
+        t0 = time.perf_counter()
+        unbroken = _run_pretrain(resume_args("unbroken", RESUME_STEPS), device, unbroken_digests)
+        _run_pretrain(resume_args("broken", RESUME_AT), device, first_digests)
+        broken = os.path.join(work, "broken")
+        resumed = _run_pretrain(resume_args("broken", RESUME_STEPS, load_path=broken), device, resumed_digests)
+        resume_s = time.perf_counter() - t0
+
+        def consumed_at(save_dir):
+            with open(os.path.join(work, save_dir, f"global_step{RESUME_STEPS}", "metadata.json")) as f:
+                return json.load(f)["consumed_samples"]
+
+        tail = [(s["step"], s["loss"], s["grad_norm"]) for s in unbroken["steps"][RESUME_AT:]]
+        got = [(s["step"], s["loss"], s["grad_norm"]) for s in resumed["steps"]]
+        micros = 2 * (RESUME_STEPS - RESUME_AT)
+        check = {
+            "n_layer": RESUME_LAYERS, "steps": RESUME_STEPS, "resumed_at": RESUME_AT,
+            "unbroken": tail, "resumed": got,
+            "batches_identical": resumed_digests[:micros] == unbroken_digests[2 * RESUME_AT : 2 * RESUME_AT + micros],
+            "first_run_batches_are_the_unbroken_runs": first_digests[: 2 * RESUME_AT] == unbroken_digests[: 2 * RESUME_AT],
+            "consumed_samples": [consumed_at("unbroken"), consumed_at("broken")],
+            "bit_identical": got == tail,
+            "max_abs_loss_diff": max(abs(a[1] - b[1]) for a, b in zip(got, tail)),
+            "max_abs_grad_norm_diff": max(abs(a[2] - b[2]) for a, b in zip(got, tail)),
+            "seconds": resume_s,
+            "tolerance": "bit-identical losses and grad norms of steps 4-6; identical batches and consumed_samples",
+        }
+        assert check["batches_identical"] and check["first_run_batches_are_the_unbroken_runs"], check
+        assert check["consumed_samples"] == [2 * RESUME_STEPS] * 2, check
+        assert check["bit_identical"], check
+        record["resume_check"] = check
+    return record, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2347,6 +2627,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    pretrain, pretrain_launches = pretrain_phase(args.seed)
+    # the same model, shape and cuts as phase 6's repeated batch, through the entry point
+    pretrain["vs_training_phase"] = {
+        "training_mean_step_s_after_warmup": training["mean_step_s_after_warmup"],
+        "ratio": pretrain["mean_step_s_after_warmup"] / training["mean_step_s_after_warmup"],
+    }
+    print(json.dumps({"pretrain": pretrain, "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     moe_serving, moe_serving_launches, model, specs, tokens = serve(args.seed, MOE_EP)
     moe_serving["launches_per_forward"] = launches_per_forward(model)
     print(json.dumps({"moe_serving": moe_serving, "card": card}), flush=True)
@@ -2388,6 +2678,7 @@ def main() -> int:
     records = {
         "serving": serving, "training": training, "moe_serving": moe_serving, "moe_training": moe_training,
         "quantized_serving": {"launch_forms": quantized_forms}, "alibi_training": alibi_training,
+        "pretrain": pretrain,
     }
 
     def summary(case_list):
@@ -2409,6 +2700,7 @@ def main() -> int:
             "serving": serving_launches[spec.name], "training": training_launches[spec.name],
             "moe_serving": moe_serving_launches[spec.name], "moe_training": moe_training_launches[spec.name],
             "quantized_serving": quantized_launches[spec.name], "alibi_training": alibi_training_launches[spec.name],
+            "pretrain": pretrain_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

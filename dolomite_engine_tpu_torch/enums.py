@@ -3,6 +3,61 @@
 from enum import Enum
 
 
+class Mode(Enum):
+    training = "training"
+    inference = "inference"
+    unsharding = "unsharding"
+
+
+class TuningMethod(Enum):
+    pretraining = "pretraining"
+    full_finetuning = "full_finetuning"
+    prompt_tuning = "prompt_tuning"
+    lora = "lora"
+
+
+class LossMask(Enum):
+    output_only = "output_only"
+    no_mask = "no_mask"
+
+
+class DistributedBackend(Enum):
+    """The YAML's backend names; the port runs one process and accepts every name."""
+
+    jax = "jax"
+    torch = "torch"
+    deepspeed = "deepspeed"
+
+
+class FP8Backend(Enum):
+    msamp = "msamp"
+    nvte = "nvte"
+
+
+class GradientCheckpointingMethod(Enum):
+    """`block` = rematerialize every k-th transformer block."""
+
+    block = "block"
+
+
+class ExperimentsTrackerName(Enum):
+    aim = "aim"
+    wandb = "wandb"
+
+
+class KernelBackend(Enum):
+    """The YAML's per-family kernel choice. The port has no backend switch: the tensor's
+    device decides, so it accepts only ``auto``."""
+
+    xla = "xla"
+    pallas = "pallas"
+    auto = "auto"
+
+
+# MoE compute-path names (configs also accept None and the reference spelling "scattermoe")
+MOE_IMPLEMENTATIONS = ("scattermoe", "scatter", "eager", "auto")
+
+
 class AttentionImplementation(Enum):
     """``eager``: explicit QK^T softmax V with an fp32 softmax; ``sdpa``: the same
     computation (the JAX package's XLA-fused path); ``flash_attention_2``: the causal /

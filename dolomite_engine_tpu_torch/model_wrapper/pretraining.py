@@ -42,6 +42,7 @@ class ModelWrapperForPretraining:
             else config_from_dict(pretrained_config)
         )
         self.dtype = string_to_dtype(dtype)
+        self.tokenizer = None  # optional: pretraining reads token ids (`get_model` loads one)
         self.reset_attention_mask = reset_attention_mask
         self.reset_position_ids = reset_position_ids
         self.checkpoint_every, self.checkpoint_policy = resolve_checkpointing_args(

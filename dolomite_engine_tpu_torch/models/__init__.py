@@ -7,7 +7,13 @@ an unknown type raises `ValueError`.
 """
 
 from .config import CommonConfig, MoEConfig
-from .gpt_dolomite import CausalLMOutput, GPTDolomiteForCausalLM, GPTDolomiteModel, load_jax_params
+from .gpt_dolomite import (
+    CausalLMOutput,
+    GPTDolomiteForCausalLM,
+    GPTDolomiteModel,
+    load_jax_params,
+    load_jax_train_state,
+)
 from .moe_dolomite import MoEDolomiteForCausalLM, MoEDolomiteModel
 
 _CONFIG_CLASSES: dict[str, type] = {

@@ -346,6 +346,32 @@ def _jax_module_params(params: Mapping, model: GPTDolomiteForCausalLM):
         yield params["lm_head"], model.lm_head
 
 
+def _jax_leaves(params: Mapping, model: GPTDolomiteForCausalLM):
+    """(flax name, array in the torch layout, torch tensor) for every leaf of a tree shaped
+    like the unrolled JAX params (the params, or optax's moments of them): flax ``[in,
+    out]`` linear kernels transposed to torch's ``[out, in]``; expert banks (3-D ``[E, in,
+    out]``, the grouped GEMM's layout) and their ``[E, out]`` biases as they are. A shape
+    that does not match raises."""
+    if "params" in params:
+        params = params["params"]
+    names = {"kernel": "weight", "embedding": "weight", "weight": "weight", "bias": "bias"}
+    for tree, module in _jax_module_params(params, model):
+        for flax_name, value in tree.items():
+            target = getattr(module, names.get(flax_name, flax_name), None)
+            if target is None:
+                raise KeyError(f"unexpected parameter {flax_name!r} for {type(module).__name__}")
+            # float32 first: numpy cannot hand bfloat16 (optax's bf16 first moment) to torch
+            array = np.asarray(value).astype(np.float32)
+            if flax_name == "kernel" and array.ndim == 2:
+                array = array.T
+            if tuple(array.shape) != tuple(target.shape):
+                raise ValueError(
+                    f"{flax_name} of {type(module).__name__}: shape {array.shape} does not "
+                    f"match {tuple(target.shape)}"
+                )
+            yield flax_name, array, target
+
+
 @torch.no_grad()
 def load_jax_params(
     model: GPTDolomiteForCausalLM, params_np: Mapping, device: str | torch.device = "cuda"
@@ -359,21 +385,35 @@ def load_jax_params(
     ``[E, out]`` biases are copied as they are; a bank in another layout fails the shape
     check. The caller converts JAX arrays with ``np.asarray``; this imports no JAX."""
     model.to(resolve_device(device))
-    if "params" in params_np:
-        params_np = params_np["params"]
-    for tree, module in _jax_module_params(params_np, model):
-        names = {"kernel": "weight", "embedding": "weight", "weight": "weight", "bias": "bias"}
-        for flax_name, value in tree.items():
-            target = getattr(module, names.get(flax_name, flax_name), None)
-            if target is None:
-                raise KeyError(f"unexpected parameter {flax_name!r} for {type(module).__name__}")
-            array = np.asarray(value)
-            if flax_name == "kernel" and array.ndim == 2:
-                array = array.T
-            if tuple(array.shape) != tuple(target.shape):
-                raise ValueError(
-                    f"{flax_name} of {type(module).__name__}: shape {array.shape} does not "
-                    f"match {tuple(target.shape)}"
-                )
-            target.copy_(torch.from_numpy(np.array(array)))  # a writable copy
+    for _, array, target in _jax_leaves(params_np, model):
+        target.copy_(torch.from_numpy(np.ascontiguousarray(array)))
     return model
+
+
+@torch.no_grad()
+def load_jax_train_state(state, jax_state) -> None:
+    """Continue a JAX training run in the port: fill `state` (the port's `TrainState`: its
+    model and `TorchAdamW`) from the JAX package's `TrainState` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``): the step, the params, and the optax AdamW
+    state, found by its fields: the `ScaleByAdamState` (``count``, ``mu``, ``nu``: the
+    bias correction's counter and the moments, the first in its `mu_dtype`) and the
+    `ScaleByScheduleState` (``count``: the schedule's). The model stays on its device."""
+    model = state.model
+    index = {id(p): i for i, p in enumerate(state.optimizer.params)}
+    adam = schedule = None
+    for entry in jax_state.opt_state:
+        fields = getattr(entry, "_fields", ())
+        if {"count", "mu", "nu"} <= set(fields):
+            adam = entry
+        elif fields == ("count",):
+            schedule = entry
+    if adam is None or schedule is None:
+        raise ValueError("the optimizer state holds no AdamW moments and schedule counter")
+    for _, array, target in _jax_leaves(jax_state.params, model):
+        target.copy_(torch.from_numpy(np.ascontiguousarray(array)))
+    for moments, tree in ((state.optimizer.mu, adam.mu), (state.optimizer.nu, adam.nu)):
+        for _, array, target in _jax_leaves(tree, model):
+            moments[index[id(target)]].copy_(torch.from_numpy(np.ascontiguousarray(array)))
+    state.step = int(jax_state.step)
+    state.optimizer.count = int(adam.count)
+    state.optimizer.schedule_count = int(schedule.count)

@@ -37,8 +37,12 @@ _GROUP_BYTES = 1 << 29  # fp32 bytes of parameters updated per foreach group
 class TorchAdamW:
     """optax ``adamw(lr_schedule, b1, b2, eps, weight_decay, mu_dtype)`` over `params`.
 
-    `lr_schedule(count)` gives the lr of the update that follows `count` applied updates
-    (count starts at 0). `lr_multipliers` scale the lr per parameter (µP groups)."""
+    Two counters, as optax's state has: `count` (``ScaleByAdamState.count``, the bias
+    correction's) and `schedule_count` (``ScaleByScheduleState.count``): the update that
+    follows `schedule_count` scheduled updates takes ``lr_schedule(schedule_count)``. Both
+    start at 0 and advance together; a resume without the learning rate zeroes only the
+    schedule's (`checkpointing.load_checkpoint_for_training`). `lr_multipliers` scale the
+    lr per parameter (µP groups)."""
 
     def __init__(
         self,
@@ -59,6 +63,7 @@ class TorchAdamW:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.schedule_count = 0
         multipliers = [1.0] * len(self.params) if lr_multipliers is None else list(lr_multipliers)
         self._groups = self._make_groups(multipliers)
 
@@ -83,7 +88,8 @@ class TorchAdamW:
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> None:
         """Apply one update with fp32 `grads` (one per parameter, in order)."""
-        lr = float(self.lr_schedule(self.count))
+        lr = float(self.lr_schedule(self.schedule_count))
+        self.schedule_count += 1
         self.count += 1
         bias1 = 1 - self.b1**self.count
         bias2 = 1 - self.b2**self.count
@@ -115,6 +121,22 @@ class TorchAdamW:
             torch._foreach_add_(params, update)
             for m, new in zip(mu, m32):
                 m.copy_(new)  # rounded to the moment's storage dtype after use
+
+
+    def state_dict(self) -> dict:
+        """The moments (in their storage dtypes, in parameter order) and both counters."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count, "schedule_count": self.schedule_count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict` (or one restored from a checkpoint) into this optimizer."""
+        for name in ("mu", "nu"):
+            if len(state[name]) != len(self.params):
+                raise ValueError(f"{name} holds {len(state[name])} tensors for {len(self.params)} parameters")
+            for live, saved in zip(getattr(self, name), state[name]):
+                live.copy_(saved)
+        self.count = int(state["count"])
+        self.schedule_count = int(state["schedule_count"])
 
 
 def mup_lr_multipliers(named_params: Iterable[tuple[str, nn.Parameter]], m_width: float) -> list[float]:
@@ -161,3 +183,30 @@ def get_optimizer(
         mu_dtype=args.get("mu_dtype"),
         lr_multipliers=multipliers,
     )
+
+
+def build_optimizer_from_args(args, model) -> tuple[TorchAdamW, Callable[[int], float]]:
+    """(optimizer, lr schedule) from `TrainingArgs` over a model wrapper's parameters (the
+    JAX package's `finetune.build_optimizer_from_args`)."""
+    from .scheduler import get_scheduler
+
+    lr_scheduler_args = args.lr_scheduler_args
+    lr_schedule = get_scheduler(
+        num_warmup_steps=lr_scheduler_args.num_warmup_steps,
+        num_constant_steps=lr_scheduler_args.num_constant_steps,
+        num_decay_steps=lr_scheduler_args.num_decay_steps,
+        num_training_steps=args.training_parameters.num_training_steps,
+        lr_decay_style=lr_scheduler_args.lr_decay_style,
+        lr_decay_factor=lr_scheduler_args.lr_decay_factor,
+        extra_lr_scheduler_args=lr_scheduler_args.extra_lr_scheduler_args,
+        base_lr=args.optimizer_args.class_args.get("lr", 1e-5),
+    )
+    optimizer = get_optimizer(
+        optimizer_class_name=args.optimizer_args.class_name,
+        optimizer_class_args=args.optimizer_args.class_args,
+        lr_schedule=lr_schedule,
+        named_params=model.model.named_parameters(),
+        params_group_method=args.optimizer_args.params_group_method,
+        model_config=model.config,
+    )
+    return optimizer, lr_schedule

@@ -9,6 +9,9 @@ then released, so one model's worth of gradients is live, as in the JAX program.
 
 from __future__ import annotations
 
+import logging
+import os
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable
 
@@ -17,6 +20,7 @@ from torch import nn
 
 from .ops.activations import is_glu
 from .optimization.optimizer import TorchAdamW
+from .utils import get_telemetry, log_rank_0
 
 
 @dataclass
@@ -27,6 +31,32 @@ class TrainState:
     model: nn.Module
     optimizer: TorchAdamW
     step: int = 0
+
+    def state_dict(self, with_optimizer: bool = True) -> dict:
+        """The checkpoint's tree, all tensors: the step, the model's state by name and,
+        `with_optimizer`, the AdamW moments by parameter name (in their storage dtypes)
+        and both of its counters. The model's and the moments' tensors are the live ones,
+        so a restore into this tree writes the state in place; `load_state_dict` then takes
+        the counters back."""
+        tree = {"step": torch.tensor(self.step), "model": self.model.state_dict()}
+        if with_optimizer:
+            names = [name for name, _ in self.model.named_parameters()]
+            state = self.optimizer.state_dict()
+            tree["optimizer"] = {
+                "mu": dict(zip(names, state["mu"], strict=True)),
+                "nu": dict(zip(names, state["nu"], strict=True)),
+                "count": torch.tensor(state["count"]),
+                "schedule_count": torch.tensor(state["schedule_count"]),
+            }
+        return tree
+
+    def load_state_dict(self, tree: dict) -> None:
+        """Take the step and the optimizer's counters from a restored `state_dict` tree
+        (its tensors were restored in place)."""
+        self.step = int(tree["step"])
+        if "optimizer" in tree:
+            self.optimizer.count = int(tree["optimizer"]["count"])
+            self.optimizer.schedule_count = int(tree["optimizer"]["schedule_count"])
 
 
 def clip_grad_norm(grads: list[torch.Tensor], max_norm: float | None):
@@ -115,6 +145,78 @@ def make_train_step(
         return metrics
 
     return train_step
+
+
+def handle_nonfinite_step(skipped: bool, consecutive: int, global_step: int, max_consecutive: int) -> int:
+    """Host-side consecutive-skip accounting of the train loop (the JAX package's).
+
+    Returns the updated consecutive-skip count; raises RuntimeError once `max_consecutive`
+    non-finite steps occur back to back."""
+    if not skipped:
+        return 0
+    consecutive += 1
+    get_telemetry().count("nan_skips", event=True, step=global_step)
+    log_rank_0(
+        logging.WARNING,
+        f"non-finite loss/grad-norm at step {global_step}: optimizer update skipped "
+        f"({consecutive} consecutive, abort at {max_consecutive})",
+    )
+    if consecutive >= max_consecutive:
+        raise RuntimeError(
+            f"aborting: {consecutive} consecutive non-finite training steps (threshold "
+            f"fault_tolerance_args.max_consecutive_nonfinite_steps={max_consecutive}) — "
+            "loss has diverged or a data shard is poisoned; resume from the last "
+            "checkpoint with a lower LR or different data skip"
+        )
+    return consecutive
+
+
+def track_train_metrics(
+    global_step: int,
+    train_loss_step: float,
+    grad_norm: float,
+    current_lr: float,
+    experiments_tracker,
+    loss_running_mean: float,
+    flops: float | None = None,
+    billion_tokens_per_day: float | None = None,
+    step_time: float | None = None,
+    mfu: float | None = None,
+) -> None:
+    """Log (and track) one step's metrics under the JAX package's names."""
+    metrics = {"loss_step": train_loss_step, "loss_running_mean": loss_running_mean, "learning_rate": current_lr}
+    if grad_norm is not None:
+        metrics["grad_norm"] = grad_norm
+    if flops is not None:
+        metrics["FLOPS"] = flops
+    if mfu is not None:
+        metrics["MFU (%)"] = mfu
+    if billion_tokens_per_day is not None:
+        metrics["throughput (B tokens/day)"] = billion_tokens_per_day
+    if step_time is not None:
+        metrics["step time (sec)"] = step_time
+    if experiments_tracker is not None:
+        experiments_tracker.track(metrics, step=global_step, context="train")
+    message = f"step = {global_step}, " + ", ".join(
+        f"{k} = {v:.4g}" if isinstance(v, float) else f"{k} = {v}" for k, v in metrics.items()
+    )
+    log_rank_0(logging.INFO, message)
+
+
+def get_profiler_context(trace_path: str | None, global_step: int, wait: int = 5, active: int = 1):
+    """A `torch.profiler` trace of the absolute global steps (wait, wait + active], as the
+    JAX package schedules its trace: each such step is written as a Chrome trace
+    ``<trace_path>/step<N>.json``; a run resumed past the window traces nothing."""
+    if trace_path is None or not wait < global_step <= wait + active:
+        return nullcontext()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_path, exist_ok=True)
+    return torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=lambda prof: prof.export_chrome_trace(os.path.join(trace_path, f"step{global_step}.json")),
+    )
 
 
 def resolve_checkpointing_args(

@@ -23,3 +23,18 @@ def string_to_dtype(dtype: str | torch.dtype | None) -> torch.dtype | None:
     if dtype not in _STR_TO_DTYPE:
         raise ValueError(f"unexpected dtype '{dtype}'")
     return _STR_TO_DTYPE[dtype]
+
+
+# the canonical name of each spelling, as `normalize_dtype_string` in the JAX package
+_CANONICAL = {
+    "fp32": "fp32", "float32": "fp32", "fp16": "fp16", "float16": "fp16",
+    "bf16": "bf16", "bfloat16": "bf16", "fp8": "fp8",
+}
+
+
+def normalize_dtype_string(dtype: str) -> str:
+    """"bfloat16" -> "bf16" and so on; "fp8" stays a valid name (the args parse it, and
+    training refuses it)."""
+    if dtype not in _CANONICAL:
+        raise ValueError(f"unexpected dtype '{dtype}'")
+    return _CANONICAL[dtype]
