@@ -71,6 +71,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    be finite and fall. Then the resume check at 2 layers with the optimizer saved: 6 steps
    unbroken against 3 steps, a save and a resumed `main` to step 6; the batches of steps
    4-6 (hashed), `consumed_samples` and the losses and grad norms must be identical.
+   The run names a word-level tokenizer it builds (`word_tokenizer`);
+13. ``generate`` (inside phase 12, before its 32-layer checkpoint is removed): the
+   generation entry point, `dolomite_engine_tpu_torch.generate.main`, on
+   `configs/generation.yml` loaded through `load_yaml` with the run's cuts
+   (`generation_args`) from that checkpoint: 32 prompts (the first 200-1024 tokens of
+   corpus documents, as the tokenizer's words), 512 sampled new tokens, with the paged
+   engine and then the dense slot pool; each jsonl must hold 32 lines within
+   max_new_tokens in the vocabulary. Then 16 of the prompts greedy, 64 new tokens, three
+   ways (the paged engine, the dense pool, `ModelWrapper.generate`), their agreement,
+   one request's dense-path logits against the plain forward, launch counts zeroed
+   before the first run and read after the last, asserted exactly, and a decode step's
+   launches for each engine with 16 slots decoding;
+14. ``alibi_generation`` (last): MPT-7B's widths at 16 layers, random weights, 8 greedy
+   requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
+   bias form) and the paged engine (the gathered path), launch counts asserted, the
+   engines' agreement and the dense path's logits against the plain forward.
 
 The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
 at both models' decode and prefill windows over bf16, int8 and fp8 pools, one launch a
@@ -85,7 +101,9 @@ form's cases (causal alibi over packed documents at the alibi slice's layer shap
 causal form without a bias on the same inputs, non-causal with and without the bias,
 alibi over a left-padded batch) and the fused_ce cases (a loss chunk of each training path,
 a ragged vocabulary and small edge shapes; cuBLAS's bare product as ``gemm_ms``; two
-launches must give the same bits) run in phase 2. Each case reports ``kernel_ms`` (CUDA
+launches must give the same bits) and the generation paths' forms (`generation_kernel_cases`:
+flash over right- and left-padded masks and the bias form over a right-padded one, every
+row finite; flat rope at a dense decode step with per-row positions) run in phase 2. Each case reports ``kernel_ms`` (CUDA
 events around back-to-back calls, host enqueue included) and ``device_ms`` (the same
 calls queued behind a sleep kernel, so the card runs them without waiting for the host).
 
@@ -93,7 +111,8 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``serving``, ``profile``, ``quantized_check``, ``paged_write_check``, ``training_check``, ``training``,
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
-``alibi_training_check``, ``alibi_training``, ``alibi_training_profile`` and ``pretrain`` lines
+``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
+``generate`` and ``alibi_generation`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
 times under ``forms``), the card again, and last
@@ -1820,6 +1839,116 @@ def alibi_kernel_cases(seed):
     return cases
 
 
+def padding_segments(lengths, seq, side):
+    """[len(lengths), seq] int32 segment ids of a padding mask: each row's `lengths[b]`
+    real tokens are 1 and its padding 0, on the right (the dense engine's prefill:
+    ``1..1 0..0``) or on the left (`generate_tokens`' prompts: ``0..0 1..1``), as
+    `ops/attention.attention` rewrites a key padding mask for the flash kernel."""
+    import torch
+
+    seg = torch.zeros((len(lengths), seq), dtype=torch.int32, device="cuda")
+    for row, length in enumerate(lengths):
+        seg[row, :length] = 1
+    return seg if side == "right" else seg.flip(1)
+
+
+# the generation paths' flash forms: (label, real lengths, width, padding side, alibi),
+# at granite's 32 heads of 80 (rope) and MPT-7B's 32 of 128 (alibi)
+PADDED_FLASH_FORMS = (
+    ("dense prefill, 700 of 1024 (a pad boundary inside a tile)", [700], 1024, "right", False),
+    ("dense prefill, 1 of 128 (one real token)", [1], 128, "right", False),
+    ("generate_tokens prefill, 16 rows left-padded to 1024", [1024, 1, 700, 37, 964, 513, 200, 640, 1000, 65, 127, 128, 129, 300, 800, 999], 1024, "left", False),
+    ("alibi dense prefill, 700 of 1024", [700], 1024, "right", True),
+)
+
+
+def generation_kernel_cases(seed):
+    """Phase 2, the kernel forms of the generation paths (`PADDED_FLASH_FORMS`): the flash
+    forward over padding masks rewritten to segment ids, falling (right-padded) and
+    rising (left-padded), with a pad boundary inside a 64-token tile and a bucket of one
+    real token, and the bias form under alibi over a right-padded prompt; every output
+    row finite, within the training flash cases' tolerance. Then the flat rope kernel at
+    a dense decode step, [16, 1, 7680], each row at its own position (cos / sin from the
+    model's `get_cos_sin` in bf16). Library calls: `varlen_attn` over each row's two runs
+    (as the training cases), SDPA with a materialised float mask for the bias form."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dolomite_engine_tpu_torch.ops.alibi import get_alibi_bias
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+    from dolomite_engine_tpu_torch.ops.kernels import rope_qkv
+    from dolomite_engine_tpu_torch.ops.rope import RoPEParams, get_cos_sin
+
+    cases = []
+    dtype, es = torch.bfloat16, 2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for label, lengths, seq, side, alibi in PADDED_FLASH_FORMS:
+        heads = MPT_7B["n_head"] if alibi else GRANITE_3B_CODE["n_head"]
+        hd = (MPT_7B["n_embd"] if alibi else GRANITE_3B_CODE["n_embd"]) // heads
+        batch, scale = len(lengths), hd**-0.5
+        seg = padding_segments(lengths, seq, side)
+        bias = get_alibi_bias(heads, seg, batch, seq)[:, :, 0].contiguous() if alibi else None
+        qkv = torch.randn((batch, seq, 3 * heads * hd), generator=gen, device="cuda").to(dtype)
+        q, k, v = (t.reshape(batch, seq, heads, hd) for t in qkv.split(heads * hd, dim=-1))
+        out, lse = fa.flash_attention_fwd(q, k, v, seg, scale, bias)
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias)
+        ok, err = _close(out, want, False)
+        finite = bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
+        ok = ok and finite and bool(torch.allclose(lse, want_lse, atol=1e-5, rtol=1e-5))
+        pairs = _visible_pairs(seg)
+        side_bytes = q.numel() // hd * 4 + seg.numel() * 4 + (0 if bias is None else bias.numel() * 4)
+        extra = {"visible_pairs": pairs, "computed_pairs": _computed_pairs(seg), "all_rows_finite": finite}
+        if alibi:
+            visible = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones((seq, seq), dtype=torch.bool, device="cuda").tril()
+            mask = torch.where(visible, bias[:, :, None, :] - bias[:, :, :, None], float("-inf")).to(dtype)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+            extra["library"] = "SDPA, materialised float mask"
+        else:
+            call, _, extra["library"] = _varlen_library(q, k, v, seg, scale)
+            library = None
+            if call is not None:
+
+                def library(call=call):
+                    with torch.no_grad():
+                        return call()
+
+        _record(
+            cases, fa.kernel_specs(bias, True)[0].name, f"[{batch},{seq},{heads},{hd}] {label}", dtype, err, ok,
+            "2e-2 abs + 1 bf16 ulp; every row finite",
+            lambda: fa.flash_attention_fwd(q, k, v, seg, scale, bias),
+            lambda: fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias),
+            library, (2 * q.numel() + 2 * k.numel()) * es + side_bytes, 4 * pairs * hd * heads,
+            plain_iters=5, extra=extra,
+        )
+        del qkv, q, k, v, out, want, library
+        torch.cuda.empty_cache()
+
+    # rope at a dense decode step: 16 slots, each at its own frontier
+    heads, hd = GRANITE_3B_CODE["n_head"], GRANITE_3B_CODE["n_embd"] // GRANITE_3B_CODE["n_head"]
+    positions = torch.as_tensor(np.random.RandomState(seed).randint(0, 1536, (16, 1)), device="cuda")
+    cos, sin = get_cos_sin(RoPEParams.from_config(hd, base=GRANITE_3B_CODE["rope_theta"]), positions, dtype=dtype)
+    width = 3 * heads * hd
+    qkv = torch.randn((16, 1, width), generator=gen, device="cuda").to(dtype)
+    got = rope_qkv.fused_rope_qkv(qkv, cos, sin, heads, heads, hd)
+    want = rope_qkv.fused_rope_qkv_plain(qkv, cos, sin, heads, heads, hd)
+    assert torch.equal(got[..., 2 * heads * hd :], qkv[..., 2 * heads * hd :]), "rope changed V"
+    xs = qkv.float().reshape(16, 1, -1, hd)
+    bound = 2 * _bf16_ulp((xs.abs() + xs.roll(hd // 2, -1).abs()).reshape(qkv.shape))
+    diff = (got.float() - want.float()).abs()
+    _record(
+        cases, "rope_qkv", f"[16,1,{width}] dense decode, per-row positions", dtype, diff.max().item(),
+        bool((diff <= bound).all()), "2 bf16 ulp of the larger term",
+        lambda: rope_qkv.fused_rope_qkv(qkv, cos, sin, heads, heads, hd),
+        lambda: rope_qkv.fused_rope_qkv_plain(qkv, cos, sin, heads, heads, hd),
+        None, 2 * qkv.numel() * es + 2 * cos.numel() * es, 6 * 16 * 2 * heads * hd,
+        extra={"form": "flat", "positions": positions[:, 0].tolist()},
+    )
+    torch.cuda.synchronize()
+    return cases
+
+
 def moe_kernel_cases(seed):
     """Phase 2, MoE: the grouped GEMMs against their plain versions at the MoE slice's
     shapes (32 experts, d 1024, swiglu c_fc banks [32, 1024, 8192], c_proj [32, 4096,
@@ -2318,9 +2447,10 @@ def pretrain_corpus(directory, seed, vocab, eos, documents=PRETRAIN_DOCUMENTS):
     return prefix, documents, int(lengths.sum())
 
 
-def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, load_path=None, decay_steps=None, rehearsal=None):
+def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, load_path=None, decay_steps=None, rehearsal=None, tokenizer=None):
     """The granite YAML (`PRETRAIN_YAML`) through the port's `load_yaml`, with the one-card
-    cuts: the corpus and a cache next to it, no tokenizer, one device at stage 0, remat of
+    cuts: the corpus and a cache next to it, the word-level `tokenizer` directory
+    (`word_tokenizer`) for the hub one, one device at stage 0, remat of
     every block under the full policy, micro batch 1 x accumulation 2, `steps` steps with 2
     of warm-up and eval every 4, a save at the last step (the optimizer only if
     `save_optimizer`), and `n_layer` layers when given. `rehearsal` (the CPU's run of this
@@ -2331,7 +2461,7 @@ def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, 
     config = load_yaml(PRETRAIN_YAML)
     class_args = config["datasets"][0]["class_args"]
     class_args.update(data_path=[corpus], data_cache_path=os.path.join(os.path.dirname(corpus), "cache"))
-    config["tokenizer_args"] = {}
+    config["tokenizer_args"] = {"tokenizer_name": tokenizer}
     config["distributed_args"] = {
         "stage": 0, "gradient_checkpointing_method": "block", "gradient_checkpointing_args": TRAIN_REMAT,
     }
@@ -2351,6 +2481,21 @@ def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, 
     if load_path is not None:
         config["load_args"] = {"load_path": load_path}
     return args_from_dict(config, Mode.training)
+
+
+def word_tokenizer(directory, vocab_size, eos_token_id):
+    """A word-level tokenizer over the model's ids, saved with `transformers` into
+    `directory` (the hub tokenizer the YAML names is not in the repository): the word
+    ``t<id>`` is token <id>, words split at whitespace, and ``t<eos_token_id>`` is the EOS,
+    pad and unknown token."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    eos = f"t{eos_token_id}"
+    tokenizer = Tokenizer(models.WordLevel({f"t{i}": i for i in range(vocab_size)}, unk_token=eos))
+    tokenizer.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    PreTrainedTokenizerFast(tokenizer_object=tokenizer, eos_token=eos, pad_token=eos, unk_token=eos).save_pretrained(directory)
+    return directory
 
 
 def _hashing_loaders(digests):
@@ -2388,10 +2533,12 @@ def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path) for f in files)
 
 
-def pretrain_phase(seed, device="cuda", rehearsal=None):
+def pretrain_phase(seed, device="cuda", rehearsal=None, generation=False):
     """Phase 12: `pretrain.main` on granite-3b-code at all 32 layers over a seeded corpus,
-    the launch counts zeroed just before and read just after, then the resume check at 2
-    layers. `rehearsal` (the CPU only) cuts the widths to rehearse the control flow."""
+    the launch counts zeroed just before and read just after, then, with `generation`,
+    phase 13 (`generate_phase`) from its checkpoint, and the resume check at 2 layers.
+    `rehearsal` (the CPU only) cuts the widths to rehearse the control flow. Returns the
+    record, the launch counts and phase 13's record and launch counts (or None)."""
     import shutil
     import tempfile
 
@@ -2409,10 +2556,11 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         model_config = probe.model_args.pretrained_config
         corpus, documents, tokens = pretrain_corpus(work, seed, model_config["vocab_size"], model_config["eos_token_id"])
         record["corpus"] = {"documents": documents, "tokens": tokens, "dtype": "uint16", "build_s": time.perf_counter() - t0}
+        tokenizer = word_tokenizer(os.path.join(work, "tokenizer"), model_config["vocab_size"], model_config["eos_token_id"])
 
         # the 32-layer run: one save of the fp32 weights at step 8
         save_path = os.path.join(work, "run")
-        args = pretrain_args(corpus, save_path, PRETRAIN_STEPS, rehearsal=rehearsal)
+        args = pretrain_args(corpus, save_path, PRETRAIN_STEPS, rehearsal=rehearsal, tokenizer=tokenizer)
         from dolomite_engine_tpu_torch.models import CommonConfig
 
         config = CommonConfig.from_dict(args.model_args.pretrained_config)
@@ -2502,6 +2650,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
             },
             peak_memory_gb=peak_gb, launches=launches, expected_launches=expected, launch_forms=forms,
         )
+        generated = generate_phase(save_path, corpus, config, seed, device, rehearsal) if generation else None
         shutil.rmtree(save_path)  # the 32-layer checkpoint's disk, before the resume check's
 
         # the resume check at 2 layers, the optimizer saved
@@ -2509,6 +2658,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
             return pretrain_args(
                 corpus, os.path.join(work, save_dir), steps, n_layer=RESUME_LAYERS, save_optimizer=True,
                 load_path=load_path, decay_steps=RESUME_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
+                tokenizer=tokenizer,
             )
 
         unbroken_digests, first_digests, resumed_digests = [], [], []
@@ -2542,7 +2692,427 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         assert check["consumed_samples"] == [2 * RESUME_STEPS] * 2, check
         assert check["bit_identical"], check
         record["resume_check"] = check
+    return record, launches, generated
+
+
+GENERATION_YAML = os.path.join("configs", "generation.yml")
+GENERATION_PROMPTS, GREEDY_PROMPTS, GREEDY_NEW = 32, 16, 64
+# the alibi cell: MPT-7B's widths at 16 of its 32 layers, random weights; 8 greedy requests
+# of 300-1500 prompt tokens and 64 new tokens, every dense prefill bucket a multiple of 128
+ALIBI_GENERATION_LAYERS, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET = 16, 8, 128
+
+
+def generation_prompts(directory, corpus, count, seed, longest=1024):
+    """`directory`/test.jsonl of `count` prompts, each the first 200-`longest` tokens of a
+    corpus document (at most all but its EOS), written as the word tokenizer's words; the
+    first takes `longest` tokens from the first document that long, so the engines' pools
+    are sized for the YAML's longest prompt. Returns the prompts' token ids."""
+    import numpy as np
+
+    from dolomite_engine_tpu_torch.data.megatron import MMapIndexedDataset
+
+    documents = MMapIndexedDataset(corpus)
+    rs = np.random.RandomState(seed)
+    first = next(i for i in range(len(documents)) if len(documents[i]) > longest)
+    order = [first] + [i for i in range(count) if i != first][: count - 1]
+    prompts = []
+    for n, index in enumerate(order):
+        document = documents[index]
+        length = longest if n == 0 else min(int(rs.randint(200, longest + 1)), len(document) - 1)
+        prompts.append([int(t) for t in document[:length]])
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "test.jsonl"), "w") as f:
+        for prompt in prompts:
+            f.write(json.dumps({"input": " ".join(f"t{t}" for t in prompt), "output": ""}) + "\n")
+    return prompts
+
+
+def generation_args(load_path, prompts, output_dir, paged, greedy_tokens=None, rehearsal=None):
+    """`configs/generation.yml` through the port's `load_yaml`, with the run's cuts: the
+    checkpoint at `load_path` (step `PRETRAIN_STEPS`), the `prompts` directory, the
+    `output_dir`, and ``paged_kv_cache: paged``; the rest is the YAML's (batch_size 16,
+    max_new_tokens 512, sampling at temperature 0.7 / top_p 0.95, bf16). `greedy_tokens`
+    makes the requests greedy with that many new tokens; `rehearsal` (the CPU only) cuts
+    max_new_tokens to its ``new_tokens``."""
+    from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
+    from dolomite_engine_tpu_torch.utils import load_yaml
+
+    config = load_yaml(GENERATION_YAML)
+    config["load_args"] = {"load_path": load_path, "iteration": PRETRAIN_STEPS}
+    config["datasets"][0]["class_args"]["data_path"] = prompts
+    config["output_dir"] = output_dir
+    gp = config["generation_parameters"]
+    gp["paged_kv_cache"] = paged
+    if rehearsal is not None:
+        gp["max_new_tokens"] = rehearsal["new_tokens"]
+    if greedy_tokens is not None:
+        gp.update(do_sample=False, temperature=None, top_p=None, max_new_tokens=greedy_tokens)
+    return args_from_dict(config, Mode.inference)
+
+
+def _outputs(path):
+    """The token ids of each line of an ``output-<name>.jsonl`` (the word tokenizer's words
+    back to ids) and the lines."""
+    lines = [json.loads(line) for line in open(path)]
+    return [[int(word[1:]) for word in line["generated_text"].split()] for line in lines], lines
+
+
+def _agreement(a, b):
+    """The share of (request, position) tokens two runs agree on, over each request's
+    common length."""
+    pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def _engine_record(stats, seconds, pool=None):
+    """A generation run's end-to-end figures from its engine's `EngineStats`."""
+    return {
+        "ttft_mean_s": stats.mean_ttft_s(), "prefill_tok_s": stats.prefill_tok_s(), "decode_tok_s": stats.decode_tok_s(),
+        "end_to_end_tok_s": (stats.decode_tokens + stats.completed) / seconds, "engine_s": seconds,
+        "prefill_tokens": stats.prefill_tokens, "decode_tokens": stats.decode_tokens,
+        "prefill_forwards": stats.prefill_chunks, "decode_steps": stats.decode_steps, "completed": stats.completed,
+        **({} if pool is None else {"pool_gb": pool["bytes"] / 1e9, "pool_max_len": pool["max_len"], "kv_bytes_per_token": pool["kv_bytes_per_token"]}),
+    }
+
+
+def _engine_launches(stats, config, paged, flash_prefills):
+    """The kernel launches a generation engine's run makes, from its `EngineStats`: per
+    forward (a prefill chunk or whole-prompt prefill, a decode step) rmsnorm 2L + 1 (an
+    rmsnorm model) and rope_qkv L (a rope model: the paged form over the paged pool, the
+    flat form over the dense one); the paged kernels L per decode step / prefill chunk (an
+    alibi model takes the gathered path instead, as in JAX); and over the dense pool the
+    flash forward L per prefill whose bucket is a multiple of 128 (`flash_prefills`), its
+    bias form for alibi."""
+    layers = config.n_layer
+    alibi = config.position_embedding_type == "alibi"
+    forwards = stats.decode_steps + stats.prefill_chunks
+    rope = 0 if alibi else layers * forwards
+    launches = {
+        "rmsnorm": (2 * layers + 1) * forwards if config.normalization_function == "rmsnorm" else 0,
+        "rope_qkv": rope,
+        "paged_decode_attention": layers * stats.decode_steps if paged and not alibi else 0,
+        "paged_prefill_attention": layers * stats.prefill_chunks if paged and not alibi else 0,
+        "flash_attn_bias_fwd" if alibi else "flash_attn_fwd": 0 if paged else layers * flash_prefills,
+    }
+    return launches, ({f"rope_qkv:{'paged' if paged else 'flat'}": rope} if rope else {})
+
+
+def _add(total, more):
+    for key, value in more.items():
+        total[key] = total.get(key, 0) + value
+
+
+def _buckets(lengths, multiple, max_len):
+    return [min(-(-n // multiple) * multiple, max_len) for n in lengths]
+
+
+def dense_path_logits(model, tokens, prompt_len, bucket_multiple=64):
+    """Logits at every position of `tokens` through the dense pool's path, as
+    `ServingEngine(paged=False)` runs a request: the prompt in one forward, right-padded to
+    its bucket, into a ``[1, bucket]`` cache at the python-int index 0 (the prefill fast
+    path), copied into a slot of a `SlotKVCachePool`, then one decode step per further
+    token with a per-row index."""
+    import torch
+
+    from dolomite_engine_tpu_torch.serving import SlotKVCachePool
+
+    device = model.device
+    bucket = -(-prompt_len // bucket_multiple) * bucket_multiple
+    pool = SlotKVCachePool(model, 1, bucket + len(tokens))
+    slot = pool.allocate()
+    ids = torch.zeros((1, bucket), dtype=torch.long, device=device)
+    ids[0, :prompt_len] = torch.as_tensor(tokens[:prompt_len], device=device)
+    mask = torch.zeros((1, bucket), dtype=torch.int32, device=device)
+    mask[0, :prompt_len] = 1
+    out = model(
+        ids, position_ids=torch.arange(bucket, device=device)[None], attention_mask=mask,
+        kv_caches=model.init_kv_caches(1, bucket), cache_index=0,
+    )
+    pool.write_prefill(slot, out.kv_caches, prompt_len)
+    logits = [out.logits[0, :prompt_len]]
+    for pos in range(prompt_len, len(tokens)):
+        index = torch.tensor([pos], device=device)
+        out = model(
+            torch.tensor([[tokens[pos]]], device=device), position_ids=index[:, None], kv_caches=pool.caches,
+            cache_index=index,
+        )
+        logits.append(out.logits[0])
+    return torch.cat(logits)
+
+
+def generation_logits_check(model, tokens, prompt_len, bucket_multiple=64):
+    """One request's dense-path logits (`dense_path_logits`: its prompt and 4 decode steps)
+    against a plain full-sequence forward of the same model, and both against the fp32
+    forward, with the serving phase's bf16 tolerance."""
+    import torch
+
+    ids = torch.tensor([tokens], device=model.device)
+    with torch.no_grad():
+        got = dense_path_logits(model, tokens, prompt_len, bucket_multiple).float()
+        want = plain_forward(model, ids)[0].float()
+        exact = plain_forward(model, ids, torch.float32)[0].float()
+    diff = (got - want).abs()
+    check = {
+        "positions": len(tokens), "decode_steps": len(tokens) - prompt_len, "max_abs_err": diff.max().item(),
+        "mean_abs_err": diff.mean().item(), "logit_std": want.std().item(),
+        "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+        "decode_steps_argmax_agreement": (got[prompt_len:].argmax(-1) == want[prompt_len:].argmax(-1)).float().mean().item(),
+        "kernel_path_mean_abs_err_vs_fp32": (got - exact).abs().mean().item(),
+        "plain_bf16_mean_abs_err_vs_fp32": (want - exact).abs().mean().item(),
+        "tolerance": "dense path vs plain bf16: mean abs err <= 0.1 logit std; against the fp32 forward the dense path errs at most 1.25x the plain bf16 forward",
+    }
+    assert bool(torch.isfinite(got).all()), check
+    assert check["mean_abs_err"] <= 0.1 * check["logit_std"], check
+    assert check["kernel_path_mean_abs_err_vs_fp32"] <= 1.25 * check["plain_bf16_mean_abs_err_vs_fp32"], check
+    return check
+
+
+def decode_step_launches(model, paged, num_slots, max_len, prompt_len=300):
+    """Device launches (kernels and copies, by torch.profiler), device time and host time
+    of one decode step with every slot decoding: `num_slots` greedy requests of
+    `prompt_len` tokens prefilled, then 4 profiled decode steps and 8 unprofiled ones,
+    each ending in the host fetch of its tokens."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from dolomite_engine_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(model, None, num_slots=num_slots, max_len=max_len, eos_token_id=None, paged=paged)
+    for row in range(num_slots):
+        engine.submit(list(range(1 + row, prompt_len + 1 + row)), max_new_tokens=64)
+    while engine.scheduler.queue_depth or engine.stats.decode_steps == 0 or engine.stats.prefill_tokens < num_slots * prompt_len:
+        engine.step()
+    events, _ = _profiled(lambda: [engine.step() for _ in range(4)])
+    decode = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        engine.step()
+    host_ms = (time.perf_counter() - t0) / 8 * 1e3
+    engine.drain()
+    return {
+        "decode_step": sum(e.count for e in decode) / 4,
+        "decode_step_device_ms": sum(e.self_device_time_total for e in decode) / 4 / 1e3,
+        "decode_step_host_ms": host_ms, "slots": num_slots, "max_len": max_len,
+    }
+
+
+def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=None):
+    """Phase 13 (inside phase 12, before its checkpoint is removed): the generation entry
+    point from the 32-layer pretrain checkpoint (`config`, its model). `generate.main` over
+    `configs/generation.yml` (`generation_args`) on 32 prompts, sampled, with the paged
+    engine and then the dense slot pool; then the checkpoint loaded once more
+    (`load_checkpoint_for_inference`) for 16 of the prompts, greedy, 64 new tokens, three
+    ways: `generate.generate` over the paged engine and over the dense pool, and
+    `ModelWrapper.generate` (`generate_tokens`, the batch left-padded to a multiple of 128).
+    Launch counts are zeroed just before the first run and read just after the last, and
+    asserted against each run's forwards. Then one request's dense-path logits against the
+    plain forward, and a decode step's launches for each engine with 16 slots decoding.
+    `rehearsal` (the CPU only) cuts the new tokens of every run to its ``new_tokens`` and
+    the longest prompt to its ``longest_prompt``. Returns the record and the launch
+    counts."""
+    import tempfile
+
+    import torch
+
+    from dolomite_engine_tpu_torch import generate
+    from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
+    from dolomite_engine_tpu_torch.data import collate_fn, get_datasets_list
+    from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+
+    on_card = torch.device(device).type == "cuda"
+    layers, vocab = config.n_layer, config.vocab_size
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    weight_bytes = _model_bytes(os.path.join(save_path, f"global_step{PRETRAIN_STEPS}", "state"))
+    record = {"yaml": GENERATION_YAML, "checkpoint_step": PRETRAIN_STEPS, "checkpoint_weight_gb": weight_bytes / 1e9}
+    expected, expected_forms = {spec.name: 0 for spec in KERNELS}, {}
+    greedy_new = GREEDY_NEW if rehearsal is None else rehearsal["new_tokens"]
+    longest = 1024 if rehearsal is None else rehearsal["longest_prompt"]
+    with tempfile.TemporaryDirectory(prefix="dolomite-generate-") as work:
+        prompts = generation_prompts(os.path.join(work, "prompts"), corpus, GENERATION_PROMPTS, seed, longest)
+        record["prompt_tokens"] = [len(p) for p in prompts]
+        greedy_dir = os.path.join(work, "greedy")
+        os.makedirs(greedy_dir)
+        with open(os.path.join(work, "prompts", "test.jsonl")) as f:
+            lines = f.readlines()[:GREEDY_PROMPTS]
+        with open(os.path.join(greedy_dir, "test.jsonl"), "w") as f:
+            f.writelines(lines)
+        greedy_prompts = prompts[:GREEDY_PROMPTS]
+
+        reset_launch_counts()
+        # the entry point as a user runs it: sampled, the YAML's paged engine, then the dense pool
+        for name, paged in (("paged", True), ("dense", False)):
+            args = generation_args(save_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal)
+            summary = generate.main(args, device=device)
+            max_new = args.generation_parameters.max_new_tokens
+            tokens, lines = _outputs(summary["outputs"][0])
+            assert len(lines) == GENERATION_PROMPTS == summary["requests"], (len(lines), summary["requests"])
+            assert all(0 < line["num_generated_tokens"] <= max_new for line in lines), lines
+            assert all(0 <= t < vocab for row in tokens for t in row), "a generated word outside the vocabulary"
+            buckets = _buckets(record["prompt_tokens"], args.generation_parameters.prompt_bucket_multiple, summary["pool"]["max_len"])
+            launches, forms = _engine_launches(summary["stats"], config, paged, sum(b % 128 == 0 for b in buckets))
+            _add(expected, launches)
+            _add(expected_forms, forms)
+            load_s = summary["seconds"]["load"]
+            record[f"{name}_sampled"] = {
+                "requests": summary["requests"], "generated_tokens": summary["generated_tokens"], "max_new_tokens": max_new,
+                "seconds": summary["seconds"], "checkpoint_load_s": load_s, "checkpoint_load_gb_per_s": weight_bytes / 1e9 / load_s,
+                **_engine_record(summary["stats"], summary["engine_seconds"], summary["pool"]),
+            }
+
+        # greedy, three ways, from one more load of the checkpoint
+        args = generation_args(save_path, greedy_dir, os.path.join(work, "greedy-paged"), True, greedy_new)
+        model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
+        datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
+        greedy = {}
+        for name, paged in (("paged", True), ("dense", False)):
+            args = generation_args(save_path, greedy_dir, os.path.join(work, f"greedy-{name}"), paged, greedy_new)
+            summary = generate.generate(args, model, datasets, Mode.inference)
+            greedy[name] = _outputs(summary["outputs"][0])[0]
+            buckets = _buckets([len(p) for p in greedy_prompts], args.generation_parameters.prompt_bucket_multiple, summary["pool"]["max_len"])
+            launches, forms = _engine_launches(summary["stats"], config, paged, sum(b % 128 == 0 for b in buckets))
+            _add(expected, launches)
+            _add(expected_forms, forms)
+            record[f"{name}_greedy"] = _engine_record(summary["stats"], summary["engine_seconds"], summary["pool"])
+        batch = generate._pad_to_static_shapes(
+            collate_fn([datasets[0][i] for i in range(len(datasets[0]))], Mode.inference, None, model.eos_token_id, False, False),
+            GREEDY_PROMPTS, model.eos_token_id, width_multiple=128,
+        )
+        _sync(torch.device(device))
+        t0 = time.perf_counter()
+        texts, counts = model.generate(batch, {"max_new_tokens": greedy_new, "do_sample": False})
+        _sync(torch.device(device))
+        seconds = time.perf_counter() - t0
+        greedy["generate_tokens"] = [[int(word[1:]) for word in text.split()] for text in texts]
+        expected["rmsnorm"] += (2 * layers + 1) * greedy_new
+        expected["rope_qkv"] += layers * greedy_new
+        expected["flash_attn_fwd"] += layers  # the [16, W] prefill, W a multiple of 128
+        _add(expected_forms, {"rope_qkv:flat": layers * greedy_new})
+        record["generate_tokens_greedy"] = {
+            "rows": GREEDY_PROMPTS, "width": int(batch["input_ids"].shape[1]), "seconds": seconds,
+            "generated_tokens": sum(counts), "tok_s": sum(counts) / seconds,
+        }
+        launches = {spec.name: spec.launches for spec in KERNELS}
+        forms = form_counts()
+
+        record["greedy_agreement"] = {
+            "paged_vs_dense": _agreement(greedy["paged"], greedy["dense"]),
+            "paged_vs_generate_tokens": _agreement(greedy["paged"], greedy["generate_tokens"]),
+            "dense_vs_generate_tokens": _agreement(greedy["dense"], greedy["generate_tokens"]),
+            "requests_identical_paged_dense": sum(a == b for a, b in zip(greedy["paged"], greedy["dense"])),
+            "requests": GREEDY_PROMPTS, "new_tokens": greedy_new,
+        }
+        probe = greedy_prompts[0]
+        record["logits_check"] = generation_logits_check(model.model, probe + greedy["dense"][0][:4], len(probe))
+        if on_card:
+            record["launches_per_decode_step"] = {
+                name: decode_step_launches(model.model, paged, 16, 1536) for name, paged in (("paged", True), ("dense", False))
+            }
+            record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model
+        gc.collect()
+    if on_card:  # on the CPU (a rehearsal) the plain versions run
+        assert launches == expected, (launches, expected)
+        assert forms == expected_forms, (forms, expected_forms)
+    record.update(launches=launches, expected_launches=expected, launch_forms=forms)
     return record, launches
+
+
+def alibi_generation_phase(seed, device="cuda", config_kwargs=None):
+    """Phase 14: alibi generation at MPT-7B's widths and 16 of its 32 layers (`MPT_7B`,
+    random weights from the seed, bf16, flash_attention_2; another config and the CPU only
+    to rehearse): 8 greedy requests of 300-1500 prompt tokens and 64 new tokens through the
+    dense slot pool with prefill buckets of 128 (every prefill takes the flash bias form),
+    then through the paged engine (alibi takes the gathered path, as in JAX); launch counts
+    zeroed just before the dense run and read just after the paged one; the share of
+    tokens the two engines agree on; one request's dense-path logits against the plain
+    forward; a decode step's launches for each engine. Returns the record and the launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.models import config_from_dict, get_model_class
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.serving import RequestStatus, ServingEngine, serve_batch
+
+    config = config_from_dict(config_kwargs or dict(MPT_7B, n_layer=ALIBI_GENERATION_LAYERS))
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model_class(config.model_type)(
+        config, dtype=torch.bfloat16, device=device, seed=seed, attention_implementation="flash_attention_2"
+    )
+    _sync(device)
+    record = {
+        "model": {"n_layer": config.n_layer, "n_embd": config.n_embd, "n_head": config.n_head, "vocab_size": config.vocab_size, "weights": "random", "dtype": "bfloat16"},
+        "model_init_s": time.perf_counter() - t0, "prefill_bucket_multiple": ALIBI_BUCKET, "new_tokens": GREEDY_NEW,
+    }
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(1, config.vocab_size, n).tolist() for n in rs.randint(300, 1501, ALIBI_GENERATION_SLOTS)]
+    record["prompt_tokens"] = [len(p) for p in prompts]
+    max_len = -(-max(map(len, prompts)) // ALIBI_BUCKET) * ALIBI_BUCKET + GREEDY_NEW
+
+    def engine(paged):
+        return ServingEngine(
+            model, None, num_slots=ALIBI_GENERATION_SLOTS, max_len=max_len, prefill_bucket_multiple=ALIBI_BUCKET,
+            eos_token_id=None, pad_token_id=config.pad_token_id, paged=paged, device=device,
+        )
+
+    for paged in (False, True):  # warm-up (cuBLAS handles, the allocator), launches not counted
+        serve_batch(engine(paged), [dict(prompt_ids=prompts[0][:300], max_new_tokens=2)])
+    reset_launch_counts()
+    expected, tokens = {spec.name: 0 for spec in KERNELS}, {}
+    for name, paged in (("dense", False), ("paged", True)):
+        served = engine(paged)
+        _sync(device)
+        t0 = time.perf_counter()
+        states = serve_batch(served, [dict(prompt_ids=p, max_new_tokens=GREEDY_NEW) for p in prompts])
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        assert all(s.status == RequestStatus.completed and len(s.tokens) == GREEDY_NEW for s in states)
+        tokens[name] = [s.tokens for s in states]
+        _add(expected, _engine_launches(served.stats, config, paged, len(prompts))[0])
+        pool = {
+            "bytes": sum(t.numel() * t.element_size() for cache in served.pool.caches for t in cache.values()),
+            "max_len": max_len, "kv_bytes_per_token": served.pool.kv_bytes_per_token,
+        }
+        record[name] = _engine_record(served.stats, seconds, pool)
+        del served, states
+    launches = {spec.name: spec.launches for spec in KERNELS}
+    if on_card:  # on the CPU (a rehearsal) the plain versions run
+        assert launches == expected, (launches, expected)
+    record["greedy_agreement_dense_vs_paged"] = _agreement(tokens["dense"], tokens["paged"])
+    record["requests_identical_dense_vs_paged"] = sum(a == b for a, b in zip(tokens["dense"], tokens["paged"]))
+    record["logits_check"] = generation_logits_check(model, prompts[0] + tokens["dense"][0][:4], len(prompts[0]), ALIBI_BUCKET)
+    if on_card:
+        record["launches_per_decode_step"] = {
+            name: decode_step_launches(model, paged, ALIBI_GENERATION_SLOTS, max_len) for name, paged in (("paged", True), ("dense", False))
+        }
+        record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record.update(launches=launches, expected_launches=expected, launch_forms=form_counts())
+    del model
+    gc.collect()
+    return record, launches
+
+
+def _model_bytes(state_path):
+    """The bytes of the model's weights in a checkpoint's `state/` (its DCP metadata): what
+    an inference load reads."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    metadata = dcp.FileSystemReader(state_path).read_metadata().state_dict_metadata
+    return sum(
+        math.prod(meta.size) * torch.tensor([], dtype=meta.properties.dtype).element_size()
+        for key, meta in metadata.items()
+        if key.startswith("model.")
+    )
 
 
 def main() -> int:
@@ -2574,6 +3144,7 @@ def main() -> int:
     cases = (
         kernel_cases(args.seed) + quant_kernel_cases(args.seed) + paged_write_kernel_cases(args.seed)
         + training_kernel_cases(args.seed) + moe_kernel_cases(args.seed) + alibi_kernel_cases(args.seed)
+        + generation_kernel_cases(args.seed)
     )
     print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
 
@@ -2627,13 +3198,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    pretrain, pretrain_launches = pretrain_phase(args.seed)
+    pretrain, pretrain_launches, (generation, generate_launches) = pretrain_phase(args.seed, generation=True)
     # the same model, shape and cuts as phase 6's repeated batch, through the entry point
     pretrain["vs_training_phase"] = {
         "training_mean_step_s_after_warmup": training["mean_step_s_after_warmup"],
         "ratio": pretrain["mean_step_s_after_warmup"] / training["mean_step_s_after_warmup"],
     }
     print(json.dumps({"pretrain": pretrain, "card": card}), flush=True)
+    print(json.dumps({"generate": generation, "card": card}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2674,11 +3246,16 @@ def main() -> int:
     alibi_profile = profile_training(state, train_step, batch)
     print(json.dumps({"alibi_training_profile": alibi_profile, "card": card}), flush=True)
     del state, train_step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    alibi_generation, alibi_generation_launches = alibi_generation_phase(args.seed)
+    print(json.dumps({"alibi_generation": alibi_generation, "card": card}), flush=True)
 
     records = {
         "serving": serving, "training": training, "moe_serving": moe_serving, "moe_training": moe_training,
         "quantized_serving": {"launch_forms": quantized_forms}, "alibi_training": alibi_training,
-        "pretrain": pretrain,
+        "pretrain": pretrain, "generate": generation, "alibi_generation": alibi_generation,
     }
 
     def summary(case_list):
@@ -2700,7 +3277,8 @@ def main() -> int:
             "serving": serving_launches[spec.name], "training": training_launches[spec.name],
             "moe_serving": moe_serving_launches[spec.name], "moe_training": moe_training_launches[spec.name],
             "quantized_serving": quantized_launches[spec.name], "alibi_training": alibi_training_launches[spec.name],
-            "pretrain": pretrain_launches[spec.name],
+            "pretrain": pretrain_launches[spec.name], "generate": generate_launches[spec.name],
+            "alibi_generation": alibi_generation_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

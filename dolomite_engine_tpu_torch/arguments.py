@@ -1055,3 +1055,35 @@ def check_ported_options(args: TrainingArgs) -> None:
             "scan_layers: accepted; the port runs its blocks in a Python loop and keeps the "
             "unrolled layout the JAX checkpoints use",
         )
+
+
+def check_ported_inference_options(args: InferenceArgs) -> None:
+    """Refuse, naming its ROADMAP item, each generation option of `args` the port does not
+    run."""
+    gp = args.generation_parameters
+    if gp.speculate_ngram or gp.draft_model is not None:
+        raise NotImplementedError(
+            "generation_parameters.speculate_ngram / draft_model is not ported yet: ROADMAP.md "
+            "Queue A, 'Speculative decoding'"
+        )
+    if gp.preemption != "off" or gp.oversubscribe_ratio != 1.0:
+        raise NotImplementedError(
+            "generation_parameters.preemption / oversubscribe_ratio is not ported yet: ROADMAP.md "
+            "Queue A, 'Preemption and oversubscription'"
+        )
+    if gp.tensor_parallel_size > 1:
+        raise NotImplementedError(
+            f"generation_parameters.tensor_parallel_size {gp.tensor_parallel_size} is not ported "
+            "yet: ROADMAP.md Queue A, 'Distribution' (the port serves from one device)"
+        )
+    if gp.replicas > 1 or gp.disaggregate or gp.trace_requests:
+        raise NotImplementedError(
+            "generation_parameters.replicas > 1 / disaggregate / trace_requests is not ported "
+            "yet: ROADMAP.md Queue A, 'Serving fleet and observability'"
+        )
+    if args.model_args is not None and args.model_args.model_name is not None:
+        raise NotImplementedError(
+            "model_args.model_name (loading a checkpoint directory or hub id) is not ported yet: "
+            "ROADMAP.md Queue A, 'Interop and tools'"
+        )
+    args.kernel_args.check()

@@ -55,8 +55,11 @@ _CHECKPOINT_DIR_RE = re.compile(r"global_step(\d+)")
 
 
 def _retry_kwargs(args) -> dict:
-    """Checkpoint-I/O retry policy from FaultToleranceArgs."""
-    ft = args.fault_tolerance_args
+    """Checkpoint-I/O retry policy from FaultToleranceArgs; the defaults when the args tree
+    has none (InferenceArgs)."""
+    ft = getattr(args, "fault_tolerance_args", None)
+    if ft is None:
+        return {}
     return dict(
         attempts=ft.checkpoint_io_attempts,
         base_delay_seconds=ft.checkpoint_io_backoff_seconds,
@@ -397,6 +400,48 @@ def load_checkpoint_for_training(
 
     log_rank_0(logging.INFO, f"checkpoint loaded from {base}")
     return state, starting_iteration, metadata, generator
+
+
+def load_checkpoint_for_inference(args, mode: Mode = Mode.inference, device: str | torch.device = "cuda"):
+    """Rebuild the model of a training checkpoint for inference (the JAX package's
+    `load_checkpoint_for_inference`): the wrapper from the checkpoint's own
+    `training_config.yml` (`get_model(training_args, mode)`, weights in the compute dtype
+    on `device`), then ONLY the model's weights from `state/`: `dcp.load` gets a tree of the
+    model's keys alone, so the optimizer moments are never read. The weights land in
+    staging tensors of their saved dtype on `device` and are then cast into the model.
+
+    Returns (model_wrapper, training_args)."""
+    from .arguments import args_from_dict
+    from .model_wrapper import get_model
+    from .utils import load_yaml
+
+    finish_pending_checkpoint()  # an in-flight async save may be the one being restored
+    retry_kwargs = _retry_kwargs(args)
+    load_path = args.load_args.load_path
+    iteration = args.load_args.iteration
+    if iteration is None:
+        iteration = _read_latest_iteration(load_path, retry_kwargs)
+    base = _get_base_path(load_path, iteration)
+    training_args = args_from_dict(load_yaml(os.path.join(base, _TRAINING_CONFIG)), Mode.training)
+    model = get_model(training_args, mode, device=device)
+
+    state_path = os.path.abspath(_state_path(base))
+    saved = retry_io(lambda: _state_metadata(state_path), description="read checkpoint metadata", **retry_kwargs)
+    weights = model.model.state_dict()
+    staging = {}
+    for name, tensor in weights.items():
+        meta = saved[f"model.{name}"]
+        staging[name] = torch.empty(tuple(meta.size), dtype=meta.properties.dtype, device=tensor.device)
+    retry_io(
+        lambda: dcp.load({"model": staging}, checkpoint_id=state_path, no_dist=True),
+        description="inference weights restore",
+        **retry_kwargs,
+    )
+    with torch.no_grad():
+        for name, tensor in weights.items():
+            tensor.copy_(staging.pop(name))
+    log_rank_0(logging.INFO, f"model weights loaded for inference from {base}")
+    return model, training_args
 
 
 def get_experiments_tracker_checkpoint_metadata(args) -> dict:

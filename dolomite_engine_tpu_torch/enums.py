@@ -9,6 +9,23 @@ class Mode(Enum):
     unsharding = "unsharding"
 
 
+class DatasetSplit(Enum):
+    """dataset split"""
+
+    train = "train"
+    val = "val"
+    test = "test"
+
+
+class DatasetKeys(Enum):
+    """standard keys in the dataset"""
+
+    input = "input"
+    output = "output"
+    generated_text = "generated_text"
+    num_generated_tokens = "num_generated_tokens"
+
+
 class TuningMethod(Enum):
     pretraining = "pretraining"
     full_finetuning = "full_finetuning"

@@ -8,55 +8,52 @@ import torch
 
 from ..enums import Mode, TuningMethod
 from ..utils import log_rank_0
-from .pretraining import ModelWrapperForPretraining
+from .base import ModelWrapper
+from .pretraining import ModelWrapperForFinetuning, ModelWrapperForPretraining
 
 
-def _load_tokenizer(name: str | None):
-    """The HF tokenizer `name`, or None: pretraining reads token ids, so a tokenizer that
-    cannot load (no `transformers`, no network) is warned about and left out, as in the JAX
-    package's `ModelWrapper._setup_tokenizer`."""
-    if name is None:
-        return None
-    try:
-        from transformers import AutoTokenizer
-
-        return AutoTokenizer.from_pretrained(name)
-    except Exception as error:  # the tokenizer is optional for pretraining on token bins
-        log_rank_0(logging.WARNING, f"could not load tokenizer '{name}': {error}")
-        return None
-
-
-def get_model(args, mode: Mode = Mode.training, device: str | torch.device = "cuda") -> ModelWrapperForPretraining:
-    """The pretraining wrapper from `TrainingArgs`: the compute dtype from
-    `mixed_precision_args` over fp32 master weights, the attention implementation, remat
-    when a gradient-checkpointing method is set, the reset masks, and the seed of
-    `random_args`."""
-    if mode != Mode.training or args.tuning_args.tuning_method != TuningMethod.pretraining:
+def get_model(args, mode: Mode = Mode.training, device: str | torch.device = "cuda") -> ModelWrapper:
+    """The wrapper of `TrainingArgs`' tuning method: the config, the tokenizer, the
+    attention implementation, the compute dtype of `mixed_precision_args` and the seed of
+    `random_args`. For training (pretraining only) the weights are fp32 masters with remat
+    when a gradient-checkpointing method is set and the reset masks; for inference (a
+    pretraining or full-finetuning config) they are stored in the compute dtype."""
+    tuning_method = args.tuning_args.tuning_method
+    ported = [TuningMethod.pretraining] + ([] if mode == Mode.training else [TuningMethod.full_finetuning])
+    if tuning_method not in ported:
         raise NotImplementedError(
-            f"{mode.value} / {args.tuning_args.tuning_method.value} is not ported yet: "
+            f"{mode.value} / {tuning_method.value} is not ported yet: "
             "ROADMAP.md Queue A, 'Finetune and PEFT'"
         )
     model_args = args.model_args
-    config = dict(model_args.pretrained_config, **(model_args.config_extras or {}))
-    dist = args.distributed_args
-    wrapper = ModelWrapperForPretraining(
-        config,
+    common = dict(
         dtype=args.mixed_precision_args.dtype,
-        param_dtype="fp32",
         attention_implementation=model_args.attention_implementation,
-        gradient_checkpointing_args=(
-            dist.gradient_checkpointing_args if dist.gradient_checkpointing_method is not None else None
-        ),
-        reset_attention_mask=model_args.reset_attention_mask,
-        reset_position_ids=model_args.reset_position_ids,
+        model_name=model_args.model_name,
+        tokenizer_name=args.tokenizer_args.tokenizer_name,
+        additional_special_tokens=args.tokenizer_args.additional_special_tokens,
+        config_extras=model_args.config_extras,
         device=device,
         seed=args.random_args.seed,
     )
-    wrapper.tokenizer = _load_tokenizer(args.tokenizer_args.tokenizer_name)
-    return wrapper
+    if mode != Mode.training:
+        wrapper_class = (
+            ModelWrapperForPretraining if tuning_method == TuningMethod.pretraining else ModelWrapperForFinetuning
+        )
+        return wrapper_class(model_args.pretrained_config, mode=mode, param_dtype=common["dtype"], **common)
+    dist = args.distributed_args
+    return ModelWrapperForPretraining(
+        model_args.pretrained_config,
+        reset_attention_mask=model_args.reset_attention_mask,
+        reset_position_ids=model_args.reset_position_ids,
+        gradient_checkpointing_args=(
+            dist.gradient_checkpointing_args if dist.gradient_checkpointing_method is not None else None
+        ),
+        **common,
+    )
 
 
-def log_model(model: ModelWrapperForPretraining) -> None:
+def log_model(model: ModelWrapper) -> None:
     """Log the module tree and the parameter count."""
     log_rank_0(logging.INFO, f"model = {model.model}")
     log_rank_0(logging.INFO, f"num parameters = {sum(p.numel() for p in model.model.parameters()):,}")

@@ -1,0 +1,143 @@
+"""ModelWrapper: the config, the tokenizer and the model of one run.
+
+Counterpart of `dolomite_engine_tpu/model_wrapper/base.py`: the config from
+`pretrained_config` (with `config_extras` over it), the HF tokenizer (with
+`additional_special_tokens`, which grow the vocabulary when the tokenizer outgrows it),
+the model built by the registry from the config's ``model_type`` on `device` with random
+weights from `seed`, and batch generation (`generate`, through
+`generation_utils.make_generate_fn`). The wrapper owns the port's model directly: there
+are no separate params, no sharding rules and no apply scope. Loading `model_name` (a
+checkpoint directory or hub id) is not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from ..enums import AttentionImplementation, Mode
+from ..models import CommonConfig, config_from_dict, get_model_class
+from ..train_utils import resolve_checkpointing_args
+from ..utils import log_rank_0
+from ..utils.mixed_precision import string_to_dtype
+
+# model families whose wrappers drive an encoder and a decoder (none is ported)
+_ENCODER_DECODER_TYPES = ("enc_dec_dolomite",)
+
+
+def _load_tokenizer(name: str | None):
+    """The HF tokenizer `name`, or None: pretraining reads token ids, so a tokenizer that
+    cannot load (no `transformers`, no network) is warned about and left out, as in the JAX
+    package's `ModelWrapper._setup_tokenizer`."""
+    if name is None:
+        return None
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(name)
+    except Exception as error:  # the tokenizer is optional for pretraining on token bins
+        log_rank_0(logging.WARNING, f"could not load tokenizer '{name}': {error}")
+        return None
+
+
+class ModelWrapper:
+    def __init__(
+        self,
+        pretrained_config: dict | CommonConfig,
+        mode: Mode = Mode.inference,
+        dtype: str | torch.dtype = "fp32",
+        param_dtype: str | torch.dtype | None = None,
+        attention_implementation: AttentionImplementation | str | None = None,
+        gradient_checkpointing_args: dict | None = None,
+        model_name: str | None = None,
+        tokenizer_name: str | None = None,
+        additional_special_tokens: list[str] | None = None,
+        config_extras: dict | None = None,
+        device: str | torch.device = "cuda",
+        seed: int = 0,
+    ) -> None:
+        """`dtype` is the compute dtype and `param_dtype` (default `dtype`) the storage of
+        the linear and embedding weights: fp32 master weights for training, the compute
+        dtype for inference."""
+        if model_name is not None:
+            raise NotImplementedError(
+                "model_args.model_name (loading a checkpoint directory or hub id) is not ported "
+                "yet: ROADMAP.md Queue A, 'Interop and tools'"
+            )
+        self.mode = mode
+        if isinstance(pretrained_config, CommonConfig):
+            self.config = pretrained_config
+        else:
+            self.config = config_from_dict(dict(pretrained_config, **(config_extras or {})))
+        self.model_type = self.config.model_type
+        self.dtype = string_to_dtype(dtype)
+        self.tokenizer = _load_tokenizer(tokenizer_name)
+        if self.tokenizer is not None and additional_special_tokens:
+            added = self.tokenizer.add_special_tokens({"additional_special_tokens": additional_special_tokens})
+            if added > 0 and self.tokenizer.vocab_size > self.config.vocab_size:
+                # the embedding grows with the tokenizer (resize_token_embeddings)
+                self.config.vocab_size = len(self.tokenizer)
+        self.checkpoint_every, self.checkpoint_policy = resolve_checkpointing_args(
+            None, gradient_checkpointing_args
+        )
+        self.model = get_model_class(self.model_type)(
+            self.config,
+            dtype=self.dtype,
+            device=device,
+            seed=seed,
+            param_dtype=string_to_dtype(param_dtype or dtype),
+            attention_implementation=attention_implementation or AttentionImplementation.sdpa,
+            checkpoint_every=self.checkpoint_every,
+            checkpoint_policy=self.checkpoint_policy,
+        )
+        self._generate_fns = {}  # a decode closure per generation settings
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.model_type in _ENCODER_DECODER_TYPES
+
+    @property
+    def eos_token_id(self) -> int | None:
+        if self.tokenizer is not None and self.tokenizer.eos_token_id is not None:
+            return self.tokenizer.eos_token_id
+        return self.config.eos_token_id
+
+    def generate(
+        self, batch: dict, generate_kwargs: dict, generator: torch.Generator | None = None
+    ) -> tuple[list[str], list[int]]:
+        """Batch generation from the inference-mode `collate_fn` output (left-padded
+        ``input_ids`` and ``attention_mask``) through `generation_utils.generate_tokens`;
+        returns (generated_text, num_generated_tokens) per row."""
+        from ..generation_utils import make_generate_fn
+
+        assert self.tokenizer is not None, "generation requires a tokenizer"
+        device = self.model.device
+        input_ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=device)
+        attention_mask = torch.as_tensor(batch["attention_mask"], dtype=torch.int32, device=device)
+
+        top_p = generate_kwargs.get("top_p")
+        static = dict(
+            max_new_tokens=int(generate_kwargs["max_new_tokens"]),
+            do_sample=bool(generate_kwargs.get("do_sample") or False),
+            temperature=generate_kwargs.get("temperature"),
+            top_k=generate_kwargs.get("top_k"),
+            top_p=None if top_p is None else float(top_p),
+            eos_token_id=self.eos_token_id,
+            pad_token_id=next(
+                (t for t in (self.tokenizer.pad_token_id, self.eos_token_id) if t is not None), 0
+            ),
+        )
+        cache_key = tuple(sorted(static.items()))
+        if cache_key not in self._generate_fns:
+            self._generate_fns[cache_key] = make_generate_fn(
+                self.model, is_encoder_decoder=self.is_encoder_decoder, **static
+            )
+        generated, num_generated = self._generate_fns[cache_key](input_ids, attention_mask, generator)
+
+        num_generated = num_generated.tolist()
+        texts = [
+            self.tokenizer.decode(row[:n], skip_special_tokens=True)
+            for row, n in zip(generated.tolist(), num_generated)
+        ]
+        return texts, num_generated

@@ -9,55 +9,38 @@ model directly (no flax variables, no apply scope). The config's ``model_type`` 
 model class through `models.config_from_dict` / `get_model_class`, as in the JAX
 package; the model's loss already includes a family's auxiliary loss (MoE router
 load balancing), so the wrapper adds nothing to it.
+
+`ModelWrapperForFinetuning`'s loss (padded finetuning batches) is not ported; the class
+builds the inference model of a finetuning config.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..enums import AttentionImplementation
-from ..models import CommonConfig, config_from_dict, get_model_class
+from ..enums import Mode
+from ..models import CommonConfig
 from ..ops.loss import IGNORE_INDEX
 from ..ops.packing import segment_ids_from_eos
-from ..train_utils import resolve_checkpointing_args
-from ..utils.mixed_precision import string_to_dtype
+from .base import ModelWrapper
 
 
-class ModelWrapperForPretraining:
+class ModelWrapperForPretraining(ModelWrapper):
+    """`ModelWrapper` for training by default (``mode`` training, fp32 master weights)."""
+
     def __init__(
         self,
         pretrained_config: dict | CommonConfig,
-        dtype: str | torch.dtype = "fp32",
-        param_dtype: str | torch.dtype = "fp32",
-        attention_implementation: AttentionImplementation | str | None = None,
-        gradient_checkpointing_args: dict | None = None,
         reset_attention_mask: bool = False,
         reset_position_ids: bool = False,
-        device: str | torch.device = "cuda",
-        seed: int = 0,
+        *,
+        mode: Mode = Mode.training,
+        param_dtype: str | torch.dtype = "fp32",
+        **kwargs,
     ) -> None:
-        self.config = (
-            pretrained_config
-            if isinstance(pretrained_config, CommonConfig)
-            else config_from_dict(pretrained_config)
-        )
-        self.dtype = string_to_dtype(dtype)
-        self.tokenizer = None  # optional: pretraining reads token ids (`get_model` loads one)
         self.reset_attention_mask = reset_attention_mask
         self.reset_position_ids = reset_position_ids
-        self.checkpoint_every, self.checkpoint_policy = resolve_checkpointing_args(
-            None, gradient_checkpointing_args
-        )
-        self.model = get_model_class(self.config.model_type)(
-            self.config,
-            dtype=self.dtype,
-            device=device,
-            seed=seed,
-            param_dtype=string_to_dtype(param_dtype),
-            attention_implementation=attention_implementation or AttentionImplementation.sdpa,
-            checkpoint_every=self.checkpoint_every,
-            checkpoint_policy=self.checkpoint_policy,
-        )
+        super().__init__(pretrained_config, mode=mode, param_dtype=param_dtype, **kwargs)
 
     def prepare_inputs_and_labels(self, text: torch.Tensor) -> dict:
         """text ``[B, S + 1]`` -> model inputs and shifted labels."""
@@ -86,3 +69,13 @@ class ModelWrapperForPretraining:
         """The scalar LM loss of one micro-batch (dropout on when `train`)."""
         batch = self.prepare_inputs_and_labels(text.to(self.model.device))
         return self.model(**batch, deterministic=not train).loss
+
+
+class ModelWrapperForFinetuning(ModelWrapper):
+    """The finetuning wrapper: generation from a finetuning config (or a config without a
+    checkpoint) works; its loss is not ported."""
+
+    def loss(self, batch: dict, train: bool = True) -> torch.Tensor:
+        raise NotImplementedError(
+            "the finetuning loss is not ported yet: ROADMAP.md Queue A, 'Finetune and PEFT'"
+        )

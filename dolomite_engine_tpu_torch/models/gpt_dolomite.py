@@ -1,4 +1,4 @@
-"""GPTDolomite, the dense decoder: serving with a paged KV pool, and training.
+"""GPTDolomite, the dense decoder: serving and generation (paged or dense KV cache), and training.
 
 Counterpart of `dolomite_engine_tpu/models/gpt_dolomite.py`: `GPTDolomiteModel` and
 `GPTDolomiteForCausalLM` with learned-absolute, rope (+ YaRN), alibi and nope positions, µP

@@ -7,7 +7,8 @@ transpose of each linear kernel (flax ``[in, out]``, torch ``[out, in]``):
 - the fused QKV projection is flat ``[Q (Hq*D) | K (Hkv*D) | V (Hkv*D)]`` for every head
   type;
 - the GLU MLP's ``c_fc`` emits ``[up | gate]``;
-- paged KV pools are ``[num_pages, page_size, Hkv, D]`` with page 0 as the trash page.
+- dense KV caches are ``[B, max_len, Hkv, D]``; paged KV pools are ``[num_pages,
+  page_size, Hkv, D]`` with page 0 as the trash page.
 
 Linear and embedding weights are stored in ``param_dtype`` and cast to the compute
 ``dtype`` at every use, as the JAX package's flax modules do (it always stores fp32).
@@ -15,17 +16,21 @@ Serving builds them directly in the compute dtype (the cast is then a no-op and 
 identically); training keeps fp32 master weights. Norm weights are always fp32.
 
 Attention dispatch keeps the JAX conditions exactly. The decode kernel runs for a paged
-pool with a per-row ``[B]`` cache index and no incoming mask; the chunked-prefill kernel
-for a paged pool with a scalar cache index, a 2-D key mask and more than one query; both
-only under ``attention_softmax_in_fp32``. On those two branches one launch rotates the
-projection and writes K/V into the pool (`_paged_write`: rope_qkv's paged form, then over
-a quantized pool the fused scatter-quantize), with the same position clamping and write
-validity as the gather path, so the pool state is the same whichever path ran. Every
-other call rotates and splits first, scatters, gathers the page view and runs eager
-attention. A quantized pool (``k_scale`` / ``v_scale`` in the cache) is
-written by the quantizing scatter and read by the kernels' dequantizing page walk or by
-the dequantizing gather; a low-bit unquantized pool (bf16 under an fp32 model) is cast
-to the activation dtype. Without a cache (training), `ops/attention.attention` dispatches:
+pool with a per-row ``[B]`` cache index and no incoming mask or alibi bias; the
+chunked-prefill kernel for a paged pool with a scalar cache index, a 2-D key mask, no
+alibi bias and more than one query; both only under ``attention_softmax_in_fp32``. On
+those two branches one launch rotates the projection and writes K/V into the pool
+(`_paged_write`: rope_qkv's paged form, then over a quantized pool the fused
+scatter-quantize), with the same position clamping and write validity as the gather
+path, so the pool state is the same whichever path ran. Every other paged call (an alibi
+model's among them) rotates and splits first, scatters, gathers the page view and runs
+masked attention. A quantized pool (``k_scale`` / ``v_scale`` in the cache) is written
+by the quantizing scatter and read by the kernels' dequantizing page walk or by the
+dequantizing gather; a low-bit unquantized pool (bf16 under an fp32 model) is cast to the
+activation dtype. A dense cache is written in place (`update_kv_cache`): a multi-token
+write at a python-int index 0 (a whole-prompt prefill) attends over its own K/V, which
+keeps the flash kernel eligible, and every other call attends over the whole cache.
+Without a cache (training), `ops/attention.attention` dispatches:
 ``flash_attention_2`` on a CUDA device runs the causal / segment-id flash kernel.
 """
 
@@ -57,7 +62,8 @@ from ..ops.rope import RoPEParams, get_cos_sin, split_qkv_apply_rope
 from .config import CommonConfig
 from .enums import InitMethod, PositionEmbeddingType
 
-# {"k": pages, "v": pages, "page_table": [B, max_pages]} (+ "k_scale", "v_scale": [P, Hkv])
+# a dense cache {"k", "v": [B, max_len, Hkv, D]}, or a paged pool view {"k": pages, "v":
+# pages, "page_table": [B, max_pages]} (+ "k_scale", "v_scale": [P, Hkv])
 KVCache = dict[str, torch.Tensor]
 
 
@@ -203,11 +209,11 @@ def _is_scalar_index(cache_index) -> bool:
 
 
 def _paged_kernel_eligible(
-    kv_cache, cache_index, attention_mask, segment_ids, causal: bool, dropout: float
+    kv_cache, cache_index, attention_mask, segment_ids, alibi_bias, causal: bool, dropout: float
 ) -> bool:
     """The serving decode/verify step: paged pool, per-row [B] frontier vector, plain
-    causal attention with no incoming mask, segments or dropout (the JAX condition; an
-    alibi bias over a paged cache raises before this)."""
+    causal attention with no incoming mask, segments, alibi bias or dropout (the JAX
+    condition)."""
     return (
         kv_cache is not None
         and "page_table" in kv_cache
@@ -215,17 +221,18 @@ def _paged_kernel_eligible(
         and cache_index.ndim == 1
         and attention_mask is None
         and segment_ids is None
+        and alibi_bias is None
         and causal
         and dropout == 0.0
     )
 
 
 def _paged_prefill_eligible(
-    kv_cache, cache_index, attention_mask, segment_ids, causal: bool, dropout: float, seq: int
+    kv_cache, cache_index, attention_mask, segment_ids, alibi_bias, causal: bool, dropout: float, seq: int
 ) -> bool:
     """The engine's chunked-prefill shape: paged pool, multi-token window, one scalar
-    write offset, the chunk's 2-D key-side prefix mask over the page view, no segments
-    and no dropout (the JAX condition)."""
+    write offset, the chunk's 2-D key-side prefix mask over the page view, no segments,
+    alibi bias or dropout (the JAX condition)."""
     return (
         kv_cache is not None
         and "page_table" in kv_cache
@@ -235,9 +242,57 @@ def _paged_prefill_eligible(
         and attention_mask is not None
         and attention_mask.ndim == 2
         and segment_ids is None
+        and alibi_bias is None
         and causal
         and dropout == 0.0
     )
+
+
+def update_kv_cache(key, value, kv_cache, cache_index, attention_mask):
+    """Write the new K/V ``[B, S, Hkv, D]`` into a dense cache ``{"k", "v": [B, max_len,
+    Hkv, D]}`` IN PLACE and return ``(key view, value view, attention_mask)`` over the
+    whole cache, the mask hiding the slots not written yet.
+
+    A scalar `cache_index` (a python int or a 0-d tensor) writes ``[cache_index,
+    cache_index + S)`` for every row, its start clamped into the cache as
+    `jax.lax.dynamic_update_slice` clamps it. A per-row ``[B]`` index is the continuous
+    batching case: row b writes at its own frontier ``cache_index[b]``, and positions
+    ``>= max_len`` are dropped (the JAX package's ``mode="drop"``). The validity frontier
+    is ``cache_index + S`` (per row for a [B] index). The JAX package returns a new cache;
+    writing in place keeps one copy of it on the device."""
+    k_cache, v_cache = kv_cache["k"], kv_cache["v"]
+    batch, seq = key.shape[:2]
+    max_len = k_cache.shape[1]
+    device = key.device
+    steps = torch.arange(seq, device=device)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        index = cache_index.to(device=device, dtype=torch.long)
+        positions = index[:, None] + steps  # [B, S]
+        keep = positions < max_len
+        # a dropped position p >= max_len is sent to p - S instead, below the row's own
+        # window and distinct per row, and writes back what it reads there: the writes
+        # of one call never collide, and no host sync decides which survive
+        positions = torch.where(keep, positions, positions - seq)
+        rows = torch.arange(batch, device=device)[:, None].expand(batch, seq)
+        for cache, new in ((k_cache, key), (v_cache, value)):
+            new = torch.where(keep[:, :, None, None], new.to(cache.dtype), cache[rows, positions])
+            cache[rows, positions] = new
+        frontier = index[:, None] + seq
+    elif isinstance(cache_index, int):
+        start = min(max(cache_index, 0), max_len - seq)
+        k_cache[:, start : start + seq] = key.to(k_cache.dtype)
+        v_cache[:, start : start + seq] = value.to(v_cache.dtype)
+        frontier = cache_index + seq
+    else:
+        index = cache_index.to(device=device, dtype=torch.long)
+        positions = index.clamp(0, max_len - seq) + steps
+        k_cache.index_copy_(1, positions, key.to(k_cache.dtype))
+        v_cache.index_copy_(1, positions, value.to(v_cache.dtype))
+        frontier = index + seq
+    valid = (torch.arange(max_len, device=device)[None, :] < frontier).int()
+    attention_mask = valid if attention_mask is None else attention_mask * valid
+    # a low-bit cache (bf16 under an fp32 model) attends in the activation dtype
+    return k_cache.to(key.dtype), v_cache.to(value.dtype), attention_mask
 
 
 def _scatter_chunk(key, value, kv_cache, cache_index, attention_mask):
@@ -307,8 +362,8 @@ def _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask):
 
 
 class Attention(nn.Module):
-    """Self-attention with the fused QKV projection, RoPE or an alibi bias, and a paged
-    KV pool (not with alibi)."""
+    """Self-attention with the fused QKV projection, RoPE or an alibi bias, and a dense
+    KV cache or a paged KV pool."""
 
     def __init__(
         self,
@@ -375,45 +430,50 @@ class Attention(nn.Module):
             if cache_index is None:
                 raise ValueError("a KV cache needs a cache_index")
             if "page_table" not in kv_cache:
-                raise NotImplementedError(
-                    "dense (non-paged) KV caches are not ported yet: ROADMAP.md Queue A, "
-                    "'Dense slot pool and generate_tokens'"
+                query, key, value = split_qkv_apply_rope(qkv, *heads, rope_cos_sin)
+                if seq > 1 and isinstance(cache_index, int) and cache_index == 0:
+                    # the prefill fast path, only for a write known on the host to start
+                    # at 0 (the JAX package's static zero): the cache then holds exactly
+                    # this call's K/V, so attention runs over them locally with q_len ==
+                    # kv_len, which keeps the flash kernel eligible
+                    update_kv_cache(key, value, kv_cache, cache_index, attention_mask)
+                    if attention_mask is not None:
+                        attention_mask = attention_mask[:, :seq]
+                else:
+                    key, value, attention_mask = update_kv_cache(
+                        key, value, kv_cache, cache_index, attention_mask
+                    )
+                    query_offset = cache_index
+            else:
+                # the branch is chosen before the rotation: the two paged-kernel branches rotate
+                # and write K/V in one launch (`_paged_write`), the rest split and rotate first
+                table = kv_cache["page_table"]
+                if config.attention_softmax_in_fp32 and _paged_kernel_eligible(
+                    kv_cache, cache_index, attention_mask, segment_ids, alibi_bias, self.causal, dropout
+                ):
+                    query = _paged_write(qkv, rope_cos_sin, *heads, kv_cache, cache_index, None)
+                    out = paged_decode_attention(
+                        query, kv_cache["k"], kv_cache["v"], table,
+                        cache_index.to(torch.int32), softmax_scale,
+                        kv_cache.get("k_scale"), kv_cache.get("v_scale"),
+                    )
+                    return self._project_out(out, deterministic), kv_cache
+                if config.attention_softmax_in_fp32 and _paged_prefill_eligible(
+                    kv_cache, cache_index, attention_mask, segment_ids, alibi_bias, self.causal, dropout, seq
+                ):
+                    query = _paged_write(qkv, rope_cos_sin, *heads, kv_cache, cache_index, attention_mask)
+                    start = torch.as_tensor(cache_index, dtype=torch.int32, device=query.device)
+                    out = paged_prefill_attention(
+                        query, kv_cache["k"], kv_cache["v"], table,
+                        start.reshape(1).expand(batch).contiguous(), softmax_scale,
+                        kv_cache.get("k_scale"), kv_cache.get("v_scale"),
+                    )
+                    return self._project_out(out, deterministic), kv_cache
+                query, key, value = split_qkv_apply_rope(qkv, *heads, rope_cos_sin)
+                key, value, attention_mask = _update_paged_kv_cache(
+                    key, value, kv_cache, cache_index, attention_mask
                 )
-            if alibi_bias is not None:
-                # the paged kernels carry no bias: without this the bias would be dropped
-                raise NotImplementedError(
-                    "alibi positions over a paged KV cache are not ported yet: ROADMAP.md "
-                    "Queue A, 'Alibi serving'"
-                )
-            # the branch is chosen before the rotation: the two paged-kernel branches rotate
-            # and write K/V in one launch (`_paged_write`), the rest split and rotate first
-            table = kv_cache["page_table"]
-            if config.attention_softmax_in_fp32 and _paged_kernel_eligible(
-                kv_cache, cache_index, attention_mask, segment_ids, self.causal, dropout
-            ):
-                query = _paged_write(qkv, rope_cos_sin, *heads, kv_cache, cache_index, None)
-                out = paged_decode_attention(
-                    query, kv_cache["k"], kv_cache["v"], table,
-                    cache_index.to(torch.int32), softmax_scale,
-                    kv_cache.get("k_scale"), kv_cache.get("v_scale"),
-                )
-                return self._project_out(out, deterministic), kv_cache
-            if config.attention_softmax_in_fp32 and _paged_prefill_eligible(
-                kv_cache, cache_index, attention_mask, segment_ids, self.causal, dropout, seq
-            ):
-                query = _paged_write(qkv, rope_cos_sin, *heads, kv_cache, cache_index, attention_mask)
-                start = torch.as_tensor(cache_index, dtype=torch.int32, device=query.device)
-                out = paged_prefill_attention(
-                    query, kv_cache["k"], kv_cache["v"], table,
-                    start.reshape(1).expand(batch).contiguous(), softmax_scale,
-                    kv_cache.get("k_scale"), kv_cache.get("v_scale"),
-                )
-                return self._project_out(out, deterministic), kv_cache
-            query, key, value = split_qkv_apply_rope(qkv, *heads, rope_cos_sin)
-            key, value, attention_mask = _update_paged_kv_cache(
-                key, value, kv_cache, cache_index, attention_mask
-            )
-            query_offset = cache_index
+                query_offset = cache_index
         else:
             query, key, value = split_qkv_apply_rope(qkv, *heads, rope_cos_sin)
 

@@ -104,6 +104,31 @@ def eager_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def sdpa_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None,
+    softmax_scale: float,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The JAX package's `sdpa_attention` (`jax.nn.dot_product_attention`, its XLA form):
+    fp32 scores of the inputs' products, scaled, plus the additive `bias` in fp32,
+    masked with ``-0.7 * float32 max``, an fp32 softmax, probabilities cast to the
+    keys' dtype for the PV product. A query with no visible key (a pad query under a
+    padding mask rewritten to segment ids) gets a uniform, finite row, where
+    `eager_attention` in bf16 fills with -inf and gives NaN. Returns [B, Sq, Hq, D]."""
+    k = _repeat_kv(k, q.shape[2])
+    v = _repeat_kv(v, q.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * softmax_scale
+    if bias is not None:
+        scores = scores + bias.float()
+    if mask is not None:
+        scores = torch.where(mask, scores, -0.7 * torch.finfo(torch.float32).max)
+    probs = torch.softmax(scores, dim=-1).to(k.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -127,7 +152,8 @@ def attention(
     without a bias takes the causal / segment-id form (where JAX takes splash); an
     `alibi_bias` (``[B, Hq, 1, Skv]``, added to the scaled scores) or ``causal=False``
     takes the additive-bias / non-causal form (where JAX takes jax's flash kernel).
-    Every other call runs masked eager attention with the bias."""
+    Every other call is masked attention with the bias: `eager_attention` for the
+    ``eager`` implementation or with dropout, else `sdpa_attention`, as in JAX."""
     from .kernels.flash_attention import flash_attention
 
     implementation = AttentionImplementation(implementation)
@@ -179,10 +205,12 @@ def attention(
         device=q.device,
         segment_ids_q=segment_ids,
     )
-    return eager_attention(
-        q, k, v, mask, softmax_scale, softmax_in_fp32=softmax_in_fp32, dropout=dropout,
-        bias=alibi_bias,
-    )
+    if implementation == AttentionImplementation.eager or dropout > 0.0:
+        return eager_attention(
+            q, k, v, mask, softmax_scale, softmax_in_fp32=softmax_in_fp32, dropout=dropout,
+            bias=alibi_bias,
+        )
+    return sdpa_attention(q, k, v, mask, softmax_scale, bias=alibi_bias)
 
 
 def write_positions(

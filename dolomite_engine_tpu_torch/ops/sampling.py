@@ -1,11 +1,13 @@
-"""Logits processors and per-slot token sampling for the serving engine.
+"""Logits processors and token sampling for generation and the serving engine.
 
-Counterpart of `dolomite_engine_tpu/ops/sampling.py`'s vectorized path: temperature ->
-top-k -> top-p over fp32 logits with per-row parameters, where the inert encodings mean
-"processor off". Greedy rows take the argmax over fp32 logits (the first maximum wins,
-as in JAX). Sampled rows draw Gumbel noise from their own `torch.Generator`, seeded from
-the request, so a sampled stream is reproducible per request but differs from the JAX
-package's by design (different generators).
+Counterpart of `dolomite_engine_tpu/ops/sampling.py`: the processors (`apply_temperature`,
+`apply_top_k`, `apply_top_p`) and `sample_token` with one set of parameters for the batch
+(`generation_utils.generate_tokens`), and the vectorized path with per-row parameters
+(the engine), where the inert encodings mean "processor off". Greedy rows take the
+argmax over fp32 logits (the first maximum wins, as in JAX). Sampled rows draw Gumbel
+noise from an explicit `torch.Generator` (the engine's: one per request, seeded from
+it), so a sampled stream is reproducible but differs from the JAX package's by design
+(different generators).
 """
 
 from __future__ import annotations
@@ -22,6 +24,62 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 NO_TEMPERATURE = 1.0
 NO_TOP_K = 0
 NO_TOP_P = 1.0
+
+
+def apply_temperature(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    return logits / max(temperature, 1e-6)
+
+
+def apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Keep the k highest logits of each row, mask the rest (HF TopKLogitsWarper)."""
+    k = min(top_k, logits.shape[-1])
+    kth_best = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth_best, torch.full_like(logits, NEG_INF), logits)
+
+
+def apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filtering (HF TopPLogitsWarper): keep the smallest set of tokens whose
+    cumulative probability exceeds top_p; the most probable token always survives."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cumulative = torch.cumsum(probs, dim=-1)
+    # keep tokens while the mass BEFORE them is < top_p
+    keep = (cumulative - probs) < top_p
+    keep[..., 0] = True
+    threshold = torch.where(keep, sorted_logits, torch.full_like(sorted_logits, float("inf"))).amin(
+        dim=-1, keepdim=True
+    )
+    return torch.where(logits < threshold, torch.full_like(logits, NEG_INF), logits)
+
+
+def _gumbel_argmax(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """A categorical draw per row of the logits `x`: argmax of x plus Gumbel noise."""
+    uniform = torch.rand(
+        x.shape, generator=generator, device=x.device, dtype=torch.float32
+    ).clamp_min(torch.finfo(torch.float32).tiny)
+    return (x - torch.log(-torch.log(uniform))).argmax(dim=-1)
+
+
+def sample_token(
+    logits: torch.Tensor,
+    generator: torch.Generator | None = None,
+    do_sample: bool = False,
+    temperature: float | None = None,
+    top_k: int | None = None,
+    top_p: float | None = None,
+) -> torch.Tensor:
+    """Next tokens from [B, V] logits -> [B] int64: the argmax, or with `do_sample` a draw
+    from `generator` after temperature -> top-k -> top-p."""
+    logits = logits.float()
+    if not do_sample:
+        return logits.argmax(dim=-1)
+    if temperature is not None:
+        logits = apply_temperature(logits, temperature)
+    if top_k is not None and top_k > 0:
+        logits = apply_top_k(logits, top_k)
+    if top_p is not None and top_p < 1.0:
+        logits = apply_top_p(logits, top_p)
+    return _gumbel_argmax(logits, generator)
 
 
 def process_logits_vectorized(
@@ -73,13 +131,8 @@ def sample_tokens_vectorized(
         return greedy
     x = process_logits_vectorized(logits, temperature, top_k, top_p)
     tokens = greedy.clone()
-    tiny = torch.finfo(torch.float32).tiny
     for s in rows:
-        uniform = torch.rand(
-            x.shape[-1], generator=generators[s], device=x.device, dtype=torch.float32
-        ).clamp_min(tiny)
-        gumbel = -torch.log(-torch.log(uniform))
-        tokens[s] = (x[s] + gumbel).argmax()
+        tokens[s] = _gumbel_argmax(x[s], generators[s])
     return tokens
 
 

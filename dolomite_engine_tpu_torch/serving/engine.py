@@ -1,6 +1,6 @@
-"""Continuous-batching serving engine over the paged KV pool.
+"""Continuous-batching serving engine over the paged or the dense KV pool.
 
-Counterpart of the paged path of `dolomite_engine_tpu/serving/engine.py`:
+Counterpart of `dolomite_engine_tpu/serving/engine.py`. The default, ``paged=True``:
 
 - the KV cache is a **paged pool** (`kv_cache.PagedKVCachePool`): fixed-size pages
   shared across slots, per-slot page tables, page 0 as the trash page;
@@ -15,6 +15,16 @@ Counterpart of the paged path of `dolomite_engine_tpu/serving/engine.py`:
   and length 0, so their writes land in the trash page.
 - a **quantized pool** (``kv_dtype="int8"|"fp8"``) rides the same per-layer dicts: each
   step's dict carries the layer's ``k_scale`` / ``v_scale`` pools beside its pages.
+
+``paged=False`` keeps the JAX engine's A/B baseline, the **dense slot pool**
+(`kv_cache.SlotKVCachePool`, ``[num_slots, max_len]`` rows per layer): a request's whole
+prompt is one prefill forward, right-padded to its bucket (a multiple of
+``prefill_bucket_multiple``, at most ``max_len``), into a fresh ``[1, bucket]`` cache at
+the python-int index 0 (the attention layer's prefill fast path), copied into the slot;
+its first token is sampled at the prompt's last position and its host fetch ends the
+TTFT. Decode is one forward over every slot with per-row positions, write offsets and
+frontiers; an idle slot has length 0. Prefix caching and the chunked-prefill budget do
+not apply to it, as in the JAX engine.
 
 Attention, RMSNorm and rope inside the forward run the port's CUDA kernels on the GPU
 (`ops/kernels/`). PyTorch runs eagerly, so there is no compiled program to count; greedy
@@ -38,7 +48,7 @@ import torch
 from ..device import resolve_device
 from ..ops.sampling import sample_tokens_vectorized
 from ..utils import QuantileSketch
-from .kv_cache import TRASH_PAGE, PagedKVCachePool
+from .kv_cache import TRASH_PAGE, PagedKVCachePool, SlotKVCachePool
 from .prefix_cache import PrefixCache, PrefixMatch
 from .scheduler import (
     QueueFullError,
@@ -70,14 +80,15 @@ _NOT_PORTED = {
 
 @dataclass
 class EngineStats:
-    """Cumulative host-side accounting (the JAX engine's `EngineStats`, paged path).
+    """Cumulative host-side accounting (the JAX engine's `EngineStats`).
 
     `prefill_seconds`/`decode_seconds` are wall time of the device work including the
     host fetch that ends it; `prefill_tokens` counts prompt tokens actually computed
     (prefix-cache hits show up in `prefix_hit_tokens` instead); `decode_tokens` counts
-    tokens emitted by decode steps; `prefill_chunks` counts chunk forwards (each one
-    model forward, like each decode step). The first token of each request is sampled inside
-    prefill and shows up in `ttft_s`, not in either rate."""
+    tokens emitted by decode steps; `prefill_chunks` counts prefill forwards (a paged
+    chunk, or a dense pool's whole prompt: each one model forward, like each decode
+    step). The first token of each request is sampled inside prefill and shows up in
+    `ttft_s`, not in either rate."""
 
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
@@ -138,7 +149,7 @@ class _PrefillTask:
 
 class ServingEngine:
     """Drive a causal LM of the port (`models/`) as a continuously batched token service
-    on the paged KV pool.
+    on the paged KV pool, or with ``paged=False`` on the dense slot pool.
 
     Args:
         model: any of the port's causal LMs (`GPTDolomiteForCausalLM`,
@@ -148,11 +159,15 @@ class ServingEngine:
         num_slots: decode batch width == max concurrent requests.
         max_len: per-slot cache length; every request needs
             ``len(prompt) + max_new_tokens <= max_len``.
-        prefill_bucket_multiple: prefill chunks are right-padded to the next multiple.
+        prefill_bucket_multiple: prefill chunks (a dense pool's whole prompts) are
+            right-padded to the next multiple.
         max_waiting: waiting-queue bound (`submit` raises QueueFullError beyond it).
         eos_token_id / pad_token_id: engine defaults (per-request eos override on submit).
         cache_dtype: page dtype (default the model dtype).
         seed: seeds the per-request generators of requests submitted without a seed.
+        paged: the paged pool (default) or the dense slot pool; the paged-only options
+            below (``page_size`` to ``prefix_caching``) do nothing for a dense pool, and
+            ``kv_dtype`` and preemption raise ValueError with it.
         page_size: tokens per KV page (positive multiple of 8).
         num_pages: physical pages in the pool (page 0 is the trash page); the default
             matches a dense pool's capacity.
@@ -204,11 +219,8 @@ class ServingEngine:
                 )
         if kv_dtype is not None and not paged:
             raise ValueError("kv_dtype (quantized / low-bit KV) requires the paged KV pool")
-        if not paged:
-            raise NotImplementedError(
-                "paged=False is not ported yet: ROADMAP.md Queue A, "
-                "'Dense slot pool and generate_tokens'"
-            )
+        if preemption != "off" and not paged:
+            raise ValueError("preemption requires the paged KV pool")
         if preemption != "off" or oversubscribe_ratio != 1.0:
             raise NotImplementedError(
                 "preemption and oversubscription are not ported yet: ROADMAP.md Queue A, "
@@ -234,10 +246,15 @@ class ServingEngine:
         self.pad_token_id = pad_token_id
         self.prefill_bucket_multiple = prefill_bucket_multiple
         self.session_ttl_s = session_ttl_s
-        self.pool = PagedKVCachePool(
-            model, num_slots, max_len, page_size, num_pages, cache_dtype, kv_dtype=kv_dtype
-        )
-        self.prefix = PrefixCache(page_size) if prefix_caching else None
+        self.paged = paged
+        if paged:
+            self.pool: Any = PagedKVCachePool(
+                model, num_slots, max_len, page_size, num_pages, cache_dtype, kv_dtype=kv_dtype
+            )
+            self.prefix = PrefixCache(page_size) if prefix_caching else None
+        else:
+            self.pool = SlotKVCachePool(model, num_slots, max_len, cache_dtype)
+            self.prefix = None
         self.scheduler = Scheduler(
             max_waiting=max_waiting, clock=clock, prefill_chunk_tokens=prefill_chunk_tokens,
             tier_slos=tier_slos,
@@ -290,12 +307,13 @@ class ServingEngine:
                 f"request needs {len(prompt_ids)} prompt + {max_new_tokens} new tokens "
                 f"> max_len={self.pool.max_len}"
             )
-        worst_pages = -(-(len(prompt_ids) + max_new_tokens) // self.pool.page_size)
-        if worst_pages > self.pool.num_pages - 1:
-            raise ValueError(
-                f"request needs {worst_pages} page(s) worst-case but the pool has "
-                f"{self.pool.num_pages - 1} allocatable page(s)"
-            )
+        if self.paged:
+            worst_pages = -(-(len(prompt_ids) + max_new_tokens) // self.pool.page_size)
+            if worst_pages > self.pool.num_pages - 1:
+                raise ValueError(
+                    f"request needs {worst_pages} page(s) worst-case but the pool has "
+                    f"{self.pool.num_pages - 1} allocatable page(s)"
+                )
         if seed is None:
             seed = int(torch.randint(2**62, (1,), generator=self._seeds))
         request = Request(
@@ -324,14 +342,20 @@ class ServingEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One scheduler iteration: reap deadline-expired slots, admit waiting requests
-        into free slots, advance chunked prefills up to the budget, run one decode step
-        over the slot batch. Returns whether any work remains."""
+        into free slots (a dense pool prefills them whole), advance chunked prefills up to
+        the budget (paged), run one decode step over the slot batch. Returns whether any
+        work remains."""
         self._cancel_expired_running()
-        self._admit_paged()
-        decoding = sum(1 for s in self._slot_states if s not in self._prefill_tasks)
-        self._run_prefill_chunks(self.scheduler.prefill_budget(decoding))
-        if any(slot not in self._prefill_tasks for slot in self._slot_states):
-            self._decode_once_paged()
+        if self.paged:
+            self._admit_paged()
+            decoding = sum(1 for s in self._slot_states if s not in self._prefill_tasks)
+            self._run_prefill_chunks(self.scheduler.prefill_budget(decoding))
+            if any(slot not in self._prefill_tasks for slot in self._slot_states):
+                self._decode_once_paged()
+        else:
+            self._admit()
+            if self._slot_states:
+                self._decode_once()
         self.stats.peak_active = max(self.stats.peak_active, self.pool.num_active)
         return self.has_work()
 
@@ -339,6 +363,81 @@ class ServingEngine:
         """Run until every submitted request finished."""
         while self.step():
             pass
+
+    # ------------------------------------------------------------------ dense pool
+
+    def _admit(self) -> None:
+        """Admit tier-then-FCFS into every free slot row; a request whose deadline lapsed
+        while it waited is cancelled instead."""
+        admit, dead = self.scheduler.admissible(self.pool.num_free)
+        for state in dead:
+            self._finish(state, RequestStatus.cancelled)
+        for state in admit:
+            self._prefill_into_slot(state)
+
+    def _prefill_into_slot(self, state: RequestState) -> None:
+        """The whole prompt in one forward, right-padded to its bucket, into a fresh
+        ``[1, bucket]`` cache copied into the slot; samples the first token."""
+        request = state.request
+        slot = self.pool.allocate()
+        prompt_len = len(request.prompt_ids)
+        multiple = self.prefill_bucket_multiple
+        bucket = min(-(-prompt_len // multiple) * multiple, self.pool.max_len)
+        ids = np.full((1, bucket), self.pad_token_id, np.int64)
+        ids[0, :prompt_len] = request.prompt_ids
+        mask = np.zeros((1, bucket), np.int32)
+        mask[0, :prompt_len] = 1
+        self._set_sampling(slot, request)
+
+        device = self.device
+        t0 = time.perf_counter()
+        # right-padded: token i sits at cache position i, so the slot's frontier is its length
+        out = self.model(
+            torch.as_tensor(ids, device=device),
+            position_ids=torch.arange(bucket, device=device)[None, :],
+            attention_mask=torch.as_tensor(mask, device=device),
+            kv_caches=self.model.init_kv_caches(1, bucket, self.pool.caches[0]["k"].dtype),
+            cache_index=0,  # a python int: the prefill fast path
+        )
+        token = sample_tokens_vectorized(
+            out.logits[:, prompt_len - 1],
+            [self._generators[slot]],
+            [bool(self._do_sample[slot])],
+            *self._sampling_tensors([slot]),
+        )
+        self.pool.write_prefill(slot, out.kv_caches, prompt_len)
+        first_token = int(token[0])  # host fetch: ends the TTFT clock
+        self.stats.prefill_seconds += time.perf_counter() - t0
+        self.stats.prefill_tokens += prompt_len
+        self.stats.prefill_chunks += 1
+        self._count_admission(state, session_hit=False)
+
+        state.slot = slot
+        state.status = RequestStatus.running
+        self._slot_states[slot] = state
+        self._record_first_token(state, first_token)
+
+    def _decode_once(self) -> None:
+        """One forward over every slot row: each writes its token at its own frontier."""
+        active = list(self._slot_states)
+        device = self.device
+        t0 = time.perf_counter()
+        lengths = torch.as_tensor(self.pool.lengths, device=device)
+        out = self.model(
+            torch.as_tensor(self._tokens, device=device)[:, None],
+            position_ids=lengths[:, None],
+            kv_caches=self.pool.caches,
+            cache_index=lengths,
+        )
+        do_sample = np.zeros_like(self._do_sample)  # idle rows stay greedy
+        do_sample[active] = self._do_sample[active]
+        next_tokens = sample_tokens_vectorized(
+            out.logits[:, -1], self._generators, do_sample, *self._sampling_tensors(slice(None))
+        )
+        tokens = next_tokens.cpu().numpy()  # host fetch: the streaming sync point
+        self.stats.decode_steps += 1
+        self.stats.decode_seconds += time.perf_counter() - t0
+        self._emit_decoded(active, tokens)
 
     # ------------------------------------------------------------------ admission
 
@@ -398,17 +497,10 @@ class ServingEngine:
             self.pool.copy_page(match.cow.page, dst)
             self.pool.decref(match.cow.page)
 
-        do_sample, temperature, top_k, top_p = request.sampling.encoded()
         state.slot = slot
         state.status = RequestStatus.running
         self._slot_states[slot] = state
-        self._do_sample[slot] = do_sample
-        self._temperature[slot] = temperature
-        self._top_k[slot] = top_k
-        self._top_p[slot] = top_p
-        self._generators[slot] = (
-            torch.Generator(device=self.device).manual_seed(request.seed) if do_sample else None
-        )
+        self._set_sampling(slot, request)
         self._prefill_tasks[slot] = _PrefillTask(
             state=state, pos=match.resume_pos, prefill_ids=prefill_ids
         )
@@ -419,6 +511,18 @@ class ServingEngine:
         self.stats.prefix_miss_tokens += len(prefill_ids) - hit
         self._count_admission(state, session_hit=hit > 0)
         return True
+
+    def _set_sampling(self, slot: int, request: Request) -> None:
+        """The slot's sampling parameters, and a generator seeded from the request when it
+        samples."""
+        do_sample, temperature, top_k, top_p = request.sampling.encoded()
+        self._do_sample[slot] = do_sample
+        self._temperature[slot] = temperature
+        self._top_k[slot] = top_k
+        self._top_p[slot] = top_p
+        self._generators[slot] = (
+            torch.Generator(device=self.device).manual_seed(request.seed) if do_sample else None
+        )
 
     def _count_admission(self, state: RequestState, session_hit: bool) -> None:
         request = state.request
@@ -516,13 +620,17 @@ class ServingEngine:
             self.pool.lengths[slot] = prefill_len
             self._prefill_order.remove(slot)
             del self._prefill_tasks[slot]
-            state.first_token_t = self.scheduler.clock()
-            if state.ttft_s is not None:
-                self.stats.ttft_s.append(state.ttft_s)
-                tier = state.request.priority
-                self.stats.ttft_s_by_tier.setdefault(tier, QuantileSketch()).append(state.ttft_s)
-            self._tokens[slot] = first_token
-            self._deliver(state, first_token)
+            self._record_first_token(state, first_token)
+
+    def _record_first_token(self, state: RequestState, token: int) -> None:
+        """End the request's TTFT clock and stream its first token from its slot."""
+        state.first_token_t = self.scheduler.clock()
+        if state.ttft_s is not None:
+            self.stats.ttft_s.append(state.ttft_s)
+            tier = state.request.priority
+            self.stats.ttft_s_by_tier.setdefault(tier, QuantileSketch()).append(state.ttft_s)
+        self._tokens[state.slot] = token
+        self._deliver(state, token)
 
     def _decode_once_paged(self) -> None:
         decoding = [s for s in self._slot_states if s not in self._prefill_tasks]

@@ -1,10 +1,14 @@
-"""The paged KV pool for continuous batching.
+"""KV cache pools for continuous batching: dense slot rows or a shared paged pool.
 
-Counterpart of `dolomite_engine_tpu/serving/kv_cache.PagedKVCachePool`: a fixed set of
-fixed-size pages (``[num_pages, page_size, kv_heads, head_dim]`` per layer, on the
-model's device) shared across slots, per-slot page tables (``[num_slots, max_pages]``
-int32, host-side), refcounts for prefix sharing and worst-case page reservations at
-admission. **Page 0 is the trash page** — never allocated, the write target of idle
+`SlotKVCachePool` (the JAX package's ``paged=False`` baseline) holds one preallocated
+``[num_slots, max_len, kv_heads, head_dim]`` cache per layer: device memory scales with
+the worst-case length of every slot.
+
+`PagedKVCachePool` (the default; `dolomite_engine_tpu/serving/kv_cache.PagedKVCachePool`'s
+counterpart): a fixed set of fixed-size pages (``[num_pages, page_size, kv_heads,
+head_dim]`` per layer, on the model's device) shared across slots, per-slot page tables
+(``[num_slots, max_pages]`` int32, host-side), refcounts for prefix sharing and
+worst-case page reservations at admission. **Page 0 is the trash page** — never allocated, the write target of idle
 decode rows and prefill pad tails, so garbage writes never touch live data. The device
 pages are updated in place by the model's scatter (the JAX pool is rebuilt functionally
 each step); the allocation state lives on the host.
@@ -35,6 +39,96 @@ KV_DTYPES: dict[str, torch.dtype] = {
     **{name: storage for name, (storage, _) in KV_QUANT_DTYPES.items()},
 }
 QUANTIZED_KV_DTYPES = tuple(KV_QUANT_DTYPES)
+
+
+def _kv_bytes_per_token(caches: KVCacheList, page_size: int | None = None) -> float:
+    """Resident K/V bytes per cached token across all layers (both layouts store token
+    rows as ``[.., H, D]``); a quantized pool adds its per-page scale rows amortised over
+    `page_size` tokens."""
+    total = 0.0
+    for cache in caches:
+        heads, head_dim = cache["k"].shape[2:]
+        for name in ("k", "v"):
+            total += heads * head_dim * cache[name].element_size()
+            scale = cache.get(f"{name}_scale")
+            if scale is not None and page_size:
+                total += heads * scale.element_size() / page_size
+    return total
+
+
+class SlotKVCachePool:
+    """A fixed pool of `num_slots` dense cache rows of `max_len` tokens each, on the
+    model's device; allocation state lives on the host. The engine's decode forward
+    writes the rows in place."""
+
+    def __init__(
+        self, model: Any, num_slots: int, max_len: int, dtype: torch.dtype | None = None, mesh: Any = None
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "a KV pool sharded over a device mesh is not ported yet: ROADMAP.md Queue A, 'Distribution'"
+            )
+        if num_slots <= 0 or max_len <= 0:
+            raise ValueError(f"num_slots and max_len must be positive, got {num_slots}, {max_len}")
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.caches: KVCacheList = model.init_kv_caches(num_slots, max_len, dtype)
+        # pop() from the tail: slot 0 is handed out first
+        self._free: list[int] = list(reversed(range(num_slots)))
+        self._in_use: set[int] = set()
+        # valid cache entries per slot (prompt + generated-and-written tokens); 0 for a
+        # free slot, so an idle decode row masks down to its own garbage token
+        self.lengths = np.zeros(num_slots, np.int32)
+
+    @property
+    def kv_bytes_per_token(self) -> float:
+        """Resident K/V bytes per cached token (all layers): device-memory sizing."""
+        return _kv_bytes_per_token(self.caches)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_active(self) -> int:
+        return len(self._in_use)
+
+    @property
+    def occupancy(self) -> float:
+        return len(self._in_use) / self.num_slots
+
+    def allocate(self) -> int | None:
+        """Claim a free slot (lowest index first), or None when the pool is full."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self._in_use.add(slot)
+        return slot
+
+    def free(self, slot: int) -> None:
+        """Reclaim a slot. Its K/V rows stay stale (masked by length 0) until the next
+        occupant's prefill overwrites them."""
+        if slot not in self._in_use:
+            raise ValueError(f"slot {slot} is not allocated")
+        self._in_use.remove(slot)
+        self._free.append(slot)
+        self.lengths[slot] = 0
+
+    @torch.no_grad()
+    def write_prefill(self, slot: int, prefill_caches: KVCacheList, length: int) -> None:
+        """Copy a batch-1 prefill cache (``[1, bucket, H, D]`` per layer) into `slot` at
+        positions ``[0, bucket)`` in place, and set the slot's length to the REAL prompt
+        length. The pad tail ``[length, bucket)`` lands in the pool too, outside the
+        validity frontier; decode overwrites it one token at a time."""
+        if slot not in self._in_use:
+            raise ValueError(f"slot {slot} is not allocated")
+        if not 0 < length <= self.max_len:
+            raise ValueError(f"prefill length {length} is outside (0, {self.max_len}]")
+        for pool, new in zip(self.caches, prefill_caches):
+            bucket = new["k"].shape[1]
+            pool["k"][slot, :bucket] = new["k"][0]
+            pool["v"][slot, :bucket] = new["v"][0]
+        self.lengths[slot] = length
 
 
 class PagedKVCachePool:
@@ -143,15 +237,7 @@ class PagedKVCachePool:
     def kv_bytes_per_token(self) -> float:
         """Resident K/V bytes per cached token (all layers), with a quantized pool's scale
         rows amortised over the page: what device-memory sizing budgets by."""
-        total = 0.0
-        for cache in self.caches:
-            heads, head_dim = cache["k"].shape[2:]
-            for name in ("k", "v"):
-                total += heads * head_dim * cache[name].element_size()
-                scale = cache.get(f"{name}_scale")
-                if scale is not None:
-                    total += heads * scale.element_size() / self.page_size
-        return total
+        return _kv_bytes_per_token(self.caches, self.page_size)
 
     @property
     def page_bytes(self) -> float:

@@ -28,6 +28,10 @@ class ProgressBar:
 
             self._bar = tqdm(initial=start, total=end, desc=desc)
 
+    def update(self, n: int = 1) -> None:
+        if self._bar is not None:
+            self._bar.update(n)
+
     def track(self, step: int) -> None:
         if self._bar is not None:
             self._bar.n = step

@@ -12,7 +12,10 @@ the MoE slice's grouped GEMMs: 32 experts, d 1024, swiglu c_fc banks 8192 wide; 
 alibi slice's flash form: MPT-7B's 32 heads of 128 over [2, 2048] packed rows).
 The paged K/V write (rope_qkv's paged form, kv_quant's fused scatter-quantize) is held to
 the flat rope kernel followed by the plain scatter: one launch a call, pages 1.. and
-scales byte-identical (page 0 is the trash page), the query bit-identical.
+scales byte-identical (page 0 is the trash page), the query bit-identical. The
+generation paths' forms (`chip_smoke.PADDED_FLASH_FORMS`: padding masks as segment ids,
+right- and left-padded; the flat rope kernel at a decode step with per-row positions) are
+held to the same tolerances, every flash output row finite.
 Tolerances: fp32 within 1e-5 (the JAX package's own kernel-parity tolerance; only
 summation order differs; the non-causal flash form with a bias adds 16 fp32 ulps of the
 largest bias relative to the largest value, the rounding of scores that size, and in
@@ -37,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import same_pages, tie_page
+from chip_smoke import PADDED_FLASH_FORMS, padding_segments, same_pages, tie_page
 from dolomite_engine_tpu_torch.ops.kernels import (
     kv_quant,
     paged_attention,
@@ -604,6 +607,55 @@ def test_bias_flash_attention_kernels_match_plain(
         assert torch.isfinite(got.float()).all(), name
         within, err = _close(got, want, dtype == torch.float32, slack)
         assert within, (name, err, slack)
+
+
+@pytest.mark.parametrize("form", range(len(PADDED_FLASH_FORMS)), ids=[f[0].split(",")[0] + f" {f[3]} {len(f[1])}x{f[2]}" for f in PADDED_FLASH_FORMS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_over_padding_masks_matches_plain(form, dtype):
+    """The generation paths' padding masks as segment ids: falling (the dense engine's
+    right-padded prefill), rising (`generate_tokens`' left-padded rows), a pad boundary
+    inside a 64-token tile, a bucket of one real token, and the alibi bias form; every
+    row (pad queries attend among the pads) finite."""
+    from chip_smoke import _close
+    from dolomite_engine_tpu_torch.ops.alibi import get_alibi_bias
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    _, lengths, seq, side, alibi = PADDED_FLASH_FORMS[form]
+    heads, head_dim = (32, 128) if alibi else (32, 80)
+    batch = len(lengths)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (_rand(g, (batch, seq, heads, head_dim), dtype) for _ in range(3))
+    seg = padding_segments(lengths, seq, side)
+    bias = get_alibi_bias(heads, seg, batch, seq)[:, :, 0].contiguous() if alibi else None
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, head_dim**-0.5, bias)
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, head_dim**-0.5, bias)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    within, err = _close(out, want, dtype == torch.float32)
+    assert within, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_kernel_with_per_row_decode_positions(dtype):
+    """A dense decode step: 16 slots, each row's cos / sin at its own position, as
+    `get_cos_sin` gives them for ``position_ids = lengths[:, None]``."""
+    from dolomite_engine_tpu_torch.ops.rope import RoPEParams, get_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    positions = torch.as_tensor(np.random.RandomState(3).randint(0, 2048, (16, 1)), device="cuda")
+    cos, sin = get_cos_sin(RoPEParams.from_config(80), positions, dtype=dtype)
+    qkv = _rand(g, (16, 1, 3 * 32 * 80), dtype)
+    got = rope_qkv.fused_rope_qkv(qkv, cos, sin, 32, 32, 80)
+    want = rope_qkv.fused_rope_qkv_plain(qkv, cos, sin, 32, 32, 80)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[..., 2 * 32 * 80 :], qkv[..., 2 * 32 * 80 :], atol=0, rtol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        x = qkv.float().reshape(16, 1, -1, 80)
+        scale = (x.abs() + x.roll(40, -1).abs()).reshape(qkv.shape)
+        assert bool(((got.float() - want.float()).abs() <= 2 * _bf16_ulp(scale)).all())
 
 
 def test_bias_flash_launches_count_on_their_own_spec():

@@ -72,6 +72,7 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_default_to_the_gpu():
     import torch
 
+    from dolomite_engine_tpu_torch import generate
     from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
     from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM, load_jax_params
     from dolomite_engine_tpu_torch.serving import ServingEngine
@@ -84,6 +85,10 @@ def test_entry_points_default_to_the_gpu():
     model = GPTDolomiteForCausalLM(config, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, None, num_slots=1, max_len=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, None, num_slots=1, max_len=32, paged=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate.main(object())  # the device is resolved before the args are read
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_jax_params(model, {})
     with pytest.raises(RuntimeError, match="device='cpu'"):

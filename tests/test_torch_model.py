@@ -153,18 +153,37 @@ def test_seeded_init_follows_the_jax_rules():
 
 
 def test_unported_position_type_raises():
-    """Alibi trains, but the paged kernels carry no bias: an alibi model over a paged KV
-    cache raises instead of dropping the bias."""
-    model = GPTDolomiteForCausalLM(CommonConfig(**dict(ROPE_GQA, position_embedding_type="alibi")), device="cpu")
-    caches = [
-        {"k": torch.zeros(4, PAGE, 2, 8), "v": torch.zeros(4, PAGE, 2, 8), "page_table": torch.tensor([[1, 2]], dtype=torch.int32)}
-        for _ in range(2)
-    ]
-    mask = torch.ones((1, 2 * PAGE), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, 'Alibi serving'"):
-        model(torch.ones((1, 8), dtype=torch.long), attention_mask=mask, kv_caches=caches, cache_index=torch.tensor(0))
-    with pytest.raises(NotImplementedError, match="'Alibi serving'"):  # a decode step
-        model(torch.ones((1, 1), dtype=torch.long), kv_caches=caches, cache_index=torch.tensor([8], dtype=torch.int32))
+    """No position type is left unported over a paged KV cache: an alibi model's prefill
+    chunk and decode step no longer raise. The kernel gates carry the JAX term
+    ``alibi_bias is None``, so both take the gathered path with the bias, and the logits
+    are the JAX model's (its gates send alibi to the same path)."""
+    jax_model, params, model = make_models(dict(ROPE_GQA, position_embedding_type="alibi"))
+    rs = np.random.RandomState(4)
+    pools = [[rs.randn(4, PAGE, 2, 8).astype(np.float32) for _ in range(2)] for _ in range(2)]
+    table = np.array([[1, 2]], np.int32)
+    mask = np.zeros((1, 2 * PAGE), np.int32)
+    mask[0, :8] = 1
+    steps = (
+        (rs.randint(3, 96, (1, 8)), np.arange(8)[None], mask, np.int32(0)),  # a prefill chunk
+        (rs.randint(3, 96, (1, 1)), np.array([[8]]), None, np.array([8], np.int32)),  # a decode step
+    )
+    caches = [{"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy()), "page_table": torch.from_numpy(table)} for k, v in pools]
+    jax_caches = [{"k": jnp.asarray(k), "v": jnp.asarray(v), "page_table": jnp.asarray(table)} for k, v in pools]
+    for ids, positions, step_mask, index in steps:
+        with kernel_overrides(**ALL_KERNELS):
+            ref = jax_model.apply(
+                {"params": params}, jnp.asarray(ids), position_ids=jnp.asarray(positions),
+                attention_mask=None if step_mask is None else jnp.asarray(step_mask), kv_caches=jax_caches,
+                cache_index=jnp.asarray(index),
+            )
+        jax_caches = [{**c, "page_table": jnp.asarray(table)} for c in ref.kv_caches]
+        with torch.no_grad():
+            got = model(
+                torch.from_numpy(ids), position_ids=torch.from_numpy(positions),
+                attention_mask=None if step_mask is None else torch.from_numpy(step_mask), kv_caches=caches,
+                cache_index=torch.as_tensor(index),
+            ).logits
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref.logits), atol=1e-5, rtol=1e-5)
 
 
 # the paged gates' JAX terms: a paged step with segment ids, or with attention dropout,

@@ -143,7 +143,7 @@ def test_eos_and_queue_bound(models):
         dict(oversubscribe_ratio=1.5),
         dict(mesh=object()),
         dict(prefill_only=True),
-        dict(paged=False),
+        dict(record_interval=5),
         dict(trace_requests=True),
         dict(signature_records=True),
         dict(slo_monitor=object()),
