@@ -80,13 +80,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    engine and then the dense slot pool; each jsonl must hold 32 lines within
    max_new_tokens in the vocabulary. Then 16 of the prompts greedy, 64 new tokens, three
    ways (the paged engine, the dense pool, `ModelWrapper.generate`), their agreement,
-   one request's dense-path logits against the plain forward, launch counts zeroed
+   one request's logits through each engine's own forwards against the plain forward,
+   the checkpoint load timed in its parts (build, read, cast), launch counts zeroed
    before the first run and read after the last, asserted exactly, and a decode step's
    launches for each engine with 16 slots decoding;
 14. ``alibi_generation`` (last): MPT-7B's widths at 16 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
    bias form) and the paged engine (the gathered path), launch counts asserted, the
-   engines' agreement and the dense path's logits against the plain forward.
+   engines' agreement and one request's logits through each engine's own forwards (the
+   paged engine's through the repaired alibi path) against the plain forward.
 
 The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
 at both models' decode and prefill windows over bf16, int8 and fp8 pools, one launch a
@@ -2533,12 +2535,12 @@ def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path) for f in files)
 
 
-def pretrain_phase(seed, device="cuda", rehearsal=None, generation=False):
+def pretrain_phase(seed, device="cuda", rehearsal=None):
     """Phase 12: `pretrain.main` on granite-3b-code at all 32 layers over a seeded corpus,
-    the launch counts zeroed just before and read just after, then, with `generation`,
-    phase 13 (`generate_phase`) from its checkpoint, and the resume check at 2 layers.
-    `rehearsal` (the CPU only) cuts the widths to rehearse the control flow. Returns the
-    record, the launch counts and phase 13's record and launch counts (or None)."""
+    the launch counts zeroed just before and read just after, then phase 13
+    (`generate_phase`) from its checkpoint, and the resume check at 2 layers. `rehearsal`
+    (the CPU only) cuts the widths to rehearse the control flow. Returns the record, the
+    launch counts and phase 13's record and launch counts."""
     import shutil
     import tempfile
 
@@ -2650,7 +2652,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None, generation=False):
             },
             peak_memory_gb=peak_gb, launches=launches, expected_launches=expected, launch_forms=forms,
         )
-        generated = generate_phase(save_path, corpus, config, seed, device, rehearsal) if generation else None
+        generated = generate_phase(save_path, corpus, config, seed, device, rehearsal)
         shutil.rmtree(save_path)  # the 32-layer checkpoint's disk, before the resume check's
 
         # the resume check at 2 layers, the optimizer saved
@@ -2806,60 +2808,68 @@ def _buckets(lengths, multiple, max_len):
     return [min(-(-n // multiple) * multiple, max_len) for n in lengths]
 
 
-def dense_path_logits(model, tokens, prompt_len, bucket_multiple=64):
-    """Logits at every position of `tokens` through the dense pool's path, as
-    `ServingEngine(paged=False)` runs a request: the prompt in one forward, right-padded to
-    its bucket, into a ``[1, bucket]`` cache at the python-int index 0 (the prefill fast
-    path), copied into a slot of a `SlotKVCachePool`, then one decode step per further
-    token with a per-row index."""
+def engine_path_logits(model, prompt, paged, num_slots, bucket_multiple=64, decode_steps=4):
+    """One greedy request through `ServingEngine(paged=paged)` with `num_slots` slots, the
+    others idle: the engine's own forwards, read by a forward hook on the model, give the
+    logits at every real prompt position (the real rows of the prefill, or of each prefill
+    chunk) and at each of `decode_steps` decode steps (the request's row). Returns the
+    tokens those logits are for (the prompt, then the tokens the decode steps fed) and
+    the logits."""
     import torch
 
-    from dolomite_engine_tpu_torch.serving import SlotKVCachePool
+    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
 
-    device = model.device
-    bucket = -(-prompt_len // bucket_multiple) * bucket_multiple
-    pool = SlotKVCachePool(model, 1, bucket + len(tokens))
-    slot = pool.allocate()
-    ids = torch.zeros((1, bucket), dtype=torch.long, device=device)
-    ids[0, :prompt_len] = torch.as_tensor(tokens[:prompt_len], device=device)
-    mask = torch.zeros((1, bucket), dtype=torch.int32, device=device)
-    mask[0, :prompt_len] = 1
-    out = model(
-        ids, position_ids=torch.arange(bucket, device=device)[None], attention_mask=mask,
-        kv_caches=model.init_kv_caches(1, bucket), cache_index=0,
+    prefill, decode = [], []
+
+    def record(module, args, kwargs, out):
+        mask = kwargs.get("attention_mask")
+        if mask is None:  # a decode step: one row per slot
+            decode.append(out.logits[:, -1])
+        else:  # a prefill (chunk): its real rows, from its first position to the mask's frontier
+            start = int(kwargs["position_ids"][0, 0])
+            prefill.append(out.logits[0, : int(mask[0].sum()) - start])
+
+    max_len = -(-len(prompt) // bucket_multiple) * bucket_multiple + decode_steps + 1
+    engine = ServingEngine(
+        model, None, num_slots=num_slots, max_len=max_len, prefill_bucket_multiple=bucket_multiple,
+        eos_token_id=None, paged=paged, device=model.device,
     )
-    pool.write_prefill(slot, out.kv_caches, prompt_len)
-    logits = [out.logits[0, :prompt_len]]
-    for pos in range(prompt_len, len(tokens)):
-        index = torch.tensor([pos], device=device)
-        out = model(
-            torch.tensor([[tokens[pos]]], device=device), position_ids=index[:, None], kv_caches=pool.caches,
-            cache_index=index,
-        )
-        logits.append(out.logits[0])
-    return torch.cat(logits)
+    handle = model.register_forward_hook(record, with_kwargs=True)
+    try:
+        (state,) = serve_batch(engine, [dict(prompt_ids=prompt, max_new_tokens=decode_steps + 1)])
+    finally:
+        handle.remove()
+    assert len(decode) == decode_steps, len(decode)
+    logits = torch.cat(prefill + [rows[state.slot : state.slot + 1] for rows in decode])
+    tokens = list(prompt) + state.tokens[:decode_steps]
+    assert logits.shape[0] == len(tokens), (logits.shape, len(tokens))
+    return tokens, logits
 
 
-def generation_logits_check(model, tokens, prompt_len, bucket_multiple=64):
-    """One request's dense-path logits (`dense_path_logits`: its prompt and 4 decode steps)
-    against a plain full-sequence forward of the same model, and both against the fp32
-    forward, with the serving phase's bf16 tolerance."""
+def generation_logits_check(model, prompt, paged, num_slots, bucket_multiple=64):
+    """One request's logits through an engine's own forwards (`engine_path_logits`: its
+    prompt and 4 decode steps) against a plain full-sequence forward of the same model over
+    the same tokens, and both against the fp32 forward, with the serving phase's bf16
+    tolerance."""
     import torch
 
+    tokens, got = engine_path_logits(model, prompt, paged, num_slots, bucket_multiple)
     ids = torch.tensor([tokens], device=model.device)
     with torch.no_grad():
-        got = dense_path_logits(model, tokens, prompt_len, bucket_multiple).float()
+        got = got.float()
         want = plain_forward(model, ids)[0].float()
         exact = plain_forward(model, ids, torch.float32)[0].float()
     diff = (got - want).abs()
+    prompt_len = len(prompt)
     check = {
+        "engine": "paged" if paged else "dense", "slots": num_slots,
         "positions": len(tokens), "decode_steps": len(tokens) - prompt_len, "max_abs_err": diff.max().item(),
         "mean_abs_err": diff.mean().item(), "logit_std": want.std().item(),
         "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
         "decode_steps_argmax_agreement": (got[prompt_len:].argmax(-1) == want[prompt_len:].argmax(-1)).float().mean().item(),
         "kernel_path_mean_abs_err_vs_fp32": (got - exact).abs().mean().item(),
         "plain_bf16_mean_abs_err_vs_fp32": (want - exact).abs().mean().item(),
-        "tolerance": "dense path vs plain bf16: mean abs err <= 0.1 logit std; against the fp32 forward the dense path errs at most 1.25x the plain bf16 forward",
+        "tolerance": "engine path vs plain bf16: mean abs err <= 0.1 logit std; against the fp32 forward the engine path errs at most 1.25x the plain bf16 forward",
     }
     assert bool(torch.isfinite(got).all()), check
     assert check["mean_abs_err"] <= 0.1 * check["logit_std"], check
@@ -2867,10 +2877,13 @@ def generation_logits_check(model, tokens, prompt_len, bucket_multiple=64):
     return check
 
 
-def decode_step_launches(model, paged, num_slots, max_len, prompt_len=300):
+DECODE_PROMPT = 300  # the prompt of each request in `decode_step_launches`
+
+
+def decode_step_launches(model, paged, num_slots, max_len):
     """Device launches (kernels and copies, by torch.profiler), device time and host time
     of one decode step with every slot decoding: `num_slots` greedy requests of
-    `prompt_len` tokens prefilled, then 4 profiled decode steps and 8 unprofiled ones,
+    `DECODE_PROMPT` tokens prefilled, then 4 profiled decode steps and 8 unprofiled ones,
     each ending in the host fetch of its tokens."""
     import torch
     from torch.autograd import DeviceType
@@ -2879,8 +2892,8 @@ def decode_step_launches(model, paged, num_slots, max_len, prompt_len=300):
 
     engine = ServingEngine(model, None, num_slots=num_slots, max_len=max_len, eos_token_id=None, paged=paged)
     for row in range(num_slots):
-        engine.submit(list(range(1 + row, prompt_len + 1 + row)), max_new_tokens=64)
-    while engine.scheduler.queue_depth or engine.stats.decode_steps == 0 or engine.stats.prefill_tokens < num_slots * prompt_len:
+        engine.submit(list(range(1 + row, DECODE_PROMPT + 1 + row)), max_new_tokens=64)
+    while engine.scheduler.queue_depth or engine.stats.decode_steps == 0 or engine.stats.prefill_tokens < num_slots * DECODE_PROMPT:
         engine.step()
     events, _ = _profiled(lambda: [engine.step() for _ in range(4)])
     decode = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -2906,8 +2919,9 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
     ways: `generate.generate` over the paged engine and over the dense pool, and
     `ModelWrapper.generate` (`generate_tokens`, the batch left-padded to a multiple of 128).
     Launch counts are zeroed just before the first run and read just after the last, and
-    asserted against each run's forwards. Then one request's dense-path logits against the
-    plain forward, and a decode step's launches for each engine with 16 slots decoding.
+    asserted against each run's forwards. Then one request's logits through each engine's
+    own forwards against the plain forward, and a decode step's launches for each engine
+    with 16 slots decoding.
     `rehearsal` (the CPU only) cuts the new tokens of every run to its ``new_tokens`` and
     the longest prompt to its ``longest_prompt``. Returns the record and the launch
     counts."""
@@ -2957,10 +2971,14 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
             launches, forms = _engine_launches(summary["stats"], config, paged, sum(b % 128 == 0 for b in buckets))
             _add(expected, launches)
             _add(expected_forms, forms)
-            load_s = summary["seconds"]["load"]
+            load_s, parts = summary["seconds"]["load"], summary["load_seconds"]
             record[f"{name}_sampled"] = {
                 "requests": summary["requests"], "generated_tokens": summary["generated_tokens"], "max_new_tokens": max_new,
                 "seconds": summary["seconds"], "checkpoint_load_s": load_s, "checkpoint_load_gb_per_s": weight_bytes / 1e9 / load_s,
+                # the load's parts: the wrapper on the meta device and its storage on the card,
+                # the fp32 files to host tensors, and those onto the card cast to bf16
+                "load_seconds": parts, "checkpoint_read_gb_per_s": weight_bytes / 1e9 / parts["read"],
+                "checkpoint_cast_gb_per_s": weight_bytes / 1e9 / parts["cast"],
                 **_engine_record(summary["stats"], summary["engine_seconds"], summary["pool"]),
             }
 
@@ -3006,8 +3024,9 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
             "requests_identical_paged_dense": sum(a == b for a, b in zip(greedy["paged"], greedy["dense"])),
             "requests": GREEDY_PROMPTS, "new_tokens": greedy_new,
         }
-        probe = greedy_prompts[0]
-        record["logits_check"] = generation_logits_check(model.model, probe + greedy["dense"][0][:4], len(probe))
+        record["logits_check"] = {
+            name: generation_logits_check(model.model, greedy_prompts[0], paged, 16) for name, paged in (("paged", True), ("dense", False))
+        }
         if on_card:
             record["launches_per_decode_step"] = {
                 name: decode_step_launches(model.model, paged, 16, 1536) for name, paged in (("paged", True), ("dense", False))
@@ -3029,8 +3048,8 @@ def alibi_generation_phase(seed, device="cuda", config_kwargs=None):
     dense slot pool with prefill buckets of 128 (every prefill takes the flash bias form),
     then through the paged engine (alibi takes the gathered path, as in JAX); launch counts
     zeroed just before the dense run and read just after the paged one; the share of
-    tokens the two engines agree on; one request's dense-path logits against the plain
-    forward; a decode step's launches for each engine. Returns the record and the launch
+    tokens the two engines agree on; one request's logits through each engine's own
+    forwards against the plain forward; a decode step's launches for each engine. Returns the record and the launch
     counts."""
     import numpy as np
     import torch
@@ -3089,7 +3108,10 @@ def alibi_generation_phase(seed, device="cuda", config_kwargs=None):
         assert launches == expected, (launches, expected)
     record["greedy_agreement_dense_vs_paged"] = _agreement(tokens["dense"], tokens["paged"])
     record["requests_identical_dense_vs_paged"] = sum(a == b for a, b in zip(tokens["dense"], tokens["paged"]))
-    record["logits_check"] = generation_logits_check(model, prompts[0] + tokens["dense"][0][:4], len(prompts[0]), ALIBI_BUCKET)
+    record["logits_check"] = {
+        name: generation_logits_check(model, prompts[0], paged, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET)
+        for name, paged in (("paged", True), ("dense", False))
+    }
     if on_card:
         record["launches_per_decode_step"] = {
             name: decode_step_launches(model, paged, ALIBI_GENERATION_SLOTS, max_len) for name, paged in (("paged", True), ("dense", False))
@@ -3198,7 +3220,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    pretrain, pretrain_launches, (generation, generate_launches) = pretrain_phase(args.seed, generation=True)
+    pretrain, pretrain_launches, (generation, generate_launches) = pretrain_phase(args.seed)
     # the same model, shape and cuts as phase 6's repeated batch, through the entry point
     pretrain["vs_training_phase"] = {
         "training_mean_step_s_after_warmup": training["mean_step_s_after_warmup"],

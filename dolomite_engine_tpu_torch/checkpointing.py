@@ -40,11 +40,13 @@ import random
 import re
 import shutil
 import threading
+import time
 
 import numpy as np
 import torch
 import torch.distributed.checkpoint as dcp
 
+from .device import resolve_device
 from .enums import Mode
 from .train_utils import TrainState
 from .utils import dump_yaml, get_telemetry, log_rank_0, process_index, retry_io, trace_annotation
@@ -402,19 +404,55 @@ def load_checkpoint_for_training(
     return state, starting_iteration, metadata, generator
 
 
-def load_checkpoint_for_inference(args, mode: Mode = Mode.inference, device: str | torch.device = "cuda"):
+class _TimedLoadPlanner(dcp.DefaultLoadPlanner):
+    """DCP's default load planner, timing the reads apart from the copies: the storage
+    reader reads each tensor to the host before `resolve_tensor`, and copies it into its
+    target (onto the device, cast to the target's dtype) between `resolve_tensor` and
+    `commit_tensor`."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.read_s = self.copy_s = 0.0
+        self._t = time.perf_counter()
+
+    def finish_plan(self, new_plan):
+        self._t = time.perf_counter()  # the reads start
+        return super().finish_plan(new_plan)
+
+    def resolve_tensor(self, read_item):
+        now = time.perf_counter()
+        self.read_s += now - self._t
+        self._t = now
+        return super().resolve_tensor(read_item)
+
+    def commit_tensor(self, read_item, tensor) -> None:
+        now = time.perf_counter()
+        self.copy_s += now - self._t
+        self._t = now
+        super().commit_tensor(read_item, tensor)
+
+
+def load_checkpoint_for_inference(
+    args, mode: Mode = Mode.inference, device: str | torch.device = "cuda", seconds: dict | None = None
+):
     """Rebuild the model of a training checkpoint for inference (the JAX package's
     `load_checkpoint_for_inference`): the wrapper from the checkpoint's own
-    `training_config.yml` (`get_model(training_args, mode)`, weights in the compute dtype
-    on `device`), then ONLY the model's weights from `state/`: `dcp.load` gets a tree of the
-    model's keys alone, so the optimizer moments are never read. The weights land in
-    staging tensors of their saved dtype on `device` and are then cast into the model.
+    `training_config.yml` (`get_model(training_args, mode)`, weights in the compute dtype),
+    built on the meta device and given uninitialised storage on `device`, so no random
+    init runs; then ONLY the model's weights from `state/`: `dcp.load` gets a tree of the
+    model's own tensors alone, so the optimizer moments are never read, and copies each
+    saved tensor into its weight, cast to the compute dtype on the way.
+
+    `seconds`, when given, is filled with the load's parts: ``build`` (the wrapper, its
+    tokenizer and the device storage), ``read`` (the files to host tensors) and ``cast``
+    (the host tensors onto the device in the compute dtype).
 
     Returns (model_wrapper, training_args)."""
     from .arguments import args_from_dict
     from .model_wrapper import get_model
     from .utils import load_yaml
 
+    device = resolve_device(device)
     finish_pending_checkpoint()  # an in-flight async save may be the one being restored
     retry_kwargs = _retry_kwargs(args)
     load_path = args.load_args.load_path
@@ -422,24 +460,25 @@ def load_checkpoint_for_inference(args, mode: Mode = Mode.inference, device: str
     if iteration is None:
         iteration = _read_latest_iteration(load_path, retry_kwargs)
     base = _get_base_path(load_path, iteration)
+    t0 = time.perf_counter()
     training_args = args_from_dict(load_yaml(os.path.join(base, _TRAINING_CONFIG)), Mode.training)
-    model = get_model(training_args, mode, device=device)
+    model = get_model(training_args, mode, device="meta")
+    model.model.to_empty(device=device)
+    t1 = time.perf_counter()
 
     state_path = os.path.abspath(_state_path(base))
-    saved = retry_io(lambda: _state_metadata(state_path), description="read checkpoint metadata", **retry_kwargs)
-    weights = model.model.state_dict()
-    staging = {}
-    for name, tensor in weights.items():
-        meta = saved[f"model.{name}"]
-        staging[name] = torch.empty(tuple(meta.size), dtype=meta.properties.dtype, device=tensor.device)
-    retry_io(
-        lambda: dcp.load({"model": staging}, checkpoint_id=state_path, no_dist=True),
-        description="inference weights restore",
-        **retry_kwargs,
-    )
-    with torch.no_grad():
-        for name, tensor in weights.items():
-            tensor.copy_(staging.pop(name))
+    planner = _TimedLoadPlanner()
+
+    def restore():
+        planner.read_s = planner.copy_s = 0.0  # a retry starts over
+        dcp.load({"model": model.model.state_dict()}, checkpoint_id=state_path, planner=planner, no_dist=True)
+
+    retry_io(restore, description="inference weights restore", **retry_kwargs)
+    t2 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the last casts
+    if seconds is not None:
+        seconds.update(build=t1 - t0, read=planner.read_s, cast=planner.copy_s + time.perf_counter() - t2)
     log_rank_0(logging.INFO, f"model weights loaded for inference from {base}")
     return model, training_args
 

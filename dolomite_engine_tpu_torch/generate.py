@@ -169,7 +169,8 @@ def _pad_to_static_shapes(collated: dict, batch_size: int, eos_token_id: int, wi
 def main(args: InferenceArgs | None = None, device: str | torch.device = "cuda") -> dict:
     """Load the model, read the test splits and generate on `device` (the GPU unless
     ``"cpu"`` is passed); returns the run's summary: `_generate_with_engine`'s and the
-    seconds of each phase (``load``, ``datasets``, ``generate``)."""
+    seconds of each phase (``load``, ``datasets``, ``generate``) and, from a checkpoint,
+    of the load's parts (``load_seconds``: `load_checkpoint_for_inference`'s)."""
     mode = Mode.inference
     device = resolve_device(device)
     set_logger()
@@ -178,6 +179,7 @@ def main(args: InferenceArgs | None = None, device: str | torch.device = "cuda")
     check_ported_inference_options(args)
 
     t0 = time.perf_counter()
+    load_seconds = {}
     if args.load_args is None:
         model_args = args.model_args
         model = ModelWrapperForFinetuning(
@@ -192,7 +194,7 @@ def main(args: InferenceArgs | None = None, device: str | torch.device = "cuda")
             seed=args.random_args.seed,
         )
     else:
-        model, _ = load_checkpoint_for_inference(args, mode, device)
+        model, _ = load_checkpoint_for_inference(args, mode, device, load_seconds)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
@@ -207,6 +209,7 @@ def main(args: InferenceArgs | None = None, device: str | torch.device = "cuda")
     t2 = time.perf_counter()
     summary = generate(args, model, datasets_list, mode)
     summary["seconds"] = {"load": t1 - t0, "datasets": t2 - t1, "generate": time.perf_counter() - t2}
+    summary["load_seconds"] = load_seconds
     return summary
 
 

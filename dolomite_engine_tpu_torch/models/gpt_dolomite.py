@@ -225,7 +225,8 @@ class GPTDolomiteForCausalLM(nn.Module):
                 param_dtype,
             )
         )
-        self.init_weights(seed)
+        if device.type != "meta":  # on the meta device the weights come from a checkpoint
+            self.init_weights(seed)
 
     @property
     def device(self) -> torch.device:

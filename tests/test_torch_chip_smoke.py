@@ -43,7 +43,7 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     import chip_smoke
 
     rehearsal = {"model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512), "sequence_length": 128, "new_tokens": 8, "longest_prompt": 256}
-    record, launches, (generation, generate_launches) = chip_smoke.pretrain_phase(0, device="cpu", rehearsal=rehearsal, generation=True)
+    record, launches, (generation, generate_launches) = chip_smoke.pretrain_phase(0, device="cpu", rehearsal=rehearsal)
     assert record["losses"][-1] < record["losses"][0]
     assert record["checkpoint"]["consumed_samples"] == 2 * chip_smoke.PRETRAIN_STEPS
     assert [w["at_step"] for w in record["goodput_windows"]] == list(range(1, chip_smoke.PRETRAIN_STEPS + 1))
@@ -55,7 +55,8 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     assert max(generation["prompt_tokens"]) == 256 and generation["dense_sampled"]["pool_max_len"] == 256 + 8
     assert generation["greedy_agreement"]["paged_vs_dense"] > 0.9
     assert generation["greedy_agreement"]["dense_vs_generate_tokens"] > 0.9
-    assert generation["logits_check"]["decode_steps"] == 4
+    assert [c["decode_steps"] for c in generation["logits_check"].values()] == [4, 4]
+    assert generation["dense_sampled"]["load_seconds"].keys() == {"build", "read", "cast"}
     assert not any(generate_launches.values())
     expected = generation["expected_launches"]
     assert expected["paged_decode_attention"] > 0 and expected["flash_attn_fwd"] > 0 and expected["rope_qkv"] > 0
@@ -63,7 +64,7 @@ def test_pretrain_phase_rehearsal(monkeypatch):
 
 def test_alibi_generation_phase_rehearsal(monkeypatch):
     """Phase 14 at a tiny MPT-like width: both engines over alibi, their agreement, and the
-    dense path's logits against the plain forward."""
+    logits of one request through each engine against the plain forward."""
     monkeypatch.chdir(REPO)
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
@@ -73,4 +74,5 @@ def test_alibi_generation_phase_rehearsal(monkeypatch):
     assert record["dense"]["completed"] == record["paged"]["completed"] == chip_smoke.ALIBI_GENERATION_SLOTS
     assert record["greedy_agreement_dense_vs_paged"] > 0.9
     assert record["expected_launches"]["flash_attn_bias_fwd"] == 2 * chip_smoke.ALIBI_GENERATION_SLOTS
+    assert [c["engine"] for c in record["logits_check"].values()] == ["paged", "dense"]
     assert not any(launches.values())

@@ -34,7 +34,7 @@ from dolomite_engine_tpu_torch.arguments import InferenceArgs, TrainingArgs
 from dolomite_engine_tpu_torch.data import get_datasets_list
 from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
 from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForFinetuning, ModelWrapperForPretraining, get_model
-from dolomite_engine_tpu_torch.models import load_jax_params
+from dolomite_engine_tpu_torch.models import GPTDolomiteForCausalLM, load_jax_params
 from tests.test_torch_data import WordTokenizer
 from tests.test_torch_model import ROPE_GQA
 from tests.test_torch_pretrain import _training_args, _write_corpus
@@ -137,7 +137,12 @@ def test_load_checkpoint_for_inference_reads_only_the_weights(trained, monkeypat
 
     monkeypatch.setattr(dcp.FileSystemReader, "read_data", recording)
     args = InferenceArgs(**_inference_config("unused", tmp_path / "out", True, load_args={"load_path": str(tmp_path / "ckpt")}))
-    model, training_args = checkpointing.load_checkpoint_for_inference(args, device="cpu")
+    inits = []
+    monkeypatch.setattr(GPTDolomiteForCausalLM, "init_weights", lambda self, seed: inits.append(seed))
+    seconds = {}
+    model, training_args = checkpointing.load_checkpoint_for_inference(args, device="cpu", seconds=seconds)
+    assert not inits  # built on the meta device: no random init before the restore
+    assert set(seconds) == {"build", "read", "cast"} and all(v >= 0 for v in seconds.values())
     assert isinstance(model, ModelWrapperForPretraining) and model.mode == Mode.inference
     assert isinstance(training_args, TrainingArgs)
     assert read and all(name.startswith("model.") for name in read)  # no optimizer moment, no step
@@ -163,6 +168,7 @@ def test_main_from_a_port_checkpoint(trained, paged):
     words = [word for line in lines for word in line["generated_text"].split()]
     assert words and all(word[0] == "t" and 0 <= int(word[1:]) < 128 for word in words)
     assert set(summary["seconds"]) == {"load", "datasets", "generate"}
+    assert set(summary["load_seconds"]) == {"build", "read", "cast"}
     assert summary["stats"].completed == 6 and summary["pool"]["paged"] == paged
     # the same seeds draw the same streams
     again = generate.main(InferenceArgs(**dict(config, output_dir=str(tmp_path / f"again-{paged}"))), device="cpu")
