@@ -59,8 +59,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``alibi_training``, the train step at 16 of MPT-7B's 32 layers over packed documents
    at its sequence 2048, micro batch 2 x accumulation 2, with launch counts zeroed just
    before and read just after; then ``alibi_training_profile``, one profiled step;
-12. ``pretrain`` (run right after phase 6): the pretraining entry point,
-   `dolomite_engine_tpu_torch.pretrain.main`, on
+12. ``pretrain`` (run right after phase 6): first the resume check at 2 layers (below),
+   then the pretraining entry point, `dolomite_engine_tpu_torch.pretrain.main`, on
    `configs/pretraining-examples/pretrain-v5e-256-granite-3b.yml` loaded through the
    port's `load_yaml` with one-card cuts (`pretrain_args`), over a seeded megatron corpus
    built in a temporary directory: granite-3b-code at all 32 layers for 8 steps of
@@ -68,10 +68,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    telemetry sink, one async save of the fp32 weights at step 8 (the disk's free space
    checked first). Launch counts zeroed just before `main` and read just after, asserted
    against the training micro-batches plus the forward-only eval batches; the losses must
-   be finite and fall. Then the resume check at 2 layers with the optimizer saved: 6 steps
-   unbroken against 3 steps, a save and a resumed `main` to step 6; the batches of steps
-   4-6 (hashed), `consumed_samples` and the losses and grad norms must be identical.
-   The run names a word-level tokenizer it builds (`word_tokenizer`);
+   be finite and fall. The resume check, with the optimizer saved: 6 steps unbroken
+   against 3 steps, a save and a resumed `main` to step 6; the batches of steps 4-6
+   (hashed), `consumed_samples` and the losses and grad norms must be identical; the
+   unbroken run's checkpoint is phase 15's draft model. The runs name a word-level
+   tokenizer the phase builds (`word_tokenizer`);
 13. ``generate`` (inside phase 12, before its 32-layer checkpoint is removed): the
    generation entry point, `dolomite_engine_tpu_torch.generate.main`, on
    `configs/generation.yml` loaded through `load_yaml` with the run's cuts
@@ -84,6 +85,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the checkpoint load timed in its parts (build, read, cast), launch counts zeroed
    before the first run and read after the last, asserted exactly, and a decode step's
    launches for each engine with 16 slots decoding;
+15. ``speculative_generation`` (inside phase 12, after phase 13): n-gram speculation
+   (K = 4) through `generate.main` from the 32-layer checkpoint, greedy (16 x 64, against
+   phase 13's paged greedy tokens) and with the YAML's sampling (32 x 512); then on the
+   engine directly the 2-layer resume model as the draft (8 x 64), the target as its own
+   draft (4 x 32: accept rate >= 0.95, every rejection a near tie), one verify step's
+   logits against the plain forward over a bf16 and an int8 pool (the int8 path's layer-0
+   pool bytes against the plain path's), the host syncs of verify steps (one fetch a
+   step) and a verify step's launches, host and device time with 16 slots decoding;
+   launch counts of every engine run (the plain comparison runs aside) asserted exactly;
+16. ``preemption`` (after phase 15): `generate.main` with ``preemption: swap`` and then
+   ``recompute``, ``oversubscribe_ratio: 2.0`` and 512 pages, greedy 32 x 64, against an
+   unpreempted run (swap: identical tokens), the swap GB/s and the seconds lost; two tiers
+   on the engine (only tier 1 evicted); an int8 swap round trip byte-identical on the
+   card; launch counts asserted exactly;
 14. ``alibi_generation`` (last): MPT-7B's widths at 16 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
    bias form) and the paged engine (the gathered path), launch counts asserted, the
@@ -114,7 +129,7 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
-``generate`` and ``alibi_generation`` lines
+``generate``, ``speculative_generation``, ``preemption`` and ``alibi_generation`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
 times under ``forms``), the card again, and last
@@ -2536,11 +2551,13 @@ def _dir_bytes(path):
 
 
 def pretrain_phase(seed, device="cuda", rehearsal=None):
-    """Phase 12: `pretrain.main` on granite-3b-code at all 32 layers over a seeded corpus,
-    the launch counts zeroed just before and read just after, then phase 13
-    (`generate_phase`) from its checkpoint, and the resume check at 2 layers. `rehearsal`
-    (the CPU only) cuts the widths to rehearse the control flow. Returns the record, the
-    launch counts and phase 13's record and launch counts."""
+    """Phase 12: the resume check at 2 layers, then `pretrain.main` on granite-3b-code at
+    all 32 layers over a seeded corpus, the launch counts zeroed just before and read just
+    after, then from its checkpoint phase 13 (`generate_phase`), phase 15
+    (`speculative_generation_phase`, whose draft model is the resume check's) and phase 16
+    (`preemption_phase`). `rehearsal` (the CPU only) cuts the widths to rehearse the
+    control flow. Returns the record and the launch counts, phase 13's record and launch
+    counts, and phases 15's and 16's records, launch counts and forms."""
     import shutil
     import tempfile
 
@@ -2559,6 +2576,50 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         corpus, documents, tokens = pretrain_corpus(work, seed, model_config["vocab_size"], model_config["eos_token_id"])
         record["corpus"] = {"documents": documents, "tokens": tokens, "dtype": "uint16", "build_s": time.perf_counter() - t0}
         tokenizer = word_tokenizer(os.path.join(work, "tokenizer"), model_config["vocab_size"], model_config["eos_token_id"])
+
+        # the resume check at 2 layers, the optimizer saved
+        def resume_args(save_dir, steps, load_path=None):
+            return pretrain_args(
+                corpus, os.path.join(work, save_dir), steps, n_layer=RESUME_LAYERS, save_optimizer=True,
+                load_path=load_path, decay_steps=RESUME_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
+                tokenizer=tokenizer,
+            )
+
+        unbroken_digests, first_digests, resumed_digests = [], [], []
+        t0 = time.perf_counter()
+        unbroken = _run_pretrain(resume_args("unbroken", RESUME_STEPS), device, unbroken_digests)
+        _run_pretrain(resume_args("broken", RESUME_AT), device, first_digests)
+        broken = os.path.join(work, "broken")
+        resumed = _run_pretrain(resume_args("broken", RESUME_STEPS, load_path=broken), device, resumed_digests)
+        resume_s = time.perf_counter() - t0
+
+        def consumed_at(save_dir):
+            with open(os.path.join(work, save_dir, f"global_step{RESUME_STEPS}", "metadata.json")) as f:
+                return json.load(f)["consumed_samples"]
+
+        tail = [(s["step"], s["loss"], s["grad_norm"]) for s in unbroken["steps"][RESUME_AT:]]
+        got = [(s["step"], s["loss"], s["grad_norm"]) for s in resumed["steps"]]
+        micros = 2 * (RESUME_STEPS - RESUME_AT)
+        check = {
+            "n_layer": RESUME_LAYERS, "steps": RESUME_STEPS, "resumed_at": RESUME_AT,
+            "unbroken": tail, "resumed": got,
+            "batches_identical": resumed_digests[:micros] == unbroken_digests[2 * RESUME_AT : 2 * RESUME_AT + micros],
+            "first_run_batches_are_the_unbroken_runs": first_digests[: 2 * RESUME_AT] == unbroken_digests[: 2 * RESUME_AT],
+            "consumed_samples": [consumed_at("unbroken"), consumed_at("broken")],
+            "bit_identical": got == tail,
+            "max_abs_loss_diff": max(abs(a[1] - b[1]) for a, b in zip(got, tail)),
+            "max_abs_grad_norm_diff": max(abs(a[2] - b[2]) for a, b in zip(got, tail)),
+            "seconds": resume_s,
+            "tolerance": "bit-identical losses and grad norms of steps 4-6; identical batches and consumed_samples",
+        }
+        assert check["batches_identical"] and check["first_run_batches_are_the_unbroken_runs"], check
+        assert check["consumed_samples"] == [2 * RESUME_STEPS] * 2, check
+        assert check["bit_identical"], check
+        record["resume_check"] = check
+        shutil.rmtree(broken)  # the unbroken run's step-6 checkpoint stays: phase 15's draft model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
 
         # the 32-layer run: one save of the fp32 weights at step 8
         save_path = os.path.join(work, "run")
@@ -2652,53 +2713,20 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
             },
             peak_memory_gb=peak_gb, launches=launches, expected_launches=expected, launch_forms=forms,
         )
-        generated = generate_phase(save_path, corpus, config, seed, device, rehearsal)
-        shutil.rmtree(save_path)  # the 32-layer checkpoint's disk, before the resume check's
+        generation, generate_launches, context = generate_phase(save_path, corpus, config, seed, device, rehearsal, work)
+        speculative, speculative_launches, speculative_forms, model = speculative_generation_phase(
+            save_path, context, os.path.join(work, "unbroken"), config, device, rehearsal
+        )
+        preemption = preemption_phase(save_path, context, config, model, device, rehearsal)
+        del model
+        gc.collect()
 
-        # the resume check at 2 layers, the optimizer saved
-        def resume_args(save_dir, steps, load_path=None):
-            return pretrain_args(
-                corpus, os.path.join(work, save_dir), steps, n_layer=RESUME_LAYERS, save_optimizer=True,
-                load_path=load_path, decay_steps=RESUME_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
-                tokenizer=tokenizer,
-            )
-
-        unbroken_digests, first_digests, resumed_digests = [], [], []
-        t0 = time.perf_counter()
-        unbroken = _run_pretrain(resume_args("unbroken", RESUME_STEPS), device, unbroken_digests)
-        _run_pretrain(resume_args("broken", RESUME_AT), device, first_digests)
-        broken = os.path.join(work, "broken")
-        resumed = _run_pretrain(resume_args("broken", RESUME_STEPS, load_path=broken), device, resumed_digests)
-        resume_s = time.perf_counter() - t0
-
-        def consumed_at(save_dir):
-            with open(os.path.join(work, save_dir, f"global_step{RESUME_STEPS}", "metadata.json")) as f:
-                return json.load(f)["consumed_samples"]
-
-        tail = [(s["step"], s["loss"], s["grad_norm"]) for s in unbroken["steps"][RESUME_AT:]]
-        got = [(s["step"], s["loss"], s["grad_norm"]) for s in resumed["steps"]]
-        micros = 2 * (RESUME_STEPS - RESUME_AT)
-        check = {
-            "n_layer": RESUME_LAYERS, "steps": RESUME_STEPS, "resumed_at": RESUME_AT,
-            "unbroken": tail, "resumed": got,
-            "batches_identical": resumed_digests[:micros] == unbroken_digests[2 * RESUME_AT : 2 * RESUME_AT + micros],
-            "first_run_batches_are_the_unbroken_runs": first_digests[: 2 * RESUME_AT] == unbroken_digests[: 2 * RESUME_AT],
-            "consumed_samples": [consumed_at("unbroken"), consumed_at("broken")],
-            "bit_identical": got == tail,
-            "max_abs_loss_diff": max(abs(a[1] - b[1]) for a, b in zip(got, tail)),
-            "max_abs_grad_norm_diff": max(abs(a[2] - b[2]) for a, b in zip(got, tail)),
-            "seconds": resume_s,
-            "tolerance": "bit-identical losses and grad norms of steps 4-6; identical batches and consumed_samples",
-        }
-        assert check["batches_identical"] and check["first_run_batches_are_the_unbroken_runs"], check
-        assert check["consumed_samples"] == [2 * RESUME_STEPS] * 2, check
-        assert check["bit_identical"], check
-        record["resume_check"] = check
-    return record, launches, generated
+    return record, launches, (generation, generate_launches), (speculative, speculative_launches, speculative_forms), preemption
 
 
 GENERATION_YAML = os.path.join("configs", "generation.yml")
 GENERATION_PROMPTS, GREEDY_PROMPTS, GREEDY_NEW = 32, 16, 64
+DENSE_SAMPLED_NEW = 128
 # the alibi cell: MPT-7B's widths at 16 of its 32 layers, random weights; 8 greedy requests
 # of 300-1500 prompt tokens and 64 new tokens, every dense prefill bucket a multiple of 128
 ALIBI_GENERATION_LAYERS, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET = 16, 8, 128
@@ -2729,18 +2757,19 @@ def generation_prompts(directory, corpus, count, seed, longest=1024):
     return prompts
 
 
-def generation_args(load_path, prompts, output_dir, paged, greedy_tokens=None, rehearsal=None):
+def generation_args(load_path, prompts, output_dir, paged, greedy_tokens=None, rehearsal=None, iteration=PRETRAIN_STEPS, **generation):
     """`configs/generation.yml` through the port's `load_yaml`, with the run's cuts: the
-    checkpoint at `load_path` (step `PRETRAIN_STEPS`), the `prompts` directory, the
+    checkpoint at `load_path` (step `iteration`), the `prompts` directory, the
     `output_dir`, and ``paged_kv_cache: paged``; the rest is the YAML's (batch_size 16,
     max_new_tokens 512, sampling at temperature 0.7 / top_p 0.95, bf16). `greedy_tokens`
     makes the requests greedy with that many new tokens; `rehearsal` (the CPU only) cuts
-    max_new_tokens to its ``new_tokens``."""
+    max_new_tokens to its ``new_tokens``; `generation` sets further generation parameters
+    (speculation, preemption, the pool's pages)."""
     from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
     from dolomite_engine_tpu_torch.utils import load_yaml
 
     config = load_yaml(GENERATION_YAML)
-    config["load_args"] = {"load_path": load_path, "iteration": PRETRAIN_STEPS}
+    config["load_args"] = {"load_path": load_path, "iteration": iteration}
     config["datasets"][0]["class_args"]["data_path"] = prompts
     config["output_dir"] = output_dir
     gp = config["generation_parameters"]
@@ -2749,6 +2778,7 @@ def generation_args(load_path, prompts, output_dir, paged, greedy_tokens=None, r
         gp["max_new_tokens"] = rehearsal["new_tokens"]
     if greedy_tokens is not None:
         gp.update(do_sample=False, temperature=None, top_p=None, max_new_tokens=greedy_tokens)
+    gp.update(generation)
     return args_from_dict(config, Mode.inference)
 
 
@@ -2880,17 +2910,18 @@ def generation_logits_check(model, prompt, paged, num_slots, bucket_multiple=64)
 DECODE_PROMPT = 300  # the prompt of each request in `decode_step_launches`
 
 
-def decode_step_launches(model, paged, num_slots, max_len):
+def decode_step_launches(model, paged, num_slots, max_len, **engine_args):
     """Device launches (kernels and copies, by torch.profiler), device time and host time
-    of one decode step with every slot decoding: `num_slots` greedy requests of
-    `DECODE_PROMPT` tokens prefilled, then 4 profiled decode steps and 8 unprofiled ones,
-    each ending in the host fetch of its tokens."""
+    of one decode step (a verify step, with speculation in `engine_args`) with every slot
+    decoding: `num_slots` greedy requests of `DECODE_PROMPT` tokens prefilled, then 4
+    profiled decode steps and 8 unprofiled ones, each ending in the host fetch of its
+    tokens."""
     import torch
     from torch.autograd import DeviceType
 
     from dolomite_engine_tpu_torch.serving import ServingEngine
 
-    engine = ServingEngine(model, None, num_slots=num_slots, max_len=max_len, eos_token_id=None, paged=paged)
+    engine = ServingEngine(model, None, num_slots=num_slots, max_len=max_len, eos_token_id=None, paged=paged, **engine_args)
     for row in range(num_slots):
         engine.submit(list(range(1 + row, DECODE_PROMPT + 1 + row)), max_new_tokens=64)
     while engine.scheduler.queue_depth or engine.stats.decode_steps == 0 or engine.stats.prefill_tokens < num_slots * DECODE_PROMPT:
@@ -2910,7 +2941,7 @@ def decode_step_launches(model, paged, num_slots, max_len):
     }
 
 
-def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=None):
+def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=None, parent=None):
     """Phase 13 (inside phase 12, before its checkpoint is removed): the generation entry
     point from the 32-layer pretrain checkpoint (`config`, its model). `generate.main` over
     `configs/generation.yml` (`generation_args`) on 32 prompts, sampled, with the paged
@@ -2923,8 +2954,10 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
     own forwards against the plain forward, and a decode step's launches for each engine
     with 16 slots decoding.
     `rehearsal` (the CPU only) cuts the new tokens of every run to its ``new_tokens`` and
-    the longest prompt to its ``longest_prompt``. Returns the record and the launch
-    counts."""
+    the longest prompt to its ``longest_prompt``. The prompts are written under `parent`
+    (a temporary directory without it). Returns the record, the launch counts and what the
+    later generation phases reuse: the prompts, their directories, the paged engine's
+    greedy tokens and the logits checks' largest errors."""
     import tempfile
 
     import torch
@@ -2946,7 +2979,8 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
     expected, expected_forms = {spec.name: 0 for spec in KERNELS}, {}
     greedy_new = GREEDY_NEW if rehearsal is None else rehearsal["new_tokens"]
     longest = 1024 if rehearsal is None else rehearsal["longest_prompt"]
-    with tempfile.TemporaryDirectory(prefix="dolomite-generate-") as work:
+    with contextlib.ExitStack() as stack:
+        work = stack.enter_context(tempfile.TemporaryDirectory(prefix="dolomite-generate-")) if parent is None else parent
         prompts = generation_prompts(os.path.join(work, "prompts"), corpus, GENERATION_PROMPTS, seed, longest)
         record["prompt_tokens"] = [len(p) for p in prompts]
         greedy_dir = os.path.join(work, "greedy")
@@ -2958,9 +2992,12 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
         greedy_prompts = prompts[:GREEDY_PROMPTS]
 
         reset_launch_counts()
-        # the entry point as a user runs it: sampled, the YAML's paged engine, then the dense pool
+        # the entry point as a user runs it: sampled, the YAML's paged engine, then the dense
+        # pool (on the card cut to `DENSE_SAMPLED_NEW` new tokens: its decode rate is a
+        # steady per-step rate, and the script's time went to phases 15 and 16)
         for name, paged in (("paged", True), ("dense", False)):
-            args = generation_args(save_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal)
+            cut = {} if paged or rehearsal is not None else {"max_new_tokens": DENSE_SAMPLED_NEW}
+            args = generation_args(save_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal, **cut)
             summary = generate.main(args, device=device)
             max_new = args.generation_parameters.max_new_tokens
             tokens, lines = _outputs(summary["outputs"][0])
@@ -3038,7 +3075,526 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
         assert launches == expected, (launches, expected)
         assert forms == expected_forms, (forms, expected_forms)
     record.update(launches=launches, expected_launches=expected, launch_forms=forms)
-    return record, launches
+    context = {
+        "prompts_dir": os.path.join(work, "prompts"), "greedy_dir": greedy_dir, "prompts": prompts,
+        "greedy_paged": greedy["paged"], "greedy_new": greedy_new,
+        "paged_sampled": {key: record["paged_sampled"][key] for key in ("end_to_end_tok_s", "decode_tok_s", "engine_s", "decode_steps")},
+        "logits_max_abs_err": {name: c["max_abs_err"] for name, c in record["logits_check"].items()},
+    }
+    return record, launches, context
+
+
+# speculative decoding and preemption on the generation entry point (phases 15 and 16)
+SPEC_K = 4
+SPEC_DRAFT_REQUESTS, SPEC_SELF_REQUESTS, SPEC_SELF_NEW = 8, 4, 32
+# the oversubscribed pool: 512 pages of 16 tokens (5.24 MB each at granite's width) under a
+# promise of twice that, for 16 slots whose worst case is up to 68 pages each
+PREEMPT_PAGES, PREEMPT_RATIO = 512, 2.0
+
+
+class _LaunchTally:
+    """Kernel launches summed over a phase's main-path runs: `run()` zeroes the counts just
+    before a run and adds them just after; `expect` adds a run's expected counts."""
+
+    def __init__(self):
+        from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+
+        self.launches = {spec.name: 0 for spec in KERNELS}
+        self.expected = dict(self.launches)
+        self.forms, self.expected_forms = {}, {}
+
+    @contextlib.contextmanager
+    def run(self):
+        from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+
+        reset_launch_counts()
+        yield
+        _add(self.launches, {spec.name: spec.launches for spec in KERNELS})
+        _add(self.forms, form_counts())
+
+    def expect(self, launches, forms):
+        _add(self.expected, launches)
+        _add(self.expected_forms, forms)
+
+    def check(self, on_card):
+        if on_card:  # on the CPU (a rehearsal) the plain versions run
+            assert self.launches == self.expected, (self.launches, self.expected)
+            assert self.forms == self.expected_forms, (self.forms, self.expected_forms)
+        return {"launches": self.launches, "expected_launches": self.expected, "launch_forms": self.forms}
+
+
+def _draft_launches(config, buckets, forwards):
+    """A dense draft model's launches (`serving/speculation.DraftModelDrafter`): per
+    forward rmsnorm 2L + 1 and the flat rope L (the ingest and the draft steps at per-row
+    positions, the prompt prefills); the flash forward L per prompt prefill whose bucket is
+    a multiple of 128."""
+    layers = config.n_layer
+    launches = {
+        "rmsnorm": (2 * layers + 1) * forwards, "rope_qkv": layers * forwards,
+        "flash_attn_fwd": layers * sum(b % 128 == 0 for b in buckets),
+    }
+    return launches, {"rope_qkv:flat": layers * forwards}
+
+
+def _top(tokens, n=5):
+    """The `n` most frequent tokens as ``[[token, count], ...]``."""
+    import collections
+
+    return [list(item) for item in collections.Counter(tokens).most_common(n)]
+
+
+@contextlib.contextmanager
+def _slot_steps(counter):
+    """Adds to ``counter[0]`` the decoding slots of every verify step run inside (the
+    engine's `_emit_verified`, wrapped for the duration): what a per-slot rate divides by."""
+    from dolomite_engine_tpu_torch.serving import ServingEngine
+
+    emit = ServingEngine._emit_verified
+
+    def counted(self, decoding, *args):
+        counter[0] += sum(slot in self._slot_states for slot in decoding)
+        return emit(self, decoding, *args)
+
+    with _swapped([(ServingEngine, "_emit_verified", counted)]):
+        yield
+
+
+def _spec_record(stats, seconds, pool=None, slot_steps=None):
+    return dict(
+        _engine_record(stats, seconds, pool), accept_rate=stats.accept_rate(),
+        accepted_tokens_per_step=stats.accepted_tokens_per_step(),
+        draft_tokens_proposed=stats.draft_tokens_proposed, draft_tokens_accepted=stats.draft_tokens_accepted,
+        tokens_per_verify_step=stats.decode_tokens / max(stats.decode_steps, 1),  # all slots
+        **({} if slot_steps is None else {
+            "decoding_slots_per_verify_step": slot_steps / stats.decode_steps,
+            "tokens_per_verify_step_per_slot": stats.decode_tokens / slot_steps,
+        }),
+    )
+
+
+def _verify_rows(model, record):
+    """A forward hook's arguments for `record(ids, logits)` on the engine's verify forwards
+    (paged, no key mask, the K+1 window)."""
+
+    def hook(module, args, kwargs, out):
+        caches = kwargs.get("kv_caches")
+        if caches and "page_table" in caches[0] and kwargs.get("attention_mask") is None and args[0].shape[1] == SPEC_K + 1:
+            record(args[0], out.logits)
+
+    return model.register_forward_hook(hook, with_kwargs=True)
+
+
+def self_draft_check(model, prompts, reference, logits_bound, max_len, eos_token_id):
+    """(d): the target as its own draft (`SPEC_SELF_REQUESTS` greedy requests of
+    `SPEC_SELF_NEW` tokens). Every rejection is found from the verify step's own logits
+    and the drafts it scored: its logit gap (the target's best logit minus the draft's)
+    must be within `logits_bound`, twice the two engines' largest logit error against the
+    plain forward (the dense draft path and the paged verify path each err at most that
+    much, so a wider gap would not be a tie)."""
+    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
+
+    engine = ServingEngine(
+        model, None, num_slots=SPEC_SELF_REQUESTS, max_len=max_len, eos_token_id=eos_token_id,
+        pad_token_id=model.config.pad_token_id, draft_model=model, draft_params=model.state_dict(), draft_k=SPEC_K,
+        device=model.device,
+    )
+    steps = []
+    collect = engine._collect_drafts
+
+    def collect_and_keep(decoding):
+        drafts, counts = collect(decoding)
+        steps.append([drafts, counts, None])
+        return drafts, counts
+
+    engine._collect_drafts = collect_and_keep
+    handle = _verify_rows(model, lambda ids, logits: steps[-1].__setitem__(2, logits.float()))
+    try:
+        _sync(model.device)
+        t0 = time.perf_counter()
+        states = serve_batch(engine, [dict(prompt_ids=p, max_new_tokens=SPEC_SELF_NEW) for p in prompts[:SPEC_SELF_REQUESTS]])
+        _sync(model.device)
+        seconds = time.perf_counter() - t0
+    finally:
+        handle.remove()
+    gaps = []
+    for drafts, counts, logits in steps:
+        best = logits.max(-1)
+        for row in range(logits.shape[0]):
+            n = int(counts[row])
+            greedy = best.indices[row, :n].tolist()
+            accepted = next((i for i in range(n) if greedy[i] != int(drafts[row, i])), n)
+            if accepted < n:
+                gaps.append((best.values[row, accepted] - logits[row, accepted, int(drafts[row, accepted])]).item())
+    stats = engine.stats
+    check = {
+        **_spec_record(stats, seconds), "requests": len(states), "new_tokens": SPEC_SELF_NEW,
+        "rejections": len(gaps), "rejection_logit_gaps": sorted(gaps, reverse=True)[:10],
+        "logit_gap_bound": logits_bound,
+        "agreement_with_paged_greedy": _agreement([s.tokens for s in states], [r[:SPEC_SELF_NEW] for r in reference]),
+        "tolerance": "accept rate >= 0.95; every rejection a near tie: its logit gap <= twice the engines' largest logit error vs the plain forward",
+    }
+    assert stats.accept_rate() >= 0.95, check
+    assert all(gap <= logits_bound for gap in gaps), check
+    return check, stats, [len(p) for p in prompts[:SPEC_SELF_REQUESTS]]
+
+
+def verify_logits_check(model, prompt, kv_dtype=None, tally=None):
+    """(e): one request through a speculating engine (n-gram, K = 4, 16 slots, the rest
+    idle): its prompt in chunks, then one verify step over the K+1 window. A forward hook
+    reads the engine's own logits (the prompt's real rows and the window); they are held
+    against a plain full-sequence forward over the prompt and the window's tokens, bf16 and
+    fp32. Over an int8 pool the request runs again through the plain versions of the paged
+    kernels and the fused scatter-quantize (`_plain_quantized_path`, on the same CUDA
+    tensors): layer 0's pool (codes and scales) must hold the same bytes, and the window's
+    logits must agree. The kernel path's engine run adds its launches to `tally`."""
+    import torch
+
+    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
+
+    def run(counted=None):
+        prefill, window = [], []
+
+        def hook(module, args, kwargs, out):
+            mask = kwargs.get("attention_mask")
+            caches = kwargs.get("kv_caches")
+            if mask is not None and caches and "page_table" in caches[0]:
+                start = int(kwargs["position_ids"][0, 0])
+                prefill.append(out.logits[0, : int(mask[0].sum()) - start].float())
+
+        handle = model.register_forward_hook(hook, with_kwargs=True)
+        verify = _verify_rows(model, lambda ids, logits: window.append((ids, logits.float())))
+        engine = ServingEngine(
+            model, None, num_slots=16, max_len=-(-len(prompt) // 64) * 64 + 8, eos_token_id=None,
+            speculate_ngram=True, draft_k=SPEC_K, kv_dtype=kv_dtype, device=model.device,
+        )
+        try:
+            with counted.run() if counted is not None else contextlib.nullcontext():
+                (state,) = serve_batch(engine, [dict(prompt_ids=prompt, max_new_tokens=2)])
+        finally:
+            handle.remove()
+            verify.remove()
+        if counted is not None:
+            counted.expect(*_engine_launches(engine.stats, model.config, True, 0))
+            if kv_dtype is not None:  # the fused scatter-quantize: K and V of a layer per forward
+                scatters = model.config.n_layer * (engine.stats.decode_steps + engine.stats.prefill_chunks)
+                counted.expect({"kv_quant": scatters}, {"kv_quant:scatter": scatters})
+        assert len(window) == 1, len(window)
+        ids, logits = window[0]
+        return torch.cat(prefill + [logits[state.slot]]), ids[state.slot].tolist(), engine
+
+    with torch.no_grad():
+        got, window, engine = run(tally)
+        tokens = list(prompt) + window
+        ids = torch.tensor([tokens], device=model.device)
+        want = plain_forward(model, ids)[0].float()
+        exact = plain_forward(model, ids, torch.float32)[0].float()
+    p = len(prompt)
+    diff = (got - want).abs()
+    check = {
+        "kv_dtype": kv_dtype or "bf16", "positions": len(tokens), "window": window, "drafts_proposed": int(engine.stats.draft_tokens_proposed),
+        "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(), "logit_std": want.std().item(),
+        "window_max_abs_err": diff[p:].max().item(), "window_mean_abs_err": diff[p:].mean().item(),
+        "window_argmax_agreement": (got[p:].argmax(-1) == want[p:].argmax(-1)).float().mean().item(),
+        "engine_mean_abs_err_vs_fp32": (got - exact).abs().mean().item(),
+        "plain_bf16_mean_abs_err_vs_fp32": (want - exact).abs().mean().item(),
+    }
+    assert bool(torch.isfinite(got).all()) and got.shape[0] == len(tokens), check
+    assert check["mean_abs_err"] <= 0.1 * check["logit_std"], check
+    if kv_dtype is None:
+        check["tolerance"] = "engine vs plain bf16: mean abs err <= 0.1 logit std; vs the fp32 forward at most 1.25x the plain bf16 forward's error"
+        assert check["engine_mean_abs_err_vs_fp32"] <= 1.25 * check["plain_bf16_mean_abs_err_vs_fp32"], check
+        return check
+    kernel_pool = [{name: t.clone() for name, t in engine.pool.caches[0].items()}]
+    with torch.no_grad(), _plain_quantized_path():
+        plain, plain_window, plain_engine = run()
+    identical = {name: same_pages(kernel_pool[0][name], plain_engine.pool.caches[0][name]) for name in kernel_pool[0]}
+    window_diff = (got[p:] - plain[p:]).abs()
+    check.update(
+        plain_path_window=plain_window, layer0_pool_bytes_identical=identical,
+        window_mean_abs_err_vs_plain_path=window_diff.mean().item(), window_max_abs_err_vs_plain_path=window_diff.max().item(),
+        tolerance=(
+            "engine vs plain bf16 forward: mean abs err <= 0.1 logit std (the serving check's bound); vs the "
+            "plain quantized path: layer 0's codes and scales byte-identical (trash page 0 aside), the same "
+            "window, its logits' mean abs err <= 0.1 logit std"
+        ),
+    )
+    assert plain_window == window and all(identical.values()), check
+    assert check["window_mean_abs_err_vs_plain_path"] <= 0.1 * check["logit_std"], check
+    return check
+
+
+def _main_run(args, device):
+    from dolomite_engine_tpu_torch import generate
+
+    summary = generate.main(args, device=device)
+    tokens, lines = _outputs(summary["outputs"][0])
+    return summary, tokens, lines
+
+
+def speculative_generation_phase(save_path, context, draft_path, config, device="cuda", rehearsal=None):
+    """Phase 15, speculative decoding from the 32-layer pretrain checkpoint (granite-3b-code,
+    bf16, 16 slots, paged): (a) `generate.main` on `configs/generation.yml` with
+    ``speculate_ngram: true, draft_k: 4``, greedy, 16 prompts x 64 tokens, against the
+    `generate` phase's paged greedy tokens; (b) the same with the YAML's sampling (32
+    prompts x 512, the `generate` phase's paged run beside it); then the checkpoint loaded
+    once (`load_checkpoint_for_inference`) for the engine directly: (c) the pretrain
+    phase's 2-layer resume model (`draft_path`) as the draft, 8 greedy requests x 64; (d)
+    the target as its own draft (`self_draft_check`); (e) one verify step's logits over a
+    bf16 and an int8 pool (`verify_logits_check`); the host syncs of an n-gram run, and
+    the launches, host and device time of a verify step with 16 slots decoding. Launch
+    counts are zeroed before each of (a)-(d) and (e)'s kernel-path runs and read after,
+    and asserted. Returns the record, the launch counts, their forms and the loaded
+    model."""
+    import inspect
+
+    import torch
+
+    from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
+    from dolomite_engine_tpu_torch.enums import Mode
+    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
+
+    on_card = torch.device(device).type == "cuda"
+    work = os.path.dirname(context["prompts_dir"])
+    greedy_new = context["greedy_new"]
+    tally = _LaunchTally()
+    record = {"draft_k": SPEC_K, "yaml": GENERATION_YAML}
+
+    # (a) greedy n-gram speculation through the entry point
+    args = generation_args(
+        save_path, context["greedy_dir"], os.path.join(work, "spec-greedy"), True, greedy_new,
+        speculate_ngram=True, draft_k=SPEC_K,
+    )
+    slot_steps = [0]
+    with tally.run(), _slot_steps(slot_steps):
+        summary, tokens, _ = _main_run(args, device)
+    tally.expect(*_engine_launches(summary["stats"], config, True, 0))
+    record["ngram_greedy"] = dict(
+        _spec_record(summary["stats"], summary["engine_seconds"], summary["pool"], slot_steps[0]), requests=summary["requests"],
+        agreement_with_paged_greedy=_agreement(tokens, context["greedy_paged"]),
+        requests_identical=sum(a == b for a, b in zip(tokens, context["greedy_paged"])),
+    )
+    # (b) the YAML's sampling, with speculation
+    args = generation_args(
+        save_path, context["prompts_dir"], os.path.join(work, "spec-sampled"), True, rehearsal=rehearsal,
+        speculate_ngram=True, draft_k=SPEC_K,
+    )
+    slot_steps = [0]
+    with tally.run(), _slot_steps(slot_steps):
+        summary, tokens, lines = _main_run(args, device)
+    tally.expect(*_engine_launches(summary["stats"], config, True, 0))
+    max_new = args.generation_parameters.max_new_tokens
+    assert summary["requests"] == len(lines) == GENERATION_PROMPTS and summary["stats"].completed == GENERATION_PROMPTS
+    assert all(0 < line["num_generated_tokens"] <= max_new for line in lines), lines
+    assert all(0 <= t < config.vocab_size for row in tokens for t in row), "a generated word outside the vocabulary"
+    record["ngram_sampled"] = dict(
+        _spec_record(summary["stats"], summary["engine_seconds"], summary["pool"], slot_steps[0]), requests=summary["requests"],
+        generated_tokens=summary["generated_tokens"], max_new_tokens=max_new,
+        generate_phase_paged_sampled=context["paged_sampled"],
+    )
+
+    # the engine directly, on the checkpoint's model loaded once
+    model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
+    target = model.model
+    prompts = context["prompts"][:GREEDY_PROMPTS]
+    bucketed = -(-max(map(len, prompts)) // 64) * 64
+    max_len = bucketed + greedy_new
+    # (c) the 2-layer resume model as the draft
+    draft_args = generation_args(draft_path, context["greedy_dir"], os.path.join(work, "unused"), True, greedy_new, iteration=RESUME_STEPS)
+    draft, _ = load_checkpoint_for_inference(draft_args, Mode.inference, device)
+    engine = ServingEngine(
+        target, None, num_slots=16, max_len=max_len, eos_token_id=model.eos_token_id, pad_token_id=config.pad_token_id,
+        draft_model=draft.model, draft_params=draft.model.state_dict(), draft_k=SPEC_K, device=target.device,
+    )
+    specs = [dict(prompt_ids=p, max_new_tokens=greedy_new) for p in prompts[:SPEC_DRAFT_REQUESTS]]
+    proposals = []
+    collect = engine._collect_drafts
+
+    def collect_and_keep(decoding):
+        drafts, counts = collect(decoding)
+        proposals.extend(int(t) for row in decoding for t in drafts[row, : counts[row]])
+        return drafts, counts
+
+    engine._collect_drafts = collect_and_keep
+    with tally.run():
+        _sync(target.device)
+        t0 = time.perf_counter()
+        states = serve_batch(engine, specs)
+        _sync(target.device)
+        seconds = time.perf_counter() - t0
+    stats = engine.stats
+    tally.expect(*_engine_launches(stats, config, True, 0))
+    tally.expect(*_draft_launches(draft.model.config, _buckets([len(s["prompt_ids"]) for s in specs], 64, max_len + SPEC_K), len(specs) + SPEC_K * stats.decode_steps))
+    record["draft_model"] = dict(
+        _spec_record(stats, seconds), requests=len(states), draft_n_layer=draft.model.config.n_layer,
+        agreement_with_paged_greedy=_agreement([s.tokens for s in states], context["greedy_paged"]),
+        requests_identical=sum(s.tokens == r for s, r in zip(states, context["greedy_paged"])),
+        # what each model favours: the draft's proposals and the target's tokens, by count
+        draft_top_proposals=_top(proposals), target_top_tokens=_top([t for s in states for t in s.tokens]),
+    )
+    del engine, draft
+    gc.collect()
+    # (d) the target as its own draft
+    bound = 2 * sum(context["logits_max_abs_err"].values())
+    self_len = bucketed + SPEC_SELF_NEW
+    with tally.run():
+        check, stats, lengths = self_draft_check(target, prompts, context["greedy_paged"], bound, self_len, model.eos_token_id)
+    tally.expect(*_engine_launches(stats, config, True, 0))
+    tally.expect(*_draft_launches(config, _buckets(lengths, 64, self_len + SPEC_K), len(lengths) + SPEC_K * stats.decode_steps))
+    record["self_draft"] = check
+    # (e) one verify step's logits, bf16 and int8 pools
+    probe = prompts[0][:300]
+    probe = probe + probe[:100]  # repeats itself, so the n-gram drafter proposes K tokens
+    record["verify_logits_check"] = {
+        name: verify_logits_check(target, probe, kv_dtype, tally) for name, kv_dtype in (("bf16", None), ("int8", "int8"))
+    }
+    if on_card:  # sync debug mode needs a card
+        # the host syncs of n-gram verify steps, and a verify step's launches and times
+        counted = ServingEngine(target, None, num_slots=4, max_len=max_len, eos_token_id=None, speculate_ngram=True, draft_k=SPEC_K, device=target.device)
+        syncs = _count_host_syncs(lambda: serve_batch(counted, [dict(prompt_ids=p, max_new_tokens=16) for p in prompts[:4]]))
+        lines, start = inspect.getsourcelines(ServingEngine._verify)
+        fetch = f"{os.path.relpath(inspect.getsourcefile(ServingEngine))}:{start + next(i for i, line in enumerate(lines) if '# host fetch' in line)}"
+        steps = counted.stats.decode_steps
+        record["host_syncs"] = {
+            "sites": syncs, "verify_steps": steps, "fetch_site": fetch, "fetches_per_verify_step": syncs.get(fetch, 0) / steps,
+            "per_verify_step_all_sites": sum(syncs.values()) / steps,
+        }
+        elsewhere = {site: n for site, n in syncs.items() if "sampling.py" in site or "speculation.py" in site}
+        assert not elsewhere, f"the acceptance or the drafter synchronises with the host: {elsewhere}"
+        assert syncs.get(fetch) == steps, record["host_syncs"]
+        record["launches_per_verify_step"] = decode_step_launches(target, True, 16, 1536, speculate_ngram=True, draft_k=SPEC_K)
+        record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record.update(tally.check(on_card))
+    return record, tally.launches, tally.forms, model
+
+
+def preemption_phase(save_path, context, config, model, device="cuda", rehearsal=None):
+    """Phase 16, preemption from the same checkpoint: (a) `generate.main` with
+    ``preemption: swap``, ``oversubscribe_ratio: 2.0`` and ``kv_num_pages: 512`` (2.7 GB),
+    greedy, 32 prompts x 64 tokens, 16 slots, whose worst case (~1088 pages) runs the pool
+    physically dry, against an unpreempted greedy run of the same prompts (`generate` over
+    the loaded `model` and the YAML's pool); (b) the same with ``preemption: recompute``;
+    (c) the engine directly with two tiers: tier-1 requests fill the pool, tier-0 arrivals
+    evict them, later tier-1 arrivals wait, and only tier 1 is ever evicted; (d) a swap
+    round trip over an int8 pool, pages and scale rows byte-identical on the card, timed
+    both ways. Launch counts are zeroed before each of (a)-(c) and read after, and
+    asserted. Returns the record, the launch counts and their forms."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch import generate
+    from dolomite_engine_tpu_torch.data import get_datasets_list
+    from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
+    from dolomite_engine_tpu_torch.serving import RequestStatus, ServingEngine
+
+    on_card = torch.device(device).type == "cuda"
+    work = os.path.dirname(context["prompts_dir"])
+    greedy_new = context["greedy_new"]
+    pages = PREEMPT_PAGES if rehearsal is None else rehearsal["preempt_pages"]
+    tally = _LaunchTally()
+    record = {"kv_num_pages": pages, "oversubscribe_ratio": PREEMPT_RATIO, "new_tokens": greedy_new}
+
+    # the unpreempted greedy reference: the YAML's pool, the loaded model
+    args = generation_args(save_path, context["prompts_dir"], os.path.join(work, "unpreempted"), True, greedy_new)
+    datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
+    reference = generate.generate(args, model, datasets, Mode.inference)
+    want, _ = _outputs(reference["outputs"][0])
+    record["unpreempted"] = _engine_record(reference["stats"], reference["engine_seconds"], reference["pool"])
+    for mode in ("swap", "recompute"):
+        args = generation_args(
+            save_path, context["prompts_dir"], os.path.join(work, f"preempt-{mode}"), True, greedy_new,
+            preemption=mode, oversubscribe_ratio=PREEMPT_RATIO, kv_num_pages=pages,
+        )
+        with tally.run():
+            summary, tokens, _ = _main_run(args, device)
+        stats = summary["stats"]
+        tally.expect(*_engine_launches(stats, config, True, 0))
+        run = dict(
+            _engine_record(stats, summary["engine_seconds"], summary["pool"]), requests=summary["requests"],
+            preemptions=stats.preemptions, preempted_by_tier=stats.preempted_by_tier,
+            pages_swapped_out=stats.pages_swapped_out, pages_swapped_in=stats.pages_swapped_in,
+            agreement_with_unpreempted=_agreement(tokens, want),
+            requests_identical_to_unpreempted=sum(a == b for a, b in zip(tokens, want)),
+            seconds_lost_vs_unpreempted=summary["engine_seconds"] - reference["engine_seconds"],
+            swap=summary["swap"],
+        )
+        if summary["swap"] is not None:  # host-timed: the copies out end on the host, those in are enqueued
+            swap = summary["swap"]
+            run["swap_gb_per_s"] = {"out": swap["bytes_out"] / 1e9 / swap["seconds_out"], "in": swap["bytes_in"] / 1e9 / swap["seconds_in"]}
+        record[mode] = run
+        assert stats.preemptions > 0 and stats.completed == GENERATION_PROMPTS, run
+        if mode == "swap":
+            assert stats.pages_swapped_out == stats.pages_swapped_in > 0, run
+            assert tokens == want, f"a swap-preempted greedy run differs from the unpreempted run: {run}"
+
+    # (c) two tiers on the engine: tier 1 fills the pool, tier 0 evicts it, tier 1 waits
+    target = model.model
+    max_len = reference["pool"]["max_len"]
+    engine = ServingEngine(
+        target, None, num_slots=16, max_len=max_len, eos_token_id=model.eos_token_id, pad_token_id=config.pad_token_id,
+        num_pages=pages, preemption="swap", device=target.device,
+    )
+    prompts = context["prompts"]
+    with tally.run():
+        low = [engine.submit(prompt_ids=p, max_new_tokens=greedy_new, priority=1) for p in prompts[:8]]
+        while engine.stats.decode_steps < 4:
+            engine.step()
+        high = [engine.submit(prompt_ids=p, max_new_tokens=greedy_new, priority=0) for p in prompts[8:16]]
+        while any(s.status == RequestStatus.waiting for s in high):
+            engine.step()
+        late = [engine.submit(prompt_ids=p, max_new_tokens=greedy_new, priority=1) for p in prompts[16:20]]
+        engine.drain()
+    stats = engine.stats
+    tally.expect(*_engine_launches(stats, config, True, 0))
+    states = low + high + late
+    record["tiers"] = {
+        "preemptions": stats.preemptions, "preempted_by_tier": stats.preempted_by_tier,
+        "tier0_preemptions": sum(s.preemptions for s in high), "pages_swapped_out": stats.pages_swapped_out,
+        "agreement_with_unpreempted": _agreement([s.tokens for s in states], want[:20]),
+        "requests_identical_to_unpreempted": sum(s.tokens == w for s, w in zip(states, want)),
+    }
+    assert all(s.status == RequestStatus.completed for s in states), record["tiers"]
+    assert stats.preemptions > 0 and set(stats.preempted_by_tier) == {1}, record["tiers"]
+    assert record["tiers"]["tier0_preemptions"] == 0, record["tiers"]
+    del engine
+
+    # (d) a swap round trip over an int8 pool
+    engine = ServingEngine(
+        target, None, num_slots=2, max_len=max_len, eos_token_id=None, kv_dtype="int8", preemption="swap", device=target.device,
+    )
+    state = engine.submit(prompt_ids=prompts[0], max_new_tokens=8)
+    while state.num_generated < 4:
+        engine.step()
+    used = -(-int(engine.pool.lengths[state.slot]) // engine.pool.page_size)
+    old = torch.as_tensor(engine.pool.page_table[state.slot, :used].astype(np.int64), device=target.device)
+
+    def snapshot(index):
+        return [{name: a.view(torch.uint8)[index].clone() if a.element_size() == 1 else a[index].clone() for name, a in c.items()} for c in engine.pool.caches]
+
+    before = snapshot(old)
+    _sync(target.device)
+    t0 = time.perf_counter()
+    engine._preempt(state)
+    out_s = time.perf_counter() - t0
+    for cache in engine.pool.caches:  # the freed pages overwritten, as a neighbour's writes would
+        for array in cache.values():
+            array.view(torch.uint8)[old] = 0x5A
+    assert engine.scheduler.pop_next() is state
+    t0 = time.perf_counter()
+    assert engine._try_admit(state)
+    _sync(target.device)
+    in_s = time.perf_counter() - t0
+    new = torch.as_tensor(engine.pool.page_table[state.slot, :used].astype(np.int64), device=target.device)
+    identical = all(torch.equal(a, b[name]) for c, b in zip(snapshot(new), before) for name, a in c.items())
+    nbytes = used * engine.pool.page_bytes
+    record["int8_swap_round_trip"] = {
+        "pages": used, "bytes": nbytes, "pages_and_scales_identical": identical, "out_s": out_s, "in_s": in_s,
+        "out_gb_per_s": nbytes / 1e9 / out_s, "in_gb_per_s": nbytes / 1e9 / in_s,
+    }
+    assert identical, record["int8_swap_round_trip"]
+    engine.drain()
+    assert state.status == RequestStatus.completed
+    record.update(tally.check(on_card))
+    return record, tally.launches, tally.forms
 
 
 def alibi_generation_phase(seed, device="cuda", config_kwargs=None):
@@ -3220,7 +3776,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    pretrain, pretrain_launches, (generation, generate_launches) = pretrain_phase(args.seed)
+    pretrain, pretrain_launches, (generation, generate_launches), speculated, preempted = pretrain_phase(args.seed)
+    speculative, speculative_launches, speculative_forms = speculated
+    preemption, preemption_launches, preemption_forms = preempted
     # the same model, shape and cuts as phase 6's repeated batch, through the entry point
     pretrain["vs_training_phase"] = {
         "training_mean_step_s_after_warmup": training["mean_step_s_after_warmup"],
@@ -3228,6 +3786,8 @@ def main() -> int:
     }
     print(json.dumps({"pretrain": pretrain, "card": card}), flush=True)
     print(json.dumps({"generate": generation, "card": card}), flush=True)
+    print(json.dumps({"speculative_generation": speculative, "card": card}), flush=True)
+    print(json.dumps({"preemption": preemption, "card": card}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3278,6 +3838,7 @@ def main() -> int:
         "serving": serving, "training": training, "moe_serving": moe_serving, "moe_training": moe_training,
         "quantized_serving": {"launch_forms": quantized_forms}, "alibi_training": alibi_training,
         "pretrain": pretrain, "generate": generation, "alibi_generation": alibi_generation,
+        "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
     }
 
     def summary(case_list):
@@ -3301,6 +3862,7 @@ def main() -> int:
             "quantized_serving": quantized_launches[spec.name], "alibi_training": alibi_training_launches[spec.name],
             "pretrain": pretrain_launches[spec.name], "generate": generate_launches[spec.name],
             "alibi_generation": alibi_generation_launches[spec.name],
+            "speculative_generation": speculative_launches[spec.name], "preemption": preemption_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

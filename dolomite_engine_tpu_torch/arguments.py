@@ -1061,15 +1061,11 @@ def check_ported_inference_options(args: InferenceArgs) -> None:
     """Refuse, naming its ROADMAP item, each generation option of `args` the port does not
     run."""
     gp = args.generation_parameters
-    if gp.speculate_ngram or gp.draft_model is not None:
+    if gp.draft_model is not None:
         raise NotImplementedError(
-            "generation_parameters.speculate_ngram / draft_model is not ported yet: ROADMAP.md "
-            "Queue A, 'Speculative decoding'"
-        )
-    if gp.preemption != "off" or gp.oversubscribe_ratio != 1.0:
-        raise NotImplementedError(
-            "generation_parameters.preemption / oversubscribe_ratio is not ported yet: ROADMAP.md "
-            "Queue A, 'Preemption and oversubscription'"
+            "generation_parameters.draft_model (loading a draft checkpoint by name) is not ported "
+            "yet: ROADMAP.md Queue A, 'Interop and tools' (ServingEngine takes a draft model "
+            "directly)"
         )
     if gp.tensor_parallel_size > 1:
         raise NotImplementedError(

@@ -7,8 +7,9 @@ continuous-batching `ServingEngine` (the paged pool, or the dense slot pool unde
 ``paged_kv_cache: false``), and ``output-<data_name>.jsonl`` gets one line a row, in
 dataset order, with ``generated_text`` and ``num_generated_tokens``. Each request's
 sampling seed is drawn from one `torch.Generator` seeded with `random_args.seed`. The
-engine options the port does not run raise, naming their ROADMAP item
-(`arguments.check_ported_inference_options`), as does an encoder-decoder model.
+engine runs the YAML's speculation (``speculate_ngram``, ``draft_k``), preemption and
+``oversubscribe_ratio``; the options the port does not run raise, naming their ROADMAP
+item (`arguments.check_ported_inference_options`), as does an encoder-decoder model.
 
     python -m dolomite_engine_tpu_torch.generate --config generation.yml
 """
@@ -49,7 +50,7 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
     """Decoder-only batch decode through one `ServingEngine`: every dataset row is one
     request with its own prompt length, a slot is reused the moment its row hits EOS, and
     outputs keep dataset order. Returns the requests, prompt and generated tokens, the
-    engine's seconds, its `EngineStats` and its pool."""
+    engine's seconds, its `EngineStats`, its pool and its host swap traffic."""
     from .serving import SamplingParams, ServingEngine, serve_batch
 
     gp = args.generation_parameters
@@ -69,7 +70,7 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
 
     sampling = SamplingParams(do_sample=bool(gp.do_sample), temperature=gp.temperature, top_k=gp.top_k, top_p=gp.top_p)
     pad_token_id = next((t for t in (model.tokenizer.pad_token_id, model.eos_token_id) if t is not None), 0)
-    load_draft_model(gp.draft_model)
+    draft_model, draft_params = load_draft_model(gp.draft_model)
     engine = ServingEngine(
         model.model,
         None,
@@ -85,7 +86,13 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
         kv_dtype=gp.kv_dtype,
         prefill_chunk_tokens=gp.prefill_chunk_tokens,
         prefix_caching=gp.prefix_caching,
+        preemption=gp.preemption,
+        oversubscribe_ratio=gp.oversubscribe_ratio,
         session_ttl_s=gp.session_ttl_s,
+        speculate_ngram=gp.speculate_ngram,
+        draft_model=draft_model,
+        draft_params=draft_params,
+        draft_k=gp.draft_k,
         device=model.model.device,
     )
 
@@ -122,9 +129,15 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
         summary["generated_tokens"] += sum(state.num_generated for state in states)
         summary["outputs"].append(output_path)
         log_rank_0(20, f"wrote {output_path}")
+    swap = engine._swap
     summary.update(
         engine_seconds=time.perf_counter() - t0,
         stats=engine.stats,
+        # the host swap pool's traffic (``preemption: swap``); the copies out end on the host
+        swap=None if swap is None else {
+            "bytes_out": swap.bytes_out, "seconds_out": swap.seconds_out,
+            "bytes_in": swap.bytes_in, "seconds_in": swap.seconds_in,
+        },
         pool={
             "paged": gp.paged_kv_cache,
             "num_slots": engine.pool.num_slots,
@@ -137,12 +150,13 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
 
 
 def load_draft_model(name: str | None) -> tuple:
-    """A draft model for speculative decoding: (None, None) without one; loading one is
-    not ported."""
+    """A draft model for speculative decoding, named by checkpoint: (None, None) without
+    one. The JAX package loads it through its HF import, which the port does not run yet
+    (`ServingEngine(draft_model=, draft_params=)` takes a model directly)."""
     if not name:
         return None, None
     raise NotImplementedError(
-        "draft-model speculative decoding is not ported yet: ROADMAP.md Queue A, 'Speculative decoding'"
+        "loading a draft model by name is not ported yet: ROADMAP.md Queue A, 'Interop and tools'"
     )
 
 

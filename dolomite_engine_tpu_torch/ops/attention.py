@@ -270,6 +270,26 @@ def paged_scatter_kv(
     return pages
 
 
+def gather_kv_pages(caches: list[dict[str, torch.Tensor]], page_index: torch.Tensor) -> list[dict[str, torch.Tensor]]:
+    """Copies of whole physical pages of a paged pool: ``page_index`` [W] physical page
+    ids, every per-layer array page-major, so a quantized pool's per-(page, head) scale
+    rows come out with their codes (fp8 codes as their bytes, `as_bytes`). The swap-out
+    half of preemption: the result goes to host memory and the device pages are freed.
+    The JAX package's `gather_kv_pages`, which computes it outside any kernel, as here."""
+    return [{name: as_bytes(array).index_select(0, page_index) for name, array in cache.items()} for cache in caches]
+
+
+def scatter_kv_pages(
+    caches: list[dict[str, torch.Tensor]], payload: list[dict[str, torch.Tensor]], page_index: torch.Tensor
+) -> None:
+    """The swap-in half: write `payload` (a `gather_kv_pages` result, on the pool's
+    device) onto the physical pages ``page_index`` [W] of every layer, IN PLACE. A raw
+    copy, so page bytes and scale rows come back exactly as they went out."""
+    for cache, chunk in zip(caches, payload):
+        for name, array in cache.items():
+            as_bytes(array).index_copy_(0, page_index, chunk[name])
+
+
 def paged_gather_kv(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """Gather each row's pages into a contiguous ``[B, max_pages * page_size, H, D]`` view.
 

@@ -136,6 +136,78 @@ def sample_tokens_vectorized(
     return tokens
 
 
+def speculative_accept(
+    logits: torch.Tensor,
+    draft_tokens: torch.Tensor,
+    num_drafts: torch.Tensor,
+    generators: Sequence[torch.Generator | None],
+    do_sample: Sequence[bool] | np.ndarray,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative-decoding acceptance and bonus token of a verify step (the JAX
+    package's `speculative_accept`, with the rng carry left to the generators).
+
+    ``logits`` [S, K+1, V]: position i is the target's distribution for draft i+1, and
+    position j gives the bonus token after j acceptances. The drafts ``draft_tokens`` [S,
+    K] are deterministic proposals (a point-mass q), so the rejection rule is:
+
+    - greedy rows accept draft i+1 iff it equals ``argmax(logits[i])``, so the accepted
+      prefix plus the bonus is exactly what step-by-step greedy decode emits;
+    - sampled rows accept draft i+1 with probability p(draft) under the processed
+      (temperature -> top-k -> top-p) distribution; on a rejection the bonus is drawn
+      from p with the rejected draft's mass removed, so emitted tokens follow p exactly.
+
+    The first rejection ends a row's run; ``num_drafts`` [S] (<= K, 0 turns speculation
+    off for the row) caps it. Each sampled row draws K uniforms and then V for the bonus's
+    Gumbel noise, in one call on its own generator, in row order; greedy rows draw
+    nothing. Returns ``(accepted [S], bonus [S])`` int64 on the logits' device."""
+    rows, width, vocab = logits.shape
+    k = width - 1
+    device = logits.device
+    logits = logits.float()
+    greedy = logits.argmax(dim=-1)  # [S, K+1]
+    draft_tokens = draft_tokens.to(device=device, dtype=torch.long)
+    num_drafts = torch.as_tensor(num_drafts, device=device)
+    positions = torch.arange(k, device=device)[None, :]
+    sampled_rows = [s for s, flag in enumerate(do_sample) if flag]
+
+    accept = draft_tokens == greedy[:, :k]
+    if sampled_rows:
+        flat = process_logits_vectorized(
+            logits.reshape(rows * width, vocab),
+            temperature.repeat_interleave(width),
+            top_k.repeat_interleave(width),
+            top_p.repeat_interleave(width),
+        ).reshape(rows, width, vocab)
+        probs = torch.softmax(flat, dim=-1)
+        draws = torch.ones((rows, k + vocab), dtype=torch.float32, device=device)
+        for s in sampled_rows:
+            draws[s] = torch.rand(k + vocab, generator=generators[s], device=device)
+        p_draft = torch.gather(probs[:, :k], 2, draft_tokens[:, :, None])[..., 0]
+        sample_mask = torch.zeros(rows, dtype=torch.bool, device=device)
+        sample_mask[sampled_rows] = True
+        accept = torch.where(sample_mask[:, None], draws[:, :k] < p_draft, accept)
+    accept = accept & (positions < num_drafts[:, None])
+    # the leading run: draft i+1 conditions on draft i, so a rejection ends the run
+    accepted = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+
+    bonus = torch.gather(greedy, 1, accepted[:, None])[:, 0]
+    if sampled_rows:
+        bonus_logits = torch.gather(flat, 1, accepted[:, None, None].expand(rows, 1, vocab))[:, 0]
+        # on a rejection, remove the rejected draft's mass; with every draft accepted the
+        # bonus samples the target distribution unmodified
+        rejected = accepted < num_drafts
+        rejected_token = torch.gather(draft_tokens, 1, accepted.clamp(max=k - 1)[:, None])
+        residual = rejected[:, None] & (torch.arange(vocab, device=device)[None, :] == rejected_token)
+        bonus_logits = torch.where(residual, torch.full_like(bonus_logits, NEG_INF), bonus_logits)
+        uniform = draws[:, k:].clamp_min(torch.finfo(torch.float32).tiny)
+        bonus_sampled = (bonus_logits - torch.log(-torch.log(uniform))).argmax(dim=-1)
+        bonus = torch.where(sample_mask, bonus_sampled, bonus)
+    return accepted, bonus
+
+
 def encode_sampling_params(
     do_sample: bool,
     temperature: float | None,

@@ -14,7 +14,19 @@ Counterpart of `dolomite_engine_tpu/serving/engine.py`. The default, ``paged=Tru
   page-table rows and sampling params; idle and mid-prefill rows get a zeroed table row
   and length 0, so their writes land in the trash page.
 - a **quantized pool** (``kv_dtype="int8"|"fp8"``) rides the same per-layer dicts: each
-  step's dict carries the layer's ``k_scale`` / ``v_scale`` pools beside its pages.
+  step's dict carries the layer's ``k_scale`` / ``v_scale`` pools beside its pages;
+- **speculative decoding** (``speculate_ngram=True``, or ``draft_model=``): a drafter
+  (`speculation.py`) proposes up to K tokens per slot and one verify forward scores the
+  ``[num_slots, K+1]`` window at each row's frontier (the paged decode kernel at W = K+1);
+  `ops/sampling.speculative_accept` commits the accepted drafts and a bonus token. The
+  frontier advances only past committed K/V, so rejected tails stay masked until the
+  next window overwrites them. Greedy outputs are those of plain decode;
+- **preemption** (``preemption="swap"|"recompute"``) evicts a strictly lower tier when a
+  higher-tier request cannot admit, and the lowest priority when an oversubscribed pool
+  (``oversubscribe_ratio`` > 1) runs physically dry: swap parks the victim's pages in
+  host memory (`kv_cache.HostSwapPool`), recompute registers them in the prefix cache
+  and re-prefills what was evicted. A resumed request continues where it stopped, its
+  generator's state restored, so its tokens are those of an unpreempted run.
 
 ``paged=False`` keeps the JAX engine's A/B baseline, the **dense slot pool**
 (`kv_cache.SlotKVCachePool`, ``[num_slots, max_len]`` rows per layer): a request's whole
@@ -27,10 +39,14 @@ frontiers; an idle slot has length 0. Prefix caching and the chunked-prefill bud
 not apply to it, as in the JAX engine.
 
 Attention, RMSNorm and rope inside the forward run the port's CUDA kernels on the GPU
-(`ops/kernels/`). PyTorch runs eagerly, so there is no compiled program to count; greedy
-outputs match the JAX engine token for token (tests/test_torch_serving.py). Sampled
-requests draw from a per-slot `torch.Generator` seeded from the request, so their
-streams differ from the JAX engine's by design.
+(`ops/kernels/`). PyTorch runs eagerly, so there is no compiled program to count (the JAX
+engine's ``decode_compiles``, ``verify_compiles``, ``draft_compiles`` and
+``chunk_compiles`` have no counterpart); greedy outputs match the JAX engine token for
+token (tests/test_torch_serving.py, tests/test_torch_speculation.py,
+tests/test_torch_preemption.py). Sampled requests draw from a per-slot `torch.Generator`
+seeded from the request, so their streams differ from the JAX engine's by design. The
+tracing spans and telemetry counters of the JAX engine wait for ROADMAP.md Queue A,
+'Serving fleet and observability'.
 
 Options of the JAX engine that this port does not carry yet raise NotImplementedError
 naming the ROADMAP.md item that will port them.
@@ -46,10 +62,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.sampling import sample_tokens_vectorized
+from ..ops.sampling import sample_tokens_vectorized, speculative_accept
 from ..utils import QuantileSketch
-from .kv_cache import TRASH_PAGE, PagedKVCachePool, SlotKVCachePool
+from .kv_cache import TRASH_PAGE, HostSwapPool, PagedKVCachePool, SlotKVCachePool
 from .prefix_cache import PrefixCache, PrefixMatch
+from .speculation import DraftModelDrafter, NgramDrafter
 from .scheduler import (
     QueueFullError,
     Request,
@@ -64,8 +81,6 @@ _DEFAULT = object()  # "use the engine default" sentinel for per-request eos ove
 
 # constructor options of the JAX engine not ported yet -> (inert value, ROADMAP.md item)
 _NOT_PORTED = {
-    "speculate_ngram": (False, "Speculative decoding"),
-    "draft_model": (None, "Speculative decoding"),
     "mesh": (None, "Distribution"),
     "sharding_rules": (None, "Distribution"),
     "prefill_only": (False, "Serving fleet and observability"),
@@ -88,7 +103,8 @@ class EngineStats:
     tokens emitted by decode steps; `prefill_chunks` counts prefill forwards (a paged
     chunk, or a dense pool's whole prompt: each one model forward, like each decode
     step). The first token of each request is sampled inside prefill and shows up in
-    `ttft_s`, not in either rate."""
+    `ttft_s`, not in either rate. With speculation a decode step is a verify step and
+    `decode_tokens` counts the accepted drafts and bonus tokens it emitted."""
 
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
@@ -104,11 +120,18 @@ class EngineStats:
     prefix_hit_tokens: int = 0
     prefix_miss_tokens: int = 0
     peak_active: int = 0
+    draft_tokens_proposed: int = 0
+    draft_tokens_accepted: int = 0
+    # slot evictions (swap or drop-and-recompute) and page moves through the host pool
+    preemptions: int = 0
+    pages_swapped_out: int = 0
+    pages_swapped_in: int = 0
     session_hits: int = 0
     ttft_s_by_tier: dict[int, QuantileSketch] = field(default_factory=dict)
     itl_s_by_tier: dict[int, QuantileSketch] = field(default_factory=dict)
     admitted_by_tier: dict[int, int] = field(default_factory=dict)
     completed_by_tier: dict[int, int] = field(default_factory=dict)
+    preempted_by_tier: dict[int, int] = field(default_factory=dict)
 
     def prefill_tok_s(self) -> float | None:
         if self.prefill_seconds <= 0:
@@ -129,6 +152,19 @@ class EngineStats:
             return None
         return self.prefix_hit_tokens / total
 
+    def accept_rate(self) -> float | None:
+        """Share of proposed draft tokens the target accepted (speculation only)."""
+        if self.draft_tokens_proposed == 0:
+            return None
+        return self.draft_tokens_accepted / self.draft_tokens_proposed
+
+    def accepted_tokens_per_step(self) -> float | None:
+        """Mean accepted draft tokens per verify step; a step emits this + 1 tokens a
+        slot (the bonus token)."""
+        if self.decode_steps == 0:
+            return None
+        return self.draft_tokens_accepted / self.decode_steps
+
     def ttft_p99_s(self, tier: int) -> float | None:
         sketch = self.ttft_s_by_tier.get(tier)
         return None if sketch is None else sketch.quantile(0.99)
@@ -139,12 +175,45 @@ class EngineStats:
 
 
 @dataclass
+class _ResumeState:
+    """The decode context captured at preemption, what it takes to continue the request
+    token for token: ``next_token`` is the last emitted token, not yet in the cache, that
+    the next step feeds; ``generator_state`` the slot's generator state (None for a greedy
+    request; the JAX engine re-derives its rng carry instead); ``resident`` how many
+    positions were in the pool. ``swapped``: the pages are parked in the host swap pool
+    (restore is a byte copy); otherwise ``(prompt + tokens)[:resident]`` is recomputed
+    through the prefix cache and chunked prefill."""
+
+    next_token: int
+    generator_state: torch.Tensor | None
+    resident: int
+    swapped: bool
+
+
+@dataclass
 class _PrefillTask:
-    """A slot whose prompt is still being computed (chunked prefill in flight)."""
+    """A slot whose prefix is still being computed (chunked prefill in flight):
+    ``prefill_ids`` is the prompt of a fresh request, or ``(prompt + generated)
+    [:resident]`` of a drop-and-recompute resume, whose final chunk restores the decode
+    context instead of sampling a first token."""
 
     state: RequestState
-    pos: int  # next prompt position to compute (prefix-cache hits start it past 0)
+    pos: int  # next position to compute (prefix-cache hits start it past 0)
     prefill_ids: list[int]
+    resume: _ResumeState | None = None
+
+
+def _load_weights(model: Any, params: Any, device: torch.device) -> None:
+    """Fill `model` from `params`: None (it holds its weights), its own kind of
+    ``state_dict()``, or the JAX package's params tree (numpy, `load_jax_params`)."""
+    if params is None:
+        return
+    if isinstance(params, dict) and all(isinstance(v, torch.Tensor) for v in params.values()):
+        model.load_state_dict(params)
+        return
+    from ..models.gpt_dolomite import load_jax_params
+
+    load_jax_params(model, params, device=device)
 
 
 class ServingEngine:
@@ -154,8 +223,9 @@ class ServingEngine:
     Args:
         model: any of the port's causal LMs (`GPTDolomiteForCausalLM`,
             `MoEDolomiteForCausalLM`, ...: `models.get_model_class`).
-        params: None when the model already holds its weights, or the JAX package's
-            unrolled params tree as numpy arrays (loaded with `load_jax_params`).
+        params: None when the model already holds its weights, a ``state_dict()`` of it,
+            or the JAX package's unrolled params tree as numpy arrays (loaded with
+            `load_jax_params`).
         num_slots: decode batch width == max concurrent requests.
         max_len: per-slot cache length; every request needs
             ``len(prompt) + max_new_tokens <= max_len``.
@@ -176,8 +246,23 @@ class ServingEngine:
             per-(page, kv head) fp32 scale pools).
         prefill_chunk_tokens: per-step prefill token budget (positive multiple of 8).
         prefix_caching: share resident page-aligned prefixes across requests.
+        preemption: what happens to a lower-tier slot when a higher-tier request cannot
+            admit, or when an oversubscribed pool runs physically dry: ``"off"`` (never
+            evict), ``"swap"`` (park the victim's pages in host memory and restore them
+            byte-identical) or ``"recompute"`` (register its pages in the prefix cache,
+            release them and rebuild the slot through chunked prefill). Paged only.
+        oversubscribe_ratio: admission may promise up to ``ratio * allocatable`` pages
+            (>= 1.0); above 1.0 it needs preemption to reclaim the shortfall.
         session_ttl_s / tier_slos: multi-turn pinning and per-tier TTFT ordering, as in
             the JAX engine.
+        speculate_ngram: n-gram / prompt-lookup self-drafting of up to `draft_k` tokens a
+            slot (host code, no extra model).
+        draft_model / draft_params: a smaller model of the same vocabulary that drafts
+            `draft_k` greedy tokens a slot, and its weights: the JAX package's params tree
+            (numpy, loaded with `load_jax_params`) or, when it already holds them, its own
+            ``state_dict()``. Exclusive with `speculate_ngram`.
+        draft_k: draft tokens a verify step scores per slot (K >= 1; the window is K+1).
+        ngram_max: the longest suffix the n-gram drafter matches.
         device: where the model and pool live; the GPU unless ``"cpu"`` is asked for.
     """
 
@@ -205,6 +290,11 @@ class ServingEngine:
         oversubscribe_ratio: float = 1.0,
         session_ttl_s: float = 300.0,
         tier_slos: dict[int, TierSLO] | None = None,
+        speculate_ngram: bool = False,
+        draft_model: Any = None,
+        draft_params: Any = None,
+        draft_k: int = 4,
+        ngram_max: int = 3,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -219,12 +309,21 @@ class ServingEngine:
                 )
         if kv_dtype is not None and not paged:
             raise ValueError("kv_dtype (quantized / low-bit KV) requires the paged KV pool")
+        if preemption not in ("off", "swap", "recompute"):
+            raise ValueError(
+                f"preemption must be 'off', 'swap', or 'recompute', got {preemption!r}"
+            )
         if preemption != "off" and not paged:
             raise ValueError("preemption requires the paged KV pool")
-        if preemption != "off" or oversubscribe_ratio != 1.0:
-            raise NotImplementedError(
-                "preemption and oversubscription are not ported yet: ROADMAP.md Queue A, "
-                "'Preemption and oversubscription'"
+        if oversubscribe_ratio < 1.0:
+            raise ValueError(
+                f"oversubscribe_ratio must be >= 1.0, got {oversubscribe_ratio}"
+            )
+        if oversubscribe_ratio > 1.0 and preemption == "off":
+            raise ValueError(
+                "oversubscribe_ratio > 1.0 reserves pages that are not physically "
+                "backed; that is only safe with preemption enabled ('swap' or "
+                "'recompute')"
             )
         if session_ttl_s <= 0:
             raise ValueError(f"session_ttl_s must be positive, got {session_ttl_s}")
@@ -233,28 +332,37 @@ class ServingEngine:
                 f"prefill_bucket_multiple must be a positive multiple of 8, got "
                 f"{prefill_bucket_multiple}"
             )
+        if speculate_ngram and draft_model is not None:
+            raise ValueError(
+                "speculate_ngram and draft_model are mutually exclusive draft sources"
+            )
+        if draft_model is not None and draft_params is None:
+            raise ValueError("draft_model requires draft_params")
+        if (speculate_ngram or draft_model is not None) and draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {draft_k}")
         n_positions = getattr(model.config, "n_positions", None)
         if n_positions is not None and max_len > n_positions:
             raise ValueError(f"max_len={max_len} exceeds model n_positions={n_positions}")
 
-        if params is not None:
-            from ..models.gpt_dolomite import load_jax_params
-
-            load_jax_params(model, params, device=self.device)
+        _load_weights(model, params, self.device)
         self.model = model.to(self.device).eval()
         self.default_eos = eos_token_id
         self.pad_token_id = pad_token_id
         self.prefill_bucket_multiple = prefill_bucket_multiple
         self.session_ttl_s = session_ttl_s
         self.paged = paged
+        self.preemption = preemption
         if paged:
             self.pool: Any = PagedKVCachePool(
-                model, num_slots, max_len, page_size, num_pages, cache_dtype, kv_dtype=kv_dtype
+                model, num_slots, max_len, page_size, num_pages, cache_dtype, kv_dtype=kv_dtype,
+                oversubscribe_ratio=oversubscribe_ratio,
             )
             self.prefix = PrefixCache(page_size) if prefix_caching else None
+            self._swap = HostSwapPool(self.pool) if preemption == "swap" else None
         else:
             self.pool = SlotKVCachePool(model, num_slots, max_len, cache_dtype)
             self.prefix = None
+            self._swap = None
         self.scheduler = Scheduler(
             max_waiting=max_waiting, clock=clock, prefill_chunk_tokens=prefill_chunk_tokens,
             tier_slos=tier_slos,
@@ -275,6 +383,19 @@ class ServingEngine:
         # chunked prefill in flight: per-slot progress
         self._prefill_tasks: dict[int, _PrefillTask] = {}
         self._prefill_order: list[int] = []
+
+        # speculative decoding: a drafter, and the verify step in place of decode
+        self.speculating = bool(speculate_ngram or draft_model is not None)
+        self.draft_k = draft_k
+        self._ngram = NgramDrafter(draft_k, ngram_max) if speculate_ngram else None
+        self._draft = None
+        if draft_model is not None:
+            _load_weights(draft_model, draft_params, self.device)
+            self._draft = DraftModelDrafter(
+                draft_model.to(self.device).eval(), num_slots=num, max_len=max_len, draft_k=draft_k,
+                pad_token_id=pad_token_id, prefill_bucket_multiple=prefill_bucket_multiple,
+                cache_dtype=cache_dtype,
+            )
 
     # ------------------------------------------------------------------ submission
 
@@ -342,20 +463,30 @@ class ServingEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One scheduler iteration: reap deadline-expired slots, admit waiting requests
-        into free slots (a dense pool prefills them whole), advance chunked prefills up to
-        the budget (paged), run one decode step over the slot batch. Returns whether any
+        into free slots (a dense pool prefills them whole; with preemption on, lower
+        tiers are evicted for a blocked head), advance chunked prefills up to the budget
+        (paged), run one decode or verify step over the slot batch. Returns whether any
         work remains."""
         self._cancel_expired_running()
         if self.paged:
             self._admit_paged()
+            # decode's computed tokens count against the step's prefill budget: a plain
+            # decode 1 a decoding slot, a verify step K+1 (it scores the whole window)
             decoding = sum(1 for s in self._slot_states if s not in self._prefill_tasks)
-            self._run_prefill_chunks(self.scheduler.prefill_budget(decoding))
+            per_slot = self.draft_k + 1 if self.speculating else 1
+            self._run_prefill_chunks(self.scheduler.prefill_budget(per_slot * decoding))
             if any(slot not in self._prefill_tasks for slot in self._slot_states):
-                self._decode_once_paged()
+                if self.speculating:
+                    self._verify_once_paged()
+                else:
+                    self._decode_once_paged()
         else:
             self._admit()
             if self._slot_states:
-                self._decode_once()
+                if self.speculating:
+                    self._verify_once_dense()
+                else:
+                    self._decode_once()
         self.stats.peak_active = max(self.stats.peak_active, self.pool.num_active)
         return self.has_work()
 
@@ -415,6 +546,8 @@ class ServingEngine:
         state.slot = slot
         state.status = RequestStatus.running
         self._slot_states[slot] = state
+        if self.speculating:
+            self._spec_start(slot, request.prompt_ids)
         self._record_first_token(state, first_token)
 
     def _decode_once(self) -> None:
@@ -429,10 +562,8 @@ class ServingEngine:
             kv_caches=self.pool.caches,
             cache_index=lengths,
         )
-        do_sample = np.zeros_like(self._do_sample)  # idle rows stay greedy
-        do_sample[active] = self._do_sample[active]
         next_tokens = sample_tokens_vectorized(
-            out.logits[:, -1], self._generators, do_sample, *self._sampling_tensors(slice(None))
+            out.logits[:, -1], self._generators, self._rows_sampling(active), *self._sampling_tensors(slice(None))
         )
         tokens = next_tokens.cpu().numpy()  # host fetch: the streaming sync point
         self.stats.decode_steps += 1
@@ -442,9 +573,12 @@ class ServingEngine:
     # ------------------------------------------------------------------ admission
 
     def _admit_paged(self) -> None:
-        """Admit tier-then-FCFS while slot rows AND pages are available. Worst-case pages
-        (minus prefix-cache hits) are reserved up front; prefix-cache-only pages are
-        evicted LRU to make room. A blocked head waits at its tier's head."""
+        """Admit tier-then-FCFS while slot rows and (possibly oversubscribed) pages are
+        available. Worst-case pages (minus prefix-cache hits) are reserved up front;
+        prefix-cache-only pages are evicted LRU to make room. When the head cannot fit and
+        preemption is on, strictly lower-tier running slots are evicted, one at a time,
+        until it does; a blocked head waits at its tier's head and never blocks a higher
+        tier."""
         if self.prefix is not None:
             self.prefix.expire_sessions(self.scheduler.clock())
         while True:
@@ -454,17 +588,36 @@ class ServingEngine:
             if self.scheduler.expired(state):
                 self._finish(state, RequestStatus.cancelled)
                 continue
-            if not self._try_admit(state):
+            if self._try_admit(state):
+                continue
+            admitted = False
+            while self.preemption != "off":
+                victim = self._pick_victim(below_tier=state.request.priority)
+                if victim is None:
+                    break
+                self._preempt(victim)
+                if self._try_admit(state):
+                    admitted = True
+                    break
+            if not admitted:
                 self.scheduler.push_front(state)
                 return
 
     def _try_admit(self, state: RequestState) -> bool:
-        """One admission attempt: claim a slot, reserve pages, set up the prefill task.
-        Rolls back and returns False when slot rows or pages are short."""
+        """One admission attempt: claim a slot, reserve pages, set up the prefill task (or
+        restore a swapped-out request). Rolls back and returns False when slot rows or
+        pages are short; the caller decides between waiting and preempting."""
         if self.pool.num_free == 0:
             return False
+        if state.resume is not None and state.resume.swapped:
+            return self._try_restore_swapped(state)
         request = state.request
-        prefill_ids = request.prompt_ids
+        resume = state.resume
+        # a drop-and-recompute resume re-prefills the emitted prefix (its token budget and
+        # worst-case pages are the request's: the sequence is the same)
+        prefill_ids = (
+            (request.prompt_ids + state.tokens)[: resume.resident] if resume is not None else request.prompt_ids
+        )
         page_size = self.pool.page_size
         worst_pages = -(-(len(request.prompt_ids) + request.max_new_tokens) // page_size)
         if self.prefix is not None:
@@ -492,8 +645,14 @@ class ServingEngine:
         self.pool.reserve(slot, needed)
         if match.cow is not None:
             # copy-on-write at page granularity: the partially matching tail page is
-            # copied into a private page; the miss suffix is recomputed over it
-            dst = self.pool.alloc_page(slot, len(match.nodes))
+            # copied into a private page; the miss suffix is recomputed over it. The page
+            # may be reclaimed only from requests ranked after this one (see
+            # `_reclaim_physical`); failing that, the admission waits
+            dst = self._alloc_page_reclaiming(slot, len(match.nodes), after=(request.priority, state.seq))
+            if dst is None:
+                self.pool.decref(match.cow.page)
+                self.pool.free(slot)
+                return False
             self.pool.copy_page(match.cow.page, dst)
             self.pool.decref(match.cow.page)
 
@@ -502,29 +661,73 @@ class ServingEngine:
         self._slot_states[slot] = state
         self._set_sampling(slot, request)
         self._prefill_tasks[slot] = _PrefillTask(
-            state=state, pos=match.resume_pos, prefill_ids=prefill_ids
+            state=state, pos=match.resume_pos, prefill_ids=prefill_ids, resume=resume
         )
         self._prefill_order.append(slot)
 
         hit = match.resume_pos
         self.stats.prefix_hit_tokens += hit
         self.stats.prefix_miss_tokens += len(prefill_ids) - hit
-        self._count_admission(state, session_hit=hit > 0)
+        if resume is None:
+            self._count_admission(state, session_hit=hit > 0)
         return True
 
-    def _set_sampling(self, slot: int, request: Request) -> None:
-        """The slot's sampling parameters, and a generator seeded from the request when it
-        samples."""
+    def _try_restore_swapped(self, state: RequestState) -> bool:
+        """Re-admit a swap-preempted request: its pages come back from the host pool onto
+        fresh private pages, the decode context is reinstalled, and the request continues
+        where it stopped, with no prefill and no resampling."""
+        request = state.request
+        resume = state.resume
+        page_size = self.pool.page_size
+        used = -(-resume.resident // page_size)
+        worst_pages = -(-(len(request.prompt_ids) + request.max_new_tokens) // page_size)
+        if worst_pages > self.pool.available_pages:
+            shortfall = worst_pages - self.pool.available_pages
+            if self.prefix is None or not self.prefix.evict(shortfall, self.pool):
+                return False
+            if worst_pages > self.pool.available_pages:
+                return False
+        # the `used` restored pages must exist physically now (the rest of the reservation
+        # is mapped later, with reclamation at allocation)
+        if self.pool.physical_free < used:
+            if self.prefix is not None:
+                self.prefix.evict(used - self.pool.physical_free, self.pool)
+            if self.pool.physical_free < used:
+                return False
+        slot = self.pool.allocate()
+        self.pool.reserve(slot, worst_pages)
+        pages = [self.pool.alloc_page(slot, i) for i in range(used)]
+        moved = self._swap.swap_in(request.request_id, pages)
+        self.pool.lengths[slot] = resume.resident
+
+        state.slot = slot
+        state.status = RequestStatus.running
+        state.resume = None
+        self._slot_states[slot] = state
+        self._set_sampling(slot, request, resume.generator_state)
+        self._tokens[slot] = resume.next_token
+        if self.speculating:
+            self._spec_start(slot, request.prompt_ids + state.tokens)
+        self.stats.pages_swapped_in += moved
+        return True
+
+    def _set_sampling(self, slot: int, request: Request, generator_state: torch.Tensor | None = None) -> None:
+        """The slot's sampling parameters, and when it samples a generator seeded from the
+        request (or, resuming, set to the state it had at preemption)."""
         do_sample, temperature, top_k, top_p = request.sampling.encoded()
         self._do_sample[slot] = do_sample
         self._temperature[slot] = temperature
         self._top_k[slot] = top_k
         self._top_p[slot] = top_p
-        self._generators[slot] = (
-            torch.Generator(device=self.device).manual_seed(request.seed) if do_sample else None
-        )
+        generator = None
+        if do_sample:
+            generator = torch.Generator(device=self.device).manual_seed(request.seed)
+            if generator_state is not None:
+                generator.set_state(generator_state)
+        self._generators[slot] = generator
 
     def _count_admission(self, state: RequestState, session_hit: bool) -> None:
+        """First-admission accounting (resumes do not count again)."""
         request = state.request
         tier = request.priority
         self.stats.admitted += 1
@@ -536,6 +739,118 @@ class ServingEngine:
             if live and session_hit:
                 self.stats.session_hits += 1
 
+    # ------------------------------------------------------------------ preemption
+
+    def _pick_victim(
+        self, below_tier: int | None = None, exclude: set[int] | None = None, after: tuple[int, int] | None = None
+    ) -> RequestState | None:
+        """The next slot to evict: the lowest priority (highest tier number) first, the
+        latest arrival within a tier (the least sunk service). `below_tier` keeps to tiers
+        strictly lower than the beneficiary's; `exclude` protects slots mid-allocation;
+        `after` keeps to requests ranked after that (priority, seq)."""
+        candidates = [
+            state
+            for slot, state in self._slot_states.items()
+            if slot not in (exclude or ())
+            and (below_tier is None or state.request.priority > below_tier)
+            and (after is None or (state.request.priority, state.seq) > after)
+        ]
+        if not candidates:
+            return None
+        return max(candidates, key=lambda state: (state.request.priority, state.seq))
+
+    def _preempt(self, state: RequestState) -> None:
+        """Evict a running slot and re-enqueue its request at its FCFS position. Swap
+        parks the pages in host memory (a byte-identical restore); recompute registers
+        them in the prefix cache (usually a free re-attach on resume) and releases them. A
+        slot still mid-prefill restarts its prefill: no decode context exists yet."""
+        slot = state.slot
+        assert slot is not None and self._slot_states.get(slot) is state
+        task = self._prefill_tasks.pop(slot, None)
+        if slot in self._prefill_order:
+            self._prefill_order.remove(slot)
+        if self.speculating:
+            self._spec_stop(slot)
+        if task is not None:
+            # keep what the chunks computed by indexing the full pages below the progress
+            # frontier; the prefill restarts (cheaply, from those hits)
+            if self.prefix is not None and task.pos >= self.pool.page_size:
+                full = (task.pos // self.pool.page_size) * self.pool.page_size
+                self.prefix.register(
+                    task.prefill_ids[:full], [int(p) for p in self.pool.page_table[slot]], self.pool
+                )
+            state.resume = task.resume  # a preempted resume stays a resume
+        else:
+            resident = int(self.pool.lengths[slot])
+            if self.preemption == "swap":
+                used = -(-resident // self.pool.page_size)
+                pages = [int(p) for p in self.pool.page_table[slot, :used]]
+                self.stats.pages_swapped_out += self._swap.swap_out(state.request.request_id, pages)
+                swapped = True
+            else:
+                if self.prefix is not None:
+                    self._register_prefix(state, slot)
+                swapped = False
+            generator = self._generators[slot]
+            state.resume = _ResumeState(
+                next_token=int(self._tokens[slot]),
+                generator_state=None if generator is None else generator.get_state(),
+                resident=resident,
+                swapped=swapped,
+            )
+        self.pool.free(slot)
+        self._generators[slot] = None
+        del self._slot_states[slot]
+        state.slot = None
+        state.status = RequestStatus.waiting
+        state.preemptions += 1
+        tier = state.request.priority
+        self.stats.preemptions += 1
+        self.stats.preempted_by_tier[tier] = self.stats.preempted_by_tier.get(tier, 0) + 1
+        self.scheduler.push_front(state)
+
+    def _alloc_page_reclaiming(self, slot: int, index: int, after: tuple[int, int] | None = None) -> int | None:
+        """`alloc_page` that survives an oversubscribed pool running physically dry:
+        reclaim until a page is free, then map it. With `after` (an admission's rank),
+        None when the page cannot be reclaimed from requests ranked after it."""
+        if self.pool.physical_free == 0 and not self._reclaim_physical(1, protect=slot, after=after):
+            return None
+        return self.pool.alloc_page(slot, index)
+
+    def _reclaim_physical(self, need: int, protect: int | None, after: tuple[int, int] | None = None) -> bool:
+        """Free at least `need` physical pages: evict unpinned prefix-cache leaves,
+        preempt the lowest-priority victim (whose recompute-registered pages become
+        evictable in turn), and only as a last resort evict session-pinned pages. The
+        `protect` slot is never preempted, so the loop ends.
+
+        An admission's copy-on-write page passes its rank as `after` and may preempt only
+        requests ranked after it, and gets False when that does not free the pages. The
+        JAX engine lets it preempt any request; two recompute resumes that each need such
+        a page then preempt each other inside one admission pass without end (ROADMAP.md
+        Queue C). Where the JAX engine ends, the victims are the same."""
+        while self.pool.physical_free < need:
+            if self.prefix is not None:
+                self.prefix.evict(need - self.pool.physical_free, self.pool)
+                if self.pool.physical_free >= need:
+                    return True
+            victim = None
+            if self.preemption != "off":
+                victim = self._pick_victim(exclude={protect} if protect is not None else None, after=after)
+            if victim is not None:
+                self._preempt(victim)
+                continue
+            if self.prefix is not None and self.prefix.evict(
+                need - self.pool.physical_free, self.pool, include_pinned=True
+            ):
+                continue
+            if after is not None:
+                return False
+            raise RuntimeError(
+                f"cannot reclaim {need} KV page(s): no evictable prefix pages and no "
+                f"preemptable slots (preemption={self.preemption!r})"
+            )
+        return True
+
     # ------------------------------------------------------------------ device steps
 
     def _sampling_tensors(self, rows: slice | list[int]):
@@ -545,6 +860,12 @@ class ServingEngine:
             torch.as_tensor(self._top_k[rows], device=device),
             torch.as_tensor(self._top_p[rows], device=device),
         )
+
+    def _rows_sampling(self, rows: list[int]) -> np.ndarray:
+        """Per-slot sampling flags with every row outside `rows` (idle, mid-prefill) greedy."""
+        do_sample = np.zeros_like(self._do_sample)
+        do_sample[rows] = self._do_sample[rows]
+        return do_sample
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -562,7 +883,7 @@ class ServingEngine:
 
     def _run_prefill_chunks(self, budget: int) -> None:
         """Advance in-flight prefills in tier-then-SLO-headroom-then-FCFS order, spending
-        at most `budget` real prompt tokens this step."""
+        at most `budget` real prefix tokens this step."""
         page_size = self.pool.page_size
         view_len = self.pool.max_pages_per_slot * page_size
         device = self.device
@@ -575,13 +896,18 @@ class ServingEngine:
             prefill_len = len(prefill_ids)
             take = min(prefill_len - task.pos, budget)
             final = task.pos + take == prefill_len
+            # a resume's final chunk only recomputes K/V: the decode context is restored
+            samples = final and task.resume is None
             multiple = self.prefill_bucket_multiple
             width = -(-take // multiple) * multiple
 
             # map fresh pages under the chunk's real positions before the device write
+            # (reclaiming first if an oversubscribed pool ran physically dry)
             for index in range(task.pos // page_size, (task.pos + take - 1) // page_size + 1):
                 if self.pool.page_table[slot, index] == TRASH_PAGE:
-                    self.pool.alloc_page(slot, index)
+                    self._alloc_page_reclaiming(slot, index)
+            if self._slot_states.get(slot) is not state:
+                continue  # reclamation preempted this very task; pick again
 
             ids = np.full((1, width), self.pad_token_id, np.int64)
             ids[0, :take] = prefill_ids[task.pos : task.pos + take]
@@ -599,7 +925,7 @@ class ServingEngine:
                 kv_caches=kv,
                 cache_index=torch.tensor(task.pos, dtype=torch.int32, device=device),
             )
-            if final:
+            if samples:
                 token = sample_tokens_vectorized(
                     out.logits[:, take - 1],
                     [self._generators[slot]],
@@ -620,6 +946,18 @@ class ServingEngine:
             self.pool.lengths[slot] = prefill_len
             self._prefill_order.remove(slot)
             del self._prefill_tasks[slot]
+            if task.resume is not None:
+                # recompute-resume complete: reinstall the captured context (the next
+                # token, the generator's state) and continue token for token
+                self._tokens[slot] = task.resume.next_token
+                if task.resume.generator_state is not None:
+                    self._generators[slot].set_state(task.resume.generator_state)
+                state.resume = None
+                if self.speculating:
+                    self._spec_start(slot, state.request.prompt_ids + state.tokens)
+                continue
+            if self.speculating:
+                self._spec_start(slot, prefill_ids)
             self._record_first_token(state, first_token)
 
     def _record_first_token(self, state: RequestState, token: int) -> None:
@@ -632,45 +970,171 @@ class ServingEngine:
         self._tokens[state.slot] = token
         self._deliver(state, token)
 
-    def _decode_once_paged(self) -> None:
-        decoding = [s for s in self._slot_states if s not in self._prefill_tasks]
+    def _map_decode_pages(self, window: int) -> list[int]:
+        """Map the pages under each decoding row's next `window` positions (capped at the
+        request's worst case, what admission reserved: a verify window's overhang past it
+        writes to the trash page, and those drafts could never be committed). Under
+        oversubscription this can preempt a lower-priority decoding slot, so membership is
+        read again after. Returns the decoding slots."""
         page_size = self.pool.page_size
-        # map the page under each decoding row's write position first
-        for slot in decoding:
-            index = int(self.pool.lengths[slot]) // page_size
-            if self.pool.page_table[slot, index] == TRASH_PAGE:
-                self.pool.alloc_page(slot, index)
-        # per-step table/length views: idle and mid-prefill rows are zeroed so their
-        # garbage write lands in the trash page instead of live pages
+        for slot in [s for s in self._slot_states if s not in self._prefill_tasks]:
+            state = self._slot_states.get(slot)
+            if state is None or slot in self._prefill_tasks:
+                continue  # preempted by reclamation
+            position = int(self.pool.lengths[slot])
+            total = len(state.request.prompt_ids) + state.request.max_new_tokens
+            last = min(position + window - 1, total - 1)
+            for index in range(position // page_size, last // page_size + 1):
+                if self.pool.page_table[slot, index] == TRASH_PAGE:
+                    self._alloc_page_reclaiming(slot, index)
+        return [s for s in self._slot_states if s not in self._prefill_tasks]
+
+    def _step_views(self, decoding: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """The step's page table and frontiers on the device: idle and mid-prefill rows
+        are zeroed, so their garbage writes land in the trash page."""
         table = np.zeros_like(self.pool.page_table)
         lengths = np.zeros(self.pool.num_slots, np.int32)
         for slot in decoding:
             table[slot] = self.pool.page_table[slot]
             lengths[slot] = int(self.pool.lengths[slot])
+        return torch.as_tensor(table, device=self.device), torch.as_tensor(lengths, device=self.device)
 
+    def _decode_once_paged(self) -> None:
+        decoding = self._map_decode_pages(1)
+        if not decoding:
+            return
         device = self.device
         t0 = time.perf_counter()
-        table_t = torch.as_tensor(table, device=device)
-        lengths_t = torch.as_tensor(lengths, device=device)
-        kv = [{**c, "page_table": table_t} for c in self.pool.caches]
+        table, lengths = self._step_views(decoding)
+        kv = [{**c, "page_table": table} for c in self.pool.caches]
         out = self.model(
             torch.as_tensor(self._tokens, device=device)[:, None],
-            position_ids=lengths_t[:, None],
+            position_ids=lengths[:, None],
             kv_caches=kv,
-            cache_index=lengths_t,
+            cache_index=lengths,
         )
-        do_sample = np.zeros_like(self._do_sample)  # idle and mid-prefill rows stay greedy
-        do_sample[decoding] = self._do_sample[decoding]
         next_tokens = sample_tokens_vectorized(
-            out.logits[:, -1],
-            self._generators,
-            do_sample,
-            *self._sampling_tensors(slice(None)),
+            out.logits[:, -1], self._generators, self._rows_sampling(decoding), *self._sampling_tensors(slice(None))
         )
         tokens = next_tokens.cpu().numpy()  # host fetch: the streaming sync point
         self.stats.decode_steps += 1
         self.stats.decode_seconds += time.perf_counter() - t0
         self._emit_decoded(decoding, tokens)
+
+    # ------------------------------------------------------------------ speculation
+
+    def _spec_start(self, slot: int, prompt_ids: list[int]) -> None:
+        if self._ngram is not None:
+            self._ngram.start(slot, prompt_ids)
+        if self._draft is not None:
+            self._draft.start(slot, prompt_ids)
+
+    def _spec_stop(self, slot: int) -> None:
+        if self._ngram is not None:
+            self._ngram.stop(slot)
+        if self._draft is not None:
+            self._draft.stop(slot)
+
+    def _collect_drafts(self, decoding: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """Up to K draft tokens per decoding slot: (drafts [num_slots, K], counts
+        [num_slots]). A slot with 0 drafts (no n-gram match, idle, mid-prefill) decodes
+        plainly inside the verify step."""
+        k = self.draft_k
+        num = self.pool.num_slots
+        drafts = np.zeros((num, k), np.int64)
+        counts = np.zeros(num, np.int64)
+        if self._draft is not None:
+            # one ingest of the tokens committed since the drafter last saw each slot
+            # (<= K+1: accepted + bonus), then K greedy draft tokens
+            windows = np.full((num, k + 1), self.pad_token_id, np.int64)
+            ingest = np.zeros(num, np.int64)
+            for slot in decoding:
+                state = self._slot_states[slot]
+                fresh = (state.request.prompt_ids + state.tokens)[int(self._draft.seen[slot]) :]
+                assert len(fresh) <= k + 1, (len(fresh), k)
+                windows[slot, : len(fresh)] = fresh
+                ingest[slot] = len(fresh)
+            proposed = self._draft.propose(windows, ingest)
+            for slot in decoding:
+                drafts[slot] = proposed[slot]
+                counts[slot] = k
+        elif self._ngram is not None:
+            for slot in decoding:
+                proposal = self._ngram.propose(slot)
+                drafts[slot, : len(proposal)] = proposal
+                counts[slot] = len(proposal)
+        return drafts, counts
+
+    def _verify(self, decoding: list[int], kv_caches, lengths: torch.Tensor) -> None:
+        """One verify step: the ``[num_slots, K+1]`` window (the fed token and the drafts)
+        at each row's own frontier in one forward, the acceptance, one host fetch."""
+        k = self.draft_k
+        device = self.device
+        drafts, num_drafts = self._collect_drafts(decoding)
+        t0 = time.perf_counter()
+        # one copy to the device: the window (the fed token, the drafts) and the draft counts
+        packed = torch.as_tensor(np.concatenate([self._tokens[:, None], drafts, num_drafts[:, None]], axis=1), device=device)
+        positions = lengths[:, None] + torch.arange(k + 1, device=device)[None, :]
+        out = self.model(packed[:, : k + 1], position_ids=positions, kv_caches=kv_caches, cache_index=lengths)
+        accepted, bonus = speculative_accept(
+            out.logits,
+            packed[:, 1 : k + 1],
+            packed[:, k + 1],
+            self._generators,
+            self._rows_sampling(decoding),
+            *self._sampling_tensors(slice(None)),
+        )
+        accepted, bonus = torch.stack([accepted, bonus]).cpu().numpy()  # host fetch: the streaming sync point
+        self.stats.decode_steps += 1
+        self.stats.decode_seconds += time.perf_counter() - t0
+        self._emit_verified(decoding, drafts, num_drafts, accepted, bonus)
+
+    def _verify_once_paged(self) -> None:
+        decoding = self._map_decode_pages(self.draft_k + 1)
+        if not decoding:
+            return
+        table, lengths = self._step_views(decoding)
+        self._verify(decoding, [{**c, "page_table": table} for c in self.pool.caches], lengths)
+
+    def _verify_once_dense(self) -> None:
+        lengths = torch.as_tensor(self.pool.lengths, device=self.device)
+        self._verify(list(self._slot_states), self.pool.caches, lengths)
+
+    def _emit_verified(
+        self, decoding: list[int], drafts: np.ndarray, num_drafts: np.ndarray, accepted: np.ndarray, bonus: np.ndarray
+    ) -> None:
+        """Commit a verify step per slot: the accepted drafts in order, then the bonus
+        token, with EOS and the token budget applied mid-window (tokens after a finishing
+        token are discarded, so the stream is plain decode's). The frontier advances past
+        the fed token and the accepted drafts delivered; the bonus token's K/V is written
+        by the next step, and rejected tails stay masked behind the frontier."""
+        emitted_total = proposed_total = accepted_total = 0
+        for slot in decoding:
+            state = self._slot_states.get(slot)
+            if state is None:
+                continue
+            proposals = int(num_drafts[slot])
+            acc = min(int(accepted[slot]), proposals)
+            proposed_total += proposals
+            accepted_total += acc
+            plan = [int(drafts[slot, i]) for i in range(acc)] + [int(bonus[slot])]
+            eos = state.request.eos_token_id
+            budget = state.request.max_new_tokens - state.num_generated
+            emit: list[int] = []
+            for token in plan:
+                emit.append(token)
+                if (eos is not None and token == eos) or len(emit) >= budget:
+                    break
+            self.pool.lengths[slot] += 1 + min(len(emit), acc)
+            self._tokens[slot] = emit[-1]
+            emitted_total += len(emit)
+            for token in emit:
+                self._deliver(state, token)
+                if state.done:
+                    break
+        self.stats.decode_tokens += emitted_total
+        self.stats.draft_tokens_proposed += proposed_total
+        self.stats.draft_tokens_accepted += accepted_total
 
     # ------------------------------------------------------------------ delivery
 
@@ -691,6 +1155,8 @@ class ServingEngine:
     def _deliver(self, state: RequestState, token: int) -> None:
         """Stream one token and apply the termination rules (EOS counts as emitted)."""
         state.tokens.append(token)
+        if self._ngram is not None and state.slot is not None:
+            self._ngram.extend(state.slot, token)  # emitted tokens feed later lookups
         if state.request.on_token is not None:
             state.request.on_token(token)
         eos = state.request.eos_token_id
@@ -706,6 +1172,8 @@ class ServingEngine:
     def _finish(self, state: RequestState, status: RequestStatus) -> None:
         state.status = status
         state.finish_t = self.scheduler.clock()
+        if self._swap is not None:
+            self._swap.drop(state.request.request_id)  # finished while swapped out
         if state.slot is not None:
             slot = state.slot
             self._prefill_tasks.pop(slot, None)
@@ -713,6 +1181,8 @@ class ServingEngine:
                 self._prefill_order.remove(slot)
             if self.prefix is not None:
                 self._register_prefix(state, slot)
+            if self.speculating:
+                self._spec_stop(slot)
             self.pool.free(slot)
             self._generators[slot] = None
             del self._slot_states[slot]

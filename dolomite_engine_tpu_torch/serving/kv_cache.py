@@ -16,10 +16,15 @@ each step); the allocation state lives on the host.
 ``kv_dtype`` picks the pages' storage: ``"bf16"``, or the quantized ``"int8"`` /
 ``"fp8"`` (codes plus per-(page, kv head) fp32 scale pools, ``k_scale`` / ``v_scale`` in
 each layer's dict; encode and decode in `ops/kv_quant.py`).
+
+``oversubscribe_ratio`` > 1 lets admission promise more pages than exist (the engine's
+preemption makes the shortfall safe), and `HostSwapPool` parks a preempted slot's pages in
+host memory (``preemption="swap"``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
@@ -124,11 +129,17 @@ class SlotKVCachePool:
             raise ValueError(f"slot {slot} is not allocated")
         if not 0 < length <= self.max_len:
             raise ValueError(f"prefill length {length} is outside (0, {self.max_len}]")
-        for pool, new in zip(self.caches, prefill_caches):
-            bucket = new["k"].shape[1]
-            pool["k"][slot, :bucket] = new["k"][0]
-            pool["v"][slot, :bucket] = new["v"][0]
+        insert_slot(self.caches, prefill_caches, slot)
         self.lengths[slot] = length
+
+
+def insert_slot(pool_caches: KVCacheList, prefill_caches: KVCacheList, slot: int) -> None:
+    """Copy a batch-1 prefill cache (``[1, bucket, H, D]`` per layer) into row `slot` of
+    dense caches at positions ``[0, bucket)``, in place."""
+    for pool, new in zip(pool_caches, prefill_caches):
+        bucket = new["k"].shape[1]
+        pool["k"][slot, :bucket] = new["k"][0]
+        pool["v"][slot, :bucket] = new["v"][0]
 
 
 class PagedKVCachePool:
@@ -140,9 +151,12 @@ class PagedKVCachePool:
       mapped" and any device write through it lands in trash;
     - a page is writable by a slot only while that slot holds its sole reference; shared
       pages are read-only and the engine copies a partial tail page before writing (COW);
-    - ``len(free pages) >= total reserved`` at all times: admission reserves the
-      worst-case page count up front (`reserve`), every later `alloc_page` for that slot
-      consumes the reservation, so a mid-decode allocation can never fail.
+    - ``len(free pages) >= total reserved`` at ``oversubscribe_ratio`` 1.0: admission
+      reserves the worst-case page count up front (`reserve`), every later `alloc_page`
+      for that slot consumes the reservation, so a mid-decode allocation can never fail.
+      Above 1.0 admission may promise up to ``ratio * allocatable`` pages; the engine then
+      reclaims (prefix eviction, preemption) before it maps a page when `physical_free`
+      is 0.
     """
 
     def __init__(
@@ -154,11 +168,14 @@ class PagedKVCachePool:
         num_pages: int | None = None,
         dtype: torch.dtype | None = None,
         kv_dtype: str | None = None,
+        oversubscribe_ratio: float = 1.0,
     ) -> None:
         if num_slots <= 0 or max_len <= 0:
             raise ValueError(f"num_slots and max_len must be positive, got {num_slots}, {max_len}")
         if page_size <= 0 or page_size % 8 != 0:
             raise ValueError(f"page_size must be a positive multiple of 8, got {page_size}")
+        if oversubscribe_ratio < 1.0:
+            raise ValueError(f"oversubscribe_ratio must be >= 1.0, got {oversubscribe_ratio}")
         if kv_dtype is not None and kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be one of {sorted(KV_DTYPES)} (or None for the model / cache "
@@ -166,6 +183,9 @@ class PagedKVCachePool:
             )
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype in QUANTIZED_KV_DTYPES
+        # reservations beyond the physical pool are safe only when the engine can preempt
+        # to reclaim (validated there); 1.0 keeps every reservation physically backed
+        self.oversubscribe_ratio = oversubscribe_ratio
         self.num_slots = num_slots
         self.max_len = max_len
         self.page_size = page_size
@@ -206,6 +226,10 @@ class PagedKVCachePool:
     @property
     def num_active(self) -> int:
         return len(self._slots_in_use)
+
+    @property
+    def occupancy(self) -> float:
+        return len(self._slots_in_use) / self.num_slots
 
     def allocate(self) -> int | None:
         """Claim a free slot row (lowest index first), or None when all rows are taken."""
@@ -250,10 +274,32 @@ class PagedKVCachePool:
         return (self.num_pages - 1) - len(self._free_pages)
 
     @property
+    def physical_free(self) -> int:
+        """Pages on the free list: what `alloc_page` can hand out now. Under
+        oversubscription it can be less than the outstanding reservations."""
+        return len(self._free_pages)
+
+    @property
     def available_pages(self) -> int:
-        """Pages admission may still promise: allocatable pages minus pages referenced and
-        outstanding reservations."""
-        return (self.num_pages - 1) - self.pages_in_use - self._total_reserved
+        """Pages admission may still promise: the (possibly oversubscribed) capacity minus
+        pages referenced and outstanding reservations; at ratio 1.0, free minus reserved."""
+        virtual = int(self.oversubscribe_ratio * (self.num_pages - 1))
+        return virtual - self.pages_in_use - self._total_reserved
+
+    @property
+    def page_fragmentation(self) -> float:
+        """Share of the allocated pages' capacity not holding valid tokens (each slot's
+        partial tail page); approximate mid-prefill, where a slot's length is committed
+        only at the last chunk."""
+        in_use = self.pages_in_use
+        if in_use == 0:
+            return 0.0
+        wasted = 0
+        for slot in self._slots_in_use:
+            length = int(self.lengths[slot])
+            if length > 0 and length % self.page_size:
+                wasted += self.page_size - length % self.page_size
+        return wasted / (in_use * self.page_size)
 
     def reserve(self, slot: int, pages: int) -> None:
         """Promise `pages` future allocations to `slot`."""
@@ -266,9 +312,15 @@ class PagedKVCachePool:
 
     def alloc_page(self, slot: int, index: int) -> int:
         """Map a fresh private page (refcount 1) at logical page `index` of `slot`,
-        consuming one unit of the slot's reservation."""
+        consuming one unit of the slot's reservation. Infallible at ratio 1.0; an
+        oversubscribed engine reclaims before calling when `physical_free` is 0."""
         assert self.page_table[slot, index] == TRASH_PAGE, (slot, index)
         assert self._slot_reserved[slot] > 0, f"slot {slot} has no reserved pages left"
+        if not self._free_pages:
+            raise RuntimeError(
+                "page pool physically exhausted under oversubscription: the engine must "
+                "reclaim (prefix-evict or preempt) before mapping a page"
+            )
         page = self._free_pages.pop()
         self.refcounts[page] = 1
         self.page_table[slot, index] = page
@@ -306,3 +358,70 @@ class PagedKVCachePool:
             for array in cache.values():
                 raw = as_bytes(array)
                 raw[dst].copy_(raw[src])
+
+
+class HostSwapPool:
+    """Host-memory parking lot for preempted slots' pages (``preemption="swap"``).
+
+    Swap-out copies a victim's physical pages of every layer (`ops/attention.
+    gather_kv_pages`, a quantized pool's scale rows with them) to host memory before the
+    engine frees the device pages; swap-in writes them onto freshly allocated pages
+    (`scatter_kv_pages`). Both run on the current stream: swap-out's copy to pageable
+    host memory returns once the bytes are on the host, so a later forward cannot
+    overwrite a freed page before it was read, and swap-in's copies are ordered before
+    the slot's next forward. A raw copy, so the restored pages and scales are identical
+    to what went out and a swapped request continues token for token.
+    """
+
+    def __init__(self, pool: PagedKVCachePool) -> None:
+        self.pool = pool
+        # request_id -> (per-layer host copies [pages, ...], page count)
+        self._parked: dict[int, tuple[list[dict[str, torch.Tensor]], int]] = {}
+        self.bytes_out = self.bytes_in = 0
+        self.seconds_out = self.seconds_in = 0.0
+
+    def __len__(self) -> int:
+        return len(self._parked)
+
+    @property
+    def host_bytes(self) -> int:
+        """Host memory held by every parked payload."""
+        return sum(
+            sum(array.nbytes for chunk in payload for array in chunk.values()) for payload, _ in self._parked.values()
+        )
+
+    @torch.no_grad()
+    def swap_out(self, request_id: int, pages: list[int]) -> int:
+        """Copy `pages` (chain order) to the host under `request_id`; the caller frees the
+        device pages afterwards. Returns the page count."""
+        from ..ops.attention import gather_kv_pages
+
+        t0 = time.perf_counter()
+        index = torch.as_tensor(pages, dtype=torch.long, device=self.pool.caches[0]["k"].device)
+        payload = [{name: array.cpu() for name, array in chunk.items()} for chunk in gather_kv_pages(self.pool.caches, index)]
+        self._parked[request_id] = (payload, len(pages))
+        self.seconds_out += time.perf_counter() - t0
+        self.bytes_out += sum(array.nbytes for chunk in payload for array in chunk.values())
+        return len(pages)
+
+    @torch.no_grad()
+    def swap_in(self, request_id: int, dst_pages: list[int]) -> int:
+        """Write the parked payload onto `dst_pages` (freshly allocated, chain order) and
+        drop the host copy. Returns the page count."""
+        from ..ops.attention import scatter_kv_pages
+
+        payload, used = self._parked.pop(request_id)
+        assert len(dst_pages) == used, (dst_pages, used)
+        t0 = time.perf_counter()
+        device = self.pool.caches[0]["k"].device
+        index = torch.as_tensor(dst_pages, dtype=torch.long, device=device)
+        scatter_kv_pages(
+            self.pool.caches, [{name: array.to(device) for name, array in chunk.items()} for chunk in payload], index
+        )
+        self.seconds_in += time.perf_counter() - t0
+        self.bytes_in += sum(array.nbytes for chunk in payload for array in chunk.values())
+        return used
+
+    def drop(self, request_id: int) -> None:
+        """Discard a parked payload (the request finished or was cancelled while out)."""
+        self._parked.pop(request_id, None)

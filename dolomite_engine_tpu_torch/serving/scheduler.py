@@ -1,8 +1,9 @@
 """Request queue + continuous-batching scheduler (Orca-style iteration-level scheduling).
 
 (Copy of `dolomite_engine_tpu/serving/scheduler.py`, with sampling from the port, a
-request's random stream named by an integer seed, and the per-request preemption,
-migration and tracing fields left for the slices that port those features.)
+request's random stream named by an integer seed (its generator's state travels in the
+preemption context, so there is no split count to carry), and the per-request migration
+and tracing fields left for the slices that port those features.)
 
 Requests enter a bounded waiting queue (`submit`) ordered by **priority tier, then
 submission order**: tier 0 is the most important; within a tier the queue is FCFS by a
@@ -29,7 +30,7 @@ import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
 from ..ops.sampling import encode_sampling_params
 
@@ -112,6 +113,7 @@ class RequestState:
     finish_t: float | None = None
     seq: int = -1  # FCFS position within the tier, assigned once at submit
     preemptions: int = 0  # times this request was evicted mid-flight and re-enqueued
+    resume: Any = None  # engine-private preemption context (swap payload, generator state)
 
     @property
     def tier(self) -> int:

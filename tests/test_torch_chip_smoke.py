@@ -2,8 +2,9 @@
 its `pretrain` phase's control flow (the YAML's cuts, the corpus, `pretrain.main`, the
 telemetry windows, the checkpoint and the 2-layer resume check, bit-identical), the
 `generate` phase inside it (`generate.main` over `configs/generation.yml` from that
-checkpoint with both engines, the greedy runs three ways, the logits check) and the
-`alibi_generation` phase run at tiny widths through the kernels' plain versions."""
+checkpoint with both engines, the greedy runs three ways, the logits check), the
+`speculative_generation` and `preemption` phases after it, and the `alibi_generation`
+phase run at tiny widths through the kernels' plain versions."""
 
 import subprocess
 import sys
@@ -37,13 +38,17 @@ def test_exits_without_a_card():
 
 
 def test_pretrain_phase_rehearsal(monkeypatch):
-    """Phase 12 with phase 13 inside it: the generation entry point from the checkpoint."""
+    """Phase 12 with phases 13, 15 and 16 inside it: the generation entry point from the
+    checkpoint, with speculation and with preemption."""
     monkeypatch.chdir(REPO)
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
 
-    rehearsal = {"model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512), "sequence_length": 128, "new_tokens": 8, "longest_prompt": 256}
-    record, launches, (generation, generate_launches) = chip_smoke.pretrain_phase(0, device="cpu", rehearsal=rehearsal)
+    rehearsal = {
+        "model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512), "sequence_length": 128, "new_tokens": 8,
+        "longest_prompt": 256, "preempt_pages": 96,
+    }
+    record, launches, (generation, generate_launches), speculated, preempted = chip_smoke.pretrain_phase(0, device="cpu", rehearsal=rehearsal)
     assert record["losses"][-1] < record["losses"][0]
     assert record["checkpoint"]["consumed_samples"] == 2 * chip_smoke.PRETRAIN_STEPS
     assert [w["at_step"] for w in record["goodput_windows"]] == list(range(1, chip_smoke.PRETRAIN_STEPS + 1))
@@ -60,6 +65,25 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     assert not any(generate_launches.values())
     expected = generation["expected_launches"]
     assert expected["paged_decode_attention"] > 0 and expected["flash_attn_fwd"] > 0 and expected["rope_qkv"] > 0
+    # phase 15: speculation through the entry point, a draft model, the target drafting for
+    # itself, one verify step's logits over a bf16 and an int8 pool
+    speculative, speculative_launches, _ = speculated
+    assert speculative["ngram_greedy"]["requests"] == chip_smoke.GREEDY_PROMPTS
+    assert speculative["ngram_sampled"]["requests"] == chip_smoke.GENERATION_PROMPTS
+    assert speculative["ngram_greedy"]["agreement_with_paged_greedy"] > 0.9
+    assert speculative["self_draft"]["accept_rate"] >= 0.95
+    assert speculative["draft_model"]["requests"] == chip_smoke.SPEC_DRAFT_REQUESTS
+    assert speculative["draft_model"]["agreement_with_paged_greedy"] > 0.9
+    assert all(speculative["verify_logits_check"]["int8"]["layer0_pool_bytes_identical"].values())
+    assert speculative["expected_launches"]["flash_attn_fwd"] > 0  # the draft models' prefills
+    assert speculative["expected_launches"]["kv_quant"] > 0  # the int8 verify check's kernel path
+    # phase 16: swap and recompute over an oversubscribed pool, two tiers, an int8 round trip
+    preemption, preemption_launches, _ = preempted
+    assert preemption["swap"]["preemptions"] > 0 and preemption["swap"]["requests_identical_to_unpreempted"] == chip_smoke.GENERATION_PROMPTS
+    assert preemption["recompute"]["preemptions"] > 0
+    assert set(preemption["tiers"]["preempted_by_tier"]) == {1} and preemption["tiers"]["tier0_preemptions"] == 0
+    assert preemption["int8_swap_round_trip"]["pages_and_scales_identical"]
+    assert not any(speculative_launches.values()) and not any(preemption_launches.values())
 
 
 def test_alibi_generation_phase_rehearsal(monkeypatch):

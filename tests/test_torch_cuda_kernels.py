@@ -12,7 +12,9 @@ the MoE slice's grouped GEMMs: 32 experts, d 1024, swiglu c_fc banks 8192 wide; 
 alibi slice's flash form: MPT-7B's 32 heads of 128 over [2, 2048] packed rows).
 The paged K/V write (rope_qkv's paged form, kv_quant's fused scatter-quantize) is held to
 the flat rope kernel followed by the plain scatter: one launch a call, pages 1.. and
-scales byte-identical (page 0 is the trash page), the query bit-identical. The
+scales byte-identical (page 0 is the trash page), the query bit-identical, also for the
+speculative verify step's K+1 window over the previous window's rejected tail. The paged
+decode kernel is also held at that window (W = 5, granite's MHA and GQA). The
 generation paths' forms (`chip_smoke.PADDED_FLASH_FORMS`: padding masks as segment ids,
 right- and left-padded; the flat rope kernel at a decode step with per-row positions) are
 held to the same tolerances, every flash output row finite.
@@ -157,6 +159,10 @@ def _decode_case(seed, num_slots, width, hq, hkv, head_dim, page_size, max_pages
         # head_dim 128, 32-token pages, a W=4 window over a 4096-token view: more than
         # 48 KB of shared memory per block
         (2, 4, 8, 2, 128, 32, 128, [4000, 7]),
+        # the verify step at W = K+1 = 5: granite's MHA at head dim 80, 16 slots (the
+        # second 4-row block of each head holds one real row), one idle; and under GQA
+        (16, 5, 32, 32, 80, 16, 101, [1595, 300, 0, 1024, 17, 1, 640, 250, 1200, 64, 511, 512, 900, 33, 1500, 15]),
+        (4, 5, 8, 2, 80, 16, 8, [10, 0, 3 * 16 + 11, 100]),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1048,6 +1054,58 @@ def test_quantized_paged_write_is_byte_identical_to_plain(batch, seq, hq, hkv, h
         torch.cuda.synchronize()
         assert all(same_pages(a, b) for a, b in zip(got, want))
         assert not same_pages(got[0], pools[0])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+def test_verify_windows_over_rejected_tails_match_plain(pool):
+    """Two verify steps at W = K+1 = 5 with a [S] index, as the engine runs them: the
+    second window starts where the first one's accepted drafts end, over the first
+    window's rejected tail and over pool rows past the frontier that hold stale values
+    (the pages' second halves hold the largest). Windows cross page boundaries; row 2's
+    overhangs its mapped pages (its last table entry is 0: the trash page) and row 3 is
+    idle. rope_qkv's paged form (bf16 pool) and the fused scatter-quantize (int8 / fp8)
+    write pages 1.. and scales byte-identical to the flat kernel and the plain scatter, one
+    launch each, and leave every page outside the rows' tables as it was."""
+    from functools import partial
+
+    from dolomite_engine_tpu_torch.ops.attention import paged_write_kv_quantized_plain
+
+    g = torch.Generator(device="cuda").manual_seed(33)
+    batch, width, hq, hkv, head_dim, page, max_pages = 4, 5, 32, 32, 80, 16, 4
+    pages = 1 + batch * max_pages
+    table = (1 + torch.randperm(pages - 1, generator=g, device="cuda")).reshape(batch, max_pages).to(torch.int32)
+    table[3] = 0  # an idle row
+    table[2, 3] = 0  # positions 48.. of row 2 are past its mapped pages
+    table = table.contiguous()
+    frontiers = torch.tensor([13, 30, 45, 0], dtype=torch.int32, device="cuda")
+    accepted = torch.tensor([1, 3, 0, 0], dtype=torch.int32, device="cuda")
+    angles = torch.rand((1, width, head_dim), generator=g, device="cuda") * 6.0
+    cos, sin = angles.cos(), angles.sin()
+    start = _pools(g, pages, page, hkv, head_dim, pool)
+    got = [None if t is None else t.clone() for t in start]
+    want = [None if t is None else t.clone() for t in start]
+    flat = partial(rope_qkv.rope_qkv_paged_plain, rope=rope_qkv.fused_rope_qkv)
+    for index in (frontiers, frontiers + 1 + accepted):
+        qkv = _rand(g, (batch, width, (hq + 2 * hkv) * head_dim), torch.bfloat16)
+        before = (rope_qkv.KERNEL.launches, kv_quant.KERNEL.launches)
+        if pool == "bf16":
+            rope_qkv.rope_qkv_paged(qkv, cos, sin, hq, hkv, head_dim, got[0], got[1], table, index)
+            launched = (rope_qkv.KERNEL.launches - before[0], kv_quant.KERNEL.launches - before[1])
+            flat(qkv, cos, sin, hq, hkv, head_dim, want[0], want[1], table, index)
+        else:
+            _, key, value = rope_qkv.rope_qkv_paged(qkv, cos, sin, hq, hkv, head_dim, None, None, table, index)
+            kv_quant.paged_scatter_kv_quantized_kernel(*got, key, value, table, index)
+            launched = (rope_qkv.KERNEL.launches - before[0], kv_quant.KERNEL.launches - before[1])
+            paged_write_kv_quantized_plain(*want, key, value, table, index)
+        torch.cuda.synchronize()
+        assert launched == (1, 0 if pool == "bf16" else 1)
+        assert all(same_pages(a, b) for a, b in zip(got, want) if a is not None)
+    assert not same_pages(got[0], start[0])  # the windows wrote something
+    outside = sorted(set(range(1, pages)) - set(table.flatten().tolist()))
+    assert outside  # row 2's unmapped page and the idle row's
+    for a, b in zip(got, start):
+        if a is not None:
+            assert torch.equal(as_bytes(a)[outside], as_bytes(b)[outside])
 
 
 def test_paged_write_wrappers_raise_on_what_the_kernels_do_not_take():

@@ -9,6 +9,9 @@
   model's; the jsonl holds every prompt's line in order, within `max_new_tokens`, in the
   tokenizer's words, for both engines; `main` without `load_args` builds the model from
   `model_args`;
+- with speculation or swap preemption over an oversubscribed pool, `generate.generate`
+  writes the JAX function's jsonl; from the checkpoint, `generate.main` with n-gram
+  speculation or recompute preemption writes the plain greedy run's;
 - the options the port does not run raise, naming their ROADMAP item;
 - `_pad_to_static_shapes` pads as the JAX function does.
 """
@@ -102,6 +105,49 @@ def test_generate_writes_the_jax_jsonl(tmp_path, paged):
     assert summary["pool"]["paged"] == paged and (tmp_path / "port" / "inference_config.yml").is_file()
 
 
+@pytest.mark.parametrize(
+    "options",
+    [dict(speculate_ngram=True, draft_k=3), dict(preemption="swap", oversubscribe_ratio=2.0, kv_num_pages=5)],
+    ids=["speculate_ngram", "swap-oversubscribed"],
+)
+def test_generate_with_speculation_or_preemption_writes_the_jax_jsonl(tmp_path, options):
+    """The YAML's speculation, and swap preemption over an oversubscribed pool of 4 pages
+    (each request's worst case is up to 4 pages, so two in flight run it dry), through
+    both packages' `generate` with the same weights: the same greedy jsonl, and the port's
+    engine really speculated or preempted."""
+    config = dict(ROPE_GQA, initializer_range=0.3)
+    prompts = _write_prompts(tmp_path / "prompts", config["vocab_size"], rows=6)
+    model_args = dict(model_class="AutoModelForCausalLM", pretrained_config=config)
+
+    def args_for(cls, name):
+        args = _inference_config(prompts, tmp_path / name, True, model_args=model_args)
+        args["generation_parameters"].update(options)
+        return cls(**args)
+
+    jax_args = args_for(JaxInferenceArgs, "jax")
+    jax_model = JaxWrapper(mode=JaxMode.inference, pretrained_config=config)
+    jax_model.tokenizer = WordTokenizer()
+    params = nn.unbox(jax_model.model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    datasets, _ = jax_get_datasets_list(jax_args.datasets, JaxSplit.test, JaxMode.inference, jax_model.tokenizer)
+    jax_generate.generate(jax_args, jax_model, params, datasets, JaxMode.inference)
+
+    args = args_for(InferenceArgs, "port")
+    model = ModelWrapperForFinetuning(config, device="cpu")
+    model.tokenizer = WordTokenizer()
+    load_jax_params(model.model, jax.tree.map(np.asarray, params), device="cpu")
+    datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
+    summary = generate.generate(args, model, datasets, Mode.inference)
+
+    got = (tmp_path / "port" / "output-prompts.jsonl").read_text()
+    assert got == (tmp_path / "jax" / "output-prompts.jsonl").read_text()
+    assert len(got.splitlines()) == 6
+    stats = summary["stats"]
+    if "speculate_ngram" in options:
+        assert stats.draft_tokens_proposed > 0
+    else:
+        assert stats.preemptions > 0 and stats.pages_swapped_in == stats.pages_swapped_out > 0
+
+
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     """A 2-step pretrain run of the port with a word-level tokenizer: (its directory, the
@@ -176,6 +222,27 @@ def test_main_from_a_port_checkpoint(trained, paged):
     assert again["generated_tokens"] == summary["generated_tokens"]
 
 
+def test_main_with_speculation_and_preemption_writes_the_plain_greedy_jsonl(trained):
+    """`generate.main` from the port's checkpoint, greedy: with n-gram speculation, and
+    with recompute preemption over an oversubscribed pool of 5 pages, it writes the jsonl
+    of the plain run."""
+    tmp_path, _, _ = trained
+    prompts = _write_prompts(tmp_path / "prompts-spec", 128, rows=6, seed=4)
+    outputs = []
+    for name, options in (
+        ("plain", {}),
+        ("spec", dict(speculate_ngram=True, draft_k=4)),
+        ("recompute", dict(preemption="recompute", oversubscribe_ratio=2.0, kv_num_pages=5)),
+    ):
+        config = _inference_config(prompts, tmp_path / f"out-{name}", True, load_args={"load_path": str(tmp_path / "ckpt"), "iteration": 2})
+        config["generation_parameters"].update(options)
+        summary = generate.main(InferenceArgs(**config), device="cpu")
+        outputs.append((tmp_path / f"out-{name}" / "output-prompts.jsonl").read_text())
+        if name == "recompute":
+            assert summary["stats"].preemptions > 0
+    assert outputs[1] == outputs[0] and outputs[2] == outputs[0]
+
+
 def test_main_without_a_checkpoint(tmp_path, trained):
     _, _, tokenizer = trained
     config = dict(ROPE_GQA, vocab_size=128, eos_token_id=1)
@@ -193,10 +260,7 @@ def test_main_without_a_checkpoint(tmp_path, trained):
 @pytest.mark.parametrize(
     "option, item",
     [
-        (dict(speculate_ngram=True), "Speculative decoding"),
-        (dict(draft_model="a-model"), "Speculative decoding"),
-        (dict(preemption="swap"), "Preemption and oversubscription"),
-        (dict(preemption="recompute", oversubscribe_ratio=1.5), "Preemption and oversubscription"),
+        (dict(draft_model="a-model"), "Interop and tools"),
         (dict(tensor_parallel_size=2), "Distribution"),
         (dict(replicas=2), "Serving fleet and observability"),
         (dict(disaggregate=True), "Serving fleet and observability"),
@@ -220,7 +284,7 @@ def test_other_refusals(tmp_path):
     config = _inference_config("unused", tmp_path, True, model_args=model_args, kernel_args={"rmsnorm": "pallas"})
     with pytest.raises(ValueError, match="no backend switch"):
         generate.main(InferenceArgs(**config), device="cpu")
-    with pytest.raises(NotImplementedError, match="'Speculative decoding'"):
+    with pytest.raises(NotImplementedError, match="'Interop and tools'"):
         generate.load_draft_model("a/draft")
     assert generate.load_draft_model(None) == (None, None)
     with pytest.raises(NotImplementedError, match="'Finetune and PEFT'"):

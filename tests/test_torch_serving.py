@@ -137,10 +137,6 @@ def test_eos_and_queue_bound(models):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(speculate_ngram=True),
-        dict(draft_model=object()),
-        dict(preemption="swap"),
-        dict(oversubscribe_ratio=1.5),
         dict(mesh=object()),
         dict(prefill_only=True),
         dict(record_interval=5),
