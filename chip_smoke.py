@@ -10,7 +10,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. build the CUDA kernel library from `dolomite_engine_tpu_torch/csrc/` (set-up time);
 2. each kernel of the serving and training paths against its plain PyTorch version on
    the card, at the slices' shapes, in bf16 and fp32 (forward and backward for the
-   training kernels), with kernel, plain and library timings;
+   training kernels), with kernel, plain and library timings; the paged decode kernel,
+   rope_qkv's paged form and the fused scatter-quantize also at the verify step's
+   K+1 = 5 window with a [16] index (`VERIFY_LENGTHS`);
 3. the serving slice: granite-3b-code at full width and depth (32 layers, bf16, random
    weights from the seed) behind `ServingEngine`, serving 8 requests of 300-1500 prompt
    tokens and 64 greedy new tokens, two of them sharing a 512-token prefix. Launch
@@ -87,17 +89,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launches for each engine with 16 slots decoding;
 15. ``speculative_generation`` (inside phase 12, after phase 13): n-gram speculation
    (K = 4) through `generate.main` from the 32-layer checkpoint, greedy (16 x 64, against
-   phase 13's paged greedy tokens) and with the YAML's sampling (32 x 512); then on the
-   engine directly the 2-layer resume model as the draft (8 x 64), the target as its own
-   draft (4 x 32: accept rate >= 0.95, every rejection a near tie), one verify step's
-   logits against the plain forward over a bf16 and an int8 pool (the int8 path's layer-0
-   pool bytes against the plain path's), the host syncs of verify steps (one fetch a
+   phase 13's paged greedy tokens: a request may part from them only at a near tie) and
+   with the YAML's sampling (32 x 512); then on the engine directly the 2-layer resume
+   model as the draft (8 x 64, near ties as before), the target as its own draft (4 x 32:
+   accept rate >= 0.95, every rejection a near tie), one verify step's logits against the
+   plain forward over a bf16 and an int8 pool, all rows and each window row alone (the
+   int8 path's layer-0 pool bytes against the plain path's), the host syncs of verify steps (one fetch a
    step) and a verify step's launches, host and device time with 16 slots decoding;
    launch counts of every engine run (the plain comparison runs aside) asserted exactly;
 16. ``preemption`` (after phase 15): `generate.main` with ``preemption: swap`` and then
    ``recompute``, ``oversubscribe_ratio: 2.0`` and 512 pages, greedy 32 x 64, against an
-   unpreempted run (swap: identical tokens), the swap GB/s and the seconds lost; two tiers
-   on the engine (only tier 1 evicted); an int8 swap round trip byte-identical on the
+   unpreempted run (swap: identical tokens; recompute: parting only at a near tie), the
+   swap GB/s and the seconds lost; two tiers on the engine (only tier 1 evicted, parting
+   from the unpreempted tokens only at a near tie); an int8 swap round trip byte-identical on the
    card; launch counts asserted exactly;
 14. ``alibi_generation`` (last): MPT-7B's widths at 16 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
@@ -106,7 +110,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    paged engine's through the repaired alibi path) against the plain forward.
 
 The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
-at both models' decode and prefill windows over bf16, int8 and fp8 pools, one launch a
+at both models' decode, prefill and verify windows over bf16, int8 and fp8 pools, one launch a
 call, pages byte-identical to the flat rope kernel and the plain scatter) and the
 grouped-GEMM kernel cases (the decode, prefill-chunk and training shapes, the
 transposed-bank dX form, tgmm with fp32 and with the bank's bf16 output, and a case with
@@ -162,6 +166,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # fp32 outside the tensor cores
 
 NUM_SLOTS, MAX_LEN, PAGE, CHUNK = 8, 2048, 16, 512
+# a verify step's frontiers: 16 slots (one idle) up to 1595 over a 1616-token view, the
+# speculative phase's pool widths; windows of K+1 = 5 cross page boundaries (300, 511, 15)
+VERIFY_LENGTHS = [1595, 300, 0, 1024, 17, 1, 640, 250, 1200, 64, 511, 512, 900, 33, 1500, 15]
+VERIFY_PAGES = 101
 MAX_NEW = 64
 
 # the training slice (configs/pretraining-examples/pretrain-v5e-256-granite-3b.yml), cut to
@@ -406,9 +414,10 @@ def kernel_cases(seed):
 
 def paged_kernel_cases(seed):
     """Phase 2, the serving path's attention: the paged decode kernel (8 slots, ragged
-    frontiers up to 2048, one idle slot) and the prefill kernel (a 512-token chunk at
-    start 0 and over a 1024-token prefix) against their plain versions at granite's
-    shape, bf16 and fp32, with SDPA over the gathered page view as the library call."""
+    frontiers up to 2048, one idle slot; and the verify step's W = K+1 = 5 window over 16
+    slots at `VERIFY_LENGTHS`) and the prefill kernel (a 512-token chunk at start 0 and
+    over a 1024-token prefix) against their plain versions at granite's shape, bf16 and
+    fp32, with SDPA over the gathered page view as the library call."""
     import torch
     import torch.nn.functional as F
 
@@ -449,6 +458,34 @@ def paged_kernel_cases(seed):
             2 * q.numel() * es + 2 * keys * heads * head_dim * es + table.numel() * 4 + 8 * 4,
             4 * keys * heads * head_dim,
         )
+
+        # the verify step: 16 slots at W = K+1 = 5 (the second 4-row block of each head
+        # holds one real row), frontiers up to 1595, one idle slot
+        width = SPEC_K + 1
+        k, v, table, lens = _paged_case(gen, VERIFY_LENGTHS, width, heads, head_dim, VERIFY_PAGES, dtype)
+        q = torch.randn((len(VERIFY_LENGTHS), width, heads, head_dim), generator=gen, device="cuda").to(dtype)
+        got = paged_attention.paged_decode_attention(q, k, v, table, lens, scale)
+        want = paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale)
+        ok = bool(((got.float() - want.float()).abs() <= tol + (1e-5 if fp32 else 0) * want.float().abs()).all())
+        k_view = paged_gather_kv(k, table).transpose(1, 2)
+        v_view = paged_gather_kv(v, table).transpose(1, 2)
+        positions = torch.arange(VERIFY_PAGES * PAGE, device="cuda")
+        rows = lens[:, None] + torch.arange(width, device="cuda")[None, :]
+        mask = (positions[None, None, :] <= rows[:, :, None])[:, None]
+        keys = sum(length + width for length in VERIFY_LENGTHS)
+        pairs = sum(length + j + 1 for length in VERIFY_LENGTHS for j in range(width))
+        record(
+            "paged_decode_attention",
+            f"verify q[{len(VERIFY_LENGTHS)},{width},32,80] pages[{k.shape[0]},16,32,80] frontiers <= {max(VERIFY_LENGTHS)}",
+            dtype, got, want, ok, "1e-5" if fp32 else "2e-2 abs",
+            lambda: paged_attention.paged_decode_attention(q, k, v, table, lens, scale),
+            lambda: paged_attention.paged_decode_attention_plain(q, k, v, table, lens, scale),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_view, v_view, attn_mask=mask, scale=scale),
+            2 * q.numel() * es + 2 * keys * heads * head_dim * es + table.numel() * 4 + lens.numel() * 4,
+            4 * pairs * heads * head_dim, extra={"window": "verify"},
+        )
+        del k, v, k_view, v_view
+        positions = torch.arange(max_pages * PAGE, device="cuda")
 
         # paged prefill: one 512-token chunk at start 0 and over a 1024-token prefix
         for start in (0, 1024):
@@ -689,7 +726,10 @@ def _paged_write_windows(gen, hq, hkv, hd):
     mask) of a decode step over 8 slots at frontiers up to 2047 (two on page boundaries;
     the last slot idle on the all-trash row), a 512-token prefill chunk at start 1536 whose
     last 12 rows are a masked pad tail, and one at start 1600 that runs 64 positions past
-    the view (the 2048-token table of the serving cells)."""
+    the view (the 2048-token table of the serving cells); then a verify step's K+1 = 5
+    window with a [16] index at `VERIFY_LENGTHS` (one idle slot), whose windows cross page
+    boundaries and whose slot at 1500 overhangs its mapped pages: position 1504 falls on a
+    table entry of 0, the trash page, as past a request's last mapped page."""
     import torch
 
     from dolomite_engine_tpu_torch.ops.rope import RoPEParams, get_cos_sin
@@ -712,14 +752,21 @@ def _paged_write_windows(gen, hq, hkv, hd):
         mask[0, : min(start + real, MAX_LEN)] = 1
         label = f"prefill chunk at {start}" + (", 12 pad rows" if start + CHUNK <= MAX_LEN else ", 64 rows past the view")
         windows.append((label, qkv, cos, sin, prefill_table, torch.tensor(start, dtype=torch.int32, device="cuda"), mask))
+    width_k = SPEC_K + 1
+    _, _, table, lens = _paged_case(gen, VERIFY_LENGTHS, width_k, 1, 16, VERIFY_PAGES, torch.bfloat16)
+    table[VERIFY_LENGTHS.index(1500), 1504 // PAGE] = 0
+    qkv = torch.randn((len(VERIFY_LENGTHS), width_k, width), generator=gen, device="cuda").to(torch.bfloat16)
+    positions = lens[:, None].long() + torch.arange(width_k, device="cuda")[None, :]
+    cos, sin = get_cos_sin(rope, positions, torch.bfloat16)
+    windows.append((f"verify: {len(VERIFY_LENGTHS)} slots, K+1 = {width_k}", qkv, cos, sin, table, lens, None))
     return windows
 
 
 def paged_write_kernel_cases(seed):
     """Phase 2, the serving K/V write: rope_qkv's paged form and kv_quant's fused
-    scatter-quantize at both served models' decode and prefill windows
-    (`_paged_write_windows`), over bf16, int8 and fp8 pools whose stale rows are their
-    pages' largest (`_stale_pool`). Each call must launch exactly once. Over a bf16 pool
+    scatter-quantize at both served models' decode, prefill and verify windows
+    (`_paged_write_windows`), over bf16, int8 and fp8 pools whose stale rows (a verify
+    window's rejected tails among them) are their pages' largest (`_stale_pool`). Each call must launch exactly once. Over a bf16 pool
     the paged form's pages 1.. and query must be byte-identical to the flat rope kernel
     followed by the plain scatter, and within rope's 2 bf16 ulp of the plain version; over
     a quantized pool its query, K and V must be those of the flat rope kernel, and the
@@ -737,14 +784,16 @@ def paged_write_kernel_cases(seed):
         return out, spec.launches == before + 1
 
     cases = []
-    num_pages = 1 + NUM_SLOTS * (MAX_LEN // PAGE)
     with_flat_rope = functools.partial(rope_qkv.rope_qkv_paged_plain, rope=rope_qkv.fused_rope_qkv)
     for model_name, (hq, hkv, hd) in ATTENTION_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(seed)
         width = (hq + 2 * hkv) * hd
         for label, qkv, cos, sin, table, index, mask in _paged_write_windows(gen, hq, hkv, hd):
             batch, seq = qkv.shape[:2]
-            positions, valid = write_positions(index, mask, MAX_LEN, batch, seq, qkv.device)
+            window = {"window": "verify"} if label.startswith("verify") else {}
+            view = table.shape[1] * PAGE
+            num_pages = max(1 + NUM_SLOTS * (MAX_LEN // PAGE), int(table.max()) + 1)
+            positions, valid = write_positions(index, mask, view, batch, seq, qkv.device)
             page_ids = torch.gather(table.long(), 1, positions.long() // PAGE)
             writes = valid & (page_ids != 0)  # the rows this call writes (the rest: trash page)
             n_rows = int(writes.sum())
@@ -752,7 +801,7 @@ def paged_write_kernel_cases(seed):
             # what a paged write reads of its window, each once: the start, the key mask at
             # the positions inside the view, and the table entry of each (row, page) that a
             # valid position falls in (the form that writes contiguous rows reads none)
-            in_view = write_positions(index, None, MAX_LEN, batch, seq, qkv.device)[1]
+            in_view = write_positions(index, None, view, batch, seq, qkv.device)[1]
             entries = torch.arange(batch, device=qkv.device)[:, None] * table.shape[1] + positions.long() // PAGE
             window_bytes = (
                 index.numel() * index.element_size()
@@ -812,7 +861,7 @@ def paged_write_kernel_cases(seed):
                     (lambda: rope_qkv.rope_qkv_paged_plain(qkv, cos, sin, *args, None, None, table, index, mask)),
                     None,
                     batch * seq * (width + hq * hd) * 2 + cs_bytes + nbytes,
-                    6 * rotated, extra={"form": "paged"},
+                    6 * rotated, extra={"form": "paged", **window},
                 )
                 if kv_dtype == "bf16":
                     del got_k, got_v, ref_k, ref_v
@@ -835,7 +884,7 @@ def paged_write_kernel_cases(seed):
                     # the written rows in, each written (page, head) slice's codes and scale in and out
                     2 * n_rows * hkv * hd * 2 + 2 * n_pages * hkv * (2 * PAGE * hd + 8) + window_bytes,
                     2 * n_pages * hkv * PAGE * hd * 4, op_dtype=torch.float32,  # dequantize, |x| and max, divide, round / clip
-                    plain_iters=5, extra={"form": "scatter"},
+                    plain_iters=5, extra={"form": "scatter", **window},
                 )
                 del got, want, k, v, ks, vs
     torch.cuda.synchronize()
@@ -2726,7 +2775,6 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
 
 GENERATION_YAML = os.path.join("configs", "generation.yml")
 GENERATION_PROMPTS, GREEDY_PROMPTS, GREEDY_NEW = 32, 16, 64
-DENSE_SAMPLED_NEW = 128
 # the alibi cell: MPT-7B's widths at 16 of its 32 layers, random weights; 8 greedy requests
 # of 300-1500 prompt tokens and 64 new tokens, every dense prefill bucket a multiple of 128
 ALIBI_GENERATION_LAYERS, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET = 16, 8, 128
@@ -2794,6 +2842,27 @@ def _agreement(a, b):
     common length."""
     pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
     return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def greedy_divergences(model, prompts, got, want, bound, eos_token_id):
+    """Where two greedy runs of the same requests part: for each row that differs, the
+    first position at which it does (a row that ends there chose EOS) and the plain bf16
+    forward's logit gap between the two runs' tokens after their common prefix. A row may
+    part only at a near tie, a gap within `bound`. Returns ``[[row, position, gap], ...]``."""
+    import torch
+
+    parted = []
+    for row, (prompt, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        x, y = (t[j] if j < len(t) else eos_token_id for t in (a, b))
+        ids = torch.tensor([list(prompt) + list(b[:j])], device=model.device)
+        with torch.no_grad():
+            logits = plain_forward(model, ids)[0, -1].float()
+        parted.append([row, j, (logits[x] - logits[y]).abs().item()])
+    assert all(gap <= bound for _, _, gap in parted), f"two greedy runs part where no near tie is: {parted}, bound {bound}"
+    return parted
 
 
 def _engine_record(stats, seconds, pool=None):
@@ -2992,12 +3061,9 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
         greedy_prompts = prompts[:GREEDY_PROMPTS]
 
         reset_launch_counts()
-        # the entry point as a user runs it: sampled, the YAML's paged engine, then the dense
-        # pool (on the card cut to `DENSE_SAMPLED_NEW` new tokens: its decode rate is a
-        # steady per-step rate, and the script's time went to phases 15 and 16)
+        # the entry point as a user runs it: sampled, the YAML's paged engine, then the dense pool
         for name, paged in (("paged", True), ("dense", False)):
-            cut = {} if paged or rehearsal is not None else {"max_new_tokens": DENSE_SAMPLED_NEW}
-            args = generation_args(save_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal, **cut)
+            args = generation_args(save_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal)
             summary = generate.main(args, device=device)
             max_new = args.generation_parameters.max_new_tokens
             tokens, lines = _outputs(summary["outputs"][0])
@@ -3195,7 +3261,7 @@ def self_draft_check(model, prompts, reference, logits_bound, max_len, eos_token
 
     engine = ServingEngine(
         model, None, num_slots=SPEC_SELF_REQUESTS, max_len=max_len, eos_token_id=eos_token_id,
-        pad_token_id=model.config.pad_token_id, draft_model=model, draft_params=model.state_dict(), draft_k=SPEC_K,
+        pad_token_id=model.config.pad_token_id, draft_model=model, draft_k=SPEC_K,
         device=model.device,
     )
     steps = []
@@ -3238,15 +3304,30 @@ def self_draft_check(model, prompts, reference, logits_bound, max_len, eos_token
     return check, stats, [len(p) for p in prompts[:SPEC_SELF_REQUESTS]]
 
 
-def verify_logits_check(model, prompt, kv_dtype=None, tally=None):
+def _window_rows_check(got, want, logit_std, logits_bound):
+    """Each row of a verify window on its own: its mean abs error against `want` within
+    0.1 logit std, and its argmax `want`'s, or a near tie: `want`'s logit gap between the
+    two argmaxes within `logits_bound`. Returns (per-row mean errors, ties' gaps)."""
+    errors = (got - want).abs().mean(-1).tolist()
+    gaps = [
+        (want[row].max() - want[row, int(got[row].argmax())]).item()
+        for row in range(got.shape[0]) if int(got[row].argmax()) != int(want[row].argmax())
+    ]
+    assert all(e <= 0.1 * logit_std for e in errors) and all(g <= logits_bound for g in gaps), (errors, gaps)
+    return errors, gaps
+
+
+def verify_logits_check(model, prompt, logits_bound, kv_dtype=None, tally=None):
     """(e): one request through a speculating engine (n-gram, K = 4, 16 slots, the rest
     idle): its prompt in chunks, then one verify step over the K+1 window. A forward hook
     reads the engine's own logits (the prompt's real rows and the window); they are held
     against a plain full-sequence forward over the prompt and the window's tokens, bf16 and
-    fp32. Over an int8 pool the request runs again through the plain versions of the paged
-    kernels and the fused scatter-quantize (`_plain_quantized_path`, on the same CUDA
-    tensors): layer 0's pool (codes and scales) must hold the same bytes, and the window's
-    logits must agree. The kernel path's engine run adds its launches to `tally`."""
+    fp32, over all rows and over each window row alone (`_window_rows_check`, ties within
+    `logits_bound`). Over an int8 pool the request runs again through the plain versions of
+    the paged kernels and the fused scatter-quantize (`_plain_quantized_path`, on the same
+    CUDA tensors): layer 0's pool (codes and scales) must hold the same bytes, and each
+    window row's logits must agree. The kernel path's engine run adds its launches to
+    `tally`."""
     import torch
 
     from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
@@ -3300,8 +3381,14 @@ def verify_logits_check(model, prompt, kv_dtype=None, tally=None):
     }
     assert bool(torch.isfinite(got).all()) and got.shape[0] == len(tokens), check
     assert check["mean_abs_err"] <= 0.1 * check["logit_std"], check
+    errors, gaps = _window_rows_check(got[p:], want[p:], check["logit_std"], logits_bound)
+    check.update(window_row_mean_abs_err=errors, window_argmax_tie_gaps=gaps, logit_gap_bound=logits_bound)
+    window_rule = (
+        "; each window row alone: mean abs err <= 0.1 logit std, argmax the plain forward's or a near tie "
+        "(the plain forward's logit gap <= the logits checks' bound)"
+    )
     if kv_dtype is None:
-        check["tolerance"] = "engine vs plain bf16: mean abs err <= 0.1 logit std; vs the fp32 forward at most 1.25x the plain bf16 forward's error"
+        check["tolerance"] = "engine vs plain bf16: mean abs err <= 0.1 logit std; vs the fp32 forward at most 1.25x the plain bf16 forward's error" + window_rule
         assert check["engine_mean_abs_err_vs_fp32"] <= 1.25 * check["plain_bf16_mean_abs_err_vs_fp32"], check
         return check
     kernel_pool = [{name: t.clone() for name, t in engine.pool.caches[0].items()}]
@@ -3315,11 +3402,12 @@ def verify_logits_check(model, prompt, kv_dtype=None, tally=None):
         tolerance=(
             "engine vs plain bf16 forward: mean abs err <= 0.1 logit std (the serving check's bound); vs the "
             "plain quantized path: layer 0's codes and scales byte-identical (trash page 0 aside), the same "
-            "window, its logits' mean abs err <= 0.1 logit std"
+            "window" + window_rule + ", against the plain forward and against the plain quantized path"
         ),
     )
     assert plain_window == window and all(identical.values()), check
-    assert check["window_mean_abs_err_vs_plain_path"] <= 0.1 * check["logit_std"], check
+    errors, gaps = _window_rows_check(got[p:], plain[p:], check["logit_std"], logits_bound)
+    check.update(window_row_mean_abs_err_vs_plain_path=errors, window_argmax_tie_gaps_vs_plain_path=gaps)
     return check
 
 
@@ -3366,7 +3454,8 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
     )
     slot_steps = [0]
     with tally.run(), _slot_steps(slot_steps):
-        summary, tokens, _ = _main_run(args, device)
+        summary, ngram_tokens, _ = _main_run(args, device)
+    tokens = ngram_tokens
     tally.expect(*_engine_launches(summary["stats"], config, True, 0))
     record["ngram_greedy"] = dict(
         _spec_record(summary["stats"], summary["engine_seconds"], summary["pool"], slot_steps[0]), requests=summary["requests"],
@@ -3396,6 +3485,12 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
     model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
     target = model.model
     prompts = context["prompts"][:GREEDY_PROMPTS]
+    # a greedy run may part from the paged greedy run only at a near tie: twice the two
+    # engines' largest logit error against the plain forward (`generate_phase`)
+    bound = 2 * sum(context["logits_max_abs_err"].values())
+    record["ngram_greedy"]["parted_from_paged_greedy"] = greedy_divergences(
+        target, prompts, ngram_tokens, context["greedy_paged"], bound, model.eos_token_id
+    )
     bucketed = -(-max(map(len, prompts)) // 64) * 64
     max_len = bucketed + greedy_new
     # (c) the 2-layer resume model as the draft
@@ -3403,7 +3498,7 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
     draft, _ = load_checkpoint_for_inference(draft_args, Mode.inference, device)
     engine = ServingEngine(
         target, None, num_slots=16, max_len=max_len, eos_token_id=model.eos_token_id, pad_token_id=config.pad_token_id,
-        draft_model=draft.model, draft_params=draft.model.state_dict(), draft_k=SPEC_K, device=target.device,
+        draft_model=draft.model, draft_k=SPEC_K, device=target.device,
     )
     specs = [dict(prompt_ids=p, max_new_tokens=greedy_new) for p in prompts[:SPEC_DRAFT_REQUESTS]]
     proposals = []
@@ -3430,11 +3525,13 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
         requests_identical=sum(s.tokens == r for s, r in zip(states, context["greedy_paged"])),
         # what each model favours: the draft's proposals and the target's tokens, by count
         draft_top_proposals=_top(proposals), target_top_tokens=_top([t for s in states for t in s.tokens]),
+        parted_from_paged_greedy=greedy_divergences(
+            target, prompts, [s.tokens for s in states], context["greedy_paged"], bound, model.eos_token_id
+        ),
     )
     del engine, draft
     gc.collect()
     # (d) the target as its own draft
-    bound = 2 * sum(context["logits_max_abs_err"].values())
     self_len = bucketed + SPEC_SELF_NEW
     with tally.run():
         check, stats, lengths = self_draft_check(target, prompts, context["greedy_paged"], bound, self_len, model.eos_token_id)
@@ -3445,7 +3542,7 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
     probe = prompts[0][:300]
     probe = probe + probe[:100]  # repeats itself, so the n-gram drafter proposes K tokens
     record["verify_logits_check"] = {
-        name: verify_logits_check(target, probe, kv_dtype, tally) for name, kv_dtype in (("bf16", None), ("int8", "int8"))
+        name: verify_logits_check(target, probe, bound, kv_dtype, tally) for name, kv_dtype in (("bf16", None), ("int8", "int8"))
     }
     if on_card:  # sync debug mode needs a card
         # the host syncs of n-gram verify steps, and a verify step's launches and times
@@ -3498,6 +3595,8 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
     datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
     reference = generate.generate(args, model, datasets, Mode.inference)
     want, _ = _outputs(reference["outputs"][0])
+    # a recomputed or tiered run may part from it only at a near tie (`greedy_divergences`)
+    bound, prompts = 2 * sum(context["logits_max_abs_err"].values()), context["prompts"]
     record["unpreempted"] = _engine_record(reference["stats"], reference["engine_seconds"], reference["pool"])
     for mode in ("swap", "recompute"):
         args = generation_args(
@@ -3516,6 +3615,7 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
             requests_identical_to_unpreempted=sum(a == b for a, b in zip(tokens, want)),
             seconds_lost_vs_unpreempted=summary["engine_seconds"] - reference["engine_seconds"],
             swap=summary["swap"],
+            parted_from_unpreempted=greedy_divergences(model.model, prompts, tokens, want, bound, model.eos_token_id),
         )
         if summary["swap"] is not None:  # host-timed: the copies out end on the host, those in are enqueued
             swap = summary["swap"]
@@ -3533,7 +3633,6 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
         target, None, num_slots=16, max_len=max_len, eos_token_id=model.eos_token_id, pad_token_id=config.pad_token_id,
         num_pages=pages, preemption="swap", device=target.device,
     )
-    prompts = context["prompts"]
     with tally.run():
         low = [engine.submit(prompt_ids=p, max_new_tokens=greedy_new, priority=1) for p in prompts[:8]]
         while engine.stats.decode_steps < 4:
@@ -3551,6 +3650,7 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
         "tier0_preemptions": sum(s.preemptions for s in high), "pages_swapped_out": stats.pages_swapped_out,
         "agreement_with_unpreempted": _agreement([s.tokens for s in states], want[:20]),
         "requests_identical_to_unpreempted": sum(s.tokens == w for s, w in zip(states, want)),
+        "parted_from_unpreempted": greedy_divergences(target, prompts, [s.tokens for s in states], want, bound, model.eos_token_id),
     }
     assert all(s.status == RequestStatus.completed for s in states), record["tiers"]
     assert stats.preemptions > 0 and set(stats.preempted_by_tier) == {1}, record["tiers"]
@@ -3841,15 +3941,20 @@ def main() -> int:
         "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
     }
 
+    verify_keys = ("shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
     def summary(case_list):
         # the first case of the type the main path runs: bf16, or kv_quant's int8 codes
         main_case = case_list[0]
+        verify = [c for c in case_list if c.get("window") == "verify"]
         return {
             "max_abs_err": max(c["max_abs_err"] for c in case_list),
             "ms": main_case["kernel_ms"], "kernel_ms": main_case["kernel_ms"], "device_ms": main_case["device_ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
             "shape": main_case["shape"], "tolerance": main_case["tolerance"],
+            # the verify step's K+1 window (`VERIFY_LENGTHS`), where a kernel has such a case
+            **({"verify_window": {key: verify[0][key] for key in verify_keys}} if verify else {}),
         }
 
     kernels = []

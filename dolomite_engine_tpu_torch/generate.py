@@ -152,7 +152,7 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
 def load_draft_model(name: str | None) -> tuple:
     """A draft model for speculative decoding, named by checkpoint: (None, None) without
     one. The JAX package loads it through its HF import, which the port does not run yet
-    (`ServingEngine(draft_model=, draft_params=)` takes a model directly)."""
+    (`ServingEngine(draft_model=)` takes a model directly)."""
     if not name:
         return None, None
     raise NotImplementedError(

@@ -204,12 +204,9 @@ class _PrefillTask:
 
 
 def _load_weights(model: Any, params: Any, device: torch.device) -> None:
-    """Fill `model` from `params`: None (it holds its weights), its own kind of
-    ``state_dict()``, or the JAX package's params tree (numpy, `load_jax_params`)."""
+    """Fill `model` from `params`: None (it holds its weights) or the JAX package's params
+    tree (numpy, `load_jax_params`)."""
     if params is None:
-        return
-    if isinstance(params, dict) and all(isinstance(v, torch.Tensor) for v in params.values()):
-        model.load_state_dict(params)
         return
     from ..models.gpt_dolomite import load_jax_params
 
@@ -223,9 +220,8 @@ class ServingEngine:
     Args:
         model: any of the port's causal LMs (`GPTDolomiteForCausalLM`,
             `MoEDolomiteForCausalLM`, ...: `models.get_model_class`).
-        params: None when the model already holds its weights, a ``state_dict()`` of it,
-            or the JAX package's unrolled params tree as numpy arrays (loaded with
-            `load_jax_params`).
+        params: None when the model already holds its weights, or the JAX package's
+            unrolled params tree as numpy arrays (loaded with `load_jax_params`).
         num_slots: decode batch width == max concurrent requests.
         max_len: per-slot cache length; every request needs
             ``len(prompt) + max_new_tokens <= max_len``.
@@ -258,11 +254,10 @@ class ServingEngine:
         speculate_ngram: n-gram / prompt-lookup self-drafting of up to `draft_k` tokens a
             slot (host code, no extra model).
         draft_model / draft_params: a smaller model of the same vocabulary that drafts
-            `draft_k` greedy tokens a slot, and its weights: the JAX package's params tree
-            (numpy, loaded with `load_jax_params`) or, when it already holds them, its own
-            ``state_dict()``. Exclusive with `speculate_ngram`.
+            `draft_k` greedy tokens a slot, and its weights as `params` takes them. A
+            model of the port holds its weights, so the JAX engine's "draft_model requires
+            draft_params" has no counterpart. Exclusive with `speculate_ngram`.
         draft_k: draft tokens a verify step scores per slot (K >= 1; the window is K+1).
-        ngram_max: the longest suffix the n-gram drafter matches.
         device: where the model and pool live; the GPU unless ``"cpu"`` is asked for.
     """
 
@@ -294,7 +289,6 @@ class ServingEngine:
         draft_model: Any = None,
         draft_params: Any = None,
         draft_k: int = 4,
-        ngram_max: int = 3,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -336,8 +330,6 @@ class ServingEngine:
             raise ValueError(
                 "speculate_ngram and draft_model are mutually exclusive draft sources"
             )
-        if draft_model is not None and draft_params is None:
-            raise ValueError("draft_model requires draft_params")
         if (speculate_ngram or draft_model is not None) and draft_k < 1:
             raise ValueError(f"draft_k must be >= 1, got {draft_k}")
         n_positions = getattr(model.config, "n_positions", None)
@@ -387,7 +379,7 @@ class ServingEngine:
         # speculative decoding: a drafter, and the verify step in place of decode
         self.speculating = bool(speculate_ngram or draft_model is not None)
         self.draft_k = draft_k
-        self._ngram = NgramDrafter(draft_k, ngram_max) if speculate_ngram else None
+        self._ngram = NgramDrafter(draft_k) if speculate_ngram else None
         self._draft = None
         if draft_model is not None:
             _load_weights(draft_model, draft_params, self.device)

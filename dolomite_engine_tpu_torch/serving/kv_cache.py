@@ -227,10 +227,6 @@ class PagedKVCachePool:
     def num_active(self) -> int:
         return len(self._slots_in_use)
 
-    @property
-    def occupancy(self) -> float:
-        return len(self._slots_in_use) / self.num_slots
-
     def allocate(self) -> int | None:
         """Claim a free slot row (lowest index first), or None when all rows are taken."""
         if not self._free_slots:
@@ -379,16 +375,6 @@ class HostSwapPool:
         self._parked: dict[int, tuple[list[dict[str, torch.Tensor]], int]] = {}
         self.bytes_out = self.bytes_in = 0
         self.seconds_out = self.seconds_in = 0.0
-
-    def __len__(self) -> int:
-        return len(self._parked)
-
-    @property
-    def host_bytes(self) -> int:
-        """Host memory held by every parked payload."""
-        return sum(
-            sum(array.nbytes for chunk in payload for array in chunk.values()) for payload, _ in self._parked.values()
-        )
 
     @torch.no_grad()
     def swap_out(self, request_id: int, pages: list[int]) -> int:

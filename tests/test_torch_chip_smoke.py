@@ -75,12 +75,19 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     assert speculative["draft_model"]["requests"] == chip_smoke.SPEC_DRAFT_REQUESTS
     assert speculative["draft_model"]["agreement_with_paged_greedy"] > 0.9
     assert all(speculative["verify_logits_check"]["int8"]["layer0_pool_bytes_identical"].values())
+    for check in speculative["verify_logits_check"].values():  # each window row held alone
+        assert len(check["window_row_mean_abs_err"]) == chip_smoke.SPEC_K + 1
+    # greedy runs part from their references only at near ties (the lists hold each parting)
+    assert all(len(row) == 3 for row in speculative["ngram_greedy"]["parted_from_paged_greedy"])
+    assert all(len(row) == 3 for row in speculative["draft_model"]["parted_from_paged_greedy"])
     assert speculative["expected_launches"]["flash_attn_fwd"] > 0  # the draft models' prefills
     assert speculative["expected_launches"]["kv_quant"] > 0  # the int8 verify check's kernel path
     # phase 16: swap and recompute over an oversubscribed pool, two tiers, an int8 round trip
     preemption, preemption_launches, _ = preempted
     assert preemption["swap"]["preemptions"] > 0 and preemption["swap"]["requests_identical_to_unpreempted"] == chip_smoke.GENERATION_PROMPTS
     assert preemption["recompute"]["preemptions"] > 0
+    assert preemption["swap"]["parted_from_unpreempted"] == []
+    assert all(len(row) == 3 for row in preemption["recompute"]["parted_from_unpreempted"] + preemption["tiers"]["parted_from_unpreempted"])
     assert set(preemption["tiers"]["preempted_by_tier"]) == {1} and preemption["tiers"]["tier0_preemptions"] == 0
     assert preemption["int8_swap_round_trip"]["pages_and_scales_identical"]
     assert not any(speculative_launches.values()) and not any(preemption_launches.values())
@@ -100,3 +107,65 @@ def test_alibi_generation_phase_rehearsal(monkeypatch):
     assert record["expected_launches"]["flash_attn_bias_fwd"] == 2 * chip_smoke.ALIBI_GENERATION_SLOTS
     assert [c["engine"] for c in record["logits_check"].values()] == ["paged", "dense"]
     assert not any(launches.values())
+
+
+def _tiny_model():
+    from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM
+
+    config = CommonConfig(
+        vocab_size=96, n_positions=128, n_embd=32, n_layer=2, n_head=4, num_key_value_heads=2,
+        attention_head_type="gqa", position_embedding_type="rope", add_bias=False,
+        activation_function="swiglu", normalization_function="rmsnorm", bos_token_id=0, eos_token_id=1, pad_token_id=2,
+    )
+    return GPTDolomiteForCausalLM(config, device="cpu", seed=5)
+
+
+def test_greedy_divergences_accept_near_ties_only(monkeypatch):
+    """`greedy_divergences`: a row two runs agree on is skipped; a row that parts is
+    measured at its first differing position, by the plain forward's logit gap between the
+    two runs' tokens after their common prefix (EOS for a row that ends there); a gap past
+    the bound raises."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    model = _tiny_model()
+    prompt = [5, 9, 14, 3, 40, 7]
+    with torch.no_grad():
+        logits = chip_smoke.plain_forward(model, torch.tensor([prompt + [11, 12]]))[0].float()
+    p = len(prompt)
+    gap_swap = (logits[p + 1, 30] - logits[p + 1, 31]).abs().item()  # after [11, 12]: 30 against 31
+    gap_eos = (logits[p, 1] - logits[p, 20]).abs().item()  # after [11]: EOS against 20
+    got = [[11, 12, 13], [11, 12, 30], [11]]
+    want = [[11, 12, 13], [11, 12, 31], [11, 20]]
+    parted = chip_smoke.greedy_divergences(model, [prompt] * 3, got, want, max(gap_swap, gap_eos) + 1e-4, eos_token_id=1)
+    assert [row[:2] for row in parted] == [[1, 2], [2, 1]]
+    assert parted[0][2] == pytest.approx(gap_swap, abs=1e-4) and parted[1][2] == pytest.approx(gap_eos, abs=1e-4)
+    with pytest.raises(AssertionError, match="no near tie"):
+        chip_smoke.greedy_divergences(model, [prompt] * 3, got, want, min(gap_swap, gap_eos) / 2, eos_token_id=1)
+
+
+def test_window_rows_check_holds_each_row_alone(monkeypatch):
+    """`_window_rows_check`: close rows pass; one wrong row of five fails although the
+    window's mean error stays within the bound; an argmax that differs passes as a near
+    tie within the bound and fails past it."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(0)
+    want = torch.randn((5, 512), generator=gen)
+    got = want + 1e-3 * torch.randn((5, 512), generator=gen)
+    std = want.std().item()
+    errors, gaps = chip_smoke._window_rows_check(got, want, std, 0.25)
+    assert len(errors) == 5 and gaps == []
+    wrong = got.clone()
+    wrong[4] = want[4] + 0.4 * std * torch.randn(512, generator=gen)  # the fifth row alone
+    assert (wrong - want).abs().mean() <= 0.1 * std
+    with pytest.raises(AssertionError):
+        chip_smoke._window_rows_check(wrong, want, std, 0.25)
+    tie_want, tie_got = want.clone(), got.clone()
+    tie_want[0, 3], tie_want[0, 7] = 10.0, 9.99
+    tie_got[0, 3], tie_got[0, 7] = 10.0, 10.01
+    _, gaps = chip_smoke._window_rows_check(tie_got, tie_want, std, 0.25)
+    assert gaps == [pytest.approx(0.01, abs=1e-5)]
+    with pytest.raises(AssertionError):
+        chip_smoke._window_rows_check(tie_got, tie_want, std, 0.001)

@@ -12,7 +12,10 @@ sources with one fault planted, and the cases must fail each broken build:
   past its frontier;
 - the K scale of a staged tile's first page applied to all the tile's pages (the page
   walk both kernels share), so three of a 64-key tile's four pages score with another
-  page's scale.
+  page's scale;
+- the decode kernel's key span cut to a 4-row window: a verify window's fifth row (the
+  one real row of each head's second 4-row block at W = K+1 = 5) misses its own key,
+  which no case at W <= 4 can see.
 
 It needs the card (the kernels have no CPU mode) and imports no JAX:
 
@@ -43,6 +46,11 @@ FAULTS = {
         "      cp_async_4(k_scale_dst + r, pool.k_scales + scale_row, valid);",
         "      cp_async_4(k_scale_dst + r, pool.k_scales + static_cast<int64_t>(table_row[k0 / pool.page_size]) *"
         " pool.num_kv_heads + pool.kv_head, valid);",
+    ),
+    "a verify window's fifth row short of its own key": (
+        "paged_attention.cu",
+        "  const int num_keys = min(length + args.width, view_len);  // positions the last row may see",
+        "  const int num_keys = min(length + min(args.width, kQueries), view_len);",
     ),
 }
 

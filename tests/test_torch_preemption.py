@@ -131,7 +131,7 @@ def test_preemption_counters_match_the_jax_engine(models, mode):
     assert stats.prefix_hit_tokens == ref.prefix_hit_tokens
     assert stats.prefill_tokens == ref.prefill_tokens and stats.decode_tokens == ref.decode_tokens
     assert engine.pool.num_free == engine.pool.num_slots and engine.pool._total_reserved == 0
-    assert len(engine._swap or []) == 0  # no payload left in the host pool
+    assert not (engine._swap and engine._swap._parked)  # no payload left in the host pool
 
 
 def test_admission_preemption_only_evicts_strictly_lower_tiers(models):
@@ -220,13 +220,14 @@ def test_host_swap_pool_moves_raw_bytes():
     pool = PagedKVCachePool(Model(), 2, 64, PAGE, 12, dtype=torch.bfloat16)
     swap = HostSwapPool(pool)
     want = [{name: a[[3, 5, 1]].clone() for name, a in c.items()} for c in pool.caches]
-    assert swap.swap_out(9, [3, 5, 1]) == 3 and len(swap) == 1
-    assert swap.host_bytes == 3 * pool.page_bytes == swap.bytes_out
-    assert swap.swap_in(9, [7, 2, 10]) == 3 and len(swap) == 0
+    assert swap.swap_out(9, [3, 5, 1]) == 3 and list(swap._parked) == [9]
+    parked = sum(array.nbytes for chunk in swap._parked[9][0] for array in chunk.values())
+    assert parked == 3 * pool.page_bytes == swap.bytes_out
+    assert swap.swap_in(9, [7, 2, 10]) == 3 and not swap._parked
     assert all(torch.equal(c[name][[7, 2, 10]], w[name]) for c, w in zip(pool.caches, want) for name in w)
     swap.swap_out(4, [6])
     swap.drop(4)
-    assert len(swap) == 0 and swap.host_bytes == 0
+    assert not swap._parked
 
 
 def test_oversubscribed_admission_and_reclamation_matches_the_jax_engine(models):
@@ -384,7 +385,7 @@ def test_oversubscribed_pool_accounting_matches_jax(models):
     ]
 
     def figures(pool):
-        return (pool.available_pages, pool.physical_free, pool.pages_in_use, pool.page_fragmentation, pool.occupancy)
+        return (pool.available_pages, pool.physical_free, pool.pages_in_use, pool.page_fragmentation, pool.num_active)
 
     trace = [[] for _ in pools]
     for pool, log in zip(pools, trace):

@@ -72,7 +72,7 @@ def _run_both(models, engine_args, specs, draft=None, steps_between=None):
     jax_args, port_args = dict(engine_args), dict(engine_args)
     if draft is not None:
         jax_args.update(draft_model=draft[0], draft_params=draft[1])
-        port_args.update(draft_model=draft[2], draft_params=draft[2].state_dict())
+        port_args.update(draft_model=draft[2])
     engines = (JaxServingEngine(jax_model, params, **jax_args), ServingEngine(model, None, device="cpu", **port_args))
     results = []
     for engine in engines:
@@ -279,7 +279,7 @@ def test_a_request_ends_inside_a_verify_window(models, varied_models, stop):
     if stop == "eos":
         args, draft = _engine_args(max_len=96, draft_k=4), varied_models
         models = varied_models
-        probe_args = dict(args, draft_model=models[2], draft_params=models[2].state_dict())
+        probe_args = dict(args, draft_model=models[2])
     else:
         args, draft = _engine_args(max_len=96, speculate_ngram=True, draft_k=4), None
         probe_args = args
@@ -377,9 +377,9 @@ def test_speculation_validation(models):
     _, _, model = models
     base = dict(num_slots=1, max_len=32, device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
-        ServingEngine(model, None, speculate_ngram=True, draft_model=model, draft_params=model.state_dict(), **base)
-    with pytest.raises(ValueError, match="requires draft_params"):
-        ServingEngine(model, None, draft_model=model, **base)
+        ServingEngine(model, None, speculate_ngram=True, draft_model=model, **base)
+    # a model of the port holds its weights: no draft_params needed
+    assert ServingEngine(model, None, draft_model=model, **base).speculating
     with pytest.raises(ValueError, match="draft_k must be >= 1"):
         ServingEngine(model, None, speculate_ngram=True, draft_k=0, **base)
     with pytest.raises(ValueError):
