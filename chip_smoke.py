@@ -66,11 +66,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    `configs/pretraining-examples/pretrain-v5e-256-granite-3b.yml` loaded through the
    port's `load_yaml` with one-card cuts (`pretrain_args`), over a seeded megatron corpus
    built in a temporary directory: granite-3b-code at all 32 layers for 8 steps of
-   accumulation 2 x [1, 4096], eval at steps 0, 4 and 8 and on the test split, the
-   telemetry sink, one async save of the fp32 weights at step 8 (the disk's free space
-   checked first). Launch counts zeroed just before `main` and read just after, asserted
-   against the training micro-batches plus the forward-only eval batches; the losses must
-   be finite and fall. The resume check, with the optimizer saved: 6 steps unbroken
+   accumulation 2 x [1, 4096] under the YAML's remat (every 2nd block, ``save_dots``), eval
+   at steps 0, 4 and 8 and on the test split, the telemetry sink, one async save of the
+   fp32 weights at step 8 (the disk's free space checked first). Launch counts zeroed just
+   before `main` and read just after, asserted against the training micro-batches (the
+   rerun blocks' kernels counted) plus the forward-only eval batches; the losses must be
+   finite and fall; the peak device memory beside the remat estimate. The resume check, with the optimizer saved: 6 steps unbroken
    against 3 steps, a save and a resumed `main` to step 6; the batches of steps 4-6
    (hashed), `consumed_samples` and the losses and grad norms must be identical; the
    unbroken run's checkpoint is phase 15's draft model. The runs name a word-level
@@ -103,6 +104,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    swap GB/s and the seconds lost; two tiers on the engine (only tier 1 evicted, parting
    from the unpreempted tokens only at a near tie); an int8 swap round trip byte-identical on the
    card; launch counts asserted exactly;
+17. ``training_options`` (inside phase 12, right after its 32-layer run, on its corpus):
+   (a) phase 6's train step and repeated batch at 32 layers for 2 steps under each remat
+   policy (``full``, ``save_attention_out``, ``save_dots``, ``offload_dots``,
+   ``everything_saveable``; remat of every block, one seeded init): losses and grad norms
+   identical to ``full``'s (every kernel on the path is deterministic), the device peaks
+   ordered full <= save_attention_out <= save_dots and offload_dots below save_dots, the
+   pinned host bytes; (b) `pretrain.main` in fp8 for phase 12's 8 steps (finite, the mean
+   within 2 % of phase 12's; whether the last loss is below the first is reported), the ``_scaled_mm`` products at the dense projections'
+   shapes against the plain fp32 products of the same fp8 values, then phase 8's MoE step in
+   fp8 at 8 layers for 2 steps; (c) `pretrain.main` with ``cpu_offload`` and a ``health``
+   record every step for phase 12's first 3 steps (losses and grad norms identical to
+   phase 12's, each update ratio against one from the parameters before and after, the
+   peak and the state's copy rates); (d) `pretrain.main` with LAMB for 3 steps, then every
+   registered optimizer on a 2-layer granite-width model on the card against the CPU
+   (the CPU runs on a thread from the phase's start). Launch counts asserted exactly;
 14. ``alibi_generation`` (last): MPT-7B's widths at 16 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
    bias form) and the paged engine (the gathered path), launch counts asserted, the
@@ -133,7 +149,7 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
-``generate``, ``speculative_generation``, ``preemption`` and ``alibi_generation`` lines
+``training_options``, ``generate``, ``speculative_generation``, ``preemption`` and ``alibi_generation`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
 times under ``forms``), the card again, and last
@@ -163,7 +179,7 @@ GRANITE_3B_CODE = dict(
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # fp32 outside the tensor cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float8": 1979e12}  # fp32 outside the tensor cores
 
 NUM_SLOTS, MAX_LEN, PAGE, CHUNK = 8, 2048, 16, 512
 # a verify step's frontiers: 16 slots (one idle) up to 1595 over a 1616-token view, the
@@ -209,7 +225,7 @@ MPT_7B = dict(
 # alibi training: 16 of the 32 layers (fp32 master weights, fp32 gradients and AdamW state
 # of all 32 need ~93 GB; 16 layers are 3.43 B parameters), MPT's max_seq_len 2048, micro
 # batch 2 x accumulation 2, the fused LM-head loss; the dense cell's AdamW, schedule and
-# clipping (MPT trained with LionW: ROADMAP.md Queue A, 'Other optimizers')
+# clipping (MPT trained with LionW, which neither package's optimizer registry holds)
 ALIBI_TRAIN_CONFIG = dict(MPT_7B, fused_lm_head_loss=True, loss_chunk_size=256)
 ALIBI_TRAIN_LAYERS, ALIBI_TRAIN_SEQ, ALIBI_TRAIN_MICRO = 16, 2048, 2
 
@@ -2300,11 +2316,13 @@ def training_paths_check(seed, n_layer=2, config_kwargs=TRAIN_CONFIG, shape=(1, 
     return check
 
 
-def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, micro_batch=1):
+def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, micro_batch=1, dtype="bf16", steps=TRAIN_STEPS, warmup=2):
     """Phase 6: the dense GPTDolomite train step on granite-3b-code, phase 8: the MoE
     train step, and phase 11: the alibi train step on MPT-7B (another config and the CPU
-    only to rehearse this script's control flow at a tiny size). Each step takes
-    accumulation 2 x [micro_batch, seq]."""
+    only to rehearse this script's control flow at a tiny size); phase 17 runs the MoE
+    step in fp8 (`dtype`) for 2 `steps` without `warmup`. Each step takes accumulation
+    2 x [micro_batch, seq]; the loss must fall over the repeated batch from the first
+    step after the warm-up."""
     import numpy as np
     import torch
 
@@ -2318,14 +2336,14 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     wrapper = ModelWrapperForPretraining(
-        config_kwargs, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
+        config_kwargs, dtype=dtype, param_dtype="fp32", attention_implementation="flash_attention_2",
         gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
         device=device, seed=seed,
     )
     config = wrapper.config
-    schedule = get_scheduler(2, 0, None, 10, "cosine", 0.1, base_lr=TRAIN_LR)
+    schedule = get_scheduler(warmup, 0, None, 10, "cosine", 0.1, base_lr=TRAIN_LR)
     optimizer = get_optimizer("TorchAdamW", TRAIN_OPTIMIZER, schedule, wrapper.model.named_parameters())
-    state = TrainState(wrapper.model, optimizer)
+    state = TrainState(wrapper.model, optimizer, fp8=wrapper.fp8)
     train_step = make_train_step(
         lambda micro: wrapper.loss(micro["text"]), optimizer, gradient_accumulation_steps=TRAIN_ACCUM,
         gradient_clipping=1.0, skip_nonfinite=True,
@@ -2338,7 +2356,7 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
 
     reset_launch_counts()
     metrics, times = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         metrics.append(train_step(state, batch))
         _sync(wrapper.model.device)
@@ -2348,8 +2366,9 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
 
     losses = [m["loss"] for m in metrics]
     assert all(np.isfinite(losses)) and not any(m["skipped"] for m in metrics), metrics
-    assert losses[4] < losses[1], f"the loss did not fall over the repeated batch: {losses}"
-    layers, micro_batches = config.n_layer, TRAIN_ACCUM * TRAIN_STEPS
+    falls_from = 1 if warmup else 0  # the first step of a warm-up has lr 0
+    assert losses[-1] < losses[falls_from], f"the loss did not fall over the repeated batch: {losses}"
+    layers, micro_batches = config.n_layer, TRAIN_ACCUM * steps
     # per micro-batch, every block rerun in the backward (checkpoint_every 1): rmsnorm
     # 2L + 1 forward + 2L recompute (its backward is plain PyTorch; layernorm is plain
     # PyTorch); rope L forward + L recompute + L backward (none with alibi); flash forward
@@ -2392,10 +2411,11 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
             "vocab_size": config.vocab_size, "params": sum(p.numel() for p in wrapper.model.parameters()),
             "param_dtype": "float32", "compute_dtype": "bfloat16", "weights": "random",
             **({"num_experts": config.num_experts, "top_k": config.num_experts_per_tok} if moe else {}),
+            **({"fp8": "e4m3 / e5m2 delayed scaling"} if wrapper.fp8 is not None else {}),
         },
         "seed": seed, "micro_batch": micro_batch, "accumulation": TRAIN_ACCUM, "seq": seq,
         "documents_per_row": [int((row[:-1] == config.eos_token_id).sum()) + 1 for row in text],
-        "steps": TRAIN_STEPS, "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics],
+        "steps": steps, "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics],
         "step_s": times, "mean_step_s_after_warmup": step_s,
         "tokens_per_s": TRAIN_ACCUM * micro_batch * seq / step_s,
         "model_tflops_per_step": tflops, "mfu": tflops / step_s / (PEAK_FLOPS["bfloat16"] / 1e12),
@@ -2513,14 +2533,15 @@ def pretrain_corpus(directory, seed, vocab, eos, documents=PRETRAIN_DOCUMENTS):
     return prefix, documents, int(lengths.sum())
 
 
-def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, load_path=None, decay_steps=None, rehearsal=None, tokenizer=None):
+def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, load_path=None, decay_steps=None, rehearsal=None, tokenizer=None, options=None):
     """The granite YAML (`PRETRAIN_YAML`) through the port's `load_yaml`, with the one-card
     cuts: the corpus and a cache next to it, the word-level `tokenizer` directory
-    (`word_tokenizer`) for the hub one, one device at stage 0, remat of
-    every block under the full policy, micro batch 1 x accumulation 2, `steps` steps with 2
+    (`word_tokenizer`) for the hub one, one device at stage 0 (the YAML's remat: every
+    2nd block under ``save_dots``), micro batch 1 x accumulation 2, `steps` steps with 2
     of warm-up and eval every 4, a save at the last step (the optimizer only if
-    `save_optimizer`), and `n_layer` layers when given. `rehearsal` (the CPU's run of this
-    script's control flow) overrides model widths and the sequence."""
+    `save_optimizer`), and `n_layer` layers when given. `options` ({section: {key: value}})
+    set the training options of phase 17 over the result. `rehearsal` (the CPU's run of
+    this script's control flow) overrides model widths and the sequence."""
     from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
     from dolomite_engine_tpu_torch.utils import load_yaml
 
@@ -2529,7 +2550,8 @@ def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, 
     class_args.update(data_path=[corpus], data_cache_path=os.path.join(os.path.dirname(corpus), "cache"))
     config["tokenizer_args"] = {"tokenizer_name": tokenizer}
     config["distributed_args"] = {
-        "stage": 0, "gradient_checkpointing_method": "block", "gradient_checkpointing_args": TRAIN_REMAT,
+        "stage": 0, "gradient_checkpointing_method": "block",
+        "gradient_checkpointing_args": config["distributed_args"]["gradient_checkpointing_args"],
     }
     config["training_parameters"].update(
         micro_batch_size=1, gradient_accumulation_steps=2, num_training_steps=steps, eval_interval=PRETRAIN_EVAL_INTERVAL,
@@ -2546,7 +2568,17 @@ def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, 
         class_args["sequence_length"] = rehearsal["sequence_length"]
     if load_path is not None:
         config["load_args"] = {"load_path": load_path}
+    for section, values in (options or {}).items():
+        config[section] = _merged(config.get(section) or {}, values)
     return args_from_dict(config, Mode.training)
+
+
+def _merged(base, update):
+    """`base` with `update` merged in, nested dicts key by key."""
+    out = dict(base)
+    for key, value in update.items():
+        out[key] = _merged(out.get(key) or {}, value) if isinstance(value, dict) else value
+    return out
 
 
 def word_tokenizer(directory, vocab_size, eos_token_id):
@@ -2584,15 +2616,25 @@ def _hashing_loaders(digests):
     return build
 
 
-def _run_pretrain(args, device, digests=None):
+def _run_pretrain(args, device, digests=None, capture=None):
+    """`pretrain.main(args)`; `digests` collects the train batches' hashes, `capture` the
+    run's `TrainState` (the caller clears it to free the model)."""
     from dolomite_engine_tpu_torch import pretrain
 
-    build = pretrain.get_megatron_gpt_dataloaders
+    build, train = pretrain.get_megatron_gpt_dataloaders, pretrain.train
     if digests is not None:
         pretrain.get_megatron_gpt_dataloaders = _hashing_loaders(digests)
-    summary = pretrain.main(args, device=device)
-    pretrain.get_megatron_gpt_dataloaders = build
-    return summary
+    if capture is not None:
+
+        def capturing(args, model, state, *rest, **kwargs):
+            capture["state"] = state
+            return train(args, model, state, *rest, **kwargs)
+
+        pretrain.train = capturing
+    try:
+        return pretrain.main(args, device=device)
+    finally:
+        pretrain.get_megatron_gpt_dataloaders, pretrain.train = build, train
 
 
 def _dir_bytes(path):
@@ -2601,12 +2643,14 @@ def _dir_bytes(path):
 
 def pretrain_phase(seed, device="cuda", rehearsal=None):
     """Phase 12: the resume check at 2 layers, then `pretrain.main` on granite-3b-code at
-    all 32 layers over a seeded corpus, the launch counts zeroed just before and read just
-    after, then from its checkpoint phase 13 (`generate_phase`), phase 15
+    all 32 layers over a seeded corpus (the YAML's remat), the launch counts zeroed just
+    before and read just after, then phase 17 on its corpus (`training_options_phase`),
+    then from its checkpoint phase 13 (`generate_phase`), phase 15
     (`speculative_generation_phase`, whose draft model is the resume check's) and phase 16
     (`preemption_phase`). `rehearsal` (the CPU only) cuts the widths to rehearse the
-    control flow. Returns the record and the launch counts, phase 13's record and launch
-    counts, and phases 15's and 16's records, launch counts and forms."""
+    control flow. Returns the record (phase 17's under ``training_options``) and the launch
+    counts, phase 17's launch counts, phase 13's record and launch counts, and phases 15's
+    and 16's records, launch counts and forms."""
     import shutil
     import tempfile
 
@@ -2614,7 +2658,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
     import torch
 
     from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
-    from dolomite_engine_tpu_torch.train_utils import get_model_tflops
+    from dolomite_engine_tpu_torch.train_utils import estimate_remat_activation_bytes, get_model_tflops
 
     on_card = torch.device(device).type == "cuda"
     record = {"yaml": PRETRAIN_YAML}
@@ -2699,23 +2743,16 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         assert [s["step"] for s in steps] == list(range(1, PRETRAIN_STEPS + 1)), steps
         assert all(np.isfinite(losses)) and not any(s["skipped"] for s in steps), steps
         assert losses[-1] < losses[0], f"the loss did not fall over the corpus: {losses}"
-        # per training micro-batch as in phase 6 (remat of every block); per eval batch, one
-        # forward: rmsnorm 2L + 1, rope L, flash forward L, fused_ce a 256-token chunk. Eval
-        # runs eval_steps batches at step 0 and every eval_interval steps, and on the test
-        # split at the end
-        layers, micro_batches = config.n_layer, 2 * PRETRAIN_STEPS
+        # per training micro-batch the YAML's remat (every 2nd block rerun, kernels
+        # included; under save_dots no cuBLAS product); per eval batch, one forward: rmsnorm
+        # 2L + 1, rope L, flash forward L, fused_ce a 256-token chunk. Eval runs eval_steps
+        # batches at step 0 and every eval_interval steps, and on the test split at the end
+        micro_batches = 2 * PRETRAIN_STEPS
         eval_steps = args.datasets[0].class_args["eval_steps"]
         eval_batches = eval_steps * (1 + PRETRAIN_STEPS // PRETRAIN_EVAL_INTERVAL) + eval_steps
         seq = args.datasets[0].class_args["sequence_length"]
-        chunks = -(-seq // config.loss_chunk_size)
-        expected = {spec.name: 0 for spec in KERNELS}
-        expected.update(
-            rmsnorm=(4 * layers + 1) * micro_batches + (2 * layers + 1) * eval_batches,
-            rope_qkv=3 * layers * micro_batches + layers * eval_batches,
-            flash_attn_fwd=2 * layers * micro_batches + layers * eval_batches,
-            flash_attn_bwd=layers * micro_batches,
-            fused_ce=chunks * (micro_batches + eval_batches),
-        )
+        gc_args = args.distributed_args.gradient_checkpointing_args
+        expected = dense_training_launches(config, gc_args, micro_batches, seq, eval_batches)
         if on_card:  # on the CPU (a rehearsal) the plain versions run
             assert launches == expected, (launches, expected)
             assert forms == {"rope_qkv:flat": expected["rope_qkv"]}, forms
@@ -2734,7 +2771,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         checkpoint_bytes = _dir_bytes(checkpoint_dir)
         save_s = windows[-1]["goodput"]["checkpoint"]
         mean_step = sum(s["step_seconds"] for s in steps[1:]) / (len(steps) - 1)
-        tflops = get_model_tflops(config, 2, seq, "block", TRAIN_REMAT)
+        tflops = get_model_tflops(config, 2, seq, "block", gc_args)
         record.update(
             model={
                 "model_type": config.model_type, "n_layer": config.n_layer, "n_embd": config.n_embd,
@@ -2761,6 +2798,13 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
                 "consumed_samples": consumed, "optimizer": False,
             },
             peak_memory_gb=peak_gb, launches=launches, expected_launches=expected, launch_forms=forms,
+            remat={
+                **gc_args, "rematted_blocks": len(range(0, config.n_layer, gc_args["checkpoint_every"])),
+                "estimate": estimate_remat_activation_bytes(config, 1, seq, "block", gc_args, dtype_bytes=2),
+            },
+        )
+        record["training_options"], options_launches = training_options_phase(
+            seed, corpus, tokenizer, work, record, device, rehearsal
         )
         generation, generate_launches, context = generate_phase(save_path, corpus, config, seed, device, rehearsal, work)
         speculative, speculative_launches, speculative_forms, model = speculative_generation_phase(
@@ -2770,7 +2814,635 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         del model
         gc.collect()
 
-    return record, launches, (generation, generate_launches), (speculative, speculative_launches, speculative_forms), preemption
+    return (
+        record, launches, options_launches, (generation, generate_launches),
+        (speculative, speculative_launches, speculative_forms), preemption,
+    )
+
+
+# phase 17: the training options (remat policies, fp8, CPU offload and health, optimizers)
+# on phase 12's corpus. (a) runs phase 6's repeated batch at 32 layers, 2 steps under each
+# policy (remat of every block; every kernel on the path is deterministic, no atomics, so
+# each policy must give `full`'s bits); (b) `pretrain.main` in fp8 for phase
+# 12's 8 steps, the `_scaled_mm` products at the dense projections' shapes, and the MoE
+# step of phase 8 in fp8 for 2 steps; (c) `pretrain.main` with cpu_offload and health
+# every step for phase 12's first 3 steps; (d) `pretrain.main` with LAMB for 3 steps, then
+# every registered optimizer on a 2-layer granite-width model on the card and the CPU
+OPTION_POLICIES = ("full", "save_attention_out", "save_dots", "offload_dots", "everything_saveable")
+OPTION_STEPS, OFFLOAD_STEPS, LAMB_STEPS, OPTIMIZER_UPDATES, OPTIMIZER_LAYERS = 2, 3, 3, 3, 2
+FP8_LOSS_BOUND = 0.02  # |mean fp8 loss - mean bf16 loss| / mean bf16 loss over phase 12's 8 steps
+# fp8 products: the fp8 values' bytes identical; the product within fp32 accumulation's
+# rounding, |kernel - plain| <= K * 2^-24 * (|a| @ |b|) * scales elementwise (the sum's error
+# bound), against the product of the values cast up to fp32 (TF32 off)
+FP8_PRODUCT_SHAPES = ((4096, 2560, 7680), (4096, 10240, 2560))
+HEALTH_RTOL = 1e-5  # the step's update ratio against one from the saved parameters (fp32 sums reordered)
+OPTIMIZER_RTOL, OPTIMIZER_ATOL = 1e-5, 1e-8  # card against CPU after 3 updates (fp32 rounding)
+
+
+def dense_training_launches(config, gc_args, micro_batches, seq, eval_batches=0):
+    """Exact kernel launches of `micro_batches` dense training micro-batches and
+    `eval_batches` forward-only ones. A checkpointed block reruns its kernels in the
+    backward under every policy but ``everything_saveable`` (which checkpoints nothing):
+    per micro-batch rmsnorm 2L + 1 + 2R, rope 2L + R (forward, backward, rerun), flash
+    forward L + R and backward L over R rerun blocks; fused_ce one per 256-token chunk."""
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+
+    layers = config.n_layer
+    gc_args = gc_args or {}
+    every = gc_args.get("checkpoint_every", gc_args.get("block_frequency", 1)) if gc_args else 0
+    policy = gc_args.get("policy", gc_args.get("checkpoint_policy"))
+    rerun = len(range(0, layers, every)) if every and policy != "everything_saveable" else 0
+    chunks = -(-seq // config.loss_chunk_size)
+    expected = {spec.name: 0 for spec in KERNELS}
+    expected.update(
+        rmsnorm=(2 * layers + 1 + 2 * rerun) * micro_batches + (2 * layers + 1) * eval_batches,
+        rope_qkv=(2 * layers + rerun) * micro_batches + layers * eval_batches,
+        flash_attn_fwd=(layers + rerun) * micro_batches + layers * eval_batches,
+        flash_attn_bwd=layers * micro_batches,
+        fused_ce=chunks * (micro_batches + eval_batches),
+    )
+    return expected
+
+
+def _launch_counts():
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+
+    return {spec.name: spec.launches for spec in KERNELS}
+
+
+def _free(device, release=True):
+    """Collect garbage and reset the peak; `release` also returns the cached blocks."""
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        if release:
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 if torch.device(device).type == "cuda" else None
+
+
+def remat_policies_check(seed, device="cuda", rehearsal=None):
+    """(a): phase 6's train step and repeated batch under each remat policy, from one
+    seeded init: losses and grad norms against ``full``'s, step time, device peak, the
+    pinned host bytes of ``offload_dots`` and the analytic estimate, launch counts."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
+    from dolomite_engine_tpu_torch.models.remat import REMAT_POLICY_NAMES, OffloadStats
+    from dolomite_engine_tpu_torch.ops.kernels import reset_launch_counts
+    from dolomite_engine_tpu_torch.optimization import get_optimizer, get_scheduler
+    from dolomite_engine_tpu_torch.train_utils import TrainState, estimate_remat_activation_bytes, make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    config_kwargs, seq = TRAIN_CONFIG, TRAIN_SEQ
+    if rehearsal is not None:
+        config_kwargs, seq = dict(TRAIN_CONFIG, **rehearsal["model"], n_layer=2), rehearsal["sequence_length"]
+    _free(device)
+    wrapper = ModelWrapperForPretraining(
+        config_kwargs, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
+        gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
+        device=device, seed=seed,
+    )
+    config, model = wrapper.config, wrapper.model
+    text = _packed_text(np.random.RandomState(seed + 2), TRAIN_ACCUM, seq, config.vocab_size, config.eos_token_id)
+    batch = {"text": torch.as_tensor(text, device=model.device).reshape(TRAIN_ACCUM, 1, seq + 1)}
+    schedule = get_scheduler(0, 0, None, 10, "cosine", 0.1, base_lr=TRAIN_LR)  # no warm-up: step 2 sees step 1's update
+    runs, launches_total, forms_total = [], {}, {}
+    for policy in OPTION_POLICIES:
+        key = "policy" if policy in REMAT_POLICY_NAMES else "checkpoint_policy"
+        gc_args = {"checkpoint_every": 1, key: policy}
+        model.init_weights(seed)
+        model.transformer.set_remat(1, policy)
+        optimizer = get_optimizer("TorchAdamW", TRAIN_OPTIMIZER, schedule, model.named_parameters())
+        state = TrainState(model, optimizer)
+        step = make_train_step(
+            lambda micro: wrapper.loss(micro["text"]), optimizer, gradient_accumulation_steps=TRAIN_ACCUM,
+            gradient_clipping=1.0, skip_nonfinite=True,
+        )
+        _free(device, release=False)  # the allocator's cache stays: no cudaMalloc per policy
+        OffloadStats.reset()
+        reset_launch_counts()
+        metrics, times = [], []
+        for _ in range(OPTION_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(step(state, batch))
+            _sync(model.device)
+            times.append(time.perf_counter() - t0)
+        launches = _launch_counts()
+        expected = dense_training_launches(config, gc_args, TRAIN_ACCUM * OPTION_STEPS, seq)
+        if on_card:
+            assert launches == expected, (policy, launches, expected)
+        _add(launches_total, launches)
+        _add(forms_total, form_counts())
+        estimate = estimate_remat_activation_bytes(config, 1, seq, "block", gc_args, dtype_bytes=2)
+        runs.append({
+            "policy": policy, "losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_s": times, "peak_memory_gb": _peak_gb(device),
+            "pinned_host_peak_gb": OffloadStats.peak / 1e9, "pinned_host_total_gb": OffloadStats.total / 1e9,
+            "estimate_activation_gb": estimate["activation_bytes_per_replica"] / 1e9,
+            "estimate_host_gb": estimate["host_offload_bytes_per_replica"] / 1e9, "launches": launches,
+        })
+        del step, state, optimizer
+    del wrapper, model, batch
+    _free(device)
+
+    full = runs[0]
+
+    def gap(run):
+        return max(abs(a - b) for a, b in zip(run["losses"] + run["grad_norms"], full["losses"] + full["grad_norms"]))
+
+    by_policy = {run["policy"]: run for run in runs}
+    check = {
+        "model": {"n_layer": config.n_layer, "n_embd": config.n_embd, "checkpoint_every": 1}, "seq": seq,
+        "accumulation": TRAIN_ACCUM, "steps": OPTION_STEPS, "runs": runs,
+        "max_gap_to_full": {run["policy"]: gap(run) for run in runs[1:]},
+        "tolerance": "bit-identical losses and grad norms to full's (every kernel on the path is deterministic)",
+    }
+    assert not any(check["max_gap_to_full"].values()), check["max_gap_to_full"]
+    if on_card:
+        peaks = {policy: run["peak_memory_gb"] for policy, run in by_policy.items()}
+        check["peaks_gb"] = peaks
+        assert peaks["full"] <= peaks["save_attention_out"] <= peaks["save_dots"], peaks
+        assert peaks["offload_dots"] < peaks["save_dots"], peaks
+        assert by_policy["offload_dots"]["pinned_host_peak_gb"] > 0
+    return check, launches_total, forms_total
+
+
+def fp8_product_cases(seed):
+    """(b): one projection's fp8 products on the card through ``torch._scaled_mm`` against
+    the plain product of the same fp8 values cast up to fp32, at the dense projections'
+    shapes: forward (e4m3 x e4m3), dgrad (e5m2 x e4m3), wgrad (e4m3 x e5m2). The fp8
+    values are also quantized from the same bf16 tensors on the CPU: their bytes must be
+    identical. Times: `_scaled_mm` (bf16 out, the path's), the plain fp32 product, and the
+    bf16 cuBLAS product of the unquantized operands (library)."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops import fp8
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = []
+    for m, k, n in FP8_PRODUCT_SHAPES:
+        x = (torch.randn((m, k), generator=gen, device="cuda") * 2).bfloat16()
+        w = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).bfloat16()
+        g = (torch.randn((m, n), generator=gen, device="cuda") * 1e-4).bfloat16()
+
+        def quantized(t, q_dtype):
+            scale, _ = fp8.update_fp8_meta(t, q_dtype, torch.ones(1, device="cuda"), t.abs().max().float().reshape(1))
+            on_card = fp8.quantize(t, q_dtype, scale, torch.bfloat16)
+            on_cpu = fp8.quantize(t.cpu(), q_dtype, scale.cpu(), torch.bfloat16)
+            assert torch.equal(on_card.view(torch.uint8).cpu(), on_cpu.view(torch.uint8)), "fp8 bytes differ"
+            return on_card, scale
+
+        q_x, s_x = quantized(x, fp8.E4M3)
+        q_w, s_w = quantized(w, fp8.E4M3)
+        q_g, s_g = quantized(g, fp8.E5M2)
+        products = {
+            "forward": (q_x, q_w.t(), s_x, s_w, x, w.t()),
+            "dgrad": (q_g, q_w, s_g, s_w, g, w),
+            "wgrad": (q_x.t(), q_g, s_x, s_g, x.t(), g),
+        }
+        for form, (a, b, sa, sb, a_bf16, b_bf16) in products.items():
+            kernel = fp8.scaled_mm(a, b, sa, sb, torch.float32)
+            plain = (a.float() @ b.float()) * (sa * sb)
+            contraction = a.shape[1]
+            bound = (a.float().abs() @ b.float().abs()) * (sa * sb) * contraction * 2.0**-24
+            excess = ((kernel - plain).abs() - bound).max().item()
+            rel = ((kernel - plain).norm() / plain.norm()).item()
+            out_bf16 = fp8.fp8_product(a, b, sa, sb, torch.bfloat16)
+            bf16_rel = ((out_bf16.float() - plain).norm() / plain.norm()).item()
+            nbytes = a.numel() + b.numel() + 2 * a.shape[0] * b.shape[1]
+            bound_ms, bound_by = _bound(nbytes, 2 * a.shape[0] * contraction * b.shape[1], "float8")
+            case = {
+                "kernel": "scaled_mm", "form": form, "shape": f"[{a.shape[0]},{contraction}] x [{contraction},{b.shape[1]}]",
+                "dtypes": f"{str(a.dtype).replace('torch.', '')} x {str(b.dtype).replace('torch.', '')}",
+                "max_abs_err": (kernel - plain).abs().max().item(), "rel_l2_err": rel,
+                "max_excess_over_bound": excess, "bf16_out_rel_l2_err": bf16_rel,
+                "tolerance": "fp8 bytes identical to the CPU's; |kernel - plain| <= K 2^-24 (|a| @ |b|) sa sb",
+                "ms": _time_ms(lambda: fp8.fp8_product(a, b, sa, sb, torch.bfloat16)),
+                "plain_ms": _time_ms(lambda: (a.float() @ b.float()) * (sa * sb), iters=5),
+                "library_ms": _time_ms(lambda: a_bf16 @ b_bf16),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            cases.append(case)
+            assert excess <= 0, case
+        del x, w, g, q_x, q_w, q_g, products
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _scales_summary(fp8_state):
+    """min / median / max of the fp8 state's scales, by kind."""
+    import torch
+
+    kinds = {}
+    for name, value in fp8_state.tensors.items():
+        if name.endswith("scale"):
+            kind = name.rsplit(".", 1)[-1]
+            kinds.setdefault(kind, []).append(value.item())
+    return {
+        kind: {"count": len(v), "min": min(v), "median": float(torch.tensor(v).median()), "max": max(v)}
+        for kind, v in sorted(kinds.items())
+    }
+
+
+def fp8_check(seed, corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
+    """(b): `pretrain.main` with ``mixed_precision_args.dtype: fp8`` over phase 12's args
+    and steps (the YAML's remat), against phase 12's bf16 run; then the fp8 products on the
+    card and the MoE step of phase 8 in fp8 at 8 layers for 2 steps."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import reset_launch_counts
+
+    on_card = torch.device(device).type == "cuda"
+    save_path = os.path.join(work, "fp8")
+    args = pretrain_args(
+        corpus, save_path, PRETRAIN_STEPS, rehearsal=rehearsal, tokenizer=tokenizer,
+        options={"mixed_precision_args": {"dtype": "fp8"}},
+    )
+    _free(device)
+    capture = {}
+    reset_launch_counts()
+    summary = _run_pretrain(args, device, capture=capture)
+    launches, forms = _launch_counts(), form_counts()
+    peak = _peak_gb(device)
+    fp8_state = capture.pop("state").fp8
+    scales = _scales_summary(fp8_state)
+    fp8_bytes = fp8_state.nbytes()
+    del fp8_state
+    capture.clear()
+    shutil.rmtree(save_path, ignore_errors=True)
+    _free(device)
+    if on_card:
+        assert launches == pretrain_record["expected_launches"], (launches, pretrain_record["expected_launches"])
+    steps = summary["steps"]
+    losses = [s["loss"] for s in steps]
+    assert all(np.isfinite(losses)), losses
+    bf16 = pretrain_record["losses"]
+    gap = abs(np.mean(losses) - np.mean(bf16)) / np.mean(bf16)
+    mean_step = sum(s["step_seconds"] for s in steps[1:]) / (len(steps) - 1)
+    tflops = pretrain_record["model_tflops_per_step"]
+    record = {
+        "steps": len(steps), "losses": losses, "bf16_losses": bf16, "mean_loss_rel_gap_to_bf16": float(gap),
+        "bound": FP8_LOSS_BOUND, "grad_norms": [s["grad_norm"] for s in steps],
+        # reported, not asserted: 8 steps from a random init at the YAML's lr after 2 warm-up
+        # steps spike in bf16 too (phase 12), so the last step's batch decides this
+        "last_loss_below_first": losses[-1] < losses[0], "bf16_last_loss_below_first": bf16[-1] < bf16[0],
+        "mean_step_s_after_warmup": mean_step, "bf16_mean_step_s_after_warmup": pretrain_record["mean_step_s_after_warmup"],
+        "mfu_of_bf16_peak": tflops / mean_step / (PEAK_FLOPS["bfloat16"] / 1e12), "bf16_mfu": pretrain_record["mfu"],
+        "peak_memory_gb": peak, "bf16_peak_memory_gb": pretrain_record["peak_memory_gb"],
+        "fp8_state_bytes": fp8_bytes, "scales_at_last_step": scales, "launches": launches,
+    }
+    assert gap <= FP8_LOSS_BOUND, record
+    if on_card:
+        record["products"] = fp8_product_cases(seed)
+    moe_config = dict(MOE_EP, n_layer=MOE_TRAIN_LAYERS)
+    moe_seq, moe_micro = MOE_TRAIN_SEQ, MOE_TRAIN_MICRO
+    if rehearsal is not None:
+        moe_config = dict(MOE_EP, **rehearsal["model"], num_key_value_heads=2, num_experts=4, num_experts_per_tok=2, n_layer=2)
+        moe_seq, moe_micro = rehearsal["sequence_length"], 1
+    moe, moe_launches, moe_state = train_slice(
+        seed, moe_config, device, seq=moe_seq, micro_batch=moe_micro, dtype="fp8", steps=2, warmup=0
+    )
+    record["moe"] = {
+        key: moe[key] for key in ("model", "steps", "losses", "grad_norms", "step_s", "mfu", "peak_memory_gb", "launches")
+    }
+    record["moe"]["scales_at_last_step"] = _scales_summary(moe_state[0].fp8)
+    del moe_state
+    _free(device)
+    _add(launches, moe_launches)
+    _add(forms, moe["launch_forms"])
+    return record, launches, forms
+
+
+def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
+    """(c): `pretrain.main` with ``cpu_offload: true`` and ``telemetry.health.interval: 1``
+    for phase 12's first 3 steps (its schedule: decay over steps 3-8): losses and grad
+    norms identical to phase 12's; each step's ``health`` record's update ratio against
+    ||p' - p|| / ||p|| from the parameters copied to the host before the step and read
+    after it (the copies' time is taken off the step time); the device peak against
+    phase 12's, the optimizer state's copy rates."""
+    import math
+    import shutil
+
+    import torch
+
+    from dolomite_engine_tpu_torch import pretrain
+    from dolomite_engine_tpu_torch.ops.kernels import reset_launch_counts
+
+    on_card = torch.device(device).type == "cuda"
+    save_path = os.path.join(work, "offload")
+    args = pretrain_args(
+        corpus, save_path, OFFLOAD_STEPS, decay_steps=PRETRAIN_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
+        tokenizer=tokenizer,
+        options={"distributed_args": {"cpu_offload": True}, "logging_args": {"telemetry": {"health": {"interval": 1}}}},
+    )
+    checks, make = [], pretrain.make_train_step
+
+    def checked(loss_fn, optimizer, **kwargs):
+        train_step = make(loss_fn, optimizer, **kwargs)
+        device = optimizer.params[0].device
+        # the parameters before each step, in host buffers (pinned on a card) made once
+        before = [torch.empty(p.shape, dtype=p.dtype, pin_memory=on_card) for p in optimizer.params]
+
+        def run(state, batch):
+            t0 = time.perf_counter()
+            for buffer, p in zip(before, optimizer.params):
+                buffer.copy_(p.detach(), non_blocking=True)
+            _sync(device)
+            overhead = time.perf_counter() - t0
+            metrics = train_step(state, batch)
+            t1 = time.perf_counter()
+            sums = {}
+            with torch.no_grad():
+                for name, p, old in zip(optimizer.param_names, optimizer.params, before):
+                    old = old.to(device, non_blocking=True)
+                    group = sums.setdefault(name.split(".")[0], [])
+                    group.append(torch.stack([(p.float() - old.float()).square().sum(), old.float().square().sum()]))
+            ratios = {}
+            for group, terms in sums.items():
+                delta_sq, norm_sq = torch.stack(terms).sum(0).tolist()
+                ratios[group] = math.sqrt(delta_sq) / (math.sqrt(norm_sq) + 1e-12)
+            checks.append({"step": state.step, "update_ratio": ratios, "overhead_s": overhead + time.perf_counter() - t1})
+            return metrics
+
+        return run
+
+    _free(device)
+    capture = {}
+    reset_launch_counts()
+    pretrain.make_train_step = checked
+    try:
+        summary = _run_pretrain(args, device, capture=capture)
+    finally:
+        pretrain.make_train_step = make
+    launches, forms = _launch_counts(), form_counts()
+    peak = _peak_gb(device)
+    optimizer = capture.pop("state").optimizer
+    optimizer.synchronize()
+    copies = {
+        kind: {"gb": optimizer.offload_bytes[kind] / 1e9, "seconds": optimizer.offload_seconds[kind],
+               "gb_per_s": optimizer.offload_bytes[kind] / 1e9 / optimizer.offload_seconds[kind] if optimizer.offload_seconds[kind] else None}
+        for kind in ("h2d", "d2h")
+    }
+    state_gb = sum(t.nbytes for t in optimizer.state_tensors()) / 1e9
+    pinned = all(t.is_pinned() for t in optimizer.state_tensors()) if on_card else None
+    del optimizer
+    capture.clear()
+    sink = [json.loads(line) for line in open(os.path.join(save_path, "telemetry", "rank-00000.jsonl"))]
+    shutil.rmtree(save_path, ignore_errors=True)
+    _free(device)
+
+    steps = summary["steps"]
+    got = [(s["loss"], s["grad_norm"]) for s in steps]
+    want = list(zip(pretrain_record["losses"], pretrain_record["grad_norms"]))[: len(steps)]
+    health = {r["step"]: r["stats"] for r in sink if r["kind"] == "health"}
+    ratios = []
+    for check in checks:
+        stats = health[check["step"]]
+        for group, value in check["update_ratio"].items():
+            ratios.append({"step": check["step"], "group": group, "record": stats["update_ratio"][group], "from_parameters": value})
+    # step 1's learning rate is 0 (the warm-up): both ratios are then 0
+    worst = max(
+        abs(r["record"] - r["from_parameters"]) / r["from_parameters"] if r["from_parameters"] else abs(r["record"])
+        for r in ratios
+    )
+    step_s = [s["step_seconds"] - c["overhead_s"] for s, c in zip(steps, checks)]
+    record = {
+        "steps": len(steps), "losses_and_grad_norms": got, "bit_identical_to_pretrain": got == want,
+        "health_steps": sorted(health), "update_ratios": ratios, "worst_update_ratio_rel_err": worst,
+        "health_tolerance": HEALTH_RTOL, "step_s": step_s, "mean_step_s_after_first": sum(step_s[1:]) / len(step_s[1:]),
+        "pretrain_mean_step_s_after_warmup": pretrain_record["mean_step_s_after_warmup"],
+        "peak_memory_gb": peak, "pretrain_peak_memory_gb": pretrain_record["peak_memory_gb"],
+        "optimizer_state_gb": state_gb, "state_pinned": pinned, "copies": copies, "launches": launches,
+    }
+    assert record["bit_identical_to_pretrain"], (got, want)
+    assert record["health_steps"] == list(range(1, len(steps) + 1)), record["health_steps"]
+    assert worst <= HEALTH_RTOL, ratios
+    if on_card:
+        assert pinned and peak < pretrain_record["peak_memory_gb"], record
+    return record, launches, forms
+
+
+def _optimizer_shapes(config_kwargs):
+    from dolomite_engine_tpu_torch.models import config_from_dict, get_model_class
+
+    config = config_from_dict(dict(config_kwargs))
+    model = get_model_class(config.model_type)(config, device="meta")
+    return [(name, tuple(p.shape)) for name, p in model.named_parameters()]
+
+
+def optimizers_check(corpus, tokenizer, work, parity, device="cuda", rehearsal=None):
+    """(d): `pretrain.main` with ``class_name: ApexFusedLAMB`` for 3 steps (finite losses);
+    then `parity()`: every registered name over a 2-layer granite-width model's parameters
+    for 3 updates from seeded gradients on the card, against the same class on the CPU
+    (once a class: the names that build the same class with the same arguments share it);
+    ``TorchLBFGS`` and ``TorchRprop`` (optax's rprop takes no schedule) raise on both."""
+    import shutil
+
+    import numpy as np
+
+    from dolomite_engine_tpu_torch.ops.kernels import reset_launch_counts
+
+    save_path = os.path.join(work, "lamb")
+    args = pretrain_args(
+        corpus, save_path, LAMB_STEPS, decay_steps=PRETRAIN_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
+        tokenizer=tokenizer, options={"optimizer_args": {"class_name": "ApexFusedLAMB"}},
+    )
+    _free(device)
+    reset_launch_counts()
+    summary = _run_pretrain(args, device)
+    launches, forms = _launch_counts(), form_counts()
+    peak = _peak_gb(device)
+    shutil.rmtree(save_path, ignore_errors=True)
+    _free(device)
+    losses = [s["loss"] for s in summary["steps"]]
+    assert all(np.isfinite(losses)), losses
+
+    record = {
+        "lamb": {"steps": len(losses), "losses": losses, "grad_norms": [s["grad_norm"] for s in summary["steps"]],
+                 "step_s": [s["step_seconds"] for s in summary["steps"]], "peak_memory_gb": peak},
+        "parity": parity(),
+        "launches": launches,
+    }
+    return record, launches, forms
+
+
+def optimizer_parity_inputs(seed, rehearsal=None):
+    """A 2-layer granite-width model's parameter shapes, seeded starting values (std 0.02)
+    and 3 updates' gradients (std 1e-3), on the CPU."""
+    import torch
+
+    config_kwargs = dict(TRAIN_CONFIG, n_layer=OPTIMIZER_LAYERS)
+    if rehearsal is not None:
+        config_kwargs = dict(config_kwargs, **rehearsal["model"])
+    shapes = _optimizer_shapes(config_kwargs)
+    gen = torch.Generator().manual_seed(seed)
+    start = [torch.randn(shape, generator=gen) * 0.02 for _, shape in shapes]
+    grads = [[torch.randn(shape, generator=gen) * 1e-3 for _, shape in shapes] for _ in range(OPTIMIZER_UPDATES)]
+    return {"n_layer": config_kwargs["n_layer"], "shapes": shapes, "start": start, "grads": grads}
+
+
+_PARITY_ARGS = dict(TRAIN_OPTIMIZER, lr=TRAIN_LR, momentum=0.9)
+
+
+def _parity_key(name):
+    from dolomite_engine_tpu_torch.optimization.optimizer import OPTIMIZER_CLASSES
+
+    cls, kwargs = OPTIMIZER_CLASSES[name](_PARITY_ARGS)
+    return cls.__name__, tuple(sorted(kwargs.items()))
+
+
+def _parity_names():
+    """The names that build an optimizer (the others raise)."""
+    from dolomite_engine_tpu_torch.optimization.optimizer import OPTIMIZER_CLASSES
+
+    return [n for n in sorted(OPTIMIZER_CLASSES) if OPTIMIZER_CLASSES[n] is not None and n != "TorchRprop"]
+
+
+def _parity_run(inputs, name, on, start=None, grads=None):
+    """3 updates of optimizer `name` from the inputs' start (or `start`, already on `on`)
+    on `on`: (parameters, seconds)."""
+    import torch
+
+    from dolomite_engine_tpu_torch.optimization import get_optimizer, get_scheduler
+
+    params = [torch.nn.Parameter(p.to(on, copy=True)) for p in start or inputs["start"]]
+    schedule = get_scheduler(1, 0, None, 10, "cosine", 0.1, base_lr=TRAIN_LR)
+    optimizer = get_optimizer(name, _PARITY_ARGS, schedule, [(n, p) for (n, _), p in zip(inputs["shapes"], params)])
+    t0 = time.perf_counter()
+    for step_grads in grads or inputs["grads"]:
+        optimizer.step(step_grads)
+    _sync(torch.device(on))
+    return [p.detach() for p in params], time.perf_counter() - t0
+
+
+def optimizer_cpu_references(inputs):
+    """The CPU run of each optimizer class (the names that build the same class with the
+    same arguments share one): {key: (parameters, seconds)}."""
+    import torch
+
+    # this runs on a thread beside the card's phases: half the cores (the count is the thread's own)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    references = {}
+    for name in _parity_names():
+        key = _parity_key(name)
+        if key not in references:
+            params, seconds = _parity_run(inputs, name, "cpu")
+            # pinned where a card will read them
+            references[key] = [p.pin_memory() for p in params] if torch.cuda.is_available() else params, seconds
+    return references
+
+
+class _Background:
+    """`fn()` on a thread (torch's CPU ops release the GIL); `result()` joins and returns it,
+    or raises what it raised."""
+
+    def __init__(self, fn):
+        import threading
+
+        self._out = {}
+        self._thread = threading.Thread(target=self._run, args=(fn,), daemon=True)
+        self._start = time.perf_counter()
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out["value"] = fn()
+        except BaseException as error:  # re-raised by result()
+            self._out["error"] = error
+        self._out["seconds"] = time.perf_counter() - self._start
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+    @property
+    def seconds(self):
+        return self._out.get("seconds")
+
+
+def optimizer_parity(inputs, references, device="cuda"):
+    """Every registered name's 3 updates on `device` against its class's CPU run
+    (`references`); ``TorchLBFGS`` and ``TorchRprop`` must raise on both."""
+    from dolomite_engine_tpu_torch.optimization.optimizer import OPTIMIZER_CLASSES
+
+    results = {}
+    for name in sorted(set(OPTIMIZER_CLASSES) - set(_parity_names())):
+        for on in (device, "cpu"):
+            try:
+                _parity_run(inputs, name, on, grads=[[]])
+            except (ValueError, TypeError) as error:
+                results[name] = {"raises": f"{type(error).__name__}: {error}"}
+            else:
+                raise AssertionError(f"{name} built on {on}")
+    # the inputs on the device once; the comparisons there
+    start = [p.to(device) for p in inputs["start"]]
+    grads = [[g.to(device) for g in step] for step in inputs["grads"]]
+    for name in _parity_names():
+        want, cpu_s = references[_parity_key(name)]
+        got, card_s = _parity_run(inputs, name, device, start, grads)
+        rel = moved = 0.0
+        for a, b, s in zip(got, want, start):
+            b = b.to(device, non_blocking=True)
+            rel = max(rel, ((a - b).abs() / (b.abs() + OPTIMIZER_ATOL / OPTIMIZER_RTOL)).max().item())
+            moved = max(moved, (a - s).abs().max().item())
+        results[name] = {
+            "class": _parity_key(name)[0], "max_rel_err": rel, "max_param_change": moved, "card_s": card_s, "cpu_s": cpu_s,
+        }
+        assert rel <= OPTIMIZER_RTOL and moved > 0, (name, results[name])
+        del got
+    del start, grads
+    return {
+        "n_layer": inputs["n_layer"], "parameters": sum(p.numel() for p in inputs["start"]),
+        "updates": OPTIMIZER_UPDATES, "tolerance": f"|card - cpu| <= {OPTIMIZER_RTOL} |cpu| + {OPTIMIZER_ATOL}",
+        "by_name": results,
+    }
+
+
+def training_options_phase(seed, corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
+    """Phase 17 (right after phase 12's 32-layer run, on its corpus): (a) the remat
+    policies, (b) fp8, (c) CPU offload with the health statistics, (d) the optimizers,
+    each part's seconds. (d)'s CPU runs go on a thread beside (a)-(c) (the card's runs
+    wait little on the host: the dense step keeps the card busy ~95 % of its time). Returns the record (with the runs' launch forms) and the launch
+    counts of its runs; the fp8 products of (b) launch no kernel of the port."""
+    t0 = time.perf_counter()
+    launches, forms, record = {}, {}, {}
+    # (d)'s CPU runs go on a thread from the start: they take minutes on the host's cores
+    inputs = optimizer_parity_inputs(seed, rehearsal)
+    references = _Background(lambda: optimizer_cpu_references(inputs))
+    parts = (
+        ("remat_policies", lambda: remat_policies_check(seed, device, rehearsal)),
+        ("fp8", lambda: fp8_check(seed, corpus, tokenizer, work, pretrain_record, device, rehearsal)),
+        ("offload_and_health", lambda: offload_health_check(corpus, tokenizer, work, pretrain_record, device, rehearsal)),
+        ("optimizers", lambda: optimizers_check(
+            corpus, tokenizer, work,
+            lambda: dict(optimizer_parity(inputs, references.result(), device), cpu_runs_seconds=references.seconds),
+            device, rehearsal,
+        )),
+    )
+    for name, part in parts:
+        start = time.perf_counter()
+        record[name], part_launches, part_forms = part()
+        record[name]["seconds"] = time.perf_counter() - start
+        if rehearsal is None:  # each part's line as it ends: a later failure keeps the earlier ones
+            print(json.dumps({"training_options": {name: record[name]}}), flush=True)
+        _add(launches, part_launches)
+        _add(forms, part_forms)
+    record["launch_forms"] = forms
+    record["seconds"] = time.perf_counter() - t0
+    return record, launches
 
 
 GENERATION_YAML = os.path.join("configs", "generation.yml")
@@ -3797,6 +4469,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    started = time.perf_counter()
 
     import torch
 
@@ -3824,12 +4497,12 @@ def main() -> int:
         + training_kernel_cases(args.seed) + moe_kernel_cases(args.seed) + alibi_kernel_cases(args.seed)
         + generation_kernel_cases(args.seed)
     )
-    print(json.dumps({"kernel_cases": cases, "card": card}), flush=True)
+    print(json.dumps({"kernel_cases": cases, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
 
     serving, serving_launches, model, specs, tokens = serve(args.seed)
     serving["launches_per_forward"] = launches_per_forward(model)
-    print(json.dumps({"serving": serving, "card": card}), flush=True)
-    print(json.dumps({"profile": profile_serving(model, specs), "card": card}), flush=True)
+    print(json.dumps({"serving": serving, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"profile": profile_serving(model, specs), "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
 
     # phase 9: the quantized pool on phase 3's model and requests; launches summed over its runs
     quantized, quantized_launches, quantized_forms = {}, {spec.name: 0 for spec in KERNELS}, {}
@@ -3860,23 +4533,24 @@ def main() -> int:
         serve_quantized(f"granite-3b-code {kv_dtype}", kv_dtype, tokens, serving)
     probe = specs[2]["prompt_ids"]
     check = quantized_check(model, probe + tokens[2][:4], len(probe))
-    print(json.dumps({"quantized_check": check, "card": card}), flush=True)
+    print(json.dumps({"quantized_check": check, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     check = paged_write_check(model, probe + tokens[2][:4], len(probe))
-    print(json.dumps({"paged_write_check": check, "card": card}), flush=True)
+    print(json.dumps({"paged_write_check": check, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     del model
     torch.cuda.empty_cache()
 
-    print(json.dumps({"training_check": training_paths_check(args.seed), "card": card}), flush=True)
+    print(json.dumps({"training_check": training_paths_check(args.seed), "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     training, training_launches, (state, train_step, batch) = train_slice(args.seed)
-    print(json.dumps({"training": training, "card": card}), flush=True)
+    print(json.dumps({"training": training, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     training_profile = profile_training(state, train_step, batch)
     training_profile["loss_backward_alone"] = loss_backward_profile(args.seed)
-    print(json.dumps({"training_profile": training_profile, "card": card}), flush=True)
+    print(json.dumps({"training_profile": training_profile, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     del state, train_step, batch
     gc.collect()
     torch.cuda.empty_cache()
 
-    pretrain, pretrain_launches, (generation, generate_launches), speculated, preempted = pretrain_phase(args.seed)
+    pretrain, pretrain_launches, options_launches, (generation, generate_launches), speculated, preempted = pretrain_phase(args.seed)
+    training_options = pretrain.pop("training_options")
     speculative, speculative_launches, speculative_forms = speculated
     preemption, preemption_launches, preemption_forms = preempted
     # the same model, shape and cuts as phase 6's repeated batch, through the entry point
@@ -3884,60 +4558,65 @@ def main() -> int:
         "training_mean_step_s_after_warmup": training["mean_step_s_after_warmup"],
         "ratio": pretrain["mean_step_s_after_warmup"] / training["mean_step_s_after_warmup"],
     }
-    print(json.dumps({"pretrain": pretrain, "card": card}), flush=True)
-    print(json.dumps({"generate": generation, "card": card}), flush=True)
-    print(json.dumps({"speculative_generation": speculative, "card": card}), flush=True)
-    print(json.dumps({"preemption": preemption, "card": card}), flush=True)
+    print(json.dumps({"pretrain": pretrain, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    # its parts' lines were printed as they ended
+    summary_keys = ("seconds", "launch_forms")
+    print(json.dumps({"training_options": {k: training_options[k] for k in summary_keys}, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"generate": generation, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"speculative_generation": speculative, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"preemption": preemption, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
     moe_serving, moe_serving_launches, model, specs, tokens = serve(args.seed, MOE_EP)
     moe_serving["launches_per_forward"] = launches_per_forward(model)
-    print(json.dumps({"moe_serving": moe_serving, "card": card}), flush=True)
-    print(json.dumps({"moe_profile": profile_serving(model, specs), "card": card}), flush=True)
+    print(json.dumps({"moe_serving": moe_serving, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"moe_profile": profile_serving(model, specs), "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     serve_quantized("moe int8", "int8", tokens, moe_serving)
-    print(json.dumps({"quantized_serving": quantized, "card": card}), flush=True)
+    print(json.dumps({"quantized_serving": quantized, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
     moe_check = training_paths_check(args.seed, 2, MOE_EP, (1, MOE_TRAIN_SEQ))
-    print(json.dumps({"moe_training_check": moe_check, "card": card}), flush=True)
+    print(json.dumps({"moe_training_check": moe_check, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     moe_training, moe_training_launches, (state, train_step, batch) = train_slice(
         args.seed, dict(MOE_EP, n_layer=MOE_TRAIN_LAYERS), seq=MOE_TRAIN_SEQ, micro_batch=MOE_TRAIN_MICRO
     )
-    print(json.dumps({"moe_training": moe_training, "card": card}), flush=True)
+    print(json.dumps({"moe_training": moe_training, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     moe_profile = profile_training(state, train_step, batch)
     # the grouped GEMMs' and the casts' shares of the step's device time
     moe_profile["shares"] = {
         family: moe_profile["families"].get(family, {}).get("share", 0.0)
         for family in ("grouped_gemm", "grouped_gemm_tgmm", "casts_and_copies")
     }
-    print(json.dumps({"moe_training_profile": moe_profile, "card": card}), flush=True)
+    print(json.dumps({"moe_training_profile": moe_profile, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     del state, train_step, batch
     gc.collect()
     torch.cuda.empty_cache()
 
     alibi_check = training_paths_check(args.seed, 2, ALIBI_TRAIN_CONFIG, (ALIBI_TRAIN_MICRO, ALIBI_TRAIN_SEQ))
-    print(json.dumps({"alibi_training_check": alibi_check, "card": card}), flush=True)
+    print(json.dumps({"alibi_training_check": alibi_check, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     alibi_training, alibi_training_launches, (state, train_step, batch) = train_slice(
         args.seed, dict(ALIBI_TRAIN_CONFIG, n_layer=ALIBI_TRAIN_LAYERS), seq=ALIBI_TRAIN_SEQ,
         micro_batch=ALIBI_TRAIN_MICRO,
     )
-    print(json.dumps({"alibi_training": alibi_training, "card": card}), flush=True)
+    print(json.dumps({"alibi_training": alibi_training, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     alibi_profile = profile_training(state, train_step, batch)
-    print(json.dumps({"alibi_training_profile": alibi_profile, "card": card}), flush=True)
+    print(json.dumps({"alibi_training_profile": alibi_profile, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     del state, train_step, batch
     gc.collect()
     torch.cuda.empty_cache()
 
     alibi_generation, alibi_generation_launches = alibi_generation_phase(args.seed)
-    print(json.dumps({"alibi_generation": alibi_generation, "card": card}), flush=True)
+    print(json.dumps({"alibi_generation": alibi_generation, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
 
     records = {
         "serving": serving, "training": training, "moe_serving": moe_serving, "moe_training": moe_training,
         "quantized_serving": {"launch_forms": quantized_forms}, "alibi_training": alibi_training,
-        "pretrain": pretrain, "generate": generation, "alibi_generation": alibi_generation,
+        "pretrain": pretrain, "training_options": {"launch_forms": training_options["launch_forms"]},
+        "generate": generation,
+        "alibi_generation": alibi_generation,
         "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
     }
 
@@ -3965,7 +4644,8 @@ def main() -> int:
             "serving": serving_launches[spec.name], "training": training_launches[spec.name],
             "moe_serving": moe_serving_launches[spec.name], "moe_training": moe_training_launches[spec.name],
             "quantized_serving": quantized_launches[spec.name], "alibi_training": alibi_training_launches[spec.name],
-            "pretrain": pretrain_launches[spec.name], "generate": generate_launches[spec.name],
+            "pretrain": pretrain_launches[spec.name], "training_options": options_launches.get(spec.name, 0),
+            "generate": generate_launches[spec.name],
             "alibi_generation": alibi_generation_launches[spec.name],
             "speculative_generation": speculative_launches[spec.name], "preemption": preemption_launches[spec.name],
         }

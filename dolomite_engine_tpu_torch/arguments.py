@@ -1018,14 +1018,6 @@ def check_ported_options(args: TrainingArgs) -> None:
             raise NotImplementedError(f"distributed_args.{name} {_DISTRIBUTION}")
     if dist.zero_topology.data_parallel_sharding_world_size is not None:
         raise NotImplementedError(f"distributed_args.zero_topology {_DISTRIBUTION}")
-    if dist.cpu_offload:
-        raise NotImplementedError("cpu_offload is not ported yet: ROADMAP.md Queue A, 'CPU offload'")
-    gc_args = dist.gradient_checkpointing_args or {}
-    policy = gc_args.get("policy", gc_args.get("checkpoint_policy")) or "full"
-    if policy != "full":
-        raise NotImplementedError(f"remat policy '{policy}' is not ported yet: ROADMAP.md Queue A, 'Remat policies'")
-    if args.mixed_precision_args.dtype == "fp8":
-        raise NotImplementedError("fp8 training is not ported yet: ROADMAP.md Queue A, 'fp8 training'")
     if args.model_args.model_name is not None:
         raise NotImplementedError(
             "model_args.model_name (loading a checkpoint directory or hub id) is not ported yet: "
@@ -1043,11 +1035,6 @@ def check_ported_options(args: TrainingArgs) -> None:
                 f"logging_args.telemetry.{name} is not ported yet: ROADMAP.md Queue A, "
                 "'Serving fleet and observability'"
             )
-    if telemetry.health.interval > 0:
-        raise NotImplementedError(
-            "logging_args.telemetry.health.interval > 0 (in-step health statistics) is not ported "
-            "yet: ROADMAP.md Queue A, 'Training health metrics'"
-        )
     args.kernel_args.check()
     if args.model_args.scan_layers:
         log_rank_0(

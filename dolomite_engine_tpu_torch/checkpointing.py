@@ -15,9 +15,11 @@ Counterpart of `dolomite_engine_tpu/checkpointing.py`, with its layout:
 process group, where the JAX package writes orbax: DCP keys every tensor by its path
 (``model.transformer.h.0.attn.c_attn.weight``, ``optimizer.mu.<parameter>``), so a later
 sharded (FSDP2 / DTensor) state can reshard on load, as orbax does. The tree
-(`TrainState.state_dict`) holds the step, the model, and, with ``save_optimizer``, the
-AdamW moments in their storage dtypes (the bf16 first moment stays bf16) and both of its
-counters.
+(`TrainState.state_dict`) holds the step, the model, an fp8 run's delayed-scaling state
+(``fp8.<module>.<variable>``; restored only when both the run and the checkpoint have one,
+as in JAX) and, with ``save_optimizer``, the optimizer's state lists in their storage
+dtypes (AdamW's bf16 first moment stays bf16; an offloaded state is read from the host)
+and both of its counters.
 
 Every load toggle of `LoadArgs` is honoured. ``resume_learning_rate: false`` (or
 ``load_lr_scheduler: false``) restores the moments and zeroes only the schedule's counter,
@@ -358,6 +360,9 @@ def load_checkpoint_for_training(
         )
     # the live tensors: DCP restores into them; without load_optimizer the fresh moments stay
     tree = state.state_dict(with_optimizer=load_args.load_optimizer)
+    if "fp8" in tree and not any(key.startswith("fp8.") for key in saved_keys):
+        # a checkpoint without fp8 state (a bf16 run's) keeps the fresh state, as in JAX
+        del tree["fp8"]
     retry_io(
         lambda: dcp.load(tree, checkpoint_id=state_path, no_dist=True),
         description="checkpoint restore",

@@ -40,7 +40,7 @@ def get_model(args, mode: Mode = Mode.training, device: str | torch.device = "cu
         wrapper_class = (
             ModelWrapperForPretraining if tuning_method == TuningMethod.pretraining else ModelWrapperForFinetuning
         )
-        return wrapper_class(model_args.pretrained_config, mode=mode, param_dtype=common["dtype"], **common)
+        return wrapper_class(model_args.pretrained_config, mode=mode, param_dtype=None, **common)
     dist = args.distributed_args
     return ModelWrapperForPretraining(
         model_args.pretrained_config,

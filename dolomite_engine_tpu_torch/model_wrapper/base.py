@@ -18,6 +18,7 @@ import torch
 
 from ..enums import AttentionImplementation, Mode
 from ..models import CommonConfig, config_from_dict, get_model_class
+from ..ops.fp8 import enable_fp8
 from ..train_utils import resolve_checkpointing_args
 from ..utils import log_rank_0
 from ..utils.mixed_precision import string_to_dtype
@@ -57,9 +58,9 @@ class ModelWrapper:
         device: str | torch.device = "cuda",
         seed: int = 0,
     ) -> None:
-        """`dtype` is the compute dtype and `param_dtype` (default `dtype`) the storage of
-        the linear and embedding weights: fp32 master weights for training, the compute
-        dtype for inference."""
+        """`dtype` is the compute dtype ("fp8": bf16 compute with fp8 dots, the state in
+        `fp8`) and `param_dtype` (default `dtype`) the storage of the linear and embedding
+        weights: fp32 master weights for training, the compute dtype for inference."""
         if model_name is not None:
             raise NotImplementedError(
                 "model_args.model_name (loading a checkpoint directory or hub id) is not ported "
@@ -71,7 +72,9 @@ class ModelWrapper:
         else:
             self.config = config_from_dict(dict(pretrained_config, **(config_extras or {})))
         self.model_type = self.config.model_type
-        self.dtype = string_to_dtype(dtype)
+        # fp8 = bf16 compute + delayed-scaling fp8 dots (`ops/fp8.py`), as in the JAX package
+        self.use_fp8 = dtype == "fp8"
+        self.dtype = torch.bfloat16 if self.use_fp8 else string_to_dtype(dtype)
         self.tokenizer = _load_tokenizer(tokenizer_name)
         if self.tokenizer is not None and additional_special_tokens:
             added = self.tokenizer.add_special_tokens({"additional_special_tokens": additional_special_tokens})
@@ -86,11 +89,12 @@ class ModelWrapper:
             dtype=self.dtype,
             device=device,
             seed=seed,
-            param_dtype=string_to_dtype(param_dtype or dtype),
+            param_dtype=string_to_dtype(param_dtype) if param_dtype else self.dtype,
             attention_implementation=attention_implementation or AttentionImplementation.sdpa,
             checkpoint_every=self.checkpoint_every,
             checkpoint_policy=self.checkpoint_policy,
         )
+        self.fp8 = enable_fp8(self.model) if self.use_fp8 else None
         self._generate_fns = {}  # a decode closure per generation settings
 
     @property

@@ -4,9 +4,9 @@ Counterpart of `dolomite_engine_tpu/models/gpt_dolomite.py`: `GPTDolomiteModel` 
 `GPTDolomiteForCausalLM` with learned-absolute, rope (+ YaRN), alibi and nope positions, µP
 multipliers, a tied or untied LM head, packed documents through segment ids, the loss
 path (the chunked fused LM-head loss or plain logits + CE) and every-k-th-block
-activation checkpointing. Module names follow the flax parameter tree
-(``transformer.wte``, ``transformer.h.<i>.attn.c_attn``, ...), so `load_jax_params`
-maps the JAX package's unrolled params one to one. No scan: torch runs the blocks in a
+activation checkpointing under the JAX remat policies (`models/remat.py`). Module names
+follow the flax parameter tree (``transformer.wte``, ``transformer.h.<i>.attn.c_attn``,
+...), so `load_jax_params` maps the JAX package's unrolled params one to one. No scan: torch runs the blocks in a
 Python loop.
 
 The hooks the JAX base class gives other families are kept: `GPTDolomiteModel.block_cls`
@@ -24,10 +24,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..enums import AttentionImplementation
+from ..ops.fp8 import fp8_qdq
 from ..ops.loss import causal_lm_loss, derive_causal_labels, fused_linear_cross_entropy
 from ..ops.rope import RoPEParams
 from .config import CommonConfig
@@ -40,22 +40,7 @@ from .modeling_utils import (
     compute_position_stuff,
     get_norm,
 )
-
-REMAT_POLICY_NAMES = ("full", "save_dots", "save_attention_out", "offload_dots")
-
-
-def resolve_named_remat_policy(policy: str | None) -> None:
-    """The ``full`` policy (save nothing inside a checkpointed block, the default) is
-    `torch.utils.checkpoint` as it is; the policies that save a block's matmul or
-    attention outputs are not ported yet."""
-    if policy is None or policy == "full":
-        return None
-    if policy in REMAT_POLICY_NAMES:
-        raise NotImplementedError(
-            f"remat policy '{policy}' is not ported yet: ROADMAP.md Queue A, 'Remat policies'"
-        )
-    raise ValueError(f"unknown remat policy '{policy}' (expected one of {REMAT_POLICY_NAMES})")
-
+from .remat import REMAT_POLICY_NAMES, RematPolicy, remat_call, resolve_remat_policy  # noqa: F401
 
 @dataclass
 class CausalLMOutput:
@@ -82,8 +67,6 @@ class GPTDolomiteModel(nn.Module):
         super().__init__()
         self.config = config
         self.pe_type = PositionEmbeddingType(config.position_embedding_type)
-        resolve_named_remat_policy(checkpoint_policy)
-        self.checkpoint_every = checkpoint_every  # 0 = no remat; k = remat every k-th block
         self.wte = ParameterizedEmbedding(
             config.vocab_size, config.n_embd, config.initializer_range, dtype, device, param_dtype
         )
@@ -100,6 +83,7 @@ class GPTDolomiteModel(nn.Module):
             for _ in range(config.n_layer)
         )
         self.ln_f = get_norm(config, device)
+        self.set_remat(checkpoint_every, checkpoint_policy)
         self.rope_params = (
             RoPEParams.from_config(
                 config.head_dim,
@@ -110,6 +94,18 @@ class GPTDolomiteModel(nn.Module):
             if self.pe_type == PositionEmbeddingType.rope
             else None
         )
+
+    def set_remat(self, checkpoint_every: int, policy: str | RematPolicy | None = None) -> None:
+        """Remat every `checkpoint_every`-th block (0: none) under `policy`, a name of
+        either vocabulary (`models/remat.py`); the blocks tag their attention output only
+        when the policy keeps it."""
+        self.checkpoint_every = checkpoint_every
+        if not isinstance(policy, RematPolicy):
+            policy = resolve_remat_policy(policy, self.wte.weight.device)
+        self.remat_policy = policy
+        for i, block in enumerate(self.h):
+            rematted = bool(checkpoint_every) and i % checkpoint_every == 0
+            block.tag_attention_out = rematted and bool(policy.save_names)
 
     def forward(
         self,
@@ -156,11 +152,11 @@ class GPTDolomiteModel(nn.Module):
         for i, block in enumerate(self.h):
             cache = None if kv_caches is None else kv_caches[i]
             if self.checkpoint_every and i % self.checkpoint_every == 0 and cache is None:
-                # the `full` policy: only the block's input survives the forward; the
-                # backward reruns the block (kernels included) to rebuild its activations
-                out = checkpoint(
-                    block, hidden_states, attention_mask, rope_cos_sin, alibi_bias, None,
-                    cache_index, segment_ids, deterministic, use_reentrant=False,
+                # the block's input and what the policy keeps survive the forward; the
+                # backward reruns the block (kernels included) to rebuild the rest
+                out = remat_call(
+                    self.remat_policy, block, hidden_states, attention_mask, rope_cos_sin,
+                    alibi_bias, None, cache_index, segment_ids, deterministic,
                 )
             else:
                 out = block(
@@ -183,8 +179,8 @@ class GPTDolomiteForCausalLM(nn.Module):
     `dtype` is the compute dtype; `param_dtype` (default `dtype`) the storage of the
     linear and embedding weights — fp32 master weights for training, as the JAX
     package's modules keep them. `checkpoint_every` k reruns every k-th block in the
-    backward (the ``full`` remat policy). Further keyword arguments go to every block
-    (a family's block options, e.g. MoE's ``moe_implementation``).
+    backward under `checkpoint_policy` (`models/remat.py`; default ``full``). Further
+    keyword arguments go to every block (a family's block options, e.g. MoE's ``moe_implementation``).
 
     The config's ``model_type`` must be this class's: a config of another family raises
     instead of building a dense model (`models.get_model_class` picks the class)."""
@@ -225,8 +221,23 @@ class GPTDolomiteForCausalLM(nn.Module):
                 param_dtype,
             )
         )
+        self.fp8 = None  # an fp8 model's state slot (`ops/fp8.enable_fp8`)
         if device.type != "meta":  # on the meta device the weights come from a checkpoint
             self.init_weights(seed)
+
+    @property
+    def fp8_qdq_names(self) -> tuple[str, ...]:
+        """The tied head's e4m3 quantize-dequantize points (the hidden states and the
+        table) in an fp8 model; an untied head is an fp8 dot of its own."""
+        return ("lm_head_in", "lm_head_kernel") if self.lm_head is None else ()
+
+    def _lm_head_operands(self, hidden_states: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(hidden, table) of the tied head in the compute dtype, e4m3 quantize-dequantized
+        in an fp8 model."""
+        hidden, table = hidden_states.to(self.dtype), self.transformer.wte.table()
+        if self.fp8 is not None:
+            return fp8_qdq(hidden, self.fp8, "lm_head_in"), fp8_qdq(table, self.fp8, "lm_head_kernel")
+        return hidden, table
 
     @property
     def device(self) -> torch.device:
@@ -270,9 +281,10 @@ class GPTDolomiteForCausalLM(nn.Module):
         if want_loss and config.fused_lm_head_loss and kv_caches is None:
             if labels is None:
                 labels = derive_causal_labels(input_ids, attention_mask, segment_ids)
+            head_in, head_table = self._lm_head_operands(hidden_states)
             loss = fused_linear_cross_entropy(
-                hidden_states.to(self.dtype),
-                self.transformer.wte.table(),
+                head_in,
+                head_table,
                 labels,
                 chunk_size=config.loss_chunk_size,
                 upcast=config.upcast_logits_for_loss,
@@ -312,7 +324,8 @@ class GPTDolomiteForCausalLM(nn.Module):
 
     def compute_logits(self, hidden_states: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
-            logits = self.transformer.wte.attend(hidden_states)
+            head_in, head_table = self._lm_head_operands(hidden_states)
+            logits = head_in @ head_table.T
         else:
             logits = self.lm_head(hidden_states)
         if self.config.m_width is not None:

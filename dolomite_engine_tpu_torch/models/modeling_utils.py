@@ -45,6 +45,7 @@ from torch import nn
 from ..enums import AttentionImplementation
 from ..ops.activations import get_activation_function, is_glu
 from ..ops.alibi import get_alibi_bias
+from ..ops.fp8 import fp8_dot
 from ..ops.attention import (
     attention,
     paged_gather_kv,
@@ -61,6 +62,7 @@ from ..ops.normalization import check_normalization_function, layernorm
 from ..ops.rope import RoPEParams, get_cos_sin, split_qkv_apply_rope
 from .config import CommonConfig
 from .enums import InitMethod, PositionEmbeddingType
+from .remat import ATTENTION_OUT_CHECKPOINT_NAME, checkpoint_name
 
 # a dense cache {"k", "v": [B, max_len, Hkv, D]}, or a paged pool view {"k": pages, "v":
 # pages, "page_table": [B, max_pages]} (+ "k_scale", "v_scale": [P, Hkv])
@@ -74,7 +76,10 @@ def _as(tensor: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
 
 class ParameterizedLinear(nn.Module):
     """``y = x @ W.T + b`` with the weight stored ``[out, in]`` in `param_dtype` (default
-    `dtype`), computed in `dtype`, and its init std kept."""
+    `dtype`), computed in `dtype`, and its init std kept. In an fp8 model (`ops/fp8.py`
+    `enable_fp8` sets `fp8`) the product is the delayed-scaling fp8 dot."""
+
+    fp8_dot = True  # an fp8 model gives this module flax's fp8 dot variables
 
     def __init__(
         self,
@@ -98,6 +103,7 @@ class ParameterizedLinear(nn.Module):
             if bias
             else None
         )
+        self.fp8 = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.weight.normal_(0.0, self.std, generator=generator)
@@ -105,7 +111,10 @@ class ParameterizedLinear(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), _as(self.weight, self.dtype), _as(self.bias, self.dtype))
+        if self.fp8 is None:
+            return F.linear(x.to(self.dtype), _as(self.weight, self.dtype), _as(self.bias, self.dtype))
+        y = fp8_dot(x.to(self.dtype), _as(self.weight, self.dtype), self.fp8)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class ParameterizedEmbedding(nn.Module):
@@ -137,10 +146,6 @@ class ParameterizedEmbedding(nn.Module):
         """The ``[V, H]`` table in the compute dtype (the tied LM head's operand)."""
         return _as(self.weight, self.dtype)
 
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied LM head: ``x @ embedding.T``."""
-        return x.to(self.dtype) @ self.table().T
-
 
 class Norm(nn.Module):
     """layernorm / rmsnorm with fp32 statistics and fp32 parameters.
@@ -161,6 +166,11 @@ class Norm(nn.Module):
             if normalization_function == "layernorm"
             else None
         )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None):
         if self.normalization_function == "rmsnorm":
@@ -555,6 +565,7 @@ class Block(nn.Module):
         )
         self.ln_2 = get_norm(config, device)
         self.mlp = MLP(config, dtype, device, param_dtype)
+        self.tag_attention_out = False  # set by the model for the save_attention_out policy
 
     def forward(
         self,
@@ -581,6 +592,8 @@ class Block(nn.Module):
         )
         if self.m_residual is not None:
             attn_out = attn_out * self.m_residual
+        if self.tag_attention_out:
+            attn_out = checkpoint_name(attn_out, ATTENTION_OUT_CHECKPOINT_NAME)
         h, hidden_states = self.ln_2(attn_out, residual=residual)
         mlp_out = self.mlp(h, deterministic=deterministic)
         if self.m_residual is not None:

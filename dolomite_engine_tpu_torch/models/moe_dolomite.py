@@ -25,12 +25,14 @@ from torch import nn
 
 from ..enums import AttentionImplementation, normalize_moe_implementation
 from ..ops.activations import get_activation_function, is_glu
+from ..ops.fp8 import fp8_qdq
 from ..ops.kernels.moe import experts_grouped
 from ..ops.moe import load_balancing_loss, route
 from .config import MoEConfig
 from .enums import InitMethod
 from .gpt_dolomite import GPTDolomiteForCausalLM, GPTDolomiteModel
 from .modeling_utils import Attention, KVCache, ParameterizedLinear, get_norm
+from .remat import ATTENTION_OUT_CHECKPOINT_NAME, checkpoint_name
 
 
 class ParameterizedExperts(nn.Module):
@@ -85,7 +87,11 @@ def _expert_std(config: MoEConfig, depth_scaled: bool) -> float:
 
 class SparseMoE(nn.Module):
     """Top-k routed expert MLP: router logits in the compute dtype, routing weights by a
-    softmax over the selected logits, and the experts through the grouped GEMMs."""
+    softmax over the selected logits, and the experts through the grouped GEMMs. In an fp8
+    model the tokens and both banks are e4m3 quantize-dequantized after the router (the
+    JAX model's `Fp8QDQ` points), and the grouped GEMMs take them in the compute dtype."""
+
+    fp8_qdq_names = ("experts_in", "experts_fc_kernel", "experts_proj_kernel")
 
     def __init__(
         self,
@@ -124,6 +130,7 @@ class SparseMoE(nn.Module):
             config.num_experts, intermediate, config.n_embd, config.add_bias,
             _expert_std(config, depth_scaled=True), dtype, device, param_dtype,
         )
+        self.fp8 = None
 
     def forward(
         self, hidden_states: torch.Tensor, deterministic: bool = True
@@ -136,6 +143,10 @@ class SparseMoE(nn.Module):
         router_weights, selected_experts = route(router_logits, config.num_experts_per_tok)
         w_fc, b_fc = self.c_fc.banks()
         w_proj, b_proj = self.c_proj.banks()
+        if self.fp8 is not None:
+            x = fp8_qdq(x, self.fp8, "experts_in")
+            w_fc = fp8_qdq(w_fc, self.fp8, "experts_fc_kernel")
+            w_proj = fp8_qdq(w_proj, self.fp8, "experts_proj_kernel")
         out = experts_grouped(
             x, router_weights, selected_experts, w_fc, b_fc, w_proj, b_proj, self.act,
             config.num_experts,
@@ -168,6 +179,7 @@ class SparseMoEBlock(nn.Module):
         )
         self.ln_2 = get_norm(config, device)
         self.moe = SparseMoE(config, dtype, device, param_dtype, moe_implementation, ep_capacity_factor)
+        self.tag_attention_out = False  # set by the model for the save_attention_out policy
 
     def forward(
         self,
@@ -194,6 +206,8 @@ class SparseMoEBlock(nn.Module):
         )
         if self.m_residual is not None:
             attn_out = attn_out * self.m_residual
+        if self.tag_attention_out:
+            attn_out = checkpoint_name(attn_out, ATTENTION_OUT_CHECKPOINT_NAME)
         h, hidden_states = self.ln_2(attn_out, residual=residual)
         moe_out, router_logits = self.moe(h, deterministic=deterministic)
         if self.m_residual is not None:

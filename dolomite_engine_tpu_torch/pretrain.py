@@ -4,9 +4,9 @@ Counterpart of `dolomite_engine_tpu/pretrain.py`: `main` wires args -> model -> 
 -> (resume) -> megatron dataloaders -> `train`; `train` is the step loop with
 consumed-samples accounting, eval at step 0, every ``eval_interval`` steps and on the
 test split at the end, throughput and MFU logging, the telemetry windows, the health
-monitor and flight recorder, checkpoints every ``save_interval`` steps and at the last
-step, a preemption notice's save-and-exit, and the shutdown of every worker on every exit
-path. Step batches come from a `StepPrefetcher` that stacks the accumulation micro-batches
+monitor (its per-group statistics every ``health.interval`` steps) and flight recorder,
+checkpoints every ``save_interval`` steps and at the last step, a preemption notice's
+save-and-exit, and the shutdown of every worker on every exit path. Step batches come from a `StepPrefetcher` that stacks the accumulation micro-batches
 and copies them to the card on a side stream, up to ``prefetch_depth`` steps ahead.
 
 The JAX loop splits a PRNG key each step for dropout; here the loop draws each step's
@@ -14,7 +14,10 @@ seed from its own `torch.Generator` (seeded from ``random_args.seed``, saved in 
 checkpoint) and seeds torch's generators with it, so a resumed run draws the same
 dropout masks as an unbroken one. The port runs eagerly on one device (`check_ported_options`
 lists what it refuses); `main(args, device="cuda")` runs on the card, and the tests pass
-``device="cpu"``.
+``device="cpu"``. The training options run as in the JAX loop: remat policies (the model's),
+any optimizer of the registry, ``cpu_offload`` (the optimizer state in pinned host memory;
+warned about and ignored off a card), ``health.interval`` and ``mixed_precision_args.dtype:
+fp8`` (the state on `TrainState.fp8`, checkpointed with the model).
 """
 
 from __future__ import annotations
@@ -41,10 +44,12 @@ from .model_wrapper import get_model, log_model
 from .optimization import build_optimizer_from_args
 from .train_utils import (
     TrainState,
+    estimate_remat_activation_bytes,
     get_model_tflops,
     get_profiler_context,
     handle_nonfinite_step,
     make_train_step,
+    resolve_cpu_offload,
     track_train_metrics,
 )
 from .utils import (
@@ -165,7 +170,19 @@ def train(
     install_telemetry(telemetry)
     monitor = build_health_monitor(args, telemetry)
     register_crash_hook(monitor.dump_flight_record)
-    emit_model_report(telemetry, state, model_tflops_per_step=step_tflops)
+    emit_model_report(
+        telemetry,
+        state,
+        model_tflops_per_step=step_tflops,
+        remat=estimate_remat_activation_bytes(
+            model.config,
+            batch_size=micro_batch_size,
+            sequence_length=sequence_length,
+            gradient_checkpointing_method=args.distributed_args.gradient_checkpointing_method,
+            gradient_checkpointing_args=args.distributed_args.gradient_checkpointing_args,
+            dtype_bytes=torch.tensor([], dtype=model.dtype).element_size(),
+        ),
+    )
 
     train_step = make_train_step(
         lambda micro: model.loss(micro["text"], train=True),
@@ -173,6 +190,8 @@ def train(
         gradient_accumulation_steps=gradient_accumulation_steps,
         gradient_clipping=args.training_parameters.gradient_clipping,
         skip_nonfinite=ft_args.skip_nonfinite_steps,
+        offload_optimizer=resolve_cpu_offload(args, device),
+        collect_health=monitor.wants_step_metrics,
     )
 
     if rng_generator is None:
@@ -281,6 +300,8 @@ def train(
                 data_seconds=data_seconds,
                 skipped=step_skipped,
             )
+            if monitor.health_due(global_step) and "health" in metrics:
+                monitor.emit_health(global_step, metrics["health"])
             if ft_args.skip_nonfinite_steps:
                 consecutive_nonfinite = handle_nonfinite_step(
                     step_skipped, consecutive_nonfinite, global_step, ft_args.max_consecutive_nonfinite_steps
@@ -407,7 +428,7 @@ def main(args: TrainingArgs | None = None, device: str | torch.device = "cuda") 
     model = get_model(args, Mode.training, device=device)
     log_model(model)
     optimizer, lr_schedule = build_optimizer_from_args(args, model)
-    state = TrainState(model.model, optimizer)
+    state = TrainState(model.model, optimizer, fp8=model.fp8)
 
     starting_iteration = 0
     consumed_samples = 0

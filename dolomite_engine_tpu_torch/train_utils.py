@@ -19,32 +19,37 @@ import torch
 from torch import nn
 
 from .ops.activations import is_glu
-from .optimization.optimizer import TorchAdamW
+from .ops.fp8 import Fp8State
+from .optimization.optimizer import Optimizer
 from .utils import get_telemetry, log_rank_0
+from .utils.diagnostics import group_health, health_groups, squared_norms
 
 
 @dataclass
 class TrainState:
-    """The JAX `TrainState`'s fields: the step counter, the parameters (the model's) and
-    the optimizer state (the optimizer's)."""
+    """The JAX `TrainState`'s fields: the step counter, the parameters (the model's), the
+    optimizer state (the optimizer's) and, in an fp8 run, the delayed-scaling state
+    (`ops/fp8.Fp8State`, JAX's ``TrainState.fp8``)."""
 
     model: nn.Module
-    optimizer: TorchAdamW
+    optimizer: Optimizer
     step: int = 0
+    fp8: Fp8State | None = None
 
     def state_dict(self, with_optimizer: bool = True) -> dict:
-        """The checkpoint's tree, all tensors: the step, the model's state by name and,
-        `with_optimizer`, the AdamW moments by parameter name (in their storage dtypes)
-        and both of its counters. The model's and the moments' tensors are the live ones,
-        so a restore into this tree writes the state in place; `load_state_dict` then takes
-        the counters back."""
+        """The checkpoint's tree, all tensors: the step, the model's state by name, the
+        fp8 state and, `with_optimizer`, the optimizer's state lists by parameter name (in
+        their storage dtypes) and both of its counters. The tensors are the live ones, so a
+        restore into this tree writes the state in place; `load_state_dict` then takes the
+        counters back."""
         tree = {"step": torch.tensor(self.step), "model": self.model.state_dict()}
+        if self.fp8 is not None:
+            tree["fp8"] = dict(self.fp8.tensors)
         if with_optimizer:
             names = [name for name, _ in self.model.named_parameters()]
             state = self.optimizer.state_dict()
             tree["optimizer"] = {
-                "mu": dict(zip(names, state["mu"], strict=True)),
-                "nu": dict(zip(names, state["nu"], strict=True)),
+                **{key: dict(zip(names, state[key], strict=True)) for key in self.optimizer.state_names},
                 "count": torch.tensor(state["count"]),
                 "schedule_count": torch.tensor(state["schedule_count"]),
             }
@@ -70,43 +75,75 @@ def clip_grad_norm(grads: list[torch.Tensor], max_norm: float | None):
     return grads, grad_norm
 
 
+_CPU_OFFLOAD_WARNED = False
+
+
+def resolve_cpu_offload(args, device: torch.device | str) -> bool:
+    """``distributed_args.cpu_offload``: the optimizer state in pinned host memory, streamed
+    to the card for each update. Off a CUDA device there is nothing to offload from: warn
+    once and ignore the option, as the JAX package does off the TPU."""
+    if not args.distributed_args.cpu_offload:
+        return False
+    device = torch.device(device)
+    if device.type == "cuda":
+        return True
+    global _CPU_OFFLOAD_WARNED
+    if not _CPU_OFFLOAD_WARNED:
+        _CPU_OFFLOAD_WARNED = True
+        log_rank_0(
+            logging.WARNING,
+            f"cpu_offload ignored on device '{device.type}' (pinned-host optimizer streaming "
+            "requires a CUDA device)",
+        )
+    return False
+
+
 def make_train_step(
     loss_fn: Callable[[dict], torch.Tensor],
-    optimizer: TorchAdamW,
+    optimizer: Optimizer,
     gradient_accumulation_steps: int = 1,
     gradient_clipping: float | None = 1.0,
     skip_nonfinite: bool = False,
     offload_optimizer: bool = False,
     collect_health: bool = False,
-    fp8: bool = False,
 ):
     """Build ``train_step(state, batch) -> metrics``.
 
     `loss_fn(micro_batch)` returns the scalar loss of one micro-batch; every tensor of
     `batch` has a leading ``[gradient_accumulation_steps]`` axis. `skip_nonfinite`:
-    when the loss or the global grad-norm is not finite, the parameters and the
-    optimizer state stay as they were, ``metrics["skipped"]`` is 1, and the step still
-    advances."""
-    if offload_optimizer:
-        raise NotImplementedError("cpu_offload is not ported yet: ROADMAP.md Queue A, 'CPU offload'")
-    if collect_health:
-        raise NotImplementedError(
-            "training health metrics are not ported yet: ROADMAP.md Queue A, 'Training health metrics'"
-        )
-    if fp8:
-        raise NotImplementedError("fp8 training is not ported yet: ROADMAP.md Queue A, 'fp8 training'")
+    when the loss or the global grad-norm is not finite, the parameters, the optimizer
+    state and the fp8 state stay as they were, ``metrics["skipped"]`` is 1, and the step
+    still advances.
+
+    `offload_optimizer` (``cpu_offload``): the optimizer state lives in pinned host memory
+    and streams to the card for the update (`Optimizer.offload_state`); on a CPU model
+    it changes nothing (`resolve_cpu_offload` warns). `collect_health` (``health.interval > 0``):
+    ``metrics["health"]`` holds `per_group_health`'s statistics, still on the device.
+
+    With ``state.fp8`` (an fp8 run) the delayed-scaling state threads through the
+    micro-batches as JAX's scan carries it: each micro-batch quantizes with the state the
+    previous one left, and its forward and backward stage the next state, committed after
+    its backward (`ops/fp8.Fp8State`); a skipped step restores the state the step began
+    with."""
     n = gradient_accumulation_steps
     params = optimizer.params
+    if offload_optimizer and params[0].device.type == "cuda":
+        optimizer.offload_state()
+    groups = health_groups(optimizer.param_names, len(params)) if collect_health else None
 
     def micro_batch(batch: dict, i: int) -> dict:
         return {name: value[i] for name, value in batch.items()}
 
     def train_step(state: TrainState, batch: dict) -> dict:
+        fp8 = state.fp8
+        fp8_before = fp8.snapshot() if fp8 is not None else None
         for p in params:
             p.grad = None
         if n == 1:
             loss = loss_fn(micro_batch(batch, 0))
             loss.backward()
+            if fp8 is not None:
+                fp8.commit()
             grads = [torch.zeros_like(p) if p.grad is None else p.grad.float() for p in params]
             loss = loss.detach().float()
         else:
@@ -126,6 +163,8 @@ def make_train_step(
                 for i in range(n):
                     micro_loss = loss_fn(micro_batch(batch, i))
                     micro_loss.backward()
+                    if fp8 is not None:
+                        fp8.commit()  # the next micro-batch quantizes with this one's state
                     loss = loss + micro_loss.detach().float() / n
             finally:
                 for handle in handles:
@@ -136,12 +175,18 @@ def make_train_step(
         step_ok = True
         if skip_nonfinite:
             step_ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        param_sq = squared_norms(params) if collect_health else None  # before the update
+        update_sq = None
         if step_ok:
-            optimizer.step(grads)
+            update_sq = optimizer.step(grads, track_update=collect_health)
+        elif fp8 is not None:
+            fp8.restore(fp8_before)  # the stepped state saw the non-finite values
         state.step += 1
         metrics = {"loss": loss.item(), "grad_norm": grad_norm.item()}
         if skip_nonfinite:
             metrics["skipped"] = int(not step_ok)
+        if collect_health:
+            metrics["health"] = group_health(param_sq, squared_norms(grads), update_sq, groups)
         return metrics
 
     return train_step
@@ -242,8 +287,11 @@ def get_model_tflops(
     """Analytic model TFLOPs per step (the JAX package's formula): attention
     ``4bsh(h(1 + k/n) + s)``, MLP ``4bshf`` (+ ``2bshf`` for GLU) times the
     ``num_experts_per_tok`` experts each token runs in an MoE model, LM head ``6bshv``,
-    backward twice the forward, plus one forward per block the ``full`` remat policy
-    reruns. The port's remat has only that policy; router FLOPs are left out, as there."""
+    backward twice the forward, plus the recompute the remat policy buys: one forward per
+    checkpointed block under ``full`` (and the raw names outside the dots family), ~0 when
+    the policy keeps every product (``save_dots``, ``offload_dots``, the dots and
+    everything names), the block less its attention out-projection (``4bsh^2``) under
+    ``save_attention_out``. Router FLOPs are left out, as there."""
     b, s, h = batch_size, sequence_length, config.n_embd
     f, n, k = config.n_inner, config.n_head, config.num_key_value_heads
     attention_flops = 4 * b * s * h * (h * (1 + k / n) + s)
@@ -251,16 +299,76 @@ def get_model_tflops(
     if is_glu(config.activation_function):
         mlp_flops += 2 * b * s * h * f
     active_experts = getattr(config, "num_experts_per_tok", None)
+    if getattr(config, "model_type", None) == "dense_moe":
+        active_experts = config.num_experts
     if active_experts:
         mlp_flops *= active_experts
     forward = config.n_layer * (attention_flops + mlp_flops)
     every, policy = resolve_checkpointing_args(gradient_checkpointing_method, gradient_checkpointing_args)
     recompute = 0.0
     if every:
-        if policy != "full":
-            raise NotImplementedError(
-                f"remat policy '{policy}' is not ported yet: ROADMAP.md Queue A, 'Remat policies'"
-            )
-        recompute = config.n_layer * (attention_flops + mlp_flops) / every
+        block = attention_flops + mlp_flops
+        if policy in _DOTS_KEPT:
+            block_recompute = 0.0  # only elementwise ops replay, ~0 in this matmul model
+        elif policy == "save_attention_out":
+            block_recompute = block - 4 * b * s * h * h
+        else:
+            block_recompute = block
+        recompute = config.n_layer * block_recompute / max(every, 1)
     lm_head = 6 * b * s * h * config.vocab_size
     return (forward + 2 * forward + recompute + lm_head) / 1e12
+
+
+# the policies that keep every product's output (or park it on the host)
+_DOTS_KEPT = {
+    "save_dots",
+    "offload_dots",
+    "dots_saveable",
+    "checkpoint_dots",
+    "dots_with_no_batch_dims_saveable",
+    "checkpoint_dots_with_no_batch_dims",
+    "everything_saveable",
+}
+
+
+def estimate_remat_activation_bytes(
+    config,
+    batch_size: int,
+    sequence_length: int,
+    gradient_checkpointing_method=None,
+    gradient_checkpointing_args: dict | None = None,
+    dtype_bytes: int = 4,
+) -> dict:
+    """The JAX package's analytic estimate of the activation bytes each remat policy keeps
+    between the forward and the backward (block-boundary carries plus the policy's kept
+    values per checkpointed block; scratch and the unrematted blocks' activations left
+    out, so a floor), the host bytes ``offload_dots`` parks, and the delta against
+    ``full``. The ``model_report`` record carries it."""
+    every, policy = resolve_checkpointing_args(gradient_checkpointing_method, gradient_checkpointing_args)
+    b, s, h = batch_size, sequence_length, config.n_embd
+    f, n, kvh, layers = config.n_inner, config.n_head, config.num_key_value_heads, config.n_layer
+
+    token_bytes = b * s * dtype_bytes
+    boundary = layers // max(every, 1) * token_bytes * h if every else layers * token_bytes * h
+
+    per_block_extra = 0.0
+    if every:
+        if policy in ("save_dots", "offload_dots") or "saveable" in policy:
+            # every dot output: fused qkv, attention scores, context, out proj, c_fc (2f
+            # for GLU) and c_proj
+            glu = 2 if "glu" in str(config.activation_function) else 1
+            per_block_extra = token_bytes * (h * (1 + 2 * kvh / n) + n * s + 3 * h + glu * f)
+        elif policy == "save_attention_out":
+            per_block_extra = token_bytes * h
+    checkpointed_blocks = (layers // max(every, 1)) if every else 0
+    extra = checkpointed_blocks * per_block_extra
+
+    device_bytes = boundary + (0.0 if policy == "offload_dots" else extra)
+    host_bytes = extra if policy == "offload_dots" else 0.0
+    return {
+        "checkpoint_every": every,
+        "policy": policy,
+        "activation_bytes_per_replica": float(device_bytes),
+        "host_offload_bytes_per_replica": float(host_bytes),
+        "delta_vs_full_bytes": float(device_bytes - boundary),
+    }

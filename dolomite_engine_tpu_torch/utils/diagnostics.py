@@ -1,15 +1,14 @@
-"""Training health on the host: anomaly detection, the crash flight recorder, and the
-one-shot model report.
+"""Training health: per-group tensor statistics, anomaly detection, the crash flight
+recorder, and the one-shot model report.
 
-Counterpart of the host side of `dolomite_engine_tpu/utils/diagnostics.py`, what the
-default config runs: `HealthMonitor` with ``interval: 0`` (EWMA z-scores over loss and
-grad norm, the rolling-median straggler detector, ``anomaly`` events, the optional
+Counterpart of `dolomite_engine_tpu/utils/diagnostics.py`: `HealthMonitor` (EWMA z-scores
+over loss and grad norm, the rolling-median straggler detector, ``anomaly`` events, the optional
 escalation to the abort path), `FlightRecorder` (on by default: the last
 ``flight_recorder_steps`` step records, dumped to
 ``<save_path>/telemetry/flight-record-rank-<N>.json`` on a crash, a stall, a NaN abort or
-a preemption) and `emit_model_report`. The per-group tensor statistics of
-``health.interval > 0`` are computed inside the step and are not ported: the args refuse
-them (ROADMAP.md Queue A, 'Training health metrics').
+a preemption) and `emit_model_report`; and the per-group tensor statistics of
+``health.interval > 0`` (`per_group_health`, `group_health`), computed in the train step on
+the device and written every ``interval`` steps as a ``health`` record.
 """
 
 from __future__ import annotations
@@ -193,7 +192,54 @@ def crash_reason(error: BaseException) -> str:
     return f"exception:{type(error).__name__}"
 
 
-# --------------------------------------------------------------------- health monitor
+# --------------------------------------------------------------------- per-group stats
+
+
+def health_groups(names: list[str] | None, count: int) -> dict[str, list[int]]:
+    """Parameter indices by health group: the first component of each parameter name
+    (the JAX params tree's top-level keys, e.g. ``transformer`` and ``lm_head``), in
+    sorted order; without names one ``params`` group (JAX's non-mapping tree)."""
+    if names is None:
+        return {"params": list(range(count))}
+    groups: dict[str, list[int]] = {}
+    for i, name in enumerate(names):
+        groups.setdefault(name.split(".")[0], []).append(i)
+    return {key: groups[key] for key in sorted(groups)}
+
+
+def squared_norms(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each tensor's squared fp32 norm, on its device."""
+    return [n.square() for n in torch._foreach_norm([t.detach().float() for t in tensors])]
+
+
+def group_health(
+    param_sq: list[torch.Tensor], grad_sq: list[torch.Tensor], update_sq: list[torch.Tensor] | None, groups: dict
+) -> dict[str, dict[str, torch.Tensor]]:
+    """Per group: the parameter norm, the gradient norm and ``||p' - p|| / ||p||``, from
+    each tensor's squared norm (`update_sq` None: a skipped step, ratio 0). The values
+    stay on the device until `HealthMonitor.emit_health` reads them."""
+    health: dict[str, dict[str, torch.Tensor]] = {"param_norm": {}, "grad_norm": {}, "update_ratio": {}}
+    for name, indices in groups.items():
+        param_norm = torch.stack([param_sq[i] for i in indices]).sum().sqrt()
+        health["param_norm"][name] = param_norm
+        health["grad_norm"][name] = torch.stack([grad_sq[i] for i in indices]).sum().sqrt()
+        update = (
+            torch.zeros_like(param_norm)
+            if update_sq is None
+            else torch.stack([update_sq[i] for i in indices]).sum().sqrt()
+        )
+        health["update_ratio"][name] = update / (param_norm + 1e-12)
+    return health
+
+
+def per_group_health(params, grads, new_params, names: list[str] | None = None) -> dict:
+    """The JAX package's `per_group_health` over lists of tensors: ``{"param_norm",
+    "grad_norm", "update_ratio"}`` by group (`health_groups` of `names`), the update norm
+    measured from the parameters before and after. The train step computes the same from
+    the optimizer's tracked update (`make_train_step(collect_health=True)`)."""
+    update_sq = [(new.float() - old.float()).square().sum() for new, old in zip(new_params, params)]
+    groups = health_groups(names, len(params))
+    return group_health(squared_norms(params), squared_norms(grads), update_sq, groups)
 
 
 # --------------------------------------------------------------------- health monitor
@@ -207,8 +253,8 @@ class HealthMonitor:
     ``anomaly`` event per flag. With ``abort_after_consecutive_anomalies`` set, N consecutive
     flagged steps dump the flight record and raise — the same abort contract as
     ``handle_nonfinite_step``, so the operator story (restart from last checkpoint) is one
-    story. The per-group stats of ``interval > 0`` are computed inside the JAX step and
-    are not ported (ROADMAP.md Queue A, 'Training health metrics').
+    story. Every ``interval`` steps (:meth:`emit_health`) the step's per-group statistics
+    are read to the host and written as a ``health`` record + fanned out to the tracker.
     """
 
     def __init__(
@@ -312,6 +358,30 @@ class HealthMonitor:
             )
         return anomalies
 
+    def emit_health(self, step: int, health_tree) -> dict | None:
+        """Read the step's per-group statistics and write the ``health`` record (+ tracker
+        fanout). Never raises: a failed health read must not kill a healthy run."""
+        try:
+            stats = {
+                metric: {group: float(value) for group, value in groups.items()}
+                for metric, groups in health_tree.items()
+            }
+        except Exception as error:  # observational: the run goes on
+            log_rank_0(logging.WARNING, f"health stats sync failed: {error!r}")
+            return None
+        self.telemetry.emit_record("health", step=step, stats=stats)
+        tracker = getattr(self.telemetry, "experiments_tracker", None)
+        if tracker is not None:
+            scalars = {
+                f"health/{metric}/{group}": value
+                for metric, groups in stats.items()
+                for group, value in groups.items()
+                if math.isfinite(value)
+            }
+            if scalars:
+                tracker.track(scalars, step=step, context="health")
+        return stats
+
     # ------------------------------------------------------------------ crash path
 
     def dump_flight_record(self, reason: str, error: BaseException | None = None) -> str | None:
@@ -370,7 +440,7 @@ def build_model_report(
     and whether the persistent state fits the card (activations and gradients excluded:
     a floor)."""
     named = list(model.named_parameters())
-    moments = [] if optimizer is None else [*optimizer.mu, *optimizer.nu]
+    moments = [] if optimizer is None else optimizer.state_tensors()
     totals = {
         "parameters": sum(p.numel() for _, p in named),
         "param_bytes": sum(p.numel() * p.element_size() for _, p in named),

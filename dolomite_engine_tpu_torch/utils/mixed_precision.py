@@ -11,15 +11,15 @@ _STR_TO_DTYPE = {
     "float16": torch.float16,
     "bf16": torch.bfloat16,
     "bfloat16": torch.bfloat16,
+    "fp8": torch.float8_e4m3fn,
 }
 
 
 def string_to_dtype(dtype: str | torch.dtype | None) -> torch.dtype | None:
-    """A repo dtype name ("fp32", "bf16", ...) or a torch dtype as a torch dtype."""
+    """A repo dtype name ("fp32", "bf16", ...) or a torch dtype as a torch dtype; "fp8" is
+    e4m3, as in the JAX package (a model wrapper reads it as bf16 compute with fp8 dots)."""
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
-    if dtype == "fp8":
-        raise NotImplementedError("fp8 training is not ported yet: ROADMAP.md Queue A, 'fp8 training'")
     if dtype not in _STR_TO_DTYPE:
         raise ValueError(f"unexpected dtype '{dtype}'")
     return _STR_TO_DTYPE[dtype]
@@ -33,8 +33,7 @@ _CANONICAL = {
 
 
 def normalize_dtype_string(dtype: str) -> str:
-    """"bfloat16" -> "bf16" and so on; "fp8" stays a valid name (the args parse it, and
-    training refuses it)."""
+    """"bfloat16" -> "bf16" and so on; "fp8" stays "fp8"."""
     if dtype not in _CANONICAL:
         raise ValueError(f"unexpected dtype '{dtype}'")
     return _CANONICAL[dtype]

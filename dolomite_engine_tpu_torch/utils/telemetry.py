@@ -18,6 +18,7 @@ no loop installed one. The records have the JAX package's kinds and keys:
      "counters": {...}, "gauges": {...}}
     {"kind": "event",  "ts", "rank", "event", "step", ...}
     {"kind": "model_report", "ts", "rank", "param_groups", "totals", "hbm", ...}
+    {"kind": "health", "ts", "rank", "step", "stats"}      # per-group norms (diagnostics.py)
     {"kind": "run_end", "ts", "rank", "step", "status", "counters"}
 
 `run_start` names torch's and CUDA's versions where the JAX record names jax's and

@@ -4,7 +4,8 @@ Every training (and unsharding) YAML under `configs/` loads to the same dict thr
 `load_yaml`s and to the same `to_dict()` through both `args_from_dict`s; an unknown key
 is refused as pydantic's ``extra="forbid"`` refuses it; each option the port does not run
 raises `NotImplementedError` naming its ROADMAP item (a pinned kernel family a
-`ValueError`), and the options it does run pass.
+`ValueError`), and the options it does run pass (the training options, remat policies,
+offload, health and fp8, also run `pretrain.main`).
 """
 
 import copy
@@ -91,19 +92,11 @@ UNPORTED = [
     ("distributed_args", dict(stage=0, expert_parallel_size=2), "'Distribution'"),
     ("distributed_args", dict(stage=0, data_parallel_size=2), "'Distribution'"),
     ("distributed_args", dict(stage=0, dispatching_dataloader=True), "'Distribution'"),
-    ("distributed_args", dict(stage=0, cpu_offload=True), "'CPU offload'"),
-    (
-        "distributed_args",
-        dict(stage=0, gradient_checkpointing_method="block", gradient_checkpointing_args=dict(policy="save_dots")),
-        "'Remat policies'",
-    ),
-    ("mixed_precision_args.dtype", "fp8", "'fp8 training'"),
     ("model_args.model_name", "ibm-granite/granite-3b-code-base", "'Interop and tools'"),
     ("logging_args", dict(experiments_tracker_name="wandb", wandb_args=dict(project="p", name="n")), "'Serving fleet and observability'"),
     ("logging_args", dict(experiments_tracker_name="aim", aim_args=dict(repo="r", experiment="e")), "'Serving fleet and observability'"),
     ("logging_args.telemetry", dict(on_demand_profiling=True), "'Serving fleet and observability'"),
     ("logging_args.telemetry", dict(program_signatures=True), "'Serving fleet and observability'"),
-    ("logging_args.telemetry", dict(health=dict(interval=5)), "'Training health metrics'"),
 ]
 
 
@@ -114,6 +107,46 @@ def test_unported_option_raises_naming_its_item(path, value, item):
         del config["model_args"]["pretrained_config"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
         check_ported_options(TrainingArgs(**config))
+
+
+# the training options, each once refused here
+TRAINING_OPTIONS = [
+    ("distributed_args", dict(stage=0, cpu_offload=True)),
+    (
+        "distributed_args",
+        dict(stage=0, gradient_checkpointing_method="block", gradient_checkpointing_args=dict(policy="save_dots")),
+    ),
+    ("mixed_precision_args.dtype", "fp8"),
+    ("logging_args.telemetry", dict(health=dict(interval=1))),
+]
+
+
+@pytest.mark.parametrize("path, value", TRAINING_OPTIONS, ids=[f"{p}={v}" for p, v in TRAINING_OPTIONS])
+def test_training_option_parses_and_runs(tmp_path, path, value):
+    """Each option parses, passes `check_ported_options` and runs 2 steps of
+    `pretrain.main` on the CPU over a tiny megatron corpus."""
+    import numpy as np
+
+    from dolomite_engine_tpu_torch import pretrain
+    from dolomite_engine_tpu_torch.data.megatron import MMapIndexedDatasetBuilder
+
+    rng = np.random.RandomState(0)
+    prefix = str(tmp_path / "corpus")
+    builder = MMapIndexedDatasetBuilder(prefix + ".bin", dtype=np.uint16)
+    for _ in range(100):
+        builder.add_item(rng.randint(3, 64, size=rng.randint(10, 40)))
+        builder.end_document()
+    builder.finalize(prefix + ".idx")
+    config = _with(path, value)
+    config["datasets"][0]["class_args"].update(
+        data_path=[prefix], data_cache_path=str(tmp_path / "cache"), split="90,5,5", eval_steps=1
+    )
+    config["save_args"] = dict(save_path=str(tmp_path / "ckpt"), save_interval=2)
+    args = TrainingArgs(**config)
+    check_ported_options(args)
+    summary = pretrain.main(args, device="cpu")
+    losses = [s["loss"] for s in summary["steps"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_pinned_kernel_family_raises():

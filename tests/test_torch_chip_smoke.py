@@ -1,7 +1,8 @@
 """`chip_smoke.py` on the CPU: without a card it prints no result and exits non-zero, and
 its `pretrain` phase's control flow (the YAML's cuts, the corpus, `pretrain.main`, the
 telemetry windows, the checkpoint and the 2-layer resume check, bit-identical), the
-`generate` phase inside it (`generate.main` over `configs/generation.yml` from that
+`training_options` phase inside it (the remat policies, fp8, offload and health, the
+optimizers), the `generate` phase inside it (`generate.main` over `configs/generation.yml` from that
 checkpoint with both engines, the greedy runs three ways, the logits check), the
 `speculative_generation` and `preemption` phases after it, and the `alibi_generation`
 phase run at tiny widths through the kernels' plain versions."""
@@ -48,13 +49,32 @@ def test_pretrain_phase_rehearsal(monkeypatch):
         "model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512), "sequence_length": 128, "new_tokens": 8,
         "longest_prompt": 256, "preempt_pages": 96,
     }
-    record, launches, (generation, generate_launches), speculated, preempted = chip_smoke.pretrain_phase(0, device="cpu", rehearsal=rehearsal)
+    record, launches, options_launches, (generation, generate_launches), speculated, preempted = chip_smoke.pretrain_phase(
+        0, device="cpu", rehearsal=rehearsal
+    )
     assert record["losses"][-1] < record["losses"][0]
     assert record["checkpoint"]["consumed_samples"] == 2 * chip_smoke.PRETRAIN_STEPS
     assert [w["at_step"] for w in record["goodput_windows"]] == list(range(1, chip_smoke.PRETRAIN_STEPS + 1))
     assert record["resume_check"]["bit_identical"] and record["resume_check"]["batches_identical"]
     assert not any(launches.values())  # the plain versions ran
     assert record["expected_launches"]["fused_ce"] == 24  # 16 micro-batches + 8 eval batches, one chunk each
+    # the YAML's remat (all 32 layers at the rehearsal's width): blocks 0, 2, ... rerun
+    # under save_dots, their kernels with them
+    assert record["remat"]["policy"] == "save_dots" and record["remat"]["rematted_blocks"] == 16
+    assert record["expected_launches"]["rmsnorm"] == 16 * (2 * 32 + 1 + 2 * 16) + 8 * (2 * 32 + 1)
+    # phase 17: the training options on the same corpus
+    options = record["training_options"]
+    remat = options["remat_policies"]
+    assert [r["policy"] for r in remat["runs"]] == list(chip_smoke.OPTION_POLICIES)
+    assert not any(remat["max_gap_to_full"].values())
+    assert options["fp8"]["mean_loss_rel_gap_to_bf16"] <= chip_smoke.FP8_LOSS_BOUND
+    assert options["fp8"]["moe"]["losses"][1] < options["fp8"]["moe"]["losses"][0]
+    assert options["offload_and_health"]["bit_identical_to_pretrain"]
+    assert options["offload_and_health"]["health_steps"] == [1, 2, 3]
+    parity = options["optimizers"]["parity"]["by_name"]
+    assert len(parity) == 23 and "raises" in parity["TorchLBFGS"] and "raises" in parity["TorchRprop"]
+    assert all(r["max_rel_err"] == 0 for r in parity.values() if "raises" not in r)  # both sides on the CPU
+    assert not any(options_launches.values())
     # phase 13: two sampled runs of the 32 prompts, then 16 greedy prompts three ways
     assert generation["paged_sampled"]["requests"] == generation["dense_sampled"]["requests"] == chip_smoke.GENERATION_PROMPTS
     assert max(generation["prompt_tokens"]) == 256 and generation["dense_sampled"]["pool_max_len"] == 256 + 8

@@ -239,16 +239,18 @@ def test_nonfinite_step_leaves_params_and_state_untouched():
 
 
 def test_unported_options_raise_naming_the_roadmap():
+    """The training options (offload, health, remat policies, fp8) now build;
+    an option still unported (loading a model by name) raises naming its ROADMAP item."""
     opt = TorchAdamW([torch.zeros(2, requires_grad=True)], lambda step: 1e-3)
-    for kwargs in (dict(offload_optimizer=True), dict(collect_health=True), dict(fp8=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_train_step(lambda micro: None, opt, **kwargs)
+    for kwargs in (dict(offload_optimizer=True), dict(collect_health=True)):
+        make_train_step(lambda micro: None, opt, **kwargs)
+    wrapper = _port_wrapper(_jax_wrapper()[1], checkpoint_every=1).__class__(
+        CONFIG, gradient_checkpointing_args={"checkpoint_every": 1, "policy": "save_dots"}, device="cpu"
+    )
+    assert wrapper.model.transformer.remat_policy.name == "save_dots"
+    assert ModelWrapperForPretraining(CONFIG, dtype="fp8", device="cpu").fp8 is not None
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _port_wrapper(_jax_wrapper()[1], checkpoint_every=1).__class__(
-            CONFIG, gradient_checkpointing_args={"checkpoint_every": 1, "policy": "save_dots"}, device="cpu"
-        )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ModelWrapperForPretraining(CONFIG, dtype="fp8", device="cpu")
+        ModelWrapperForPretraining(CONFIG, model_name="ibm-granite/granite-3b-code-base", device="cpu")
 
 
 @pytest.mark.parametrize("every", [0, 1, 2])
