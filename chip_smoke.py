@@ -195,6 +195,7 @@ TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4096, 2, 5
 TRAIN_OPTIMIZER = dict(betas=(0.9, 0.95), eps=1e-10, weight_decay=0.1, mu_dtype="bf16")
 TRAIN_LR = 3e-4
 TRAIN_REMAT = {"checkpoint_every": 1, "policy": "full"}
+TRAIN_PEAK_GB = 70  # a training run's device peak: one 80 GB card with headroom
 
 # the MoE model of configs/pretraining-examples/pretrain-moe-ep.yml (model_args) at full
 # width; token ids 0 as in the dense phases (the yml's tokenizer is not part of it)
@@ -2400,7 +2401,7 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         assert forms == expected_forms, (forms, expected_forms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     if on_card:
-        assert peak_gb < 70, f"peak device memory {peak_gb:.1f} GB"
+        assert peak_gb < TRAIN_PEAK_GB, f"peak device memory {peak_gb:.1f} GB"
     step_s = sum(times[1:]) / len(times[1:])  # the first step is the warm-up
     tflops = get_model_tflops(config, TRAIN_ACCUM * micro_batch, seq, None, TRAIN_REMAT)
     training = {
@@ -2737,6 +2738,8 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         launches = {k.name: k.launches for k in KERNELS}
         forms = form_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        if on_card:
+            assert peak_gb < TRAIN_PEAK_GB, f"peak device memory {peak_gb:.1f} GB"
 
         steps = summary["steps"]
         losses = [s["loss"] for s in steps]
@@ -2824,8 +2827,8 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
 # on phase 12's corpus. (a) runs phase 6's repeated batch at 32 layers, 2 steps under each
 # policy (remat of every block; every kernel on the path is deterministic, no atomics, so
 # each policy must give `full`'s bits); (b) `pretrain.main` in fp8 for phase
-# 12's 8 steps, the `_scaled_mm` products at the dense projections' shapes, and the MoE
-# step of phase 8 in fp8 for 2 steps; (c) `pretrain.main` with cpu_offload and health
+# 12's 8 steps, the `_scaled_mm` products at the dense projections' shapes, the card's fp8
+# step against the CPU's at a quarter width, and the MoE step of phase 8 in fp8 for 2 steps; (c) `pretrain.main` with cpu_offload and health
 # every step for phase 12's first 3 steps; (d) `pretrain.main` with LAMB for 3 steps, then
 # every registered optimizer on a 2-layer granite-width model on the card and the CPU
 OPTION_POLICIES = ("full", "save_attention_out", "save_dots", "offload_dots", "everything_saveable")
@@ -2835,6 +2838,20 @@ FP8_LOSS_BOUND = 0.02  # |mean fp8 loss - mean bf16 loss| / mean bf16 loss over 
 # rounding, |kernel - plain| <= K * 2^-24 * (|a| @ |b|) * scales elementwise (the sum's error
 # bound), against the product of the values cast up to fp32 (TF32 off)
 FP8_PRODUCT_SHAPES = ((4096, 2560, 7680), (4096, 10240, 2560))
+# the card's fp8 train step against the port's CPU fp8 step (`fp8_step_check`): granite at a
+# quarter of its width (its head width of 80, its vocabulary) and 2 layers, so that the CPU's
+# run takes seconds; 3 steps of accumulation 2 x [1, 512] under the YAML's remat, from the
+# same weights and batches. The two differ in the kernels' op order and in the dequantizing
+# product's rounding (`_scaled_mm` scales in fp32 before its one rounding; the CPU form
+# rounds to bf16, then scales in bf16). Losses within 1e-3 relative. The grad norms and the
+# fp8 state (amaxes, and scales that are their quotients) within FP8_STEP_FLOOR_FACTOR times
+# the gap that the rounding form alone makes on the CPU (the CPU run again with `_scaled_mm`'s
+# form, in the same check; at least 1e-3): the kernels' op order is a second source of like
+# size, and the floor is one sample
+FP8_STEP_MODEL = dict(n_layer=2, n_embd=640, n_head=8, n_inner=2560)
+FP8_STEP_SEQ, FP8_STEP_STEPS = 512, 3
+FP8_STEP_REMAT = {"checkpoint_every": 2, "policy": "save_dots"}
+FP8_STEP_LOSS_RTOL, FP8_STEP_FLOOR_FACTOR, FP8_STEP_FLOOR_MIN = 1e-3, 3.0, 1e-3
 HEALTH_RTOL = 1e-5  # the step's update ratio against one from the saved parameters (fp32 sums reordered)
 OPTIMIZER_RTOL, OPTIMIZER_ATOL = 1e-5, 1e-8  # card against CPU after 3 updates (fp32 rounding)
 
@@ -2971,6 +2988,9 @@ def remat_policies_check(seed, device="cuda", rehearsal=None):
         check["peaks_gb"] = peaks
         assert peaks["full"] <= peaks["save_attention_out"] <= peaks["save_dots"], peaks
         assert peaks["offload_dots"] < peaks["save_dots"], peaks
+        # everything_saveable keeps every activation of the 32 blocks (the estimate's
+        # 44.4 GB): it may pass the headroom, the others may not
+        assert all(peak < TRAIN_PEAK_GB for policy, peak in peaks.items() if policy != "everything_saveable"), peaks
         assert by_policy["offload_dots"]["pinned_host_peak_gb"] > 0
     return check, launches_total, forms_total
 
@@ -3037,6 +3057,129 @@ def fp8_product_cases(seed):
     return cases
 
 
+def _fp8_steps(seed, config_kwargs, seq, device, lr, weights=None):
+    """`FP8_STEP_STEPS` fp8 train steps (accumulation 2, the YAML's remat, AdamW at `lr`
+    without warm-up) on `device` from `weights` (a CPU state dict; the seeded init when
+    None) over seeded batches: (losses, grad norms, the fp8 state after each step and the
+    initial weights, both on the CPU, seconds)."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
+    from dolomite_engine_tpu_torch.optimization import get_optimizer, get_scheduler
+    from dolomite_engine_tpu_torch.train_utils import TrainState, make_train_step
+
+    wrapper = ModelWrapperForPretraining(
+        config_kwargs, dtype="fp8", param_dtype="fp32", attention_implementation="flash_attention_2",
+        gradient_checkpointing_args=FP8_STEP_REMAT, reset_attention_mask=True, reset_position_ids=True,
+        device=device, seed=seed,
+    )
+    model, config = wrapper.model, wrapper.config
+    if weights is None:
+        weights = {name: value.detach().cpu().clone() for name, value in model.state_dict().items()}
+    else:
+        model.load_state_dict(weights)
+    schedule = get_scheduler(0, 0, None, 10, "cosine", 0.1, base_lr=lr)
+    optimizer = get_optimizer("TorchAdamW", TRAIN_OPTIMIZER, schedule, model.named_parameters())
+    state = TrainState(model, optimizer, fp8=wrapper.fp8)
+    step = make_train_step(
+        lambda micro: wrapper.loss(micro["text"]), optimizer, gradient_accumulation_steps=TRAIN_ACCUM, gradient_clipping=1.0,
+    )
+    text = _packed_text(np.random.RandomState(seed + 3), FP8_STEP_STEPS * TRAIN_ACCUM, seq, config.vocab_size, config.eos_token_id)
+    batches = torch.as_tensor(text, device=model.device).reshape(FP8_STEP_STEPS, TRAIN_ACCUM, 1, seq + 1)
+    metrics, states, seconds = [], [], 0.0
+    for t in range(FP8_STEP_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(step(state, {"text": batches[t]}))
+        seconds += time.perf_counter() - t0
+        states.append({name: value.to("cpu", copy=True) for name, value in wrapper.fp8.tensors.items()})
+    return [m["loss"] for m in metrics], [m["grad_norm"] for m in metrics], states, weights, seconds
+
+
+def _fp8_state_errors(got, want):
+    """The largest relative error of each kind of fp8 state tensor (flax's variable name):
+    0 where both are 0, inf where only the reference is."""
+    errors = {}
+    for name, reference in want.items():
+        kind = name.rsplit(".", 1)[-1]
+        err = ((got[name] - reference).abs() / reference.abs()).nan_to_num(nan=0.0, posinf=float("inf")).max().item()
+        errors[kind] = max(errors.get(kind, 0.0), err)
+    return errors
+
+
+def _scaled_mm_rounding(a, b, a_scale, b_scale, out_dtype):
+    """`torch._scaled_mm`'s rounding on the CPU: the fp32 product scaled in fp32, then one
+    rounding to `out_dtype` (the port's CPU form rounds first and scales in `out_dtype`)."""
+    return ((a.float() @ b.float()) * (a_scale * b_scale)).to(out_dtype)
+
+
+def fp8_step_check(seed, device="cuda", rehearsal=None):
+    """(b): the card's fp8 train step (`_scaled_mm` products, the kernels) against the
+    port's CPU fp8 step (the products over the fp8 values cast up to fp32, the kernels'
+    plain versions) from the same weights and batches (`FP8_STEP_MODEL`). With a learning
+    rate of 0 the weights stay the ones both sides share, so each step compares one
+    forward, backward and state update of the fp8 path alone: the losses within
+    `FP8_STEP_LOSS_RTOL`; the grad norms and each kind of fp8 state tensor (the largest
+    error over the steps) within `FP8_STEP_FLOOR_FACTOR` times the floor, the gap between
+    the CPU run and the CPU run again in `_scaled_mm`'s rounding. Step 1 quantizes with the
+    fresh state's scales of 1, steps 2 and 3 with those the earlier micro-batches left.
+    Then at `TRAIN_LR`, where each side's updates feed its later steps: the losses within
+    the same bound, the rest reported."""
+    import numpy as np
+
+    from dolomite_engine_tpu_torch.ops import fp8
+
+    config_kwargs, seq = dict(TRAIN_CONFIG, **FP8_STEP_MODEL), FP8_STEP_SEQ
+    if rehearsal is not None:
+        config_kwargs, seq = dict(config_kwargs, **rehearsal["model"]), rehearsal["sequence_length"]
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    def gaps(got, want):
+        """{quantity: the largest relative error over the steps}."""
+        out = {"grad_norm": max(rel(got[1], want[1]))}
+        for g, w in zip(got[2], want[2]):
+            for kind, err in _fp8_state_errors(g, w).items():
+                out[kind] = max(out.get(kind, 0.0), err)
+        return out
+
+    record = {
+        "model": {"n_layer": config_kwargs["n_layer"], "n_embd": config_kwargs["n_embd"], "remat": FP8_STEP_REMAT},
+        "seq": seq, "accumulation": TRAIN_ACCUM, "steps": FP8_STEP_STEPS,
+    }
+    for name, lr in (("lr_0", 0.0), ("lr", TRAIN_LR)):
+        _free(device)
+        card = _fp8_steps(seed, config_kwargs, seq, device, lr)
+        _free(device)
+        weights = card[3]
+        cpu = _fp8_steps(seed, config_kwargs, seq, "cpu", lr, weights)
+        run = record[name] = {
+            "lr": lr, "card_losses": card[0], "cpu_losses": cpu[0], "card_grad_norms": card[1], "cpu_grad_norms": cpu[1],
+            "loss_rel_err": rel(card[0], cpu[0]), "max_rel_err": gaps(card, cpu), "card_s": card[4], "cpu_s": cpu[4],
+        }
+        assert all(np.isfinite(card[0] + card[1])), record
+        assert max(run["loss_rel_err"]) <= FP8_STEP_LOSS_RTOL, record
+        if lr == 0.0:
+            plain = fp8.fp8_product_plain
+            fp8.fp8_product_plain = _scaled_mm_rounding
+            try:
+                floor_run = _fp8_steps(seed, config_kwargs, seq, "cpu", lr, weights)
+            finally:
+                fp8.fp8_product_plain = plain
+            floor = gaps(floor_run, cpu)
+            run["floor_max_rel_err"] = floor
+            run["bounds"] = {k: FP8_STEP_FLOOR_FACTOR * max(v, FP8_STEP_FLOOR_MIN) for k, v in floor.items()}
+        del weights, card, cpu
+    fixed = record["lr_0"]
+    record["tolerance"] = (
+        f"losses {FP8_STEP_LOSS_RTOL} relative; at lr 0 the grad norms and each kind of fp8 state within "
+        f"{FP8_STEP_FLOOR_FACTOR} x max(the CPU's rounding-form gap, {FP8_STEP_FLOOR_MIN})"
+    )
+    assert all(fixed["max_rel_err"][k] <= bound for k, bound in fixed["bounds"].items()), record
+    return record
+
+
 def _scales_summary(fp8_state):
     """min / median / max of the fp8 state's scales, by kind."""
     import torch
@@ -3055,7 +3198,8 @@ def _scales_summary(fp8_state):
 def fp8_check(seed, corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
     """(b): `pretrain.main` with ``mixed_precision_args.dtype: fp8`` over phase 12's args
     and steps (the YAML's remat), against phase 12's bf16 run; then the fp8 products on the
-    card and the MoE step of phase 8 in fp8 at 8 layers for 2 steps."""
+    card, the card's fp8 step against the CPU's (`fp8_step_check`) and the MoE step of
+    phase 8 in fp8 at 8 layers for 2 steps."""
     import shutil
 
     import numpy as np
@@ -3091,11 +3235,15 @@ def fp8_check(seed, corpus, tokenizer, work, pretrain_record, device="cuda", reh
     gap = abs(np.mean(losses) - np.mean(bf16)) / np.mean(bf16)
     mean_step = sum(s["step_seconds"] for s in steps[1:]) / (len(steps) - 1)
     tflops = pretrain_record["model_tflops_per_step"]
+    grad_norms = [s["grad_norm"] for s in steps]
     record = {
         "steps": len(steps), "losses": losses, "bf16_losses": bf16, "mean_loss_rel_gap_to_bf16": float(gap),
-        "bound": FP8_LOSS_BOUND, "grad_norms": [s["grad_norm"] for s in steps],
-        # reported, not asserted: 8 steps from a random init at the YAML's lr after 2 warm-up
-        # steps spike in bf16 too (phase 12), so the last step's batch decides this
+        "bound": FP8_LOSS_BOUND, "grad_norms": grad_norms,
+        # step 1's lr is 0, so steps 1 and 2 see phase 12's weights and batches: step 1's
+        # gradient is quantized with the fresh state's scales of 1, step 2's with scales
+        # from step 1's amaxes
+        "grad_norm_ratio_to_bf16_steps_1_2": [g / b for g, b in zip(grad_norms[:2], pretrain_record["grad_norms"][:2])],
+        # reported, not asserted (an unmet criterion: PERF.md §5, tools/fp8_early_steps_torch.py)
         "last_loss_below_first": losses[-1] < losses[0], "bf16_last_loss_below_first": bf16[-1] < bf16[0],
         "mean_step_s_after_warmup": mean_step, "bf16_mean_step_s_after_warmup": pretrain_record["mean_step_s_after_warmup"],
         "mfu_of_bf16_peak": tflops / mean_step / (PEAK_FLOPS["bfloat16"] / 1e12), "bf16_mfu": pretrain_record["mfu"],
@@ -3104,7 +3252,9 @@ def fp8_check(seed, corpus, tokenizer, work, pretrain_record, device="cuda", reh
     }
     assert gap <= FP8_LOSS_BOUND, record
     if on_card:
+        assert peak < TRAIN_PEAK_GB, record
         record["products"] = fp8_product_cases(seed)
+    record["step_check"] = fp8_step_check(seed, device, rehearsal)
     moe_config = dict(MOE_EP, n_layer=MOE_TRAIN_LAYERS)
     moe_seq, moe_micro = MOE_TRAIN_SEQ, MOE_TRAIN_MICRO
     if rehearsal is not None:
@@ -3230,6 +3380,7 @@ def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda"
     assert worst <= HEALTH_RTOL, ratios
     if on_card:
         assert pinned and peak < pretrain_record["peak_memory_gb"], record
+        assert peak < TRAIN_PEAK_GB, record
     return record, launches, forms
 
 
@@ -3241,12 +3392,13 @@ def _optimizer_shapes(config_kwargs):
     return [(name, tuple(p.shape)) for name, p in model.named_parameters()]
 
 
-def optimizers_check(corpus, tokenizer, work, parity, device="cuda", rehearsal=None):
+def optimizers_check(corpus, tokenizer, work, parity, pretrain_record, device="cuda", rehearsal=None):
     """(d): `pretrain.main` with ``class_name: ApexFusedLAMB`` for 3 steps (finite losses);
     then `parity()`: every registered name over a 2-layer granite-width model's parameters
     for 3 updates from seeded gradients on the card, against the same class on the CPU
     (once a class: the names that build the same class with the same arguments share it);
     ``TorchLBFGS`` and ``TorchRprop`` (optax's rprop takes no schedule) raise on both."""
+    import math
     import shutil
 
     import numpy as np
@@ -3267,10 +3419,14 @@ def optimizers_check(corpus, tokenizer, work, parity, device="cuda", rehearsal=N
     _free(device)
     losses = [s["loss"] for s in summary["steps"]]
     assert all(np.isfinite(losses)), losses
+    # LAMB keeps its first moment in fp32 (optax's lamb takes no mu_dtype), AdamW in the
+    # YAML's bf16: 2 bytes more a parameter than phase 12 holds
+    params = sum(math.prod(shape) for _, shape in _optimizer_shapes(args.model_args.pretrained_config))
 
     record = {
         "lamb": {"steps": len(losses), "losses": losses, "grad_norms": [s["grad_norm"] for s in summary["steps"]],
-                 "step_s": [s["step_seconds"] for s in summary["steps"]], "peak_memory_gb": peak},
+                 "step_s": [s["step_seconds"] for s in summary["steps"]], "peak_memory_gb": peak,
+                 "adamw_peak_memory_gb": pretrain_record["peak_memory_gb"], "fp32_first_moment_extra_gb": 2 * params / 1e9},
         "parity": parity(),
         "launches": launches,
     }
@@ -3331,8 +3487,9 @@ def optimizer_cpu_references(inputs):
     same arguments share one): {key: (parameters, seconds)}."""
     import torch
 
-    # this runs on a thread beside the card's phases: half the cores (the count is the thread's own)
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    # this runs on a thread beside the card's phases: half the cores at most (the count is the
+    # thread's own; a caller that holds torch to fewer threads, as the CPU tests do, keeps them)
+    torch.set_num_threads(max(1, min(torch.get_num_threads(), (os.cpu_count() or 2) // 2)))
     references = {}
     for name in _parity_names():
         key = _parity_key(name)
@@ -3429,7 +3586,7 @@ def training_options_phase(seed, corpus, tokenizer, work, pretrain_record, devic
         ("optimizers", lambda: optimizers_check(
             corpus, tokenizer, work,
             lambda: dict(optimizer_parity(inputs, references.result(), device), cpu_runs_seconds=references.seconds),
-            device, rehearsal,
+            pretrain_record, device, rehearsal,
         )),
     )
     for name, part in parts:

@@ -149,12 +149,14 @@ class Optimizer:
     # ------------------------------------------------------------------ host offload
 
     @torch.no_grad()
-    def offload_state(self, pin_memory: bool = True) -> None:
-        """Keep the state on the host (pinned for a card's copies) from now on. Each update
-        then copies a group's state to the parameters' device and back; the arithmetic is
-        unchanged, so the parameters are bit-identical to those of an unoffloaded run."""
+    def offload_state(self) -> None:
+        """Keep the state on the host from now on, pinned when the parameters are on a card.
+        Each update then copies a group's state to the parameters' device and back; the
+        arithmetic is unchanged, so the parameters are bit-identical to those of an
+        unoffloaded run."""
         if self.offloaded:
             return
+        pin_memory = self.params[0].device.type == "cuda"
         for name in self.state_names:
             self.state[name] = [
                 torch.empty(t.shape, dtype=t.dtype, pin_memory=pin_memory).copy_(t) for t in self.state[name]

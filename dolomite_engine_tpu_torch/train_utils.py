@@ -116,8 +116,8 @@ def make_train_step(
     still advances.
 
     `offload_optimizer` (``cpu_offload``): the optimizer state lives in pinned host memory
-    and streams to the card for the update (`Optimizer.offload_state`); on a CPU model
-    it changes nothing (`resolve_cpu_offload` warns). `collect_health` (``health.interval > 0``):
+    and streams to the card for the update (`Optimizer.offload_state`); `resolve_cpu_offload`
+    turns the option off, with a warning, for a CPU model. `collect_health` (``health.interval > 0``):
     ``metrics["health"]`` holds `per_group_health`'s statistics, still on the device.
 
     With ``state.fp8`` (an fp8 run) the delayed-scaling state threads through the
@@ -127,7 +127,7 @@ def make_train_step(
     with."""
     n = gradient_accumulation_steps
     params = optimizer.params
-    if offload_optimizer and params[0].device.type == "cuda":
+    if offload_optimizer:
         optimizer.offload_state()
     groups = health_groups(optimizer.param_names, len(params)) if collect_health else None
 

@@ -5,13 +5,14 @@ Every training (and unsharding) YAML under `configs/` loads to the same dict thr
 is refused as pydantic's ``extra="forbid"`` refuses it; each option the port does not run
 raises `NotImplementedError` naming its ROADMAP item (a pinned kernel family a
 `ValueError`), and the options it does run pass (the training options, remat policies,
-offload, health and fp8, also run `pretrain.main`).
+offload, health and fp8, also run `pretrain.main`, on the dense and the MoE family).
 """
 
 import copy
 from pathlib import Path
 
 import pytest
+import torch
 from pydantic import ValidationError
 
 from dolomite_engine_tpu.arguments import args_from_dict as jax_args_from_dict
@@ -23,6 +24,16 @@ from dolomite_engine_tpu_torch.utils import load_yaml
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(p for p in (REPO / "configs").rglob("*.yml") if "generat" not in p.name)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: under the suite's parallel workers torch's spinning thread pool,
+    oversubscribed, slows these small steps and the workers running beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: str(p.relative_to(REPO / "configs")))
@@ -125,6 +136,29 @@ TRAINING_OPTIONS = [
 def test_training_option_parses_and_runs(tmp_path, path, value):
     """Each option parses, passes `check_ported_options` and runs 2 steps of
     `pretrain.main` on the CPU over a tiny megatron corpus."""
+    _run_two_steps(tmp_path, _with(path, value))
+
+
+MOE = dict(model_type="moe_dolomite", vocab_size=64, n_embd=32, n_layer=1, n_head=4, num_experts=4, num_experts_per_tok=2)
+# the MoE family under each option, a raw remat policy and an optimizer outside the AdamW family
+MOE_OPTIONS = TRAINING_OPTIONS + [
+    (
+        "distributed_args",
+        dict(stage=0, gradient_checkpointing_method="block",
+             gradient_checkpointing_args=dict(checkpoint_policy="dots_with_no_batch_dims_saveable")),
+    ),
+    ("optimizer_args", dict(class_name="ApexFusedLAMB")),
+]
+
+
+@pytest.mark.parametrize("path, value", MOE_OPTIONS, ids=[f"{p}={v}" for p, v in MOE_OPTIONS])
+def test_training_option_runs_on_moe(tmp_path, path, value):
+    config = _with(path, value)
+    config["model_args"]["pretrained_config"] = dict(MOE)
+    _run_two_steps(tmp_path, config)
+
+
+def _run_two_steps(tmp_path, config):
     import numpy as np
 
     from dolomite_engine_tpu_torch import pretrain
@@ -137,7 +171,6 @@ def test_training_option_parses_and_runs(tmp_path, path, value):
         builder.add_item(rng.randint(3, 64, size=rng.randint(10, 40)))
         builder.end_document()
     builder.finalize(prefix + ".idx")
-    config = _with(path, value)
     config["datasets"][0]["class_args"].update(
         data_path=[prefix], data_cache_path=str(tmp_path / "cache"), split="90,5,5", eval_steps=1
     )

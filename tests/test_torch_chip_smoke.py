@@ -5,7 +5,7 @@ telemetry windows, the checkpoint and the 2-layer resume check, bit-identical), 
 optimizers), the `generate` phase inside it (`generate.main` over `configs/generation.yml` from that
 checkpoint with both engines, the greedy runs three ways, the logits check), the
 `speculative_generation` and `preemption` phases after it, and the `alibi_generation`
-phase run at tiny widths through the kernels' plain versions."""
+phase run at tiny widths (and 2 layers) through the kernels' plain versions."""
 
 import subprocess
 import sys
@@ -49,6 +49,10 @@ def test_pretrain_phase_rehearsal(monkeypatch):
         "model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512), "sequence_length": 128, "new_tokens": 8,
         "longest_prompt": 256, "preempt_pages": 96,
     }
+    # every run of the YAML at 2 of its 32 layers, the resume check's count: each phase's
+    # control flow in a fifth of the time
+    build = chip_smoke.pretrain_args
+    monkeypatch.setattr(chip_smoke, "pretrain_args", lambda *args, n_layer=None, **kwargs: build(*args, n_layer=n_layer or 2, **kwargs))
     record, launches, options_launches, (generation, generate_launches), speculated, preempted = chip_smoke.pretrain_phase(
         0, device="cpu", rehearsal=rehearsal
     )
@@ -58,10 +62,10 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     assert record["resume_check"]["bit_identical"] and record["resume_check"]["batches_identical"]
     assert not any(launches.values())  # the plain versions ran
     assert record["expected_launches"]["fused_ce"] == 24  # 16 micro-batches + 8 eval batches, one chunk each
-    # the YAML's remat (all 32 layers at the rehearsal's width): blocks 0, 2, ... rerun
-    # under save_dots, their kernels with them
-    assert record["remat"]["policy"] == "save_dots" and record["remat"]["rematted_blocks"] == 16
-    assert record["expected_launches"]["rmsnorm"] == 16 * (2 * 32 + 1 + 2 * 16) + 8 * (2 * 32 + 1)
+    # the YAML's remat (every 2nd block; of 2 layers, block 0) reruns under save_dots, its
+    # kernels with it
+    assert record["remat"]["policy"] == "save_dots" and record["remat"]["rematted_blocks"] == 1
+    assert record["expected_launches"]["rmsnorm"] == 16 * (2 * 2 + 1 + 2 * 1) + 8 * (2 * 2 + 1)
     # phase 17: the training options on the same corpus
     options = record["training_options"]
     remat = options["remat_policies"]
@@ -69,6 +73,12 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     assert not any(remat["max_gap_to_full"].values())
     assert options["fp8"]["mean_loss_rel_gap_to_bf16"] <= chip_smoke.FP8_LOSS_BOUND
     assert options["fp8"]["moe"]["losses"][1] < options["fp8"]["moe"]["losses"][0]
+    step_check = options["fp8"]["step_check"]  # the card's fp8 steps against the CPU's: both on the CPU here
+    for run in (step_check["lr_0"], step_check["lr"]):
+        assert len(run["card_losses"]) == chip_smoke.FP8_STEP_STEPS and run["card_losses"] == run["cpu_losses"]
+        assert not any(run["max_rel_err"].values())
+    assert set(step_check["lr_0"]["bounds"]) == set(step_check["lr_0"]["max_rel_err"])
+    assert len(options["fp8"]["grad_norm_ratio_to_bf16_steps_1_2"]) == 2
     assert options["offload_and_health"]["bit_identical_to_pretrain"]
     assert options["offload_and_health"]["health_steps"] == [1, 2, 3]
     parity = options["optimizers"]["parity"]["by_name"]

@@ -57,6 +57,16 @@ MOE = dict(DENSE, model_type="moe_dolomite", num_experts=4, num_experts_per_tok=
 PAIRS = ((jnp.float8_e4m3fn, torch.float8_e4m3fn), (jnp.float8_e5m2, torch.float8_e5m2))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: under the suite's parallel workers torch's spinning thread pool,
+    oversubscribed, slows these small steps and the workers running beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(x) -> np.ndarray:
     return np.asarray(x).view(np.uint8 if np.asarray(x).dtype.itemsize == 1 else np.uint32)
 
@@ -270,12 +280,7 @@ def test_loss_delta_artifact_port_tracks_jax_fp8():
                         wrapper.model.named_parameters())
     state = TrainState(wrapper.model, opt, fp8=wrapper.fp8)
     step = make_train_step(lambda micro: wrapper.loss(micro["text"]), opt, gradient_clipping=1.0)
-    torch_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        losses = np.array([step(state, {"text": torch.from_numpy(batches[t][None]).long()})["loss"] for t in range(steps)])
-    finally:
-        torch.set_num_threads(torch_threads)
+    losses = np.array([step(state, {"text": torch.from_numpy(batches[t][None]).long()})["loss"] for t in range(steps)])
     jax_fp8, jax_bf16 = np.array(artifact["fp8_losses"]), np.array(artifact["bf16_losses"])
     port_gap = float(np.mean(np.abs(losses - jax_fp8)))
     bf16_gap = float(np.mean(np.abs(jax_bf16 - jax_fp8)))

@@ -23,6 +23,17 @@ from dolomite_engine_tpu_torch.optimization import get_optimizer
 from dolomite_engine_tpu_torch.train_utils import TrainState, make_train_step
 from dolomite_engine_tpu_torch.utils.diagnostics import per_group_health
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: under the suite's parallel workers torch's spinning thread pool,
+    oversubscribed, slows these small steps and the workers running beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NAMES = ["lm_head.weight", "transformer.h.0.attn.c_attn.weight", "transformer.ln_f.weight", "transformer.wte.weight"]
 SHAPES = [(10, 6), (9, 6), (6,), (10, 6)]
 

@@ -24,7 +24,8 @@ def _port_sources():
 
 
 def _port_files():
-    return _port_sources() + [REPO / "chip_smoke.py"]
+    # with the port's harnesses for the card
+    return _port_sources() + [REPO / "chip_smoke.py", REPO / "scripts" / "paged_kernel_ab.py", REPO / "tools" / "fp8_early_steps_torch.py"]
 
 
 def _port_modules():

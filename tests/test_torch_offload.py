@@ -4,7 +4,7 @@
   the TPU: `pretrain.main`'s losses, grad norms and final parameters equal a run without
   it bit for bit.
 - The offload path itself (`Optimizer.offload_state`), driven with its device side on the
-  CPU and the host state unpinned, over several parameter groups so that the next group's
+  CPU (the host state then unpinned), over several parameter groups so that the next group's
   copy is queued before this group's update: parameters and state bit-identical to an
   unoffloaded optimizer's over 4 updates, and the offloaded state survives a checkpoint
   round trip (`torch.distributed.checkpoint`, as `save_checkpoint` writes it).
@@ -21,6 +21,16 @@ from dolomite_engine_tpu_torch import pretrain
 from dolomite_engine_tpu_torch.optimization import get_optimizer, optimizer as optimizer_module
 from dolomite_engine_tpu_torch.train_utils import TrainState
 from tests.test_torch_pretrain import _curve, _training_args, _write_corpus
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: under the suite's parallel workers torch's spinning thread pool,
+    oversubscribed, slows these small steps and the workers running beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_cpu_model_warns_and_ignores_the_option(tmp_path, monkeypatch):
@@ -57,7 +67,7 @@ def test_offloaded_updates_are_bit_identical(tmp_path, monkeypatch, name, args):
         opt = get_optimizer(name, dict(args, lr=1e-2), lambda step: 1e-2 * (step + 1), list(params.items()))
         assert len(opt._groups) >= 3
         if offload:
-            opt.offload_state(pin_memory=False)
+            opt.offload_state()
             assert all(t.device.type == "cpu" for t in opt.state_tensors())
         rs = np.random.RandomState(1)
         for _ in range(4):
@@ -77,7 +87,7 @@ def test_offloaded_updates_are_bit_identical(tmp_path, monkeypatch, name, args):
     state = TrainState(model, opt)
     dcp.save(state.state_dict(), checkpoint_id=str(tmp_path / "state"), no_dist=True)
     fresh = get_optimizer(name, dict(args, lr=1e-2), lambda step: 1e-2, list(model.named_parameters()))
-    fresh.offload_state(pin_memory=False)
+    fresh.offload_state()
     restored = TrainState(model, fresh)
     tree = restored.state_dict()
     dcp.load(tree, checkpoint_id=str(tmp_path / "state"), no_dist=True)

@@ -29,6 +29,17 @@ from dolomite_engine_tpu.optimization.optimizer import _OPTIMIZER_FACTORIES
 from dolomite_engine_tpu_torch.optimization import get_optimizer, get_scheduler
 from dolomite_engine_tpu_torch.optimization.optimizer import OPTIMIZER_CLASSES, Rprop
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: under the suite's parallel workers torch's spinning thread pool,
+    oversubscribed, slows these small steps and the workers running beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # a params tree shaped like a model's: µP puts attn / mlp non-bias weights in its group
 SHAPES = {
     "transformer.wte.weight": (11, 6),

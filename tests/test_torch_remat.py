@@ -6,6 +6,10 @@
   model: the loss and every gradient equal the JAX model's under the same policy (loss
   2e-6 relative, gradients 1e-6 absolute + 1e-4 relative: fp32 reassociated), and the
   port's own run without remat bit for bit.
+- The JAX side runs once per distinct JAX policy function: the names that resolve to the
+  same one (``save_dots``, ``dots_saveable``, ``checkpoint_dots`` and, off a TPU,
+  ``offload_dots`` all resolve to `dots_saveable`; ``checkpoint_dots_with_no_batch_dims``
+  to `dots_with_no_batch_dims_saveable`) share its run, which JAX computes identically.
 - What each policy reruns, counted by a dispatch mode over the backward: `full` reruns
   the products of the checkpointed blocks, `save_dots` none, `everything_saveable`
   nothing.
@@ -24,6 +28,7 @@ from dolomite_engine_tpu.enums import AttentionImplementation as JaxImpl
 from dolomite_engine_tpu.enums import Mode
 from dolomite_engine_tpu.model_wrapper.pretraining import ModelWrapperForPretraining as JaxWrapper
 from dolomite_engine_tpu.models.config import CommonConfig as JaxConfig
+from dolomite_engine_tpu.models.gpt_dolomite import resolve_remat_policy as jax_resolve_remat_policy
 from dolomite_engine_tpu.train_utils import estimate_remat_activation_bytes as jax_estimate
 from dolomite_engine_tpu.train_utils import get_model_tflops as jax_get_model_tflops
 from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
@@ -40,6 +45,16 @@ DENSE = dict(
 )
 MOE = dict(DENSE, model_type="moe_dolomite", num_experts=4, num_experts_per_tok=2, router_aux_loss_coef=0.01)
 POLICIES = [("policy", name) for name in REMAT_POLICY_NAMES] + [("checkpoint_policy", name) for name in RAW_REMAT_POLICIES]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: under the suite's parallel workers torch's spinning thread pool,
+    oversubscribed, slows these small steps and the workers running beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _text(seed=0, batch=2):
@@ -63,7 +78,7 @@ def family(request):
     loss = port.loss(text)
     loss.backward()
     reference = (loss.detach(), {n: p.grad.clone() for n, p in port.model.named_parameters()})
-    return config, params, reference
+    return config, params, reference, {}
 
 
 def _port(config, params, gc_args):
@@ -100,15 +115,20 @@ class _CountProducts(TorchDispatchMode):
 
 @pytest.mark.parametrize("key, policy", POLICIES, ids=[p for _, p in POLICIES])
 def test_policy_matches_jax_and_no_remat(family, key, policy):
-    config, params, (ref_loss, ref_grads) = family
+    config, params, (ref_loss, ref_grads), jax_runs = family
     gc_args = {"checkpoint_every": 1, key: policy}
-    jax_wrapper = JaxWrapper(
-        mode=Mode.training, pretrained_config=config, dtype="fp32", sequence_length=SEQ,
-        reset_attention_mask=True, reset_position_ids=True, zero_stage=0,
-        attention_implementation=JaxImpl.flash_attention_2, gradient_checkpointing_args=gc_args,
-    )
     text = _text()
-    want_loss, want_grads = jax.value_and_grad(lambda p: jax_wrapper.loss(p, jnp.asarray(text), train=True))(params)
+    # the JAX policy function this name resolves to (save_only_these_names builds a new one
+    # each call: keyed by its name)
+    jax_policy = policy if policy == "save_attention_out" else jax_resolve_remat_policy(policy)
+    if jax_policy not in jax_runs:
+        jax_wrapper = JaxWrapper(
+            mode=Mode.training, pretrained_config=config, dtype="fp32", sequence_length=SEQ,
+            reset_attention_mask=True, reset_position_ids=True, zero_stage=0,
+            attention_implementation=JaxImpl.flash_attention_2, gradient_checkpointing_args=gc_args,
+        )
+        jax_runs[jax_policy] = jax.value_and_grad(lambda p: jax_wrapper.loss(p, jnp.asarray(text), train=True))(params)
+    want_loss, want_grads = jax_runs[jax_policy]
     port = _port(config, params, gc_args)
     loss = port.loss(torch.from_numpy(text))
     loss.backward()
