@@ -30,7 +30,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launch counts zeroed before and read after; then one step under `torch.profiler`
    (with the fused loss's backward: its device time in that step, and alone at the
    cell's shape by kernel family, ``loss_backward_alone``);
-7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (24 layers, 32
+7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (8 of its 24 layers, 32
    experts, top-4, bf16, random weights) behind `ServingEngine` with the requests of
    phase 3, its logits check against a plain forward (router + every-expert
    `experts_eager`), the requests once more under `torch.profiler`, and once more
@@ -119,7 +119,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    peak and the state's copy rates); (d) `pretrain.main` with LAMB for 3 steps, then every
    registered optimizer on a 2-layer granite-width model on the card against the CPU
    (the CPU runs on a thread from the phase's start). Launch counts asserted exactly;
-14. ``alibi_generation`` (last): MPT-7B's widths at 16 layers, random weights, 8 greedy
+18. ``finetune`` (inside phase 12, after phase 16, from its 32-layer checkpoint):
+   `finetune.main` on granite-3b-code at 32 layers over a `JSONLinesDataset` of the corpus's
+   words (inputs and outputs of 16-1024 words), a local ``model_name`` directory (phase 12's
+   config and tokenizer), remat of every block: (a) full finetuning on
+   `configs/instruction-tuning/finetune-alpaca.yml` from the checkpoint's weights, padded
+   (4 x 2) and then packed (``use_padding_free_transformer``, 8 x 1), (b) LoRA on
+   `configs/peft/lora.yml` from seed-0 weights (every base tensor bit-identical after the
+   steps, the adapters moved, optimizer state for the adapters alone), (c) prompt tuning (20
+   RANDOM virtual tokens, LoRA's YAML), 3 steps each with eval at the start and the end,
+   launches zeroed before each run and asserted exactly; then the card's step against the
+   CPU's at 640 wide and 2 layers (full finetuning and LoRA) and a LoRA resume at 2 layers
+   (3 steps, a save, a resumed run to 6 equal to 6 unbroken bit for bit);
+14. ``alibi_generation`` (last): MPT-7B's widths at 8 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
    bias form) and the paged engine (the gathered path), launch counts asserted, the
    engines' agreement and one request's logits through each engine's own forwards (the
@@ -140,7 +152,9 @@ alibi over a left-padded batch) and the fused_ce cases (a loss chunk of each tra
 a ragged vocabulary and small edge shapes; cuBLAS's bare product as ``gemm_ms``; two
 launches must give the same bits) and the generation paths' forms (`generation_kernel_cases`:
 flash over right- and left-padded masks and the bias form over a right-padded one, every
-row finite; flat rope at a dense decode step with per-row positions) run in phase 2. Each case reports ``kernel_ms`` (CUDA
+row finite; flat rope at a dense decode step with per-row positions) and the finetuning
+batch's padded flash form (`finetune_kernel_cases`: forward and backward over 8 left-padded
+rows of 1536, pads inside tiles) run in phase 2. Each case reports ``kernel_ms`` (CUDA
 events around back-to-back calls, host enqueue included) and ``device_ms`` (the same
 calls queued behind a sleep kernel, so the card runs them without waiting for the host).
 
@@ -149,7 +163,7 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
-``training_options``, ``generate``, ``speculative_generation``, ``preemption`` and ``alibi_generation`` lines
+``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune`` and ``alibi_generation`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
 times under ``forms``), the card again, and last
@@ -160,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -207,6 +222,9 @@ MOE_EP = dict(
     embd_pdrop=0.0, attn_pdrop=0.0, fused_lm_head_loss=True, bos_token_id=0, eos_token_id=0,
     pad_token_id=0,
 )
+# MoE serving (phases 7 and 9): 8 of the 24 layers, to keep the script inside its time
+# limit once phase 18 runs (the profile's replays cost ~4 s a layer)
+MOE_SERVE_LAYERS = 8
 # MoE training: 8 of the 24 layers (fp32 master weights, gradients and AdamW state of all
 # 24 need ~137 GB), sequence 2048 as in the yml, micro batch 2 x accumulation 2
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 8, 2048, 2
@@ -2647,9 +2665,11 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
     all 32 layers over a seeded corpus (the YAML's remat), the launch counts zeroed just
     before and read just after, then phase 17 on its corpus (`training_options_phase`),
     then from its checkpoint phase 13 (`generate_phase`), phase 15
-    (`speculative_generation_phase`, whose draft model is the resume check's) and phase 16
-    (`preemption_phase`). `rehearsal` (the CPU only) cuts the widths to rehearse the
-    control flow. Returns the record (phase 17's under ``training_options``) and the launch
+    (`speculative_generation_phase`, whose draft model is the resume check's), phase 16
+    (`preemption_phase`) and phase 18 (`finetune_phase`, whose full finetuning starts from
+    the 32-layer checkpoint). `rehearsal` (the CPU only) cuts the widths to rehearse the
+    control flow. Returns the record (phase 17's under ``training_options``, phase 18's,
+    with its launch counts, under ``finetune``) and the launch
     counts, phase 17's launch counts, phase 13's record and launch counts, and phases 15's
     and 16's records, launch counts and forms."""
     import shutil
@@ -2815,7 +2835,12 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         )
         preemption = preemption_phase(save_path, context, config, model, device, rehearsal)
         del model
-        gc.collect()
+        _free(device)
+        t0 = time.perf_counter()
+        record["finetune"] = finetune_phase(
+            seed, corpus, tokenizer, work, save_path, args.model_args.pretrained_config, device, rehearsal
+        )
+        record["finetune"]["seconds"] = time.perf_counter() - t0
 
     return (
         record, launches, options_launches, (generation, generate_launches),
@@ -3604,9 +3629,10 @@ def training_options_phase(seed, corpus, tokenizer, work, pretrain_record, devic
 
 GENERATION_YAML = os.path.join("configs", "generation.yml")
 GENERATION_PROMPTS, GREEDY_PROMPTS, GREEDY_NEW = 32, 16, 64
-# the alibi cell: MPT-7B's widths at 16 of its 32 layers, random weights; 8 greedy requests
-# of 300-1500 prompt tokens and 64 new tokens, every dense prefill bucket a multiple of 128
-ALIBI_GENERATION_LAYERS, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET = 16, 8, 128
+# the alibi cell: MPT-7B's widths at 8 of its 32 layers (the script's time limit), random
+# weights; 8 greedy requests of 300-1500 prompt tokens and 64 new tokens, every dense
+# prefill bucket a multiple of 128
+ALIBI_GENERATION_LAYERS, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET = 8, 8, 128
 
 
 def generation_prompts(directory, corpus, count, seed, longest=1024):
@@ -3843,7 +3869,8 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
     """Phase 13 (inside phase 12, before its checkpoint is removed): the generation entry
     point from the 32-layer pretrain checkpoint (`config`, its model). `generate.main` over
     `configs/generation.yml` (`generation_args`) on 32 prompts, sampled, with the paged
-    engine and then the dense slot pool; then the checkpoint loaded once more
+    engine and then the dense slot pool (from phase 12's 2-layer resume checkpoint when
+    `parent` holds it: a depth cut); then the checkpoint loaded once more
     (`load_checkpoint_for_inference`) for 16 of the prompts, greedy, 64 new tokens, three
     ways: `generate.generate` over the paged engine and over the dense pool, and
     `ModelWrapper.generate` (`generate_tokens`, the batch left-padded to a multiple of 128).
@@ -3890,9 +3917,17 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
         greedy_prompts = prompts[:GREEDY_PROMPTS]
 
         reset_launch_counts()
-        # the entry point as a user runs it: sampled, the YAML's paged engine, then the dense pool
+        # the entry point as a user runs it: sampled, the YAML's paged engine, then the dense
+        # pool. The dense pool's run takes phase 12's 2-layer resume checkpoint where it is at
+        # hand (a depth cut: at 32 layers its 1488 launches a decode step cost ~100 s a run)
+        dense_path = None if parent is None else os.path.join(parent, "unbroken")
         for name, paged in (("paged", True), ("dense", False)):
-            args = generation_args(save_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal)
+            run_path, run_config, run_bytes, iteration = save_path, config, weight_bytes, PRETRAIN_STEPS
+            if not paged and dense_path is not None:
+                run_path, iteration = dense_path, RESUME_STEPS
+                run_config = dataclasses.replace(config, n_layer=RESUME_LAYERS)
+                run_bytes = _model_bytes(os.path.join(dense_path, f"global_step{RESUME_STEPS}", "state"))
+            args = generation_args(run_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal, iteration=iteration)
             summary = generate.main(args, device=device)
             max_new = args.generation_parameters.max_new_tokens
             tokens, lines = _outputs(summary["outputs"][0])
@@ -3900,17 +3935,18 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
             assert all(0 < line["num_generated_tokens"] <= max_new for line in lines), lines
             assert all(0 <= t < vocab for row in tokens for t in row), "a generated word outside the vocabulary"
             buckets = _buckets(record["prompt_tokens"], args.generation_parameters.prompt_bucket_multiple, summary["pool"]["max_len"])
-            launches, forms = _engine_launches(summary["stats"], config, paged, sum(b % 128 == 0 for b in buckets))
+            launches, forms = _engine_launches(summary["stats"], run_config, paged, sum(b % 128 == 0 for b in buckets))
             _add(expected, launches)
             _add(expected_forms, forms)
             load_s, parts = summary["seconds"]["load"], summary["load_seconds"]
             record[f"{name}_sampled"] = {
                 "requests": summary["requests"], "generated_tokens": summary["generated_tokens"], "max_new_tokens": max_new,
-                "seconds": summary["seconds"], "checkpoint_load_s": load_s, "checkpoint_load_gb_per_s": weight_bytes / 1e9 / load_s,
+                "n_layer": run_config.n_layer, "checkpoint_weight_gb": run_bytes / 1e9,
+                "seconds": summary["seconds"], "checkpoint_load_s": load_s, "checkpoint_load_gb_per_s": run_bytes / 1e9 / load_s,
                 # the load's parts: the wrapper on the meta device and its storage on the card,
                 # the fp32 files to host tensors, and those onto the card cast to bf16
-                "load_seconds": parts, "checkpoint_read_gb_per_s": weight_bytes / 1e9 / parts["read"],
-                "checkpoint_cast_gb_per_s": weight_bytes / 1e9 / parts["cast"],
+                "load_seconds": parts, "checkpoint_read_gb_per_s": run_bytes / 1e9 / parts["read"],
+                "checkpoint_cast_gb_per_s": run_bytes / 1e9 / parts["cast"],
                 **_engine_record(summary["stats"], summary["engine_seconds"], summary["pool"]),
             }
 
@@ -4526,6 +4562,451 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
     return record, tally.launches, tally.forms
 
 
+# phase 18: finetuning and PEFT through `finetune.main` (inside phase 12, after phase 16, from
+# its 32-layer checkpoint). Cuts (PERF.md §4): the hub datasets (Alpaca, Dolly) become
+# `JSONLinesDataset`s of the seeded corpus's words (inputs and outputs of 16-1024 words, the
+# YAMLs' max_input_tokens / max_output_tokens); the hub model becomes a local `model_name`
+# directory (phase 12's config and word-level tokenizer); one device at stage 0; remat of every
+# block (`full`: the YAMLs have none, and LoRA's activations alone would take ~59 GB at 8 x 2048);
+# the padded full finetuning run at micro batch 4 x accumulation 2 (beside the YAML's fp32
+# weights, gradients and two fp32 moments, 55.7 GB, 8 x 1 leaves too little for the padded
+# path's fp32 attention scores); 3 steps (of 2000-4000) with 1 of warm-up (of 200); eval at the start and
+# the end; a save at the last step (the optimizer only in the resume check)
+FINETUNE_YAML = os.path.join("configs", "instruction-tuning", "finetune-alpaca.yml")
+LORA_YAML = os.path.join("configs", "peft", "lora.yml")
+FINETUNE_STEPS = 3
+FINETUNE_EXAMPLES = {"train": 48, "val": 8}  # the val split is one batch of 8
+FINETUNE_WORDS = (16, 1024)  # words of each input and of each output
+FINETUNE_REMAT = {"checkpoint_every": 1, "policy": "full"}
+FINETUNE_PADDED_MICRO = (4, 2)  # micro batch x accumulation of the padded full finetuning run
+PROMPT_TUNING = {"prompt_tuning_init": "RANDOM", "num_virtual_tokens": 20}
+# the step check: the card's step against the CPU's at 640 wide (heads of 80), 2 layers, 3 steps
+# of 3 rows left-padded to 256 (pads inside a 64-token tile, so the card takes the flash kernel
+# over the padding mask rewritten to segment ids) from the same weights; bf16 on both sides
+FINETUNE_CHECK_MODEL = dict(n_layer=2, n_embd=640, n_head=8, n_inner=2560)
+FINETUNE_CHECK_ROWS = ((192, 63), (150, 39), (100, 36))  # (input, output) tokens; + EOS: 256, 190, 137
+FINETUNE_CHECK_RTOL = {"loss": 2e-2, "grad_norm": 5e-2}
+# the resume check (LoRA, 2 of the 32 layers, the optimizer saved): 6 steps unbroken against 3, a
+# save and a resumed run to 6; the schedule (1 warm-up, 5 decay) does not depend on the run's length
+FINETUNE_RESUME_STEPS, FINETUNE_RESUME_AT = 6, 3
+
+
+def finetune_data(directory, corpus, seed, eos, examples=None, words=FINETUNE_WORDS):
+    """`train.jsonl` / `val.jsonl` of the corpus's words (``t<id>``, the EOS left out), each
+    example an input and an output of `words` words, consecutive spans of the token stream."""
+    import numpy as np
+
+    stream = np.fromfile(corpus + ".bin", dtype=np.uint16)
+    stream = stream[stream != eos]
+    rs = np.random.RandomState(seed)
+    os.makedirs(directory, exist_ok=True)
+    at = 0
+    for split, count in (examples or FINETUNE_EXAMPLES).items():
+        with open(os.path.join(directory, f"{split}.jsonl"), "w") as f:
+            for _ in range(count):
+                n_in, n_out = rs.randint(words[0], words[1] + 1, 2)
+                text = [" ".join(f"t{i}" for i in stream[at + s : at + s + n]) for s, n in ((0, n_in), (n_in, n_out))]
+                at += n_in + n_out
+                f.write(json.dumps({"input": text[0], "output": text[1]}) + "\n")
+    return directory
+
+
+def finetune_model_dir(directory, model_config, tokenizer):
+    """A local ``model_name`` directory: ``config.json`` and the word-level tokenizer."""
+    import shutil
+
+    shutil.copytree(tokenizer, directory, dirs_exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(model_config, f)
+    return directory
+
+
+def finetune_args(yaml, model_dir, data_dir, save_path, steps, micro=(8, 1), padding_free=False, load_path=None, prompt_tuning=False, resume=False, options=None):
+    """A finetuning YAML (`FINETUNE_YAML`, `LORA_YAML`) through the port's `load_yaml` with the
+    phase's cuts (above); `prompt_tuning` switches `tuning_args` to prompt tuning
+    (`PROMPT_TUNING`; the repository has no prompt-tuning YAML); `load_path` starts from a
+    checkpoint's weights alone (``load_optimizer: false``, a new run at step 0); `resume` saves
+    the optimizer and fixes the schedule's length (the resume check)."""
+    from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
+    from dolomite_engine_tpu_torch.utils import load_yaml
+
+    config = load_yaml(yaml)
+    dataset = config["datasets"][0]
+    dataset.update(class_name="JSONLinesDataset", class_args={"data_path": data_dir})
+    config["model_args"].update(model_name=model_dir, use_padding_free_transformer=padding_free)
+    if prompt_tuning:
+        config["tuning_args"] = {"tuning_method": "prompt_tuning", "prompt_tuning_args": dict(PROMPT_TUNING)}
+    config["distributed_args"] = {
+        "stage": 0, "gradient_checkpointing_method": "block", "gradient_checkpointing_args": dict(FINETUNE_REMAT),
+    }
+    config["training_parameters"].update(
+        num_training_steps=steps, eval_interval=steps, micro_batch_size=micro[0], gradient_accumulation_steps=micro[1],
+    )
+    config["lr_scheduler_args"]["num_warmup_steps"] = 1
+    if resume:
+        config["lr_scheduler_args"]["num_decay_steps"] = FINETUNE_RESUME_STEPS - 1
+    config["save_args"].update(save_path=save_path, save_interval=steps, save_optimizer=resume)
+    if load_path is not None:
+        config["load_args"] = {"load_path": load_path}
+        if not resume:
+            config["load_args"].update(
+                load_optimizer=False, load_lr_scheduler=False, load_rng_state=False, load_dataloader_state=False,
+                load_experiments_tracker_state=False, load_starting_iteration=False,
+            )
+    for section, values in (options or {}).items():
+        config[section] = _merged(config.get(section) or {}, values)
+    return args_from_dict(config, Mode.training)
+
+
+class _ShapeRecorder:
+    """A finetuning loader that appends each batch's ``input_ids`` shape to `shapes` as the
+    loop draws it (the prefetch worker runs up to two steps ahead, so the list's head is
+    what the loop consumed)."""
+
+    def __init__(self, loader, shapes):
+        self.loader, self.shapes = loader, shapes
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.shapes.append(tuple(batch["input_ids"].shape))
+            yield batch
+
+    def __len__(self):
+        return len(self.loader)
+
+    def state_dict(self):
+        return self.loader.state_dict()
+
+    def load_state_dict(self, state):
+        self.loader.load_state_dict(state)
+
+
+def _run_finetune(args, device, shapes=None, capture=None):
+    """`finetune.main(args)`; `shapes` ({"train": [], "val": []}) collects the batches'
+    shapes, `capture` gets the run's `TrainState` and, at the start and the end of `train`,
+    what `capture["before"]` / `capture["after"]` (callables of the state) return."""
+    from dolomite_engine_tpu_torch import finetune
+
+    build, train = finetune.get_dataloader, finetune.train
+    if shapes is not None:
+
+        def recorded(args, split, *rest, **kwargs):
+            loader = build(args, split, *rest, **kwargs)
+            return None if loader is None else _ShapeRecorder(loader, shapes[split.value])
+
+        finetune.get_dataloader = recorded
+    if capture is not None:
+
+        def capturing(args, model, state, *rest, **kwargs):
+            capture["state"] = state
+            capture["before_value"] = capture["before"](state)
+            summary = train(args, model, state, *rest, **kwargs)
+            capture["after_value"] = capture["after"](state)
+            return summary
+
+        finetune.train = capturing
+    try:
+        return finetune.main(args, device=device)
+    finally:
+        finetune.get_dataloader, finetune.train = build, train
+
+
+def finetune_launches(config, train_shapes, val_shapes, virtual_tokens=0):
+    """Exact launches of a finetuning run with remat of every block: per training
+    micro-batch [B, S] (S + the virtual tokens under prompt tuning) rmsnorm 4L + 1, rope 3L
+    (forward, rerun, backward), and where S is a multiple of 128 (the padding mask
+    rewritten to segment ids, or a packed row) the flash forward 2L and backward L; per
+    eval batch one forward (rmsnorm 2L + 1, rope L, flash L); fused_ce one per 256-token
+    chunk of each. Padded lengths of other sizes take `sdpa_attention`, as in JAX."""
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+
+    layers = config.n_layer
+    expected = {spec.name: 0 for spec in KERNELS}
+    for shapes, training in ((train_shapes, True), (val_shapes, False)):
+        for _, seq in shapes:
+            seq += virtual_tokens
+            on_flash = seq % 128 == 0
+            expected["rmsnorm"] += 4 * layers + 1 if training else 2 * layers + 1
+            expected["rope_qkv"] += 3 * layers if training else layers
+            expected["flash_attn_fwd"] += (2 * layers if training else layers) * on_flash
+            expected["flash_attn_bwd"] += layers * on_flash * training
+            expected["fused_ce"] += -(-seq // config.loss_chunk_size)
+    return expected
+
+
+def finetune_step_check(seed, model_dir, data_dir, device="cuda"):
+    """The card's finetuning step against the port's CPU step on the same weights and
+    batches (`FINETUNE_CHECK_MODEL`, `FINETUNE_CHECK_ROWS`), for full finetuning and LoRA
+    (the YAMLs' optimizers; LoRA's dropout 0, as the two devices draw different masks):
+    per-step losses and grad norms within `FINETUNE_CHECK_RTOL`."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.data import collate_fn
+    from dolomite_engine_tpu_torch.enums import LossMask, Mode
+    from dolomite_engine_tpu_torch.model_wrapper import get_model
+    from dolomite_engine_tpu_torch.optimization import build_optimizer_from_args
+    from dolomite_engine_tpu_torch.train_utils import TrainState, make_train_step
+
+    with open(os.path.join(data_dir, "train.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    longest = [max(n) for n in zip(*FINETUNE_CHECK_ROWS)]
+    long_enough = [r for r in rows if len(r["input"].split()) >= longest[0] and len(r["output"].split()) >= longest[1]]
+    rows = long_enough if len(long_enough) >= 9 else rows  # a rehearsal's short rows: as they are
+    eos = 0
+    batches = []
+    for step in range(3):
+        examples = []
+        for row, (n_in, n_out) in zip(rows[3 * step :], FINETUNE_CHECK_ROWS):
+            ids = [[int(w[1:]) for w in row[key].split()] for key in ("input", "output")]
+            output = ids[1][:n_out] + [eos]
+            examples.append({"input": ids[0][:n_in] + output, "output": output})
+        batches.append(collate_fn(examples, Mode.training, LossMask.output_only, eos, False, False))
+    record = {"model": FINETUNE_CHECK_MODEL, "rows": [len(e["input"]) for e in examples], "steps": 3,
+              "tolerance": {**FINETUNE_CHECK_RTOL, "of": "relative, the card's bf16 step against the CPU's bf16 step"}}
+    for name, yaml in (("full_finetuning", FINETUNE_YAML), ("lora", LORA_YAML)):
+        args = finetune_args(yaml, model_dir, data_dir, "unused", 3, micro=(3, 1), options={"tuning_args": {"lora_args": {"lora_dropout": 0.0}}} if name == "lora" else None)
+        curves = {}
+        wrappers = {"cpu": get_model(args, Mode.training, device="cpu")}
+        wrappers["card"] = get_model(args, Mode.training, device=device)
+        wrappers["card"].model.load_state_dict(wrappers["cpu"].model.state_dict())
+        for where, wrapper in wrappers.items():
+            optimizer, _ = build_optimizer_from_args(args, wrapper)
+            step = make_train_step(lambda micro, w=wrapper: w.loss(micro, train=True), optimizer, gradient_clipping=args.training_parameters.gradient_clipping)
+            state = TrainState(wrapper.model, optimizer)
+            torch.manual_seed(seed)
+            curves[where] = [step(state, {k: [torch.as_tensor(v, device=wrapper.model.device)] for k, v in b.items()}) for b in batches]
+        errors = {
+            key: max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(curves["card"], curves["cpu"]))
+            for key in ("loss", "grad_norm")
+        }
+        record[name] = {
+            "card": [(m["loss"], m["grad_norm"]) for m in curves["card"]],
+            "cpu": [(m["loss"], m["grad_norm"]) for m in curves["cpu"]],
+            "max_rel_err": errors,
+        }
+        assert all(np.isfinite(m["loss"]) for m in curves["card"]), record[name]
+        assert all(errors[key] <= FINETUNE_CHECK_RTOL[key] for key in errors), record[name]
+        del wrappers, curves
+        _free(device)
+    return record
+
+
+def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device="cuda", rehearsal=None):
+    """Phase 18: (a) full finetuning on `FINETUNE_YAML` from phase 12's checkpoint (its
+    weights alone), padded, then packed (``use_padding_free_transformer``); (b) LoRA on
+    `LORA_YAML` from seed-0 weights: every base tensor bit-identical after the steps, the
+    adapters moved, the optimizer's state the adapters' alone; (c) prompt tuning (LoRA's
+    YAML with prompt tuning, RANDOM init, 20 virtual tokens); each at granite-3b-code's 32
+    layers with its launches zeroed before and read after and asserted exactly. Then the
+    card's step against the CPU's at 2 layers (`finetune_step_check`) and the resume check
+    at 2 layers. Returns the record (the launch counts under ``launches``)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.models import CommonConfig
+
+    on_card = torch.device(device).type == "cuda"
+    from dolomite_engine_tpu_torch import finetune
+
+    model_config = dict(config)
+    model_dir = finetune_model_dir(os.path.join(work, "granite-dolomite"), model_config, tokenizer)
+    words = FINETUNE_WORDS if rehearsal is None else rehearsal["finetune_words"]
+    data_dir = finetune_data(os.path.join(work, "finetune-data"), corpus, seed, model_config["eos_token_id"], words=words)
+    cfg = CommonConfig.from_dict(model_config)
+    tally = _LaunchTally()
+    record = {"model_name": "a local directory: phase 12's config.json and word-level tokenizer", "steps": FINETUNE_STEPS, "remat": FINETUNE_REMAT, "words": words, "examples": FINETUNE_EXAMPLES}
+
+    capture = {}  # the run's state and its hooks' values (the LoRA run's hooks read it)
+
+    def run(name, args, virtual_tokens=0, before=None, after=None):
+        shapes = {"train": [], "val": []}
+        capture.clear()
+        capture.update(before=before or (lambda state: None), after=after or (lambda state: None))
+        save = args.save_args.save_path
+        _free(device)
+        t0 = time.perf_counter()
+        with tally.run():
+            summary = _run_finetune(args, device, shapes, capture)
+        seconds = time.perf_counter() - t0
+        micro, accumulation = args.training_parameters.micro_batch_size, args.training_parameters.gradient_accumulation_steps
+        consumed = shapes["train"][: FINETUNE_STEPS * accumulation]
+        evals = shapes["val"]  # two full passes over the val split (at step 0 and at the end)
+        expected = finetune_launches(cfg, consumed, evals, virtual_tokens)
+        tally.expect(expected, {"rope_qkv:flat": expected["rope_qkv"]})
+        steps = summary["steps"]
+        losses = [s["loss"] for s in steps]
+        assert [s["step"] for s in steps] == list(range(1, FINETUNE_STEPS + 1)), steps
+        assert all(np.isfinite(losses)) and not any(s["skipped"] for s in steps), steps
+        assert sorted(summary["val_losses"]) == [0, FINETUNE_STEPS] and all(np.isfinite(list(summary["val_losses"].values()))), summary["val_losses"]
+        state = capture["state"]
+        names = state.optimizer.param_names
+        sink = [json.loads(line) for line in open(os.path.join(save, "telemetry", "rank-00000.jsonl"))]
+        report = next(r for r in sink if r["kind"] == "model_report")
+        entry = {
+            "micro_batch": micro, "accumulation": accumulation, "padding_free": args.model_args.use_padding_free_transformer,
+            "losses": losses, "grad_norms": [s["grad_norm"] for s in steps], "lrs": [s["lr"] for s in steps],
+            "val_losses": summary["val_losses"], "step_s": [s["step_seconds"] for s in steps],
+            "train_shapes": consumed, "val_shapes": evals,
+            "tokens": [sum(b * s for b, s in consumed[i * accumulation : (i + 1) * accumulation]) for i in range(FINETUNE_STEPS)],
+            "seconds": seconds, "peak_memory_gb": _peak_gb(device), "trainable_tensors": len(names),
+            "trainable_parameters": sum(p.numel() for p in state.optimizer.params),
+            "optimizer_state_gb": report["totals"]["optimizer_bytes"] / 1e9, "launches": expected,
+            "checkpoint_gb": _dir_bytes(os.path.join(save, f"global_step{FINETUNE_STEPS}")) / 1e9,
+        }
+        if on_card:
+            assert entry["peak_memory_gb"] < TRAIN_PEAK_GB, entry
+        shutil.rmtree(save)  # ~14 GB of weights a run
+        record[name] = entry
+        capture.pop("before_value")
+        return capture, state
+
+    # (a) full finetuning from phase 12's step-8 weights: padded, then packed
+    for name, padding_free, micro in (("full_padded", False, FINETUNE_PADDED_MICRO), ("full_padding_free", True, (8, 1))):
+        args = finetune_args(FINETUNE_YAML, model_dir, data_dir, os.path.join(work, name), FINETUNE_STEPS, micro=micro, padding_free=padding_free, load_path=pretrain_path)
+        run(name, args)
+    # (b) LoRA from seed-0 weights: a copy of every parameter on the card when the loop
+    # starts (13.9 GB, resident through the run, so the run's peak is the step's plus it),
+    # held against the parameters when it ends
+    def copy(state):
+        return {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+    def compare(state):
+        before = capture["before_value"]
+        trainable = set(state.optimizer.param_names)
+        same = {n: torch.equal(p, before[n]) for n, p in state.model.named_parameters()}
+        return {
+            "base_bit_identical": all(v for n, v in same.items() if n not in trainable),
+            "adapters_moved": sum(not v for n, v in same.items() if n in trainable),
+            "base_tensors": sum(n not in trainable for n in same),
+            "base_weights_gb": sum(before[n].numel() * 4 for n in same if n not in trainable) / 1e9,
+        }
+
+    args = finetune_args(LORA_YAML, model_dir, data_dir, os.path.join(work, "lora"), FINETUNE_STEPS)
+    _, state = run("lora", args, before=copy, after=compare)
+    lora = record["lora"]
+    lora.update(capture["after_value"])
+    lora["peak_memory_gb_without_the_copy"] = None if lora["peak_memory_gb"] is None else lora["peak_memory_gb"] - lora["base_weights_gb"] - sum(p.numel() * 4 for p in state.optimizer.params) / 1e9
+    lora["base_grads"] = sum(p.grad is not None for p in state.model.parameters() if not p.requires_grad)
+    # what training the base would add: its fp32 gradients and AdamW's two fp32 moments
+    lora["base_gradients_and_moments_gb"] = 3 * lora["base_weights_gb"]
+    adapter_state = sum(t.numel() * t.element_size() for t in state.optimizer.state_tensors())
+    assert lora["base_bit_identical"] and lora["base_grads"] == 0, lora
+    assert lora["adapters_moved"] == len(state.optimizer.param_names) == 2 * cfg.n_layer, lora  # lora_a / lora_b of each c_attn
+    assert all(n.endswith(("lora_a", "lora_b")) for n in state.optimizer.param_names), state.optimizer.param_names
+    assert abs(lora["optimizer_state_gb"] - adapter_state / 1e9) < 1e-9, lora
+    del state
+    # (c) prompt tuning on LoRA's YAML
+    args = finetune_args(LORA_YAML, model_dir, data_dir, os.path.join(work, "prompt_tuning"), FINETUNE_STEPS, prompt_tuning=True)
+    _, state = run("prompt_tuning", args, virtual_tokens=PROMPT_TUNING["num_virtual_tokens"])
+    assert state.optimizer.param_names == ["prompt_embeddings"], state.optimizer.param_names
+    del state
+    capture.clear()
+    record.update(tally.check(on_card))
+    _free(device)
+
+    # the card's step against the CPU's at 2 layers, 640 wide
+    check_dir = finetune_model_dir(os.path.join(work, "granite-640"), dict(model_config, **(FINETUNE_CHECK_MODEL if rehearsal is None else {"n_layer": 2})), tokenizer)
+    t0 = time.perf_counter()
+    record["step_check"] = finetune_step_check(seed, check_dir, data_dir, device)
+    record["step_check"]["seconds"] = time.perf_counter() - t0
+
+    # the resume check: LoRA at 2 layers, 6 steps against 3, a save and a resumed run to 6
+    resume_dir = finetune_model_dir(os.path.join(work, "granite-2"), dict(model_config, n_layer=2), tokenizer)
+
+    def resume_run(save_dir, steps, load=False):
+        path = os.path.join(work, save_dir)
+        return finetune.main(finetune_args(LORA_YAML, resume_dir, data_dir, path, steps, load_path=path if load else None, resume=True), device=device)
+
+    t0 = time.perf_counter()
+    unbroken = resume_run("ft-unbroken", FINETUNE_RESUME_STEPS)
+    resume_run("ft-broken", FINETUNE_RESUME_AT)
+    resumed = resume_run("ft-broken", FINETUNE_RESUME_STEPS, load=True)
+    tail = [(s["step"], s["loss"], s["grad_norm"]) for s in unbroken["steps"][FINETUNE_RESUME_AT:]]
+    got = [(s["step"], s["loss"], s["grad_norm"]) for s in resumed["steps"]]
+    record["resume_check"] = {
+        "method": "lora", "n_layer": 2, "steps": FINETUNE_RESUME_STEPS, "resumed_at": FINETUNE_RESUME_AT,
+        "unbroken": tail, "resumed": got, "bit_identical": got == tail,
+        "val_loss_identical": resumed["val_losses"][FINETUNE_RESUME_STEPS] == unbroken["val_losses"][FINETUNE_RESUME_STEPS],
+        "seconds": time.perf_counter() - t0, "tolerance": "bit-identical losses, grad norms and final eval loss of steps 4-6",
+    }
+    assert record["resume_check"]["bit_identical"] and record["resume_check"]["val_loss_identical"], record["resume_check"]
+    for save_dir in ("ft-unbroken", "ft-broken"):
+        shutil.rmtree(os.path.join(work, save_dir))
+    _free(device)
+    return record
+
+
+def finetune_kernel_cases(seed):
+    """Phase 2, the finetuning path's padded flash form: the forward and backward over a
+    left-padded batch [8, 1536, 32, 80] whose padding mask is rewritten to segment ids (pads
+    0, tokens 1; pad boundaries inside 64-token tiles), against their plain versions, every
+    gradient row included (pad queries attend among themselves in segment 0, as the JAX
+    package's rewrite has them); `varlen_attn` over each row's two runs as the library call."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    cases = []
+    dtype, es = torch.bfloat16, 2
+    batch, seq, heads = 8, 1536, GRANITE_3B_CODE["n_head"]
+    hd = GRANITE_3B_CODE["n_embd"] // heads
+    scale = hd**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lengths = [1536, 1, 700, 37, 964, 1100, 200, 1499]
+    seg = padding_segments(lengths, seq, "left")
+    qkv = torch.randn((batch, seq, 3 * heads * hd), generator=gen, device="cuda").to(dtype)
+    q, k, v = (t.reshape(batch, seq, heads, hd) for t in qkv.split(heads * hd, dim=-1))
+    label = f"[{batch},{seq},{heads},{hd}] left-padded rows of {lengths} tokens"
+    pairs = _visible_pairs(seg)
+    extra = {"lengths": lengths, "visible_pairs": pairs, "computed_pairs": _computed_pairs(seg), "case": "padded finetuning batch"}
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, scale)
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale)
+    ok, err = _close(out, want, False)
+    ok = ok and bool(torch.isfinite(out.float()).all()) and bool(torch.allclose(lse, want_lse, atol=1e-5, rtol=1e-5))
+    call, flat, extra["library"] = _varlen_library(q, k, v, seg, scale)
+    library_fwd = library_bwd = None
+    if call is not None:
+
+        def library_fwd(call=call):
+            with torch.no_grad():
+                return call()
+
+        library_out = call()
+        flat_dout = None
+    io = (2 * q.numel() + 2 * k.numel()) * es
+    side = q.numel() // hd * 4 + seg.numel() * 4
+    _record(
+        cases, "flash_attn_fwd", label, dtype, err, ok, "2e-2 abs + 1 bf16 ulp; every row finite",
+        lambda: fa.flash_attention_fwd(q, k, v, seg, scale), lambda: fa.flash_attention_fwd_plain(q, k, v, seg, scale),
+        library_fwd, io + side, 4 * pairs * hd * heads, plain_iters=5, extra=dict(extra),
+    )
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
+    checks = [_close(g, w, False) for g, w in zip(grads, want_grads)]
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    if call is not None:
+        flat_dout = dout.reshape(batch * seq, heads, hd)
+        library_bwd = lambda: torch.autograd.grad(library_out, flat, flat_dout, retain_graph=True)
+    _record(
+        cases, "flash_attn_bwd", label, dtype, max(e for _, e in checks), all(c for c, _ in checks) and finite,
+        "2e-2 abs + 1 bf16 ulp (dq, dk, dv); every row finite",
+        lambda: fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale),
+        lambda: fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale),
+        library_bwd, (4 * q.numel() + 4 * k.numel()) * es + side, 10 * pairs * hd * heads, plain_iters=5,
+        extra=dict(extra, pad_rows_max_abs_err=max(
+            (g.float() - w.float())[seg == 0].abs().max().item() for g, w in zip(grads, want_grads)
+        )),
+    )
+    del qkv, q, k, v, out, want, grads, want_grads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cases
+
+
 def alibi_generation_phase(seed, device="cuda", config_kwargs=None):
     """Phase 14: alibi generation at MPT-7B's widths and 16 of its 32 layers (`MPT_7B`,
     random weights from the seed, bf16, flash_attention_2; another config and the CPU only
@@ -4652,7 +5133,7 @@ def main() -> int:
     cases = (
         kernel_cases(args.seed) + quant_kernel_cases(args.seed) + paged_write_kernel_cases(args.seed)
         + training_kernel_cases(args.seed) + moe_kernel_cases(args.seed) + alibi_kernel_cases(args.seed)
-        + generation_kernel_cases(args.seed)
+        + generation_kernel_cases(args.seed) + finetune_kernel_cases(args.seed)
     )
     print(json.dumps({"kernel_cases": cases, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
 
@@ -4708,6 +5189,7 @@ def main() -> int:
 
     pretrain, pretrain_launches, options_launches, (generation, generate_launches), speculated, preempted = pretrain_phase(args.seed)
     training_options = pretrain.pop("training_options")
+    finetune = pretrain.pop("finetune")
     speculative, speculative_launches, speculative_forms = speculated
     preemption, preemption_launches, preemption_forms = preempted
     # the same model, shape and cuts as phase 6's repeated batch, through the entry point
@@ -4722,10 +5204,11 @@ def main() -> int:
     print(json.dumps({"generate": generation, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"speculative_generation": speculative, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"preemption": preemption, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"finetune": finetune, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
-    moe_serving, moe_serving_launches, model, specs, tokens = serve(args.seed, MOE_EP)
+    moe_serving, moe_serving_launches, model, specs, tokens = serve(args.seed, dict(MOE_EP, n_layer=MOE_SERVE_LAYERS))
     moe_serving["launches_per_forward"] = launches_per_forward(model)
     print(json.dumps({"moe_serving": moe_serving, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"moe_profile": profile_serving(model, specs), "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
@@ -4775,6 +5258,7 @@ def main() -> int:
         "generate": generation,
         "alibi_generation": alibi_generation,
         "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
+        "finetune": {"launch_forms": finetune["launch_forms"]},
     }
 
     verify_keys = ("shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4805,6 +5289,7 @@ def main() -> int:
             "generate": generate_launches[spec.name],
             "alibi_generation": alibi_generation_launches[spec.name],
             "speculative_generation": speculative_launches[spec.name], "preemption": preemption_launches[spec.name],
+            "finetune": finetune["launches"][spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

@@ -14,6 +14,7 @@ compiled program of the JAX package, and the port runs its blocks in a Python lo
 from __future__ import annotations
 
 import logging
+import os
 from argparse import ArgumentParser
 from enum import Enum
 from typing import Any
@@ -1003,6 +1004,15 @@ def _check_datasets(datasets: list[DatasetArgs]) -> None:
 _DISTRIBUTION = "is not ported yet: ROADMAP.md Queue A, 'Distribution' (the port trains on one device)"
 
 
+def _check_model_name(model_name: str | None) -> None:
+    """A local checkpoint directory gives the config and tokenizer; a hub id is not ported."""
+    if model_name is not None and not os.path.isdir(model_name):
+        raise NotImplementedError(
+            f"model_args.model_name '{model_name}' (a hub id, not a local directory) is not ported "
+            "yet: ROADMAP.md Queue A, 'Interop and tools'"
+        )
+
+
 def check_ported_options(args: TrainingArgs) -> None:
     """Refuse, naming its ROADMAP item, each option of `args` the port does not run."""
     dist = args.distributed_args
@@ -1018,11 +1028,7 @@ def check_ported_options(args: TrainingArgs) -> None:
             raise NotImplementedError(f"distributed_args.{name} {_DISTRIBUTION}")
     if dist.zero_topology.data_parallel_sharding_world_size is not None:
         raise NotImplementedError(f"distributed_args.zero_topology {_DISTRIBUTION}")
-    if args.model_args.model_name is not None:
-        raise NotImplementedError(
-            "model_args.model_name (loading a checkpoint directory or hub id) is not ported yet: "
-            "ROADMAP.md Queue A, 'Interop and tools'"
-        )
+    _check_model_name(args.model_args.model_name)
     logging_args = args.logging_args
     if logging_args.experiments_tracker_name is not None:
         from .utils.tracking import TRACKERS_NOT_PORTED
@@ -1064,9 +1070,6 @@ def check_ported_inference_options(args: InferenceArgs) -> None:
             "generation_parameters.replicas > 1 / disaggregate / trace_requests is not ported "
             "yet: ROADMAP.md Queue A, 'Serving fleet and observability'"
         )
-    if args.model_args is not None and args.model_args.model_name is not None:
-        raise NotImplementedError(
-            "model_args.model_name (loading a checkpoint directory or hub id) is not ported yet: "
-            "ROADMAP.md Queue A, 'Interop and tools'"
-        )
+    if args.model_args is not None:
+        _check_model_name(args.model_args.model_name)
     args.kernel_args.check()

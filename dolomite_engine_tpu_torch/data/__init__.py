@@ -1,18 +1,21 @@
 """Data pipelines of the port (mirrors `dolomite_engine_tpu/data/`): the megatron
-pretraining loaders, the async step prefetcher, and the finetuning / generation dataset
-registry (`get_datasets_list`)."""
+pretraining loaders, the async step prefetcher, the finetuning / generation dataset
+registry (`get_datasets_list`) and the blended finetuning dataloader (`get_dataloader`)."""
 
 from __future__ import annotations
 
 import logging
+from functools import partial
 
 from ..enums import DatasetSplit, Mode
 from ..utils import log_rank_0
 from .base import BaseDataset, BlendedDatasets
+from .dataloader import DispatchingDataLoader, ResumableDataLoader, ShardedDataLoader
 from .debug import DebugDataset
 from .huggingface import HuggingFaceDataset, JSONLinesDataset, SST2Dataset
 from .instruction_tuning import AlpacaDataset, DollyDataset, SlimOrcaDataset
 from .prefetch import PrefetchingIterable, StepPrefetcher
+from .sampler import BlendedDistributedSampler
 from .utils import collate_fn, get_next_batch, infinite_iterator
 
 _DATASETS_LIST = {
@@ -73,8 +76,98 @@ def get_datasets_list(
     return datasets_list, data_sampling_ratios
 
 
-def get_dataloader(*args, **kwargs):
-    """The blended finetuning dataloader: not ported yet."""
-    raise NotImplementedError(
-        "the finetuning dataloader is not ported yet: ROADMAP.md Queue A, 'Finetune and PEFT'"
+def get_dataloader(
+    args,
+    split: DatasetSplit,
+    mode: Mode,
+    tokenizer,
+    is_encoder_decoder: bool = False,
+    mesh=None,
+) -> ResumableDataLoader | None:
+    """The blended finetuning dataloader of `split` (None when it has no examples): the
+    JAX package's `get_dataloader` on one device and one process (its ``mesh=None`` path),
+    so a batch is ``micro_batch_size`` examples. Batches are numpy arrays from
+    `collate_fn`: left-padded with ``attention_mask``, or packed (padding-free) with
+    ``position_ids`` / ``segment_ids``. A mesh and ``dispatching_dataloader`` raise."""
+    assert mode == Mode.training, "blended dataset is only supported in training mode"
+    assert tokenizer is not None, (
+        "finetuning data pipeline requires a tokenizer: set model_args.model_name or "
+        "model_args.tokenizer_name"
     )
+    if args.distributed_args.dispatching_dataloader:
+        DispatchingDataLoader()
+    if mesh is not None:
+        ShardedDataLoader()
+
+    datasets_list, data_sampling_ratios = get_datasets_list(
+        dataset_args_list=args.datasets,
+        split=split,
+        mode=Mode.training,
+        tokenizer=tokenizer,
+        is_encoder_decoder=is_encoder_decoder,
+        num_virtual_tokens=args.tuning_args.get_num_virtual_tokens(),
+    )
+    if len(datasets_list) == 0:
+        return None
+
+    blended_dataset = BlendedDatasets(datasets=datasets_list, split=split)
+    sampler = BlendedDistributedSampler(
+        dataset=blended_dataset,
+        data_sampling_ratios=[1] if len(datasets_list) == 1 else data_sampling_ratios,
+        num_replicas=1,
+        rank=0,
+        ignore_sampling_proportion_for_validation=args.training_parameters.ignore_sampling_proportion_for_validation,
+        shuffle=split == DatasetSplit.train,
+        seed=args.random_args.seed,
+        drop_last=False,
+    )
+    micro_batch_size = args.training_parameters.micro_batch_size
+    loader = ResumableDataLoader(
+        blended_dataset,
+        batch_size=max(micro_batch_size, 1),
+        sampler=sampler,
+        collate_fn=partial(
+            collate_fn,
+            mode=mode,
+            loss_mask=args.training_parameters.loss_mask,
+            eos_token_id=tokenizer.eos_token_id,
+            is_encoder_decoder=is_encoder_decoder,
+            use_padding_free_transformer=args.model_args.use_padding_free_transformer,
+        ),
+        drop_last=True,
+    )
+    _log_dataset(
+        blended_dataset,
+        sampler,
+        split,
+        args.training_parameters.num_training_steps,
+        args.training_parameters.gradient_accumulation_steps,
+        micro_batch_size,
+        1,
+    )
+    return loader
+
+
+def _log_dataset(
+    blended_dataset,
+    sampler,
+    split,
+    num_training_steps,
+    gradient_accumulation_steps,
+    micro_batch_size,
+    dp_world_size,
+) -> None:
+    log_rank_0(logging.INFO, f"{'-' * 25} {split.value} {'-' * 25}")
+    log_rank_0(logging.INFO, repr(blended_dataset))
+
+    if split == DatasetSplit.train and num_training_steps is not None:
+        total_samples_seen = num_training_steps * gradient_accumulation_steps * micro_batch_size * dp_world_size
+    else:
+        num_steps = -(-len(blended_dataset) // (micro_batch_size * dp_world_size))
+        total_samples_seen = num_steps * micro_batch_size * dp_world_size
+
+    log_rank_0(logging.INFO, "*" * 57)
+    log_rank_0(logging.INFO, f"total samples seen = {total_samples_seen}")
+    log_rank_0(logging.INFO, f"total epochs for the dataset mixture = {total_samples_seen / len(blended_dataset)}")
+    log_rank_0(logging.INFO, repr(sampler))
+    log_rank_0(logging.INFO, "-" * 57)

@@ -9,22 +9,18 @@ import torch
 from ..enums import Mode, TuningMethod
 from ..utils import log_rank_0
 from .base import ModelWrapper
+from .peft import ModelWrapperForPEFT
 from .pretraining import ModelWrapperForFinetuning, ModelWrapperForPretraining
 
 
 def get_model(args, mode: Mode = Mode.training, device: str | torch.device = "cuda") -> ModelWrapper:
-    """The wrapper of `TrainingArgs`' tuning method: the config, the tokenizer, the
-    attention implementation, the compute dtype of `mixed_precision_args` and the seed of
-    `random_args`. For training (pretraining only) the weights are fp32 masters with remat
-    when a gradient-checkpointing method is set and the reset masks; for inference (a
-    pretraining or full-finetuning config) they are stored in the compute dtype."""
+    """The wrapper of `TrainingArgs`' tuning method (the JAX package's factory): the
+    config (``pretrained_config``, or ``model_name``'s local directory), the tokenizer,
+    the attention implementation, the compute dtype of `mixed_precision_args` and the
+    seed of `random_args`. For training the weights are fp32 masters with remat when a
+    gradient-checkpointing method is set (pretraining adds the reset masks; LoRA and
+    prompt tuning freeze the base); for inference they are stored in the compute dtype."""
     tuning_method = args.tuning_args.tuning_method
-    ported = [TuningMethod.pretraining] + ([] if mode == Mode.training else [TuningMethod.full_finetuning])
-    if tuning_method not in ported:
-        raise NotImplementedError(
-            f"{mode.value} / {tuning_method.value} is not ported yet: "
-            "ROADMAP.md Queue A, 'Finetune and PEFT'"
-        )
     model_args = args.model_args
     common = dict(
         dtype=args.mixed_precision_args.dtype,
@@ -35,22 +31,29 @@ def get_model(args, mode: Mode = Mode.training, device: str | torch.device = "cu
         config_extras=model_args.config_extras,
         device=device,
         seed=args.random_args.seed,
+        mode=mode,
     )
-    if mode != Mode.training:
-        wrapper_class = (
-            ModelWrapperForPretraining if tuning_method == TuningMethod.pretraining else ModelWrapperForFinetuning
-        )
-        return wrapper_class(model_args.pretrained_config, mode=mode, param_dtype=None, **common)
-    dist = args.distributed_args
-    return ModelWrapperForPretraining(
-        model_args.pretrained_config,
-        reset_attention_mask=model_args.reset_attention_mask,
-        reset_position_ids=model_args.reset_position_ids,
-        gradient_checkpointing_args=(
+    if mode == Mode.training:
+        dist = args.distributed_args
+        common["gradient_checkpointing_args"] = (
             dist.gradient_checkpointing_args if dist.gradient_checkpointing_method is not None else None
-        ),
-        **common,
-    )
+        )
+    else:
+        common["param_dtype"] = None
+    config = None if model_args.model_name is not None else model_args.pretrained_config
+    if tuning_method == TuningMethod.pretraining:
+        return ModelWrapperForPretraining(
+            config,
+            reset_attention_mask=mode == Mode.training and model_args.reset_attention_mask,
+            reset_position_ids=mode == Mode.training and model_args.reset_position_ids,
+            **common,
+        )
+    neft_alpha = args.research_args.neft_alpha
+    if tuning_method == TuningMethod.full_finetuning:
+        return ModelWrapperForFinetuning(config, neft_alpha=neft_alpha, **common)
+    if tuning_method in (TuningMethod.prompt_tuning, TuningMethod.lora):
+        return ModelWrapperForPEFT(config, neft_alpha=neft_alpha, tuning_args=args.tuning_args, **common)
+    raise ValueError(f"unexpected tuning_method ({tuning_method})")
 
 
 def log_model(model: ModelWrapper) -> None:

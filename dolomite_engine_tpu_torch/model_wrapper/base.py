@@ -6,13 +6,18 @@ Counterpart of `dolomite_engine_tpu/model_wrapper/base.py`: the config from
 the model built by the registry from the config's ``model_type`` on `device` with random
 weights from `seed`, and batch generation (`generate`, through
 `generation_utils.make_generate_fn`). The wrapper owns the port's model directly: there
-are no separate params, no sharding rules and no apply scope. Loading `model_name` (a
-checkpoint directory or hub id) is not ported.
+are no separate params, no sharding rules and no apply scope. `model_name` as a local
+directory gives the config (its ``config.json``, which must name a dolomite family) and
+the tokenizer, as the JAX package's `_setup_config` does; the weights stay random, as
+there (its `load_pretrained_params` has no caller: a finetune starts from a trained model
+through ``load_args``). A hub id is not ported.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 
 import torch
 
@@ -25,6 +30,34 @@ from ..utils.mixed_precision import string_to_dtype
 
 # model families whose wrappers drive an encoder and a decoder (none is ported)
 _ENCODER_DECODER_TYPES = ("enc_dec_dolomite",)
+# the JAX package's model registry (`models.is_custom_model`): the types a config.json may name
+_DOLOMITE_TYPES = (
+    "gpt_dolomite", "moe_dolomite", "gpt_crosslayer", "dense_moe", "rnn_dolomite", "enc_dec_dolomite",
+)
+
+
+def config_from_model_name(model_name: str, config_extras: dict | None = None) -> CommonConfig:
+    """The config of a local checkpoint directory's ``config.json`` (`config_extras` over
+    it); a model type that is not a dolomite family raises the JAX package's ValueError.
+    A name that is not a local directory (a hub id) raises NotImplementedError."""
+    if not os.path.isdir(model_name):
+        raise NotImplementedError(
+            f"model_args.model_name '{model_name}' is not a local directory: loading a hub id is "
+            "not ported yet: ROADMAP.md Queue A, 'Interop and tools'"
+        )
+    config_path = os.path.join(model_name, "config.json")
+    if not os.path.isfile(config_path):
+        raise ValueError(f"no config.json in resolved checkpoint dir '{model_name}'")
+    with open(config_path) as f:
+        config_dict = json.load(f)
+    model_type = config_dict.get("model_type")
+    if model_type not in _DOLOMITE_TYPES:
+        raise ValueError(
+            f"model_name '{model_name}' has model_type '{model_type}', which is not a "
+            "dolomite model family; convert it first with "
+            "hf_interop.import_from_huggingface(model_name, save_path)"
+        )
+    return config_from_dict(dict(config_dict, **(config_extras or {})))
 
 
 def _load_tokenizer(name: str | None):
@@ -45,7 +78,7 @@ def _load_tokenizer(name: str | None):
 class ModelWrapper:
     def __init__(
         self,
-        pretrained_config: dict | CommonConfig,
+        pretrained_config: dict | CommonConfig | None,
         mode: Mode = Mode.inference,
         dtype: str | torch.dtype = "fp32",
         param_dtype: str | torch.dtype | None = None,
@@ -61,13 +94,11 @@ class ModelWrapper:
         """`dtype` is the compute dtype ("fp8": bf16 compute with fp8 dots, the state in
         `fp8`) and `param_dtype` (default `dtype`) the storage of the linear and embedding
         weights: fp32 master weights for training, the compute dtype for inference."""
-        if model_name is not None:
-            raise NotImplementedError(
-                "model_args.model_name (loading a checkpoint directory or hub id) is not ported "
-                "yet: ROADMAP.md Queue A, 'Interop and tools'"
-            )
         self.mode = mode
-        if isinstance(pretrained_config, CommonConfig):
+        self.model_name = model_name
+        if model_name is not None:
+            self.config = config_from_model_name(model_name, config_extras)
+        elif isinstance(pretrained_config, CommonConfig):
             self.config = pretrained_config
         else:
             self.config = config_from_dict(dict(pretrained_config, **(config_extras or {})))
@@ -75,7 +106,7 @@ class ModelWrapper:
         # fp8 = bf16 compute + delayed-scaling fp8 dots (`ops/fp8.py`), as in the JAX package
         self.use_fp8 = dtype == "fp8"
         self.dtype = torch.bfloat16 if self.use_fp8 else string_to_dtype(dtype)
-        self.tokenizer = _load_tokenizer(tokenizer_name)
+        self.tokenizer = _load_tokenizer(tokenizer_name or model_name)
         if self.tokenizer is not None and additional_special_tokens:
             added = self.tokenizer.add_special_tokens({"additional_special_tokens": additional_special_tokens})
             if added > 0 and self.tokenizer.vocab_size > self.config.vocab_size:
@@ -96,6 +127,10 @@ class ModelWrapper:
         )
         self.fp8 = enable_fp8(self.model) if self.use_fp8 else None
         self._generate_fns = {}  # a decode closure per generation settings
+        self._setup_model(seed)
+
+    def _setup_model(self, seed: int) -> None:
+        """Hook for the PEFT wrapper: wrap or extend `self.model` once it is built."""
 
     @property
     def is_encoder_decoder(self) -> bool:

@@ -10,8 +10,8 @@ model class through `models.config_from_dict` / `get_model_class`, as in the JAX
 package; the model's loss already includes a family's auxiliary loss (MoE router
 load balancing), so the wrapper adds nothing to it.
 
-`ModelWrapperForFinetuning`'s loss (padded finetuning batches) is not ported; the class
-builds the inference model of a finetuning config.
+`ModelWrapperForFinetuning` is the finetuning wrapper: the loss of collated
+instruction batches, padded or packed.
 """
 
 from __future__ import annotations
@@ -72,10 +72,40 @@ class ModelWrapperForPretraining(ModelWrapper):
 
 
 class ModelWrapperForFinetuning(ModelWrapper):
-    """The finetuning wrapper: generation from a finetuning config (or a config without a
-    checkpoint) works; its loss is not ported."""
+    """The finetuning wrapper (the JAX package's): the loss of a collated finetuning
+    batch, through the model's own labels path. A padded batch carries ``input_ids``,
+    ``attention_mask`` and the shifted ``labels``; a packed (padding-free) one
+    ``position_ids`` and ``segment_ids`` in place of the mask. Training by default, with
+    fp32 master weights; another mode stores the weights in the compute dtype."""
+
+    def __init__(
+        self,
+        pretrained_config: dict | CommonConfig | None,
+        neft_alpha: float | None = None,
+        *,
+        mode: Mode = Mode.training,
+        **kwargs,
+    ) -> None:
+        # NEFTune (noise on the input embeddings): the JAX package sets a "neft" rng that no
+        # module draws from, so its finetuning runs without noise; the port does the same
+        # (ROADMAP.md Queue C)
+        self.neft_alpha = neft_alpha
+        kwargs.setdefault("param_dtype", "fp32" if mode == Mode.training else None)
+        super().__init__(pretrained_config, mode=mode, **kwargs)
+
+    def prepare_inputs(self, batch: dict) -> dict:
+        """The model's keyword arguments from a collated batch (numpy arrays or tensors) on
+        the model's device; keys a batch does not carry are left out."""
+        device = self.model.device
+        inputs = {}
+        for key in ("input_ids", "attention_mask", "labels", "position_ids", "segment_ids"):
+            value = batch.get(key)
+            if value is not None:
+                inputs[key] = torch.as_tensor(value, device=device)
+        return inputs
 
     def loss(self, batch: dict, train: bool = True) -> torch.Tensor:
-        raise NotImplementedError(
-            "the finetuning loss is not ported yet: ROADMAP.md Queue A, 'Finetune and PEFT'"
-        )
+        """The scalar loss of one micro-batch (dropout on when `train`); the model's loss
+        includes a family's auxiliary loss."""
+        self.model.train(train)
+        return self.model(**self.prepare_inputs(batch), deterministic=not train).loss

@@ -116,11 +116,14 @@ class GPTDolomiteModel(nn.Module):
         cache_index: torch.Tensor | int | None = None,
         segment_ids: torch.Tensor | None = None,
         deterministic: bool = True,
+        inputs_embeds: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, list[KVCache] | None, list[torch.Tensor]]:
-        """(final hidden states, new caches, the blocks' extra outputs in layer order)."""
+        """(final hidden states, new caches, the blocks' extra outputs in layer order).
+        `inputs_embeds` ``[B, S, n_embd]`` (prompt tuning's virtual tokens before the
+        embedded ids) replaces the embedding lookup; `input_ids` then gives only the shape."""
         config = self.config
         batch, seq = input_ids.shape
-        hidden_states = self.wte(input_ids)
+        hidden_states = self.wte(input_ids) if inputs_embeds is None else inputs_embeds
         if position_ids is None:
             position_ids = torch.arange(seq, device=input_ids.device)[None, :]
             if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
@@ -261,6 +264,7 @@ class GPTDolomiteForCausalLM(nn.Module):
         labels: torch.Tensor | None = None,
         deterministic: bool = True,
         compute_loss: bool = False,
+        inputs_embeds: torch.Tensor | None = None,
     ) -> CausalLMOutput:
         """Logits, or with `labels` / `compute_loss` the mean next-token loss: through the
         chunked fused LM-head loss (no logits) when the config asks for it, else plain
@@ -275,6 +279,7 @@ class GPTDolomiteForCausalLM(nn.Module):
             cache_index=cache_index,
             segment_ids=segment_ids,
             deterministic=deterministic,
+            inputs_embeds=inputs_embeds,
         )
         want_loss = compute_loss or labels is not None
         # CommonConfig only allows the fused loss with tied embeddings
@@ -363,11 +368,20 @@ def _jax_module_params(params: Mapping, model: GPTDolomiteForCausalLM):
 def _jax_leaves(params: Mapping, model: GPTDolomiteForCausalLM):
     """(flax name, array in the torch layout, torch tensor) for every leaf of a tree shaped
     like the unrolled JAX params (the params, or optax's moments of them): flax ``[in,
-    out]`` linear kernels transposed to torch's ``[out, in]``; expert banks (3-D ``[E, in,
-    out]``, the grouped GEMM's layout) and their ``[E, out]`` biases as they are. A shape
-    that does not match raises."""
+    out]`` linear kernels and LoRA adapters transposed to torch's ``[out, in]``; expert
+    banks (3-D ``[E, in, out]``, the grouped GEMM's layout) and their ``[E, out]`` biases
+    as they are. A PEFT tree's base comes from its ``base_model`` key and its
+    ``prompt_embeddings`` as they are. A shape that does not match raises."""
     if "params" in params:
         params = params["params"]
+    if "base_model" in params:  # a PEFT model's tree: the base under "base_model"
+        if "prompt_embeddings" in params:
+            array = np.asarray(params["prompt_embeddings"]).astype(np.float32)
+            if tuple(array.shape) != tuple(model.prompt_embeddings.shape):
+                raise ValueError(f"prompt_embeddings: shape {array.shape} does not match {tuple(model.prompt_embeddings.shape)}")
+            yield "prompt_embeddings", array, model.prompt_embeddings
+        params = params["base_model"]
+        model = getattr(model, "base_model", model)  # prompt tuning wraps; LoRA adapts in place
     names = {"kernel": "weight", "embedding": "weight", "weight": "weight", "bias": "bias"}
     for tree, module in _jax_module_params(params, model):
         for flax_name, value in tree.items():
@@ -376,7 +390,7 @@ def _jax_leaves(params: Mapping, model: GPTDolomiteForCausalLM):
                 raise KeyError(f"unexpected parameter {flax_name!r} for {type(module).__name__}")
             # float32 first: numpy cannot hand bfloat16 (optax's bf16 first moment) to torch
             array = np.asarray(value).astype(np.float32)
-            if flax_name == "kernel" and array.ndim == 2:
+            if flax_name in ("kernel", "lora_a", "lora_b") and array.ndim == 2:
                 array = array.T
             if tuple(array.shape) != tuple(target.shape):
                 raise ValueError(
@@ -397,7 +411,9 @@ def load_jax_params(
     dtype: a training model's fp32 master weights take the JAX fp32 params exactly.
     Expert banks (3-D ``[E, in, out]`` kernels, the grouped GEMM's layout) and their
     ``[E, out]`` biases are copied as they are; a bank in another layout fails the shape
-    check. The caller converts JAX arrays with ``np.asarray``; this imports no JAX."""
+    check. A PEFT model (LoRA adapters in place, or `PromptTuningCausalLM`) takes the
+    JAX PEFT tree: the base under ``base_model``, the adapters beside their kernels. The
+    caller converts JAX arrays with ``np.asarray``; this imports no JAX."""
     model.to(resolve_device(device))
     for _, array, target in _jax_leaves(params_np, model):
         target.copy_(torch.from_numpy(np.ascontiguousarray(array)))

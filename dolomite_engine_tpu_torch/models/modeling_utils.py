@@ -77,7 +77,11 @@ def _as(tensor: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
 class ParameterizedLinear(nn.Module):
     """``y = x @ W.T + b`` with the weight stored ``[out, in]`` in `param_dtype` (default
     `dtype`), computed in `dtype`, and its init std kept. In an fp8 model (`ops/fp8.py`
-    `enable_fp8` sets `fp8`) the product is the delayed-scaling fp8 dot."""
+    `enable_fp8` sets `fp8`) the product is the delayed-scaling fp8 dot.
+
+    A LoRA target (`peft/lora.add_lora` sets `lora` and the fp32 adapters ``lora_a``
+    ``[rank, in]``, ``lora_b`` ``[out, rank]``) adds ``(alpha / rank) * dropout(x) @ A @ B``
+    in the compute dtype, the JAX module's hook; the dropout only in training mode."""
 
     fp8_dot = True  # an fp8 model gives this module flax's fp8 dot variables
 
@@ -104,6 +108,7 @@ class ParameterizedLinear(nn.Module):
             else None
         )
         self.fp8 = None
+        self.lora = None  # a LoRA target's (rank, alpha, dropout): `peft/lora.add_lora`
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.weight.normal_(0.0, self.std, generator=generator)
@@ -112,9 +117,17 @@ class ParameterizedLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fp8 is None:
-            return F.linear(x.to(self.dtype), _as(self.weight, self.dtype), _as(self.bias, self.dtype))
-        y = fp8_dot(x.to(self.dtype), _as(self.weight, self.dtype), self.fp8)
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+            y = F.linear(x.to(self.dtype), _as(self.weight, self.dtype), _as(self.bias, self.dtype))
+        else:
+            y = fp8_dot(x.to(self.dtype), _as(self.weight, self.dtype), self.fp8)
+            y = y if self.bias is None else y + self.bias.to(self.dtype)
+        if self.lora is not None:
+            h = x.to(self.dtype)
+            if self.training and self.lora.dropout > 0.0:
+                h = F.dropout(h, self.lora.dropout)
+            delta = F.linear(F.linear(h, self.lora_a.to(self.dtype)), self.lora_b.to(self.dtype))
+            y = y + (self.lora.alpha / self.lora.rank) * delta
+        return y
 
 
 class ParameterizedEmbedding(nn.Module):

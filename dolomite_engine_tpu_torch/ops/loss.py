@@ -5,7 +5,8 @@ JAX package's custom-vjp contract: the forward cuts the sequence into chunks and
 each chunk's logits to ``(loss_sum, z_sum, num_tokens)`` through the ``fused_ce`` kernel
 (`ops/kernels/fused_ce.py`), so the ``[B, S, V]`` logits never exist; the backward saves
 only ``(hidden, labels, table)``, recomputes each chunk through the plain
-`_chunk_ce_terms` body under autograd, and accumulates the table gradient in fp32.
+`_chunk_ce_terms` body under autograd, and accumulates the table gradient in fp32 (none
+for a frozen table).
 """
 
 from __future__ import annotations
@@ -111,22 +112,25 @@ class _ChunkedCETerms(torch.autograd.Function):
     def backward(ctx, d_loss_sum, d_z_sum, _):
         hidden_c, labels_c, table = ctx.saved_tensors
         logit_scale, upcast, compute_dtype, want_z = ctx.options
-        dtable = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+        # a frozen table (a PEFT run's tied embedding) gets no gradient: no fp32 buffer, no adds
+        want_table = ctx.needs_input_grad[2]
+        dtable = torch.zeros(table.shape, dtype=torch.float32, device=table.device) if want_table else None
         dhidden = torch.empty_like(hidden_c)
         for i, (h, y) in enumerate(zip(hidden_c, labels_c)):
             with torch.enable_grad():
                 h = h.detach().requires_grad_(True)
-                t = table.detach().requires_grad_(True)
+                t = table.detach().requires_grad_(want_table)
                 loss_sum, z_sum, _ = _chunk_ce_terms(h, t, y, logit_scale, upcast, compute_dtype, want_z)
                 outputs, cotangents = [loss_sum], [d_loss_sum]
                 if want_z:
                     outputs.append(z_sum)
                     cotangents.append(d_z_sum)
-                dh, dt = torch.autograd.grad(outputs, (h, t), cotangents)
-            dhidden[i] = dh
-            # fp32 accumulation across chunks whatever the table's compute dtype
-            dtable += dt.float()
-        return dhidden, None, dtable.to(table.dtype), None, None, None, None
+                grads = torch.autograd.grad(outputs, (h, t) if want_table else (h,), cotangents)
+            dhidden[i] = grads[0]
+            if want_table:
+                # fp32 accumulation across chunks whatever the table's compute dtype
+                dtable += grads[1].float()
+        return dhidden, None, None if dtable is None else dtable.to(table.dtype), None, None, None, None
 
 
 def fused_linear_cross_entropy(

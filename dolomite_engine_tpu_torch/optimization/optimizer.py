@@ -660,13 +660,15 @@ def get_optimizer(
     params_group_method: ParamsGroupMethod | str | None = None,
     model_config=None,
 ) -> Optimizer:
-    """The optimizer over `named_params` (``model.named_parameters()``)."""
+    """The optimizer over the trainable parameters of `named_params`
+    (``model.named_parameters()``): one frozen with ``requires_grad_(False)`` (a PEFT
+    run's base weights) gets no state and no update."""
     if optimizer_class_name not in OPTIMIZER_CLASSES:
         raise ValueError(f"invalid optimizer class '{optimizer_class_name}'")
     factory = OPTIMIZER_CLASSES[optimizer_class_name]
     if factory is None:
         raise ValueError(f"optimizer '{optimizer_class_name}' is not supported on TPU")
-    named_params = list(named_params)
+    named_params = [(name, p) for name, p in named_params if p.requires_grad]
     multipliers = None
     if params_group_method is not None:
         if ParamsGroupMethod(params_group_method) != ParamsGroupMethod.mup:

@@ -208,8 +208,13 @@ def health_groups(names: list[str] | None, count: int) -> dict[str, list[int]]:
 
 
 def squared_norms(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Each tensor's squared fp32 norm, on its device."""
-    return [n.square() for n in torch._foreach_norm([t.detach().float() for t in tensors])]
+    """Each tensor's squared fp32 norm, on its device: on a card from one fused
+    ``_foreach_norm`` pass, elsewhere the summed fp32 squares (JAX's ``sum(square(x))``;
+    the CPU's norm kernels lose precision on tensors of a few million elements)."""
+    tensors = [t.detach().float() for t in tensors]
+    if tensors and tensors[0].device.type == "cuda":
+        return [n.square() for n in torch._foreach_norm(tensors)]
+    return [t.square().sum() for t in tensors]
 
 
 def group_health(

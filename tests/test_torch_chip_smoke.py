@@ -4,7 +4,7 @@ telemetry windows, the checkpoint and the 2-layer resume check, bit-identical), 
 `training_options` phase inside it (the remat policies, fp8, offload and health, the
 optimizers), the `generate` phase inside it (`generate.main` over `configs/generation.yml` from that
 checkpoint with both engines, the greedy runs three ways, the logits check), the
-`speculative_generation` and `preemption` phases after it, and the `alibi_generation`
+`speculative_generation`, `preemption` and `finetune` phases after it, and the `alibi_generation`
 phase run at tiny widths (and 2 layers) through the kernels' plain versions."""
 
 import subprocess
@@ -47,7 +47,7 @@ def test_pretrain_phase_rehearsal(monkeypatch):
 
     rehearsal = {
         "model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512), "sequence_length": 128, "new_tokens": 8,
-        "longest_prompt": 256, "preempt_pages": 96,
+        "longest_prompt": 256, "preempt_pages": 96, "finetune_words": (4, 40),
     }
     # every run of the YAML at 2 of its 32 layers, the resume check's count: each phase's
     # control flow in a fifth of the time
@@ -121,6 +121,17 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     assert set(preemption["tiers"]["preempted_by_tier"]) == {1} and preemption["tiers"]["tier0_preemptions"] == 0
     assert preemption["int8_swap_round_trip"]["pages_and_scales_identical"]
     assert not any(speculative_launches.values()) and not any(preemption_launches.values())
+    # phase 18: full finetuning from the checkpoint (padded, packed), LoRA, prompt tuning
+    finetune = record["finetune"]
+    for name in ("full_padded", "full_padding_free", "lora", "prompt_tuning"):
+        assert len(finetune[name]["losses"]) == chip_smoke.FINETUNE_STEPS and sorted(finetune[name]["val_losses"]) == [0, 3]
+    assert finetune["full_padded"]["accumulation"] == 2 and finetune["full_padding_free"]["train_shapes"][0][0] == 1
+    assert finetune["lora"]["base_bit_identical"] and finetune["lora"]["adapters_moved"] == 4  # 2 layers' c_attn
+    assert finetune["prompt_tuning"]["trainable_tensors"] == 1
+    for method in ("full_finetuning", "lora"):  # the card's step against the CPU's: both on the CPU here
+        assert finetune["step_check"][method]["max_rel_err"] == {"loss": 0.0, "grad_norm": 0.0}
+    assert finetune["resume_check"]["bit_identical"] and finetune["resume_check"]["val_loss_identical"]
+    assert not any(finetune["launches"].values()) and finetune["expected_launches"]["flash_attn_bwd"] > 0
 
 
 def test_alibi_generation_phase_rehearsal(monkeypatch):

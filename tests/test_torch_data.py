@@ -23,7 +23,7 @@ from dolomite_engine_tpu.enums import DatasetSplit as JaxSplit
 from dolomite_engine_tpu.enums import LossMask as JaxLossMask
 from dolomite_engine_tpu.enums import Mode as JaxMode
 from dolomite_engine_tpu_torch import data
-from dolomite_engine_tpu_torch.arguments import DatasetArgs
+from dolomite_engine_tpu_torch.arguments import DatasetArgs, TrainingArgs
 from dolomite_engine_tpu_torch.enums import DatasetSplit, LossMask, Mode
 
 
@@ -136,8 +136,16 @@ def test_blended_and_registry_match_jax(jsonl_dir):
     assert blended.get_num_examples_in_each_dataset() == [5, 4] and repr(blended) == repr(jax_blended)
     with pytest.raises(ValueError, match="invalid class_name"):
         data.get_datasets_list([DatasetArgs(class_name="Nope", data_name="c", class_args={})], DatasetSplit.test, Mode.inference, None)
-    with pytest.raises(NotImplementedError, match="'Finetune and PEFT'"):
-        data.get_dataloader(None, DatasetSplit.train, Mode.training, WordTokenizer())
+    # the blended training loader over the same registry: micro batches of the collated rows
+    training = TrainingArgs(
+        model_args=dict(model_class="AutoModelForCausalLM", pretrained_config={"model_type": "gpt_dolomite"}),
+        tuning_args=dict(tuning_method="full_finetuning"), save_args=dict(save_path="unused", save_interval=1),
+        datasets=[DatasetArgs(**args[0]).model_dump()], training_parameters=dict(num_training_steps=2, micro_batch_size=2, eval_during_training=False),
+    )
+    loader = data.get_dataloader(training, DatasetSplit.train, Mode.training, WordTokenizer())
+    batches = list(loader)
+    assert len(batches) == len(loader) > 0 and all(b["input_ids"].shape[0] == 2 for b in batches)
+    assert all(b.keys() == {"input_ids", "attention_mask", "labels"} for b in batches)
 
 
 def _batch(rs, rows=3):

@@ -287,8 +287,13 @@ def test_other_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="'Interop and tools'"):
         generate.load_draft_model("a/draft")
     assert generate.load_draft_model(None) == (None, None)
-    with pytest.raises(NotImplementedError, match="'Finetune and PEFT'"):
-        ModelWrapperForFinetuning(ROPE_GQA, device="cpu").loss({})
+    # the finetuning wrapper's loss over a collated padded batch
+    finetuning = ModelWrapperForFinetuning(ROPE_GQA, device="cpu")
+    batch = {
+        "input_ids": np.array([[1, 1, 5, 6, 7], [8, 9, 10, 11, 12]]), "attention_mask": np.array([[0, 0, 1, 1, 1], [1, 1, 1, 1, 1]]),
+        "labels": np.array([[-100, -100, -100, 7, -100], [-100, -100, 11, 12, -100]]),
+    }
+    assert torch.isfinite(finetuning.loss(batch))
     training = TrainingArgs(
         model_args=model_args, tuning_args=dict(tuning_method="full_finetuning"), save_args=dict(save_path="unused", save_interval=1),
         datasets=[dict(class_name="DebugDataset", data_name="d", class_args={"num_examples": 1})],
@@ -297,8 +302,9 @@ def test_other_refusals(tmp_path):
     wrapper = get_model(training, Mode.inference, device="cpu")
     assert isinstance(wrapper, ModelWrapperForFinetuning)
     assert wrapper.model.transformer.h[0].attn.c_attn.weight.dtype == torch.bfloat16  # the compute dtype
-    with pytest.raises(NotImplementedError, match="'Finetune and PEFT'"):
-        get_model(training, Mode.training, device="cpu")
+    wrapper = get_model(training, Mode.training, device="cpu")  # finetuning trains: fp32 master weights
+    assert isinstance(wrapper, ModelWrapperForFinetuning)
+    assert wrapper.model.transformer.h[0].attn.c_attn.weight.dtype == torch.float32
 
 
 @pytest.mark.parametrize("rows, width", [(2, 13), (3, 16)])

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no flax, nothing of the JAX package.
 
 `dolomite_engine_tpu_torch` keeps its own copies of the framework-neutral modules it
-needs, so it imports on a machine without JAX (the GPU machine that runs
+needs (the finetuning sampler and dataloader among them), so it imports on a machine without JAX (the GPU machine that runs
 `chip_smoke.py` has none). Its entry points run on the GPU unless told otherwise.
 """
 
@@ -73,7 +73,7 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_default_to_the_gpu():
     import torch
 
-    from dolomite_engine_tpu_torch import generate
+    from dolomite_engine_tpu_torch import finetune, generate
     from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
     from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM, load_jax_params
     from dolomite_engine_tpu_torch.serving import ServingEngine
@@ -90,6 +90,8 @@ def test_entry_points_default_to_the_gpu():
         ServingEngine(model, None, num_slots=1, max_len=32, paged=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate.main(object())  # the device is resolved before the args are read
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finetune.main(object())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_jax_params(model, {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
