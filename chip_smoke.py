@@ -30,7 +30,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launch counts zeroed before and read after; then one step under `torch.profiler`
    (with the fused loss's backward: its device time in that step, and alone at the
    cell's shape by kernel family, ``loss_backward_alone``);
-7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (8 of its 24 layers, 32
+7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (4 of its 24 layers, 32
    experts, top-4, bf16, random weights) behind `ServingEngine` with the requests of
    phase 3, its logits check against a plain forward (router + every-expert
    `experts_eager`), the requests once more under `torch.profiler`, and once more
@@ -64,7 +64,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 12. ``pretrain`` (run right after phase 6): first the resume check at 2 layers (below),
    then the pretraining entry point, `dolomite_engine_tpu_torch.pretrain.main`, on
    `configs/pretraining-examples/pretrain-v5e-256-granite-3b.yml` loaded through the
-   port's `load_yaml` with one-card cuts (`pretrain_args`), over a seeded megatron corpus
+   port's `load_yaml` with one-card cuts (`pretrain_args`; the YAML's ZeRO stage 3 through
+   FSDP2 on a process group of one rank, its tensor and sequence parallelism cut), over a seeded megatron corpus
    built in a temporary directory: granite-3b-code at all 32 layers for 8 steps of
    accumulation 2 x [1, 4096] under the YAML's remat (every 2nd block, ``save_dots``), eval
    at steps 0, 4 and 8 and on the test split, the telemetry sink, one async save of the
@@ -105,7 +106,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    from the unpreempted tokens only at a near tie); an int8 swap round trip byte-identical on the
    card; launch counts asserted exactly;
 17. ``training_options`` (inside phase 12, right after its 32-layer run, on its corpus):
-   (a) phase 6's train step and repeated batch at 32 layers for 2 steps under each remat
+   (a) phase 6's train step and repeated batch at 8 of its 32 layers for 2 steps under each remat
    policy (``full``, ``save_attention_out``, ``save_dots``, ``offload_dots``,
    ``everything_saveable``; remat of every block, one seeded init): losses and grad norms
    identical to ``full``'s (every kernel on the path is deterministic), the device peaks
@@ -131,6 +132,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launches zeroed before each run and asserted exactly; then the card's step against the
    CPU's at 640 wide and 2 layers (full finetuning and LoRA) and a LoRA resume at 2 layers
    (3 steps, a save, a resumed run to 6 equal to 6 unbroken bit for bit);
+19. ``distribution`` (after phase 18): data-parallel training through FSDP2
+   (`distributed.wrap_model_for_distributed_training`) at a world of one: granite-3b-code's
+   width at 2 layers, 3 steps of accumulation 2 x [1, 4096] from one seed and the same batches
+   under ZeRO stages 0, 1, 2 and 3 and a 1 x 1 ``zero_topology``: losses and grad norms equal to
+   stage 0's bit for bit (else the first difference, held within 1e-6 relative), the launch
+   counts equal across the layouts, each layout's peak and step times; a stage-3 save restored
+   into a stage-0 model with the weights bit-identical;
 14. ``alibi_generation`` (last): MPT-7B's widths at 8 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
    bias form) and the paged engine (the gathered path), launch counts asserted, the
@@ -222,9 +230,9 @@ MOE_EP = dict(
     embd_pdrop=0.0, attn_pdrop=0.0, fused_lm_head_loss=True, bos_token_id=0, eos_token_id=0,
     pad_token_id=0,
 )
-# MoE serving (phases 7 and 9): 8 of the 24 layers, to keep the script inside its time
-# limit once phase 18 runs (the profile's replays cost ~4 s a layer)
-MOE_SERVE_LAYERS = 8
+# MoE serving (phases 7 and 9): 4 of the 24 layers, to keep the script inside its time
+# limit once phases 18 and 19 run (the profile's replays cost ~4 s a layer)
+MOE_SERVE_LAYERS = 4
 # MoE training: 8 of the 24 layers (fp32 master weights, gradients and AdamW state of all
 # 24 need ~137 GB), sequence 2048 as in the yml, micro batch 2 x accumulation 2
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 8, 2048, 2
@@ -2555,8 +2563,10 @@ def pretrain_corpus(directory, seed, vocab, eos, documents=PRETRAIN_DOCUMENTS):
 def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, load_path=None, decay_steps=None, rehearsal=None, tokenizer=None, options=None):
     """The granite YAML (`PRETRAIN_YAML`) through the port's `load_yaml`, with the one-card
     cuts: the corpus and a cache next to it, the word-level `tokenizer` directory
-    (`word_tokenizer`) for the hub one, one device at stage 0 (the YAML's remat: every
-    2nd block under ``save_dots``), micro batch 1 x accumulation 2, `steps` steps with 2
+    (`word_tokenizer`) for the hub one, one device at the YAML's ZeRO stage 3 through FSDP2
+    on a group of one rank (its tensor and sequence parallelism cut: ROADMAP.md Queue A,
+    'Distribution'; the YAML's remat: every 2nd block under ``save_dots``), micro batch 1 x
+    accumulation 2, `steps` steps with 2
     of warm-up and eval every 4, a save at the last step (the optimizer only if
     `save_optimizer`), and `n_layer` layers when given. `options` ({section: {key: value}})
     set the training options of phase 17 over the result. `rehearsal` (the CPU's run of
@@ -2569,7 +2579,7 @@ def pretrain_args(corpus, save_path, steps, n_layer=None, save_optimizer=False, 
     class_args.update(data_path=[corpus], data_cache_path=os.path.join(os.path.dirname(corpus), "cache"))
     config["tokenizer_args"] = {"tokenizer_name": tokenizer}
     config["distributed_args"] = {
-        "stage": 0, "gradient_checkpointing_method": "block",
+        "stage": config["distributed_args"]["stage"], "gradient_checkpointing_method": "block",
         "gradient_checkpointing_args": config["distributed_args"]["gradient_checkpointing_args"],
     }
     config["training_parameters"].update(
@@ -2849,7 +2859,8 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
 
 
 # phase 17: the training options (remat policies, fp8, CPU offload and health, optimizers)
-# on phase 12's corpus. (a) runs phase 6's repeated batch at 32 layers, 2 steps under each
+# on phase 12's corpus. (a) runs phase 6's repeated batch at `OPTION_REMAT_LAYERS` of its 32
+# layers (the script's time limit), 2 steps under each
 # policy (remat of every block; every kernel on the path is deterministic, no atomics, so
 # each policy must give `full`'s bits); (b) `pretrain.main` in fp8 for phase
 # 12's 8 steps, the `_scaled_mm` products at the dense projections' shapes, the card's fp8
@@ -2858,6 +2869,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
 # every registered optimizer on a 2-layer granite-width model on the card and the CPU
 OPTION_POLICIES = ("full", "save_attention_out", "save_dots", "offload_dots", "everything_saveable")
 OPTION_STEPS, OFFLOAD_STEPS, LAMB_STEPS, OPTIMIZER_UPDATES, OPTIMIZER_LAYERS = 2, 3, 3, 3, 2
+OPTION_REMAT_LAYERS = 8
 FP8_LOSS_BOUND = 0.02  # |mean fp8 loss - mean bf16 loss| / mean bf16 loss over phase 12's 8 steps
 # fp8 products: the fp8 values' bytes identical; the product within fp32 accumulation's
 # rounding, |kernel - plain| <= K * 2^-24 * (|a| @ |b|) * scales elementwise (the sum's error
@@ -2943,7 +2955,7 @@ def remat_policies_check(seed, device="cuda", rehearsal=None):
     from dolomite_engine_tpu_torch.train_utils import TrainState, estimate_remat_activation_bytes, make_train_step
 
     on_card = torch.device(device).type == "cuda"
-    config_kwargs, seq = TRAIN_CONFIG, TRAIN_SEQ
+    config_kwargs, seq = dict(TRAIN_CONFIG, n_layer=OPTION_REMAT_LAYERS), TRAIN_SEQ
     if rehearsal is not None:
         config_kwargs, seq = dict(TRAIN_CONFIG, **rehearsal["model"], n_layer=2), rehearsal["sequence_length"]
     _free(device)
@@ -3013,8 +3025,8 @@ def remat_policies_check(seed, device="cuda", rehearsal=None):
         check["peaks_gb"] = peaks
         assert peaks["full"] <= peaks["save_attention_out"] <= peaks["save_dots"], peaks
         assert peaks["offload_dots"] < peaks["save_dots"], peaks
-        # everything_saveable keeps every activation of the 32 blocks (the estimate's
-        # 44.4 GB): it may pass the headroom, the others may not
+        # everything_saveable keeps every activation of the blocks (the estimate's 44.4 GB
+        # at all 32): it may pass the headroom, the others may not
         assert all(peak < TRAIN_PEAK_GB for policy, peak in peaks.items() if policy != "everything_saveable"), peaks
         assert by_policy["offload_dots"]["pinned_host_peak_gb"] > 0
     return check, launches_total, forms_total
@@ -3313,6 +3325,7 @@ def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda"
 
     from dolomite_engine_tpu_torch import pretrain
     from dolomite_engine_tpu_torch.ops.kernels import reset_launch_counts
+    from dolomite_engine_tpu_torch.parallel.sharding import local
 
     on_card = torch.device(device).type == "cuda"
     save_path = os.path.join(work, "offload")
@@ -3327,11 +3340,12 @@ def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda"
         train_step = make(loss_fn, optimizer, **kwargs)
         device = optimizer.params[0].device
         # the parameters before each step, in host buffers (pinned on a card) made once
-        before = [torch.empty(p.shape, dtype=p.dtype, pin_memory=on_card) for p in optimizer.params]
+        params = [local(p) for p in optimizer.params]  # a world of one: the whole tensors
+        before = [torch.empty(p.shape, dtype=p.dtype, pin_memory=on_card) for p in params]
 
         def run(state, batch):
             t0 = time.perf_counter()
-            for buffer, p in zip(before, optimizer.params):
+            for buffer, p in zip(before, params):
                 buffer.copy_(p.detach(), non_blocking=True)
             _sync(device)
             overhead = time.perf_counter() - t0
@@ -3339,7 +3353,7 @@ def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda"
             t1 = time.perf_counter()
             sums = {}
             with torch.no_grad():
-                for name, p, old in zip(optimizer.param_names, optimizer.params, before):
+                for name, p, old in zip(optimizer.param_names, params, before):
                     old = old.to(device, non_blocking=True)
                     group = sums.setdefault(name.split(".")[0], [])
                     group.append(torch.stack([(p.float() - old.float()).square().sum(), old.float().square().sum()]))
@@ -4566,7 +4580,8 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
 # its 32-layer checkpoint). Cuts (PERF.md §4): the hub datasets (Alpaca, Dolly) become
 # `JSONLinesDataset`s of the seeded corpus's words (inputs and outputs of 16-1024 words, the
 # YAMLs' max_input_tokens / max_output_tokens); the hub model becomes a local `model_name`
-# directory (phase 12's config and word-level tokenizer); one device at stage 0; remat of every
+# directory (phase 12's config and word-level tokenizer); one device at the YAMLs' ZeRO stage 3
+# through FSDP2 on a group of one rank; remat of every
 # block (`full`: the YAMLs have none, and LoRA's activations alone would take ~59 GB at 8 x 2048);
 # the padded full finetuning run at micro batch 4 x accumulation 2 (beside the YAML's fp32
 # weights, gradients and two fp32 moments, 55.7 GB, 8 x 1 leaves too little for the padded
@@ -4636,8 +4651,10 @@ def finetune_args(yaml, model_dir, data_dir, save_path, steps, micro=(8, 1), pad
     config["model_args"].update(model_name=model_dir, use_padding_free_transformer=padding_free)
     if prompt_tuning:
         config["tuning_args"] = {"tuning_method": "prompt_tuning", "prompt_tuning_args": dict(PROMPT_TUNING)}
+    # the YAML's stage (lora.yml writes none: the default, 3)
     config["distributed_args"] = {
-        "stage": 0, "gradient_checkpointing_method": "block", "gradient_checkpointing_args": dict(FINETUNE_REMAT),
+        "stage": (config.get("distributed_args") or {}).get("stage", 3), "gradient_checkpointing_method": "block",
+        "gradient_checkpointing_args": dict(FINETUNE_REMAT),
     }
     config["training_parameters"].update(
         num_training_steps=steps, eval_interval=steps, micro_batch_size=micro[0], gradient_accumulation_steps=micro[1],
@@ -4807,6 +4824,7 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
     import torch
 
     from dolomite_engine_tpu_torch.models import CommonConfig
+    from dolomite_engine_tpu_torch.parallel.sharding import local
 
     on_card = torch.device(device).type == "cuda"
     from dolomite_engine_tpu_torch import finetune
@@ -4846,7 +4864,8 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
         sink = [json.loads(line) for line in open(os.path.join(save, "telemetry", "rank-00000.jsonl"))]
         report = next(r for r in sink if r["kind"] == "model_report")
         entry = {
-            "micro_batch": micro, "accumulation": accumulation, "padding_free": args.model_args.use_padding_free_transformer,
+            "layers": cfg.n_layer, "micro_batch": micro, "accumulation": accumulation,
+            "padding_free": args.model_args.use_padding_free_transformer,
             "losses": losses, "grad_norms": [s["grad_norm"] for s in steps], "lrs": [s["lr"] for s in steps],
             "val_losses": summary["val_losses"], "step_s": [s["step_seconds"] for s in steps],
             "train_shapes": consumed, "val_shapes": evals,
@@ -4871,12 +4890,12 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
     # starts (13.9 GB, resident through the run, so the run's peak is the step's plus it),
     # held against the parameters when it ends
     def copy(state):
-        return {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        return {n: local(p).detach().clone() for n, p in state.model.named_parameters()}
 
     def compare(state):
         before = capture["before_value"]
         trainable = set(state.optimizer.param_names)
-        same = {n: torch.equal(p, before[n]) for n, p in state.model.named_parameters()}
+        same = {n: torch.equal(local(p), before[n]) for n, p in state.model.named_parameters()}
         return {
             "base_bit_identical": all(v for n, v in same.items() if n not in trainable),
             "adapters_moved": sum(not v for n, v in same.items() if n in trainable),
@@ -4937,6 +4956,150 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
         shutil.rmtree(os.path.join(work, save_dir))
     _free(device)
     return record
+
+
+# phase 19: data-parallel training through FSDP2 (`distributed.wrap_model_for_distributed_training`)
+# at a world of one, the one card; granite-3b-code's width at 2 layers, phase 6's packed
+# batches and remat. Every ZeRO stage and a 1 x 1 zero_topology must give stage 0's bits
+DISTRIBUTION_LAYERS, DISTRIBUTION_STEPS, DISTRIBUTION_SEQ = 2, 3, 4096
+DISTRIBUTION_LAYOUTS = (("stage 0", 0, None), ("stage 1", 1, None), ("stage 2", 2, None), ("stage 3", 3, None), ("stage 3, zero_topology 1 x 1", 3, (1, 1)))
+DISTRIBUTION_RTOL = 1e-6  # held only where a stage is not bit-identical to stage 0
+
+
+def distribution_phase(seed, device="cuda", config_kwargs=None, seq=DISTRIBUTION_SEQ, work=None):
+    """Phase 19: `DISTRIBUTION_STEPS` train steps at accumulation 2 under each layout of
+    `DISTRIBUTION_LAYOUTS`, each from the same seed-`seed` weights and batches, wrapped by
+    FSDP2 on the process group of one rank (`utils.init_distributed`); then a stage-3 save
+    (`checkpointing.save_checkpoint`) restored into a stage-0 model. Losses and grad norms
+    must equal stage 0's bit for bit; where they do not, the first difference is reported
+    and held within `DISTRIBUTION_RTOL`. The kernels' launch counts must be equal under
+    every layout; each layout's peak memory and step times are reported. Returns (record,
+    launches summed over the layouts)."""
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.arguments import DistributedArgs, TrainingArgs
+    from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_training, save_checkpoint
+    from dolomite_engine_tpu_torch.distributed import wrap_model_for_distributed_training
+    from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.optimization import get_optimizer, get_scheduler
+    from dolomite_engine_tpu_torch.parallel.mesh import MeshManager
+    from dolomite_engine_tpu_torch.parallel.sharding import local
+    from dolomite_engine_tpu_torch.train_utils import TrainState, make_train_step
+    from dolomite_engine_tpu_torch.utils import init_distributed
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    init_distributed(None, device)
+    config_kwargs = dict(config_kwargs or TRAIN_CONFIG, n_layer=DISTRIBUTION_LAYERS)
+    rs = np.random.RandomState(seed + 19)
+    text = _packed_text(rs, DISTRIBUTION_STEPS * TRAIN_ACCUM, seq, config_kwargs["vocab_size"], config_kwargs["eos_token_id"])
+    batches = torch.as_tensor(text).reshape(DISTRIBUTION_STEPS, TRAIN_ACCUM, 1, seq + 1)
+
+    def build(stage, topology):
+        wrapper = ModelWrapperForPretraining(
+            config_kwargs, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
+            gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
+            device=device, seed=seed,
+        )
+        zero = {} if topology is None else {"zero_topology": dict(
+            data_parallel_replication_world_size=topology[0], data_parallel_sharding_world_size=topology[1])}
+        wrap_model_for_distributed_training(SimpleNamespace(distributed_args=DistributedArgs(stage=stage, **zero)), wrapper)
+        schedule = get_scheduler(2, 0, None, 10, "cosine", 0.1, base_lr=TRAIN_LR)
+        optimizer = get_optimizer("TorchAdamW", TRAIN_OPTIMIZER, schedule, wrapper.model.named_parameters())
+        return wrapper, TrainState(wrapper.model, optimizer)
+
+    runs, launches_by_layout, forms, kept = {}, {}, {}, None
+    for name, stage, topology in DISTRIBUTION_LAYOUTS:
+        _free(device)
+        wrapper, state = build(stage, topology)
+        train_step = make_train_step(
+            lambda micro, w=wrapper: w.loss(micro["text"]), state.optimizer, gradient_accumulation_steps=TRAIN_ACCUM,
+            gradient_clipping=1.0, skip_nonfinite=True,
+        )
+        reset_launch_counts()
+        metrics, times = [], []
+        for step in range(DISTRIBUTION_STEPS):
+            batch = {"text": batches[step].to(device)}
+            t0 = time.perf_counter()
+            metrics.append(train_step(state, batch))
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        launches_by_layout[name] = {spec.name: spec.launches for spec in KERNELS}
+        for form, n in form_counts().items():
+            forms[form] = forms.get(form, 0) + n
+        runs[name] = {
+            "stage": stage, "zero_topology": topology, "mesh": dict(zip(MeshManager.get_mesh().mesh_dim_names, MeshManager.get_mesh().shape)),
+            "losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_s": times, "peak_memory_gb": _peak_gb(device),
+        }
+        if stage == 3 and topology is None:
+            kept = (wrapper, state)
+        else:
+            del wrapper, state, train_step
+        MeshManager.destroy()
+
+    base = runs["stage 0"]
+    for name, run in runs.items():
+        differences = [
+            (step, key, run[key][step], base[key][step])
+            for step in range(DISTRIBUTION_STEPS) for key in ("losses", "grad_norms")
+            if run[key][step] != base[key][step]
+        ]
+        run["bit_identical_to_stage_0"] = not differences
+        if differences:
+            step, key, got, want = differences[0]
+            run["first_difference"] = {"step": step + 1, "metric": key, "value": got, "stage_0": want}
+            worst = max(abs(g - w) / abs(w) for _, _, g, w in differences)
+            run["max_rel_gap_to_stage_0"] = worst
+            assert worst <= DISTRIBUTION_RTOL, (name, run)
+        assert launches_by_layout[name] == launches_by_layout["stage 0"], (name, launches_by_layout)
+        assert all(np.isfinite(run["losses"])), run
+
+    # a stage-3 save restored into a stage-0 model: the weights bit for bit
+    work = work or tempfile.mkdtemp(prefix="distribution-")
+    args = TrainingArgs(
+        model_args=dict(model_class="AutoModelForCausalLM", pretrained_config=config_kwargs),
+        tuning_args=dict(tuning_method="pretraining"),
+        datasets=[dict(class_name="MegatronDataset", data_name="m", class_args={})],
+        save_args=dict(save_path=os.path.join(work, "stage3"), save_interval=DISTRIBUTION_STEPS),
+        load_args=dict(load_path=os.path.join(work, "stage3")),
+    )
+    wrapper, state = kept
+    t0 = time.perf_counter()
+    save_checkpoint(args, wrapper.model, state, None, None, DISTRIBUTION_STEPS)
+    save_s = time.perf_counter() - t0
+    saved = {n: local(p).detach().cpu().clone() for n, p in wrapper.model.named_parameters()}
+    del wrapper, state, kept
+    MeshManager.destroy()
+    _free(device)
+    wrapper, state = build(0, None)
+    t0 = time.perf_counter()
+    state, restored_step, _, _ = load_checkpoint_for_training(args, state)
+    load_s = time.perf_counter() - t0
+    same = {n: torch.equal(local(p).detach().cpu(), saved[n]) for n, p in wrapper.model.named_parameters()}
+    del wrapper, state
+    MeshManager.destroy()
+    shutil.rmtree(work, ignore_errors=True)
+    _free(device)
+    record = {
+        "config": "granite-3b-code", "layers": DISTRIBUTION_LAYERS, "steps": DISTRIBUTION_STEPS, "accumulation": TRAIN_ACCUM,
+        "micro_batch": [1, seq], "world": 1, "runs": runs, "launches_by_layout": launches_by_layout,
+        "launch_forms": forms,
+        "checkpoint": {"saved_at": "stage 3", "restored_into": "stage 0", "restored_step": restored_step,
+                       "tensors": len(same), "bit_identical": all(same.values()), "save_s": save_s, "load_s": load_s},
+        "tolerance": {"rtol": DISTRIBUTION_RTOL, "of": "losses and grad norms against stage 0's, where not bit-identical"},
+    }
+    assert record["checkpoint"]["bit_identical"] and restored_step == DISTRIBUTION_STEPS, record["checkpoint"]
+    if on_card:
+        assert all(run["peak_memory_gb"] < TRAIN_PEAK_GB for run in runs.values()), runs
+    launches = {spec.name: sum(counts[spec.name] for counts in launches_by_layout.values()) for spec in KERNELS}
+    return record, launches
 
 
 def finetune_kernel_cases(seed):
@@ -5208,6 +5371,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    distribution, distribution_launches = distribution_phase(args.seed)
+    print(json.dumps({"distribution": distribution, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+
     moe_serving, moe_serving_launches, model, specs, tokens = serve(args.seed, dict(MOE_EP, n_layer=MOE_SERVE_LAYERS))
     moe_serving["launches_per_forward"] = launches_per_forward(model)
     print(json.dumps({"moe_serving": moe_serving, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
@@ -5259,6 +5425,7 @@ def main() -> int:
         "alibi_generation": alibi_generation,
         "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
         "finetune": {"launch_forms": finetune["launch_forms"]},
+        "distribution": {"launch_forms": distribution["launch_forms"]},
     }
 
     verify_keys = ("shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5290,6 +5457,7 @@ def main() -> int:
             "alibi_generation": alibi_generation_launches[spec.name],
             "speculative_generation": speculative_launches[spec.name], "preemption": preemption_launches[spec.name],
             "finetune": finetune["launches"][spec.name],
+            "distribution": distribution_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

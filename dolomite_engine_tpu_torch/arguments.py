@@ -3,12 +3,16 @@
 Counterpart of `dolomite_engine_tpu/arguments.py`: the same class names, field names,
 defaults and cross-field validation, so the repo's YAMLs parse unchanged. A YAML parses
 whatever it asks for; `check_ported_options` (called by the port's entry points) then
-refuses, naming the ROADMAP item, each option the port does not run: more than one
-device, remat policies other than ``full``, fp8, CPU offload, the aim / wandb trackers,
-on-demand profiling, program signatures and in-step health statistics; and it refuses
-a pinned `kernel_args` family, since the port has no backend switch (the tensor's device
-picks the kernel or its plain version). ``scan_layers`` is accepted: it changes only the
-compiled program of the JAX package, and the port runs its blocks in a Python loop.
+refuses, naming the ROADMAP item, each option the port does not run: tensor, context,
+expert and sequence parallelism, the aim / wandb trackers, on-demand profiling and
+program signatures; and it refuses a pinned `kernel_args` family, since the port has no
+backend switch (the tensor's device picks the kernel or its plain version). Every ZeRO
+stage, ``data_parallel_size`` (held to the world), ``zero_topology`` and
+``dispatching_dataloader`` run, as do the remat policies, fp8, CPU offload and the
+health statistics. ``scan_layers`` is accepted: it changes only the compiled program of
+the JAX package, and the port runs its blocks in a Python loop.
+`check_ported_inference_options` refuses a ``model_name`` without ``load_args``: the
+JAX package loads that directory's weights, which the port does not read yet.
 """
 
 from __future__ import annotations
@@ -1001,7 +1005,7 @@ def _check_datasets(datasets: list[DatasetArgs]) -> None:
     )
 
 
-_DISTRIBUTION = "is not ported yet: ROADMAP.md Queue A, 'Distribution' (the port trains on one device)"
+_DISTRIBUTION = "is not ported yet: ROADMAP.md Queue A, 'Distribution' (the port runs data parallelism only)"
 
 
 def _check_model_name(model_name: str | None) -> None:
@@ -1016,18 +1020,12 @@ def _check_model_name(model_name: str | None) -> None:
 def check_ported_options(args: TrainingArgs) -> None:
     """Refuse, naming its ROADMAP item, each option of `args` the port does not run."""
     dist = args.distributed_args
-    if dist.stage > 0:
-        raise NotImplementedError(f"distributed_args.stage {dist.stage} (ZeRO sharding) {_DISTRIBUTION}")
     for name in ("tensor_parallel_size", "context_parallel_size", "expert_parallel_size"):
         if getattr(dist, name) > 1:
             raise NotImplementedError(f"distributed_args.{name} {getattr(dist, name)} {_DISTRIBUTION}")
-    if (dist.data_parallel_size or 1) > 1:
-        raise NotImplementedError(f"distributed_args.data_parallel_size {dist.data_parallel_size} {_DISTRIBUTION}")
-    for name in ("sequence_parallel", "tensor_parallel_word_embeddings", "dispatching_dataloader"):
+    for name in ("sequence_parallel", "tensor_parallel_word_embeddings"):
         if getattr(dist, name):
             raise NotImplementedError(f"distributed_args.{name} {_DISTRIBUTION}")
-    if dist.zero_topology.data_parallel_sharding_world_size is not None:
-        raise NotImplementedError(f"distributed_args.zero_topology {_DISTRIBUTION}")
     _check_model_name(args.model_args.model_name)
     logging_args = args.logging_args
     if logging_args.experiments_tracker_name is not None:
@@ -1072,4 +1070,11 @@ def check_ported_inference_options(args: InferenceArgs) -> None:
         )
     if args.model_args is not None:
         _check_model_name(args.model_args.model_name)
+        if args.model_args.model_name is not None and args.load_args is None:
+            raise NotImplementedError(
+                f"generation from model_args.model_name '{args.model_args.model_name}' without "
+                "load_args: the JAX package loads that directory's model.safetensors, which is not "
+                "ported yet: ROADMAP.md Queue A, 'Interop and tools' (pass load_args with a "
+                "checkpoint the port wrote)"
+            )
     args.kernel_args.check()

@@ -11,10 +11,14 @@ Counterpart of `dolomite_engine_tpu/checkpointing.py`, with its layout:
         training_config.yml         the full args snapshot
     <save_path>/latest_checkpointed_iteration.json
 
-`state/` is written by `torch.distributed.checkpoint` (DCP) in one process with no
-process group (up to 8 writer threads, a file each), where the JAX package writes orbax: DCP keys every tensor by its path
-(``model.transformer.h.0.attn.c_attn.weight``, ``optimizer.mu.<parameter>``), so a later
-sharded (FSDP2 / DTensor) state can reshard on load, as orbax does. The tree
+`state/` is written by `torch.distributed.checkpoint` (DCP) (up to 8 writer threads, a
+file each), where the JAX package writes orbax: DCP keys every tensor by its path
+(``model.transformer.h.0.attn.c_attn.weight``, ``optimizer.mu.<parameter>``). Over more
+than one rank every rank writes its shards of the FSDP2 (DTensor) parameters and
+optimizer state, and a load at the same or another world size reshards them, as orbax
+does; a world of one writes with no collectives (``no_dist``). Each rank keeps its own
+RNG state; the finetuning loader's state is rank 0's, as JAX saves process 0's, and every
+rank restores its own sampler from it. The tree
 (`TrainState.state_dict`) holds the step, the model, an fp8 run's delayed-scaling state
 (``fp8.<module>.<variable>``; restored only when both the run and the checkpoint have one,
 as in JAX) and, with ``save_optimizer``, the optimizer's state lists in their storage
@@ -26,7 +30,9 @@ Every load toggle of `LoadArgs` is honoured. ``resume_learning_rate: false`` (or
 as the JAX package's `_zero_schedule_step` does to optax's schedule state.
 
 ``async_checkpointing``: `save_checkpoint` copies the tree to the host and starts the
-write on a background thread; `finish_pending_checkpoint` joins it and commits. A commit
+write on a background thread, whose collectives run on a gloo group of their own
+(`utils.distributed.checkpoint_group`), apart from the training step's;
+`finish_pending_checkpoint` joins it and commits. A commit
 validates the written state (its DCP metadata must read and be non-empty) before the
 `latest` pointer advances, then prunes to ``keep_last_n``, never the checkpoint `latest`
 names. Every durable-path operation retries transient I/O errors with bounded backoff
@@ -46,10 +52,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.tensor import DTensor
 
 from .device import resolve_device
 from .enums import Mode, TuningMethod
+from .parallel.sharding import like
 from .train_utils import TrainState
 from .utils import dump_yaml, get_telemetry, log_rank_0, process_index, retry_io, trace_annotation
 
@@ -92,6 +101,15 @@ def _state_path(base: str) -> str:
 
 def _is_primary() -> bool:
     return process_index() == 0
+
+
+def _dcp_kwargs() -> dict:
+    """DCP's collectives: none in a world of one, else over the checkpoint's own group."""
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return {"no_dist": True}
+    from .utils.distributed import checkpoint_group
+
+    return {"process_group": checkpoint_group()}
 
 
 # --------------------------------------------------------------------------------- rng
@@ -255,6 +273,8 @@ def _to_host(tree):
     while an async write reads it)."""
     if isinstance(tree, dict):
         return {key: _to_host(value) for key, value in tree.items()}
+    if isinstance(tree, DTensor):  # this rank's shard, with its place in the whole
+        return like(tree, tree.to_local().detach().to("cpu", copy=True))
     return tree.detach().to("cpu", copy=True)
 
 
@@ -281,13 +301,14 @@ def save_checkpoint(
     with trace_annotation("checkpoint_save"):
         host_tree = _to_host(state.state_dict(with_optimizer=args.save_args.save_optimizer))
         state_path = os.path.abspath(_state_path(base))
+        dcp_kwargs = _dcp_kwargs()  # the group is made here, on the main thread of every rank
 
         def write() -> None:
             retry_io(
                 lambda: dcp.save(
                     host_tree,
                     storage_writer=dcp.FileSystemWriter(state_path, overwrite=True, thread_count=_WRITE_THREADS),
-                    no_dist=True,
+                    **dcp_kwargs,
                 ),
                 description=f"checkpoint write global_step{iteration}",
                 **retry_kwargs,
@@ -301,10 +322,10 @@ def save_checkpoint(
     with open(os.path.join(base, f"rng_state-{process_index()}.json"), "w") as f:
         json.dump(get_rng_state(rng_generator), f)
 
-    if train_dataloader is not None:
+    if train_dataloader is not None and _is_primary():  # rank 0's, as JAX saves process 0's
         dl_dir = os.path.join(base, "dataloader")
         os.makedirs(dl_dir, exist_ok=True)
-        with open(os.path.join(dl_dir, f"process-{process_index()}.json"), "w") as f:
+        with open(os.path.join(dl_dir, "process-0.json"), "w") as f:
             json.dump(train_dataloader.state_dict(), f)
 
     if _is_primary():
@@ -370,8 +391,9 @@ def load_checkpoint_for_training(
     if "fp8" in tree and not any(key.startswith("fp8.") for key in saved_keys):
         # a checkpoint without fp8 state (a bf16 run's) keeps the fresh state, as in JAX
         del tree["fp8"]
+    dcp_kwargs = _dcp_kwargs()
     retry_io(
-        lambda: dcp.load(tree, checkpoint_id=state_path, no_dist=True),
+        lambda: dcp.load(tree, checkpoint_id=state_path, **dcp_kwargs),
         description="checkpoint restore",
         **retry_kwargs,
     )
@@ -391,7 +413,9 @@ def load_checkpoint_for_training(
             generator = set_rng_state(json.load(f))
 
     if load_args.load_dataloader_state and train_dataloader is not None:
-        dl_path = os.path.join(base, "dataloader", f"process-{process_index()}.json")
+        # rank 0's state: the samplers of all ranks share their epoch and cursor, and each
+        # keeps its own rank
+        dl_path = os.path.join(base, "dataloader", "process-0.json")
         if os.path.isfile(dl_path):
             with open(dl_path) as f:
                 train_dataloader.load_state_dict(json.load(f))
@@ -485,10 +509,11 @@ def load_checkpoint_for_inference(
 
     state_path = os.path.abspath(_state_path(base))
     planner = _TimedLoadPlanner()
+    dcp_kwargs = _dcp_kwargs()
 
     def restore():
         planner.read_s = planner.copy_s = 0.0  # a retry starts over
-        dcp.load({"model": model.model.state_dict()}, checkpoint_id=state_path, planner=planner, no_dist=True)
+        dcp.load({"model": model.model.state_dict()}, checkpoint_id=state_path, planner=planner, **dcp_kwargs)
 
     retry_io(restore, description="inference weights restore", **retry_kwargs)
     t2 = time.perf_counter()

@@ -7,6 +7,9 @@ from __future__ import annotations
 import logging
 from functools import partial
 
+import torch
+import torch.distributed as dist
+
 from ..enums import DatasetSplit, Mode
 from ..utils import log_rank_0
 from .base import BaseDataset, BlendedDatasets
@@ -82,49 +85,69 @@ def get_dataloader(
     mode: Mode,
     tokenizer,
     is_encoder_decoder: bool = False,
-    mesh=None,
-) -> ResumableDataLoader | None:
-    """The blended finetuning dataloader of `split` (None when it has no examples): the
-    JAX package's `get_dataloader` on one device and one process (its ``mesh=None`` path),
-    so a batch is ``micro_batch_size`` examples. Batches are numpy arrays from
-    `collate_fn`: left-padded with ``attention_mask``, or packed (padding-free) with
-    ``position_ids`` / ``segment_ids``. A mesh and ``dispatching_dataloader`` raise."""
+) -> ResumableDataLoader | ShardedDataLoader | DispatchingDataLoader | None:
+    """The blended finetuning dataloader of `split` (None when it has no examples), the
+    JAX package's `get_dataloader` with one process a data-parallel rank. Each rank samples
+    its own strided shard of the global batch (``num_replicas`` = the world, ``rank`` =
+    its rank) and yields its ``micro_batch_size`` examples; with more than one rank the
+    loader is a `ShardedDataLoader`. ``dispatching_dataloader``: only rank 0 builds the
+    datasets and samples the whole global batch, the data's presence is agreed by a
+    broadcast, and every rank gets a `DispatchingDataLoader`.
+    Batches are numpy arrays from `collate_fn` (tensors from the dispatching loader):
+    left-padded with ``attention_mask``, or packed (padding-free) with ``position_ids`` /
+    ``segment_ids``."""
     assert mode == Mode.training, "blended dataset is only supported in training mode"
     assert tokenizer is not None, (
         "finetuning data pipeline requires a tokenizer: set model_args.model_name or "
         "model_args.tokenizer_name"
     )
-    if args.distributed_args.dispatching_dataloader:
-        DispatchingDataLoader()
-    if mesh is not None:
-        ShardedDataLoader()
+    distributed = dist.is_available() and dist.is_initialized()
+    rank = dist.get_rank() if distributed else 0
+    world = dist.get_world_size() if distributed else 1
+    dispatching = args.distributed_args.dispatching_dataloader
 
-    datasets_list, data_sampling_ratios = get_datasets_list(
-        dataset_args_list=args.datasets,
-        split=split,
-        mode=Mode.training,
-        tokenizer=tokenizer,
-        is_encoder_decoder=is_encoder_decoder,
-        num_virtual_tokens=args.tuning_args.get_num_virtual_tokens(),
-    )
-    if len(datasets_list) == 0:
+    datasets_list, data_sampling_ratios = [], []
+    if not (dispatching and rank != 0):
+        # the other ranks of a dispatching run never touch storage: the mode's point
+        datasets_list, data_sampling_ratios = get_datasets_list(
+            dataset_args_list=args.datasets,
+            split=split,
+            mode=Mode.training,
+            tokenizer=tokenizer,
+            is_encoder_decoder=is_encoder_decoder,
+            num_virtual_tokens=args.tuning_args.get_num_virtual_tokens(),
+        )
+
+    if dispatching and distributed:
+        # agreed by every rank: if rank 0 has no data for this split it returns None and
+        # never joins the loader's broadcasts, so a receiver would wait forever
+        has_data = torch.tensor([int(len(datasets_list) > 0)], dtype=torch.int32)
+        dist.broadcast(has_data, src=0)
+        if not int(has_data[0]):
+            return None
+        if rank != 0:
+            return DispatchingDataLoader(None)
+    elif len(datasets_list) == 0:
         return None
 
     blended_dataset = BlendedDatasets(datasets=datasets_list, split=split)
+    # dispatching: rank 0 samples the WHOLE global batch; else each rank its shard
+    num_replicas = 1 if dispatching else world
     sampler = BlendedDistributedSampler(
         dataset=blended_dataset,
         data_sampling_ratios=[1] if len(datasets_list) == 1 else data_sampling_ratios,
-        num_replicas=1,
-        rank=0,
+        num_replicas=num_replicas,
+        rank=0 if dispatching else rank,
         ignore_sampling_proportion_for_validation=args.training_parameters.ignore_sampling_proportion_for_validation,
         shuffle=split == DatasetSplit.train,
         seed=args.random_args.seed,
         drop_last=False,
     )
     micro_batch_size = args.training_parameters.micro_batch_size
+    local_batch = micro_batch_size * world // num_replicas
     loader = ResumableDataLoader(
         blended_dataset,
-        batch_size=max(micro_batch_size, 1),
+        batch_size=max(local_batch, 1),
         sampler=sampler,
         collate_fn=partial(
             collate_fn,
@@ -143,8 +166,12 @@ def get_dataloader(
         args.training_parameters.num_training_steps,
         args.training_parameters.gradient_accumulation_steps,
         micro_batch_size,
-        1,
+        world,
     )
+    if dispatching:
+        return DispatchingDataLoader(loader)
+    if world > 1:
+        return ShardedDataLoader(loader)
     return loader
 
 

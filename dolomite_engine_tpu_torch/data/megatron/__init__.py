@@ -1,10 +1,11 @@
 """Megatron-style pretraining dataloaders over mmap token corpora.
 
 Counterpart of `dolomite_engine_tpu/data/megatron/__init__.py`: the same datasets, splits,
-index caches and sample order. The port trains in one process: it builds the caches
-itself and yields plain int64 CPU batches, ``{"text": [micro_batch_size, seq + 1]}``;
-moving them to the device is the prefetcher's job (`data/prefetch.py`). A
-`torch.distributed` world larger than one raises (ROADMAP.md Queue A, 'Distribution').
+index caches and sample order. Each data-parallel rank yields its own plain int64 CPU
+batches, ``{"text": [micro_batch_size, seq + 1]}`` (the YAML's micro batch, JAX's
+per-device batch), so the ranks' rows at a step are the rows of the JAX package's global
+micro batch; moving them to the device is the prefetcher's job (`data/prefetch.py`).
+Rank 0 builds the index caches while the others wait on a barrier, then read them.
 """
 
 from __future__ import annotations
@@ -79,16 +80,19 @@ def get_megatron_gpt_dataloaders(args, tokenizer, consumed_samples: int):
     micro_batch_size = args.training_parameters.micro_batch_size
     sequence_length = class_args.get("sequence_length")
 
-    compile_helpers()
+    distributed = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    rank = dist.get_rank() if distributed else 0
+    # one data-parallel rank a process (tensor / context parallelism are not ported)
+    dp_world_size = dist.get_world_size() if distributed else 1
+
+    if rank == 0:
+        compile_helpers()
+    if distributed:
+        dist.barrier()
+        if rank != 0:
+            compile_helpers()  # built by rank 0: loads it
 
     log_rank_0(logging.INFO, "> building train, validation, and test datasets for GPT ...")
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "megatron dataloaders over more than one process are not ported yet: ROADMAP.md "
-            "Queue A, 'Distribution'"
-        )
-    dp_world_size = 1
 
     sizes = _get_train_val_test_samples(
         args.training_parameters.num_training_steps,
@@ -164,7 +168,13 @@ def get_megatron_gpt_dataloaders(args, tokenizer, consumed_samples: int):
 
         return train_ds, val_ds, test_ds
 
-    train_ds, val_ds, test_ds = _build(_make_builder(caching_allowed=True))
+    # rank 0 builds (and writes the caches) first; every other rank reads the caches
+    if rank == 0:
+        train_ds, val_ds, test_ds = _build(_make_builder(caching_allowed=True))
+    if distributed:
+        dist.barrier()
+        if rank != 0:
+            train_ds, val_ds, test_ds = _build(_make_builder(caching_allowed=False))
 
     log_rank_0(logging.INFO, "> finished creating GPT datasets ...")
 
@@ -175,8 +185,8 @@ def get_megatron_gpt_dataloaders(args, tokenizer, consumed_samples: int):
             total_samples=len(dataset),
             consumed_samples=consumed,
             micro_batch_size=micro_batch_size,
-            num_replicas=1,
-            rank=0,
+            num_replicas=dp_world_size,
+            rank=rank,
         )
         return iter(MegatronDataLoader(dataset, sampler))
 

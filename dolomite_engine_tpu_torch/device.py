@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -15,6 +17,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "dolomite_engine_tpu_torch runs on an NVIDIA GPU by default and no CUDA "
                 "device is available; pass device='cpu' to run the plain PyTorch versions"
             )
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        if device.index is None:  # under torchrun, this process's card
+            local_rank = os.environ.get("LOCAL_RANK")
+            device = torch.device("cuda", int(local_rank) if local_rank is not None else torch.cuda.current_device())
     return device

@@ -15,7 +15,12 @@ Step batches come from a `StepPrefetcher` that gathers the accumulation micro-ba
 `torch.Generator` (seeded from ``random_args.seed``, saved in the checkpoint), as in
 `pretrain.py`. Under LoRA and prompt tuning only the adapters train
 (`model_wrapper/peft.py`); ``research_args.neft_alpha`` adds no noise, as in JAX (ROADMAP.md
-Queue C). `main(args, device="cuda")` runs on the card; the tests pass ``device="cpu"``.
+Queue C). `main` joins the process group and shards the model under the ZeRO stage, as
+`pretrain.main` does; each rank reads its strided shard of every global batch (or, with
+``dispatching_dataloader``, its rows of the batch rank 0 broadcasts), the losses divide
+by the global batch's token count (`ops/loss.py`), and the eval loss and a preemption
+notice are agreed over the ranks. `main(args, device="cuda")` runs on the card; the tests
+pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from .checkpointing import (
 )
 from .data import PrefetchingIterable, StepPrefetcher, get_dataloader
 from .device import resolve_device
+from .distributed import wrap_model_for_distributed_training
 from .enums import DatasetSplit, Mode, TuningMethod
 from .model_wrapper import get_model, log_model
 from .optimization import build_optimizer_from_args
@@ -52,16 +58,20 @@ from .utils import (
     ExperimentsTracker,
     ProgressBar,
     StallWatchdog,
+    any_rank,
     build_health_monitor,
     build_telemetry,
     crash_reason,
     emit_model_report,
+    init_distributed,
     install_preemption_handler,
     install_telemetry,
     log_rank_0,
     preemption_requested,
+    process_index,
     register_crash_hook,
     step_annotation,
+    sum_over_ranks,
     trace_annotation,
     uninstall_preemption_handler,
     uninstall_telemetry,
@@ -85,7 +95,8 @@ def stack_micro_batches(micros: list[dict]) -> dict:
 
 
 def evaluate(val_dataloader, model, global_step: int, experiments_tracker) -> float | None:
-    """A full pass over the validation loader: the mean of its batches' losses."""
+    """A full pass over the validation loader: the mean of its batches' losses (over the
+    ranks, each rank's batch loss its share of the global batch's)."""
     if val_dataloader is None:
         return None
     loss_sum, count = 0.0, 0
@@ -95,7 +106,7 @@ def evaluate(val_dataloader, model, global_step: int, experiments_tracker) -> fl
         count += 1
     if count == 0:
         return None
-    loss = loss_sum / count
+    loss = sum_over_ranks(loss_sum) / count
     if experiments_tracker is not None:
         experiments_tracker.track({"loss": loss}, step=global_step, context="val")
     log_rank_0(logging.INFO, f"step = {global_step}, val loss = {loss:.4f}")
@@ -200,7 +211,8 @@ def train(
             data_seconds = prefetcher.last_wait_seconds
 
             step_start = time.perf_counter()
-            torch.manual_seed(int(torch.randint(0, 2**62, (), generator=rng_generator)))  # this step's dropout
+            # this step's dropout, other masks on each rank's rows
+            torch.manual_seed(int(torch.randint(0, 2**62, (), generator=rng_generator)) + process_index())
             with get_profiler_context(args.logging_args.torch_profiler_trace_path, global_step), step_annotation(
                 global_step
             ):
@@ -267,7 +279,7 @@ def train(
             if logging_step:
                 telemetry.emit_window(global_step)
 
-            if preemption_requested():
+            if any_rank(preemption_requested()):  # one rank's notice makes every rank save
                 preempted = True
                 log_rank_0(
                     logging.WARNING, f"preemption notice: saving final checkpoint at step {global_step} and exiting"
@@ -309,6 +321,7 @@ def main(args: TrainingArgs | None = None, device: str | torch.device = "cuda") 
         args = get_args(Mode.training)
     assert args.tuning_args.tuning_method in FINETUNING_METHODS, "finetune requires a finetuning tuning method"
     check_ported_options(args)
+    init_distributed(args.distributed_args.timeout_minutes, device)
 
     seed = args.random_args.seed
     random.seed(seed)
@@ -317,6 +330,7 @@ def main(args: TrainingArgs | None = None, device: str | torch.device = "cuda") 
 
     model = get_model(args, Mode.training, device=device)
     log_model(model)
+    wrap_model_for_distributed_training(args, model)
 
     train_dataloader = get_dataloader(
         args, DatasetSplit.train, Mode.training, model.tokenizer, is_encoder_decoder=model.is_encoder_decoder

@@ -8,9 +8,12 @@ weights from `seed`, and batch generation (`generate`, through
 `generation_utils.make_generate_fn`). The wrapper owns the port's model directly: there
 are no separate params, no sharding rules and no apply scope. `model_name` as a local
 directory gives the config (its ``config.json``, which must name a dolomite family) and
-the tokenizer, as the JAX package's `_setup_config` does; the weights stay random, as
-there (its `load_pretrained_params` has no caller: a finetune starts from a trained model
-through ``load_args``). A hub id is not ported.
+the tokenizer, as the JAX package's `_setup_config` does; the weights stay random, as in
+the JAX package's finetuning, which starts from a trained model through ``load_args``.
+The JAX package's `generate.main` does read the directory's ``model.safetensors``
+(`load_pretrained_params`); the port does not yet, so its generation refuses a
+``model_name`` without ``load_args`` (`arguments.check_ported_inference_options`). A hub
+id is not ported.
 """
 
 from __future__ import annotations

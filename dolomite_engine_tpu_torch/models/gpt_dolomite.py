@@ -225,6 +225,8 @@ class GPTDolomiteForCausalLM(nn.Module):
             )
         )
         self.fp8 = None  # an fp8 model's state slot (`ops/fp8.enable_fp8`)
+        # the data-parallel ranks a wrapped model's losses normalize over (`ops/loss.py`)
+        self.data_parallel_group = None
         if device.type != "meta":  # on the meta device the weights come from a checkpoint
             self.init_weights(seed)
 
@@ -296,6 +298,7 @@ class GPTDolomiteForCausalLM(nn.Module):
                 logit_scale=None if config.m_width is None else 1.0 / config.m_width,
                 compute_dtype=self.dtype,
                 z_loss_coef=config.z_loss_coef,
+                group=self.data_parallel_group,
             )
             logits = None
         else:
@@ -310,6 +313,7 @@ class GPTDolomiteForCausalLM(nn.Module):
                     segment_ids=segment_ids,
                     labels=labels,
                     z_loss_coef=config.z_loss_coef,
+                    group=self.data_parallel_group,
                 )
         aux_loss = None
         if want_loss:

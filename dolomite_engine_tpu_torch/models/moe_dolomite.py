@@ -257,6 +257,7 @@ class MoEDolomiteForCausalLM(GPTDolomiteForCausalLM):
         if token_mask is not None:
             token_mask = token_mask.repeat(len(extras))
         aux = load_balancing_loss(
-            all_logits, config.num_experts, config.num_experts_per_tok, token_mask=token_mask
+            all_logits, config.num_experts, config.num_experts_per_tok, token_mask=token_mask,
+            group=self.data_parallel_group,
         )
         return config.router_aux_loss_coef * aux

@@ -148,12 +148,29 @@ class Fp8State:
     def __init__(self, tensors: dict[str, torch.Tensor]) -> None:
         self.tensors = tensors
         self.staged: dict[str, torch.Tensor] = {}
+        # data-parallel ranks: each saw only its rows, so the staged amax updates are
+        # reduced (max) over `group` at the commit; the rest of the staged state is the
+        # same on every rank, which the max keeps
+        self.group = None
 
     def commit(self) -> None:
         with torch.no_grad():
+            if self.group is not None and self.staged:
+                self._reduce_staged()
             for key, value in self.staged.items():
                 self.tensors[key].copy_(value)
         self.staged.clear()
+
+    def _reduce_staged(self) -> None:
+        """One max all-reduce of every staged tensor, so every rank commits the amax of
+        the global batch, as GSPMD takes it over the batch-sharded tensor."""
+        import torch.distributed as dist
+
+        keys = list(self.staged)
+        flat = torch.cat([self.staged[key].float().reshape(-1) for key in keys])
+        dist.all_reduce(flat, op=dist.ReduceOp.MAX, group=self.group)
+        for key, part in zip(keys, flat.split([self.staged[key].numel() for key in keys])):
+            self.staged[key] = part.reshape(self.staged[key].shape).to(self.staged[key].dtype)
 
     def snapshot(self) -> dict[str, torch.Tensor]:
         return {key: value.clone() for key, value in self.tensors.items()}

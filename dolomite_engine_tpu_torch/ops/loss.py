@@ -7,11 +7,18 @@ each chunk's logits to ``(loss_sum, z_sum, num_tokens)`` through the ``fused_ce`
 only ``(hidden, labels, table)``, recomputes each chunk through the plain
 `_chunk_ce_terms` body under autograd, and accumulates the table gradient in fp32 (none
 for a frozen table).
+
+Over data-parallel ranks (`group` given) a loss divides its local sums by the valid-token
+count of the global batch, all-reduced: each rank's loss is its share of the JAX
+package's loss over the batch-sharded global batch, whatever each rank's own count, and
+FSDP2 sums the ranks' gradients (`distributed.shard_module`), so the reduced gradient is
+that of ``sum / global_count``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .kernels.fused_ce import IGNORE_INDEX, fused_ce_chunk
@@ -67,18 +74,30 @@ def causal_lm_loss(
     segment_ids: torch.Tensor | None = None,
     labels: torch.Tensor | None = None,
     z_loss_coef: float = 0.0,
+    group=None,
 ) -> torch.Tensor:
-    """Mean next-token CE over valid positions, plus ``z_loss_coef * mean(lse^2)``."""
+    """Mean next-token CE over valid positions, plus ``z_loss_coef * mean(lse^2)``;
+    `group`: the data-parallel ranks (`loss_denominator`)."""
     if labels is None:
         labels = derive_causal_labels(input_ids, attention_mask, segment_ids)
     loss_sum, z_sum, num_tokens = cross_entropy_terms(
         logits, labels, upcast=upcast, want_z=z_loss_coef != 0.0
     )
-    denom = num_tokens.clamp_min(1.0)
+    denom = loss_denominator(num_tokens, group)
     loss = loss_sum / denom
     if z_loss_coef != 0.0:
         loss = loss + z_loss_coef * (z_sum / denom)
     return loss
+
+
+def loss_denominator(num_tokens: torch.Tensor, group=None) -> torch.Tensor:
+    """The divisor of a loss's token sums: this batch's valid-token count, or with `group`
+    the global batch's (see the module docstring)."""
+    if group is None:
+        return num_tokens.clamp_min(1.0)
+    total = num_tokens.detach().clone()
+    dist.all_reduce(total, group=group)
+    return total.clamp_min(1.0)
 
 
 def _chunk_ce_terms(h, table, y, logit_scale, upcast, compute_dtype, want_z):
@@ -143,11 +162,12 @@ def fused_linear_cross_entropy(
     logit_scale: float | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     z_loss_coef: float = 0.0,
+    group=None,
 ) -> torch.Tensor:
     """LM-head product + CE without materializing the ``[B, S, V]`` logits, in either
     direction. hidden ``[B, S, H]``; embedding ``[V, H]`` (the tied table); labels
     ``[B, S]`` with IGNORE_INDEX. The sequence is padded up to a chunk multiple with
-    ignored labels."""
+    ignored labels. `group`: the data-parallel ranks (`loss_denominator`)."""
     batch, seq, hidden_dim = hidden.shape
     chunk_size = min(chunk_size, seq)
     if seq % chunk_size:
@@ -162,7 +182,7 @@ def fused_linear_cross_entropy(
         hidden_c, labels_c, embedding.to(compute_dtype), logit_scale, upcast, compute_dtype,
         z_loss_coef != 0.0,
     )
-    denom = num_tokens.clamp_min(1.0)
+    denom = loss_denominator(num_tokens, group)
     loss = loss_sum / denom
     if z_loss_coef != 0.0:
         loss = loss + z_loss_coef * (z_sum / denom)

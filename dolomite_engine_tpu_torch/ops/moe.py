@@ -44,13 +44,30 @@ def load_balancing_loss(
     num_experts: int,
     top_k: int,
     token_mask: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
     """``E * sum(tokens_per_expert * router_prob_per_expert)`` over
     `router_logits` ``[num_layers * tokens, E]``; `token_mask` ``[num_layers * tokens]``
-    drops padded tokens from both statistics."""
+    drops padded tokens from both statistics. With `group` (data-parallel ranks) both
+    statistics are means over every rank's tokens, as over the JAX package's global
+    batch: their sums and the token count are all-reduced, the router probabilities'
+    through autograd, and each rank returns its share, the loss over the world (the
+    ranks' losses and gradients are summed, `ops/loss.py`)."""
     routing_weights = torch.softmax(router_logits.float(), dim=-1)
     _, selected = top_k_stable(routing_weights, top_k)
     expert_mask = F.one_hot(selected, num_experts).float()  # [T, k, E]
+    if group is not None:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        m = torch.ones(routing_weights.shape[0], device=routing_weights.device) if token_mask is None else token_mask.float()
+        counts = torch.cat([(expert_mask * m[:, None, None]).sum(0).reshape(-1), m.sum().reshape(1)])
+        dist.all_reduce(counts, group=group)
+        denom = counts[-1].clamp_min(1.0)
+        tokens_per_expert = counts[:-1].reshape(top_k, num_experts) / denom
+        router_prob_per_expert = all_reduce((routing_weights * m[:, None]).sum(0), group=group) / denom
+        share = (tokens_per_expert * router_prob_per_expert[None, :]).sum() * num_experts
+        return share / dist.get_world_size(group)
     if token_mask is None:
         tokens_per_expert = expert_mask.mean(0)  # [k, E]
         router_prob_per_expert = routing_weights.mean(0)  # [E]

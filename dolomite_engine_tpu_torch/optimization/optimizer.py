@@ -19,6 +19,13 @@ takes ``lr_schedule(schedule_count)``; µP groups scale it per parameter
 (`mup_lr_multipliers`). `offload_state` keeps the state in pinned host memory: each group's
 state is copied to the card for its update (the next group's copy on a side stream,
 overlapping this group's update) and back after it, and the arithmetic is the same.
+
+Over FSDP2's sharded parameters (DTensors) every optimizer works on this rank's shards
+(`parallel.sharding.local`): the state is sharded as the parameters are, the elementwise
+arithmetic is that of the whole tensor, and a per-tensor statistic (lamb's trust ratio,
+novograd's gradient norm) all-reduces its shards' sum of squares over the shard group, so
+it is the whole tensor's. `TrainState.state_dict` gives the state back as DTensors for the
+checkpoint.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from torch import nn
 
 from ..enums import ParamsGroupMethod
+from ..parallel.sharding import all_reduce_, local, shard_group
 from ..utils.mixed_precision import string_to_dtype
 
 _GROUP_BYTES = 1 << 29  # fp32 bytes of parameters updated per foreach group
@@ -58,13 +66,15 @@ class Optimizer:
         param_names: list[str] | None = None,
     ) -> None:
         self.params = list(params)
+        # the group over which a parameter's shards are split (None: whole on every rank)
+        self.reduce_group = shard_group(self.params[0]) if self.params else None
         self.lr_schedule = lr_schedule
         self.param_names = param_names
         self.count = 0
         self.schedule_count = 0
         multipliers = [1.0] * len(self.params) if lr_multipliers is None else list(lr_multipliers)
         self._groups = self._make_groups(multipliers)
-        self.state = {name: [self._init_state(name, p) for p in self.params] for name in self.state_names}
+        self.state = {name: [self._init_state(name, local(p)) for p in self.params] for name in self.state_names}
         self.offloaded = False
         self._copy_stream = None
         self.offload_seconds = {"h2d": 0.0, "d2h": 0.0}
@@ -82,7 +92,7 @@ class Optimizer:
             for i, m in enumerate(multipliers):
                 if m != multiplier:
                     continue
-                nbytes = self.params[i].numel() * 4
+                nbytes = local(self.params[i]).numel() * 4
                 if indices and size + nbytes > _GROUP_BYTES:
                     groups.append((multiplier, indices))
                     indices, size = [], 0
@@ -111,7 +121,7 @@ class Optimizer:
         self.count += 1
         deltas = [None] * len(self.params) if track_update else None
         for multiplier, indices, state in self._group_states():
-            params = [self.params[i] for i in indices]
+            params = [local(self.params[i]) for i in indices]
             update = self._update(params, [grads[i] for i in indices], state, lr * multiplier)
             old = [p.detach().clone() for p in params] if track_update else None
             torch._foreach_add_(params, update)
@@ -227,11 +237,11 @@ class Optimizer:
             del state, copies
 
 
-def _norm(x: torch.Tensor, scratch: torch.Tensor) -> torch.Tensor:
+def _norm(x: torch.Tensor, scratch: torch.Tensor, group=None) -> torch.Tensor:
     """``sqrt(sum(x^2))``, jnp.linalg.norm's definition, the squares in `scratch`: a summed
     reduction (the CPU's ``vector_norm`` loses ~1 % on a 100 M-element fp32 tensor; ``sum``
-    does not)."""
-    return torch.mul(x, x, out=scratch).sum().sqrt()
+    does not). `x` is a shard when `group` is given: the sums are all-reduced over it."""
+    return all_reduce_(torch.mul(x, x, out=scratch).sum(), group).sqrt()
 
 
 def _decay_(moment: torch.Tensor, fresh: torch.Tensor, decay: float) -> None:
@@ -343,7 +353,7 @@ class Lamb(Optimizer):
             u = torch.div(mu, bias1)
             scratch = torch.div(nu, bias2).sqrt_().add_(self.eps)
             u.div_(scratch).add_(scratch.copy_(p).mul_(self.weight_decay))
-            param_norm, update_norm = _norm(p, scratch), _norm(u, scratch)
+            param_norm, update_norm = _norm(p, scratch, self.reduce_group), _norm(u, scratch, self.reduce_group)
             ratio = torch.where((param_norm == 0) | (update_norm == 0), 1.0, param_norm / update_norm)
             updates.append(u.mul_(ratio).mul_(-lr))
         return updates
@@ -549,7 +559,7 @@ class NovoGrad(Optimizer):
     def _update(self, params, grads, state, lr):
         updates = []
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            norm_sq = _norm(g, torch.empty_like(g)) ** 2
+            norm_sq = _norm(g, torch.empty_like(g), self.reduce_group) ** 2
             nu.copy_(norm_sq if self.count == 1 else (1 - self.b2) * norm_sq + self.b2 * nu)
             u = g / (nu.sqrt() + self.eps) + self.weight_decay * p
             mu.copy_(u if self.count == 1 else self.b1 * mu + u)

@@ -12,9 +12,16 @@ and copies them to the card on a side stream, up to ``prefetch_depth`` steps ahe
 The JAX loop splits a PRNG key each step for dropout; here the loop draws each step's
 seed from its own `torch.Generator` (seeded from ``random_args.seed``, saved in the
 checkpoint) and seeds torch's generators with it, so a resumed run draws the same
-dropout masks as an unbroken one. The port runs eagerly on one device (`check_ported_options`
-lists what it refuses); `main(args, device="cuda")` runs on the card, and the tests pass
-``device="cpu"``. The training options run as in the JAX loop: remat policies (the model's),
+dropout masks as an unbroken one (each rank offsets the seed by its rank). `main` joins
+the process group (`utils.init_distributed`: the ``torchrun`` job's, else a group of one),
+builds the mesh and shards the model under the ZeRO stage with FSDP2
+(`distributed.wrap_model_for_distributed_training`); each rank reads its share of every
+global batch, the consumed samples and tokens count all ranks, and the eval losses, the
+logged loss and a preemption notice are agreed over the ranks. ``python -m
+dolomite_engine_tpu_torch.pretrain --config cfg.yml`` runs one rank, ``torchrun
+--nproc-per-node N -m ...`` N (`check_ported_options` lists what the port refuses);
+`main(args, device="cuda")` runs on the card (``cuda:LOCAL_RANK`` under torchrun), and
+the tests pass ``device="cpu"`` (gloo). The training options run as in the JAX loop: remat policies (the model's),
 any optimizer of the registry, ``cpu_offload`` (the optimizer state in pinned host memory;
 warned about and ignored off a card), ``health.interval`` and ``mixed_precision_args.dtype:
 fp8`` (the state on `TrainState.fp8`, checkpointed with the model).
@@ -39,6 +46,7 @@ from .checkpointing import (
 from .data import StepPrefetcher
 from .data.megatron import get_megatron_gpt_dataloaders
 from .device import resolve_device
+from .distributed import get_data_parallel_world_size, wrap_model_for_distributed_training
 from .enums import Mode, TuningMethod
 from .model_wrapper import get_model, log_model
 from .optimization import build_optimizer_from_args
@@ -56,16 +64,20 @@ from .utils import (
     ExperimentsTracker,
     ProgressBar,
     StallWatchdog,
+    any_rank,
     build_health_monitor,
     build_telemetry,
     crash_reason,
     emit_model_report,
+    init_distributed,
     install_preemption_handler,
     install_telemetry,
     log_rank_0,
     preemption_requested,
+    process_index,
     register_crash_hook,
     step_annotation,
+    sum_over_ranks,
     trace_annotation,
     uninstall_preemption_handler,
     uninstall_telemetry,
@@ -111,7 +123,8 @@ def evaluate(
             count += 1
         if count == 0:
             continue
-        group_loss = loss_sum / count
+        # each rank's batch loss is its share of the global batch's (`ops/loss.py`)
+        group_loss = sum_over_ranks(loss_sum) / count
         name = group_names[group_index] if group_names and group_index < len(group_names) else str(group_index)
         track_val_metrics(
             global_step, group_loss, experiments_tracker, group_name=name if len(val_dataloaders) > 1 else None
@@ -156,7 +169,8 @@ def train(
     log_interval = args.logging_args.log_interval
     ft_args = args.fault_tolerance_args
 
-    samples_per_step = micro_batch_size * gradient_accumulation_steps
+    # the global batch; the FLOPs are one rank's (its share), so the MFU is the world's
+    samples_per_step = micro_batch_size * gradient_accumulation_steps * get_data_parallel_world_size(args)
     tokens_per_step = samples_per_step * sequence_length
     step_tflops = get_model_tflops(
         model.config,
@@ -275,7 +289,8 @@ def train(
             data_seconds = prefetcher.last_wait_seconds
 
             step_start = time.perf_counter()
-            torch.manual_seed(int(torch.randint(0, 2**62, (), generator=rng_generator)))  # this step's dropout
+            # this step's dropout, other masks on each rank's rows
+            torch.manual_seed(int(torch.randint(0, 2**62, (), generator=rng_generator)) + process_index())
             with get_profiler_context(args.logging_args.torch_profiler_trace_path, global_step), step_annotation(
                 global_step
             ):
@@ -350,7 +365,7 @@ def train(
             if logging_step:
                 telemetry.emit_window(global_step)
 
-            if preemption_requested():
+            if any_rank(preemption_requested()):  # one rank's notice makes every rank save
                 preempted = True
                 log_rank_0(
                     logging.WARNING, f"preemption notice: saving final checkpoint at step {global_step} and exiting"
@@ -419,6 +434,7 @@ def main(args: TrainingArgs | None = None, device: str | torch.device = "cuda") 
     if args.tuning_args.tuning_method != TuningMethod.pretraining:
         raise ValueError("pretraining requires tuning_method = pretraining")
     check_ported_options(args)
+    init_distributed(args.distributed_args.timeout_minutes, device)
 
     seed = args.random_args.seed
     random.seed(seed)
@@ -427,7 +443,8 @@ def main(args: TrainingArgs | None = None, device: str | torch.device = "cuda") 
 
     model = get_model(args, Mode.training, device=device)
     log_model(model)
-    optimizer, lr_schedule = build_optimizer_from_args(args, model)
+    wrap_model_for_distributed_training(args, model)
+    optimizer, lr_schedule = build_optimizer_from_args(args, model)  # over the sharded parameters
     state = TrainState(model.model, optimizer, fp8=model.fp8)
 
     starting_iteration = 0

@@ -2,9 +2,22 @@
 analytic FLOPs model.
 
 Counterpart of `dolomite_engine_tpu/train_utils.py`. The JAX step scans micro-batches
-and accumulates ``acc + g / n`` in fp32; here each parameter's gradient is folded into
-its fp32 accumulator the moment autograd has finished it (a post-accumulate hook) and
-then released, so one model's worth of gradients is live, as in the JAX program.
+and accumulates ``acc + g / n`` in fp32; here the micro-batches' gradients add up in each
+parameter's own ``.grad`` (autograd's accumulation, or FSDP2's, which adds each
+micro-batch's reduced shards into the sharded ``.grad``), and the sum is divided by n once
+after the last backward. The trainable parameters are fp32 (the master weights), so the
+sum is fp32 and one model's worth of gradients is live, as in the JAX program (a separate
+accumulator folded after each backward would hold two at its end: 13.9 GB more for
+granite-3b-code, past the card's budget); for n a power of two it is JAX's ``acc + g / n``
+bit for bit, since halving commutes with fp32 rounding, and otherwise within one rounding
+of it.
+
+Over data-parallel ranks every statistic is global: the grad norm, the health statistics
+and the optimizers' per-tensor norms sum the local shards' squares and all-reduce them
+over the shard group (`parallel/sharding.py`); the logged loss is the mean over the ranks,
+so the non-finite verdict is the same on every rank. There each rank's loss is its share
+of the global batch's (the model's losses divide by the global token count, `ops/loss.py`)
+and FSDP2 sums the gradients: the logged loss is the sum over the ranks.
 """
 
 from __future__ import annotations
@@ -16,11 +29,13 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .ops.activations import is_glu
 from .ops.fp8 import Fp8State
 from .optimization.optimizer import Optimizer
+from .parallel.sharding import all_reduce_, like, local, shard_group
 from .utils import get_telemetry, log_rank_0
 from .utils.diagnostics import group_health, health_groups, squared_norms
 
@@ -50,8 +65,12 @@ class TrainState:
             # only the trainable parameters hold state (PEFT freezes the base)
             names = [name for name, p in self.model.named_parameters() if p.requires_grad]
             state = self.optimizer.state_dict()
+            trainable = [p for p in self.model.parameters() if p.requires_grad]
             tree["optimizer"] = {
-                **{key: dict(zip(names, state[key], strict=True)) for key in self.optimizer.state_names},
+                **{
+                    key: {name: like(p, t) for name, p, t in zip(names, trainable, state[key], strict=True)}
+                    for key in self.optimizer.state_names
+                },
                 "count": torch.tensor(state["count"]),
                 "schedule_count": torch.tensor(state["schedule_count"]),
             }
@@ -66,14 +85,20 @@ class TrainState:
             self.optimizer.schedule_count = int(tree["optimizer"]["schedule_count"])
 
 
-def clip_grad_norm(grads: list[torch.Tensor], max_norm: float | None):
+def clip_grad_norm(grads: list[torch.Tensor], max_norm: float | None, group=None):
     """Global-norm clip in place; returns (grads, fp32 grad norm). On a card the norm is one
     fused ``_foreach_norm`` pass; elsewhere it is the JAX package's formula, the summed fp32
-    squares (the CPU's ``_foreach_norm`` loses ~1e-4 relative on a 4 M-element tensor)."""
+    squares (the CPU's ``_foreach_norm`` loses ~1e-4 relative on a 4 M-element tensor).
+    `grads` are local shards when `group` is given: their summed squares are all-reduced
+    over it before the root."""
     if grads and grads[0].device.type == "cuda":
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm([g.float() for g in grads])))
+        norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+        if group is None:
+            grad_norm = torch.linalg.vector_norm(norms)
+        else:
+            grad_norm = all_reduce_(norms.square().sum(), group).sqrt()
     else:
-        grad_norm = torch.stack(squared_norms(grads)).sum().sqrt()
+        grad_norm = all_reduce_(torch.stack(squared_norms(grads)).sum(), group).sqrt()
     if max_norm is None:
         return grads, grad_norm
     scale = torch.clamp(max_norm / (grad_norm + 1e-6), max=1.0)
@@ -136,55 +161,46 @@ def make_train_step(
     if offload_optimizer:
         optimizer.offload_state()
     groups = health_groups(optimizer.param_names, len(params)) if collect_health else None
+    group = shard_group(params[0]) if params else None
+    world = dist.get_world_size() if dist.is_initialized() else 1
 
     def micro_batch(batch: dict, i: int) -> dict:
         return {name: value[i] for name, value in batch.items()}
+
+    def reduced(squares: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Per-tensor squared norms of the shards -> of the whole tensors."""
+        if group is None or not squares:
+            return squares
+        return list(all_reduce_(torch.stack(squares), group).unbind())
 
     def train_step(state: TrainState, batch: dict) -> dict:
         fp8 = state.fp8
         fp8_before = fp8.snapshot() if fp8 is not None else None
         for p in params:
             p.grad = None
-        if n == 1:
-            loss = loss_fn(micro_batch(batch, 0))
-            loss.backward()
+        loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
+        for i in range(n):
+            micro_loss = loss_fn(micro_batch(batch, i))
+            micro_loss.backward()  # adds into each parameter's .grad
             if fp8 is not None:
-                fp8.commit()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad.float() for p in params]
-            loss = loss.detach().float()
-        else:
-            acc: list[torch.Tensor | None] = [None] * len(params)
+                fp8.commit()  # the next micro-batch quantizes with this one's state
+            loss = loss + micro_loss.detach().float() / n
+        grads = [torch.zeros_like(local(p)) if p.grad is None else local(p.grad).float().div_(n) for p in params]
+        for p in params:
+            p.grad = None  # the gradients live on in `grads` until the step ends
 
-            def fold(i: int):
-                def hook(p: torch.Tensor) -> None:
-                    g = p.grad.float().div_(n)  # in place when the gradient is already fp32
-                    acc[i] = g if acc[i] is None else acc[i].add_(g)
-                    p.grad = None
-
-                return hook
-
-            handles = [p.register_post_accumulate_grad_hook(fold(i)) for i, p in enumerate(params)]
-            try:
-                loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
-                for i in range(n):
-                    micro_loss = loss_fn(micro_batch(batch, i))
-                    micro_loss.backward()
-                    if fp8 is not None:
-                        fp8.commit()  # the next micro-batch quantizes with this one's state
-                    loss = loss + micro_loss.detach().float() / n
-            finally:
-                for handle in handles:
-                    handle.remove()
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, acc)]
-
-        grads, grad_norm = clip_grad_norm(grads, gradient_clipping)
+        if world > 1:  # the ranks' shares of the global batch's loss
+            loss = all_reduce_(loss, dist.group.WORLD)
+        grads, grad_norm = clip_grad_norm(grads, gradient_clipping, group)
         step_ok = True
         if skip_nonfinite:
             step_ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
-        param_sq = squared_norms(params) if collect_health else None  # before the update
+        param_sq = reduced(squared_norms([local(p) for p in params])) if collect_health else None  # before the update
         update_sq = None
         if step_ok:
             update_sq = optimizer.step(grads, track_update=collect_health)
+            if update_sq is not None:
+                update_sq = reduced(update_sq)
         elif fp8 is not None:
             fp8.restore(fp8_before)  # the stepped state saw the non-finite values
         state.step += 1
@@ -192,7 +208,7 @@ def make_train_step(
         if skip_nonfinite:
             metrics["skipped"] = int(not step_ok)
         if collect_health:
-            metrics["health"] = group_health(param_sq, squared_norms(grads), update_sq, groups)
+            metrics["health"] = group_health(param_sq, reduced(squared_norms(grads)), update_sq, groups)
         return metrics
 
     return train_step

@@ -19,6 +19,7 @@ from .fault_tolerance import (
     uninstall_preemption_handler,
     unregister_crash_hook,
 )
+from .distributed import any_rank, init_distributed, sum_over_ranks, world_size
 from .logger import get_logger, log_rank_0, process_index, run_rank_n, set_logger
 from .mixed_precision import normalize_dtype_string, string_to_dtype
 from .pydantic import BaseArgs

@@ -1,7 +1,6 @@
 """Process-0 logging utilities (counterpart of `dolomite_engine_tpu/utils/logger.py`).
 
-The rank is `torch.distributed`'s when a process group is initialized, else 0: the port
-trains in one process (multi-process training is ROADMAP.md Queue A, 'Distribution').
+The rank is `torch.distributed`'s when a process group is initialized, else 0.
 """
 
 import logging

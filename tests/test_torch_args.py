@@ -96,13 +96,11 @@ def test_ported_options_pass():
 
 
 UNPORTED = [
-    ("distributed_args.stage", 3, "'Distribution'"),
     ("distributed_args", dict(stage=0, tensor_parallel_size=2), "'Distribution'"),
     ("distributed_args", dict(stage=0, tensor_parallel_size=2, sequence_parallel=True), "'Distribution'"),
     ("distributed_args", dict(stage=0, context_parallel_size=2), "'Distribution'"),
     ("distributed_args", dict(stage=0, expert_parallel_size=2), "'Distribution'"),
-    ("distributed_args", dict(stage=0, data_parallel_size=2), "'Distribution'"),
-    ("distributed_args", dict(stage=0, dispatching_dataloader=True), "'Distribution'"),
+    ("distributed_args", dict(stage=0, tensor_parallel_size=2, tensor_parallel_word_embeddings=True), "'Distribution'"),
     ("model_args.model_name", "ibm-granite/granite-3b-code-base", "'Interop and tools'"),
     ("logging_args", dict(experiments_tracker_name="wandb", wandb_args=dict(project="p", name="n")), "'Serving fleet and observability'"),
     ("logging_args", dict(experiments_tracker_name="aim", aim_args=dict(repo="r", experiment="e")), "'Serving fleet and observability'"),
@@ -120,8 +118,14 @@ def test_unported_option_raises_naming_its_item(path, value, item):
         check_ported_options(TrainingArgs(**config))
 
 
-# the training options, each once refused here
+# the training options, each once refused here: the ZeRO stages, data_parallel_size
+# (held to the world of one), zero_topology and dispatching_dataloader since the
+# data-parallel slice
 TRAINING_OPTIONS = [
+    ("distributed_args.stage", 3),
+    ("distributed_args", dict(stage=1, data_parallel_size=1)),
+    ("distributed_args", dict(stage=2, zero_topology=dict(data_parallel_replication_world_size=1, data_parallel_sharding_world_size=1))),
+    ("distributed_args", dict(stage=0, dispatching_dataloader=True)),
     ("distributed_args", dict(stage=0, cpu_offload=True)),
     (
         "distributed_args",

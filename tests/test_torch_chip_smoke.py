@@ -4,8 +4,9 @@ telemetry windows, the checkpoint and the 2-layer resume check, bit-identical), 
 `training_options` phase inside it (the remat policies, fp8, offload and health, the
 optimizers), the `generate` phase inside it (`generate.main` over `configs/generation.yml` from that
 checkpoint with both engines, the greedy runs three ways, the logits check), the
-`speculative_generation`, `preemption` and `finetune` phases after it, and the `alibi_generation`
-phase run at tiny widths (and 2 layers) through the kernels' plain versions."""
+`speculative_generation`, `preemption` and `finetune` phases after it, the `alibi_generation`
+phase and the `distribution` phase (every ZeRO stage through FSDP2 at a world of one) run
+at tiny widths (and 2 layers) through the kernels' plain versions."""
 
 import subprocess
 import sys
@@ -210,3 +211,22 @@ def test_window_rows_check_holds_each_row_alone(monkeypatch):
     assert gaps == [pytest.approx(0.01, abs=1e-5)]
     with pytest.raises(AssertionError):
         chip_smoke._window_rows_check(tie_got, tie_want, std, 0.001)
+
+
+def test_distribution_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 19 at a world of one: every stage and the 1 x 1 topology give stage 0's
+    losses and grad norms (the kernels' plain versions are deterministic too), the launch
+    counts (all 0 here) agree, and a stage-3 save restores into a stage-0 model bit for
+    bit."""
+    monkeypatch.chdir(REPO)
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    config = dict(chip_smoke.TRAIN_CONFIG, n_embd=64, n_head=4, n_inner=128, vocab_size=512)
+    record, launches = chip_smoke.distribution_phase(0, device="cpu", config_kwargs=config, seq=256, work=str(tmp_path / "work"))
+    assert [name for name, _, _ in chip_smoke.DISTRIBUTION_LAYOUTS] == list(record["runs"])
+    for name, run in record["runs"].items():
+        assert run["bit_identical_to_stage_0"], (name, run)
+        assert len(run["losses"]) == chip_smoke.DISTRIBUTION_STEPS and run["mesh"] == {"dp": 1, "fsdp": 1}
+    assert record["checkpoint"]["bit_identical"] and record["checkpoint"]["restored_step"] == chip_smoke.DISTRIBUTION_STEPS
+    assert not any(launches.values())

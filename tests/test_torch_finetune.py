@@ -2,8 +2,8 @@
 
 - `BlendedDistributedSampler`: the same index stream as JAX's for the same seed, ratios,
   epoch, replicas and rank, with and without ``ignore_sampling_proportion_for_validation``,
-  and a resume from a saved index; `ResumableDataLoader` resumes mid-epoch; the mesh
-  loaders raise naming 'Distribution'.
+  and a resume from a saved index; `ResumableDataLoader` resumes mid-epoch; at one rank
+  the sharded loader yields its loader's batches and the dispatching one the same arrays.
 - `get_dataloader` (one device): the same collated batches as JAX's ``mesh=None`` loader
   on one device, padded and padding-free, under ``output_only`` and ``no_mask``.
 - `ModelWrapperForFinetuning.loss` and its gradients against JAX's: padded (left-padded
@@ -192,10 +192,14 @@ def test_sampler_and_loader_resume():
     second = loader()
     second.load_state_dict(json.loads(json.dumps(first.state_dict())))
     assert batches == [stream[0:3], stream[3:6]] and next(iter(second)) == stream[6:9] and len(second) == 4
-    with pytest.raises(NotImplementedError, match="'Distribution'"):
-        ShardedDataLoader(first, None)
-    with pytest.raises(NotImplementedError, match="'Distribution'"):
-        DispatchingDataLoader(first, None)
+    epoch = [stream[i : i + 3] for i in range(0, 12, 3)]
+    assert list(ShardedDataLoader(loader())) == epoch
+    arrays = ResumableDataLoader(
+        Items(), 3, sampler(), collate_fn=lambda b: {"ids": np.asarray(b, np.int64), "none": None}, drop_last=True
+    )
+    dispatched = list(DispatchingDataLoader(arrays))
+    assert [b["ids"].tolist() for b in dispatched] == epoch and all(b["none"] is None for b in dispatched)
+    assert dispatched[0]["ids"].dtype == torch.int32  # the header announces int32, as in JAX
 
 
 @pytest.mark.parametrize("padding_free", [False, True], ids=["padded", "padding_free"])
@@ -223,11 +227,17 @@ def test_get_dataloader_matches_jax(corpus, padding_free, loss_mask, monkeypatch
             assert "segment_ids" in got and got["input_ids"].shape[1] % 128 == 0
         else:
             assert "attention_mask" in got
-    with pytest.raises(NotImplementedError, match="'Distribution'"):
-        data.get_dataloader(
-            TrainingArgs(**_config(corpus, distributed_args=dict(dispatching_dataloader=True))),
-            DatasetSplit.train, Mode.training, tokenizer,
-        )
+    # dispatching at one rank: rank 0 reads, "broadcasts" to itself and keeps every row
+    dispatching = data.get_dataloader(
+        TrainingArgs(**dict(config, distributed_args=dict(stage=0, dispatching_dataloader=True))),
+        DatasetSplit.train, Mode.training, tokenizer,
+    )
+    plain = data.get_dataloader(TrainingArgs(**config), DatasetSplit.train, Mode.training, tokenizer)
+    assert len(dispatching) == len(plain)
+    for want, got in zip(plain, dispatching, strict=True):
+        assert got.keys() == want.keys()
+        for key in want:
+            np.testing.assert_array_equal(got[key].numpy(), want[key], err_msg=key)
 
 
 # ----------------------------------------------------------------------------- the loss

@@ -25,7 +25,10 @@ def _port_sources():
 
 def _port_files():
     # with the port's harnesses for the card
-    return _port_sources() + [REPO / "chip_smoke.py", REPO / "scripts" / "paged_kernel_ab.py", REPO / "tools" / "fp8_early_steps_torch.py"]
+    return _port_sources() + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "paged_kernel_ab.py", REPO / "scripts" / "fsdp_one_rank_probe.py",
+        REPO / "tools" / "fp8_early_steps_torch.py",
+    ]
 
 
 def _port_modules():
@@ -49,6 +52,15 @@ def _imported_roots(path: Path) -> set[str]:
 def test_no_file_imports_jax_or_the_jax_package(path):
     # the root of `dolomite_engine_tpu_torch.x` is the port itself, which is allowed
     assert not _imported_roots(path) & set(FORBIDDEN), path
+
+
+def test_the_distribution_modules_are_covered():
+    """The data-parallel slice's modules are among the checked ones, and the spawned
+    test ranks (`tests/torch_ranks.py`, which run the port alone) import no JAX either."""
+    modules = set(_port_modules())
+    for name in ("parallel", "parallel.mesh", "parallel.sharding", "distributed", "utils.distributed", "data.dataloader"):
+        assert f"dolomite_engine_tpu_torch.{name}" in modules, name
+    assert not _imported_roots(REPO / "tests" / "torch_ranks.py") & set(FORBIDDEN)
 
 
 def test_every_module_imports_with_jax_blocked():
