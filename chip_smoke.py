@@ -139,11 +139,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    stage 0's bit for bit (else the first difference, held within 1e-6 relative), the launch
    counts equal across the layouts, each layout's peak and step times; a stage-3 save restored
    into a stage-0 model with the weights bit-identical;
-14. ``alibi_generation`` (last): MPT-7B's widths at 8 layers, random weights, 8 greedy
+14. ``alibi_generation`` (after phase 19): MPT-7B's widths at 8 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
    bias form) and the paged engine (the gathered path), launch counts asserted, the
    engines' agreement and one request's logits through each engine's own forwards (the
-   paged engine's through the repaired alibi path) against the plain forward.
+   paged engine's through the repaired alibi path) against the plain forward;
+20. ``seq2seq`` (last; `seq2seq_phase`): the encoder-decoder family. (a) `finetune.main` on
+   `configs/instruction-tuning/finetune-seq2seq.yml` as written (768 wide, 12 + 12 layers,
+   rope, GQA, stage 3 on one rank, micro-batch 8) for 3 steps of seeded words (inputs up to
+   1024 tokens, targets up to 512); (b) the same at google/flan-t5-base's widths
+   (`FLAN_T5_BASE`: T5's relative bias, untied head) with ``flash_attention_2``, full
+   finetuning then LoRA: the decoder's self-attention at length 512 takes the flash
+   kernel's query-bias form (T5's bias and its gradient), the val batch at 300 the sdpa
+   route; (c) `generate.main` from (b)'s checkpoint, greedy, 16 prompts x 64 tokens, and the
+   card's greedy tokens at 2 layers held to the port's CPU run of the same weights (near
+   ties only); (d) the query-bias kernel cases at [8, 512, 12, 64], a shared [1, 12, 512, 512]
+   bias and a per-row one under segment ids, forward and backward (dBias too) against the
+   plain version and fp32 SDPA autograd. Launch counts asserted exactly. Cuts: one card,
+   dropout 0, seeded weights, the word tokenizer, 3 steps, (b)'s target budget 513 (the
+   YAML's 512 keeps a target to 511 tokens).
 
 The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
 at both models' decode, prefill and verify windows over bf16, int8 and fp8 pools, one launch a
@@ -171,7 +185,8 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
-``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune`` and ``alibi_generation`` lines
+``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune``, ``alibi_generation``,
+``seq2seq`` and ``kernel_cases_seq2seq`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
 times under ``forms``), the card again, and last
@@ -1921,12 +1936,13 @@ def alibi_kernel_cases(seed):
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             side = q.numel() // hd * 4 + seg.numel() * 4 + (0 if bias is None else bias.numel() * 4)
             fwd_spec, bwd_spec = fa.kernel_specs(bias, causal)
+            form = {"form": fa.kernel_form(bias)} if fwd_spec is fa.BIAS_FWD_KERNEL else None
             _record(
                 cases, fwd_spec.name, shape, dtype, err, ok, tol,
                 lambda: fa.flash_attention_fwd(q, k, v, seg, scale, bias, causal),
                 lambda: fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias, causal),
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale),
-                (2 * q.numel() + 2 * k.numel()) * es + side, 4 * pairs * hd * heads, plain_iters=5,
+                (2 * q.numel() + 2 * k.numel()) * es + side, 4 * pairs * hd * heads, plain_iters=5, extra=form,
             )
             dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
             grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal)
@@ -1940,7 +1956,7 @@ def alibi_kernel_cases(seed):
                 lambda: fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal),
                 lambda: fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, causal),
                 lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_dout, retain_graph=True),
-                (4 * q.numel() + 4 * k.numel()) * es + side, 10 * pairs * hd * heads, plain_iters=5,
+                (4 * q.numel() + 4 * k.numel()) * es + side, 10 * pairs * hd * heads, plain_iters=5, extra=form,
             )
             del qkv, q, k, v, out, want, grads, want_grads, ql, kl, vl, lib_out, lib_dout, mask, shift, qt, kt, vt
             torch.cuda.empty_cache()
@@ -2008,6 +2024,8 @@ def generation_kernel_cases(seed):
         pairs = _visible_pairs(seg)
         side_bytes = q.numel() // hd * 4 + seg.numel() * 4 + (0 if bias is None else bias.numel() * 4)
         extra = {"visible_pairs": pairs, "computed_pairs": _computed_pairs(seg), "all_rows_finite": finite}
+        if bias is not None:  # the additive-bias kernels count launches by form
+            extra["form"] = fa.kernel_form(bias)
         if alibi:
             visible = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones((seq, seq), dtype=torch.bool, device="cuda").tril()
             mask = torch.where(visible, bias[:, :, None, :] - bias[:, :, :, None], float("-inf")).to(dtype)
@@ -2422,6 +2440,10 @@ def train_slice(seed, config_kwargs=TRAIN_CONFIG, device="cuda", seq=TRAIN_SEQ, 
         "flash_attn_bias_bwd": layers * micro_batches if alibi else 0,
     }
     expected_forms = {"rope_qkv:flat": expected["rope_qkv"]} if rope else {}
+    if alibi:  # the additive-bias kernels count an alibi row as their key-row form
+        expected_forms.update({
+            f"{name}:key_row": expected[name] for name in ("flash_attn_bias_fwd", "flash_attn_bias_bwd")
+        })
     if on_card:  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
         assert forms == expected_forms, (forms, expected_forms)
@@ -4678,14 +4700,16 @@ def finetune_args(yaml, model_dir, data_dir, save_path, steps, micro=(8, 1), pad
 class _ShapeRecorder:
     """A finetuning loader that appends each batch's ``input_ids`` shape to `shapes` as the
     loop draws it (the prefetch worker runs up to two steps ahead, so the list's head is
-    what the loop consumed)."""
+    what the loop consumed); with `decoder_lengths` also the labels' length (an
+    encoder-decoder's decoder length)."""
 
-    def __init__(self, loader, shapes):
-        self.loader, self.shapes = loader, shapes
+    def __init__(self, loader, shapes, decoder_lengths=False):
+        self.loader, self.shapes, self.decoder_lengths = loader, shapes, decoder_lengths
 
     def __iter__(self):
         for batch in self.loader:
-            self.shapes.append(tuple(batch["input_ids"].shape))
+            shape = tuple(batch["input_ids"].shape)
+            self.shapes.append(shape + (batch["labels"].shape[1],) if self.decoder_lengths else shape)
             yield batch
 
     def __len__(self):
@@ -4698,10 +4722,11 @@ class _ShapeRecorder:
         self.loader.load_state_dict(state)
 
 
-def _run_finetune(args, device, shapes=None, capture=None):
+def _run_finetune(args, device, shapes=None, capture=None, decoder_lengths=False):
     """`finetune.main(args)`; `shapes` ({"train": [], "val": []}) collects the batches'
-    shapes, `capture` gets the run's `TrainState` and, at the start and the end of `train`,
-    what `capture["before"]` / `capture["after"]` (callables of the state) return."""
+    shapes (and decoder lengths, with `decoder_lengths`), `capture` gets the run's
+    `TrainState` and, at the start and the end of `train`, what `capture["before"]` /
+    `capture["after"]` (callables of the state) return."""
     from dolomite_engine_tpu_torch import finetune
 
     build, train = finetune.get_dataloader, finetune.train
@@ -4709,7 +4734,7 @@ def _run_finetune(args, device, shapes=None, capture=None):
 
         def recorded(args, split, *rest, **kwargs):
             loader = build(args, split, *rest, **kwargs)
-            return None if loader is None else _ShapeRecorder(loader, shapes[split.value])
+            return None if loader is None else _ShapeRecorder(loader, shapes[split.value], decoder_lengths)
 
         finetune.get_dataloader = recorded
     if capture is not None:
@@ -5252,6 +5277,539 @@ def alibi_generation_phase(seed, device="cuda", config_kwargs=None):
     return record, launches
 
 
+# google/flan-t5-base as `dolomite_engine_tpu/hf_interop/conversion.py:557-600` imports its
+# public config.json (d_model 768, 12 + 12 layers of 12 heads of 64, d_ff 2048 gated tanh-gelu,
+# 32 buckets to distance 128, untied head, unscaled attention, rmsnorm eps 1e-6, vocab 32128):
+# `tests/test_torch_seq2seq.py` holds this literal to that function
+FLAN_T5_BASE = {
+    "model_type": "enc_dec_dolomite", "vocab_size": 32128, "n_positions": 512, "n_embd": 768, "n_layer": 12,
+    "n_encoder_layer": 12, "n_head": 12, "num_key_value_heads": 12, "attention_head_type": "mha",
+    "attention_head_dim": None, "position_embedding_type": "relative_bucketed", "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128, "n_inner": 2048, "activation_function": "gelu_pytorch_tanh_glu",
+    "normalization_function": "rmsnorm", "layer_norm_epsilon": 1e-06, "use_cache": True, "add_bias": False,
+    "tie_word_embeddings": False, "attention_multiplier": 1.0, "m_width": None, "initializer_range": 0.02,
+    "attn_pdrop": 0.1, "resid_pdrop": 0.1, "embd_pdrop": 0.1, "bos_token_id": None, "eos_token_id": 1,
+    "pad_token_id": 0, "decoder_start_token_id": 0,
+}
+
+
+# phase 20 (d): the flash kernel's query-bias form at flan-t5-base's decoder self-attention,
+# [8, 512] rows of 12 heads of 64 with T5's [1, 12, 512, 512] relative bias (causal), and a
+# per-row [8, 12, 512, 512] bias under packed segment ids
+QUERY_BIAS_SHAPE = (8, 512, 12, 64)
+QUERY_BIAS_DBIAS_TOL = "1e-4 abs + 1e-4 rel"  # dBias against the plain version (fp32 both)
+
+
+def _query_bias_inputs(seed, shape, device, dtype, per_row):
+    """(q, k, v, segment ids or None, bias) of a query-bias case: the bias gathered from a
+    T5 decoder table (32 buckets, max distance 128, N(0, 1) values, the spread of a
+    trained table), shared ([1, H, S, S]) or, `per_row`, one per batch row plus N(0, 0.5)
+    noise under 3 packed documents a row."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.relative_bias import RelativePositionBias
+
+    batch, seq, heads, hd = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((batch, seq, 3 * heads * hd), generator=gen, device=device).to(dtype)
+    q, k, v = (t.reshape(batch, seq, heads, hd) for t in qkv.split(heads * hd, dim=-1))
+    table = RelativePositionBias(heads, 32, 128, bidirectional=False, std=1.0, device=device)
+    with torch.no_grad():
+        table.reset_parameters(gen)
+        bias = table(seq, seq).contiguous()
+        if per_row:
+            bias = (bias + 0.5 * torch.randn((batch, heads, seq, seq), generator=gen, device=device)).contiguous()
+    seg = None
+    if per_row:
+        rs = np.random.RandomState(seed)
+        seg = torch.as_tensor(np.stack([_doc_ids(rs, seq, 3) for _ in range(batch)]), device=device)
+    return q, k, v, seg, bias
+
+
+def query_bias_reference(q, k, v, seg, scale, bias, dout, causal=True):
+    """The query-bias form's function by autograd through fp32
+    `F.scaled_dot_product_attention` with the bias (plus -inf where masked) as its float
+    mask: (out, dq, dk, dv, dbias), independent of the kernel's plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    batch, seq, heads = q.shape[:3]
+    group = heads // k.shape[2]
+    tensors = [t.detach().float().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    qt, kt, vt = tensors
+    b = bias.detach().float().requires_grad_()
+    visible = torch.ones((batch, 1, seq, seq), dtype=torch.bool, device=q.device)
+    if seg is not None:
+        visible = visible & (seg[:, None, :, None] == seg[:, None, None, :])
+    if causal:
+        visible = visible & torch.ones((seq, seq), dtype=torch.bool, device=q.device).tril()
+    mask = b + torch.zeros_like(visible, dtype=torch.float32).masked_fill(~visible, float("-inf"))
+    out = F.scaled_dot_product_attention(
+        qt, kt.repeat_interleave(group, 1), vt.repeat_interleave(group, 1), attn_mask=mask, scale=scale
+    )
+    grads = torch.autograd.grad(out, tensors + [b], dout.float().transpose(1, 2))
+    return (out.transpose(1, 2),) + tuple(g.transpose(1, 2) for g in grads[:3]) + (grads[3],)
+
+
+def query_bias_kernel_check(seed, device="cuda", shape=QUERY_BIAS_SHAPE, dtype=None):
+    """Phase 20 (d)'s checks, without timing (the CPU rehearsal runs them on the plain
+    version the wrapper takes there): for a shared causal bias and a per-row bias under
+    segment ids, `flash_attention_fwd` / `_bwd` (the kernels on the card) against the
+    plain version (out, dq, dk, dv: 2e-2 abs + 1 bf16 ulp, fp32 1e-5 abs + 1e-5 rel; dBias
+    `QUERY_BIAS_DBIAS_TOL`) and against `query_bias_reference` (out, dq, dk, dv: 2e-2 abs
+    + 1 bf16 ulp, as the kernel reads bf16 inputs and rounds its outputs to bf16 where the
+    reference computes in fp32; dBias 1e-3 abs + the row's sum |dO| |out - out_ref| (over
+    the batch for a shared bias), as the kernel's delta, like jax's, sums dO * O over the
+    bf16-rounded output; in fp32 all 1e-4 abs + 1e-4 rel). Raises on a disagreement;
+    returns per case the inputs, outputs and errors."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    results = []
+    for per_row in (False, True):
+        q, k, v, seg, bias = _query_bias_inputs(seed, shape, device, dtype, per_row)
+        scale = q.shape[-1] ** -0.5
+        label = f"[{','.join(map(str, shape))}] causal, " + (
+            "per-row bias [B, H, S, S], 3 documents a row" if per_row else "shared T5 bias [1, H, S, S]"
+        )
+        out, lse = fa.flash_attention_fwd(q, k, v, seg, scale, bias, True)
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias, True)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        dout = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+        grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, True)
+        want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, True)
+        reference = query_bias_reference(q, k, v, seg, scale, bias, dout)
+        errors, failed = {}, []
+        fwd_ok, errors["out"] = _close(out, want, fp32)
+        if not (fwd_ok and bool(torch.allclose(lse, want_lse, atol=1e-5, rtol=1e-5))):
+            failed.append("out / lse vs plain")
+        for name, got, plain in zip(("dq", "dk", "dv"), grads[:3], want_grads[:3]):
+            ok, errors[name] = _close(got, plain, fp32)
+            if not ok:
+                failed.append(f"{name} vs plain")
+        if len(grads) != 4 or grads[3].shape != bias.shape:
+            failed.append(f"dbias shape {None if len(grads) != 4 else tuple(grads[3].shape)} vs {tuple(bias.shape)}")
+        else:
+            diff = (grads[3] - want_grads[3]).abs()
+            errors["dbias"] = diff.max().item()
+            if not bool((diff <= 1e-4 + 1e-4 * want_grads[3].abs()).all()):
+                failed.append("dbias vs plain")
+            for name, got, ref in zip(("out", "dq", "dk", "dv", "dbias"), (out,) + tuple(grads), reference):
+                if fp32:
+                    diff = (got.float() - ref).abs()
+                    ok, err = bool((diff <= 1e-4 + 1e-4 * ref.abs()).all()), diff.max().item()
+                elif name != "dbias":
+                    ok, err = _close(got, ref, False)
+                else:
+                    # the kernel's delta sums dO * O over its output rounded to bf16 (as
+                    # jax's kernel does), the reference over its fp32 output: dS = P (dP -
+                    # delta) moves by at most sum |dO| |O - O_ref| of the row (P <= 1),
+                    # summed over the batch rows a shared bias adds up
+                    slack = (dout.float().abs() * (out.float() - reference[0]).abs()).sum(-1).transpose(1, 2)
+                    if bias.shape[0] == 1:
+                        slack = slack.sum(0, keepdim=True)
+                    diff = (got - ref).abs()
+                    ok, err = bool((diff <= 1e-3 + slack[..., None]).all()), diff.max().item()
+                errors[f"{name}_vs_reference"] = err
+                if not ok:
+                    failed.append(f"{name} vs reference")
+        if failed:
+            raise AssertionError(f"flash query-bias form {label} disagrees with its plain version: {failed} {errors}")
+        results.append({"label": label, "errors": errors, "inputs": (q, k, v, seg, bias, scale), "outputs": (out, lse, dout)})
+    return results
+
+
+def query_bias_kernel_cases(seed):
+    """Phase 20 (d) on the card: `query_bias_kernel_check`, then each case timed (kernel,
+    plain version, and SDPA with the bias as a float `attn_mask` that requires grad, the
+    library call), forward and backward, with the bound: q, k, v, out, the row logsumexp,
+    the segment ids and the bias read once (the backward also dO, dq, dk, dv and dBias
+    written), and 4 (forward) or 10 (backward) x D x Hq operations a visible pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    cases = []
+    dtype, es = torch.bfloat16, 2
+    for result in query_bias_kernel_check(seed):
+        q, k, v, seg, bias, scale = result["inputs"]
+        out, lse, dout = result["outputs"]
+        batch, seq, heads, hd = q.shape
+        errors = result["errors"]
+        causal_rows = torch.ones((batch, seq), dtype=torch.int32, device="cuda") if seg is None else seg
+        pairs = _visible_pairs(causal_rows)
+        extra = {"form": "query_bias", "errors": errors, "visible_pairs": pairs}
+        side = q.numel() // hd * 4 + (0 if seg is None else seg.numel() * 4) + bias.numel() * 4
+        visible = torch.ones((seq, seq), dtype=torch.bool, device="cuda").tril()[None, None]
+        if seg is not None:
+            visible = visible & (seg[:, None, :, None] == seg[:, None, None, :])
+        mask = (bias + torch.zeros(visible.shape, device="cuda").masked_fill(~visible, float("-inf"))).to(dtype)
+        del visible
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        mask.requires_grad_()
+        tol = (
+            "2e-2 abs + 1 bf16 ulp (out, dq, dk, dv, each also against fp32 SDPA autograd; dBias there 1e-3 abs + "
+            "the row's sum |dO| |out - out_ref|)"
+        )
+        _record(
+            cases, "flash_attn_bias_fwd", result["label"], dtype, max(errors["out"], errors["out_vs_reference"]), True, tol,
+            lambda: fa.flash_attention_fwd(q, k, v, seg, scale, bias, True),
+            lambda: fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias, True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale),
+            (2 * q.numel() + 2 * k.numel()) * es + side, 4 * pairs * hd * heads, plain_iters=5, extra=dict(extra),
+        )
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+        lib_dout = dout.transpose(1, 2).contiguous()
+        _record(
+            cases, "flash_attn_bias_bwd", result["label"], dtype,
+            max(v for key, v in errors.items() if not key.startswith("out")), True,
+            tol + "; dBias against the plain version " + QUERY_BIAS_DBIAS_TOL,
+            lambda: fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, True),
+            lambda: fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, True),
+            lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), lib_dout, retain_graph=True),
+            (4 * q.numel() + 4 * k.numel()) * es + side + bias.numel() * 4,
+            10 * pairs * hd * heads, plain_iters=5, extra=dict(extra),
+        )
+        del result, q, k, v, out, lse, dout, mask, qt, kt, vt, lib_out, lib_dout
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases
+
+
+# phase 20: the encoder-decoder family through `finetune.main` and `generate.main`
+SEQ2SEQ_YAML = os.path.join("configs", "instruction-tuning", "finetune-seq2seq.yml")
+SEQ2SEQ_STEPS = 3
+SEQ2SEQ_EXAMPLES = {"train": 24, "val": 8}  # 3 steps of the YAML's micro-batch 8; one val batch
+SEQ2SEQ_GENERATE = (16, 64)  # greedy prompts, new tokens
+SEQ2SEQ_CHECK_LAYERS = 2  # the card's greedy run held to the CPU's at this depth
+# (b)'s target budget: 511 words + EOS, a decoder length of 512 (the YAML's 512 stops at 511)
+SEQ2SEQ_FLASH_OUTPUT_TOKENS = 513
+# (input, output) words of each split: (a) ragged; (b)'s training targets reach the YAML's
+# 512-token cap (decoder length 512: the flash route), its val targets stop at 299 words + EOS
+SEQ2SEQ_WORDS = {
+    "ragged": {"train": ((48, 1100), (16, 600)), "val": ((48, 1100), (16, 600))},
+    "flash": {"train": ((200, 1100), (520, 640)), "val": ((200, 1100), (100, 299))},
+}
+
+
+def seq2seq_word_ids(vocab, eos):
+    """The word ids a phase-20 example draws from: past the special ids 0-2, and none whose
+    decimal form starts with the EOS word's digits (the word tokenizer's EOS is an added
+    token, which would match inside ``t<eos>...`` words)."""
+    return [i for i in range(3, vocab) if not str(i).startswith(str(eos))]
+
+
+def seq2seq_data(directory, seed, vocab, eos, layout, words=None):
+    """`train.jsonl` / `val.jsonl` / `test.jsonl` of seeded words (`seq2seq_word_ids`),
+    input and output lengths from `words[layout]` (default `SEQ2SEQ_WORDS`); the first
+    output of each split is its top length, so the val batch's decoder length is known. The
+    test split (`SEQ2SEQ_GENERATE`'s prompts) is the val split's inputs, then the train
+    split's."""
+    import numpy as np
+
+    ids = np.asarray(seq2seq_word_ids(vocab, eos))
+    rs = np.random.RandomState(seed)
+    os.makedirs(directory, exist_ok=True)
+    prompts = []
+    for split, count in SEQ2SEQ_EXAMPLES.items():
+        (in_lo, in_hi), (out_lo, out_hi) = (words or SEQ2SEQ_WORDS)[layout][split]
+        with open(os.path.join(directory, f"{split}.jsonl"), "w") as f:
+            for row in range(count):
+                n_in = rs.randint(in_lo, in_hi + 1)
+                n_out = out_hi if row == 0 else rs.randint(out_lo, out_hi + 1)
+                text = [" ".join(f"t{i}" for i in rs.choice(ids, n)) for n in (n_in, n_out)]
+                f.write(json.dumps({"input": text[0], "output": text[1]}) + "\n")
+                prompts.append(text[0])
+    with open(os.path.join(directory, "test.jsonl"), "w") as f:
+        for prompt in (prompts[-SEQ2SEQ_EXAMPLES["val"]:] + prompts)[: SEQ2SEQ_GENERATE[0]]:
+            f.write(json.dumps({"input": prompt, "output": ""}) + "\n")
+    return directory
+
+
+def seq2seq_args(model_config, tokenizer, data_dir, save_path, method="full_finetuning", attention=None, max_output_tokens=None):
+    """`SEQ2SEQ_YAML` through the port's `load_yaml` with the phase's cuts: the config
+    `model_config` (the YAML's own for (a)), the word tokenizer, a `JSONLinesDataset` of
+    seeded words, `SEQ2SEQ_STEPS` steps with eval at the start and the end, warm-up 1 step,
+    a save at the end; `method` lora takes `configs/peft/lora.yml`'s adapters (default
+    targets: c_attn, c_q, c_kv); `attention` sets ``attention_implementation``;
+    `max_output_tokens` the dataset's target budget (the YAML's 512 keeps a target to 511
+    tokens with its EOS: the data layer reserves the EOS twice, the JAX package's parity
+    quirk)."""
+    from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
+    from dolomite_engine_tpu_torch.utils import load_yaml
+
+    config = load_yaml(SEQ2SEQ_YAML)
+    dataset = config["datasets"][0]
+    dataset.update(class_name="JSONLinesDataset", class_args={"data_path": data_dir})
+    if max_output_tokens is not None:
+        dataset["max_output_tokens"] = max_output_tokens
+    config["model_args"]["pretrained_config"] = dict(model_config)
+    if attention is not None:
+        config["model_args"]["attention_implementation"] = attention
+    config["tokenizer_args"]["tokenizer_name"] = tokenizer
+    if method == "lora":
+        config["tuning_args"] = load_yaml(LORA_YAML)["tuning_args"]
+    config["training_parameters"].update(num_training_steps=SEQ2SEQ_STEPS, eval_interval=SEQ2SEQ_STEPS)
+    config["lr_scheduler_args"]["num_warmup_steps"] = 1
+    config["save_args"].update(save_path=save_path, save_interval=SEQ2SEQ_STEPS)
+    return args_from_dict(config, Mode.training)
+
+
+def seq2seq_launches(config, train_shapes, val_shapes, flash):
+    """Exact launches of a seq2seq finetuning run (no remat: the YAML sets none): per
+    training micro-batch [B, S_enc] -> [B, S_dec] rmsnorm 2 Le + 1 + 3 Ld + 1 (the forward;
+    its backward is plain PyTorch), rope 2 (Le + Ld) with rope (forward and backward of
+    every self-attention); where `flash` and S_dec is a multiple of 128 the decoder's causal
+    self-attention takes the flash kernel, forward Ld and backward Ld (rope: the splash form;
+    T5's relative bias: the bias form's ``query_bias`` launches). The encoder's (a padding
+    mask, not causal) and the cross-attention take `sdpa_attention`, as in JAX. Per eval
+    batch the forward's. The loss is full logits and CE: no fused_ce."""
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+
+    le, ld = config.n_encoder_layer, config.n_layer
+    rope = config.position_embedding_type == "rope"
+    fwd, bwd = ("flash_attn_fwd", "flash_attn_bwd") if rope else ("flash_attn_bias_fwd", "flash_attn_bias_bwd")
+    expected = {spec.name: 0 for spec in KERNELS}
+    for shapes, training in ((train_shapes, True), (val_shapes, False)):
+        for _, _, decoder in shapes:
+            on_flash = flash and decoder % 128 == 0
+            expected["rmsnorm"] += 2 * le + 1 + 3 * ld + 1
+            expected["rope_qkv"] += (2 if training else 1) * (le + ld) * rope
+            expected[fwd] += ld * on_flash
+            expected[bwd] += ld * on_flash * training
+    forms = {"rope_qkv:flat": expected["rope_qkv"]} if rope else {}
+    if not rope:
+        forms.update({f"{name}:query_bias": expected[name] for name in (fwd, bwd) if expected[name]})
+    return expected, forms
+
+
+def seq2seq_divergences(logits, got, want, bound):
+    """`greedy_divergences` for an encoder-decoder: for each row whose two greedy runs part,
+    the first position they do and the reference model's logit gap there between the two
+    tokens, read from `logits` [B, T, V], the reference's teacher-forced pass over `want`
+    (position j's logits follow the start token and want[:j], the common prefix). Asserts
+    every gap is within `bound`."""
+    parted = []
+    for row, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        parted.append([row, j, (logits[row, j, a[j]] - logits[row, j, b[j]]).abs().item()])
+    assert all(gap <= bound for _, _, gap in parted), f"two greedy runs part where no near tie is: {parted}, bound {bound}"
+    return parted
+
+
+def seq2seq_generation_check(args, device, layers=SEQ2SEQ_CHECK_LAYERS):
+    """(c)'s check: the checkpoint's first `layers` blocks of each stack as a bf16 model on
+    `device` and an fp32 model on the CPU (the same weights), the same collated prompts
+    greedy for `SEQ2SEQ_GENERATE` tokens through `generation_utils.generate_seq2seq_tokens`.
+    The largest logit difference of the two models over the card's tokens (teacher-forced)
+    gives the near-tie bound, twice it; a row may part only where the CPU model's gap
+    between the two tokens is within it (`seq2seq_divergences`)."""
+    import torch
+
+    from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
+    from dolomite_engine_tpu_torch.data import collate_fn, get_datasets_list
+    from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
+    from dolomite_engine_tpu_torch.generate import _pad_to_static_shapes
+    from dolomite_engine_tpu_torch.generation_utils import generate_seq2seq_tokens
+    from dolomite_engine_tpu_torch.models import EncDecDolomiteForSeq2SeqLM
+
+    wrapper, _ = load_checkpoint_for_inference(args, Mode.inference, "cpu")
+    config = dataclasses.replace(wrapper.config, n_layer=layers, n_encoder_layer=layers)
+    state = {
+        k: v for k, v in wrapper.model.state_dict().items()
+        if not k.startswith(("encoder.", "decoder.")) or int(k.split(".")[1]) < layers
+    }
+    models = {}
+    for where, dtype, on in (("card", torch.bfloat16, device), ("cpu", torch.float32, "cpu")):
+        model = EncDecDolomiteForSeq2SeqLM(config, dtype=dtype, device="meta")
+        model.to_empty(device=on)
+        model.load_state_dict(state)
+        models[where] = model
+    tokenizer = wrapper.tokenizer
+    del wrapper
+    datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, tokenizer, is_encoder_decoder=True)
+    rows = [datasets[0][i] for i in range(SEQ2SEQ_GENERATE[0])]
+    eos = config.eos_token_id
+    batch = _pad_to_static_shapes(
+        collate_fn(rows, Mode.inference, None, eos, True, False), len(rows), eos, args.generation_parameters.prompt_bucket_multiple
+    )
+    ids, mask = (torch.as_tensor(batch[key]).long() for key in ("input_ids", "attention_mask"))
+    static = dict(max_new_tokens=SEQ2SEQ_GENERATE[1], eos_token_id=eos, pad_token_id=eos, decoder_start_token_id=config.decoder_start_token_id)
+    tokens, counts = {}, {}
+    for where, model in models.items():
+        generated, num = generate_seq2seq_tokens(model, ids, mask, None, **static)
+        counts[where] = num.tolist()
+        tokens[where] = [row[:n] for row, n in zip(generated.tolist(), counts[where])]
+    def teacher_forced(model, rows):
+        decoder = torch.tensor([[config.decoder_start_token_id] + row[:-1] + [eos] * (SEQ2SEQ_GENERATE[1] - len(row)) for row in rows])
+        with torch.no_grad():
+            return model(ids.to(model.device), mask.to(model.device), decoder_input_ids=decoder.to(model.device)).logits.float().cpu()
+
+    # the two models' largest logit difference over the card's tokens, teacher-forced
+    logits = {where: teacher_forced(model, tokens["card"]) for where, model in models.items()}
+    valid = torch.arange(SEQ2SEQ_GENERATE[1])[None, :] < torch.tensor(counts["card"])[:, None]
+    logit_err = (logits["card"] - logits["cpu"]).abs().amax(-1)[valid].max().item()
+    bound = 2 * logit_err
+    parted = seq2seq_divergences(teacher_forced(models["cpu"], tokens["cpu"]), tokens["card"], tokens["cpu"], bound)
+    identical = sum(a == b for a, b in zip(tokens["card"], tokens["cpu"]))
+    return {
+        "layers": layers, "prompts": len(rows), "prompt_width": ids.shape[1], "new_tokens": SEQ2SEQ_GENERATE[1],
+        "rows_identical": identical, "parted": parted, "logits_max_abs_err": logit_err, "near_tie_bound": bound,
+        "tolerance": "a row may part from the CPU's only where the CPU fp32 model's logit gap between the two tokens is "
+        "within twice the largest card-vs-CPU logit difference over the card's tokens",
+    }
+
+
+def seq2seq_phase(seed, device="cuda", rehearsal=None, work=None):
+    """Phase 20: the encoder-decoder family. (a) `finetune.main` on `SEQ2SEQ_YAML` as written
+    (768 wide, 12 + 12 layers of 12 query heads over 6 KV heads of 64, swiglu, rmsnorm,
+    rope, vocab 50304, its default sdpa attention, stage 3 on a one-rank group, micro-batch
+    8) for 3 steps over seeded words; (b) the same entry point at google/flan-t5-base's widths
+    (`FLAN_T5_BASE`, dropout 0) with ``flash_attention_2``: full finetuning, then LoRA
+    (`configs/peft/lora.yml`'s adapters), their training batches' decoder length 512 (the
+    flash kernel's query-bias form) and the val batch's 300 (`sdpa_attention`); (c)
+    `generate.main` from (b)'s full-finetuning checkpoint (`configs/generation.yml`,
+    greedy, 16 prompts, 64 new tokens), then `seq2seq_generation_check`; (d) on the card the
+    query-bias kernel cases (`query_bias_kernel_cases`; a rehearsal runs
+    `query_bias_kernel_check`'s checks at a small shape). Launches zeroed before each run and
+    asserted exactly. Cuts: one card, dropout 0, seeded weights, the word tokenizer, 3 steps.
+    `rehearsal` (the CPU only): {"model": width overrides, "layers": n} for both configs,
+    "words" and "flash_output_tokens" in place of `SEQ2SEQ_WORDS` and
+    `SEQ2SEQ_FLASH_OUTPUT_TOKENS`, and (d)'s "kernel_shape". Returns (record, launches by
+    kernel, (d)'s cases)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch import generate
+    from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
+    from dolomite_engine_tpu_torch.models import EncDecDolomiteConfig
+    from dolomite_engine_tpu_torch.utils import load_yaml
+
+    on_card = torch.device(device).type == "cuda"
+    started = time.perf_counter()
+    own_work = work is None
+    work = work or tempfile.mkdtemp(prefix="seq2seq-")
+    tally = _LaunchTally()
+    words = SEQ2SEQ_WORDS if rehearsal is None else rehearsal["words"]
+    flash_budget = SEQ2SEQ_FLASH_OUTPUT_TOKENS if rehearsal is None else rehearsal["flash_output_tokens"]
+    record = {"steps": SEQ2SEQ_STEPS, "examples": SEQ2SEQ_EXAMPLES, "words": words, "flash_output_tokens": flash_budget}
+
+    def cut(config):
+        config = dict(config, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+        if rehearsal is not None:
+            config.update(rehearsal["model"], n_layer=rehearsal["layers"], n_encoder_layer=rehearsal["layers"])
+            config["num_key_value_heads"] = config["n_head"] // (2 if config["attention_head_type"] == "gqa" else 1)
+        return config
+
+    def run(name, args, flash):
+        shapes = {"train": [], "val": []}
+        _free(device)
+        t0 = time.perf_counter()
+        with tally.run():
+            summary = _run_finetune(args, device, shapes, decoder_lengths=True)
+        seconds = time.perf_counter() - t0
+        consumed = shapes["train"][:SEQ2SEQ_STEPS]
+        config = EncDecDolomiteConfig.from_dict(args.model_args.pretrained_config)
+        expected, forms = seq2seq_launches(config, consumed, shapes["val"], flash)
+        tally.expect(expected, forms)
+        steps = summary["steps"]
+        losses = [s["loss"] for s in steps]
+        assert [s["step"] for s in steps] == list(range(1, SEQ2SEQ_STEPS + 1)), steps
+        assert all(np.isfinite(losses)) and not any(s["skipped"] for s in steps), steps
+        assert sorted(summary["val_losses"]) == [0, SEQ2SEQ_STEPS] and all(np.isfinite(list(summary["val_losses"].values()))), summary
+        record[name] = {
+            "encoder_layers": config.n_encoder_layer, "decoder_layers": config.n_layer, "n_embd": config.n_embd,
+            "attention": getattr(args.model_args.attention_implementation, "value", "sdpa (the default)"),
+            "tuning": args.tuning_args.tuning_method.value,
+            "losses": losses, "grad_norms": [s["grad_norm"] for s in steps], "val_losses": summary["val_losses"],
+            "step_s": [s["step_seconds"] for s in steps], "train_shapes": consumed, "val_shapes": shapes["val"],
+            "seconds": seconds, "peak_memory_gb": _peak_gb(device), "launches": expected,
+        }
+        if on_card:
+            assert record[name]["peak_memory_gb"] < TRAIN_PEAK_GB, record[name]
+        return record[name]
+
+    # (a) the YAML as written: its config, rope, its default sdpa attention
+    yaml_config = cut(load_yaml(SEQ2SEQ_YAML)["model_args"]["pretrained_config"])
+    tokenizer_a = word_tokenizer(os.path.join(work, "tokenizer-a"), yaml_config["vocab_size"], yaml_config["eos_token_id"])
+    data_a = seq2seq_data(os.path.join(work, "data-a"), seed, yaml_config["vocab_size"], yaml_config["eos_token_id"], "ragged", words)
+    save_a = os.path.join(work, "yaml")
+    run("yaml", seq2seq_args(yaml_config, tokenizer_a, data_a, save_a), flash=False)
+    shutil.rmtree(save_a)
+
+    # (b) flan-t5-base's widths with the flash kernel: full finetuning, then LoRA
+    t5 = cut(FLAN_T5_BASE)
+    tokenizer_b = word_tokenizer(os.path.join(work, "tokenizer-b"), t5["vocab_size"], t5["eos_token_id"])
+    data_b = seq2seq_data(os.path.join(work, "data-b"), seed + 1, t5["vocab_size"], t5["eos_token_id"], "flash", words)
+    save_b = os.path.join(work, "flan-t5")
+    options = dict(attention="flash_attention_2", max_output_tokens=flash_budget)
+    full = run("flan_t5_full", seq2seq_args(t5, tokenizer_b, data_b, save_b, **options), flash=True)
+    lora = run("flan_t5_lora", seq2seq_args(t5, tokenizer_b, data_b, os.path.join(work, "flan-t5-lora"), "lora", **options), flash=True)
+    shutil.rmtree(os.path.join(work, "flan-t5-lora"))
+    for entry in (full, lora):  # most training batches on the flash route, the val batch off it
+        assert all(decoder == flash_budget - 1 for _, _, decoder in entry["train_shapes"]), entry["train_shapes"]
+        assert all(decoder % 128 for _, _, decoder in entry["val_shapes"]), entry["val_shapes"]
+
+    # (c) generate.main from (b)'s full-finetuning checkpoint
+    config = load_yaml(GENERATION_YAML)
+    config["load_args"] = {"load_path": save_b, "iteration": SEQ2SEQ_STEPS}
+    config["datasets"][0]["class_args"]["data_path"] = data_b
+    config["output_dir"] = os.path.join(work, "generations")
+    config["generation_parameters"].update(
+        do_sample=False, temperature=None, top_p=None, batch_size=SEQ2SEQ_GENERATE[0], max_new_tokens=SEQ2SEQ_GENERATE[1]
+    )
+    args = args_from_dict(config, Mode.inference)
+    _free(device)
+    t0 = time.perf_counter()
+    with tally.run():
+        summary = generate.main(args, device=device)
+    seconds = time.perf_counter() - t0
+    t5_config = EncDecDolomiteConfig.from_dict(t5)
+    batches = summary["batches"]
+    expected = {name: 0 for name in tally.launches}
+    expected["rmsnorm"] = batches * (2 * t5_config.n_encoder_layer + 1 + SEQ2SEQ_GENERATE[1] * (3 * t5_config.n_layer + 1))
+    tally.expect(expected, {})
+    tokens, lines = _outputs(summary["outputs"][0])
+    assert summary["requests"] == len(lines) == SEQ2SEQ_GENERATE[0], summary
+    assert all(0 <= t < t5_config.vocab_size for row in tokens for t in row), "a generated word outside the vocabulary"
+    assert all(0 < line["num_generated_tokens"] <= SEQ2SEQ_GENERATE[1] for line in lines), lines
+    record["generate"] = {
+        "requests": summary["requests"], "batches": batches, "prompt_tokens": summary["prompt_tokens"],
+        "generated_tokens": summary["generated_tokens"], "engine_seconds": summary["engine_seconds"],
+        "tok_s": summary["generated_tokens"] / summary["engine_seconds"], "seconds": seconds,
+        "load_seconds": summary["load_seconds"], "launches": expected,
+    }
+    t0 = time.perf_counter()
+    record["generate"]["check"] = seq2seq_generation_check(args, device)
+    record["generate"]["check"]["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(save_b)
+    record.update(tally.check(on_card))
+    _free(device)
+
+    # (d) the query-bias kernel cases at (b)'s decoder shape
+    t0 = time.perf_counter()
+    if on_card:
+        cases = query_bias_kernel_cases(seed)
+    else:
+        cases = []
+        record["kernel_check"] = [r["errors"] for r in query_bias_kernel_check(seed, device, rehearsal["kernel_shape"])]
+    record["kernel_cases_seconds"] = time.perf_counter() - t0
+    if own_work:
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - started
+    return record, record["launches"], cases
+
+
 def _model_bytes(state_path):
     """The bytes of the model's weights in a checkpoint's `state/` (its DCP metadata): what
     an inference load reads."""
@@ -5416,6 +5974,13 @@ def main() -> int:
 
     alibi_generation, alibi_generation_launches = alibi_generation_phase(args.seed)
     print(json.dumps({"alibi_generation": alibi_generation, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    seq2seq, seq2seq_launches, seq2seq_cases = seq2seq_phase(args.seed)
+    cases += seq2seq_cases  # (d): the flash kernel's query-bias form, in the kernels line with phase 2's
+    print(json.dumps({"seq2seq": seq2seq, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"kernel_cases_seq2seq": seq2seq_cases, "card": card}), flush=True)
 
     records = {
         "serving": serving, "training": training, "moe_serving": moe_serving, "moe_training": moe_training,
@@ -5426,6 +5991,7 @@ def main() -> int:
         "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
         "finetune": {"launch_forms": finetune["launch_forms"]},
         "distribution": {"launch_forms": distribution["launch_forms"]},
+        "seq2seq": {"launch_forms": seq2seq["launch_forms"]},
     }
 
     verify_keys = ("shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5458,6 +6024,7 @@ def main() -> int:
             "speculative_generation": speculative_launches[spec.name], "preemption": preemption_launches[spec.name],
             "finetune": finetune["launches"][spec.name],
             "distribution": distribution_launches[spec.name],
+            "seq2seq": seq2seq_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

@@ -4,7 +4,8 @@
 // splash attention (`_tpu_splash_attention`, dolomite_engine_tpu/ops/attention.py:330)
 // with a causal mask and `SegmentIds(q=s, kv=s)`, and jax's flash kernel
 // (`_tpu_flash_attention`, :379) in the forms splash does not take: an additive bias
-// (kBias: alibi) and no causal mask (kCausal false). Query i attends key j when
+// (kBias: alibi's key row, or T5's bias over (query, key) pairs) and no causal mask
+// (kCausal false). Query i attends key j when
 // seg[i] == seg[j] and, if causal, j <= i; pad tokens (segment 0) attend among
 // themselves, so no row is empty. GQA: query head h reads kv head h / (Hq / Hkv).
 //
@@ -17,6 +18,20 @@
 // Scores run in log2 units (exp2): the bias enters times log2(e), in the forward and in
 // both backward recomputes of P, which must match the logsumexp the forward stored (of
 // the shifted scores, natural log).
+//
+// The query bias (kQueryBias: T5's learned relative bias, which varies along the queries
+// and is trained) is jax's `ab` itself, fp32 [Bb, Hq, S, S] with Bb = 1 (shared over the
+// batch: batch stride 0) or B. The score is q.k * scale + bias[i, j], not shifted: a T5
+// bias row has no constant to take out, and its values are small. The kernels read each
+// thread's (row, column) entries of a tile straight from device memory (L2 holds a shared
+// bias: 12.6 MB at [1, 12, 512, 512]); a tile the walk skips is never read. The backward
+// also writes dBias = P (dP - delta) in fp32, jax's `ds`, from the dQ pass, which holds
+// dS of every (query, key) pair it visits: into [B, Hq, S, S] rows zeroed by the caller
+// (so the pairs a mask or the walk skips stay 0), then, for a shared bias, summed over
+// the batch in a fixed order by `flash_dbias_sum_kernel` (no atomics: the same bits every
+// run). This translation unit compiles the no-bias and key-row forms; the query-bias
+// form's instances compile in `flash_attention_query_bias.cu`, which includes this file,
+// so the two build in parallel.
 //
 // Bound on the H100: operations for long documents — at [1, 4096, 32, 80] one causal
 // document is 4 * S^2/2 * D * H ~ 86 GFLOP against ~84 MB of q/k/v/o — but packed
@@ -77,12 +92,19 @@ using namespace dolo;
 constexpr int kTile = 64;  // tokens of a segment range; key and query tile of the fp32 path
 constexpr float kLog2e = 1.4426950408889634f;
 
+// the bias forms (template argument kBias)
+constexpr int kNoBias = 0;     // none: the splash form, or non-causal without a bias
+constexpr int kKeyBias = 1;    // a [B, Hq, S] key row (alibi), shifted by the row's own-position bias
+constexpr int kQueryBias = 2;  // a [Bb, Hq, S, S] bias over (query, key) pairs (T5), not shifted
+
 struct FlashArgs {
   const void* q;      // [B, S, Hq, D], tokens q_stride elements apart
   const void* k;      // [B, S, Hkv, D], tokens k_stride apart
   const void* v;      // [B, S, Hkv, D], tokens v_stride apart
   const int* seg;     // [B, S]
-  const float* bias;  // [B, Hq, S] additive key bias (kBias), or null
+  const float* bias;  // [B, Hq, S] additive key bias (kKeyBias), [Bb, Hq, S, S] (kQueryBias), or null
+  int64_t bias_batch_stride;  // kQueryBias: elements between batch rows of the bias, 0 when shared
+  float* dbias;        // kQueryBias backward: [B, Hq, S, S] fp32 dS rows, zeroed by the caller
   const void* out;    // [B, S, Hq, D] contiguous (backward: the forward's output)
   const void* dout;   // [B, S, Hq, D] contiguous
   float* lse;         // [B, Hq, S] natural-log row logsumexp of the scaled scores
@@ -117,6 +139,35 @@ __device__ __forceinline__ int key_tile_end(int qt, int num_tiles) {
 // own-position bias
 __device__ __forceinline__ float bias_log2(float key_bias, float row_bias) {
   return (key_bias - row_bias) * kLog2e;
+}
+
+// kQueryBias: the bias of query row `row` of q head `head` from key `col` on
+__device__ __forceinline__ const float* query_bias(const FlashArgs& args, int b, int head, int row, int col) {
+  const int64_t seq = args.seq;
+  return args.bias + b * args.bias_batch_stride + (head * seq + row) * seq + col;
+}
+
+// kQueryBias backward: the dS row of query `row` of q head `head` from key `col` on, in
+// the [B, Hq, S, S] rows
+__device__ __forceinline__ float* dbias_row(const FlashArgs& args, int b, int head, int row, int col) {
+  const int64_t seq = args.seq;
+  return args.dbias + ((static_cast<int64_t>(b) * args.num_q_heads + head) * seq + row) * seq + col;
+}
+
+// dbias[i] = sum over the batch rows of rows[b, i], b in order (a shared bias's gradient):
+// n4 float4s a batch row
+__global__ void __launch_bounds__(256) flash_dbias_sum_kernel(const float4* rows, float4* out, int64_t n4, int batch) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x; i < n4; i += static_cast<int64_t>(gridDim.x) * 256) {
+    float4 sum = rows[i];
+    for (int b = 1; b < batch; ++b) {
+      const float4 r = rows[b * n4 + i];
+      sum.x += r.x;
+      sum.y += r.y;
+      sum.z += r.z;
+      sum.w += r.w;
+    }
+    out[i] = sum;
+  }
 }
 
 // The dK/dV walk of key tile kt: work item p = (q head of the GQA group) * num_tiles +
@@ -254,7 +305,7 @@ __device__ __forceinline__ void walk(int item, int end, Next next, Fetch fetch, 
   }
 }
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FlashArgs args) {
   constexpr int LD = D + 8;
   constexpr int NTD = D / 8;
@@ -284,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FlashArgs args) {
   const int end = min(key_tile_end<kCausal>(qt, num_tiles), q_range.w + 1);
   const float* k_base = static_cast<const float*>(args.k) + tok0 * args.k_stride + static_cast<int64_t>(kv_head) * D;
   const float* v_base = static_cast<const float*>(args.v) + tok0 * args.v_stride + static_cast<int64_t>(kv_head) * D;
-  const float* bias_row = kBias ? args.bias + (static_cast<int64_t>(b) * args.num_q_heads + head) * seq : nullptr;
+  const float* bias_row = kBias == kKeyBias ? args.bias + (static_cast<int64_t>(b) * args.num_q_heads + head) * seq : nullptr;
 
   cp_async_tile(qs, LD, static_cast<const float*>(args.q) + (tok0 + q0) * args.q_stride + static_cast<int64_t>(head) * D,
                 args.q_stride, kTile, D);
@@ -297,14 +348,14 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FlashArgs args) {
     cp_async_tile(ks, LD, k_base + static_cast<int64_t>(t) * kTile * args.k_stride, args.k_stride, kTile, D);
     cp_async_tile(vs, LD, v_base + static_cast<int64_t>(t) * kTile * args.v_stride, args.v_stride, kTile, D);
     cp_async_tile(segk, kTile, seg_row + t * kTile, 0, 1, kTile);
-    if constexpr (kBias) cp_async_tile(biask, kTile, bias_row + t * kTile, 0, 1, kTile);
+    if constexpr (kBias == kKeyBias) cp_async_tile(biask, kTile, bias_row + t * kTile, 0, 1, kTile);
     cp_async_commit();
   };
 
   const int rows[2] = {warp * 16 + g, warp * 16 + g + 8};
   const int row_seg[2] = {seg_row[q0 + rows[0]], seg_row[q0 + rows[1]]};
   float row_bias[2] = {0.f, 0.f};
-  if constexpr (kBias) {
+  if constexpr (kBias == kKeyBias) {
     row_bias[0] = bias_row[q0 + rows[0]];
     row_bias[1] = bias_row[q0 + rows[1]];
   }
@@ -328,7 +379,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FlashArgs args) {
         const int col = nt * 8 + 2 * c + (i & 1);
         const bool ok = (!kCausal || k0 + col <= q0 + rows[h]) && segk[col] == row_seg[h];
         float score = s[0][nt][i] * scale_log2;
-        if constexpr (kBias) score += bias_log2(biask[col], row_bias[h]);
+        if constexpr (kBias == kKeyBias) score += bias_log2(biask[col], row_bias[h]);
+        if constexpr (kBias == kQueryBias) score += *query_bias(args, b, head, q0 + rows[h], k0 + col) * kLog2e;
         s[0][nt][i] = ok ? score : -INFINITY;
         tile_max[h] = fmaxf(tile_max[h], s[0][nt][i]);
       }
@@ -375,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FlashArgs args) {
   }
 }
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(FlashArgs args) {
   constexpr int LD = D + 8;
   constexpr int NTD = D / 8;
@@ -426,7 +478,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(FlashArgs args) {
     cp_async_tile(segq, kTile, seg_row + q0, 0, 1, kTile);
     cp_async_tile(segq + kTile, kTile, reinterpret_cast<const int*>(args.lse + stat0), 0, 1, kTile);
     cp_async_tile(segq + 2 * kTile, kTile, reinterpret_cast<const int*>(args.delta + stat0), 0, 1, kTile);
-    if constexpr (kBias)
+    if constexpr (kBias == kKeyBias)
       cp_async_tile(segq + 3 * kTile, kTile, reinterpret_cast<const int*>(args.bias + stat0), 0, 1, kTile);
     cp_async_commit();
   };
@@ -441,7 +493,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(FlashArgs args) {
   walk(next(0), end, next, fetch, [&](int p) {
     const int q0 = (p % num_tiles) * kTile;
     float key_bias[2] = {0.f, 0.f};  // this lane's key rows' bias under the item's q head
-    if constexpr (kBias) {
+    if constexpr (kBias == kKeyBias) {
       const float* bias_row = args.bias + (static_cast<int64_t>(b) * hq + kv_head * group + p / num_tiles) * seq;
       key_bias[0] = bias_row[k0 + rows[0]];
       key_bias[1] = bias_row[k0 + rows[1]];
@@ -459,7 +511,9 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(FlashArgs args) {
         const int col = nt * 8 + 2 * c + (i & 1);
         const bool ok = (!kCausal || k0 + rows[i >> 1] <= q0 + col) && segq[col] == row_seg[i >> 1];
         float pt_score = st[0][nt][i] * scale_log2;
-        if constexpr (kBias) pt_score += bias_log2(key_bias[i >> 1], qbias[col]);
+        if constexpr (kBias == kKeyBias) pt_score += bias_log2(key_bias[i >> 1], qbias[col]);
+        if constexpr (kBias == kQueryBias)
+          pt_score += *query_bias(args, b, kv_head * group + p / num_tiles, q0 + col, k0 + rows[i >> 1]) * kLog2e;
         const float pt = ok ? exp2f(pt_score - lse[col] * kLog2e) : 0.f;
         st[0][nt][i] = pt;
         dpt[0][nt][i] = pt * (dpt[0][nt][i] - delta[col]);  // dS^T
@@ -490,7 +544,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(FlashArgs args) {
   }
 }
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads) dq_kernel(FlashArgs args) {
   constexpr int LD = D + 8;
   constexpr int NTD = D / 8;
@@ -523,7 +577,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(FlashArgs args) {
   const int end = min(key_tile_end<kCausal>(qt, num_tiles), q_range.w + 1);
   const float* k_base = static_cast<const float*>(args.k) + tok0 * args.k_stride + static_cast<int64_t>(kv_head) * D;
   const float* v_base = static_cast<const float*>(args.v) + tok0 * args.v_stride + static_cast<int64_t>(kv_head) * D;
-  const float* bias_row = kBias ? args.bias + (static_cast<int64_t>(b) * hq + head) * seq : nullptr;
+  const float* bias_row = kBias == kKeyBias ? args.bias + (static_cast<int64_t>(b) * hq + head) * seq : nullptr;
 
   cp_async_tile(qs, LD, static_cast<const float*>(args.q) + (tok0 + q0) * args.q_stride + static_cast<int64_t>(head) * D,
                 args.q_stride, kTile, D);
@@ -538,14 +592,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(FlashArgs args) {
     cp_async_tile(ks, LD, k_base + static_cast<int64_t>(t) * kTile * args.k_stride, args.k_stride, kTile, D);
     cp_async_tile(vs, LD, v_base + static_cast<int64_t>(t) * kTile * args.v_stride, args.v_stride, kTile, D);
     cp_async_tile(segk, kTile, seg_row + t * kTile, 0, 1, kTile);
-    if constexpr (kBias) cp_async_tile(biask, kTile, bias_row + t * kTile, 0, 1, kTile);
+    if constexpr (kBias == kKeyBias) cp_async_tile(biask, kTile, bias_row + t * kTile, 0, 1, kTile);
     cp_async_commit();
   };
 
   const int rows[2] = {warp * 16 + g, warp * 16 + g + 8};
   const int row_seg[2] = {seg_row[q0 + rows[0]], seg_row[q0 + rows[1]]};
   float row_bias[2] = {0.f, 0.f};
-  if constexpr (kBias) {
+  if constexpr (kBias == kKeyBias) {
     row_bias[0] = bias_row[q0 + rows[0]];
     row_bias[1] = bias_row[q0 + rows[1]];
   }
@@ -571,9 +625,11 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(FlashArgs args) {
         const int col = nt * 8 + 2 * c + (i & 1);
         const bool ok = (!kCausal || k0 + col <= q0 + rows[h]) && segk[col] == row_seg[h];
         float score = s[0][nt][i] * scale_log2;
-        if constexpr (kBias) score += bias_log2(biask[col], row_bias[h]);
+        if constexpr (kBias == kKeyBias) score += bias_log2(biask[col], row_bias[h]);
+        if constexpr (kBias == kQueryBias) score += *query_bias(args, b, head, q0 + rows[h], k0 + col) * kLog2e;
         const float p = ok ? exp2f(score - row_lse[h]) : 0.f;
         s[0][nt][i] = p * (dp[0][nt][i] - row_delta[h]);  // dS
+        if constexpr (kBias == kQueryBias) *dbias_row(args, b, head, q0 + rows[h], k0 + col) = s[0][nt][i];
       }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -601,13 +657,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, c
   return cudaGetLastError();
 }
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 cudaError_t launch_fwd(const FlashArgs& args, int batch, cudaStream_t stream) {
   return launch(fwd_kernel<D, kBias, kCausal>, dim3(args.seq / kTile, args.num_q_heads, batch), fwd_smem_bytes<D>(),
                 stream, args);
 }
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 cudaError_t launch_bwd(const FlashArgs& args, int batch, cudaStream_t stream) {
   cudaError_t err = launch(dkdv_kernel<D, kBias, kCausal>, dim3(args.seq / kTile, args.num_kv_heads, batch),
                            dkdv_smem_bytes<D>(), stream, args);
@@ -766,7 +822,7 @@ struct FwdLayout {
   static constexpr size_t kBytes = 1024 + kQBytes + kStages * kStageBytes + kStages * 2 * kTile * 4 + (2 * kStages + 1) * 8;
 };
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map, FlashArgs args) {
@@ -790,7 +846,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kv_head = head / (hq / args.num_kv_heads);
   const int64_t tok0 = static_cast<int64_t>(b) * seq;
   const int* seg_row = args.seg + tok0;
-  const float* bias_row = kBias ? args.bias + (static_cast<int64_t>(b) * hq + head) * seq : nullptr;
+  const float* bias_row = kBias == kKeyBias ? args.bias + (static_cast<int64_t>(b) * hq + head) * seq : nullptr;
   const int4* ranges = args.ranges + static_cast<int64_t>(b) * num_tiles;
   const int first = q0 / kTile;
   const int last = min(first + 1, num_tiles - 1);  // the query block's last 64-token tile
@@ -817,11 +873,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = i % kStages;
         wait_free(empty, i);
         unsigned char* kv = ring + s * L::kStageBytes;
-        sm90::mbar_arrive_expect_tx(&full[s], L::kStageBytes + (kBias ? 2 : 1) * kTile * 4);
+        sm90::mbar_arrive_expect_tx(&full[s], L::kStageBytes + (kBias == kKeyBias ? 2 : 1) * kTile * 4);
         load_rows<D>(kv, &k_map, &full[s], kTile, kv_head, t * kTile, b);
         load_rows<D>(kv + H::kTileBytes, &v_map, &full[s], kTile, kv_head, t * kTile, b);
         sm90::bulk_load(segk + s * kTile, seg_row + t * kTile, kTile * 4, &full[s]);
-        if constexpr (kBias) sm90::bulk_load(biask + s * kTile, bias_row + t * kTile, kTile * 4, &full[s]);
+        if constexpr (kBias == kKeyBias) sm90::bulk_load(biask + s * kTile, bias_row + t * kTile, kTile * 4, &full[s]);
       }
     }
     return;
@@ -845,13 +901,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       row_seg[h] = seg_row[rows[h]];
-      if constexpr (kBias) row_bias[h] = bias_row[rows[h]];
+      if constexpr (kBias == kKeyBias) row_bias[h] = bias_row[rows[h]];
     }
   }
   // x = q.k, or with a bias the log2-unit score q.k * scale * log2(e) + bias term; the
   // exponent of P is (x - m) * xs
   const float scale_log2 = args.scale * kLog2e;
-  const float xs = kBias ? 1.f : scale_log2;
+  const float xs = kBias != kNoBias ? 1.f : scale_log2;
   float m[2] = {-INFINITY, -INFINITY};  // running max of x
   float l[2] = {0.f, 0.f};              // this lane's share of the denominator
   float o[D / 2];
@@ -882,13 +938,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < 8; ++j) {
         const int col0 = 8 * j + 2 * c;  // this thread's two key columns
         float2 bk2 = make_float2(0.f, 0.f);
-        if constexpr (kBias) bk2 = *reinterpret_cast<const float2*>(bk + col0);
+        float2 qb2[2] = {bk2, bk2};  // kQueryBias: the bias of this thread's two rows at the columns
+        if constexpr (kBias == kKeyBias) bk2 = *reinterpret_cast<const float2*>(bk + col0);
+        if constexpr (kBias == kQueryBias)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) qb2[h] = __ldg(reinterpret_cast<const float2*>(query_bias(args, b, head, rows[h], kt * kTile + col0)));
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
           const int col = col0 + (e & 1);
           float x = cur[4 * j + e];
-          if constexpr (kBias) x = fmaf(x, scale_log2, bias_log2((e & 1) ? bk2.y : bk2.x, row_bias[h]));
+          if constexpr (kBias == kKeyBias) x = fmaf(x, scale_log2, bias_log2((e & 1) ? bk2.y : bk2.x, row_bias[h]));
+          if constexpr (kBias == kQueryBias) x = fmaf(x, scale_log2, ((e & 1) ? qb2[h].y : qb2[h].x) * kLog2e);
           if constexpr (decltype(masked)::value)
             if (!((!kCausal || kt * kTile + col <= rows[h]) & (sk[col] == row_seg[h]))) x = -INFINITY;
           cur[4 * j + e] = x;
@@ -982,7 +1043,7 @@ struct DqLayout {
       1024 + 2 * kQBytes + kStages * kStageBytes + kStages * 2 * kTile * 4 + (2 * kStages + 1) * 8;
 };
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
               const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map, FlashArgs args) {
@@ -1008,7 +1069,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int64_t tok0 = static_cast<int64_t>(b) * seq;
   const int64_t stat0 = (static_cast<int64_t>(b) * hq + head) * seq;
   const int* seg_row = args.seg + tok0;
-  const float* bias_row = kBias ? args.bias + stat0 : nullptr;
+  const float* bias_row = kBias == kKeyBias ? args.bias + stat0 : nullptr;
   const int4* ranges = args.ranges + static_cast<int64_t>(b) * num_tiles;
   const int first = q0 / kTile;
   const int last = min(first + 1, num_tiles - 1);
@@ -1037,11 +1098,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = i % kStages;
         wait_free(empty, i);
         unsigned char* kv = ring + s * L::kStageBytes;
-        sm90::mbar_arrive_expect_tx(&full[s], L::kStageBytes + (kBias ? 2 : 1) * kTile * 4);
+        sm90::mbar_arrive_expect_tx(&full[s], L::kStageBytes + (kBias == kKeyBias ? 2 : 1) * kTile * 4);
         load_rows<D>(kv, &k_map, &full[s], kTile, kv_head, t * kTile, b);
         load_rows<D>(kv + H::kTileBytes, &v_map, &full[s], kTile, kv_head, t * kTile, b);
         sm90::bulk_load(segk + s * kTile, seg_row + t * kTile, kTile * 4, &full[s]);
-        if constexpr (kBias) sm90::bulk_load(biask + s * kTile, bias_row + t * kTile, kTile * 4, &full[s]);
+        if constexpr (kBias == kKeyBias) sm90::bulk_load(biask + s * kTile, bias_row + t * kTile, kTile * 4, &full[s]);
       }
     }
     return;
@@ -1064,7 +1125,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       row_seg[h] = seg_row[rows[h]];
-      if constexpr (kBias) row_bias[h] = bias_row[rows[h]];
+      if constexpr (kBias == kKeyBias) row_bias[h] = bias_row[rows[h]];
       row_lse[h] = args.lse[stat0 + rows[h]] * kLog2e;
       row_delta[h] = args.delta[stat0 + rows[h]];
     }
@@ -1107,7 +1168,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int h = e >> 1;
             const int col = 8 * j + 2 * c + (e & 1);
             float ds_exp = -row_lse[h];
-            if constexpr (kBias) ds_exp += bias_log2(bk[col], row_bias[h]);  // the bias in dQ's P
+            if constexpr (kBias == kKeyBias) ds_exp += bias_log2(bk[col], row_bias[h]);  // the bias in dQ's P
+            if constexpr (kBias == kQueryBias) ds_exp += __ldg(query_bias(args, b, head, rows[h], kt * kTile + col)) * kLog2e;
             float p = sm90::fast_exp2(fmaf(sc[4 * j + e], scale_log2, ds_exp));
             if constexpr (decltype(masked)::value)
               if (!((!kCausal || kt * kTile + col <= rows[h]) & (sk[col] == row_seg[h]))) p = 0.f;
@@ -1118,6 +1180,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         grads(std::true_type{});
       } else {
         grads(std::false_type{});
+      }
+      if constexpr (kBias == kQueryBias) {  // dBias = dS, fp32, before dS rounds to bf16
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* dst = dbias_row(args, b, head, rows[h], kt * kTile + 2 * c);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+        }
       }
       to_a_operand(ds, sc);
     }
@@ -1145,7 +1215,7 @@ struct DkdvLayout {
 // under the masks (handed over through shared memory, two buffers) and dV += P^T dO;
 // warpgroup 1 computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T Q. Each
 // holds one 64 x D accumulator across the walk, so neither spills at 168 registers.
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
     dkdv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
                 const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map, FlashArgs args) {
@@ -1205,13 +1275,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int64_t stat0 = (static_cast<int64_t>(b) * hq + head) * seq + q0;
         unsigned char* qd = ring + s * L::kStageBytes;
         float* st = stats + s * L::kStats;
-        sm90::mbar_arrive_expect_tx(&full[s], L::kStageBytes + (kBias ? 4 : 3) * kTile * 4);
+        sm90::mbar_arrive_expect_tx(&full[s], L::kStageBytes + (kBias == kKeyBias ? 4 : 3) * kTile * 4);
         load_rows<D>(qd, &q_map, &full[s], kTile, head, q0, b);
         load_rows<D>(qd + H::kTileBytes, &do_map, &full[s], kTile, head, q0, b);
         sm90::bulk_load(st, seg_row + q0, kTile * 4, &full[s]);
         sm90::bulk_load(st + kTile, args.lse + stat0, kTile * 4, &full[s]);
         sm90::bulk_load(st + 2 * kTile, args.delta + stat0, kTile * 4, &full[s]);
-        if constexpr (kBias) sm90::bulk_load(st + 3 * kTile, args.bias + stat0, kTile * 4, &full[s]);
+        if constexpr (kBias == kKeyBias) sm90::bulk_load(st + 3 * kTile, args.bias + stat0, kTile * 4, &full[s]);
       }
     }
     return;
@@ -1244,7 +1314,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* lse = st + kTile;
       const float* qbias = st + 3 * kTile;
       float key_bias[2] = {0.f, 0.f};  // this thread's keys' bias under the item's q head
-      if constexpr (kBias) {
+      if constexpr (kBias == kKeyBias) {
         const float* bias_row = args.bias + (static_cast<int64_t>(b) * hq + head) * seq;
         key_bias[0] = bias_row[krows[0]];
         key_bias[1] = bias_row[krows[1]];
@@ -1258,13 +1328,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int col0 = 8 * j + 2 * c;  // this thread's two query columns
           const float2 lse2 = *reinterpret_cast<const float2*>(lse + col0);
           float2 qb2 = make_float2(0.f, 0.f);
-          if constexpr (kBias) qb2 = *reinterpret_cast<const float2*>(qbias + col0);
+          if constexpr (kBias == kKeyBias) qb2 = *reinterpret_cast<const float2*>(qbias + col0);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int h = e >> 1;
             const int col = col0 + (e & 1);
             float pt_exp = -((e & 1) ? lse2.y : lse2.x) * kLog2e;
-            if constexpr (kBias) pt_exp += bias_log2(key_bias[h], (e & 1) ? qb2.y : qb2.x);
+            if constexpr (kBias == kKeyBias) pt_exp += bias_log2(key_bias[h], (e & 1) ? qb2.y : qb2.x);
+            if constexpr (kBias == kQueryBias) pt_exp += __ldg(query_bias(args, b, head, q0 + col, krows[h])) * kLog2e;
             float pt = sm90::fast_exp2(fmaf(sc[4 * j + e], scale_log2, pt_exp));
             if constexpr (decltype(masked)::value)
               if (!((!kCausal || krows[h] <= q0 + col) & (segq[col] == key_seg[h]))) pt = 0.f;
@@ -1338,7 +1409,7 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int batch, int seq, int
   return sm90::bf16_tensor_map(map, base, 4, dims, strides, box);
 }
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 cudaError_t launch_fwd(const FlashArgs& args, int batch, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   const int hq = args.num_q_heads, hkv = args.num_kv_heads;
@@ -1353,7 +1424,7 @@ cudaError_t launch_fwd(const FlashArgs& args, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool kBias, bool kCausal>
+template <int D, int kBias, bool kCausal>
 cudaError_t launch_bwd(const FlashArgs& args, int batch, cudaStream_t stream) {
   CUtensorMap q_rows, do_rows, q_tile, do_tile, k_map, v_map;
   const int hq = args.num_q_heads, hkv = args.num_kv_heads, seq = args.seq;
@@ -1380,7 +1451,7 @@ cudaError_t launch_bwd(const FlashArgs& args, int batch, cudaStream_t stream) {
 
 // The kernels of one (dtype, head dim, form): bf16 takes the wgmma path, fp32 the FMA
 // tiles (a fixed dtype rule).
-template <int D, bool kBias, bool kCausal, bool kBackward>
+template <int D, int kBias, bool kCausal, bool kBackward>
 cudaError_t launch_form(const FlashArgs& args, int batch, bool bf16, cudaStream_t stream) {
   if (bf16)
     return kBackward ? wg::launch_bwd<D, kBias, kCausal>(args, batch, stream)
@@ -1391,20 +1462,67 @@ cudaError_t launch_form(const FlashArgs& args, int batch, bool bf16, cudaStream_
 
 template <int D, bool kBackward>
 cudaError_t dispatch_form(const FlashArgs& args, int batch, bool causal, bool bf16, cudaStream_t stream) {
+#ifdef DOLO_FLASH_QUERY_BIAS_UNIT
+  if (causal) return launch_form<D, kQueryBias, true, kBackward>(args, batch, bf16, stream);
+  return launch_form<D, kQueryBias, false, kBackward>(args, batch, bf16, stream);
+#else
   const bool bias = args.bias != nullptr;
-  if (bias && causal) return launch_form<D, true, true, kBackward>(args, batch, bf16, stream);
-  if (bias) return launch_form<D, true, false, kBackward>(args, batch, bf16, stream);
-  if (causal) return launch_form<D, false, true, kBackward>(args, batch, bf16, stream);
-  return launch_form<D, false, false, kBackward>(args, batch, bf16, stream);
+  if (bias && causal) return launch_form<D, kKeyBias, true, kBackward>(args, batch, bf16, stream);
+  if (bias) return launch_form<D, kKeyBias, false, kBackward>(args, batch, bf16, stream);
+  if (causal) return launch_form<D, kNoBias, true, kBackward>(args, batch, bf16, stream);
+  return launch_form<D, kNoBias, false, kBackward>(args, batch, bf16, stream);
+#endif
 }
 
-// The segment ranges (and in the backward delta), then the head dim's kernels.
 template <bool kBackward>
-int dispatch(const FlashArgs& args, int batch, int head_dim, bool causal, int dtype, void* stream) {
+cudaError_t dispatch_head_dim(const FlashArgs& args, int batch, int head_dim, bool causal, bool bf16, cudaStream_t s) {
+  switch (head_dim) {
+    case 64:
+      return dispatch_form<64, kBackward>(args, batch, causal, bf16, s);
+    case 80:
+      return dispatch_form<80, kBackward>(args, batch, causal, bf16, s);
+    default:
+      return dispatch_form<128, kBackward>(args, batch, causal, bf16, s);
+  }
+}
+
+}  // namespace
+
+#ifdef DOLO_FLASH_QUERY_BIAS_UNIT
+// The query-bias form's kernels, after the caller's pre-pass: `args` is this file's
+// FlashArgs. The backward then sums a shared bias's dS rows over the batch into `dbias`.
+extern "C" int dolo_flash_query_bias(const void* args_ptr, int batch, int head_dim, int causal, int bf16,
+                                     void* dbias, void* stream, int backward) {
+  const FlashArgs& args = *static_cast<const FlashArgs*>(args_ptr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!backward) return dispatch_head_dim<false>(args, batch, head_dim, causal != 0, bf16 != 0, s);
+  cudaError_t err = dispatch_head_dim<true>(args, batch, head_dim, causal != 0, bf16 != 0, s);
+  if (err != cudaSuccess || dbias == args.dbias) return err;
+  const int64_t n4 = static_cast<int64_t>(args.num_q_heads) * args.seq * args.seq / 4;
+  const int64_t wanted = (n4 + 255) / 256;
+  const int blocks = static_cast<int>(wanted < 132 * 8 ? wanted : 132 * 8);
+  flash_dbias_sum_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(args.dbias),
+                                                static_cast<float4*>(dbias), n4, batch);
+  return cudaGetLastError();
+}
+#else
+extern "C" int dolo_flash_query_bias(const void* args, int batch, int head_dim, int causal, int bf16, void* dbias,
+                                     void* stream, int backward);
+
+namespace {
+
+// The segment ranges (and in the backward delta), then the head dim's kernels of the form:
+// the query-bias form's live in the other translation unit.
+template <bool kBackward>
+int dispatch(const FlashArgs& args, int batch, int head_dim, bool causal, int bias_mode, void* dbias, int dtype,
+             void* stream) {
   if (batch <= 0 || args.seq <= 0) return cudaSuccess;
   if (args.seq % kTile || args.num_q_heads % args.num_kv_heads) return cudaErrorInvalidValue;
   if (head_dim != 64 && head_dim != 80 && head_dim != 128) return cudaErrorInvalidValue;
   if (dtype != dolo::kFloat32 && dtype != dolo::kBFloat16) return cudaErrorInvalidValue;
+  if (bias_mode < kNoBias || bias_mode > kQueryBias || (bias_mode != kNoBias) != (args.bias != nullptr))
+    return cudaErrorInvalidValue;
+  if (kBackward && bias_mode == kQueryBias && (args.dbias == nullptr || dbias == nullptr)) return cudaErrorInvalidValue;
   const bool bf16 = dtype == dolo::kBFloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = args.seq / kTile;  // a batch row's
@@ -1422,29 +1540,26 @@ int dispatch(const FlashArgs& args, int batch, int head_dim, bool causal, int dt
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  switch (head_dim) {
-    case 64:
-      return dispatch_form<64, kBackward>(args, batch, causal, bf16, s);
-    case 80:
-      return dispatch_form<80, kBackward>(args, batch, causal, bf16, s);
-    default:
-      return dispatch_form<128, kBackward>(args, batch, causal, bf16, s);
-  }
+  if (bias_mode == kQueryBias)
+    return dolo_flash_query_bias(&args, batch, head_dim, causal, bf16, dbias, stream, kBackward);
+  return dispatch_head_dim<kBackward>(args, batch, head_dim, causal, bf16, s);
 }
 
 }  // namespace
 
-// bias: [B, Hq, S] fp32 or null; ranges: [B, S / 64] int4 scratch; causal: 0 or 1
+// bias: [B, Hq, S] fp32 (bias_mode 1), [Bb, Hq, S, S] fp32 (bias_mode 2, Bb = 1 when
+// bias_shared), or null (bias_mode 0); ranges: [B, S / 64] int4 scratch; causal: 0 or 1
 extern "C" int dolo_flash_fwd(const void* q, const void* k, const void* v, const void* seg, const void* bias,
                               void* out, void* lse, void* ranges, int batch, int seq, int num_q_heads,
                               int num_kv_heads, int head_dim, int q_stride, int k_stride, int v_stride, int causal,
-                              float scale, int dtype, void* stream) {
+                              int bias_mode, int bias_shared, float scale, int dtype, void* stream) {
   FlashArgs args{};
   args.q = q;
   args.k = k;
   args.v = v;
   args.seg = static_cast<const int*>(seg);
   args.bias = static_cast<const float*>(bias);
+  args.bias_batch_stride = bias_shared ? 0 : static_cast<int64_t>(num_q_heads) * seq * seq;
   args.o_write = out;
   args.lse = static_cast<float*>(lse);
   args.ranges = static_cast<int4*>(ranges);
@@ -1455,20 +1570,25 @@ extern "C" int dolo_flash_fwd(const void* q, const void* k, const void* v, const
   args.k_stride = k_stride;
   args.v_stride = v_stride;
   args.scale = scale;
-  return dispatch<false>(args, batch, head_dim, causal != 0, dtype, stream);
+  return dispatch<false>(args, batch, head_dim, causal != 0, bias_mode, nullptr, dtype, stream);
 }
 
+// bias_mode 2 also writes dBias: dbias_rows [B, Hq, S, S] fp32, zeroed by the caller, and
+// dbias [Bb, Hq, S, S], the batch sum of the rows when the bias is shared (the rows
+// themselves otherwise: pass the same pointer)
 extern "C" int dolo_flash_bwd(const void* q, const void* k, const void* v, const void* seg, const void* bias,
                               const void* out, const void* dout, const void* lse, void* delta, void* ranges, void* dq,
-                              void* dk, void* dv, int batch, int seq, int num_q_heads, int num_kv_heads, int head_dim,
-                              int q_stride, int k_stride, int v_stride, int causal, float scale, int dtype,
-                              void* stream) {
+                              void* dk, void* dv, void* dbias_rows, void* dbias, int batch, int seq, int num_q_heads,
+                              int num_kv_heads, int head_dim, int q_stride, int k_stride, int v_stride, int causal,
+                              int bias_mode, int bias_shared, float scale, int dtype, void* stream) {
   FlashArgs args{};
   args.q = q;
   args.k = k;
   args.v = v;
   args.seg = static_cast<const int*>(seg);
   args.bias = static_cast<const float*>(bias);
+  args.bias_batch_stride = bias_shared ? 0 : static_cast<int64_t>(num_q_heads) * seq * seq;
+  args.dbias = static_cast<float*>(dbias_rows);
   args.out = out;
   args.dout = dout;
   args.lse = const_cast<float*>(static_cast<const float*>(lse));
@@ -1484,5 +1604,6 @@ extern "C" int dolo_flash_bwd(const void* q, const void* k, const void* v, const
   args.k_stride = k_stride;
   args.v_stride = v_stride;
   args.scale = scale;
-  return dispatch<true>(args, batch, head_dim, causal != 0, dtype, stream);
+  return dispatch<true>(args, batch, head_dim, causal != 0, bias_mode, dbias, dtype, stream);
 }
+#endif

@@ -58,10 +58,18 @@ def build_mesh_from_args(args, device_type: str = "cuda"):
 
 
 def transformer_blocks(module: nn.Module) -> list[nn.Module]:
-    """The blocks of the model's ``transformer.h`` (under a PEFT wrapper too)."""
+    """The blocks of the model's ``transformer.h`` (under a PEFT wrapper too), or an
+    encoder-decoder's ``encoder`` then ``decoder`` blocks."""
+    stacks = []
     for name, child in module.named_modules():
-        if name.split(".")[-2:] == ["transformer", "h"] and isinstance(child, nn.ModuleList):
+        if not isinstance(child, nn.ModuleList):
+            continue
+        if name.split(".")[-2:] == ["transformer", "h"]:
             return list(child)
+        if name.split(".")[-1] in ("encoder", "decoder"):
+            stacks.extend(child)
+    if stacks:
+        return stacks
     raise ValueError(f"no transformer.h block list in {type(module).__name__}")
 
 

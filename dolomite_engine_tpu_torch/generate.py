@@ -9,7 +9,12 @@ dataset order, with ``generated_text`` and ``num_generated_tokens``. Each reques
 sampling seed is drawn from one `torch.Generator` seeded with `random_args.seed`. The
 engine runs the YAML's speculation (``speculate_ngram``, ``draft_k``), preemption and
 ``oversubscribe_ratio``; the options the port does not run raise, naming their ROADMAP
-item (`arguments.check_ported_inference_options`), as does an encoder-decoder model.
+item (`arguments.check_ported_inference_options`). An encoder-decoder model keeps JAX's
+fixed-batch loop (`_generate_seq2seq`): ``batch_size`` rows at a time through
+`collate_fn`, left-padded to the next multiple of ``prompt_bucket_multiple`` and a
+ragged last batch repeated up to ``batch_size`` (`_pad_to_static_shapes`), then
+`ModelWrapper.generate` (`generation_utils.generate_seq2seq_tokens`); the sampled tokens
+draw from the one generator.
 
     python -m dolomite_engine_tpu_torch.generate --config generation.yml
 """
@@ -26,24 +31,70 @@ import torch
 from .arguments import InferenceArgs, check_ported_inference_options, get_args
 from .checkpointing import load_checkpoint_for_inference, save_args
 from .data import get_datasets_list
+from .data.utils import collate_fn
 from .device import resolve_device
 from .enums import DatasetKeys, DatasetSplit, Mode
 from .model_wrapper import ModelWrapperForFinetuning
 from .utils import ProgressBar, log_rank_0, set_logger
 
-_NOT_PORTED_FAMILY = "encoder-decoder generation is not ported yet: ROADMAP.md Queue A, 'Other families and parallel ops'"
-
-
 def generate(args: InferenceArgs, model, datasets_list: list, mode: Mode) -> dict:
     """Write each dataset's ``output-<data_name>.jsonl`` under `args.output_dir` (and the
-    args snapshot); returns `_generate_with_engine`'s summary."""
-    if model.is_encoder_decoder:
-        raise NotImplementedError(_NOT_PORTED_FAMILY)
+    args snapshot); returns `_generate_with_engine`'s summary (`_generate_seq2seq`'s for
+    an encoder-decoder)."""
     os.makedirs(args.output_dir, exist_ok=True)
     save_args(args, args.output_dir, mode)
     progress_bar = ProgressBar(0, sum(len(dataset) for dataset in datasets_list))
     generator = torch.Generator().manual_seed(args.random_args.seed or 0)
+    if model.is_encoder_decoder:
+        if model.model.device.type == "cuda":  # sampling draws on the card
+            generator = torch.Generator(device=model.model.device).manual_seed(args.random_args.seed or 0)
+        return _generate_seq2seq(args, model, datasets_list, mode, progress_bar, generator)
     return _generate_with_engine(args, model, datasets_list, progress_bar, generator)
+
+
+def _generate_seq2seq(args: InferenceArgs, model, datasets_list: list, mode: Mode, progress_bar, generator) -> dict:
+    """The encoder-decoder's fixed-batch loop (the JAX package's): each dataset in chunks
+    of ``batch_size`` rows, padded to static shapes, generated, and written in order.
+    Returns the requests, prompt and generated tokens, the output paths, the loop's
+    seconds and the number of `generate` calls."""
+    gp = args.generation_parameters
+    generate_kwargs = dict(
+        max_new_tokens=gp.max_new_tokens, do_sample=gp.do_sample, temperature=gp.temperature, top_k=gp.top_k,
+        top_p=gp.top_p,
+    )
+    summary = {"requests": 0, "prompt_tokens": 0, "generated_tokens": 0, "batches": 0, "outputs": []}
+    t0 = time.perf_counter()
+    for dataset in datasets_list:
+        output_path = os.path.join(args.output_dir, f"output-{dataset.data_name}.jsonl")
+        with open(output_path, "w") as output_file:
+            batch = []
+            for index in range(len(dataset)):
+                batch.append(dataset[index])
+                if len(batch) < gp.batch_size and index < len(dataset) - 1:
+                    continue
+                collated = collate_fn(
+                    batch, mode=mode, loss_mask=None, eos_token_id=model.eos_token_id, is_encoder_decoder=True,
+                    use_padding_free_transformer=False,
+                )
+                collated = _pad_to_static_shapes(collated, gp.batch_size, model.eos_token_id, gp.prompt_bucket_multiple)
+                texts, counts = model.generate(collated, generate_kwargs, generator)
+                for text, count in zip(texts[: len(batch)], counts[: len(batch)]):
+                    output_file.write(
+                        json.dumps(
+                            {DatasetKeys.generated_text.value: text, DatasetKeys.num_generated_tokens.value: count}
+                        )
+                        + "\n"
+                    )
+                summary["requests"] += len(batch)
+                summary["prompt_tokens"] += sum(len(row["input"]) for row in batch)
+                summary["generated_tokens"] += sum(counts[: len(batch)])
+                summary["batches"] += 1
+                progress_bar.update(len(batch))
+                batch = []
+        summary["outputs"].append(output_path)
+        log_rank_0(20, f"wrote {output_path}")
+    summary["engine_seconds"] = time.perf_counter() - t0
+    return summary
 
 
 def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progress_bar, generator) -> dict:
@@ -163,7 +214,7 @@ def load_draft_model(name: str | None) -> tuple:
 def _pad_to_static_shapes(collated: dict, batch_size: int, eos_token_id: int, width_multiple: int = 64) -> dict:
     """Left-pad prompts to the next width bucket and repeat-pad a ragged batch to
     `batch_size` (the JAX package pads so its jitted decode compiles once a bucket; the
-    port uses it where a width multiple keeps the flash kernel eligible)."""
+    port keeps its shapes, so the encoder-decoder loop computes what JAX's does)."""
     input_ids = np.asarray(collated["input_ids"])
     attention_mask = np.asarray(collated["attention_mask"])
     rows, width = input_ids.shape

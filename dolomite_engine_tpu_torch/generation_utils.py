@@ -9,6 +9,8 @@ a python int, and sampled tokens come from one explicit `torch.Generator`.
 
 EOS semantics match HF: a row stops growing once it emits `eos_token_id`; later slots are
 filled with `pad_token_id`; `num_generated` counts emitted tokens including the EOS.
+`generate_seq2seq_tokens` is the encoder-decoder's: one encoder pass, cross K/V projected
+once, then the decoder steps over the dense cache (JAX's `lax.scan` over them).
 """
 
 from __future__ import annotations
@@ -103,12 +105,51 @@ def _trim_after_eos(
     return torch.where(keep, generated, torch.full_like(generated, pad_token_id)), num_generated
 
 
-def generate_seq2seq_tokens(*args, **kwargs):
-    """Encoder-decoder decoding: its families are not ported."""
-    raise NotImplementedError(
-        "encoder-decoder generation is not ported yet: ROADMAP.md Queue A, 'Other families and "
-        "parallel ops'"
-    )
+@torch.no_grad()
+def generate_seq2seq_tokens(
+    model: Any,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    generator: torch.Generator | None,
+    max_new_tokens: int,
+    do_sample: bool = False,
+    temperature: float | None = None,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    eos_token_id: int | None = None,
+    pad_token_id: int = 0,
+    decoder_start_token_id: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encoder-decoder decoding: the prompts ``[B, W]`` (left-padded) are the encoder's
+    inputs, encoded once; each decoder layer's cross-attention K/V is projected once
+    (`precompute_cross_kv`); then `max_new_tokens` decoder steps from
+    `decoder_start_token_id`, each one token over the dense ``[B, max_new_tokens]``
+    self-attention cache at a python-int write offset. Rows that emitted EOS emit padding.
+
+    Returns (generated [B, max_new_tokens] int64, num_generated [B] int64)."""
+    device = model.device
+    input_ids = input_ids.to(device)
+    attention_mask = attention_mask.to(device)
+    batch = input_ids.shape[0]
+    encoder_hidden_states = model.encode(input_ids, attention_mask)
+    cross_kv_caches = model.precompute_cross_kv(encoder_hidden_states)
+    caches = model.init_kv_caches(batch, max_new_tokens)
+    sampling = dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p)
+    token = torch.full((batch,), decoder_start_token_id, dtype=torch.long, device=device)
+    finished = torch.zeros(batch, dtype=torch.bool, device=device)
+    tokens = []
+    for i in range(max_new_tokens):
+        out = model(
+            None, attention_mask=attention_mask, decoder_input_ids=token[:, None],
+            encoder_hidden_states=encoder_hidden_states, kv_caches=caches, cross_kv_caches=cross_kv_caches,
+            cache_index=i,
+        )
+        token = sample_token(out.logits[:, -1], generator, **sampling)
+        token = torch.where(finished, torch.full_like(token, pad_token_id), token)
+        if eos_token_id is not None:
+            finished = finished | (token == eos_token_id)
+        tokens.append(token)
+    return _trim_after_eos(torch.stack(tokens, dim=1), max_new_tokens, eos_token_id, pad_token_id)
 
 
 def make_generate_fn(model: Any, is_encoder_decoder: bool = False, **static_kwargs):

@@ -32,6 +32,7 @@ def get_model(args, mode: Mode = Mode.training, device: str | torch.device = "cu
         device=device,
         seed=args.random_args.seed,
         mode=mode,
+        model_class=model_args.model_class,
     )
     if mode == Mode.training:
         dist = args.distributed_args

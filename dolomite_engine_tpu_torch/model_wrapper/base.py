@@ -4,8 +4,10 @@ Counterpart of `dolomite_engine_tpu/model_wrapper/base.py`: the config from
 `pretrained_config` (with `config_extras` over it), the HF tokenizer (with
 `additional_special_tokens`, which grow the vocabulary when the tokenizer outgrows it),
 the model built by the registry from the config's ``model_type`` on `device` with random
-weights from `seed`, and batch generation (`generate`, through
-`generation_utils.make_generate_fn`). The wrapper owns the port's model directly: there
+weights from `seed` (``model_class`` ``AutoModelForSeq2SeqLM`` for the encoder-decoder
+family, ``AutoModelForCausalLM`` for the others, as JAX checks), and batch generation
+(`generate`, through `generation_utils.make_generate_fn`; an encoder-decoder decodes from
+its ``decoder_start_token_id``). The wrapper owns the port's model directly: there
 are no separate params, no sharding rules and no apply scope. `model_name` as a local
 directory gives the config (its ``config.json``, which must name a dolomite family) and
 the tokenizer, as the JAX package's `_setup_config` does; the weights stay random, as in
@@ -25,14 +27,12 @@ import os
 import torch
 
 from ..enums import AttentionImplementation, Mode
-from ..models import CommonConfig, config_from_dict, get_model_class
+from ..models import CommonConfig, config_from_dict, get_model_class, is_encoder_decoder_model
 from ..ops.fp8 import enable_fp8
 from ..train_utils import resolve_checkpointing_args
 from ..utils import log_rank_0
 from ..utils.mixed_precision import string_to_dtype
 
-# model families whose wrappers drive an encoder and a decoder (none is ported)
-_ENCODER_DECODER_TYPES = ("enc_dec_dolomite",)
 # the JAX package's model registry (`models.is_custom_model`): the types a config.json may name
 _DOLOMITE_TYPES = (
     "gpt_dolomite", "moe_dolomite", "gpt_crosslayer", "dense_moe", "rnn_dolomite", "enc_dec_dolomite",
@@ -93,10 +93,13 @@ class ModelWrapper:
         config_extras: dict | None = None,
         device: str | torch.device = "cuda",
         seed: int = 0,
+        model_class: str | None = None,
     ) -> None:
         """`dtype` is the compute dtype ("fp8": bf16 compute with fp8 dots, the state in
         `fp8`) and `param_dtype` (default `dtype`) the storage of the linear and embedding
-        weights: fp32 master weights for training, the compute dtype for inference."""
+        weights: fp32 master weights for training, the compute dtype for inference.
+        `model_class` (the YAML's, when given) must match the family: an encoder-decoder
+        takes ``AutoModelForSeq2SeqLM``, the decoder-only families ``AutoModelForCausalLM``."""
         self.mode = mode
         self.model_name = model_name
         if model_name is not None:
@@ -106,6 +109,14 @@ class ModelWrapper:
         else:
             self.config = config_from_dict(dict(pretrained_config, **(config_extras or {})))
         self.model_type = self.config.model_type
+        if model_class is not None and is_encoder_decoder_model(self.model_type) != (
+            model_class == "AutoModelForSeq2SeqLM"
+        ):
+            raise ValueError(
+                f"model_class '{model_class}' does not match model_type '{self.model_type}': "
+                "encoder-decoder families require AutoModelForSeq2SeqLM, decoder-only families "
+                "AutoModelForCausalLM"
+            )
         # fp8 = bf16 compute + delayed-scaling fp8 dots (`ops/fp8.py`), as in the JAX package
         self.use_fp8 = dtype == "fp8"
         self.dtype = torch.bfloat16 if self.use_fp8 else string_to_dtype(dtype)
@@ -137,7 +148,7 @@ class ModelWrapper:
 
     @property
     def is_encoder_decoder(self) -> bool:
-        return self.model_type in _ENCODER_DECODER_TYPES
+        return is_encoder_decoder_model(self.model_type)
 
     @property
     def eos_token_id(self) -> int | None:
@@ -149,7 +160,8 @@ class ModelWrapper:
         self, batch: dict, generate_kwargs: dict, generator: torch.Generator | None = None
     ) -> tuple[list[str], list[int]]:
         """Batch generation from the inference-mode `collate_fn` output (left-padded
-        ``input_ids`` and ``attention_mask``) through `generation_utils.generate_tokens`;
+        ``input_ids`` and ``attention_mask``) through `generation_utils.generate_tokens`
+        (an encoder-decoder's: `generate_seq2seq_tokens`, the prompts its encoder inputs);
         returns (generated_text, num_generated_tokens) per row."""
         from ..generation_utils import make_generate_fn
 
@@ -170,6 +182,8 @@ class ModelWrapper:
                 (t for t in (self.tokenizer.pad_token_id, self.eos_token_id) if t is not None), 0
             ),
         )
+        if self.is_encoder_decoder:
+            static["decoder_start_token_id"] = self.config.decoder_start_token_id
         cache_key = tuple(sorted(static.items()))
         if cache_key not in self._generate_fns:
             self._generate_fns[cache_key] = make_generate_fn(

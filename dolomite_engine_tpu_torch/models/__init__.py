@@ -6,7 +6,8 @@ package that is not ported yet raises `NotImplementedError` naming its ROADMAP i
 an unknown type raises `ValueError`.
 """
 
-from .config import CommonConfig, MoEConfig
+from .config import CommonConfig, EncDecDolomiteConfig, MoEConfig
+from .enc_dec_dolomite import EncDecDolomiteForSeq2SeqLM, Seq2SeqOutput, unstack_enc_dec_params
 from .gpt_dolomite import (
     CausalLMOutput,
     GPTDolomiteForCausalLM,
@@ -19,15 +20,24 @@ from .moe_dolomite import MoEDolomiteForCausalLM, MoEDolomiteModel
 _CONFIG_CLASSES: dict[str, type] = {
     "gpt_dolomite": CommonConfig,
     "moe_dolomite": MoEConfig,
+    "enc_dec_dolomite": EncDecDolomiteConfig,
 }
 
 _MODEL_CLASSES: dict[str, type] = {
     "gpt_dolomite": GPTDolomiteForCausalLM,
     "moe_dolomite": MoEDolomiteForCausalLM,
+    "enc_dec_dolomite": EncDecDolomiteForSeq2SeqLM,
 }
 
 # families of the JAX package's registry that the port does not build yet
-_NOT_PORTED = ("gpt_crosslayer", "dense_moe", "rnn_dolomite", "enc_dec_dolomite")
+_NOT_PORTED = ("gpt_crosslayer", "dense_moe", "rnn_dolomite")
+
+# families driven through the seq2seq (AutoModelForSeq2SeqLM) surface
+_ENCODER_DECODER_TYPES = ("enc_dec_dolomite",)
+
+
+def is_encoder_decoder_model(model_type: str) -> bool:
+    return model_type in _ENCODER_DECODER_TYPES
 
 
 def _check_model_type(model_type: str, registry: dict[str, type]) -> type:

@@ -175,3 +175,35 @@ class MoEConfig(CommonConfig):
     num_experts: int = 8
     num_experts_per_tok: int = 2
     router_aux_loss_coef: float = 0.01
+
+
+@dataclass
+class EncDecDolomiteConfig(CommonConfig):
+    """The encoder-decoder family's knobs (`dolomite_engine_tpu/models/config.py`'s
+    `EncDecDolomiteConfig`): `n_layer` counts decoder blocks and `n_encoder_layer` (default
+    the same) encoder blocks; `decoder_start_token_id` (default the BOS, else the pad token,
+    else 0) seeds the shifted-right decoder input; `init_residual_branches` is set per stack
+    for the depth-scaled init (2 a block in the encoder, 3 in the decoder); the two
+    ``relative_attention_*`` fields size T5's bucketed relative bias
+    (``position_embedding_type="relative_bucketed"``)."""
+
+    model_type: str = "enc_dec_dolomite"
+    position_embedding_type: str = "rope"
+    n_encoder_layer: int | None = None
+    decoder_start_token_id: int | None = None
+    init_residual_branches: int | None = None
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+
+    @classmethod
+    def supported_position_embeddings(cls) -> frozenset[PositionEmbeddingType]:
+        return frozenset({PositionEmbeddingType.rope, PositionEmbeddingType.relative_bucketed})
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.n_encoder_layer is None:
+            self.n_encoder_layer = self.n_layer
+        if self.decoder_start_token_id is None:
+            self.decoder_start_token_id = next(
+                (t for t in (self.bos_token_id, self.pad_token_id) if t is not None), 0
+            )

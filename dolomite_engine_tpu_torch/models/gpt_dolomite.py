@@ -357,7 +357,13 @@ class GPTDolomiteForCausalLM(nn.Module):
 
 
 def _jax_module_params(params: Mapping, model: GPTDolomiteForCausalLM):
-    """(flax subtree, torch module) pairs of the unrolled JAX params tree."""
+    """(flax subtree, torch module) pairs of the unrolled JAX params tree (an
+    encoder-decoder model's: `enc_dec_dolomite.jax_module_params`)."""
+    if model.model_type == "enc_dec_dolomite":
+        from .enc_dec_dolomite import jax_module_params
+
+        yield from jax_module_params(params, model)
+        return
     t = params["transformer"]
     yield t["wte"], model.transformer.wte
     if model.transformer.wpe is not None:
@@ -410,7 +416,10 @@ def load_jax_params(
 ) -> GPTDolomiteForCausalLM:
     """Move `model` to `device` and fill it from the JAX package's unrolled GPTDolomite
     params (nested dicts of numpy arrays under the flax names: ``transformer.wte``,
-    ``h_<i>.attn.c_attn``, ..., with or without a top-level ``params`` key). Flax
+    ``h_<i>.attn.c_attn``, ..., with or without a top-level ``params`` key), or an
+    EncDecDolomite's (``encoder_<i>``, ``decoder_<i>`` with ``cross_attn.{c_q, c_kv,
+    c_proj}``, both ``rel_bias_*`` tables, ``ln_enc``, ``ln_dec``, ``lm_head``; a scanned
+    tree is unstacked first). Flax
     ``[in, out]`` linear kernels become torch ``[out, in]`` weights in the parameter's
     dtype: a training model's fp32 master weights take the JAX fp32 params exactly.
     Expert banks (3-D ``[E, in, out]`` kernels, the grouped GEMM's layout) and their

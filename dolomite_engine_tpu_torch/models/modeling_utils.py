@@ -31,7 +31,10 @@ activation dtype. A dense cache is written in place (`update_kv_cache`): a multi
 write at a python-int index 0 (a whole-prompt prefill) attends over its own K/V, which
 keeps the flash kernel eligible, and every other call attends over the whole cache.
 Without a cache (training), `ops/attention.attention` dispatches:
-``flash_attention_2`` on a CUDA device runs the causal / segment-id flash kernel.
+``flash_attention_2`` on a CUDA device runs the causal / segment-id flash kernel, or with
+an additive bias (alibi's key row, T5's relative bias over the pairs) or ``causal=False``
+its bias form. `CrossAttention` (the encoder-decoder family's) always takes masked
+attention, as in JAX.
 """
 
 from __future__ import annotations
@@ -558,8 +561,78 @@ class MLP(nn.Module):
         return out
 
 
+class CrossAttention(nn.Module):
+    """Encoder-decoder cross-attention (the JAX module's): queries from the decoder stream
+    (``c_q``), keys and values from the encoder output through one fused projection
+    (``c_kv`` emits ``[K | V]``), no rope, not causal, the encoder's key padding mask, and
+    always masked attention (`ops/attention.sdpa_attention`, or `eager_attention` with
+    dropout): the query and key lengths differ. `project_kv` projects the encoder output
+    once for generation, which passes the result back as `cross_kv` every step."""
+
+    def __init__(
+        self,
+        config: CommonConfig,
+        dtype: torch.dtype,
+        device: torch.device,
+        param_dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        self.config = config
+        self.num_heads = config.n_head
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        std = _init_std(config, depth_scaled=False)
+        self.c_q = ParameterizedLinear(
+            config.n_embd, self.num_heads * self.head_dim, config.add_bias, std, dtype, device, param_dtype
+        )
+        self.c_kv = ParameterizedLinear(
+            config.n_embd, 2 * self.num_kv_heads * self.head_dim, config.add_bias, std, dtype, device, param_dtype
+        )
+        self.c_proj = ParameterizedLinear(
+            self.num_heads * self.head_dim, config.n_embd, config.add_bias,
+            _init_std(config, depth_scaled=True), dtype, device, param_dtype,
+        )
+
+    def project_kv(self, encoder_hidden_states: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(key, value) ``[B, S_enc, Hkv, D]`` of the encoder output."""
+        batch, kv_seq = encoder_hidden_states.shape[:2]
+        key, value = self.c_kv(encoder_hidden_states).chunk(2, dim=-1)
+        shape = (batch, kv_seq, self.num_kv_heads, self.head_dim)
+        return key.reshape(shape), value.reshape(shape)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        encoder_hidden_states: torch.Tensor | None,
+        encoder_attention_mask: torch.Tensor | None = None,
+        deterministic: bool = True,
+        cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+    ) -> torch.Tensor:
+        config = self.config
+        key, value = self.project_kv(encoder_hidden_states) if cross_kv is None else cross_kv
+        batch, q_seq = hidden_states.shape[:2]
+        query = self.c_q(hidden_states).reshape(batch, q_seq, self.num_heads, self.head_dim)
+        dropout = 0.0 if deterministic else config.attn_pdrop
+        out = attention(
+            query,
+            key,
+            value,
+            causal=False,
+            softmax_scale=get_softmax_scale(config, self.head_dim),
+            attention_mask=encoder_attention_mask,
+            softmax_in_fp32=config.attention_softmax_in_fp32,
+            implementation=AttentionImplementation.sdpa,
+            dropout=dropout,
+        )
+        out = self.c_proj(out.reshape(batch, q_seq, -1))
+        if not deterministic and config.resid_pdrop > 0.0:
+            out = F.dropout(out, config.resid_pdrop)
+        return out
+
+
 class Block(nn.Module):
-    """Pre-norm transformer block with the µP residual multiplier."""
+    """Pre-norm transformer block with the µP residual multiplier; ``causal=False`` makes
+    it a bidirectional (encoder) block, whose attention mask marks the valid keys."""
 
     def __init__(
         self,
@@ -568,12 +641,13 @@ class Block(nn.Module):
         device: torch.device,
         param_dtype: torch.dtype | None = None,
         attention_implementation: AttentionImplementation | str = AttentionImplementation.sdpa,
+        causal: bool = True,
     ):
         super().__init__()
         self.m_residual = config.m_residual
         self.ln_1 = get_norm(config, device)
         self.attn = Attention(
-            config, dtype, device, param_dtype=param_dtype,
+            config, dtype, device, causal=causal, param_dtype=param_dtype,
             attention_implementation=attention_implementation,
         )
         self.ln_2 = get_norm(config, device)

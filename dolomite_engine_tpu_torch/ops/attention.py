@@ -150,8 +150,10 @@ def attention(
     q_len == kv_len and the length a multiple of 128, runs a flash kernel; a causal
     key-padding mask is first rewritten to segment ids (pad = 0, real = 1). A causal call
     without a bias takes the causal / segment-id form (where JAX takes splash); an
-    `alibi_bias` (``[B, Hq, 1, Skv]``, added to the scaled scores) or ``causal=False``
-    takes the additive-bias / non-causal form (where JAX takes jax's flash kernel).
+    `alibi_bias` added to the scaled scores (alibi's key row ``[B, Hq, 1, Skv]``, or T5's
+    relative bias ``[1 or B, Hq, Sq, Skv]``, which varies along the queries and may require
+    grad) or ``causal=False`` takes the additive-bias / non-causal form (where JAX takes
+    jax's flash kernel).
     Every other call is masked attention with the bias: `eager_attention` for the
     ``eager`` implementation or with dropout, else `sdpa_attention`, as in JAX."""
     from .kernels.flash_attention import flash_attention
@@ -182,15 +184,9 @@ def attention(
         and q.shape[1] % 128 == 0
     )
     if use_flash:
-        bias = None
-        if alibi_bias is not None:
-            if alibi_bias.shape[2] != 1:
-                raise NotImplementedError(
-                    "a flash attention bias that varies along the queries (T5 relative "
-                    "bias) is not ported yet: ROADMAP.md Queue A 11, 'Other families and "
-                    "parallel ops'"
-                )
-            bias = alibi_bias[:, :, 0, :].expand(q.shape[0], q.shape[2], k.shape[1])
+        bias = alibi_bias
+        if bias is not None and bias.shape[2] == 1:  # alibi: one key row per (batch, head)
+            bias = bias[:, :, 0, :].expand(q.shape[0], q.shape[2], k.shape[1])
         return flash_attention(q, k, v, segment_ids, softmax_scale, bias, causal)
 
     if segment_ids is not None and q.shape[1] != k.shape[1]:

@@ -6,19 +6,27 @@ Replaces the two attention kernels the JAX training path takes from jax's Pallas
 
 - splash attention (``_tpu_splash_attention``, `dolomite_engine_tpu/ops/attention.py:330`),
   causal with ``SegmentIds(q=s, kv=s)``: the `FWD_KERNEL` / `BWD_KERNEL` form;
-- jax's flash kernel (``_tpu_flash_attention``, `:379`) in the two forms splash does not
-  take, an additive bias (alibi) and ``causal=False``: the `BIAS_FWD_KERNEL` /
-  `BIAS_BWD_KERNEL` form.
+- jax's flash kernel (``_tpu_flash_attention``, `:379`) in the forms splash does not
+  take, an additive bias and ``causal=False``: the `BIAS_FWD_KERNEL` / `BIAS_BWD_KERNEL`
+  form, launched as ``key_row`` (an alibi row, or no bias) or ``query_bias`` (T5's).
 
 Query i attends key j when ``seg[i] == seg[j]`` and, if causal, ``j <= i``; pad tokens
-(segment 0) attend among themselves. The bias is one fp32 row per (batch, query head)
-over the keys, ``[B, Hq, S]`` (an alibi bias is ``slope * key position``): the score is
-``q.k * scale + bias[k]``, the function of the JAX package's XLA paths. (jax's flash
-kernel itself adds its ``ab`` before the scale; ROADMAP.md Queue C records that
-divergence of the reference.) Kernels and plain versions shift each query row by its
-own position's bias, ``bias[k] - bias[i]``: softmax does not change, and fp32 keeps the
-digits of ``q.k`` beside biases that reach ~1700 at 2048 tokens. The logsumexp they
-return is of those shifted scores. Bound on the H100 by operations for long documents
+(segment 0) attend among themselves. The bias takes two forms, each fp32, each added to
+the scaled scores (the function of the JAX package's XLA paths; jax's flash kernel itself
+adds its ``ab`` before the scale, a divergence of the reference ROADMAP.md Queue C
+records):
+
+- a key row per (batch, query head), ``[B, Hq, S]`` (alibi: ``slope * key position``):
+  the score is ``q.k * scale + bias[k]``. Kernels and plain versions shift each query row
+  by its own position's bias, ``bias[k] - bias[i]``: softmax does not change, and fp32
+  keeps the digits of ``q.k`` beside biases that reach ~1700 at 2048 tokens. The
+  logsumexp they return is of those shifted scores;
+- a query bias ``[Bb, Hq, S, S]`` with ``Bb`` 1 (shared over the batch) or B (T5's
+  learned relative bias, jax's ``ab``): the score is ``q.k * scale + bias[i, j]``,
+  unshifted, and the backward also returns its gradient ``dBias = P (dP - delta)`` in
+  fp32 (jax's ``ds``), summed over the batch for a shared bias.
+
+Bound on the H100 by operations for long documents
 and by bytes for a packed batch of short ones. bf16 runs warp-specialised `wgmma`
 kernels fed by TMA through an mbarrier ring (128 query rows a CTA in the forward and
 the dQ pass, 64 keys in the dK/dV pass), fp32 scalar-FMA tiles; both skip the 64-token
@@ -28,8 +36,9 @@ call (see ``dolomite_engine_tpu_torch/csrc/flash_attention.cu``).
 `flash_attention_fwd` / `flash_attention_bwd` launch the kernels for CUDA tensors (or
 raise) and take the plain versions for CPU tensors. `flash_attention` is the
 differentiable entry point: its backward saves q, k, v, the output, the row logsumexp,
-the segment ids and the bias, and recomputes the probabilities tile by tile. The bias
-gets no gradient: a bias that requires one raises.
+the segment ids and the bias, recomputes the probabilities tile by tile, and returns the
+query bias's gradient when the bias requires one (a key row that requires one is sent as
+the query bias ``bias[k] - bias[i]``, whose gradient autograd carries back to the row).
 """
 
 from __future__ import annotations
@@ -83,8 +92,13 @@ def _check_shapes(q, k, v, segment_ids, bias=None):
         raise ValueError(f"{num_q_heads} query heads do not group over {k.shape[2]} kv heads")
     if segment_ids is not None and tuple(segment_ids.shape) != (batch, seq):
         raise ValueError(f"segment_ids {tuple(segment_ids.shape)} must be [B, S] = {(batch, seq)}")
-    if bias is not None and tuple(bias.shape) != (batch, num_q_heads, seq):
-        raise ValueError(f"bias {tuple(bias.shape)} must be [B, Hq, S] = {(batch, num_q_heads, seq)}")
+    if bias is not None and tuple(bias.shape) not in (
+        (batch, num_q_heads, seq), (1, num_q_heads, seq, seq), (batch, num_q_heads, seq, seq)
+    ):
+        raise ValueError(
+            f"bias {tuple(bias.shape)} must be a key row [B, Hq, S] = {(batch, num_q_heads, seq)} or a "
+            f"query bias [1 or B, Hq, S, S] = [1 or {batch}, {num_q_heads}, {seq}, {seq}]"
+        )
 
 
 def _segments(segment_ids: torch.Tensor | None, q: torch.Tensor) -> torch.Tensor:
@@ -95,18 +109,43 @@ def _segments(segment_ids: torch.Tensor | None, q: torch.Tensor) -> torch.Tensor
     return seg.clone() if seg.data_ptr() % 16 else seg  # the kernels copy 64-id rows in bulk
 
 
+def is_query_bias(bias: torch.Tensor | None) -> bool:
+    """Whether `bias` is the query-bias form ``[Bb, Hq, S, S]`` (else a key row, or None)."""
+    return bias is not None and bias.ndim == 4
+
+
+def _bias_scores(bias: torch.Tensor) -> torch.Tensor:
+    """The bias's fp32 term of the scores, broadcast over [B, Hq, S, S]: a key row less
+    each query row's own-position bias, or a query bias as it is."""
+    bias = bias.float()
+    if is_query_bias(bias):
+        return bias
+    return bias[:, :, None, :] - bias[:, :, :, None]
+
+
+def _score_grads(probs, dp, delta):
+    """dS = P (dP - delta) [B, Hq, S, S]: the gradient of the scores, and so of a query bias
+    before its batch sum."""
+    return probs * (dp - delta[..., None])
+
+
+def _query_bias_grad(ds, bias):
+    """dBias of a query bias from dS: summed over the batch when the bias is shared
+    (``Bb == 1``)."""
+    return ds.sum(0, keepdim=True) if bias.shape[0] == 1 else ds
+
+
 def _probabilities(q, k, segment_ids, softmax_scale, lse=None, bias=None, causal=True):
     """fp32 softmax probabilities [B, Hq, S, S] under the segment (and causal) mask, with
-    the bias row added to each query row's scores less the row's own-position bias (and
-    the row logsumexp of those scores when `lse` is not given)."""
+    the bias's term added to the scores (`_bias_scores`), and the row logsumexp of those
+    scores when `lse` is not given."""
     seq = q.shape[1]
     group = q.shape[2] // k.shape[2]
     scores = torch.einsum(
         "bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(group, dim=2)
     ) * softmax_scale
     if bias is not None:
-        bias = bias.float()
-        scores = scores + (bias[:, :, None, :] - bias[:, :, :, None])
+        scores = scores + _bias_scores(bias)
     seg = _segments(segment_ids, q)
     mask = seg[:, :, None] == seg[:, None, :]
     if causal:
@@ -132,7 +171,8 @@ def flash_attention_bwd_plain(
 ):
     """(dq, dk, dv) of `flash_attention_fwd_plain` for the output cotangent `dout`, in
     fp32 from the saved logsumexp: dV = P^T dO, dS = P (dO V^T - rowsum(dO O)),
-    dQ = scale dS K, dK = scale dS^T Q, summed over each GQA group."""
+    dQ = scale dS K, dK = scale dS^T Q, summed over each GQA group. With a query bias,
+    (dq, dk, dv, dbias): dbias = dS in fp32, shaped like the bias (`_query_bias_grad`)."""
     _check_shapes(q, k, v, segment_ids, bias)
     batch, seq, num_kv_heads, head_dim = k.shape
     group = q.shape[2] // num_kv_heads
@@ -140,14 +180,17 @@ def flash_attention_bwd_plain(
     do = dout.float()
     delta = (do * out.float()).sum(-1).transpose(1, 2)  # [B, Hq, S]
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float().repeat_interleave(group, dim=2))
-    ds = probs * (dp - delta[..., None])
+    ds = _score_grads(probs, dp, delta)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float().repeat_interleave(group, dim=2))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", probs, do)
     per_group = (batch, seq, num_kv_heads, group, head_dim)
     dk = dk.reshape(per_group).sum(3) * softmax_scale
     dv = dv.reshape(per_group).sum(3)
-    return (dq * softmax_scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq * softmax_scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if is_query_bias(bias):
+        return grads + (_query_bias_grad(ds, bias),)
+    return grads
 
 
 def _token_stride(t: torch.Tensor, name: str, device: torch.device, dtype: torch.dtype) -> int:
@@ -176,6 +219,30 @@ def kernel_specs(bias, causal) -> tuple[KernelSpec, KernelSpec]:
     if bias is None and causal:
         return FWD_KERNEL, BWD_KERNEL
     return BIAS_FWD_KERNEL, BIAS_BWD_KERNEL
+
+
+def kernel_form(bias) -> str:
+    """The form of the additive-bias kernels a launch counts under: ``query_bias`` for a
+    query bias, ``key_row`` for a key row or no bias."""
+    return "query_bias" if is_query_bias(bias) else "key_row"
+
+
+def _count(spec: KernelSpec, bias) -> None:
+    """Count one launch: the bias form's launches by form, the splash form's as they are."""
+    if spec in (BIAS_FWD_KERNEL, BIAS_BWD_KERNEL):
+        spec.launched(kernel_form(bias))
+    else:
+        spec.launches += 1
+
+
+def _bias_mode(bias) -> tuple[int, int]:
+    """(the kernels' bias_mode: 0 none, 1 key row, 2 query bias; whether a query bias is
+    shared over the batch)."""
+    if bias is None:
+        return 0, 0
+    if is_query_bias(bias):
+        return 2, int(bias.shape[0] == 1)
+    return 1, 0
 
 
 def _check_aligned(tensor, name):
@@ -217,16 +284,19 @@ def flash_attention_fwd(q, k, v, segment_ids, softmax_scale, bias=None, causal=T
     spec = kernel_specs(bias, causal)[0]
     code = load_library().dolo_flash_fwd(
         ptr(q), ptr(k), ptr(v), ptr(seg), ptr(bias), ptr(out), ptr(lse), ptr(_ranges(q)),
-        batch, seq, num_q_heads, k.shape[2], head_dim, *strides, int(causal),
+        batch, seq, num_q_heads, k.shape[2], head_dim, *strides, int(causal), *_bias_mode(bias),
         float(softmax_scale), DTYPE_CODES[q.dtype], current_stream(q.device),
     )
     check_launch(code, spec.name)
-    spec.launches += 1
+    _count(spec, bias)
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale, bias=None, causal=True):
-    """Backward: (dq, dk, dv) shaped and typed like q, k, v (dense)."""
+    """Backward: (dq, dk, dv) shaped and typed like q, k, v (dense); with a query bias
+    also dbias, fp32 and shaped like the bias. The kernels write dS into [B, Hq, S, S]
+    rows zeroed here (pairs a mask or the tile walk skips stay 0); a shared bias's rows
+    are summed over the batch in a fixed order by a last launch of the same call."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout, softmax_scale, bias, causal)
     if q.device.type != "cuda":
@@ -247,25 +317,25 @@ def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale, bia
     dq = torch.empty(q.shape, dtype=dtype, device=device)
     dk = torch.empty(k.shape, dtype=dtype, device=device)
     dv = torch.empty(v.shape, dtype=dtype, device=device)
+    dbias_rows = dbias = None
+    if is_query_bias(bias):
+        dbias_rows = torch.zeros((batch,) + tuple(bias.shape[1:]), dtype=torch.float32, device=device)
+        dbias = dbias_rows if bias.shape[0] == batch else torch.empty(bias.shape, dtype=torch.float32, device=device)
     spec = kernel_specs(bias, causal)[1]
     code = load_library().dolo_flash_bwd(
         ptr(q), ptr(k), ptr(v), ptr(seg), ptr(bias), ptr(out), ptr(dout), ptr(lse), ptr(delta),
-        ptr(_ranges(q)), ptr(dq), ptr(dk), ptr(dv), batch, seq, num_q_heads, k.shape[2], head_dim, *strides,
-        int(causal), float(softmax_scale), DTYPE_CODES[dtype], current_stream(device),
+        ptr(_ranges(q)), ptr(dq), ptr(dk), ptr(dv), ptr(dbias_rows), ptr(dbias), batch, seq, num_q_heads,
+        k.shape[2], head_dim, *strides, int(causal), *_bias_mode(bias), float(softmax_scale), DTYPE_CODES[dtype],
+        current_stream(device),
     )
     check_launch(code, spec.name)
-    spec.launches += 1
-    return dq, dk, dv
+    _count(spec, bias)
+    return (dq, dk, dv) if dbias is None else (dq, dk, dv, dbias)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, softmax_scale, bias, causal):
-        if ctx.needs_input_grad[5]:
-            raise NotImplementedError(
-                "the gradient of an attention bias (jax flash's `ds`) is not ported yet: "
-                "ROADMAP.md Queue A 11, 'Other families and parallel ops' (T5 relative bias)"
-            )
         out, lse = flash_attention_fwd(q, k, v, segment_ids, softmax_scale, bias, causal)
         ctx.save_for_backward(q, k, v, segment_ids, out, lse, bias)
         ctx.softmax_scale = softmax_scale
@@ -275,10 +345,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, segment_ids, out, lse, bias = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, segment_ids, out, lse, dout, ctx.softmax_scale, bias, ctx.causal
-        )
-        return dq, dk, dv, None, None, None, None
+        grads = flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, ctx.softmax_scale, bias, ctx.causal)
+        dbias = grads[3] if len(grads) == 4 and ctx.needs_input_grad[5] else None
+        return grads[0], grads[1], grads[2], None, None, dbias, None
 
 
 def flash_attention(
@@ -293,9 +362,14 @@ def flash_attention(
     """Attention with packed-document segment ids, differentiable in q, k and v.
 
     q ``[B, S, Hq, D]``; k, v ``[B, S, Hkv, D]`` (token-strided views of the fused QKV
-    projection are taken as they are); segment_ids ``[B, S]`` or None; bias ``[B, Hq, S]``
-    fp32 over the keys, or None. Returns ``[B, S, Hq, D]`` in q's dtype."""
+    projection are taken as they are); segment_ids ``[B, S]`` or None; bias a key row
+    ``[B, Hq, S]``, a query bias ``[1 or B, Hq, S, S]``, or None, taken in fp32 and
+    differentiable. Returns ``[B, S, Hq, D]`` in q's dtype."""
     _check_shapes(q, k, v, segment_ids, bias)
     if bias is not None:
-        bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+        bias = bias.to(device=q.device, dtype=torch.float32)
+        if bias.requires_grad and not is_query_bias(bias):
+            # the key row as the query bias it shifts to: autograd sums its gradient back
+            bias = bias[:, :, None, :] - bias[:, :, :, None]
+        bias = bias.contiguous()
     return _FlashAttention.apply(q, k, v, _segments(segment_ids, q), softmax_scale, bias, causal)

@@ -31,7 +31,7 @@ FAULTS = {
         "  return (key_bias - row_bias);",
     ),
     "bias left out of the dQ recompute": (
-        "            if constexpr (kBias) ds_exp += bias_log2(bk[col], row_bias[h]);  // the bias in dQ's P\n",
+        "            if constexpr (kBias == kKeyBias) ds_exp += bias_log2(bk[col], row_bias[h]);  // the bias in dQ's P\n",
         "",
     ),
     "non-causal walk stops at the diagonal": (

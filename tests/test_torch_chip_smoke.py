@@ -5,8 +5,10 @@ telemetry windows, the checkpoint and the 2-layer resume check, bit-identical), 
 optimizers), the `generate` phase inside it (`generate.main` over `configs/generation.yml` from that
 checkpoint with both engines, the greedy runs three ways, the logits check), the
 `speculative_generation`, `preemption` and `finetune` phases after it, the `alibi_generation`
-phase and the `distribution` phase (every ZeRO stage through FSDP2 at a world of one) run
-at tiny widths (and 2 layers) through the kernels' plain versions."""
+phase, the `distribution` phase (every ZeRO stage through FSDP2 at a world of one) and the
+`seq2seq` phase (the encoder-decoder family through `finetune.main` and `generate.main`, and
+its query-bias kernel check) run at tiny widths (and 2 layers) through the kernels' plain
+versions."""
 
 import subprocess
 import sys
@@ -230,3 +232,46 @@ def test_distribution_phase_rehearsal(monkeypatch, tmp_path):
         assert len(run["losses"]) == chip_smoke.DISTRIBUTION_STEPS and run["mesh"] == {"dp": 1, "fsdp": 1}
     assert record["checkpoint"]["bit_identical"] and record["checkpoint"]["restored_step"] == chip_smoke.DISTRIBUTION_STEPS
     assert not any(launches.values())
+
+
+# phase 20 at 2 + 2 layers and 64 wide (both configs), over shorter examples: (b)'s
+# training targets reach a decoder length of 128 (the flash route), its val batch 61
+SEQ2SEQ_REHEARSAL = {
+    "model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512), "layers": 2, "kernel_shape": (2, 128, 4, 64),
+    "words": {
+        "ragged": {"train": ((8, 200), (4, 100)), "val": ((8, 200), (4, 100))},
+        "flash": {"train": ((20, 200), (130, 150)), "val": ((20, 200), (30, 60))},
+    },
+    "flash_output_tokens": 129,
+}
+
+
+def test_seq2seq_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 20: (a) the seq2seq YAML (rope, sdpa), (b) flan-t5-base's config with
+    flash_attention_2, full finetuning and LoRA (the training batches at decoder length 512,
+    the val batch at 300), (c) `generate.main` from (b)'s checkpoint and the 2-layer card /
+    CPU greedy check (here CPU against CPU: identical), (d) the query-bias kernel check
+    (here the plain version against fp32 SDPA autograd). No kernel launches on the CPU."""
+    monkeypatch.chdir(REPO)
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    record, launches, cases = chip_smoke.seq2seq_phase(0, device="cpu", rehearsal=SEQ2SEQ_REHEARSAL, work=str(tmp_path / "work"))
+    assert cases == [] and not any(launches.values()) and record["launch_forms"] == {}
+    for name, decoder in (("yaml", None), ("flan_t5_full", 128), ("flan_t5_lora", 128)):
+        run = record[name]
+        assert len(run["losses"]) == chip_smoke.SEQ2SEQ_STEPS and run["decoder_layers"] == 2
+        if decoder is not None:
+            assert [d for _, _, d in run["train_shapes"]] == [decoder] * chip_smoke.SEQ2SEQ_STEPS
+            assert run["launches"]["flash_attn_bias_fwd"] == 2 * chip_smoke.SEQ2SEQ_STEPS  # Ld a training batch
+    # the expected counts of a rope run: rmsnorm 2 Le + 1 + 3 Ld + 1 and rope 2 (Le + Ld) a
+    # training batch, the forward's for each of the two eval batches
+    assert record["yaml"]["launches"]["rmsnorm"] == 12 * (chip_smoke.SEQ2SEQ_STEPS + 2)
+    assert record["yaml"]["launches"]["rope_qkv"] == 8 * chip_smoke.SEQ2SEQ_STEPS + 4 * 2
+    assert record["flan_t5_lora"]["tuning"] == "lora" and record["flan_t5_lora"]["val_losses"][0] == record["flan_t5_full"]["val_losses"][0]
+    generation = record["generate"]
+    check = generation["check"]  # a bf16 model against the fp32 one, both on the CPU here
+    assert generation["requests"] == chip_smoke.SEQ2SEQ_GENERATE[0] == check["prompts"]
+    assert len(check["parted"]) == check["prompts"] - check["rows_identical"]
+    assert all(gap <= check["near_tie_bound"] for _, _, gap in check["parted"])
+    assert len(record["kernel_check"]) == 2

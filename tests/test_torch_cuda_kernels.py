@@ -17,7 +17,9 @@ speculative verify step's K+1 window over the previous window's rejected tail. T
 decode kernel is also held at that window (W = 5, granite's MHA and GQA). The
 generation paths' forms (`chip_smoke.PADDED_FLASH_FORMS`: padding masks as segment ids,
 right- and left-padded; the flat rope kernel at a decode step with per-row positions) are
-held to the same tolerances, every flash output row finite.
+held to the same tolerances, every flash output row finite. The flash kernel's query-bias
+form (T5's relative bias, shared over the batch or one a row, with its fp32 gradient) is
+held as the bias form is, and its dBias within 1e-4 abs + 1e-4 rel (fp32 1e-5).
 Tolerances: fp32 within 1e-5 (the JAX package's own kernel-parity tolerance; only
 summation order differs; the non-causal flash form with a bias adds 16 fp32 ulps of the
 largest bias relative to the largest value, the rounding of scores that size, and in
@@ -615,6 +617,83 @@ def test_bias_flash_attention_kernels_match_plain(
         assert within, (name, err, slack)
 
 
+# the query-bias form (T5's relative bias): (batch, seq, q heads, kv heads, head_dim,
+# documents, pad tail, causal, the bias's batch: 1 shared, else one a row)
+QUERY_BIAS_FORMS = [
+    (8, 512, 12, 12, 64, 1, 0, True, 1),  # flan-t5-base's decoder self-attention, a shared bias
+    (2, 256, 4, 2, 64, 3, 0, True, 2),  # gqa, a per-row bias over packed documents
+    (2, 192, 4, 1, 80, 2, 40, False, 1),  # mqa, non-causal, a half-full last 128-row block, padded tail
+    (1, 384, 8, 4, 128, 1, 0, False, 1),  # gqa, head dim 128, non-causal
+    (3, 128, 2, 2, 64, 2, 0, True, 1),  # a shared bias summed over an odd batch
+]
+
+
+@pytest.mark.parametrize("batch,seq,hq,hkv,head_dim,num_segments,pad_tail,causal,bias_batch", QUERY_BIAS_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_query_bias_flash_kernels_match_plain(batch, seq, hq, hkv, head_dim, num_segments, pad_tail, causal, bias_batch, dtype):
+    """The query-bias form against its plain version: out, dq, dk, dv within the training
+    flash cases' tolerance; dBias (fp32 on both sides, from the same bf16 inputs) within
+    1e-4 abs + 1e-4 rel, in fp32 2e-5 abs + 1e-5 rel (a row with one visible key has P = 1
+    and dS = dP - delta, two fp32 sums of ~8 summed in other orders); the pairs the masks
+    hide (in every batch row, for a shared bias) hold exact zeros. Two backward passes give
+    the same bits (the batch sum runs in a fixed order)."""
+    from chip_smoke import _close
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (_rand(g, (batch, seq, h, head_dim), dtype) for h in (hq, hkv, hkv))
+    seg = _segment_ids(batch, seq, num_segments, seed=seq + hq, pad_tail=pad_tail)
+    bias = torch.randn((bias_batch, hq, seq, seq), generator=g, device="cuda")
+    scale = head_dim**-0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, scale, bias, causal)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, seg, scale, bias, causal)
+    dout = _rand(g, out.shape, dtype)
+    grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal)
+    again = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads[:3]), (want_out, *want_grads[:3])):
+        assert torch.isfinite(got.float()).all(), name
+        within, err = _close(got, want, dtype == torch.float32)
+        assert within, (name, err)
+    dbias, want_dbias = grads[3], want_grads[3]
+    assert dbias.shape == bias.shape and dbias.dtype == torch.float32
+    atol, rtol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-4, 1e-4)
+    assert bool(((dbias - want_dbias).abs() <= atol + rtol * want_dbias.abs()).all()), (dbias - want_dbias).abs().max().item()
+    visible = seg[:, None, :, None] == seg[:, None, None, :]  # [B, 1, S, S]
+    if causal:
+        visible = visible & torch.ones((seq, seq), dtype=torch.bool, device="cuda").tril()
+    if bias_batch == 1:
+        visible = visible.any(0, keepdim=True)
+    hidden = ~visible.expand(dbias.shape)
+    assert bool((dbias[hidden] == 0).all()) and bool((want_dbias[hidden] == 0).all())
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+def test_query_bias_gradient_reaches_the_relative_bias_table():
+    """A T5 decoder's bias table gets its gradient through the flash kernel (the bias form's
+    backward) as through the plain version, within the bf16 flash tolerance of the
+    table's largest gradient."""
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+    from dolomite_engine_tpu_torch.ops.relative_bias import RelativePositionBias
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (_rand(g, (2, 256, 4, 64), torch.bfloat16) for _ in range(3))
+    grads = []
+    for device in ("cuda", "cpu"):
+        table = RelativePositionBias(4, 32, 128, bidirectional=False, std=1.0, device="cuda")
+        with torch.no_grad():
+            table.reset_parameters(torch.Generator(device="cuda").manual_seed(3))
+        table = table.to(device)
+        inputs = [t.to(device) for t in (q, k, v)]
+        fa.flash_attention(*inputs, None, 0.125, table(256, 256)).float().square().sum().backward()
+        grads.append(table.weight.grad.cpu())
+    err = (grads[0] - grads[1]).abs().max().item()
+    assert err <= 2e-2 * grads[1].abs().max().item(), err
+
+
 @pytest.mark.parametrize("form", range(len(PADDED_FLASH_FORMS)), ids=[f[0].split(",")[0] + f" {f[3]} {len(f[1])}x{f[2]}" for f in PADDED_FLASH_FORMS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_forward_over_padding_masks_matches_plain(form, dtype):
@@ -680,8 +759,12 @@ def test_bias_flash_launches_count_on_their_own_spec():
     assert (fa.BIAS_FWD_KERNEL.launches, fa.BIAS_BWD_KERNEL.launches) == (2, 2)
     with pytest.raises(ValueError):  # a bf16 bias
         fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(), None, 0.125, bias.bfloat16())
-    with pytest.raises(NotImplementedError):  # a bias that varies along the queries
-        attention(q, k, v, implementation="flash_attention_2", alibi_bias=torch.zeros(1, 2, 128, 128, device="cuda"))
+    # a bias that varies along the queries: the query-bias form, counted as its own form
+    query_bias = torch.zeros(1, 2, 128, 128, device="cuda", requires_grad=True)
+    attention(q, k, v, implementation="flash_attention_2", alibi_bias=query_bias).sum().backward()
+    assert fa.BIAS_FWD_KERNEL.forms == {"key_row": 2, "query_bias": 1}
+    assert fa.BIAS_BWD_KERNEL.forms == {"key_row": 2, "query_bias": 1}
+    assert query_bias.grad is not None and query_bias.grad.shape == query_bias.shape
 
 
 _FUSED_CE_SHAPES = [

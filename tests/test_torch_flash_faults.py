@@ -20,19 +20,26 @@ copy of the sources with one fault planted, and the cases must fail each broken 
   the group in a different item would not show: dK and dV sum over the whole group.);
 - rmsnorm's vector tail dropped: the last, partial round of a row's 16-byte accesses
   (the rows of 32, 1004 and 601 elements; the slices' widths fill whole rounds, so the
-  rmsnorm cases here are those of the CUDA tests).
+  rmsnorm cases here are those of the CUDA tests);
+- the query-bias form (T5's relative bias, `chip_smoke.query_bias_kernel_cases`, phase 20
+  (d)) with dS written without the delta term (dS = P dP: dBias and, through it, dQ), with
+  the bias read as the first query row's for every row (a key row only), and with a shared
+  bias's dBias rows left unsummed over the batch (batch row 0's alone).
 
-It needs the card (the kernels have no CPU mode) and imports no JAX:
+Those tests need the card (the kernels have no CPU mode) and import no JAX:
 
     python -m pytest --noconftest -q -rP -m cuda tests/test_torch_flash_faults.py
+
+The same three query-bias faults are planted in the kernels' plain version, the function a
+CPU tensor takes, and phase 20 (d)'s check (`chip_smoke.query_bias_kernel_check`, which
+also holds the wrapper to fp32 SDPA autograd) must fail each in its CPU rehearsal; those
+tests run here, without a card.
 """
 
 import shutil
 
 import pytest
 import torch
-
-pytestmark = pytest.mark.cuda
 
 # fault -> (cases it must fail, [(source file, the one line it changes, its replacement)])
 FAULTS = {
@@ -71,10 +78,36 @@ FAULTS = {
         "rmsnorm",
         [("rmsnorm.cu", "const int chunks = dim / kElems;", "const int chunks = dim / kElems / 32 * 32;")],
     ),
+    "query bias: dBias without the delta term": (
+        "query_bias",
+        [(
+            "flash_attention.cu",
+            "            sc[4 * j + e] = p * (dp[4 * j + e] - row_delta[h]);",
+            "            sc[4 * j + e] = p * dp[4 * j + e];",
+        )],
+    ),
+    "query bias read as a key row only": (
+        "query_bias",
+        [("flash_attention.cu", "  return args.bias + b * args.bias_batch_stride + (head * seq + row) * seq + col;",
+          "  return args.bias + b * args.bias_batch_stride + (head * seq + 0) * seq + col;")],
+    ),
+    "query bias: dBias not summed over the batch": (
+        "query_bias",
+        [("flash_attention.cu", "    for (int b = 1; b < batch; ++b) {", "    for (int b = 1; b < 1; ++b) {")],
+    ),
 }
 
+# the same query-bias faults in the kernels' plain version (`ops/kernels/flash_attention.py`):
+# fault -> (the function it replaces, the faulty one)
+PLAIN_FAULTS = {
+    "dBias without the delta term": ("_score_grads", lambda probs, dp, delta: probs * dp),
+    "bias read as a key row only": ("_bias_scores", lambda bias: bias.float()[:, :, :1, :]),
+    "dBias not summed over the batch": ("_query_bias_grad", lambda ds, bias: ds[: bias.shape[0]]),
+}
+REHEARSAL_SHAPE = (2, 128, 4, 64)  # phase 20 (d)'s check at a CPU size
 
-@pytest.fixture(autouse=True)
+
+@pytest.fixture
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
@@ -126,14 +159,21 @@ def _cases(family):
 
     if family == "rmsnorm":
         return _rmsnorm_cases()
+    if family == "query_bias":
+        cases = chip_smoke.query_bias_kernel_cases(0)
+        return [(c["kernel"], c["shape"][:40], c["dtype"], c["max_abs_err"]) for c in cases]
     cases = chip_smoke.training_kernel_cases(0)
     return [(c["kernel"], c["shape"][:40], c["dtype"], c["max_abs_err"]) for c in cases]
 
 
+@pytest.mark.cuda
+@pytest.mark.usefixtures("_cuda")
 def test_flash_and_rmsnorm_cases_pass_the_kernels_as_they_are():
-    print("no fault:", _cases("flash"), _cases("rmsnorm"))
+    print("no fault:", _cases("flash"), _cases("rmsnorm"), _cases("query_bias"))
 
 
+@pytest.mark.cuda
+@pytest.mark.usefixtures("_cuda")
 @pytest.mark.parametrize("fault", list(FAULTS))
 def test_flash_and_rmsnorm_cases_fail_a_planted_fault(tmp_path, monkeypatch, fault):
     from dolomite_engine_tpu_torch.ops.kernels import _build
@@ -147,3 +187,22 @@ def test_flash_and_rmsnorm_cases_fail_a_planted_fault(tmp_path, monkeypatch, fau
         monkeypatch.undo()
         _build.load_library.cache_clear()
         torch.cuda.empty_cache()
+
+
+def test_query_bias_rehearsal_passes_the_plain_version_as_it_is():
+    import chip_smoke
+
+    results = chip_smoke.query_bias_kernel_check(0, device="cpu", shape=REHEARSAL_SHAPE)
+    assert len(results) == 2 and all(r["errors"]["dbias"] == 0.0 for r in results)
+
+
+@pytest.mark.parametrize("fault", list(PLAIN_FAULTS))
+def test_query_bias_rehearsal_fails_a_planted_fault(monkeypatch, fault):
+    import chip_smoke
+    from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
+
+    name, faulty = PLAIN_FAULTS[fault]
+    monkeypatch.setattr(fa, name, faulty)
+    with pytest.raises(AssertionError, match="disagrees with its plain version") as info:
+        chip_smoke.query_bias_kernel_check(0, device="cpu", shape=REHEARSAL_SHAPE)
+    assert "reference" in str(info.value)

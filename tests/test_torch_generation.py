@@ -91,8 +91,18 @@ def test_generate_fn_closure_and_seq2seq_refusal():
     a, _ = sampled(torch.from_numpy(ids), torch.from_numpy(mask), torch.Generator().manual_seed(5))
     b, _ = sampled(torch.from_numpy(ids), torch.from_numpy(mask), torch.Generator().manual_seed(5))
     assert torch.equal(a, b) and bool(((a >= 0) & (a < ROPE_GQA["vocab_size"])).all())
-    with pytest.raises(NotImplementedError, match="'Other families and parallel ops'"):
-        make_generate_fn(model, is_encoder_decoder=True, max_new_tokens=4)(torch.from_numpy(ids), torch.from_numpy(mask))
+    # named when encoder-decoder generation was refused: the closure now routes an
+    # encoder-decoder to `generate_seq2seq_tokens` (held to JAX in tests/test_torch_seq2seq.py)
+    from dolomite_engine_tpu_torch.generation_utils import generate_seq2seq_tokens
+    from dolomite_engine_tpu_torch.models import EncDecDolomiteConfig, EncDecDolomiteForSeq2SeqLM
+    from tests.test_torch_enc_dec import T5_MHA
+
+    seq2seq = EncDecDolomiteForSeq2SeqLM(EncDecDolomiteConfig(**T5_MHA), device="cpu", seed=1)
+    ids = ids % T5_MHA["vocab_size"]
+    static = dict(max_new_tokens=4, pad_token_id=2, decoder_start_token_id=0)
+    tokens, counts = make_generate_fn(seq2seq, is_encoder_decoder=True, **static)(torch.from_numpy(ids), torch.from_numpy(mask))
+    direct, _ = generate_seq2seq_tokens(seq2seq, torch.from_numpy(ids), torch.from_numpy(mask), None, **static)
+    assert torch.equal(tokens, direct) and counts.tolist() == [4, 4, 4]
 
 
 def test_alibi_generate_tokens_raises_as_jax_does():
