@@ -29,7 +29,8 @@
 // dS of every (query, key) pair it visits: into [B, Hq, S, S] rows zeroed by the caller
 // (so the pairs a mask or the walk skips stay 0), then, for a shared bias, summed over
 // the batch in a fixed order by `flash_dbias_sum_kernel` (no atomics: the same bits every
-// run). This translation unit compiles the no-bias and key-row forms; the query-bias
+// run). When the bias needs no gradient (a frozen table) the caller passes no dS rows:
+// the kernels skip the writes and no sum runs. This translation unit compiles the no-bias and key-row forms; the query-bias
 // form's instances compile in `flash_attention_query_bias.cu`, which includes this file,
 // so the two build in parallel.
 //
@@ -104,7 +105,7 @@ struct FlashArgs {
   const int* seg;     // [B, S]
   const float* bias;  // [B, Hq, S] additive key bias (kKeyBias), [Bb, Hq, S, S] (kQueryBias), or null
   int64_t bias_batch_stride;  // kQueryBias: elements between batch rows of the bias, 0 when shared
-  float* dbias;        // kQueryBias backward: [B, Hq, S, S] fp32 dS rows, zeroed by the caller
+  float* dbias;        // kQueryBias backward: [B, Hq, S, S] fp32 dS rows, zeroed by the caller, or null
   const void* out;    // [B, S, Hq, D] contiguous (backward: the forward's output)
   const void* dout;   // [B, S, Hq, D] contiguous
   float* lse;         // [B, Hq, S] natural-log row logsumexp of the scaled scores
@@ -629,7 +630,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(FlashArgs args) {
         if constexpr (kBias == kQueryBias) score += *query_bias(args, b, head, q0 + rows[h], k0 + col) * kLog2e;
         const float p = ok ? exp2f(score - row_lse[h]) : 0.f;
         s[0][nt][i] = p * (dp[0][nt][i] - row_delta[h]);  // dS
-        if constexpr (kBias == kQueryBias) *dbias_row(args, b, head, q0 + rows[h], k0 + col) = s[0][nt][i];
+        if constexpr (kBias == kQueryBias)
+          if (args.dbias != nullptr) *dbias_row(args, b, head, q0 + rows[h], k0 + col) = s[0][nt][i];
       }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -1182,11 +1184,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         grads(std::false_type{});
       }
       if constexpr (kBias == kQueryBias) {  // dBias = dS, fp32, before dS rounds to bf16
+        if (args.dbias != nullptr) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* dst = dbias_row(args, b, head, rows[h], kt * kTile + 2 * c);
+          for (int h = 0; h < 2; ++h) {
+            float* dst = dbias_row(args, b, head, rows[h], kt * kTile + 2 * c);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+            for (int j = 0; j < 8; ++j)
+              *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+          }
         }
       }
       to_a_operand(ds, sc);
@@ -1522,7 +1527,7 @@ int dispatch(const FlashArgs& args, int batch, int head_dim, bool causal, int bi
   if (dtype != dolo::kFloat32 && dtype != dolo::kBFloat16) return cudaErrorInvalidValue;
   if (bias_mode < kNoBias || bias_mode > kQueryBias || (bias_mode != kNoBias) != (args.bias != nullptr))
     return cudaErrorInvalidValue;
-  if (kBackward && bias_mode == kQueryBias && (args.dbias == nullptr || dbias == nullptr)) return cudaErrorInvalidValue;
+  if (kBackward && bias_mode == kQueryBias && (args.dbias == nullptr) != (dbias == nullptr)) return cudaErrorInvalidValue;
   const bool bf16 = dtype == dolo::kBFloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = args.seq / kTile;  // a batch row's
@@ -1575,7 +1580,7 @@ extern "C" int dolo_flash_fwd(const void* q, const void* k, const void* v, const
 
 // bias_mode 2 also writes dBias: dbias_rows [B, Hq, S, S] fp32, zeroed by the caller, and
 // dbias [Bb, Hq, S, S], the batch sum of the rows when the bias is shared (the rows
-// themselves otherwise: pass the same pointer)
+// themselves otherwise: pass the same pointer); both null when the bias needs no gradient
 extern "C" int dolo_flash_bwd(const void* q, const void* k, const void* v, const void* seg, const void* bias,
                               const void* out, const void* dout, const void* lse, void* delta, void* ranges, void* dq,
                               void* dk, void* dv, void* dbias_rows, void* dbias, int batch, int seq, int num_q_heads,

@@ -167,12 +167,13 @@ def flash_attention_fwd_plain(q, k, v, segment_ids, softmax_scale, bias=None, ca
 
 
 def flash_attention_bwd_plain(
-    q, k, v, segment_ids, out, lse, dout, softmax_scale, bias=None, causal=True
+    q, k, v, segment_ids, out, lse, dout, softmax_scale, bias=None, causal=True, bias_grad=True
 ):
     """(dq, dk, dv) of `flash_attention_fwd_plain` for the output cotangent `dout`, in
     fp32 from the saved logsumexp: dV = P^T dO, dS = P (dO V^T - rowsum(dO O)),
-    dQ = scale dS K, dK = scale dS^T Q, summed over each GQA group. With a query bias,
-    (dq, dk, dv, dbias): dbias = dS in fp32, shaped like the bias (`_query_bias_grad`)."""
+    dQ = scale dS K, dK = scale dS^T Q, summed over each GQA group. With a query bias and
+    `bias_grad`, (dq, dk, dv, dbias): dbias = dS in fp32, shaped like the bias
+    (`_query_bias_grad`)."""
     _check_shapes(q, k, v, segment_ids, bias)
     batch, seq, num_kv_heads, head_dim = k.shape
     group = q.shape[2] // num_kv_heads
@@ -188,7 +189,7 @@ def flash_attention_bwd_plain(
     dk = dk.reshape(per_group).sum(3) * softmax_scale
     dv = dv.reshape(per_group).sum(3)
     grads = (dq * softmax_scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    if is_query_bias(bias):
+    if bias_grad and is_query_bias(bias):
         return grads + (_query_bias_grad(ds, bias),)
     return grads
 
@@ -292,13 +293,14 @@ def flash_attention_fwd(q, k, v, segment_ids, softmax_scale, bias=None, causal=T
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale, bias=None, causal=True):
-    """Backward: (dq, dk, dv) shaped and typed like q, k, v (dense); with a query bias
-    also dbias, fp32 and shaped like the bias. The kernels write dS into [B, Hq, S, S]
-    rows zeroed here (pairs a mask or the tile walk skips stay 0); a shared bias's rows
-    are summed over the batch in a fixed order by a last launch of the same call."""
+def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale, bias=None, causal=True, bias_grad=True):
+    """Backward: (dq, dk, dv) shaped and typed like q, k, v (dense); with a query bias and
+    `bias_grad` also dbias, fp32 and shaped like the bias. The kernels write dS into
+    [B, Hq, S, S] rows zeroed here (pairs a mask or the tile walk skips stay 0); a shared
+    bias's rows are summed over the batch in a fixed order by a last launch of the same
+    call. Without `bias_grad` (a frozen bias) the kernels write no dS rows."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout, softmax_scale, bias, causal)
+        return flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout, softmax_scale, bias, causal, bias_grad)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
     strides, seg = _kernel_inputs(q, k, v, segment_ids, bias)
@@ -318,7 +320,7 @@ def flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, softmax_scale, bia
     dk = torch.empty(k.shape, dtype=dtype, device=device)
     dv = torch.empty(v.shape, dtype=dtype, device=device)
     dbias_rows = dbias = None
-    if is_query_bias(bias):
+    if bias_grad and is_query_bias(bias):
         dbias_rows = torch.zeros((batch,) + tuple(bias.shape[1:]), dtype=torch.float32, device=device)
         dbias = dbias_rows if bias.shape[0] == batch else torch.empty(bias.shape, dtype=torch.float32, device=device)
     spec = kernel_specs(bias, causal)[1]
@@ -345,8 +347,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, segment_ids, out, lse, bias = ctx.saved_tensors
-        grads = flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, ctx.softmax_scale, bias, ctx.causal)
-        dbias = grads[3] if len(grads) == 4 and ctx.needs_input_grad[5] else None
+        grads = flash_attention_bwd(
+            q, k, v, segment_ids, out, lse, dout, ctx.softmax_scale, bias, ctx.causal, ctx.needs_input_grad[5]
+        )
+        dbias = grads[3] if len(grads) == 4 else None
         return grads[0], grads[1], grads[2], None, None, dbias, None
 
 
@@ -363,13 +367,14 @@ def flash_attention(
 
     q ``[B, S, Hq, D]``; k, v ``[B, S, Hkv, D]`` (token-strided views of the fused QKV
     projection are taken as they are); segment_ids ``[B, S]`` or None; bias a key row
-    ``[B, Hq, S]``, a query bias ``[1 or B, Hq, S, S]``, or None, taken in fp32 and
-    differentiable. Returns ``[B, S, Hq, D]`` in q's dtype."""
+    ``[B, Hq, S]``, a query bias ``[1 or B, Hq, S, S]``, or None, taken in fp32; a query
+    bias is differentiable. Returns ``[B, S, Hq, D]`` in q's dtype."""
     _check_shapes(q, k, v, segment_ids, bias)
     if bias is not None:
-        bias = bias.to(device=q.device, dtype=torch.float32)
         if bias.requires_grad and not is_query_bias(bias):
-            # the key row as the query bias it shifts to: autograd sums its gradient back
-            bias = bias[:, :, None, :] - bias[:, :, :, None]
-        bias = bias.contiguous()
+            raise NotImplementedError(
+                "the gradient of a key-row bias [B, Hq, S] is not ported (no model trains one): "
+                "pass it as a query bias [1 or B, Hq, S, S] to get its gradient"
+            )
+        bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
     return _FlashAttention.apply(q, k, v, _segments(segment_ids, q), softmax_scale, bias, causal)

@@ -274,4 +274,5 @@ def test_seq2seq_phase_rehearsal(monkeypatch, tmp_path):
     assert generation["requests"] == chip_smoke.SEQ2SEQ_GENERATE[0] == check["prompts"]
     assert len(check["parted"]) == check["prompts"] - check["rows_identical"]
     assert all(gap <= check["near_tie_bound"] for _, _, gap in check["parted"])
+    assert check["logits_check"]["max_abs_err"] == check["logits_max_abs_err"] == check["near_tie_bound"] / 2
     assert len(record["kernel_check"]) == 2

@@ -636,7 +636,8 @@ def test_query_bias_flash_kernels_match_plain(batch, seq, hq, hkv, head_dim, num
     1e-4 abs + 1e-4 rel, in fp32 2e-5 abs + 1e-5 rel (a row with one visible key has P = 1
     and dS = dP - delta, two fp32 sums of ~8 summed in other orders); the pairs the masks
     hide (in every batch row, for a shared bias) hold exact zeros. Two backward passes give
-    the same bits (the batch sum runs in a fixed order)."""
+    the same bits (the batch sum runs in a fixed order), and a pass for a frozen bias (no
+    dBias) the same dq, dk, dv bits."""
     from chip_smoke import _close
     from dolomite_engine_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -650,6 +651,7 @@ def test_query_bias_flash_kernels_match_plain(batch, seq, hq, hkv, head_dim, num
     dout = _rand(g, out.shape, dtype)
     grads = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal)
     again = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal)
+    frozen = fa.flash_attention_bwd(q, k, v, seg, out, lse, dout, scale, bias, causal, bias_grad=False)
     want_grads = fa.flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale, bias, causal)
     torch.cuda.synchronize()
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
@@ -670,6 +672,7 @@ def test_query_bias_flash_kernels_match_plain(batch, seq, hq, hkv, head_dim, num
     assert bool((dbias[hidden] == 0).all()) and bool((want_dbias[hidden] == 0).all())
     for a, b in zip(grads, again):
         assert torch.equal(a, b)
+    assert len(frozen) == 3 and all(torch.equal(a, b) for a, b in zip(frozen, grads[:3]))
 
 
 def test_query_bias_gradient_reaches_the_relative_bias_table():
