@@ -91,15 +91,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launches for each engine with 16 slots decoding;
 15. ``speculative_generation`` (inside phase 12, after phase 13): n-gram speculation
    (K = 4) through `generate.main` from the 32-layer checkpoint, greedy (16 x 64, against
-   phase 13's paged greedy tokens: a request may part from them only at a near tie) and
-   with the YAML's sampling (32 x 512); then on the engine directly the 2-layer resume
+   phase 13's paged greedy tokens: a request may part from them only at a near tie), and
+   with the YAML's sampling (32 x 512) from the 2-layer resume checkpoint; then on the engine directly the 2-layer resume
    model as the draft (8 x 64, near ties as before), the target as its own draft (4 x 32:
    accept rate >= 0.95, every rejection a near tie), one verify step's logits against the
    plain forward over a bf16 and an int8 pool, all rows and each window row alone (the
    int8 path's layer-0 pool bytes against the plain path's), the host syncs of verify steps (one fetch a
    step) and a verify step's launches, host and device time with 16 slots decoding;
    launch counts of every engine run (the plain comparison runs aside) asserted exactly;
-16. ``preemption`` (after phase 15): `generate.main` with ``preemption: swap`` and then
+16. ``preemption`` (after phase 15; from the 2-layer resume checkpoint, a depth cut for the script's time): `generate.main` with ``preemption: swap`` and then
    ``recompute``, ``oversubscribe_ratio: 2.0`` and 512 pages, greedy 32 x 64, against an
    unpreempted run (swap: identical tokens; recompute: parting only at a near tie), the
    swap GB/s and the seconds lost; two tiers on the engine (only tier 1 evicted, parting
@@ -120,15 +120,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    peak and the state's copy rates); (d) `pretrain.main` with LAMB for 3 steps, then every
    registered optimizer on a 2-layer granite-width model on the card against the CPU
    (the CPU runs on a thread from the phase's start). Launch counts asserted exactly;
-18. ``finetune`` (inside phase 12, after phase 16, from its 32-layer checkpoint):
-   `finetune.main` on granite-3b-code at 32 layers over a `JSONLinesDataset` of the corpus's
-   words (inputs and outputs of 16-1024 words), a local ``model_name`` directory (phase 12's
-   config and tokenizer), remat of every block: (a) full finetuning on
-   `configs/instruction-tuning/finetune-alpaca.yml` from the checkpoint's weights, padded
-   (4 x 2) and then packed (``use_padding_free_transformer``, 8 x 1), (b) LoRA on
-   `configs/peft/lora.yml` from seed-0 weights (every base tensor bit-identical after the
-   steps, the adapters moved, optimizer state for the adapters alone), (c) prompt tuning (20
-   RANDOM virtual tokens, LoRA's YAML), 3 steps each with eval at the start and the end,
+18. ``finetune`` (inside phase 12, after phase 16): `finetune.main` on granite-3b-code over a
+   `JSONLinesDataset` of the corpus's words (inputs and outputs of 16-1024 words), a local
+   ``model_name`` directory (phase 12's config and tokenizer), remat of every block: (a) full
+   finetuning on `configs/instruction-tuning/finetune-alpaca.yml` at 2 layers from phase
+   12's 2-layer resume checkpoint's weights, padded (4 x 2) and then packed
+   (``use_padding_free_transformer``, 8 x 1), (b) LoRA on `configs/peft/lora.yml` at all 32
+   layers from seed-0 weights (every base tensor bit-identical after the steps, the adapters
+   moved, optimizer state for the adapters alone; its checkpoint is phase 21's), (c) prompt
+   tuning (20 RANDOM virtual tokens, LoRA's YAML) at 2 layers, 3 steps each with eval at the start and the end,
    launches zeroed before each run and asserted exactly; then the card's step against the
    CPU's at 640 wide and 2 layers (full finetuning and LoRA) and a LoRA resume at 2 layers
    (3 steps, a save, a resumed run to 6 equal to 6 unbroken bit for bit);
@@ -157,7 +157,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bias and a per-row one under segment ids, forward and backward (dBias too) against the
    plain version and fp32 SDPA autograd. Launch counts asserted exactly. Cuts: one card,
    dropout 0, seeded weights, the word tokenizer, 3 steps, (b)'s target budget 513 (the
-   YAML's 512 keeps a target to 511 tokens).
+   YAML's 512 keeps a target to 511 tokens). Phase 21's seq2seq part runs after (c):
+   `generate.main` from (b)'s LoRA checkpoint and the same 2 + 2-layer check against the
+   CPU, the adapters on ``c_attn``, ``c_q`` and ``c_kv``;
+21. ``interop`` (inside phase 12, after phase 18, from its checkpoints; `interop_phase`):
+   `generate.main` from phase 18's 32-layer LoRA checkpoint (greedy, 16 x 64); `unshard.main`
+   on `configs/pretraining-examples/unshard.yml` for the 32-layer checkpoint, the directory
+   held bit for bit to every weight the unshard read, in the checkpoint's fp32 (the 2-layer
+   one's below to the checkpoint read anew); `generate.main` from that
+   directory as ``model_name`` with no ``load_args`` (phase 13's paged greedy tokens
+   exactly, the load's GB/s); the 2-layer resume checkpoint unsharded, exported to HF
+   granite and llama and imported back, bit for bit; that directory as ``draft_model`` by
+   name for the 32-layer directory (plain greedy's tokens but at near ties); then at 2
+   layers of full width planted LoRA adapters: the card's greedy tokens against the CPU's
+   fp32 run (near ties only) and against the same model without them (they must differ).
+   Launch counts asserted exactly.
 
 The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
 at both models' decode, prefill and verify windows over bf16, int8 and fp8 pools, one launch a
@@ -185,7 +199,7 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
-``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune``, ``alibi_generation``,
+``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune``, ``interop``, ``alibi_generation``,
 ``seq2seq`` and ``kernel_cases_seq2seq`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
@@ -2698,10 +2712,11 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
     before and read just after, then phase 17 on its corpus (`training_options_phase`),
     then from its checkpoint phase 13 (`generate_phase`), phase 15
     (`speculative_generation_phase`, whose draft model is the resume check's), phase 16
-    (`preemption_phase`) and phase 18 (`finetune_phase`, whose full finetuning starts from
-    the 32-layer checkpoint). `rehearsal` (the CPU only) cuts the widths to rehearse the
+    (`preemption_phase`), phase 18 (`finetune_phase`, whose full finetuning starts from
+    the 32-layer checkpoint) and phase 21 (`interop_phase`, from these checkpoints and
+    phase 18's LoRA one). `rehearsal` (the CPU only) cuts the widths to rehearse the
     control flow. Returns the record (phase 17's under ``training_options``, phase 18's,
-    with its launch counts, under ``finetune``) and the launch
+    with its launch counts, under ``finetune``, phase 21's under ``interop``) and the launch
     counts, phase 17's launch counts, phase 13's record and launch counts, and phases 15's
     and 16's records, launch counts and forms."""
     import shutil
@@ -2862,17 +2877,17 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
             seed, corpus, tokenizer, work, record, device, rehearsal
         )
         generation, generate_launches, context = generate_phase(save_path, corpus, config, seed, device, rehearsal, work)
-        speculative, speculative_launches, speculative_forms, model = speculative_generation_phase(
+        speculative, speculative_launches, speculative_forms = speculative_generation_phase(
             save_path, context, os.path.join(work, "unbroken"), config, device, rehearsal
         )
-        preemption = preemption_phase(save_path, context, config, model, device, rehearsal)
-        del model
+        preemption = preemption_phase(os.path.join(work, "unbroken"), context, config, device, rehearsal)
         _free(device)
         t0 = time.perf_counter()
         record["finetune"] = finetune_phase(
-            seed, corpus, tokenizer, work, save_path, args.model_args.pretrained_config, device, rehearsal
+            seed, corpus, tokenizer, work, args.model_args.pretrained_config, device, rehearsal
         )
         record["finetune"]["seconds"] = time.perf_counter() - t0
+        record["interop"] = interop_phase(seed, work, save_path, context, config, device, rehearsal)
 
     return (
         record, launches, options_launches, (generation, generate_launches),
@@ -3183,8 +3198,12 @@ def fp8_step_check(seed, device="cuda", rehearsal=None):
     the CPU run and the CPU run again in `_scaled_mm`'s rounding. Step 1 quantizes with the
     fresh state's scales of 1, steps 2 and 3 with those the earlier micro-batches left.
     Then at `TRAIN_LR`, where each side's updates feed its later steps: the losses within
-    the same bound, the rest reported."""
+    the same bound, the rest reported. The card's runs go first; the CPU's then run on a
+    thread beside the card's later work (on a card only: a CPU rehearsal runs them in
+    place, as its own fp8 runs would see the floor run's product). Returns a callable that
+    waits for them, makes the comparisons and returns the record."""
     import numpy as np
+    import torch
 
     from dolomite_engine_tpu_torch.ops import fp8
 
@@ -3203,40 +3222,49 @@ def fp8_step_check(seed, device="cuda", rehearsal=None):
                 out[kind] = max(out.get(kind, 0.0), err)
         return out
 
-    record = {
-        "model": {"n_layer": config_kwargs["n_layer"], "n_embd": config_kwargs["n_embd"], "remat": FP8_STEP_REMAT},
-        "seq": seq, "accumulation": TRAIN_ACCUM, "steps": FP8_STEP_STEPS,
-    }
+    runs = {}
     for name, lr in (("lr_0", 0.0), ("lr", TRAIN_LR)):
         _free(device)
-        card = _fp8_steps(seed, config_kwargs, seq, device, lr)
-        _free(device)
-        weights = card[3]
-        cpu = _fp8_steps(seed, config_kwargs, seq, "cpu", lr, weights)
-        run = record[name] = {
-            "lr": lr, "card_losses": card[0], "cpu_losses": cpu[0], "card_grad_norms": card[1], "cpu_grad_norms": cpu[1],
-            "loss_rel_err": rel(card[0], cpu[0]), "max_rel_err": gaps(card, cpu), "card_s": card[4], "cpu_s": cpu[4],
+        runs[name] = (lr, _fp8_steps(seed, config_kwargs, seq, device, lr))
+    _free(device)
+
+    def compare():
+        record = {
+            "model": {"n_layer": config_kwargs["n_layer"], "n_embd": config_kwargs["n_embd"], "remat": FP8_STEP_REMAT},
+            "seq": seq, "accumulation": TRAIN_ACCUM, "steps": FP8_STEP_STEPS,
         }
-        assert all(np.isfinite(card[0] + card[1])), record
-        assert max(run["loss_rel_err"]) <= FP8_STEP_LOSS_RTOL, record
-        if lr == 0.0:
-            plain = fp8.fp8_product_plain
-            fp8.fp8_product_plain = _scaled_mm_rounding
-            try:
-                floor_run = _fp8_steps(seed, config_kwargs, seq, "cpu", lr, weights)
-            finally:
-                fp8.fp8_product_plain = plain
-            floor = gaps(floor_run, cpu)
-            run["floor_max_rel_err"] = floor
-            run["bounds"] = {k: FP8_STEP_FLOOR_FACTOR * max(v, FP8_STEP_FLOOR_MIN) for k, v in floor.items()}
-        del weights, card, cpu
-    fixed = record["lr_0"]
-    record["tolerance"] = (
-        f"losses {FP8_STEP_LOSS_RTOL} relative; at lr 0 the grad norms and each kind of fp8 state within "
-        f"{FP8_STEP_FLOOR_FACTOR} x max(the CPU's rounding-form gap, {FP8_STEP_FLOOR_MIN})"
-    )
-    assert all(fixed["max_rel_err"][k] <= bound for k, bound in fixed["bounds"].items()), record
-    return record
+        for name, (lr, card) in runs.items():
+            weights = card[3]
+            cpu = _fp8_steps(seed, config_kwargs, seq, "cpu", lr, weights)
+            run = record[name] = {
+                "lr": lr, "card_losses": card[0], "cpu_losses": cpu[0], "card_grad_norms": card[1], "cpu_grad_norms": cpu[1],
+                "loss_rel_err": rel(card[0], cpu[0]), "max_rel_err": gaps(card, cpu), "card_s": card[4], "cpu_s": cpu[4],
+            }
+            assert all(np.isfinite(card[0] + card[1])), record
+            assert max(run["loss_rel_err"]) <= FP8_STEP_LOSS_RTOL, record
+            if lr == 0.0:
+                plain = fp8.fp8_product_plain
+                fp8.fp8_product_plain = _scaled_mm_rounding
+                try:
+                    floor_run = _fp8_steps(seed, config_kwargs, seq, "cpu", lr, weights)
+                finally:
+                    fp8.fp8_product_plain = plain
+                floor = gaps(floor_run, cpu)
+                run["floor_max_rel_err"] = floor
+                run["bounds"] = {k: FP8_STEP_FLOOR_FACTOR * max(v, FP8_STEP_FLOOR_MIN) for k, v in floor.items()}
+            del weights, cpu
+        fixed = record["lr_0"]
+        record["tolerance"] = (
+            f"losses {FP8_STEP_LOSS_RTOL} relative; at lr 0 the grad norms and each kind of fp8 state within "
+            f"{FP8_STEP_FLOOR_FACTOR} x max(the CPU's rounding-form gap, {FP8_STEP_FLOOR_MIN})"
+        )
+        assert all(fixed["max_rel_err"][k] <= bound for k, bound in fixed["bounds"].items()), record
+        return record
+
+    if torch.device(device).type != "cuda":
+        record = compare()
+        return lambda: record
+    return _Background(compare).result
 
 
 def _scales_summary(fp8_state):
@@ -3254,7 +3282,7 @@ def _scales_summary(fp8_state):
     }
 
 
-def fp8_check(seed, corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
+def fp8_check(seed, corpus, tokenizer, work, pretrain_record, step_check, device="cuda", rehearsal=None):
     """(b): `pretrain.main` with ``mixed_precision_args.dtype: fp8`` over phase 12's args
     and steps (the YAML's remat), against phase 12's bf16 run; then the fp8 products on the
     card, the card's fp8 step against the CPU's (`fp8_step_check`) and the MoE step of
@@ -3313,7 +3341,7 @@ def fp8_check(seed, corpus, tokenizer, work, pretrain_record, device="cuda", reh
     if on_card:
         assert peak < TRAIN_PEAK_GB, record
         record["products"] = fp8_product_cases(seed)
-    record["step_check"] = fp8_step_check(seed, device, rehearsal)
+    record["step_check"] = step_check()  # `fp8_step_check`'s, started with the phase
     moe_config = dict(MOE_EP, n_layer=MOE_TRAIN_LAYERS)
     moe_seq, moe_micro = MOE_TRAIN_SEQ, MOE_TRAIN_MICRO
     if rehearsal is not None:
@@ -3632,17 +3660,20 @@ def optimizer_parity(inputs, references, device="cuda"):
 def training_options_phase(seed, corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
     """Phase 17 (right after phase 12's 32-layer run, on its corpus): (a) the remat
     policies, (b) fp8, (c) CPU offload with the health statistics, (d) the optimizers,
-    each part's seconds. (d)'s CPU runs go on a thread beside (a)-(c) (the card's runs
-    wait little on the host: the dense step keeps the card busy ~95 % of its time). Returns the record (with the runs' launch forms) and the launch
+    each part's seconds. (d)'s CPU runs go on a thread beside (a)-(c), and (b)'s CPU fp8
+    steps on another from the phase's start (the card's runs wait little on the host: the
+    dense step keeps the card busy ~95 % of its time). Returns the record (with the runs' launch forms) and the launch
     counts of its runs; the fp8 products of (b) launch no kernel of the port."""
     t0 = time.perf_counter()
     launches, forms, record = {}, {}, {}
     # (d)'s CPU runs go on a thread from the start: they take minutes on the host's cores
     inputs = optimizer_parity_inputs(seed, rehearsal)
     references = _Background(lambda: optimizer_cpu_references(inputs))
+    # (b)'s fp8 step check: the card's steps now, the CPU's on another thread
+    step_check = fp8_step_check(seed, device, rehearsal)
     parts = (
         ("remat_policies", lambda: remat_policies_check(seed, device, rehearsal)),
-        ("fp8", lambda: fp8_check(seed, corpus, tokenizer, work, pretrain_record, device, rehearsal)),
+        ("fp8", lambda: fp8_check(seed, corpus, tokenizer, work, pretrain_record, step_check, device, rehearsal)),
         ("offload_and_health", lambda: offload_health_check(corpus, tokenizer, work, pretrain_record, device, rehearsal)),
         ("optimizers", lambda: optimizers_check(
             corpus, tokenizer, work,
@@ -3696,19 +3727,24 @@ def generation_prompts(directory, corpus, count, seed, longest=1024):
     return prompts
 
 
-def generation_args(load_path, prompts, output_dir, paged, greedy_tokens=None, rehearsal=None, iteration=PRETRAIN_STEPS, **generation):
+def generation_args(load_path, prompts, output_dir, paged, greedy_tokens=None, rehearsal=None, iteration=PRETRAIN_STEPS, model_name=None, **generation):
     """`configs/generation.yml` through the port's `load_yaml`, with the run's cuts: the
-    checkpoint at `load_path` (step `iteration`), the `prompts` directory, the
+    checkpoint at `load_path` (step `iteration`) or, with `model_name`, that HF-layout
+    directory and no ``load_args``, the `prompts` directory, the
     `output_dir`, and ``paged_kv_cache: paged``; the rest is the YAML's (batch_size 16,
     max_new_tokens 512, sampling at temperature 0.7 / top_p 0.95, bf16). `greedy_tokens`
     makes the requests greedy with that many new tokens; `rehearsal` (the CPU only) cuts
     max_new_tokens to its ``new_tokens``; `generation` sets further generation parameters
-    (speculation, preemption, the pool's pages)."""
+    (speculation, preemption, the pool's pages, a draft model)."""
     from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
     from dolomite_engine_tpu_torch.utils import load_yaml
 
     config = load_yaml(GENERATION_YAML)
-    config["load_args"] = {"load_path": load_path, "iteration": iteration}
+    if model_name is None:
+        config["load_args"] = {"load_path": load_path, "iteration": iteration}
+    else:
+        del config["load_args"]
+        config["model_args"] = {"model_class": "AutoModelForCausalLM", "model_name": model_name}
     config["datasets"][0]["class_args"]["data_path"] = prompts
     config["output_dir"] = output_dir
     gp = config["generation_parameters"]
@@ -4090,15 +4126,16 @@ class _LaunchTally:
         return {"launches": self.launches, "expected_launches": self.expected, "launch_forms": self.forms}
 
 
-def _draft_launches(config, buckets, forwards):
+def _draft_launches(config, buckets, forwards, flash=True):
     """A dense draft model's launches (`serving/speculation.DraftModelDrafter`): per
     forward rmsnorm 2L + 1 and the flat rope L (the ingest and the draft steps at per-row
     positions, the prompt prefills); the flash forward L per prompt prefill whose bucket is
-    a multiple of 128."""
+    a multiple of 128 when the draft's attention is ``flash_attention_2`` (`flash`; a draft
+    by name has the default, sdpa, as in JAX)."""
     layers = config.n_layer
     launches = {
         "rmsnorm": (2 * layers + 1) * forwards, "rope_qkv": layers * forwards,
-        "flash_attn_fwd": layers * sum(b % 128 == 0 for b in buckets),
+        "flash_attn_fwd": layers * sum(b % 128 == 0 for b in buckets) * flash,
     }
     return launches, {"rope_qkv:flat": layers * forwards}
 
@@ -4325,15 +4362,15 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
     bf16, 16 slots, paged): (a) `generate.main` on `configs/generation.yml` with
     ``speculate_ngram: true, draft_k: 4``, greedy, 16 prompts x 64 tokens, against the
     `generate` phase's paged greedy tokens; (b) the same with the YAML's sampling (32
-    prompts x 512, the `generate` phase's paged run beside it); then the checkpoint loaded
+    prompts x 512, the `generate` phase's paged run beside it) from the 2-layer resume
+    checkpoint (`draft_path`; a depth cut for the script's time); then the 32-layer checkpoint loaded
     once (`load_checkpoint_for_inference`) for the engine directly: (c) the pretrain
     phase's 2-layer resume model (`draft_path`) as the draft, 8 greedy requests x 64; (d)
     the target as its own draft (`self_draft_check`); (e) one verify step's logits over a
     bf16 and an int8 pool (`verify_logits_check`); the host syncs of an n-gram run, and
     the launches, host and device time of a verify step with 16 slots decoding. Launch
     counts are zeroed before each of (a)-(d) and (e)'s kernel-path runs and read after,
-    and asserted. Returns the record, the launch counts, their forms and the loaded
-    model."""
+    and asserted. Returns the record, the launch counts and their forms."""
     import inspect
 
     import torch
@@ -4363,26 +4400,28 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
         agreement_with_paged_greedy=_agreement(tokens, context["greedy_paged"]),
         requests_identical=sum(a == b for a, b in zip(tokens, context["greedy_paged"])),
     )
-    # (b) the YAML's sampling, with speculation
+    # (b) the YAML's sampling, with speculation, from the 2-layer resume checkpoint (a depth
+    # cut for the script's time limit, as phase 13's dense pool)
     args = generation_args(
-        save_path, context["prompts_dir"], os.path.join(work, "spec-sampled"), True, rehearsal=rehearsal,
-        speculate_ngram=True, draft_k=SPEC_K,
+        draft_path, context["prompts_dir"], os.path.join(work, "spec-sampled"), True, rehearsal=rehearsal,
+        iteration=RESUME_STEPS, speculate_ngram=True, draft_k=SPEC_K,
     )
     slot_steps = [0]
     with tally.run(), _slot_steps(slot_steps):
         summary, tokens, lines = _main_run(args, device)
-    tally.expect(*_engine_launches(summary["stats"], config, True, 0))
+    tally.expect(*_engine_launches(summary["stats"], dataclasses.replace(config, n_layer=RESUME_LAYERS), True, 0))
     max_new = args.generation_parameters.max_new_tokens
     assert summary["requests"] == len(lines) == GENERATION_PROMPTS and summary["stats"].completed == GENERATION_PROMPTS
     assert all(0 < line["num_generated_tokens"] <= max_new for line in lines), lines
     assert all(0 <= t < config.vocab_size for row in tokens for t in row), "a generated word outside the vocabulary"
     record["ngram_sampled"] = dict(
         _spec_record(summary["stats"], summary["engine_seconds"], summary["pool"], slot_steps[0]), requests=summary["requests"],
-        generated_tokens=summary["generated_tokens"], max_new_tokens=max_new,
+        generated_tokens=summary["generated_tokens"], max_new_tokens=max_new, n_layer=RESUME_LAYERS,
         generate_phase_paged_sampled=context["paged_sampled"],
     )
 
     # the engine directly, on the checkpoint's model loaded once
+    args = generation_args(save_path, context["greedy_dir"], os.path.join(work, "unused"), True, greedy_new)
     model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
     target = model.model
     prompts = context["prompts"][:GREEDY_PROMPTS]
@@ -4462,15 +4501,19 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
         record["launches_per_verify_step"] = decode_step_launches(target, True, 16, 1536, speculate_ngram=True, draft_k=SPEC_K)
         record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record.update(tally.check(on_card))
-    return record, tally.launches, tally.forms, model
+    del model
+    return record, tally.launches, tally.forms
 
 
-def preemption_phase(save_path, context, config, model, device="cuda", rehearsal=None):
-    """Phase 16, preemption from the same checkpoint: (a) `generate.main` with
-    ``preemption: swap``, ``oversubscribe_ratio: 2.0`` and ``kv_num_pages: 512`` (2.7 GB),
-    greedy, 32 prompts x 64 tokens, 16 slots, whose worst case (~1088 pages) runs the pool
-    physically dry, against an unpreempted greedy run of the same prompts (`generate` over
-    the loaded `model` and the YAML's pool); (b) the same with ``preemption: recompute``;
+def preemption_phase(save_path, context, config, device="cuda", rehearsal=None):
+    """Phase 16, preemption from phase 12's 2-layer resume checkpoint (`save_path`, step 6;
+    a depth cut for the script's time limit; the 32-layer one ran here before): (a)
+    `generate.main` with ``preemption: swap``, ``oversubscribe_ratio: 2.0`` and
+    ``kv_num_pages: 512``, greedy, 32 prompts x 64 tokens, 16 slots, whose worst case (~1088
+    pages) runs the pool physically dry, against an unpreempted greedy run of the same
+    prompts (`generate` over the checkpoint's model and the YAML's pool); a run may part from
+    it only at a near tie, twice the model's largest engine logit error against the plain
+    forward (`generation_logits_check` over both engines); (b) the same with ``preemption: recompute``;
     (c) the engine directly with two tiers: tier-1 requests fill the pool, tier-0 arrivals
     evict them, later tier-1 arrivals wait, and only tier 1 is ever evicted; (d) a swap
     round trip over an int8 pool, pages and scale rows byte-identical on the card, timed
@@ -4480,6 +4523,7 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
     import torch
 
     from dolomite_engine_tpu_torch import generate
+    from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
     from dolomite_engine_tpu_torch.data import get_datasets_list
     from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
     from dolomite_engine_tpu_torch.serving import RequestStatus, ServingEngine
@@ -4488,21 +4532,29 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
     work = os.path.dirname(context["prompts_dir"])
     greedy_new = context["greedy_new"]
     pages = PREEMPT_PAGES if rehearsal is None else rehearsal["preempt_pages"]
+    config = dataclasses.replace(config, n_layer=RESUME_LAYERS)
     tally = _LaunchTally()
-    record = {"kv_num_pages": pages, "oversubscribe_ratio": PREEMPT_RATIO, "new_tokens": greedy_new}
+    record = {"n_layer": RESUME_LAYERS, "kv_num_pages": pages, "oversubscribe_ratio": PREEMPT_RATIO, "new_tokens": greedy_new}
 
-    # the unpreempted greedy reference: the YAML's pool, the loaded model
-    args = generation_args(save_path, context["prompts_dir"], os.path.join(work, "unpreempted"), True, greedy_new)
+    # the unpreempted greedy reference: the YAML's pool, the checkpoint's model
+    args = generation_args(save_path, context["prompts_dir"], os.path.join(work, "unpreempted"), True, greedy_new, iteration=RESUME_STEPS)
+    model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
     datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
     reference = generate.generate(args, model, datasets, Mode.inference)
     want, _ = _outputs(reference["outputs"][0])
-    # a recomputed or tiered run may part from it only at a near tie (`greedy_divergences`)
-    bound, prompts = 2 * sum(context["logits_max_abs_err"].values()), context["prompts"]
+    prompts = context["prompts"]
+    # a recomputed or tiered run may part from it only at a near tie (`greedy_divergences`):
+    # twice this model's largest engine logit error against the plain forward
+    record["logits_check"] = {
+        name: generation_logits_check(model.model, prompts[0], paged, 16) for name, paged in (("paged", True), ("dense", False))
+    }
+    bound = 2 * sum(check["max_abs_err"] for check in record["logits_check"].values())
+    record["near_tie_bound"] = bound
     record["unpreempted"] = _engine_record(reference["stats"], reference["engine_seconds"], reference["pool"])
     for mode in ("swap", "recompute"):
         args = generation_args(
             save_path, context["prompts_dir"], os.path.join(work, f"preempt-{mode}"), True, greedy_new,
-            preemption=mode, oversubscribe_ratio=PREEMPT_RATIO, kv_num_pages=pages,
+            iteration=RESUME_STEPS, preemption=mode, oversubscribe_ratio=PREEMPT_RATIO, kv_num_pages=pages,
         )
         with tally.run():
             summary, tokens, _ = _main_run(args, device)
@@ -4594,6 +4646,7 @@ def preemption_phase(save_path, context, config, model, device="cuda", rehearsal
     assert identical, record["int8_swap_round_trip"]
     engine.drain()
     assert state.status == RequestStatus.completed
+    del engine, model, target
     record.update(tally.check(on_card))
     return record, tally.launches, tally.forms
 
@@ -4834,15 +4887,17 @@ def finetune_step_check(seed, model_dir, data_dir, device="cuda"):
     return record
 
 
-def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device="cuda", rehearsal=None):
-    """Phase 18: (a) full finetuning on `FINETUNE_YAML` from phase 12's checkpoint (its
-    weights alone), padded, then packed (``use_padding_free_transformer``); (b) LoRA on
-    `LORA_YAML` from seed-0 weights: every base tensor bit-identical after the steps, the
-    adapters moved, the optimizer's state the adapters' alone; (c) prompt tuning (LoRA's
-    YAML with prompt tuning, RANDOM init, 20 virtual tokens); each at granite-3b-code's 32
-    layers with its launches zeroed before and read after and asserted exactly. Then the
-    card's step against the CPU's at 2 layers (`finetune_step_check`) and the resume check
-    at 2 layers. Returns the record (the launch counts under ``launches``)."""
+def finetune_phase(seed, corpus, tokenizer, work, config, device="cuda", rehearsal=None):
+    """Phase 18: (a) full finetuning on `FINETUNE_YAML` from phase 12's 2-layer resume
+    checkpoint (its weights alone; `RESUME_LAYERS` of granite-3b-code's 32, for the
+    script's time limit), padded, then packed (``use_padding_free_transformer``); (b) LoRA on
+    `LORA_YAML` from seed-0 weights at all 32 layers: every base tensor bit-identical after
+    the steps, the adapters moved, the optimizer's state the adapters' alone (its checkpoint
+    stays for phase 21); (c) prompt tuning (LoRA's YAML with prompt tuning, RANDOM init, 20
+    virtual tokens) at 2 layers from seed-0 weights; each with its launches zeroed before and
+    read after and asserted exactly. Then the card's step against the CPU's at 2 layers
+    (`finetune_step_check`) and the resume check at 2 layers. Returns the record (the launch
+    counts under ``launches``)."""
     import shutil
 
     import numpy as np
@@ -4856,6 +4911,7 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
 
     model_config = dict(config)
     model_dir = finetune_model_dir(os.path.join(work, "granite-dolomite"), model_config, tokenizer)
+    resume_dir = finetune_model_dir(os.path.join(work, "granite-2"), dict(model_config, n_layer=RESUME_LAYERS), tokenizer)
     words = FINETUNE_WORDS if rehearsal is None else rehearsal["finetune_words"]
     data_dir = finetune_data(os.path.join(work, "finetune-data"), corpus, seed, model_config["eos_token_id"], words=words)
     cfg = CommonConfig.from_dict(model_config)
@@ -4864,7 +4920,8 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
 
     capture = {}  # the run's state and its hooks' values (the LoRA run's hooks read it)
 
-    def run(name, args, virtual_tokens=0, before=None, after=None):
+    def run(name, args, virtual_tokens=0, before=None, after=None, keep=False):
+        run_cfg = cfg if args.model_args.model_name == model_dir else dataclasses.replace(cfg, n_layer=RESUME_LAYERS)
         shapes = {"train": [], "val": []}
         capture.clear()
         capture.update(before=before or (lambda state: None), after=after or (lambda state: None))
@@ -4877,7 +4934,7 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
         micro, accumulation = args.training_parameters.micro_batch_size, args.training_parameters.gradient_accumulation_steps
         consumed = shapes["train"][: FINETUNE_STEPS * accumulation]
         evals = shapes["val"]  # two full passes over the val split (at step 0 and at the end)
-        expected = finetune_launches(cfg, consumed, evals, virtual_tokens)
+        expected = finetune_launches(run_cfg, consumed, evals, virtual_tokens)
         tally.expect(expected, {"rope_qkv:flat": expected["rope_qkv"]})
         steps = summary["steps"]
         losses = [s["loss"] for s in steps]
@@ -4889,7 +4946,7 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
         sink = [json.loads(line) for line in open(os.path.join(save, "telemetry", "rank-00000.jsonl"))]
         report = next(r for r in sink if r["kind"] == "model_report")
         entry = {
-            "layers": cfg.n_layer, "micro_batch": micro, "accumulation": accumulation,
+            "layers": run_cfg.n_layer, "micro_batch": micro, "accumulation": accumulation,
             "padding_free": args.model_args.use_padding_free_transformer,
             "losses": losses, "grad_norms": [s["grad_norm"] for s in steps], "lrs": [s["lr"] for s in steps],
             "val_losses": summary["val_losses"], "step_s": [s["step_seconds"] for s in steps],
@@ -4902,14 +4959,15 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
         }
         if on_card:
             assert entry["peak_memory_gb"] < TRAIN_PEAK_GB, entry
-        shutil.rmtree(save)  # ~14 GB of weights a run
+        if not keep:
+            shutil.rmtree(save)  # ~14 GB of weights a run
         record[name] = entry
         capture.pop("before_value")
         return capture, state
 
-    # (a) full finetuning from phase 12's step-8 weights: padded, then packed
+    # (a) full finetuning from phase 12's 2-layer resume weights (step 6): padded, then packed
     for name, padding_free, micro in (("full_padded", False, FINETUNE_PADDED_MICRO), ("full_padding_free", True, (8, 1))):
-        args = finetune_args(FINETUNE_YAML, model_dir, data_dir, os.path.join(work, name), FINETUNE_STEPS, micro=micro, padding_free=padding_free, load_path=pretrain_path)
+        args = finetune_args(FINETUNE_YAML, resume_dir, data_dir, os.path.join(work, name), FINETUNE_STEPS, micro=micro, padding_free=padding_free, load_path=os.path.join(work, "unbroken"))
         run(name, args)
     # (b) LoRA from seed-0 weights: a copy of every parameter on the card when the loop
     # starts (13.9 GB, resident through the run, so the run's peak is the step's plus it),
@@ -4929,7 +4987,7 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
         }
 
     args = finetune_args(LORA_YAML, model_dir, data_dir, os.path.join(work, "lora"), FINETUNE_STEPS)
-    _, state = run("lora", args, before=copy, after=compare)
+    _, state = run("lora", args, before=copy, after=compare, keep=True)  # phase 21 generates from it
     lora = record["lora"]
     lora.update(capture["after_value"])
     lora["peak_memory_gb_without_the_copy"] = None if lora["peak_memory_gb"] is None else lora["peak_memory_gb"] - lora["base_weights_gb"] - sum(p.numel() * 4 for p in state.optimizer.params) / 1e9
@@ -4942,8 +5000,8 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
     assert all(n.endswith(("lora_a", "lora_b")) for n in state.optimizer.param_names), state.optimizer.param_names
     assert abs(lora["optimizer_state_gb"] - adapter_state / 1e9) < 1e-9, lora
     del state
-    # (c) prompt tuning on LoRA's YAML
-    args = finetune_args(LORA_YAML, model_dir, data_dir, os.path.join(work, "prompt_tuning"), FINETUNE_STEPS, prompt_tuning=True)
+    # (c) prompt tuning on LoRA's YAML, at 2 layers
+    args = finetune_args(LORA_YAML, resume_dir, data_dir, os.path.join(work, "prompt_tuning"), FINETUNE_STEPS, prompt_tuning=True)
     _, state = run("prompt_tuning", args, virtual_tokens=PROMPT_TUNING["num_virtual_tokens"])
     assert state.optimizer.param_names == ["prompt_embeddings"], state.optimizer.param_names
     del state
@@ -4958,7 +5016,6 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
     record["step_check"]["seconds"] = time.perf_counter() - t0
 
     # the resume check: LoRA at 2 layers, 6 steps against 3, a save and a resumed run to 6
-    resume_dir = finetune_model_dir(os.path.join(work, "granite-2"), dict(model_config, n_layer=2), tokenizer)
 
     def resume_run(save_dir, steps, load=False):
         path = os.path.join(work, save_dir)
@@ -4979,6 +5036,394 @@ def finetune_phase(seed, corpus, tokenizer, work, pretrain_path, config, device=
     assert record["resume_check"]["bit_identical"] and record["resume_check"]["val_loss_identical"], record["resume_check"]
     for save_dir in ("ft-unbroken", "ft-broken"):
         shutil.rmtree(os.path.join(work, save_dir))
+    _free(device)
+    return record
+
+
+# phase 21: HF interop and generation from LoRA checkpoints (inside phase 12, after phase 18, from
+# its checkpoints; `interop_phase`). `configs/pretraining-examples/unshard.yml` through `load_yaml`
+# with the run's paths; the HF types phase 12's config exports to (granite, llama: swiglu,
+# rmsnorm, rope); the 2-layer LoRA check's requests (prompts cut to 256 tokens, 32 greedy tokens:
+# the CPU's fp32 run is the reference) and the planted adapters' scale: with lora.yml's rank 16
+# and alpha 32 the update is about twice the base c_attn output at granite's init (0.05 already
+# changes granite's greedy tokens; the CPU rehearsal's 64-wide model needs 0.3)
+UNSHARD_YAML = os.path.join("configs", "pretraining-examples", "unshard.yml")
+INTEROP_EXPORTS = ("granite", "llama")
+LORA_CHECK_ROWS, LORA_CHECK_PROMPT, LORA_CHECK_NEW = 4, 256, 32
+LORA_PLANT_STD = 0.3
+
+
+def unshard_args(load_path, iteration, unsharded_path):
+    """`UNSHARD_YAML` through the port's `load_yaml`, its paths replaced by the run's (its
+    ``mixed_precision_args.dtype: bf16`` kept: the weights keep the checkpoint's dtype)."""
+    from dolomite_engine_tpu_torch.arguments import Mode, args_from_dict
+    from dolomite_engine_tpu_torch.utils import load_yaml
+
+    config = load_yaml(UNSHARD_YAML)
+    config.update(load_args={"load_path": load_path, "iteration": iteration}, unsharded_path=unsharded_path)
+    return args_from_dict(config, Mode.unsharding)
+
+
+def directory_weights(state_path, config, device="cuda", weights=None):
+    """What an HF-layout directory of a checkpoint's `state/` must hold: `params_to_state_dict`
+    of its model weights, each in its own dtype. The weights are read from the checkpoint onto
+    `device` (the host holds one tensor at a time), or given as `weights` (an unshard's own, in
+    memory: then only their names, shapes and dtypes are held to the checkpoint's metadata)."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    from dolomite_engine_tpu_torch.hf_interop import params_to_state_dict
+
+    metadata = {
+        key[len("model."):]: meta for key, meta in dcp.FileSystemReader(state_path).read_metadata().state_dict_metadata.items()
+        if key.startswith("model.")
+    }
+    if weights is None:
+        weights = {name: torch.empty(tuple(meta.size), dtype=meta.properties.dtype, device=device) for name, meta in metadata.items()}
+        dcp.load({"model": weights}, checkpoint_id=state_path, no_dist=True)
+    assert sorted(weights) == sorted(metadata), (sorted(weights), sorted(metadata))
+    for name, tensor in weights.items():
+        assert tensor.dtype == metadata[name].properties.dtype and tuple(tensor.shape) == tuple(metadata[name].size), name
+    return params_to_state_dict(config, weights)
+
+
+def _same_bytes(name, got, want):
+    """`got` (as read from a file) is `want`: the same dtype, shape and bytes."""
+    import torch
+
+    got = got.to(want.device)
+    assert got.dtype == want.dtype and got.shape == want.shape, (name, got.dtype, want.dtype, tuple(got.shape))
+    assert torch.equal(got.reshape(-1).view(torch.uint8), want.contiguous().reshape(-1).view(torch.uint8)), name
+
+
+def checkpoint_matches_directory(state_path, directory, config, device="cuda"):
+    """The HF-layout `directory` holds exactly `directory_weights` of the checkpoint, read
+    anew, name for name, bit for bit. Returns the tensor count and bytes."""
+    from dolomite_engine_tpu_torch.utils.safetensors import SafeTensorsWeightsManager
+
+    want = directory_weights(state_path, config, device)
+    got = SafeTensorsWeightsManager(directory)
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for name, tensor in want.items():
+        _same_bytes(name, got.get_tensor(name), tensor)
+    return len(want), sum(t.numel() * t.element_size() for t in want.values())
+
+
+@contextlib.contextmanager
+def _reads_held_to(want):
+    """Every tensor a `SafeTensorsWeightsManager` reads inside is held to `want[name]`
+    (`_same_bytes`) as it is read; yields the set of names read."""
+    from dolomite_engine_tpu_torch.utils.safetensors import SafeTensorsWeightsManager
+
+    seen = set()
+    read = SafeTensorsWeightsManager.get_tensor
+
+    def held(self, name):
+        tensor = read(self, name)
+        _same_bytes(name, tensor, want[name])
+        seen.add(name)
+        return tensor
+
+    with _swapped([(SafeTensorsWeightsManager, "get_tensor", held)]):
+        yield seen
+
+
+def _unshard(args, device):
+    """`unshard.main(args)` and the wrapper whose weights it wrote."""
+    from dolomite_engine_tpu_torch import unshard
+
+    captured = {}
+    original = unshard.load_checkpoint_for_inference
+
+    def capturing(*args, **kwargs):
+        captured["model"], training_args = original(*args, **kwargs)
+        return captured["model"], training_args
+
+    unshard.load_checkpoint_for_inference = capturing
+    try:
+        summary = unshard.main(args, device)
+    finally:
+        unshard.load_checkpoint_for_inference = original
+    return summary, captured["model"]
+
+
+def _host_gb():
+    """This process's resident host memory now and at its peak, in GB (from /proc)."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        resident = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return {"now": resident / 1e9, "peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+
+
+def _main_capturing(args, device):
+    """`generate.main(args)` and the wrapper it generated with."""
+    from dolomite_engine_tpu_torch import generate
+
+    captured = {}
+    original = generate.generate
+
+    def capturing(args, model, *rest):
+        captured["model"] = model
+        return original(args, model, *rest)
+
+    generate.generate = capturing
+    try:
+        summary = generate.main(args, device=device)
+    finally:
+        generate.generate = original
+    return summary, captured["model"]
+
+
+def _greedy_rows(model, prompts, new_tokens, eos_token_id, device):
+    """Greedy tokens of `prompts` through `ServingEngine` (paged, one slot a prompt) over `model`."""
+    from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
+
+    max_len = -(-max(map(len, prompts)) // 64) * 64 + new_tokens
+    engine = ServingEngine(model, None, num_slots=len(prompts), max_len=max_len, eos_token_id=eos_token_id, device=device)
+    return [state.tokens for state in serve_batch(engine, [dict(prompt_ids=p, max_new_tokens=new_tokens) for p in prompts])]
+
+
+def _teacher_forced(model, prompts, rows):
+    """The model's own forward (its LoRA updates in) over each prompt and its tokens: the
+    fp32 logits at the positions that chose each token, concatenated over the rows."""
+    import torch
+
+    out = []
+    for prompt, row in zip(prompts, rows):
+        ids = torch.tensor([list(prompt) + list(row)], device=model.device)
+        with torch.no_grad():
+            out.append(model(ids).logits[0, len(prompt) - 1 : len(prompt) - 1 + len(row)].float().cpu())
+    return torch.cat(out)
+
+
+def lora_generation_check(seed, config_kwargs, prompts, device="cuda"):
+    """(e)'s check: a 2-layer model of `config_kwargs`' width with `LORA_YAML`'s adapters on
+    ``c_attn``, every ``lora_b`` drawn from a seeded normal (std `LORA_PLANT_STD`), fp32 on
+    the CPU and bf16 on `device` (the same weights). Greedy through the paged engine on both
+    (`LORA_CHECK_ROWS` prompts cut to `LORA_CHECK_PROMPT` tokens, `LORA_CHECK_NEW` tokens).
+    Teacher-forced over the card's tokens, the card's logits are held to the CPU's (mean abs
+    err <= 0.1 logit std); twice their largest difference is the near-tie bound: a row may
+    part from the CPU's only where the CPU's logit gap between the two tokens is within it.
+    The card's tokens must differ from the same model's with its adapters removed."""
+    import torch
+
+    from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM
+    from dolomite_engine_tpu_torch.peft import DEFAULT_TARGETS, add_lora
+    from dolomite_engine_tpu_torch.utils import load_yaml
+
+    lora_args = load_yaml(LORA_YAML)["tuning_args"]["lora_args"]
+    config = CommonConfig.from_dict(dict(config_kwargs, n_layer=2))
+    spec = (lora_args["lora_rank"], lora_args["lora_alpha"], lora_args["lora_dropout"], DEFAULT_TARGETS)
+    cpu = GPTDolomiteForCausalLM(config, dtype=torch.float32, device="cpu", seed=seed)
+    add_lora(cpu, *spec, seed=seed)
+    generator = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, param in cpu.named_parameters():
+            if name.endswith("lora_b"):
+                param.normal_(0.0, LORA_PLANT_STD, generator=generator)
+    card = GPTDolomiteForCausalLM(config, dtype=torch.bfloat16, device="meta")
+    add_lora(card, *spec)
+    card.to_empty(device=device)
+    card.load_state_dict(cpu.state_dict())
+    cpu.eval(), card.eval()
+    prompts = [list(p[:LORA_CHECK_PROMPT]) for p in prompts[:LORA_CHECK_ROWS]]
+    eos = config.eos_token_id
+    t0 = time.perf_counter()
+    tokens = {"card": _greedy_rows(card, prompts, LORA_CHECK_NEW, eos, card.device)}
+    card_s = time.perf_counter() - t0
+    tokens["cpu"] = _greedy_rows(cpu, prompts, LORA_CHECK_NEW, eos, "cpu")
+    targets = [m for m in card.modules() if getattr(m, "lora", None) is not None]
+    saved = [m.lora for m in targets]
+    for module in targets:
+        module.lora = None  # the same model without its adapters
+    try:
+        bare = _greedy_rows(card, prompts, LORA_CHECK_NEW, eos, card.device)
+    finally:
+        for module, lora in zip(targets, saved):
+            module.lora = lora
+    got, want = _teacher_forced(card, prompts, tokens["card"]), _teacher_forced(cpu, prompts, tokens["card"])
+    diff = (got - want).abs()
+    check = {
+        "layers": 2, "rows": len(prompts), "prompt_tokens": [len(p) for p in prompts], "new_tokens": LORA_CHECK_NEW,
+        "lora": dict(zip(("rank", "alpha", "dropout", "targets"), spec)), "planted_lora_b_std": LORA_PLANT_STD,
+        "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(), "logit_std": want.std().item(),
+        "rows_identical": sum(a == b for a, b in zip(tokens["card"], tokens["cpu"])),
+        "rows_differing_without_adapters": sum(a != b for a, b in zip(tokens["card"], bare)),
+        "card_greedy_s": card_s,
+        "tolerance": "card bf16 vs CPU fp32 teacher-forced: mean abs err <= 0.1 logit std; a row may part from the CPU's "
+        "only where the CPU's logit gap between the two tokens is within twice the largest difference",
+    }
+    assert bool(torch.isfinite(got).all()) and check["mean_abs_err"] <= 0.1 * check["logit_std"], check
+    bound = 2 * check["max_abs_err"]
+    parted = []
+    for row, (prompt, a, b) in enumerate(zip(prompts, tokens["card"], tokens["cpu"])):
+        if a == b:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        x, y = (t[j] if j < len(t) else eos for t in (a, b))
+        with torch.no_grad():
+            logits = cpu(torch.tensor([prompt + b[:j]])).logits[0, -1].float()
+        parted.append([row, j, (logits[x] - logits[y]).abs().item()])
+    check.update(parted=parted, near_tie_bound=bound)
+    assert all(gap <= bound for _, _, gap in parted), check
+    assert check["rows_differing_without_adapters"] > 0, check
+    del card
+    return check
+
+
+def interop_phase(seed, work, save_path, context, config, device="cuda", rehearsal=None):
+    """Phase 21, from phase 12's checkpoints (`save_path`: 32 layers at step 8; ``unbroken``:
+    the 2-layer resume run at step 6) and phase 18's LoRA checkpoint (``lora``, 32 layers):
+    (e) `generate.main` from the LoRA checkpoint (greedy, phase 13's 16 prompts x 64), then
+    the checkpoint removed; (a) `unshard.main` on `UNSHARD_YAML` for the 32-layer checkpoint:
+    the weights it read keep the checkpoint's fp32 (names, shapes and dtypes held to the
+    checkpoint's metadata), the directory's tensors are held to them bit for bit as (b)'s
+    load reads each, and its ``config.json`` to the run's config; (b) `generate.main` with
+    ``model_name`` = that directory and no ``load_args``: phase 13's paged greedy tokens
+    exactly; (c) the 2-layer checkpoint unsharded and held to the checkpoint read anew,
+    exported to each of `INTEROP_EXPORTS` and imported back, bit for bit; (d)
+    `generate.main` from the 32-layer directory with (c)'s directory as ``draft_model``
+    (fp32, as JAX's draft by name): plain greedy's tokens but at near ties (phase 15's
+    rule); (e)'s check at 2 layers (`lora_generation_check`). Launch counts zeroed before
+    each `generate.main` and read after, asserted exactly. `rehearsal` (the CPU only) cuts
+    the new tokens. Returns the record (launches under ``launches``)."""
+    import shutil
+
+    import torch
+
+    from dolomite_engine_tpu_torch.hf_interop import export_to_huggingface, import_from_huggingface
+    from dolomite_engine_tpu_torch.models import CommonConfig
+    from dolomite_engine_tpu_torch.utils.safetensors import SafeTensorsWeightsManager
+
+    on_card = torch.device(device).type == "cuda"
+    started = time.perf_counter()
+    tally = _LaunchTally()
+    greedy_new = context["greedy_new"]
+    greedy_dir, prompts = context["greedy_dir"], context["prompts"][:GREEDY_PROMPTS]
+    record = {"unshard_yaml": UNSHARD_YAML, "exports": INTEROP_EXPORTS, "host_gb_at_start": _host_gb()}
+
+    def run(name, args, expect):
+        _free(device)
+        t0 = time.perf_counter()
+        with tally.run():
+            summary, model = _main_capturing(args, device)
+        seconds = time.perf_counter() - t0
+        tokens, lines = _outputs(summary["outputs"][0])
+        assert summary["requests"] == len(lines) == GREEDY_PROMPTS, summary["requests"]
+        assert all(0 < line["num_generated_tokens"] <= greedy_new for line in lines), lines
+        assert all(0 <= t < config.vocab_size for row in tokens for t in row), "a generated word outside the vocabulary"
+        for launches, forms in expect(summary):
+            tally.expect(launches, forms)
+        record[name] = dict(
+            _engine_record(summary["stats"], summary["engine_seconds"], summary["pool"]), seconds=seconds,
+            load_seconds=summary["seconds"]["load"], load_parts=summary["load_seconds"], requests=summary["requests"],
+        )
+        return summary, tokens, model
+
+    def target_launches(summary):
+        return [_engine_launches(summary["stats"], config, True, 0)]
+
+    # (e) the 32-layer LoRA checkpoint through the entry point
+    lora_path = os.path.join(work, "lora")
+    args = generation_args(lora_path, greedy_dir, os.path.join(work, "lora-greedy"), True, greedy_new, iteration=FINETUNE_STEPS)
+    summary, _, model = run("lora_generate", args, target_launches)
+    adapters = {n: p for n, p in model.model.named_parameters() if n.endswith(("lora_a", "lora_b"))}
+    record["lora_generate"].update(
+        adapters=len(adapters), lora_b_abs_max=max(p.abs().max().item() for n, p in adapters.items() if n.endswith("lora_b")),
+        eval_mode=not model.model.training,
+    )
+    assert len(adapters) == 2 * config.n_layer and record["lora_generate"]["lora_b_abs_max"] > 0 and record["lora_generate"]["eval_mode"]
+    del model, adapters
+    shutil.rmtree(lora_path)  # ~14 GB
+
+    # (a) the 32-layer checkpoint unsharded, held to the checkpoint
+    target_dir = os.path.join(work, "granite-hf")
+    state_path = os.path.join(save_path, f"global_step{PRETRAIN_STEPS}", "state")
+    need, free = 1.1 * _model_bytes(state_path), shutil.disk_usage(work).free
+    if free < need:
+        raise RuntimeError(f"{work} has {free / 1e9:.1f} GB free; unsharding needs about {need / 1e9:.1f} GB: point TMPDIR at a larger disk")
+    _free(device)
+    t0 = time.perf_counter()
+    summary, unsharded = _unshard(unshard_args(save_path, PRETRAIN_STEPS, target_dir), device)
+    unshard_s = time.perf_counter() - t0
+    want = directory_weights(state_path, config, device, unsharded.model.state_dict())
+    nbytes = sum(t.numel() * t.element_size() for t in want.values())
+    files = SafeTensorsWeightsManager(target_dir)
+    assert sorted(files) == sorted(want), (sorted(files), sorted(want))
+    with open(os.path.join(target_dir, "config.json")) as f:
+        assert CommonConfig.from_dict(json.load(f)) == config
+    record["unshard"] = {
+        "n_layer": config.n_layer, "tensors": len(want), "gb": nbytes / 1e9, "dtypes": sorted({str(t.dtype) for t in want.values()}),
+        "files": sorted(os.listdir(target_dir)), "seconds": unshard_s, "load_s": summary["seconds"]["load"],
+        "load_parts": summary["load_seconds"], "save_s": summary["seconds"]["save"],
+        "read_gb_per_s": nbytes / 1e9 / summary["seconds"]["load"], "write_gb_per_s": nbytes / 1e9 / summary["seconds"]["save"],
+        "check": "every tensor of the directory held bit for bit to the weights the unshard read, as (b)'s load reads it",
+    }
+
+    # (b) generation from the directory, no load_args: phase 13's greedy tokens; each tensor
+    # its load reads is (a)'s check
+    args = generation_args(None, greedy_dir, os.path.join(work, "name-greedy"), True, greedy_new, model_name=target_dir)
+    with _reads_held_to(want) as seen:
+        summary, tokens, target = run("model_name_generate", args, target_launches)
+    assert seen == set(want), sorted(set(want) - seen)
+    record["unshard"]["bit_identical_to_checkpoint"] = True
+    del want, unsharded
+    record["model_name_generate"].update(
+        load_gb_per_s=nbytes / 1e9 / summary["seconds"]["load"],
+        requests_identical_to_phase_13=sum(a == b for a, b in zip(tokens, context["greedy_paged"])),
+    )
+    assert tokens == context["greedy_paged"], record["model_name_generate"]
+
+    # (c) the 2-layer checkpoint: unsharded, exported and imported back
+    t0 = time.perf_counter()
+    draft_dir = os.path.join(work, "granite-2-hf")
+    _unshard(unshard_args(os.path.join(work, "unbroken"), RESUME_STEPS, draft_dir), device)
+    draft_config = dataclasses.replace(config, n_layer=RESUME_LAYERS)
+    check = {"n_layer": RESUME_LAYERS}
+    check["tensors"], check["gb"] = checkpoint_matches_directory(os.path.join(work, "unbroken", f"global_step{RESUME_STEPS}", "state"), draft_dir, draft_config, device)
+    check["gb"] /= 1e9
+    for model_type in INTEROP_EXPORTS:
+        exported, back = os.path.join(work, f"granite-2-{model_type}"), os.path.join(work, f"granite-2-{model_type}-back")
+        export_to_huggingface(draft_dir, exported, model_type=model_type)
+        import_from_huggingface(exported, back)
+        with open(os.path.join(exported, "config.json")) as f:
+            assert json.load(f)["model_type"] == model_type
+        assert SafeTensorsWeightsManager(back) == SafeTensorsWeightsManager(draft_dir), model_type
+        check[model_type] = {"round_trip_bit_identical": True, "hf_tensors": len(SafeTensorsWeightsManager(exported))}
+        shutil.rmtree(exported), shutil.rmtree(back)
+    check["seconds"] = time.perf_counter() - t0
+    record["export_import"] = check
+
+    # (d) (c)'s directory drafting by name for the 32-layer directory
+    args = generation_args(None, greedy_dir, os.path.join(work, "draft-greedy"), True, greedy_new, model_name=target_dir, draft_model=draft_dir, draft_k=SPEC_K)
+    multiple = args.generation_parameters.prompt_bucket_multiple
+
+    def drafted_launches(summary):
+        stats, max_len = summary["stats"], summary["pool"]["max_len"]
+        forwards = GREEDY_PROMPTS + SPEC_K * stats.decode_steps
+        buckets = _buckets([len(p) for p in prompts], multiple, max_len + SPEC_K)
+        return target_launches(summary) + [_draft_launches(draft_config, buckets, forwards, flash=False)]
+
+    summary, drafted, _ = run("draft_model_generate", args, drafted_launches)
+    bound = 2 * sum(context["logits_max_abs_err"].values())
+    record["draft_model_generate"].update(
+        draft_n_layer=RESUME_LAYERS, draft_dtype="float32", accept_rate=summary["stats"].accept_rate(),
+        requests_identical_to_plain=sum(a == b for a, b in zip(drafted, tokens)),
+        parted_from_plain=greedy_divergences(target.model, prompts, drafted, tokens, bound, target.eos_token_id),
+        near_tie_bound=bound,
+    )
+    assert summary["stats"].draft_tokens_proposed > 0, record["draft_model_generate"]
+    del target
+    shutil.rmtree(target_dir), shutil.rmtree(draft_dir)
+    record.update(tally.check(on_card))
+    _free(device)
+
+    # (e)'s check at 2 layers: planted adapters, card against CPU
+    t0 = time.perf_counter()
+    record["lora_check"] = lora_generation_check(seed, dataclasses.asdict(config), context["prompts"], device)
+    record["lora_check"]["seconds"] = time.perf_counter() - t0
+    record["seconds"], record["host_gb_at_end"] = time.perf_counter() - started, _host_gb()
     _free(device)
     return record
 
@@ -5616,7 +6061,8 @@ def seq2seq_divergences(logits, got, want, bound):
 
 
 def seq2seq_generation_check(args, device, layers=SEQ2SEQ_CHECK_LAYERS):
-    """(c)'s check: the checkpoint's first `layers` blocks of each stack as a bf16 model on
+    """(c)'s check: the checkpoint's first `layers` blocks of each stack (and a LoRA
+    checkpoint's adapters on them: phase 21's) as a bf16 model on
     `device` and an fp32 model on the CPU (the same weights), the same collated prompts
     greedy for `SEQ2SEQ_GENERATE` tokens through `generation_utils.generate_seq2seq_tokens`.
     Teacher-forced over the card's tokens, the card's logits are first held to the fp32
@@ -5633,6 +6079,7 @@ def seq2seq_generation_check(args, device, layers=SEQ2SEQ_CHECK_LAYERS):
     from dolomite_engine_tpu_torch.generate import _pad_to_static_shapes
     from dolomite_engine_tpu_torch.generation_utils import generate_seq2seq_tokens
     from dolomite_engine_tpu_torch.models import EncDecDolomiteForSeq2SeqLM
+    from dolomite_engine_tpu_torch.peft import add_lora
 
     wrapper, _ = load_checkpoint_for_inference(args, Mode.inference, "cpu")
     config = dataclasses.replace(wrapper.config, n_layer=layers, n_encoder_layer=layers)
@@ -5640,12 +6087,17 @@ def seq2seq_generation_check(args, device, layers=SEQ2SEQ_CHECK_LAYERS):
         k: v for k, v in wrapper.model.state_dict().items()
         if not k.startswith(("encoder.", "decoder.")) or int(k.split(".")[1]) < layers
     }
+    # a LoRA checkpoint's adapters, on the modules its wrapper targeted
+    lora = next((m.lora for m in wrapper.model.modules() if getattr(m, "lora", None) is not None), None)
+    targets = tuple(sorted({k.split(".")[-2] for k in state if k.endswith(".lora_a")}))
     models = {}
     for where, dtype, on in (("card", torch.bfloat16, device), ("cpu", torch.float32, "cpu"), ("cpu_bf16", torch.bfloat16, "cpu")):
         model = EncDecDolomiteForSeq2SeqLM(config, dtype=dtype, device="meta")
+        if lora is not None:
+            add_lora(model, lora.rank, lora.alpha, lora.dropout, targets)
         model.to_empty(device=on)
         model.load_state_dict(state)
-        models[where] = model
+        models[where] = model.eval()
     tokenizer = wrapper.tokenizer
     del wrapper
     datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, tokenizer, is_encoder_decoder=True)
@@ -5690,7 +6142,7 @@ def seq2seq_generation_check(args, device, layers=SEQ2SEQ_CHECK_LAYERS):
     parted = seq2seq_divergences(teacher_forced(models["cpu"], tokens["cpu"]), tokens["card"], tokens["cpu"], bound)
     identical = sum(a == b for a, b in zip(tokens["card"], tokens["cpu"]))
     return {
-        "layers": layers, "prompts": len(rows), "prompt_width": ids.shape[1], "new_tokens": SEQ2SEQ_GENERATE[1],
+        "layers": layers, "lora_targets": targets, "prompts": len(rows), "prompt_width": ids.shape[1], "new_tokens": SEQ2SEQ_GENERATE[1],
         "rows_identical": identical, "parted": parted, "logits_check": logits_check, "logits_max_abs_err": logit_err,
         "near_tie_bound": bound,
         "tolerance": "a row may part from the CPU's only where the CPU fp32 model's logit gap between the two tokens is "
@@ -5707,7 +6159,8 @@ def seq2seq_phase(seed, device="cuda", rehearsal=None, work=None):
     (`configs/peft/lora.yml`'s adapters), their training batches' decoder length 512 (the
     flash kernel's query-bias form) and the val batch's 300 (`sdpa_attention`); (c)
     `generate.main` from (b)'s full-finetuning checkpoint (`configs/generation.yml`,
-    greedy, 16 prompts, 64 new tokens), then `seq2seq_generation_check`; (d) on the card the
+    greedy, 16 prompts, 64 new tokens), then `seq2seq_generation_check`, and the same from
+    (b)'s LoRA checkpoint (phase 21's seq2seq part, ``lora_generate``); (d) on the card the
     query-bias kernel cases (`query_bias_kernel_cases`; a rehearsal runs
     `query_bias_kernel_check`'s checks at a small shape). Launches zeroed before each run and
     asserted exactly. Cuts: one card, dropout 0, seeded weights, the word tokenizer, 3 steps.
@@ -5785,45 +6238,48 @@ def seq2seq_phase(seed, device="cuda", rehearsal=None, work=None):
     save_b = os.path.join(work, "flan-t5")
     options = dict(attention="flash_attention_2", max_output_tokens=flash_budget)
     full = run("flan_t5_full", seq2seq_args(t5, tokenizer_b, data_b, save_b, **options), flash=True)
-    lora = run("flan_t5_lora", seq2seq_args(t5, tokenizer_b, data_b, os.path.join(work, "flan-t5-lora"), "lora", **options), flash=True)
-    shutil.rmtree(os.path.join(work, "flan-t5-lora"))
+    save_lora = os.path.join(work, "flan-t5-lora")  # phase 21 generates from it after (c)
+    lora = run("flan_t5_lora", seq2seq_args(t5, tokenizer_b, data_b, save_lora, "lora", **options), flash=True)
     for entry in (full, lora):  # most training batches on the flash route, the val batch off it
         assert all(decoder == flash_budget - 1 for _, _, decoder in entry["train_shapes"]), entry["train_shapes"]
         assert all(decoder % 128 for _, _, decoder in entry["val_shapes"]), entry["val_shapes"]
 
-    # (c) generate.main from (b)'s full-finetuning checkpoint
-    config = load_yaml(GENERATION_YAML)
-    config["load_args"] = {"load_path": save_b, "iteration": SEQ2SEQ_STEPS}
-    config["datasets"][0]["class_args"]["data_path"] = data_b
-    config["output_dir"] = os.path.join(work, "generations")
-    config["generation_parameters"].update(
-        do_sample=False, temperature=None, top_p=None, batch_size=SEQ2SEQ_GENERATE[0], max_new_tokens=SEQ2SEQ_GENERATE[1]
-    )
-    args = args_from_dict(config, Mode.inference)
-    _free(device)
-    t0 = time.perf_counter()
-    with tally.run():
-        summary = generate.main(args, device=device)
-    seconds = time.perf_counter() - t0
+    # (c) generate.main from (b)'s full-finetuning checkpoint; then phase 21's part: the same
+    # from (b)'s LoRA checkpoint (the adapters on c_attn, c_q, c_kv)
     t5_config = EncDecDolomiteConfig.from_dict(t5)
-    batches = summary["batches"]
-    expected = {name: 0 for name in tally.launches}
-    expected["rmsnorm"] = batches * (2 * t5_config.n_encoder_layer + 1 + SEQ2SEQ_GENERATE[1] * (3 * t5_config.n_layer + 1))
-    tally.expect(expected, {})
-    tokens, lines = _outputs(summary["outputs"][0])
-    assert summary["requests"] == len(lines) == SEQ2SEQ_GENERATE[0], summary
-    assert all(0 <= t < t5_config.vocab_size for row in tokens for t in row), "a generated word outside the vocabulary"
-    assert all(0 < line["num_generated_tokens"] <= SEQ2SEQ_GENERATE[1] for line in lines), lines
-    record["generate"] = {
-        "requests": summary["requests"], "batches": batches, "prompt_tokens": summary["prompt_tokens"],
-        "generated_tokens": summary["generated_tokens"], "engine_seconds": summary["engine_seconds"],
-        "tok_s": summary["generated_tokens"] / summary["engine_seconds"], "seconds": seconds,
-        "load_seconds": summary["load_seconds"], "launches": expected,
-    }
-    t0 = time.perf_counter()
-    record["generate"]["check"] = seq2seq_generation_check(args, device)
-    record["generate"]["check"]["seconds"] = time.perf_counter() - t0
-    shutil.rmtree(save_b)
+    for name, checkpoint in (("generate", save_b), ("lora_generate", save_lora)):
+        config = load_yaml(GENERATION_YAML)
+        config["load_args"] = {"load_path": checkpoint, "iteration": SEQ2SEQ_STEPS}
+        config["datasets"][0]["class_args"]["data_path"] = data_b
+        config["output_dir"] = os.path.join(work, f"generations-{name}")
+        config["generation_parameters"].update(
+            do_sample=False, temperature=None, top_p=None, batch_size=SEQ2SEQ_GENERATE[0], max_new_tokens=SEQ2SEQ_GENERATE[1]
+        )
+        args = args_from_dict(config, Mode.inference)
+        _free(device)
+        t0 = time.perf_counter()
+        with tally.run():
+            summary = generate.main(args, device=device)
+        seconds = time.perf_counter() - t0
+        batches = summary["batches"]
+        expected = {kernel: 0 for kernel in tally.launches}
+        expected["rmsnorm"] = batches * (2 * t5_config.n_encoder_layer + 1 + SEQ2SEQ_GENERATE[1] * (3 * t5_config.n_layer + 1))
+        tally.expect(expected, {})
+        tokens, lines = _outputs(summary["outputs"][0])
+        assert summary["requests"] == len(lines) == SEQ2SEQ_GENERATE[0], summary
+        assert all(0 <= t < t5_config.vocab_size for row in tokens for t in row), "a generated word outside the vocabulary"
+        assert all(0 < line["num_generated_tokens"] <= SEQ2SEQ_GENERATE[1] for line in lines), lines
+        record[name] = {
+            "requests": summary["requests"], "batches": batches, "prompt_tokens": summary["prompt_tokens"],
+            "generated_tokens": summary["generated_tokens"], "engine_seconds": summary["engine_seconds"],
+            "tok_s": summary["generated_tokens"] / summary["engine_seconds"], "seconds": seconds,
+            "load_seconds": summary["load_seconds"], "launches": expected,
+        }
+        t0 = time.perf_counter()
+        record[name]["check"] = seq2seq_generation_check(args, device)
+        record[name]["check"]["seconds"] = time.perf_counter() - t0
+        shutil.rmtree(checkpoint)
+    assert record["lora_generate"]["check"]["lora_targets"] == ("c_attn", "c_kv", "c_q"), record["lora_generate"]["check"]
     record.update(tally.check(on_card))
     _free(device)
 
@@ -5942,6 +6398,7 @@ def main() -> int:
     pretrain, pretrain_launches, options_launches, (generation, generate_launches), speculated, preempted = pretrain_phase(args.seed)
     training_options = pretrain.pop("training_options")
     finetune = pretrain.pop("finetune")
+    interop = pretrain.pop("interop")
     speculative, speculative_launches, speculative_forms = speculated
     preemption, preemption_launches, preemption_forms = preempted
     # the same model, shape and cuts as phase 6's repeated batch, through the entry point
@@ -5957,6 +6414,7 @@ def main() -> int:
     print(json.dumps({"speculative_generation": speculative, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"preemption": preemption, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"finetune": finetune, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"interop": interop, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6020,7 +6478,7 @@ def main() -> int:
         "generate": generation,
         "alibi_generation": alibi_generation,
         "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
-        "finetune": {"launch_forms": finetune["launch_forms"]},
+        "finetune": {"launch_forms": finetune["launch_forms"]}, "interop": {"launch_forms": interop["launch_forms"]},
         "distribution": {"launch_forms": distribution["launch_forms"]},
         "seq2seq": {"launch_forms": seq2seq["launch_forms"]},
     }
@@ -6053,7 +6511,7 @@ def main() -> int:
             "generate": generate_launches[spec.name],
             "alibi_generation": alibi_generation_launches[spec.name],
             "speculative_generation": speculative_launches[spec.name], "preemption": preemption_launches[spec.name],
-            "finetune": finetune["launches"][spec.name],
+            "finetune": finetune["launches"][spec.name], "interop": interop["launches"][spec.name],
             "distribution": distribution_launches[spec.name],
             "seq2seq": seq2seq_launches[spec.name],
         }

@@ -41,6 +41,7 @@ from .enums import (
     TuningMethod,
 )
 from .utils import BaseArgs, load_yaml, log_rank_0, normalize_dtype_string, run_rank_n, set_logger
+from .utils.hf_hub import HUB_NOT_PORTED
 
 
 def _check_not_None(object_name_list: list[tuple[Any, str]]) -> None:
@@ -1008,13 +1009,11 @@ def _check_datasets(datasets: list[DatasetArgs]) -> None:
 _DISTRIBUTION = "is not ported yet: ROADMAP.md Queue A, 'Distribution' (the port runs data parallelism only)"
 
 
-def _check_model_name(model_name: str | None) -> None:
-    """A local checkpoint directory gives the config and tokenizer; a hub id is not ported."""
+def _check_model_name(model_name: str | None, field: str = "model_args.model_name") -> None:
+    """A local checkpoint directory gives the config, tokenizer and (for generation) the
+    weights; a hub id is not ported."""
     if model_name is not None and not os.path.isdir(model_name):
-        raise NotImplementedError(
-            f"model_args.model_name '{model_name}' (a hub id, not a local directory) is not ported "
-            "yet: ROADMAP.md Queue A, 'Interop and tools'"
-        )
+        raise NotImplementedError(f"{field} '{model_name}' (a hub id, not a local directory): {HUB_NOT_PORTED}")
 
 
 def check_ported_options(args: TrainingArgs) -> None:
@@ -1052,12 +1051,7 @@ def check_ported_inference_options(args: InferenceArgs) -> None:
     """Refuse, naming its ROADMAP item, each generation option of `args` the port does not
     run."""
     gp = args.generation_parameters
-    if gp.draft_model is not None:
-        raise NotImplementedError(
-            "generation_parameters.draft_model (loading a draft checkpoint by name) is not ported "
-            "yet: ROADMAP.md Queue A, 'Interop and tools' (ServingEngine takes a draft model "
-            "directly)"
-        )
+    _check_model_name(gp.draft_model, "generation_parameters.draft_model")
     if gp.tensor_parallel_size > 1:
         raise NotImplementedError(
             f"generation_parameters.tensor_parallel_size {gp.tensor_parallel_size} is not ported "
@@ -1070,11 +1064,4 @@ def check_ported_inference_options(args: InferenceArgs) -> None:
         )
     if args.model_args is not None:
         _check_model_name(args.model_args.model_name)
-        if args.model_args.model_name is not None and args.load_args is None:
-            raise NotImplementedError(
-                f"generation from model_args.model_name '{args.model_args.model_name}' without "
-                "load_args: the JAX package loads that directory's model.safetensors, which is not "
-                "ported yet: ROADMAP.md Queue A, 'Interop and tools' (pass load_args with a "
-                "checkpoint the port wrote)"
-            )
     args.kernel_args.check()

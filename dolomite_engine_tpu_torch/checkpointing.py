@@ -471,17 +471,24 @@ class _TimedLoadPlanner(dcp.DefaultLoadPlanner):
 def load_checkpoint_for_inference(
     args, mode: Mode = Mode.inference, device: str | torch.device = "cuda", seconds: dict | None = None
 ):
-    """Rebuild the model of a training checkpoint for inference (the JAX package's
-    `load_checkpoint_for_inference`): the wrapper from the checkpoint's own
-    `training_config.yml` (`get_model(training_args, mode)`, weights in the compute dtype),
-    built on the meta device and given uninitialised storage on `device`, so no random
-    init runs; then ONLY the model's weights from `state/`: `dcp.load` gets a tree of the
-    model's own tensors alone, so the optimizer moments are never read, and copies each
-    saved tensor into its weight, cast to the compute dtype on the way.
+    """Rebuild the model of a training checkpoint for inference or unsharding (the JAX
+    package's `load_checkpoint_for_inference`): the wrapper from the checkpoint's own
+    `training_config.yml` (`get_model(training_args, mode)`: a LoRA checkpoint's
+    `ModelWrapperForPEFT` with its adapters in place), built on the meta device and given
+    uninitialised storage on `device`, so no random init runs; then ONLY the model's
+    weights from `state/`: `dcp.load` gets a tree of the model's own tensors alone (LoRA's
+    ``lora_a`` / ``lora_b`` among them), so the optimizer moments are never read. For
+    inference each saved tensor is cast to the wrapper's dtype on the way (the compute
+    dtype; norms and adapters fp32); under `Mode.unsharding` each keeps the dtype the
+    checkpoint holds, as JAX restores its params as saved and writes them as they are.
+
+    A prompt-tuning checkpoint is refused for inference: the JAX package's serving engine
+    cannot serve its `PromptTuningCausalLM`, which has no ``init_kv_caches`` and refuses
+    the ``position_ids`` every engine program passes.
 
     `seconds`, when given, is filled with the load's parts: ``build`` (the wrapper, its
     tokenizer and the device storage), ``read`` (the files to host tensors) and ``cast``
-    (the host tensors onto the device in the compute dtype).
+    (the host tensors onto the device in their dtype).
 
     Returns (model_wrapper, training_args)."""
     from .arguments import args_from_dict
@@ -498,16 +505,23 @@ def load_checkpoint_for_inference(
     base = _get_base_path(load_path, iteration)
     t0 = time.perf_counter()
     training_args = args_from_dict(load_yaml(os.path.join(base, _TRAINING_CONFIG)), Mode.training)
-    if training_args.tuning_args.tuning_method in (TuningMethod.lora, TuningMethod.prompt_tuning):
+    if mode == Mode.inference and training_args.tuning_args.tuning_method == TuningMethod.prompt_tuning:
         raise NotImplementedError(
-            f"generation from a {training_args.tuning_args.tuning_method.value} checkpoint is not ported "
-            "yet: ROADMAP.md Queue A, 'PEFT generation'"
+            "generation from a prompt-tuning checkpoint is refused: the JAX package's serving engine "
+            "cannot serve PromptTuningCausalLM (it has no init_kv_caches, and its __call__ refuses the "
+            "position_ids every engine program passes), so there is no reference to hold the port to"
         )
     model = get_model(training_args, mode, device="meta")
     model.model.to_empty(device=device)
+    state_path = os.path.abspath(_state_path(base))
+    if mode == Mode.unsharding:  # each weight in the dtype the checkpoint holds
+        saved = dcp.FileSystemReader(state_path).read_metadata().state_dict_metadata
+        for name, param in model.model.named_parameters():
+            dtype = saved[f"model.{name}"].properties.dtype
+            if param.dtype != dtype:
+                param.data = torch.empty(param.shape, dtype=dtype, device=device)
     t1 = time.perf_counter()
 
-    state_path = os.path.abspath(_state_path(base))
     planner = _TimedLoadPlanner()
     dcp_kwargs = _dcp_kwargs()
 
@@ -521,7 +535,7 @@ def load_checkpoint_for_inference(
         torch.cuda.synchronize(device)  # the last casts
     if seconds is not None:
         seconds.update(build=t1 - t0, read=planner.read_s, cast=planner.copy_s + time.perf_counter() - t2)
-    log_rank_0(logging.INFO, f"model weights loaded for inference from {base}")
+    log_rank_0(logging.INFO, f"model weights loaded for {mode.value} from {base}")
     return model, training_args
 
 

@@ -1,14 +1,17 @@
 """Generation entry point: decode the test split of every dataset into jsonl.
 
 Counterpart of `dolomite_engine_tpu/generate.py`: the model comes from a training
-checkpoint (`load_checkpoint_for_inference`) or, without `load_args`, from `model_args`
-with random weights from `random_args.seed`; every test-split row is one request to the
+checkpoint (`load_checkpoint_for_inference`: a LoRA checkpoint generates through its
+adapters) or, without `load_args`, from `model_args`: a local ``model_name`` directory's
+weights (`ModelWrapper.load_pretrained_params`), or a config-only model with random
+weights from `random_args.seed`; every test-split row is one request to the
 continuous-batching `ServingEngine` (the paged pool, or the dense slot pool under
 ``paged_kv_cache: false``), and ``output-<data_name>.jsonl`` gets one line a row, in
 dataset order, with ``generated_text`` and ``num_generated_tokens``. Each request's
 sampling seed is drawn from one `torch.Generator` seeded with `random_args.seed`. The
 engine runs the YAML's speculation (``speculate_ngram``, ``draft_k``), preemption and
-``oversubscribe_ratio``; the options the port does not run raise, naming their ROADMAP
+``oversubscribe_ratio`` and a ``draft_model`` named by its HF-layout directory
+(`load_draft_model`); the options the port does not run raise, naming their ROADMAP
 item (`arguments.check_ported_inference_options`). An encoder-decoder model keeps JAX's
 fixed-batch loop (`_generate_seq2seq`): ``batch_size`` rows at a time through
 `collate_fn`, left-padded to the next multiple of ``prompt_bucket_multiple`` and a
@@ -121,7 +124,7 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
 
     sampling = SamplingParams(do_sample=bool(gp.do_sample), temperature=gp.temperature, top_k=gp.top_k, top_p=gp.top_p)
     pad_token_id = next((t for t in (model.tokenizer.pad_token_id, model.eos_token_id) if t is not None), 0)
-    draft_model, draft_params = load_draft_model(gp.draft_model)
+    draft_model, draft_params = load_draft_model(gp.draft_model, model.model.device)
     engine = ServingEngine(
         model.model,
         None,
@@ -200,15 +203,16 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
     return summary
 
 
-def load_draft_model(name: str | None) -> tuple:
-    """A draft model for speculative decoding, named by checkpoint: (None, None) without
-    one. The JAX package loads it through its HF import, which the port does not run yet
-    (`ServingEngine(draft_model=)` takes a model directly)."""
+def load_draft_model(name: str | None, device: str | torch.device = "cuda") -> tuple:
+    """A draft model for speculative decoding, named by its HF-layout directory (the JAX
+    package's: `ModelWrapperForFinetuning(mode=inference, model_name=name)`, its default fp32
+    compute, and `load_pretrained_params`), on `device`: (model, None), or (None, None)
+    without one. Any family can draft for a larger one that shares its vocabulary."""
     if not name:
         return None, None
-    raise NotImplementedError(
-        "loading a draft model by name is not ported yet: ROADMAP.md Queue A, 'Interop and tools'"
-    )
+    wrapper = ModelWrapperForFinetuning(None, mode=Mode.inference, model_name=name, device="meta")
+    wrapper.load_pretrained_params(name, resolve_device(device))
+    return wrapper.model, None
 
 
 def _pad_to_static_shapes(collated: dict, batch_size: int, eos_token_id: int, width_multiple: int = 64) -> dict:
@@ -234,8 +238,9 @@ def _pad_to_static_shapes(collated: dict, batch_size: int, eos_token_id: int, wi
 def main(args: InferenceArgs | None = None, device: str | torch.device = "cuda") -> dict:
     """Load the model, read the test splits and generate on `device` (the GPU unless
     ``"cpu"`` is passed); returns the run's summary: `_generate_with_engine`'s and the
-    seconds of each phase (``load``, ``datasets``, ``generate``) and, from a checkpoint,
-    of the load's parts (``load_seconds``: `load_checkpoint_for_inference`'s)."""
+    seconds of each phase (``load``, ``datasets``, ``generate``) and of the load's parts
+    (``load_seconds``: `load_checkpoint_for_inference`'s from a checkpoint,
+    `load_pretrained_params`'s from a ``model_name`` directory)."""
     mode = Mode.inference
     device = resolve_device(device)
     set_logger()
@@ -255,9 +260,13 @@ def main(args: InferenceArgs | None = None, device: str | torch.device = "cuda")
             model_name=model_args.model_name,
             tokenizer_name=args.tokenizer_args.tokenizer_name,
             additional_special_tokens=args.tokenizer_args.additional_special_tokens,
-            device=device,
+            # a model_name directory's weights are read into it: no random init first
+            device="meta" if model_args.model_name is not None else device,
             seed=args.random_args.seed,
+            model_class=model_args.model_class,
         )
+        if model_args.model_name is not None:
+            model.load_pretrained_params(model_args.model_name, device, load_seconds)
     else:
         model, _ = load_checkpoint_for_inference(args, mode, device, load_seconds)
     if device.type == "cuda":

@@ -7,15 +7,16 @@ the model built by the registry from the config's ``model_type`` on `device` wit
 weights from `seed` (``model_class`` ``AutoModelForSeq2SeqLM`` for the encoder-decoder
 family, ``AutoModelForCausalLM`` for the others, as JAX checks), and batch generation
 (`generate`, through `generation_utils.make_generate_fn`; an encoder-decoder decodes from
-its ``decoder_start_token_id``). The wrapper owns the port's model directly: there
-are no separate params, no sharding rules and no apply scope. `model_name` as a local
-directory gives the config (its ``config.json``, which must name a dolomite family) and
-the tokenizer, as the JAX package's `_setup_config` does; the weights stay random, as in
-the JAX package's finetuning, which starts from a trained model through ``load_args``.
-The JAX package's `generate.main` does read the directory's ``model.safetensors``
-(`load_pretrained_params`); the port does not yet, so its generation refuses a
-``model_name`` without ``load_args`` (`arguments.check_ported_inference_options`). A hub
-id is not ported.
+its ``decoder_start_token_id``), and the HF-layout directory (`save_pretrained`,
+`load_pretrained_params`: ``config.json``, the safetensors in the reference layout of
+`hf_interop.weights`, the tokenizer). The wrapper owns
+the port's model directly: there are no separate params, no sharding rules and no apply
+scope. `model_name` as a local directory gives the config (its ``config.json``, which must
+name a dolomite family) and the tokenizer, as the JAX package's `_setup_config` does; its
+weights are read where the JAX package reads them: generation without ``load_args`` and a
+draft model by name (`generate.py`). Finetuning keeps random weights from `model_name`, as
+in the JAX package, which starts a finetune from trained weights through ``load_args``. A
+hub id is not ported.
 """
 
 from __future__ import annotations
@@ -23,15 +24,19 @@ from __future__ import annotations
 import json
 import logging
 import os
+import time
 
 import torch
 
 from ..enums import AttentionImplementation, Mode
+from ..hf_interop.weights import params_to_state_dict, state_dict_to_params
 from ..models import CommonConfig, config_from_dict, get_model_class, is_encoder_decoder_model
 from ..ops.fp8 import enable_fp8
 from ..train_utils import resolve_checkpointing_args
 from ..utils import log_rank_0
+from ..utils.hf_hub import HUB_NOT_PORTED
 from ..utils.mixed_precision import string_to_dtype
+from ..utils.safetensors import SafeTensorsWeightsManager
 
 # the JAX package's model registry (`models.is_custom_model`): the types a config.json may name
 _DOLOMITE_TYPES = (
@@ -44,10 +49,7 @@ def config_from_model_name(model_name: str, config_extras: dict | None = None) -
     it); a model type that is not a dolomite family raises the JAX package's ValueError.
     A name that is not a local directory (a hub id) raises NotImplementedError."""
     if not os.path.isdir(model_name):
-        raise NotImplementedError(
-            f"model_args.model_name '{model_name}' is not a local directory: loading a hub id is "
-            "not ported yet: ROADMAP.md Queue A, 'Interop and tools'"
-        )
+        raise NotImplementedError(f"model_args.model_name '{model_name}' is not a local directory: {HUB_NOT_PORTED}")
     config_path = os.path.join(model_name, "config.json")
     if not os.path.isfile(config_path):
         raise ValueError(f"no config.json in resolved checkpoint dir '{model_name}'")
@@ -145,6 +147,61 @@ class ModelWrapper:
 
     def _setup_model(self, seed: int) -> None:
         """Hook for the PEFT wrapper: wrap or extend `self.model` once it is built."""
+
+    def save_pretrained(self, save_path: str) -> None:
+        """Write the HF-layout directory (the JAX package's `save_pretrained`):
+        ``config.json`` (`CommonConfig.save_pretrained`: the same keys and values as
+        JAX's), the model's weights as safetensors in the reference layout, each tensor in
+        the dtype the model holds it (`hf_interop.weights.params_to_state_dict`; a PEFT
+        model raises, as the JAX function fails on a PEFT tree), and the tokenizer."""
+        state_dict = params_to_state_dict(self.config, self.model.state_dict())
+        self.config.save_pretrained(save_path)
+        SafeTensorsWeightsManager.save_state_dict(state_dict, save_path)
+        if self.tokenizer is not None:
+            self.tokenizer.save_pretrained(save_path)
+
+    @torch.no_grad()
+    def load_pretrained_params(self, path: str, device: str | torch.device | None = None, seconds: dict | None = None) -> None:
+        """Fill the model from the HF-layout directory `path` (its safetensors through
+        `hf_interop.weights.state_dict_to_params`), each tensor cast to its parameter's dtype
+        (the compute dtype for inference; norms fp32). A model built on the meta device
+        first gets uninitialised storage on `device` (no random init runs). Every parameter
+        must be in the file and every tensor of the file must have its parameter. Each
+        tensor goes to the model's device as it is read (the host holds one at a time).
+        `seconds`, when given, gets ``read`` (the files to host tensors) and ``copy`` (onto
+        the device, then into the parameters in their dtype)."""
+        manager = SafeTensorsWeightsManager(path)
+        if len(manager) == 0:
+            raise ValueError(f"'{path}' holds no safetensors weights (model.safetensors or its shards)")
+        if self.model.device.type == "meta":
+            if device is None:
+                raise ValueError("a model on the meta device needs the device to load its weights onto")
+            self.model.to_empty(device=device)
+        targets = self.model.state_dict()
+        times = {"read": 0.0, "copy": 0.0}
+
+        def get_tensor(name: str) -> torch.Tensor:
+            # each tensor onto the model's device as it is read: one at a time on the host
+            t0 = time.perf_counter()
+            tensor = manager.get_tensor(name)
+            t1 = time.perf_counter()
+            tensor = tensor.to(self.model.device)
+            times["read"] += t1 - t0
+            times["copy"] += time.perf_counter() - t1
+            return tensor
+
+        params = state_dict_to_params(self.config, get_tensor)
+        missing, unexpected = set(targets) - set(params), set(params) - set(targets)
+        if missing or unexpected:
+            raise ValueError(f"'{path}' does not fit the model: missing {sorted(missing)}, unexpected {sorted(unexpected)}")
+        t0 = time.perf_counter()
+        for name, tensor in params.items():
+            targets[name].copy_(tensor)
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)  # the last copies
+        times["copy"] += time.perf_counter() - t0
+        if seconds is not None:
+            seconds.update(times)
 
     @property
     def is_encoder_decoder(self) -> bool:

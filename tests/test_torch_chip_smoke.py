@@ -4,7 +4,7 @@ telemetry windows, the checkpoint and the 2-layer resume check, bit-identical), 
 `training_options` phase inside it (the remat policies, fp8, offload and health, the
 optimizers), the `generate` phase inside it (`generate.main` over `configs/generation.yml` from that
 checkpoint with both engines, the greedy runs three ways, the logits check), the
-`speculative_generation`, `preemption` and `finetune` phases after it, the `alibi_generation`
+`speculative_generation`, `preemption`, `finetune` and `interop` phases after it, the `alibi_generation`
 phase, the `distribution` phase (every ZeRO stage through FSDP2 at a world of one) and the
 `seq2seq` phase (the encoder-decoder family through `finetune.main` and `generate.main`, and
 its query-bias kernel check) run at tiny widths (and 2 layers) through the kernels' plain
@@ -135,6 +135,20 @@ def test_pretrain_phase_rehearsal(monkeypatch):
         assert finetune["step_check"][method]["max_rel_err"] == {"loss": 0.0, "grad_norm": 0.0}
     assert finetune["resume_check"]["bit_identical"] and finetune["resume_check"]["val_loss_identical"]
     assert not any(finetune["launches"].values()) and finetune["expected_launches"]["flash_attn_bwd"] > 0
+    # phase 21: generation from the LoRA checkpoint, the unshard held to the checkpoint, generation
+    # from its directory (phase 13's greedy tokens), the 2-layer export / import round trips, a
+    # draft by name, and the planted adapters at 2 layers
+    interop = record["interop"]
+    assert interop["lora_generate"]["adapters"] == 4 and interop["lora_generate"]["eval_mode"]  # 2 layers' c_attn
+    assert interop["unshard"]["bit_identical_to_checkpoint"] and interop["unshard"]["dtypes"] == ["torch.float32"]
+    assert interop["model_name_generate"]["requests_identical_to_phase_13"] == chip_smoke.GREEDY_PROMPTS
+    assert all(interop["export_import"][t]["round_trip_bit_identical"] for t in chip_smoke.INTEROP_EXPORTS)
+    assert interop["draft_model_generate"]["requests"] == chip_smoke.GREEDY_PROMPTS
+    assert all(len(row) == 3 for row in interop["draft_model_generate"]["parted_from_plain"])
+    lora_check = interop["lora_check"]
+    assert lora_check["rows_differing_without_adapters"] > 0 and lora_check["rows"] == chip_smoke.LORA_CHECK_ROWS
+    assert not any(interop["launches"].values()) and interop["expected_launches"]["paged_decode_attention"] > 0
+    assert interop["expected_launches"]["flash_attn_fwd"] == 0  # a draft by name attends with sdpa, as in JAX
 
 
 def test_alibi_generation_phase_rehearsal(monkeypatch):
@@ -269,10 +283,13 @@ def test_seq2seq_phase_rehearsal(monkeypatch, tmp_path):
     assert record["yaml"]["launches"]["rmsnorm"] == 12 * (chip_smoke.SEQ2SEQ_STEPS + 2)
     assert record["yaml"]["launches"]["rope_qkv"] == 8 * chip_smoke.SEQ2SEQ_STEPS + 4 * 2
     assert record["flan_t5_lora"]["tuning"] == "lora" and record["flan_t5_lora"]["val_losses"][0] == record["flan_t5_full"]["val_losses"][0]
-    generation = record["generate"]
-    check = generation["check"]  # a bf16 model against the fp32 one, both on the CPU here
-    assert generation["requests"] == chip_smoke.SEQ2SEQ_GENERATE[0] == check["prompts"]
-    assert len(check["parted"]) == check["prompts"] - check["rows_identical"]
-    assert all(gap <= check["near_tie_bound"] for _, _, gap in check["parted"])
-    assert check["logits_check"]["max_abs_err"] == check["logits_max_abs_err"] == check["near_tie_bound"] / 2
+    # (c) from the full run's checkpoint, and phase 21's part from the LoRA run's
+    for name, targets in (("generate", ()), ("lora_generate", ("c_attn", "c_kv", "c_q"))):
+        generation = record[name]
+        check = generation["check"]  # a bf16 model against the fp32 one, both on the CPU here
+        assert generation["requests"] == chip_smoke.SEQ2SEQ_GENERATE[0] == check["prompts"]
+        assert check["lora_targets"] == targets
+        assert len(check["parted"]) == check["prompts"] - check["rows_identical"]
+        assert all(gap <= check["near_tie_bound"] for _, _, gap in check["parted"])
+        assert check["logits_check"]["max_abs_err"] == check["logits_max_abs_err"] == check["near_tie_bound"] / 2
     assert len(record["kernel_check"]) == 2

@@ -1,7 +1,7 @@
 """The port's data-parallel layer against the JAX package's, on the CPU over gloo.
 
-- **Repair**: `generate.main` from a local ``model_name`` without ``load_args`` raises
-  naming 'Interop and tools' (the JAX package loads that directory's weights).
+- **Repair**: `generate.main` from a local ``model_name`` without ``load_args`` reads that
+  directory's weights, as the JAX package does; a directory without them is refused.
 - **Mesh**: `mesh_sizes` against JAX's `MeshManager` over 1, 2, 4 and 8 of the virtual
   CPU devices under each ``zero_topology`` (the same axis sizes, the same ValueErrors);
   the built `MeshManager` and its accessors at 1 and 2 ranks; the ``data_parallel_size``
@@ -188,7 +188,9 @@ def test_generation_from_model_name_without_load_args_is_refused(tmp_path):
         output_dir=str(tmp_path / "out"),
         model_args=dict(model_class="AutoModelForCausalLM", model_name=str(model_dir)),
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, 'Interop and tools'"):
+    # the directory's weights are read now; one without them is refused (JAX's reader
+    # finds no tensor there either)
+    with pytest.raises(ValueError, match="holds no safetensors weights"):
         generate.main(args, device="cpu")
 
 

@@ -416,19 +416,26 @@ def test_main_losses_match_jax_train(corpus, monkeypatch):
 
 
 def test_generation_from_a_peft_checkpoint_is_refused(corpus):
-    """JAX's `generate.main` rebuilds a PEFT checkpoint's wrapper and generates through its
-    adapters; the port refuses it, naming its ROADMAP item."""
+    """JAX's serving engine cannot serve a prompt-tuning model (`PromptTuningCausalLM` has
+    no ``init_kv_caches`` and refuses ``position_ids``), so the port refuses generation from
+    a prompt-tuning checkpoint, naming why; a LoRA checkpoint loads with its adapters."""
     from dolomite_engine_tpu_torch.arguments import InferenceArgs
     from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
 
-    config = _config(corpus, "lora", save="lora-generate", steps=1, tuning_args=dict(tuning_method="lora", **METHODS["lora"]))
-    finetune.main(TrainingArgs(**config), device="cpu")
-    inference = InferenceArgs(
-        load_args=dict(load_path=config["save_args"]["save_path"]), datasets=config["datasets"],
-        generation_parameters=dict(batch_size=1, max_new_tokens=2), output_dir=str(corpus["root"] / "out"),
-    )
-    with pytest.raises(NotImplementedError, match="'PEFT generation'"):
-        load_checkpoint_for_inference(inference, device="cpu")
+    for method in ("prompt_tuning", "lora"):
+        config = _config(corpus, method, save=f"{method}-generate", steps=1, tuning_args=dict(tuning_method=method, **METHODS[method]))
+        finetune.main(TrainingArgs(**config), device="cpu")
+        inference = InferenceArgs(
+            load_args=dict(load_path=config["save_args"]["save_path"]), datasets=config["datasets"],
+            generation_parameters=dict(batch_size=1, max_new_tokens=2), output_dir=str(corpus["root"] / "out"),
+        )
+        if method == "prompt_tuning":
+            with pytest.raises(NotImplementedError, match="cannot serve PromptTuningCausalLM"):
+                load_checkpoint_for_inference(inference, device="cpu")
+        else:
+            wrapper, _ = load_checkpoint_for_inference(inference, device="cpu")
+            adapters = [name for name, _ in wrapper.model.named_parameters() if name.endswith("lora_b")]
+            assert adapters and not wrapper.model.training
 
 
 def test_padded_micro_batches_of_different_lengths():

@@ -23,12 +23,16 @@ def _port_sources():
     return sorted(p for p in PORT.rglob("*.py") if "build" not in p.relative_to(PORT).parts)
 
 
+def _port_tools():
+    # the port's CLI tools, named ``*_torch.py`` beside the JAX package's
+    return sorted((REPO / "tools").glob("*_torch.py"))
+
+
 def _port_files():
-    # with the port's harnesses for the card
+    # with the port's harnesses for the card and its tools
     return _port_sources() + [
         REPO / "chip_smoke.py", REPO / "scripts" / "paged_kernel_ab.py", REPO / "scripts" / "fsdp_one_rank_probe.py",
-        REPO / "tools" / "fp8_early_steps_torch.py",
-    ]
+    ] + _port_tools()
 
 
 def _port_modules():
@@ -85,7 +89,7 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_default_to_the_gpu():
     import torch
 
-    from dolomite_engine_tpu_torch import finetune, generate
+    from dolomite_engine_tpu_torch import finetune, generate, unshard
     from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
     from dolomite_engine_tpu_torch.models import CommonConfig, GPTDolomiteForCausalLM, load_jax_params
     from dolomite_engine_tpu_torch.serving import ServingEngine
@@ -104,6 +108,8 @@ def test_entry_points_default_to_the_gpu():
         generate.main(object())  # the device is resolved before the args are read
     with pytest.raises(RuntimeError, match="device='cpu'"):
         finetune.main(object())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        unshard.main(object())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_jax_params(model, {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
