@@ -30,7 +30,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launch counts zeroed before and read after; then one step under `torch.profiler`
    (with the fused loss's backward: its device time in that step, and alone at the
    cell's shape by kernel family, ``loss_backward_alone``);
-7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (4 of its 24 layers, 32
+7. the MoE serving slice: the MoEDolomite of `pretrain-moe-ep.yml` (2 of its 24 layers, 32
    experts, top-4, bf16, random weights) behind `ServingEngine` with the requests of
    phase 3, its logits check against a plain forward (router + every-expert
    `experts_eager`), the requests once more under `torch.profiler`, and once more
@@ -125,8 +125,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``model_name`` directory (phase 12's config and tokenizer), remat of every block: (a) full
    finetuning on `configs/instruction-tuning/finetune-alpaca.yml` at 2 layers from phase
    12's 2-layer resume checkpoint's weights, padded (4 x 2) and then packed
-   (``use_padding_free_transformer``, 8 x 1), (b) LoRA on `configs/peft/lora.yml` at all 32
-   layers from seed-0 weights (every base tensor bit-identical after the steps, the adapters
+   (``use_padding_free_transformer``, 8 x 1), (b) LoRA on `configs/peft/lora.yml` at 16 of the
+   32 layers (the script's time limit) from seed-0 weights (every base tensor bit-identical after the steps, the adapters
    moved, optimizer state for the adapters alone; its checkpoint is phase 21's), (c) prompt
    tuning (20 RANDOM virtual tokens, LoRA's YAML) at 2 layers, 3 steps each with eval at the start and the end,
    launches zeroed before each run and asserted exactly; then the card's step against the
@@ -161,7 +161,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    `generate.main` from (b)'s LoRA checkpoint and the same 2 + 2-layer check against the
    CPU, the adapters on ``c_attn``, ``c_q`` and ``c_kv``;
 21. ``interop`` (inside phase 12, after phase 18, from its checkpoints; `interop_phase`):
-   `generate.main` from phase 18's 32-layer LoRA checkpoint (greedy, 16 x 64); `unshard.main`
+   `generate.main` from phase 18's 16-layer LoRA checkpoint (greedy, 16 x 64); `unshard.main`
    on `configs/pretraining-examples/unshard.yml` for the 32-layer checkpoint, the directory
    held bit for bit to every weight the unshard read, in the checkpoint's fp32 (the 2-layer
    one's below to the checkpoint read anew); `generate.main` from that
@@ -171,7 +171,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    name for the 32-layer directory (plain greedy's tokens but at near ties); then at 2
    layers of full width planted LoRA adapters: the card's greedy tokens against the CPU's
    fp32 run (near ties only) and against the same model without them (they must differ).
-   Launch counts asserted exactly.
+   Launch counts asserted exactly;
+22. ``families`` (after phase 20; `families_phase`): the cross-layer, dense-MoE and
+   DeltaNet-hybrid families at granite-3b-code's width, seed-0 weights, bf16. (a) the 32-layer
+   dense model converted to CLA2 (16 KV groups) behind the paged engine with phase 3's
+   requests: bytes a cached token exactly half the dense pool's, and the identity-pattern
+   conversion's teacher-forced logits held to the dense model's within a bound from the
+   dense bf16 model's own error against an fp32 run; (b) `pretrain.main` on the granite YAML
+   with ``model_type`` set to each family (CLA2 at 8 layers; dense_moe with 8 experts of
+   1280 at 8 layers; the ``ddda`` hybrid at all 32), 3 steps of 1 x [2, 4096] with remat of
+   every block: step time, MFU, peak memory, finite losses; (c) the hybrid's trained weights
+   in bf16: 8 left-padded prompts greedy x 64 through `generate_tokens`, a 2-layer card /
+   CPU fp32 check (near ties only), the chunked delta rule against the recurrent one at
+   [2, 32, 4096, 80]; (d) dense_moe at 8 layers behind the paged engine, dense and top-2,
+   and their greedy agreement. Launch counts asserted exactly; no paged-kernel launch (both
+   families attend over the gathered pages, as in JAX). Cuts: one card, seeded weights, no
+   eval and no checkpoint write in (b) (phase 12 measures the save), the YAML's
+   ``scan_layers`` off (JAX refuses it for these families).
 
 The serving K/V write's cases (rope_qkv's paged form and kv_quant's fused scatter-quantize
 at both models' decode, prefill and verify windows over bf16, int8 and fp8 pools, one launch a
@@ -200,7 +216,7 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
 ``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune``, ``interop``, ``alibi_generation``,
-``seq2seq`` and ``kernel_cases_seq2seq`` lines
+``seq2seq``, ``kernel_cases_seq2seq`` and ``families`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
 times under ``forms``), the card again, and last
@@ -259,9 +275,9 @@ MOE_EP = dict(
     embd_pdrop=0.0, attn_pdrop=0.0, fused_lm_head_loss=True, bos_token_id=0, eos_token_id=0,
     pad_token_id=0,
 )
-# MoE serving (phases 7 and 9): 4 of the 24 layers, to keep the script inside its time
-# limit once phases 18 and 19 run (the profile's replays cost ~4 s a layer)
-MOE_SERVE_LAYERS = 4
+# MoE serving (phases 7 and 9): 2 of the 24 layers, to keep the script inside its time
+# limit once phases 18, 19 and 22 run (the profile's replays cost ~4 s a layer)
+MOE_SERVE_LAYERS = 2
 # MoE training: 8 of the 24 layers (fp32 master weights, gradients and AdamW state of all
 # 24 need ~137 GB), sequence 2048 as in the yml, micro batch 2 x accumulation 2
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 8, 2048, 2
@@ -1106,6 +1122,20 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def serving_specs(seed, vocab):
+    """Phase 3's 8 requests: prompts of 300-1500 tokens (two sharing their first 512) and
+    `MAX_NEW` greedy tokens each."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(1, vocab, 512).tolist()
+    lengths = rs.randint(300, 1501, 8).tolist()
+    prompts = [rs.randint(1, vocab, n).tolist() for n in lengths]
+    for i in (0, 7):  # same length range, first 512 tokens shared
+        prompts[i] = shared + prompts[i][: max(lengths[i] - 512, 16)]
+    return [dict(prompt_ids=p, max_new_tokens=MAX_NEW) for p in prompts]
+
+
 def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, model=None):
     """Phase 3 (granite-3b-code) and phase 7 (the MoE model of `pretrain-moe-ep.yml`)
     behind the serving engine, and phase 9 with a quantized pool (`kv_dtype`, over the
@@ -1113,7 +1143,6 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, mod
     another config and the CPU only to rehearse this script's control flow at a tiny size.
     Returns the serving record, the launch counts, the model, the request specs and each
     request's greedy tokens."""
-    import numpy as np
     import torch
 
     from dolomite_engine_tpu_torch.models import config_from_dict, get_model_class
@@ -1132,14 +1161,9 @@ def serve(seed, config_kwargs=GRANITE_3B_CODE, device="cuda", kv_dtype=None, mod
     _sync(device)
     build_s = time.perf_counter() - t0
 
-    rs = np.random.RandomState(seed)
     vocab = config.vocab_size
-    shared = rs.randint(1, vocab, 512).tolist()
-    lengths = rs.randint(300, 1501, 8).tolist()
-    prompts = [rs.randint(1, vocab, n).tolist() for n in lengths]
-    for i in (0, 7):  # same length range, first 512 tokens shared
-        prompts[i] = shared + prompts[i][: max(lengths[i] - 512, 16)]
-    specs = [dict(prompt_ids=p, max_new_tokens=MAX_NEW) for p in prompts]
+    specs = serving_specs(seed, vocab)
+    prompts = [spec["prompt_ids"] for spec in specs]
 
     # warm-up on a small engine (cuBLAS handles, allocator), launches not counted
     warm = ServingEngine(model, None, num_slots=1, max_len=256, eos_token_id=None, device=device, kv_dtype=kv_dtype)
@@ -4674,6 +4698,9 @@ PROMPT_TUNING = {"prompt_tuning_init": "RANDOM", "num_virtual_tokens": 20}
 # of 3 rows left-padded to 256 (pads inside a 64-token tile, so the card takes the flash kernel
 # over the padding mask rewritten to segment ids) from the same weights; bf16 on both sides
 FINETUNE_CHECK_MODEL = dict(n_layer=2, n_embd=640, n_head=8, n_inner=2560)
+# phase 18(b)'s LoRA run, and phase 21(e)'s generation from its checkpoint: 16 of granite's 32
+# layers (the script's time limit once phase 22 runs)
+FINETUNE_LORA_LAYERS = 16
 FINETUNE_CHECK_ROWS = ((192, 63), (150, 39), (100, 36))  # (input, output) tokens; + EOS: 256, 190, 137
 FINETUNE_CHECK_RTOL = {"loss": 2e-2, "grad_norm": 5e-2}
 # the resume check (LoRA, 2 of the 32 layers, the optimizer saved): 6 steps unbroken against 3, a
@@ -4891,7 +4918,8 @@ def finetune_phase(seed, corpus, tokenizer, work, config, device="cuda", rehears
     """Phase 18: (a) full finetuning on `FINETUNE_YAML` from phase 12's 2-layer resume
     checkpoint (its weights alone; `RESUME_LAYERS` of granite-3b-code's 32, for the
     script's time limit), padded, then packed (``use_padding_free_transformer``); (b) LoRA on
-    `LORA_YAML` from seed-0 weights at all 32 layers: every base tensor bit-identical after
+    `LORA_YAML` from seed-0 weights at `FINETUNE_LORA_LAYERS` of the 32 layers (the script's
+    time limit): every base tensor bit-identical after
     the steps, the adapters moved, the optimizer's state the adapters' alone (its checkpoint
     stays for phase 21); (c) prompt tuning (LoRA's YAML with prompt tuning, RANDOM init, 20
     virtual tokens) at 2 layers from seed-0 weights; each with its launches zeroed before and
@@ -4910,7 +4938,8 @@ def finetune_phase(seed, corpus, tokenizer, work, config, device="cuda", rehears
     from dolomite_engine_tpu_torch import finetune
 
     model_config = dict(config)
-    model_dir = finetune_model_dir(os.path.join(work, "granite-dolomite"), model_config, tokenizer)
+    lora_layers = min(FINETUNE_LORA_LAYERS, model_config["n_layer"])
+    model_dir = finetune_model_dir(os.path.join(work, "granite-dolomite"), dict(model_config, n_layer=lora_layers), tokenizer)
     resume_dir = finetune_model_dir(os.path.join(work, "granite-2"), dict(model_config, n_layer=RESUME_LAYERS), tokenizer)
     words = FINETUNE_WORDS if rehearsal is None else rehearsal["finetune_words"]
     data_dir = finetune_data(os.path.join(work, "finetune-data"), corpus, seed, model_config["eos_token_id"], words=words)
@@ -4921,7 +4950,7 @@ def finetune_phase(seed, corpus, tokenizer, work, config, device="cuda", rehears
     capture = {}  # the run's state and its hooks' values (the LoRA run's hooks read it)
 
     def run(name, args, virtual_tokens=0, before=None, after=None, keep=False):
-        run_cfg = cfg if args.model_args.model_name == model_dir else dataclasses.replace(cfg, n_layer=RESUME_LAYERS)
+        run_cfg = dataclasses.replace(cfg, n_layer=lora_layers if args.model_args.model_name == model_dir else RESUME_LAYERS)
         shapes = {"train": [], "val": []}
         capture.clear()
         capture.update(before=before or (lambda state: None), after=after or (lambda state: None))
@@ -4996,7 +5025,7 @@ def finetune_phase(seed, corpus, tokenizer, work, config, device="cuda", rehears
     lora["base_gradients_and_moments_gb"] = 3 * lora["base_weights_gb"]
     adapter_state = sum(t.numel() * t.element_size() for t in state.optimizer.state_tensors())
     assert lora["base_bit_identical"] and lora["base_grads"] == 0, lora
-    assert lora["adapters_moved"] == len(state.optimizer.param_names) == 2 * cfg.n_layer, lora  # lora_a / lora_b of each c_attn
+    assert lora["adapters_moved"] == len(state.optimizer.param_names) == 2 * lora_layers, lora  # lora_a / lora_b of each c_attn
     assert all(n.endswith(("lora_a", "lora_b")) for n in state.optimizer.param_names), state.optimizer.param_names
     assert abs(lora["optimizer_state_gb"] - adapter_state / 1e9) < 1e-9, lora
     del state
@@ -5274,7 +5303,7 @@ def lora_generation_check(seed, config_kwargs, prompts, device="cuda"):
 
 def interop_phase(seed, work, save_path, context, config, device="cuda", rehearsal=None):
     """Phase 21, from phase 12's checkpoints (`save_path`: 32 layers at step 8; ``unbroken``:
-    the 2-layer resume run at step 6) and phase 18's LoRA checkpoint (``lora``, 32 layers):
+    the 2-layer resume run at step 6) and phase 18's LoRA checkpoint (``lora``, 16 layers):
     (e) `generate.main` from the LoRA checkpoint (greedy, phase 13's 16 prompts x 64), then
     the checkpoint removed; (a) `unshard.main` on `UNSHARD_YAML` for the 32-layer checkpoint:
     the weights it read keep the checkpoint's fp32 (names, shapes and dtypes held to the
@@ -5324,18 +5353,19 @@ def interop_phase(seed, work, save_path, context, config, device="cuda", rehears
     def target_launches(summary):
         return [_engine_launches(summary["stats"], config, True, 0)]
 
-    # (e) the 32-layer LoRA checkpoint through the entry point
+    # (e) phase 18's LoRA checkpoint (`FINETUNE_LORA_LAYERS` layers) through the entry point
     lora_path = os.path.join(work, "lora")
+    lora_config = dataclasses.replace(config, n_layer=min(FINETUNE_LORA_LAYERS, config.n_layer))
     args = generation_args(lora_path, greedy_dir, os.path.join(work, "lora-greedy"), True, greedy_new, iteration=FINETUNE_STEPS)
-    summary, _, model = run("lora_generate", args, target_launches)
+    summary, _, model = run("lora_generate", args, lambda summary: [_engine_launches(summary["stats"], lora_config, True, 0)])
     adapters = {n: p for n, p in model.model.named_parameters() if n.endswith(("lora_a", "lora_b"))}
     record["lora_generate"].update(
         adapters=len(adapters), lora_b_abs_max=max(p.abs().max().item() for n, p in adapters.items() if n.endswith("lora_b")),
         eval_mode=not model.model.training,
     )
-    assert len(adapters) == 2 * config.n_layer and record["lora_generate"]["lora_b_abs_max"] > 0 and record["lora_generate"]["eval_mode"]
+    assert len(adapters) == 2 * lora_config.n_layer and record["lora_generate"]["lora_b_abs_max"] > 0 and record["lora_generate"]["eval_mode"]
     del model, adapters
-    shutil.rmtree(lora_path)  # ~14 GB
+    shutil.rmtree(lora_path)  # ~7 GB
 
     # (a) the 32-layer checkpoint unsharded, held to the checkpoint
     target_dir = os.path.join(work, "granite-hf")
@@ -6297,6 +6327,542 @@ def seq2seq_phase(seed, device="cuda", rehearsal=None, work=None):
     return record, record["launches"], cases
 
 
+# phase 22: the cross-layer, dense-MoE and DeltaNet-hybrid families at granite-3b-code's
+# width (`families_phase`). (a) CLA2 serving at all 32 layers; (b) `pretrain.main` for the
+# three families, 3 steps of 1 x [2, 4096] with remat of every block (the hybrid at all 32
+# layers, the other two at 8 for the script's time); (c) the hybrid's generation and its
+# card / CPU check; (d) dense_moe serving at 8 layers, dense and top-2
+FAMILIES_TRAIN_LAYERS = {"gpt_crosslayer": 8, "dense_moe": 8, "rnn_dolomite": 32}
+FAMILIES_STEPS, FAMILIES_MICRO, FAMILIES_DOCUMENTS = 3, 2, 1000
+FAMILIES_EXPERTS = 8  # dense_moe: 8 experts of n_inner / 8, so the wide MLP is granite's
+FAMILIES_RNN_PATTERN = "ddda"  # repeated over the layers (tools/bench_sweep.py's default)
+FAMILIES_MOE_SERVE_LAYERS = 8
+FAMILIES_MOE_TOP_K = {"top_k": 2}
+FAMILIES_IDENTITY_PROMPT = 512  # (a)'s identity-conversion check: teacher-forced tokens
+FAMILIES_GENERATE = (8, 64)  # (c): left-padded prompts x greedy new tokens
+FAMILIES_CHECK = {"layers": (2, 3), "pattern": "da", "prompts": 4, "width": 256, "new_tokens": 16}
+DELTA_RULE_SHAPE = (2, 32, 4096, 80)  # (c): [B, H, L, D] of the chunked / recurrent check
+
+
+def cla2_pattern(layers):
+    """CLA2: each pair of layers shares the first one's K/V."""
+    return [i - i % 2 for i in range(layers)]
+
+
+def family_training_launches(config, micro_batches, seq):
+    """Exact kernel launches of `micro_batches` training micro-batches of a new family under
+    remat of every block (each block reruns its forward kernels in the backward): rmsnorm
+    2N + 1 for the N norms of a forward (cross-layer: a group's ``kv_proj.ln`` and two a
+    sub-layer; DeltaNet: ``ln_1``, ``o_norm``, ``ln_2``; attention: two), flash forward 2A
+    and backward A over the A softmax-attention layers, the flat rope kernel 3A for the
+    hybrid's attention layers (the other two families rotate with plain PyTorch, as in
+    JAX), fused_ce one per 256-token chunk."""
+    from dolomite_engine_tpu_torch.models.gpt_crosslayer import group_layout
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS
+
+    layers = config.n_layer
+    rope = 0
+    if config.model_type == "gpt_crosslayer":
+        norms, attention = len(group_layout(config.sharing_pattern)) + 2 * layers, layers
+    elif config.model_type == "dense_moe":
+        norms, attention = 2 * layers, layers
+    else:
+        deltanet = config.attention_pattern.count("d")
+        attention = layers - deltanet
+        norms, rope = 3 * deltanet + 2 * attention, 3 * attention
+    expected = {spec.name: 0 for spec in KERNELS}
+    expected.update(
+        rmsnorm=(2 * norms + 1) * micro_batches, rope_qkv=rope * micro_batches,
+        flash_attn_fwd=2 * attention * micro_batches, flash_attn_bwd=attention * micro_batches,
+        fused_ce=-(-seq // config.loss_chunk_size) * micro_batches,
+    )
+    return expected
+
+
+def _family_serve(model, specs, device, norms_per_forward):
+    """`specs` behind a paged bf16 `ServingEngine` over `model` (phase 3's pool and
+    chunks; a warm-up engine first, its launches not counted), launch counts zeroed just
+    before and read just after: rmsnorm `norms_per_forward` a forward and nothing else, as
+    these families attend over the gathered pages with `sdpa_attention` and rotate with
+    plain PyTorch. Returns the record and the greedy tokens."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.serving import RequestStatus, ServingEngine, serve_batch
+
+    config = model.config
+    warm = ServingEngine(model, None, num_slots=1, max_len=256, eos_token_id=None, device=device)
+    serve_batch(warm, [dict(prompt_ids=specs[1]["prompt_ids"][:100], max_new_tokens=2)])
+    del warm
+    engine = ServingEngine(
+        model, None, num_slots=NUM_SLOTS, max_len=MAX_LEN, page_size=PAGE, prefill_chunk_tokens=CHUNK,
+        eos_token_id=None, pad_token_id=config.pad_token_id, device=device,
+    )
+    _sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    states = serve_batch(engine, specs[:7]) + serve_batch(engine, specs[7:])  # the shared prefix hits
+    _sync(device)
+    wall_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    forms = form_counts()
+    stats = engine.stats
+    for state in states:
+        assert state.status == RequestStatus.completed, state.status
+        assert len(state.tokens) == MAX_NEW and all(0 <= t < config.vocab_size for t in state.tokens)
+    assert stats.prefix_hit_tokens > 0 and engine.pool.num_free == NUM_SLOTS
+    forwards = stats.decode_steps + stats.prefill_chunks
+    expected = {spec.name: 0 for spec in KERNELS}
+    expected["rmsnorm"] = norms_per_forward * forwards
+    if device.type == "cuda":  # on the CPU (a rehearsal) the plain versions run
+        assert launches == expected and not forms, (launches, expected, forms)
+    record = {
+        "n_layer": config.n_layer, "kv_bytes_per_token": engine.pool.kv_bytes_per_token, "requests": len(states),
+        "wall_s": wall_s, "ttft_mean_s": stats.mean_ttft_s(), "prefill_tok_s": stats.prefill_tok_s(),
+        "decode_tok_s": stats.decode_tok_s(), "prefill_tokens": stats.prefill_tokens,
+        "prefix_hit_tokens": stats.prefix_hit_tokens, "decode_steps": stats.decode_steps,
+        "prefill_chunks": stats.prefill_chunks, "launches": launches, "launch_forms": forms,
+        "peak_memory_gb": _peak_gb(device),
+    }
+    return record, [state.tokens for state in states]
+
+
+def crosslayer_identity_check(dense, seed, length=FAMILIES_IDENTITY_PROMPT):
+    """The identity-pattern conversion of the bf16 `dense` model against it: teacher-forced
+    logits of `length` seeded tokens. The bound comes from the dense model's own error
+    against an fp32 run of the same (bf16-rounded) weights on the card: the converted
+    model may err against fp32 at most 1.25x the dense bf16 model does, in mean and in max
+    (phase 20(c)'s rule), and differ from the dense model by at most 0.1 logit std in mean."""
+    import torch
+
+    from dolomite_engine_tpu_torch.models import GPTDolomiteForCausalLM, convert_gpt_dolomite_to_gpt_crosslayer
+
+    generator = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, dense.config.vocab_size, (1, length), generator=generator).to(dense.device)
+    identity = convert_gpt_dolomite_to_gpt_crosslayer(dense, list(range(dense.config.n_layer)))
+    exact = GPTDolomiteForCausalLM(dense.config, dtype=torch.float32, device="meta").to_empty(device=dense.device)
+    exact.load_state_dict(dense.state_dict())
+    with torch.no_grad():
+        want = exact(ids).logits.float()
+        del exact
+        got = {"dense": dense(ids).logits.float(), "identity": identity(ids).logits.float()}
+    del identity
+    err = {name: (logits - want).abs() for name, logits in got.items()}
+    between = (got["identity"] - got["dense"]).abs()
+    check = {
+        "positions": length, "logit_std": want.std().item(),
+        "identity_vs_dense_mean_abs_err": between.mean().item(), "identity_vs_dense_max_abs_err": between.max().item(),
+        **{f"{name}_vs_fp32_{stat}_abs_err": getattr(e, stat)().item() for name, e in err.items() for stat in ("mean", "max")},
+        "tolerance": "identity conversion vs fp32 at most 1.25x the dense bf16 model's error vs fp32, in mean and in "
+        "max; identity vs dense bf16 mean abs err <= 0.1 logit std",
+    }
+    assert bool(torch.isfinite(got["identity"]).all()), check
+    assert check["identity_vs_dense_mean_abs_err"] <= 0.1 * check["logit_std"], check
+    for stat in ("mean", "max"):
+        assert check[f"identity_vs_fp32_{stat}_abs_err"] <= 1.25 * check[f"dense_vs_fp32_{stat}_abs_err"], check
+    return check
+
+
+def _padded_teacher_forced(model, ids, mask, rows):
+    """The fp32 logits ``[B, T, V]`` that chose each of `rows`' T tokens, from one forward
+    over the left-padded prompts `ids` / `mask` ``[B, W]`` and the rows (the layout
+    `generate_tokens` decodes in: the padding stays in the short convolutions' windows)."""
+    import torch
+
+    width, new = ids.shape[1], len(rows[0])
+    full = torch.cat([ids, torch.tensor(rows, dtype=ids.dtype)], dim=1).to(model.device)
+    full_mask = torch.cat([mask, torch.ones(len(rows), new, dtype=mask.dtype)], dim=1).to(model.device)
+    positions = (full_mask.cumsum(1) - 1).clamp_min(0)
+    with torch.no_grad():
+        logits = model(full, position_ids=positions, attention_mask=full_mask).logits
+    return logits[:, width - 1 : width - 1 + new].float().cpu()
+
+
+def _left_padded_prompts(rs, vocab, count, low, width):
+    """`count` prompts of `low`..`width` tokens (ids 1..vocab-1) left-padded with 0 to `width`."""
+    import torch
+
+    ids = torch.zeros(count, width, dtype=torch.long)
+    mask = torch.zeros(count, width, dtype=torch.int32)
+    for row, n in enumerate(rs.randint(low, width + 1, count)):
+        ids[row, width - n :] = torch.from_numpy(rs.randint(1, vocab, n))
+        mask[row, width - n :] = 1
+    return ids, mask
+
+
+def rnn_generation_check(model, seed, device):
+    """(c)'s check: layers `FAMILIES_CHECK["layers"]` of `model` (a ``d`` and an ``a``
+    layer, with its embedding and final norm) as a 2-layer bf16 model on the card and an
+    fp32 one on the CPU; `FAMILIES_CHECK` left-padded prompts greedy through
+    `generate_tokens` on both. Teacher-forced in the padded layout over the card's tokens,
+    the card's logits are held to the CPU's (mean abs err <= 0.1 logit std); twice their
+    largest difference is the near-tie bound: a row may part from the CPU's only where the
+    CPU model's logit gap between the two tokens is within it."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.generation_utils import generate_tokens
+    from dolomite_engine_tpu_torch.models import RNNDolomiteConfig, RNNDolomiteForCausalLM
+
+    first, second = FAMILIES_CHECK["layers"]
+    config = RNNDolomiteConfig.from_dict(dict(model.config.to_dict(), n_layer=2, attention_pattern=FAMILIES_CHECK["pattern"]))
+    rename = {f"transformer.h.{first}.": "transformer.h.0.", f"transformer.h.{second}.": "transformer.h.1."}
+    state = {}
+    for name, tensor in model.state_dict().items():
+        if not name.startswith("transformer.h."):
+            state[name] = tensor
+        for old, new in rename.items():
+            if name.startswith(old):
+                state[new + name[len(old):]] = tensor
+    models = {}
+    for where, dtype, on in (("card", torch.bfloat16, device), ("cpu", torch.float32, "cpu")):
+        built = RNNDolomiteForCausalLM(config, dtype=dtype, device="meta", attention_implementation="flash_attention_2")
+        built.to_empty(device=on)
+        built.load_state_dict(state)
+        models[where] = built.eval()
+    rs = np.random.RandomState(seed)
+    ids, mask = _left_padded_prompts(rs, config.vocab_size, FAMILIES_CHECK["prompts"], FAMILIES_CHECK["width"] // 2, FAMILIES_CHECK["width"])
+    tokens = {}
+    for where, built in models.items():
+        generated, _ = generate_tokens(built, ids, mask, None, FAMILIES_CHECK["new_tokens"], pad_token_id=0)
+        tokens[where] = generated.tolist()
+    got = _padded_teacher_forced(models["card"], ids, mask, tokens["card"])
+    want = _padded_teacher_forced(models["cpu"], ids, mask, tokens["card"])
+    diff = (got - want).abs()
+    check = {
+        "layers": [first, second], "pattern": FAMILIES_CHECK["pattern"], "prompts": FAMILIES_CHECK["prompts"],
+        "width": FAMILIES_CHECK["width"], "new_tokens": FAMILIES_CHECK["new_tokens"],
+        "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(), "logit_std": want.std().item(),
+        "rows_identical": sum(a == b for a, b in zip(tokens["card"], tokens["cpu"])),
+        "tolerance": "card bf16 vs CPU fp32 teacher-forced: mean abs err <= 0.1 logit std; a row may part from the "
+        "CPU's only where the CPU's logit gap between the two tokens is within twice the largest difference",
+    }
+    assert bool(torch.isfinite(got).all()) and check["mean_abs_err"] <= 0.1 * check["logit_std"], check
+    bound = 2 * check["max_abs_err"]
+    reference = _padded_teacher_forced(models["cpu"], ids, mask, tokens["cpu"])
+    parted = []
+    for row, (a, b) in enumerate(zip(tokens["card"], tokens["cpu"])):
+        if a != b:
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            parted.append([row, j, (reference[row, j, a[j]] - reference[row, j, b[j]]).abs().item()])
+    check.update(parted=parted, near_tie_bound=bound)
+    assert all(gap <= bound for _, _, gap in parted), check
+    return check
+
+
+def delta_rule_check(seed, device, shape=DELTA_RULE_SHAPE):
+    """The chunked delta rule against the recurrent one on `device` at `shape` (l2-normed q
+    and k, sigmoid beta): both in fp32 (max abs err <= 1e-3: the same recurrence, summed in
+    another order over 4096 steps), and the chunked form in bf16 against the fp32
+    recurrence (mean abs err <= 0.05 of the output's std: bf16 carries 8 bits and its state
+    is rounded at every chunk). Times each form."""
+    import torch
+
+    from dolomite_engine_tpu_torch.ops.deltanet import delta_rule_chunked, delta_rule_recurrent, l2_norm
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    batch, heads, length, dim = shape
+    q, k, v = (torch.randn(shape, generator=generator, device=device) for _ in range(3))
+    q, k = l2_norm(q), l2_norm(k)
+    beta = torch.sigmoid(torch.randn(shape[:3], generator=generator, device=device))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        recurrent, recurrent_state = delta_rule_recurrent(q, k, v, beta)
+        _sync(torch.device(device))
+        recurrent_s = time.perf_counter() - t0
+        chunked, chunked_state = delta_rule_chunked(q, k, v, beta, 64)
+        low = [t.bfloat16() for t in (q, k, v, beta)]
+        bf16, _ = delta_rule_chunked(*low, 64)
+        timed = torch.device(device).type == "cuda"
+        chunked_ms = _time_ms(lambda: delta_rule_chunked(q, k, v, beta, 64), iters=3, warmup=1) if timed else None
+        bf16_ms = _time_ms(lambda: delta_rule_chunked(*low, 64), iters=3, warmup=1) if timed else None
+    check = {
+        "shape": list(shape), "fp32_max_abs_err": (chunked - recurrent).abs().max().item(),
+        "fp32_state_max_abs_err": (chunked_state - recurrent_state).abs().max().item(),
+        "bf16_mean_abs_err": (bf16.float() - recurrent).abs().mean().item(), "output_std": recurrent.std().item(),
+        "recurrent_s": recurrent_s, "chunked_fp32_ms": chunked_ms, "chunked_bf16_ms": bf16_ms,
+        "tolerance": "fp32 chunked vs recurrent max abs err <= 1e-3 (output and state); bf16 chunked vs fp32 "
+        "recurrent mean abs err <= 0.05 output std",
+    }
+    assert check["fp32_max_abs_err"] <= 1e-3 and check["fp32_state_max_abs_err"] <= 1e-3, check
+    assert check["bf16_mean_abs_err"] <= 0.05 * check["output_std"], check
+    return check
+
+
+def family_training_check(seed, config_kwargs, device="cuda", shape=(1, TRAIN_SEQ)):
+    """(b)'s check of a family's training kernel path: `config_kwargs` (2 layers) from one
+    seeded set of fp32 master weights, a packed batch of `shape`; the kernel path (bf16,
+    ``flash_attention_2``, remat of every block), the plain bf16 path (``sdpa``: masked
+    attention in PyTorch, no remat) and an fp32 ``sdpa`` reference, all on the card. The
+    loss within 2e-2 of the plain bf16 path's; against the fp32 reference the kernel path's
+    gradients err at most 1.5x the plain bf16 path's, pooled and for each parameter (a
+    cross-layer group's K/V feeds both its sub-layers' flash calls, whose dK / dV add up)."""
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForPretraining
+    from dolomite_engine_tpu_torch.models import get_model_class
+
+    wrapper = ModelWrapperForPretraining(
+        config_kwargs, dtype="bf16", param_dtype="fp32", attention_implementation="flash_attention_2",
+        gradient_checkpointing_args=TRAIN_REMAT, reset_attention_mask=True, reset_position_ids=True,
+        device=device, seed=seed,
+    )
+    config = wrapper.config
+    rs = np.random.RandomState(seed + 1)
+    text = torch.as_tensor(_packed_text(rs, shape[0], shape[1], config.vocab_size, config.eos_token_id), device=device)
+    inputs = wrapper.prepare_inputs_and_labels(text)
+    models = {"kernel": wrapper.model}
+    for name, dtype in (("plain_bf16", torch.bfloat16), ("fp32", torch.float32)):
+        model = get_model_class(config.model_type)(config, dtype=dtype, device="meta", param_dtype=torch.float32)
+        model.to_empty(device=device)
+        model.load_state_dict(wrapper.model.state_dict())
+        models[name] = model
+    losses, grads = {}, {}
+    for name, model in models.items():
+        names, params = zip(*model.named_parameters())
+        loss = model(**inputs).loss
+        losses[name] = loss.item()
+        grads[name] = [g.float() for g in torch.autograd.grad(loss, params)]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    def pooled(gs):
+        num = sum(((g - e) ** 2).sum() for g, e in zip(gs, grads["fp32"]))
+        return (num / sum((e**2).sum() for e in grads["fp32"])).sqrt().item()
+
+    per_param = {
+        n: {"kernel": rel(k, e), "plain_bf16": rel(p, e)}
+        for n, k, p, e in zip(names, grads["kernel"], grads["plain_bf16"], grads["fp32"])
+    }
+    check = {
+        "model_type": config.model_type, "n_layer": config.n_layer, "batch": shape[0], "seq": shape[1],
+        **{f"{name}_loss": loss for name, loss in losses.items()},
+        "kernel_grad_rel_l2_err_vs_fp32": pooled(grads["kernel"]),
+        "plain_bf16_grad_rel_l2_err_vs_fp32": pooled(grads["plain_bf16"]),
+        "max_param_err_ratio_vs_fp32": max(e["kernel"] / max(e["plain_bf16"], 1e-30) for e in per_param.values()),
+        "tolerance": "loss within 2e-2 abs of the plain bf16 path's; against the fp32 reference the kernel path's "
+        "gradients err at most 1.5x the plain bf16 path's, pooled and for each parameter",
+    }
+    off = {n: e for n, e in per_param.items() if e["kernel"] > 1.5 * e["plain_bf16"]}
+    assert np.isfinite(losses["kernel"]) and abs(losses["kernel"] - losses["plain_bf16"]) <= 2e-2, check
+    assert not off, f"gradients off against the fp32 reference: {off}; {check}"
+    assert check["kernel_grad_rel_l2_err_vs_fp32"] <= 1.5 * check["plain_bf16_grad_rel_l2_err_vs_fp32"], check
+    del wrapper, models, grads
+    return check
+
+
+def _full_state_dict(model):
+    """`model`'s state with FSDP2's DTensors gathered into whole tensors."""
+    return {name: t.full_tensor() if hasattr(t, "full_tensor") else t for name, t in model.state_dict().items()}
+
+
+def families_phase(seed, device="cuda", rehearsal=None, work=None):
+    """Phase 22: the three families the registry gained, at granite-3b-code's width from
+    seed-0 weights in bf16. (a) the 32-layer dense model converted to CLA2 (16 KV groups)
+    behind the paged engine with phase 3's requests: the pool's bytes a token exactly half
+    the dense granite pool's, and the identity-pattern conversion's logits held to the dense
+    model's (`crosslayer_identity_check`); (b) `pretrain.main` on the granite YAML for each
+    family (`FAMILIES_TRAIN_LAYERS`, 3 steps of 1 x [2, 4096], remat of every block);
+    (c) the hybrid's trained weights in bf16: `generate_tokens` over `FAMILIES_GENERATE`
+    left-padded prompts, the 2-layer card / CPU check (`rnn_generation_check`) and the delta
+    rule's forms against each other (`delta_rule_check`); (d) dense_moe at 8 layers behind
+    the paged engine, dense and top-2. Launch counts asserted exactly in each. `rehearsal`
+    (the CPU only) cuts the widths and the sequence. Returns the record and the launch
+    counts summed over the phase."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch import pretrain
+    from dolomite_engine_tpu_torch.generation_utils import generate_tokens
+    from dolomite_engine_tpu_torch.models import (
+        DenseMoEConfig,
+        DenseMoEForCausalLM,
+        GPTCrossLayerConfig,
+        GPTDolomiteForCausalLM,
+        RNNDolomiteConfig,
+        RNNDolomiteForCausalLM,
+        config_from_dict,
+        convert_gpt_dolomite_to_gpt_crosslayer,
+    )
+    from dolomite_engine_tpu_torch.models.gpt_crosslayer import group_layout
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.train_utils import get_model_tflops
+
+    started = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    widths = dict(GRANITE_3B_CODE, **(rehearsal or {}).get("model", {}))
+    total = {spec.name: 0 for spec in KERNELS}
+    forms_total = {}
+
+    def add(launches, forms):
+        for name, n in launches.items():
+            total[name] += n
+        for form, n in forms.items():
+            forms_total[form] = forms_total.get(form, 0) + n
+
+    record = {}
+    specs = serving_specs(seed, widths["vocab_size"])
+
+    # (a) CLA2 serving at all 32 layers, and the identity conversion's check
+    t0 = time.perf_counter()
+    _free(device)
+    dense = GPTDolomiteForCausalLM(config_from_dict(widths), dtype=torch.bfloat16, device=device, seed=seed)
+    cla2 = convert_gpt_dolomite_to_gpt_crosslayer(dense, cla2_pattern(dense.config.n_layer)).eval()
+    identity = crosslayer_identity_check(dense, seed, (rehearsal or {}).get("identity_prompt", FAMILIES_IDENTITY_PROMPT))
+    dense_bytes = bf16_kv_bytes(dense.config)
+    del dense
+    _free(device)
+    groups = len(group_layout(cla2.config.sharing_pattern))
+    serving, _ = _family_serve(cla2, specs, device, 2 * cla2.config.n_layer + groups + 1)
+    assert 2 * serving["kv_bytes_per_token"] == dense_bytes, (serving["kv_bytes_per_token"], dense_bytes)
+    add(serving["launches"], serving["launch_forms"])
+    record["crosslayer_serving"] = {
+        "sharing_pattern": "CLA2", "kv_groups": groups, **serving, "dense_kv_bytes_per_token": dense_bytes,
+        "identity_check": identity, "seconds": time.perf_counter() - t0,
+    }
+    del cla2
+    _free(device)
+
+    # (b) pretrain.main for each family on the granite YAML
+    own_work = work is None
+    work = work or tempfile.mkdtemp(prefix="dolomite-families-")
+    os.makedirs(work, exist_ok=True)
+    corpus, _, _ = pretrain_corpus(work, seed, widths["vocab_size"], widths["eos_token_id"], FAMILIES_DOCUMENTS)
+    experts = min(FAMILIES_EXPERTS, widths["n_head"])
+    family_configs = {
+        "gpt_crosslayer": {"sharing_pattern": cla2_pattern(FAMILIES_TRAIN_LAYERS["gpt_crosslayer"])},
+        "dense_moe": {"num_experts": experts, "n_inner": widths["n_inner"] // experts},
+        "rnn_dolomite": {"attention_pattern": FAMILIES_RNN_PATTERN * (FAMILIES_TRAIN_LAYERS["rnn_dolomite"] // len(FAMILIES_RNN_PATTERN))},
+    }
+    remat = {"checkpoint_every": 1, "policy": "full"}
+    save = pretrain.save_checkpoint
+    record["pretrain"] = {}
+    rnn_state = None
+    try:
+        pretrain.save_checkpoint = lambda *args, **kwargs: None  # phase 12 measures the save
+        for model_type, extra in family_configs.items():
+            t0 = time.perf_counter()
+            layers = FAMILIES_TRAIN_LAYERS[model_type]
+            options = {
+                "model_args": {"scan_layers": False, "pretrained_config": {"model_type": model_type, **extra}},
+                "distributed_args": {"gradient_checkpointing_args": remat},
+                "training_parameters": {"micro_batch_size": FAMILIES_MICRO, "gradient_accumulation_steps": 1, "eval_during_training": False},
+            }
+            args = pretrain_args(corpus, os.path.join(work, model_type), FAMILIES_STEPS, n_layer=layers, rehearsal=rehearsal, options=options)
+            config = config_from_dict(args.model_args.pretrained_config)
+            seq = args.datasets[0].class_args["sequence_length"]
+            capture = {} if model_type == "rnn_dolomite" else None
+            _free(device)
+            two_layers = {"gpt_crosslayer": {"sharing_pattern": [0, 0]}, "rnn_dolomite": {"attention_pattern": "da"}}
+            check_config = dict(args.model_args.pretrained_config, n_layer=2, **two_layers.get(model_type, {}))
+            check = family_training_check(seed, check_config, device, (1, seq))
+            _free(device)
+            reset_launch_counts()
+            summary = _run_pretrain(args, device, capture=capture)
+            launches, forms = {k.name: k.launches for k in KERNELS}, form_counts()
+            peak = _peak_gb(device)
+            expected = family_training_launches(config, FAMILIES_STEPS, seq)
+            if on_card:
+                assert launches == expected, (model_type, launches, expected)
+                assert forms == ({"rope_qkv:flat": expected["rope_qkv"]} if expected["rope_qkv"] else {}), forms
+                assert peak < TRAIN_PEAK_GB, f"{model_type}: peak device memory {peak:.1f} GB"
+            add(launches, forms)
+            steps = summary["steps"]
+            losses = [s["loss"] for s in steps]
+            assert len(losses) == FAMILIES_STEPS and all(np.isfinite(losses)) and not any(s["skipped"] for s in steps), steps
+            mean_step = sum(s["step_seconds"] for s in steps[1:]) / (len(steps) - 1)
+            tflops = get_model_tflops(config, FAMILIES_MICRO, seq, "block", remat)
+            record["pretrain"][model_type] = {
+                "n_layer": layers, **extra, "micro_batch": FAMILIES_MICRO, "accumulation": 1, "seq": seq,
+                "losses": losses, "grad_norms": [s["grad_norm"] for s in steps], "step_s": [s["step_seconds"] for s in steps],
+                "mean_step_s_after_warmup": mean_step, "tokens_per_s": FAMILIES_MICRO * seq / mean_step,
+                "model_tflops_per_step": tflops, "mfu": tflops / mean_step / (PEAK_FLOPS["bfloat16"] / 1e12),
+                "peak_memory_gb": peak, "launches": launches, "expected_launches": expected, "launch_forms": forms,
+                "training_check": check, "seconds": time.perf_counter() - t0,
+            }
+            if capture is not None:
+                rnn_state = _full_state_dict(capture.pop("state").model)
+                rnn_config = config
+            del summary
+    finally:
+        pretrain.save_checkpoint = save
+        if own_work:
+            shutil.rmtree(work, ignore_errors=True)
+    _free(device)
+
+    # (c) the hybrid's generation from (b)'s weights in bf16, its check, the delta rule
+    t0 = time.perf_counter()
+    model = RNNDolomiteForCausalLM(rnn_config, dtype=torch.bfloat16, device="meta", attention_implementation="flash_attention_2")
+    model.to_empty(device=device)
+    model.load_state_dict(rnn_state)
+    model.eval()
+    del rnn_state
+    rs = np.random.RandomState(seed)
+    count, new = FAMILIES_GENERATE
+    width = (rehearsal or {}).get("generate_width", 1024)
+    ids, mask = _left_padded_prompts(rs, rnn_config.vocab_size, count, width // 4, width)
+    generate_tokens(model, ids[:1, -128:], mask[:1, -128:], None, 2, pad_token_id=0)  # warm-up
+    _sync(device)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    generated, counts = generate_tokens(model, ids, mask, None, new, pad_token_id=0)
+    _sync(device)
+    generate_s = time.perf_counter() - t1
+    launches, forms = {k.name: k.launches for k in KERNELS}, form_counts()
+    deltanet = rnn_config.attention_pattern.count("d")
+    attention = rnn_config.n_layer - deltanet
+    expected = {spec.name: 0 for spec in KERNELS}
+    # one prefill over the padded prompts (flash with the padding's segment ids) and new - 1
+    # decode steps; every forward: the norms and the attention layers' flat rope
+    expected.update(rmsnorm=(3 * deltanet + 2 * attention + 1) * new, rope_qkv=attention * new, flash_attn_fwd=attention)
+    if on_card:
+        assert launches == expected, (launches, expected)
+        assert forms == {"rope_qkv:flat": expected["rope_qkv"]}, forms
+    add(launches, forms)
+    assert counts.tolist() == [new] * count and bool(((generated >= 0) & (generated < rnn_config.vocab_size)).all())
+    record["rnn_generation"] = {
+        "prompts": count, "width": width, "prompt_tokens": mask.sum(1).tolist(), "new_tokens": new,
+        "seconds": generate_s, "tok_s": count * new / generate_s, "launches": launches, "launch_forms": forms,
+        "check": rnn_generation_check(model, seed, device),
+        "delta_rule": delta_rule_check(seed, device, (rehearsal or {}).get("delta_rule_shape", DELTA_RULE_SHAPE)),
+    }
+    record["rnn_generation"]["seconds_total"] = time.perf_counter() - t0
+    del model
+    _free(device)
+
+    # (d) dense_moe behind the paged engine at 8 layers, dense and top-2
+    t0 = time.perf_counter()
+    config = DenseMoEConfig.from_dict(dict(
+        widths, model_type="dense_moe", n_layer=FAMILIES_MOE_SERVE_LAYERS, num_experts=experts,
+        n_inner=widths["n_inner"] // experts,
+    ))
+    model = DenseMoEForCausalLM(config, dtype=torch.bfloat16, device=device, seed=seed).eval()
+    moe = {}
+    for name, method in (("dense", None), ("top_k", FAMILIES_MOE_TOP_K)):
+        for block in model.transformer.h:
+            block.attn.inference_method = block.mlp.inference_method = method
+        moe[name], tokens = _family_serve(model, specs, device, 2 * config.n_layer + 1)
+        moe[name]["greedy"] = tokens
+        add(moe[name]["launches"], moe[name]["launch_forms"])
+    agreement = _agreement(moe["dense"].pop("greedy"), moe["top_k"].pop("greedy"))
+    record["dense_moe_serving"] = {
+        "n_layer": config.n_layer, "num_experts": experts, "n_inner": config.n_inner, **moe,
+        "top_k_inference_method": FAMILIES_MOE_TOP_K, "greedy_agreement_dense_vs_top_k": agreement,
+        "seconds": time.perf_counter() - t0,
+    }
+    del model
+    _free(device)
+    assert total["paged_decode_attention"] == total["paged_prefill_attention"] == 0, total
+    record.update(seconds=time.perf_counter() - started, launches=total, launch_forms=forms_total)
+    return record, total
+
+
 def _model_bytes(state_path):
     """The bytes of the model's weights in a checkpoint's `state/` (its DCP metadata): what
     an inference load reads."""
@@ -6470,6 +7036,11 @@ def main() -> int:
     cases += seq2seq_cases  # (d): the flash kernel's query-bias form, in the kernels line with phase 2's
     print(json.dumps({"seq2seq": seq2seq, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"kernel_cases_seq2seq": seq2seq_cases, "card": card}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    families, families_launches = families_phase(args.seed)
+    print(json.dumps({"families": families, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
 
     records = {
         "serving": serving, "training": training, "moe_serving": moe_serving, "moe_training": moe_training,
@@ -6481,6 +7052,7 @@ def main() -> int:
         "finetune": {"launch_forms": finetune["launch_forms"]}, "interop": {"launch_forms": interop["launch_forms"]},
         "distribution": {"launch_forms": distribution["launch_forms"]},
         "seq2seq": {"launch_forms": seq2seq["launch_forms"]},
+        "families": {"launch_forms": families["launch_forms"]},
     }
 
     verify_keys = ("shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -6514,6 +7086,7 @@ def main() -> int:
             "finetune": finetune["launches"][spec.name], "interop": interop["launches"][spec.name],
             "distribution": distribution_launches[spec.name],
             "seq2seq": seq2seq_launches[spec.name],
+            "families": families_launches[spec.name],
         }
         launches = sum(by_path.values())
         assert launches > 0, f"{spec.name} was never launched on the main path"

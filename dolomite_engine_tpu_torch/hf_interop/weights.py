@@ -15,6 +15,13 @@ layout is the JAX package's own (T5-style names, flat fused projections).
 JAX package's key order and each tensor in its own dtype; `state_dict_to_params` reads it
 back to the port's names, each tensor in the file's dtype (the caller casts into the
 model's parameters).
+
+Of the other families the JAX functions know none: they walk every layer as a dense block.
+A ``dense_moe`` model fits that walk and its two routing gates a block are left out, as the
+JAX export leaves them out (so its directory does not load back, in either package). A
+``gpt_crosslayer`` model, and an ``rnn_dolomite`` one with a DeltaNet layer, have no
+``ln_1`` / ``c_attn`` where the walk reads them and the JAX functions fail with a KeyError:
+the port refuses both with a ValueError (`check_hf_layout`).
 """
 
 from __future__ import annotations
@@ -85,10 +92,23 @@ def _check_not_peft(names) -> None:
         )
 
 
+def check_hf_layout(config: CommonConfig) -> None:
+    """Refuse a family whose blocks the reference layout cannot hold (the JAX functions
+    fail on them with a KeyError)."""
+    if config.model_type == "gpt_crosslayer" or "d" in (getattr(config, "attention_pattern", None) or ""):
+        raise ValueError(
+            f"a {config.model_type} model has no HF dolomite layout: its blocks ("
+            + ("KV groups of query-only layers" if config.model_type == "gpt_crosslayer" else "DeltaNet layers")
+            + ") have no ln_1 / c_attn where the layout reads every layer as a dense block, and the JAX "
+            "package's params_to_state_dict fails on them with a KeyError"
+        )
+
+
 # ---------------------------------------------------------------- module state -> file
 def params_to_state_dict(config: CommonConfig, params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The port's ``model.state_dict()`` -> the reference-layout state dict."""
     _check_not_peft(params)
+    check_hf_layout(config)
     if config.model_type == "enc_dec_dolomite":
         return _enc_dec_params_to_state_dict(config, params)
 
@@ -159,6 +179,7 @@ def state_dict_to_params(config: CommonConfig, get_tensor: Callable[[str], torch
     a `SafeTensorsWeightsManager`."""
     if hasattr(get_tensor, "get_tensor"):
         get_tensor = get_tensor.get_tensor
+    check_hf_layout(config)
     if config.model_type == "enc_dec_dolomite":
         return _enc_dec_state_dict_to_params(config, get_tensor)
 

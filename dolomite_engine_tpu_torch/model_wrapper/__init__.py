@@ -33,6 +33,7 @@ def get_model(args, mode: Mode = Mode.training, device: str | torch.device = "cu
         seed=args.random_args.seed,
         mode=mode,
         model_class=model_args.model_class,
+        scan_layers=model_args.scan_layers,
     )
     if mode == Mode.training:
         dist = args.distributed_args

@@ -96,12 +96,16 @@ class ModelWrapper:
         device: str | torch.device = "cuda",
         seed: int = 0,
         model_class: str | None = None,
+        scan_layers: bool = False,
     ) -> None:
         """`dtype` is the compute dtype ("fp8": bf16 compute with fp8 dots, the state in
         `fp8`) and `param_dtype` (default `dtype`) the storage of the linear and embedding
         weights: fp32 master weights for training, the compute dtype for inference.
         `model_class` (the YAML's, when given) must match the family: an encoder-decoder
-        takes ``AutoModelForSeq2SeqLM``, the decoder-only families ``AutoModelForCausalLM``."""
+        takes ``AutoModelForSeq2SeqLM``, the decoder-only families ``AutoModelForCausalLM``.
+        `scan_layers` changes nothing in the port (its blocks run in a Python loop) but is
+        refused, as in JAX, for the families whose blocks differ (MoE's extra outputs,
+        cross-layer groups, the hybrid's mixers)."""
         self.mode = mode
         self.model_name = model_name
         if model_name is not None:
@@ -118,6 +122,12 @@ class ModelWrapper:
                 f"model_class '{model_class}' does not match model_type '{self.model_type}': "
                 "encoder-decoder families require AutoModelForSeq2SeqLM, decoder-only families "
                 "AutoModelForCausalLM"
+            )
+        if scan_layers and self.model_type not in ("gpt_dolomite", "enc_dec_dolomite"):
+            raise ValueError(
+                f"scan_layers supports gpt_dolomite and enc_dec_dolomite (got "
+                f"'{self.model_type}'): MoE extras, per-group crosslayer and pattern-mixed "
+                "RNN blocks cannot ride one homogeneous scan"
             )
         # fp8 = bf16 compute + delayed-scaling fp8 dots (`ops/fp8.py`), as in the JAX package
         self.use_fp8 = dtype == "fp8"

@@ -2,8 +2,9 @@
 
 Framework-neutral: the same field names, defaults and validation — including
 `head_dim`, `num_key_value_heads` and the mha/mqa/gqa head-type rules — so a config
-built for the JAX package builds the same model here. `MoEConfig` adds the MoE knobs;
-the other families' configs are ported with their models.
+built for the JAX package builds the same model here. `MoEConfig` adds the MoE knobs, and
+each other family's config its own (`GPTCrossLayerConfig`, `DenseMoEConfig`,
+`EncDecDolomiteConfig`, `RNNDolomiteConfig`), with the JAX package's checks and errors.
 """
 
 from __future__ import annotations
@@ -178,6 +179,54 @@ class MoEConfig(CommonConfig):
 
 
 @dataclass
+class GPTCrossLayerConfig(CommonConfig):
+    """Cross-layer KV sharing (`dolomite_engine_tpu/models/config.py`'s
+    `GPTCrossLayerConfig`): ``sharing_pattern[i]`` is the layer whose K/V layer i attends
+    with (default: each its own), consecutive equal entries form one KV group, and every
+    parent references itself. The head type is forced to ``gqa``. `joint_residual_stream`
+    adds a group's input to every sub-layer's residual after attention."""
+
+    model_type: str = "gpt_crosslayer"
+    sharing_pattern: list[int] | None = None
+    joint_residual_stream: bool = False
+
+    def __post_init__(self) -> None:
+        self.attention_head_type = "gqa"
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.n_head
+        super().__post_init__()
+        if self.sharing_pattern is None:
+            self.sharing_pattern = list(range(self.n_layer))
+        assert len(self.sharing_pattern) == self.n_layer
+        assert all(
+            self.sharing_pattern[i] == i for i in set(self.sharing_pattern)
+        ), "a filled sharing pattern doesn't have a parent layer"
+        assert all(
+            self.sharing_pattern[i] <= self.sharing_pattern[i + 1]
+            for i in range(len(self.sharing_pattern) - 1)
+        )
+        assert all(0 <= p < self.n_layer for p in self.sharing_pattern)
+
+
+@dataclass
+class DenseMoEConfig(CommonConfig):
+    """Dense training, sparse inference (`dolomite_engine_tpu/models/config.py`'s
+    `DenseMoEConfig`): one KV head an expert (``num_key_value_heads = num_experts``), the
+    head type ``mha`` when the experts equal the heads, else ``gqa``."""
+
+    model_type: str = "dense_moe"
+    num_experts: int = 8
+
+    def __post_init__(self) -> None:
+        assert self.n_head % self.num_experts == 0, (
+            "number of attention heads must be divisible by the number of experts"
+        )
+        self.num_key_value_heads = self.num_experts
+        self.attention_head_type = "mha" if self.num_experts == self.n_head else "gqa"
+        super().__post_init__()
+
+
+@dataclass
 class EncDecDolomiteConfig(CommonConfig):
     """The encoder-decoder family's knobs (`dolomite_engine_tpu/models/config.py`'s
     `EncDecDolomiteConfig`): `n_layer` counts decoder blocks and `n_encoder_layer` (default
@@ -207,3 +256,20 @@ class EncDecDolomiteConfig(CommonConfig):
             self.decoder_start_token_id = next(
                 (t for t in (self.bos_token_id, self.pad_token_id) if t is not None), 0
             )
+
+
+@dataclass
+class RNNDolomiteConfig(CommonConfig):
+    """The DeltaNet / attention hybrid (`dolomite_engine_tpu/models/config.py`'s
+    `RNNDolomiteConfig`): `attention_pattern` is a string over ``d`` (DeltaNet) and ``a``
+    (softmax attention), one letter a layer, default all ``d``."""
+
+    model_type: str = "rnn_dolomite"
+    attention_pattern: str | None = None
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.attention_pattern is None:
+            self.attention_pattern = "d" * self.n_layer
+        assert len(self.attention_pattern) == self.n_layer
+        assert set(self.attention_pattern) <= {"a", "d"}

@@ -9,10 +9,14 @@ follow the flax parameter tree (``transformer.wte``, ``transformer.h.<i>.attn.c_
 ...), so `load_jax_params` maps the JAX package's unrolled params one to one. No scan: torch runs the blocks in a
 Python loop.
 
-The hooks the JAX base class gives other families are kept: `GPTDolomiteModel.block_cls`
-/ `_make_block` choose the block, the loop collects each block's extra outputs (MoE
-router logits) with and without remat, and `compute_aux_loss` turns them into a loss
-added once on either loss path (`models/moe_dolomite.py`).
+The hooks the JAX base class gives other families are kept: `GPTDolomiteModel.block_cls`,
+`num_blocks` (one block a KV group in `models/gpt_crosslayer.py`) and `_make_block(i,
+...)` (block i's options: the hybrid's mixer in `models/rnn_dolomite.py`) build the
+blocks, `GPTDolomiteForCausalLM.init_kv_caches` gives one `dense_kv_cache` a block unless
+a family overrides it, the loop collects each block's extra outputs (MoE router logits)
+with and without remat, and `compute_aux_loss` turns them into a loss added once on
+either loss path (`models/moe_dolomite.py`). Every block takes `Block.forward`'s
+arguments in its order and carries `tag_attention_out`, which `set_remat` sets.
 """
 
 from __future__ import annotations
@@ -79,8 +83,8 @@ class GPTDolomiteModel(nn.Module):
             else None
         )
         self.h = nn.ModuleList(
-            self.block_cls(config, dtype, device, param_dtype, attention_implementation, **block_kwargs)
-            for _ in range(config.n_layer)
+            self._make_block(i, dtype, device, param_dtype, attention_implementation, **block_kwargs)
+            for i in range(self.num_blocks)
         )
         self.ln_f = get_norm(config, device)
         self.set_remat(checkpoint_every, checkpoint_policy)
@@ -93,6 +97,25 @@ class GPTDolomiteModel(nn.Module):
             )
             if self.pe_type == PositionEmbeddingType.rope
             else None
+        )
+
+    @property
+    def num_blocks(self) -> int:
+        """The number of blocks (cross-layer KV sharing builds one a KV group)."""
+        return self.config.n_layer
+
+    def _make_block(
+        self,
+        i: int,
+        dtype: torch.dtype,
+        device: torch.device,
+        param_dtype: torch.dtype | None,
+        attention_implementation: AttentionImplementation | str,
+        **block_kwargs,
+    ) -> nn.Module:
+        """Block `i` of the stack."""
+        return self.block_cls(
+            self.config, dtype, device, param_dtype, attention_implementation, **block_kwargs
         )
 
     def set_remat(self, checkpoint_every: int, policy: str | RematPolicy | None = None) -> None:
@@ -137,10 +160,11 @@ class GPTDolomiteModel(nn.Module):
         if not deterministic and config.embd_pdrop > 0.0:
             hidden_states = F.dropout(hidden_states, config.embd_pdrop)
 
-        # a paged cache gathers to max_pages * page_size keys
+        # the first K/V cache gives the key length (the hybrid's DeltaNet layers hold
+        # recurrent states); a paged cache gathers to max_pages * page_size keys
         key_length = seq
-        if kv_caches:
-            cache = kv_caches[0]
+        cache = next((c for c in kv_caches or () if "k" in c), None)
+        if cache is not None:
             key_length = (
                 cache["page_table"].shape[1] * cache["k"].shape[1]
                 if "page_table" in cache
@@ -341,18 +365,26 @@ class GPTDolomiteForCausalLM(nn.Module):
             logits = logits / self.config.m_width
         return logits
 
-    def init_kv_caches(
+    def dense_kv_cache(
         self, batch_size: int, max_length: int, dtype: torch.dtype | None = None
-    ) -> list[KVCache]:
+    ) -> KVCache:
+        """One block's K/V cache ``{"k", "v": [batch_size, max_length, Hkv, D]}`` of
+        zeros (`dtype`, default the compute dtype)."""
         config = self.config
         shape = (batch_size, max_length, config.num_key_value_heads, config.head_dim)
         dtype = dtype or self.dtype
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=dtype, device=self.device),
+        }
+
+    def init_kv_caches(
+        self, batch_size: int, max_length: int, dtype: torch.dtype | None = None
+    ) -> list[KVCache]:
+        """One cache a block, in block order (the serving pools size themselves from it)."""
         return [
-            {
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device),
-            }
-            for _ in range(config.n_layer)
+            self.dense_kv_cache(batch_size, max_length, dtype)
+            for _ in range(self.transformer.num_blocks)
         ]
 
 

@@ -387,6 +387,20 @@ def _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask):
     return k_view, v_view, attention_mask
 
 
+def cache_attention_view(key, value, kv_cache, cache_index, attention_mask):
+    """Write the new K/V into a dense cache or a paged pool and return ``(key, value,
+    attention_mask, query_offset)`` over the cache's whole view: the JAX package's
+    `update_kv_cache`, with no prefill shortcut and no paged kernel (the cross-layer and
+    dense-MoE families' attention)."""
+    if cache_index is None:
+        raise ValueError("a KV cache needs a cache_index")
+    if "page_table" in kv_cache:
+        key, value, attention_mask = _update_paged_kv_cache(key, value, kv_cache, cache_index, attention_mask)
+    else:
+        key, value, attention_mask = update_kv_cache(key, value, kv_cache, cache_index, attention_mask)
+    return key, value, attention_mask, cache_index
+
+
 class Attention(nn.Module):
     """Self-attention with the fused QKV projection, RoPE or an alibi bias, and a dense
     KV cache or a paged KV pool."""

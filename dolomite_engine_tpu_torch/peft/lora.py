@@ -50,11 +50,17 @@ def add_lora(
     seed: int = 0,
 ) -> list[str]:
     """Give the targeted linears of `model` their adapters (initialised from `seed`, on the
-    model's device); returns the targeted module names. No target raises, as a YAML typo
-    would otherwise train nothing."""
+    model's device); returns the targeted module names. No target raises, where the JAX
+    package's LoRA adapts nothing and trains nothing (a YAML typo, or the default
+    ``c_attn`` on a cross-layer model, whose projections are ``q_attn`` / ``kv_attn``)."""
     found = lora_targets(model, tuple(targets))
     if not found:
-        raise ValueError(f"no linear of the model matches the LoRA targets {tuple(targets)}")
+        names = sorted({name.rsplit(".", 1)[-1] for name, _ in lora_targets(model, ("",))})
+        raise ValueError(
+            f"no linear of the model matches the LoRA targets {tuple(targets)} (its linears: "
+            f"{', '.join(names)}): the JAX package's LoRA would adapt none and train nothing; "
+            "set lora_target_modules"
+        )
     spec = LoRASpec(int(rank), float(alpha), float(dropout))
     generator = None
     for name, module in found:

@@ -49,7 +49,9 @@ tracing spans and telemetry counters of the JAX engine wait for ROADMAP.md Queue
 'Serving fleet and observability'.
 
 Options of the JAX engine that this port does not carry yet raise NotImplementedError
-naming the ROADMAP.md item that will port them.
+naming the ROADMAP.md item that will port them. Every decoder-only family serves but the
+DeltaNet hybrid (``rnn_dolomite``), whose recurrent caches the pools do not hold: it
+raises ValueError, where the JAX engine fails on them.
 """
 
 from __future__ import annotations
@@ -293,6 +295,10 @@ class ServingEngine:
         **not_ported: Any,
     ) -> None:
         self.device = resolve_device(device)
+        if getattr(model.config, "model_type", None) == "rnn_dolomite":
+            from ..models.rnn_dolomite import ENGINE_REFUSAL
+
+            raise ValueError(ENGINE_REFUSAL)
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"ServingEngine got an unexpected keyword argument {name!r}")

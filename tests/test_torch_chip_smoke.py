@@ -293,3 +293,35 @@ def test_seq2seq_phase_rehearsal(monkeypatch, tmp_path):
         assert all(gap <= check["near_tie_bound"] for _, _, gap in check["parted"])
         assert check["logits_check"]["max_abs_err"] == check["logits_max_abs_err"] == check["near_tie_bound"] / 2
     assert len(record["kernel_check"]) == 2
+
+
+def test_families_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 22 at 64 wide (4 heads, so dense_moe has 4 experts): (a) CLA2 serving and the
+    identity conversion's check, (b) `pretrain.main` for the three families at 4 layers,
+    (c) the hybrid's generation, its 2-layer check (here CPU bf16 against CPU fp32) and the
+    delta rule's forms, (d) dense_moe serving dense and top-2. No kernel launches on the
+    CPU."""
+    monkeypatch.chdir(REPO)
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "FAMILIES_TRAIN_LAYERS", {"gpt_crosslayer": 4, "dense_moe": 2, "rnn_dolomite": 4})
+    monkeypatch.setattr(chip_smoke, "FAMILIES_MOE_SERVE_LAYERS", 2)
+    monkeypatch.setattr(chip_smoke, "MAX_NEW", 8)
+    rehearsal = {
+        "model": dict(n_embd=64, n_head=4, n_inner=128, vocab_size=512, n_layer=4), "sequence_length": 128,
+        "identity_prompt": 64, "generate_width": 128, "delta_rule_shape": (1, 2, 128, 16),
+    }
+    record, launches = chip_smoke.families_phase(0, device="cpu", rehearsal=rehearsal, work=str(tmp_path / "work"))
+    assert not any(launches.values()) and record["launch_forms"] == {}
+    serving = record["crosslayer_serving"]
+    assert serving["kv_groups"] == 2 and 2 * serving["kv_bytes_per_token"] == serving["dense_kv_bytes_per_token"]
+    assert serving["identity_check"]["identity_vs_dense_max_abs_err"] < 1e-4  # fp32 here: the same model
+    for model_type, run in record["pretrain"].items():
+        assert len(run["losses"]) == chip_smoke.FAMILIES_STEPS and run["seq"] == 128, model_type
+    generation = record["rnn_generation"]
+    assert generation["check"]["rows_identical"] + len(generation["check"]["parted"]) == generation["check"]["prompts"]
+    assert generation["delta_rule"]["fp32_max_abs_err"] < 1e-4
+    moe = record["dense_moe_serving"]
+    assert moe["num_experts"] == 4 and 0.0 <= moe["greedy_agreement_dense_vs_top_k"] <= 1.0
+    assert moe["dense"]["requests"] == moe["top_k"]["requests"] == 8 and moe["top_k_inference_method"] == {"top_k": 2}

@@ -67,6 +67,13 @@ def test_the_distribution_modules_are_covered():
     assert not _imported_roots(REPO / "tests" / "torch_ranks.py") & set(FORBIDDEN)
 
 
+def test_the_family_modules_are_covered():
+    """The cross-layer, dense-MoE and DeltaNet-hybrid modules are among the checked ones."""
+    modules = set(_port_modules())
+    for name in ("models.gpt_crosslayer", "models.dense_moe", "models.rnn_dolomite", "ops.deltanet"):
+        assert f"dolomite_engine_tpu_torch.{name}" in modules, name
+
+
 def test_every_module_imports_with_jax_blocked():
     script = "\n".join(
         [

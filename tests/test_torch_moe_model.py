@@ -104,13 +104,10 @@ def test_registry_builds_moe_and_names_unported_families():
     assert tuple(model.transformer.h[0].moe.c_fc.weight.shape) == (4, 32, 2 * 128)  # [E, d, 2f]
     assert isinstance(config_from_dict({"n_embd": 32, "n_head": 4}), CommonConfig)
     assert get_model_class("gpt_dolomite") is GPTDolomiteForCausalLM
-    # enc_dec_dolomite is ported (tests/test_torch_enc_dec.py); the other three still refuse
-    assert get_model_class("enc_dec_dolomite").model_type == "enc_dec_dolomite"
-    for family in ("gpt_crosslayer", "dense_moe", "rnn_dolomite"):
-        with pytest.raises(NotImplementedError, match="Queue A, 'Other families and parallel ops'"):
-            get_model_class(family)
-        with pytest.raises(NotImplementedError, match="Other families and parallel ops"):
-            config_from_dict({"model_type": family})
+    # every family of the JAX registry builds (tests/test_torch_{enc_dec,crosslayer,dense_moe,rnn_dolomite}.py)
+    for family in ("enc_dec_dolomite", "gpt_crosslayer", "dense_moe", "rnn_dolomite"):
+        assert get_model_class(family).model_type == family
+        assert config_from_dict({"model_type": family, "n_embd": 32, "n_head": 4, "n_layer": 2, "num_experts": 2}).model_type == family
     with pytest.raises(ValueError, match="unknown model_type"):
         get_model_class("not_a_model")
     with pytest.raises(ValueError, match="unknown model_type"):
