@@ -178,13 +178,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    requests: bytes a cached token exactly half the dense pool's, and the identity-pattern
    conversion's teacher-forced logits held to the dense model's within a bound from the
    dense bf16 model's own error against an fp32 run; (b) `pretrain.main` on the granite YAML
-   with ``model_type`` set to each family (CLA2 at 8 layers; dense_moe with 8 experts of
-   1280 at 8 layers; the ``ddda`` hybrid at all 32), 3 steps of 1 x [2, 4096] with remat of
-   every block: step time, MFU, peak memory, finite losses; (c) the hybrid's trained weights
+   with ``model_type`` set to each family (CLA2 at 8 layers, and the dense model under its
+   options as the baseline its losses are read against; dense_moe with 8 experts of 1280 at
+   8 layers; the ``ddda`` hybrid at all 32), 3 steps of 1 x [2, 4096] with remat of every
+   block: step time, MFU, peak memory, finite losses; (c) the hybrid's trained weights
    in bf16: 8 left-padded prompts greedy x 64 through `generate_tokens`, a 2-layer card /
    CPU fp32 check (near ties only), the chunked delta rule against the recurrent one at
    [2, 32, 4096, 80]; (d) dense_moe at 8 layers behind the paged engine, dense and top-2,
-   and their greedy agreement. Launch counts asserted exactly; no paged-kernel launch (both
+   their greedy agreement, and a 2-layer teacher-forced check that top-2 routing takes effect
+   on the card and matches the CPU's fp32 top-2. Launch counts asserted exactly; no paged-kernel launch (both
    families attend over the gathered pages, as in JAX). Cuts: one card, seeded weights, no
    eval and no checkpoint write in (b) (phase 12 measures the save), the YAML's
    ``scan_layers`` off (JAX refuses it for these families).
@@ -409,7 +411,9 @@ def _paged_case(gen, lengths, width, heads, head_dim, max_pages, dtype):
 
 def rmsnorm_kernel_cases(seed):
     """Phase 2, rmsnorm: the ln_1 / ln_f form (no residual) and the ln_2 form (residual)
-    at granite's rows [4096, 2560] and the MoE slice's width [4096, 1024], bf16 and fp32,
+    at granite's rows [4096, 2560] and the MoE slice's width [4096, 1024]; and phase 22's
+    DeltaNet ``o_norm`` (no residual) over granite's heads of 80, at its training rows
+    (1 x [2, 4096] x 32 heads) and its decode rows (8 prompts x 32 heads); bf16 and fp32,
     against its plain version, with `F.rms_norm` as the library call of the plain form."""
     import torch
     import torch.nn.functional as F
@@ -417,16 +421,21 @@ def rmsnorm_kernel_cases(seed):
     from dolomite_engine_tpu_torch.ops.kernels import rmsnorm
 
     cases = []
-    rows = 8 * 512
+    heads, rows = GRANITE_3B_CODE["n_head"], 8 * 512
+    head_dim = GRANITE_3B_CODE["n_embd"] // heads
+    shapes = (
+        (rows, GRANITE_3B_CODE["n_embd"], True), (rows, MOE_EP["n_embd"], True),
+        (FAMILIES_MICRO * TRAIN_SEQ * heads, head_dim, False), (FAMILIES_GENERATE[0] * heads, head_dim, False),
+    )
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         es = torch.tensor([], dtype=dtype).element_size()
         fp32 = dtype == torch.float32
-        for d in (GRANITE_3B_CODE["n_embd"], MOE_EP["n_embd"]):
+        for rows, d, with_residual in shapes:
             x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
             r = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
             w = torch.randn((d,), generator=gen, device="cuda") * 0.1 + 1.0
-            for residual in (None, r):
+            for residual in (None, r) if with_residual else (None,):
                 got = rmsnorm.fused_rmsnorm(x, w, 1e-5, residual=residual)
                 want = rmsnorm.fused_rmsnorm_plain(x, w, 1e-5, residual=residual)
                 if residual is not None:
@@ -6338,6 +6347,7 @@ FAMILIES_EXPERTS = 8  # dense_moe: 8 experts of n_inner / 8, so the wide MLP is 
 FAMILIES_RNN_PATTERN = "ddda"  # repeated over the layers (tools/bench_sweep.py's default)
 FAMILIES_MOE_SERVE_LAYERS = 8
 FAMILIES_MOE_TOP_K = {"top_k": 2}
+FAMILIES_MOE_CHECK = {"layers": 2, "tokens": 256, "ratio": 4.0}  # (d)'s top-k check
 FAMILIES_IDENTITY_PROMPT = 512  # (a)'s identity-conversion check: teacher-forced tokens
 FAMILIES_GENERATE = (8, 64)  # (c): left-padded prompts x greedy new tokens
 FAMILIES_CHECK = {"layers": (2, 3), "pattern": "da", "prompts": 4, "width": 256, "new_tokens": 16}
@@ -6355,8 +6365,8 @@ def family_training_launches(config, micro_batches, seq):
     2N + 1 for the N norms of a forward (cross-layer: a group's ``kv_proj.ln`` and two a
     sub-layer; DeltaNet: ``ln_1``, ``o_norm``, ``ln_2``; attention: two), flash forward 2A
     and backward A over the A softmax-attention layers, the flat rope kernel 3A for the
-    hybrid's attention layers (the other two families rotate with plain PyTorch, as in
-    JAX), fused_ce one per 256-token chunk."""
+    hybrid's attention layers and the dense model (the other two families rotate with plain
+    PyTorch, as in JAX), fused_ce one per 256-token chunk."""
     from dolomite_engine_tpu_torch.models.gpt_crosslayer import group_layout
     from dolomite_engine_tpu_torch.ops.kernels import KERNELS
 
@@ -6366,6 +6376,8 @@ def family_training_launches(config, micro_batches, seq):
         norms, attention = len(group_layout(config.sharing_pattern)) + 2 * layers, layers
     elif config.model_type == "dense_moe":
         norms, attention = 2 * layers, layers
+    elif config.model_type == "gpt_dolomite":  # (b)'s dense baseline: the flat rope kernel in each layer
+        norms, attention, rope = 2 * layers, layers, 3 * layers
     else:
         deltanet = config.attention_pattern.count("d")
         attention = layers - deltanet
@@ -6593,7 +6605,10 @@ def family_training_check(seed, config_kwargs, device="cuda", shape=(1, TRAIN_SE
     """(b)'s check of a family's training kernel path: `config_kwargs` (2 layers) from one
     seeded set of fp32 master weights, a packed batch of `shape`; the kernel path (bf16,
     ``flash_attention_2``, remat of every block), the plain bf16 path (``sdpa``: masked
-    attention in PyTorch, no remat) and an fp32 ``sdpa`` reference, all on the card. The
+    attention in PyTorch, no remat) and an fp32 ``sdpa`` reference, all on the card. Only
+    attention and remat differ between them: on CUDA tensors all three run the rmsnorm,
+    rope and fused_ce kernels, which phase 2 holds to their plain versions (the DeltaNet
+    ``o_norm``'s rows of 80 included). The
     loss within 2e-2 of the plain bf16 path's; against the fp32 reference the kernel path's
     gradients err at most 1.5x the plain bf16 path's, pooled and for each parameter (a
     cross-layer group's K/V feeds both its sub-layers' flash calls, whose dK / dV add up)."""
@@ -6650,6 +6665,72 @@ def family_training_check(seed, config_kwargs, device="cuda", shape=(1, TRAIN_SE
     assert not off, f"gradients off against the fp32 reference: {off}; {check}"
     assert check["kernel_grad_rel_l2_err_vs_fp32"] <= 1.5 * check["plain_bf16_grad_rel_l2_err_vs_fp32"], check
     del wrapper, models, grads
+    return check
+
+
+def _copy_share(specs, tokens):
+    """The share of greedy tokens equal to the token before them (the prompt's last for the
+    first): with random tied embeddings the largest logit is mostly the input token's own."""
+    same = total = 0
+    for spec, row in zip(specs, tokens):
+        before = [spec["prompt_ids"][-1]] + list(row[:-1])
+        same += sum(a == b for a, b in zip(row, before))
+        total += len(row)
+    return same / total
+
+
+def dense_moe_top_k_check(model, seed, device):
+    """(d)'s check that top-k routing takes effect on the card and is right: the first
+    ``FAMILIES_MOE_CHECK["layers"]`` layers of `model` (with its embedding and final norm) as
+    a bf16 model on the card and an fp32 one on the CPU, teacher-forced over seeded tokens,
+    dense and under `FAMILIES_MOE_TOP_K`. Mean abs errors: the card's top-k logits lie at
+    least ``ratio`` times nearer the CPU's top-k logits than the CPU's dense ones, differ from
+    the card's dense logits by at least ``ratio`` times the card's dense error against the
+    CPU (the bf16 noise), and lie within 0.1 logit std of the CPU's top-k logits. A top-k
+    setting that took no effect would leave the card at its dense logits."""
+    import torch
+
+    from dolomite_engine_tpu_torch.models import DenseMoEConfig, DenseMoEForCausalLM
+
+    layers, ratio = FAMILIES_MOE_CHECK["layers"], FAMILIES_MOE_CHECK["ratio"]
+    config = DenseMoEConfig.from_dict(dict(model.config.to_dict(), n_layer=layers))
+    kept = tuple(f"transformer.h.{i}." for i in range(layers))
+    state = {n: t for n, t in model.state_dict().items() if not n.startswith("transformer.h.") or n.startswith(kept)}
+    generator = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, config.vocab_size, (1, FAMILIES_MOE_CHECK["tokens"]), generator=generator)
+    logits = {}
+    for where, dtype, on in (("card", torch.bfloat16, device), ("cpu", torch.float32, "cpu")):
+        built = DenseMoEForCausalLM(config, dtype=dtype, device="meta")
+        built.to_empty(device=on)
+        built.load_state_dict(state)
+        built.eval()
+        for name, method in (("dense", None), ("top_k", FAMILIES_MOE_TOP_K)):
+            for block in built.transformer.h:
+                block.attn.inference_method = block.mlp.inference_method = method
+            with torch.no_grad():
+                logits[where, name] = built(ids.to(on)).logits.float().cpu()
+        del built
+
+    def err(a, b, stat="mean"):
+        return getattr((logits[a] - logits[b]).abs(), stat)().item()
+
+    check = {
+        "layers": layers, "tokens": ids.shape[1], "top_k": FAMILIES_MOE_TOP_K, "logit_std": logits["cpu", "dense"].std().item(),
+        "card_top_k_vs_cpu_top_k_mean_abs_err": err(("card", "top_k"), ("cpu", "top_k")),
+        "card_top_k_vs_cpu_top_k_max_abs_err": err(("card", "top_k"), ("cpu", "top_k"), "max"),
+        "card_top_k_vs_cpu_dense_mean_abs_err": err(("card", "top_k"), ("cpu", "dense")),
+        "card_top_k_vs_card_dense_mean_abs_err": err(("card", "top_k"), ("card", "dense")),
+        "card_dense_vs_cpu_dense_mean_abs_err": err(("card", "dense"), ("cpu", "dense")),
+        "cpu_top_k_vs_cpu_dense_mean_abs_err": err(("cpu", "top_k"), ("cpu", "dense")),
+        "ratio": ratio,
+        "tolerance": f"mean abs errors: card top-k vs CPU fp32 top-k at most 1/{ratio:g} of card top-k vs CPU fp32 "
+        f"dense, and at most 0.1 logit std; card top-k vs card dense at least {ratio:g}x card dense vs CPU fp32 dense",
+    }
+    near = check["card_top_k_vs_cpu_top_k_mean_abs_err"]
+    assert all(bool(torch.isfinite(t).all()) for t in logits.values()), check
+    assert ratio * near <= check["card_top_k_vs_cpu_dense_mean_abs_err"], check
+    assert near <= 0.1 * check["logit_std"], check
+    assert check["card_top_k_vs_card_dense_mean_abs_err"] >= ratio * check["card_dense_vs_cpu_dense_mean_abs_err"], check
     return check
 
 
@@ -6735,8 +6816,11 @@ def families_phase(seed, device="cuda", rehearsal=None, work=None):
     os.makedirs(work, exist_ok=True)
     corpus, _, _ = pretrain_corpus(work, seed, widths["vocab_size"], widths["eos_token_id"], FAMILIES_DOCUMENTS)
     experts = min(FAMILIES_EXPERTS, widths["n_head"])
+    # the dense model under CLA2's options, seed and corpus: the baseline CLA2's losses are read against
+    layers_of = dict(FAMILIES_TRAIN_LAYERS, gpt_dolomite=FAMILIES_TRAIN_LAYERS["gpt_crosslayer"])
     family_configs = {
         "gpt_crosslayer": {"sharing_pattern": cla2_pattern(FAMILIES_TRAIN_LAYERS["gpt_crosslayer"])},
+        "gpt_dolomite": {},
         "dense_moe": {"num_experts": experts, "n_inner": widths["n_inner"] // experts},
         "rnn_dolomite": {"attention_pattern": FAMILIES_RNN_PATTERN * (FAMILIES_TRAIN_LAYERS["rnn_dolomite"] // len(FAMILIES_RNN_PATTERN))},
     }
@@ -6748,7 +6832,7 @@ def families_phase(seed, device="cuda", rehearsal=None, work=None):
         pretrain.save_checkpoint = lambda *args, **kwargs: None  # phase 12 measures the save
         for model_type, extra in family_configs.items():
             t0 = time.perf_counter()
-            layers = FAMILIES_TRAIN_LAYERS[model_type]
+            layers = layers_of[model_type]
             options = {
                 "model_args": {"scan_layers": False, "pretrained_config": {"model_type": model_type, **extra}},
                 "distributed_args": {"gradient_checkpointing_args": remat},
@@ -6761,7 +6845,7 @@ def families_phase(seed, device="cuda", rehearsal=None, work=None):
             _free(device)
             two_layers = {"gpt_crosslayer": {"sharing_pattern": [0, 0]}, "rnn_dolomite": {"attention_pattern": "da"}}
             check_config = dict(args.model_args.pretrained_config, n_layer=2, **two_layers.get(model_type, {}))
-            check = family_training_check(seed, check_config, device, (1, seq))
+            check = None if model_type == "gpt_dolomite" else family_training_check(seed, check_config, device, (1, seq))
             _free(device)
             reset_launch_counts()
             summary = _run_pretrain(args, device, capture=capture)
@@ -6786,6 +6870,8 @@ def families_phase(seed, device="cuda", rehearsal=None, work=None):
                 "peak_memory_gb": peak, "launches": launches, "expected_launches": expected, "launch_forms": forms,
                 "training_check": check, "seconds": time.perf_counter() - t0,
             }
+            if model_type == "gpt_dolomite":
+                record["pretrain"][model_type]["baseline_of"] = "gpt_crosslayer"
             if capture is not None:
                 rnn_state = _full_state_dict(capture.pop("state").model)
                 rnn_config = config
@@ -6850,10 +6936,12 @@ def families_phase(seed, device="cuda", rehearsal=None, work=None):
         moe[name], tokens = _family_serve(model, specs, device, 2 * config.n_layer + 1)
         moe[name]["greedy"] = tokens
         add(moe[name]["launches"], moe[name]["launch_forms"])
+    copies = {name: _copy_share(specs, run["greedy"]) for name, run in moe.items()}
     agreement = _agreement(moe["dense"].pop("greedy"), moe["top_k"].pop("greedy"))
     record["dense_moe_serving"] = {
         "n_layer": config.n_layer, "num_experts": experts, "n_inner": config.n_inner, **moe,
         "top_k_inference_method": FAMILIES_MOE_TOP_K, "greedy_agreement_dense_vs_top_k": agreement,
+        "greedy_copy_share": copies, "top_k_check": dense_moe_top_k_check(model, seed, device),
         "seconds": time.perf_counter() - t0,
     }
     del model

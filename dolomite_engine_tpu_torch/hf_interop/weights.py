@@ -20,8 +20,9 @@ Of the other families the JAX functions know none: they walk every layer as a de
 A ``dense_moe`` model fits that walk and its two routing gates a block are left out, as the
 JAX export leaves them out (so its directory does not load back, in either package). A
 ``gpt_crosslayer`` model, and an ``rnn_dolomite`` one with a DeltaNet layer, have no
-``ln_1`` / ``c_attn`` where the walk reads them and the JAX functions fail with a KeyError:
-the port refuses both with a ValueError (`check_hf_layout`).
+``ln_1`` / ``c_attn`` where the walk reads them and the JAX export fails with a KeyError:
+the port refuses such a state with a ValueError (`check_hf_layout`). Reading a file walks
+it as JAX's does; the model's loader then refuses names that do not fit.
 """
 
 from __future__ import annotations
@@ -92,25 +93,27 @@ def _check_not_peft(names) -> None:
         )
 
 
-def check_hf_layout(config: CommonConfig) -> None:
-    """Refuse a family whose blocks the reference layout cannot hold (the JAX functions
-    fail on them with a KeyError)."""
-    if config.model_type == "gpt_crosslayer" or "d" in (getattr(config, "attention_pattern", None) or ""):
-        raise ValueError(
-            f"a {config.model_type} model has no HF dolomite layout: its blocks ("
-            + ("KV groups of query-only layers" if config.model_type == "gpt_crosslayer" else "DeltaNet layers")
-            + ") have no ln_1 / c_attn where the layout reads every layer as a dense block, and the JAX "
-            "package's params_to_state_dict fails on them with a KeyError"
-        )
+def check_hf_layout(config: CommonConfig, names) -> None:
+    """Refuse a model whose state `names` lack a dense block's ``ln_1`` / ``attn.c_attn``
+    in some layer: the reference layout reads every layer as one, and the JAX function
+    fails on such a model with a KeyError."""
+    for i in range(config.n_layer):
+        for key in (f"transformer.h.{i}.ln_1.weight", f"transformer.h.{i}.attn.c_attn.weight"):
+            if key not in names:
+                raise ValueError(
+                    f"a {config.model_type} model has no HF dolomite layout: the layout reads every layer "
+                    f"as a dense block and this model has no {key}; the JAX package's params_to_state_dict "
+                    "fails on it with a KeyError"
+                )
 
 
 # ---------------------------------------------------------------- module state -> file
 def params_to_state_dict(config: CommonConfig, params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The port's ``model.state_dict()`` -> the reference-layout state dict."""
     _check_not_peft(params)
-    check_hf_layout(config)
     if config.model_type == "enc_dec_dolomite":
         return _enc_dec_params_to_state_dict(config, params)
+    check_hf_layout(config, params)
 
     sd: dict[str, torch.Tensor] = {"transformer.wte.weight": params["transformer.wte.weight"]}
     if PositionEmbeddingType(config.position_embedding_type) == PositionEmbeddingType.learned_absolute:
@@ -179,7 +182,6 @@ def state_dict_to_params(config: CommonConfig, get_tensor: Callable[[str], torch
     a `SafeTensorsWeightsManager`."""
     if hasattr(get_tensor, "get_tensor"):
         get_tensor = get_tensor.get_tensor
-    check_hf_layout(config)
     if config.model_type == "enc_dec_dolomite":
         return _enc_dec_state_dict_to_params(config, get_tensor)
 

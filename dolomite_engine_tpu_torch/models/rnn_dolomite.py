@@ -27,14 +27,6 @@ from .config import RNNDolomiteConfig
 from .gpt_dolomite import GPTDolomiteForCausalLM, GPTDolomiteModel
 from .modeling_utils import MLP, Attention, KVCache, Norm, ParameterizedLinear, _init_std, get_norm
 
-ENGINE_REFUSAL = (
-    "rnn_dolomite does not serve through ServingEngine: its DeltaNet layers keep recurrent "
-    "caches (conv_q / conv_k / conv_v, recurrent) that the engine's paged and dense K/V pools "
-    "do not hold, and the JAX engine fails on them (a TypeError in the short convolution over "
-    "the paged pool, KeyError 'k' over the dense one); decode it with "
-    "generation_utils.generate_tokens (ModelWrapper.generate)"
-)
-
 
 class ShortConvolution(nn.Module):
     """Causal depthwise convolution over time, then silu; ``weight`` ``[D, W]`` stored in

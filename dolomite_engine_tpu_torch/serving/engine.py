@@ -49,9 +49,9 @@ tracing spans and telemetry counters of the JAX engine wait for ROADMAP.md Queue
 'Serving fleet and observability'.
 
 Options of the JAX engine that this port does not carry yet raise NotImplementedError
-naming the ROADMAP.md item that will port them. Every decoder-only family serves but the
-DeltaNet hybrid (``rnn_dolomite``), whose recurrent caches the pools do not hold: it
-raises ValueError, where the JAX engine fails on them.
+naming the ROADMAP.md item that will port them. A model whose caches are not all ``{k, v}``
+K/V caches (the DeltaNet hybrid's recurrent ones) raises ValueError, since the pools hold
+nothing else; the JAX engine fails on them.
 """
 
 from __future__ import annotations
@@ -295,10 +295,14 @@ class ServingEngine:
         **not_ported: Any,
     ) -> None:
         self.device = resolve_device(device)
-        if getattr(model.config, "model_type", None) == "rnn_dolomite":
-            from ..models.rnn_dolomite import ENGINE_REFUSAL
-
-            raise ValueError(ENGINE_REFUSAL)
+        cache_keys = sorted({key for cache in model.init_kv_caches(1, 1) if "k" not in cache for key in cache})
+        if cache_keys:
+            raise ValueError(
+                f"{model.config.model_type} does not serve through ServingEngine: it keeps caches "
+                f"{cache_keys} where the engine's paged and dense pools hold only {{k, v}} K/V caches "
+                "(the JAX engine fails on such recurrent caches); decode it with "
+                "generation_utils.generate_tokens (ModelWrapper.generate)"
+            )
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"ServingEngine got an unexpected keyword argument {name!r}")

@@ -297,10 +297,10 @@ def test_seq2seq_phase_rehearsal(monkeypatch, tmp_path):
 
 def test_families_phase_rehearsal(monkeypatch, tmp_path):
     """Phase 22 at 64 wide (4 heads, so dense_moe has 4 experts): (a) CLA2 serving and the
-    identity conversion's check, (b) `pretrain.main` for the three families at 4 layers,
+    identity conversion's check, (b) `pretrain.main` for the three families and the dense baseline,
     (c) the hybrid's generation, its 2-layer check (here CPU bf16 against CPU fp32) and the
-    delta rule's forms, (d) dense_moe serving dense and top-2. No kernel launches on the
-    CPU."""
+    delta rule's forms, (d) dense_moe serving dense and top-2 and the top-2 logits check.
+    No kernel launches on the CPU."""
     monkeypatch.chdir(REPO)
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
@@ -325,3 +325,8 @@ def test_families_phase_rehearsal(monkeypatch, tmp_path):
     moe = record["dense_moe_serving"]
     assert moe["num_experts"] == 4 and 0.0 <= moe["greedy_agreement_dense_vs_top_k"] <= 1.0
     assert moe["dense"]["requests"] == moe["top_k"]["requests"] == 8 and moe["top_k_inference_method"] == {"top_k": 2}
+    check = moe["top_k_check"]  # here CPU bf16 against CPU fp32
+    assert check["ratio"] * check["card_top_k_vs_cpu_top_k_mean_abs_err"] <= check["card_top_k_vs_cpu_dense_mean_abs_err"]
+    assert set(moe["greedy_copy_share"]) == {"dense", "top_k"}
+    baseline = record["pretrain"]["gpt_dolomite"]
+    assert baseline["baseline_of"] == "gpt_crosslayer" and baseline["n_layer"] == record["pretrain"]["gpt_crosslayer"]["n_layer"]

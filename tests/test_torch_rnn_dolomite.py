@@ -160,7 +160,8 @@ def test_hf_export_fails_in_jax_and_is_refused():
     _, params, model = make_family_models(RNN)
     with pytest.raises(KeyError, match="c_attn"):
         jax_params_to_state_dict(JaxRNNConfig(**RNN), params)
-    with pytest.raises(ValueError, match="DeltaNet layers"):
+    first_deltanet = RNN["attention_pattern"].index("d")
+    with pytest.raises(ValueError, match=rf"no HF dolomite layout.*transformer\.h\.{first_deltanet}\.attn\.c_attn"):
         params_to_state_dict(model.config, model.state_dict())
 
 
