@@ -172,6 +172,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    layers of full width planted LoRA adapters: the card's greedy tokens against the CPU's
    fp32 run (near ties only) and against the same model without them (they must differ).
    Launch counts asserted exactly;
+23. ``fleet`` (inside phase 12, after phase 16; `fleet_phase`): the serving fleet from the
+   32-layer checkpoint at granite-3b-code's full width. (a) `generate.main` on
+   `configs/generation.yml` with ``replicas: 2`` (a `serving.cluster.Router` over two engines
+   on one set of weights), greedy 16 x 64, against phase 13's paged greedy tokens (near ties
+   only), the placement and the affinity hit rate, and one against two replicas on one loaded
+   model: the second adds only its pool to the peak; (b) the same with ``disaggregate`` and
+   ``trace_requests``: one trace record a request with its handoff span, every critical path
+   closing on its TTFT, the handoff ms; (c) a prefill-only engine handing int8 pages to a
+   decode engine: codes and scale rows byte-identical, the monolithic int8 engine's tokens;
+   (d) in fp32, replica 0 crashed at a fixed work step under a health monitor with an
+   `ObservabilityServer` beside it: every request it held re-routed, greedy rows against the
+   unfaulted fleet (near ties only), the sampled rows identical, `/metrics` counters equal to
+   the stats, `/healthz` 503 and `/statusz` naming replica 0 dead; then drain, `swap_params`
+   and rejoin with the other replica's weights untouched; (e) the fleet on threads: the
+   synchronous tokens; (f) a decode step with telemetry and tracing on against both off:
+   equal launches and host syncs. Launch counts of the synchronous runs asserted exactly;
 22. ``families`` (after phase 20; `families_phase`): the cross-layer, dense-MoE and
    DeltaNet-hybrid families at granite-3b-code's width, seed-0 weights, bf16. (a) the 32-layer
    dense model converted to CLA2 (16 KV groups) behind the paged engine with phase 3's
@@ -217,7 +233,7 @@ Prints the card's name and power limit, a ``kernel_cases`` line (every case of p
 ``training_profile``, ``moe_serving``, ``moe_profile``, ``quantized_serving``,
 ``moe_training_check``, ``moe_training``, ``moe_training_profile``,
 ``alibi_training_check``, ``alibi_training``, ``alibi_training_profile``, ``pretrain``,
-``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune``, ``interop``, ``alibi_generation``,
+``training_options``, ``generate``, ``speculative_generation``, ``preemption``, ``finetune``, ``interop``, ``fleet``, ``alibi_generation``,
 ``seq2seq``, ``kernel_cases_seq2seq`` and ``families`` lines
 (``moe_training_profile`` also gives the grouped GEMMs' and the casts' shares), the
 ``kernels`` line (a kernel with several entry points lists each form's launches and
@@ -2745,11 +2761,12 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
     before and read just after, then phase 17 on its corpus (`training_options_phase`),
     then from its checkpoint phase 13 (`generate_phase`), phase 15
     (`speculative_generation_phase`, whose draft model is the resume check's), phase 16
-    (`preemption_phase`), phase 18 (`finetune_phase`, whose full finetuning starts from
-    the 32-layer checkpoint) and phase 21 (`interop_phase`, from these checkpoints and
-    phase 18's LoRA one). `rehearsal` (the CPU only) cuts the widths to rehearse the
-    control flow. Returns the record (phase 17's under ``training_options``, phase 18's,
-    with its launch counts, under ``finetune``, phase 21's under ``interop``) and the launch
+    (`preemption_phase`), phase 23 (`fleet_phase`), phase 18 (`finetune_phase`, whose full
+    finetuning starts from the 32-layer checkpoint) and phase 21 (`interop_phase`, from these
+    checkpoints and phase 18's LoRA one). `rehearsal` (the CPU only) cuts the widths to
+    rehearse the control flow. Returns the record (phase 17's under ``training_options``,
+    phase 18's, with its launch counts, under ``finetune``, phase 21's under ``interop``,
+    phase 23's under ``fleet``) and the launch
     counts, phase 17's launch counts, phase 13's record and launch counts, and phases 15's
     and 16's records, launch counts and forms."""
     import shutil
@@ -2914,6 +2931,8 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
             save_path, context, os.path.join(work, "unbroken"), config, device, rehearsal
         )
         preemption = preemption_phase(os.path.join(work, "unbroken"), context, config, device, rehearsal)
+        _free(device)
+        record["fleet"] = fleet_phase(save_path, context, config, device, rehearsal)
         _free(device)
         t0 = time.perf_counter()
         record["finetune"] = finetune_phase(
@@ -4682,6 +4701,465 @@ def preemption_phase(save_path, context, config, device="cuda", rehearsal=None):
     del engine, model, target
     record.update(tally.check(on_card))
     return record, tally.launches, tally.forms
+
+
+# phase 23: the serving fleet on the 32-layer checkpoint (inside phase 12, after phase 16).
+# (a) / (b) run the YAML's greedy cell through `generate.main` over 2 replicas, plain and
+# disaggregated with tracing; (c) disaggregates over int8 pools; (d) crashes a replica in
+# fp32 (the migrated sampled stream is held identical: in bf16 the survivor's recompute of
+# the committed K/V rounds differently from the decode kernel's writes, so a sampled token
+# may flip at a near tie, as recompute preemption's may); (e) steps the fleet on threads;
+# (f) times a decode step with telemetry and tracing on against both off
+FLEET_REPLICAS = 2
+FLEET_CHUNK = 8192  # every prompt of a step in one prefill chunk, whatever else runs
+FLEET_INT8 = (8, 32)  # (c): requests x new tokens
+FLEET_CRASH = {"slots": 4, "requests": 8, "prompt": 512, "new_tokens": 32, "sampled": (1, 4), "at": 6}
+FLEET_OFF_PATH_STEPS = 8
+
+
+@contextlib.contextmanager
+def _installed(telemetry):
+    """`telemetry` installed for the duration."""
+    from dolomite_engine_tpu_torch.utils.telemetry import install_telemetry, uninstall_telemetry
+
+    install_telemetry(telemetry)
+    try:
+        yield telemetry
+    finally:
+        uninstall_telemetry()
+
+
+@contextlib.contextmanager
+def _installed_telemetry(sink, device):
+    """A `Telemetry` writing to `sink`, installed for the duration."""
+    from dolomite_engine_tpu_torch.utils.telemetry import Telemetry
+
+    telemetry = Telemetry(sink_path=sink, device=device)
+    try:
+        with _installed(telemetry):
+            yield telemetry
+    finally:
+        telemetry.close()
+
+
+def _http_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as response:
+            return response.status, response.read().decode()
+    except urllib.error.HTTPError as error:
+        return error.code, error.read().decode()
+
+
+def _prometheus(body):
+    """`/metrics` text -> {series: value}."""
+    series = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            series[key] = float(value)
+    return series
+
+
+def _forwards(engines):
+    """The decode steps and prefill forwards an engine list ran so far."""
+    import types
+
+    return types.SimpleNamespace(
+        decode_steps=sum(e.stats.decode_steps for e in engines), prefill_chunks=sum(e.stats.prefill_chunks for e in engines)
+    )
+
+
+def _since(before, after):
+    import types
+
+    return types.SimpleNamespace(decode_steps=after.decode_steps - before.decode_steps, prefill_chunks=after.prefill_chunks - before.prefill_chunks)
+
+
+def _quantized_launches(config, stats):
+    """Over an int8 pool each forward also runs kv_quant's fused scatter-quantize L times."""
+    forwards = config.n_layer * (stats.decode_steps + stats.prefill_chunks)
+    return {"kv_quant": forwards}, {"kv_quant:scatter": forwards}
+
+
+def fleet_phase(save_path, context, config, device="cuda", rehearsal=None):
+    """Phase 23, the serving fleet from phase 12's 32-layer checkpoint (`save_path`) at
+    granite-3b-code's full width, each run under a `Telemetry` with a sink. (a)
+    `generate.main` over `configs/generation.yml` with ``replicas: 2``, greedy, 16 prompts
+    x 64 tokens, against phase 13's paged greedy tokens (a request may part only at a near
+    tie, `greedy_divergences`); the routing and the affinity hit rate; one and two replicas
+    on one loaded model through `generate.generate`, the second adding only its pool to the
+    peak. (b) the same with ``disaggregate`` and ``trace_requests``: tokens against (a),
+    one trace record a request, each one tree with a handoff span whose critical path closes
+    on its TTFT, the handoff ms a request. (c) a prefill-only engine handing int8 pages to a
+    decode engine: every transferred page's codes and scale rows byte-identical, the tokens
+    the monolithic int8 engine's. (d) in fp32 (the checkpoint's weights): a router over 2
+    replicas with a health monitor and a fault injector crashing replica 0 at work step 6,
+    an `ObservabilityServer` on 127.0.0.1 port 0 beside it: every request replica 0 held
+    is re-routed, greedy rows match the unfaulted fleet (near ties only), the sampled rows
+    exactly; `/metrics` counters equal the router's and engines' stats, `/healthz` turns
+    503 and `/statusz` names replica 0 dead; then replica 0 rejoins, a request is drained
+    off its replica mid-decode, that replica takes a copy of the same weights
+    (`swap_params`) and rejoins, and the other replica keeps the shared weights. (e) `Router.start` / `wait` / `stop`:
+    the synchronous fleet's tokens. (f) a decode step with telemetry and tracing on
+    against both off: equal launches and host syncs, each one's host ms. Launch counts of
+    (a)-(d) (the synchronous runs) are zeroed just before each run and read just after, and
+    asserted; (e)'s threads are not counted. Returns the record, with the launch counts."""
+    import torch
+
+    from dolomite_engine_tpu_torch import generate
+    from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
+    from dolomite_engine_tpu_torch.data import get_datasets_list
+    from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
+    from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from dolomite_engine_tpu_torch.ops.kv_quant import as_bytes
+    from dolomite_engine_tpu_torch.serving import (
+        ClusterMetricsAggregator,
+        DisaggregatedEngine,
+        EngineReplica,
+        Fault,
+        FaultInjector,
+        ObservabilityServer,
+        ReplicaHealth,
+        ReplicaHealthMonitor,
+        RequestStatus,
+        Router,
+        SamplingParams,
+        ServingEngine,
+        serve_batch,
+    )
+    from dolomite_engine_tpu_torch.utils.tracing import trace_record_critical_path
+
+    on_card = torch.device(device).type == "cuda"
+    device = torch.device(device)
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(context["prompts_dir"]), "fleet")
+    os.makedirs(work, exist_ok=True)
+    greedy_new = context["greedy_new"]
+    prompts = context["prompts"][:GREEDY_PROMPTS]
+    # a run may part from another only at a near tie: twice phase 13's two engines' largest
+    # logit error against the plain forward
+    bound = 2 * sum(context["logits_max_abs_err"].values())
+    tally = _LaunchTally()
+    record = {"yaml": GENERATION_YAML, "replicas": FLEET_REPLICAS, "near_tie_bound": bound}
+
+    def fleet_args(name, **generation):
+        return generation_args(
+            save_path, context["greedy_dir"], os.path.join(work, name), True, greedy_new, replicas=FLEET_REPLICAS,
+            **generation,
+        )
+
+    # (a) a router over 2 replicas through the entry point
+    with tally.run(), _installed_telemetry(os.path.join(work, "a.jsonl"), device):
+        summary, routed, _ = _main_run(fleet_args("replicas"), device)
+    tally.expect(*_engine_launches(summary["stats"], config, True, 0))
+    router_stats = summary["router"]
+    record["replicas_run"] = dict(
+        _engine_record(summary["stats"], summary["engine_seconds"], summary["pool"]), requests=summary["requests"],
+        per_replica_routed=dict(router_stats.per_replica_routed), affinity_hit_rate=router_stats.affinity_hit_rate(),
+        affinity_hits=router_stats.affinity_hits, engines=summary["pool"]["engines"],
+        requests_identical_to_paged_greedy=sum(a == b for a, b in zip(routed, context["greedy_paged"])),
+        load_s=summary["seconds"]["load"],
+    )
+    assert summary["requests"] == GREEDY_PROMPTS and sorted(router_stats.per_replica_routed) == [0, 1], record["replicas_run"]
+
+    # the checkpoint's model once more, for the checks and (c)
+    args = fleet_args("unused")
+    model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
+    target = model.model
+    eos = model.eos_token_id
+    record["replicas_run"]["parted_from_paged_greedy"] = greedy_divergences(target, prompts, routed, context["greedy_paged"], bound, eos)
+
+    # one set of weights: a second replica adds its pool and nothing else to the peak
+    datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
+    peaks = {}
+    for replicas in (1, FLEET_REPLICAS):
+        _free(device, release=False)
+        base = torch.cuda.memory_allocated(device) if on_card else 0
+        run_args = generation_args(save_path, context["greedy_dir"], os.path.join(work, f"memory-{replicas}"), True, greedy_new, replicas=replicas)
+        with tally.run(), _installed_telemetry(os.path.join(work, f"memory-{replicas}.jsonl"), device):
+            run = generate.generate(run_args, model, datasets, Mode.inference)
+        tally.expect(*_engine_launches(run["stats"], config, True, 0))
+        tokens = _outputs(run["outputs"][0])[0]
+        peaks[replicas] = {
+            "above_weights_gb": (torch.cuda.max_memory_allocated(device) - base) / 1e9 if on_card else None,
+            "pool_gb": run["pool"]["bytes"] / 1e9, "engines": run["pool"]["engines"],
+            "identical_to_replicas_run": sum(a == b for a, b in zip(tokens, routed)),
+        }
+        if replicas == 1:
+            assert tokens == context["greedy_paged"], "one engine over the loaded model differs from phase 13's paged greedy run"
+    record["memory"] = peaks
+    if on_card:
+        record["memory"]["weights_gb"] = sum(p.numel() * p.element_size() for p in target.parameters()) / 1e9
+        record["memory"]["second_replica_adds_gb"] = added = peaks[FLEET_REPLICAS]["above_weights_gb"] - peaks[1]["above_weights_gb"]
+        pool = peaks[1]["pool_gb"]
+        assert abs(added - pool) <= 0.05 * pool, f"the second replica added {added:.3f} GB against its pool's {pool:.3f} GB"
+
+    # (b) disaggregated replicas with tracing through the entry point
+    sink = os.path.join(work, "b.jsonl")
+    with tally.run(), _installed_telemetry(sink, device):
+        summary, disaggregated, _ = _main_run(fleet_args("disaggregated", disaggregate=True, trace_requests=True), device)
+    tally.expect(*_engine_launches(summary["stats"], config, True, 0))
+    traces = [r for r in map(json.loads, open(sink)) if r["kind"] == "trace"]
+    paths = [trace_record_critical_path(r) for r in traces]
+    closes = [abs(sum(p["buckets"].values()) - p["ttft_s"]) / p["ttft_s"] for p in paths]
+    record["disaggregated_run"] = dict(
+        _engine_record(summary["stats"], summary["engine_seconds"], summary["pool"]), requests=summary["requests"],
+        engines=summary["pool"]["engines"], handoffs=summary["handoff"]["transfers"],
+        handoff_ms_per_request=summary["handoff"]["mean_latency_s"] * 1e3, traces=len(traces),
+        critical_path_max_gap=max(closes), ttft_ms_by_trace=[p["ttft_s"] * 1e3 for p in paths],
+        requests_identical_to_replicas_run=sum(a == b for a, b in zip(disaggregated, routed)),
+        parted_from_replicas_run=greedy_divergences(target, prompts, disaggregated, routed, bound, eos),
+    )
+    assert summary["handoff"]["transfers"] == GREEDY_PROMPTS and len(traces) == GREEDY_PROMPTS, record["disaggregated_run"]
+    assert all(sum(s["name"] == "handoff" for s in r["spans"]) == 1 for r in traces)
+    assert all(sum(s["parent"] is None for s in r["spans"]) == 1 for r in traces)  # one tree each
+    assert max(closes) <= 0.05, record["disaggregated_run"]
+
+    # (c) disaggregation over int8 pools, on the engine API
+    count, new_tokens = FLEET_INT8
+    specs = [dict(prompt_ids=p, max_new_tokens=new_tokens) for p in prompts[:count]]
+    assert sum(len(p) for p in prompts[:count]) <= FLEET_CHUNK - count
+    engine_args = dict(
+        num_slots=count, max_len=-(-max(map(len, prompts)) // 64) * 64 + new_tokens, eos_token_id=eos,
+        pad_token_id=config.pad_token_id, kv_dtype="int8", prefill_chunk_tokens=FLEET_CHUNK, device=device,
+    )
+    with tally.run(), _installed_telemetry(os.path.join(work, "c.jsonl"), device):
+        mono_engine = ServingEngine(target, None, **engine_args)
+        mono = [s.tokens for s in serve_batch(mono_engine, [dict(s) for s in specs])]
+    tally.expect(*_engine_launches(mono_engine.stats, config, True, 0))
+    tally.expect(*_quantized_launches(config, mono_engine.stats))
+    del mono_engine
+    disagg = DisaggregatedEngine(ServingEngine(target, None, prefill_only=True, **engine_args), [ServingEngine(target, None, **engine_args)])
+    checked = {"pages": 0, "arrays": 0, "identical": True}
+    transfer = disagg.handoff.transfer
+
+    def checked_transfer(src_pool, src_pages, dst_pool, dst_pages):
+        src_index = torch.as_tensor(src_pages, device=device)
+        sent = [{name: as_bytes(array)[src_index].clone() for name, array in cache.items()} for cache in src_pool.caches]
+        transfer(src_pool, src_pages, dst_pool, dst_pages)
+        dst_index = torch.as_tensor(dst_pages, device=device)
+        for cache, before in zip(dst_pool.caches, sent):
+            assert set(cache) == {"k", "v", "k_scale", "v_scale"}, set(cache)
+            for name, array in cache.items():
+                checked["identical"] &= bool(torch.equal(as_bytes(array)[dst_index], before[name]))
+                checked["arrays"] += 1
+        checked["pages"] += len(src_pages)
+
+    disagg.handoff.transfer = checked_transfer
+    with tally.run(), _installed_telemetry(os.path.join(work, "c.jsonl"), device):
+        states = [disagg.submit(**dict(s)) for s in specs]
+        disagg.drain()
+    for engine in (disagg.prefill, *disagg.workers):
+        tally.expect(*_engine_launches(engine.stats, config, True, 0))
+        tally.expect(*_quantized_launches(config, engine.stats))
+    record["int8_disaggregation"] = dict(
+        checked, requests=count, new_tokens=new_tokens, handoff_ms_per_request=disagg.handoff.mean_latency_s * 1e3,
+        requests_identical_to_monolithic=sum(s.tokens == m for s, m in zip(states, mono)),
+    )
+    assert checked["identical"] and checked["pages"] > 0, record["int8_disaggregation"]
+    assert [s.tokens for s in states] == mono, record["int8_disaggregation"]
+    del disagg, states, model, target
+    _free(device)
+
+    # (d) a crash and its migration, in fp32
+    args = fleet_args("unused")
+    args.mixed_precision_args.dtype = "fp32"
+    model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
+    target = model.model
+    crash = FLEET_CRASH
+    specs = [
+        dict(prompt_ids=p[: crash["prompt"]], max_new_tokens=crash["new_tokens"])
+        for p in context["prompts"][: crash["requests"]]
+    ]
+    for row in crash["sampled"]:
+        specs[row].update(sampling=SamplingParams(do_sample=True, temperature=0.7, top_p=0.95), seed=1000 + row)
+    crash_args = dict(
+        num_slots=crash["slots"], max_len=crash["prompt"] + crash["new_tokens"], eos_token_id=eos, pad_token_id=config.pad_token_id,
+        prefill_chunk_tokens=FLEET_CHUNK, device=device,
+    )
+
+    def fleet(**replica_kwargs):
+        return [EngineReplica(i, ServingEngine(target, None, **crash_args), **replica_kwargs) for i in range(FLEET_REPLICAS)]
+
+    def routed_run(router):
+        """The requests through `router`, synchronously: their states, the replica each was
+        placed on (by the state: request ids count per engine) and the seconds."""
+        _sync(device)
+        t0 = time.perf_counter()
+        with tally.run():
+            states, homes = [], {}
+            for spec in specs:
+                state = router.submit(**dict(spec))
+                homes[id(state)] = next(r.replica_id for r in router.replicas if state in r.engine.scheduler.waiting)
+                states.append(state)
+            router.drain(timeout_s=300.0)
+        _sync(device)
+        tally.expect(*_engine_launches(_forwards([r.engine for r in router.replicas]), config, True, 0))
+        return states, homes, time.perf_counter() - t0
+
+    with _installed_telemetry(os.path.join(work, "d-unfaulted.jsonl"), device):
+        unfaulted, _, unfaulted_s = routed_run(Router(fleet()))
+    want = [s.tokens for s in unfaulted]
+    injector = FaultInjector([Fault(kind="crash", replica_id=0, at=crash["at"])])
+    replicas = fleet(fault_injector=injector)
+    router = Router(replicas, health=ReplicaHealthMonitor(max_consecutive_exceptions=1, suspect_after_s=60.0, dead_after_s=120.0))
+    recover = router._recover_dead
+    recover_s, committed = [], []
+
+    def timed_recover(replica):
+        engine = replica.engine
+        committed.append(sorted(len(s.tokens) for s in [*engine._slot_states.values(), *engine.scheduler.waiting]))
+        t0 = time.perf_counter()
+        recover(replica)
+        recover_s.append(time.perf_counter() - t0)
+
+    router._recover_dead = timed_recover
+    with _installed_telemetry(os.path.join(work, "d.jsonl"), device) as telemetry:
+        router.metrics = ClusterMetricsAggregator.for_router(router)
+        server = ObservabilityServer(0, aggregator=router.metrics, telemetry=telemetry).start()
+        try:
+            healthz_before = _http_get(f"{server.url}/healthz")[0]
+            states, homes, faulted_s = routed_run(router)
+            metrics = _prometheus(_http_get(f"{server.url}/metrics")[1])
+            healthz_status, healthz = _http_get(f"{server.url}/healthz")
+            statusz = json.loads(_http_get(f"{server.url}/statusz")[1])
+        finally:
+            server.stop()
+    engines = [r.engine for r in replicas]
+    on_zero = [s for s in states if homes[id(s)] == 0]
+    got = [s.tokens for s in states]
+    greedy = [i for i in range(len(specs)) if i not in crash["sampled"]]
+    record["crash"] = dict(
+        dtype="float32", requests=len(specs), sampled_rows=list(crash["sampled"]), crash_at_work_step=crash["at"],
+        routed=dict(router.stats.per_replica_routed), rerouted=router.stats.rerouted, replica_crashes=router.stats.replica_crashes,
+        shed=router.stats.shed, on_replica_0=len(on_zero), tokens_committed_at_migration=committed,
+        migration_s=recover_s, seconds_lost_vs_unfaulted=faulted_s - unfaulted_s, unfaulted_s=unfaulted_s,
+        sampled_identical=all(got[i] == want[i] for i in crash["sampled"]),
+        greedy_identical=sum(got[i] == want[i] for i in greedy),
+        parted_greedy=greedy_divergences(target, [specs[i]["prompt_ids"] for i in greedy], [got[i] for i in greedy], [want[i] for i in greedy], bound, eos),
+        healthz_before=healthz_before, healthz_after=healthz_status, healthz=json.loads(healthz),
+        statusz_health=statusz["fleet"]["health"],
+    )
+    assert injector.fired and router.stats.replica_crashes == 1 and router.stats.shed == 0, record["crash"]
+    assert on_zero and all(s.reroutes == 1 for s in on_zero), record["crash"]
+    assert router.stats.rerouted == len(on_zero) and all(committed[0]), record["crash"]  # every migrated request mid-decode
+    assert all(s.status == RequestStatus.completed for s in states), record["crash"]
+    assert record["crash"]["sampled_identical"], record["crash"]
+    assert any(homes[id(states[i])] == 0 for i in crash["sampled"]), "no sampled request migrated"
+    assert healthz_before == 200 and healthz_status == 503 and json.loads(healthz)["dead"] == ["0"], record["crash"]
+    assert statusz["fleet"]["health"]["0"] == "dead", statusz["fleet"]["health"]
+    assert router.health.state(0) is ReplicaHealth.dead
+    counters = {
+        "router_requests_routed": router.stats.routed, "router_requests_rerouted": router.stats.rerouted,
+        "router_replica_crashes": router.stats.replica_crashes,
+        "serving_requests_completed": sum(e.stats.completed for e in engines),
+        "serving_decode_tokens": sum(e.stats.decode_tokens for e in engines),
+        "serving_prefill_tokens": sum(e.stats.prefill_tokens for e in engines),
+    }
+    scraped = {name: metrics[f"dolomite_{name}_total"] for name in counters}
+    record["crash"]["metrics_counters"] = scraped
+    assert scraped == counters, (scraped, counters)
+
+    # replica 0 repaired and back; then drain -> swap_params (a copy of the same weights) ->
+    # rejoin on the replica a request lands on, and the other replica keeps the shared weights
+    replicas[0].fault_injector = None  # the crash fault is sticky: it models a dead process
+    router.rejoin_replica(0)
+
+    def fingerprint():
+        return {name: (p.data_ptr(), float(p.detach().double().sum())) for name, p in list(target.named_parameters())[:4]}
+
+    shared = fingerprint()
+    spec = dict(specs[0])
+    before = _forwards(engines)
+    with tally.run(), _installed_telemetry(os.path.join(work, "d-rolling.jsonl"), device):
+        state = router.submit(**spec)
+        home = next(r for r in replicas if state in r.engine.scheduler.waiting)
+        while len(state.tokens) < 4:
+            router.step()
+        router.drain_replica(home.replica_id)
+        home.swap_params({name: t.clone() for name, t in target.state_dict().items()})
+        router.rejoin_replica(home.replica_id)
+        router.drain(timeout_s=300.0)
+        again = home.submit(**dict(spec))  # on the swapped replica itself (affinity would send it to the other)
+        router.drain(timeout_s=300.0)
+    tally.expect(*_engine_launches(_since(before, _forwards(engines)), config, True, 0))
+    other = next(r for r in replicas if r is not home)
+    record["rolling_update"] = dict(
+        drained_replica=home.replica_id, drains=router.stats.drains, rerouted=state.reroutes,
+        tokens_identical=state.tokens == want[0], again_identical=again.tokens == want[0],
+        other_replica_params_shared=other.engine._params is None, swapped_replica_has_its_own=home.engine._params is not None,
+        shared_weights_untouched=shared == fingerprint(),
+        parted=greedy_divergences(target, [spec["prompt_ids"]] * 2, [state.tokens, again.tokens], [want[0]] * 2, bound, eos),
+    )
+    assert state.reroutes == 1 and router.stats.drains == 1, record["rolling_update"]
+    assert record["rolling_update"]["other_replica_params_shared"] and record["rolling_update"]["shared_weights_untouched"]
+    assert record["rolling_update"]["swapped_replica_has_its_own"], record["rolling_update"]
+    del router, replicas, engines
+    gc.collect()
+
+    # (e) threaded replicas: the synchronous fleet's tokens
+    threaded = Router(fleet())
+    _sync(device)
+    t0 = time.perf_counter()
+    with _installed_telemetry(os.path.join(work, "e.jsonl"), device):
+        threaded.start()
+        try:
+            states = [threaded.submit(**dict(s)) for s in specs]
+            assert threaded.wait(timeout_s=300.0), "the threaded fleet did not drain"
+        finally:
+            threaded.stop()
+    record["threaded"] = {
+        "seconds": time.perf_counter() - t0, "synchronous_s": unfaulted_s,
+        "identical_to_synchronous": sum(s.tokens == w for s, w in zip(states, want)), "requests": len(specs),
+        "launches_counted": False,  # the counters are bumped from two threads: only synchronous runs are asserted
+    }
+    assert [s.tokens for s in states] == want, record["threaded"]
+    del threaded
+
+    # (f) a decode step with telemetry and tracing on against both off: two engines with 4
+    # requests decoding each, telemetry installed only while the traced one steps; the host
+    # times alternate (off, on, on, off) so neither side gets the warm start
+    from dolomite_engine_tpu_torch.utils.telemetry import Telemetry
+
+    telemetry = Telemetry(sink_path=os.path.join(work, "f.jsonl"), device=device)
+    engines = {name: ServingEngine(target, None, trace_requests=name == "on", **crash_args) for name in ("off", "on")}
+
+    def scope(name):
+        return _installed(telemetry) if name == "on" else contextlib.nullcontext()
+
+    off_path = {name: {"host_ms_per_step": []} for name in engines}
+    for name, engine in engines.items():
+        with scope(name):
+            for spec in specs[:4]:
+                engine.submit(**dict(spec))
+            while engine.scheduler.queue_depth or engine._prefill_tasks or engine.stats.decode_steps == 0:
+                engine.step()
+            reset_launch_counts()
+            syncs = _count_host_syncs(lambda: [engine.step() for _ in range(2)]) if on_card else {}
+            off_path[name].update(launches_2_steps={spec_.name: spec_.launches for spec_ in KERNELS}, host_syncs_2_steps=sum(syncs.values()))
+    for name in ("off", "on", "on", "off"):
+        with scope(name):
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(FLEET_OFF_PATH_STEPS // 2):
+                engines[name].step()
+            off_path[name]["host_ms_per_step"].append((time.perf_counter() - t0) / (FLEET_OFF_PATH_STEPS // 2) * 1e3)
+    for name, engine in engines.items():
+        with scope(name):
+            engine.drain()
+    telemetry.close()
+    record["off_path"] = off_path
+    assert off_path["on"]["launches_2_steps"] == off_path["off"]["launches_2_steps"], off_path
+    assert off_path["on"]["host_syncs_2_steps"] == off_path["off"]["host_syncs_2_steps"], off_path
+    del engines
+    del model, target
+    _free(device)
+    record.update(tally.check(on_card))
+    record["seconds"] = time.perf_counter() - t_phase
+    return record
 
 
 # phase 18: finetuning and PEFT through `finetune.main` (inside phase 12, after phase 16, from
@@ -7053,6 +7531,7 @@ def main() -> int:
     training_options = pretrain.pop("training_options")
     finetune = pretrain.pop("finetune")
     interop = pretrain.pop("interop")
+    fleet = pretrain.pop("fleet")
     speculative, speculative_launches, speculative_forms = speculated
     preemption, preemption_launches, preemption_forms = preempted
     # the same model, shape and cuts as phase 6's repeated batch, through the entry point
@@ -7069,6 +7548,7 @@ def main() -> int:
     print(json.dumps({"preemption": preemption, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"finetune": finetune, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"interop": interop, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    print(json.dumps({"fleet": fleet, "card": card, "elapsed_s": time.perf_counter() - started}, default=str), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7138,6 +7618,7 @@ def main() -> int:
         "alibi_generation": alibi_generation,
         "speculative_generation": {"launch_forms": speculative_forms}, "preemption": {"launch_forms": preemption_forms},
         "finetune": {"launch_forms": finetune["launch_forms"]}, "interop": {"launch_forms": interop["launch_forms"]},
+        "fleet": {"launch_forms": fleet["launch_forms"]},
         "distribution": {"launch_forms": distribution["launch_forms"]},
         "seq2seq": {"launch_forms": seq2seq["launch_forms"]},
         "families": {"launch_forms": families["launch_forms"]},
@@ -7172,6 +7653,7 @@ def main() -> int:
             "alibi_generation": alibi_generation_launches[spec.name],
             "speculative_generation": speculative_launches[spec.name], "preemption": preemption_launches[spec.name],
             "finetune": finetune["launches"][spec.name], "interop": interop["launches"][spec.name],
+            "fleet": fleet["launches"][spec.name],
             "distribution": distribution_launches[spec.name],
             "seq2seq": seq2seq_launches[spec.name],
             "families": families_launches[spec.name],

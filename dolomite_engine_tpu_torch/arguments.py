@@ -1026,12 +1026,7 @@ def check_ported_options(args: TrainingArgs) -> None:
         if getattr(dist, name):
             raise NotImplementedError(f"distributed_args.{name} {_DISTRIBUTION}")
     _check_model_name(args.model_args.model_name)
-    logging_args = args.logging_args
-    if logging_args.experiments_tracker_name is not None:
-        from .utils.tracking import TRACKERS_NOT_PORTED
-
-        raise NotImplementedError(TRACKERS_NOT_PORTED)
-    telemetry = logging_args.telemetry
+    telemetry = args.logging_args.telemetry
     for name in ("on_demand_profiling", "program_signatures"):
         if getattr(telemetry, name):
             raise NotImplementedError(
@@ -1056,11 +1051,6 @@ def check_ported_inference_options(args: InferenceArgs) -> None:
         raise NotImplementedError(
             f"generation_parameters.tensor_parallel_size {gp.tensor_parallel_size} is not ported "
             "yet: ROADMAP.md Queue A, 'Distribution' (the port serves from one device)"
-        )
-    if gp.replicas > 1 or gp.disaggregate or gp.trace_requests:
-        raise NotImplementedError(
-            "generation_parameters.replicas > 1 / disaggregate / trace_requests is not ported "
-            "yet: ROADMAP.md Queue A, 'Serving fleet and observability'"
         )
     if args.model_args is not None:
         _check_model_name(args.model_args.model_name)

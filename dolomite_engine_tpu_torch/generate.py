@@ -11,8 +11,13 @@ dataset order, with ``generated_text`` and ``num_generated_tokens``. Each reques
 sampling seed is drawn from one `torch.Generator` seeded with `random_args.seed`. The
 engine runs the YAML's speculation (``speculate_ngram``, ``draft_k``), preemption and
 ``oversubscribe_ratio`` and a ``draft_model`` named by its HF-layout directory
-(`load_draft_model`); the options the port does not run raise, naming their ROADMAP
-item (`arguments.check_ported_inference_options`). An encoder-decoder model keeps JAX's
+(`load_draft_model`). ``replicas > 1`` or ``disaggregate`` serve through the fleet, as the
+JAX package does: a `serving.cluster.Router` over ``replicas`` engines, each a
+`DisaggregatedEngine` (a prefill-only engine handing its pages to one decode engine) under
+``disaggregate``; every engine is built over the one model, so the weights exist once and
+each replica adds only its pool. ``trace_requests`` traces every request (one ``trace``
+record each into the installed telemetry). The options the port does not run raise, naming
+their ROADMAP item (`arguments.check_ported_inference_options`). An encoder-decoder model keeps JAX's
 fixed-batch loop (`_generate_seq2seq`): ``batch_size`` rows at a time through
 `collate_fn`, left-padded to the next multiple of ``prompt_bucket_multiple`` and a
 ragged last batch repeated up to ``batch_size`` (`_pad_to_static_shapes`), then
@@ -100,12 +105,45 @@ def _generate_seq2seq(args: InferenceArgs, model, datasets_list: list, mode: Mod
     return summary
 
 
+def merged_stats(engines: list) -> "EngineStats":
+    """One `EngineStats` over several engines: counts and seconds summed, latency
+    samples pooled, peaks the largest."""
+    import dataclasses
+
+    from .serving import EngineStats
+    from .utils import QuantileSketch
+
+    merged = EngineStats()
+    for engine in engines:
+        for f in dataclasses.fields(EngineStats):
+            mine, theirs = getattr(merged, f.name), getattr(engine.stats, f.name)
+            if isinstance(theirs, QuantileSketch):
+                for value in theirs:
+                    mine.append(value)
+            elif isinstance(theirs, dict):
+                for key, value in theirs.items():
+                    if isinstance(value, QuantileSketch):
+                        sketch = mine.setdefault(key, QuantileSketch())
+                        for sample in value:
+                            sketch.append(sample)
+                    else:
+                        mine[key] = mine.get(key, 0) + value
+            elif f.name == "peak_active":
+                setattr(merged, f.name, max(mine, theirs))
+            else:
+                setattr(merged, f.name, mine + theirs)
+    return merged
+
+
 def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progress_bar, generator) -> dict:
-    """Decoder-only batch decode through one `ServingEngine`: every dataset row is one
-    request with its own prompt length, a slot is reused the moment its row hits EOS, and
-    outputs keep dataset order. Returns the requests, prompt and generated tokens, the
-    engine's seconds, its `EngineStats`, its pool and its host swap traffic."""
-    from .serving import SamplingParams, ServingEngine, serve_batch
+    """Decoder-only batch decode through one `ServingEngine`, or the fleet (a `Router`
+    over engine replicas) under ``replicas > 1`` / ``disaggregate``: every dataset row is
+    one request with its own prompt length, a slot is reused the moment its row hits EOS,
+    and outputs keep dataset order. Returns the requests, prompt and generated tokens, the
+    engines' seconds, their `EngineStats` (merged over a fleet's engines, each also under
+    ``engine_stats``), a pool's figures (``engines`` of them), the host swap traffic, and
+    for a fleet the `RouterStats` and the KV handoffs."""
+    from .serving import SamplingParams, ServingEngine, route_batch, serve_batch
 
     gp = args.generation_parameters
     multiple = gp.prompt_bucket_multiple
@@ -125,30 +163,56 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
     sampling = SamplingParams(do_sample=bool(gp.do_sample), temperature=gp.temperature, top_k=gp.top_k, top_p=gp.top_p)
     pad_token_id = next((t for t in (model.tokenizer.pad_token_id, model.eos_token_id) if t is not None), 0)
     draft_model, draft_params = load_draft_model(gp.draft_model, model.model.device)
-    engine = ServingEngine(
-        model.model,
-        None,
-        num_slots=gp.batch_size,
-        max_len=max_len,
-        prefill_bucket_multiple=multiple,
-        max_waiting=max(2 * gp.batch_size, 8),
-        eos_token_id=model.eos_token_id,
-        pad_token_id=pad_token_id,
-        paged=gp.paged_kv_cache,
-        page_size=gp.kv_page_size,
-        num_pages=gp.kv_num_pages,
-        kv_dtype=gp.kv_dtype,
-        prefill_chunk_tokens=gp.prefill_chunk_tokens,
-        prefix_caching=gp.prefix_caching,
-        preemption=gp.preemption,
-        oversubscribe_ratio=gp.oversubscribe_ratio,
-        session_ttl_s=gp.session_ttl_s,
-        speculate_ngram=gp.speculate_ngram,
-        draft_model=draft_model,
-        draft_params=draft_params,
-        draft_k=gp.draft_k,
-        device=model.model.device,
-    )
+
+    def build_engine(**overrides):
+        kwargs = dict(
+            num_slots=gp.batch_size,
+            max_len=max_len,
+            prefill_bucket_multiple=multiple,
+            max_waiting=max(2 * gp.batch_size, 8),
+            eos_token_id=model.eos_token_id,
+            pad_token_id=pad_token_id,
+            paged=gp.paged_kv_cache,
+            page_size=gp.kv_page_size,
+            num_pages=gp.kv_num_pages,
+            kv_dtype=gp.kv_dtype,
+            prefill_chunk_tokens=gp.prefill_chunk_tokens,
+            prefix_caching=gp.prefix_caching,
+            preemption=gp.preemption,
+            oversubscribe_ratio=gp.oversubscribe_ratio,
+            session_ttl_s=gp.session_ttl_s,
+            speculate_ngram=gp.speculate_ngram,
+            draft_model=draft_model,
+            draft_params=draft_params,
+            draft_k=gp.draft_k,
+            trace_requests=gp.trace_requests,
+            device=model.model.device,
+        )
+        kwargs.update(overrides)
+        return ServingEngine(model.model, None, **kwargs)
+
+    router = None
+    if gp.replicas > 1 or gp.disaggregate:
+        from .serving import DisaggregatedEngine, EngineReplica, Router
+
+        replicas = []
+        for replica_id in range(gp.replicas):
+            if gp.disaggregate:
+                prefill = build_engine(
+                    prefill_only=True, speculate_ngram=False, draft_model=None, draft_params=None,
+                    preemption="off", oversubscribe_ratio=1.0,
+                )
+                replica_engine = DisaggregatedEngine(prefill, [build_engine()])
+            else:
+                replica_engine = build_engine()
+            replicas.append(EngineReplica(replica_id, replica_engine))
+        router = Router(replicas, trace_requests=gp.trace_requests)
+        engines = [
+            e for r in replicas for e in ([r.engine.prefill, *r.engine.workers] if gp.disaggregate else [r.engine])
+        ]
+    else:
+        engines = [build_engine()]
+    engine = engines[-1]  # the pool figures below are a decode engine's
 
     t0 = time.perf_counter()
     for dataset in datasets_list:
@@ -163,7 +227,7 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
             )
             for index in range(len(dataset))
         ]
-        states = serve_batch(engine, specs)
+        states = route_batch(router, specs) if router is not None else serve_batch(engine, specs)
 
         output_path = os.path.join(args.output_dir, f"output-{dataset.data_name}.jsonl")
         with open(output_path, "w") as output_file:
@@ -183,14 +247,14 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
         summary["generated_tokens"] += sum(state.num_generated for state in states)
         summary["outputs"].append(output_path)
         log_rank_0(20, f"wrote {output_path}")
-    swap = engine._swap
+    engine_seconds = time.perf_counter() - t0
+    swaps = [e._swap for e in engines if e._swap is not None]
     summary.update(
-        engine_seconds=time.perf_counter() - t0,
-        stats=engine.stats,
+        engine_seconds=engine_seconds,
+        stats=engine.stats if router is None else merged_stats(engines),
         # the host swap pool's traffic (``preemption: swap``); the copies out end on the host
-        swap=None if swap is None else {
-            "bytes_out": swap.bytes_out, "seconds_out": swap.seconds_out,
-            "bytes_in": swap.bytes_in, "seconds_in": swap.seconds_in,
+        swap=None if not swaps else {
+            key: sum(getattr(swap, key) for swap in swaps) for key in ("bytes_out", "seconds_out", "bytes_in", "seconds_in")
         },
         pool={
             "paged": gp.paged_kv_cache,
@@ -198,8 +262,28 @@ def _generate_with_engine(args: InferenceArgs, model, datasets_list: list, progr
             "max_len": max_len,
             "kv_bytes_per_token": engine.pool.kv_bytes_per_token,
             "bytes": sum(t.numel() * t.element_size() for cache in engine.pool.caches for t in cache.values()),
+            "engines": len(engines),
         },
     )
+    if router is not None:
+        handoffs = [r.engine.handoff for r in router.replicas if gp.disaggregate]
+        transfers = sum(h.transfers for h in handoffs)
+        summary.update(
+            router=router.stats,
+            engine_stats=[e.stats for e in engines],
+            handoff={
+                "transfers": transfers,
+                "mean_latency_s": sum(h._latency_sum for h in handoffs) / transfers if transfers else None,
+            },
+        )
+        hit_rate = router.stats.affinity_hit_rate()
+        log_rank_0(
+            20,
+            f"router: {router.stats.routed} routed / {router.stats.rejected} rejected "
+            f"over {len(router.replicas)} replica(s) "
+            f"{dict(sorted(router.stats.per_replica_routed.items()))}, prefix-affinity "
+            f"hit rate {'n/a' if hit_rate is None else f'{hit_rate:.1%}'}",
+        )
     return summary
 
 

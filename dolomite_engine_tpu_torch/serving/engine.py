@@ -44,9 +44,19 @@ engine's ``decode_compiles``, ``verify_compiles``, ``draft_compiles`` and
 ``chunk_compiles`` have no counterpart); greedy outputs match the JAX engine token for
 token (tests/test_torch_serving.py, tests/test_torch_speculation.py,
 tests/test_torch_preemption.py). Sampled requests draw from a per-slot `torch.Generator`
-seeded from the request, so their streams differ from the JAX engine's by design. The
-tracing spans and telemetry counters of the JAX engine wait for ROADMAP.md Queue A,
-'Serving fleet and observability'.
+seeded from the request, so their streams differ from the JAX engine's by design.
+
+The fleet rides on the same engine (`serving/cluster/`): ``prefill_only`` parks finished
+prefills for a KV page handoff to a decode engine (`take_ready_handoffs`,
+`handoff_payload`, `adopt_prefilled`, `release_handoff`); `release_inflight` /
+`adopt_inflight` migrate a dead replica's requests, a sampled one continuing from the
+generator state its `RequestState` carries (``rng_state``); `swap_params` gives one
+replica new weights without touching a module other engines share. The JAX engine's
+telemetry counters, observations and ``serving`` records are written at the same sites,
+and ``trace_requests`` opens the same spans under the same names. A span that ends with
+device work ends after the host fetch (or sync) that ends that work, so it times the
+card, not the enqueue. With tracing off, no telemetry installed and no monitor or
+recorder, the engine makes no extra launch, sync or record.
 
 Options of the JAX engine that this port does not carry yet raise NotImplementedError
 naming the ROADMAP.md item that will port them. A model whose caches are not all ``{k, v}``
@@ -65,7 +75,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.sampling import sample_tokens_vectorized, speculative_accept
-from ..utils import QuantileSketch
+from ..utils.telemetry import QuantileSketch, get_telemetry, kernel_paths
+from ..utils.tracing import RequestTrace
 from .kv_cache import TRASH_PAGE, HostSwapPool, PagedKVCachePool, SlotKVCachePool
 from .prefix_cache import PrefixCache, PrefixMatch
 from .speculation import DraftModelDrafter, NgramDrafter
@@ -85,13 +96,7 @@ _DEFAULT = object()  # "use the engine default" sentinel for per-request eos ove
 _NOT_PORTED = {
     "mesh": (None, "Distribution"),
     "sharding_rules": (None, "Distribution"),
-    "prefill_only": (False, "Serving fleet and observability"),
-    "trace_requests": (False, "Serving fleet and observability"),
     "signature_records": (False, "Serving fleet and observability"),
-    "slo_monitor": (None, "Serving fleet and observability"),
-    "flight_recorder": (None, "Serving fleet and observability"),
-    "record_interval": (0, "Serving fleet and observability"),
-    "replica_id": (None, "Serving fleet and observability"),
 }
 
 
@@ -215,6 +220,18 @@ def _load_weights(model: Any, params: Any, device: torch.device) -> None:
     load_jax_params(model, params, device=device)
 
 
+def _jax_params_state_dict(model: Any, params: Any, device: torch.device) -> dict[str, torch.Tensor]:
+    """The JAX package's params tree (numpy) as a state dict of `model`'s names, loaded into
+    a copy of the model (its buffers too), so the model itself keeps its weights."""
+    import copy
+
+    from ..models.gpt_dolomite import load_jax_params
+
+    shadow = copy.deepcopy(model)
+    load_jax_params(shadow, params, device=device)
+    return dict(shadow.state_dict())
+
+
 class ServingEngine:
     """Drive a causal LM of the port (`models/`) as a continuously batched token service
     on the paged KV pool, or with ``paged=False`` on the dense slot pool.
@@ -260,7 +277,24 @@ class ServingEngine:
             model of the port holds its weights, so the JAX engine's "draft_model requires
             draft_params" has no counterpart. Exclusive with `speculate_ngram`.
         draft_k: draft tokens a verify step scores per slot (K >= 1; the window is K+1).
+        record_interval: write a ``serving`` telemetry record every N decode steps (0: only
+            at `drain`).
+        replica_id: stamped on every ``serving`` record and trace span: which replica of a
+            router fleet (`serving/cluster/router.py`) it is. None: standalone.
+        prefill_only: run as a disaggregation prefill worker (paged only): requests are
+            admitted and chunk-prefilled, the first token streams out, and the finished
+            prefill parks for `take_ready_handoffs` instead of decoding; a decode engine
+            adopts its K/V pages through `serving/cluster/disagg.KVHandoff`.
+        trace_requests: every submitted request carries a span tree (`utils/tracing.py`)
+            and emits one ``trace`` record at its finish. Off by default, and then no trace
+            object exists and nothing extra is written.
+        slo_monitor: a `utils/diagnostics.ServingSLOMonitor` fed once a step.
+        flight_recorder: a `utils/diagnostics.FlightRecorder` that gets one entry a step and
+            is dumped when a step raises.
         device: where the model and pool live; the GPU unless ``"cpu"`` is asked for.
+
+    Engines built over one model share its weights (a second replica adds only its pool);
+    `swap_params` gives this engine weights of its own without touching the others.
     """
 
     def __init__(
@@ -291,6 +325,12 @@ class ServingEngine:
         draft_model: Any = None,
         draft_params: Any = None,
         draft_k: int = 4,
+        record_interval: int = 0,
+        replica_id: int | None = None,
+        prefill_only: bool = False,
+        trace_requests: bool = False,
+        slo_monitor: Any = None,
+        flight_recorder: Any = None,
         device: str | torch.device = "cuda",
         **not_ported: Any,
     ) -> None:
@@ -311,14 +351,23 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet: ROADMAP.md Queue A, '{item}'"
                 )
+        if prefill_only and not paged:
+            raise ValueError("prefill_only (disaggregation) requires the paged KV pool")
         if kv_dtype is not None and not paged:
             raise ValueError("kv_dtype (quantized / low-bit KV) requires the paged KV pool")
+        if prefill_only and (speculate_ngram or draft_model is not None):
+            raise ValueError("prefill_only workers do not decode, so cannot speculate")
         if preemption not in ("off", "swap", "recompute"):
             raise ValueError(
                 f"preemption must be 'off', 'swap', or 'recompute', got {preemption!r}"
             )
         if preemption != "off" and not paged:
             raise ValueError("preemption requires the paged KV pool")
+        if preemption != "off" and prefill_only:
+            raise ValueError(
+                "prefill_only workers park finished prefills for handoff and never "
+                "contend on decode pages; run them with preemption='off'"
+            )
         if oversubscribe_ratio < 1.0:
             raise ValueError(
                 f"oversubscribe_ratio must be >= 1.0, got {oversubscribe_ratio}"
@@ -347,7 +396,28 @@ class ServingEngine:
             raise ValueError(f"max_len={max_len} exceeds model n_positions={n_positions}")
 
         _load_weights(model, params, self.device)
+        # `.to` of a module already on the device returns it: engines over one model share it
         self.model = model.to(self.device).eval()
+        # weights of this engine's own (`swap_params`), applied over the shared module
+        self._params: dict[str, torch.Tensor] | None = None
+        self.record_interval = record_interval
+        self.replica_id = replica_id
+        self.prefill_only = prefill_only
+        self.trace_requests = trace_requests
+        # the observability hooks: each is one `is None` check when off
+        self.slo_monitor = slo_monitor
+        self.flight_recorder = flight_recorder
+        # which path the chunked prefill's attention takes, stamped on prefill_chunk spans
+        self._prefill_backend = "cuda" if self.device.type == "cuda" else "plain"
+        # admission-attempt scratch (valid while tracing the head's admission): the pop's
+        # time and the victims evicted on the head's behalf in this attempt
+        self._admit_t0: float | None = None
+        self._admit_victims = 0
+        # prefill_only: finished prefills parked here (slot and pages resident) until a
+        # decode engine adopts their K/V (serving/cluster/disagg.py)
+        self._ready_handoffs: list[RequestState] = []
+        self._step_count = 0  # decode / verify steps, the records' step clock
+        self._last_record_step = 0
         self.default_eos = eos_token_id
         self.pad_token_id = pad_token_id
         self.prefill_bucket_multiple = prefill_bucket_multiple
@@ -413,11 +483,12 @@ class ServingEngine:
         seed: int | None = None,
         priority: int = 0,
         session_id: str | None = None,
+        trace: RequestTrace | None = None,
     ) -> RequestState:
         """Enqueue a request (tier-then-FCFS; ``priority`` 0 is the top tier). `seed`
-        seeds the request's sampling generator (drawn from the engine's when None).
-        Raises QueueFullError at the queue bound and ValueError when the request cannot
-        fit a slot."""
+        seeds the request's sampling generator (drawn from the engine's when None);
+        `trace` continues a trace a router opened. Raises QueueFullError at the queue
+        bound and ValueError when the request cannot fit a slot."""
         prompt_ids = list(map(int, prompt_ids))
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -452,15 +523,40 @@ class ServingEngine:
             session_id=session_id,
         )
         try:
-            return self.scheduler.submit(request)
+            state = self.scheduler.submit(request)
         except (QueueFullError, ValueError):
             self.stats.rejected += 1
+            get_telemetry().count("serving_requests_rejected")
             raise
+        if trace is None and self.trace_requests:
+            trace = RequestTrace(request_id=request.request_id, clock=self.scheduler.clock)
+        if trace is not None:
+            state.trace = trace
+            trace.request_id = request.request_id
+            root = trace.ensure_root(
+                t0=state.submit_t,
+                tier=request.priority,
+                prompt_tokens=len(prompt_ids),
+                max_new_tokens=request.max_new_tokens,
+                replica_id=self.replica_id,
+            )
+            trace.open["queue_wait"] = trace.begin(
+                "queue_wait", parent=root, t0=state.submit_t, tier=request.priority, segment=0
+            )
+        return state
 
     # ------------------------------------------------------------------ engine loop
 
     def has_work(self) -> bool:
-        return self.scheduler.queue_depth > 0 or bool(self._slot_states)
+        """Whether stepping can make progress. Parked handoffs (prefill_only) are not:
+        a decode engine has to adopt them, so a prefill worker holding only parked slots
+        is idle."""
+        if self.scheduler.queue_depth > 0:
+            return True
+        if not self._ready_handoffs:
+            return bool(self._slot_states)
+        parked = {state.slot for state in self._ready_handoffs}
+        return any(slot not in parked for slot in self._slot_states)
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -468,10 +564,52 @@ class ServingEngine:
         into free slots (a dense pool prefills them whole; with preemption on, lower
         tiers are evicted for a blocked head), advance chunked prefills up to the budget
         (paged), run one decode or verify step over the slot batch. Returns whether any
-        work remains."""
+        work remains.
+
+        The observability hooks ride on the end of the step: its wall time goes to the
+        registry's step-time sketch (in memory, no record), the flight recorder gets one
+        entry (and a dump if the step raised), and the SLO monitor observes the engine."""
+        t0 = time.perf_counter()
+        try:
+            self._step_once()
+        except Exception as error:
+            if self.flight_recorder is not None:
+                from ..utils.diagnostics import crash_reason
+
+                self.flight_recorder.record(
+                    self._step_count,
+                    replica_id=self.replica_id,
+                    queue_depth=self.scheduler.queue_depth,
+                    slots_active=self.pool.num_active,
+                    error=repr(error),
+                )
+                self.flight_recorder.dump(crash_reason(error), error=error)
+            raise
+        get_telemetry().observe("serving/step_s", time.perf_counter() - t0)
+        if self.flight_recorder is not None:
+            self.flight_recorder.record(
+                self._step_count,
+                replica_id=self.replica_id,
+                queue_depth=self.scheduler.queue_depth,
+                slots_active=self.pool.num_active,
+                completed=self.stats.completed,
+                preemptions=self.stats.preemptions or None,
+            )
+        if self.slo_monitor is not None:
+            self.slo_monitor.observe_engine(self)
+        if self.record_interval and self._step_count - self._last_record_step >= self.record_interval:
+            self.emit_serving_record()
+        return self.has_work()
+
+    def _step_once(self) -> None:
         self._cancel_expired_running()
         if self.paged:
             self._admit_paged()
+            if self.prefill_only:
+                # no decode competes for the budget; parked handoff slots never decode
+                self._run_prefill_chunks(self.scheduler.prefill_chunk_tokens)
+                self.stats.peak_active = max(self.stats.peak_active, self.pool.num_active)
+                return
             # decode's computed tokens count against the step's prefill budget: a plain
             # decode 1 a decoding slot, a verify step K+1 (it scores the whole window)
             decoding = sum(1 for s in self._slot_states if s not in self._prefill_tasks)
@@ -490,12 +628,18 @@ class ServingEngine:
                 else:
                     self._decode_once()
         self.stats.peak_active = max(self.stats.peak_active, self.pool.num_active)
-        return self.has_work()
 
     def drain(self) -> None:
-        """Run until every submitted request finished."""
+        """Run until every submitted request finished; write a final ``serving`` record."""
         while self.step():
             pass
+        self.emit_serving_record()
+
+    def _forward(self, *args: Any, **kwargs: Any):
+        """The model's forward, over this engine's own weights after `swap_params`."""
+        if self._params is None:
+            return self.model(*args, **kwargs)
+        return torch.func.functional_call(self.model, self._params, args, kwargs)
 
     # ------------------------------------------------------------------ dense pool
 
@@ -521,11 +665,19 @@ class ServingEngine:
         mask = np.zeros((1, bucket), np.int32)
         mask[0, :prompt_len] = 1
         self._set_sampling(slot, request)
+        tr = state.trace
+        if tr is not None:
+            self._admit_t0 = None
+            self._admit_victims = 0
+            t_adm = self._trace_admitted(state)
+            tr.open["prefill"] = tr.begin(
+                "prefill", parent=tr.root, t0=t_adm, slot=slot, tokens=prompt_len, resume=False
+            )
 
         device = self.device
         t0 = time.perf_counter()
         # right-padded: token i sits at cache position i, so the slot's frontier is its length
-        out = self.model(
+        out = self._forward(
             torch.as_tensor(ids, device=device),
             position_ids=torch.arange(bucket, device=device)[None, :],
             attention_mask=torch.as_tensor(mask, device=device),
@@ -544,6 +696,7 @@ class ServingEngine:
         self.stats.prefill_tokens += prompt_len
         self.stats.prefill_chunks += 1
         self._count_admission(state, session_hit=False)
+        get_telemetry().count("serving_prefill_tokens", prompt_len)
 
         state.slot = slot
         state.status = RequestStatus.running
@@ -558,7 +711,7 @@ class ServingEngine:
         device = self.device
         t0 = time.perf_counter()
         lengths = torch.as_tensor(self.pool.lengths, device=device)
-        out = self.model(
+        out = self._forward(
             torch.as_tensor(self._tokens, device=device)[:, None],
             position_ids=lengths[:, None],
             kv_caches=self.pool.caches,
@@ -568,6 +721,7 @@ class ServingEngine:
             out.logits[:, -1], self._generators, self._rows_sampling(active), *self._sampling_tensors(slice(None))
         )
         tokens = next_tokens.cpu().numpy()  # host fetch: the streaming sync point
+        self._step_count += 1
         self.stats.decode_steps += 1
         self.stats.decode_seconds += time.perf_counter() - t0
         self._emit_decoded(active, tokens)
@@ -590,6 +744,10 @@ class ServingEngine:
             if self.scheduler.expired(state):
                 self._finish(state, RequestStatus.cancelled)
                 continue
+            # tracing: the admission span covers pop -> installed, the victim eviction
+            # loop below included; a blocked attempt records nothing (its queue span stays open)
+            self._admit_t0 = self.scheduler.clock() if state.trace is not None else None
+            self._admit_victims = 0
             if self._try_admit(state):
                 continue
             admitted = False
@@ -598,6 +756,7 @@ class ServingEngine:
                 if victim is None:
                     break
                 self._preempt(victim)
+                self._admit_victims += 1
                 if self._try_admit(state):
                     admitted = True
                     break
@@ -636,8 +795,9 @@ class ServingEngine:
 
         needed = worst_pages - len(match.nodes)
         shortfall = needed - self.pool.available_pages
+        reclaimed = 0
         if shortfall > 0 and self.prefix is not None:
-            self.prefix.evict(shortfall, self.pool)
+            reclaimed = self.prefix.evict(shortfall, self.pool)
         if needed > self.pool.available_pages:
             if match.cow is not None:
                 self.pool.decref(match.cow.page)
@@ -670,8 +830,28 @@ class ServingEngine:
         hit = match.resume_pos
         self.stats.prefix_hit_tokens += hit
         self.stats.prefix_miss_tokens += len(prefill_ids) - hit
+        if hit:
+            get_telemetry().count("serving_prefix_hit_tokens", hit)
+        get_telemetry().count("serving_prefix_miss_tokens", len(prefill_ids) - hit)
         if resume is None:
             self._count_admission(state, session_hit=hit > 0)
+        tr = state.trace
+        if tr is not None:
+            now = self._trace_admitted(
+                state,
+                prefix_hit_tokens=hit,
+                pages_reserved=needed,
+                pages_reclaimed=reclaimed,
+                resume=resume is not None,
+            )
+            tr.open["prefill"] = tr.begin(
+                "prefill",
+                parent=tr.phase_parent or tr.root,
+                t0=now,
+                slot=slot,
+                tokens=len(prefill_ids) - hit,
+                resume=resume is not None,
+            )
         return True
 
     def _try_restore_swapped(self, state: RequestState) -> bool:
@@ -711,6 +891,15 @@ class ServingEngine:
         if self.speculating:
             self._spec_start(slot, request.prompt_ids + state.tokens)
         self.stats.pages_swapped_in += moved
+        get_telemetry().count("serving_pages_swapped_in", moved)
+        tr = state.trace
+        if tr is not None:
+            now = self._trace_admitted(state, pages_swapped_in=moved, pages_reserved=worst_pages, resume=True)
+            park = tr.open.pop("preempt_park", None)
+            if park is not None:
+                tr.end(park, t1=now, pages_swapped_in=moved)
+            tr.phase_parent = None
+            self._trace_begin_decode(state, now)
         return True
 
     def _set_sampling(self, slot: int, request: Request, generator_state: torch.Tensor | None = None) -> None:
@@ -734,12 +923,53 @@ class ServingEngine:
         tier = request.priority
         self.stats.admitted += 1
         self.stats.admitted_by_tier[tier] = self.stats.admitted_by_tier.get(tier, 0) + 1
+        get_telemetry().count("serving_requests_admitted")
         if request.session_id is not None and self.prefix is not None:
             live = self.prefix.touch_session(
                 request.session_id, self.scheduler.clock(), self.session_ttl_s
             )
             if live and session_hit:
                 self.stats.session_hits += 1
+                get_telemetry().count("serving_session_hits")
+
+    # ------------------------------------------------------------------ tracing
+
+    def _trace_admitted(self, state: RequestState, **attrs) -> float:
+        """Close the open queue segment and record the admission span (pop -> now, the
+        victim-eviction loop included). Returns the admission's end, where the caller
+        starts the next phase: contiguous phases make the critical-path TTFT sum close
+        (`utils/tracing.critical_path`)."""
+        tr = state.trace
+        now = self.scheduler.clock()
+        t_pop = self._admit_t0 if self._admit_t0 is not None else now
+        queue = tr.open.pop("queue_wait", None)
+        if queue is not None:
+            tr.end(queue, t1=t_pop)
+        admission = tr.begin(
+            "admission",
+            parent=tr.phase_parent or tr.root,
+            t0=t_pop,
+            tier=state.request.priority,
+            victims_evicted=self._admit_victims,
+            **attrs,
+        )
+        tr.end(admission, t1=now)
+        return now
+
+    def _trace_begin_decode(self, state: RequestState, t0: float) -> None:
+        """Open a decode span for one residency; the steps aggregate their tokens and
+        counts into its attributes (mean ITL = duration / tokens)."""
+        tr = state.trace
+        tr.open["decode"] = tr.begin(
+            "decode",
+            parent=tr.root,
+            t0=t0,
+            slot=state.slot,
+            segment=state.preemptions,
+            replica_id=self.replica_id,
+            tokens=0,
+            steps=0,
+        )
 
     # ------------------------------------------------------------------ preemption
 
@@ -768,6 +998,7 @@ class ServingEngine:
         slot still mid-prefill restarts its prefill: no decode context exists yet."""
         slot = state.slot
         assert slot is not None and self._slot_states.get(slot) is state
+        t_evict = self.scheduler.clock() if state.trace is not None else None
         task = self._prefill_tasks.pop(slot, None)
         if slot in self._prefill_order:
             self._prefill_order.remove(slot)
@@ -787,7 +1018,9 @@ class ServingEngine:
             if self.preemption == "swap":
                 used = -(-resident // self.pool.page_size)
                 pages = [int(p) for p in self.pool.page_table[slot, :used]]
-                self.stats.pages_swapped_out += self._swap.swap_out(state.request.request_id, pages)
+                moved = self._swap.swap_out(state.request.request_id, pages)
+                self.stats.pages_swapped_out += moved
+                get_telemetry().count("serving_pages_swapped_out", moved)
                 swapped = True
             else:
                 if self.prefix is not None:
@@ -809,6 +1042,35 @@ class ServingEngine:
         tier = state.request.priority
         self.stats.preemptions += 1
         self.stats.preempted_by_tier[tier] = self.stats.preempted_by_tier.get(tier, 0) + 1
+        get_telemetry().count("serving_preemptions")
+        tr = state.trace
+        if tr is not None:
+            # close the interrupted residency, open the park span and nest the re-enqueue's
+            # queue segment under it; the resume's admission and prefill spans parent under
+            # the park too (tr.phase_parent) until it ends
+            for name in ("prefill", "decode"):
+                span = tr.open.pop(name, None)
+                if span is not None:
+                    tr.end(span, t1=t_evict, preempted=True)
+            resume = state.resume
+            resident = task.pos if task is not None else (resume.resident if resume is not None else 0)
+            park = tr.begin(
+                "preempt_park",
+                parent=tr.root,
+                t0=t_evict,
+                mode=self.preemption,
+                mid_prefill=task is not None,
+                resident=resident,
+            )
+            if resume is not None and resume.swapped:
+                pages_out = -(-resume.resident // self.pool.page_size)
+                park.attrs["pages_swapped_out"] = pages_out
+                park.attrs["swap_bytes"] = int(round(pages_out * self.pool.page_bytes))
+            tr.open["preempt_park"] = park
+            tr.phase_parent = park
+            tr.open["queue_wait"] = tr.begin(
+                "queue_wait", parent=park, t0=self.scheduler.clock(), tier=tier, segment=state.preemptions
+            )
         self.scheduler.push_front(state)
 
     def _alloc_page_reclaiming(self, slot: int, index: int, after: tuple[int, int] | None = None) -> int | None:
@@ -889,6 +1151,7 @@ class ServingEngine:
         page_size = self.pool.page_size
         view_len = self.pool.max_pages_per_slot * page_size
         device = self.device
+        telemetry = get_telemetry()
         while budget > 0 and self._prefill_order:
             now = self.scheduler.clock()
             slot = min(self._prefill_order, key=lambda s: self._prefill_priority_key(s, now))
@@ -905,11 +1168,26 @@ class ServingEngine:
 
             # map fresh pages under the chunk's real positions before the device write
             # (reclaiming first if an oversubscribed pool ran physically dry)
+            pages_mapped = 0
             for index in range(task.pos // page_size, (task.pos + take - 1) // page_size + 1):
                 if self.pool.page_table[slot, index] == TRASH_PAGE:
                     self._alloc_page_reclaiming(slot, index)
+                    pages_mapped += 1
             if self._slot_states.get(slot) is not state:
                 continue  # reclamation preempted this very task; pick again
+            tr = state.trace
+            chunk_span = None
+            if tr is not None:
+                chunk_span = tr.begin(
+                    "prefill_chunk",
+                    parent=tr.open.get("prefill"),
+                    t0=self.scheduler.clock(),
+                    tokens=take,
+                    width=width,
+                    pages_written=pages_mapped,
+                    backend=self._prefill_backend,
+                    final=final,
+                )
 
             ids = np.full((1, width), self.pad_token_id, np.int64)
             ids[0, :take] = prefill_ids[task.pos : task.pos + take]
@@ -920,7 +1198,7 @@ class ServingEngine:
             table_row = torch.as_tensor(self.pool.page_table[slot : slot + 1], device=device)
             kv = [{**c, "page_table": table_row} for c in self.pool.caches]
             position_ids = torch.arange(task.pos, task.pos + width, device=device)[None, :]
-            out = self.model(
+            out = self._forward(
                 torch.as_tensor(ids, device=device),
                 position_ids=position_ids,
                 attention_mask=torch.as_tensor(mask, device=device),
@@ -940,8 +1218,11 @@ class ServingEngine:
             self.stats.prefill_seconds += time.perf_counter() - t0
             self.stats.prefill_tokens += take
             self.stats.prefill_chunks += 1
+            telemetry.count("serving_prefill_tokens", take)
             task.pos += take
             budget -= take
+            if chunk_span is not None:
+                tr.end(chunk_span)  # after the host fetch or sync that ended the chunk
 
             if not final:
                 continue
@@ -957,20 +1238,68 @@ class ServingEngine:
                 state.resume = None
                 if self.speculating:
                     self._spec_start(slot, state.request.prompt_ids + state.tokens)
+                if tr is not None:
+                    # the recompute resume is complete: the park span ends and decode
+                    # opens again as a new top-level residency
+                    now = self.scheduler.clock()
+                    prefill_span = tr.open.pop("prefill", None)
+                    if prefill_span is not None:
+                        tr.end(prefill_span, t1=now)
+                    park = tr.open.pop("preempt_park", None)
+                    if park is not None:
+                        tr.end(park, t1=now)
+                    tr.phase_parent = None
+                    self._trace_begin_decode(state, now)
                 continue
             if self.speculating:
                 self._spec_start(slot, prefill_ids)
             self._record_first_token(state, first_token)
+            if self.prefill_only and not state.done:
+                # park for handoff: the slot and its pages stay resident until a decode
+                # engine adopts the K/V and `release_handoff` frees them
+                self._ready_handoffs.append(state)
+                if tr is not None:
+                    tr.open["handoff"] = tr.begin(
+                        "handoff", parent=tr.root, t0=state.first_token_t, src_replica=self.replica_id
+                    )
 
     def _record_first_token(self, state: RequestState, token: int) -> None:
-        """End the request's TTFT clock and stream its first token from its slot."""
+        """End the request's TTFT clock and stream its first token from its slot. A
+        prefill phase ends exactly at the first token, so the critical-path sum closes
+        against the recorded TTFT; a request preempted mid-prefill re-prefilled under its
+        park span, which ends here too."""
         state.first_token_t = self.scheduler.clock()
         if state.ttft_s is not None:
             self.stats.ttft_s.append(state.ttft_s)
             tier = state.request.priority
             self.stats.ttft_s_by_tier.setdefault(tier, QuantileSketch()).append(state.ttft_s)
-        self._tokens[state.slot] = token
+            get_telemetry().observe("serving/ttft_s", state.ttft_s)
+        slot = state.slot
+        self._tokens[slot] = token
+        state.rng_steps = 1  # the sampling prefill drew once from the request's stream
+        self._note_draw(state, slot)
+        tr = state.trace
+        if tr is not None:
+            prefill_span = tr.open.pop("prefill", None)
+            if prefill_span is not None:
+                tr.end(prefill_span, t1=state.first_token_t)
+            park = tr.open.pop("preempt_park", None)
+            if park is not None:
+                tr.end(park, t1=state.first_token_t)
+            tr.phase_parent = None
+            if state.ttft_s is not None:
+                tr.root.attrs["ttft_s"] = round(state.ttft_s, 6)
+            if not self.prefill_only:
+                self._trace_begin_decode(state, state.first_token_t)
         self._deliver(state, token)
+
+    def _note_draw(self, state: RequestState, slot: int) -> None:
+        """Keep the slot's generator state on the request after a draw whose tokens are
+        being delivered: a migrated request continues its stream from it. A host copy of
+        a few bytes for a CUDA generator (its seed and offset); greedy rows have none."""
+        generator = self._generators[slot]
+        if generator is not None:
+            state.rng_state = generator.get_state()
 
     def _map_decode_pages(self, window: int) -> list[int]:
         """Map the pages under each decoding row's next `window` positions (capped at the
@@ -1009,7 +1338,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         table, lengths = self._step_views(decoding)
         kv = [{**c, "page_table": table} for c in self.pool.caches]
-        out = self.model(
+        out = self._forward(
             torch.as_tensor(self._tokens, device=device)[:, None],
             position_ids=lengths[:, None],
             kv_caches=kv,
@@ -1019,6 +1348,7 @@ class ServingEngine:
             out.logits[:, -1], self._generators, self._rows_sampling(decoding), *self._sampling_tensors(slice(None))
         )
         tokens = next_tokens.cpu().numpy()  # host fetch: the streaming sync point
+        self._step_count += 1
         self.stats.decode_steps += 1
         self.stats.decode_seconds += time.perf_counter() - t0
         self._emit_decoded(decoding, tokens)
@@ -1073,11 +1403,12 @@ class ServingEngine:
         k = self.draft_k
         device = self.device
         drafts, num_drafts = self._collect_drafts(decoding)
+        w0 = self.scheduler.clock()
         t0 = time.perf_counter()
         # one copy to the device: the window (the fed token, the drafts) and the draft counts
         packed = torch.as_tensor(np.concatenate([self._tokens[:, None], drafts, num_drafts[:, None]], axis=1), device=device)
         positions = lengths[:, None] + torch.arange(k + 1, device=device)[None, :]
-        out = self.model(packed[:, : k + 1], position_ids=positions, kv_caches=kv_caches, cache_index=lengths)
+        out = self._forward(packed[:, : k + 1], position_ids=positions, kv_caches=kv_caches, cache_index=lengths)
         accepted, bonus = speculative_accept(
             out.logits,
             packed[:, 1 : k + 1],
@@ -1087,9 +1418,10 @@ class ServingEngine:
             *self._sampling_tensors(slice(None)),
         )
         accepted, bonus = torch.stack([accepted, bonus]).cpu().numpy()  # host fetch: the streaming sync point
+        self._step_count += 1
         self.stats.decode_steps += 1
         self.stats.decode_seconds += time.perf_counter() - t0
-        self._emit_verified(decoding, drafts, num_drafts, accepted, bonus)
+        self._emit_verified(decoding, drafts, num_drafts, accepted, bonus, w0, self.scheduler.clock())
 
     def _verify_once_paged(self) -> None:
         decoding = self._map_decode_pages(self.draft_k + 1)
@@ -1103,7 +1435,14 @@ class ServingEngine:
         self._verify(list(self._slot_states), self.pool.caches, lengths)
 
     def _emit_verified(
-        self, decoding: list[int], drafts: np.ndarray, num_drafts: np.ndarray, accepted: np.ndarray, bonus: np.ndarray
+        self,
+        decoding: list[int],
+        drafts: np.ndarray,
+        num_drafts: np.ndarray,
+        accepted: np.ndarray,
+        bonus: np.ndarray,
+        window_t0: float | None = None,
+        window_t1: float | None = None,
     ) -> None:
         """Commit a verify step per slot: the accepted drafts in order, then the bonus
         token, with EOS and the token budget applied mid-window (tokens after a finishing
@@ -1129,7 +1468,18 @@ class ServingEngine:
                     break
             self.pool.lengths[slot] += 1 + min(len(emit), acc)
             self._tokens[slot] = emit[-1]
+            state.rng_steps += 1  # one verify step, one draw of the slot's stream
+            self._note_draw(state, slot)
             emitted_total += len(emit)
+            tr = state.trace
+            if tr is not None:
+                span = tr.open.get("decode")
+                if span is not None:
+                    span.attrs["tokens"] += len(emit)
+                    span.attrs["steps"] += 1
+                    if proposals and window_t0 is not None:
+                        window = tr.begin("verify_window", parent=span, t0=window_t0, proposed=proposals, accepted=acc)
+                        tr.end(window, t1=window_t1)
             for token in emit:
                 self._deliver(state, token)
                 if state.done:
@@ -1137,6 +1487,13 @@ class ServingEngine:
         self.stats.decode_tokens += emitted_total
         self.stats.draft_tokens_proposed += proposed_total
         self.stats.draft_tokens_accepted += accepted_total
+        telemetry = get_telemetry()
+        if emitted_total:
+            telemetry.count("serving_decode_tokens", emitted_total)
+        if proposed_total:
+            telemetry.count("serving_draft_tokens_proposed", proposed_total)
+        if accepted_total:
+            telemetry.count("serving_draft_tokens_accepted", accepted_total)
 
     # ------------------------------------------------------------------ delivery
 
@@ -1150,9 +1507,18 @@ class ServingEngine:
             self.pool.lengths[slot] += 1
             token = int(tokens[slot])
             self._tokens[slot] = token
+            state.rng_steps += 1  # this step drew once from the slot's stream
+            self._note_draw(state, slot)
             emitted += 1
+            if state.trace is not None:
+                span = state.trace.open.get("decode")
+                if span is not None:  # the step's token joins the residency's ITL span
+                    span.attrs["tokens"] += 1
+                    span.attrs["steps"] += 1
             self._deliver(state, token)
         self.stats.decode_tokens += emitted
+        if emitted:
+            get_telemetry().count("serving_decode_tokens", emitted)
 
     def _deliver(self, state: RequestState, token: int) -> None:
         """Stream one token and apply the termination rules (EOS counts as emitted)."""
@@ -1176,6 +1542,8 @@ class ServingEngine:
         state.finish_t = self.scheduler.clock()
         if self._swap is not None:
             self._swap.drop(state.request.request_id)  # finished while swapped out
+        if self._ready_handoffs:
+            self._ready_handoffs = [s for s in self._ready_handoffs if s is not state]
         if state.slot is not None:
             slot = state.slot
             self._prefill_tasks.pop(slot, None)
@@ -1189,14 +1557,41 @@ class ServingEngine:
             self._generators[slot] = None
             del self._slot_states[slot]
         tier = state.request.priority
+        telemetry = get_telemetry()
         if status == RequestStatus.completed:
             self.stats.completed += 1
             self.stats.completed_by_tier[tier] = self.stats.completed_by_tier.get(tier, 0) + 1
+            telemetry.count("serving_requests_completed")
         else:
             self.stats.cancelled += 1
+            telemetry.count("serving_requests_cancelled")
         if state.first_token_t is not None and state.num_generated > 1:
             itl = (state.finish_t - state.first_token_t) / (state.num_generated - 1)
             self.stats.itl_s_by_tier.setdefault(tier, QuantileSketch()).append(itl)
+            telemetry.observe("serving/itl_s", itl)
+        tr = state.trace
+        if tr is not None:
+            # close the phase the request ended in, then the root, and write the whole tree
+            # as one trace record (the finishing engine writes it: for a disaggregated
+            # request the decode worker, so both workers' spans land in one record)
+            for name in ("queue_wait", "prefill", "decode", "handoff", "preempt_park"):
+                span = tr.open.pop(name, None)
+                if span is not None:
+                    tr.end(span, t1=state.finish_t)
+            tr.end(
+                tr.root,
+                t1=state.finish_t,
+                status=str(status),
+                generated_tokens=state.num_generated,
+                preemptions=state.preemptions,
+            )
+            telemetry.emit_record(
+                "trace",
+                step=self._step_count,
+                trace_id=tr.trace_id,
+                request_id=state.request.request_id,
+                spans=tr.span_records(),
+            )
         if state.request.on_finish is not None:
             state.request.on_finish(state)
 
@@ -1213,6 +1608,286 @@ class ServingEngine:
             self.prefix.pin_session(
                 state.request.session_id, resident, self.scheduler.clock(), self.session_ttl_s
             )
+
+    # ------------------------------------------------------ disaggregation (cluster/)
+
+    def prefix_match_len(self, prompt_ids: list[int]) -> int:
+        """Resident-prefix tokens this engine could reuse for `prompt_ids`: the router's
+        affinity probe. No side effect (no LRU promotion); 0 without prefix caching."""
+        return 0 if self.prefix is None else self.prefix.probe_len(prompt_ids)
+
+    @property
+    def pending_handoffs(self) -> int:
+        """Finished prefills parked for adoption (prefill_only; else 0)."""
+        return len(self._ready_handoffs)
+
+    def take_ready_handoffs(self) -> list[RequestState]:
+        """Pop every parked finished prefill (FCFS). The caller takes each one's
+        `handoff_payload`, transfers its pages and calls `release_handoff`, or parks it
+        again with `park_handoff` when no decode engine has room."""
+        ready, self._ready_handoffs = self._ready_handoffs, []
+        return ready
+
+    def park_handoff(self, state: RequestState) -> None:
+        """Return a handoff no decode engine could take to the front of the parked queue."""
+        self._ready_handoffs.insert(0, state)
+
+    def handoff_payload(self, state: RequestState) -> tuple[int, torch.Tensor | None, int, list[int]]:
+        """The host-side handoff bundle of a parked prefill: (first token, the slot's
+        generator state after the first draw, or None for a greedy request, resident
+        length, physical source pages in chain order). The pages stay alive, their K/V
+        unchanged, until `release_handoff`."""
+        slot = state.slot
+        assert slot is not None, "handoff payload for a request without a slot"
+        length = int(self.pool.lengths[slot])
+        used = -(-length // self.pool.page_size)
+        pages = [int(p) for p in self.pool.page_table[slot, :used]]
+        assert TRASH_PAGE not in pages, "handoff of an unmapped prefix page"
+        generator = self._generators[slot]
+        return int(self._tokens[slot]), None if generator is None else generator.get_state(), length, pages
+
+    def release_handoff(self, state: RequestState, slot: int) -> None:
+        """Free a handed-off request's source `slot` without finishing the request: its
+        prefix pages are indexed here first (a later arrival with the same prompt skips
+        prefill on this engine, which is what prefix affinity to a prefill worker buys),
+        then the slot and its reservation return to the pool. The slot is passed because
+        `adopt_prefilled` has already pointed ``state.slot`` at the decode slot."""
+        assert self._slot_states.get(slot) is state, "release of a slot the state does not hold"
+        if self.prefix is not None:
+            self._register_prefix(state, slot)
+        self.pool.free(slot)
+        self._generators[slot] = None
+        del self._slot_states[slot]
+
+    def adopt_prefilled(
+        self, state: RequestState, *, first_token: int, generator_state: torch.Tensor | None, length: int
+    ) -> list[int] | None:
+        """Admit a request whose prefill ran on another engine (the decode side of
+        disaggregation): reserve its remaining worst-case pages, map fresh private pages
+        for the transferred prefix and install the decode state as a local final prefill
+        chunk would, so decode continues token for token as on one engine (the sampling
+        generator continues from `generator_state`). Returns the destination pages (chain
+        order) for the handoff to fill, or None when this engine lacks a slot or pages
+        (the caller keeps FCFS by parking it again)."""
+        assert self.paged and not self.prefill_only
+        request = state.request
+        page_size = self.pool.page_size
+        used = -(-length // page_size)
+        worst = -(-(length + request.max_new_tokens) // page_size)
+        if self.pool.num_free == 0:
+            return None
+        shortfall = worst - self.pool.available_pages
+        if shortfall > 0 and self.prefix is not None:
+            self.prefix.evict(shortfall, self.pool)
+        if worst > self.pool.available_pages or self.pool.physical_free < used:
+            return None
+        slot = self.pool.allocate()
+        self.pool.reserve(slot, worst)
+        pages = [self.pool.alloc_page(slot, i) for i in range(used)]
+        self.pool.lengths[slot] = length
+
+        state.slot = slot
+        state.status = RequestStatus.running
+        self._slot_states[slot] = state
+        self._tokens[slot] = first_token
+        self._set_sampling(slot, request, generator_state)
+        if self.speculating:
+            # the drafter's history holds what the prefill side already emitted
+            self._spec_start(slot, request.prompt_ids + state.tokens)
+        self.stats.admitted += 1
+        get_telemetry().count("serving_requests_admitted")
+        if state.trace is not None:
+            # decode goes on here; the handoff span, opened on the prefill side, is closed
+            # by the disaggregation driver once the pages have landed
+            self._trace_begin_decode(state, self.scheduler.clock())
+        return pages
+
+    # -------------------------------------------------- crash migration (cluster/)
+
+    def inflight_request_ids(self) -> list[int]:
+        """Ids of the requests this engine still owes tokens to (waiting and running),
+        sorted: the router's drain-timeout diagnostics and wait accounting."""
+        ids = {state.request.request_id for state in self.scheduler.waiting}
+        ids.update(state.request.request_id for state in self._slot_states.values())
+        return sorted(ids)
+
+    def release_inflight(self) -> list[RequestState]:
+        """Strip every unfinished request out of this engine and return them in (tier,
+        FCFS) order for adoption elsewhere (`Router._recover_dead` / `drain_replica`).
+
+        Host bookkeeping only: the engine may have just failed mid-step, so its device
+        state (pages, per-slot rows) is taken as corrupt: nothing is read from it and no
+        prefix is registered. Each state comes back a slot-less ``waiting`` request;
+        `adopt_inflight` rebuilds its resume context from its token log and
+        ``rng_state`` alone."""
+        released = list(self.scheduler.waiting)
+        while self.scheduler.pop_next() is not None:
+            pass
+        running = sorted(self._slot_states.items(), key=lambda item: (item[1].tier, item[1].seq))
+        for slot, state in running:
+            self._prefill_tasks.pop(slot, None)
+            if slot in self._prefill_order:
+                self._prefill_order.remove(slot)
+            if self.speculating:
+                self._spec_stop(slot)
+            self.pool.free(slot)
+            self._generators[slot] = None
+            released.append(state)
+        self._slot_states.clear()
+        self._ready_handoffs = []
+        for state in released:
+            if self._swap is not None:
+                self._swap.drop(state.request.request_id)
+            state.slot = None
+            state.status = RequestStatus.waiting
+            state.resume = None  # rebuilt from the token log at adoption
+        released.sort(key=lambda state: (state.tier, state.seq))
+        return released
+
+    def adopt_inflight(self, state: RequestState) -> None:
+        """Admit a request released from another replica (`release_inflight`), mid-
+        generation or not. One that already emitted tokens comes in through the
+        drop-and-recompute resume: the next token fed is its last emitted one, the resident
+        prefix is ``(prompt + tokens)[:-1]``, and its sampling generator continues from
+        ``state.rng_state``, so chunked prefill recomputes the committed prefix (prefix
+        hits welcome) and decode continues token for token as if nothing had failed.
+        Raises QueueFullError when this engine's queue is at its bound (the router then
+        tries its next candidate)."""
+        if state.tokens and not self.paged:
+            raise ValueError("adopting a mid-generation request requires a paged engine")
+        if state.tokens:
+            state.resume = _ResumeState(
+                next_token=int(state.tokens[-1]),
+                generator_state=state.rng_state,
+                resident=len(state.request.prompt_ids) + len(state.tokens) - 1,
+                swapped=False,
+            )
+        else:
+            state.resume = None
+        self.scheduler.adopt(state)
+
+    @torch.no_grad()
+    def swap_params(self, params: Any) -> None:
+        """Install new weights on this engine alone (a rolling update while the router
+        has it parked): `params` is a state dict of the model's names (tensors; a module's
+        `state_dict()`) or the JAX package's params tree (numpy). The forwards then run the
+        shared module over these weights (`torch.func.functional_call`), so other engines
+        built over the same model keep theirs. A state dict's tensors are used as given
+        when they are on this engine's device in the model's dtypes, else copied there.
+        The prefix index is dropped (its pages hold K/V of the old weights; the JAX engine
+        keeps it); a request still running goes on over the K/V it has."""
+        if not hasattr(params, "items") or not all(isinstance(v, torch.Tensor) for v in params.values()):
+            params = _jax_params_state_dict(self.model, params, self.device)
+        current = dict(self.model.state_dict(keep_vars=True))
+        missing = sorted(set(current) - set(params))
+        unknown = sorted(set(params) - set(current))
+        if unknown:
+            raise ValueError(f"swap_params got names the model does not have: {unknown[:5]}")
+        own, converted = {}, {}  # one copy per source tensor keeps tied weights tied
+        for name, tensor in params.items():
+            like = current[name]
+            if tensor.shape != like.shape:
+                raise ValueError(f"swap_params: {name} has shape {tuple(tensor.shape)}, the model {tuple(like.shape)}")
+            if id(tensor) not in converted:
+                converted[id(tensor)] = tensor.detach().to(device=like.device, dtype=like.dtype)
+            own[name] = converted[id(tensor)]
+        for name in missing:  # tied weights and buffers the state dict left out
+            own[name] = current[name].detach()
+        self._params = own
+        if self.prefix is not None:
+            # resident prefixes hold K/V of the old weights: never reuse them under the new
+            self.prefix.clear(self.pool)
+
+    # ------------------------------------------------------------------ telemetry
+
+    def emit_serving_record(self) -> None:
+        """Write one ``serving`` telemetry record: the queue, slot and page state now, and
+        the cumulative rates and counters (a no-op sink when no telemetry is installed)."""
+        telemetry = get_telemetry()
+        stats = self.stats
+        self._last_record_step = self._step_count
+        telemetry.gauge("serving/queue_depth", self.scheduler.queue_depth)
+        telemetry.gauge("serving/slot_occupancy", self.pool.occupancy)
+        kv_bytes = round(self.pool.kv_bytes_per_token, 2)
+        telemetry.gauge("serving/kv_bytes_per_token", kv_bytes)
+        pages_in_use = fragmentation = None
+        if self.paged:
+            pages_in_use = self.pool.pages_in_use
+            fragmentation = round(self.pool.page_fragmentation, 4)
+            telemetry.gauge("serving/pages_in_use", pages_in_use)
+            telemetry.gauge("serving/page_fragmentation", fragmentation)
+        accept_rate = accepted_per_step = None
+        if self.speculating:
+            rate = stats.accept_rate()
+            accept_rate = 0.0 if rate is None else round(rate, 4)
+            per_step = stats.accepted_tokens_per_step()
+            accepted_per_step = 0.0 if per_step is None else round(per_step, 3)
+            telemetry.gauge("serving/accept_rate", accept_rate)
+            telemetry.gauge("serving/accepted_tokens_per_step", accepted_per_step)
+        # one entry per tier that has seen traffic or is waiting, the measured latencies
+        # beside their SLO targets
+        depth_by_tier = self.scheduler.queue_depth_by_tier()
+        tiers: dict[str, dict] = {}
+        for tier in sorted(
+            set(depth_by_tier) | set(stats.admitted_by_tier) | set(stats.ttft_s_by_tier) | set(self.scheduler.tier_slos)
+        ):
+            slo = self.scheduler.slo(tier)
+            p99 = stats.ttft_p99_s(tier)
+            itl = stats.itl_mean_s(tier)
+            tiers[str(tier)] = {
+                "queue_depth": depth_by_tier.get(tier, 0),
+                "admitted": stats.admitted_by_tier.get(tier, 0),
+                "completed": stats.completed_by_tier.get(tier, 0),
+                "preempted": stats.preempted_by_tier.get(tier, 0),
+                "ttft_p99_ms": None if p99 is None else round(p99 * 1e3, 3),
+                "ttft_target_ms": None if slo.ttft_target_s is None else round(slo.ttft_target_s * 1e3, 3),
+                "itl_mean_ms": None if itl is None else round(itl * 1e3, 3),
+                "itl_target_ms": None if slo.itl_target_s is None else round(slo.itl_target_s * 1e3, 3),
+            }
+            telemetry.gauge(f"serving/priority_queue_depth/tier{tier}", depth_by_tier.get(tier, 0))
+            if p99 is not None:
+                telemetry.gauge(f"serving/ttft_p99_ms/tier{tier}", round(p99 * 1e3, 3))
+        ttft = stats.mean_ttft_s()
+        prefill_rate = stats.prefill_tok_s()
+        decode_rate = stats.decode_tok_s()
+        telemetry.emit_record(
+            "serving",
+            step=self._step_count,
+            replica_id=self.replica_id,
+            queue_depth=self.scheduler.queue_depth,
+            slots_active=self.pool.num_active,
+            num_slots=self.pool.num_slots,
+            pages_in_use=pages_in_use,
+            pages_total=self.pool.num_pages - 1 if self.paged else None,
+            page_fragmentation=fragmentation,
+            kv_dtype=getattr(self.pool, "kv_dtype", None),
+            kv_bytes_per_token=kv_bytes,
+            ttft_ms=None if ttft is None else round(ttft * 1e3, 3),
+            prefill_tok_s=None if prefill_rate is None else round(prefill_rate, 1),
+            decode_tok_s=None if decode_rate is None else round(decode_rate, 1),
+            accept_rate=accept_rate,
+            accepted_tokens_per_step=accepted_per_step,
+            preemptions=stats.preemptions,
+            pages_swapped_out=stats.pages_swapped_out,
+            pages_swapped_in=stats.pages_swapped_in,
+            session_hits=stats.session_hits,
+            sessions_live=0 if self.prefix is None else self.prefix.sessions_live,
+            tiers=tiers,
+            kernels=kernel_paths(self.device),
+            counters={
+                "admitted": stats.admitted,
+                "completed": stats.completed,
+                "rejected": stats.rejected,
+                "cancelled": stats.cancelled,
+                "prefill_tokens": stats.prefill_tokens,
+                "decode_tokens": stats.decode_tokens,
+                "decode_steps": stats.decode_steps,
+                "prefix_hit_tokens": stats.prefix_hit_tokens,
+                "prefix_miss_tokens": stats.prefix_miss_tokens,
+                "draft_tokens_proposed": stats.draft_tokens_proposed,
+                "draft_tokens_accepted": stats.draft_tokens_accepted,
+            },
+        )
 
 
 def serve_batch(engine: ServingEngine, request_specs: list[dict]) -> list[RequestState]:

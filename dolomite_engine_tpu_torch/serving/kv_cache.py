@@ -227,6 +227,10 @@ class PagedKVCachePool:
     def num_active(self) -> int:
         return len(self._slots_in_use)
 
+    @property
+    def occupancy(self) -> float:
+        return len(self._slots_in_use) / self.num_slots
+
     def allocate(self) -> int | None:
         """Claim a free slot row (lowest index first), or None when all rows are taken."""
         if not self._free_slots:

@@ -256,6 +256,20 @@ class PrefixCache:
             freed += 1
         return freed
 
+    def clear(self, pool) -> int:
+        """Drop every entry and session, releasing the index's page references (pages a
+        running slot also holds stay with it): what `ServingEngine.swap_params` does, since
+        K/V computed under the old weights must not be reused under the new. Returns the
+        entries dropped."""
+        dropped = 0
+        for node in list(self._iter_nodes()):
+            pool.decref(node.page)
+            dropped += 1
+        self.root = PrefixNode(tokens=(), page=-1, depth=-1)
+        self._num_entries = 0
+        self._sessions = {}
+        return dropped
+
     def _iter_nodes(self):
         stack = list(self.root.children.values())
         while stack:

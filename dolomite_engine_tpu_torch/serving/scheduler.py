@@ -1,9 +1,10 @@
 """Request queue + continuous-batching scheduler (Orca-style iteration-level scheduling).
 
-(Copy of `dolomite_engine_tpu/serving/scheduler.py`, with sampling from the port, a
-request's random stream named by an integer seed (its generator's state travels in the
-preemption context, so there is no split count to carry), and the per-request migration
-and tracing fields left for the slices that port those features.)
+(Copy of `dolomite_engine_tpu/serving/scheduler.py`, with sampling from the port and a
+request's random stream named by an integer seed. Its generator's state after the last
+draw whose tokens were delivered rides on the `RequestState` (``rng_state``), which is what
+a surviving replica continues a migrated sampled stream from; the JAX package re-derives
+its carry from the request key and ``rng_steps`` instead.)
 
 Requests enter a bounded waiting queue (`submit`) ordered by **priority tier, then
 submission order**: tier 0 is the most important; within a tier the queue is FCFS by a
@@ -114,6 +115,23 @@ class RequestState:
     seq: int = -1  # FCFS position within the tier, assigned once at submit
     preemptions: int = 0  # times this request was evicted mid-flight and re-enqueued
     resume: Any = None  # engine-private preemption context (swap payload, generator state)
+    # draws consumed for this request's sample stream (1 at the sampling prefill chunk, +1
+    # per decode / verify step it took part in): the JAX package's counter, kept for the
+    # records; the port continues a migrated stream from `rng_state`
+    rng_steps: int = 0
+    # the sampling generator's state (host bytes: a CUDA generator keeps its seed and
+    # offset on the host) after the last draw whose tokens were delivered; None for a
+    # greedy request or before its first token. `ServingEngine.adopt_inflight` continues a
+    # migrated request's stream from it, with nothing read from the replica that died
+    rng_state: Any = None
+    # times this request was migrated to another replica after a crash or a drain (the
+    # `reroute` trace span carries the per-hop detail)
+    reroutes: int = 0
+    # the per-request trace (utils/tracing.RequestTrace) when tracing is on; None is the
+    # free default: every instrumentation site is one `is not None` check. The state
+    # carries the trace across every seam (router -> engine, preemption re-enqueue, the
+    # disaggregated prefill -> decode handoff), so a request's lifecycle is one tree
+    trace: Any = None
 
     @property
     def tier(self) -> int:

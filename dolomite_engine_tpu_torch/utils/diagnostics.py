@@ -1,5 +1,5 @@
 """Training health: per-group tensor statistics, anomaly detection, the crash flight
-recorder, and the one-shot model report.
+recorder, the one-shot model report, and the serving SLO monitor.
 
 Counterpart of `dolomite_engine_tpu/utils/diagnostics.py`: `HealthMonitor` (EWMA z-scores
 over loss and grad norm, the rolling-median straggler detector, ``anomaly`` events, the optional
@@ -8,7 +8,9 @@ escalation to the abort path), `FlightRecorder` (on by default: the last
 ``<save_path>/telemetry/flight-record-rank-<N>.json`` on a crash, a stall, a NaN abort or
 a preemption) and `emit_model_report`; and the per-group tensor statistics of
 ``health.interval > 0`` (`per_group_health`, `group_health`), computed in the train step on
-the device and written every ``interval`` steps as a ``health`` record.
+the device and written every ``interval`` steps as a ``health`` record. `ServingSLOMonitor`
+(a copy of the JAX package's) watches a serving engine or fleet once a step: TTFT burn
+rates per tier, queue growth, the draft accept rate and the KV-handoff latency.
 """
 
 from __future__ import annotations
@@ -420,6 +422,172 @@ def build_health_monitor(args, telemetry) -> HealthMonitor:
         abort_after_consecutive_anomalies=health_args.abort_after_consecutive_anomalies,
         flight_recorder=flight_recorder,
     )
+
+
+# --------------------------------------------------------------------- serving SLO alerts
+
+
+class ServingSLOMonitor:
+    """SLO burn-rate alerts over serving signals (docs/OBSERVABILITY.md "Live metrics").
+
+    The serving-side counterpart of :class:`HealthMonitor`: attached to a
+    ``ServingEngine`` (``slo_monitor=``) it is fed once per engine step and watches four
+    signal families, emitting the same ``anomaly`` event records the training detector
+    writes, so one summary/alerting path reads both:
+
+    - **TTFT burn rate** (per tier with a ``TierSLO.ttft_target_s``): each step scores
+      "is this tier's p99 TTFT over target" into two sliding windows — a fast window
+      (default 5 steps) that must be *fully* burning and a slow window (default 60
+      steps) that must be burning past ``slow_burn`` — the classic multi-window
+      burn-rate gate: the fast window gives detection latency, the slow window keeps a
+      single slow request from paging anyone. One alert per (replica, tier) while the
+      condition holds; the key re-arms after the fast window clears.
+    - **Queue growth**: per-step queue-depth delta through the EWMA z-score detector —
+      sustained admission faster than drain flags, a steady-state queue does not.
+    - **Accept-rate collapse** (speculation only): the cumulative draft accept rate
+      through the EWMA detector, flagging only downward breaks (a drafter suddenly
+      mispredicting, e.g. an out-of-distribution workload shift).
+    - **Handoff latency** (disaggregated fleets): per-transfer KV-handoff wall time,
+      flagging only upward breaks (the interconnect degrading under the fleet).
+
+    Signals are keyed by (replica, tier) so one monitor serves a whole fleet; state
+    mutation is CPython-atomic (dict/deque ops) and event emission locks inside
+    Telemetry, so threaded replicas share an instance safely. Alerts are mirrored on
+    ``self.alerts`` for the obs server's ``/statusz`` and for tests.
+    """
+
+    def __init__(
+        self,
+        telemetry,
+        fast_window: int = 5,
+        slow_window: int = 60,
+        fast_burn: float = 1.0,
+        slow_burn: float = 0.5,
+        ewma_alpha: float = 0.05,
+        zscore_threshold: float = 6.0,
+        warmup: int = 20,
+    ) -> None:
+        if fast_window < 1 or slow_window < fast_window:
+            raise ValueError(
+                f"need 1 <= fast_window <= slow_window, got {fast_window}/{slow_window}"
+            )
+        self.telemetry = telemetry
+        self.fast_window = fast_window
+        self.slow_window = slow_window
+        self.fast_burn = fast_burn
+        self.slow_burn = slow_burn
+        self.detector = EWMADetector(
+            alpha=ewma_alpha, threshold=zscore_threshold, warmup=warmup
+        )
+        self._burn: dict[tuple, tuple[deque, deque]] = {}
+        self._alerting: set[tuple] = set()
+        self._last_queue: dict[Any, int] = {}
+        self.alerts: list[dict] = []
+
+    # ------------------------------------------------------------------ emission
+
+    def _alert(self, step: int, anomaly: dict) -> None:
+        self.alerts.append({"step": step, **anomaly})
+        self.telemetry.event("anomaly", step=step, **anomaly)
+
+    def _observe_burn(self, key: tuple, step: int, violated: bool, fields: dict) -> None:
+        windows = self._burn.get(key)
+        if windows is None:
+            windows = self._burn[key] = (
+                deque(maxlen=self.fast_window),
+                deque(maxlen=self.slow_window),
+            )
+        fast, slow = windows
+        sample = 1.0 if violated else 0.0
+        fast.append(sample)
+        slow.append(sample)
+        fast_rate = sum(fast) / len(fast)
+        slow_rate = sum(slow) / len(slow)
+        firing = (
+            len(fast) == self.fast_window
+            and fast_rate >= self.fast_burn
+            and slow_rate >= self.slow_burn
+        )
+        if firing and key not in self._alerting:
+            self._alerting.add(key)
+            self._alert(
+                step,
+                {
+                    **fields,
+                    "fast_burn_rate": round(fast_rate, 3),
+                    "slow_burn_rate": round(slow_rate, 3),
+                },
+            )
+        elif key in self._alerting and fast_rate < self.fast_burn:
+            self._alerting.discard(key)  # cleared: the next sustained burn re-alerts
+
+    # ------------------------------------------------------------------ signal feeds
+
+    def observe_engine(self, engine) -> None:
+        """Once per engine step (``ServingEngine.step`` calls this when attached)."""
+        step = engine._step_count
+        stats = engine.stats
+        replica = engine.replica_id
+        for tier, slo in sorted(engine.scheduler.tier_slos.items()):
+            target = slo.ttft_target_s
+            if target is None:
+                continue
+            p99 = stats.ttft_p99_s(tier)
+            if p99 is None:
+                continue  # a tier with no admitted traffic cannot burn its budget
+            self._observe_burn(
+                ("ttft", replica, tier),
+                step,
+                p99 > target,
+                {
+                    "signal": "ttft_burn_rate",
+                    "replica_id": replica,
+                    "tier": tier,
+                    "ttft_p99_ms": round(p99 * 1e3, 3),
+                    "ttft_target_ms": round(target * 1e3, 3),
+                },
+            )
+        depth = engine.scheduler.queue_depth
+        previous = self._last_queue.get(replica)
+        self._last_queue[replica] = depth
+        if previous is not None:
+            z_score, flagged = self.detector.update(f"queue_growth/{replica}", depth - previous)
+            if flagged and depth > previous:
+                anomaly = {
+                    "signal": "queue_growth",
+                    "replica_id": replica,
+                    "queue_depth": depth,
+                    "growth": depth - previous,
+                }
+                if z_score is not None:
+                    anomaly["zscore"] = round(z_score, 3)
+                self._alert(step, anomaly)
+        if engine.speculating:
+            rate = stats.accept_rate()
+            if rate is not None:
+                z_score, flagged = self.detector.update(f"accept_rate/{replica}", rate)
+                if flagged and (z_score is None or z_score < 0):
+                    anomaly = {
+                        "signal": "accept_rate_collapse",
+                        "replica_id": replica,
+                        "accept_rate": round(rate, 4),
+                    }
+                    if z_score is not None:
+                        anomaly["zscore"] = round(z_score, 3)
+                    self._alert(step, anomaly)
+
+    def observe_handoff(self, latency_s: float, replica_id=None, step: int = 0) -> None:
+        """One KV-handoff wall time (the router feeds this per new transfer)."""
+        z_score, flagged = self.detector.update("handoff_latency", latency_s)
+        if flagged and (z_score is None or z_score > 0):
+            anomaly = {
+                "signal": "handoff_latency",
+                "replica_id": replica_id,
+                "handoff_latency_ms": round(latency_s * 1e3, 3),
+            }
+            if z_score is not None:
+                anomaly["zscore"] = round(z_score, 3)
+            self._alert(step, anomaly)
 
 
 # --------------------------------------------------------------------- model report

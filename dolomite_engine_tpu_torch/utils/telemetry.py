@@ -23,8 +23,11 @@ no loop installed one. The records have the JAX package's kinds and keys:
 
 `run_start` names torch's and CUDA's versions where the JAX record names jax's and
 jaxlib's, and its ``kernels`` maps each kernel to the path this run's device takes
-(``cuda`` or ``plain``). On-demand profiling is not ported (ROADMAP.md Queue A, 'Serving
-fleet and observability').
+(``cuda`` or ``plain``). The serving fleet reads the registry through `observe` (quantile
+sketches kept in memory, never written), `counters_snapshot` / `gauges_snapshot` /
+`quantiles_snapshot` / `snapshot`, and the `KNOWN_COUNTERS` / `KNOWN_EVENTS` /
+`KNOWN_GAUGES` tables, whose names are the JAX package's. On-demand profiling is not ported
+(ROADMAP.md Queue A, 'Serving fleet and observability').
 """
 
 from __future__ import annotations
@@ -41,6 +44,112 @@ from typing import Any
 import torch
 
 SCHEMA_VERSION = 1
+
+# every literal counter name used through the registry; `count(..., event=True)` names must
+# additionally appear in KNOWN_EVENTS (they write an event record under the same name)
+KNOWN_COUNTERS: tuple[str, ...] = (
+    "nan_skips",
+    "io_retries",
+    "io_failures",
+    "loader_stalls",
+    "preemptions",
+    "checkpoints_saved",
+    "checkpoints_pruned",
+    "loader_batches",
+    "profiles_captured",
+    # async input pipeline (data/prefetch.py): consumer found the prefetch queue empty at
+    # a steady-state step — the background worker is not keeping up with the loop
+    "prefetch_stalls",
+    # serving engine (serving/engine.py)
+    "serving_requests_admitted",
+    "serving_requests_completed",
+    "serving_requests_rejected",
+    "serving_requests_cancelled",
+    "serving_prefill_tokens",
+    "serving_decode_tokens",
+    # paged-pool prefix caching (serving/prefix_cache.py): prompt tokens whose K/V were
+    # already resident (skipped prefill) vs tokens actually computed — hit rate is
+    # hit / (hit + miss), rendered by tools/telemetry_summary.py
+    "serving_prefix_hit_tokens",
+    "serving_prefix_miss_tokens",
+    # speculative decoding (serving/engine.py): draft tokens proposed by the configured
+    # drafter (n-gram lookup or draft model) vs accepted by the verify step —
+    # accept rate is accepted / proposed, rendered by tools/telemetry_summary.py
+    "serving_draft_tokens_proposed",
+    "serving_draft_tokens_accepted",
+    # contention-aware scheduling (serving/engine.py): slots evicted for a higher tier
+    # or for physical pages (swap or drop-and-recompute), KV pages moved out to / back
+    # from the host swap pool, and admissions that reused a live session's pinned prefix
+    "serving_preemptions",
+    "serving_pages_swapped_out",
+    "serving_pages_swapped_in",
+    "serving_session_hits",
+    # distributed serving router (serving/cluster/router.py): requests placed on a
+    # replica / shed at the fleet-wide admission bound / routed by prefix affinity
+    "router_requests_routed",
+    "router_requests_rejected",
+    "router_prefix_affinity_hits",
+    # fleet fault tolerance (serving/cluster/router.py + health.py): replicas declared
+    # dead (crash/wedge/thread death), in-flight requests migrated to a survivor,
+    # requests cancelled under capacity loss (lowest tier first), and completed
+    # drain_replica operations
+    "router_replica_crashes",
+    "router_requests_rerouted",
+    "router_requests_shed",
+    "router_drains",
+    # prefill/decode disaggregation (serving/cluster/disagg.py): KV page transfers from
+    # a prefill worker's pool into a decode worker's pool
+    "cluster_kv_handoffs",
+)
+
+KNOWN_EVENTS: tuple[str, ...] = (
+    "nan_skips",
+    "io_failures",
+    "loader_stalls",
+    "preemptions",
+    "profile_start",
+    "profiles_captured",
+    "anomaly",
+    # serving-fleet fault tolerance (serving/cluster/health.py + router.py): one event
+    # per downward health edge, per completed drain/rejoin, and when a threaded
+    # Router.wait timed out with work still pending (fields name who/why)
+    "replica_suspect",
+    "replica_dead",
+    "replica_drained",
+    "replica_rejoined",
+    "router_wait_incomplete",
+)
+
+# every literal gauge name set through the registry (dynamic names — the per-device
+# memory/host-RSS fan-out in collect_memory_gauges — are exempt, same rule as counters).
+# The three tables keep the JAX package's names, so both `/metrics` pages list the same series
+KNOWN_GAUGES: tuple[str, ...] = (
+    # async input pipeline (data/prefetch.py): queue occupancy after each consumed batch
+    "prefetch/queue_depth",
+    # serving engine (serving/engine.py)
+    "serving/queue_depth",
+    "serving/slot_occupancy",
+    # paged KV pool (serving/kv_cache.py): physical pages referenced by slots/prefix
+    # index, and the fraction of allocated page capacity not holding valid tokens
+    "serving/pages_in_use",
+    "serving/page_fragmentation",
+    # resident K/V bytes per cached token (all layers; quantized pools include their
+    # per-page scale rows amortized over the page) — halves under kv_dtype=bf16 vs
+    # fp32 and halves again under int8/fp8
+    "serving/kv_bytes_per_token",
+    # speculative decoding (serving/engine.py): cumulative draft acceptance rate and
+    # accepted draft tokens per verify step (only written when speculation is enabled)
+    "serving/accept_rate",
+    "serving/accepted_tokens_per_step",
+    # distributed serving (serving/cluster/): fleet-wide waiting requests across all
+    # replicas, and the latest prefill->decode KV handoff wall time
+    "router/queue_depth",
+    "cluster/handoff_latency_ms",
+    # fleet fault tolerance (serving/cluster/router.py): replicas whose health state
+    # is `healthy` (suspect/dead/parked excluded); only written when health
+    # monitoring is on
+    "router/replicas_healthy",
+)
 
 # goodput buckets, in reporting order; "other" is the window remainder (python overhead,
 # logging, host syncs) and is derived, never accumulated directly
@@ -84,7 +193,7 @@ class QuantileSketch:
     sketch, so results are reproducible for a given insertion order without touching any
     global RNG.
 
-    Not thread-safe.
+    Not thread-safe on its own; :meth:`Telemetry.observe` wraps it in the registry lock.
     """
 
     __slots__ = ("capacity", "values", "count", "total", "_rng")
@@ -117,6 +226,25 @@ class QuantileSketch:
 
     def quantile(self, q: float) -> float | None:
         return nearest_rank(sorted(self.values), q)
+
+    def snapshot(self) -> dict[str, float | int | None]:
+        ordered = sorted(self.values)
+        return {
+            "count": self.count,
+            "mean": self.mean(),
+            "p50": nearest_rank(ordered, 0.50),
+            "p90": nearest_rank(ordered, 0.90),
+            "p99": nearest_rank(ordered, 0.99),
+        }
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def __iter__(self):
+        return iter(self.values)
+
+    def __bool__(self) -> bool:
+        return bool(self.values)
 
 
 def detect_peak_tflops_per_device(device: torch.device | str | None = None) -> float | None:
@@ -163,7 +291,7 @@ def trace_annotation(name: str):
     return torch.profiler.record_function(name)
 
 
-def _kernel_paths(device: torch.device) -> dict[str, str]:
+def kernel_paths(device: torch.device) -> dict[str, str]:
     from ..ops.kernels import KERNELS
 
     path = "cuda" if device.type == "cuda" else "plain"
@@ -204,6 +332,7 @@ class Telemetry:
         self._lock = threading.Lock()
         self.counters: dict[str, int] = {name: 0 for name in CANONICAL_COUNTERS}
         self.gauges: dict[str, Any] = {}
+        self._sketches: dict[str, QuantileSketch] = {}
         self._buckets: dict[str, float] = {k: 0.0 for k in GOODPUT_BUCKETS}
         self._step_times: list[float] = []
         self._window_start = time.perf_counter()
@@ -231,7 +360,7 @@ class Telemetry:
                 "torch_version": torch.__version__,
                 "cuda_version": torch.version.cuda,
                 "config_hash": config_hash,
-                "kernels": _kernel_paths(self.device),
+                "kernels": kernel_paths(self.device),
             }
         )
 
@@ -257,6 +386,44 @@ class Telemetry:
     def gauge(self, name: str, value) -> None:
         with self._lock:
             self.gauges[name] = value
+
+    def observe(self, name: str, value: float) -> None:
+        """Offer one latency or duration sample to the named in-memory quantile sketch
+        (TTFT, ITL, step time). Nothing is written to the sink, so the serving engine feeds
+        these unconditionally; non-finite samples are dropped (a NaN would poison the
+        running sum)."""
+        value = float(value)
+        if value != value or value in (float("inf"), float("-inf")):
+            return
+        with self._lock:
+            sketch = self._sketches.get(name)
+            if sketch is None:
+                sketch = self._sketches[name] = QuantileSketch()
+            sketch.append(value)
+
+    # point-in-time copies under the registry lock, which the observability server
+    # (serving/obs_server.py) reads from its HTTP thread while engines keep writing
+
+    def counters_snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self.counters)
+
+    def gauges_snapshot(self) -> dict[str, Any]:
+        with self._lock:
+            return dict(self.gauges)
+
+    def quantiles_snapshot(self) -> dict[str, dict]:
+        with self._lock:
+            return {name: sketch.snapshot() for name, sketch in self._sketches.items()}
+
+    def snapshot(self) -> dict[str, dict]:
+        """Counters, gauges and quantile summaries in one locked pass."""
+        with self._lock:
+            return {
+                "counters": dict(self.counters),
+                "gauges": dict(self.gauges),
+                "quantiles": {name: sketch.snapshot() for name, sketch in self._sketches.items()},
+            }
 
     def event(self, name: str, step: int | None = None, **fields) -> None:
         record = {"kind": "event", "event": name}
@@ -398,6 +565,21 @@ class _NullTelemetry:
 
     def emit_record(self, kind, step=None, **fields) -> None:
         pass
+
+    def observe(self, name, value) -> None:
+        pass
+
+    def counters_snapshot(self) -> dict:
+        return {}
+
+    def gauges_snapshot(self) -> dict:
+        return {}
+
+    def quantiles_snapshot(self) -> dict:
+        return {}
+
+    def snapshot(self) -> dict:
+        return {"counters": {}, "gauges": {}, "quantiles": {}}
 
     def timer(self, bucket):
         return nullcontext()

@@ -102,8 +102,6 @@ UNPORTED = [
     ("distributed_args", dict(stage=0, expert_parallel_size=2), "'Distribution'"),
     ("distributed_args", dict(stage=0, tensor_parallel_size=2, tensor_parallel_word_embeddings=True), "'Distribution'"),
     ("model_args.model_name", "ibm-granite/granite-3b-code-base", "'Interop and tools'"),
-    ("logging_args", dict(experiments_tracker_name="wandb", wandb_args=dict(project="p", name="n")), "'Serving fleet and observability'"),
-    ("logging_args", dict(experiments_tracker_name="aim", aim_args=dict(repo="r", experiment="e")), "'Serving fleet and observability'"),
     ("logging_args.telemetry", dict(on_demand_profiling=True), "'Serving fleet and observability'"),
     ("logging_args.telemetry", dict(program_signatures=True), "'Serving fleet and observability'"),
 ]
@@ -116,6 +114,40 @@ def test_unported_option_raises_naming_its_item(path, value, item):
         del config["model_args"]["pretrained_config"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, {item}"):
         check_ported_options(TrainingArgs(**config))
+
+
+@pytest.mark.parametrize(
+    "tracker, tracker_args", [("wandb", dict(wandb_args=dict(project="p", name="n"))), ("aim", dict(aim_args=dict(repo="r", experiment="e")))]
+)
+def test_missing_tracker_warns_and_turns_tracking_off(tracker, tracker_args, monkeypatch):
+    """Naming aim or wandb where the package is not installed (neither is, where these
+    tests run) is accepted by both packages' option checks, and both trackers warn and
+    turn tracking off, as the JAX package does."""
+    import importlib.util
+    import logging
+
+    from dolomite_engine_tpu.enums import ExperimentsTrackerName as JaxTrackerName
+    from dolomite_engine_tpu.utils import packages as jax_packages
+    from dolomite_engine_tpu.utils import tracking as jax_tracking
+    from dolomite_engine_tpu_torch.enums import ExperimentsTrackerName
+    from dolomite_engine_tpu_torch.utils import tracking
+
+    real_find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None if name == tracker else real_find_spec(name, *a))
+    jax_packages._is_available.cache_clear()
+    check_ported_options(TrainingArgs(**_with("logging_args", dict(experiments_tracker_name=tracker, **tracker_args))))
+    try:
+        for module, names in ((tracking, ExperimentsTrackerName), (jax_tracking, JaxTrackerName)):
+            warnings = []
+            monkeypatch.setattr(module, "log_rank_0", lambda level, message: warnings.append((level, message)))
+            run = module.ExperimentsTracker(experiment_name="e", tracker_name=names(tracker))
+            assert not run.enabled and run.run is None
+            assert warnings == [(logging.WARNING, f"{tracker} is not installed, tracking disabled")]
+            run.track({"loss": 1.0}, step=1, context="train")  # a no-op
+            run.finish()
+            assert run.state_dict() == {}
+    finally:
+        jax_packages._is_available.cache_clear()
 
 
 # the training options, each once refused here: the ZeRO stages, data_parallel_size

@@ -42,8 +42,8 @@ def test_exits_without_a_card():
 
 
 def test_pretrain_phase_rehearsal(monkeypatch):
-    """Phase 12 with phases 13, 15 and 16 inside it: the generation entry point from the
-    checkpoint, with speculation and with preemption."""
+    """Phase 12 with phases 13, 15, 16 and 23 inside it: the generation entry point from the
+    checkpoint, with speculation, with preemption and over the serving fleet."""
     monkeypatch.chdir(REPO)
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
@@ -88,6 +88,21 @@ def test_pretrain_phase_rehearsal(monkeypatch):
     assert len(parity) == 23 and "raises" in parity["TorchLBFGS"] and "raises" in parity["TorchRprop"]
     assert all(r["max_rel_err"] == 0 for r in parity.values() if "raises" not in r)  # both sides on the CPU
     assert not any(options_launches.values())
+    # phase 23: the fleet over 2 replicas, disaggregated with tracing, int8 handoffs, a crash,
+    # threads and the off path, at 2 layers
+    fleet = record["fleet"]
+    assert fleet["replicas_run"]["per_replica_routed"] == {0: 8, 1: 8} and not fleet["replicas_run"]["parted_from_paged_greedy"]
+    assert fleet["disaggregated_run"]["traces"] == fleet["disaggregated_run"]["handoffs"] == chip_smoke.GREEDY_PROMPTS
+    assert fleet["disaggregated_run"]["critical_path_max_gap"] <= 0.05
+    assert fleet["int8_disaggregation"]["identical"] and fleet["int8_disaggregation"]["requests_identical_to_monolithic"] == 8
+    crash = fleet["crash"]
+    assert crash["rerouted"] == crash["on_replica_0"] > 0 and crash["sampled_identical"] and crash["healthz_after"] == 503
+    assert crash["metrics_counters"]["router_requests_rerouted"] == crash["rerouted"]
+    assert fleet["rolling_update"]["shared_weights_untouched"] and fleet["rolling_update"]["swapped_replica_has_its_own"]
+    assert fleet["threaded"]["identical_to_synchronous"] == crash["requests"]
+    assert fleet["off_path"]["on"]["launches_2_steps"] == fleet["off_path"]["off"]["launches_2_steps"]
+    assert not any(fleet["launches"].values()) and fleet["expected_launches"]["paged_decode_attention"] > 0
+    assert fleet["expected_launches"]["kv_quant"] > 0  # (c)'s int8 pools
     # phase 13: two sampled runs of the 32 prompts, then 16 greedy prompts three ways
     assert generation["paged_sampled"]["requests"] == generation["dense_sampled"]["requests"] == chip_smoke.GENERATION_PROMPTS
     assert max(generation["prompt_tokens"]) == 256 and generation["dense_sampled"]["pool_max_len"] == 256 + 8

@@ -12,7 +12,8 @@
 - with speculation or swap preemption over an oversubscribed pool, `generate.generate`
   writes the JAX function's jsonl; from the checkpoint, `generate.main` with n-gram
   speculation or recompute preemption writes the plain greedy run's;
-- the options the port does not run raise, naming their ROADMAP item;
+- the options the port does not run raise, naming their ROADMAP item (the fleet's
+  ``replicas``, ``disaggregate`` and ``trace_requests`` run: `tests/test_torch_serving_cluster.py`);
 - `_pad_to_static_shapes` pads as the JAX function does.
 """
 
@@ -262,9 +263,6 @@ def test_main_without_a_checkpoint(tmp_path, trained):
     [
         (dict(draft_model="a-model"), "Interop and tools"),
         (dict(tensor_parallel_size=2), "Distribution"),
-        (dict(replicas=2), "Serving fleet and observability"),
-        (dict(disaggregate=True), "Serving fleet and observability"),
-        (dict(trace_requests=True), "Serving fleet and observability"),
     ],
     ids=lambda value: "-".join(value) if isinstance(value, dict) else None,
 )

@@ -32,6 +32,7 @@ def _port_files():
     # with the port's harnesses for the card and its tools
     return _port_sources() + [
         REPO / "chip_smoke.py", REPO / "scripts" / "paged_kernel_ab.py", REPO / "scripts" / "fsdp_one_rank_probe.py",
+        REPO / "scripts" / "serve_torch_fleet_check.py",
     ] + _port_tools()
 
 
@@ -72,6 +73,19 @@ def test_the_family_modules_are_covered():
     modules = set(_port_modules())
     for name in ("models.gpt_crosslayer", "models.dense_moe", "models.rnn_dolomite", "ops.deltanet"):
         assert f"dolomite_engine_tpu_torch.{name}" in modules, name
+
+
+def test_the_fleet_modules_are_covered():
+    """The serving fleet's and the observability plane's modules and tools are among the
+    checked ones (their JAX counterparts import no JAX, and the port still keeps copies)."""
+    modules = set(_port_modules())
+    for name in (
+        "serving.cluster", "serving.cluster.router", "serving.cluster.disagg", "serving.cluster.health",
+        "serving.cluster.faults", "serving.cluster.metrics", "serving.obs_server", "utils.tracing",
+    ):
+        assert f"dolomite_engine_tpu_torch.{name}" in modules, name
+    tools = {path.name for path in _port_tools()}
+    assert {"serve_torch.py", "trace_analyze_torch.py"} <= tools
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -10,9 +10,9 @@ the pool's oversubscribed accounting equals the JAX pool's, a request preempted 
 prefill restarts it, the validation errors, and a sampled request resumed after
 preemption continues the stream the port's unpreempted run draws for its seed.
 
-Not ported from that file: the compile-count checks (the port compiles nothing), the
-serving telemetry record and the router's session affinity (ROADMAP.md Queue A, 'Serving
-fleet and observability'). The scheduler's tier order and the session pins are the
+Not held here: the compile-count checks (the port compiles nothing); the serving
+telemetry record and the router's session affinity are held by
+`tests/test_torch_serving_{observability,faults}.py`. The scheduler's tier order and the session pins are the
 port's copies of the JAX modules, held by `tests/test_torch_serving*.py`.
 """
 
@@ -420,7 +420,7 @@ def test_preemption_and_oversubscription_validation(models):
         ServingEngine(model, None, oversubscribe_ratio=1.5, **base)
     with pytest.raises(ValueError, match=">= 1.0"):
         ServingEngine(model, None, oversubscribe_ratio=0.5, **base)
-    with pytest.raises(NotImplementedError, match="'Serving fleet and observability'"):
+    with pytest.raises(ValueError, match="prefill_only workers"):
         ServingEngine(model, None, prefill_only=True, preemption="swap", **base)
     engine = ServingEngine(model, None, prefill_bucket_multiple=8, **base)
     with pytest.raises(ValueError):

@@ -138,12 +138,8 @@ def test_eos_and_queue_bound(models):
     "option",
     [
         dict(mesh=object()),
-        dict(prefill_only=True),
-        dict(record_interval=5),
-        dict(trace_requests=True),
+        dict(sharding_rules=object()),
         dict(signature_records=True),
-        dict(slo_monitor=object()),
-        dict(flight_recorder=object()),
     ],
     ids=lambda option: "-".join(
         f"{k}={v}" if isinstance(v, (bool, int, float, str)) else k for k, v in option.items()

@@ -7,11 +7,11 @@ The port's counterpart of `tools/inference.py`: the model is an HF-layout dolomi
 directory (``config.json``, safetensors, tokenizer; `ModelWrapper.load_pretrained_params`),
 prompts and sampling settings are flags, several --prompt flags (or --prompt-file) decode
 concurrently through the slot pool, and --stream prints tokens as the engine emits them.
-It runs on the GPU unless ``--device cpu`` is given. Per-request tracing (--trace) and the
-kernel backend switch (--kernels) of the JAX tool are not ported: the port has no backend
-switch (a tensor's device picks the kernel), and tracing waits for ROADMAP.md Queue A,
-'Serving fleet and observability'. For dataset-driven generation use
-`python -m dolomite_engine_tpu_torch.generate`.
+It runs on the GPU unless ``--device cpu`` is given. --trace writes one ``trace`` record a
+request into --telemetry-sink. The kernel backend switch (--kernels) of the JAX tool is not
+ported: the port has no backend switch (a tensor's device picks the kernel). For
+dataset-driven generation use `python -m dolomite_engine_tpu_torch.generate`; for the fleet,
+`tools/serve_torch.py`.
 """
 
 import argparse
@@ -51,6 +51,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-dtype", default=None, choices=["bf16", "int8", "fp8"], help="paged KV page storage (default: the model's dtype)")
     p.add_argument("--dtype", default="bf16", choices=["fp32", "bf16"], help="compute dtype of the model")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--trace",
+        action="store_true",
+        help="per-request tracing: one `trace` record a request (span tree: queue/admission/"
+        "prefill/decode) into --telemetry-sink",
+    )
+    p.add_argument("--telemetry-sink", help="telemetry JSONL path (for --trace records)")
     return p.parse_args(argv)
 
 
@@ -74,6 +81,7 @@ def main(argv=None) -> list[str]:
     from dolomite_engine_tpu_torch.generate import load_draft_model
     from dolomite_engine_tpu_torch.model_wrapper import ModelWrapperForFinetuning
     from dolomite_engine_tpu_torch.serving import SamplingParams, ServingEngine, serve_batch
+    from dolomite_engine_tpu_torch.utils.telemetry import Telemetry, install_telemetry, uninstall_telemetry
 
     device = resolve_device(args.device)
     model = ModelWrapperForFinetuning(None, mode=Mode.inference, model_name=args.model, dtype=args.dtype, device="meta")
@@ -89,8 +97,13 @@ def main(argv=None) -> list[str]:
         model.model, None, num_slots=args.num_slots, max_len=max_len, prefill_bucket_multiple=multiple,
         eos_token_id=model.eos_token_id, pad_token_id=pad_token_id, seed=args.seed, kv_dtype=args.kv_dtype,
         preemption=args.preemption, oversubscribe_ratio=args.oversubscribe_ratio, session_ttl_s=args.session_ttl,
-        speculate_ngram=args.speculate_ngram, draft_model=draft_model, draft_k=args.draft_k, device=device,
+        speculate_ngram=args.speculate_ngram, draft_model=draft_model, draft_k=args.draft_k,
+        trace_requests=args.trace, device=device,
     )
+    telemetry = None
+    if args.telemetry_sink:
+        telemetry = Telemetry(sink_path=args.telemetry_sink, device=device)
+        install_telemetry(telemetry)
     sampling = SamplingParams(do_sample=args.do_sample, temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
 
     def stream_token(token_id: int) -> None:
@@ -105,7 +118,12 @@ def main(argv=None) -> list[str]:
         )
         for ids in prompt_ids
     ]
-    states = serve_batch(engine, specs)
+    try:
+        states = serve_batch(engine, specs)
+    finally:
+        if telemetry is not None:
+            uninstall_telemetry()
+            telemetry.close()
     continuations = [model.tokenizer.decode(state.tokens, skip_special_tokens=True) for state in states]
     if args.stream:
         print()
