@@ -13,8 +13,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    training kernels), with kernel, plain and library timings; the paged decode kernel,
    rope_qkv's paged form and the fused scatter-quantize also at the verify step's
    K+1 = 5 window with a [16] index (`VERIFY_LENGTHS`);
-3. the serving slice: granite-3b-code at full width and depth (32 layers, bf16, random
-   weights from the seed) behind `ServingEngine`, serving 8 requests of 300-1500 prompt
+3. the serving slice: granite-3b-code at full width and 16 of its 32 layers (`SERVE_LAYERS`,
+   the script's time limit; phases 13 and 23 serve all 32), bf16, random weights from the seed) behind `ServingEngine`, serving 8 requests of 300-1500 prompt
    tokens and 64 greedy new tokens, two of them sharing a 512-token prefix. Launch
    counts are zeroed just before and read just after; the model's logits on the kernel
    path (chunked prefill into the paged pool, then decode steps) are held against a
@@ -37,7 +37,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    unprofiled with the host syncs counted by call site;
 8. the MoE training kernel path against the plain path at full width and 2 layers
    (loss with the router's auxiliary loss, every gradient and every expert's slice of a
-   bank against an fp32 reference, the share of routings that differ), then the MoE train step at 8 of the 24 layers, accumulation 2 x [2, 2048],
+   bank against an fp32 reference, the share of routings that differ), then the MoE train step at 4 of the 24 layers, accumulation 2 x [2, 2048],
    and one profiled step;
 9. the quantized KV pool (``quantized_serving``): phase 3's model and requests behind
    `ServingEngine(kv_dtype="int8")` and again with ``"fp8"`` (right after phase 4), and
@@ -58,7 +58,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 11. the alibi slice (MPT-7B, ``position_embedding_type: alibi``): ``alibi_training_check``,
    the training kernel path against the plain path at full width and 2 layers as in
    phase 5 (every attention call through the additive-bias flash form); then
-   ``alibi_training``, the train step at 16 of MPT-7B's 32 layers over packed documents
+   ``alibi_training``, the train step at 8 of MPT-7B's 32 layers over packed documents
    at its sequence 2048, micro batch 2 x accumulation 2, with launch counts zeroed just
    before and read just after; then ``alibi_training_profile``, one profiled step;
 12. ``pretrain`` (run right after phase 6): first the resume check at 2 layers (below),
@@ -84,15 +84,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    corpus documents, as the tokenizer's words), 512 sampled new tokens, with the paged
    engine and then the dense slot pool; each jsonl must hold 32 lines within
    max_new_tokens in the vocabulary. Then 16 of the prompts greedy, 64 new tokens, three
-   ways (the paged engine, the dense pool, `ModelWrapper.generate`), their agreement,
+   ways on the model the paged run loaded (the paged engine, the dense pool,
+   `ModelWrapper.generate`; phases 15 and 23 reuse that model), their agreement,
    one request's logits through each engine's own forwards against the plain forward,
    the checkpoint load timed in its parts (build, read, cast), launch counts zeroed
    before the first run and read after the last, asserted exactly, and a decode step's
    launches for each engine with 16 slots decoding;
 15. ``speculative_generation`` (inside phase 12, after phase 13): n-gram speculation
-   (K = 4) through `generate.main` from the 32-layer checkpoint, greedy (16 x 64, against
-   phase 13's paged greedy tokens: a request may part from them only at a near tie), and
-   with the YAML's sampling (32 x 512) from the 2-layer resume checkpoint; then on the engine directly the 2-layer resume
+   (K = 4) through `generate.generate` over phase 13's loaded 32-layer model, greedy (16 x
+   64, against phase 13's paged greedy tokens: a request may part from them only at a near
+   tie), and through `generate.main` with the YAML's sampling (32 x 512) from the 2-layer
+   resume checkpoint; then on the engine directly the 2-layer resume
    model as the draft (8 x 64, near ties as before), the target as its own draft (4 x 32:
    accept rate >= 0.95, every rejection a near tie), one verify step's logits against the
    plain forward over a bf16 and an int8 pool, all rows and each window row alone (the
@@ -106,26 +108,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    from the unpreempted tokens only at a near tie); an int8 swap round trip byte-identical on the
    card; launch counts asserted exactly;
 17. ``training_options`` (inside phase 12, right after its 32-layer run, on its corpus):
-   (a) phase 6's train step and repeated batch at 8 of its 32 layers for 2 steps under each remat
+   (a) phase 6's train step and repeated batch at 4 of its 32 layers for 2 steps under each remat
    policy (``full``, ``save_attention_out``, ``save_dots``, ``offload_dots``,
    ``everything_saveable``; remat of every block, one seeded init): losses and grad norms
    identical to ``full``'s (every kernel on the path is deterministic), the device peaks
    ordered full <= save_attention_out <= save_dots and offload_dots below save_dots, the
-   pinned host bytes; (b) `pretrain.main` in fp8 for phase 12's 8 steps (finite, the mean
-   within 2 % of phase 12's; whether the last loss is below the first is reported), the ``_scaled_mm`` products at the dense projections'
-   shapes against the plain fp32 products of the same fp8 values, then phase 8's MoE step in
-   fp8 at 8 layers for 2 steps; (c) `pretrain.main` with ``cpu_offload`` and a ``health``
-   record every step for phase 12's first 3 steps (losses and grad norms identical to
-   phase 12's, each update ratio against one from the parameters before and after, the
-   peak and the state's copy rates); (d) `pretrain.main` with LAMB for 3 steps, then every
-   registered optimizer on a 2-layer granite-width model on the card against the CPU
-   (the CPU runs on a thread from the phase's start). Launch counts asserted exactly;
+   pinned host bytes; phase 12's run at 4 of its 32 layers as the baseline of (b)-(d); (b)
+   `pretrain.main` in fp8 for the 8 steps at 4 layers (finite, the mean within 2 % of the
+   baseline's; whether the last loss is below the first is reported), the ``_scaled_mm`` products at the dense projections'
+   shapes against the plain fp32 products of the same fp8 values, the card's fp8 step
+   against the CPU's, then phase 8's MoE step in fp8 at 4 layers for 2 steps; (c)
+   `pretrain.main` with ``cpu_offload`` and a ``health`` record every step for the first 3
+   steps at 4 layers (losses and grad norms identical to the baseline's, each update ratio
+   against one from the parameters before and after, the peak and the state's copy rates);
+   (d) `pretrain.main` with LAMB for 3 steps at 4 layers, then every registered optimizer on
+   a 1-layer granite-width model on the card against the CPU. The CPU runs of (b) and (d)
+   start on threads before phase 12's 32-layer run. (a)-(d) are cut to 4 layers for the
+   script's time limit. Launch counts asserted exactly;
 18. ``finetune`` (inside phase 12, after phase 16): `finetune.main` on granite-3b-code over a
    `JSONLinesDataset` of the corpus's words (inputs and outputs of 16-1024 words), a local
    ``model_name`` directory (phase 12's config and tokenizer), remat of every block: (a) full
    finetuning on `configs/instruction-tuning/finetune-alpaca.yml` at 2 layers from phase
    12's 2-layer resume checkpoint's weights, padded (4 x 2) and then packed
-   (``use_padding_free_transformer``, 8 x 1), (b) LoRA on `configs/peft/lora.yml` at 16 of the
+   (``use_padding_free_transformer``, 8 x 1), (b) LoRA on `configs/peft/lora.yml` at 4 of the
    32 layers (the script's time limit) from seed-0 weights (every base tensor bit-identical after the steps, the adapters
    moved, optimizer state for the adapters alone; its checkpoint is phase 21's), (c) prompt
    tuning (20 RANDOM virtual tokens, LoRA's YAML) at 2 layers, 3 steps each with eval at the start and the end,
@@ -139,7 +144,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    stage 0's bit for bit (else the first difference, held within 1e-6 relative), the launch
    counts equal across the layouts, each layout's peak and step times; a stage-3 save restored
    into a stage-0 model with the weights bit-identical;
-14. ``alibi_generation`` (after phase 19): MPT-7B's widths at 8 layers, random weights, 8 greedy
+14. ``alibi_generation`` (after phase 19): MPT-7B's widths at 4 layers, random weights, 8 greedy
    requests of 300-1500 tokens through the dense pool (prefill buckets of 128, the flash
    bias form) and the paged engine (the gathered path), launch counts asserted, the
    engines' agreement and one request's logits through each engine's own forwards (the
@@ -152,23 +157,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    finetuning then LoRA: the decoder's self-attention at length 512 takes the flash
    kernel's query-bias form (T5's bias and its gradient), the val batch at 300 the sdpa
    route; (c) `generate.main` from (b)'s checkpoint, greedy, 16 prompts x 64 tokens, and the
-   card's greedy tokens at 2 layers held to the port's CPU run of the same weights (near
-   ties only); (d) the query-bias kernel cases at [8, 512, 12, 64], a shared [1, 12, 512, 512]
+   card's greedy tokens at 1 layer over the first 4 prompts held to the port's CPU run of the
+   same weights (near ties only); (d) the query-bias kernel cases at [8, 512, 12, 64], a shared [1, 12, 512, 512]
    bias and a per-row one under segment ids, forward and backward (dBias too) against the
    plain version and fp32 SDPA autograd. Launch counts asserted exactly. Cuts: one card,
    dropout 0, seeded weights, the word tokenizer, 3 steps, (b)'s target budget 513 (the
    YAML's 512 keeps a target to 511 tokens). Phase 21's seq2seq part runs after (c):
-   `generate.main` from (b)'s LoRA checkpoint and the same 2 + 2-layer check against the
+   `generate.main` from (b)'s LoRA checkpoint and the same 1 + 1-layer check against the
    CPU, the adapters on ``c_attn``, ``c_q`` and ``c_kv``;
 21. ``interop`` (inside phase 12, after phase 18, from its checkpoints; `interop_phase`):
-   `generate.main` from phase 18's 16-layer LoRA checkpoint (greedy, 16 x 64); `unshard.main`
-   on `configs/pretraining-examples/unshard.yml` for the 32-layer checkpoint, the directory
-   held bit for bit to every weight the unshard read, in the checkpoint's fp32 (the 2-layer
-   one's below to the checkpoint read anew); `generate.main` from that
-   directory as ``model_name`` with no ``load_args`` (phase 13's paged greedy tokens
-   exactly, the load's GB/s); the 2-layer resume checkpoint unsharded, exported to HF
-   granite and llama and imported back, bit for bit; that directory as ``draft_model`` by
-   name for the 32-layer directory (plain greedy's tokens but at near ties); then at 2
+   `generate.main` from phase 18's 4-layer LoRA checkpoint (greedy, 16 x 64); `unshard.main`
+   on `configs/pretraining-examples/unshard.yml` for the 2-layer resume checkpoint (a depth
+   cut for the script's time limit), the directory held bit for bit to every weight the
+   unshard read, in the checkpoint's fp32, and to the checkpoint read anew;
+   `generate.main` from that directory as ``model_name`` with no ``load_args`` (the tokens
+   of `generate.main` from the checkpoint exactly, the load's GB/s); the directory exported
+   to HF granite and llama and imported back, bit for bit; the directory as ``draft_model``
+   by name for itself (plain greedy's tokens but at near ties); then at 2
    layers of full width planted LoRA adapters: the card's greedy tokens against the CPU's
    fp32 run (near ties only) and against the same model without them (they must differ).
    Launch counts asserted exactly;
@@ -189,18 +194,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    synchronous tokens; (f) a decode step with telemetry and tracing on against both off:
    equal launches and host syncs. Launch counts of the synchronous runs asserted exactly;
 22. ``families`` (after phase 20; `families_phase`): the cross-layer, dense-MoE and
-   DeltaNet-hybrid families at granite-3b-code's width, seed-0 weights, bf16. (a) the 32-layer
-   dense model converted to CLA2 (16 KV groups) behind the paged engine with phase 3's
+   DeltaNet-hybrid families at granite-3b-code's width, seed-0 weights, bf16. (a) the dense
+   model at 16 of the 32 layers converted to CLA2 (16 KV groups) behind the paged engine with phase 3's
    requests: bytes a cached token exactly half the dense pool's, and the identity-pattern
    conversion's teacher-forced logits held to the dense model's within a bound from the
    dense bf16 model's own error against an fp32 run; (b) `pretrain.main` on the granite YAML
    with ``model_type`` set to each family (CLA2 at 8 layers, and the dense model under its
    options as the baseline its losses are read against; dense_moe with 8 experts of 1280 at
-   8 layers; the ``ddda`` hybrid at all 32), 3 steps of 1 x [2, 4096] with remat of every
+   8 layers; the ``ddda`` hybrid at 8 of 32), 3 steps of 1 x [2, 4096] with remat of every
    block: step time, MFU, peak memory, finite losses; (c) the hybrid's trained weights
    in bf16: 8 left-padded prompts greedy x 64 through `generate_tokens`, a 2-layer card /
    CPU fp32 check (near ties only), the chunked delta rule against the recurrent one at
-   [2, 32, 4096, 80]; (d) dense_moe at 8 layers behind the paged engine, dense and top-2,
+   [2, 32, 4096, 80]; (d) dense_moe at 4 layers behind the paged engine, dense and top-2,
    their greedy agreement, and a 2-layer teacher-forced check that top-2 routing takes effect
    on the card and matches the CPU's fp32 top-2. Launch counts asserted exactly; no paged-kernel launch (both
    families attend over the gathered pages, as in JAX). Cuts: one card, seeded weights, no
@@ -268,6 +273,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float8": 1979e12}  # fp32 outside the tensor cores
 
 NUM_SLOTS, MAX_LEN, PAGE, CHUNK = 8, 2048, 16, 512
+# phases 3, 4 and 9 serve granite-3b-code at 16 of its 32 layers, for the script's time
+# limit (phases 13 and 23 serve all 32 from phase 12's checkpoint)
+SERVE_LAYERS = 16
 # a verify step's frontiers: 16 slots (one idle) up to 1595 over a 1616-token view, the
 # speculative phase's pool widths; windows of K+1 = 5 cross page boundaries (300, 511, 15)
 VERIFY_LENGTHS = [1595, 300, 0, 1024, 17, 1, 640, 250, 1200, 64, 511, 512, 900, 33, 1500, 15]
@@ -296,9 +304,10 @@ MOE_EP = dict(
 # MoE serving (phases 7 and 9): 2 of the 24 layers, to keep the script inside its time
 # limit once phases 18, 19 and 22 run (the profile's replays cost ~4 s a layer)
 MOE_SERVE_LAYERS = 2
-# MoE training: 8 of the 24 layers (fp32 master weights, gradients and AdamW state of all
-# 24 need ~137 GB), sequence 2048 as in the yml, micro batch 2 x accumulation 2
-MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 8, 2048, 2
+# MoE training: 4 of the 24 layers (fp32 master weights, gradients and AdamW state of all
+# 24 need ~137 GB; 8 until the script's time limit cut them), sequence 2048 as in the yml,
+# micro batch 2 x accumulation 2
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 4, 2048, 2
 
 # MPT-7B (mosaicml/mpt-7b config.json): d_model 4096, 32 heads of 128 (MHA), 32 layers,
 # expansion ratio 4, exact gelu, layernorm, no_bias, tied embeddings, vocab 50432,
@@ -312,12 +321,12 @@ MPT_7B = dict(
     resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0, tie_word_embeddings=True,
     bos_token_id=0, eos_token_id=0, pad_token_id=0,
 )
-# alibi training: 16 of the 32 layers (fp32 master weights, fp32 gradients and AdamW state
-# of all 32 need ~93 GB; 16 layers are 3.43 B parameters), MPT's max_seq_len 2048, micro
+# alibi training: 8 of the 32 layers (fp32 master weights, fp32 gradients and AdamW state
+# of all 32 need ~93 GB; 16 until the script's time limit cut them), MPT's max_seq_len 2048, micro
 # batch 2 x accumulation 2, the fused LM-head loss; the dense cell's AdamW, schedule and
 # clipping (MPT trained with LionW, which neither package's optimizer registry holds)
 ALIBI_TRAIN_CONFIG = dict(MPT_7B, fused_lm_head_loss=True, loss_chunk_size=256)
-ALIBI_TRAIN_LAYERS, ALIBI_TRAIN_SEQ, ALIBI_TRAIN_MICRO = 16, 2048, 2
+ALIBI_TRAIN_LAYERS, ALIBI_TRAIN_SEQ, ALIBI_TRAIN_MICRO = 8, 2048, 2
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -2832,6 +2841,11 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         if on_card:
             torch.cuda.empty_cache()
 
+        # phase 17's CPU work on threads from here on (the card's runs wait little on the host):
+        # its optimizer references, and its fp8 step check (the card's steps now)
+        references = optimizer_references(seed, rehearsal)
+        step_check = fp8_step_check(seed, device, rehearsal)
+
         # the 32-layer run: one save of the fp32 weights at step 8
         save_path = os.path.join(work, "run")
         args = pretrain_args(corpus, save_path, PRETRAIN_STEPS, rehearsal=rehearsal, tokenizer=tokenizer)
@@ -2851,7 +2865,9 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        t0 = time.perf_counter()
         summary = _run_pretrain(args, device)
+        run_s = time.perf_counter() - t0
         launches = {k.name: k.launches for k in KERNELS}
         forms = form_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
@@ -2898,7 +2914,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
                 "n_head": config.n_head, "vocab_size": config.vocab_size, "weights": "random",
                 "param_dtype": "float32", "compute_dtype": "bfloat16",
             },
-            seed=seed, micro_batch=1, accumulation=2, seq=seq, steps=PRETRAIN_STEPS,
+            seed=seed, micro_batch=1, accumulation=2, seq=seq, steps=PRETRAIN_STEPS, seconds=run_s,
             losses=losses, grad_norms=[s["grad_norm"] for s in steps], lrs=[s["lr"] for s in steps],
             step_s=[s["step_seconds"] for s in steps], data_wait_s=[s["data_seconds"] for s in steps],
             mean_step_s_after_warmup=mean_step, tokens_per_s=2 * seq / mean_step,
@@ -2924,13 +2940,17 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
             },
         )
         record["training_options"], options_launches = training_options_phase(
-            seed, corpus, tokenizer, work, record, device, rehearsal
+            seed, corpus, tokenizer, work, record, device, rehearsal, references, step_check
         )
+        t0 = time.perf_counter()
         generation, generate_launches, context = generate_phase(save_path, corpus, config, seed, device, rehearsal, work)
+        generation["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
         speculative, speculative_launches, speculative_forms = speculative_generation_phase(
             save_path, context, os.path.join(work, "unbroken"), config, device, rehearsal
         )
+        speculative["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
         preemption = preemption_phase(os.path.join(work, "unbroken"), context, config, device, rehearsal)
+        preemption[0]["seconds"] = time.perf_counter() - t0
         _free(device)
         record["fleet"] = fleet_phase(save_path, context, config, device, rehearsal)
         _free(device)
@@ -2939,7 +2959,7 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
             seed, corpus, tokenizer, work, args.model_args.pretrained_config, device, rehearsal
         )
         record["finetune"]["seconds"] = time.perf_counter() - t0
-        record["interop"] = interop_phase(seed, work, save_path, context, config, device, rehearsal)
+        record["interop"] = interop_phase(seed, work, context, config, device, rehearsal)
 
     return (
         record, launches, options_launches, (generation, generate_launches),
@@ -2955,10 +2975,13 @@ def pretrain_phase(seed, device="cuda", rehearsal=None):
 # 12's 8 steps, the `_scaled_mm` products at the dense projections' shapes, the card's fp8
 # step against the CPU's at a quarter width, and the MoE step of phase 8 in fp8 for 2 steps; (c) `pretrain.main` with cpu_offload and health
 # every step for phase 12's first 3 steps; (d) `pretrain.main` with LAMB for 3 steps, then
-# every registered optimizer on a 2-layer granite-width model on the card and the CPU
+# every registered optimizer on a 1-layer granite-width model on the card and the CPU. (b)-(d)
+# run at `OPTION_LAYERS` of the 32 layers, against phase 12's run at that depth
+# (`options_baseline`), for the script's time limit: at 32 layers each wrote a 14 GB
+# checkpoint and (c) pinned 42 GB of host memory
 OPTION_POLICIES = ("full", "save_attention_out", "save_dots", "offload_dots", "everything_saveable")
-OPTION_STEPS, OFFLOAD_STEPS, LAMB_STEPS, OPTIMIZER_UPDATES, OPTIMIZER_LAYERS = 2, 3, 3, 3, 2
-OPTION_REMAT_LAYERS = 8
+OPTION_STEPS, OFFLOAD_STEPS, LAMB_STEPS, OPTIMIZER_UPDATES, OPTIMIZER_LAYERS = 2, 3, 3, 3, 1
+OPTION_REMAT_LAYERS = OPTION_LAYERS = 4
 FP8_LOSS_BOUND = 0.02  # |mean fp8 loss - mean bf16 loss| / mean bf16 loss over phase 12's 8 steps
 # fp8 products: the fp8 values' bytes identical; the product within fp32 accumulation's
 # rounding, |kernel - plain| <= K * 2^-24 * (|a| @ |b|) * scales elementwise (the sum's error
@@ -3336,7 +3359,8 @@ def _scales_summary(fp8_state):
 
 def fp8_check(seed, corpus, tokenizer, work, pretrain_record, step_check, device="cuda", rehearsal=None):
     """(b): `pretrain.main` with ``mixed_precision_args.dtype: fp8`` over phase 12's args
-    and steps (the YAML's remat), against phase 12's bf16 run; then the fp8 products on the
+    and steps (the YAML's remat) at `OPTION_LAYERS` layers, against the bf16 run of the same
+    args (`pretrain_record`: `options_baseline`'s); then the fp8 products on the
     card, the card's fp8 step against the CPU's (`fp8_step_check`) and the MoE step of
     phase 8 in fp8 at 8 layers for 2 steps."""
     import shutil
@@ -3349,7 +3373,7 @@ def fp8_check(seed, corpus, tokenizer, work, pretrain_record, step_check, device
     on_card = torch.device(device).type == "cuda"
     save_path = os.path.join(work, "fp8")
     args = pretrain_args(
-        corpus, save_path, PRETRAIN_STEPS, rehearsal=rehearsal, tokenizer=tokenizer,
+        corpus, save_path, PRETRAIN_STEPS, n_layer=_option_layers(rehearsal), rehearsal=rehearsal, tokenizer=tokenizer,
         options={"mixed_precision_args": {"dtype": "fp8"}},
     )
     _free(device)
@@ -3376,6 +3400,7 @@ def fp8_check(seed, corpus, tokenizer, work, pretrain_record, step_check, device
     tflops = pretrain_record["model_tflops_per_step"]
     grad_norms = [s["grad_norm"] for s in steps]
     record = {
+        "n_layer": args.model_args.pretrained_config["n_layer"],
         "steps": len(steps), "losses": losses, "bf16_losses": bf16, "mean_loss_rel_gap_to_bf16": float(gap),
         "bound": FP8_LOSS_BOUND, "grad_norms": grad_norms,
         # step 1's lr is 0, so steps 1 and 2 see phase 12's weights and batches: step 1's
@@ -3413,13 +3438,67 @@ def fp8_check(seed, corpus, tokenizer, work, pretrain_record, step_check, device
     return record, launches, forms
 
 
-def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
+def _option_layers(rehearsal):
+    """(c)'s and (d)'s depth: `OPTION_LAYERS`, or the rehearsal's own (its `pretrain_args`)."""
+    return OPTION_LAYERS if rehearsal is None else None
+
+
+def options_baseline(corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
+    """(b)-(d)'s baseline: `pretrain.main` over phase 12's args at `OPTION_LAYERS` layers,
+    nothing else changed (8 steps, bf16, AdamW). Returns the record (losses, grad norms,
+    step time, MFU, device peak, launches asserted exactly; phase 12's 32-layer losses
+    beside), the launch counts and their forms."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dolomite_engine_tpu_torch.models import CommonConfig
+    from dolomite_engine_tpu_torch.ops.kernels import reset_launch_counts
+
+    on_card = torch.device(device).type == "cuda"
+    from dolomite_engine_tpu_torch.train_utils import get_model_tflops
+
+    save_path = os.path.join(work, "options-baseline")
+    args = pretrain_args(corpus, save_path, PRETRAIN_STEPS, n_layer=_option_layers(rehearsal), rehearsal=rehearsal, tokenizer=tokenizer)
+    config = CommonConfig.from_dict(args.model_args.pretrained_config)
+    _free(device)
+    reset_launch_counts()
+    summary = _run_pretrain(args, device)
+    launches, forms = _launch_counts(), form_counts()
+    peak = _peak_gb(device)
+    shutil.rmtree(save_path, ignore_errors=True)
+    _free(device)
+    steps = summary["steps"]
+    losses = [s["loss"] for s in steps]
+    assert all(np.isfinite(losses)), losses
+    eval_steps = args.datasets[0].class_args["eval_steps"]
+    eval_batches = eval_steps * (1 + PRETRAIN_STEPS // PRETRAIN_EVAL_INTERVAL) + eval_steps
+    seq = args.datasets[0].class_args["sequence_length"]
+    gc_args = args.distributed_args.gradient_checkpointing_args
+    expected = dense_training_launches(config, gc_args, 2 * PRETRAIN_STEPS, seq, eval_batches)
+    mean_step = sum(s["step_seconds"] for s in steps[1:]) / (len(steps) - 1)
+    tflops = get_model_tflops(config, 2, seq, "block", gc_args)
+    record = {
+        "n_layer": config.n_layer, "steps": len(steps), "losses": losses, "grad_norms": [s["grad_norm"] for s in steps],
+        "step_s": [s["step_seconds"] for s in steps], "mean_step_s_after_warmup": mean_step,
+        "model_tflops_per_step": tflops, "mfu": tflops / mean_step / (PEAK_FLOPS["bfloat16"] / 1e12),
+        "peak_memory_gb": peak, "launches": launches, "expected_launches": expected,
+        "pretrain_32_layer_losses": pretrain_record["losses"],
+    }
+    if on_card:  # on the CPU (a rehearsal) the plain versions run
+        assert launches == expected, (launches, expected)
+        assert peak < TRAIN_PEAK_GB, record
+    return record, launches, forms
+
+
+def offload_health_check(corpus, tokenizer, work, baseline, device="cuda", rehearsal=None):
     """(c): `pretrain.main` with ``cpu_offload: true`` and ``telemetry.health.interval: 1``
-    for phase 12's first 3 steps (its schedule: decay over steps 3-8): losses and grad
-    norms identical to phase 12's; each step's ``health`` record's update ratio against
-    ||p' - p|| / ||p|| from the parameters copied to the host before the step and read
-    after it (the copies' time is taken off the step time); the device peak against
-    phase 12's, the optimizer state's copy rates."""
+    for phase 12's first 3 steps (its schedule: decay over steps 3-8) at `OPTION_LAYERS`
+    layers: losses and grad norms identical to `options_baseline`'s; each step's ``health``
+    record's update ratio against ||p' - p|| / ||p|| from the parameters copied to the host
+    before the step and read after it (the copies' time is taken off the step time); the
+    device peak against the baseline's, the optimizer state's copy rates."""
     import math
     import shutil
 
@@ -3432,8 +3511,8 @@ def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda"
     on_card = torch.device(device).type == "cuda"
     save_path = os.path.join(work, "offload")
     args = pretrain_args(
-        corpus, save_path, OFFLOAD_STEPS, decay_steps=PRETRAIN_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
-        tokenizer=tokenizer,
+        corpus, save_path, OFFLOAD_STEPS, n_layer=_option_layers(rehearsal), decay_steps=PRETRAIN_STEPS - PRETRAIN_WARMUP,
+        rehearsal=rehearsal, tokenizer=tokenizer,
         options={"distributed_args": {"cpu_offload": True}, "logging_args": {"telemetry": {"health": {"interval": 1}}}},
     )
     checks, make = [], pretrain.make_train_step
@@ -3495,7 +3574,7 @@ def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda"
 
     steps = summary["steps"]
     got = [(s["loss"], s["grad_norm"]) for s in steps]
-    want = list(zip(pretrain_record["losses"], pretrain_record["grad_norms"]))[: len(steps)]
+    want = list(zip(baseline["losses"], baseline["grad_norms"]))[: len(steps)]
     health = {r["step"]: r["stats"] for r in sink if r["kind"] == "health"}
     ratios = []
     for check in checks:
@@ -3509,18 +3588,19 @@ def offload_health_check(corpus, tokenizer, work, pretrain_record, device="cuda"
     )
     step_s = [s["step_seconds"] - c["overhead_s"] for s, c in zip(steps, checks)]
     record = {
+        "n_layer": args.model_args.pretrained_config["n_layer"],
         "steps": len(steps), "losses_and_grad_norms": got, "bit_identical_to_pretrain": got == want,
         "health_steps": sorted(health), "update_ratios": ratios, "worst_update_ratio_rel_err": worst,
         "health_tolerance": HEALTH_RTOL, "step_s": step_s, "mean_step_s_after_first": sum(step_s[1:]) / len(step_s[1:]),
-        "pretrain_mean_step_s_after_warmup": pretrain_record["mean_step_s_after_warmup"],
-        "peak_memory_gb": peak, "pretrain_peak_memory_gb": pretrain_record["peak_memory_gb"],
+        "pretrain_mean_step_s_after_warmup": baseline["mean_step_s_after_warmup"],
+        "peak_memory_gb": peak, "pretrain_peak_memory_gb": baseline["peak_memory_gb"],
         "optimizer_state_gb": state_gb, "state_pinned": pinned, "copies": copies, "launches": launches,
     }
     assert record["bit_identical_to_pretrain"], (got, want)
     assert record["health_steps"] == list(range(1, len(steps) + 1)), record["health_steps"]
     assert worst <= HEALTH_RTOL, ratios
     if on_card:
-        assert pinned and peak < pretrain_record["peak_memory_gb"], record
+        assert pinned and peak < baseline["peak_memory_gb"], record
         assert peak < TRAIN_PEAK_GB, record
     return record, launches, forms
 
@@ -3533,9 +3613,10 @@ def _optimizer_shapes(config_kwargs):
     return [(name, tuple(p.shape)) for name, p in model.named_parameters()]
 
 
-def optimizers_check(corpus, tokenizer, work, parity, pretrain_record, device="cuda", rehearsal=None):
-    """(d): `pretrain.main` with ``class_name: ApexFusedLAMB`` for 3 steps (finite losses);
-    then `parity()`: every registered name over a 2-layer granite-width model's parameters
+def optimizers_check(corpus, tokenizer, work, parity, baseline, device="cuda", rehearsal=None):
+    """(d): `pretrain.main` with ``class_name: ApexFusedLAMB`` for 3 steps at `OPTION_LAYERS`
+    layers (finite losses; the device peak beside `options_baseline`'s AdamW one);
+    then `parity()`: every registered name over a 1-layer granite-width model's parameters
     for 3 updates from seeded gradients on the card, against the same class on the CPU
     (once a class: the names that build the same class with the same arguments share it);
     ``TorchLBFGS`` and ``TorchRprop`` (optax's rprop takes no schedule) raise on both."""
@@ -3548,8 +3629,8 @@ def optimizers_check(corpus, tokenizer, work, parity, pretrain_record, device="c
 
     save_path = os.path.join(work, "lamb")
     args = pretrain_args(
-        corpus, save_path, LAMB_STEPS, decay_steps=PRETRAIN_STEPS - PRETRAIN_WARMUP, rehearsal=rehearsal,
-        tokenizer=tokenizer, options={"optimizer_args": {"class_name": "ApexFusedLAMB"}},
+        corpus, save_path, LAMB_STEPS, n_layer=_option_layers(rehearsal), decay_steps=PRETRAIN_STEPS - PRETRAIN_WARMUP,
+        rehearsal=rehearsal, tokenizer=tokenizer, options={"optimizer_args": {"class_name": "ApexFusedLAMB"}},
     )
     _free(device)
     reset_launch_counts()
@@ -3565,9 +3646,10 @@ def optimizers_check(corpus, tokenizer, work, parity, pretrain_record, device="c
     params = sum(math.prod(shape) for _, shape in _optimizer_shapes(args.model_args.pretrained_config))
 
     record = {
-        "lamb": {"steps": len(losses), "losses": losses, "grad_norms": [s["grad_norm"] for s in summary["steps"]],
+        "lamb": {"n_layer": args.model_args.pretrained_config["n_layer"], "steps": len(losses), "losses": losses,
+                 "grad_norms": [s["grad_norm"] for s in summary["steps"]],
                  "step_s": [s["step_seconds"] for s in summary["steps"]], "peak_memory_gb": peak,
-                 "adamw_peak_memory_gb": pretrain_record["peak_memory_gb"], "fp32_first_moment_extra_gb": 2 * params / 1e9},
+                 "adamw_peak_memory_gb": baseline["peak_memory_gb"], "fp32_first_moment_extra_gb": 2 * params / 1e9},
         "parity": parity(),
         "launches": launches,
     }
@@ -3575,7 +3657,7 @@ def optimizers_check(corpus, tokenizer, work, parity, pretrain_record, device="c
 
 
 def optimizer_parity_inputs(seed, rehearsal=None):
-    """A 2-layer granite-width model's parameter shapes, seeded starting values (std 0.02)
+    """An `OPTIMIZER_LAYERS`-layer granite-width model's parameter shapes, seeded starting values (std 0.02)
     and 3 updates' gradients (std 1e-3), on the CPU."""
     import torch
 
@@ -3709,28 +3791,38 @@ def optimizer_parity(inputs, references, device="cuda"):
     }
 
 
-def training_options_phase(seed, corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None):
+def optimizer_references(seed, rehearsal=None):
+    """(d)'s CPU runs, started on a thread (they take a minute or more of the host's cores):
+    the parity inputs and the `_Background` that computes the references."""
+    inputs = optimizer_parity_inputs(seed, rehearsal)
+    return inputs, _Background(lambda: optimizer_cpu_references(inputs))
+
+
+def training_options_phase(seed, corpus, tokenizer, work, pretrain_record, device="cuda", rehearsal=None, references=None, step_check=None):
     """Phase 17 (right after phase 12's 32-layer run, on its corpus): (a) the remat
-    policies, (b) fp8, (c) CPU offload with the health statistics, (d) the optimizers,
-    each part's seconds. (d)'s CPU runs go on a thread beside (a)-(c), and (b)'s CPU fp8
-    steps on another from the phase's start (the card's runs wait little on the host: the
-    dense step keeps the card busy ~95 % of its time). Returns the record (with the runs' launch forms) and the launch
-    counts of its runs; the fp8 products of (b) launch no kernel of the port."""
+    policies, the baseline of (b)-(d) (`options_baseline`: phase 12's run at
+    `OPTION_LAYERS`), (b) fp8, (c) CPU offload with the health statistics, (d) the
+    optimizers, each part's seconds. (d)'s CPU runs go on a thread
+    (`optimizer_references`) and (b)'s CPU fp8 steps on another (`fp8_step_check`), both
+    started by the caller before phase 12's 32-layer run when it passes `references` and
+    `step_check`, else from this phase's start (the card's runs wait little on the host: the
+    dense step keeps the card busy ~95 % of its time). `pretrain_record` is phase 12's.
+    Returns the record (with the runs' launch forms) and the launch counts of its runs; the
+    fp8 products of (b) launch no kernel of the port."""
     t0 = time.perf_counter()
     launches, forms, record = {}, {}, {}
-    # (d)'s CPU runs go on a thread from the start: they take minutes on the host's cores
-    inputs = optimizer_parity_inputs(seed, rehearsal)
-    references = _Background(lambda: optimizer_cpu_references(inputs))
-    # (b)'s fp8 step check: the card's steps now, the CPU's on another thread
-    step_check = fp8_step_check(seed, device, rehearsal)
+    inputs, references = references or optimizer_references(seed, rehearsal)
+    if step_check is None:  # (b)'s fp8 step check: the card's steps now, the CPU's on another thread
+        step_check = fp8_step_check(seed, device, rehearsal)
     parts = (
         ("remat_policies", lambda: remat_policies_check(seed, device, rehearsal)),
-        ("fp8", lambda: fp8_check(seed, corpus, tokenizer, work, pretrain_record, step_check, device, rehearsal)),
-        ("offload_and_health", lambda: offload_health_check(corpus, tokenizer, work, pretrain_record, device, rehearsal)),
+        ("baseline", lambda: options_baseline(corpus, tokenizer, work, pretrain_record, device, rehearsal)),
+        ("fp8", lambda: fp8_check(seed, corpus, tokenizer, work, record["baseline"], step_check, device, rehearsal)),
+        ("offload_and_health", lambda: offload_health_check(corpus, tokenizer, work, record["baseline"], device, rehearsal)),
         ("optimizers", lambda: optimizers_check(
             corpus, tokenizer, work,
             lambda: dict(optimizer_parity(inputs, references.result(), device), cpu_runs_seconds=references.seconds),
-            pretrain_record, device, rehearsal,
+            record["baseline"], device, rehearsal,
         )),
     )
     for name, part in parts:
@@ -3751,7 +3843,7 @@ GENERATION_PROMPTS, GREEDY_PROMPTS, GREEDY_NEW = 32, 16, 64
 # the alibi cell: MPT-7B's widths at 8 of its 32 layers (the script's time limit), random
 # weights; 8 greedy requests of 300-1500 prompt tokens and 64 new tokens, every dense
 # prefill bucket a multiple of 128
-ALIBI_GENERATION_LAYERS, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET = 8, 8, 128
+ALIBI_GENERATION_LAYERS, ALIBI_GENERATION_SLOTS, ALIBI_BUCKET = 4, 8, 128
 
 
 def generation_prompts(directory, corpus, count, seed, longest=1024):
@@ -3994,8 +4086,8 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
     point from the 32-layer pretrain checkpoint (`config`, its model). `generate.main` over
     `configs/generation.yml` (`generation_args`) on 32 prompts, sampled, with the paged
     engine and then the dense slot pool (from phase 12's 2-layer resume checkpoint when
-    `parent` holds it: a depth cut); then the checkpoint loaded once more
-    (`load_checkpoint_for_inference`) for 16 of the prompts, greedy, 64 new tokens, three
+    `parent` holds it: a depth cut); then the model the paged run loaded (each load reads
+    the 14 GB of fp32 weights anew) for 16 of the prompts, greedy, 64 new tokens, three
     ways: `generate.generate` over the paged engine and over the dense pool, and
     `ModelWrapper.generate` (`generate_tokens`, the batch left-padded to a multiple of 128).
     Launch counts are zeroed just before the first run and read just after the last, and
@@ -4006,13 +4098,12 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
     the longest prompt to its ``longest_prompt``. The prompts are written under `parent`
     (a temporary directory without it). Returns the record, the launch counts and what the
     later generation phases reuse: the prompts, their directories, the paged engine's
-    greedy tokens and the logits checks' largest errors."""
+    greedy tokens, the logits checks' largest errors and the loaded model."""
     import tempfile
 
     import torch
 
     from dolomite_engine_tpu_torch import generate
-    from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
     from dolomite_engine_tpu_torch.data import collate_fn, get_datasets_list
     from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
     from dolomite_engine_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
@@ -4045,6 +4136,7 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
         # pool. The dense pool's run takes phase 12's 2-layer resume checkpoint where it is at
         # hand (a depth cut: at 32 layers its 1488 launches a decode step cost ~100 s a run)
         dense_path = None if parent is None else os.path.join(parent, "unbroken")
+        loaded = {}
         for name, paged in (("paged", True), ("dense", False)):
             run_path, run_config, run_bytes, iteration = save_path, config, weight_bytes, PRETRAIN_STEPS
             if not paged and dense_path is not None:
@@ -4052,7 +4144,7 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
                 run_config = dataclasses.replace(config, n_layer=RESUME_LAYERS)
                 run_bytes = _model_bytes(os.path.join(dense_path, f"global_step{RESUME_STEPS}", "state"))
             args = generation_args(run_path, os.path.join(work, "prompts"), os.path.join(work, name), paged, rehearsal=rehearsal, iteration=iteration)
-            summary = generate.main(args, device=device)
+            summary, loaded[name] = _main_capturing(args, device)
             max_new = args.generation_parameters.max_new_tokens
             tokens, lines = _outputs(summary["outputs"][0])
             assert len(lines) == GENERATION_PROMPTS == summary["requests"], (len(lines), summary["requests"])
@@ -4074,9 +4166,10 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
                 **_engine_record(summary["stats"], summary["engine_seconds"], summary["pool"]),
             }
 
-        # greedy, three ways, from one more load of the checkpoint
+        # greedy, three ways, on the model the paged run loaded (the checkpoint's, bf16)
+        model = loaded.pop("paged")
+        loaded.clear()
         args = generation_args(save_path, greedy_dir, os.path.join(work, "greedy-paged"), True, greedy_new)
-        model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
         datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
         greedy = {}
         for name, paged in (("paged", True), ("dense", False)):
@@ -4124,7 +4217,6 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
                 name: decode_step_launches(model.model, paged, 16, 1536) for name, paged in (("paged", True), ("dense", False))
             }
             record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        del model
         gc.collect()
     if on_card:  # on the CPU (a rehearsal) the plain versions run
         assert launches == expected, (launches, expected)
@@ -4135,6 +4227,8 @@ def generate_phase(save_path, corpus, config, seed, device="cuda", rehearsal=Non
         "greedy_paged": greedy["paged"], "greedy_new": greedy_new,
         "paged_sampled": {key: record["paged_sampled"][key] for key in ("end_to_end_tok_s", "decode_tok_s", "engine_s", "decode_steps")},
         "logits_max_abs_err": {name: c["max_abs_err"] for name, c in record["logits_check"].items()},
+        # the checkpoint's bf16 model, for phases 15 and 23's direct engine runs (phase 23 drops it)
+        "model": model,
     }
     return record, launches, context
 
@@ -4411,12 +4505,13 @@ def _main_run(args, device):
 
 def speculative_generation_phase(save_path, context, draft_path, config, device="cuda", rehearsal=None):
     """Phase 15, speculative decoding from the 32-layer pretrain checkpoint (granite-3b-code,
-    bf16, 16 slots, paged): (a) `generate.main` on `configs/generation.yml` with
-    ``speculate_ngram: true, draft_k: 4``, greedy, 16 prompts x 64 tokens, against the
-    `generate` phase's paged greedy tokens; (b) the same with the YAML's sampling (32
+    bf16, 16 slots, paged): (a) `generate.generate` over phase 13's loaded 32-layer model
+    (``context["model"]``) on `configs/generation.yml` with ``speculate_ngram: true,
+    draft_k: 4``, greedy, 16 prompts x 64 tokens, against the `generate` phase's paged
+    greedy tokens; (b) `generate.main` with the same speculation and the YAML's sampling (32
     prompts x 512, the `generate` phase's paged run beside it) from the 2-layer resume
-    checkpoint (`draft_path`; a depth cut for the script's time); then the 32-layer checkpoint loaded
-    once (`load_checkpoint_for_inference`) for the engine directly: (c) the pretrain
+    checkpoint (`draft_path`; a depth cut for the script's time); then the loaded model for
+    the engine directly: (c) the pretrain
     phase's 2-layer resume model (`draft_path`) as the draft, 8 greedy requests x 64; (d)
     the target as its own draft (`self_draft_check`); (e) one verify step's logits over a
     bf16 and an int8 pool (`verify_logits_check`); the host syncs of an n-gram run, and
@@ -4428,7 +4523,9 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
     import torch
 
     from dolomite_engine_tpu_torch.checkpointing import load_checkpoint_for_inference
-    from dolomite_engine_tpu_torch.enums import Mode
+    from dolomite_engine_tpu_torch import generate
+    from dolomite_engine_tpu_torch.data import get_datasets_list
+    from dolomite_engine_tpu_torch.enums import DatasetSplit, Mode
     from dolomite_engine_tpu_torch.serving import ServingEngine, serve_batch
 
     on_card = torch.device(device).type == "cuda"
@@ -4437,15 +4534,18 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
     tally = _LaunchTally()
     record = {"draft_k": SPEC_K, "yaml": GENERATION_YAML}
 
-    # (a) greedy n-gram speculation through the entry point
+    # (a) greedy n-gram speculation through `generate.generate` over phase 13's loaded model (its
+    # entry point, `generate.main`, runs in (b); a 14 GB read of the checkpoint saved)
     args = generation_args(
         save_path, context["greedy_dir"], os.path.join(work, "spec-greedy"), True, greedy_new,
         speculate_ngram=True, draft_k=SPEC_K,
     )
+    model = context["model"]
+    datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, model.tokenizer)
     slot_steps = [0]
     with tally.run(), _slot_steps(slot_steps):
-        summary, ngram_tokens, _ = _main_run(args, device)
-    tokens = ngram_tokens
+        summary = generate.generate(args, model, datasets, Mode.inference)
+    ngram_tokens = tokens = _outputs(summary["outputs"][0])[0]
     tally.expect(*_engine_launches(summary["stats"], config, True, 0))
     record["ngram_greedy"] = dict(
         _spec_record(summary["stats"], summary["engine_seconds"], summary["pool"], slot_steps[0]), requests=summary["requests"],
@@ -4472,9 +4572,7 @@ def speculative_generation_phase(save_path, context, draft_path, config, device=
         generate_phase_paged_sampled=context["paged_sampled"],
     )
 
-    # the engine directly, on the checkpoint's model loaded once
-    args = generation_args(save_path, context["greedy_dir"], os.path.join(work, "unused"), True, greedy_new)
-    model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
+    # the engine directly, on the checkpoint's model phase 13 loaded
     target = model.model
     prompts = context["prompts"][:GREEDY_PROMPTS]
     # a greedy run may part from the paged greedy run only at a near tie: twice the two
@@ -4865,9 +4963,9 @@ def fleet_phase(save_path, context, config, device="cuda", rehearsal=None):
     )
     assert summary["requests"] == GREEDY_PROMPTS and sorted(router_stats.per_replica_routed) == [0, 1], record["replicas_run"]
 
-    # the checkpoint's model once more, for the checks and (c)
+    # phase 13's loaded model of the checkpoint, for the checks and (c); dropped after (c)
     args = fleet_args("unused")
-    model, _ = load_checkpoint_for_inference(args, Mode.inference, device)
+    model = context.pop("model")
     target = model.model
     eos = model.eos_token_id
     record["replicas_run"]["parted_from_paged_greedy"] = greedy_divergences(target, prompts, routed, context["greedy_paged"], bound, eos)
@@ -5187,7 +5285,7 @@ PROMPT_TUNING = {"prompt_tuning_init": "RANDOM", "num_virtual_tokens": 20}
 FINETUNE_CHECK_MODEL = dict(n_layer=2, n_embd=640, n_head=8, n_inner=2560)
 # phase 18(b)'s LoRA run, and phase 21(e)'s generation from its checkpoint: 16 of granite's 32
 # layers (the script's time limit once phase 22 runs)
-FINETUNE_LORA_LAYERS = 16
+FINETUNE_LORA_LAYERS = 4
 FINETUNE_CHECK_ROWS = ((192, 63), (150, 39), (100, 36))  # (input, output) tokens; + EOS: 256, 190, 137
 FINETUNE_CHECK_RTOL = {"loss": 2e-2, "grad_norm": 5e-2}
 # the resume check (LoRA, 2 of the 32 layers, the optimizer saved): 6 steps unbroken against 3, a
@@ -5788,22 +5886,24 @@ def lora_generation_check(seed, config_kwargs, prompts, device="cuda"):
     return check
 
 
-def interop_phase(seed, work, save_path, context, config, device="cuda", rehearsal=None):
-    """Phase 21, from phase 12's checkpoints (`save_path`: 32 layers at step 8; ``unbroken``:
-    the 2-layer resume run at step 6) and phase 18's LoRA checkpoint (``lora``, 16 layers):
-    (e) `generate.main` from the LoRA checkpoint (greedy, phase 13's 16 prompts x 64), then
-    the checkpoint removed; (a) `unshard.main` on `UNSHARD_YAML` for the 32-layer checkpoint:
-    the weights it read keep the checkpoint's fp32 (names, shapes and dtypes held to the
-    checkpoint's metadata), the directory's tensors are held to them bit for bit as (b)'s
-    load reads each, and its ``config.json`` to the run's config; (b) `generate.main` with
-    ``model_name`` = that directory and no ``load_args``: phase 13's paged greedy tokens
-    exactly; (c) the 2-layer checkpoint unsharded and held to the checkpoint read anew,
-    exported to each of `INTEROP_EXPORTS` and imported back, bit for bit; (d)
-    `generate.main` from the 32-layer directory with (c)'s directory as ``draft_model``
-    (fp32, as JAX's draft by name): plain greedy's tokens but at near ties (phase 15's
-    rule); (e)'s check at 2 layers (`lora_generation_check`). Launch counts zeroed before
-    each `generate.main` and read after, asserted exactly. `rehearsal` (the CPU only) cuts
-    the new tokens. Returns the record (launches under ``launches``)."""
+def interop_phase(seed, work, context, config, device="cuda", rehearsal=None):
+    """Phase 21, from phase 12's 2-layer resume checkpoint (``unbroken``, step 6; `config` is
+    the 32-layer model's) and phase 18's LoRA checkpoint (``lora``,
+    `FINETUNE_LORA_LAYERS` layers): (e) `generate.main` from the LoRA checkpoint (greedy,
+    phase 13's 16 prompts x 64), then the checkpoint removed; (a) `unshard.main` on
+    `UNSHARD_YAML` for the 2-layer checkpoint (a depth cut for the script's time limit: at
+    32 layers it wrote 14 GB and (b) and (d) read them twice): the weights it read keep the
+    checkpoint's fp32 (names, shapes and dtypes held to the checkpoint's metadata), the
+    directory's tensors are held to them bit for bit as (b)'s load reads each, and its
+    ``config.json`` to the run's config; (b) `generate.main` with ``model_name`` = that
+    directory and no ``load_args``: exactly the tokens of `generate.main` from the
+    checkpoint itself; (c) the directory held to the checkpoint read anew, exported to each
+    of `INTEROP_EXPORTS` and imported back, bit for bit; (d) `generate.main` from the
+    directory with itself as ``draft_model`` (fp32, as JAX's draft by name): (b)'s tokens
+    but at near ties (phase 15's rule); (e)'s check at 2 layers (`lora_generation_check`).
+    Launch counts zeroed before each `generate.main` and read after, asserted exactly.
+    `rehearsal` (the CPU only) cuts the new tokens. Returns the record (launches under
+    ``launches``)."""
     import shutil
 
     import torch
@@ -5837,9 +5937,6 @@ def interop_phase(seed, work, save_path, context, config, device="cuda", rehears
         )
         return summary, tokens, model
 
-    def target_launches(summary):
-        return [_engine_launches(summary["stats"], config, True, 0)]
-
     # (e) phase 18's LoRA checkpoint (`FINETUNE_LORA_LAYERS` layers) through the entry point
     lora_path = os.path.join(work, "lora")
     lora_config = dataclasses.replace(config, n_layer=min(FINETUNE_LORA_LAYERS, config.n_layer))
@@ -5854,85 +5951,85 @@ def interop_phase(seed, work, save_path, context, config, device="cuda", rehears
     del model, adapters
     shutil.rmtree(lora_path)  # ~7 GB
 
-    # (a) the 32-layer checkpoint unsharded, held to the checkpoint
-    target_dir = os.path.join(work, "granite-hf")
-    state_path = os.path.join(save_path, f"global_step{PRETRAIN_STEPS}", "state")
-    need, free = 1.1 * _model_bytes(state_path), shutil.disk_usage(work).free
-    if free < need:
-        raise RuntimeError(f"{work} has {free / 1e9:.1f} GB free; unsharding needs about {need / 1e9:.1f} GB: point TMPDIR at a larger disk")
+    # (a) the 2-layer checkpoint unsharded, held to the checkpoint
+    small_dir = os.path.join(work, "granite-2-hf")
+    small_path, small_config = os.path.join(work, "unbroken"), dataclasses.replace(config, n_layer=RESUME_LAYERS)
+    state_path = os.path.join(small_path, f"global_step{RESUME_STEPS}", "state")
     _free(device)
     t0 = time.perf_counter()
-    summary, unsharded = _unshard(unshard_args(save_path, PRETRAIN_STEPS, target_dir), device)
+    summary, unsharded = _unshard(unshard_args(small_path, RESUME_STEPS, small_dir), device)
     unshard_s = time.perf_counter() - t0
-    want = directory_weights(state_path, config, device, unsharded.model.state_dict())
+    want = directory_weights(state_path, small_config, device, unsharded.model.state_dict())
     nbytes = sum(t.numel() * t.element_size() for t in want.values())
-    files = SafeTensorsWeightsManager(target_dir)
+    files = SafeTensorsWeightsManager(small_dir)
     assert sorted(files) == sorted(want), (sorted(files), sorted(want))
-    with open(os.path.join(target_dir, "config.json")) as f:
-        assert CommonConfig.from_dict(json.load(f)) == config
+    with open(os.path.join(small_dir, "config.json")) as f:
+        assert CommonConfig.from_dict(json.load(f)) == small_config
     record["unshard"] = {
-        "n_layer": config.n_layer, "tensors": len(want), "gb": nbytes / 1e9, "dtypes": sorted({str(t.dtype) for t in want.values()}),
-        "files": sorted(os.listdir(target_dir)), "seconds": unshard_s, "load_s": summary["seconds"]["load"],
+        "n_layer": small_config.n_layer, "tensors": len(want), "gb": nbytes / 1e9, "dtypes": sorted({str(t.dtype) for t in want.values()}),
+        "files": sorted(os.listdir(small_dir)), "seconds": unshard_s, "load_s": summary["seconds"]["load"],
         "load_parts": summary["load_seconds"], "save_s": summary["seconds"]["save"],
         "read_gb_per_s": nbytes / 1e9 / summary["seconds"]["load"], "write_gb_per_s": nbytes / 1e9 / summary["seconds"]["save"],
         "check": "every tensor of the directory held bit for bit to the weights the unshard read, as (b)'s load reads it",
     }
 
-    # (b) generation from the directory, no load_args: phase 13's greedy tokens; each tensor
-    # its load reads is (a)'s check
-    args = generation_args(None, greedy_dir, os.path.join(work, "name-greedy"), True, greedy_new, model_name=target_dir)
+    def small_launches(summary):
+        return [_engine_launches(summary["stats"], small_config, True, 0)]
+
+    # (b) generation from the directory, no load_args: the tokens of generation from the
+    # checkpoint itself; each tensor its load reads is (a)'s check
+    args = generation_args(small_path, greedy_dir, os.path.join(work, "checkpoint-greedy"), True, greedy_new, iteration=RESUME_STEPS)
+    _, reference, _ = run("checkpoint_generate", args, small_launches)
+    args = generation_args(None, greedy_dir, os.path.join(work, "name-greedy"), True, greedy_new, model_name=small_dir)
     with _reads_held_to(want) as seen:
-        summary, tokens, target = run("model_name_generate", args, target_launches)
+        summary, tokens, target = run("model_name_generate", args, small_launches)
     assert seen == set(want), sorted(set(want) - seen)
     record["unshard"]["bit_identical_to_checkpoint"] = True
     del want, unsharded
     record["model_name_generate"].update(
         load_gb_per_s=nbytes / 1e9 / summary["seconds"]["load"],
-        requests_identical_to_phase_13=sum(a == b for a, b in zip(tokens, context["greedy_paged"])),
+        requests_identical_to_checkpoint_run=sum(a == b for a, b in zip(tokens, reference)),
     )
-    assert tokens == context["greedy_paged"], record["model_name_generate"]
+    assert tokens == reference, record["model_name_generate"]
 
-    # (c) the 2-layer checkpoint: unsharded, exported and imported back
+    # (c) the directory held to the checkpoint read anew, exported and imported back
     t0 = time.perf_counter()
-    draft_dir = os.path.join(work, "granite-2-hf")
-    _unshard(unshard_args(os.path.join(work, "unbroken"), RESUME_STEPS, draft_dir), device)
-    draft_config = dataclasses.replace(config, n_layer=RESUME_LAYERS)
     check = {"n_layer": RESUME_LAYERS}
-    check["tensors"], check["gb"] = checkpoint_matches_directory(os.path.join(work, "unbroken", f"global_step{RESUME_STEPS}", "state"), draft_dir, draft_config, device)
+    check["tensors"], check["gb"] = checkpoint_matches_directory(state_path, small_dir, small_config, device)
     check["gb"] /= 1e9
     for model_type in INTEROP_EXPORTS:
         exported, back = os.path.join(work, f"granite-2-{model_type}"), os.path.join(work, f"granite-2-{model_type}-back")
-        export_to_huggingface(draft_dir, exported, model_type=model_type)
+        export_to_huggingface(small_dir, exported, model_type=model_type)
         import_from_huggingface(exported, back)
         with open(os.path.join(exported, "config.json")) as f:
             assert json.load(f)["model_type"] == model_type
-        assert SafeTensorsWeightsManager(back) == SafeTensorsWeightsManager(draft_dir), model_type
+        assert SafeTensorsWeightsManager(back) == SafeTensorsWeightsManager(small_dir), model_type
         check[model_type] = {"round_trip_bit_identical": True, "hf_tensors": len(SafeTensorsWeightsManager(exported))}
         shutil.rmtree(exported), shutil.rmtree(back)
     check["seconds"] = time.perf_counter() - t0
     record["export_import"] = check
 
-    # (d) (c)'s directory drafting by name for the 32-layer directory
-    args = generation_args(None, greedy_dir, os.path.join(work, "draft-greedy"), True, greedy_new, model_name=target_dir, draft_model=draft_dir, draft_k=SPEC_K)
+    # (d) the directory drafting by name for itself
+    args = generation_args(None, greedy_dir, os.path.join(work, "draft-greedy"), True, greedy_new, model_name=small_dir, draft_model=small_dir, draft_k=SPEC_K)
     multiple = args.generation_parameters.prompt_bucket_multiple
 
     def drafted_launches(summary):
         stats, max_len = summary["stats"], summary["pool"]["max_len"]
         forwards = GREEDY_PROMPTS + SPEC_K * stats.decode_steps
         buckets = _buckets([len(p) for p in prompts], multiple, max_len + SPEC_K)
-        return target_launches(summary) + [_draft_launches(draft_config, buckets, forwards, flash=False)]
+        return small_launches(summary) + [_draft_launches(small_config, buckets, forwards, flash=False)]
 
     summary, drafted, _ = run("draft_model_generate", args, drafted_launches)
     bound = 2 * sum(context["logits_max_abs_err"].values())
     record["draft_model_generate"].update(
-        draft_n_layer=RESUME_LAYERS, draft_dtype="float32", accept_rate=summary["stats"].accept_rate(),
+        n_layer=RESUME_LAYERS, draft_n_layer=RESUME_LAYERS, draft_dtype="float32", accept_rate=summary["stats"].accept_rate(),
         requests_identical_to_plain=sum(a == b for a, b in zip(drafted, tokens)),
         parted_from_plain=greedy_divergences(target.model, prompts, drafted, tokens, bound, target.eos_token_id),
         near_tie_bound=bound,
     )
     assert summary["stats"].draft_tokens_proposed > 0, record["draft_model_generate"]
     del target
-    shutil.rmtree(target_dir), shutil.rmtree(draft_dir)
+    shutil.rmtree(small_dir)
     record.update(tally.check(on_card))
     _free(device)
 
@@ -6459,7 +6556,8 @@ SEQ2SEQ_YAML = os.path.join("configs", "instruction-tuning", "finetune-seq2seq.y
 SEQ2SEQ_STEPS = 3
 SEQ2SEQ_EXAMPLES = {"train": 24, "val": 8}  # 3 steps of the YAML's micro-batch 8; one val batch
 SEQ2SEQ_GENERATE = (16, 64)  # greedy prompts, new tokens
-SEQ2SEQ_CHECK_LAYERS = 2  # the card's greedy run held to the CPU's at this depth
+SEQ2SEQ_CHECK_LAYERS = 1  # the card's greedy run held to the CPU's at this depth (the script's time limit)
+SEQ2SEQ_CHECK_PROMPTS = 4  # and over the first 4 of the 16 prompts (the CPU's time)
 # (b)'s target budget: 511 words + EOS, a decoder length of 512 (the YAML's 512 stops at 511)
 SEQ2SEQ_FLASH_OUTPUT_TOKENS = 513
 # (input, output) words of each split: (a) ragged; (b)'s training targets reach the YAML's
@@ -6618,7 +6716,7 @@ def seq2seq_generation_check(args, device, layers=SEQ2SEQ_CHECK_LAYERS):
     tokenizer = wrapper.tokenizer
     del wrapper
     datasets, _ = get_datasets_list(args.datasets, DatasetSplit.test, Mode.inference, tokenizer, is_encoder_decoder=True)
-    rows = [datasets[0][i] for i in range(SEQ2SEQ_GENERATE[0])]
+    rows = [datasets[0][i] for i in range(min(SEQ2SEQ_CHECK_PROMPTS, SEQ2SEQ_GENERATE[0]))]
     eos = config.eos_token_id
     batch = _pad_to_static_shapes(
         collate_fn(rows, Mode.inference, None, eos, True, False), len(rows), eos, args.generation_parameters.prompt_bucket_multiple
@@ -6816,14 +6914,15 @@ def seq2seq_phase(seed, device="cuda", rehearsal=None, work=None):
 
 # phase 22: the cross-layer, dense-MoE and DeltaNet-hybrid families at granite-3b-code's
 # width (`families_phase`). (a) CLA2 serving at all 32 layers; (b) `pretrain.main` for the
-# three families, 3 steps of 1 x [2, 4096] with remat of every block (the hybrid at all 32
-# layers, the other two at 8 for the script's time); (c) the hybrid's generation and its
+# three families, 3 steps of 1 x [2, 4096] with remat of every block (the hybrid at 16 of 32
+# layers, the other two at 8, for the script's time); (c) the hybrid's generation and its
 # card / CPU check; (d) dense_moe serving at 8 layers, dense and top-2
-FAMILIES_TRAIN_LAYERS = {"gpt_crosslayer": 8, "dense_moe": 8, "rnn_dolomite": 32}
+FAMILIES_TRAIN_LAYERS = {"gpt_crosslayer": 8, "dense_moe": 8, "rnn_dolomite": 8}
+FAMILIES_CLA2_SERVE_LAYERS = 16  # (a): CLA2 serving at 16 of the 32 layers (the script's time limit)
 FAMILIES_STEPS, FAMILIES_MICRO, FAMILIES_DOCUMENTS = 3, 2, 1000
 FAMILIES_EXPERTS = 8  # dense_moe: 8 experts of n_inner / 8, so the wide MLP is granite's
 FAMILIES_RNN_PATTERN = "ddda"  # repeated over the layers (tools/bench_sweep.py's default)
-FAMILIES_MOE_SERVE_LAYERS = 8
+FAMILIES_MOE_SERVE_LAYERS = 4
 FAMILIES_MOE_TOP_K = {"top_k": 2}
 FAMILIES_MOE_CHECK = {"layers": 2, "tokens": 256, "ratio": 4.0}  # (d)'s top-k check
 FAMILIES_IDENTITY_PROMPT = 512  # (a)'s identity-conversion check: teacher-forced tokens
@@ -7268,10 +7367,11 @@ def families_phase(seed, device="cuda", rehearsal=None, work=None):
     record = {}
     specs = serving_specs(seed, widths["vocab_size"])
 
-    # (a) CLA2 serving at all 32 layers, and the identity conversion's check
+    # (a) CLA2 serving at `FAMILIES_CLA2_SERVE_LAYERS` layers, and the identity conversion's check
     t0 = time.perf_counter()
     _free(device)
-    dense = GPTDolomiteForCausalLM(config_from_dict(widths), dtype=torch.bfloat16, device=device, seed=seed)
+    serve_widths = dict(widths, n_layer=min(widths["n_layer"], FAMILIES_CLA2_SERVE_LAYERS))
+    dense = GPTDolomiteForCausalLM(config_from_dict(serve_widths), dtype=torch.bfloat16, device=device, seed=seed)
     cla2 = convert_gpt_dolomite_to_gpt_crosslayer(dense, cla2_pattern(dense.config.n_layer)).eval()
     identity = crosslayer_identity_check(dense, seed, (rehearsal or {}).get("identity_prompt", FAMILIES_IDENTITY_PROMPT))
     dense_bytes = bf16_kv_bytes(dense.config)
@@ -7470,14 +7570,17 @@ def main() -> int:
     load_library()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
 
-    cases = (
-        kernel_cases(args.seed) + quant_kernel_cases(args.seed) + paged_write_kernel_cases(args.seed)
-        + training_kernel_cases(args.seed) + moe_kernel_cases(args.seed) + alibi_kernel_cases(args.seed)
-        + generation_kernel_cases(args.seed) + finetune_kernel_cases(args.seed)
-    )
-    print(json.dumps({"kernel_cases": cases, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
+    cases, case_seconds = [], {}
+    for group in (
+        kernel_cases, quant_kernel_cases, paged_write_kernel_cases, training_kernel_cases, moe_kernel_cases,
+        alibi_kernel_cases, generation_kernel_cases, finetune_kernel_cases,
+    ):
+        t0 = time.perf_counter()
+        cases += group(args.seed)
+        case_seconds[group.__name__] = time.perf_counter() - t0
+    print(json.dumps({"kernel_cases": cases, "case_seconds": case_seconds, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
 
-    serving, serving_launches, model, specs, tokens = serve(args.seed)
+    serving, serving_launches, model, specs, tokens = serve(args.seed, dict(GRANITE_3B_CODE, n_layer=SERVE_LAYERS))
     serving["launches_per_forward"] = launches_per_forward(model)
     print(json.dumps({"serving": serving, "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
     print(json.dumps({"profile": profile_serving(model, specs), "card": card, "elapsed_s": time.perf_counter() - started}), flush=True)
